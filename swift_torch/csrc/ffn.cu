@@ -1,0 +1,127 @@
+// SwiGLU feed-forward on Hopper: y = (silu(x . Wg^T) * (x . Wu^T)) . W2^T.
+//
+// Replaces swift_tpu/ops/pallas_ffn.py::_ffn_call (kernel body
+// _ffn_kernel). At the flagship (D=1056, H=2816) this is two thirds of the
+// block's FLOPs, and left to separate GEMMs it would write and re-read a
+// (T, 2*2816) gate/up intermediate -- 11 KB a token, more than the rest of
+// the block moves. Bound: the tensor cores, once that intermediate stays on
+// chip. Design: a block owns 32 token rows and walks the hidden dimension in
+// chunks of 64. For each chunk it computes gate and up (fp32 accumulation,
+// one 32 x 128 WMMA tile whose rows of W1 are gathered from the gate and up
+// halves of the (2H, D) weight), forms h = silu(g) * u, rounds h to bf16 in
+// shared memory, and adds h . W2[:, chunk]^T into a 32 x D fp32 accumulator
+// that lives in shared memory (135 KB at D=1056). Nothing of width H ever
+// reaches device memory; the output is written once, in bf16.
+#include "tile_mma.cuh"
+
+namespace swift {
+
+constexpr int kFfnBM = 32, kFfnHC = 64, kFfnBK = 32, kFfnBN2 = 128;
+using GateUpMma = TileMma<kFfnBM, 2 * kFfnHC, kFfnBK, 2, 4>;
+constexpr int kStageLD = 2 * kFfnHC + 4;  // fp32 gate|up tile
+constexpr int kHLD = kFfnHC + 8;          // bf16 h tile
+constexpr int kW2LD = kFfnHC + 8;         // bf16 W2 tile [128 out][64 hidden]
+constexpr int kW2Tile = kFfnBN2 * kW2LD;
+constexpr int kTileBytes =
+    GateUpMma::SMEM > 2 * kW2Tile * 2 ? GateUpMma::SMEM : 2 * kW2Tile * 2;
+
+__host__ __device__ constexpr int ffn_smem(int D) {
+  return kFfnBM * (D + 4) * 4 + kTileBytes + kFfnBM * kStageLD * 4 + kFfnBM * kHLD * 2;
+}
+
+__global__ void __launch_bounds__(GateUpMma::NT)
+    ffn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W1,
+               const bf16* __restrict__ W2, bf16* __restrict__ Y, int M, int D, int H) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NT = GateUpMma::NT;
+  const int lda = D + 4;
+  float* accS = reinterpret_cast<float*>(smem_raw);
+  unsigned char* p = smem_raw + kFfnBM * lda * 4;
+  // the gate/up main-loop tiles and the W2 tiles are used in turn: one buffer
+  bf16* tiles = reinterpret_cast<bf16*>(p);
+  float* stage = reinterpret_cast<float*>(p + kTileBytes);
+  bf16* hS = reinterpret_cast<bf16*>(p + kTileBytes + kFfnBM * kStageLD * 4);
+
+  const int tid = threadIdx.x, warp = tid / 32, wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.x * kFfnBM;
+  for (int i = tid; i < kFfnBM * lda; i += NT) accS[i] = 0.0f;
+
+  const int n_out_tiles = (D + kFfnBN2 - 1) / kFfnBN2;
+  for (int c0 = 0; c0 < H; c0 += kFfnHC) {
+    // gate (tile rows 0..63) and up (rows 64..127) for hidden units c0..c0+63
+    GateUpMma::Acc acc[GateUpMma::FM][GateUpMma::FN];
+    GateUpMma::run(
+        acc, tiles, X, D, [=](int r) { return m0 + r < M ? m0 + r : -1; }, W1, D,
+        [=](int r) {
+          const int j = c0 + (r < kFfnHC ? r : r - kFfnHC);
+          return j < H ? (r < kFfnHC ? j : H + j) : -1;
+        },
+        D);
+#pragma unroll
+    for (int j = 0; j < GateUpMma::FN; ++j)
+      wmma::store_matrix_sync(stage + (wm * 16) * kStageLD + wn * GateUpMma::FN * 16 + j * 16,
+                              acc[0][j], kStageLD, wmma::mem_row_major);
+    __syncthreads();
+    for (int e = tid; e < kFfnBM * kFfnHC; e += NT) {
+      const int r = e / kFfnHC, c = e % kFfnHC;
+      const float gt = stage[r * kStageLD + c], up = stage[r * kStageLD + kFfnHC + c];
+      hS[r * kHLD + c] = __float2bfloat16_rn(gt / (1.0f + expf(-gt)) * up);
+    }
+    __syncthreads();
+
+    // accS[:, n0:n0+128] += h . W2[n0:n0+128, c0:c0+64]^T, W2 tiles double-buffered
+    bf16* w2s[2] = {tiles, tiles + kW2Tile};
+    auto load_w2 = [&](bf16* dst, int n0) {
+      load_tile<kFfnBN2, kFfnHC, kW2LD, NT>(
+          dst, W2, H, [=](int r) { return n0 + r < D ? n0 + r : -1; }, c0, H, tid);
+    };
+    load_w2(w2s[0], 0);
+    cp_async_commit();
+    for (int t = 0; t < n_out_tiles; ++t) {
+      if (t + 1 < n_out_tiles) load_w2(w2s[(t + 1) & 1], (t + 1) * kFfnBN2);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const bf16* ws = w2s[t & 1];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = t * kFfnBN2 + wn * 32 + j * 16;
+        if (col >= D) continue;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+        float* cp = accS + (wm * 16) * lda + col;
+        wmma::load_matrix_sync(c, cp, lda, wmma::mem_row_major);
+#pragma unroll
+        for (int kk = 0; kk < kFfnHC; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
+          wmma::load_matrix_sync(a, hS + (wm * 16) * kHLD + kk, kHLD);
+          wmma::load_matrix_sync(bw, ws + (wn * 32 + j * 16) * kW2LD + kk, kW2LD);
+          wmma::mma_sync(c, a, bw, c);
+        }
+        wmma::store_matrix_sync(cp, c, lda, wmma::mem_row_major);
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int c = tid; c < kFfnBM * (D / 8); c += NT) {
+    const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
+    if (m0 + r < M)
+      *reinterpret_cast<uint4*>(Y + (size_t)(m0 + r) * D + cc) = pack8(accS + r * lda + cc);
+  }
+}
+
+}  // namespace swift
+
+using namespace swift;
+
+extern "C" int swift_ffn_smem(int D) { return ffn_smem(D); }
+
+extern "C" int swift_ffn(const void* x, const void* w1, const void* w2, void* y, int M, int D,
+                         int H, void* stream) {
+  const int smem = ffn_smem(D);
+  cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ffn_kernel<<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, M, D, H);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,205 @@
+"""Ensemble forecast CLI of the port: ``python -m swift_torch.generate
+--input <run_dir> --members 12 --steps 60 ...``.
+
+Same flags and the same WB2-layout zarr (or numpy) store as
+``swift_tpu.generate``. ``main`` reads the run's saved config and data and
+the checkpoint's EMA weights (JAX npz layout); :func:`rollout_to_store`
+takes an already built dataset and network and needs neither yaml nor h5py.
+The network runs on the GPU when there is one, else on the CPU. Not ported
+yet: ``--pp``, ``--int8`` and the solvers other than ``scm``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from swift_torch import factory
+from swift_torch.sampling.ensemble import EnsembleRollout
+from swift_torch.sampling.factory import sampler_factory
+from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
+from swift_torch.utils.log import log0
+from swift_tpu.data.constants import compress_variables
+from swift_tpu.data.samplers import AttributeSubset
+from swift_tpu.utils import zarr_lite
+from swift_tpu.utils.io import create_empty_numpy, create_forecast_zarr
+
+parser = argparse.ArgumentParser()
+parser.add_argument("--input", type=str, required=True, help="Input (run) directory")
+parser.add_argument("--checkpoint", type=str, default=None,
+                    help="Checkpoint name (default: latest)")
+parser.add_argument("--members", type=int, default=1, help="Number of ensemble members")
+parser.add_argument("--steps", type=int, default=8, help="Number of prediction steps")
+parser.add_argument("--batch", type=int, default=32, help="IC batch size")
+parser.add_argument("--samples", type=int, default=-1, help="Number of samples to use")
+parser.add_argument("--interval", type=int, default=6, choices=[6, 12, 24],
+                    help="Interval in hours")
+parser.add_argument("--dump", type=str, default="zarr", choices=["zarr", "numpy"],
+                    help="Output format")
+parser.add_argument("--segment", type=int, default=10,
+                    help="Rollout steps per segment (device buffer bound)")
+parser.add_argument("--solver", type=str, default="scm", choices=["scm"])
+parser.add_argument("--num-solver-steps", type=int, default=1)
+parser.add_argument("--seed", type=int, default=0)
+parser.add_argument("--output", type=str, default=None,
+                    help="Output directory (default: <input>/output/<checkpoint>/)")
+
+
+def build_store(args, dataset, indices, odir, filename):
+    """(ofile, write_fn(ic_start, member, lead_start, chunk), finalize)."""
+    if args.dump == "numpy":
+        ofile = os.path.join(odir, f"{filename}.npy")
+        create_empty_numpy(ofile, dataset, args.members, args.steps)
+        store = np.lib.format.open_memmap(ofile, mode="r+")
+
+        def write_fn(ic_start, m, lead_start, chunk):
+            # chunk (B, S, H, W, C) -> store (n, M, steps+1, C, H, W)
+            b, s = chunk.shape[0], chunk.shape[1]
+            store[ic_start:ic_start + b, m, lead_start:lead_start + s] = (
+                chunk.transpose(0, 1, 4, 2, 3))
+
+        return ofile, write_fn, store.flush
+
+    ofile = os.path.join(odir, f"{filename}.zarr")
+    create_forecast_zarr(ofile, dataset, args.members, args.steps, interval=args.interval,
+                         batch=args.batch, indices=indices)
+    group = zarr_lite.open_group(ofile)
+    var_slices = {}
+    counter = 0
+    for var, levels in compress_variables(dataset.variables).items():
+        n = max(len(levels), 1)
+        var_slices[var] = (counter, counter + n, bool(levels))
+        counter += n
+
+    def write_fn(ic_start, m, lead_start, chunk):
+        b, s = chunk.shape[0], chunk.shape[1]
+        for var, (lo, hi, has_levels) in var_slices.items():
+            sel = (slice(ic_start, ic_start + b), m, slice(lead_start, lead_start + s))
+            if has_levels:  # (B, S, H, W, L) -> (B, S, L, H, W)
+                group[var][sel] = chunk[..., lo:hi].transpose(0, 1, 4, 2, 3)
+            else:
+                group[var][sel] = chunk[..., lo]
+
+    return ofile, write_fn, group.consolidate_metadata
+
+
+def read_store(ofile: str) -> dict[str, np.ndarray]:
+    """The forecast fields of a zarr store that :func:`build_store` made, by
+    variable: (ic, member, lead, [level], H, W); coordinates are left out."""
+    group = zarr_lite.open_group(ofile, mode="r")
+    return {name: np.asarray(group[name]) for name in group.array_names()
+            if len(group[name].shape) >= 5}
+
+
+def select_indices(n: int, samples: int, steps: int, interval: int) -> list[int]:
+    """Evenly spaced initial conditions (all of them for samples == -1)."""
+    if samples == -1:
+        return list(range(n))
+    return np.linspace(0, n - 1 - (steps * interval // 6), num=samples, dtype=int).tolist()
+
+
+def rollout_to_store(args, dataset, net, odir: str):
+    """Roll the ensemble out over the dataset's test ICs into a store.
+
+    ``dataset`` has the ``ERA5Dataset`` interface; ``net`` is a built
+    precond with weights, on its device. Returns (store path, rollout
+    seconds, forecast steps)."""
+    device = next(net.parameters()).device
+    indices = select_indices(len(dataset), args.samples, args.steps, args.interval)
+    subset = AttributeSubset(dataset, indices)
+    filename = f"output-{len(subset)}i-{args.steps}s-{args.members}m-{args.interval}h"
+    log0(f"{len(subset)} initials for {args.steps} steps over {args.members} members")
+    ofile, write_fn, finalize = build_store(args, subset, indices, odir, filename)
+
+    sampler = sampler_factory(args.solver, net, num_steps=args.num_solver_steps,
+                              sigma_min=0.02, sigma_max=200.0, auxiliary=args.interval / 10.0)
+    engine = EnsembleRollout(sampler, dataset, args.members, args.steps,
+                             interval=args.interval, segment=args.segment,
+                             base_seed=args.seed, device=device)
+
+    def state(i):
+        return dataset.standardize_x(dataset._load_file(dataset.files[i], dataset.variables),
+                                     args.interval)
+
+    def forcing(i, s):
+        j = min(int(i) + int(s * args.interval // 6), len(dataset.files) - 1)
+        return dataset.standardize_x(dataset.get_forcings(j), args.interval)
+
+    # host seconds spent staging inputs and writing the store, of the wall
+    host = {"staging": 0.0, "store": 0.0}
+
+    def timed_write(*chunk_args):
+        t0 = time.perf_counter()
+        write_fn(*chunk_args)
+        host["store"] += time.perf_counter() - t0
+
+    log0("Rolling out samples...")
+    start = time.perf_counter()
+    for b0 in range(0, len(subset), args.batch):
+        t0 = time.perf_counter()
+        batch_idx = indices[b0:b0 + args.batch]
+        X0 = np.stack([state(i) for i in batch_idx]).astype(np.float32)
+        forcings = None
+        if dataset.forcings:
+            forcings = np.stack([
+                np.stack([forcing(i, s) for s in range(args.steps)]) for i in batch_idx
+            ]).astype(np.float32)
+        host["staging"] += time.perf_counter() - t0
+        engine.run(X0, forcings, b0, timed_write)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - start
+    finalize()
+    n_steps = len(subset) * args.members * args.steps
+    log0(f"Done! Took {wall:.3f} seconds ({n_steps} forecast steps, "
+         f"{n_steps / wall:.2f} steps/sec on {device}; input staging "
+         f"{host['staging']:.3f} s, store writes {host['store']:.3f} s).")
+    log0(f"Output saved to: {ofile}")
+    return ofile, wall, n_steps
+
+
+def main(args):
+    from swift_tpu import config as cfglib  # needs yaml
+
+    cfg = cfglib.resolve_interpolations(
+        cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
+    log0("Loading dataset...")
+    dataset = factory.build_dataset(cfg["data"], split="test")
+
+    log0("Constructing network...")
+    net = factory.build_precond(
+        cfg["precond"], cfg["model"], dataset.img_resolution, dataset.n_target_channels,
+        dataset.n_condition_channels, sigma_max_override=float("inf"),
+    )
+    if args.checkpoint is not None:
+        name = args.checkpoint if args.checkpoint.endswith(".npz") else args.checkpoint + ".npz"
+        ckpt = name if os.path.exists(name) else os.path.join(args.input, "checkpoints", name)
+        if not os.path.exists(ckpt):
+            raise ValueError(f"Specified checkpoint {ckpt} does not exist")
+        ckpt_basename = os.path.splitext(os.path.basename(ckpt))[0]
+    else:
+        ckpt = latest_checkpoint(os.path.join(args.input, "checkpoints"))
+        if not ckpt:
+            raise ValueError(f"No checkpoints in {os.path.join(args.input, 'checkpoints')}")
+        ckpt_basename = "latest"
+    log0(f"Loading checkpoint: {ckpt}")
+    net.load_state_dict(load_checkpoint(ckpt))
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    net = net.to(device).eval()
+
+    odir = args.output or os.path.join(args.input, "output", ckpt_basename)
+    os.makedirs(odir, exist_ok=True)
+    ofile, _, _ = rollout_to_store(args, dataset, net, odir)
+    return ofile
+
+
+def cli(argv=None):
+    return main(parser.parse_args(argv))
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,0 +1,166 @@
+"""Post-norm AdaLN epilogues with the residual add (kernels 3 and 4).
+
+``residual + (LN(y)·g + b)·(1 + scale_b) + shift_b`` with fp32 statistics,
+the variance taken as E[y²] − μ² as the TPU kernels take it, and the AdaLN
+row ``b`` picked per sample.
+
+* :func:`fused_matmul_modnorm_residual` computes y = x·wo.T inside the
+  kernel. CUDA: ``csrc/gemm.cu::swift_mm_modnorm``, replacing
+  ``swift_tpu/ops/pallas_modnorm.py::_mm_mn_call``.
+* :func:`fused_modnorm_residual` takes y ready-made (after the FFN).
+  Triton: :func:`_modnorm_kernel`, replacing
+  ``swift_tpu/ops/pallas_modnorm.py::_call``. It does about ten FLOPs for
+  the six bytes it moves per element, far below the ~295 FLOP/byte at which
+  the H100 stops being memory-bound, so device memory bounds it; one
+  program normalises a block of rows held whole in registers (a masked
+  2048-wide block covers D=1056), reading y and the residual once and
+  writing once.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import torch
+
+from swift_torch.ops import _build
+
+
+def reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
+    """Plain version. y, residual: (B, ..., D); g, b: (D,); mod_scale,
+    mod_shift: (B, D). fp32 math; returns residual.dtype."""
+    yf = y.float()
+    mu = yf.mean(-1, keepdim=True)
+    var = (yf * yf).mean(-1, keepdim=True) - mu * mu
+    ln = (yf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+    shape = (mod_scale.shape[0],) + (1,) * (y.ndim - 2) + (-1,)
+    out = ln * (1.0 + mod_scale.float().reshape(shape)) + mod_shift.float().reshape(shape)
+    return (out + residual.float()).to(residual.dtype)
+
+
+def reference_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps=1e-6):
+    """Plain version of kernel 3: y = x·w.T accumulated in fp32 and kept in
+    fp32 (the kernel never rounds it) before the epilogue."""
+    y = torch.matmul(x.float(), w.float().t())
+    return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+
+
+def _check_epilogue(name, residual, g, b, mod_scale, mod_shift):
+    B, D = residual.shape[0], residual.shape[-1]
+    _build.check_dtype(name, torch.bfloat16, residual=residual, mod_scale=mod_scale,
+                       mod_shift=mod_shift)
+    _build.check_dtype(name, torch.float32, g=g, b=b)
+    if g.shape != (D,) or b.shape != (D,):
+        raise ValueError(f"{name}: g and b must be ({D},)")
+    if mod_scale.shape != (B, D) or mod_shift.shape != (B, D):
+        raise ValueError(f"{name}: mod_scale and mod_shift must be ({B}, {D})")
+    if D % 16:
+        raise ValueError(f"{name}: D={D} must be a multiple of 16")
+
+
+def fused_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps=1e-6):
+    """``residual + modnorm(x @ w.T)``. x: (B, ..., K); w: (D, K), the torch
+    ``nn.Linear`` layout; residual: (B, ..., D). Returns residual.dtype.
+
+    CPU tensors take :func:`reference_matmul_modnorm_residual`; CUDA tensors
+    must be bf16 (g, b fp32) with K % 8 == 0 and D % 16 == 0."""
+    if _build.on_cpu(x, w, residual, g, b, mod_scale, mod_shift):
+        return reference_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps)
+    name = "fused_matmul_modnorm_residual"
+    _build.check_kernel_inputs(name, x=x, w=w, residual=residual, g=g, b=b,
+                               mod_scale=mod_scale, mod_shift=mod_shift)
+    _build.check_dtype(name, torch.bfloat16, x=x, w=w)
+    _check_epilogue(name, residual, g, b, mod_scale, mod_shift)
+    K, D = x.shape[-1], residual.shape[-1]
+    if w.shape != (D, K) or K % 8:
+        raise ValueError(f"{name}: w must be ({D}, {K}) with K % 8 == 0, got {tuple(w.shape)}")
+    if x.shape[:-1] != residual.shape[:-1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and residual {tuple(residual.shape)} differ")
+    lib = _build.library()
+    if lib.swift_mm_modnorm_smem(D) > lib.swift_max_smem():
+        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
+    M = x.numel() // K
+    out = torch.empty_like(residual)
+    _build.check_launch(
+        lib.swift_mm_modnorm(
+            x.data_ptr(), w.data_ptr(), residual.data_ptr(), g.data_ptr(), b.data_ptr(),
+            mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
+            M, K, D, M // residual.shape[0], float(eps), _build.stream(),
+        ),
+        name,
+    )
+    fused_matmul_modnorm_residual.launches += 1
+    return out
+
+
+fused_matmul_modnorm_residual.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _modnorm_kernel():
+    """The Triton kernel, built on first launch (triton is imported here so
+    that the module imports where triton is absent). Triton's compile cache
+    goes beside the CUDA build unless TRITON_CACHE_DIR says otherwise."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def kernel(y_ptr, r_ptr, g_ptr, b_ptr, ms_ptr, mb_ptr, o_ptr, T, D, tps, eps,
+               ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
+        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
+        cols = tl.arange(0, BLOCK_D)
+        cmask = cols < D
+        mask = (rows < T)[:, None] & cmask[None, :]
+        offs = rows[:, None] * D + cols[None, :]
+        y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        mu = tl.sum(y, axis=1) / D
+        var = tl.sum(y * y, axis=1) / D - mu * mu
+        yn = (y - mu[:, None]) * tl.math.rsqrt(var + eps)[:, None]
+        g = tl.load(g_ptr + cols, mask=cmask, other=0.0)
+        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
+        ln = yn * g[None, :] + b[None, :]
+        moffs = (rows // tps)[:, None] * D + cols[None, :]
+        ms = tl.load(ms_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
+        mb = tl.load(mb_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
+        out = ln * (1.0 + ms) + mb
+        out = out + tl.load(r_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        tl.store(o_ptr + offs, out.to(o_ptr.dtype.element_ty), mask=mask)
+
+    return kernel
+
+
+_ROWS = 4
+
+
+def fused_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
+    """``residual + (LN(y)·g + b)·(1 + mod_scale) + mod_shift``.
+    y, residual: (B, ..., D) ; g, b: (D,) ; mod_scale, mod_shift: (B, D).
+
+    CPU tensors take :func:`reference_modnorm_residual`; CUDA tensors must be
+    bf16 (g, b fp32) with D % 16 == 0 and D ≤ 2048."""
+    if _build.on_cpu(y, residual, g, b, mod_scale, mod_shift):
+        return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+    name = "fused_modnorm_residual"
+    _build.check_kernel_inputs(name, y=y, residual=residual, g=g, b=b,
+                               mod_scale=mod_scale, mod_shift=mod_shift)
+    _build.check_dtype(name, torch.bfloat16, y=y)
+    _check_epilogue(name, residual, g, b, mod_scale, mod_shift)
+    if y.shape != residual.shape:
+        raise ValueError(f"{name}: y {tuple(y.shape)} and residual {tuple(residual.shape)} differ")
+    D = y.shape[-1]
+    if D > 2048:
+        raise ValueError(f"{name}: D={D} exceeds the 2048-wide block")
+    T = y.numel() // D
+    out = torch.empty_like(residual)
+    grid = ((T + _ROWS - 1) // _ROWS,)
+    _modnorm_kernel()[grid](
+        y, residual, g, b, mod_scale, mod_shift, out, T, D, T // y.shape[0], float(eps),
+        ROWS=_ROWS, BLOCK_D=2048, num_warps=8,
+    )
+    fused_modnorm_residual.launches += 1
+    return out
+
+
+fused_modnorm_residual.launches = 0

@@ -1,0 +1,37 @@
+"""Sampler factory: ``sampler_factory(mode, net, **solver_kwargs)``.
+
+Counterpart of ``swift_tpu/sampling/factory.py``. The returned
+``sampler(X, generator, auxiliary=None, latents=None)`` draws fresh
+latents from the explicit ``torch.Generator`` (or takes ``latents``) and
+runs the solver conditioned on ``X`` (NHWC).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from swift_torch.sampling import solvers
+
+_SOLVERS = {"scm": solvers.scm_solver}
+
+
+def sampler_factory(mode: str, net, **solver_kwargs) -> Callable[..., torch.Tensor]:
+    if mode not in _SOLVERS:
+        raise ValueError(f"solver {mode!r} is not ported (available: {sorted(_SOLVERS)})")
+    solver = _SOLVERS[mode]
+    # auxiliary may come from config (interval Δ/10); a call-time value overrides
+    cfg_aux = solver_kwargs.pop("auxiliary", None)
+
+    def sampler(X: torch.Tensor, generator: Optional[torch.Generator] = None, auxiliary=None,
+                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        aux = auxiliary if auxiliary is not None else cfg_aux
+        if latents is None:
+            H, W = net.img_resolution
+            latents = torch.randn((X.shape[0], H, W, net.img_channels), generator=generator,
+                                  device=X.device)
+        return solver(net, latents, condition=X, auxiliary=aux, generator=generator,
+                      **solver_kwargs)
+
+    return sampler

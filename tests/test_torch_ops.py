@@ -1,0 +1,202 @@
+"""swift_torch.ops against the JAX package.
+
+Windows and embeddings against their jnp counterparts; the plain PyTorch
+version of each of the five kernels against its Pallas kernel, run in
+interpret mode on the CPU as the JAX package's own kernel tests run it. All
+in fp32 from numpy seeds. Tolerances: 1e-5 for elementwise and layout ops
+(fp32, equal op order); 2e-5 for the kernels (fp32 sums over up to a few
+hundred terms in different orders -- the bound the JAX package's kernel
+tests hold their kernels to). On CPU tensors a wrapper takes its plain
+version and counts no launch; anything else goes to the kernel or raises.
+The ``cuda``-marked test holds the kernels to their plain versions on the
+card and skips elsewhere.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import swift_tpu.ops.pallas_block_attention as pba
+import swift_tpu.ops.pallas_ffn as pffn
+import swift_tpu.ops.pallas_linear as plin
+import swift_tpu.ops.pallas_modnorm as pmn
+from swift_torch.ops import block_attention, embeddings, ffn, linear, modnorm, windows
+from swift_tpu.ops import embeddings as jembeddings
+from swift_tpu.ops import windows as jwindows
+
+TOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    """Force the Pallas interpreter off-TPU (as tests/test_pallas_*.py do)."""
+    if jax.default_backend() != "tpu":
+        orig = pl.pallas_call
+        for mod in (pba, pffn, plin, pmn):
+            monkeypatch.setattr(mod.pl, "pallas_call", functools.partial(orig, interpret=True))
+    yield
+
+
+def _rand(rng, shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("shift", [(0, 0), (2, 3), (-1, 5)])
+def test_windows_match_jax(shift):
+    x = _rand(np.random.default_rng(0), (2, 8, 12, 5))
+    for win in ((4, 4), (2, 6)):
+        want = jwindows.window_partition(jwindows.cyclic_shift(jnp.asarray(x), shift), win)
+        got = windows.window_partition(windows.cyclic_shift(_t(x), shift), win)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=0)
+        back = windows.window_reverse(got, win, (8, 12))
+        np.testing.assert_allclose(
+            back.numpy(), np.asarray(jwindows.window_reverse(want, win, (8, 12))), atol=0)
+
+
+@pytest.mark.parametrize("dim", [32, 33, 1056])
+def test_timestep_embedding_matches_jax(dim):
+    t = np.random.default_rng(1).uniform(0.0, 1.6, (5,)).astype(np.float32)
+    want = jembeddings.timestep_embedding(jnp.asarray(t), dim)
+    got = embeddings.timestep_embedding(_t(t), dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_linear_plain_matches_pallas():
+    rng = np.random.default_rng(2)
+    x, w = _rand(rng, (2, 8, 16, 48)), _rand(rng, (72, 48), 48 ** -0.5)  # w: (N, K)
+    want = plin.fused_linear(jnp.asarray(x), jnp.asarray(w.T))
+    got = linear.fused_linear(_t(x), _t(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shift", [(0, 0), (2, 8), (6, 12)])
+def test_block_attention_plain_matches_pallas(shift):
+    """(2, 8) and (6, 12) put windows across the grid's wrap-around."""
+    rng = np.random.default_rng(3)
+    heads, d = 3, 8
+    qkv = _rand(rng, (2, 8, 16, heads * 3 * d))
+    scale = np.exp(_rand(rng, (heads,), 0.1) + 1.0)
+    want = pba.fused_block_attention(jnp.asarray(qkv), jnp.asarray(scale), heads, (4, 8), shift)
+    got = block_attention.fused_block_attention(_t(qkv), _t(scale), heads, (4, 8), shift)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def _epilogue(rng, B, D):
+    return (1.0 + _rand(rng, (D,), 0.1), _rand(rng, (D,), 0.1),
+            _rand(rng, (B, D), 0.2), _rand(rng, (B, D), 0.2))
+
+
+def test_matmul_modnorm_plain_matches_pallas():
+    rng = np.random.default_rng(4)
+    B, N, F, D = 2, 64, 24, 48
+    x, w, r = _rand(rng, (B, N, F)), _rand(rng, (D, F), F ** -0.5), _rand(rng, (B, N, D))
+    ep = _epilogue(rng, B, D)
+    want = pmn.fused_matmul_modnorm_residual(jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(r),
+                                             *map(jnp.asarray, ep))
+    got = modnorm.fused_matmul_modnorm_residual(_t(x), _t(w), _t(r), *map(_t, ep))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_modnorm_plain_matches_pallas():
+    rng = np.random.default_rng(5)
+    B, N, D = 3, 64, 48
+    y, r = _rand(rng, (B, N, D), 2.0), _rand(rng, (B, N, D))
+    ep = _epilogue(rng, B, D)
+    want = pmn.fused_modnorm_residual(jnp.asarray(y), jnp.asarray(r), *map(jnp.asarray, ep))
+    got = modnorm.fused_modnorm_residual(_t(y), _t(r), *map(_t, ep))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_swiglu_ffn_plain_matches_pallas():
+    rng = np.random.default_rng(6)
+    D, H = 32, 40
+    x = _rand(rng, (256, D))
+    w1, w2 = _rand(rng, (2 * H, D), D ** -0.5), _rand(rng, (D, H), H ** -0.5)  # torch layout
+    want = pffn.fused_swiglu_ffn(jnp.asarray(x), jnp.asarray(w1.T), jnp.asarray(w2.T))
+    got = ffn.fused_swiglu_ffn(_t(x), _t(w1), _t(w2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+WRAPPERS = {
+    "linear": (linear.fused_linear, lambda d: (d(4, 16), d(8, 16))),
+    "block_attention": (block_attention.fused_block_attention,
+                        lambda d: (d(1, 16, 16, 3 * 16), d(1), 1, (16, 16))),
+    "matmul_modnorm": (modnorm.fused_matmul_modnorm_residual,
+                       lambda d: (d(1, 4, 16), d(16, 16), d(1, 4, 16), d(16), d(16),
+                                  d(1, 16), d(1, 16))),
+    "modnorm": (modnorm.fused_modnorm_residual,
+                lambda d: (d(1, 4, 16), d(1, 4, 16), d(16), d(16), d(1, 16), d(1, 16))),
+    "ffn": (ffn.fused_swiglu_ffn, lambda d: (d(4, 16), d(16, 16), d(16, 8))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrapper_device_routing(name):
+    """CPU tensors take the plain version and launch nothing; tensors on any
+    other device never do: they go to the kernel or raise."""
+    fn, args = WRAPPERS[name]
+    before = fn.launches
+    fn(*args(lambda *s: torch.randn(*s)))
+    assert fn.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args(lambda *s: torch.randn(*s, device="meta")))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """The chip smoke's kernel phase: all five kernels at the flagship's
+    shapes (12x88 and 8x128 heads, both window shifts), bf16, within 2e-2 of
+    max|plain| (bf16 rounding of the outputs and of p)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+
+    record = chip_smoke.phase_kernels()
+    assert sorted(record) == sorted(chip_smoke.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,d", [(1000, 40), (136, 24)])
+def test_kernels_match_plain_at_ragged_shapes(tokens, d):
+    """Edges the flagship never reaches: token counts that are not a
+    multiple of any tile, N and D that are not multiples of 128, head dims
+    padded to 64 and 32 in shared memory, a grid of several windows with a
+    wrap-around shift. bf16 on the card, within 2e-2 of max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(7)
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", dtype)
+
+    D, H, heads = 208, 264, 3
+    x, r = t((2, tokens // 2, D)), t((2, tokens // 2, D))
+    ep = (1.0 + t((D,), 0.1, torch.float32), t((D,), 0.1, torch.float32),
+          t((2, D), 0.2), t((2, D), 0.2))
+    qkv = t((2, 32, 48, heads * 3 * d))
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + 2.0)
+    cases = [
+        (linear.fused_linear, linear.reference_linear, (x, t((3 * 40, D), D ** -0.5))),
+        (modnorm.fused_matmul_modnorm_residual, modnorm.reference_matmul_modnorm_residual,
+         (t((2, tokens // 2, 40)), t((D, 40), 40 ** -0.5), r, *ep)),
+        (modnorm.fused_modnorm_residual, modnorm.reference_modnorm_residual, (x, r, *ep)),
+        (ffn.fused_swiglu_ffn, ffn.reference_swiglu_ffn,
+         (x, t((2 * H, D), D ** -0.5), t((D, H), H ** -0.5))),
+        (block_attention.fused_block_attention, block_attention.reference_block_attention,
+         (qkv, scale, heads, (16, 16), (8, 40))),
+    ]
+    for fused, plain, args in cases:
+        got, want = fused(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), (
+            fused.__name__, err)
