@@ -6,23 +6,36 @@ Phases, each printed as it finishes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``swift_torch/csrc`` with nvcc;
-3. kernels: each of the five kernels against its plain PyTorch version at
-   the flagship's shapes (B=2, 64x128 tokens, dim 1056, heads 12x88 and
-   8x128, window shift (0,0) and (8,8)), bf16 inputs from a numpy seed;
-   fails when max|kernel - plain| exceeds 2e-2 of max|plain|; prints both
-   times (CUDA events, median of 20 launches);
+3. kernels: each of the nine kernels (five forward, four for training)
+   against its plain PyTorch version at the flagship's shapes (B=2, 64x128
+   tokens, dim 1056, heads 12x88 and 8x128, window shift (0,0) and (8,8)),
+   bf16 inputs from a numpy seed; fails when max|kernel - plain| of any
+   output exceeds 2e-2 of max|plain|; prints both times (CUDA events,
+   median of 20 launches), the bound the card could reach from the shapes
+   and, for the qkv projection, ``F.linear``'s time;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
    out by ``swift_torch.generate.rollout_to_store`` over an in-memory
    synthetic dataset into a WB2-layout zarr store, in two segments of two
-   steps (the second computes while the first is written). Checks that every kernel
-   launched during the rollout, that the store is finite and not constant,
-   and that a depth-2 cut of the same network agrees with the plain
-   PyTorch path on the CPU. Prints forecast steps/s, end to end and for
-   the network's forward alone. Fails if any JAX module was loaded.
+   steps. Checks that every forward kernel launched during the rollout,
+   that the store is finite and not constant, and that a depth-2 cut of
+   the same network agrees with the plain PyTorch path on the CPU. Prints
+   forecast steps/s, end to end and for the network's forward alone;
+5. train: six full-width steps of ``era5-swinv2-1.4-trigflow`` (config
+   composed from the YAML tree, global batch 4, remat, AdamW, EMA) through
+   the port's ``Trainer`` over ``SyntheticERA5`` batches from its
+   ``BatchLoader``. Fails unless all nine kernels launched, loss and grad
+   norm stayed finite and every parameter moved; reloads the final
+   checkpoint's EMA into one forecast step; prints launches per step,
+   s/step, images/s and TFLOP/s against the bf16 peak, and one more step's
+   device time by kernel under ``torch.profiler``;
+6. gradient cut: a depth-2 cut of the trained network, loss and every
+   parameter's gradient through the kernels in bf16 against the fp32 plain
+   path on the CPU.
 
-The last lines are the per-kernel JSON record and the contract line
+Fails if any module of jax, flax, optax or swift_tpu was loaded. The last
+lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA, or
 when a build, launch or check fails, the script raises and exits non-zero.
 """
@@ -40,16 +53,33 @@ import time
 import numpy as np
 import torch
 
+from swift_torch import config as cfglib
 from swift_torch import factory
+from swift_torch.data.pipeline import BatchLoader
+from swift_torch.data.samplers import InfiniteSampler
 from swift_torch.data.synthetic import SyntheticERA5
 from swift_torch.generate import read_store, rollout_to_store
 from swift_torch.ops import _build
 from swift_torch.ops.block_attention import (
+    block_attention_bwd,
     fused_block_attention,
     reference_block_attention,
+    reference_block_attention_bwd,
 )
-from swift_torch.ops.ffn import fused_swiglu_ffn, reference_swiglu_ffn
-from swift_torch.ops.linear import fused_linear, reference_linear
+from swift_torch.ops.ffn import (
+    fused_swiglu_ffn,
+    reference_swiglu_ffn,
+    reference_swiglu_ffn_bwd_saved,
+    reference_swiglu_ffn_fwd_save,
+    swiglu_ffn_bwd_saved,
+    swiglu_ffn_fwd_save,
+)
+from swift_torch.ops.linear import (
+    fused_linear,
+    fused_linear_bwd,
+    reference_linear,
+    reference_linear_bwd,
+)
 from swift_torch.ops.modnorm import (
     fused_matmul_modnorm_residual,
     fused_modnorm_residual,
@@ -57,11 +87,13 @@ from swift_torch.ops.modnorm import (
     reference_modnorm_residual,
 )
 from swift_torch.sampling.factory import sampler_factory
-from swift_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from swift_torch.training.trainer import Trainer, swin_flop_count
+from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-TOL = 2e-2  # max|kernel - plain| / max|plain|, bf16 rounding of outputs and p
+TOL = 2e-2  # max|kernel - plain| / max|plain| for every output, bf16 rounding of outputs, p, dS
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: bf16 dense tensor cores, HBM3
 GRID = (64, 128)  # flagship token grid: 128x256 at patch 2
 DIM, HIDDEN = 1056, 2816
 GEOMETRIES = ((12, 88), (8, 128))  # (heads, head dim): parity and hd128
@@ -82,6 +114,15 @@ PRECOND = {"_target_": "PassPrecond", "auxiliary_dim": 1, "sigma_data": 1.0}
 ROLLOUT = dict(members=2, batch=2, samples=2, steps=4, interval=6, segment=2, seed=0,
                solver="scm", num_solver_steps=1, dump="zarr")
 SLICE_TOL = 5e-2  # bf16 kernels vs the fp32 plain path through two full-width blocks
+# the training slice: swift_tpu/configs/experiment/era5-swinv2-1.4-trigflow.yaml (the
+# same model as MODEL), global batch 4, 6 AdamW steps, a tick every 2 steps
+TRAIN_EXPERIMENT = "era5-swinv2-1.4-trigflow"
+TRAIN = dict(batch=4, steps=6, steps_per_tick=2)
+# depth-2 gradient cut, |loss bf16 kernels - fp32 plain| / |fp32 plain| and, for every
+# parameter, ||grad - grad_plain|| / ||grad_plain||: stated as 5e-2 and 1e-1 before the
+# first run, tightened after it read 9.4e-6 and 6.8e-3 (NVIDIA H100 80GB HBM3, 700 W)
+CUT_LOSS_TOL = 1e-3
+CUT_GRAD_TOL = 3e-2
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 KERNELS = {
@@ -99,7 +140,66 @@ KERNELS = {
                          "swift_torch/ops/modnorm.py", "swift_tpu/ops/pallas_modnorm.py:56"),
     "swiglu_ffn": (fused_swiglu_ffn, reference_swiglu_ffn, "cuda", "swift_torch/csrc/ffn.cu",
                    "swift_tpu/ops/pallas_ffn.py:68"),
+    "block_attention_bwd": (block_attention_bwd, reference_block_attention_bwd, "cuda",
+                            "swift_torch/csrc/block_attention.cu",
+                            "swift_tpu/ops/pallas_block_attention.py:291"),
+    "swiglu_ffn_fwd_save": (swiglu_ffn_fwd_save, reference_swiglu_ffn_fwd_save, "cuda",
+                            "swift_torch/csrc/ffn.cu", "swift_tpu/ops/pallas_ffn.py:117"),
+    "swiglu_ffn_bwd_saved": (swiglu_ffn_bwd_saved, reference_swiglu_ffn_bwd_saved, "cuda",
+                             "swift_torch/csrc/gemm_bwd.cu", "swift_tpu/ops/pallas_ffn.py:199"),
+    "linear_bwd": (fused_linear_bwd, reference_linear_bwd, "cuda", "swift_torch/csrc/gemm_bwd.cu",
+                   "swift_tpu/ops/pallas_linear.py:84"),
 }
+
+
+def _tokens(t: torch.Tensor) -> int:
+    return t.numel() // t.shape[-1]
+
+
+def kernel_flops(name: str, args) -> float:
+    """Operations each kernel's function needs at these shapes (matrix
+    products at 2 per multiply-add; the epilogues' ~10 per element)."""
+    if name == "linear":
+        x, w = args
+        return 2.0 * _tokens(x) * w.shape[0] * w.shape[1]
+    if name == "linear_bwd":
+        _, x, w = args
+        return 4.0 * _tokens(x) * w.shape[0] * w.shape[1]
+    if name in ("block_attention", "block_attention_bwd"):
+        qkv = args[0]
+        per = 4.0 if name == "block_attention" else 10.0  # QKᵀ, PV | + dV, dP, dQ, dK
+        return per * _tokens(qkv) * 256 * qkv.shape[-1] / 3  # 256 keys a window
+    if name == "matmul_modnorm_residual":
+        x, w = args[:2]
+        return 2.0 * _tokens(x) * w.shape[0] * w.shape[1] + 10.0 * _tokens(x) * w.shape[0]
+    if name == "modnorm_residual":
+        return 10.0 * args[0].numel()
+    x = args[0]
+    T, D, H = _tokens(x), x.shape[-1], args[-1].shape[1]
+    return (12.0 if name == "swiglu_ffn_bwd_saved" else 6.0) * T * D * H
+
+
+def _nbytes(objs) -> int:
+    return sum(t.numel() * t.element_size() for t in objs if isinstance(t, torch.Tensor))
+
+
+def kernel_bound(name: str, args, out) -> tuple[float, str]:
+    """(ms, "bytes" | "operations"): the larger of each input read once and
+    each output written once at the card's memory rate, and the operations
+    at its bf16 dense peak."""
+    outs = out if isinstance(out, tuple) else (out,)
+    t_bytes = (_nbytes(args) + _nbytes(outs)) / PEAK_BYTES * 1e3
+    t_ops = kernel_flops(name, args) / PEAK_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+FORWARD = ("linear", "block_attention", "matmul_modnorm_residual", "modnorm_residual",
+           "swiglu_ffn")  # the forecast runs these; training runs all of KERNELS
+
+
+# One PyTorch call that computes the same function, timed as a yardstick
+# (the port never calls it); None where no single call does.
+LIBRARY = {"linear": lambda x, w: torch.nn.functional.linear(x, w)}
 
 
 def log(msg: str) -> None:
@@ -165,6 +265,7 @@ def _inputs(rng: np.random.Generator, heads: int, d: int, B: int = 2) -> dict:
     return {
         "x": t((T, DIM)),
         "w_qkv": t((3 * inner, DIM), DIM ** -0.5),
+        "dy_qkv": t((T, 3 * inner)),
         "qkv": t((B, gh, gw, 3 * inner)),
         "scale": torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0)),
         "attn": t((B, gh, gw, inner)),
@@ -177,48 +278,73 @@ def _inputs(rng: np.random.Generator, heads: int, d: int, B: int = 2) -> dict:
         "msh": t((B, DIM), 0.2),
         "w1": t((2 * HIDDEN, DIM), DIM ** -0.5),
         "w2": t((DIM, HIDDEN), HIDDEN ** -0.5),
+        "dy": t((T, DIM)),
+        "gate": t((T, HIDDEN)),
+        "up": t((T, HIDDEN)),
     }
 
 
 def phase_kernels() -> dict:
-    """Each kernel against its plain version; returns the per-kernel record."""
+    """Each kernel against its plain version, every output of it; returns
+    the per-kernel record (error, times, bound, library time)."""
     rng = np.random.default_rng(0)
     record: dict = {}
     for heads, d in GEOMETRIES:
         a = _inputs(rng, heads, d)
         cases = [
             ("linear", (a["x"], a["w_qkv"]), {}),
+            ("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"]), {}),
             ("matmul_modnorm_residual",
              (a["attn"], a["w_o"], a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
         ] + [
             ("block_attention", (a["qkv"], a["scale"], heads, (16, 16), s), {"shift": s})
             for s in SHIFTS
+        ] + [
+            ("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, (16, 16), s),
+             {"shift": s})
+            for s in SHIFTS
         ]
-        if d == GEOMETRIES[0][1]:  # these two do not depend on the head layout
+        if d == GEOMETRIES[0][1]:  # these do not depend on the head layout
             cases += [
                 ("modnorm_residual", (a["y"], a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
                 ("swiglu_ffn", (a["x"], a["w1"], a["w2"]), {}),
+                ("swiglu_ffn_fwd_save", (a["x"], a["w1"], a["w2"]), {}),
+                ("swiglu_ffn_bwd_saved",
+                 (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]), {}),
             ]
         for name, args, tags in cases:
             fused, plain = KERNELS[name][:2]
             got = fused(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
-            ok = bool(torch.isfinite(got).all().item()) and err <= TOL * ref
+            gots = got if isinstance(got, tuple) else (got,)
+            wants = want if isinstance(want, tuple) else (want,)
+            errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(gots, wants)]
+            refs = [w.float().abs().max().item() for w in wants]
+            ok = all(bool(torch.isfinite(g).all().item()) for g in gots) and all(
+                e <= TOL * r for e, r in zip(errs, refs))
             ms = time_ms(lambda: fused(*args))
             plain_ms = time_ms(lambda: plain(*args))
+            lib = LIBRARY.get(name)
+            library_ms = time_ms(lambda: lib(*args)) if lib else None
+            bound_ms, bound_by = kernel_bound(name, args, got)
+            rel = max(e / r for e, r in zip(errs, refs))
             log(f"[kernels] {name:24s} heads={heads:2d} d={d:3d} {tags or ''} "
-                f"max_abs_err={err:.3e} (ref max {ref:.3e}, rel {err / ref:.2e})  "
-                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+                f"max_abs_err={max(errs):.3e} (worst rel {rel:.2e} over {len(errs)} outputs)  "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})" + (f"  library {library_ms:.4f} ms" if lib else ""))
             if not ok:
-                raise AssertionError(f"{name} (heads={heads}, d={d}, {tags}) disagrees "
-                                     f"with its plain version: {err:.3e} > {TOL} x {ref:.3e}")
+                raise AssertionError(
+                    f"{name} (heads={heads}, d={d}, {tags}) disagrees with its plain version: "
+                    f"errors {errs} against {TOL} x max|plain| {refs}")
             rec = record.setdefault(name, {"max_abs_err": 0.0})
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["max_abs_err"] = max(rec["max_abs_err"], max(errs))
             if d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8):
-                rec["ms"], rec["plain_ms"] = ms, plain_ms  # flagship timing of record
+                # flagship timing of record
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+        del a
+        torch.cuda.empty_cache()
     return record
 
 
@@ -263,6 +389,15 @@ def check_depth2_cut(net) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def reset_launches() -> None:
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, (w, *_) in KERNELS.items()}
+
+
 def phase_slice(card: str) -> dict:
     """The flagship forecast through swift_torch's generate path; returns
     each kernel's launch count in that run."""
@@ -289,12 +424,11 @@ def phase_slice(card: str) -> dict:
     dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=10, shape=RESOLUTION, seed=0)
     net = net.cuda().eval()
     args = argparse.Namespace(**ROLLOUT)
-    for wrapper, *_ in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     ofile, wall, n_steps = rollout_to_store(args, dataset, net, os.path.join(WORK, "out"))
-    launches = {name: w.launches for name, (w, *_) in KERNELS.items()}
+    launches = read_launches()
     log(f"[slice] kernel launches in the rollout: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in FORWARD if launches[name] == 0]
     if missing:
         raise AssertionError(f"the rollout never launched {missing}")
 
@@ -331,18 +465,187 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+def train_config() -> dict:
+    """The TrigFlow flagship experiment's composed config (read from the
+    YAML tree), cut to a few steps of a global batch of 4. The 2000-kimg lr
+    warmup is cut to 0: six steps would run at lr ≈ 5e-8, below half an
+    fp32 ulp of a parameter near 1, so the slice runs at the base lr that
+    most of a run trains at."""
+    steps_kimg = TRAIN["batch"] / 1000.0
+    return cfglib.compose("train", [
+        f"experiment={TRAIN_EXPERIMENT}",
+        f"data.batch_size={TRAIN['batch']}",
+        f"trainer.total_kimg={TRAIN['steps'] * steps_kimg}",
+        f"trainer.kimg_per_tick={TRAIN['steps_per_tick'] * steps_kimg}",
+        "trainer.lr_rampup_kimg=0",
+        "trainer.checkpoint_ticks=1000",  # so the one checkpoint is the final one
+    ])
+
+
+def phase_train(card: str):
+    """The full-width TrigFlow training slice through the port's Trainer;
+    returns (each kernel's launches in the training run, the config, the
+    state dict after the six steps)."""
+    cfg = train_config()
+    ds_cfg = cfg["data"]["dataset"]
+    if list(ds_cfg["variables"]) != VARIABLES or list(ds_cfg["forcings"]) != FORCINGS:
+        raise AssertionError("the experiment's data config differs from the smoke's channels")
+    if any(cfg["model"][k] != v for k, v in MODEL.items() if k != "_target_"):
+        raise AssertionError(f"the experiment's model {cfg['model']} is not the flagship {MODEL}")
+    t0 = time.perf_counter()
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=16, shape=RESOLUTION, seed=0)
+    gb = int(cfg["data"]["batch_size"])
+    loader = BatchLoader(dataset, InfiniteSampler(dataset, seed=0), gb,
+                         num_workers=4)
+    net = factory.build_precond(cfg["precond"], cfg["model"], RESOLUTION, len(VARIABLES),
+                                len(VARIABLES) + len(FORCINGS))
+    random_weights(net, seed=1)
+    net = net.cuda().train()
+    loss_fn = factory.build_loss(cfg["loss"], dataset)
+    tcfg = cfg["trainer"]
+    optimizer, lr_fn = factory.build_optimizer(cfg["optimizer"], tcfg, gb, net)
+    flops = swin_flop_count(RESOLUTION, gb, MODEL["depth"], 2 * len(VARIABLES) + len(FORCINGS),
+                            DIM, HIDDEN, MODEL["patch_size"], MODEL["window_size"])
+    trainer = Trainer(
+        net, optimizer, loss_fn, global_batch_size=gb, lr_fn=lr_fn,
+        total_kimg=float(tcfg["total_kimg"]), ema_halflife_kimg=float(tcfg["ema_halflife_kimg"]),
+        ema_rampup_ratio=tcfg.get("ema_rampup_ratio", 0.05),
+        kimg_per_tick=float(tcfg["kimg_per_tick"]), checkpoint_ticks=tcfg["checkpoint_ticks"],
+        run_dir=os.path.join(WORK, "train"), flop_count=flops, seed=0,
+    )
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    log(f"[train] {TRAIN_EXPERIMENT}: {sum(p.numel() for p in before.values()) / 1e6:.1f} M "
+        f"params, global batch {gb}, remat {net.model.remat_layers}, "
+        f"{type(optimizer).__name__} with {len(optimizer.param_groups)} groups, lr ramp "
+        f"{tcfg['lr_rampup_kimg']} kimg (set-up {time.perf_counter() - t0:.1f} s)")
+
+    reset_launches()
+    trainer.train(loader)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = trainer.updates
+    log(f"[train] {steps} steps; kernel launches in training: {launches}; per step: "
+        + json.dumps({k: v / steps for k, v in launches.items()}))
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"training never launched {missing}")
+    hist = trainer.history
+    if not all(np.isfinite(hist["train/loss"])) or not all(np.isfinite(hist["train/grad_norm"])):
+        raise AssertionError(f"non-finite loss or grad norm: {hist['train/loss']}, "
+                             f"{hist['train/grad_norm']}")
+    still = [n for n, p in net.named_parameters() if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"{len(still)} parameters did not move, e.g. {still[:3]}")
+    # steady state: the ticks after the first (which carries the first step's set-up)
+    ticks = list(zip(hist["train/iter"], hist["train/dt/tick"]))[1:]
+    n_steps = ticks[-1][0] - hist["train/iter"][0]
+    s_step = sum(dt for _, dt in ticks) / n_steps
+    tflops = flops / s_step / 1e12
+    log(f"[train] loss {hist['train/loss']}, grad norm {hist['train/grad_norm']}; every "
+        f"parameter moved; peak device memory {hist['train/mem/device'][-1]:.2f} GiB")
+    log(f"[train] {s_step:.4f} s/step over steps 2-{ticks[-1][0]}, {gb / s_step:.3f} images/s, "
+        f"{tflops:.2f} TFLOP/s by swin_flop_count ({flops / 1e12:.2f} TFLOP a step) = "
+        f"{100 * tflops / (PEAK_FLOPS / 1e12):.2f}% of 989 TFLOP/s bf16 dense ({card})")
+
+    # the checkpoint's EMA forecasts through the generate path
+    ckpt = latest_checkpoint(os.path.join(WORK, "train", "checkpoints"))
+    ema = build_net(MODEL["depth"], torch.bfloat16)
+    ema.load_state_dict(load_checkpoint(ckpt))
+    ema = ema.cuda().eval()
+    args = argparse.Namespace(**{**ROLLOUT, "steps": 1, "members": 1, "samples": 1,
+                                 "batch": 1, "segment": 1})
+    ofile, _, _ = rollout_to_store(args, dataset, ema, os.path.join(WORK, "ema_out"))
+    store = read_store(ofile)
+    if not all(np.isfinite(a).all() and a[:, :, 1:].std() > 0 for a in store.values()):
+        raise AssertionError("the trained EMA's forecast is not finite or is constant")
+    log(f"[train] checkpoint {os.path.basename(ckpt)}: EMA reloaded, one forecast step through "
+        f"rollout_to_store, {len(store)} variables finite and non-constant")
+    trained = {k: v.detach().float().cpu() for k, v in net.state_dict().items()}
+    profile_step(trainer, next(iter(loader)), card)
+    del trainer, optimizer, before, net
+    return launches, cfg, trained
+
+
+def profile_step(trainer, batch: dict, card: str, top: int = 16) -> None:
+    """Where one more training step's time goes: torch.profiler's device
+    time by kernel, their sum against the step's wall time (the device's
+    idle share), after one warm-up step. A measurement only: where the
+    profiler sees no device events it says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    if not rows:
+        log("[profile] the profiler saw no device time: breakdown not measured")
+        return
+    log(f"[profile] one training step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
+        f"busy {busy:.1f} ms, idle share {100 * (1 - busy / (wall * 1e3)):.1f}% ({card})")
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"[profile] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
+
+
+def phase_grad_cut(cfg: dict, trained: dict) -> dict:
+    """A depth-2 cut of the trained net (same widths, its weights after the
+    six steps), one batch of 2 with fixed draws: loss and every parameter's
+    gradient through the kernels in bf16 on the card against the plain path
+    in fp32 on the CPU."""
+    sd = {k: v for k, v in trained.items()
+          if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < 2}
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=8, shape=RESOLUTION, seed=3)
+    samples = [dataset[(i, 1, 6)] for i in (0, 1)]
+    cond = torch.from_numpy(np.stack([s[0][0] for s in samples]))
+    x = torch.from_numpy(np.stack([s[0][1] for s in samples]))
+    aux = torch.from_numpy(np.stack([[s[1][1]] for s in samples]))
+    loss_fn = factory.build_loss(cfg["loss"], dataset)
+    t, z = loss_fn.draw(x, torch.Generator().manual_seed(4))
+    out = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        cut = build_net(2, dtype)
+        cut.load_state_dict(sd)
+        cut = cut.to(dev).train()
+        loss = loss_fn.value(cut, x.to(dev), t.to(dev), z.to(dev), cond.to(dev), aux.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
+                                  for n, p in cut.named_parameters()})
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    rels = {n: ((gg[n] - gc[n]).norm() / gc[n].norm()).item() for n in gc}
+    worst = max(rels, key=rels.get)
+    log(f"[cut] depth-2, batch 2, fixed draws: loss {lg:.6f} (kernels, bf16) vs {lc:.6f} "
+        f"(plain, fp32, CPU), rel {loss_rel:.3e} (limit {CUT_LOSS_TOL}); worst gradient "
+        f"{worst}: rel L2 {rels[worst]:.3e} (limit {CUT_GRAD_TOL}) over {len(rels)} tensors; "
+        f"median {float(np.median(list(rels.values()))):.3e}")
+    if not np.isfinite(lg) or loss_rel > CUT_LOSS_TOL:
+        raise AssertionError(f"depth-2 cut loss disagrees: {lg} vs {lc}")
+    bad = {n: r for n, r in rels.items() if not r <= CUT_GRAD_TOL}
+    if bad:
+        raise AssertionError(f"depth-2 cut gradients disagree: {bad}")
+    return {"loss_rel": loss_rel, "worst": worst, "worst_rel": rels[worst]}
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
     record = phase_kernels()
     try:
-        launches = phase_slice(card)
+        forecast = phase_slice(card)
+        launches, cfg, trained = phase_train(card)
+        phase_grad_cut(cfg, trained)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    jax_modules = sorted(m for m in sys.modules
-                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+    log(f"[train] launches: forecast {forecast}, training {launches}")
+    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in
+                         ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
     if jax_modules:
-        raise AssertionError(f"the port loaded JAX modules: {jax_modules[:5]}")
+        raise AssertionError(f"the port loaded JAX-package modules: {jax_modules[:5]}")
     kernels = [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[name], **record[name]}

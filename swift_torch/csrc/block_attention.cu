@@ -192,6 +192,330 @@ int launch_block_attn(const void* qkv, const void* scale, void* out, int B, int 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward -- replaces swift_tpu/ops/pallas_block_attention.py::_bwd_call
+// (kernel body _bwd_kernel). Per (sample, window, head) it recomputes the
+// softmax and forms, at the TPU kernel's rounding points (q̂·s, k̂, p and dS
+// rounded to bf16 before the products that consume them, fp32 sums):
+//   dv = pᵀ·do, dp = do·vᵀ, dS = p (dp − Σ p dp), dq̂ = s dS·k̂, dk̂ = dSᵀ·(q̂ s),
+//   dq = (dq̂ − q̂ (q̂·dq̂)) / |q|, dk likewise, and Σ dS·logits / s for the
+//   logit scale -- written into dqkv in the [q|k|v] interleave, at the same
+//   shifted coordinates the forward reads.
+//
+// What bounds it: like the forward, on-chip capacity. A block holds the
+// logits and dp of its query rows (two QB x 256 fp32 tiles), q̂s and do of
+// those rows and one 256-row key (then value, then key) buffer: 208 KB at
+// QB = 64 and d <= 96, so d = 128 takes QB = 32. dk and dv sum over all
+// 256 query rows of a window, which no block holds at once, so each block
+// writes fp32 partials of dk̂ and dv for the whole window, and a second
+// kernel sums the 256/QB partials in a fixed order, applies the k̂
+// normalisation backward and writes dk and dv. The scale partials are
+// summed, also in a fixed order, by a third, one-block kernel. No atomics.
+template <int DP>
+struct AttnBwd {
+  static constexpr int QB = DP <= 96 ? 64 : 32;
+  static constexpr int NQB = kWinTokens / QB;
+  static constexpr int LDQ = DP + 8;
+  static constexpr int PLD = 2 * kSLD;  // bf16 stride of p / dS written over fp32 rows
+  static constexpr int SMEM = (2 * QB + kWinTokens) * LDQ * 2 + 2 * QB * kSLD * 4;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kAttnNT)
+    block_attn_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
+                          const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
+                          float* __restrict__ part_k, float* __restrict__ part_v,
+                          float* __restrict__ part_s, int gh, int gw, int heads, int d, int wh,
+                          int ww, int sh, int sw) {
+  using C = AttnBwd<DP>;
+  constexpr int QB = C::QB, LDQ = C::LDQ, PLD = C::PLD, NW = kAttnNT / 32, CT = DP / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bf16(q̂ s)
+  bf16* dOs = Qs + QB * LDQ;                     // do
+  bf16* KVs = dOs + QB * LDQ;                    // k̂, then v, then k̂ again
+  float* Ss = reinterpret_cast<float*>(KVs + kWinTokens * LDQ);  // logits -> p -> dq̂
+  float* dPs = Ss + QB * kSLD;                                    // dp -> dS
+  bf16* Ps = reinterpret_cast<bf16*>(Ss);
+  bf16* dSs = reinterpret_cast<bf16*>(dPs);
+  __shared__ float red[NW];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bz = blockIdx.z, b = bz / heads, h = bz % heads;
+  const int nW = gridDim.y, w = blockIdx.y, qb = blockIdx.x;
+  const int wi = w / (gw / ww), wj = w % (gw / ww);
+  const int i0 = wi * wh + sh, j0 = wj * ww + sw;
+  const int q0 = qb * QB;
+  const size_t feat = (size_t)heads * 3 * d, ofeat = (size_t)heads * d;
+  auto token = [&](int t) -> size_t {
+    const int row = (i0 + t / ww) % gh, col = (j0 + t % ww) % gw;
+    return ((size_t)b * gh + row) * gw + col;
+  };
+  const bf16* head = qkv + (size_t)h * 3 * d;
+  const float s = scale[h];
+
+  for (int r = warp; r < QB; r += NW) {
+    load_row<DP>(Qs + r * LDQ, head + token(q0 + r) * feat, d, true, s, lane);
+    load_row<DP>(dOs + r * LDQ, dout + token(q0 + r) * ofeat + (size_t)h * d, d, false, 1.0f,
+                 lane);
+  }
+  for (int r = warp; r < kWinTokens; r += NW)
+    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
+  __syncthreads();
+
+  // C[QB x 256] (fp32, stride kSLD) = A[QB x DP] . B[256 x DP]^T
+  auto rows_x_window = [&](const bf16* A, float* Cm) {
+    for (int f = warp; f < (QB / 16) * (kWinTokens / 16); f += NW) {
+      const int rt = f / (kWinTokens / 16), ct = f % (kWinTokens / 16);
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+        wmma::load_matrix_sync(a, A + rt * 16 * LDQ + kk, LDQ);
+        wmma::load_matrix_sync(kb, KVs + ct * 16 * LDQ + kk, LDQ);
+        wmma::mma_sync(acc, a, kb, acc);
+      }
+      wmma::store_matrix_sync(Cm + rt * 16 * kSLD + ct * 16, acc, kSLD, wmma::mem_row_major);
+    }
+  };
+  rows_x_window(Qs, Ss);  // logits
+  __syncthreads();
+  for (int r = warp; r < kWinTokens; r += NW)
+    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + 2 * d, d, false, 1.0f, lane);
+  __syncthreads();
+  rows_x_window(dOs, dPs);  // dp = do . vᵀ
+  __syncthreads();
+
+  // one warp per query row: p, dS, and Σ dS·logits; p and dS are rounded to
+  // bf16 in place over the fronts of their fp32 rows
+  float dsum = 0.f;
+  for (int r = warp; r < QB; r += NW) {
+    float lg[kWinTokens / 32], dp[kWinTokens / 32];
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      lg[i] = Ss[r * kSLD + lane + 32 * i];
+      dp[i] = dPs[r * kSLD + lane + 32 * i];
+      m = fmaxf(m, lg[i]);
+    }
+    m = warp_max(m);
+    float e[kWinTokens / 32], l = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      e[i] = expf(lg[i] - m);
+      l += e[i];
+    }
+    l = warp_sum(l);
+    float pdp = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      e[i] = e[i] / l;  // p
+      pdp += e[i] * dp[i];
+    }
+    pdp = warp_sum(pdp);
+    __syncwarp();  // every lane has read its row before any bf16 overwrites it
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      const float dS = e[i] * (dp[i] - pdp);
+      dsum += dS * lg[i];
+      Ps[r * PLD + lane + 32 * i] = __float2bfloat16_rn(e[i]);
+      dSs[r * PLD + lane + 32 * i] = __float2bfloat16_rn(dS);
+    }
+  }
+  dsum = warp_sum(dsum);
+  if (lane == 0) red[warp] = dsum;
+  __syncthreads();  // p, dS and the scale partials are complete; v is done with
+
+  // the k̂ buffer comes back for dq̂, beside the two window-wide products
+  for (int r = warp; r < kWinTokens; r += NW)
+    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
+  // dv partial = pᵀ . do and dk̂ partial = dSᵀ . (q̂ s), both [256 x DP] fp32,
+  // stored straight to this block's slot of the workspace
+  const size_t slot = (((size_t)bz * nW + w) * C::NQB + qb) * kWinTokens * DP;
+  for (int f = warp; f < 2 * (kWinTokens / 16) * CT; f += NW) {
+    const int which = f / ((kWinTokens / 16) * CT), g = f % ((kWinTokens / 16) * CT);
+    const int mt = g / CT, nt = g % CT;
+    const bf16* At = which ? dSs : Ps;
+    const bf16* Bt = which ? Qs : dOs;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < QB; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
+      wmma::load_matrix_sync(a, At + kk * PLD + mt * 16, PLD);
+      wmma::load_matrix_sync(bb, Bt + kk * LDQ + nt * 16, LDQ);
+      wmma::mma_sync(acc, a, bb, acc);
+    }
+    float* dst = (which ? part_k : part_v) + slot + (size_t)mt * 16 * DP + nt * 16;
+    wmma::store_matrix_sync(dst, acc, DP, wmma::mem_row_major);
+  }
+  if (threadIdx.x == 0) {
+    float tot = 0.f;
+    for (int i = 0; i < NW; ++i) tot += red[i];
+    part_s[((size_t)bz * nW + w) * C::NQB + qb] = tot;
+  }
+  __syncthreads();  // k̂ is back; p is read for the last time
+
+  // dq̂ [QB x DP] = dS . k̂, into the logit buffer (fp32, stride DP + 4)
+  constexpr int LDO = DP + 4;
+  for (int f = warp; f < (QB / 16) * CT; f += NW) {
+    const int mt = f / CT, nt = f % CT;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+#pragma unroll 4
+    for (int kk = 0; kk < kWinTokens; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
+      wmma::load_matrix_sync(a, dSs + mt * 16 * PLD + kk, PLD);
+      wmma::load_matrix_sync(bb, KVs + kk * LDQ + nt * 16, LDQ);
+      wmma::mma_sync(acc, a, bb, acc);
+    }
+    wmma::store_matrix_sync(Ss + mt * 16 * LDO + nt * 16, acc, LDO, wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  // dq = (s dq̂ − q̂ (q̂ · s dq̂)) / |q| from the raw q row, 8 features a lane
+  for (int r = warp; r < QB; r += NW) {
+    const size_t tk = token(q0 + r);
+    float q[8], g[8];
+    const bool live = lane * 8 < d;
+    float ss = 0.f;
+    if (live) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(head + tk * feat + lane * 8);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f2 = __bfloat1622float2(h2[i]);
+        q[2 * i] = f2.x;
+        q[2 * i + 1] = f2.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) q[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss += q[i] * q[i];
+    const float rq = rsqrtf(warp_sum(ss) + 1e-12f);
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      q[i] *= rq;                                             // q̂
+      g[i] = live ? Ss[r * LDO + lane * 8 + i] * s : 0.f;     // dq̂ s
+      dot += g[i] * q[i];
+    }
+    dot = warp_sum(dot);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) g[i] = (g[i] - q[i] * dot) * rq;
+    if (live)
+      *reinterpret_cast<uint4*>(dqkv + tk * feat + (size_t)h * 3 * d + lane * 8) = pack8(g);
+  }
+}
+
+// Per (sample, window, head): dk̂ and dv summed over the query-block partials
+// in order, dk = (dk̂ − k̂ (k̂·dk̂)) / |k|, both written into dqkv.
+template <int DP>
+__global__ void __launch_bounds__(kAttnNT)
+    block_attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ part_k,
+                             const float* __restrict__ part_v, bf16* __restrict__ dqkv, int gh,
+                             int gw, int heads, int d, int wh, int ww, int sh, int sw) {
+  constexpr int NQB = AttnBwd<DP>::NQB, NW = kAttnNT / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bz = blockIdx.y, b = bz / heads, h = bz % heads, w = blockIdx.x;
+  const int wi = w / (gw / ww), wj = w % (gw / ww);
+  const int i0 = wi * wh + sh, j0 = wj * ww + sw;
+  const size_t feat = (size_t)heads * 3 * d;
+  const size_t base = ((size_t)bz * gridDim.x + w) * NQB * kWinTokens * DP;
+  const size_t pstride = (size_t)kWinTokens * DP;
+  const bool live = lane * 8 < d;
+  for (int t = warp; t < kWinTokens; t += NW) {
+    const int row = (i0 + t / ww) % gh, col = (j0 + t % ww) % gw;
+    const size_t tk = ((size_t)b * gh + row) * gw + col;
+    bf16* dst = dqkv + tk * feat + (size_t)h * 3 * d;
+    float k[8], dk[8], dv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) k[i] = dk[i] = dv[i] = 0.f;
+    if (live) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(qkv + tk * feat + (size_t)h * 3 * d + d +
+                                                        lane * 8);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f2 = __bfloat1622float2(h2[i]);
+        k[2 * i] = f2.x;
+        k[2 * i + 1] = f2.y;
+      }
+      for (int p = 0; p < NQB; ++p) {
+        const float* pk = part_k + base + p * pstride + (size_t)t * DP + lane * 8;
+        const float* pv = part_v + base + p * pstride + (size_t)t * DP + lane * 8;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          dk[i] += pk[i];
+          dv[i] += pv[i];
+        }
+      }
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss += k[i] * k[i];
+    const float rk = rsqrtf(warp_sum(ss) + 1e-12f);
+    float dot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      k[i] *= rk;  // k̂
+      dot += dk[i] * k[i];
+    }
+    dot = warp_sum(dot);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dk[i] = (dk[i] - k[i] * dot) * rk;
+    if (live) {
+      *reinterpret_cast<uint4*>(dst + d + lane * 8) = pack8(dk);
+      *reinterpret_cast<uint4*>(dst + 2 * d + lane * 8) = pack8(dv);
+    }
+  }
+}
+
+// dscale[h] = Σ over samples, windows and query blocks (in that order) of
+// the Σ dS·logits partials, / scale[h].
+__global__ void block_attn_dscale_kernel(const float* __restrict__ part_s,
+                                         const float* __restrict__ scale, float* __restrict__ ds,
+                                         int B, int heads, int per_head) {
+  const int h = threadIdx.x;
+  if (h >= heads) return;
+  float tot = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float* p = part_s + ((size_t)b * heads + h) * per_head;
+    for (int i = 0; i < per_head; ++i) tot += p[i];
+  }
+  ds[h] = tot / scale[h];
+}
+
+template <int DP>
+int launch_block_attn_bwd(const void* qkv, const void* scale, const void* dout, void* dqkv,
+                          void* dscale, void* part_k, void* part_v, void* part_s, int B, int gh,
+                          int gw, int heads, int d, int wh, int ww, int sh, int sw,
+                          cudaStream_t st) {
+  using C = AttnBwd<DP>;
+  cudaFuncSetAttribute(block_attn_bwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       C::SMEM);
+  const int nW = (gh / wh) * (gw / ww);
+  dim3 grid(C::NQB, nW, B * heads);
+  block_attn_bwd_kernel<DP><<<grid, kAttnNT, C::SMEM, st>>>(
+      (const bf16*)qkv, (const float*)scale, (const bf16*)dout, (bf16*)dqkv, (float*)part_k,
+      (float*)part_v, (float*)part_s, gh, gw, heads, d, wh, ww, sh, sw);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  block_attn_bwd_kv_kernel<DP><<<dim3(nW, B * heads), kAttnNT, 0, st>>>(
+      (const bf16*)qkv, (const float*)part_k, (const float*)part_v, (bf16*)dqkv, gh, gw, heads,
+      d, wh, ww, sh, sw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  block_attn_dscale_kernel<<<1, 1024, 0, st>>>((const float*)part_s, (const float*)scale,
+                                               (float*)dscale, B, heads, nW * C::NQB);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace swift
 
 // Requires wh*ww == 256, gh % wh == gw % ww == 0, d % 8 == 0, d <= 128 and
@@ -208,4 +532,31 @@ extern "C" int swift_block_attention(const void* qkv, const void* scale, void* o
     case 128: return swift::launch_block_attn<128>(qkv, scale, out, B, gh, gw, heads, d, wh, ww, sh, sw, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Query rows a backward block holds (the number of scale partials per
+// window and head is 256 / this).
+extern "C" int swift_block_attention_bwd_qb(int d) { return (d + 31) / 32 * 32 <= 96 ? 64 : 32; }
+
+// qkv (B, gh, gw, heads*3d), dout (B, gh, gw, heads*d) bf16, scale (heads,)
+// fp32 -> dqkv like qkv, dscale (heads,) fp32. Workspace: part_k and part_v
+// fp32 of B*heads*nW*256*dp elements each (dp = d rounded up to 32), part_s
+// fp32 of B*heads*nW*(256/qb). Same shape rules as swift_block_attention.
+extern "C" int swift_block_attention_bwd(const void* qkv, const void* scale, const void* dout,
+                                         void* dqkv, void* dscale, void* part_k, void* part_v,
+                                         void* part_s, int B, int gh, int gw, int heads, int d,
+                                         int wh, int ww, int sh, int sw, void* stream) {
+  const int dp = (d + 31) / 32 * 32;
+  cudaStream_t st = (cudaStream_t)stream;
+#define SWIFT_BWD(DP)                                                                          \
+  return swift::launch_block_attn_bwd<DP>(qkv, scale, dout, dqkv, dscale, part_k, part_v,     \
+                                          part_s, B, gh, gw, heads, d, wh, ww, sh, sw, st)
+  switch (dp) {
+    case 32: SWIFT_BWD(32);
+    case 64: SWIFT_BWD(64);
+    case 96: SWIFT_BWD(96);
+    case 128: SWIFT_BWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SWIFT_BWD
 }

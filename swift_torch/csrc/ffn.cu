@@ -12,6 +12,13 @@
 // shared memory, and adds h . W2[:, chunk]^T into a 32 x D fp32 accumulator
 // that lives in shared memory (135 KB at D=1056). Nothing of width H ever
 // reaches device memory; the output is written once, in bf16.
+//
+// With G and U given, the same kernel is the forward that saves gate and up
+// for the backward -- replaces swift_tpu/ops/pallas_ffn.py::
+// _ffn_fwd_save_call (kernel body _ffn_fwd_save_kernel). Each chunk's fp32
+// gate and up are rounded to bf16 and written from the staging tile as it
+// stands (2 x T x H x 2 bytes more traffic, ~0.18 GB at B = 2); h is still
+// formed from the unrounded fp32 values, as on the TPU.
 #include "tile_mma.cuh"
 
 namespace swift {
@@ -31,7 +38,8 @@ __host__ __device__ constexpr int ffn_smem(int D) {
 
 __global__ void __launch_bounds__(GateUpMma::NT)
     ffn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W1,
-               const bf16* __restrict__ W2, bf16* __restrict__ Y, int M, int D, int H) {
+               const bf16* __restrict__ W2, bf16* __restrict__ Y, bf16* __restrict__ G,
+               bf16* __restrict__ U, int M, int D, int H) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int NT = GateUpMma::NT;
   const int lda = D + 4;
@@ -62,6 +70,15 @@ __global__ void __launch_bounds__(GateUpMma::NT)
       wmma::store_matrix_sync(stage + (wm * 16) * kStageLD + wn * GateUpMma::FN * 16 + j * 16,
                               acc[0][j], kStageLD, wmma::mem_row_major);
     __syncthreads();
+    if (G != nullptr) {  // the saved gate and up, 8 columns a thread
+      for (int e = tid; e < 2 * kFfnBM * (kFfnHC / 8); e += NT) {
+        const int half = e / (kFfnBM * (kFfnHC / 8)), q = e % (kFfnBM * (kFfnHC / 8));
+        const int r = q / (kFfnHC / 8), c = (q % (kFfnHC / 8)) * 8;
+        if (m0 + r < M && c0 + c < H)
+          *reinterpret_cast<uint4*>((half ? U : G) + (size_t)(m0 + r) * H + c0 + c) =
+              pack8(stage + r * kStageLD + half * kFfnHC + c);
+      }
+    }
     for (int e = tid; e < kFfnBM * kFfnHC; e += NT) {
       const int r = e / kFfnHC, c = e % kFfnHC;
       const float gt = stage[r * kStageLD + c], up = stage[r * kStageLD + kFfnHC + c];
@@ -117,11 +134,12 @@ using namespace swift;
 
 extern "C" int swift_ffn_smem(int D) { return ffn_smem(D); }
 
-extern "C" int swift_ffn(const void* x, const void* w1, const void* w2, void* y, int M, int D,
-                         int H, void* stream) {
+// g, u: null for the plain forward, else (M, H) bf16 outputs of gate and up.
+extern "C" int swift_ffn(const void* x, const void* w1, const void* w2, void* y, void* g, void* u,
+                         int M, int D, int H, void* stream) {
   const int smem = ffn_smem(D);
   cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   ffn_kernel<<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, M, D, H);
+      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)g, (bf16*)u, M, D, H);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,7 @@ from typing import Sequence
 
 import numpy as np
 
-from swift_tpu.data.era5 import ERA5Dataset
+from swift_torch.data.era5 import ERA5Dataset
 
 
 class SyntheticERA5(ERA5Dataset):

@@ -1,9 +1,10 @@
-"""Builders: config dict -> the port's network.
+"""Builders: config dict -> the port's network, loss and optimizer.
 
-Counterpart of ``swift_tpu/factory.py`` for the ported models: the same
+Counterpart of ``swift_tpu/factory.py`` for the ported pieces: the same
 ``_target_`` suffixes and config keys, so a run's saved config builds the
-same network in either package. Only SwinV2 under PassPrecond, over the
-ERA5 dataset, is ported.
+same network in either package. Ported: SwinV2 under PassPrecond over the
+ERA5 dataset, the TrigFlow loss, and Adam/AdamW with the reference's
+decay grouping and lr schedule. Any other target raises.
 """
 
 from __future__ import annotations
@@ -12,9 +13,11 @@ from typing import Optional
 
 import torch
 
+from swift_torch.data.era5 import ERA5Dataset
 from swift_torch.models.precond import PassPrecond
 from swift_torch.models.swinv2 import SwinV2
-from swift_tpu.data.era5 import ERA5Dataset
+from swift_torch.training.loss import TrigFlowLoss
+from swift_torch.training.trainer import adamw_decay_mask, lr_schedule
 
 
 def _suffix(target: str) -> str:
@@ -91,3 +94,44 @@ def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channe
                    else _infinity(cfg.get("sigma_max", float("inf")))),
         sigma_data=float(cfg.get("sigma_data", 1.0)),
     )
+
+
+def build_loss(loss_cfg: dict, dataset) -> TrigFlowLoss:
+    cfg = dict(loss_cfg)
+    target = _suffix(cfg.pop("_target_", ""))
+    if target != "TrigFlowLoss":
+        raise NotImplementedError(f"loss target {target!r} is not ported (only TrigFlowLoss)")
+    return TrigFlowLoss(dataset.img_resolution[0], list(dataset.variables),
+                        noise=dict(cfg["noise"]), sigma_data=float(cfg.get("sigma_data", 1.0)))
+
+
+def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: int,
+                    net: torch.nn.Module, resume_kimg: int = 0):
+    """(``torch.optim.AdamW``, lr schedule). Two parameter groups, decayed
+    and not, by :func:`adamw_decay_mask` (the reference grouping); the
+    trainer sets every group's lr from the schedule before each update, as
+    the JAX package's ``optax.adamw`` reads its schedule."""
+    cfg = dict(optimizer_cfg)
+    target = _suffix(cfg.pop("_target_", "Adam"))
+    if target not in ("Adam", "AdamW"):
+        raise NotImplementedError(f"optimizer target {target!r} is not ported (only Adam/AdamW)")
+    lr_fn = lr_schedule(
+        float(cfg.get("lr", 1e-3)),
+        global_batch_size,
+        lr_rampup_kimg=float(trainer_cfg.get("lr_rampup_kimg", 10000)),
+        total_kimg=float(trainer_cfg.get("total_kimg", 200000)),
+        lr_min_factor=float(trainer_cfg.get("lr_min_factor", 0.01)),
+        lr_cosine_anneal=bool(trainer_cfg.get("lr_cosine_anneal", True)),
+        resume_kimg=resume_kimg,
+    )
+    wd = float(cfg.get("weight_decay", 0.0))
+    betas = cfg.get("betas", (0.9, 0.999))
+    named = list(net.named_parameters())
+    mask = adamw_decay_mask([n for n, _ in named])
+    groups = [
+        {"params": [p for n, p in named if mask[n]], "weight_decay": wd},
+        {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
+    ]
+    opt = torch.optim.AdamW(groups, lr=lr_fn(0), betas=(float(betas[0]), float(betas[1])),
+                            eps=float(cfg.get("eps", 1e-8)))
+    return opt, lr_fn

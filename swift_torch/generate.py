@@ -5,8 +5,10 @@ Same flags and the same WB2-layout zarr (or numpy) store as
 ``swift_tpu.generate``. ``main`` reads the run's saved config and data and
 the checkpoint's EMA weights (JAX npz layout); :func:`rollout_to_store`
 takes an already built dataset and network and needs neither yaml nor h5py.
-The network runs on the GPU when there is one, else on the CPU. Not ported
-yet: ``--pp``, ``--int8`` and the solvers other than ``scm``.
+The network runs on the GPU (``--device cuda``, the default) and raises
+where CUDA is absent; the CPU is used only when asked for (``--device
+cpu``). Not ported yet: ``--pp``, ``--int8`` and the solvers other than
+``scm``.
 """
 
 from __future__ import annotations
@@ -19,14 +21,15 @@ import numpy as np
 import torch
 
 from swift_torch import factory
+from swift_torch.data.constants import compress_variables
+from swift_torch.data.samplers import AttributeSubset
 from swift_torch.sampling.ensemble import EnsembleRollout
 from swift_torch.sampling.factory import sampler_factory
+from swift_torch.utils import zarr_lite
 from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
+from swift_torch.utils.device import resolve_device
+from swift_torch.utils.io import create_empty_numpy, create_forecast_zarr
 from swift_torch.utils.log import log0
-from swift_tpu.data.constants import compress_variables
-from swift_tpu.data.samplers import AttributeSubset
-from swift_tpu.utils import zarr_lite
-from swift_tpu.utils.io import create_empty_numpy, create_forecast_zarr
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--input", type=str, required=True, help="Input (run) directory")
@@ -47,6 +50,8 @@ parser.add_argument("--num-solver-steps", type=int, default=1)
 parser.add_argument("--seed", type=int, default=0)
 parser.add_argument("--output", type=str, default=None,
                     help="Output directory (default: <input>/output/<checkpoint>/)")
+parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                    help="Device of the network (the CPU only when asked for)")
 
 
 def build_store(args, dataset, indices, odir, filename):
@@ -163,8 +168,9 @@ def rollout_to_store(args, dataset, net, odir: str):
 
 
 def main(args):
-    from swift_tpu import config as cfglib  # needs yaml
+    from swift_torch import config as cfglib  # needs yaml
 
+    device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
     log0("Loading dataset...")
@@ -188,7 +194,6 @@ def main(args):
         ckpt_basename = "latest"
     log0(f"Loading checkpoint: {ckpt}")
     net.load_state_dict(load_checkpoint(ckpt))
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     net = net.to(device).eval()
 
     odir = args.output or os.path.join(args.input, "output", ckpt_basename)

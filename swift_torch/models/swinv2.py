@@ -1,4 +1,4 @@
-"""SwinV2 windowed-attention transformer, forward only.
+"""SwinV2 windowed-attention transformer.
 
 Counterpart of ``swift_tpu/models/swinv2.py`` (the flagship backbone):
 channels-last ``(B, gh, gw, D)`` activations, cosine attention over
@@ -13,7 +13,11 @@ dtype points follow the JAX model: the latent MLP, ``auxiliary_embed`` and
 ``logvar_embed`` run in fp32; everything else in ``dtype`` (bf16 on the
 card) over fp32 parameters; the output is fp32. Each block runs through
 five kernels (``swift_torch.ops``); on CPU tensors they take their plain
-PyTorch versions.
+PyTorch versions. Under autograd the kernels' Functions carry the backward
+kernels, and ``remat_layers`` (the JAX model's default) recomputes each
+(unshifted, shifted) block pair in the backward: the first forward runs the
+pair without autograd, saving only the pair's input, and the backward runs
+it again with autograd on before differentiating it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from swift_torch.ops.block_attention import fused_block_attention
@@ -151,6 +156,7 @@ class SwinV2(nn.Module):
         logvar: bool = False,
         timestep_weight: float = 1.0,
         dtype: torch.dtype = torch.bfloat16,
+        remat_layers: bool = True,
     ):
         super().__init__()
         H, W = _as_2tuple(img_resolution)
@@ -168,6 +174,7 @@ class SwinV2(nn.Module):
         self.dim, self.auxiliary_dim = dim, auxiliary_dim
         self.timestep_weight = timestep_weight
         self.dtype = dtype
+        self.remat_layers = remat_layers
         head_dim = head_dim or dim // heads
         sh, sw = _as_2tuple(shift_size)
         gh, gw = self.grid_size
@@ -197,6 +204,12 @@ class SwinV2(nn.Module):
         e = self.latent_embed.l2(F.silu(self.latent_embed.l1(emb)))
         return F.silu(e)
 
+    def _pair(self, h: torch.Tensor, cond: torch.Tensor, j: int) -> torch.Tensor:
+        """Blocks j (unshifted) and j + 1 (shifted)."""
+        for attn, ff in self.transformer.layers[j:j + 2]:
+            h = ff(attn(h, cond), cond)
+        return h
+
     def forward(self, x, t, auxiliary=None, return_logvar: bool = False):
         B = x.shape[0]
         H, W = self.img_resolution
@@ -218,8 +231,17 @@ class SwinV2(nn.Module):
             t = t.expand(B)
         cond = self._condition(t, auxiliary)
         cond_c = cond.to(dt)
-        for attn, ff in self.transformer.layers:
-            h = ff(attn(h, cond_c), cond_c)
+        layers = self.transformer.layers
+        if self.remat_layers and torch.is_grad_enabled() and len(layers) % 2 == 0:
+            for j in range(0, len(layers), 2):
+                # reentrant: the first forward runs under no_grad, so the
+                # kernels' forward-only paths serve it, and the backward's
+                # recompute takes the Functions (the JAX launch pattern)
+                h = torch.utils.checkpoint.checkpoint(
+                    self._pair, h, cond_c, j, use_reentrant=True, preserve_rng_state=False)
+        else:
+            for attn, ff in layers:
+                h = ff(attn(h, cond_c), cond_c)
 
         # output head, (c, p1, p2) feature order as the reference
         o = F.linear(h, self.head.head[0].weight.to(dt))

@@ -32,14 +32,20 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "swift_linear": [_P, _P, _P, _I, _I, _I, _P],
+    "swift_linear_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_mm_modnorm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "swift_mm_modnorm_smem": [_I],
-    "swift_ffn": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "swift_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_smem": [_I],
+    "swift_ffn_bwd_saved": [_P] * 13 + [_I, _I, _I, _P],
+    "swift_splitk_workspace": [_I, _I, _I],
     "swift_block_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "swift_block_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
+    "swift_block_attention_bwd_qb": [_I],
     "swift_max_smem": [],
     "swift_error_string": [_I],
 }
+_RESTYPES = {"swift_error_string": ctypes.c_char_p, "swift_splitk_workspace": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -106,7 +112,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_char_p if name == "swift_error_string" else ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 
@@ -128,9 +134,8 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def check_kernel_inputs(kernel: str, **tensors: torch.Tensor) -> None:
-    """Checks shared by every CUDA wrapper: one CUDA device, contiguous,
-    16-byte aligned, and no autograd recording (backward kernels are not
-    ported yet)."""
+    """Checks shared by every CUDA wrapper: one CUDA device, contiguous and
+    16-byte aligned."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{kernel}: all inputs must be on one CUDA device, got {devices}")
@@ -139,11 +144,13 @@ def check_kernel_inputs(kernel: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise ValueError(
-                f"{kernel}: {name} requires grad, but the kernel has no backward yet; "
-                "run under torch.no_grad()"
-            )
+
+
+def recording(*tensors: torch.Tensor) -> bool:
+    """True when autograd records and an input requires grad: the wrapper
+    then takes its ``torch.autograd.Function``; otherwise it launches (or
+    runs the plain version of) the forward alone."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check_dtype(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:

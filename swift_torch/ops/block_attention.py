@@ -1,9 +1,13 @@
-"""Shifted-window cosine attention from the qkv layout (kernel 2).
+"""Shifted-window cosine attention from the qkv layout (kernel 2) and its
+backward (kernel 6).
 
-CUDA kernel: ``csrc/block_attention.cu::swift_block_attention``, which
-replaces ``swift_tpu/ops/pallas_block_attention.py::_fwd_call``. Input is
-the qkv projection in its natural ``(B, gh, gw, heads·3·d)`` layout with the
-per-head [q|k|v] interleave; output is ``(B, gh, gw, heads·d)``.
+CUDA kernels: ``csrc/block_attention.cu::swift_block_attention``, which
+replaces ``swift_tpu/ops/pallas_block_attention.py::_fwd_call``, and
+``swift_block_attention_bwd``, which replaces ``_bwd_call`` (the softmax
+recomputed, dqkv in the [q|k|v] interleave, and the gradient of the logit
+scale). Input is the qkv projection in its natural ``(B, gh, gw,
+heads·3·d)`` layout with the per-head [q|k|v] interleave; output is
+``(B, gh, gw, heads·d)``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,20 @@ def _l2_normalize(a: torch.Tensor) -> torch.Tensor:
     return a * torch.rsqrt(torch.sum(a * a, -1, keepdim=True) + _EPS)
 
 
+def _windows(t, heads, window_size, shift):
+    """(B, gh, gw, heads·c) -> (B, nW, n, heads, c), rolled by -shift."""
+    B = t.shape[0]
+    x = window_partition(cyclic_shift(t, (-shift[0], -shift[1])), window_size)
+    return x.reshape(B, x.shape[1], x.shape[2], heads, -1)
+
+
+def _unwindows(t, window_size, grid, shift):
+    """Inverse of :func:`_windows`."""
+    B, nW, n = t.shape[:3]
+    x = window_reverse(t.reshape(B, nW, n, -1), window_size, grid)
+    return cyclic_shift(x, shift)
+
+
 def reference_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
     """Plain version: explicit roll, window partition and head split.
 
@@ -28,34 +46,48 @@ def reference_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
     fp32 and p is rounded to qkv.dtype before p·v."""
     B, gh, gw, feat = qkv.shape
     d = feat // (3 * heads)
-    wh, ww = window_size
-    sh, sw = shift
     mm = qkv.dtype
-    x = cyclic_shift(qkv, (-sh, -sw))
-    x = window_partition(x, (wh, ww))  # (B, nW, n, feat)
-    nW, n = x.shape[1], x.shape[2]
-    q, k, v = x.reshape(B, nW, n, heads, 3 * d).split(d, dim=-1)
+    q, k, v = _windows(qkv, heads, window_size, shift).split(d, dim=-1)
     qn = _l2_normalize(q.float()) * scale.float()[:, None]
     kn = _l2_normalize(k.float())
     s = torch.einsum("bwnhd,bwmhd->bwhnm", qn.to(mm).float(), kn.to(mm).float())
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bwhnm,bwmhd->bwnhd", p.to(mm).float(), v.float())
-    o = o.reshape(B, nW, n, heads * d).to(mm)
-    return cyclic_shift(window_reverse(o, (wh, ww), (gh, gw)), (sh, sw))
+    return _unwindows(o.to(mm), window_size, (gh, gw), shift)
 
 
-def fused_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
-    """qkv: (B, gh, gw, heads·3·d); scale: (heads,) fp32, the exp'ed and
-    clamped logit scale; window_size (wh, ww); shift (sh, sw) is a cyclic
-    roll of (-sh, -sw) before windowing, undone on the output.
+def reference_block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
+    """Plain version of kernel 6: (dqkv in qkv.dtype, dscale (heads,) in
+    scale.dtype). The TPU kernel's formulas: q̂s, k̂, p and dS rounded to
+    qkv.dtype before the products that consume them, everything else fp32."""
+    B, gh, gw, feat = qkv.shape
+    d = feat // (3 * heads)
+    mm = qkv.dtype
+    q, k, v = _windows(qkv, heads, window_size, shift).split(d, dim=-1)
+    do = _windows(dout, heads, window_size, shift).float()
+    s = scale.float()
+    qf, kf = q.float(), k.float()
+    rq = torch.rsqrt(torch.sum(qf * qf, -1, keepdim=True) + _EPS)
+    rk = torch.rsqrt(torch.sum(kf * kf, -1, keepdim=True) + _EPS)
+    qh, kh = qf * rq, kf * rk
+    qn = qh * s[:, None]
+    r = lambda a: a.to(mm).float()  # noqa: E731  (a rounding point)
+    logits = torch.einsum("bwnhd,bwmhd->bwhnm", r(qn), r(kh))
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bwhnm,bwnhd->bwmhd", r(p), r(do))
+    dp = torch.einsum("bwnhd,bwmhd->bwhnm", r(do), r(v.float()))
+    dS = p * (dp - torch.sum(p * dp, -1, keepdim=True))
+    dscale = torch.sum(dS * logits, dim=(0, 1, 3, 4)) / s
+    dqn = torch.einsum("bwhnm,bwmhd->bwnhd", r(dS), r(kh))
+    dkh = torch.einsum("bwhnm,bwnhd->bwmhd", r(dS), r(qn))
+    dqh = dqn * s[:, None]
+    dqf = (dqh - qh * torch.sum(dqh * qh, -1, keepdim=True)) * rq
+    dkf = (dkh - kh * torch.sum(dkh * kh, -1, keepdim=True)) * rk
+    tile = torch.cat([dqf.to(mm), dkf.to(mm), dv.to(mm)], dim=-1)
+    return _unwindows(tile, window_size, (gh, gw), shift), dscale.to(scale.dtype)
 
-    CPU tensors take :func:`reference_block_attention`. CUDA tensors must be
-    bf16 with wh·ww = 256 tokens a window, windows that tile the grid, and
-    d a multiple of 8 no larger than 128."""
-    if _build.on_cpu(qkv, scale):
-        return reference_block_attention(qkv, scale, heads, window_size, shift)
-    name = "fused_block_attention"
-    _build.check_kernel_inputs(name, qkv=qkv, scale=scale)
+
+def _check(name, qkv, scale, heads, window_size):
     _build.check_dtype(name, torch.bfloat16, qkv=qkv)
     _build.check_dtype(name, torch.float32, scale=scale)
     B, gh, gw, feat = qkv.shape
@@ -67,6 +99,17 @@ def fused_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
         raise ValueError(f"{name}: windows {window_size} must hold 256 tokens and tile {(gh, gw)}")
     if scale.shape != (heads,):
         raise ValueError(f"{name}: scale must be ({heads},), got {tuple(scale.shape)}")
+    return B, gh, gw, d
+
+
+def _block_attention(qkv, scale, heads, window_size, shift):
+    """The forward alone: the plain version on the CPU, else kernel 2."""
+    if _build.on_cpu(qkv, scale):
+        return reference_block_attention(qkv, scale, heads, window_size, shift)
+    name = "fused_block_attention"
+    _build.check_kernel_inputs(name, qkv=qkv, scale=scale)
+    B, gh, gw, d = _check(name, qkv, scale, heads, window_size)
+    wh, ww = window_size
     sh, sw = shift[0] % gh, shift[1] % gw
     out = torch.empty(B, gh, gw, heads * d, device=qkv.device, dtype=qkv.dtype)
     lib = _build.library()
@@ -81,4 +124,77 @@ def fused_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
     return out
 
 
+def block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
+    """(dqkv, dscale) of :func:`fused_block_attention`. CPU tensors take
+    :func:`reference_block_attention_bwd`; CUDA tensors go to kernel 6 under
+    the forward's shape rules (dout bf16, contiguous, (B, gh, gw, heads·d)).
+
+    Kernel 6 sums dk and dv over its query blocks through fp32 partials:
+    2·B·heads·nW·256·dp fp32 of workspace (dp = d rounded up to 32),
+    0.60 GB at B = 2 for 12×88 heads and 1.07 GB for 8×128."""
+    if _build.on_cpu(qkv, scale, dout):
+        return reference_block_attention_bwd(qkv, scale, dout, heads, window_size, shift)
+    name = "block_attention_bwd"
+    _build.check_kernel_inputs(name, qkv=qkv, scale=scale, dout=dout)
+    B, gh, gw, d = _check(name, qkv, scale, heads, window_size)
+    _build.check_dtype(name, torch.bfloat16, dout=dout)
+    if dout.shape != (B, gh, gw, heads * d):
+        raise ValueError(f"{name}: dout must be {(B, gh, gw, heads * d)}, got {tuple(dout.shape)}")
+    wh, ww = window_size
+    sh, sw = shift[0] % gh, shift[1] % gw
+    lib = _build.library()
+    dp = (d + 31) // 32 * 32
+    nW = (gh // wh) * (gw // ww)
+    n_qb = 256 // lib.swift_block_attention_bwd_qb(d)
+    dev = qkv.device
+    part_k = torch.empty(B * heads * nW * n_qb * 256 * dp, device=dev, dtype=torch.float32)
+    part_v = torch.empty_like(part_k)
+    part_s = torch.empty(B * heads * nW * n_qb, device=dev, dtype=torch.float32)
+    dqkv = torch.empty_like(qkv)
+    dscale = torch.empty_like(scale)
+    _build.check_launch(
+        lib.swift_block_attention_bwd(
+            qkv.data_ptr(), scale.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            dscale.data_ptr(), part_k.data_ptr(), part_v.data_ptr(), part_s.data_ptr(),
+            B, gh, gw, heads, d, wh, ww, sh, sw, _build.stream(),
+        ),
+        name,
+    )
+    block_attention_bwd.launches += 1
+    return dqkv, dscale
+
+
+class _BlockAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(qkv, scale, heads, window_size, shift):
+        return _block_attention(qkv, scale, heads, window_size, shift)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        qkv, scale, ctx.heads, ctx.window_size, ctx.shift = inputs
+        ctx.save_for_backward(qkv, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, scale = ctx.saved_tensors
+        dqkv, dscale = block_attention_bwd(qkv, scale, dout.to(qkv.dtype).contiguous(),
+                                           ctx.heads, ctx.window_size, ctx.shift)
+        return dqkv, dscale, None, None, None
+
+
+def fused_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
+    """qkv: (B, gh, gw, heads·3·d); scale: (heads,) fp32, the exp'ed and
+    clamped logit scale; window_size (wh, ww); shift (sh, sw) is a cyclic
+    roll of (-sh, -sw) before windowing, undone on the output.
+
+    CPU tensors take :func:`reference_block_attention`. CUDA tensors must be
+    bf16 with wh·ww = 256 tokens a window, windows that tile the grid, and
+    d a multiple of 8 no larger than 128. While autograd records, the
+    backward is :func:`block_attention_bwd`."""
+    if _build.recording(qkv, scale):
+        return _BlockAttention.apply(qkv, scale, heads, tuple(window_size), tuple(shift))
+    return _block_attention(qkv, scale, heads, window_size, shift)
+
+
 fused_block_attention.launches = 0
+block_attention_bwd.launches = 0

@@ -15,6 +15,11 @@ row ``b`` picked per sample.
   program normalises a block of rows held whole in registers (a masked
   2048-wide block covers D=1056), reading y and the residual once and
   writing once.
+
+Their backward is the vjp of the plain epilogue, as in the JAX package
+(``pallas_modnorm.py::_fused_bwd`` and ``_fused_mm_mn_bwd``, which have no
+backward kernel): kernel 3's backward recomputes y = x·wo.T with
+``torch.matmul`` in x.dtype and differentiates the PyTorch epilogue.
 """
 
 from __future__ import annotations
@@ -59,12 +64,71 @@ def _check_epilogue(name, residual, g, b, mod_scale, mod_shift):
         raise ValueError(f"{name}: D={D} must be a multiple of 16")
 
 
+def _vjp(fn, inputs, needs, dout):
+    """Gradients of ``fn(*inputs)`` against ``dout`` for the inputs whose
+    ``needs`` flag is set (None for the others), by re-running ``fn`` under
+    autograd on detached copies."""
+    with torch.enable_grad():
+        args = [a.detach().requires_grad_(n) for a, n in zip(inputs, needs)]
+        out = fn(*args)
+        wanted = [a for a in args if a.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, dout))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def _recompute_mm_modnorm(x, w, residual, g, b, mod_scale, mod_shift, eps):
+    y = torch.matmul(x, w.t())
+    return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+
+
+class _MatmulModnorm(torch.autograd.Function):
+    @staticmethod
+    def forward(x, w, residual, g, b, mod_scale, mod_shift, eps):
+        return _matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.eps = inputs[-1]
+        ctx.save_for_backward(*inputs[:-1])
+
+    @staticmethod
+    def backward(ctx, dout):
+        eps = ctx.eps
+        fn = lambda *a: _recompute_mm_modnorm(*a, eps)  # noqa: E731
+        return _vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:-1], dout) + (None,)
+
+
+class _Modnorm(torch.autograd.Function):
+    @staticmethod
+    def forward(y, residual, g, b, mod_scale, mod_shift, eps):
+        return _modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.eps = inputs[-1]
+        ctx.save_for_backward(*inputs[:-1])
+
+    @staticmethod
+    def backward(ctx, dout):
+        eps = ctx.eps
+        fn = lambda *a: reference_modnorm_residual(*a, eps)  # noqa: E731
+        return _vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:-1], dout) + (None,)
+
+
 def fused_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps=1e-6):
     """``residual + modnorm(x @ w.T)``. x: (B, ..., K); w: (D, K), the torch
     ``nn.Linear`` layout; residual: (B, ..., D). Returns residual.dtype.
 
     CPU tensors take :func:`reference_matmul_modnorm_residual`; CUDA tensors
-    must be bf16 (g, b fp32) with K % 8 == 0 and D % 16 == 0."""
+    must be bf16 (g, b fp32) with K % 8 == 0 and D % 16 == 0. While autograd
+    records, the backward is the vjp of the plain epilogue."""
+    args = (x, w, residual, g, b, mod_scale, mod_shift)
+    if _build.recording(*args):
+        return _MatmulModnorm.apply(*args, eps)
+    return _matmul_modnorm_residual(*args, eps)
+
+
+def _matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps):
     if _build.on_cpu(x, w, residual, g, b, mod_scale, mod_shift):
         return reference_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps)
     name = "fused_matmul_modnorm_residual"
@@ -139,7 +203,15 @@ def fused_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
     y, residual: (B, ..., D) ; g, b: (D,) ; mod_scale, mod_shift: (B, D).
 
     CPU tensors take :func:`reference_modnorm_residual`; CUDA tensors must be
-    bf16 (g, b fp32) with D % 16 == 0 and D ≤ 2048."""
+    bf16 (g, b fp32) with D % 16 == 0 and D ≤ 2048. While autograd records,
+    the backward is the vjp of the plain epilogue."""
+    args = (y, residual, g, b, mod_scale, mod_shift)
+    if _build.recording(*args):
+        return _Modnorm.apply(*args, eps)
+    return _modnorm_residual(*args, eps)
+
+
+def _modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps):
     if _build.on_cpu(y, residual, g, b, mod_scale, mod_shift):
         return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
     name = "fused_modnorm_residual"

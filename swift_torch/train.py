@@ -1,0 +1,168 @@
+"""Training entry point of the port:
+``python -m swift_torch.train experiment=... [k=v ...] [--device cuda|cpu]``.
+
+Counterpart of ``swift_tpu/train.py`` (reference src/swift/train.py:135-346):
+the same Hydra-style overrides over the same config tree, the same run-dir
+layout (``results/<experiment>/<run-id>`` with the composed config in
+``.hydra/config.yaml``) and the same resume flow. It runs on the GPU unless
+``--device cpu`` asks for the CPU, and raises where CUDA is absent. Ported
+so far: SwinV2 + PassPrecond + TrigFlowLoss + Adam/AdamW on one device.
+Online validation, finetuning, distillation and multi-device runs are not
+ported yet; a config that asks for validation trains without it, and one
+that asks for the others raises.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import sys
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from swift_torch import config as cfglib
+from swift_torch import factory
+from swift_torch.data.pipeline import BatchLoader
+from swift_torch.data.samplers import InfiniteSampler
+from swift_torch.training.trainer import Trainer, swin_flop_count
+from swift_torch.utils.checkpoint import get_ckpt_num, latest_checkpoint
+from swift_torch.utils.device import resolve_device
+from swift_torch.utils.log import is_main_process, log0
+
+
+def string_to_int(s: str) -> int:
+    return int(hashlib.sha256(s.encode("utf-8")).hexdigest(), 16) % (1 << 31)
+
+
+def split_device(argv: list[str]) -> tuple[str, list[str]]:
+    """(device, the config overrides) from ``--device X`` / ``--device=X``."""
+    device, rest, it = "cuda", [], iter(argv)
+    for a in it:
+        if a == "--device":
+            device = next(it)
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return device, rest
+
+
+def resume_setup(cfg: dict, run_dir: str):
+    """Reload a prior run's config and latest checkpoint (reference
+    train.py:44-99)."""
+    if cfg.get("resume") is None:
+        return cfg, None
+    prev = cfg["resume"]
+    if not os.path.isdir(prev):
+        prev = os.path.join(os.path.dirname(run_dir), cfg["resume"])
+    if not os.path.isdir(prev):
+        raise FileNotFoundError(f"{prev} is not a directory")
+    prev_cfg = cfglib.load_config(os.path.join(prev, ".hydra", "config.yaml"))
+    ckpt = latest_checkpoint(os.path.join(prev, "checkpoints"))
+    if not ckpt:
+        raise FileNotFoundError(f"No checkpoints in {os.path.join(prev, 'checkpoints')}")
+    if is_main_process():
+        src, dst = os.path.join(prev, ".hydra"), os.path.join(run_dir, ".hydra")
+        if os.path.isdir(src) and not os.path.samefile(os.path.dirname(src),
+                                                       os.path.dirname(dst)):
+            shutil.copytree(src, dst, dirs_exist_ok=True)
+    # run-control flags always come from the current invocation
+    for key in ("dry_run", "resume", "distill"):
+        if key in cfg:
+            prev_cfg[key] = cfg[key]
+    log0(f"Resuming from {ckpt}")
+    return prev_cfg, ckpt
+
+
+def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
+    """Compose the config and build (trainer, loader, config) as ``main``
+    runs them; a resume restores the trainer's state here."""
+    device_name, overrides = split_device(list(argv))
+    device = resolve_device(device_name)
+    cfg = cfglib.compose("train", overrides)
+    for key in ("finetune", "distill"):
+        if cfg.get(key) is not None:
+            raise NotImplementedError(f"{key} is not ported yet")
+
+    run_id = os.environ.get("RUN_ID") or datetime.now().strftime("%Y%m%d_%H%M%S")
+    run_dir = os.path.join("results", cfg["experiment_name"], run_id)
+    if is_main_process():
+        os.makedirs(run_dir, exist_ok=True)
+        cfglib.save_config(cfg, os.path.join(run_dir, ".hydra", "config.yaml"))
+    log0(f"Results directory: {run_dir} (device {device})")
+
+    cfg, ckpt = resume_setup(cfg, run_dir)
+    if ckpt is not None:
+        # explicit CLI value overrides still win on top of the resumed config
+        for ov in overrides:
+            key, _, raw = ov.partition("=")
+            key = key.lstrip("+")
+            if raw and "." in key or key in ("seed", "dry_run"):
+                cfglib._set_path(cfg, key, cfglib._parse_value(raw))
+
+    seed = int(cfg["seed"]) + string_to_int(run_id)
+    np.random.seed(seed % (1 << 31))
+    torch.manual_seed(seed)
+
+    log0("Loading dataset...")
+    dataset = factory.build_dataset(cfg["data"])
+    sampler = InfiniteSampler(dataset, seed=seed)
+    global_batch = int(cfg["data"]["batch_size"])
+    loader = BatchLoader(dataset, sampler, global_batch,
+                         num_workers=int(cfg["data"].get("data_workers", 4)))
+
+    log0("Constructing network...")
+    net = factory.build_precond(cfg["precond"], cfg["model"], dataset.img_resolution,
+                                dataset.n_target_channels, dataset.n_condition_channels)
+    net = net.to(device).train()
+
+    log0("Constructing loss function...")
+    loss_fn = factory.build_loss(cfg["loss"], dataset)
+
+    log0("Constructing optimizer...")
+    tcfg = cfg["trainer"]
+    resume_kimg = get_ckpt_num(ckpt) if ckpt else 0
+    optimizer, lr_fn = factory.build_optimizer(cfg["optimizer"], tcfg, global_batch, net,
+                                               resume_kimg=resume_kimg)
+    if tcfg.get("val_ticks") is not None:
+        log0("Online validation is not ported yet (ROADMAP A7): training without it.")
+
+    flop_count = swin_flop_count(
+        dataset.img_resolution, global_batch, int(cfg["model"]["depth"]),
+        dataset.n_target_channels + dataset.n_condition_channels, int(cfg["model"]["dim"]),
+        int(8 / 3.0 * int(cfg["model"]["dim"])), tuple(cfg["model"]["patch_size"]),
+        tuple(cfg["model"]["window_size"]),
+    )
+    trainer = Trainer(
+        net, optimizer, loss_fn,
+        global_batch_size=global_batch,
+        lr_fn=lr_fn,
+        total_kimg=float(tcfg["total_kimg"]),
+        ema_halflife_kimg=float(tcfg.get("ema_halflife_kimg", 500)),
+        ema_rampup_ratio=tcfg.get("ema_rampup_ratio", 0.05),
+        kimg_per_tick=float(tcfg.get("kimg_per_tick", 50)),
+        checkpoint_ticks=tcfg.get("checkpoint_ticks"),
+        run_dir=run_dir,
+        ckpt=ckpt,
+        flop_count=flop_count,
+        seed=seed,
+        grad_accum=int(tcfg.get("grad_accum", 1) or 1),
+    )
+    return trainer, loader, cfg
+
+
+def main(argv=None) -> int:
+    trainer, loader, cfg = setup(argv if argv is not None else sys.argv[1:])
+    if cfg.get("dry_run"):
+        log0("Dry run requested; exiting before training.")
+        return 0
+    log0("Training...")
+    trainer.train(loader)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,422 @@
+"""Trainer of the port: train step, EMA, kimg ticks, checkpoints.
+
+Counterpart of ``swift_tpu/training/trainer.py`` (reference
+src/swift/training/trainer.py:31-535). One optimizer step is loss → backward
+(over ``grad_accum`` microbatches) → ``clamp_grads`` → AdamW with the lr set
+from :func:`lr_schedule` → :func:`ema_update`. The tick bookkeeping, the
+``stats.jsonl`` keys, the checkpoint naming, the SIGTERM checkpoint and the
+resume follow the JAX trainer. Online validation (``_val_step``) is not
+ported yet: :meth:`Trainer.train` raises if it is handed val batches.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from swift_torch.utils.checkpoint import (
+    get_ckpt_num,
+    load_training_state,
+    save_checkpoint,
+)
+from swift_torch.utils.log import get_logger, is_main_process
+
+logger = get_logger(__name__)
+
+
+# ----------------------------------------------------------------------------
+# Schedules and param grouping (reference train.py:269-313, trainer.py:199-217)
+
+
+def lr_schedule(
+    base_lr: float,
+    global_batch_size: int,
+    lr_rampup_kimg: float = 10000,
+    total_kimg: float = 200000,
+    lr_min_factor: float = 0.01,
+    lr_cosine_anneal: bool = True,
+    resume_kimg: int = 0,
+) -> Callable[[int], float]:
+    """Linear warmup + optional cosine anneal keyed on global nimg. Returns
+    the lr as a function of the optimizer update count of this run (the
+    JAX package's optax schedule, the same numbers)."""
+    warmup_nimg = lr_rampup_kimg * 1000
+    total_nimg = total_kimg * 1000
+    min_lr = base_lr * lr_min_factor
+
+    def schedule(count: int) -> float:
+        nimg = resume_kimg * 1000 + count * global_batch_size
+        if nimg < warmup_nimg:
+            return min_lr + (base_lr - min_lr) * (nimg / max(warmup_nimg, 1))
+        if lr_cosine_anneal:
+            progress = min(1.0, (nimg - warmup_nimg) / max(total_nimg - warmup_nimg, 1))
+            return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * progress))
+        if warmup_nimg > 0:
+            # the lr holds at the value the last warmup step set
+            last = (warmup_nimg - 1) // global_batch_size * global_batch_size
+            return min_lr + (base_lr - min_lr) * (last / warmup_nimg)
+        return base_lr
+
+    return schedule
+
+
+def adamw_decay_mask(names) -> dict[str, bool]:
+    """True (decay) except pos_embed and norm scales/biases outside
+    modulation (reference train.py:274-285); keyed on parameter names."""
+
+    def label(name: str) -> bool:
+        if "pos_embed" in name:
+            return False
+        if "norm" in name and "modulation" not in name:
+            return False
+        return True
+
+    return {n: label(n) for n in names}
+
+
+def swin_flop_count(
+    img_shape, batch_size, depth, num_channels, hidden_size,
+    ffn_hidden_size, patch_size, window_size,
+) -> int:
+    """Analytic FLOP model (reference models/swin.py:27-54): 6·fwd_flop =
+    3 (fwd+bwd) × 2 (MAC)."""
+    img_h, img_w = img_shape
+    p_dim = patch_size[0] * patch_size[1]
+    seqlen = window_size[0] * window_size[1]
+    nwindows = batch_size * img_h * img_w / seqlen / p_dim
+    pre_post = 2 * nwindows * p_dim * num_channels * hidden_size
+    qkvo = 4 * nwindows * seqlen * hidden_size**2
+    fa = 2 * nwindows * seqlen**2 * hidden_size
+    glu = 3 * nwindows * seqlen * ffn_hidden_size * hidden_size
+    fwd = (qkvo + fa + glu) * depth + pre_post
+    return int(6 * fwd)
+
+
+@torch.no_grad()
+def clamp_grads(params) -> None:
+    """NaN/Inf gradient defense, in place: nan -> 0, ±inf -> ±1e5
+    (reference trainer.py:223-231)."""
+    for p in params:
+        if p.grad is not None:
+            torch.nan_to_num_(p.grad, nan=0.0, posinf=1e5, neginf=-1e5)
+
+
+@torch.no_grad()
+def ema_update(ema: dict, params: dict, nimg: float, global_batch_size: float,
+               ema_halflife_kimg: float, ema_rampup_ratio: Optional[float]) -> None:
+    """EMA with half-life ramp-up, in place (reference trainer.py:237-245):
+    halflife_nimg is capped at ``nimg * rampup`` (the images seen BEFORE
+    this step), beta = 0.5^(batch/halflife), ema <- p + beta·(ema − p)."""
+    halflife = ema_halflife_kimg * 1000
+    if ema_rampup_ratio is not None:
+        halflife = min(halflife, nimg * ema_rampup_ratio)
+    beta = 0.5 ** (global_batch_size / max(halflife, 1e-8))
+    for name, e in ema.items():
+        p = params[name]
+        e.copy_(p + beta * (e - p))
+
+
+def global_norm(params) -> torch.Tensor:
+    """L2 norm over every gradient, fp32."""
+    sq = [p.grad.float().pow(2).sum() for p in params if p.grad is not None]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+# ----------------------------------------------------------------------------
+
+
+class Trainer:
+    """``net``: the precond module, already on its device; ``optimizer``: a
+    ``torch.optim`` optimizer over ``net``'s parameters, whose groups' lr
+    ``lr_fn(count)`` sets before every update; ``loss_fn(net, x, condition,
+    auxiliary, gen)``: the loss (see ``swift_torch.training.loss``)."""
+
+    def __init__(
+        self,
+        net: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        loss_fn,
+        *,
+        global_batch_size: int,
+        lr_fn: Callable[[int], float],
+        total_kimg: float = 200000,
+        ema_halflife_kimg: float = 500,
+        ema_rampup_ratio: Optional[float] = 0.05,
+        kimg_per_tick: float = 50,
+        checkpoint_ticks: Optional[int] = 50,
+        run_dir: str = ".",
+        ckpt: Optional[str] = None,
+        flop_count: Optional[int] = None,
+        seed: int = 0,
+        grad_accum: int = 1,
+    ):
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.net = net
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.global_batch_size = global_batch_size
+        self.lr_fn = lr_fn
+        self.total_kimg = total_kimg
+        self.ema_halflife_kimg = ema_halflife_kimg
+        self.ema_rampup_ratio = ema_rampup_ratio
+        self.kimg_per_tick = kimg_per_tick
+        self.checkpoint_ticks = checkpoint_ticks
+        self.run_dir = run_dir
+        self.flop_count = flop_count
+        self.seed = seed
+        self.grad_accum = int(grad_accum)
+        self.device = next(net.parameters()).device
+        self.depth = len(net.model.transformer.layers)
+        self.params = dict(net.named_parameters())
+        self.history: dict[str, list] = {}
+
+        self.resume_kimg = 0
+        if ckpt is not None:
+            self._restore(ckpt)
+            self.resume_kimg = get_ckpt_num(ckpt)
+        else:
+            self.ema = {n: p.detach().clone() for n, p in self.params.items()}
+        self.nimg = float(self.resume_kimg * 1000)
+        self.updates = 0  # optimizer updates in this run (the lr schedule's count)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _restore(self, ckpt: str) -> None:
+        params, ema, opt_state = load_training_state(ckpt)
+        self.net.load_state_dict(params)
+        self.ema = {n: ema[n].to(self.device).clone() for n in self.params}
+        if opt_state:
+            try:
+                self.optimizer.load_state_dict(optimizer_state_dict(self.optimizer,
+                                                                    self.params, opt_state))
+                return
+            except (KeyError, ValueError) as e:
+                logger.warning(f"Could not load the optimizer state ({e}); fresh optimizer.")
+        else:
+            logger.warning("Checkpoint holds no optimizer state; fresh optimizer.")
+
+    # ------------------------------------------------------------------
+    def backward(self, batch: dict) -> torch.Tensor:
+        """Loss and gradients of a host batch, over ``grad_accum``
+        microbatches (each loss a per-sample mean, the gradients averaged
+        over the microbatches). Returns the loss as a device scalar."""
+        net, accum = self.net, self.grad_accum
+        dev = self.device
+        tensors = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                   for k in ("x", "t", "delta")}
+        B = tensors["t"].shape[0]
+        if B % accum:
+            raise ValueError(f"grad_accum={accum} must divide the batch of {B}")
+        self.optimizer.zero_grad(set_to_none=True)
+        loss_sum = torch.zeros((), device=dev)
+        for mb in range(accum):
+            sl = slice(mb * B // accum, (mb + 1) * B // accum)
+            loss = self.loss_fn(net, tensors["t"][sl], tensors["x"][sl], tensors["delta"][sl],
+                                gen=self.gen)
+            (loss / accum).backward()
+            loss_sum += loss.detach()
+        return loss_sum / accum
+
+    def update(self) -> torch.Tensor:
+        """clamp_grads → AdamW at the scheduled lr → EMA; returns the global
+        gradient norm (after the clamp) as a device scalar."""
+        params = list(self.params.values())
+        clamp_grads(params)
+        gnorm = global_norm(params)
+        lr = self.lr_fn(self.updates)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.updates += 1
+        ema_update(self.ema, self.params, self.nimg, float(self.global_batch_size),
+                   self.ema_halflife_kimg, self.ema_rampup_ratio)
+        self.nimg += self.global_batch_size
+        return gnorm
+
+    def step(self, batch: dict) -> dict:
+        """One optimizer step on a host batch; returns {"loss", "grad_norm"}
+        as device scalars."""
+        loss = self.backward(batch)
+        return {"loss": loss, "grad_norm": self.update()}
+
+    # ------------------------------------------------------------------
+    def train(self, train_batches, val_batches=None, val_dataset=None):
+        """``train_batches``: an iterable of host batch dicts (see
+        ``swift_torch.data.pipeline``)."""
+        if val_batches is not None:
+            raise NotImplementedError("online validation is not ported yet (ROADMAP A7)")
+        logger.info(f"Training for {self.total_kimg} kimg (online validation is not ported; "
+                    "none runs)...")
+        stats_jsonl = None
+        if is_main_process():
+            os.makedirs(self.run_dir, exist_ok=True)
+            stats_jsonl = open(os.path.join(self.run_dir, "stats.jsonl"), "at")
+
+        cur_tick = 0
+        global_nimg = self.resume_kimg * 1000
+        tick_start_nimg = global_nimg
+        start_time = tick_start_time = time.perf_counter()
+        dt_misc = dt_data_tick = 0.0
+        i = j = 0
+        it = iter(train_batches)
+
+        interrupted = {"flag": False}
+        prev_handlers = {}
+
+        def _request_stop(signum, frame):
+            logger.warning(f"signal {signum}: checkpointing at next tick")
+            interrupted["flag"] = True
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, _request_stop)
+        except ValueError:
+            prev_handlers = {}  # not on the main thread
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+        try:
+            while True:
+                t0_iter = time.perf_counter()
+                t0 = time.perf_counter()
+                batch = next(it)
+                dt_data_tick += time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                metrics_dev = self.step(batch)
+                i += 1
+                global_nimg += self.global_batch_size
+                done = global_nimg >= self.total_kimg * 1000 or interrupted["flag"]
+                if (not done and cur_tick != 0
+                        and global_nimg < tick_start_nimg + self.kimg_per_tick * 1000):
+                    j += 1
+                    continue
+
+                # block for real timing at tick boundaries only
+                metrics_host = {k: float(v) for k, v in metrics_dev.items()}
+                dt_step = time.perf_counter() - t0
+                tick_end_time = time.perf_counter()
+                dt_tick = tick_end_time - tick_start_time
+                nimg_tick = global_nimg - tick_start_nimg
+                iters_tick = nimg_tick // self.global_batch_size
+                tflops = ((iters_tick * self.flop_count / dt_tick) / 1e12
+                          if self.flop_count else 0.0)
+                mem_gb = (torch.cuda.max_memory_allocated(self.device) / 2**30
+                          if self.device.type == "cuda" else 0.0)
+                metrics = {
+                    "train/tick": cur_tick,
+                    "train/iter": i,
+                    "train/jter": j,
+                    "train/loss": metrics_host["loss"],
+                    "train/grad_norm": metrics_host["grad_norm"],
+                    "train/kimg": int(global_nimg / 1e3),
+                    "train/tflops": tflops,
+                    "train/dt/dt": tick_end_time - start_time,
+                    "train/dt/tick": dt_tick,
+                    "train/dt/iter": tick_end_time - t0_iter,
+                    "train/dt/data": dt_data_tick,
+                    "train/dt/step": dt_step,
+                    "train/dt/misc": dt_misc,
+                    "train/dt/kimg": 1e3 * dt_tick / max(nimg_tick, 1),
+                    "train/mem/device": mem_gb,
+                    "train/mem/cpu": _rss_gb(),
+                    "train/lr": float(self.lr_fn(self.updates)),
+                }
+                logger.info(" ".join(
+                    f"{k.replace('train/', '').replace('dt/', '').replace('mem/', '')}="
+                    + (f"{v:.4g}" if isinstance(v, float) else str(v))
+                    for k, v in metrics.items()))
+                for k, v in metrics.items():
+                    self.history.setdefault(k, []).append(v)
+                if stats_jsonl is not None:
+                    # the JAX trainer's line: each tick's metrics as one-sample moments
+                    stats_jsonl.write(json.dumps({k: {"num": 1, "mean": float(v), "std": 0.0}
+                                                  for k, v in metrics.items()}) + "\n")
+                    stats_jsonl.flush()
+
+                # a signal-requested stop checkpoints even when periodic
+                # checkpointing is disabled
+                want_ckpt = interrupted["flag"] or (
+                    self.checkpoint_ticks is not None
+                    and (done or (cur_tick % self.checkpoint_ticks == 0 and cur_tick != 0))
+                )
+                if want_ckpt and is_main_process():
+                    self.save_checkpoint(global_nimg)
+
+                cur_tick += 1
+                tick_start_nimg = global_nimg
+                dt_data_tick = 0.0
+                tick_start_time = time.perf_counter()
+                dt_misc = tick_start_time - tick_end_time
+                if done:
+                    if interrupted["flag"]:
+                        logger.warning("stopped by signal; checkpoint saved — resume with "
+                                       "resume=<this run id>")
+                    logger.info(f"Finished training in "
+                                f"{(tick_end_time - start_time) / 3600:.2f} hours")
+                    if is_main_process():
+                        out = os.path.join(self.run_dir, "outputs")
+                        os.makedirs(out, exist_ok=True)
+                        with open(os.path.join(out, "train.json"), "w") as f:
+                            json.dump(self.history, f)
+                    return self
+        finally:
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+            if stats_jsonl is not None:
+                stats_jsonl.close()
+
+    def save_checkpoint(self, cur_nimg: int) -> str:
+        path = os.path.join(self.run_dir, "checkpoints",
+                            f"checkpoint-{int(cur_nimg) // 1000:06d}.npz")
+        logger.info(f"Saving checkpoint: {path}")
+        save_checkpoint(path, self.ema, self.depth, params=self.net.state_dict(),
+                        opt_state=optimizer_state_arrays(self.optimizer, self.params))
+        return path
+
+
+def _rss_gb() -> float:
+    try:
+        import psutil
+
+        return psutil.Process(os.getpid()).memory_info().rss / 2**30
+    except ImportError:
+        return 0.0
+
+
+# ----------------------------------------------------------------------------
+# AdamW state <-> flat arrays named by parameter (the port's opt_state layout)
+
+
+def optimizer_state_arrays(optimizer: torch.optim.Optimizer, params: dict) -> dict:
+    """{"<param name>/<state key>": numpy array} for every parameter with
+    optimizer state (AdamW: step, exp_avg, exp_avg_sq)."""
+    names = {id(p): n for n, p in params.items()}
+    out = {}
+    for p, st in optimizer.state.items():
+        for k, v in st.items():
+            out[f"{names[id(p)]}/{k}"] = np.asarray(torch.as_tensor(v).detach().float().cpu())
+    return out
+
+
+def optimizer_state_dict(optimizer: torch.optim.Optimizer, params: dict, arrays: dict) -> dict:
+    """Inverse of :func:`optimizer_state_arrays`: a state dict for
+    ``optimizer.load_state_dict`` (its param groups, the saved state)."""
+    by_name: dict[str, dict] = {}
+    for k, v in arrays.items():
+        name, key = k.rsplit("/", 1)
+        by_name.setdefault(name, {})[key] = torch.from_numpy(np.array(v))
+    names = {id(p): n for n, p in params.items()}
+    ordered = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {i: by_name[names[id(p)]] for i, p in enumerate(ordered) if names[id(p)] in by_name}
+    for st in state.values():
+        if "step" in st:
+            st["step"] = st["step"].reshape(())
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}

@@ -12,7 +12,10 @@
 * Checkpoints cross both ways: the port reads a JAX-written npz and the JAX
   loader reads the one the port writes, bit for bit.
 * ``--dump numpy`` writes the (n, members, steps+1, C, H, W) array.
-* Importing and running the port leaves jax out of ``sys.modules``.
+* Importing and running the port (its training modules too) leaves jax,
+  flax, optax and every ``swift_tpu`` module out of ``sys.modules``.
+* ``generate`` runs on CUDA unless ``--device cpu`` asks for the CPU, and
+  raises where CUDA is absent.
 """
 
 import os
@@ -125,7 +128,7 @@ def test_generate_store_layout_matches_jax(run_dir, monkeypatch, tmp_path):
     monkeypatch.setenv("SWIFT_DEVICE_KEEPALIVE", "0")
     argv = ["--input", str(run), "--members", "2", "--steps", "2", "--batch", "2",
             "--samples", "3", "--segment", "1", "--seed", "3"]
-    got_file = generate.cli(argv + ["--output", str(tmp_path / "torch")])
+    got_file = generate.cli(argv + ["--output", str(tmp_path / "torch"), "--device", "cpu"])
     want_file = jgenerate.main(jgenerate.parser.parse_args(argv + ["--output",
                                                                    str(tmp_path / "jax")]))
     assert os.path.basename(got_file) == os.path.basename(want_file)
@@ -166,9 +169,12 @@ def test_port_never_imports_jax():
     code = """
 import sys
 import numpy as np, torch
-from swift_torch import factory, generate
+from swift_torch import config, factory, generate, train
+from swift_torch.data import era5, pipeline, samplers, synthetic
 from swift_torch.data.synthetic import SyntheticERA5
 from swift_torch.ops import block_attention, ffn, linear, modnorm
+from swift_torch.training import loss, trainer
+from swift_torch.utils import checkpoint, io, zarr_lite
 VARS = %r
 ds = SyntheticERA5(VARS, ["land_sea_mask"], n_files=8, shape=(8, 16))
 net = factory.build_precond(%r, %r, ds.img_resolution, ds.n_target_channels,
@@ -176,7 +182,8 @@ net = factory.build_precond(%r, %r, ds.img_resolution, ds.n_target_channels,
 class Args: members, steps, batch, samples, interval, segment, seed, solver, \
     num_solver_steps, dump = 2, 2, 2, 2, 6, 1, 0, "scm", 1, "zarr"
 generate.rollout_to_store(Args, ds, net, sys.argv[1])
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
 assert not bad, bad
 print("no-jax-ok")
 """ % (VARS, PRECOND, MODEL)
@@ -210,3 +217,13 @@ def test_numpy_dump_layout(tmp_path):
         for m in range(2):
             np.testing.assert_allclose(out[k, m, 0], ic.transpose(2, 0, 1), rtol=1e-6, atol=1e-6)
     assert np.isfinite(out).all() and out[:, :, 1:].std() > 0
+
+
+def test_generate_needs_cuda_unless_cpu_is_asked_for(run_dir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    argv = ["--input", str(run_dir[0]), "--steps", "1", "--samples", "1",
+            "--output", str(tmp_path / "out")]
+    assert generate.parser.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate.cli(argv)

@@ -136,7 +136,15 @@ WRAPPERS = {
     "modnorm": (modnorm.fused_modnorm_residual,
                 lambda d: (d(1, 4, 16), d(1, 4, 16), d(16), d(16), d(1, 16), d(1, 16))),
     "ffn": (ffn.fused_swiglu_ffn, lambda d: (d(4, 16), d(16, 16), d(16, 8))),
+    "linear_bwd": (linear.fused_linear_bwd, lambda d: (d(4, 8), d(4, 16), d(8, 16))),
+    "block_attention_bwd": (block_attention.block_attention_bwd,
+                            lambda d: (d(1, 16, 16, 3 * 16), d(1), d(1, 16, 16, 16), 1,
+                                       (16, 16))),
+    "ffn_fwd_save": (ffn.swiglu_ffn_fwd_save, lambda d: (d(4, 16), d(16, 16), d(16, 8))),
+    "ffn_bwd_saved": (ffn.swiglu_ffn_bwd_saved,
+                      lambda d: (d(4, 16), d(4, 16), d(4, 8), d(4, 8), d(16, 16), d(16, 8))),
 }
+FORWARDS = ("linear", "block_attention", "matmul_modnorm", "modnorm", "ffn")
 
 
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
@@ -151,11 +159,31 @@ def test_wrapper_device_routing(name):
         fn(*args(lambda *s: torch.randn(*s, device="meta")))
 
 
+@pytest.mark.parametrize("name", FORWARDS)
+def test_wrapper_grad_routing(name):
+    """While autograd records, a wrapper takes its autograd Function: on
+    CPU tensors its forward and backward are the plain versions (no launch),
+    and a tensor on any other device still goes to the kernel or raises."""
+    fn, args = WRAPPERS[name]
+    before = fn.launches
+    cpu = [a.requires_grad_() if isinstance(a, torch.Tensor) else a
+           for a in args(lambda *s: torch.randn(*s))]
+    out = fn(*cpu)
+    assert out.grad_fn is not None and "Backward" in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert all(a.grad is not None for a in cpu if isinstance(a, torch.Tensor))
+    assert fn.launches == before
+    meta = [a.requires_grad_() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+            for a in args(lambda *s: torch.randn(*s, device="meta"))]
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*meta)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """The chip smoke's kernel phase: all five kernels at the flagship's
-    shapes (12x88 and 8x128 heads, both window shifts), bf16, within 2e-2 of
-    max|plain| (bf16 rounding of the outputs and of p)."""
+    """The chip smoke's kernel phase: all nine kernels at the flagship's
+    shapes (12x88 and 8x128 heads, both window shifts), bf16, every output
+    within 2e-2 of max|plain| (bf16 rounding of the outputs, p and dS)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     import chip_smoke
