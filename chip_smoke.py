@@ -6,13 +6,14 @@ Phases, each printed as it finishes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``swift_torch/csrc`` with nvcc;
-3. kernels: each of the nine kernels (five forward, four for training)
-   against its plain PyTorch version at the flagship's shapes (B=2, 64x128
-   tokens, dim 1056, heads 12x88 and 8x128, window shift (0,0) and (8,8)),
-   bf16 inputs from a numpy seed; fails when max|kernel - plain| of any
-   output exceeds 2e-2 of max|plain|; prints both times (CUDA events,
-   median of 20 launches), the bound the card could reach from the shapes
-   and, for the qkv projection, ``F.linear``'s time;
+3. kernels: each of the thirteen kernels (five forward, four for reverse-
+   mode training, four forward-mode tangents for the sCM step) against its
+   plain PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim
+   1056, heads 12x88 and 8x128, window shift (0,0) and (8,8)), bf16 inputs
+   from a numpy seed; fails when max|kernel - plain| of any output exceeds
+   2e-2 of max|plain|; prints both times (CUDA events, median of 20
+   launches), the bound the card could reach from the shapes and, for the
+   qkv projection and its primal + tangent, ``F.linear``'s time;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -32,7 +33,18 @@ Phases, each printed as it finishes:
    device time by kernel under ``torch.profiler``;
 6. gradient cut: a depth-2 cut of the trained network, loss and every
    parameter's gradient through the kernels in bf16 against the fp32 plain
-   path on the CPU.
+   path on the CPU;
+7. scm: six full-width steps of ``era5-swinv2-1.4-scm``, the default
+   experiment (SCMLoss with its jvp forward through the tangent kernels,
+   Muon with aux-Adam, EMA, remat), cut like the TrigFlow slice, then one
+   step with the tangent warmup at r = 1. Fails unless all thirteen kernels
+   launched at the step's exact per-step counts, loss and grad norm stayed
+   finite, every parameter moved, and the Muon and Adam groups hold the
+   parameters the JAX package's labels give; prints s/step, images/s,
+   TFLOP/s, peak memory and one profiled step by kernel;
+8. sCM cut: a depth-2 cut of the sCM-trained network, its tangent dF_x and
+   then the sCM loss (r = 1) and every gradient at fixed draws through the
+   kernels in bf16, against the fp32 plain path on the CPU.
 
 Fails if any module of jax, flax, optax or swift_tpu was loaded. The last
 lines are the per-kernel JSON record and the contract line
@@ -62,32 +74,40 @@ from swift_torch.generate import read_store, rollout_to_store
 from swift_torch.ops import _build
 from swift_torch.ops.block_attention import (
     block_attention_bwd,
+    block_attention_tangent,
     fused_block_attention,
     reference_block_attention,
     reference_block_attention_bwd,
+    reference_block_attention_tangent,
 )
 from swift_torch.ops.ffn import (
     fused_swiglu_ffn,
     reference_swiglu_ffn,
     reference_swiglu_ffn_bwd_saved,
     reference_swiglu_ffn_fwd_save,
+    reference_swiglu_ffn_pt,
     swiglu_ffn_bwd_saved,
     swiglu_ffn_fwd_save,
+    swiglu_ffn_pt,
 )
 from swift_torch.ops.linear import (
     fused_linear,
     fused_linear_bwd,
+    linear_pt,
     reference_linear,
     reference_linear_bwd,
+    reference_linear_pt,
 )
 from swift_torch.ops.modnorm import (
     fused_matmul_modnorm_residual,
     fused_modnorm_residual,
+    modnorm_residual_tangent,
     reference_matmul_modnorm_residual,
     reference_modnorm_residual,
+    reference_modnorm_residual_tangent,
 )
 from swift_torch.sampling.factory import sampler_factory
-from swift_torch.training.trainer import Trainer, swin_flop_count
+from swift_torch.training.trainer import Trainer, muon_param_labels, swin_flop_count
 from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -123,6 +143,15 @@ TRAIN = dict(batch=4, steps=6, steps_per_tick=2)
 # first run, tightened after it read 9.4e-6 and 6.8e-3 (NVIDIA H100 80GB HBM3, 700 W)
 CUT_LOSS_TOL = 1e-3
 CUT_GRAD_TOL = 3e-2
+# the sCM slice: swift_tpu/configs/experiment/era5-swinv2-1.4-scm.yaml (the default
+# experiment, the same model as MODEL), cut as TRAIN is
+SCM_EXPERIMENT = "era5-swinv2-1.4-scm"
+# depth-2 sCM cut: ||dF_x bf16 kernels - fp32 plain|| / ||fp32 plain||, the loss and
+# every gradient; stated as 5e-2, 1e-3 and 3e-2 before the first run, tightened after it
+# read 1.40e-2, 2.4e-6 and 1.77e-2 (NVIDIA H100 80GB HBM3, 700 W)
+SCM_CUT_DF_TOL = 2e-2
+SCM_CUT_LOSS_TOL = 1e-4
+SCM_CUT_GRAD_TOL = 2.5e-2
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 KERNELS = {
@@ -149,6 +178,16 @@ KERNELS = {
                              "swift_torch/csrc/gemm_bwd.cu", "swift_tpu/ops/pallas_ffn.py:199"),
     "linear_bwd": (fused_linear_bwd, reference_linear_bwd, "cuda", "swift_torch/csrc/gemm_bwd.cu",
                    "swift_tpu/ops/pallas_linear.py:84"),
+    "linear_pt": (linear_pt, reference_linear_pt, "cuda", "swift_torch/csrc/gemm.cu",
+                  "swift_tpu/ops/pallas_linear.py:145"),
+    "swiglu_ffn_pt": (swiglu_ffn_pt, reference_swiglu_ffn_pt, "cuda", "swift_torch/csrc/ffn.cu",
+                      "swift_tpu/ops/pallas_ffn.py:392"),
+    "modnorm_residual_tangent": (modnorm_residual_tangent, reference_modnorm_residual_tangent,
+                                 "triton", "swift_torch/ops/modnorm.py",
+                                 "swift_tpu/ops/pallas_modnorm.py:202"),
+    "block_attention_tangent": (block_attention_tangent, reference_block_attention_tangent,
+                                "cuda", "swift_torch/csrc/block_attention.cu",
+                                "swift_tpu/ops/pallas_block_attention.py:408"),
 }
 
 
@@ -162,21 +201,24 @@ def kernel_flops(name: str, args) -> float:
     if name == "linear":
         x, w = args
         return 2.0 * _tokens(x) * w.shape[0] * w.shape[1]
-    if name == "linear_bwd":
-        _, x, w = args
+    if name in ("linear_bwd", "linear_pt"):
+        x, w = args[1], args[2]
         return 4.0 * _tokens(x) * w.shape[0] * w.shape[1]
-    if name in ("block_attention", "block_attention_bwd"):
+    if name in ("block_attention", "block_attention_bwd", "block_attention_tangent"):
         qkv = args[0]
-        per = 4.0 if name == "block_attention" else 10.0  # QKᵀ, PV | + dV, dP, dQ, dK
+        # QKᵀ, PV | + dV, dP, dQ, dK | tangent: QKᵀ, dQ·Kᵀ, Q·dKᵀ, dP·V, P·dV
+        per = 4.0 if name == "block_attention" else 10.0
         return per * _tokens(qkv) * 256 * qkv.shape[-1] / 3  # 256 keys a window
     if name == "matmul_modnorm_residual":
         x, w = args[:2]
         return 2.0 * _tokens(x) * w.shape[0] * w.shape[1] + 10.0 * _tokens(x) * w.shape[0]
     if name == "modnorm_residual":
         return 10.0 * args[0].numel()
+    if name == "modnorm_residual_tangent":
+        return 18.0 * args[0].numel()
     x = args[0]
     T, D, H = _tokens(x), x.shape[-1], args[-1].shape[1]
-    return (12.0 if name == "swiglu_ffn_bwd_saved" else 6.0) * T * D * H
+    return (12.0 if name in ("swiglu_ffn_bwd_saved", "swiglu_ffn_pt") else 6.0) * T * D * H
 
 
 def _nbytes(objs) -> int:
@@ -194,12 +236,32 @@ def kernel_bound(name: str, args, out) -> tuple[float, str]:
 
 
 FORWARD = ("linear", "block_attention", "matmul_modnorm_residual", "modnorm_residual",
-           "swiglu_ffn")  # the forecast runs these; training runs all of KERNELS
+           "swiglu_ffn")  # the forecast runs these
+TRIGFLOW = FORWARD + ("block_attention_bwd", "swiglu_ffn_fwd_save", "swiglu_ffn_bwd_saved",
+                      "linear_bwd")  # the TrigFlow step; the sCM step runs all of KERNELS
+# launches of one sCM step (the JAX launch pattern at the flagship grid): the jvp
+# forward's 12 blocks (kernels 14, 2, 7, 4 and 12 twice, 11), then the TrigFlow step's
+# first forward, remat recompute and backward
+SCM_PER_STEP = {
+    "linear": 24, "block_attention": 36, "matmul_modnorm_residual": 24, "modnorm_residual": 48,
+    "swiglu_ffn": 12, "block_attention_bwd": 12, "swiglu_ffn_fwd_save": 12,
+    "swiglu_ffn_bwd_saved": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
+    "modnorm_residual_tangent": 24, "block_attention_tangent": 12,
+}
 
 
-# One PyTorch call that computes the same function, timed as a yardstick
-# (the port never calls it); None where no single call does.
-LIBRARY = {"linear": lambda x, w: torch.nn.functional.linear(x, w)}
+def _library_linear_pt(x, dx, w):
+    stacked = torch.cat([x, dx])  # made once, outside the timing
+    return lambda: torch.nn.functional.linear(stacked, w)
+
+
+# One PyTorch call that computes the same function, timed as a yardstick (the
+# port never calls it), as a maker of the timed call; None where no single
+# call does.
+LIBRARY = {
+    "linear": lambda x, w: lambda: torch.nn.functional.linear(x, w),
+    "linear_pt": _library_linear_pt,  # F.linear on the (2T, K) stack of x and dx
+}
 
 
 def log(msg: str) -> None:
@@ -281,6 +343,13 @@ def _inputs(rng: np.random.Generator, heads: int, d: int, B: int = 2) -> dict:
         "dy": t((T, DIM)),
         "gate": t((T, HIDDEN)),
         "up": t((T, HIDDEN)),
+        # forward-mode tangents
+        "dx": t((T, DIM)),
+        "dqkv": t((B, gh, gw, 3 * inner)),
+        "dy_mn": t((B, gh, gw, DIM), 3.0),
+        "dr": t((B, gh, gw, DIM)),
+        "dmsc": t((B, DIM), 0.2),
+        "dmsh": t((B, DIM), 0.2),
     }
 
 
@@ -294,6 +363,7 @@ def phase_kernels() -> dict:
         cases = [
             ("linear", (a["x"], a["w_qkv"]), {}),
             ("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"]), {}),
+            ("linear_pt", (a["x"], a["dx"], a["w_qkv"]), {}),
             ("matmul_modnorm_residual",
              (a["attn"], a["w_o"], a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
         ] + [
@@ -301,6 +371,10 @@ def phase_kernels() -> dict:
             for s in SHIFTS
         ] + [
             ("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, (16, 16), s),
+             {"shift": s})
+            for s in SHIFTS
+        ] + [
+            ("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, (16, 16), s),
              {"shift": s})
             for s in SHIFTS
         ]
@@ -311,6 +385,9 @@ def phase_kernels() -> dict:
                 ("swiglu_ffn_fwd_save", (a["x"], a["w1"], a["w2"]), {}),
                 ("swiglu_ffn_bwd_saved",
                  (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]), {}),
+                ("swiglu_ffn_pt", (a["x"], a["dx"], a["w1"], a["w2"]), {}),
+                ("modnorm_residual_tangent",
+                 (a["y"], a["dy_mn"], a["dr"], a["g"], a["b"], a["msc"], a["dmsc"], a["dmsh"]), {}),
             ]
         for name, args, tags in cases:
             fused, plain = KERNELS[name][:2]
@@ -326,7 +403,7 @@ def phase_kernels() -> dict:
             ms = time_ms(lambda: fused(*args))
             plain_ms = time_ms(lambda: plain(*args))
             lib = LIBRARY.get(name)
-            library_ms = time_ms(lambda: lib(*args)) if lib else None
+            library_ms = time_ms(lib(*args)) if lib else None
             bound_ms, bound_by = kernel_bound(name, args, got)
             rel = max(e / r for e, r in zip(errs, refs))
             log(f"[kernels] {name:24s} heads={heads:2d} d={d:3d} {tags or ''} "
@@ -465,28 +542,28 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
-def train_config() -> dict:
-    """The TrigFlow flagship experiment's composed config (read from the
-    YAML tree), cut to a few steps of a global batch of 4. The 2000-kimg lr
-    warmup is cut to 0: six steps would run at lr ≈ 5e-8, below half an
-    fp32 ulp of a parameter near 1, so the slice runs at the base lr that
-    most of a run trains at."""
+def train_config(experiment: str, *extra: str) -> dict:
+    """A flagship experiment's composed config (read from the YAML tree),
+    cut to a few steps of a global batch of 4. The 2000-kimg lr warmup is
+    cut to 0: six steps would run at lr ≈ 5e-8, below half an fp32 ulp of a
+    parameter near 1, so the slice runs at the base lr that most of a run
+    trains at."""
     steps_kimg = TRAIN["batch"] / 1000.0
     return cfglib.compose("train", [
-        f"experiment={TRAIN_EXPERIMENT}",
+        f"experiment={experiment}",
         f"data.batch_size={TRAIN['batch']}",
         f"trainer.total_kimg={TRAIN['steps'] * steps_kimg}",
         f"trainer.kimg_per_tick={TRAIN['steps_per_tick'] * steps_kimg}",
         "trainer.lr_rampup_kimg=0",
         "trainer.checkpoint_ticks=1000",  # so the one checkpoint is the final one
+        *extra,
     ])
 
 
-def phase_train(card: str):
-    """The full-width TrigFlow training slice through the port's Trainer;
-    returns (each kernel's launches in the training run, the config, the
-    state dict after the six steps)."""
-    cfg = train_config()
+def build_trainer(cfg: dict, tag: str, run: str):
+    """(dataset, loader, trainer, flops per step) for a composed flagship
+    config: the full-width network with random weights (seed 1) on the
+    card, the config's loss and optimizer, synthetic batches."""
     ds_cfg = cfg["data"]["dataset"]
     if list(ds_cfg["variables"]) != VARIABLES or list(ds_cfg["forcings"]) != FORCINGS:
         raise AssertionError("the experiment's data config differs from the smoke's channels")
@@ -511,24 +588,29 @@ def phase_train(card: str):
         total_kimg=float(tcfg["total_kimg"]), ema_halflife_kimg=float(tcfg["ema_halflife_kimg"]),
         ema_rampup_ratio=tcfg.get("ema_rampup_ratio", 0.05),
         kimg_per_tick=float(tcfg["kimg_per_tick"]), checkpoint_ticks=tcfg["checkpoint_ticks"],
-        run_dir=os.path.join(WORK, "train"), flop_count=flops, seed=0,
+        run_dir=os.path.join(WORK, run), flop_count=flops, seed=0,
     )
-    before = {n: p.detach().clone() for n, p in net.named_parameters()}
-    log(f"[train] {TRAIN_EXPERIMENT}: {sum(p.numel() for p in before.values()) / 1e6:.1f} M "
-        f"params, global batch {gb}, remat {net.model.remat_layers}, "
+    log(f"[{tag}] {cfg['experiment_name']}: "
+        f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f} M params, global batch {gb}, "
+        f"remat {net.model.remat_layers}, {type(loss_fn).__name__}, "
         f"{type(optimizer).__name__} with {len(optimizer.param_groups)} groups, lr ramp "
         f"{tcfg['lr_rampup_kimg']} kimg (set-up {time.perf_counter() - t0:.1f} s)")
+    return dataset, loader, trainer, flops
 
+
+def run_training(trainer, loader, flops: float, card: str, tag: str, note: str = "") -> dict:
+    """Train through ``trainer.train`` with the launch counts reset just
+    before and read just after; fails unless loss and grad norm stayed
+    finite and every parameter moved. Returns the counts."""
+    net = trainer.net
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
     reset_launches()
     trainer.train(loader)
     torch.cuda.synchronize()
     launches = read_launches()
     steps = trainer.updates
-    log(f"[train] {steps} steps; kernel launches in training: {launches}; per step: "
+    log(f"[{tag}] {steps} steps; kernel launches in training: {launches}; per step: "
         + json.dumps({k: v / steps for k, v in launches.items()}))
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"training never launched {missing}")
     hist = trainer.history
     if not all(np.isfinite(hist["train/loss"])) or not all(np.isfinite(hist["train/grad_norm"])):
         raise AssertionError(f"non-finite loss or grad norm: {hist['train/loss']}, "
@@ -541,11 +623,25 @@ def phase_train(card: str):
     n_steps = ticks[-1][0] - hist["train/iter"][0]
     s_step = sum(dt for _, dt in ticks) / n_steps
     tflops = flops / s_step / 1e12
-    log(f"[train] loss {hist['train/loss']}, grad norm {hist['train/grad_norm']}; every "
+    gb = trainer.global_batch_size
+    log(f"[{tag}] loss {hist['train/loss']}, grad norm {hist['train/grad_norm']}; every "
         f"parameter moved; peak device memory {hist['train/mem/device'][-1]:.2f} GiB")
-    log(f"[train] {s_step:.4f} s/step over steps 2-{ticks[-1][0]}, {gb / s_step:.3f} images/s, "
-        f"{tflops:.2f} TFLOP/s by swin_flop_count ({flops / 1e12:.2f} TFLOP a step) = "
+    log(f"[{tag}] {s_step:.4f} s/step over steps 2-{ticks[-1][0]}, {gb / s_step:.3f} images/s, "
+        f"{tflops:.2f} TFLOP/s by swin_flop_count ({flops / 1e12:.2f} TFLOP a step{note}) = "
         f"{100 * tflops / (PEAK_FLOPS / 1e12):.2f}% of 989 TFLOP/s bf16 dense ({card})")
+    return launches
+
+
+def phase_train(card: str):
+    """The full-width TrigFlow training slice through the port's Trainer;
+    returns (each kernel's launches in the training run, the config, the
+    state dict after the six steps)."""
+    cfg = train_config(TRAIN_EXPERIMENT)
+    dataset, loader, trainer, flops = build_trainer(cfg, "train", "train")
+    launches = run_training(trainer, loader, flops, card, "train")
+    missing = [name for name in TRIGFLOW if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"training never launched {missing}")
 
     # the checkpoint's EMA forecasts through the generate path
     ckpt = latest_checkpoint(os.path.join(WORK, "train", "checkpoints"))
@@ -560,17 +656,71 @@ def phase_train(card: str):
         raise AssertionError("the trained EMA's forecast is not finite or is constant")
     log(f"[train] checkpoint {os.path.basename(ckpt)}: EMA reloaded, one forecast step through "
         f"rollout_to_store, {len(store)} variables finite and non-constant")
-    trained = {k: v.detach().float().cpu() for k, v in net.state_dict().items()}
+    trained = {k: v.detach().float().cpu() for k, v in trainer.net.state_dict().items()}
     profile_step(trainer, next(iter(loader)), card)
-    del trainer, optimizer, before, net
+    del trainer, ema
+    torch.cuda.empty_cache()
     return launches, cfg, trained
 
 
-def profile_step(trainer, batch: dict, card: str, top: int = 16) -> None:
+MUON_WEIGHTS = ("to_qkv.weight", "wo.weight", "w1.weight", "w2.weight",
+                "norm.modulation.weight")  # the JAX package's "muon" labels, a block's six
+
+
+def phase_scm(card: str):
+    """The full-width sCM training slice (the default experiment: SCMLoss,
+    Muon + aux-Adam, EMA, remat) through the port's Trainer, cut as the
+    TrigFlow slice is (random weights, synthetic data, global batch 4, six
+    steps, a tick every 2, lr warmup 0). The experiment's 3000-kimg tangent
+    warmup keeps r ≈ 0 over six steps, so one more step runs at r = 1
+    (``loss.tangent_warmup_kimg=0``), where dF_x enters the loss. Returns
+    (launches of the six steps, the config, the state dict after all
+    seven)."""
+    cfg = train_config(SCM_EXPERIMENT)
+    dataset, loader, trainer, flops = build_trainer(cfg, "scm", "scm")
+    opt = trainer.optimizer
+    groups = {g["kind"]: {id(p) for p in g["params"]} for g in opt.param_groups}
+    want = {n: "muon" if n.startswith("model.transformer.") and n.endswith(MUON_WEIGHTS)
+            else "adam" for n, _ in trainer.net.named_parameters()}
+    got = {n: "muon" if id(p) in groups["muon"] else "adam" if id(p) in groups["adam"] else None
+           for n, p in trainer.net.named_parameters()}
+    if got != want or muon_param_labels(trainer.net.named_parameters()) != want:
+        raise AssertionError("the Muon/Adam groups differ from the JAX package's labels")
+    log(f"[scm] Muon group: {len(groups['muon'])} weights (6 a block), Adam group: "
+        f"{len(groups['adam'])} tensors, as the JAX labels give; tangent warmup "
+        f"{cfg['loss']['tangent_warmup_kimg']} kimg, sigma_max {cfg['loss']['noise']['sigma_max']}")
+
+    launches = run_training(trainer, loader, flops, card, "scm",
+                            note=", the jvp forward not counted")
+    steps = trainer.updates
+    wrong = {k: (launches[k], n * steps) for k, n in SCM_PER_STEP.items()
+             if launches[k] != n * steps}
+    if wrong or sorted(SCM_PER_STEP) != sorted(KERNELS):
+        raise AssertionError(f"sCM launches (got, expected) differ from the step's: {wrong}")
+    log(f"[scm] every one of the {len(KERNELS)} kernels launched at the sCM step's per-step "
+        f"counts over {steps} steps")
+
+    batch = next(iter(loader))
+    trainer.loss_fn = factory.build_loss({**cfg["loss"], "tangent_warmup_kimg": 0}, dataset)
+    out = {k: float(v) for k, v in trainer.step(batch).items()}
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"the r = 1 sCM step is not finite: {out}")
+    log(f"[scm] one step at r = 1 (tangent_warmup_kimg=0): loss {out['loss']:.6f}, "
+        f"grad norm {out['grad_norm']:.4f}")
+    trained = {k: v.detach().float().cpu() for k, v in trainer.net.state_dict().items()}
+    profile_step(trainer, batch, card, tag="scm")
+    del trainer, opt
+    torch.cuda.empty_cache()
+    return launches, cfg, trained
+
+
+def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "profile") -> None:
     """Where one more training step's time goes: torch.profiler's device
     time by kernel, their sum against the step's wall time (the device's
     idle share), after one warm-up step. A measurement only: where the
-    profiler sees no device events it says so."""
+    profiler sees no device events it says so. The profiler's own host cost
+    lengthens the wall of this step; the steady s/step of the unprofiled
+    steps is the one to set the busy time against."""
     from torch.profiler import ProfilerActivity, profile
 
     trainer.step(batch)
@@ -580,23 +730,25 @@ def profile_step(trainer, batch: dict, card: str, top: int = 16) -> None:
         trainer.step(batch)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # device time by kernel; a user annotation (the optimizer's step range)
+    # spans kernels already counted, so it is left out of the sum
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
-        log("[profile] the profiler saw no device time: breakdown not measured")
+        log(f"[{tag}] the profiler saw no device time: breakdown not measured")
         return
-    log(f"[profile] one training step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
+    log(f"[{tag}] one training step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy:.1f} ms, idle share {100 * (1 - busy / (wall * 1e3)):.1f}% ({card})")
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
-        log(f"[profile] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
+        log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
 
 
-def phase_grad_cut(cfg: dict, trained: dict) -> dict:
-    """A depth-2 cut of the trained net (same widths, its weights after the
-    six steps), one batch of 2 with fixed draws: loss and every parameter's
-    gradient through the kernels in bf16 on the card against the plain path
-    in fp32 on the CPU."""
+def cut_inputs(trained: dict):
+    """(depth-2 state dict of ``trained``, dataset, x, condition, auxiliary):
+    the first two blocks of a trained net and a batch of 2 real-sized
+    synthetic samples."""
     sd = {k: v for k, v in trained.items()
           if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < 2}
     dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=8, shape=RESOLUTION, seed=3)
@@ -604,6 +756,34 @@ def phase_grad_cut(cfg: dict, trained: dict) -> dict:
     cond = torch.from_numpy(np.stack([s[0][0] for s in samples]))
     x = torch.from_numpy(np.stack([s[0][1] for s in samples]))
     aux = torch.from_numpy(np.stack([[s[1][1]] for s in samples]))
+    return sd, dataset, x, cond, aux
+
+
+def compare_cut(tag: str, out: dict, loss_tol: float, grad_tol: float) -> dict:
+    """Loss and every gradient of ``out["cuda"]`` (bf16 kernels) against
+    ``out["cpu"]`` (fp32 plain), each ``(loss, {name: grad})``."""
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    rels = {n: ((gg[n] - gc[n]).norm() / gc[n].norm()).item() for n in gc}
+    worst = max(rels, key=rels.get)
+    log(f"[{tag}] depth-2, batch 2, fixed draws: loss {lg:.6f} (kernels, bf16) vs {lc:.6f} "
+        f"(plain, fp32, CPU), rel {loss_rel:.3e} (limit {loss_tol}); worst gradient "
+        f"{worst}: rel L2 {rels[worst]:.3e} (limit {grad_tol}) over {len(rels)} tensors; "
+        f"median {float(np.median(list(rels.values()))):.3e}")
+    if not np.isfinite(lg) or loss_rel > loss_tol:
+        raise AssertionError(f"{tag}: depth-2 cut loss disagrees: {lg} vs {lc}")
+    bad = {n: r for n, r in rels.items() if not r <= grad_tol}
+    if bad:
+        raise AssertionError(f"{tag}: depth-2 cut gradients disagree: {bad}")
+    return {"loss_rel": loss_rel, "worst": worst, "worst_rel": rels[worst]}
+
+
+def phase_grad_cut(cfg: dict, trained: dict) -> dict:
+    """A depth-2 cut of the trained net (same widths, its weights after the
+    six steps), one batch of 2 with fixed draws: loss and every parameter's
+    gradient through the kernels in bf16 on the card against the plain path
+    in fp32 on the CPU."""
+    sd, dataset, x, cond, aux = cut_inputs(trained)
     loss_fn = factory.build_loss(cfg["loss"], dataset)
     t, z = loss_fn.draw(x, torch.Generator().manual_seed(4))
     out = {}
@@ -615,20 +795,38 @@ def phase_grad_cut(cfg: dict, trained: dict) -> dict:
         loss.backward()
         out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
                                   for n, p in cut.named_parameters()})
-    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
-    loss_rel = abs(lg - lc) / abs(lc)
-    rels = {n: ((gg[n] - gc[n]).norm() / gc[n].norm()).item() for n in gc}
-    worst = max(rels, key=rels.get)
-    log(f"[cut] depth-2, batch 2, fixed draws: loss {lg:.6f} (kernels, bf16) vs {lc:.6f} "
-        f"(plain, fp32, CPU), rel {loss_rel:.3e} (limit {CUT_LOSS_TOL}); worst gradient "
-        f"{worst}: rel L2 {rels[worst]:.3e} (limit {CUT_GRAD_TOL}) over {len(rels)} tensors; "
-        f"median {float(np.median(list(rels.values()))):.3e}")
-    if not np.isfinite(lg) or loss_rel > CUT_LOSS_TOL:
-        raise AssertionError(f"depth-2 cut loss disagrees: {lg} vs {lc}")
-    bad = {n: r for n, r in rels.items() if not r <= CUT_GRAD_TOL}
-    if bad:
-        raise AssertionError(f"depth-2 cut gradients disagree: {bad}")
-    return {"loss_rel": loss_rel, "worst": worst, "worst_rel": rels[worst]}
+    return compare_cut("cut", out, CUT_LOSS_TOL, CUT_GRAD_TOL)
+
+
+def phase_scm_cut(cfg: dict, trained: dict) -> dict:
+    """A depth-2 cut of the sCM-trained net, one batch of 2 with fixed
+    draws: its tangent dF_x (the jvp forward, through kernels 14, 7, 11, 4
+    and 12 on the card) and then the sCM loss at r = 1 and every gradient,
+    in bf16 on the card against the plain path in fp32 on the CPU. A
+    tangent dropped on the way is finite but wrong: this is the check that
+    sees it."""
+    sd, dataset, x, cond, aux = cut_inputs(trained)
+    loss_fn = factory.build_loss({**cfg["loss"], "tangent_warmup_kimg": 0}, dataset)  # r = 1
+    t, z = loss_fn.draw(x, torch.Generator().manual_seed(4))
+    out, dF = {}, {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        cut = build_net(2, dtype)
+        cut.load_state_dict(sd)
+        cut = cut.to(dev).train()
+        xd, td, zd = x.to(dev), t.to(dev), z.to(dev)
+        dF[dev] = loss_fn.jvp_term(cut, td, *loss_fn.interpolate(xd, td, zd), cond.to(dev),
+                                   aux.to(dev))
+        loss = loss_fn.value(cut, xd, td, zd, 0.0, cond.to(dev), aux.to(dev), dF_x=dF[dev])
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
+                                  for n, p in cut.named_parameters()})
+    dg, dc = dF["cuda"].float().cpu(), dF["cpu"]
+    df_rel = ((dg - dc).norm() / dc.norm()).item()
+    log(f"[scm-cut] depth-2 tangent dF_x, kernels bf16 vs plain fp32 (CPU): rel L2 "
+        f"{df_rel:.3e} (limit {SCM_CUT_DF_TOL}), max|dF| {dc.abs().max().item():.4f}")
+    if not torch.isfinite(dg).all() or df_rel > SCM_CUT_DF_TOL:
+        raise AssertionError(f"depth-2 sCM tangent disagrees: rel L2 {df_rel}")
+    return {"df_rel": df_rel, **compare_cut("scm-cut", out, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL)}
 
 
 def main() -> int:
@@ -637,11 +835,14 @@ def main() -> int:
     record = phase_kernels()
     try:
         forecast = phase_slice(card)
-        launches, cfg, trained = phase_train(card)
+        trigflow, cfg, trained = phase_train(card)
         phase_grad_cut(cfg, trained)
+        launches, cfg, trained = phase_scm(card)
+        phase_scm_cut(cfg, trained)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    log(f"[train] launches: forecast {forecast}, training {launches}")
+    log(f"[train] launches: forecast {forecast}, TrigFlow training {trigflow}, "
+        f"sCM training {launches}")
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in
                          ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
     if jax_modules:

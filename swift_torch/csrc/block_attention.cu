@@ -516,6 +516,232 @@ int launch_block_attn_bwd(const void* qkv, const void* scale, const void* dout, 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tangent -- replaces swift_tpu/ops/pallas_block_attention.py::_tangent_call
+// (kernel body _tangent_kernel): the forward-mode tangent of the attention
+// along dqkv, the logit scale fixed (the sCM jvp forward). Per (sample,
+// window, head): dq̂ = (dq − q̂ (q̂·dq)) / |q| and dk̂ likewise, dS = s dq̂·k̂ᵀ
+// + s q̂·dk̂ᵀ, dp = p (dS − Σ p dS) and dout = dp·v + p·dv, with q̂s, dq̂s,
+// k̂, dk̂, p and dp rounded to bf16 before the products that consume them (the
+// TPU kernel's rounding points) and fp32 sums.
+//
+// What bounds it: on-chip capacity, as for the backward. All 256 keys of a
+// window fit one tile, so the softmax needs no online rescaling, but a block
+// holds the logits and dS of its query rows (two QB x 256 fp32 tiles), q̂s
+// and dq̂s of those rows and one 256-row buffer that takes k̂, dk̂, v and dv
+// in turn: kernel 6's budget, 208 KB at QB = 64 and d <= 96, QB = 32 at
+// d = 128. Against k̂ it forms the logits and s dq̂·k̂ᵀ, against dk̂ it adds
+// s q̂·dk̂ᵀ into dS, then p and dp are rounded to bf16 in place over their
+// fp32 rows, and the output fragments stay in registers while v is swapped
+// for dv (dp·v, then + p·dv). No partials: every output row is a query row
+// of this block.
+
+// dst = mul · (ds − â (â·ds)) / |a| for the row a = src, ds = dsrc (bf16,
+// zero-padded to DP): the tangent of mul · a / |a|. One warp per row.
+template <int DP>
+__device__ __forceinline__ void load_tangent_row(bf16* dst, const bf16* src, const bf16* dsrc,
+                                                 int d, float mul, int lane) {
+  float a[8], da[8];
+  const bool live = lane * 8 < d;
+  const uint4 ra = live ? *reinterpret_cast<const uint4*>(src + lane * 8) : make_uint4(0, 0, 0, 0);
+  const uint4 rd = live ? *reinterpret_cast<const uint4*>(dsrc + lane * 8) : make_uint4(0, 0, 0, 0);
+  const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ra);
+  const __nv_bfloat162* hd = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(ha[i]), fd = __bfloat1622float2(hd[i]);
+    a[2 * i] = fa.x;
+    a[2 * i + 1] = fa.y;
+    da[2 * i] = fd.x;
+    da[2 * i + 1] = fd.y;
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ss += a[i] * a[i];
+  const float inv = rsqrtf(warp_sum(ss) + 1e-12f);
+  float dot = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a[i] *= inv;  // â
+    dot += a[i] * da[i];
+  }
+  dot = warp_sum(dot);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) da[i] = (da[i] - a[i] * dot) * inv * mul;
+  if (lane * 8 < DP) *reinterpret_cast<uint4*>(dst + lane * 8) = pack8(da);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kAttnNT)
+    block_attn_tangent_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dqkv,
+                              const float* __restrict__ scale, bf16* __restrict__ dout, int gh,
+                              int gw, int heads, int d, int wh, int ww, int sh, int sw) {
+  using C = AttnBwd<DP>;  // the same query block, strides and shared-memory budget
+  constexpr int QB = C::QB, LDQ = C::LDQ, PLD = C::PLD, NW = kAttnNT / 32, CT = DP / 16;
+  constexpr int NF = (QB / 16) * CT, MAXF = (NF + NW - 1) / NW;  // output fragments
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bf16(q̂ s)
+  bf16* dQs = Qs + QB * LDQ;                     // bf16(dq̂ s)
+  bf16* KVs = dQs + QB * LDQ;                    // k̂, then dk̂, then v, then dv
+  float* Ss = reinterpret_cast<float*>(KVs + kWinTokens * LDQ);  // logits -> p
+  float* dSs = Ss + QB * kSLD;                                    // dS -> dp -> dout
+  bf16* Ps = reinterpret_cast<bf16*>(Ss);
+  bf16* dPs = reinterpret_cast<bf16*>(dSs);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.z / heads, h = blockIdx.z % heads;
+  const int wi = blockIdx.y / (gw / ww), wj = blockIdx.y % (gw / ww);
+  const int i0 = wi * wh + sh, j0 = wj * ww + sw;
+  const int q0 = blockIdx.x * QB;
+  const size_t feat = (size_t)heads * 3 * d;
+  auto token = [&](int t) -> size_t {
+    const int row = (i0 + t / ww) % gh, col = (j0 + t % ww) % gw;
+    return ((size_t)b * gh + row) * gw + col;
+  };
+  const bf16* head = qkv + (size_t)h * 3 * d;
+  const bf16* dhead = dqkv + (size_t)h * 3 * d;
+  const float s = scale[h];
+
+  for (int r = warp; r < QB; r += NW) {
+    const size_t tk = token(q0 + r) * feat;
+    load_row<DP>(Qs + r * LDQ, head + tk, d, true, s, lane);
+    load_tangent_row<DP>(dQs + r * LDQ, head + tk, dhead + tk, d, s, lane);
+  }
+  for (int r = warp; r < kWinTokens; r += NW)
+    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
+  __syncthreads();
+
+  // C[QB x 256] (fp32, stride kSLD) (+)= A[QB x DP] . KVs[256 x DP]^T
+  auto rows_x_window = [&](const bf16* A, float* Cm, bool accumulate) {
+    for (int f = warp; f < (QB / 16) * (kWinTokens / 16); f += NW) {
+      const int rt = f / (kWinTokens / 16), ct = f % (kWinTokens / 16);
+      float* cp = Cm + rt * 16 * kSLD + ct * 16;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      if (accumulate)
+        wmma::load_matrix_sync(acc, cp, kSLD, wmma::mem_row_major);
+      else
+        wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
+        wmma::load_matrix_sync(a, A + rt * 16 * LDQ + kk, LDQ);
+        wmma::load_matrix_sync(kb, KVs + ct * 16 * LDQ + kk, LDQ);
+        wmma::mma_sync(acc, a, kb, acc);
+      }
+      wmma::store_matrix_sync(cp, acc, kSLD, wmma::mem_row_major);
+    }
+  };
+  rows_x_window(Qs, Ss, false);   // logits = q̂s . k̂ᵀ
+  rows_x_window(dQs, dSs, false); // dS = dq̂s . k̂ᵀ
+  __syncthreads();
+  for (int r = warp; r < kWinTokens; r += NW) {
+    const size_t tk = token(r) * feat + d;
+    load_tangent_row<DP>(KVs + r * LDQ, head + tk, dhead + tk, d, 1.0f, lane);
+  }
+  __syncthreads();
+  rows_x_window(Qs, dSs, true);  // dS += q̂s . dk̂ᵀ
+  __syncthreads();
+
+  // one warp per query row: p and dp, rounded to bf16 in place over the
+  // fronts of their fp32 rows
+  for (int r = warp; r < QB; r += NW) {
+    float lg[kWinTokens / 32], ds[kWinTokens / 32];
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      lg[i] = Ss[r * kSLD + lane + 32 * i];
+      ds[i] = dSs[r * kSLD + lane + 32 * i];
+      m = fmaxf(m, lg[i]);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      lg[i] = expf(lg[i] - m);
+      l += lg[i];
+    }
+    l = warp_sum(l);
+    float pds = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      lg[i] = lg[i] / l;  // p
+      pds += lg[i] * ds[i];
+    }
+    pds = warp_sum(pds);
+    __syncwarp();  // every lane has read its row before any bf16 overwrites it
+#pragma unroll
+    for (int i = 0; i < kWinTokens / 32; ++i) {
+      Ps[r * PLD + lane + 32 * i] = __float2bfloat16_rn(lg[i]);
+      dPs[r * PLD + lane + 32 * i] = __float2bfloat16_rn(lg[i] * (ds[i] - pds));
+    }
+  }
+  __syncthreads();  // p and dp are complete; dk̂ is done with
+
+  // dout [QB x DP] = dp . v + p . dv, fragment f = warp + i*NW held in acc[i]
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXF];
+  auto rows_x_values = [&](const bf16* A) {
+#pragma unroll
+    for (int i = 0; i < MAXF; ++i) {
+      const int f = warp + i * NW;
+      if (f >= NF) continue;
+      const int mt = f / CT, nt = f % CT;
+#pragma unroll 4
+      for (int kk = 0; kk < kWinTokens; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+        wmma::load_matrix_sync(a, A + mt * 16 * PLD + kk, PLD);
+        wmma::load_matrix_sync(vb, KVs + kk * LDQ + nt * 16, LDQ);
+        wmma::mma_sync(acc[i], a, vb, acc[i]);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < MAXF; ++i) wmma::fill_fragment(acc[i], 0.0f);
+  for (int r = warp; r < kWinTokens; r += NW)
+    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + 2 * d, d, false, 1.0f, lane);
+  __syncthreads();
+  rows_x_values(dPs);  // dp . v
+  __syncthreads();
+  for (int r = warp; r < kWinTokens; r += NW)
+    load_row<DP>(KVs + r * LDQ, dhead + token(r) * feat + 2 * d, d, false, 1.0f, lane);
+  __syncthreads();
+  rows_x_values(Ps);  // + p . dv
+
+  // dp is read for the last time above the previous barrier: its buffer
+  // takes the fp32 output
+  constexpr int LDO = DP + 4;
+  float* Os = dSs;
+#pragma unroll
+  for (int i = 0; i < MAXF; ++i) {
+    const int f = warp + i * NW;
+    if (f < NF)
+      wmma::store_matrix_sync(Os + (f / CT) * 16 * LDO + (f % CT) * 16, acc[i], LDO,
+                              wmma::mem_row_major);
+  }
+  __syncthreads();
+  const size_t ofeat = (size_t)heads * d;
+  for (int r = warp; r < QB; r += NW) {
+    if (lane * 8 < d)
+      *reinterpret_cast<uint4*>(dout + token(q0 + r) * ofeat + (size_t)h * d + lane * 8) =
+          pack8(Os + r * LDO + lane * 8);
+  }
+}
+
+template <int DP>
+int launch_block_attn_tangent(const void* qkv, const void* dqkv, const void* scale, void* dout,
+                              int B, int gh, int gw, int heads, int d, int wh, int ww, int sh,
+                              int sw, cudaStream_t st) {
+  using C = AttnBwd<DP>;
+  cudaFuncSetAttribute(block_attn_tangent_kernel<DP>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  dim3 grid(C::NQB, (gh / wh) * (gw / ww), B * heads);
+  block_attn_tangent_kernel<DP><<<grid, kAttnNT, C::SMEM, st>>>(
+      (const bf16*)qkv, (const bf16*)dqkv, (const float*)scale, (bf16*)dout, gh, gw, heads, d,
+      wh, ww, sh, sw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace swift
 
 // Requires wh*ww == 256, gh % wh == gw % ww == 0, d % 8 == 0, d <= 128 and
@@ -559,4 +785,26 @@ extern "C" int swift_block_attention_bwd(const void* qkv, const void* scale, con
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SWIFT_BWD
+}
+
+// qkv, dqkv (B, gh, gw, heads*3d) bf16, scale (heads,) fp32 -> dout (B, gh,
+// gw, heads*d) bf16, the tangent of swift_block_attention along dqkv. Same
+// shape rules as swift_block_attention.
+extern "C" int swift_block_attention_tangent(const void* qkv, const void* dqkv,
+                                             const void* scale, void* dout, int B, int gh,
+                                             int gw, int heads, int d, int wh, int ww, int sh,
+                                             int sw, void* stream) {
+  const int dp = (d + 31) / 32 * 32;
+  cudaStream_t st = (cudaStream_t)stream;
+#define SWIFT_TAN(DP)                                                                          \
+  return swift::launch_block_attn_tangent<DP>(qkv, dqkv, scale, dout, B, gh, gw, heads, d, wh, \
+                                              ww, sh, sw, st)
+  switch (dp) {
+    case 32: SWIFT_TAN(32);
+    case 64: SWIFT_TAN(64);
+    case 96: SWIFT_TAN(96);
+    case 128: SWIFT_TAN(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SWIFT_TAN
 }

@@ -36,12 +36,15 @@ __host__ __device__ constexpr int ffn_smem(int D) {
   return kFfnBM * (D + 4) * 4 + kTileBytes + kFfnBM * kStageLD * 4 + kFfnBM * kHLD * 2;
 }
 
+template <bool PT>
 __global__ void __launch_bounds__(GateUpMma::NT)
-    ffn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W1,
-               const bf16* __restrict__ W2, bf16* __restrict__ Y, bf16* __restrict__ G,
-               bf16* __restrict__ U, int M, int D, int H) {
+    ffn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ DX,
+               const bf16* __restrict__ W1, const bf16* __restrict__ W2, bf16* __restrict__ Y,
+               bf16* __restrict__ DY, bf16* __restrict__ G, bf16* __restrict__ U, int M, int D,
+               int H) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int NT = GateUpMma::NT;
+  constexpr int ROWS = PT ? kFfnBM / 2 : kFfnBM;  // token rows a block owns
   const int lda = D + 4;
   float* accS = reinterpret_cast<float*>(smem_raw);
   unsigned char* p = smem_raw + kFfnBM * lda * 4;
@@ -51,26 +54,33 @@ __global__ void __launch_bounds__(GateUpMma::NT)
   bf16* hS = reinterpret_cast<bf16*>(p + kTileBytes + kFfnBM * kStageLD * 4);
 
   const int tid = threadIdx.x, warp = tid / 32, wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.x * kFfnBM;
+  const int m0 = blockIdx.x * ROWS;
+  // tile row r -> token row; with PT rows ROWS.. are the tangent's
+  auto token = [=](int r) { return m0 + (PT ? r % ROWS : r); };
   for (int i = tid; i < kFfnBM * lda; i += NT) accS[i] = 0.0f;
 
   const int n_out_tiles = (D + kFfnBN2 - 1) / kFfnBN2;
   for (int c0 = 0; c0 < H; c0 += kFfnHC) {
     // gate (tile rows 0..63) and up (rows 64..127) for hidden units c0..c0+63
     GateUpMma::Acc acc[GateUpMma::FM][GateUpMma::FN];
-    GateUpMma::run(
-        acc, tiles, X, D, [=](int r) { return m0 + r < M ? m0 + r : -1; }, W1, D,
-        [=](int r) {
-          const int j = c0 + (r < kFfnHC ? r : r - kFfnHC);
-          return j < H ? (r < kFfnHC ? j : H + j) : -1;
+    GateUpMma::run_rows(
+        acc, tiles,
+        [=](int r) -> const bf16* {
+          const int m = token(r);
+          return m < M ? (PT && r >= ROWS ? DX : X) + (size_t)m * D : nullptr;
         },
-        D);
+        X,
+        [=](int r) -> const bf16* {
+          const int j = c0 + (r < kFfnHC ? r : r - kFfnHC);
+          return j < H ? W1 + (size_t)(r < kFfnHC ? j : H + j) * D : nullptr;
+        },
+        W1, D);
 #pragma unroll
     for (int j = 0; j < GateUpMma::FN; ++j)
       wmma::store_matrix_sync(stage + (wm * 16) * kStageLD + wn * GateUpMma::FN * 16 + j * 16,
                               acc[0][j], kStageLD, wmma::mem_row_major);
     __syncthreads();
-    if (G != nullptr) {  // the saved gate and up, 8 columns a thread
+    if (!PT && G != nullptr) {  // the saved gate and up, 8 columns a thread
       for (int e = tid; e < 2 * kFfnBM * (kFfnHC / 8); e += NT) {
         const int half = e / (kFfnBM * (kFfnHC / 8)), q = e % (kFfnBM * (kFfnHC / 8));
         const int r = q / (kFfnHC / 8), c = (q % (kFfnHC / 8)) * 8;
@@ -81,8 +91,15 @@ __global__ void __launch_bounds__(GateUpMma::NT)
     }
     for (int e = tid; e < kFfnBM * kFfnHC; e += NT) {
       const int r = e / kFfnHC, c = e % kFfnHC;
-      const float gt = stage[r * kStageLD + c], up = stage[r * kStageLD + kFfnHC + c];
-      hS[r * kHLD + c] = __float2bfloat16_rn(gt / (1.0f + expf(-gt)) * up);
+      const int rx = PT ? r % ROWS : r;  // the row holding this token's g and u
+      const float gt = stage[rx * kStageLD + c], up = stage[rx * kStageLD + kFfnHC + c];
+      float h = gt / (1.0f + expf(-gt)) * up;
+      if (PT && r >= ROWS) {  // dh = s(g)(1 + g(1 - s(g))) dg u + silu(g) du
+        const float sig = 1.0f / (1.0f + expf(-gt));
+        const float dg = stage[r * kStageLD + c], du = stage[r * kStageLD + kFfnHC + c];
+        h = sig * (1.0f + gt * (1.0f - sig)) * dg * up + gt * sig * du;
+      }
+      hS[r * kHLD + c] = __float2bfloat16_rn(h);
     }
     __syncthreads();
 
@@ -123,8 +140,9 @@ __global__ void __launch_bounds__(GateUpMma::NT)
 
   for (int c = tid; c < kFfnBM * (D / 8); c += NT) {
     const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
-    if (m0 + r < M)
-      *reinterpret_cast<uint4*>(Y + (size_t)(m0 + r) * D + cc) = pack8(accS + r * lda + cc);
+    if (token(r) < M)
+      *reinterpret_cast<uint4*>((PT && r >= ROWS ? DY : Y) + (size_t)token(r) * D + cc) =
+          pack8(accS + r * lda + cc);
   }
 }
 
@@ -138,8 +156,21 @@ extern "C" int swift_ffn_smem(int D) { return ffn_smem(D); }
 extern "C" int swift_ffn(const void* x, const void* w1, const void* w2, void* y, void* g, void* u,
                          int M, int D, int H, void* stream) {
   const int smem = ffn_smem(D);
-  cudaFuncSetAttribute(ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ffn_kernel<<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)g, (bf16*)u, M, D, H);
+  cudaFuncSetAttribute(ffn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ffn_kernel<false><<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, nullptr, (const bf16*)w1, (const bf16*)w2, (bf16*)y, nullptr, (bf16*)g,
+      (bf16*)u, M, D, H);
+  return (int)cudaGetLastError();
+}
+
+// x, dx (M, D) -> y, dy (M, D), all bf16; w1 (2H, D), w2 (D, H).
+extern "C" int swift_ffn_pt(const void* x, const void* dx, const void* w1, const void* w2, void* y,
+                            void* dy, int M, int D, int H, void* stream) {
+  const int smem = ffn_smem(D);
+  constexpr int rows = kFfnBM / 2;
+  cudaFuncSetAttribute(ffn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  ffn_kernel<true><<<(M + rows - 1) / rows, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)dx, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)dy,
+      nullptr, nullptr, M, D, H);
   return (int)cudaGetLastError();
 }

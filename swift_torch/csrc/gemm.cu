@@ -10,6 +10,14 @@
 //   16-byte bf16 stores. The TPU zero-padded d=88 heads to 128 lanes; here
 //   N=3168 is taken as it is and the ragged last column tile is masked.
 //
+// swift_linear_pt -- replaces swift_tpu/ops/pallas_linear.py::_lin_pt_call
+//   (kernel body _lin_pt_kernel): y = x . W^T and dy = dx . W^T, the qkv
+//   projection's primal and tangent in the sCM jvp forward. The same kernel
+//   over a 2T-row problem: a block's 128 A rows are 64 rows of x and the same
+//   64 rows of dx, read in place (no stacked copy in device memory), so both
+//   products run against every staged W tile and W is fetched as often as
+//   for kernel 1 over T rows. Compute-bound (4*T*1056*3168 FLOP).
+//
 // swift_mm_modnorm -- replaces swift_tpu/ops/pallas_modnorm.py::_mm_mn_call
 //   (kernel body _mm_mn_kernel): out = r + (LN(x . Wo^T) g + b)(1 + sc) + sh
 //   with the per-sample AdaLN rows sc/sh. LayerNorm needs whole rows of all
@@ -29,16 +37,29 @@ constexpr int kLinLDC = kLinBN + 4;
 constexpr int kLinSmem =
     LinMma::SMEM > kLinBM * kLinLDC * 4 ? LinMma::SMEM : kLinBM * kLinLDC * 4;
 
+// PT = false: Y = X . W^T over M rows. PT = true: Y = X . W^T and
+// DY = DX . W^T, half of each block's rows from X and half from DX.
+template <bool PT>
 __global__ void __launch_bounds__(LinMma::NT)
-    linear_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W, bf16* __restrict__ Y,
-                  int M, int N, int K) {
+    linear_kernel(const bf16* __restrict__ X, const bf16* __restrict__ DX,
+                  const bf16* __restrict__ W, bf16* __restrict__ Y, bf16* __restrict__ DY, int M,
+                  int N, int K) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * kLinBM, n0 = blockIdx.x * kLinBN;
+  constexpr int ROWS = PT ? kLinBM / 2 : kLinBM;  // token rows a block owns
+  const int m0 = blockIdx.y * ROWS, n0 = blockIdx.x * kLinBN;
+  // tile row r -> (token row, whether it is the tangent's)
+  auto token = [=](int r) { return m0 + (PT ? r % ROWS : r); };
+  auto is_dx = [=](int r) { return PT && r >= ROWS; };
   LinMma::Acc acc[LinMma::FM][LinMma::FN];
-  LinMma::run(
-      acc, reinterpret_cast<bf16*>(smem_raw), X, K,
-      [=](int r) { return m0 + r < M ? m0 + r : -1; }, W, K,
-      [=](int r) { return n0 + r < N ? n0 + r : -1; }, K);
+  LinMma::run_rows(
+      acc, reinterpret_cast<bf16*>(smem_raw),
+      [=](int r) -> const bf16* {
+        const int m = token(r);
+        return m < M ? (is_dx(r) ? DX : X) + (size_t)m * K : nullptr;
+      },
+      X,
+      [=](int r) -> const bf16* { return n0 + r < N ? W + (size_t)(n0 + r) * K : nullptr; }, W,
+      K);
 
   // the main loop ended with a barrier: its tiles are free for the fp32 C tile
   float* Cs = reinterpret_cast<float*>(smem_raw);
@@ -53,9 +74,10 @@ __global__ void __launch_bounds__(LinMma::NT)
   __syncthreads();
   for (int c = threadIdx.x; c < kLinBM * (kLinBN / 8); c += LinMma::NT) {
     const int r = c / (kLinBN / 8), cc = (c % (kLinBN / 8)) * 8;
-    const int gr = m0 + r, gc = n0 + cc;
+    const int gr = token(r), gc = n0 + cc;
     if (gr < M && gc < N)
-      *reinterpret_cast<uint4*>(Y + (size_t)gr * N + gc) = pack8(Cs + r * kLinLDC + cc);
+      *reinterpret_cast<uint4*>((is_dx(r) ? DY : Y) + (size_t)gr * N + gc) =
+          pack8(Cs + r * kLinLDC + cc);
   }
 }
 
@@ -128,10 +150,22 @@ using namespace swift;
 
 extern "C" int swift_linear(const void* x, const void* w, void* y, int M, int N, int K,
                             void* stream) {
-  cudaFuncSetAttribute(linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kLinSmem);
+  cudaFuncSetAttribute(linear_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kLinSmem);
   dim3 grid((N + kLinBN - 1) / kLinBN, (M + kLinBM - 1) / kLinBM);
-  linear_kernel<<<grid, LinMma::NT, kLinSmem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (bf16*)y, M, N, K);
+  linear_kernel<false><<<grid, LinMma::NT, kLinSmem, (cudaStream_t)stream>>>(
+      (const bf16*)x, nullptr, (const bf16*)w, (bf16*)y, nullptr, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// x, dx (M, K) -> y, dy (M, N), all bf16; w (N, K). K % 8 == 0, N % 8 == 0.
+extern "C" int swift_linear_pt(const void* x, const void* dx, const void* w, void* y, void* dy,
+                               int M, int N, int K, void* stream) {
+  cudaFuncSetAttribute(linear_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kLinSmem);
+  dim3 grid((N + kLinBN - 1) / kLinBN, (M + kLinBM / 2 - 1) / (kLinBM / 2));
+  linear_kernel<true><<<grid, LinMma::NT, kLinSmem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)dx, (const bf16*)w, (bf16*)y, (bf16*)dy, M, N, K);
   return (int)cudaGetLastError();
 }
 

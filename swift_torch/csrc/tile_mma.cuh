@@ -39,19 +39,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy rows x [k0, k0+BK) of a row-major bf16 matrix into shared memory
-// (row stride LDS elements). ``row(r)`` maps tile row r to a matrix row, or
-// -1 for a row past the edge (zero-filled).
-template <int ROWS, int BK, int LDS, int NT, class RowFn>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int ld, RowFn row, int k0,
+// Copy rows x [k0, k0+BK) into shared memory (row stride LDS elements).
+// ``rowptr(r)`` gives tile row r's first element in device memory, or
+// nullptr for a row past the edge (zero-filled; cp.async then reads nothing
+// and is handed ``any``, a valid address).
+template <int ROWS, int BK, int LDS, int NT, class RowPtr>
+__device__ __forceinline__ void load_rows(bf16* smem, RowPtr rowptr, const bf16* any, int k0,
                                           int K, int tid) {
   constexpr int CPR = BK / 8;
   for (int c = tid; c < ROWS * CPR; c += NT) {
     int r = c / CPR, kc = (c % CPR) * 8;
-    int gr = row(r);
-    bool ok = gr >= 0 && k0 + kc < K;
-    cp_async16(smem + r * LDS + kc, ok ? g + (size_t)gr * ld + k0 + kc : g, ok);
+    const bf16* src = rowptr(r);
+    bool ok = src != nullptr && k0 + kc < K;
+    cp_async16(smem + r * LDS + kc, ok ? src + k0 + kc : any, ok);
   }
+}
+
+// The same for a row-major bf16 matrix ``g`` with row stride ``ld``:
+// ``row(r)`` maps tile row r to a matrix row, or -1 past the edge.
+template <int ROWS, int BK, int LDS, int NT, class RowFn>
+__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int ld, RowFn row, int k0,
+                                          int K, int tid) {
+  load_rows<ROWS, BK, LDS, NT>(
+      smem,
+      [=](int r) -> const bf16* {
+        const int gr = row(r);
+        return gr >= 0 ? g + (size_t)gr * ld : nullptr;
+      },
+      g, k0, K, tid);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -76,7 +91,9 @@ __device__ __forceinline__ uint4 pack8(const float* v) {
 }
 
 // C[BM x BN] (registers, WM x WN warps, each (BM/WM) x (BN/WN)) =
-// A[arow(0..BM) x K] . B[brow(0..BN) x K]^T, double-buffered over BK.
+// A[arow(0..BM) x K] . B[brow(0..BN) x K]^T, double-buffered over BK. The
+// operand rows are given as row indices of A and B (``run``) or as row
+// pointers (``run_rows``, for an A whose rows come from two tensors).
 template <int BM, int BN, int BK, int WM, int WN>
 struct TileMma {
   static constexpr int NT = WM * WN * 32;
@@ -90,6 +107,23 @@ struct TileMma {
   template <class ARow, class BRow>
   __device__ static void run(Acc (&acc)[FM][FN], bf16* smem, const bf16* A, int lda, ARow arow,
                              const bf16* B, int ldb, BRow brow, int K) {
+    run_rows(
+        acc, smem,
+        [=](int r) -> const bf16* {
+          const int gr = arow(r);
+          return gr >= 0 ? A + (size_t)gr * lda : nullptr;
+        },
+        A,
+        [=](int r) -> const bf16* {
+          const int gr = brow(r);
+          return gr >= 0 ? B + (size_t)gr * ldb : nullptr;
+        },
+        B, K);
+  }
+
+  template <class ARowPtr, class BRowPtr>
+  __device__ static void run_rows(Acc (&acc)[FM][FN], bf16* smem, ARowPtr arow, const bf16* A,
+                                  BRowPtr brow, const bf16* B, int K) {
     const int tid = threadIdx.x, warp = tid / 32;
     const int wm = warp / WN, wn = warp % WN;
     bf16* As[2] = {smem, smem + BM * LDS};
@@ -100,14 +134,14 @@ struct TileMma {
       for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
     const int nk = (K + BK - 1) / BK;
-    load_tile<BM, BK, LDS, NT>(As[0], A, lda, arow, 0, K, tid);
-    load_tile<BN, BK, LDS, NT>(Bs[0], B, ldb, brow, 0, K, tid);
+    load_rows<BM, BK, LDS, NT>(As[0], arow, A, 0, K, tid);
+    load_rows<BN, BK, LDS, NT>(Bs[0], brow, B, 0, K, tid);
     cp_async_commit();
     for (int kt = 0; kt < nk; ++kt) {
       const int cur = kt & 1;
       if (kt + 1 < nk) {
-        load_tile<BM, BK, LDS, NT>(As[cur ^ 1], A, lda, arow, (kt + 1) * BK, K, tid);
-        load_tile<BN, BK, LDS, NT>(Bs[cur ^ 1], B, ldb, brow, (kt + 1) * BK, K, tid);
+        load_rows<BM, BK, LDS, NT>(As[cur ^ 1], arow, A, (kt + 1) * BK, K, tid);
+        load_rows<BN, BK, LDS, NT>(Bs[cur ^ 1], brow, B, (kt + 1) * BK, K, tid);
       }
       cp_async_commit();
       cp_async_wait<1>();

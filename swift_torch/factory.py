@@ -3,8 +3,9 @@
 Counterpart of ``swift_tpu/factory.py`` for the ported pieces: the same
 ``_target_`` suffixes and config keys, so a run's saved config builds the
 same network in either package. Ported: SwinV2 under PassPrecond over the
-ERA5 dataset, the TrigFlow loss, and Adam/AdamW with the reference's
-decay grouping and lr schedule. Any other target raises.
+ERA5 dataset, the TrigFlow and sCM losses, Adam/AdamW with the reference's
+decay grouping, and Muon with aux-Adam by the JAX package's labels, each
+with the reference lr schedule. Any other target raises.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import torch
 from swift_torch.data.era5 import ERA5Dataset
 from swift_torch.models.precond import PassPrecond
 from swift_torch.models.swinv2 import SwinV2
-from swift_torch.training.loss import TrigFlowLoss
-from swift_torch.training.trainer import adamw_decay_mask, lr_schedule
+from swift_torch.training.loss import SCMLoss, TrigFlowLoss
+from swift_torch.training.optimizers.muon import MuonWithAuxAdam
+from swift_torch.training.trainer import adamw_decay_mask, lr_schedule, muon_param_labels
 
 
 def _suffix(target: str) -> str:
@@ -96,27 +98,36 @@ def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channe
     )
 
 
-def build_loss(loss_cfg: dict, dataset) -> TrigFlowLoss:
+def build_loss(loss_cfg: dict, dataset):
     cfg = dict(loss_cfg)
     target = _suffix(cfg.pop("_target_", ""))
-    if target != "TrigFlowLoss":
-        raise NotImplementedError(f"loss target {target!r} is not ported (only TrigFlowLoss)")
-    return TrigFlowLoss(dataset.img_resolution[0], list(dataset.variables),
-                        noise=dict(cfg["noise"]), sigma_data=float(cfg.get("sigma_data", 1.0)))
+    common = dict(lat_dim=dataset.img_resolution[0], variables=list(dataset.variables),
+                  noise=dict(cfg["noise"]), sigma_data=float(cfg.get("sigma_data", 1.0)))
+    if target == "TrigFlowLoss":
+        return TrigFlowLoss(**common)
+    if target == "SCMLoss":
+        return SCMLoss(**common, tangent_warmup_kimg=int(cfg.get("tangent_warmup_kimg", 0)),
+                       distillation=bool(cfg.get("distillation", False)))
+    raise NotImplementedError(
+        f"loss target {target!r} is not ported (only TrigFlowLoss and SCMLoss)")
 
 
 def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: int,
                     net: torch.nn.Module, resume_kimg: int = 0):
-    """(``torch.optim.AdamW``, lr schedule). Two parameter groups, decayed
-    and not, by :func:`adamw_decay_mask` (the reference grouping); the
-    trainer sets every group's lr from the schedule before each update, as
-    the JAX package's ``optax.adamw`` reads its schedule."""
+    """(optimizer, lr schedule ``lr_fn(count, base_lr)``). Adam/AdamW: two
+    parameter groups, decayed and not, by :func:`adamw_decay_mask` (the
+    reference grouping), both of base lr ``lr``. MuonWithAuxAdam: the
+    "muon" and "adam" groups of :func:`muon_param_labels`, of base lr
+    ``lr`` and ``adam_lr``. The trainer sets every group's lr from the
+    schedule and the group's ``base_lr`` before each update, as the JAX
+    package's optax transforms read theirs."""
     cfg = dict(optimizer_cfg)
     target = _suffix(cfg.pop("_target_", "Adam"))
-    if target not in ("Adam", "AdamW"):
-        raise NotImplementedError(f"optimizer target {target!r} is not ported (only Adam/AdamW)")
+    if target not in ("Adam", "AdamW", "MuonWithAuxAdam"):
+        raise NotImplementedError(
+            f"optimizer target {target!r} is not ported (only Adam/AdamW and MuonWithAuxAdam)")
+    base_lr = float(cfg.get("lr", 0.02 if target == "MuonWithAuxAdam" else 1e-3))
     lr_fn = lr_schedule(
-        float(cfg.get("lr", 1e-3)),
         global_batch_size,
         lr_rampup_kimg=float(trainer_cfg.get("lr_rampup_kimg", 10000)),
         total_kimg=float(trainer_cfg.get("total_kimg", 200000)),
@@ -124,14 +135,31 @@ def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: i
         lr_cosine_anneal=bool(trainer_cfg.get("lr_cosine_anneal", True)),
         resume_kimg=resume_kimg,
     )
+    named = list(net.named_parameters())
+    if target == "MuonWithAuxAdam":
+        labels = muon_param_labels(named)
+        betas = cfg.get("adam_betas", (0.9, 0.95))
+        opt = MuonWithAuxAdam(
+            [p for n, p in named if labels[n] == "muon"],
+            [p for n, p in named if labels[n] == "adam"],
+            lr=base_lr,
+            weight_decay=float(cfg.get("weight_decay", 0.01)),
+            adam_lr=float(cfg.get("adam_lr", 3e-4)),
+            adam_betas=(float(betas[0]), float(betas[1])),
+            adam_weight_decay=float(cfg.get("adam_weight_decay", 0.01)),
+            adam_eps=float(cfg.get("adam_eps", 1e-10)),
+            momentum_dtype=cfg.get("momentum_dtype"),
+        )
+        for group in opt.param_groups:
+            group["lr"] = lr_fn(0, group["base_lr"])
+        return opt, lr_fn
     wd = float(cfg.get("weight_decay", 0.0))
     betas = cfg.get("betas", (0.9, 0.999))
-    named = list(net.named_parameters())
     mask = adamw_decay_mask([n for n, _ in named])
     groups = [
-        {"params": [p for n, p in named if mask[n]], "weight_decay": wd},
-        {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
+        {"params": [p for n, p in named if mask[n]], "weight_decay": wd, "base_lr": base_lr},
+        {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0, "base_lr": base_lr},
     ]
-    opt = torch.optim.AdamW(groups, lr=lr_fn(0), betas=(float(betas[0]), float(betas[1])),
+    opt = torch.optim.AdamW(groups, lr=lr_fn(0, base_lr), betas=(float(betas[0]), float(betas[1])),
                             eps=float(cfg.get("eps", 1e-8)))
     return opt, lr_fn

@@ -18,6 +18,14 @@ kernels, and ``remat_layers`` (the JAX model's default) recomputes each
 (unshifted, shifted) block pair in the backward: the first forward runs the
 pair without autograd, saving only the pair's input, and the backward runs
 it again with autograd on before differentiating it.
+
+``forward(..., jvp=True)`` is the sCM loss's forward-mode pass (the JAX
+model's ``jvp`` flag): run under ``torch.autograd.forward_ad`` with dual
+inputs, it takes no remat, the qkv projection and the attention give their
+tangents through kernels 14 and 7, wo is a plain product in ``dtype``
+followed by the modnorm epilogue (kernel 3 has no tangent route), and the
+FFN and both epilogues give theirs through kernels 11, 4 and 12, at every
+grid size.
 """
 
 from __future__ import annotations
@@ -64,10 +72,17 @@ class ModulatedNorm(nn.Module):
         scale, shift = mod.chunk(2, dim=-1)
         return self.norm.weight, self.norm.bias, scale.contiguous(), shift.contiguous()
 
+    def epilogue(self, y, residual, cond):
+        """``residual + modnorm(y)``: kernel 4 (with kernel 12 for the
+        tangent of dual inputs)."""
+        g, b, scale, shift = self.pieces(cond)
+        return fused_modnorm_residual(y, residual, g, b, scale, shift, self.eps)
+
 
 class WindowAttention(nn.Module):
     """qkv projection -> shifted-window cosine attention -> wo projection,
-    post-norm and residual (kernels 1, 2 and 3)."""
+    post-norm and residual (kernels 1, 2 and 3; under a jvp kernels 14, 2
+    with 7, a plain wo product, and the modnorm epilogue)."""
 
     def __init__(self, dim, heads, head_dim, window_size, shift=(0, 0)):
         super().__init__()
@@ -79,11 +94,16 @@ class WindowAttention(nn.Module):
         self.wo = nn.Linear(inner, dim, bias=False)
         self.norm = ModulatedNorm(dim)
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cond: torch.Tensor, jvp: bool = False) -> torch.Tensor:
         dt = x.dtype
         qkv = fused_linear(x, self.to_qkv.weight.to(dt))
         s = torch.exp(torch.clamp(self.scale.reshape(-1), max=math.log(100.0)))
         out = fused_block_attention(qkv, s, self.heads, self.window_size, self.shift)
+        if jvp:
+            # the JAX model's jvp path: wo as a plain product rounded to dtype
+            # (kernel 3 keeps it in fp32), then the post-norm epilogue
+            y = F.linear(out, self.wo.weight.to(dt))
+            return self.norm.epilogue(y, x, cond)
         g, b, scale, shift = self.norm.pieces(cond)
         return fused_matmul_modnorm_residual(
             out, self.wo.weight.to(dt), x, g, b, scale, shift, self.norm.eps
@@ -91,7 +111,8 @@ class WindowAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """SwiGLU feed-forward, post-norm and residual (kernels 5 and 4)."""
+    """SwiGLU feed-forward, post-norm and residual (kernels 5 and 4; for
+    dual inputs kernels 11, 4 and 12)."""
 
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
@@ -102,8 +123,7 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         y = fused_swiglu_ffn(x, self.w1.weight.to(dt), self.w2.weight.to(dt))
-        g, b, scale, shift = self.norm.pieces(cond)
-        return fused_modnorm_residual(y, x, g, b, scale, shift, self.norm.eps)
+        return self.norm.epilogue(y, x, cond)
 
 
 class _PatchEmbed(nn.Module):
@@ -134,10 +154,11 @@ class _Transformer(nn.Module):
 class SwinV2(nn.Module):
     """Flagship SwinV2 denoiser backbone.
 
-    ``forward(x, t, auxiliary=None, return_logvar=False)``: x (B, H, W,
-    in_channels) NHWC; t () / (1,) / (B,) timesteps; auxiliary (B,
+    ``forward(x, t, auxiliary=None, return_logvar=False, jvp=False)``: x
+    (B, H, W, in_channels) NHWC; t () / (1,) / (B,) timesteps; auxiliary (B,
     auxiliary_dim). Returns (B, H, W, out_channels) fp32, and the (B,)
-    logvar head output when ``return_logvar``.
+    logvar head output when ``return_logvar``. ``jvp`` selects the
+    forward-mode path (see the module docstring).
     """
 
     def __init__(
@@ -210,7 +231,7 @@ class SwinV2(nn.Module):
             h = ff(attn(h, cond), cond)
         return h
 
-    def forward(self, x, t, auxiliary=None, return_logvar: bool = False):
+    def forward(self, x, t, auxiliary=None, return_logvar: bool = False, jvp: bool = False):
         B = x.shape[0]
         H, W = self.img_resolution
         ph, pw = self.patch_size
@@ -232,7 +253,7 @@ class SwinV2(nn.Module):
         cond = self._condition(t, auxiliary)
         cond_c = cond.to(dt)
         layers = self.transformer.layers
-        if self.remat_layers and torch.is_grad_enabled() and len(layers) % 2 == 0:
+        if self.remat_layers and not jvp and torch.is_grad_enabled() and len(layers) % 2 == 0:
             for j in range(0, len(layers), 2):
                 # reentrant: the first forward runs under no_grad, so the
                 # kernels' forward-only paths serve it, and the backward's
@@ -241,7 +262,7 @@ class SwinV2(nn.Module):
                     self._pair, h, cond_c, j, use_reentrant=True, preserve_rng_state=False)
         else:
             for attn, ff in layers:
-                h = ff(attn(h, cond_c), cond_c)
+                h = ff(attn(h, cond_c, jvp), cond_c)
 
         # output head, (c, p1, p2) feature order as the reference
         o = F.linear(h, self.head.head[0].weight.to(dt))

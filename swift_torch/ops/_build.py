@@ -33,15 +33,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "swift_linear": [_P, _P, _P, _I, _I, _I, _P],
     "swift_linear_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "swift_linear_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_mm_modnorm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "swift_mm_modnorm_smem": [_I],
     "swift_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_smem": [_I],
+    "swift_ffn_pt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_bwd_saved": [_P] * 13 + [_I, _I, _I, _P],
     "swift_splitk_workspace": [_I, _I, _I],
     "swift_block_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "swift_block_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
     "swift_block_attention_bwd_qb": [_I],
+    "swift_block_attention_tangent": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "swift_max_smem": [],
     "swift_error_string": [_I],
 }

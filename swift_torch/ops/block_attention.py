@@ -1,20 +1,23 @@
-"""Shifted-window cosine attention from the qkv layout (kernel 2) and its
-backward (kernel 6).
+"""Shifted-window cosine attention from the qkv layout (kernel 2), its
+backward (kernel 6) and its forward-mode tangent (kernel 7).
 
 CUDA kernels: ``csrc/block_attention.cu::swift_block_attention``, which
 replaces ``swift_tpu/ops/pallas_block_attention.py::_fwd_call``, and
 ``swift_block_attention_bwd``, which replaces ``_bwd_call`` (the softmax
 recomputed, dqkv in the [q|k|v] interleave, and the gradient of the logit
-scale). Input is the qkv projection in its natural ``(B, gh, gw,
-heads·3·d)`` layout with the per-head [q|k|v] interleave; output is
-``(B, gh, gw, heads·d)``.
+scale), and ``swift_block_attention_tangent``, which replaces
+``_tangent_call`` (the normalise, softmax and p·v tangents of the sCM jvp
+forward; the logit scale carries none). Input is the qkv projection in its
+natural ``(B, gh, gw, heads·3·d)`` layout with the per-head [q|k|v]
+interleave; output is ``(B, gh, gw, heads·d)``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd import forward_ad
 
-from swift_torch.ops import _build
+from swift_torch.ops import _build, jvp_guard
 from swift_torch.ops.windows import cyclic_shift, window_partition, window_reverse
 
 _EPS = 1e-12
@@ -87,6 +90,38 @@ def reference_block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0
     return _unwindows(tile, window_size, (gh, gw), shift), dscale.to(scale.dtype)
 
 
+def reference_block_attention_tangent(qkv, dqkv, scale, heads, window_size, shift=(0, 0)):
+    """Plain version of kernel 7: the tangent of
+    :func:`reference_block_attention` at qkv along dqkv (the scale fixed).
+    The TPU kernel's formulas: dq̂ = (dq − q̂(q̂·dq))/|q| and dk̂ likewise,
+    dS = s·dq̂·k̂ᵀ + s·q̂·dk̂ᵀ, dp = p(dS − Σ p dS), dout = dp·v + p·dv, with
+    q̂s, dq̂s, k̂, dk̂, p and dp rounded to qkv.dtype before the products that
+    consume them and everything else fp32."""
+    B, gh, gw, feat = qkv.shape
+    d = feat // (3 * heads)
+    mm = qkv.dtype
+    q, k, v = _windows(qkv, heads, window_size, shift).split(d, dim=-1)
+    dq, dk, dv = _windows(dqkv, heads, window_size, shift).split(d, dim=-1)
+    s = scale.float()[:, None]
+
+    def normalised(a, da):
+        af, daf = a.float(), da.float()
+        ra = torch.rsqrt(torch.sum(af * af, -1, keepdim=True) + _EPS)
+        ah = af * ra
+        return ah, (daf - ah * torch.sum(ah * daf, -1, keepdim=True)) * ra
+
+    qh, dqh = normalised(q, dq)
+    kh, dkh = normalised(k, dk)
+    r = lambda a: a.to(mm).float()  # noqa: E731  (a rounding point)
+    qk = lambda a, b: torch.einsum("bwnhd,bwmhd->bwhnm", r(a), r(b))  # noqa: E731
+    pv = lambda a, b: torch.einsum("bwhnm,bwmhd->bwnhd", r(a), r(b))  # noqa: E731
+    p = torch.softmax(qk(qh * s, kh), dim=-1)
+    dS = qk(dqh * s, kh) + qk(qh * s, dkh)
+    dp = p * (dS - torch.sum(p * dS, -1, keepdim=True))
+    o = pv(dp, v) + pv(p, dv)
+    return _unwindows(o.to(mm), window_size, (gh, gw), shift)
+
+
 def _check(name, qkv, scale, heads, window_size):
     _build.check_dtype(name, torch.bfloat16, qkv=qkv)
     _build.check_dtype(name, torch.float32, scale=scale)
@@ -132,6 +167,7 @@ def block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
     Kernel 6 sums dk and dv over its query blocks through fp32 partials:
     2·B·heads·nW·256·dp fp32 of workspace (dp = d rounded up to 32),
     0.60 GB at B = 2 for 12×88 heads and 1.07 GB for 8×128."""
+    jvp_guard.refuse_tangents("block_attention_bwd", qkv=qkv, scale=scale, dout=dout)
     if _build.on_cpu(qkv, scale, dout):
         return reference_block_attention_bwd(qkv, scale, dout, heads, window_size, shift)
     name = "block_attention_bwd"
@@ -164,6 +200,33 @@ def block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
     return dqkv, dscale
 
 
+def block_attention_tangent(qkv, dqkv, scale, heads, window_size, shift=(0, 0)):
+    """The tangent of :func:`fused_block_attention` at qkv along dqkv,
+    (B, gh, gw, heads·d) in qkv.dtype. CPU tensors take
+    :func:`reference_block_attention_tangent`; CUDA tensors go to kernel 7
+    under the forward's shape rules, dqkv bf16 and shaped like qkv."""
+    if _build.on_cpu(qkv, dqkv, scale):
+        return reference_block_attention_tangent(qkv, dqkv, scale, heads, window_size, shift)
+    name = "block_attention_tangent"
+    _build.check_kernel_inputs(name, qkv=qkv, dqkv=dqkv, scale=scale)
+    B, gh, gw, d = _check(name, qkv, scale, heads, window_size)
+    _build.check_dtype(name, torch.bfloat16, dqkv=dqkv)
+    if dqkv.shape != qkv.shape:
+        raise ValueError(f"{name}: dqkv {tuple(dqkv.shape)} must match qkv {tuple(qkv.shape)}")
+    wh, ww = window_size
+    sh, sw = shift[0] % gh, shift[1] % gw
+    out = torch.empty(B, gh, gw, heads * d, device=qkv.device, dtype=qkv.dtype)
+    _build.check_launch(
+        _build.library().swift_block_attention_tangent(
+            qkv.data_ptr(), dqkv.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            B, gh, gw, heads, d, wh, ww, sh, sw, _build.stream(),
+        ),
+        name,
+    )
+    block_attention_tangent.launches += 1
+    return out
+
+
 class _BlockAttention(torch.autograd.Function):
     @staticmethod
     def forward(qkv, scale, heads, window_size, shift):
@@ -190,11 +253,22 @@ def fused_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
     CPU tensors take :func:`reference_block_attention`. CUDA tensors must be
     bf16 with wh·ww = 256 tokens a window, windows that tile the grid, and
     d a multiple of 8 no larger than 128. While autograd records, the
-    backward is :func:`block_attention_bwd`."""
+    backward is :func:`block_attention_bwd`. When qkv carries a
+    forward-mode tangent, the output is the dual of kernel 2's primal and
+    :func:`block_attention_tangent`."""
+    window_size, shift = tuple(window_size), tuple(shift)
+    qp, dqkv = forward_ad.unpack_dual(qkv)
+    if dqkv is not None or jvp_guard.any_tangent(scale):
+        jvp_guard.require_no_tangent("fused_block_attention", scale=scale)
+        out = _block_attention(qp, scale, heads, window_size, shift)
+        dout = block_attention_tangent(qp, jvp_guard.materialize(dqkv, qp), scale, heads,
+                                       window_size, shift)
+        return forward_ad.make_dual(out, dout)
     if _build.recording(qkv, scale):
-        return _BlockAttention.apply(qkv, scale, heads, tuple(window_size), tuple(shift))
+        return _BlockAttention.apply(qkv, scale, heads, window_size, shift)
     return _block_attention(qkv, scale, heads, window_size, shift)
 
 
 fused_block_attention.launches = 0
 block_attention_bwd.launches = 0
+block_attention_tangent.launches = 0

@@ -1,11 +1,14 @@
 """SwiGLU feed-forward ``(silu(x·Wg) ⊙ x·Wu)·W2`` (kernel 5), the forward
-that saves gate and up (kernel 8) and the backward from them (kernel 9).
+that saves gate and up (kernel 8), the backward from them (kernel 9) and
+the primal + tangent of the sCM jvp forward (kernel 11).
 
 CUDA kernels: ``csrc/ffn.cu::swift_ffn``, which replaces
 ``swift_tpu/ops/pallas_ffn.py::_ffn_call`` (the (tokens, 2·hidden) gate/up
 intermediate never reaches device memory) and, with its gate and up outputs
 given, ``_ffn_fwd_save_call``; ``csrc/gemm_bwd.cu::swift_ffn_bwd_saved``,
-which replaces ``_ffn_bwd_saved_call``. Weights are in the torch
+which replaces ``_ffn_bwd_saved_call``; ``csrc/ffn.cu::swift_ffn_pt``,
+which replaces ``_ffn_pt_call`` (y and dy with gate and up computed once
+and shared). Weights are in the torch
 ``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows first and the up
 rows second (the reference chunk order), ``w2`` (D, H).
 
@@ -21,9 +24,10 @@ from __future__ import annotations
 import os
 
 import torch
+from torch.autograd import forward_ad
 import torch.nn.functional as F
 
-from swift_torch.ops import _build
+from swift_torch.ops import _build, jvp_guard
 
 
 def reference_swiglu_ffn(x, w1, w2):
@@ -68,6 +72,24 @@ def reference_swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
     return dx, dw1, dw2
 
 
+def reference_swiglu_ffn_pt(x, dx, w1, w2):
+    """Plain version of kernel 11: (y, dy) of the FFN at x along dx. g, u,
+    dg, du accumulate in fp32; h = silu(g)·u and
+    dh = σ(g)(1 + g(1 − σ(g)))·dg·u + silu(g)·du are rounded to x.dtype before
+    the W2 products (fp32 accumulation), as the TPU kernel casts them."""
+    H = w2.shape[1]
+    w1f, w2f = w1.float().t(), w2.float().t()
+    gu = torch.matmul(x.float(), w1f)
+    dgu = torch.matmul(dx.float(), w1f)
+    g, u, dg, du = gu[..., :H], gu[..., H:], dgu[..., :H], dgu[..., H:]
+    sig = torch.sigmoid(g)
+    sg = g * sig
+    h = (sg * u).to(x.dtype)
+    dh = ((sig * (1 + g * (1 - sig))) * dg * u + sg * du).to(x.dtype)
+    return (torch.matmul(h.float(), w2f).to(x.dtype),
+            torch.matmul(dh.float(), w2f).to(x.dtype))
+
+
 def _check(name, x, w1, w2):
     D = x.shape[-1]
     H = w2.shape[1]
@@ -82,6 +104,8 @@ def _check(name, x, w1, w2):
 
 def _ffn(x, w1, w2, save: bool):
     """Kernel 5, or kernel 8 when ``save`` (then returns (y, g, u))."""
+    jvp_guard.refuse_tangents("swiglu_ffn_fwd_save" if save else "fused_swiglu_ffn",
+                              x=x, w1=w1, w2=w2)
     if _build.on_cpu(x, w1, w2):
         if save:
             return reference_swiglu_ffn_fwd_save(x, w1, w2)
@@ -127,6 +151,7 @@ def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
     Kernel 9 writes [dg|du] and h, bf16, to (T, 3H) of scratch (0.74 GB
     each for dg, du and h at the T = 131072 train batch, 0.18 GB at B = 2),
     and split-K fp32 partials of the two weight gradients."""
+    jvp_guard.refuse_tangents("swiglu_ffn_bwd_saved", x=x, dy=dy, g=g, u=u, w1=w1, w2=w2)
     if _build.on_cpu(x, dy, g, u, w1, w2):
         return reference_swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2)
     name = "swiglu_ffn_bwd_saved"
@@ -154,6 +179,36 @@ def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
     )
     swiglu_ffn_bwd_saved.launches += 1
     return dx, dw1, dw2
+
+
+def swiglu_ffn_pt(x, dx, w1, w2):
+    """(y, dy): the FFN and its tangent along dx in one launch, gate and up
+    computed once. CPU tensors take :func:`reference_swiglu_ffn_pt`; CUDA
+    tensors go to kernel 11 under kernel 5's shape rules, dx like x.
+
+    Kernel 11 stacks 16 rows of x over the same 16 rows of dx into one
+    32-row block, so its shared-memory row block is kernel 5's (135 KB at
+    D = 1056): two 32-row fp32 accumulators would need 271 KB."""
+    if _build.on_cpu(x, dx, w1, w2):
+        return reference_swiglu_ffn_pt(x, dx, w1, w2)
+    name = "swiglu_ffn_pt"
+    _build.check_kernel_inputs(name, x=x, dx=dx, w1=w1, w2=w2)
+    _build.check_dtype(name, torch.bfloat16, x=x, dx=dx, w1=w1, w2=w2)
+    D, H = _check(name, x, w1, w2)
+    if dx.shape != x.shape:
+        raise ValueError(f"{name}: dx {tuple(dx.shape)} must match x {tuple(x.shape)}")
+    lib = _build.library()
+    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
+        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
+    M = x.numel() // D
+    y, dy = torch.empty_like(x), torch.empty_like(x)
+    _build.check_launch(
+        lib.swift_ffn_pt(x.data_ptr(), dx.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
+                         dy.data_ptr(), M, D, H, _build.stream()),
+        name,
+    )
+    swiglu_ffn_pt.launches += 1
+    return y, dy
 
 
 def save_max_tokens() -> int:
@@ -194,7 +249,13 @@ def fused_swiglu_ffn(x, w1, w2):
     CPU tensors take :func:`reference_swiglu_ffn`; CUDA tensors must be bf16
     with D % 16 == 0 and H % 8 == 0. While autograd records, the forward is
     :func:`swiglu_ffn_fwd_save` and the backward
-    :func:`swiglu_ffn_bwd_saved`."""
+    :func:`swiglu_ffn_bwd_saved`. When x carries a forward-mode tangent, the
+    output is the dual of :func:`swiglu_ffn_pt`'s y and dy."""
+    xp, dx = forward_ad.unpack_dual(x)
+    if dx is not None or jvp_guard.any_tangent(w1, w2):
+        jvp_guard.require_no_tangent("fused_swiglu_ffn", w1=w1, w2=w2)
+        y, dy = swiglu_ffn_pt(xp, jvp_guard.materialize(dx, xp), w1, w2)
+        return forward_ad.make_dual(y, dy)
     if _build.recording(x, w1, w2):
         return _SwiGLU.apply(x, w1, w2)[0]
     return _ffn(x, w1, w2, save=False)
@@ -203,3 +264,4 @@ def fused_swiglu_ffn(x, w1, w2):
 fused_swiglu_ffn.launches = 0
 swiglu_ffn_fwd_save.launches = 0
 swiglu_ffn_bwd_saved.launches = 0
+swiglu_ffn_pt.launches = 0

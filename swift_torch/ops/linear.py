@@ -1,18 +1,22 @@
-"""The qkv projection ``y = x @ w.T`` (kernel 1) and its backward (kernel 13).
+"""The qkv projection ``y = x @ w.T`` (kernel 1), its backward (kernel 13)
+and its primal + tangent (kernel 14).
 
 CUDA kernels: ``csrc/gemm.cu::swift_linear``, which replaces
-``swift_tpu/ops/pallas_linear.py::_lin_call``, and
+``swift_tpu/ops/pallas_linear.py::_lin_call``,
 ``csrc/gemm_bwd.cu::swift_linear_bwd``, which replaces ``_lin_bwd_call``
 (dx = dy·W, and dW = dyᵀ·x summed over every token in fp32 and rounded to
-the weight's dtype). ``w`` is in the torch ``nn.Linear`` layout ``(N, K)``;
-the kernels read it as it is stored and return dW in that layout.
+the weight's dtype), and ``csrc/gemm.cu::swift_linear_pt``, which replaces
+``_lin_pt_call`` (x·Wᵀ and dx·Wᵀ against one staged W tile, for the sCM
+jvp forward). ``w`` is in the torch ``nn.Linear`` layout ``(N, K)``; the
+kernels read it as it is stored and return dW in that layout.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd import forward_ad
 
-from swift_torch.ops import _build
+from swift_torch.ops import _build, jvp_guard
 
 
 def reference_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -28,6 +32,11 @@ def reference_linear_bwd(dy, x, w):
     dx = torch.matmul(dy2, w.float()).to(x.dtype).reshape(x.shape)
     dw = torch.matmul(dy2.t(), x2).to(w.dtype)
     return dx, dw
+
+
+def reference_linear_pt(x, dx, w):
+    """Plain version of kernel 14: (x·wᵀ, dx·wᵀ), each as :func:`reference_linear`."""
+    return reference_linear(x, w), reference_linear(dx, w)
 
 
 def _check_shapes(name, x, w):
@@ -63,6 +72,7 @@ def fused_linear_bwd(dy, x, w):
     """(dx, dw) of ``y = x @ w.T``. CPU tensors take
     :func:`reference_linear_bwd`; CUDA tensors must be bf16 and contiguous,
     with K and N multiples of 8, and go to kernel 13."""
+    jvp_guard.refuse_tangents("fused_linear_bwd", dy=dy, x=x, w=w)
     if _build.on_cpu(dy, x, w):
         return reference_linear_bwd(dy, x, w)
     name = "fused_linear_bwd"
@@ -85,6 +95,32 @@ def fused_linear_bwd(dy, x, w):
     return dx, dw
 
 
+def linear_pt(x, dx, w):
+    """(x·wᵀ, dx·wᵀ): the primal and the tangent of the projection in one
+    launch. CPU tensors take :func:`reference_linear_pt`; CUDA tensors must
+    be bf16 and contiguous with x and dx of one shape, K and N multiples of
+    8, and go to kernel 14."""
+    if _build.on_cpu(x, dx, w):
+        return reference_linear_pt(x, dx, w)
+    name = "linear_pt"
+    _build.check_kernel_inputs(name, x=x, dx=dx, w=w)
+    _build.check_dtype(name, torch.bfloat16, x=x, dx=dx, w=w)
+    N, K = _check_shapes(name, x, w)
+    if dx.shape != x.shape:
+        raise ValueError(f"{name}: dx {tuple(dx.shape)} must match x {tuple(x.shape)}")
+    M = x.numel() // K
+    y = torch.empty(*x.shape[:-1], N, device=x.device, dtype=x.dtype)
+    dy = torch.empty_like(y)
+    lib = _build.library()
+    _build.check_launch(
+        lib.swift_linear_pt(x.data_ptr(), dx.data_ptr(), w.data_ptr(), y.data_ptr(),
+                            dy.data_ptr(), M, N, K, _build.stream()),
+        name,
+    )
+    linear_pt.launches += 1
+    return y, dy
+
+
 class _Linear(torch.autograd.Function):
     @staticmethod
     def forward(x, w):
@@ -105,7 +141,14 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take :func:`reference_linear`; CUDA tensors must be bf16,
     contiguous, with K and N multiples of 8, and go to the kernel. While
-    autograd records, the backward is :func:`fused_linear_bwd`."""
+    autograd records, the backward is :func:`fused_linear_bwd`. When x
+    carries a forward-mode tangent, the output is the dual of
+    :func:`linear_pt`'s primal and tangent."""
+    xp, dx = forward_ad.unpack_dual(x)
+    if dx is not None or jvp_guard.any_tangent(w):
+        jvp_guard.require_no_tangent("fused_linear", w=w)
+        y, dy = linear_pt(xp, jvp_guard.materialize(dx, xp), w)
+        return forward_ad.make_dual(y, dy)
     if _build.recording(x, w):
         return _Linear.apply(x, w)
     return _linear(x, w)
@@ -113,3 +156,4 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 fused_linear.launches = 0
 fused_linear_bwd.launches = 0
+linear_pt.launches = 0

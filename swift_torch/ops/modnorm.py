@@ -1,4 +1,5 @@
-"""Post-norm AdaLN epilogues with the residual add (kernels 3 and 4).
+"""Post-norm AdaLN epilogues with the residual add (kernels 3 and 4), and
+the forward-mode tangent of kernel 4's epilogue (kernel 12).
 
 ``residual + (LN(y)·g + b)·(1 + scale_b) + shift_b`` with fp32 statistics,
 the variance taken as E[y²] − μ² as the TPU kernels take it, and the AdaLN
@@ -15,6 +16,17 @@ row ``b`` picked per sample.
   program normalises a block of rows held whole in registers (a masked
   2048-wide block covers D=1056), reading y and the residual once and
   writing once.
+* :func:`modnorm_residual_tangent` is the tangent of that epilogue along
+  (y, residual, scale, shift), the AdaLN rows carrying tangents because
+  they are Dense(cond(t)); g and b carry none. Triton:
+  :func:`_tangent_kernel`, replacing ``swift_tpu/ops/pallas_modnorm.py::
+  _tangent_call``. About 18 FLOPs for the eight bytes it moves per element
+  (y, dy, the residual's tangent in, the tangent out): memory-bound like
+  kernel 4, and built the same way (two row reductions, mean of dy and of
+  y·dy, beside kernel 4's two). :func:`fused_modnorm_residual` takes it
+  for the tangent when an input carries one; kernel 3 has no tangent route
+  (the JAX package runs wo as a plain product under the jvp) and refuses
+  dual inputs.
 
 Their backward is the vjp of the plain epilogue, as in the JAX package
 (``pallas_modnorm.py::_fused_bwd`` and ``_fused_mm_mn_bwd``, which have no
@@ -28,8 +40,9 @@ import functools
 import os
 
 import torch
+from torch.autograd import forward_ad
 
-from swift_torch.ops import _build
+from swift_torch.ops import _build, jvp_guard
 
 
 def reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
@@ -49,6 +62,28 @@ def reference_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift
     fp32 (the kernel never rounds it) before the epilogue."""
     y = torch.matmul(x.float(), w.float().t())
     return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+
+
+def reference_modnorm_residual_tangent(y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift,
+                                       eps=1e-6):
+    """Plain version of kernel 12: the tangent of
+    :func:`reference_modnorm_residual` at (y, mod_scale) along (dy, the
+    residual's tangent dr, dmod_scale, dmod_shift), with the TPU kernel's
+    formula (variance E[y²] − μ², fp32 math). Returns dr.dtype."""
+    yf, dyf = y.float(), dy.float()
+    mu = yf.mean(-1, keepdim=True)
+    var = (yf * yf).mean(-1, keepdim=True) - mu * mu
+    rs = torch.rsqrt(var + eps)
+    yn = (yf - mu) * rs
+    dmu = dyf.mean(-1, keepdim=True)
+    dvar = 2.0 * ((yf * dyf).mean(-1, keepdim=True) - mu * dmu)
+    dyn = rs * (dyf - dmu) - 0.5 * yn * (rs * rs) * dvar
+    ln = yn * g.float() + b.float()
+    dln = dyn * g.float()
+    shape = (mod_scale.shape[0],) + (1,) * (y.ndim - 2) + (-1,)
+    row = lambda a: a.float().reshape(shape)  # noqa: E731
+    out = dln * (1.0 + row(mod_scale)) + ln * row(dmod_scale) + row(dmod_shift) + dr.float()
+    return out.to(dr.dtype)
 
 
 def _check_epilogue(name, residual, g, b, mod_scale, mod_shift):
@@ -123,6 +158,8 @@ def fused_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, ep
     must be bf16 (g, b fp32) with K % 8 == 0 and D % 16 == 0. While autograd
     records, the backward is the vjp of the plain epilogue."""
     args = (x, w, residual, g, b, mod_scale, mod_shift)
+    jvp_guard.refuse_tangents("fused_matmul_modnorm_residual", x=x, w=w, residual=residual,
+                              g=g, b=b, mod_scale=mod_scale, mod_shift=mod_shift)
     if _build.recording(*args):
         return _MatmulModnorm.apply(*args, eps)
     return _matmul_modnorm_residual(*args, eps)
@@ -204,8 +241,20 @@ def fused_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
 
     CPU tensors take :func:`reference_modnorm_residual`; CUDA tensors must be
     bf16 (g, b fp32) with D % 16 == 0 and D ≤ 2048. While autograd records,
-    the backward is the vjp of the plain epilogue."""
+    the backward is the vjp of the plain epilogue. When y, the residual or
+    the AdaLN rows carry forward-mode tangents, the output is the dual of
+    kernel 4's primal and :func:`modnorm_residual_tangent` (a missing
+    tangent is zero)."""
     args = (y, residual, g, b, mod_scale, mod_shift)
+    if jvp_guard.any_tangent(*args):
+        jvp_guard.require_no_tangent("fused_modnorm_residual", g=g, b=b)
+        (yp, dy), (rp, dr), (sp, dsc), (hp, dsh) = map(
+            forward_ad.unpack_dual, (y, residual, mod_scale, mod_shift))
+        out = _modnorm_residual(yp, rp, g, b, sp, hp, eps)
+        m = jvp_guard.materialize
+        dout = modnorm_residual_tangent(yp, m(dy, yp), m(dr, rp), g, b, sp, m(dsc, sp),
+                                        m(dsh, hp), eps)
+        return forward_ad.make_dual(out, dout)
     if _build.recording(*args):
         return _Modnorm.apply(*args, eps)
     return _modnorm_residual(*args, eps)
@@ -236,3 +285,77 @@ def _modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps):
 
 
 fused_modnorm_residual.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _tangent_kernel():
+    """Kernel 12 in Triton, built on first launch like :func:`_modnorm_kernel`:
+    one program holds ROWS whole rows of y and dy in registers."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def kernel(y_ptr, dy_ptr, dr_ptr, g_ptr, b_ptr, ms_ptr, dms_ptr, dmb_ptr, o_ptr, T, D, tps,
+               eps, ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
+        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
+        cols = tl.arange(0, BLOCK_D)
+        cmask = cols < D
+        mask = (rows < T)[:, None] & cmask[None, :]
+        offs = rows[:, None] * D + cols[None, :]
+        y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        mu = tl.sum(y, axis=1) / D
+        var = tl.sum(y * y, axis=1) / D - mu * mu
+        rs = tl.math.rsqrt(var + eps)
+        yn = (y - mu[:, None]) * rs[:, None]
+        dmu = tl.sum(dy, axis=1) / D
+        dvar = 2.0 * (tl.sum(y * dy, axis=1) / D - mu * dmu)
+        dyn = rs[:, None] * (dy - dmu[:, None]) - 0.5 * yn * (rs * rs * dvar)[:, None]
+        g = tl.load(g_ptr + cols, mask=cmask, other=0.0)[None, :]
+        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)[None, :]
+        moffs = (rows // tps)[:, None] * D + cols[None, :]
+        ms = tl.load(ms_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
+        dms = tl.load(dms_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
+        dmb = tl.load(dmb_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
+        dr = tl.load(dr_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        out = dyn * g * (1.0 + ms) + (yn * g + b) * dms + dmb + dr
+        tl.store(o_ptr + offs, out.to(o_ptr.dtype.element_ty), mask=mask)
+
+    return kernel
+
+
+def modnorm_residual_tangent(y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift, eps=1e-6):
+    """Tangent of ``residual + modnorm(y)`` along (dy, dr, dmod_scale,
+    dmod_shift). y, dy, dr: (B, ..., D); g, b: (D,); mod_scale and its
+    tangents: (B, D). Returns dr.dtype.
+
+    CPU tensors take :func:`reference_modnorm_residual_tangent`; CUDA
+    tensors go to kernel 12 under kernel 4's rules (bf16, g and b fp32,
+    D % 16 == 0, D ≤ 2048)."""
+    args = (y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift)
+    if _build.on_cpu(*args):
+        return reference_modnorm_residual_tangent(*args, eps)
+    name = "modnorm_residual_tangent"
+    _build.check_kernel_inputs(name, y=y, dy=dy, dr=dr, g=g, b=b, mod_scale=mod_scale,
+                               dmod_scale=dmod_scale, dmod_shift=dmod_shift)
+    _build.check_dtype(name, torch.bfloat16, y=y, dy=dy)
+    _check_epilogue(name, dr, g, b, dmod_scale, dmod_shift)
+    _build.check_dtype(name, torch.bfloat16, mod_scale=mod_scale)
+    if not y.shape == dy.shape == dr.shape or mod_scale.shape != dmod_scale.shape:
+        raise ValueError(f"{name}: y, dy and dr must share a shape, and the AdaLN rows theirs")
+    D = y.shape[-1]
+    if D > 2048:
+        raise ValueError(f"{name}: D={D} exceeds the 2048-wide block")
+    T = y.numel() // D
+    out = torch.empty_like(dr)
+    grid = ((T + _ROWS - 1) // _ROWS,)
+    _tangent_kernel()[grid](
+        y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift, out, T, D, T // y.shape[0],
+        float(eps), ROWS=_ROWS, BLOCK_D=2048, num_warps=8,
+    )
+    modnorm_residual_tangent.launches += 1
+    return out
+
+
+modnorm_residual_tangent.launches = 0

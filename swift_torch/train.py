@@ -5,11 +5,13 @@ Counterpart of ``swift_tpu/train.py`` (reference src/swift/train.py:135-346):
 the same Hydra-style overrides over the same config tree, the same run-dir
 layout (``results/<experiment>/<run-id>`` with the composed config in
 ``.hydra/config.yaml``) and the same resume flow. It runs on the GPU unless
-``--device cpu`` asks for the CPU, and raises where CUDA is absent. Ported
-so far: SwinV2 + PassPrecond + TrigFlowLoss + Adam/AdamW on one device.
-Online validation, finetuning, distillation and multi-device runs are not
-ported yet; a config that asks for validation trains without it, and one
-that asks for the others raises.
+``--device cpu`` asks for the CPU, and raises where CUDA is absent. With no
+overrides it trains the default experiment, ``era5-swinv2-1.4-scm``
+(SwinV2 + PassPrecond + SCMLoss + Muon with aux-Adam); TrigFlowLoss and
+Adam/AdamW are ported too, all on one device. Online validation,
+finetuning, distillation and multi-device runs are not ported yet; a config
+that asks for validation trains without it, and one that asks for the
+others raises.
 """
 
 from __future__ import annotations

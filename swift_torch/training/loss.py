@@ -1,14 +1,16 @@
-"""Training losses of the port: the weighting, the noise samplers and
-``TrigFlowLoss``.
+"""Training losses of the port: the weighting, the noise samplers,
+``TrigFlowLoss`` and ``SCMLoss``.
 
 Counterpart of ``swift_tpu/training/loss.py`` (reference
-src/swift/training/loss.py:28-160): latitude and variable weights, the
-lognormal / loguniform noise samplers, and the TrigFlow v-prediction loss
-with adaptive logvar weighting. Data are NHWC, channel sums over the last
-axis. The random draws (τ, z) are split from the loss body, as
-``SCMLoss._draw`` splits them in the JAX package, and come from an explicit
-``torch.Generator``: a test hands both packages the same numbers.
-The other losses (EDM, sCM, MSE, CRPS) are not ported yet.
+src/swift/training/loss.py:28-260): latitude and variable weights, the
+lognormal / loguniform noise samplers, the TrigFlow v-prediction loss with
+adaptive logvar weighting, and the sCM consistency loss, whose tangent term
+runs the network once in forward mode (``torch.autograd.forward_ad``) through
+the kernels' tangent routes. Data are NHWC, channel sums over the last axis.
+The random draws (τ, z) are split from the loss body, as ``SCMLoss._draw``
+splits them in the JAX package, and come from an explicit
+``torch.Generator``: a test hands both packages the same numbers. The other
+losses (EDM, MSE, CRPS) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from swift_torch.data.constants import DEFAULT_PRESSURE_LEVELS, PRESSURE_LEVEL_VARS
 
@@ -65,12 +68,9 @@ def loguniform(gen: torch.Generator, batch: int, sigma_min: float, sigma_max: fl
 NOISE_SAMPLING_METHODS = {"lognormal": lognormal, "loguniform": loguniform}
 
 
-class TrigFlowLoss:
-    """TrigFlow v-prediction loss with adaptive logvar weighting.
-
-    ``loss(net, x, condition, auxiliary, gen)`` draws (t, z) with
-    :meth:`draw` and returns :meth:`value`; ``net`` is the precond module.
-    """
+class _WeightedLoss:
+    """The latitude and variable weights and the (t, z) draws shared by the
+    TrigFlow and sCM losses."""
 
     def __init__(self, lat_dim: int, variables: Sequence[str], noise: dict,
                  sigma_data: float = 1.0):
@@ -88,6 +88,14 @@ class TrigFlowLoss:
         t = torch.atan(tau / self.sigma_data)
         z = torch.randn(x.shape, generator=gen, device=x.device) * self.sigma_data
         return t, z
+
+
+class TrigFlowLoss(_WeightedLoss):
+    """TrigFlow v-prediction loss with adaptive logvar weighting.
+
+    ``loss(net, x, condition, auxiliary, gen)`` draws (t, z) with
+    :meth:`draw` and returns :meth:`value`; ``net`` is the precond module.
+    """
 
     def value(self, net, x, t, z, condition=None, auxiliary=None) -> torch.Tensor:
         """The loss at fixed draws (t, z)."""
@@ -110,3 +118,89 @@ class TrigFlowLoss:
                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
         t, z = self.draw(x, gen)
         return self.value(net, x, t, z, condition, auxiliary)
+
+
+class SCMLoss(_WeightedLoss):
+    """Simplified/stabilized continuous-time consistency loss (reference
+    loss.py:163-260, the JAX package's ``SCMLoss``).
+
+    ``loss(net, x, condition, auxiliary, gen, step=nimg, teacher=None)``
+    draws (t, z) with :meth:`draw` (TrigFlow's) and returns :meth:`value`.
+    ``step`` is the images seen before this optimizer step (the trainer's
+    ``nimg``); it sets the tangent warmup r = min(1, step / (warmup_kimg ·
+    1000)). With ``distillation`` and a ``teacher`` net, dx_t/dt is the
+    frozen teacher's v-prediction.
+    """
+
+    def __init__(self, lat_dim: int, variables: Sequence[str], noise: dict,
+                 sigma_data: float = 1.0, tangent_warmup_kimg: float = 0,
+                 distillation: bool = False):
+        super().__init__(lat_dim, variables, noise, sigma_data)
+        self.tangent_warmup_kimg = tangent_warmup_kimg
+        self.distillation = bool(distillation)
+
+    def interpolate(self, x, t, z, condition=None, auxiliary=None, teacher=None):
+        """(x_t, dx_t/dt) at the draws (t, z); with ``distillation`` and a
+        ``teacher``, dx_t/dt is the frozen teacher's v-prediction."""
+        x_t = torch.cos(t) * x + torch.sin(t) * z
+        if self.distillation and teacher is not None:
+            with torch.no_grad():
+                return x_t, self.sigma_data * teacher(x_t / self.sigma_data, t.reshape(-1),
+                                                      condition, auxiliary)
+        return x_t, torch.cos(t) * z - torch.sin(t) * x
+
+    def jvp_term(self, net, t, x_t, dxt_dt, condition=None, auxiliary=None):
+        """dF̂: the tangent of ``net`` at (x_t/σ_d, t) along (cos t · sin t ·
+        dx_t/dt / σ_d, cos t · sin t), run once in forward mode under
+        ``no_grad`` (the JAX package stop-gradients it; here no graph is
+        recorded). The net's ``jvp`` path carries the tangent through the
+        kernels."""
+        cos_t, sin_t = torch.cos(t), torch.sin(t)
+        with torch.no_grad(), forward_ad.dual_level():
+            xi = forward_ad.make_dual(x_t / self.sigma_data,
+                                      cos_t * sin_t * dxt_dt / self.sigma_data)
+            ti = forward_ad.make_dual(t.reshape(-1), (cos_t * sin_t).reshape(-1))
+            out = net(xi, ti, condition, auxiliary, jvp=True)
+            dF_x = forward_ad.unpack_dual(out).tangent
+        if dF_x is None:
+            raise RuntimeError("the network's output carries no tangent")
+        return dF_x
+
+    def value(self, net, x, t, z, step=0.0, condition=None, auxiliary=None, teacher=None,
+              dF_x=None) -> torch.Tensor:
+        """The loss at fixed draws (t, z)."""
+        cos_t, sin_t = torch.cos(t), torch.sin(t)
+        x_t, dxt_dt = self.interpolate(x, t, z, condition, auxiliary, teacher)
+        if dF_x is None:
+            dF_x = self.jvp_term(net, t, x_t, dxt_dt, condition, auxiliary)
+        use_logvar = getattr(net.model, "logvar_embed", None) is not None
+        out = net(x_t / self.sigma_data, t.reshape(-1), condition, auxiliary,
+                  return_logvar=use_logvar)
+        if use_logvar:
+            F_x, logvar = out
+            logvar = logvar.reshape(-1, 1, 1, 1)
+        else:
+            F_x, logvar = out, torch.zeros(x.shape[0], 1, 1, 1, device=x.device)
+
+        # tangent warmup ramp r = min(1, step / (warmup_kimg · 1000))
+        if self.tangent_warmup_kimg > 0:
+            r = min(1.0, float(step) / (self.tangent_warmup_kimg * 1000))
+        else:
+            r = 1.0
+        F_det, dF_det = F_x.detach(), dF_x.detach()
+        # the JVP rearrangement (the 1/(σ_d·tan t) factor folded into the
+        # extra cos t, reference loss.py:238-241)
+        g = -(cos_t ** 2) * (self.sigma_data * F_det - dxt_dt) - r * (
+            (cos_t * sin_t) * x_t + self.sigma_data * dF_det)
+        # tangent normalization, invariant to spatial size (reference :245-247)
+        gn = torch.sqrt(torch.sum(g ** 2, dim=(1, 2, 3), keepdim=True))
+        gn = gn * math.sqrt(1.0 / (g.shape[1] * g.shape[2] * g.shape[3]))
+        g = g / (gn + 0.1)
+        w = self.w_var.to(x.device) * self.w_lat.to(x.device)
+        se = w * torch.square(F_x - F_det - g)
+        return ((1.0 / torch.exp(logvar)) * se + logvar).sum(dim=-1).mean()
+
+    def __call__(self, net, x, condition=None, auxiliary=None,
+                 gen: Optional[torch.Generator] = None, step=0.0, teacher=None) -> torch.Tensor:
+        t, z = self.draw(x, gen)
+        return self.value(net, x, t, z, step, condition, auxiliary, teacher)

@@ -2,11 +2,14 @@
 
 Counterpart of ``swift_tpu/training/trainer.py`` (reference
 src/swift/training/trainer.py:31-535). One optimizer step is loss → backward
-(over ``grad_accum`` microbatches) → ``clamp_grads`` → AdamW with the lr set
-from :func:`lr_schedule` → :func:`ema_update`. The tick bookkeeping, the
-``stats.jsonl`` keys, the checkpoint naming, the SIGTERM checkpoint and the
-resume follow the JAX trainer. Online validation (``_val_step``) is not
-ported yet: :meth:`Trainer.train` raises if it is handed val batches.
+(over ``grad_accum`` microbatches) → ``clamp_grads`` → the optimizer (AdamW,
+or Muon with aux-Adam) with each group's lr set from :func:`lr_schedule` →
+:func:`ema_update`. An sCM loss gets the images seen before the step as its
+``step`` (the tangent warmup), as the JAX trainer passes ``state.nimg``. The
+tick bookkeeping, the ``stats.jsonl`` keys, the checkpoint naming, the
+SIGTERM checkpoint and the resume follow the JAX trainer. Online validation
+(``_val_step``) is not ported yet: :meth:`Trainer.train` raises if it is
+handed val batches.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from swift_torch.training.loss import SCMLoss
 from swift_torch.utils.checkpoint import (
     get_ckpt_num,
     load_training_state,
@@ -36,33 +40,33 @@ logger = get_logger(__name__)
 
 
 def lr_schedule(
-    base_lr: float,
     global_batch_size: int,
     lr_rampup_kimg: float = 10000,
     total_kimg: float = 200000,
     lr_min_factor: float = 0.01,
     lr_cosine_anneal: bool = True,
     resume_kimg: int = 0,
-) -> Callable[[int], float]:
+) -> Callable[[int, float], float]:
     """Linear warmup + optional cosine anneal keyed on global nimg. Returns
-    the lr as a function of the optimizer update count of this run (the
-    JAX package's optax schedule, the same numbers)."""
+    ``schedule(count, base)``: the lr after ``count`` optimizer updates of
+    this run for a parameter group of base lr ``base`` (the JAX package's
+    optax schedule of that base, the same numbers)."""
     warmup_nimg = lr_rampup_kimg * 1000
     total_nimg = total_kimg * 1000
-    min_lr = base_lr * lr_min_factor
 
-    def schedule(count: int) -> float:
+    def schedule(count: int, base: float) -> float:
+        min_lr = base * lr_min_factor
         nimg = resume_kimg * 1000 + count * global_batch_size
         if nimg < warmup_nimg:
-            return min_lr + (base_lr - min_lr) * (nimg / max(warmup_nimg, 1))
+            return min_lr + (base - min_lr) * (nimg / max(warmup_nimg, 1))
         if lr_cosine_anneal:
             progress = min(1.0, (nimg - warmup_nimg) / max(total_nimg - warmup_nimg, 1))
-            return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * progress))
+            return min_lr + 0.5 * (base - min_lr) * (1 + math.cos(math.pi * progress))
         if warmup_nimg > 0:
             # the lr holds at the value the last warmup step set
             last = (warmup_nimg - 1) // global_batch_size * global_batch_size
-            return min_lr + (base_lr - min_lr) * (last / warmup_nimg)
-        return base_lr
+            return min_lr + (base - min_lr) * (last / warmup_nimg)
+        return base
 
     return schedule
 
@@ -79,6 +83,19 @@ def adamw_decay_mask(names) -> dict[str, bool]:
         return True
 
     return {n: label(n) for n in names}
+
+
+def muon_param_labels(named_params) -> dict[str, str]:
+    """"muon" for the 2-D weights inside the transformer blocks (to_qkv, wo,
+    w1, w2 and both AdaLN modulation weights), "adam" for everything else
+    (the JAX package's labels: reference train.py:296-311 keys on ``ndim >=
+    2 and "transformer" in name``). The per-head logit ``scale`` is
+    (1, heads, 1, 1) here, as in the reference, but goes to Adam, as the
+    JAX package assigns it (a documented divergence from the reference,
+    ``swift_tpu/training/trainer.py::muon_param_labels``); hence the 2-D
+    rule instead of ndim >= 2."""
+    return {n: "muon" if ".transformer." in f".{n}" and p.ndim == 2 else "adam"
+            for n, p in named_params}
 
 
 def swin_flop_count(
@@ -134,9 +151,11 @@ def global_norm(params) -> torch.Tensor:
 
 class Trainer:
     """``net``: the precond module, already on its device; ``optimizer``: a
-    ``torch.optim`` optimizer over ``net``'s parameters, whose groups' lr
-    ``lr_fn(count)`` sets before every update; ``loss_fn(net, x, condition,
-    auxiliary, gen)``: the loss (see ``swift_torch.training.loss``)."""
+    ``torch.optim`` optimizer over ``net``'s parameters, each of whose
+    groups holds a ``base_lr`` and gets the lr ``lr_fn(count, base_lr)``
+    before every update; ``loss_fn(net, x, condition,
+    auxiliary, gen)``: the loss (see ``swift_torch.training.loss``), and
+    ``step=`` the images seen before the update when it is an ``SCMLoss``."""
 
     def __init__(
         self,
@@ -145,7 +164,7 @@ class Trainer:
         loss_fn,
         *,
         global_batch_size: int,
-        lr_fn: Callable[[int], float],
+        lr_fn: Callable[[int, float], float],
         total_kimg: float = 200000,
         ema_halflife_kimg: float = 500,
         ema_rampup_ratio: Optional[float] = 0.05,
@@ -215,24 +234,25 @@ class Trainer:
         if B % accum:
             raise ValueError(f"grad_accum={accum} must divide the batch of {B}")
         self.optimizer.zero_grad(set_to_none=True)
+        kwargs = {"step": self.nimg} if isinstance(self.loss_fn, SCMLoss) else {}
         loss_sum = torch.zeros((), device=dev)
         for mb in range(accum):
             sl = slice(mb * B // accum, (mb + 1) * B // accum)
             loss = self.loss_fn(net, tensors["t"][sl], tensors["x"][sl], tensors["delta"][sl],
-                                gen=self.gen)
+                                gen=self.gen, **kwargs)
             (loss / accum).backward()
             loss_sum += loss.detach()
         return loss_sum / accum
 
     def update(self) -> torch.Tensor:
-        """clamp_grads → AdamW at the scheduled lr → EMA; returns the global
+        """clamp_grads → the optimizer at the scheduled lr (each group's
+        schedule from its own ``base_lr``) → EMA; returns the global
         gradient norm (after the clamp) as a device scalar."""
         params = list(self.params.values())
         clamp_grads(params)
         gnorm = global_norm(params)
-        lr = self.lr_fn(self.updates)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = self.lr_fn(self.updates, group["base_lr"])
         self.optimizer.step()
         self.updates += 1
         ema_update(self.ema, self.params, self.nimg, float(self.global_batch_size),
@@ -327,7 +347,8 @@ class Trainer:
                     "train/dt/kimg": 1e3 * dt_tick / max(nimg_tick, 1),
                     "train/mem/device": mem_gb,
                     "train/mem/cpu": _rss_gb(),
-                    "train/lr": float(self.lr_fn(self.updates)),
+                    "train/lr": float(self.lr_fn(self.updates,
+                                                 self.optimizer.param_groups[0]["base_lr"])),
                 }
                 logger.info(" ".join(
                     f"{k.replace('train/', '').replace('dt/', '').replace('mem/', '')}="
@@ -392,12 +413,13 @@ def _rss_gb() -> float:
 
 
 # ----------------------------------------------------------------------------
-# AdamW state <-> flat arrays named by parameter (the port's opt_state layout)
+# optimizer state <-> flat arrays named by parameter (the port's opt_state layout)
 
 
 def optimizer_state_arrays(optimizer: torch.optim.Optimizer, params: dict) -> dict:
     """{"<param name>/<state key>": numpy array} for every parameter with
-    optimizer state (AdamW: step, exp_avg, exp_avg_sq)."""
+    optimizer state (AdamW and aux-Adam: step, exp_avg, exp_avg_sq; Muon:
+    momentum_buffer)."""
     names = {id(p): n for n, p in params.items()}
     out = {}
     for p, st in optimizer.state.items():

@@ -172,8 +172,9 @@ import numpy as np, torch
 from swift_torch import config, factory, generate, train
 from swift_torch.data import era5, pipeline, samplers, synthetic
 from swift_torch.data.synthetic import SyntheticERA5
-from swift_torch.ops import block_attention, ffn, linear, modnorm
+from swift_torch.ops import block_attention, ffn, jvp_guard, linear, modnorm
 from swift_torch.training import loss, trainer
+from swift_torch.training.optimizers import muon
 from swift_torch.utils import checkpoint, io, zarr_lite
 VARS = %r
 ds = SyntheticERA5(VARS, ["land_sea_mask"], n_files=8, shape=(8, 16))

@@ -8,8 +8,9 @@ in fp32 from numpy seeds. Tolerances: 1e-5 for elementwise and layout ops
 hundred terms in different orders -- the bound the JAX package's kernel
 tests hold their kernels to). On CPU tensors a wrapper takes its plain
 version and counts no launch; anything else goes to the kernel or raises.
-The ``cuda``-marked test holds the kernels to their plain versions on the
-card and skips elsewhere.
+The ``cuda``-marked tests hold the kernels to their plain versions on the
+card (the forward kernels and, for the sCM jvp, the tangent kernels 14, 11,
+12 and 7) and skip elsewhere.
 """
 
 import functools
@@ -181,7 +182,7 @@ def test_wrapper_grad_routing(name):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """The chip smoke's kernel phase: all nine kernels at the flagship's
+    """The chip smoke's kernel phase: all thirteen kernels at the flagship's
     shapes (12x88 and 8x128 heads, both window shifts), bf16, every output
     within 2e-2 of max|plain| (bf16 rounding of the outputs, p and dS)."""
     if not torch.cuda.is_available():
@@ -228,3 +229,45 @@ def test_kernels_match_plain_at_ragged_shapes(tokens, d):
         err = (got.float() - want.float()).abs().max().item()
         assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), (
             fused.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,d", [(1000, 40), (136, 24)])
+def test_tangent_kernels_match_plain_on_card(tokens, d):
+    """Kernels 14, 11, 12 and 7 against their plain versions in bf16 on the
+    card, every output within 2e-2 of max|plain|, at token counts that are
+    no multiple of a tile (the stacked x/dx row blocks end mid-tile), N and
+    D that are no multiples of 128, head dims padded to 64 and 32 in shared
+    memory, a wrap-around shift. (The flagship shapes are
+    :func:`test_kernels_match_plain_on_card`'s.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(59)
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", dtype)
+
+    D, H, heads = 208, 264, 3
+    x, dx = t((2, tokens // 2, D)), t((2, tokens // 2, D))
+    ep = (1.0 + t((D,), 0.1, torch.float32), t((D,), 0.1, torch.float32), t((2, D), 0.2))
+    cases = [
+        (linear.linear_pt, linear.reference_linear_pt, (x, dx, t((120, D), D ** -0.5))),
+        (ffn.swiglu_ffn_pt, ffn.reference_swiglu_ffn_pt,
+         (x, dx, t((2 * H, D), D ** -0.5), t((D, H), H ** -0.5))),
+        (modnorm.modnorm_residual_tangent, modnorm.reference_modnorm_residual_tangent,
+         (t((2, tokens // 2, D), 3.0), dx, t((2, tokens // 2, D)), *ep, t((2, D), 0.2),
+          t((2, D), 0.2))),
+        (block_attention.block_attention_tangent,
+         block_attention.reference_block_attention_tangent,
+         (t((2, 32, 48, heads * 3 * d)), t((2, 32, 48, heads * 3 * d)),
+          torch.exp(t((heads,), 0.3, torch.float32) + 2.0), heads, (16, 16), (8, 40))),
+    ]
+    for fused, plain, args in cases:
+        got, want = fused(*args), plain(*args)
+        torch.cuda.synchronize()
+        gots = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(gots, wants):
+            err = (g.float() - w.float()).abs().max().item()
+            assert torch.isfinite(g).all() and err <= 2e-2 * w.float().abs().max().item(), (
+                fused.__name__, err)

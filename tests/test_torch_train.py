@@ -11,7 +11,10 @@
 * ``swift_torch.train`` end to end on synthetic h5 data with ``--device
   cpu``: the JAX trainer's ``stats.jsonl`` keys, a checkpoint that the JAX
   loader reads, a resume that restores params, EMA and AdamW state, and a
-  forecast from the checkpoint's EMA through ``swift_torch.generate``.
+  forecast from the checkpoint's EMA through ``swift_torch.generate``; the
+  same with the experiment's own sCM loss and Muon with aux-Adam; and the
+  default experiment (``era5-swinv2-1.4-scm``) composed with no overrides
+  builds ``SCMLoss`` and ``MuonWithAuxAdam``.
 
 Tolerances: rtol 1e-4 for gradients (fp32 through two blocks; XLA and
 PyTorch sum in different orders), 1e-5 for loss values, 1e-6 for the
@@ -41,6 +44,7 @@ from swift_torch.models.precond import PassPrecond as TorchPassPrecond
 from swift_torch.models.swinv2 import SwinV2 as TorchSwinV2
 from swift_torch.training import loss as tloss
 from swift_torch.training import trainer as ttrainer
+from swift_torch.training.optimizers.muon import MuonWithAuxAdam
 from swift_torch.utils.checkpoint import latest_checkpoint, load_training_state
 from swift_tpu.data.synthetic import make_synthetic_era5
 from swift_tpu.models.precond import PassPrecond
@@ -187,9 +191,10 @@ def test_trigflow_draws_in_range():
 ], ids=["cosine", "hold", "flat", "resume"])
 def test_lr_schedule_matches_jax(cfg):
     want = jtrainer.lr_schedule(5e-4, 48, **cfg)
-    got = ttrainer.lr_schedule(5e-4, 48, **cfg)
+    got = ttrainer.lr_schedule(48, **cfg)
     for count in (0, 1, 7, 41, 42, 100, 180, 250, 1000):
-        np.testing.assert_allclose(got(count), float(want(count)), rtol=1e-6, err_msg=count)
+        np.testing.assert_allclose(got(count, 5e-4), float(want(count)), rtol=1e-6,
+                                   err_msg=count)
 
 
 def test_clamp_grads_matches_jax():
@@ -362,6 +367,63 @@ def test_train_cli_end_to_end(tmp_path, monkeypatch):
                           "--samples", "1", "--segment", "1", "--device", "cpu"])
     fields = generate.read_store(ofile)
     assert sorted(fields) and all(np.isfinite(a).all() for a in fields.values())
+
+
+def test_train_cli_scm_muon_end_to_end(tmp_path, monkeypatch):
+    """The experiment's sCM loss with ``optimizer=muon`` winning over the
+    experiment's ``override /optimizer: adamw``: trains, checkpoints, and a
+    resume restores the Muon momentum and the aux-Adam moments."""
+    data = make_synthetic_era5(str(tmp_path / "data"), E2E_VARS, ["land_sea_mask"], n_train=12,
+                               n_val=2, n_test=2)
+    monkeypatch.setenv("SWIFT_SYNTH_ROOT", data)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("RUN_ID", "run1")
+    base = ["experiment=synthetic-tiny-scm", "optimizer=muon", "--device", "cpu"]
+    # 4 steps of 4 images, a tick every 2 steps
+    assert train.main(base + ["trainer.total_kimg=0.016", "trainer.kimg_per_tick=0.008"]) == 0
+    run = tmp_path / "results" / "synthetic-tiny-scm" / "run1"
+    lines = [json.loads(line) for line in (run / "stats.jsonl").read_text().splitlines()]
+    assert lines[-1]["train/iter"]["mean"] == 4 and np.isfinite(lines[-1]["train/loss"]["mean"])
+    _, _, opt = load_training_state(latest_checkpoint(str(run / "checkpoints")))
+
+    monkeypatch.setenv("RUN_ID", "run2")
+    trainer, loader, cfg = train.setup(base + ["resume=run1", "trainer.total_kimg=0.024"])
+    assert cfg["loss"]["_target_"].endswith("SCMLoss")
+    assert cfg["optimizer"]["_target_"].endswith("MuonWithAuxAdam")
+    assert type(trainer.loss_fn) is tloss.SCMLoss
+    assert type(trainer.optimizer) is MuonWithAuxAdam
+    labels = ttrainer.muon_param_labels(trainer.net.named_parameters())
+    for n, p in trainer.net.named_parameters():
+        state = trainer.optimizer.state[p]
+        key = "momentum_buffer" if labels[n] == "muon" else "exp_avg"
+        np.testing.assert_array_equal(state[key].numpy(), opt[f"{n}/{key}"], err_msg=n)
+    trainer.train(loader)
+    assert trainer.updates == 6  # the checkpoint names kimg 0: the resume counts from there
+    lrs = {g["kind"]: g["lr"] for g in trainer.optimizer.param_groups}
+    np.testing.assert_allclose(lrs["adam"] / lrs["muon"], 3e-4 / 0.02, rtol=1e-9)
+
+
+def test_default_experiment_builds_scm_and_muon():
+    """``train`` with no overrides composes ``era5-swinv2-1.4-scm``; the
+    factory builds its loss and optimizer (the optimizer over a small net:
+    the grouping does not depend on the width)."""
+    cfg = train.cfglib.compose("train", [])
+    assert cfg["experiment_name"] == "era5-swinv2-1.4-scm"
+    ds = SimpleNamespace(img_resolution=(128, 256),
+                         variables=list(cfg["data"]["dataset"]["variables"]))
+    loss = factory.build_loss(cfg["loss"], ds)
+    assert type(loss) is tloss.SCMLoss
+    assert loss.tangent_warmup_kimg == 3000 and loss.noise["sigma_max"] == 200
+    model = {**cfg["model"], "dim": 32, "heads": 2, "depth": 2, "window_size": [2, 4],
+             "shift_size": [1, 2]}
+    net = factory.build_precond(cfg["precond"], model, RES, C, C + F_)
+    opt, lr_fn = factory.build_optimizer(cfg["optimizer"], cfg["trainer"], 4, net)
+    assert type(opt) is MuonWithAuxAdam
+    groups = {g["kind"]: g for g in opt.param_groups}
+    assert (groups["muon"]["base_lr"], groups["adam"]["base_lr"]) == (0.02, 3e-4)
+    assert groups["adam"]["eps"] == 1e-10 and groups["adam"]["betas"] == (0.9, 0.95)
+    assert len(groups["muon"]["params"]) == 6 * 2
+    assert lr_fn(0, 0.02) == groups["muon"]["lr"] and lr_fn(0, 3e-4) == groups["adam"]["lr"]
 
 
 def test_train_cli_needs_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
