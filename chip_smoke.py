@@ -6,14 +6,19 @@ Phases, each printed as it finishes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``swift_torch/csrc`` with nvcc;
-3. kernels: each of the thirteen kernels (five forward, four for reverse-
-   mode training, four forward-mode tangents for the sCM step) against its
-   plain PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim
-   1056, heads 12x88 and 8x128, window shift (0,0) and (8,8)), bf16 inputs
+3. kernels: each of the seventeen kernels (five forward, four for reverse-
+   mode training, four forward-mode tangents for the sCM step, four for the
+   0.25° grid: the window-tiled attention 15, 16, 17 and the recompute FFN
+   backward 10) against its plain PyTorch version at the flagship's shapes
+   (B=2, 64x128 tokens, dim 1056, heads 12x88 and 8x128, window shift (0,0)
+   and (8,8); the tiled kernels on pre-rolled input), and the 0.25° four
+   also at the 0.25° shapes (B=1, 368x720 tokens, 8x128 heads), bf16 inputs
    from a numpy seed; fails when max|kernel - plain| of any output exceeds
-   2e-2 of max|plain|; prints both times (CUDA events, median of 20
-   launches), the bound the card could reach from the shapes and, for the
-   qkv projection and its primal + tangent, ``F.linear``'s time;
+   2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or kernel
+   10's 1 GB at 0.25°; prints both times (CUDA events, median of 20
+   launches, 5 at 0.25°), the bound the card could reach from the shapes,
+   the scratch of kernels 16 and 10 and, for the qkv projection and its
+   primal + tangent, ``F.linear``'s time;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -44,9 +49,27 @@ Phases, each printed as it finishes:
    TFLOP/s, peak memory and one profiled step by kernel;
 8. sCM cut: a depth-2 cut of the sCM-trained network, its tangent dF_x and
    then the sCM loss (r = 1) and every gradient at fixed draws through the
-   kernels in bf16, against the fp32 plain path on the CPU.
+   kernels in bf16, against the fp32 plain path on the CPU;
+9. quarter forecast: the 0.25° configuration of record
+   (``era5-swinv2-0.25-scm``: the 721x1440 grid edge-padded to 736 rows,
+   368x720 tokens, 12 x 1056, 8x128 heads, factorized position tables) at
+   full width with random weights, 1 member x 1 IC x 2 steps through
+   ``rollout_to_store`` into a 721x1440 store; fails unless the store is
+   finite and not constant and the attention ran kernel 15 twelve times a
+   forward and kernel 2 never; prints the forward's device time;
+10. quarter scm: two full-width sCM steps of that experiment at batch 1
+   through the ``Trainer`` (Muon + aux-Adam, EMA, remat), then one at r = 1;
+   fails unless kernels 10, 15, 16 and 17 launched at the step's exact
+   counts and 2, 6, 7, 8 and 9 never, the loss stayed finite and every
+   parameter moved; prints s/step, peak memory and one profiled step;
+11. quarter cut: two full-width blocks at 368x720, batch 1, fixed draws,
+   r = 1: the tangent dF_x, the loss and every gradient through the
+   kernels in bf16 against the plain path in fp32, here on the card (the
+   CPU cannot run the fp32 plain path at 264,960 tokens in the time limit:
+   every wrapper is made to take its plain version for the reference run).
 
-Fails if any module of jax, flax, optax or swift_tpu was loaded. The last
+The 1.4° paths launch none of kernels 10 and 15-17. Fails if any module of
+jax, flax, optax or swift_tpu was loaded. The last
 lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA, or
 when a build, launch or check fails, the script raises and exits non-zero.
@@ -55,6 +78,8 @@ when a build, launch or check fails, the script raises and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -76,16 +101,23 @@ from swift_torch.ops.block_attention import (
     block_attention_bwd,
     block_attention_tangent,
     fused_block_attention,
+    fused_tiled_block_attention,
     reference_block_attention,
     reference_block_attention_bwd,
     reference_block_attention_tangent,
+    tiled_block_attention_bwd,
+    tiled_block_attention_tangent,
+    tiled_bwd_scratch_bytes,
 )
 from swift_torch.ops.ffn import (
+    bwd_recompute_scratch_bytes,
     fused_swiglu_ffn,
     reference_swiglu_ffn,
+    reference_swiglu_ffn_bwd_recompute,
     reference_swiglu_ffn_bwd_saved,
     reference_swiglu_ffn_fwd_save,
     reference_swiglu_ffn_pt,
+    swiglu_ffn_bwd_recompute,
     swiglu_ffn_bwd_saved,
     swiglu_ffn_fwd_save,
     swiglu_ffn_pt,
@@ -152,7 +184,44 @@ SCM_EXPERIMENT = "era5-swinv2-1.4-scm"
 SCM_CUT_DF_TOL = 2e-2
 SCM_CUT_LOSS_TOL = 1e-4
 SCM_CUT_GRAD_TOL = 2.5e-2
+# the 0.25° configuration of record: swift_tpu/configs/experiment/era5-swinv2-0.25-scm.yaml
+# over data/era5-flare-0.25.yaml (the same 69 + 3 channels as the flagship's data): the WB2
+# 721x1440 grid, edge-padded inside the model to 736 rows, so 368x720 tokens; 8 heads x 128,
+# factorized position tables. Cut: random weights, synthetic data, batch 1 (as the
+# experiment), two steps, lr warmup 0; the forecast 1 member x 1 IC x 2 steps
+QUARTER_EXPERIMENT = "era5-swinv2-0.25-scm"
+QUARTER_RES = (721, 1440)
+QUARTER_GRID = (368, 720)
+QUARTER_MODEL = {**MODEL, "heads": 8, "head_dim": 128, "pos_embed_mode": "factorized"}
+QUARTER_ROLLOUT = dict(members=1, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
+                       solver="scm", num_solver_steps=1, dump="zarr")
+QUARTER_TRAIN = dict(batch=1, steps=2, steps_per_tick=1)
+# depth-2 0.25° sCM cut, kernels bf16 against the plain path fp32 on the card: the tangent
+# dF_x (relative L2), the loss and every gradient (relative L2); stated as 5e-2, 1e-3 and
+# 3e-2 before the first run, tightened after it read 1.28e-2, 1.0e-6 and 1.42e-2 (NVIDIA
+# H100 80GB HBM3, 700 W)
+QUARTER_CUT_DF_TOL = 2e-2
+QUARTER_CUT_LOSS_TOL = 1e-4
+QUARTER_CUT_GRAD_TOL = 2.5e-2
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
+
+
+@dataclasses.dataclass(frozen=True)
+class ScmSlice:
+    """An sCM training slice: its experiment and how it is cut, the model it
+    must compose to, each kernel's launches per step, and its depth-2 cut's
+    batch, limits (dF_x, loss, gradients) and where the fp32 plain path of
+    the cut runs."""
+    tag: str
+    experiment: str
+    model: dict
+    res: tuple
+    cut: dict
+    per_step: dict
+    n_files: int
+    cut_batch: int
+    cut_tols: tuple
+    plain_on: str  # "CPU", or "card" where the CPU cannot run the cut in time
 
 KERNELS = {
     # name: (wrapper, plain version, route, source, TPU kernel it replaces)
@@ -188,7 +257,24 @@ KERNELS = {
     "block_attention_tangent": (block_attention_tangent, reference_block_attention_tangent,
                                 "cuda", "swift_torch/csrc/block_attention.cu",
                                 "swift_tpu/ops/pallas_block_attention.py:408"),
+    "swiglu_ffn_bwd_recompute": (swiglu_ffn_bwd_recompute, reference_swiglu_ffn_bwd_recompute,
+                                 "cuda", "swift_torch/csrc/gemm_bwd.cu",
+                                 "swift_tpu/ops/pallas_ffn.py:293"),
+    "tiled_block_attention": (fused_tiled_block_attention, reference_block_attention,
+                              "cuda", "swift_torch/csrc/block_attention.cu",
+                              "swift_tpu/ops/pallas_block_attention.py:655"),
+    "tiled_block_attention_bwd": (tiled_block_attention_bwd, reference_block_attention_bwd,
+                                  "cuda", "swift_torch/csrc/block_attention.cu",
+                                  "swift_tpu/ops/pallas_block_attention.py:743"),
+    "tiled_block_attention_tangent": (tiled_block_attention_tangent,
+                                      reference_block_attention_tangent, "cuda",
+                                      "swift_torch/csrc/block_attention.cu",
+                                      "swift_tpu/ops/pallas_block_attention.py:865"),
 }
+QUARTER_KERNELS = ("swiglu_ffn_bwd_recompute", "tiled_block_attention", "tiled_block_attention_bwd",
+                   "tiled_block_attention_tangent")  # kernels 10, 15, 16, 17
+WHOLE_GRID = ("block_attention", "block_attention_bwd", "block_attention_tangent",
+              "swiglu_ffn_fwd_save", "swiglu_ffn_bwd_saved")  # kernels 2, 6, 7, 8, 9
 
 
 def _tokens(t: torch.Tensor) -> int:
@@ -204,10 +290,10 @@ def kernel_flops(name: str, args) -> float:
     if name in ("linear_bwd", "linear_pt"):
         x, w = args[1], args[2]
         return 4.0 * _tokens(x) * w.shape[0] * w.shape[1]
-    if name in ("block_attention", "block_attention_bwd", "block_attention_tangent"):
+    if "block_attention" in name:
         qkv = args[0]
         # QKᵀ, PV | + dV, dP, dQ, dK | tangent: QKᵀ, dQ·Kᵀ, Q·dKᵀ, dP·V, P·dV
-        per = 4.0 if name == "block_attention" else 10.0
+        per = 4.0 if name in ("block_attention", "tiled_block_attention") else 10.0
         return per * _tokens(qkv) * 256 * qkv.shape[-1] / 3  # 256 keys a window
     if name == "matmul_modnorm_residual":
         x, w = args[:2]
@@ -218,7 +304,8 @@ def kernel_flops(name: str, args) -> float:
         return 18.0 * args[0].numel()
     x = args[0]
     T, D, H = _tokens(x), x.shape[-1], args[-1].shape[1]
-    return (12.0 if name in ("swiglu_ffn_bwd_saved", "swiglu_ffn_pt") else 6.0) * T * D * H
+    matmuls = {"swiglu_ffn_bwd_saved": 6, "swiglu_ffn_pt": 6, "swiglu_ffn_bwd_recompute": 8}
+    return 2.0 * matmuls.get(name, 3) * T * D * H
 
 
 def _nbytes(objs) -> int:
@@ -247,7 +334,24 @@ SCM_PER_STEP = {
     "swiglu_ffn": 12, "block_attention_bwd": 12, "swiglu_ffn_fwd_save": 12,
     "swiglu_ffn_bwd_saved": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
     "modnorm_residual_tangent": 24, "block_attention_tangent": 12,
+    **{name: 0 for name in QUARTER_KERNELS},
 }
+# one sCM step at 0.25° (batch 1, 264,960 tokens): the attention on the tiled kernels (15 in
+# place of 2 in the jvp primal, the first forward and the recompute; 16 and 17 in place of 6
+# and 7); above the FFN's save budget the first forward and the recompute both run kernel 5
+# and the backward kernel 10 (in place of 8 and 9)
+QUARTER_SCM_PER_STEP = {
+    **{name: 0 for name in WHOLE_GRID},
+    "linear": 24, "tiled_block_attention": 36, "matmul_modnorm_residual": 24,
+    "modnorm_residual": 48, "swiglu_ffn": 24, "tiled_block_attention_bwd": 12,
+    "swiglu_ffn_bwd_recompute": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
+    "modnorm_residual_tangent": 24, "tiled_block_attention_tangent": 12,
+}
+SCM = ScmSlice("scm", SCM_EXPERIMENT, MODEL, RESOLUTION, TRAIN, SCM_PER_STEP, 16, 2,
+               (SCM_CUT_DF_TOL, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL), "CPU")
+QUARTER_SCM = ScmSlice("quarter-scm", QUARTER_EXPERIMENT, QUARTER_MODEL, QUARTER_RES,
+                       QUARTER_TRAIN, QUARTER_SCM_PER_STEP, 8, 1,
+                       (QUARTER_CUT_DF_TOL, QUARTER_CUT_LOSS_TOL, QUARTER_CUT_GRAD_TOL), "card")
 
 
 def _library_linear_pt(x, dx, w):
@@ -315,15 +419,19 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def _tensor(rng: np.random.Generator):
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        a = (scale * rng.standard_normal(shape, dtype=np.float32))
+        return torch.from_numpy(a).to("cuda", dtype)
+
+    return t
+
+
 def _inputs(rng: np.random.Generator, heads: int, d: int, B: int = 2) -> dict:
     gh, gw = GRID
     T = B * gh * gw
     inner = heads * d
-
-    def t(shape, scale=1.0, dtype=torch.bfloat16):
-        a = (scale * rng.standard_normal(shape)).astype(np.float32)
-        return torch.from_numpy(a).to("cuda", dtype)
-
+    t = _tensor(rng)
     return {
         "x": t((T, DIM)),
         "w_qkv": t((3 * inner, DIM), DIM ** -0.5),
@@ -353,13 +461,55 @@ def _inputs(rng: np.random.Generator, heads: int, d: int, B: int = 2) -> dict:
     }
 
 
+def check_kernel(name: str, args, label: str, reps: int = 20) -> dict:
+    """One kernel against its plain version on the same inputs, every output
+    of it; raises when one disagrees by more than TOL of max|plain|.
+    Returns the record fields (error, times, bound, library time)."""
+    fused, plain = KERNELS[name][:2]
+    got = fused(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    gots = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(gots, wants)]
+    refs = [w.float().abs().max().item() for w in wants]
+    ok = all(bool(torch.isfinite(g).all().item()) for g in gots) and all(
+        e <= TOL * r for e, r in zip(errs, refs))
+    del want, wants
+    ms = time_ms(lambda: fused(*args), reps)
+    plain_ms = time_ms(lambda: plain(*args), reps)
+    lib = LIBRARY.get(name)
+    library_ms = time_ms(lib(*args), reps) if lib else None
+    bound_ms, bound_by = kernel_bound(name, args, got)
+    rel = max(e / r for e, r in zip(errs, refs))
+    log(f"[kernels] {name:29s} {label} max_abs_err={max(errs):.3e} (worst rel {rel:.2e} over "
+        f"{len(errs)} outputs)  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+        f"{bound_ms:.4f} ms ({bound_by})" + (f"  library {library_ms:.4f} ms" if lib else ""))
+    if not ok:
+        raise AssertionError(f"{name} ({label}) disagrees with its plain version: errors {errs} "
+                             f"against {TOL} x max|plain| {refs}")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def _merge(record: dict, name: str, fields: dict, timing: bool) -> None:
+    rec = record.setdefault(name, {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], fields["max_abs_err"])
+    if timing:
+        rec.update({k: v for k, v in fields.items() if k != "max_abs_err"})
+
+
 def phase_kernels() -> dict:
     """Each kernel against its plain version, every output of it; returns
-    the per-kernel record (error, times, bound, library time)."""
+    the per-kernel record (error, times, bound, library time). The times of
+    record are the shapes the kernel's main path gives it: the flagship's
+    (12x88 heads, shift (8, 8)) for the 1.4° kernels, the 0.25° shapes for
+    kernels 10 and 15-17, whose flagship times are kept beside them."""
     rng = np.random.default_rng(0)
     record: dict = {}
     for heads, d in GEOMETRIES:
         a = _inputs(rng, heads, d)
+        win = (16, 16)
         cases = [
             ("linear", (a["x"], a["w_qkv"]), {}),
             ("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"]), {}),
@@ -367,16 +517,20 @@ def phase_kernels() -> dict:
             ("matmul_modnorm_residual",
              (a["attn"], a["w_o"], a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
         ] + [
-            ("block_attention", (a["qkv"], a["scale"], heads, (16, 16), s), {"shift": s})
+            ("block_attention", (a["qkv"], a["scale"], heads, win, s), {"shift": s})
             for s in SHIFTS
         ] + [
-            ("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, (16, 16), s),
+            ("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win, s),
              {"shift": s})
             for s in SHIFTS
         ] + [
-            ("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, (16, 16), s),
+            ("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win, s),
              {"shift": s})
             for s in SHIFTS
+        ] + [  # the tiled kernels take qkv as rolled: no shift
+            ("tiled_block_attention", (a["qkv"], a["scale"], heads, win), {}),
+            ("tiled_block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win), {}),
+            ("tiled_block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win), {}),
         ]
         if d == GEOMETRIES[0][1]:  # these do not depend on the head layout
             cases += [
@@ -385,48 +539,75 @@ def phase_kernels() -> dict:
                 ("swiglu_ffn_fwd_save", (a["x"], a["w1"], a["w2"]), {}),
                 ("swiglu_ffn_bwd_saved",
                  (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]), {}),
+                ("swiglu_ffn_bwd_recompute", (a["x"], a["dy"], a["w1"], a["w2"]), {}),
                 ("swiglu_ffn_pt", (a["x"], a["dx"], a["w1"], a["w2"]), {}),
                 ("modnorm_residual_tangent",
                  (a["y"], a["dy_mn"], a["dr"], a["g"], a["b"], a["msc"], a["dmsc"], a["dmsh"]), {}),
             ]
         for name, args, tags in cases:
-            fused, plain = KERNELS[name][:2]
-            got = fused(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            gots = got if isinstance(got, tuple) else (got,)
-            wants = want if isinstance(want, tuple) else (want,)
-            errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(gots, wants)]
-            refs = [w.float().abs().max().item() for w in wants]
-            ok = all(bool(torch.isfinite(g).all().item()) for g in gots) and all(
-                e <= TOL * r for e, r in zip(errs, refs))
-            ms = time_ms(lambda: fused(*args))
-            plain_ms = time_ms(lambda: plain(*args))
-            lib = LIBRARY.get(name)
-            library_ms = time_ms(lib(*args)) if lib else None
-            bound_ms, bound_by = kernel_bound(name, args, got)
-            rel = max(e / r for e, r in zip(errs, refs))
-            log(f"[kernels] {name:24s} heads={heads:2d} d={d:3d} {tags or ''} "
-                f"max_abs_err={max(errs):.3e} (worst rel {rel:.2e} over {len(errs)} outputs)  "
-                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
-                f"({bound_by})" + (f"  library {library_ms:.4f} ms" if lib else ""))
-            if not ok:
-                raise AssertionError(
-                    f"{name} (heads={heads}, d={d}, {tags}) disagrees with its plain version: "
-                    f"errors {errs} against {TOL} x max|plain| {refs}")
-            rec = record.setdefault(name, {"max_abs_err": 0.0})
-            rec["max_abs_err"] = max(rec["max_abs_err"], max(errs))
-            if d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8):
-                # flagship timing of record
-                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms)
+            fields = check_kernel(name, args, f"heads={heads:2d} d={d:3d} {tags or ''}")
+            flagship = d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8)
+            if name in QUARTER_KERNELS:
+                _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
+                if flagship:
+                    record[name].update(flagship_ms=fields["ms"],
+                                        flagship_plain_ms=fields["plain_ms"])
+            else:
+                _merge(record, name, fields, flagship)  # flagship timing of record
         del a
         torch.cuda.empty_cache()
+    quarter_kernels(rng, record)
     return record
 
 
-def build_net(depth: int, dtype: torch.dtype):
-    return factory.build_precond(PRECOND, {**MODEL, "depth": depth}, RESOLUTION,
+def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
+    """Kernels 10 and 15-17 at the 0.25° shapes (B = 1, 368x720 tokens, 8x128
+    heads, the 264,960-token FFN), with the scratch of kernels 16 and 10:
+    computed from the shapes, and read as the peak device memory of one call
+    above its inputs and outputs."""
+    t = _tensor(rng)
+    gh, gw = QUARTER_GRID
+    heads, d, T = 8, 128, gh * gw
+    qkv = t((1, gh, gw, 3 * heads * d))
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    cases = [
+        ("tiled_block_attention", (qkv, scale, heads, (16, 16))),
+        ("tiled_block_attention_bwd", (qkv, scale, t((1, gh, gw, heads * d)), heads, (16, 16))),
+        ("tiled_block_attention_tangent", (qkv, t(qkv.shape), scale, heads, (16, 16))),
+        ("swiglu_ffn_bwd_recompute", (t((T, DIM)), t((T, DIM)),
+                                      t((2 * HIDDEN, DIM), DIM ** -0.5),
+                                      t((DIM, HIDDEN), HIDDEN ** -0.5))),
+    ]
+    scratch = {
+        "tiled_block_attention_bwd": (tiled_bwd_scratch_bytes(1, gh, gw, heads, d, (16, 16)),
+                                      _nbytes([qkv]), "the qkv it differentiates"),
+        "swiglu_ffn_bwd_recompute": (bwd_recompute_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
+    }
+    for name, args in cases:
+        fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
+        _merge(record, name, fields, True)
+        if name in scratch:
+            computed, limit, what = scratch[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = KERNELS[name][0](*args)
+            torch.cuda.synchronize()
+            measured = torch.cuda.max_memory_allocated() - base - _nbytes(
+                out if isinstance(out, tuple) else (out,))
+            del out
+            record[name]["scratch_bytes"] = computed
+            log(f"[kernels] {name} scratch at 0.25°: {computed / 1e9:.4f} GB from the shapes, "
+                f"{measured / 1e9:.4f} GB read as peak device memory above inputs and outputs "
+                f"(limit {limit / 1e9:.2f} GB, {what})")
+            if max(computed, measured) > limit:
+                raise AssertionError(f"{name}: scratch {max(computed, measured)} > {limit} bytes")
+    del cases, qkv
+    torch.cuda.empty_cache()
+
+
+def build_net(depth: int, dtype: torch.dtype, model: dict = MODEL, res=RESOLUTION):
+    return factory.build_precond(PRECOND, {**model, "depth": depth}, res,
                                  len(VARIABLES), len(VARIABLES) + len(FORCINGS), dtype=dtype)
 
 
@@ -508,11 +689,30 @@ def phase_slice(card: str) -> dict:
     missing = [name for name in FORWARD if launches[name] == 0]
     if missing:
         raise AssertionError(f"the rollout never launched {missing}")
+    if any(launches[k] for k in KERNELS if k not in FORWARD):
+        raise AssertionError(f"the rollout launched kernels of another path: {launches}")
 
+    check_store(ofile, ROLLOUT, RESOLUTION, "slice")
+    MB = ROLLOUT["members"] * ROLLOUT["batch"]
+    log(f"[slice] {n_steps} forecast steps at members x batch = {MB} in "
+        f"{wall:.3f} s: {n_steps / wall:.3f} forecast steps/s ({card})")
+
+    # the device's share of that: one sCM step (one network forward) at MB
+    step_ms = forward_ms(net, ROLLOUT, RESOLUTION)
+    device_s = (n_steps // MB) * step_ms / 1e3  # one sampler call per MB forecast steps
+    log(f"[slice] one sCM step at MB={MB}: {step_ms:.2f} ms (median of 5), i.e. "
+        f"{MB / step_ms * 1e3:.3f} forecast steps/s on the device alone; the rollout's "
+        f"device work is {device_s:.3f} s of its {wall:.3f} s ({card})")
+    return launches
+
+
+def check_store(ofile: str, rollout: dict, res, tag: str) -> None:
+    """Every variable of a rollout's store at (ic, member, lead[, level]) +
+    ``res``, finite, its forecast leads not constant."""
     store = read_store(ofile)
-    n_ic, M, leads = ROLLOUT["samples"], ROLLOUT["members"], ROLLOUT["steps"] + 1
-    expected = {v: (n_ic, M, leads) + RESOLUTION for v in SURFACE}
-    expected.update({v: (n_ic, M, leads, len(LEVELS)) + RESOLUTION for v in LEVEL_VARS})
+    n_ic, M, leads = rollout["samples"], rollout["members"], rollout["steps"] + 1
+    expected = {v: (n_ic, M, leads) + res for v in SURFACE}
+    expected.update({v: (n_ic, M, leads, len(LEVELS)) + res for v in LEVEL_VARS})
     if sorted(store) != sorted(expected):
         raise AssertionError(f"store holds {sorted(store)}, expected {sorted(expected)}")
     for var, a in store.items():
@@ -522,67 +722,69 @@ def phase_slice(card: str) -> dict:
             raise AssertionError(f"store {var}: non-finite values")
         if not a[:, :, 1:].std() > 0:
             raise AssertionError(f"store {var}: forecast leads are constant")
-    log(f"[slice] store {os.path.relpath(ofile, ROOT)}: {len(store)} variables finite and "
-        f"non-constant, shape (ic, member, lead) = {(n_ic, M, leads)}")
-    MB = M * ROLLOUT["batch"]
-    log(f"[slice] {n_steps} forecast steps at members x batch = {MB} in "
-        f"{wall:.3f} s: {n_steps / wall:.3f} forecast steps/s ({card})")
+    log(f"[{tag}] store {os.path.relpath(ofile, ROOT)}: {len(store)} variables finite and "
+        f"non-constant, shape (ic, member, lead) = {(n_ic, M, leads)} at {res[0]}x{res[1]}")
 
-    # the device's share of that: one sCM step (one network forward) at MB
+
+def forward_ms(net, rollout: dict, res) -> float:
+    """Device milliseconds of one sCM step (one network forward) at members
+    x batch, CUDA events, median of 5."""
     sampler = sampler_factory("scm", net, num_steps=1, sigma_min=0.02, sigma_max=200.0,
-                              auxiliary=ROLLOUT["interval"] / 10.0)
-    cond = torch.randn(MB, *RESOLUTION, len(VARIABLES) + len(FORCINGS), device="cuda")
+                              auxiliary=rollout["interval"] / 10.0)
+    cond = torch.randn(rollout["members"] * rollout["batch"], *res,
+                       len(VARIABLES) + len(FORCINGS), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.no_grad():
-        step_ms = time_ms(lambda: sampler(cond, gen), reps=5)
-    device_s = (n_steps // MB) * step_ms / 1e3  # one sampler call per MB forecast steps
-    log(f"[slice] one sCM step at MB={MB}: {step_ms:.2f} ms (median of 5), i.e. "
-        f"{MB / step_ms * 1e3:.3f} forecast steps/s on the device alone; the rollout's "
-        f"device work is {device_s:.3f} s of its {wall:.3f} s ({card})")
-    return launches
+        return time_ms(lambda: sampler(cond, gen), reps=5)
 
 
-def train_config(experiment: str, *extra: str) -> dict:
-    """A flagship experiment's composed config (read from the YAML tree),
-    cut to a few steps of a global batch of 4. The 2000-kimg lr warmup is
-    cut to 0: six steps would run at lr ≈ 5e-8, below half an fp32 ulp of a
-    parameter near 1, so the slice runs at the base lr that most of a run
-    trains at."""
-    steps_kimg = TRAIN["batch"] / 1000.0
+def train_config(experiment: str, *extra: str, cut: dict = TRAIN) -> dict:
+    """An experiment's composed config (read from the YAML tree), cut to a
+    few steps of a small global batch (``cut``: 4 at 1.4°, 1 at 0.25°). The
+    2000-kimg lr warmup is cut to 0: six steps would run at lr ≈ 5e-8, below
+    half an fp32 ulp of a parameter near 1, so the slice runs at the base lr
+    that most of a run trains at."""
+    steps_kimg = cut["batch"] / 1000.0
     return cfglib.compose("train", [
         f"experiment={experiment}",
-        f"data.batch_size={TRAIN['batch']}",
-        f"trainer.total_kimg={TRAIN['steps'] * steps_kimg}",
-        f"trainer.kimg_per_tick={TRAIN['steps_per_tick'] * steps_kimg}",
+        f"data.batch_size={cut['batch']}",
+        f"trainer.total_kimg={cut['steps'] * steps_kimg}",
+        f"trainer.kimg_per_tick={cut['steps_per_tick'] * steps_kimg}",
         "trainer.lr_rampup_kimg=0",
         "trainer.checkpoint_ticks=1000",  # so the one checkpoint is the final one
         *extra,
     ])
 
 
-def build_trainer(cfg: dict, tag: str, run: str):
-    """(dataset, loader, trainer, flops per step) for a composed flagship
-    config: the full-width network with random weights (seed 1) on the
-    card, the config's loss and optimizer, synthetic batches."""
+def check_config(cfg: dict, model: dict) -> None:
     ds_cfg = cfg["data"]["dataset"]
     if list(ds_cfg["variables"]) != VARIABLES or list(ds_cfg["forcings"]) != FORCINGS:
         raise AssertionError("the experiment's data config differs from the smoke's channels")
-    if any(cfg["model"][k] != v for k, v in MODEL.items() if k != "_target_"):
-        raise AssertionError(f"the experiment's model {cfg['model']} is not the flagship {MODEL}")
+    if any(cfg["model"].get(k) != v for k, v in model.items() if k != "_target_"):
+        raise AssertionError(f"the experiment's model {cfg['model']} is not {model}")
+
+
+def build_trainer(cfg: dict, tag: str, run: str, model: dict = MODEL, res=RESOLUTION,
+                  n_files: int = 16):
+    """(dataset, loader, trainer, flops per step) for a composed config of
+    ``model`` at ``res``: the full-width network with random weights (seed
+    1) on the card, the config's loss and optimizer, synthetic batches."""
+    check_config(cfg, model)
     t0 = time.perf_counter()
-    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=16, shape=RESOLUTION, seed=0)
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=n_files, shape=res, seed=0)
     gb = int(cfg["data"]["batch_size"])
     loader = BatchLoader(dataset, InfiniteSampler(dataset, seed=0), gb,
                          num_workers=4)
-    net = factory.build_precond(cfg["precond"], cfg["model"], RESOLUTION, len(VARIABLES),
+    net = factory.build_precond(cfg["precond"], cfg["model"], res, len(VARIABLES),
                                 len(VARIABLES) + len(FORCINGS))
     random_weights(net, seed=1)
     net = net.cuda().train()
     loss_fn = factory.build_loss(cfg["loss"], dataset)
     tcfg = cfg["trainer"]
     optimizer, lr_fn = factory.build_optimizer(cfg["optimizer"], tcfg, gb, net)
-    flops = swin_flop_count(RESOLUTION, gb, MODEL["depth"], 2 * len(VARIABLES) + len(FORCINGS),
-                            DIM, HIDDEN, MODEL["patch_size"], MODEL["window_size"])
+    # the JAX train.py's call: the dataset's grid, not the model's padded one
+    flops = swin_flop_count(res, gb, model["depth"], 2 * len(VARIABLES) + len(FORCINGS),
+                            DIM, HIDDEN, model["patch_size"], model["window_size"])
     trainer = Trainer(
         net, optimizer, loss_fn, global_batch_size=gb, lr_fn=lr_fn,
         total_kimg=float(tcfg["total_kimg"]), ema_halflife_kimg=float(tcfg["ema_halflife_kimg"]),
@@ -598,10 +800,12 @@ def build_trainer(cfg: dict, tag: str, run: str):
     return dataset, loader, trainer, flops
 
 
-def run_training(trainer, loader, flops: float, card: str, tag: str, note: str = "") -> dict:
+def run_training(trainer, loader, flops: float, card: str, tag: str, expect,
+                 note: str = "") -> dict:
     """Train through ``trainer.train`` with the launch counts reset just
     before and read just after; fails unless loss and grad norm stayed
-    finite and every parameter moved. Returns the counts."""
+    finite, every parameter moved and no kernel outside ``expect`` (the
+    path's kernels) launched. Returns the counts."""
     net = trainer.net
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     reset_launches()
@@ -611,6 +815,9 @@ def run_training(trainer, loader, flops: float, card: str, tag: str, note: str =
     steps = trainer.updates
     log(f"[{tag}] {steps} steps; kernel launches in training: {launches}; per step: "
         + json.dumps({k: v / steps for k, v in launches.items()}))
+    stray = [k for k in KERNELS if k not in expect and launches[k]]
+    if stray:
+        raise AssertionError(f"[{tag}] launched kernels of another path: {stray}")
     hist = trainer.history
     if not all(np.isfinite(hist["train/loss"])) or not all(np.isfinite(hist["train/grad_norm"])):
         raise AssertionError(f"non-finite loss or grad norm: {hist['train/loss']}, "
@@ -638,7 +845,7 @@ def phase_train(card: str):
     state dict after the six steps)."""
     cfg = train_config(TRAIN_EXPERIMENT)
     dataset, loader, trainer, flops = build_trainer(cfg, "train", "train")
-    launches = run_training(trainer, loader, flops, card, "train")
+    launches = run_training(trainer, loader, flops, card, "train", TRIGFLOW)
     missing = [name for name in TRIGFLOW if launches[name] == 0]
     if missing:
         raise AssertionError(f"training never launched {missing}")
@@ -667,17 +874,20 @@ MUON_WEIGHTS = ("to_qkv.weight", "wo.weight", "w1.weight", "w2.weight",
                 "norm.modulation.weight")  # the JAX package's "muon" labels, a block's six
 
 
-def phase_scm(card: str):
-    """The full-width sCM training slice (the default experiment: SCMLoss,
-    Muon + aux-Adam, EMA, remat) through the port's Trainer, cut as the
+def phase_scm(card: str, sl: ScmSlice):
+    """A full-width sCM training slice (SCMLoss, Muon + aux-Adam, EMA, remat)
+    through the port's Trainer: the flagship's default experiment cut as the
     TrigFlow slice is (random weights, synthetic data, global batch 4, six
-    steps, a tick every 2, lr warmup 0). The experiment's 3000-kimg tangent
-    warmup keeps r ≈ 0 over six steps, so one more step runs at r = 1
-    (``loss.tangent_warmup_kimg=0``), where dF_x enters the loss. Returns
-    (launches of the six steps, the config, the state dict after all
-    seven)."""
-    cfg = train_config(SCM_EXPERIMENT)
-    dataset, loader, trainer, flops = build_trainer(cfg, "scm", "scm")
+    steps, a tick every 2, lr warmup 0), or the 0.25° configuration of
+    record at its batch of 1 for two steps. The experiments' 3000-kimg
+    tangent warmup keeps r ≈ 0 over those steps, so one more step runs at
+    r = 1 (``loss.tangent_warmup_kimg=0``), where dF_x enters the loss.
+    Fails unless every kernel launched at the slice's exact per-step count.
+    Returns (launches of the cut's steps, the config, the state dict after
+    all of them and the r = 1 step)."""
+    tag = sl.tag
+    cfg = train_config(sl.experiment, cut=sl.cut)
+    dataset, loader, trainer, flops = build_trainer(cfg, tag, tag, sl.model, sl.res, sl.n_files)
     opt = trainer.optimizer
     groups = {g["kind"]: {id(p) for p in g["params"]} for g in opt.param_groups}
     want = {n: "muon" if n.startswith("model.transformer.") and n.endswith(MUON_WEIGHTS)
@@ -686,29 +896,34 @@ def phase_scm(card: str):
            for n, p in trainer.net.named_parameters()}
     if got != want or muon_param_labels(trainer.net.named_parameters()) != want:
         raise AssertionError("the Muon/Adam groups differ from the JAX package's labels")
-    log(f"[scm] Muon group: {len(groups['muon'])} weights (6 a block), Adam group: "
+    log(f"[{tag}] Muon group: {len(groups['muon'])} weights (6 a block), Adam group: "
         f"{len(groups['adam'])} tensors, as the JAX labels give; tangent warmup "
         f"{cfg['loss']['tangent_warmup_kimg']} kimg, sigma_max {cfg['loss']['noise']['sigma_max']}")
 
-    launches = run_training(trainer, loader, flops, card, "scm",
+    torch.cuda.reset_peak_memory_stats()
+    launches = run_training(trainer, loader, flops, card, tag,
+                            [k for k, n in sl.per_step.items() if n],
                             note=", the jvp forward not counted")
     steps = trainer.updates
-    wrong = {k: (launches[k], n * steps) for k, n in SCM_PER_STEP.items()
+    wrong = {k: (launches[k], n * steps) for k, n in sl.per_step.items()
              if launches[k] != n * steps}
-    if wrong or sorted(SCM_PER_STEP) != sorted(KERNELS):
+    if wrong or sorted(sl.per_step) != sorted(KERNELS):
         raise AssertionError(f"sCM launches (got, expected) differ from the step's: {wrong}")
-    log(f"[scm] every one of the {len(KERNELS)} kernels launched at the sCM step's per-step "
-        f"counts over {steps} steps")
+    log(f"[{tag}] the {len(KERNELS)} kernels launched at the step's exact counts over {steps} "
+        f"steps, per step (the others never): "
+        + json.dumps({k: n for k, n in sl.per_step.items() if n}))
 
     batch = next(iter(loader))
     trainer.loss_fn = factory.build_loss({**cfg["loss"], "tangent_warmup_kimg": 0}, dataset)
     out = {k: float(v) for k, v in trainer.step(batch).items()}
+    torch.cuda.synchronize()
     if not all(np.isfinite(v) for v in out.values()):
         raise AssertionError(f"the r = 1 sCM step is not finite: {out}")
-    log(f"[scm] one step at r = 1 (tangent_warmup_kimg=0): loss {out['loss']:.6f}, "
-        f"grad norm {out['grad_norm']:.4f}")
+    log(f"[{tag}] one step at r = 1 (tangent_warmup_kimg=0): loss {out['loss']:.6f}, "
+        f"grad norm {out['grad_norm']:.4f}; torch.cuda.max_memory_allocated over the steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
     trained = {k: v.detach().float().cpu() for k, v in trainer.net.state_dict().items()}
-    profile_step(trainer, batch, card, tag="scm")
+    profile_step(trainer, batch, card, tag=tag)
     del trainer, opt
     torch.cuda.empty_cache()
     return launches, cfg, trained
@@ -745,29 +960,30 @@ def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "pro
         log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
 
 
-def cut_inputs(trained: dict):
+def cut_inputs(trained: dict, res=RESOLUTION, batch: int = 2):
     """(depth-2 state dict of ``trained``, dataset, x, condition, auxiliary):
-    the first two blocks of a trained net and a batch of 2 real-sized
+    the first two blocks of a trained net and a batch of real-sized
     synthetic samples."""
     sd = {k: v for k, v in trained.items()
           if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < 2}
-    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=8, shape=RESOLUTION, seed=3)
-    samples = [dataset[(i, 1, 6)] for i in (0, 1)]
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=8, shape=res, seed=3)
+    samples = [dataset[(i, 1, 6)] for i in range(batch)]
     cond = torch.from_numpy(np.stack([s[0][0] for s in samples]))
     x = torch.from_numpy(np.stack([s[0][1] for s in samples]))
     aux = torch.from_numpy(np.stack([[s[1][1]] for s in samples]))
     return sd, dataset, x, cond, aux
 
 
-def compare_cut(tag: str, out: dict, loss_tol: float, grad_tol: float) -> dict:
+def compare_cut(tag: str, out: dict, loss_tol: float, grad_tol: float, batch: int = 2,
+                plain_on: str = "CPU") -> dict:
     """Loss and every gradient of ``out["cuda"]`` (bf16 kernels) against
     ``out["cpu"]`` (fp32 plain), each ``(loss, {name: grad})``."""
     (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
     loss_rel = abs(lg - lc) / abs(lc)
     rels = {n: ((gg[n] - gc[n]).norm() / gc[n].norm()).item() for n in gc}
     worst = max(rels, key=rels.get)
-    log(f"[{tag}] depth-2, batch 2, fixed draws: loss {lg:.6f} (kernels, bf16) vs {lc:.6f} "
-        f"(plain, fp32, CPU), rel {loss_rel:.3e} (limit {loss_tol}); worst gradient "
+    log(f"[{tag}] depth-2, batch {batch}, fixed draws: loss {lg:.6f} (kernels, bf16) vs {lc:.6f} "
+        f"(plain, fp32, {plain_on}), rel {loss_rel:.3e} (limit {loss_tol}); worst gradient "
         f"{worst}: rel L2 {rels[worst]:.3e} (limit {grad_tol}) over {len(rels)} tensors; "
         f"median {float(np.median(list(rels.values()))):.3e}")
     if not np.isfinite(lg) or loss_rel > loss_tol:
@@ -798,35 +1014,100 @@ def phase_grad_cut(cfg: dict, trained: dict) -> dict:
     return compare_cut("cut", out, CUT_LOSS_TOL, CUT_GRAD_TOL)
 
 
-def phase_scm_cut(cfg: dict, trained: dict) -> dict:
-    """A depth-2 cut of the sCM-trained net, one batch of 2 with fixed
-    draws: its tangent dF_x (the jvp forward, through kernels 14, 7, 11, 4
-    and 12 on the card) and then the sCM loss at r = 1 and every gradient,
-    in bf16 on the card against the plain path in fp32 on the CPU. A
-    tangent dropped on the way is finite but wrong: this is the check that
-    sees it."""
-    sd, dataset, x, cond, aux = cut_inputs(trained)
+def phase_scm_cut(cfg: dict, trained: dict, sl: ScmSlice) -> dict:
+    """A depth-2 cut of the sCM-trained net, one batch with fixed draws: its
+    tangent dF_x (the jvp forward, through the tangent kernels on the card)
+    and then the sCM loss at r = 1 and every gradient, in bf16 on the card
+    against the plain path in fp32 (on the CPU, or on the card for a cut
+    the CPU cannot run in time). A tangent dropped on the way is finite but
+    wrong: this is the check that sees it."""
+    tag = f"{sl.tag}-cut"
+    df_tol, loss_tol, grad_tol = sl.cut_tols
+    sd, dataset, x, cond, aux = cut_inputs(trained, sl.res, sl.cut_batch)
     loss_fn = factory.build_loss({**cfg["loss"], "tangent_warmup_kimg": 0}, dataset)  # r = 1
     t, z = loss_fn.draw(x, torch.Generator().manual_seed(4))
+    plain = ("cuda", plain_on_card) if sl.plain_on == "card" else ("cpu", contextlib.nullcontext)
     out, dF = {}, {}
-    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
-        cut = build_net(2, dtype)
+    for key, dtype, (dev, mode) in (("cuda", torch.bfloat16, ("cuda", contextlib.nullcontext)),
+                                    ("cpu", torch.float32, plain)):
+        cut = build_net(2, dtype, sl.model, sl.res)
         cut.load_state_dict(sd)
         cut = cut.to(dev).train()
         xd, td, zd = x.to(dev), t.to(dev), z.to(dev)
-        dF[dev] = loss_fn.jvp_term(cut, td, *loss_fn.interpolate(xd, td, zd), cond.to(dev),
+        with mode():
+            dfx = loss_fn.jvp_term(cut, td, *loss_fn.interpolate(xd, td, zd), cond.to(dev),
                                    aux.to(dev))
-        loss = loss_fn.value(cut, xd, td, zd, 0.0, cond.to(dev), aux.to(dev), dF_x=dF[dev])
-        loss.backward()
-        out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
+            loss = loss_fn.value(cut, xd, td, zd, 0.0, cond.to(dev), aux.to(dev), dF_x=dfx)
+            loss.backward()
+        dF[key] = dfx.float().cpu()
+        out[key] = (loss.item(), {n: p.grad.detach().float().cpu()
                                   for n, p in cut.named_parameters()})
-    dg, dc = dF["cuda"].float().cpu(), dF["cpu"]
+        del cut, loss, dfx
+        torch.cuda.empty_cache()
+    dg, dc = dF["cuda"], dF["cpu"]
     df_rel = ((dg - dc).norm() / dc.norm()).item()
-    log(f"[scm-cut] depth-2 tangent dF_x, kernels bf16 vs plain fp32 (CPU): rel L2 "
-        f"{df_rel:.3e} (limit {SCM_CUT_DF_TOL}), max|dF| {dc.abs().max().item():.4f}")
-    if not torch.isfinite(dg).all() or df_rel > SCM_CUT_DF_TOL:
+    log(f"[{tag}] depth-2 tangent dF_x at {sl.res}, kernels bf16 vs plain fp32 "
+        f"({sl.plain_on}): rel L2 {df_rel:.3e} (limit {df_tol}), max|dF| "
+        f"{dc.abs().max().item():.4f}")
+    if not torch.isfinite(dg).all() or df_rel > df_tol:
         raise AssertionError(f"depth-2 sCM tangent disagrees: rel L2 {df_rel}")
-    return {"df_rel": df_rel, **compare_cut("scm-cut", out, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL)}
+    return {"df_rel": df_rel, **compare_cut(tag, out, loss_tol, grad_tol, sl.cut_batch,
+                                            sl.plain_on)}
+
+
+def phase_quarter_forecast(card: str) -> dict:
+    """The 0.25° configuration of record's forecast through
+    ``rollout_to_store`` at full width, random weights; returns each
+    kernel's launch count in that run."""
+    t0 = time.perf_counter()
+    net = build_net(QUARTER_MODEL["depth"], torch.bfloat16, QUARTER_MODEL, QUARTER_RES)
+    random_weights(net)
+    model = net.model
+    (ph, _), (wh, _) = QUARTER_MODEL["patch_size"], QUARTER_MODEL["window_size"]
+    lat_pad = -QUARTER_RES[0] % (ph * wh)  # 15 edge rows: 721 -> 736
+    if (model.grid_size, model.lat_pad) != (QUARTER_GRID, lat_pad):
+        raise AssertionError(f"0.25° grid {model.grid_size}, lat pad {model.lat_pad}")
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=4, shape=QUARTER_RES, seed=0)
+    net = net.cuda().eval()
+    log(f"[quarter] {QUARTER_EXPERIMENT}: {sum(p.numel() for p in net.parameters()) / 1e6:.1f} M "
+        f"params, grid {QUARTER_RES} padded to {QUARTER_RES[0] + lat_pad} rows, tokens "
+        f"{model.grid_size} (set-up {time.perf_counter() - t0:.1f} s)")
+    args = argparse.Namespace(**QUARTER_ROLLOUT)
+    reset_launches()
+    ofile, wall, n_steps = rollout_to_store(args, dataset, net, os.path.join(WORK, "quarter_out"))
+    launches = read_launches()
+    log(f"[quarter] kernel launches in the rollout: {launches}")
+    forwards = n_steps // (QUARTER_ROLLOUT["members"] * QUARTER_ROLLOUT["batch"])
+    want = {"linear": 12, "tiled_block_attention": 12, "matmul_modnorm_residual": 12,
+            "modnorm_residual": 12, "swiglu_ffn": 12}
+    wrong = {k: (n, want.get(k, 0) * forwards) for k, n in launches.items()
+             if n != want.get(k, 0) * forwards}
+    if wrong:
+        raise AssertionError(f"0.25° forecast launches (got, expected) over {forwards} forwards: "
+                             f"{wrong}")
+    check_store(ofile, QUARTER_ROLLOUT, QUARTER_RES, "quarter")
+    log(f"[quarter] kernel 15 launched 12 times a forward over {forwards} forwards, kernel 2 "
+        f"never; {n_steps} forecast steps in {wall:.3f} s end to end ({card})")
+    step_ms = forward_ms(net, QUARTER_ROLLOUT, QUARTER_RES)
+    log(f"[quarter] one sCM step (one network forward) at 1 member x 1 IC: {step_ms:.2f} ms on "
+        f"the device (median of 5, CUDA events) ({card})")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Every kernel wrapper takes its plain PyTorch version for CUDA tensors
+    too, as it does for CPU tensors: the reference run of a cut the CPU
+    cannot run in time. A switch of this script's comparison only; no path
+    of the port takes it."""
+    on_cpu = _build.on_cpu
+    _build.on_cpu = lambda *tensors: True
+    try:
+        yield
+    finally:
+        _build.on_cpu = on_cpu
 
 
 def main() -> int:
@@ -837,12 +1118,19 @@ def main() -> int:
         forecast = phase_slice(card)
         trigflow, cfg, trained = phase_train(card)
         phase_grad_cut(cfg, trained)
-        launches, cfg, trained = phase_scm(card)
-        phase_scm_cut(cfg, trained)
+        launches, cfg, trained = phase_scm(card, SCM)
+        phase_scm_cut(cfg, trained, SCM)
+        del trained
+        quarter_forecast = phase_quarter_forecast(card)
+        quarter, cfg, trained = phase_scm(card, QUARTER_SCM)
+        phase_scm_cut(cfg, trained, QUARTER_SCM)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[train] launches: forecast {forecast}, TrigFlow training {trigflow}, "
-        f"sCM training {launches}")
+        f"sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM training "
+        f"{quarter}")
+    # each kernel's launches on its main path: the 1.4° sCM step, or the 0.25° one
+    launches = {k: quarter[k] if k in QUARTER_KERNELS else n for k, n in launches.items()}
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in
                          ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
     if jax_modules:

@@ -11,8 +11,11 @@ each output written once, bf16 activations and weights, bf16 dense tensor
 cores at 989 TFLOP/s and int8 at 1979 TOP/s. The window-tiled kernels (15–17)
 and the per-(window, head) kernels (21–22) compute the functions of
 kernels 2, 6 and 7 for other grids and layouts, so their work at the
-flagship shapes is the same. Pure arithmetic: no device is needed, and
-``chip_smoke.py`` computes the same bounds for the kernels it runs.
+flagship shapes is the same. A second table gives the rows the 0.25°
+configuration runs (10, 15–17) at its shapes: B = 1, 368×720 tokens (the
+721×1440 grid edge-padded to 736 rows, patch 2), 8 heads × 128. Pure
+arithmetic: no device is needed, and ``chip_smoke.py`` computes the same
+bounds for the kernels it runs.
 """
 
 from __future__ import annotations
@@ -22,27 +25,40 @@ HBM = 3.35e12
 
 B, TOKENS, D, H, HEADS, HD, WIN = 2, 64 * 128, 1056, 2816, 12, 88, 256
 T, INNER = B * TOKENS, HEADS * HD
+QUARTER_T, QUARTER_INNER = 368 * 720, 8 * 128  # B = 1 at 0.25°
 MB = 1e6
 
 
-def act(width: int, itemsize: int = 2) -> float:
-    """Bytes of one (T, width) activation."""
-    return T * width * itemsize
+def act(width: int, itemsize: int = 2, tokens: int = T) -> float:
+    """Bytes of one (tokens, width) activation."""
+    return tokens * width * itemsize
 
 
-def attention(matmuls: int, inputs: int, outputs: int):
+def attention(matmuls: int, inputs: int, outputs: int, tokens: int = T, inner: int = INNER):
     """Window attention with ``matmuls`` (n×n×d) products a window and head;
-    ``inputs``/``outputs`` in units of a (T, heads·d) bf16 activation."""
-    return matmuls * 2 * T * WIN * INNER, (inputs + outputs) * act(INNER)
+    ``inputs``/``outputs`` in units of a (tokens, heads·d) bf16 activation."""
+    return matmuls * 2 * tokens * WIN * inner, (inputs + outputs) * act(inner, tokens=tokens)
 
 
-def ffn(matmuls: int, act_in: int, act_out: int, gu_io: int = 0, weights: float = 1.0):
-    """SwiGLU work: ``matmuls`` (T×D×H) products, (T, D) activations in and
-    out, (T, H) gate/up tensors read or written, the weights ``weights``
-    times (bf16)."""
+def ffn(matmuls: int, act_in: int, act_out: int, gu_io: int = 0, weights: float = 1.0,
+        tokens: int = T):
+    """SwiGLU work: ``matmuls`` (tokens×D×H) products, (tokens, D) activations
+    in and out, (tokens, H) gate/up tensors read or written, the weights
+    ``weights`` times (bf16)."""
     w = 3 * D * H * 2 * weights
-    return matmuls * 2 * T * D * H, (act_in + act_out) * act(D) + gu_io * act(H) + w
+    return (matmuls * 2 * tokens * D * H,
+            (act_in + act_out) * act(D, tokens=tokens) + gu_io * act(H, tokens=tokens) + w)
 
+
+QUARTER_ROWS = [
+    (10, "pallas_ffn.py:293 _ffn_bwd_call", ffn(8, 2, 1, weights=2, tokens=QUARTER_T), "bf16"),
+    (15, "pallas_block_attention.py:655 _tiled_fwd_call",
+     attention(2, 3, 1, QUARTER_T, QUARTER_INNER), "bf16"),
+    (16, "pallas_block_attention.py:743 _tiled_bwd_call",
+     attention(5, 4, 3, QUARTER_T, QUARTER_INNER), "bf16"),
+    (17, "pallas_block_attention.py:865 _tiled_tangent_call",
+     attention(5, 6, 1, QUARTER_T, QUARTER_INNER), "bf16"),
+]
 
 ROWS = [
     # (row, TPU kernel, (operations, bytes), peak)
@@ -82,13 +98,20 @@ def bound(ops: float, nbytes: float, peak: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def main() -> None:
-    print(f"flagship shapes, B = {B}: T = {T} tokens, dim {D}, {HEADS}×{HD} heads, hidden {H}")
+def table(rows) -> None:
     print(f"{'row':>3}  {'TPU kernel':58s} {'Gop':>8} {'MB':>8} {'bound ms':>9}  by")
-    for row, name, (ops, nbytes), peak in ROWS:
+    for row, name, (ops, nbytes), peak in rows:
         ms, by = bound(ops, nbytes, peak)
         print(f"{row:3d}  {name:58s} {ops / 1e9:8.1f} {nbytes / MB:8.1f} {ms:9.4f}  {by}"
               + (" (int8 peak)" if peak == "int8" else ""))
+
+
+def main() -> None:
+    print(f"flagship shapes, B = {B}: T = {T} tokens, dim {D}, {HEADS}×{HD} heads, hidden {H}")
+    table(ROWS)
+    print(f"\n0.25° shapes, B = 1: T = {QUARTER_T} tokens (368×720), dim {D}, 8×128 heads, "
+          f"hidden {H}")
+    table(QUARTER_ROWS)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,19 @@
 //   TPU kernel rounds them), dx = [dg|du] . W1, dW1 = [dg|du]^T . x and
 //   dW2 = dy^T . h with h = bf16(silu(g) * u). Six products, ~12 T D H FLOP:
 //   tensor-core bound.
+// swift_ffn_bwd_recompute -- replaces swift_tpu/ops/pallas_ffn.py::
+//   _ffn_bwd_call (kernel body _ffn_bwd_kernel), the backward above
+//   SWIFT_FFN_BWD_SAVE_MAX_TOKENS (the 0.25-degree grid): the same outputs
+//   with g = x . Wg and u = x . Wu recomputed in fp32 from x, never saved.
+//   Eight products, ~16 T D H FLOP: tensor-core bound. The TPU kernel's
+//   point is that nothing (tokens, hidden)-shaped reaches HBM; g and u alone
+//   would be 2.98 GB in bf16 at 264,960 tokens. Here one block forms the
+//   128 x 128 tiles of g, u and dh of the same tokens and hidden columns one
+//   after another, keeps g and u in shared memory as fp32 (they never leave
+//   the block) and writes only dg, du and h, in bf16, for one chunk of
+//   tokens at a time (kBwdChunk): the chunk's dx and its share of dW1 and
+//   dW2 follow, the weight gradients summed over the chunks in fp32 in
+//   chunk order. The scratch is bounded by the chunk, not by the tokens.
 //
 // The torch weights are (out, in) row-major, so the backward needs the two
 // operand layouts the forward never reads: dy . W, where the reduction runs
@@ -98,25 +111,26 @@ __device__ __forceinline__ void unpack8(uint4 raw, float* v) {
   }
 }
 
-template <int AL, int BL, int EPI>
-__global__ void __launch_bounds__(GNT)
-    gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, int M,
-                int N, int K, int k_per_split, EpiArgs ep) {
+using GAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// acc (this warp's GFM x GFN fragments of the block's GBM x GBN tile at
+// (m0, n0)) = sum over k in [kb, ke) of A(m, k) B(k, n), the operand tiles
+// double-buffered in smem (kGemmSmem bytes). Ends with a barrier, so the
+// caller may reuse smem at once.
+template <int AL, int BL>
+__device__ __forceinline__ void gemm_mainloop(GAcc (&acc)[GFM][GFN], unsigned char* smem_raw,
+                                              const bf16* __restrict__ A, int lda,
+                                              const bf16* __restrict__ B, int ldb, int m0,
+                                              int n0, int M, int N, int kb, int ke) {
   constexpr bool AK = AL == kAK, BK_ = BL == kBK;
   constexpr int AT = op_tile<AK, GBM>(), BT = op_tile<BK_, GBN>();
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
                                typename std::conditional<AK, wmma::row_major, wmma::col_major>::type>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
                                typename std::conditional<BK_, wmma::col_major, wmma::row_major>::type>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* As[2] = {reinterpret_cast<bf16*>(smem_raw), reinterpret_cast<bf16*>(smem_raw) + AT};
   bf16* Bs[2] = {As[1] + AT, As[1] + AT + BT};
-
   const int tid = threadIdx.x, warp = tid / 32, wm = warp / GWN, wn = warp % GWN;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int kb = blockIdx.z * k_per_split, ke = min(K, kb + k_per_split);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[GFM][GFN];
 #pragma unroll
   for (int i = 0; i < GFM; ++i)
 #pragma unroll
@@ -162,15 +176,34 @@ __global__ void __launch_bounds__(GNT)
     }
     __syncthreads();
   }
+}
 
-  // the main loop ended with a barrier: its tiles are free for the fp32 C tile
-  float* Cs = reinterpret_cast<float*>(smem_raw);
+// Cs[GBM x GBN] (fp32, stride GLDC) = this block's tile, from every warp's
+// fragments. No barrier.
+__device__ __forceinline__ void store_tile(float* Cs, GAcc (&acc)[GFM][GFN]) {
+  const int warp = threadIdx.x / 32, wm = warp / GWN, wn = warp % GWN;
 #pragma unroll
   for (int i = 0; i < GFM; ++i)
 #pragma unroll
     for (int j = 0; j < GFN; ++j)
       wmma::store_matrix_sync(Cs + (wm * GFM * 16 + i * 16) * GLDC + wn * GFN * 16 + j * 16,
                               acc[i][j], GLDC, wmma::mem_row_major);
+}
+
+template <int AL, int BL, int EPI>
+__global__ void __launch_bounds__(GNT)
+    gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, int M,
+                int N, int K, int k_per_split, EpiArgs ep) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int kb = blockIdx.z * k_per_split, ke = min(K, kb + k_per_split);
+  GAcc acc[GFM][GFN];
+  gemm_mainloop<AL, BL>(acc, smem_raw, A, lda, B, ldb, m0, n0, M, N, kb, ke);
+
+  // the main loop ended with a barrier: its tiles are free for the fp32 C tile
+  float* Cs = reinterpret_cast<float*>(smem_raw);
+  store_tile(Cs, acc);
   __syncthreads();
   for (int c = tid; c < GBM * (GBN / 8); c += GNT) {
     const int r = c / (GBN / 8), cc = (c % (GBN / 8)) * 8, gr = m0 + r, gc = n0 + cc;
@@ -201,6 +234,73 @@ __global__ void __launch_bounds__(GNT)
       *reinterpret_cast<uint4*>(ep.h + o) = pack8(hh);
     }
   }
+}
+
+// Kernel 10's first pass over one chunk of tokens: for the block's GBM
+// tokens and GBN hidden columns, g = x . Wg^T and u = x . Wu^T into shared
+// memory as fp32, then dh = dy . W2 and the SwiGLU backward in the epilogue:
+// dg = dh * u * silu'(g), du = dh * silu(g) and h = silu(g) * u, rounded to
+// bf16 (the TPU kernel's rounding points; g and u themselves never are).
+constexpr int kRecomputeSmem = 3 * kGemmSmem;  // operand tiles then dh | g | u
+static_assert(kRecomputeSmem <= kMaxSmem, "smem");
+
+__global__ void __launch_bounds__(GNT)
+    swiglu_bwd_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                                const bf16* __restrict__ w1, const bf16* __restrict__ w2, int T,
+                                int D, int H, bf16* __restrict__ dgu, bf16* __restrict__ h) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Cs = reinterpret_cast<float*>(smem_raw);
+  float* Gs = reinterpret_cast<float*>(smem_raw + kGemmSmem);
+  float* Us = reinterpret_cast<float*>(smem_raw + 2 * kGemmSmem);
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  GAcc acc[GFM][GFN];
+  gemm_mainloop<kAK, kBK>(acc, smem_raw, x, D, w1, D, m0, n0, T, H, 0, D);  // g
+  store_tile(Gs, acc);
+  gemm_mainloop<kAK, kBK>(acc, smem_raw, x, D, w1 + (size_t)H * D, D, m0, n0, T, H, 0, D);  // u
+  store_tile(Us, acc);
+  gemm_mainloop<kAK, kBN>(acc, smem_raw, dy, D, w2, H, m0, n0, T, H, 0, D);  // dh
+  store_tile(Cs, acc);
+  __syncthreads();
+  for (int c = threadIdx.x; c < GBM * (GBN / 8); c += GNT) {
+    const int r = c / (GBN / 8), cc = (c % (GBN / 8)) * 8, gr = m0 + r, gc = n0 + cc;
+    if (gr >= T || gc >= H) continue;
+    float dg[8], du[8], hh[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int o = r * GLDC + cc + i;
+      const float g = Gs[o], u = Us[o], v = Cs[o];
+      const float sig = 1.0f / (1.0f + expf(-g)), sg = g * sig;
+      dg[i] = v * u * (sig * (1.0f + g * (1.0f - sig)));
+      du[i] = v * sg;
+      hh[i] = sg * u;
+    }
+    const size_t og = (size_t)gr * 2 * H + gc;
+    *reinterpret_cast<uint4*>(dgu + og) = pack8(dg);
+    *reinterpret_cast<uint4*>(dgu + og + H) = pack8(du);
+    *reinterpret_cast<uint4*>(h + (size_t)gr * H + gc) = pack8(hh);
+  }
+}
+
+// acc[i] = (first ? 0 : acc[i]) + sum over splits of part[s][i], in order.
+__global__ void splitk_accumulate_kernel(const float* __restrict__ part, int splits, size_t n,
+                                         float* __restrict__ acc, int first) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= n) return;
+  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float4* out = reinterpret_cast<float4*>(acc + i);
+  if (!first) {
+    const float4 x = out[0], y = out[1];
+    a[0] = x.x; a[1] = x.y; a[2] = x.z; a[3] = x.w;
+    a[4] = y.x; a[5] = y.y; a[6] = y.z; a[7] = y.w;
+  }
+  for (int s = 0; s < splits; ++s) {
+    const float4* p = reinterpret_cast<const float4*>(part + (size_t)s * n + i);
+    const float4 x = p[0], y = p[1];
+    a[0] += x.x; a[1] += x.y; a[2] += x.z; a[3] += x.w;
+    a[4] += y.x; a[5] += y.y; a[6] += y.z; a[7] += y.w;
+  }
+  out[0] = make_float4(a[0], a[1], a[2], a[3]);
+  out[1] = make_float4(a[4], a[5], a[6], a[7]);
 }
 
 // out[i] = bf16(sum over splits of part[s][i]), the splits summed in order.
@@ -241,16 +341,22 @@ static cudaError_t gemm(const void* a, int lda, const void* b, int ldb, int M, i
   return cudaGetLastError();
 }
 
-// dW (M, N) = sum over K tokens, split-K into ws (splits, M, N) then reduced.
+// dW (M, N) = sum over K tokens, split-K into ws (splits, M, N) then reduced
+// to bf16 into out, or, with acc given, added in fp32 to acc (set when
+// first) -- kernel 10's running sum over its token chunks.
 static cudaError_t weight_grad(const void* a, int lda, const void* b, int ldb, int M, int N, int K,
-                        float* ws, void* out, cudaStream_t st) {
+                               float* ws, void* out, cudaStream_t st, float* acc = nullptr,
+                               bool first = true) {
   const int splits = splitk_count(M, N, K);
   EpiArgs ep{ws, nullptr, nullptr, nullptr, nullptr};
   cudaError_t e = gemm<kAM, kBN, kEpiPartial>(a, lda, b, ldb, M, N, K, splits, ep, st);
   if (e != cudaSuccess) return e;
   const size_t n = (size_t)M * N;
-  splitk_reduce_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, st>>>(ws, splits, n,
-                                                                         (bf16*)out);
+  const unsigned blocks = (unsigned)((n / 8 + 255) / 256);
+  if (acc)
+    splitk_accumulate_kernel<<<blocks, 256, 0, st>>>(ws, splits, n, acc, first);
+  else
+    splitk_reduce_kernel<<<blocks, 256, 0, st>>>(ws, splits, n, (bf16*)out);
   return cudaGetLastError();
 }
 
@@ -295,4 +401,53 @@ extern "C" int swift_ffn_bwd_saved(const void* x, const void* dy, const void* g,
   e = weight_grad(dgu, 2 * H, x, D, 2 * H, D, T, (float*)ws1, dw1, st);
   if (e != cudaSuccess) return (int)e;
   return (int)weight_grad(dy, D, h, H, D, H, T, (float*)ws2, dw2, st);
+}
+
+// Tokens kernel 10 takes at a time: its bf16 scratch is 3H of them a token
+// (277 MB at H = 2816).
+extern "C" int swift_ffn_bwd_chunk() { return 16384; }
+
+// x, dy (T, D), w1 (2H, D), w2 (D, H) bf16 -> dx (T, D), dw1 (2H, D),
+// dw2 (D, H) bf16, gate and up recomputed from x. Scratch, for c =
+// min(T, swift_ffn_bwd_chunk()) tokens: dgu (c, 2H) and h (c, H) bf16; ws1,
+// ws2 fp32 of swift_splitk_workspace(2H, D, c) and (D, H, c) elements; acc1,
+// acc2 fp32 of 2H*D and D*H elements (the running weight gradients).
+extern "C" int swift_ffn_bwd_recompute(const void* x, const void* dy, const void* w1,
+                                       const void* w2, void* dx, void* dw1, void* dw2, void* dgu,
+                                       void* h, void* ws1, void* ws2, void* acc1, void* acc2,
+                                       int T, int D, int H, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int chunk = swift_ffn_bwd_chunk();
+  cudaError_t e = cudaFuncSetAttribute(swiglu_bwd_recompute_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kRecomputeSmem);
+  if (e != cudaSuccess) return (int)e;
+  for (int c0 = 0; c0 < T; c0 += chunk) {
+    const int tc = T - c0 < chunk ? T - c0 : chunk;
+    const bf16* xc = (const bf16*)x + (size_t)c0 * D;
+    const bf16* dyc = (const bf16*)dy + (size_t)c0 * D;
+    // g, u, dh -> dg | du, h for this chunk's tokens
+    swiglu_bwd_recompute_kernel<<<dim3(ceil_div(H, GBN), ceil_div(tc, GBM)), GNT,
+                                  kRecomputeSmem, st>>>(xc, dyc, (const bf16*)w1,
+                                                        (const bf16*)w2, tc, D, H, (bf16*)dgu,
+                                                        (bf16*)h);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    // dx = [dg | du] . W1
+    EpiArgs epx{(bf16*)dx + (size_t)c0 * D, nullptr, nullptr, nullptr, nullptr};
+    e = gemm<kAK, kBN, kEpiBf16>(dgu, 2 * H, w1, D, tc, D, 2 * H, 1, epx, st);
+    if (e != cudaSuccess) return (int)e;
+    // dW1 += [dg | du]^T . x ;  dW2 += dy^T . h
+    e = weight_grad(dgu, 2 * H, xc, D, 2 * H, D, tc, (float*)ws1, nullptr, st, (float*)acc1,
+                    c0 == 0);
+    if (e != cudaSuccess) return (int)e;
+    e = weight_grad(dyc, D, h, H, D, H, tc, (float*)ws2, nullptr, st, (float*)acc2, c0 == 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const size_t n1 = (size_t)2 * H * D, n2 = (size_t)D * H;
+  splitk_reduce_kernel<<<(unsigned)((n1 / 8 + 255) / 256), 256, 0, st>>>((const float*)acc1, 1,
+                                                                          n1, (bf16*)dw1);
+  splitk_reduce_kernel<<<(unsigned)((n2 / 8 + 255) / 256), 256, 0, st>>>((const float*)acc2, 1,
+                                                                          n2, (bf16*)dw2);
+  return (int)cudaGetLastError();
 }

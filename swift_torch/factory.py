@@ -2,10 +2,11 @@
 
 Counterpart of ``swift_tpu/factory.py`` for the ported pieces: the same
 ``_target_`` suffixes and config keys, so a run's saved config builds the
-same network in either package. Ported: SwinV2 under PassPrecond over the
-ERA5 dataset, the TrigFlow and sCM losses, Adam/AdamW with the reference's
-decay grouping, and Muon with aux-Adam by the JAX package's labels, each
-with the reference lr schedule. Any other target raises.
+same network in either package. Ported: SwinV2 (learned or factorized
+position embedding) under PassPrecond over the ERA5 dataset, the TrigFlow
+and sCM losses, Adam/AdamW with the reference's decay grouping, and Muon
+with aux-Adam by the JAX package's labels, each with the reference lr
+schedule. Any other target raises.
 """
 
 from __future__ import annotations
@@ -53,8 +54,6 @@ def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels:
     target = _suffix(cfg.pop("_target_", "SwinV2"))
     if target != "SwinV2":
         raise ValueError(f"model target {target!r} is not ported (only SwinV2)")
-    if cfg.get("pos_embed_mode", "learned") != "learned":
-        raise ValueError("only the learned pos_embed is ported")
     if cfg.get("quant"):
         raise ValueError("int8 inference is not ported")
     return SwinV2(
@@ -72,6 +71,7 @@ def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels:
         logvar=bool(cfg.get("logvar", False)),
         timestep_weight=float(cfg.get("timestep_weight", 1.0)),
         dtype=dtype,
+        pos_embed_mode=str(cfg.get("pos_embed_mode", "learned")),
     )
 
 

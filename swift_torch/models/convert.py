@@ -8,7 +8,10 @@ torch model's parameter names, so this mapping is the one
 ``swift_tpu.models.convert.swinv2_params_to_state_dict`` defines: Flax
 kernels (in, out) are torch weights (out, in) transposed, the per-head
 logit scale is (heads,) in JAX and (1, heads, 1, 1) in torch. Keys carry the
-``model.`` prefix of the precond wrapper.
+``model.`` prefix of the precond wrapper. A model built with
+``pos_embed_mode="factorized"`` carries ``pos_embed_row`` (1, gh, 1, dim) and
+``pos_embed_col`` (1, 1, gw, dim) in place of ``pos_embed``, under the same
+names and shapes in both packages.
 """
 
 from __future__ import annotations
@@ -73,7 +76,9 @@ def params_to_state_dict(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
         v = np.asarray(val, np.float32)
         out[f"model.{key}"] = np.ascontiguousarray(v.T if transpose else v)
 
-    put("pos_embed", params["pos_embed"])
+    for name in ("pos_embed", "pos_embed_row", "pos_embed_col"):
+        if name in params:
+            put(name, params[name])
     put("patch_embed.emb.weight", params["patch_embed"]["kernel"], True)
     put("patch_embed.emb.bias", params["patch_embed"]["bias"])
     put("latent_embed.l1.weight", params["latent_l1"]["kernel"], True)
@@ -120,12 +125,14 @@ def state_dict_to_params(state_dict: Mapping[str, Any], depth: int,
         return d
 
     p: dict = {
-        "pos_embed": sd["pos_embed"],
+        name: sd[name] for name in ("pos_embed", "pos_embed_row", "pos_embed_col") if name in sd
+    }
+    p.update({
         "patch_embed": dense("patch_embed.emb"),
         "latent_l1": dense("latent_embed.l1"),
         "latent_l2": dense("latent_embed.l2"),
         "head": dense("head.head.0", bias=False),
-    }
+    })
     for name in ("auxiliary_embed", "logvar_embed"):
         if f"{name}.weight" in sd:
             p[name] = dense(name)

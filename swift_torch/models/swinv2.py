@@ -22,10 +22,21 @@ it again with autograd on before differentiating it.
 ``forward(..., jvp=True)`` is the sCM loss's forward-mode pass (the JAX
 model's ``jvp`` flag): run under ``torch.autograd.forward_ad`` with dual
 inputs, it takes no remat, the qkv projection and the attention give their
-tangents through kernels 14 and 7, wo is a plain product in ``dtype``
-followed by the modnorm epilogue (kernel 3 has no tangent route), and the
-FFN and both epilogues give theirs through kernels 11, 4 and 12, at every
-grid size.
+tangents through kernels 14 and 7 (17 on the tiled route), wo is a plain
+product in ``dtype`` followed by the modnorm epilogue (kernel 3 has no
+tangent route), and the FFN and both epilogues give theirs through kernels
+11, 4 and 12, at every grid size.
+
+The attention takes the JAX model's route: the whole-grid kernels where
+their gate passes (the 1.4° grid), else the window-tiled kernels 15, 16
+and 17 (the 0.25° grid, 368×720 tokens), for which the odd blocks' window
+shift is one roll of the dim-wide activation before the qkv projection and
+its inverse on the attention output, the residual keeping the unrolled
+activation. A latitude that does not divide by patch × window (the 0.25°
+WB2 grid's 721 rows) is edge-padded toward the pole inside the model and
+the output cropped back; ``pos_embed_mode="factorized"`` replaces the
+(gh·gw, dim) position table by a row and a column table summed in
+``dtype``.
 """
 
 from __future__ import annotations
@@ -38,7 +49,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from swift_torch.ops.block_attention import fused_block_attention
+from swift_torch.ops.block_attention import (
+    attention_route,
+    fused_block_attention,
+    fused_tiled_block_attention,
+    per_head_window_attention,
+)
 from swift_torch.ops.embeddings import timestep_embedding
 from swift_torch.ops.ffn import fused_swiglu_ffn
 from swift_torch.ops.linear import fused_linear
@@ -82,7 +98,8 @@ class ModulatedNorm(nn.Module):
 class WindowAttention(nn.Module):
     """qkv projection -> shifted-window cosine attention -> wo projection,
     post-norm and residual (kernels 1, 2 and 3; under a jvp kernels 14, 2
-    with 7, a plain wo product, and the modnorm epilogue)."""
+    with 7, a plain wo product, and the modnorm epilogue; kernels 15, 16
+    and 17 in place of 2, 6 and 7 on the tiled route)."""
 
     def __init__(self, dim, heads, head_dim, window_size, shift=(0, 0)):
         super().__init__()
@@ -96,9 +113,23 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, jvp: bool = False) -> torch.Tensor:
         dt = x.dtype
-        qkv = fused_linear(x, self.to_qkv.weight.to(dt))
+        w_qkv = self.to_qkv.weight.to(dt)
         s = torch.exp(torch.clamp(self.scale.reshape(-1), max=math.log(100.0)))
-        out = fused_block_attention(qkv, s, self.heads, self.window_size, self.shift)
+        route = attention_route(tuple(x.shape[1:3]), self.window_size, self.shift, self.heads,
+                                self.heads * self.head_dim)
+        if route == "tiled":
+            # the JAX model's tiled route: a token permutation commutes with
+            # the row-wise projection, so the dim-wide activation is rolled
+            # instead of the 3·inner-wide qkv
+            sh, sw = self.shift
+            xr = torch.roll(x, (-sh, -sw), (1, 2)) if sh or sw else x
+            out = fused_tiled_block_attention(fused_linear(xr, w_qkv), s, self.heads,
+                                              self.window_size)
+            if sh or sw:
+                out = torch.roll(out, (sh, sw), (1, 2))
+        else:
+            attend = fused_block_attention if route == "block" else per_head_window_attention
+            out = attend(fused_linear(x, w_qkv), s, self.heads, self.window_size, self.shift)
         if jvp:
             # the JAX model's jvp path: wo as a plain product rounded to dtype
             # (kernel 3 keeps it in fp32), then the post-norm epilogue
@@ -178,19 +209,21 @@ class SwinV2(nn.Module):
         timestep_weight: float = 1.0,
         dtype: torch.dtype = torch.bfloat16,
         remat_layers: bool = True,
+        pos_embed_mode: str = "learned",
     ):
         super().__init__()
         H, W = _as_2tuple(img_resolution)
         ph, pw = _as_2tuple(patch_size)
         wh, ww = _as_2tuple(window_size)
-        if H % (ph * wh) or W % (pw * ww):
-            raise ValueError(
-                f"grid {(H, W)} must divide by patch x window {(ph * wh, pw * ww)} "
-                "(latitude edge-padding is not ported yet)"
-            )
+        if W % (pw * ww):
+            raise ValueError(f"longitude {W} must divide by patch x window {pw * ww}")
+        if pos_embed_mode not in ("learned", "factorized"):
+            raise ValueError(f"pos_embed_mode {pos_embed_mode!r}: learned or factorized")
         self.img_resolution = (H, W)
         self.patch_size = (ph, pw)
-        self.grid_size = (H // ph, W // pw)
+        self.lat_pad = (-H) % (ph * wh)  # edge rows added toward the pole
+        self.grid_size = ((H + self.lat_pad) // ph, W // pw)
+        self.pos_embed_mode = pos_embed_mode
         self.in_channels, self.out_channels = in_channels, out_channels
         self.dim, self.auxiliary_dim = dim, auxiliary_dim
         self.timestep_weight = timestep_weight
@@ -201,7 +234,11 @@ class SwinV2(nn.Module):
         gh, gw = self.grid_size
 
         self.patch_embed = _PatchEmbed(ph * pw * in_channels, dim)
-        self.pos_embed = nn.Parameter(0.02 * torch.randn(1, gh * gw, dim))
+        if pos_embed_mode == "factorized":
+            self.pos_embed_row = nn.Parameter(0.02 * torch.randn(1, gh, 1, dim))
+            self.pos_embed_col = nn.Parameter(0.02 * torch.randn(1, 1, gw, dim))
+        else:
+            self.pos_embed = nn.Parameter(0.02 * torch.randn(1, gh * gw, dim))
         self.latent_embed = _LatentEmbed(dim)
         self.auxiliary_embed = nn.Linear(auxiliary_dim, dim) if auxiliary_dim else None
         self.logvar_embed = nn.Linear(dim, 1) if logvar else None
@@ -239,13 +276,18 @@ class SwinV2(nn.Module):
         if tuple(x.shape[1:3]) != (H, W):
             raise ValueError(f"expected NHWC input {(H, W)}, got {tuple(x.shape)}")
         dt = self.dtype
+        if self.lat_pad:  # edge rows toward the pole, cropped from the output below
+            x = torch.cat([x, x[:, -1:].expand(B, self.lat_pad, W, x.shape[-1])], dim=1)
 
         # patch embedding, (p1, p2, c) feature order as the reference
         xp = x.reshape(B, gh, ph, gw, pw, x.shape[-1]).permute(0, 1, 3, 2, 4, 5)
         xp = xp.reshape(B, gh, gw, ph * pw * x.shape[-1]).to(dt)
         emb = self.patch_embed.emb
         h = F.linear(xp, emb.weight.to(dt), emb.bias.to(dt))
-        h = h + self.pos_embed.to(dt).reshape(1, gh, gw, self.dim)
+        if self.pos_embed_mode == "factorized":
+            h = h + (self.pos_embed_row.to(dt) + self.pos_embed_col.to(dt))
+        else:
+            h = h + self.pos_embed.to(dt).reshape(1, gh, gw, self.dim)
 
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1)
         if t.shape[0] != B:
@@ -267,7 +309,7 @@ class SwinV2(nn.Module):
         # output head, (c, p1, p2) feature order as the reference
         o = F.linear(h, self.head.head[0].weight.to(dt))
         o = o.reshape(B, gh, gw, self.out_channels, ph, pw).permute(0, 1, 4, 2, 5, 3)
-        o = o.reshape(B, H, W, self.out_channels).float()
+        o = o.reshape(B, gh * ph, W, self.out_channels)[:, :H].float()
         if return_logvar:
             if self.logvar_embed is None:
                 raise ValueError("return_logvar needs a model built with logvar=True")

@@ -45,6 +45,11 @@ _SIGNATURES = {
     "swift_block_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
     "swift_block_attention_bwd_qb": [_I],
     "swift_block_attention_tangent": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "swift_tiled_attention": [_P, _P, _P] + [_I] * 7 + [_P],
+    "swift_tiled_attention_bwd": [_P] * 7 + [_I] * 7 + [_P],
+    "swift_tiled_attention_tangent": [_P] * 4 + [_I] * 7 + [_P],
+    "swift_ffn_bwd_recompute": [_P] * 13 + [_I, _I, _I, _P],
+    "swift_ffn_bwd_chunk": [],
     "swift_max_smem": [],
     "swift_error_string": [_I],
 }

@@ -1,7 +1,8 @@
 """The port's backward kernels' plain versions against the JAX package.
 
 For each of kernels 6 (block attention backward), 8 (FFN forward saving
-gate/up), 9 (FFN backward from them) and 13 (linear backward): the plain
+gate/up), 9 (FFN backward from them) and 13 (linear backward), and the
+wrapper's route to kernel 10 above the save budget: the plain
 PyTorch version against JAX's vjp of the Pallas function, run in interpret
 mode on the CPU as the JAX package's own kernel tests run it, and against
 ``torch.autograd`` of the plain forward; the modnorm epilogues' Functions
@@ -9,8 +10,9 @@ mode on the CPU as the JAX package's own kernel tests run it, and against
 from numpy seeds, at small shapes with several token tiles, both head
 widths and an odd window shift. Tolerance 2e-5 (rtol and atol): fp32 sums
 over a few hundred terms in different orders, the bound ``test_torch_ops``
-holds the forwards to. The ``cuda``-marked test holds the four kernels to
-their plain versions on the card and skips elsewhere.
+holds the forwards to. The ``cuda``-marked tests hold the backward kernels
+(with 10 and 16 of the 0.25° path) to their plain versions on the card and
+skip elsewhere.
 """
 
 import functools
@@ -177,12 +179,22 @@ def test_ffn_bwd_saved_plain_matches_autograd():
 
 def test_ffn_backward_above_the_save_budget_raises(monkeypatch):
     """Above the budget the JAX package takes the recompute kernel 10 (the
-    0.25° slice), which is not ported: the port says so instead of quietly
-    taking another path."""
+    0.25° grid): the forward keeps only x (no gate/up leaves it) and the
+    backward recomputes them, giving autograd's gradients of the plain
+    forward. What raises there is a forward-mode tangent handed to the
+    recompute backward, which has no tangent route."""
     monkeypatch.setenv("SWIFT_FFN_BWD_SAVE_MAX_TOKENS", "16")
-    x, w1, w2, _ = _ffn_inputs(17, T=24)
-    with pytest.raises(NotImplementedError, match="kernel 10"):
-        ffn.fused_swiglu_ffn(_t(x, True), _t(w1, True), _t(w2, True))
+    x, w1, w2, dy = _ffn_inputs(17, T=24)
+    y = ffn.fused_swiglu_ffn(_t(x, True), _t(w1, True), _t(w2, True))
+    assert type(y.grad_fn).__name__.startswith("_SwiGLURecompute")
+    want = _autograd(ffn.reference_swiglu_ffn, (x, w1, w2), dy)
+    for g, wnt, name in zip(_autograd(ffn.fused_swiglu_ffn, (x, w1, w2), dy), want,
+                            ("dx", "dw1", "dw2")):
+        _close(g, wnt, name)
+    with pytest.raises(NotImplementedError, match="swiglu_ffn_bwd_recompute"):
+        with torch.no_grad(), torch.autograd.forward_ad.dual_level():
+            ffn.swiglu_ffn_bwd_recompute(torch.autograd.forward_ad.make_dual(_t(x), _t(dy)),
+                                         _t(dy), _t(w1), _t(w2))
     with torch.no_grad():  # the forward alone is unaffected
         ffn.fused_swiglu_ffn(_t(x), _t(w1), _t(w2))
 
@@ -271,3 +283,40 @@ def test_backward_kernels_match_plain_at_ragged_shapes(tokens, d):
             err = (g.float() - w.float()).abs().max().item()
             assert torch.isfinite(g).all() and err <= 2e-2 * w.float().abs().max().item(), (
                 fused.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,d", [(1000, 40), (40008, 24)])
+def test_quarter_backward_kernels_match_plain_on_card(tokens, d):
+    """Kernels 10 and 16 at edges the 0.25° grid never reaches: token counts
+    that are no multiple of a tile and, at 40,008, three token chunks of
+    kernel 10 (the last a partial one), D and H no multiples of 128, head
+    dims padded in shared memory, several windows. bf16 on the card, every
+    output within 2e-2 of max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(21)
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", dtype)
+
+    D, H, heads = 208, 264, 3
+    x, dy = t((2, tokens // 2, D)), t((2, tokens // 2, D))
+    w1, w2 = t((2 * H, D), D ** -0.5), t((D, H), H ** -0.5)
+    qkv = t((2, 32, 48, heads * 3 * d))
+    cases = [
+        (ffn.swiglu_ffn_bwd_recompute, ffn.reference_swiglu_ffn_bwd_recompute, (x, dy, w1, w2)),
+        (block_attention.tiled_block_attention_bwd,
+         block_attention.reference_block_attention_bwd,
+         (qkv, torch.exp(t((heads,), 0.3, torch.float32) + 2.0), t((2, 32, 48, heads * d)),
+          heads, (16, 16))),
+    ]
+    for fused, plain, args in cases:
+        got, want = fused(*args), plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            assert torch.isfinite(g).all() and err <= 2e-2 * w.float().abs().max().item(), (
+                fused.__name__, err)
+        again = fused(*args)  # deterministic: no atomics, sums in a fixed order
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), fused.__name__

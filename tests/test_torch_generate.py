@@ -183,11 +183,18 @@ net = factory.build_precond(%r, %r, ds.img_resolution, ds.n_target_channels,
 class Args: members, steps, batch, samples, interval, segment, seed, solver, \
     num_solver_steps, dump = 2, 2, 2, 2, 6, 1, 0, "scm", 1, "zarr"
 generate.rollout_to_store(Args, ds, net, sys.argv[1])
+# the 0.25° model's pieces: latitude padding, factorized table, tiled route
+quarter = factory.build_precond(%r, {**%r, "pos_embed_mode": "factorized",
+                                     "window_size": [4, 8], "shift_size": [2, 4]},
+                                (30, 64), 5, 6).eval()
+with torch.no_grad():
+    quarter(torch.randn(1, 30, 64, 5), torch.ones(1), torch.randn(1, 30, 64, 6),
+            torch.ones(1, 1))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
 assert not bad, bad
 print("no-jax-ok")
-""" % (VARS, PRECOND, MODEL)
+""" % (VARS, PRECOND, MODEL, PRECOND, MODEL)
     import tempfile
 
     with tempfile.TemporaryDirectory() as odir:

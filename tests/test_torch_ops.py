@@ -182,9 +182,11 @@ def test_wrapper_grad_routing(name):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """The chip smoke's kernel phase: all thirteen kernels at the flagship's
-    shapes (12x88 and 8x128 heads, both window shifts), bf16, every output
-    within 2e-2 of max|plain| (bf16 rounding of the outputs, p and dS)."""
+    """The chip smoke's kernel phase: all seventeen kernels at the flagship's
+    shapes (12x88 and 8x128 heads, both window shifts; the tiled kernels on
+    pre-rolled input) and the 0.25° path's four at its own, bf16, every
+    output within 2e-2 of max|plain| (bf16 rounding of the outputs, p and
+    dS)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     import chip_smoke
@@ -271,3 +273,44 @@ def test_tangent_kernels_match_plain_on_card(tokens, d):
             err = (g.float() - w.float()).abs().max().item()
             assert torch.isfinite(g).all() and err <= 2e-2 * w.float().abs().max().item(), (
                 fused.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 24, 128])
+def test_tiled_kernels_match_plain_and_the_whole_grid_kernels(d):
+    """Kernels 15 and 17 against their plain versions in bf16 on the card
+    (within 2e-2 of max|plain|) on a grid of several windows, head dims
+    padded in shared memory; and, on qkv rolled by a wrap-around shift, bit
+    for bit kernels 2 and 7 at that shift: the same arithmetic, the wrap
+    taken by the roll instead of the index math."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(64)
+
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", dtype)
+
+    heads, win, shift = 3, (16, 16), (8, 40)
+    qkv, dqkv = t((2, 32, 48, heads * 3 * d)), t((2, 32, 48, heads * 3 * d))
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + 2.0)
+    rolled, drolled = (torch.roll(a, (-8, -40), (1, 2)) for a in (qkv, dqkv))
+    cases = [
+        (block_attention.fused_tiled_block_attention,
+         block_attention.reference_block_attention, (rolled, scale, heads, win)),
+        (block_attention.tiled_block_attention_tangent,
+         block_attention.reference_block_attention_tangent,
+         (rolled, drolled, scale, heads, win)),
+    ]
+    for fused, plain, args in cases:
+        got, want = fused(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), (
+            fused.__name__, err)
+    unroll = lambda a: torch.roll(a, shift, (1, 2))  # noqa: E731
+    assert torch.equal(
+        unroll(block_attention.fused_tiled_block_attention(rolled, scale, heads, win)),
+        block_attention.fused_block_attention(qkv, scale, heads, win, shift))
+    assert torch.equal(
+        unroll(block_attention.tiled_block_attention_tangent(rolled, drolled, scale, heads, win)),
+        block_attention.block_attention_tangent(qkv, dqkv, scale, heads, win, shift))
