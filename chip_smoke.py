@@ -6,19 +6,21 @@ Phases, each printed as it finishes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``swift_torch/csrc`` with nvcc;
-3. kernels: each of the seventeen kernels (five forward, four for reverse-
+3. kernels: each of the nineteen kernels (five forward, four for reverse-
    mode training, four forward-mode tangents for the sCM step, four for the
    0.25° grid: the window-tiled attention 15, 16, 17 and the recompute FFN
-   backward 10) against its plain PyTorch version at the flagship's shapes
-   (B=2, 64x128 tokens, dim 1056, heads 12x88 and 8x128, window shift (0,0)
-   and (8,8); the tiled kernels on pre-rolled input), and the 0.25° four
-   also at the 0.25° shapes (B=1, 368x720 tokens, 8x128 heads), bf16 inputs
-   from a numpy seed; fails when max|kernel - plain| of any output exceeds
-   2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or kernel
-   10's 1 GB at 0.25°; prints both times (CUDA events, median of 20
-   launches, 5 at 0.25°), the bound the card could reach from the shapes,
-   the scratch of kernels 16 and 10 and, for the qkv projection and its
-   primal + tangent, ``F.linear``'s time;
+   backward 10; the int8 FFN 18 and int8 wo + modnorm 19) against its plain
+   PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
+   heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
+   pre-rolled input), and 10, 15-19 also at the 0.25° shapes (B=1, 368x720
+   tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19) from a
+   numpy seed; fails when max|kernel - plain| of any output exceeds 2e-2 of
+   max|plain|, or when kernel 16's scratch exceeds its qkv or kernel 10's
+   1 GB at 0.25°; prints both times (CUDA events, median of 20 launches, 5
+   at 0.25°), the bound the card could reach from the shapes (int8 peak for
+   18 and 19), the scratch of kernels 16 and 10, ``F.linear``'s time for the
+   qkv projection and its primal + tangent, and the int8 qkv product
+   (``torch._int_mm``) and weight quantization times;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -28,6 +30,15 @@ Phases, each printed as it finishes:
    that the store is finite and not constant, and that a depth-2 cut of
    the same network agrees with the plain PyTorch path on the CPU. Prints
    forecast steps/s, end to end and for the network's forward alone;
+4b. int8: the int8 forecast (``generate --int8``, ``quant="int8"`` through
+   the factory) with the same weights at 12x88 and 8x128 heads: one forward
+   with exact launches (18, 19, 4, 2 twelve times; 1, 3, 5 never), its
+   one-step forecast against the bf16 one (relative RMS, limit
+   INT8_RMS_TOL), both forwards' device times, and ``rollout_to_store`` at
+   MB = 4 into a finite, non-constant store with exact launch counts,
+   steps/s and the store writes' share; then ``build_truth_zarr`` and
+   ``eval.metrics.evaluate`` of the bf16 and int8 12x88 stores, whose RMSE
+   and CRPS differences it prints (two random-weight forecasts, not skill);
 5. train: six full-width steps of ``era5-swinv2-1.4-trigflow`` (config
    composed from the YAML tree, global batch 4, remat, AdamW, EMA) through
    the port's ``Trainer`` over ``SyntheticERA5`` batches from its
@@ -56,7 +67,9 @@ Phases, each printed as it finishes:
    full width with random weights, 1 member x 1 IC x 2 steps through
    ``rollout_to_store`` into a 721x1440 store; fails unless the store is
    finite and not constant and the attention ran kernel 15 twelve times a
-   forward and kernel 2 never; prints the forward's device time;
+   forward and kernel 2 never; prints the forward's device time; then one
+   int8 forward at 0.25° (15, 18, 19, 4 twelve times; 1, 2, 3, 5 never)
+   against the bf16 one, as in 4b;
 10. quarter scm: two full-width sCM steps of that experiment at batch 1
    through the ``Trainer`` (Muon + aux-Adam, EMA, remat), then one at r = 1;
    fails unless kernels 10, 15, 16 and 17 launched at the step's exact
@@ -68,8 +81,9 @@ Phases, each printed as it finishes:
    CPU cannot run the fp32 plain path at 264,960 tokens in the time limit:
    every wrapper is made to take its plain version for the reference run).
 
-The 1.4° paths launch none of kernels 10 and 15-17. Fails if any module of
-jax, flax, optax or swift_tpu was loaded. The last
+The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
+18 and 19. Fails if any module of jax, flax, optax or swift_tpu was loaded
+(the port's quant, eval.metrics and data.h52zarr included). The last
 lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA, or
 when a build, launch or check fails, the script raises and exits non-zero.
@@ -80,6 +94,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -94,9 +109,11 @@ from swift_torch import config as cfglib
 from swift_torch import factory
 from swift_torch.data.pipeline import BatchLoader
 from swift_torch.data.samplers import InfiniteSampler
+from swift_torch.data.h52zarr import build_truth_zarr
 from swift_torch.data.synthetic import SyntheticERA5
+from swift_torch.eval import metrics
 from swift_torch.generate import read_store, rollout_to_store
-from swift_torch.ops import _build
+from swift_torch.ops import _build, quant
 from swift_torch.ops.block_attention import (
     block_attention_bwd,
     block_attention_tangent,
@@ -112,7 +129,9 @@ from swift_torch.ops.block_attention import (
 from swift_torch.ops.ffn import (
     bwd_recompute_scratch_bytes,
     fused_swiglu_ffn,
+    fused_swiglu_ffn_int8,
     reference_swiglu_ffn,
+    reference_swiglu_ffn_int8,
     reference_swiglu_ffn_bwd_recompute,
     reference_swiglu_ffn_bwd_saved,
     reference_swiglu_ffn_fwd_save,
@@ -132,9 +151,11 @@ from swift_torch.ops.linear import (
 )
 from swift_torch.ops.modnorm import (
     fused_matmul_modnorm_residual,
+    fused_matmul_modnorm_residual_int8,
     fused_modnorm_residual,
     modnorm_residual_tangent,
     reference_matmul_modnorm_residual,
+    reference_matmul_modnorm_residual_int8,
     reference_modnorm_residual,
     reference_modnorm_residual_tangent,
 )
@@ -146,6 +167,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 TOL = 2e-2  # max|kernel - plain| / max|plain| for every output, bf16 rounding of outputs, p, dS
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: bf16 dense tensor cores, HBM3
+PEAK_INT8 = 1979e12  # H100 SXM: int8 dense tensor cores
 GRID = (64, 128)  # flagship token grid: 128x256 at patch 2
 DIM, HIDDEN = 1056, 2816
 GEOMETRIES = ((12, 88), (8, 128))  # (heads, head dim): parity and hd128
@@ -203,6 +225,11 @@ QUARTER_TRAIN = dict(batch=1, steps=2, steps_per_tick=1)
 QUARTER_CUT_DF_TOL = 2e-2
 QUARTER_CUT_LOSS_TOL = 1e-4
 QUARTER_CUT_GRAD_TOL = 2.5e-2
+# the int8 forecast (generate --int8) at both flagship head layouts: 12x88 and the hd128
+# layout of the JAX package's int8 A/B; the one-step forecast's relative RMS against the
+# bf16 one from the same weights and draws, stated in PERF.md before the first run
+HD128_MODEL = {**MODEL, "heads": 8, "head_dim": 128}
+INT8_RMS_TOL = 0.10
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 
@@ -270,7 +297,14 @@ KERNELS = {
                                       reference_block_attention_tangent, "cuda",
                                       "swift_torch/csrc/block_attention.cu",
                                       "swift_tpu/ops/pallas_block_attention.py:865"),
+    "swiglu_ffn_int8": (fused_swiglu_ffn_int8, reference_swiglu_ffn_int8, "cuda",
+                        "swift_torch/csrc/ffn_int8.cu", "swift_tpu/ops/pallas_ffn.py:521"),
+    "matmul_modnorm_residual_int8": (fused_matmul_modnorm_residual_int8,
+                                     reference_matmul_modnorm_residual_int8, "cuda",
+                                     "swift_torch/csrc/gemm.cu",
+                                     "swift_tpu/ops/pallas_modnorm.py:366"),
 }
+INT8_KERNELS = ("swiglu_ffn_int8", "matmul_modnorm_residual_int8")  # kernels 18, 19
 QUARTER_KERNELS = ("swiglu_ffn_bwd_recompute", "tiled_block_attention", "tiled_block_attention_bwd",
                    "tiled_block_attention_tangent")  # kernels 10, 15, 16, 17
 WHOLE_GRID = ("block_attention", "block_attention_bwd", "block_attention_tangent",
@@ -295,7 +329,7 @@ def kernel_flops(name: str, args) -> float:
         # QKᵀ, PV | + dV, dP, dQ, dK | tangent: QKᵀ, dQ·Kᵀ, Q·dKᵀ, dP·V, P·dV
         per = 4.0 if name in ("block_attention", "tiled_block_attention") else 10.0
         return per * _tokens(qkv) * 256 * qkv.shape[-1] / 3  # 256 keys a window
-    if name == "matmul_modnorm_residual":
+    if name.startswith("matmul_modnorm_residual"):
         x, w = args[:2]
         return 2.0 * _tokens(x) * w.shape[0] * w.shape[1] + 10.0 * _tokens(x) * w.shape[0]
     if name == "modnorm_residual":
@@ -315,10 +349,12 @@ def _nbytes(objs) -> int:
 def kernel_bound(name: str, args, out) -> tuple[float, str]:
     """(ms, "bytes" | "operations"): the larger of each input read once and
     each output written once at the card's memory rate, and the operations
-    at its bf16 dense peak."""
+    at its dense peak for their type (int8 for kernels 18 and 19, else
+    bf16)."""
     outs = out if isinstance(out, tuple) else (out,)
     t_bytes = (_nbytes(args) + _nbytes(outs)) / PEAK_BYTES * 1e3
-    t_ops = kernel_flops(name, args) / PEAK_FLOPS * 1e3
+    peak = PEAK_INT8 if name in INT8_KERNELS else PEAK_FLOPS
+    t_ops = kernel_flops(name, args) / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -334,19 +370,25 @@ SCM_PER_STEP = {
     "swiglu_ffn": 12, "block_attention_bwd": 12, "swiglu_ffn_fwd_save": 12,
     "swiglu_ffn_bwd_saved": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
     "modnorm_residual_tangent": 24, "block_attention_tangent": 12,
-    **{name: 0 for name in QUARTER_KERNELS},
+    **{name: 0 for name in QUARTER_KERNELS + INT8_KERNELS},
 }
 # one sCM step at 0.25° (batch 1, 264,960 tokens): the attention on the tiled kernels (15 in
 # place of 2 in the jvp primal, the first forward and the recompute; 16 and 17 in place of 6
 # and 7); above the FFN's save budget the first forward and the recompute both run kernel 5
 # and the backward kernel 10 (in place of 8 and 9)
 QUARTER_SCM_PER_STEP = {
-    **{name: 0 for name in WHOLE_GRID},
+    **{name: 0 for name in WHOLE_GRID + INT8_KERNELS},
     "linear": 24, "tiled_block_attention": 36, "matmul_modnorm_residual": 24,
     "modnorm_residual": 48, "swiglu_ffn": 24, "tiled_block_attention_bwd": 12,
     "swiglu_ffn_bwd_recompute": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
     "modnorm_residual_tangent": 24, "tiled_block_attention_tangent": 12,
 }
+# launches of one int8 forward (the flagship's whole-grid route, the 0.25° tiled one): the
+# int8 qkv product is torch._int_mm, so kernels 1, 3 and 5 never launch
+INT8_FORWARD = {"block_attention": 12, "modnorm_residual": 12, "swiglu_ffn_int8": 12,
+                "matmul_modnorm_residual_int8": 12}
+QUARTER_INT8_FORWARD = {"tiled_block_attention": 12, "modnorm_residual": 12,
+                        "swiglu_ffn_int8": 12, "matmul_modnorm_residual_int8": 12}
 SCM = ScmSlice("scm", SCM_EXPERIMENT, MODEL, RESOLUTION, TRAIN, SCM_PER_STEP, 16, 2,
                (SCM_CUT_DF_TOL, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL), "CPU")
 QUARTER_SCM = ScmSlice("quarter-scm", QUARTER_EXPERIMENT, QUARTER_MODEL, QUARTER_RES,
@@ -516,6 +558,9 @@ def phase_kernels() -> dict:
             ("linear_pt", (a["x"], a["dx"], a["w_qkv"]), {}),
             ("matmul_modnorm_residual",
              (a["attn"], a["w_o"], a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
+            # the int8 kernels take the fp32 parameters and quantize them first
+            ("matmul_modnorm_residual_int8",
+             (a["attn"], a["w_o"].float(), a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
         ] + [
             ("block_attention", (a["qkv"], a["scale"], heads, win, s), {"shift": s})
             for s in SHIFTS
@@ -536,6 +581,7 @@ def phase_kernels() -> dict:
             cases += [
                 ("modnorm_residual", (a["y"], a["r"], a["g"], a["b"], a["msc"], a["msh"]), {}),
                 ("swiglu_ffn", (a["x"], a["w1"], a["w2"]), {}),
+                ("swiglu_ffn_int8", (a["x"], a["w1"].float(), a["w2"].float()), {}),
                 ("swiglu_ffn_fwd_save", (a["x"], a["w1"], a["w2"]), {}),
                 ("swiglu_ffn_bwd_saved",
                  (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]), {}),
@@ -554,17 +600,40 @@ def phase_kernels() -> dict:
                                         flagship_plain_ms=fields["plain_ms"])
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
+        int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
     quarter_kernels(rng, record)
     return record
 
 
+def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
+    """The int8 path's qkv product (``quant.int8_matmul``: quantize x and W,
+    ``torch._int_mm``, rescale; a library product, as the JAX package leaves
+    it to XLA) timed beside kernel 1, ``torch._int_mm`` alone, and the weight
+    quantization that the int8 kernels' wrappers run before each launch."""
+    x, w = a["x"], a["w_qkv"].float()
+    xq, _ = quant.quantize_rowwise(x)
+    wq, _ = quant.quantize_colwise(w)
+    qkv_ms = time_ms(lambda: quant.int8_matmul(x, w))
+    int_mm_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
+    w1, w2, wo = a["w1"].float(), a["w2"].float(), a["w_o"].float()
+    ffn_w_ms = time_ms(lambda: (quant.quantize_colwise(w1), quant.quantize_colwise(w2)))
+    wo_w_ms = time_ms(lambda: quant.quantize_colwise(wo))
+    log(f"[kernels] int8 qkv heads={heads:2d} d={d:3d}: quant.int8_matmul {qkv_ms:.4f} ms "
+        f"(torch._int_mm alone {int_mm_ms:.4f} ms; kernel 1 in bf16 above); weight "
+        f"quantization per launch: kernel 18 {ffn_w_ms:.4f} ms, kernel 19 {wo_w_ms:.4f} ms")
+    if d == GEOMETRIES[0][1]:
+        record["linear"].update(int8_qkv_ms=qkv_ms, int_mm_ms=int_mm_ms)
+        record["swiglu_ffn_int8"]["weight_quant_ms"] = ffn_w_ms
+        record["matmul_modnorm_residual_int8"]["weight_quant_ms"] = wo_w_ms
+
+
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
-    """Kernels 10 and 15-17 at the 0.25° shapes (B = 1, 368x720 tokens, 8x128
-    heads, the 264,960-token FFN), with the scratch of kernels 16 and 10:
-    computed from the shapes, and read as the peak device memory of one call
-    above its inputs and outputs."""
+    """Kernels 10, 15-17, 18 and 19 at the 0.25° shapes (B = 1, 368x720
+    tokens, 8x128 heads, the 264,960-token FFN), with the scratch of kernels
+    16 and 10: computed from the shapes, and read as the peak device memory
+    of one call above its inputs and outputs."""
     t = _tensor(rng)
     gh, gw = QUARTER_GRID
     heads, d, T = 8, 128, gh * gw
@@ -577,6 +646,12 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         ("swiglu_ffn_bwd_recompute", (t((T, DIM)), t((T, DIM)),
                                       t((2 * HIDDEN, DIM), DIM ** -0.5),
                                       t((DIM, HIDDEN), HIDDEN ** -0.5))),
+        ("swiglu_ffn_int8", (t((T, DIM)), t((2 * HIDDEN, DIM), DIM ** -0.5, torch.float32),
+                             t((DIM, HIDDEN), HIDDEN ** -0.5, torch.float32))),
+        ("matmul_modnorm_residual_int8",
+         (t((1, gh, gw, heads * d)), t((DIM, heads * d), (heads * d) ** -0.5, torch.float32),
+          t((1, gh, gw, DIM)), 1.0 + t((DIM,), 0.1, torch.float32), t((DIM,), 0.1, torch.float32),
+          t((1, DIM), 0.2), t((1, DIM), 0.2))),
     ]
     scratch = {
         "tiled_block_attention_bwd": (tiled_bwd_scratch_bytes(1, gh, gw, heads, d, (16, 16)),
@@ -585,6 +660,11 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     }
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
+        if name in INT8_KERNELS:  # their main path is the flagship forecast: 0.25° beside it
+            _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
+            record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
+                                quarter_bound_ms=fields["bound_ms"])
+            continue
         _merge(record, name, fields, True)
         if name in scratch:
             computed, limit, what = scratch[name]
@@ -606,8 +686,9 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def build_net(depth: int, dtype: torch.dtype, model: dict = MODEL, res=RESOLUTION):
-    return factory.build_precond(PRECOND, {**model, "depth": depth}, res,
+def build_net(depth: int, dtype: torch.dtype, model: dict | None = None, res=None):
+    """The flagship network (``MODEL`` at ``RESOLUTION`` unless given)."""
+    return factory.build_precond(PRECOND, {**(model or MODEL), "depth": depth}, res or RESOLUTION,
                                  len(VARIABLES), len(VARIABLES) + len(FORCINGS), dtype=dtype)
 
 
@@ -1096,6 +1177,135 @@ def phase_quarter_forecast(card: str) -> dict:
     return launches
 
 
+def set_quant(net, mode) -> None:
+    """Switch every block of ``net`` between the bf16 path (None) and the
+    int8 path ("int8"), weights untouched."""
+    for m in net.modules():
+        if hasattr(m, "quant"):
+            m.quant = mode
+
+
+def one_forecast(net, rollout: dict, res):
+    """(one-step sCM forecast at members x batch from fixed draws, each
+    kernel's launches in that forward)."""
+    sampler = sampler_factory("scm", net, num_steps=1, sigma_min=0.02, sigma_max=200.0,
+                              auxiliary=rollout["interval"] / 10.0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cond = torch.randn(rollout["members"] * rollout["batch"], *res,
+                       len(VARIABLES) + len(FORCINGS), generator=gen, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        y = sampler(cond, torch.Generator(device="cuda").manual_seed(8)).float()
+    torch.cuda.synchronize()
+    return y, read_launches()
+
+
+def check_int8_forward(net, rollout: dict, res, want: dict, tag: str, card: str) -> dict:
+    """The int8 network against the bf16 one (the same weights, switched by
+    ``set_quant``) on one forecast step from the same condition and latents:
+    exact launches of the int8 forward (``want``, the others never), the
+    relative RMS of the int8 forecast against the bf16 one, and each
+    forward's device time. Leaves ``net`` on the int8 path."""
+    set_quant(net, None)
+    y_bf16, _ = one_forecast(net, rollout, res)
+    bf16_ms = forward_ms(net, rollout, res)
+    set_quant(net, "int8")
+    y_int8, launches = one_forecast(net, rollout, res)
+    wrong = {k: (n, want.get(k, 0)) for k, n in launches.items() if n != want.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"[{tag}] int8 forward launches (got, expected): {wrong}")
+    rel = ((y_int8 - y_bf16).norm() / y_bf16.norm()).item()
+    log(f"[{tag}] one int8 forward launched {json.dumps({k: n for k, n in launches.items() if n})}"
+        f", the others never; int8 vs bf16 one-step forecast, same weights and draws: relative "
+        f"RMS {rel:.4e} (limit {INT8_RMS_TOL})")
+    if not torch.isfinite(y_int8).all() or not rel <= INT8_RMS_TOL:
+        raise AssertionError(f"[{tag}] int8 forecast off the bf16 one: relative RMS {rel}")
+    int8_ms = forward_ms(net, rollout, res)
+    MB = rollout["members"] * rollout["batch"]
+    log(f"[{tag}] one sCM step (one network forward) at MB={MB}: int8 {int8_ms:.2f} ms, bf16 "
+        f"{bf16_ms:.2f} ms (median of 5, CUDA events) ({card})")
+    return {"rel_rms": rel, "int8_ms": int8_ms, "bf16_ms": bf16_ms}
+
+
+def phase_int8(card: str, model: dict, tag: str):
+    """The int8 forecast (``generate --int8``: the model config's ``quant``
+    set to "int8") at full width with the bf16 forecast's random weights:
+    the int8 forward against the bf16 one, then ``rollout_to_store`` at MB =
+    4 with exact launch counts. Returns (each kernel's launches in the
+    rollout, the store's path)."""
+    net = build_net(model["depth"], torch.bfloat16, {**model, "quant": "int8"})
+    random_weights(net)  # seed 0: the slice phase's weights
+    net = net.cuda().eval()
+    check_int8_forward(net, ROLLOUT, RESOLUTION, INT8_FORWARD, tag, card)
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=10, shape=RESOLUTION, seed=0)
+    timings: dict = {}
+    reset_launches()
+    ofile, wall, n_steps = rollout_to_store(argparse.Namespace(**ROLLOUT), dataset, net,
+                                            os.path.join(WORK, f"{tag}_out"), timings)
+    launches = read_launches()
+    forwards = n_steps // (ROLLOUT["members"] * ROLLOUT["batch"])
+    wrong = {k: (n, INT8_FORWARD.get(k, 0) * forwards) for k, n in launches.items()
+             if n != INT8_FORWARD.get(k, 0) * forwards}
+    if wrong:
+        raise AssertionError(f"[{tag}] int8 rollout launches (got, expected) over {forwards} "
+                             f"forwards: {wrong}")
+    check_store(ofile, ROLLOUT, RESOLUTION, tag)
+    log(f"[{tag}] {n_steps} int8 forecast steps ({forwards} forwards, launches as one forward's "
+        f"times {forwards}) in {wall:.3f} s end to end: {n_steps / wall:.3f} steps/s; store writes "
+        f"{timings['store']:.3f} s ({100 * timings['store'] / wall:.1f}%), input staging "
+        f"{timings['staging']:.3f} s ({card})")
+    del net
+    torch.cuda.empty_cache()
+    return launches, ofile
+
+
+def phase_scoring(bf16_store: str, int8_store: str) -> None:
+    """The port's scoring chain on the flagship stores: ``build_truth_zarr``
+    over the synthetic test split, then ``eval.metrics.evaluate`` of the
+    bf16 and the int8 forecast (the same weights, data and latents). With
+    random weights these are the differences between two random forecasts,
+    not skill."""
+    t0 = time.perf_counter()
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=10, shape=RESOLUTION, seed=0)
+    truth = build_truth_zarr(dataset, os.path.join(WORK, "truth.zarr"))
+    with contextlib.redirect_stdout(io.StringIO()):  # its headline lines, summarised below
+        scores = {k: metrics.evaluate(truth, path, "cuda")
+                  for k, path in (("bf16", bf16_store), ("int8", int8_store))}
+    if sorted(scores["bf16"]) != sorted(scores["int8"]) or not all(
+            np.isfinite(v) for sc in scores.values() for v in sc.values()):
+        raise AssertionError("the two stores' scores differ in keys or are not finite")
+    leads = sorted({k.rsplit("_", 1)[1] for k in scores["bf16"]} - {"0h"},
+                   key=lambda h: int(h[:-1]))
+    log(f"[scoring] truth store and evaluate of both stores: {len(scores['bf16'])} metrics each, "
+        f"leads {leads} ({time.perf_counter() - t0:.1f} s)")
+    for m in ("rmse", "crps"):
+        keys = [k for k in scores["bf16"] if k.startswith(m + "_") and not k.endswith("_0h")]
+        rel = np.array([scores["int8"][k] / scores["bf16"][k] - 1.0 for k in keys])
+        head = {f"{v}_{leads[-1]}": (scores["bf16"][f"{m}_{v}_{leads[-1]}"],
+                                      scores["int8"][f"{m}_{v}_{leads[-1]}"])
+                for v in ("geopotential_500", "2m_temperature")}
+        log(f"[scoring] {m}, int8 against bf16 over {len(keys)} (variable, lead) pairs: mean "
+            f"{100 * rel.mean():+.4f}%, range {100 * rel.min():+.4f}% .. {100 * rel.max():+.4f}%; "
+            f"(bf16, int8) {json.dumps(head)} -- two random-weight forecasts, not skill")
+
+
+def phase_quarter_int8(card: str) -> dict:
+    """One full-width int8 network forward of the 0.25° configuration: the
+    tiled route with kernels 18 and 19, against the bf16 forward."""
+    t0 = time.perf_counter()
+    net = build_net(QUARTER_MODEL["depth"], torch.bfloat16, {**QUARTER_MODEL, "quant": "int8"},
+                    QUARTER_RES)
+    random_weights(net)
+    net = net.cuda().eval()
+    log(f"[quarter-int8] {QUARTER_EXPERIMENT} with quant=int8 (set-up "
+        f"{time.perf_counter() - t0:.1f} s)")
+    out = check_int8_forward(net, QUARTER_ROLLOUT, QUARTER_RES, QUARTER_INT8_FORWARD,
+                             "quarter-int8", card)
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Every kernel wrapper takes its plain PyTorch version for CUDA tensors
@@ -1116,21 +1326,27 @@ def main() -> int:
     record = phase_kernels()
     try:
         forecast = phase_slice(card)
+        int8, int8_store = phase_int8(card, MODEL, "int8")
+        phase_int8(card, HD128_MODEL, "int8-hd128")
+        phase_scoring(os.path.join(WORK, "out", os.path.basename(int8_store)), int8_store)
         trigflow, cfg, trained = phase_train(card)
         phase_grad_cut(cfg, trained)
         launches, cfg, trained = phase_scm(card, SCM)
         phase_scm_cut(cfg, trained, SCM)
         del trained
         quarter_forecast = phase_quarter_forecast(card)
+        phase_quarter_int8(card)
         quarter, cfg, trained = phase_scm(card, QUARTER_SCM)
         phase_scm_cut(cfg, trained, QUARTER_SCM)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    log(f"[train] launches: forecast {forecast}, TrigFlow training {trigflow}, "
-        f"sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM training "
-        f"{quarter}")
-    # each kernel's launches on its main path: the 1.4° sCM step, or the 0.25° one
-    launches = {k: quarter[k] if k in QUARTER_KERNELS else n for k, n in launches.items()}
+    log(f"[train] launches: forecast {forecast}, int8 forecast {int8}, TrigFlow training "
+        f"{trigflow}, sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
+        f"training {quarter}")
+    # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, or the
+    # int8 forecast
+    launches = {k: quarter[k] if k in QUARTER_KERNELS else int8[k] if k in INT8_KERNELS else n
+                for k, n in launches.items()}
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in
                          ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
     if jax_modules:

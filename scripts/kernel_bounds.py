@@ -12,7 +12,7 @@ cores at 989 TFLOP/s and int8 at 1979 TOP/s. The window-tiled kernels (15–17)
 and the per-(window, head) kernels (21–22) compute the functions of
 kernels 2, 6 and 7 for other grids and layouts, so their work at the
 flagship shapes is the same. A second table gives the rows the 0.25°
-configuration runs (10, 15–17) at its shapes: B = 1, 368×720 tokens (the
+configuration runs (10, 15–19) at its shapes: B = 1, 368×720 tokens (the
 721×1440 grid edge-padded to 736 rows, patch 2), 8 heads × 128. Pure
 arithmetic: no device is needed, and ``chip_smoke.py`` computes the same
 bounds for the kernels it runs.
@@ -58,6 +58,11 @@ QUARTER_ROWS = [
      attention(5, 4, 3, QUARTER_T, QUARTER_INNER), "bf16"),
     (17, "pallas_block_attention.py:865 _tiled_tangent_call",
      attention(5, 6, 1, QUARTER_T, QUARTER_INNER), "bf16"),
+    (18, "pallas_ffn.py:521 fused_swiglu_ffn_int8", ffn(3, 1, 1, weights=0.5, tokens=QUARTER_T),
+     "int8"),
+    (19, "pallas_modnorm.py:366 fused_matmul_modnorm_residual_int8",
+     (2 * QUARTER_T * QUARTER_INNER * D, act(QUARTER_INNER, tokens=QUARTER_T) + QUARTER_INNER * D
+      + 2 * act(D, tokens=QUARTER_T)), "int8"),
 ]
 
 ROWS = [

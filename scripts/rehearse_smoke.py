@@ -1,4 +1,5 @@
-"""Rehearse ``chip_smoke.py``'s 0.25° phases and its sCM slices on the CPU.
+"""Rehearse ``chip_smoke.py``'s 0.25° phases, its sCM slices and its int8
+forecast and scoring phases on the CPU.
 
     python scripts/rehearse_smoke.py
 
@@ -8,6 +9,10 @@ functions with every wrapper on its plain PyTorch version at a tiny width
 0.25°, 16x32 at 1.4°): ``.cuda()`` and ``torch.cuda.*`` are stubbed, the
 timer returns 1 ms, and the launch counts read back what each phase
 expects. It finds wrong paths, shapes and control flow before a chip call.
+The int8 phases (the flagship's bf16 forecast, its int8 forecast at two
+head layouts, the scoring of both stores, the 0.25° int8 forward) read real
+counts instead: every kernel wrapper the model calls adds one to its count
+as it would on the card.
 The cuts compare the plain path in bf16 against fp32, so their errors are
 the bf16 rounding of the plain path at width 32, not the kernels'; their
 limits are opened to 0.5 here. No number it prints is a device number.
@@ -55,7 +60,54 @@ def stub_the_card() -> None:
     cs.profile_step = lambda *a, **k: print("[rehearsal] profile step skipped")
 
 
+def count_calls() -> None:
+    """Each kernel wrapper the model calls adds one to its launch count, as
+    its kernel launch does on the card (on the CPU the wrappers count
+    nothing)."""
+    import swift_torch.models.swinv2 as sw
+
+    for name in ("fused_block_attention", "fused_tiled_block_attention", "fused_linear",
+                 "fused_matmul_modnorm_residual", "fused_matmul_modnorm_residual_int8",
+                 "fused_modnorm_residual", "fused_swiglu_ffn", "fused_swiglu_ffn_int8"):
+        fn = getattr(sw, name)
+
+        def counted(*a, _fn=fn, **k):
+            _fn.launches += 1
+            return _fn(*a, **k)
+
+        setattr(sw, name, counted)
+
+
+def rehearse_int8(read_launches) -> None:
+    """The flagship forecast, the int8 forecast at both head layouts, the
+    scoring of the bf16 and int8 stores, and the 0.25° int8 forward, at
+    width 32 with every block on its real route."""
+    cs.read_launches = read_launches
+    count_calls()
+    cs.RESOLUTION = (16, 32)
+    cs.MODEL = {**cs.MODEL, **TINY, "window_size": [4, 8], "shift_size": [2, 0]}  # whole-grid
+    cs.HD128_MODEL = {**cs.MODEL, "heads": 4, "head_dim": 8}
+    depth = TINY["depth"]
+    cs.INT8_FORWARD = {k: depth for k in cs.INT8_FORWARD}
+    # the tiny 0.25° grid takes the whole-grid route for the unshifted block
+    cs.QUARTER_INT8_FORWARD = {**{k: depth for k in cs.QUARTER_INT8_FORWARD},
+                               "tiled_block_attention": 1, "block_attention": 1}
+    evaluate = cs.metrics.evaluate
+    cs.metrics.evaluate = lambda truth, pred, device: evaluate(truth, pred, "cpu")
+    generator = torch.Generator
+    torch.Generator = lambda device=None: generator()
+    try:
+        cs.phase_slice("CPU rehearsal")
+        _, store = cs.phase_int8("CPU rehearsal", cs.MODEL, "int8")
+        cs.phase_int8("CPU rehearsal", cs.HD128_MODEL, "int8-hd128")
+        cs.phase_scoring(os.path.join(cs.WORK, "out", os.path.basename(store)), store)
+        cs.phase_quarter_int8("CPU rehearsal")
+    finally:
+        torch.Generator = generator
+
+
 def main() -> None:
+    read_launches = cs.read_launches
     stub_the_card()
     cs.QUARTER_RES, cs.QUARTER_GRID = (30, 64), (16, 32)
     cs.QUARTER_MODEL = {**cs.QUARTER_MODEL, **TINY}
@@ -89,6 +141,8 @@ def main() -> None:
         expected.update({k: sl.cut["steps"] * sl.per_step.get(k, 0) for k in kernels})
         _, cfg, trained = cs.phase_scm("CPU rehearsal", sl)
         print(cs.phase_scm_cut(cfg, trained, sl))
+
+    rehearse_int8(read_launches)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,13 @@
 //   residual epilogue from there: the (T, D) product never reaches device
 //   memory. Bound by the tensor cores on the product; the epilogue is one
 //   read of r and one write of out.
+//
+// swift_mm_modnorm_int8 -- replaces swift_tpu/ops/pallas_modnorm.py::
+//   fused_matmul_modnorm_residual_int8 (kernel body _mm_mn_q_kernel), kernel
+//   19 of the int8 forecast: swift_mm_modnorm with y = (int8(x) . Wq^T) * sx *
+//   sw, x quantized per token inside the block (see mm_modnorm_i8_kernel).
+//   Bound by the bytes it moves (2 * T * 1056 * 2 + T * inner * 2), ~0.03 ms
+//   at T = 16,384: the int8 product is cheap at 1979 TOP/s.
 #include "tile_mma.cuh"
 
 namespace swift {
@@ -144,6 +151,84 @@ __global__ void __launch_bounds__(MnMma::NT)
   }
 }
 
+// Kernel 19: int8 wo + modnorm. Kernel 3's design with the int8 main loop:
+// the block quantizes its 32 x rows whole (all K = inner columns, the row
+// abs-max before any product) into a resident k-chunk-major int8 tile, walks
+// D in 128-column tiles of the int8 weight, parks each int32 tile in the
+// 32 x D accumulator (135 KB at D = 1056) and rescales y = (acc * sx) * sw in
+// fp32 in the epilogue. The TPU kernel pads the 12 x 88 attention output to
+// 12 x 128 lanes with zeros; here it is 1056 wide: zero lanes change neither
+// a row's abs-max nor the products.
+constexpr int kMnQBK = 64;
+using MnQMma = TileMmaI8<kMnBM, kMnBN, kMnQBK, 2, 4>;
+
+__host__ __device__ constexpr int mm_modnorm_i8_smem(int K, int D) {
+  return kMnBM * (D + 4) * 4 + round128(kMnBM * K) + MnQMma::SMEM + kMnBM * 4;
+}
+
+__global__ void __launch_bounds__(MnQMma::NT)
+    mm_modnorm_i8_kernel(const bf16* __restrict__ X, const signed char* __restrict__ Wq,
+                         const float* __restrict__ sw, const bf16* __restrict__ R,
+                         const float* __restrict__ g, const float* __restrict__ b,
+                         const bf16* __restrict__ msc, const bf16* __restrict__ msh,
+                         bf16* __restrict__ out, int M, int K, int D, int tps, float eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int lda = D + 4;
+  int* accS = reinterpret_cast<int*>(smem_raw);
+  signed char* xq = reinterpret_cast<signed char*>(smem_raw + kMnBM * lda * 4);
+  signed char* bs = xq + round128(kMnBM * K);
+  float* sx = reinterpret_cast<float*>(bs + MnQMma::SMEM);
+  const int m0 = blockIdx.x * kMnBM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wm = warp / 4, wn = warp % 4;
+
+  quantize_rows<kMnBM, MnQMma::NT>(xq, sx, X, m0, M, K);
+  __syncthreads();
+  for (int n0 = 0; n0 < D; n0 += kMnBN) {
+    MnQMma::Acc acc[MnQMma::FM][MnQMma::FN];
+    MnQMma::run(
+        acc, xq, bs,
+        [=](int r) -> const signed char* {
+          return n0 + r < D ? Wq + (size_t)(n0 + r) * K : nullptr;
+        },
+        Wq, K);
+#pragma unroll
+    for (int j = 0; j < MnQMma::FN; ++j) {
+      const int col = n0 + wn * MnQMma::FN * 16 + j * 16;
+      if (col < D)
+        wmma::store_matrix_sync(accS + (wm * 16) * lda + col, acc[0][j], lda, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+
+  // epilogue, one warp per row, as kernel 3's with y = (acc * sx) * sw
+  const float inv_d = 1.0f / (float)D;
+  for (int r = warp; r < kMnBM; r += MnQMma::NT / 32) {
+    const int gr = m0 + r;
+    if (gr >= M) break;
+    const int* yi = accS + r * lda;
+    const float s_x = sx[r];
+    float s = 0.f, ss = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float v = ((float)yi[c] * s_x) * sw[c];
+      s += v;
+      ss += v * v;
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s * inv_d;
+    const float rs = rsqrtf(ss * inv_d - mu * mu + eps);
+    const size_t bi = (size_t)(gr / tps) * D;
+    const size_t ro = (size_t)gr * D;
+    for (int c = lane; c < D; c += 32) {
+      const float y = ((float)yi[c] * s_x) * sw[c];
+      const float ln = (y - mu) * rs * g[c] + b[c];
+      float o = ln * (1.0f + __bfloat162float(msc[bi + c])) + __bfloat162float(msh[bi + c]);
+      o = o + __bfloat162float(R[ro + c]);
+      out[ro + c] = __float2bfloat16_rn(o);
+    }
+  }
+}
+
 }  // namespace swift
 
 using namespace swift;
@@ -179,6 +264,22 @@ extern "C" int swift_mm_modnorm(const void* x, const void* w, const void* r, con
   mm_modnorm_kernel<<<(M + kMnBM - 1) / kMnBM, MnMma::NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)r, (const float*)g, (const float*)b,
       (const bf16*)msc, (const bf16*)msh, (bf16*)out, M, K, D, tps, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int swift_mm_modnorm_int8_smem(int K, int D) { return mm_modnorm_i8_smem(K, D); }
+
+// x (M, K) bf16; wq (D, K) int8 with per-row fp32 scales sw (D,); the rest
+// as swift_mm_modnorm. K % 16 == 0, D % 16 == 0.
+extern "C" int swift_mm_modnorm_int8(const void* x, const void* wq, const void* sw, const void* r,
+                                     const void* g, const void* b, const void* msc,
+                                     const void* msh, void* out, int M, int K, int D, int tps,
+                                     float eps, void* stream) {
+  const int smem = mm_modnorm_i8_smem(K, D);
+  cudaFuncSetAttribute(mm_modnorm_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  mm_modnorm_i8_kernel<<<(M + kMnBM - 1) / kMnBM, MnQMma::NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const signed char*)wq, (const float*)sw, (const bf16*)r, (const float*)g,
+      (const float*)b, (const bf16*)msc, (const bf16*)msh, (bf16*)out, M, K, D, tps, eps);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 Counterpart of ``swift_tpu/factory.py`` for the ported pieces: the same
 ``_target_`` suffixes and config keys, so a run's saved config builds the
 same network in either package. Ported: SwinV2 (learned or factorized
-position embedding) under PassPrecond over the ERA5 dataset, the TrigFlow
+position embedding, ``quant="int8"`` for the int8 forecast) under
+PassPrecond over the ERA5 dataset, the TrigFlow
 and sCM losses, Adam/AdamW with the reference's decay grouping, and Muon
 with aux-Adam by the JAX package's labels, each with the reference lr
 schedule. Any other target raises.
@@ -54,8 +55,6 @@ def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels:
     target = _suffix(cfg.pop("_target_", "SwinV2"))
     if target != "SwinV2":
         raise ValueError(f"model target {target!r} is not ported (only SwinV2)")
-    if cfg.get("quant"):
-        raise ValueError("int8 inference is not ported")
     return SwinV2(
         img_resolution=tuple(img_resolution),
         in_channels=in_channels,
@@ -72,6 +71,7 @@ def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels:
         timestep_weight=float(cfg.get("timestep_weight", 1.0)),
         dtype=dtype,
         pos_embed_mode=str(cfg.get("pos_embed_mode", "learned")),
+        quant=cfg.get("quant") or None,
     )
 
 

@@ -7,8 +7,9 @@ the checkpoint's EMA weights (JAX npz layout); :func:`rollout_to_store`
 takes an already built dataset and network and needs neither yaml nor h5py.
 The network runs on the GPU (``--device cuda``, the default) and raises
 where CUDA is absent; the CPU is used only when asked for (``--device
-cpu``). Not ported yet: ``--pp``, ``--int8`` and the solvers other than
-``scm``.
+cpu``). ``--int8`` builds the network with ``quant="int8"`` (the int8 qkv
+product and kernels 18 and 19). Not ported yet: ``--pp`` and the solvers
+other than ``scm``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ parser.add_argument("--segment", type=int, default=10,
 parser.add_argument("--solver", type=str, default="scm", choices=["scm"])
 parser.add_argument("--num-solver-steps", type=int, default=1)
 parser.add_argument("--seed", type=int, default=0)
+parser.add_argument("--int8", action="store_true",
+                    help="Dynamically-quantized int8 qkv/FFN/wo matmuls for the "
+                    "forecast. Accuracy-affecting: opt-in until a real-data "
+                    "RMSE/CRPS A/B blesses it.")
 parser.add_argument("--output", type=str, default=None,
                     help="Output directory (default: <input>/output/<checkpoint>/)")
 parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -107,12 +112,14 @@ def select_indices(n: int, samples: int, steps: int, interval: int) -> list[int]
     return np.linspace(0, n - 1 - (steps * interval // 6), num=samples, dtype=int).tolist()
 
 
-def rollout_to_store(args, dataset, net, odir: str):
+def rollout_to_store(args, dataset, net, odir: str, timings: dict | None = None):
     """Roll the ensemble out over the dataset's test ICs into a store.
 
     ``dataset`` has the ``ERA5Dataset`` interface; ``net`` is a built
     precond with weights, on its device. Returns (store path, rollout
-    seconds, forecast steps)."""
+    seconds, forecast steps); ``timings``, when given, receives the host
+    seconds of the rollout spent staging inputs ("staging") and writing the
+    store ("store")."""
     device = next(net.parameters()).device
     indices = select_indices(len(dataset), args.samples, args.steps, args.interval)
     subset = AttributeSubset(dataset, indices)
@@ -135,7 +142,8 @@ def rollout_to_store(args, dataset, net, odir: str):
         return dataset.standardize_x(dataset.get_forcings(j), args.interval)
 
     # host seconds spent staging inputs and writing the store, of the wall
-    host = {"staging": 0.0, "store": 0.0}
+    host = timings if timings is not None else {}
+    host.update(staging=0.0, store=0.0)
 
     def timed_write(*chunk_args):
         t0 = time.perf_counter()
@@ -177,6 +185,8 @@ def main(args):
     dataset = factory.build_dataset(cfg["data"], split="test")
 
     log0("Constructing network...")
+    if args.int8:
+        cfg.setdefault("model", {})["quant"] = "int8"
     net = factory.build_precond(
         cfg["precond"], cfg["model"], dataset.img_resolution, dataset.n_target_channels,
         dataset.n_condition_channels, sigma_max_override=float("inf"),

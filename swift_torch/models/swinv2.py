@@ -37,6 +37,15 @@ WB2 grid's 721 rows) is edge-padded toward the pole inside the model and
 the output cropped back; ``pos_embed_mode="factorized"`` replaces the
 (gh·gw, dim) position table by a row and a column table summed in
 ``dtype``.
+
+``quant="int8"`` is the JAX model's dynamically quantized inference path
+(``generate --int8``): outside ``jvp`` the qkv projection is
+:func:`swift_torch.ops.quant.int8_matmul` rounded to ``dtype`` (a library
+int8 product, as the JAX package leaves it to XLA), wo with the post-norm
+and residual is kernel 19, and the FFN kernel 18 followed by kernel 4; the
+attention kernels are unchanged. Weights are quantized in every forward
+from the fp32 parameters (never from their ``dtype`` copies). The int8
+wrappers are inference-only and raise while autograd records.
 """
 
 from __future__ import annotations
@@ -55,10 +64,15 @@ from swift_torch.ops.block_attention import (
     fused_tiled_block_attention,
     per_head_window_attention,
 )
+from swift_torch.ops import quant as quantlib
 from swift_torch.ops.embeddings import timestep_embedding
-from swift_torch.ops.ffn import fused_swiglu_ffn
+from swift_torch.ops.ffn import fused_swiglu_ffn, fused_swiglu_ffn_int8
 from swift_torch.ops.linear import fused_linear
-from swift_torch.ops.modnorm import fused_matmul_modnorm_residual, fused_modnorm_residual
+from swift_torch.ops.modnorm import (
+    fused_matmul_modnorm_residual,
+    fused_matmul_modnorm_residual_int8,
+    fused_modnorm_residual,
+)
 
 
 def _as_2tuple(v) -> tuple[int, int]:
@@ -99,12 +113,16 @@ class WindowAttention(nn.Module):
     """qkv projection -> shifted-window cosine attention -> wo projection,
     post-norm and residual (kernels 1, 2 and 3; under a jvp kernels 14, 2
     with 7, a plain wo product, and the modnorm epilogue; kernels 15, 16
-    and 17 in place of 2, 6 and 7 on the tiled route)."""
+    and 17 in place of 2, 6 and 7 on the tiled route; with ``quant="int8"``
+    outside a jvp, the int8 qkv product and kernel 19 in place of 1 and
+    3)."""
 
-    def __init__(self, dim, heads, head_dim, window_size, shift=(0, 0)):
+    def __init__(self, dim, heads, head_dim, window_size, shift=(0, 0),
+                 quant: Optional[str] = None):
         super().__init__()
         self.heads, self.head_dim = heads, head_dim
         self.window_size, self.shift = tuple(window_size), tuple(shift)
+        self.quant = quant
         inner = heads * head_dim
         self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
         self.scale = nn.Parameter(torch.full((1, heads, 1, 1), math.log(10.0)))
@@ -113,7 +131,13 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, jvp: bool = False) -> torch.Tensor:
         dt = x.dtype
-        w_qkv = self.to_qkv.weight.to(dt)
+        int8 = self.quant == "int8" and not jvp
+
+        def project(a):
+            if int8:  # from the fp32 parameter, rounded to dtype as the JAX model does
+                return quantlib.int8_matmul(a, self.to_qkv.weight).to(dt)
+            return fused_linear(a, self.to_qkv.weight.to(dt))
+
         s = torch.exp(torch.clamp(self.scale.reshape(-1), max=math.log(100.0)))
         route = attention_route(tuple(x.shape[1:3]), self.window_size, self.shift, self.heads,
                                 self.heads * self.head_dim)
@@ -123,19 +147,22 @@ class WindowAttention(nn.Module):
             # instead of the 3·inner-wide qkv
             sh, sw = self.shift
             xr = torch.roll(x, (-sh, -sw), (1, 2)) if sh or sw else x
-            out = fused_tiled_block_attention(fused_linear(xr, w_qkv), s, self.heads,
-                                              self.window_size)
+            out = fused_tiled_block_attention(project(xr), s, self.heads, self.window_size)
             if sh or sw:
                 out = torch.roll(out, (sh, sw), (1, 2))
         else:
             attend = fused_block_attention if route == "block" else per_head_window_attention
-            out = attend(fused_linear(x, w_qkv), s, self.heads, self.window_size, self.shift)
+            out = attend(project(x), s, self.heads, self.window_size, self.shift)
         if jvp:
             # the JAX model's jvp path: wo as a plain product rounded to dtype
             # (kernel 3 keeps it in fp32), then the post-norm epilogue
             y = F.linear(out, self.wo.weight.to(dt))
             return self.norm.epilogue(y, x, cond)
         g, b, scale, shift = self.norm.pieces(cond)
+        if int8:
+            return fused_matmul_modnorm_residual_int8(
+                out, self.wo.weight, x, g, b, scale, shift, self.norm.eps
+            )
         return fused_matmul_modnorm_residual(
             out, self.wo.weight.to(dt), x, g, b, scale, shift, self.norm.eps
         )
@@ -143,17 +170,22 @@ class WindowAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """SwiGLU feed-forward, post-norm and residual (kernels 5 and 4; for
-    dual inputs kernels 11, 4 and 12)."""
+    dual inputs kernels 11, 4 and 12; with ``quant="int8"`` outside a jvp,
+    kernels 18 and 4)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, quant: Optional[str] = None):
         super().__init__()
         self.w1 = nn.Linear(dim, 2 * hidden_dim, bias=False)
         self.w2 = nn.Linear(hidden_dim, dim, bias=False)
         self.norm = ModulatedNorm(dim)
+        self.quant = quant
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        y = fused_swiglu_ffn(x, self.w1.weight.to(dt), self.w2.weight.to(dt))
+    def forward(self, x: torch.Tensor, cond: torch.Tensor, jvp: bool = False) -> torch.Tensor:
+        if self.quant == "int8" and not jvp:
+            y = fused_swiglu_ffn_int8(x, self.w1.weight, self.w2.weight)
+        else:
+            dt = x.dtype
+            y = fused_swiglu_ffn(x, self.w1.weight.to(dt), self.w2.weight.to(dt))
         return self.norm.epilogue(y, x, cond)
 
 
@@ -189,7 +221,8 @@ class SwinV2(nn.Module):
     (B, H, W, in_channels) NHWC; t () / (1,) / (B,) timesteps; auxiliary (B,
     auxiliary_dim). Returns (B, H, W, out_channels) fp32, and the (B,)
     logvar head output when ``return_logvar``. ``jvp`` selects the
-    forward-mode path (see the module docstring).
+    forward-mode path and ``quant="int8"`` the int8 inference path (see the
+    module docstring).
     """
 
     def __init__(
@@ -210,6 +243,7 @@ class SwinV2(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         remat_layers: bool = True,
         pos_embed_mode: str = "learned",
+        quant: Optional[str] = None,
     ):
         super().__init__()
         H, W = _as_2tuple(img_resolution)
@@ -219,6 +253,9 @@ class SwinV2(nn.Module):
             raise ValueError(f"longitude {W} must divide by patch x window {pw * ww}")
         if pos_embed_mode not in ("learned", "factorized"):
             raise ValueError(f"pos_embed_mode {pos_embed_mode!r}: learned or factorized")
+        if quant not in (None, "int8"):
+            raise ValueError(f"quant {quant!r}: None or 'int8'")
+        self.quant = quant
         self.img_resolution = (H, W)
         self.patch_size = (ph, pw)
         self.lat_pad = (-H) % (ph * wh)  # edge rows added toward the pole
@@ -246,8 +283,8 @@ class SwinV2(nn.Module):
         self.transformer = _Transformer(
             nn.ModuleList([
                 WindowAttention(dim, heads, head_dim, (wh, ww),
-                                (sh, sw) if (sh or sw) and i % 2 else (0, 0)),
-                FeedForward(dim, hidden),
+                                (sh, sw) if (sh or sw) and i % 2 else (0, 0), quant=quant),
+                FeedForward(dim, hidden, quant=quant),
             ])
             for i in range(depth)
         )
@@ -304,7 +341,7 @@ class SwinV2(nn.Module):
                     self._pair, h, cond_c, j, use_reentrant=True, preserve_rng_state=False)
         else:
             for attn, ff in layers:
-                h = ff(attn(h, cond_c, jvp), cond_c)
+                h = ff(attn(h, cond_c, jvp), cond_c, jvp)
 
         # output head, (c, p1, p2) feature order as the reference
         o = F.linear(h, self.head.head[0].weight.to(dt))

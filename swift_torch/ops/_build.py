@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from swift_torch.ops import jvp_guard
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = [
@@ -50,6 +52,10 @@ _SIGNATURES = {
     "swift_tiled_attention_tangent": [_P] * 4 + [_I] * 7 + [_P],
     "swift_ffn_bwd_recompute": [_P] * 13 + [_I, _I, _I, _P],
     "swift_ffn_bwd_chunk": [],
+    "swift_ffn_int8": [_P] * 6 + [_I, _I, _I, _P],
+    "swift_ffn_int8_smem": [_I, _I],
+    "swift_mm_modnorm_int8": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "swift_mm_modnorm_int8_smem": [_I, _I],
     "swift_max_smem": [],
     "swift_error_string": [_I],
 }
@@ -159,6 +165,15 @@ def recording(*tensors: torch.Tensor) -> bool:
     then takes its ``torch.autograd.Function``; otherwise it launches (or
     runs the plain version of) the forward alone."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_autograd(kernel: str, **tensors: torch.Tensor) -> None:
+    """The int8 kernels are inference-only, as their Pallas counterparts have
+    no vjp or jvp rule: raise on a dual tensor or while autograd records."""
+    jvp_guard.refuse_tangents(kernel, **tensors)
+    if recording(*tensors.values()):
+        raise RuntimeError(f"{kernel} is inference-only (no backward): call it under "
+                           "torch.no_grad() or with inputs that do not require grad")
 
 
 def check_dtype(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:

@@ -1,7 +1,8 @@
 """SwiGLU feed-forward ``(silu(x·Wg) ⊙ x·Wu)·W2`` (kernel 5), the forward
 that saves gate and up (kernel 8), the backward from them (kernel 9), the
-backward that recomputes them (kernel 10) and the primal + tangent of the
-sCM jvp forward (kernel 11).
+backward that recomputes them (kernel 10), the primal + tangent of the
+sCM jvp forward (kernel 11) and the int8 FFN of the inference path
+(kernel 18).
 
 CUDA kernels: ``csrc/ffn.cu::swift_ffn``, which replaces
 ``swift_tpu/ops/pallas_ffn.py::_ffn_call`` (the (tokens, 2·hidden) gate/up
@@ -12,7 +13,8 @@ swift_ffn_bwd_recompute``, which replaces ``_ffn_bwd_call`` (gate and up
 recomputed from x, nothing (tokens, hidden)-shaped in device memory beyond
 a chunk of tokens); ``csrc/ffn.cu::swift_ffn_pt``,
 which replaces ``_ffn_pt_call`` (y and dy with gate and up computed once
-and shared). Weights are in the torch
+and shared); ``csrc/ffn_int8.cu::swift_ffn_int8``, which replaces
+``fused_swiglu_ffn_int8`` (body ``_ffn_q_kernel``). Weights are in the torch
 ``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows first and the up
 rows second (the reference chunk order), ``w2`` (D, H).
 
@@ -31,7 +33,7 @@ import torch
 from torch.autograd import forward_ad
 import torch.nn.functional as F
 
-from swift_torch.ops import _build, jvp_guard
+from swift_torch.ops import _build, jvp_guard, quant
 
 
 def reference_swiglu_ffn(x, w1, w2):
@@ -345,7 +347,55 @@ def fused_swiglu_ffn(x, w1, w2):
     return _ffn(x, w1, w2, save=False)
 
 
+def reference_swiglu_ffn_int8(x, w1, w2):
+    """Plain version of kernel 18, the JAX package's mirror
+    ``reference_swiglu_ffn_int8``: g, u = int8(x)·int8(Wg|Wu)ᵀ rescaled in
+    fp32, h = g·sigmoid(g)·u in fp32 (``F.silu`` differs in the last bits),
+    y = int8(h)·int8(W2)ᵀ rescaled, returned in x.dtype. The weights are
+    quantized from what is passed (the model passes its fp32 parameters)."""
+    H = w2.shape[1]
+    g = quant.int8_matmul(x, w1[:H])
+    u = quant.int8_matmul(x, w1[H:])
+    h = g * torch.sigmoid(g) * u
+    return quant.int8_matmul(h, w2).to(x.dtype)
+
+
+def fused_swiglu_ffn_int8(x, w1, w2):
+    """Dynamically quantized int8 SwiGLU FFN, inference only. x: (..., D);
+    w1: (2H, D) gate rows then up rows; w2: (D, H), float (the model passes
+    its fp32 parameters). Returns (..., D) in x.dtype.
+
+    CPU tensors take :func:`reference_swiglu_ffn_int8`. CUDA tensors: the
+    weights are quantized here in PyTorch, one scale per output feature
+    (:func:`quant.quantize_colwise`, as the JAX caller does outside its
+    kernel), then kernel 18 quantizes x and h per token; x bf16, D and H
+    multiples of 16. Raises while autograd records and on dual tensors."""
+    name = "fused_swiglu_ffn_int8"
+    _build.refuse_autograd(name, x=x, w1=w1, w2=w2)
+    if _build.on_cpu(x, w1, w2):
+        return reference_swiglu_ffn_int8(x, w1, w2)
+    _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2)
+    _build.check_dtype(name, torch.bfloat16, x=x)
+    D, H = _check(name, x, w1, w2)
+    if H % 16:
+        raise ValueError(f"{name}: H={H} must be a multiple of 16")
+    lib = _build.library()
+    if lib.swift_ffn_int8_smem(D, H) > lib.swift_max_smem():
+        raise ValueError(f"{name}: D={D}, H={H} need more shared memory than a block has")
+    w1q, s1 = quant.quantize_colwise(w1)
+    w2q, s2 = quant.quantize_colwise(w2)
+    y = torch.empty_like(x)
+    _build.check_launch(
+        lib.swift_ffn_int8(x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), w2q.data_ptr(),
+                           s2.data_ptr(), y.data_ptr(), x.numel() // D, D, H, _build.stream()),
+        name,
+    )
+    fused_swiglu_ffn_int8.launches += 1
+    return y
+
+
 fused_swiglu_ffn.launches = 0
+fused_swiglu_ffn_int8.launches = 0
 swiglu_ffn_fwd_save.launches = 0
 swiglu_ffn_bwd_saved.launches = 0
 swiglu_ffn_bwd_recompute.launches = 0

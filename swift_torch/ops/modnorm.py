@@ -1,5 +1,6 @@
-"""Post-norm AdaLN epilogues with the residual add (kernels 3 and 4), and
-the forward-mode tangent of kernel 4's epilogue (kernel 12).
+"""Post-norm AdaLN epilogues with the residual add (kernels 3 and 4), the
+forward-mode tangent of kernel 4's epilogue (kernel 12) and the int8 wo
+product with the epilogue (kernel 19).
 
 ``residual + (LN(y)·g + b)·(1 + scale_b) + shift_b`` with fp32 statistics,
 the variance taken as E[y²] − μ² as the TPU kernels take it, and the AdaLN
@@ -8,6 +9,10 @@ row ``b`` picked per sample.
 * :func:`fused_matmul_modnorm_residual` computes y = x·wo.T inside the
   kernel. CUDA: ``csrc/gemm.cu::swift_mm_modnorm``, replacing
   ``swift_tpu/ops/pallas_modnorm.py::_mm_mn_call``.
+* :func:`fused_matmul_modnorm_residual_int8` is kernel 3's function with
+  y = int8(x)·int8(wo)ᵀ, inference only. CUDA: ``csrc/gemm.cu::
+  swift_mm_modnorm_int8``, replacing ``swift_tpu/ops/pallas_modnorm.py::
+  fused_matmul_modnorm_residual_int8`` (body ``_mm_mn_q_kernel``).
 * :func:`fused_modnorm_residual` takes y ready-made (after the FFN).
   Triton: :func:`_modnorm_kernel`, replacing
   ``swift_tpu/ops/pallas_modnorm.py::_call``. It does about ten FLOPs for
@@ -42,7 +47,7 @@ import os
 import torch
 from torch.autograd import forward_ad
 
-from swift_torch.ops import _build, jvp_guard
+from swift_torch.ops import _build, jvp_guard, quant
 
 
 def reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
@@ -196,6 +201,59 @@ def _matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps):
 
 
 fused_matmul_modnorm_residual.launches = 0
+
+
+def reference_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale, mod_shift,
+                                           eps=1e-6):
+    """Plain version of kernel 19, the JAX package's mirror: y =
+    :func:`quant.int8_matmul` (x, w) kept in fp32, then the epilogue."""
+    y = quant.int8_matmul(x, w)
+    return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+
+
+def fused_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale, mod_shift, eps=1e-6):
+    """``residual + modnorm(int8(x) @ int8(w).T)``, inference only. x: (B, ...,
+    K); w: (D, K) float (the model passes its fp32 parameter); residual: (B,
+    ..., D). Returns residual.dtype.
+
+    CPU tensors take :func:`reference_matmul_modnorm_residual_int8`. CUDA
+    tensors: w is quantized here, one scale per output feature, then kernel
+    19 quantizes x per token; x bf16 (g, b fp32), K and D multiples of 16.
+    Raises while autograd records and on dual tensors."""
+    name = "fused_matmul_modnorm_residual_int8"
+    _build.refuse_autograd(name, x=x, w=w, residual=residual, g=g, b=b, mod_scale=mod_scale,
+                           mod_shift=mod_shift)
+    if _build.on_cpu(x, w, residual, g, b, mod_scale, mod_shift):
+        return reference_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale,
+                                                      mod_shift, eps)
+    _build.check_kernel_inputs(name, x=x, w=w, residual=residual, g=g, b=b,
+                               mod_scale=mod_scale, mod_shift=mod_shift)
+    _build.check_dtype(name, torch.bfloat16, x=x)
+    _check_epilogue(name, residual, g, b, mod_scale, mod_shift)
+    K, D = x.shape[-1], residual.shape[-1]
+    if w.shape != (D, K) or K % 16:
+        raise ValueError(f"{name}: w must be ({D}, {K}) with K % 16 == 0, got {tuple(w.shape)}")
+    if x.shape[:-1] != residual.shape[:-1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and residual {tuple(residual.shape)} differ")
+    lib = _build.library()
+    if lib.swift_mm_modnorm_int8_smem(K, D) > lib.swift_max_smem():
+        raise ValueError(f"{name}: K={K}, D={D} need more shared memory than a block has")
+    wq, sw = quant.quantize_colwise(w)
+    M = x.numel() // K
+    out = torch.empty_like(residual)
+    _build.check_launch(
+        lib.swift_mm_modnorm_int8(
+            x.data_ptr(), wq.data_ptr(), sw.data_ptr(), residual.data_ptr(), g.data_ptr(),
+            b.data_ptr(), mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
+            M, K, D, M // residual.shape[0], float(eps), _build.stream(),
+        ),
+        name,
+    )
+    fused_matmul_modnorm_residual_int8.launches += 1
+    return out
+
+
+fused_matmul_modnorm_residual_int8.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

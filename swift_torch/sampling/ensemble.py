@@ -11,6 +11,8 @@ Counterpart of ``swift_tpu/sampling/ensemble.py::EnsembleRollout``:
 
 Latents come from a ``torch.Generator`` seeded from (base_seed, ic_start,
 step), so a forecast is reproducible; they are not jax.random's numbers.
+The engine runs on CUDA unless it is handed ``device="cpu"``, and raises
+where CUDA is absent.
 Mesh sharding and batch padding are not ported.
 """
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from swift_torch.data.standardize import Standardizer
+from swift_torch.utils.device import resolve_device
 
 
 class EnsembleRollout:
@@ -37,10 +40,10 @@ class EnsembleRollout:
         interval: int = 6,
         segment: int = 10,
         base_seed: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         self.sampler = sampler
-        self.device = torch.device(device)
+        self.device = resolve_device(str(device))
         self.std = Standardizer.from_dataset(dataset, self.device)
         self.members = members
         self.steps = steps

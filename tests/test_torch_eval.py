@@ -1,0 +1,255 @@
+"""The port's scoring chain against the JAX package, on the CPU.
+
+* ``eval.metrics``: lat-weighted RMSE, fair-kernel CRPS and spread-skill
+  ratio against ``swift_tpu.eval.metrics`` on the same arrays (rtol 1e-5:
+  float32 means summed in other orders).
+* ``data.h52zarr.build_truth_zarr`` writes the same arrays, coordinates and
+  attributes as the JAX builder, from the h5 files and from an in-memory
+  ``SyntheticERA5``.
+* ``evaluate`` returns the JAX evaluator's keys and values (1e-5) on a store
+  pair, and ``main`` writes the same ``evaluation_metrics.json``.
+* ``generate --int8 --device cpu`` end to end on a run directory whose
+  checkpoint the JAX package wrote, against ``swift_tpu.generate --int8``
+  with the same latents (the JAX engine's keys, handed to the port's
+  sampler) and both networks built in fp32: the stores agree at rtol/atol
+  1e-4 (fields of magnitude ~10 after two residual steps) in every
+  trajectory but one, where a rounding tie of the dynamic quantization
+  broke the other way (see the test), and their scores agree.
+* ``EnsembleRollout`` runs on CUDA unless handed ``device="cpu"``, and
+  raises where CUDA is absent.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import swift_torch.generate as tgenerate
+import swift_torch.models.swinv2 as tswinv2
+import swift_tpu.factory as jfactory
+import swift_tpu.generate as jgenerate
+from swift_torch.data.era5 import ERA5Dataset as TorchERA5Dataset
+from swift_torch.data.h52zarr import build_truth_zarr
+from swift_torch.data.synthetic import SyntheticERA5
+from swift_torch.eval import metrics
+from swift_torch.sampling.ensemble import EnsembleRollout
+from swift_tpu.data import h52zarr as jh52zarr
+from swift_tpu.data.era5 import ERA5Dataset
+from swift_tpu.data.synthetic import make_synthetic_era5
+from swift_tpu.eval import metrics as jmetrics
+from swift_tpu.utils import zarr_lite
+from swift_tpu.utils.checkpoint import save_checkpoint
+
+VARS = ["2m_temperature", "sea_surface_temperature", "geopotential_500",
+        "geopotential_850", "temperature_850"]
+FORC = ["land_sea_mask"]
+MODEL = {"_target_": "swift_tpu.models.swinv2.SwinV2", "window_size": [2, 2],
+         "shift_size": [1, 1], "patch_size": [2, 2], "depth": 2, "dim": 32, "heads": 2,
+         "logvar": True}
+PRECOND = {"_target_": "swift_tpu.models.precond.PassPrecond", "auxiliary_dim": 1,
+           "sigma_data": 1.0}
+ARGV = ["--members", "2", "--steps", "2", "--batch", "2", "--samples", "3", "--segment", "1",
+        "--seed", "3", "--int8"]
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory):
+    """Synthetic h5 data and a run directory whose config and checkpoint the
+    JAX package wrote."""
+    base = tmp_path_factory.mktemp("torch_eval")
+    data = make_synthetic_era5(str(base / "data"), VARS, FORC, n_train=2, n_val=2, n_test=10,
+                               shape=(8, 16), seed=0)
+    run = base / "run"
+    (run / ".hydra").mkdir(parents=True)
+    cfg = {"data": {"dataset": {"_target_": "swift.data.era5.ERA5Dataset", "root": data,
+                                "variables": VARS, "forcings": FORC, "residual": True}},
+           "model": MODEL, "precond": PRECOND}
+    (run / ".hydra" / "config.yaml").write_text(yaml.safe_dump(cfg))
+    ds = ERA5Dataset(data, VARS, FORC, split="test", residual=True)
+    pre = jfactory.build_precond(PRECOND, MODEL, ds.img_resolution, ds.n_target_channels,
+                                 ds.n_condition_channels, dtype=jnp.float32)
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + (0.1 * rng.standard_normal(a.shape)).astype(np.float32),
+        pre.init(jax.random.PRNGKey(0)))
+    save_checkpoint(str(run / "checkpoints" / "checkpoint-000002.npz"),
+                    {"params": params, "ema": params})
+    return base, run, data
+
+
+def _metric_arrays(seed=0, B=3, N=4, Hh=9, Ww=16):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, N, Hh, Ww)).astype(np.float32),
+            rng.standard_normal((B, Hh, Ww)).astype(np.float32),
+            np.linspace(-80, 80, Hh).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", ["lat_weighted_rmse", "lat_weighted_crps",
+                                  "lat_weighted_spread_skill_ratio"])
+def test_metrics_match_jax(name):
+    pred, y, lat = _metric_arrays()
+    want = getattr(jmetrics, name)(pred, y, lat)
+    got = getattr(metrics, name)(pred, y, lat, device="cpu")
+    assert isinstance(got, float)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    if name == "lat_weighted_rmse":  # a deterministic (B, H, W) forecast too
+        np.testing.assert_allclose(metrics.lat_weighted_rmse(pred[:, 0], y, lat, "cpu"),
+                                   jmetrics.lat_weighted_rmse(pred[:, 0], y, lat), rtol=1e-5)
+    if name == "lat_weighted_spread_skill_ratio":  # identical members: 0/0 is 0
+        same = np.repeat(y[:, None], 3, axis=1)
+        assert metrics.lat_weighted_spread_skill_ratio(same, y, lat, "cpu") == 0.0
+
+
+def _same_store(got_path, want_path):
+    got, want = zarr_lite.open_group(got_path), zarr_lite.open_group(want_path)
+    assert got.array_names() == want.array_names()
+    for n in want.array_names():
+        g, w = got[n], want[n]
+        assert (g.shape, g.chunks, g.dtype, g.attrs) == (w.shape, w.chunks, w.dtype, w.attrs), n
+        np.testing.assert_array_equal(np.asarray(g[:]), np.asarray(w[:]), err_msg=n)
+
+
+def test_truth_zarr_matches_jax(run_dir, tmp_path):
+    _, _, data = run_dir
+    want = jh52zarr.build_truth_zarr(ERA5Dataset(data, VARS, split="test"),
+                                     str(tmp_path / "jax.zarr"), time_chunk=4, workers=2)
+    got = build_truth_zarr(TorchERA5Dataset(data, VARS, split="test"),
+                           str(tmp_path / "torch.zarr"), time_chunk=4, workers=2)
+    _same_store(got, want)
+    # the in-memory dataset serves the builder without h5py; both builders agree on it
+    syn = SyntheticERA5(VARS, FORC, n_files=6, shape=(8, 16), seed=2)
+    want = jh52zarr.build_truth_zarr(syn, str(tmp_path / "jax_syn.zarr"), time_chunk=4)
+    got = build_truth_zarr(syn, str(tmp_path / "torch_syn.zarr"), time_chunk=4)
+    _same_store(got, want)
+    assert zarr_lite.open_group(got)["geopotential"].shape == (6, 2, 8, 16)
+
+
+def _jax_latents(seed, key, shape):
+    """The JAX engine's latents at (ic_start, step): normal(split(fold_in(
+    PRNGKey(seed·7919 + ic_start), step))[0], shape)."""
+    ic_start, step = key
+    k = jax.random.fold_in(jax.random.PRNGKey(seed * 7919 + ic_start), step)
+    return torch.from_numpy(np.array(jax.random.normal(jax.random.split(k)[0], shape)))
+
+
+@pytest.fixture(scope="module")
+def int8_stores(run_dir, tmp_path_factory):
+    """(truth, port int8 store, JAX int8 store, launches of the port's int8
+    FFN): ``generate --int8`` of both packages from the same checkpoint and
+    latents."""
+    base, run, data = run_dir
+    out = tmp_path_factory.mktemp("int8_stores")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SWIFT_COMPILE_CACHE", str(out / "jax_cache"))
+    mp.setenv("SWIFT_DEVICE_KEEPALIVE", "0")
+    # both CLIs build their network in fp32 here (bf16 by default): the check
+    # is the int8 path, not where the two frameworks round to bf16
+    jbuild, tbuild = jfactory.build_precond, tgenerate.factory.build_precond
+    mp.setattr(jfactory, "build_precond", lambda *a, **k: jbuild(*a, **k, dtype=jnp.float32))
+    mp.setattr(tgenerate.factory, "build_precond",
+               lambda *a, **k: tbuild(*a, **k, dtype=torch.float32))
+    want = jgenerate.main(jgenerate.parser.parse_args(
+        ["--input", str(run), *ARGV, "--output", str(out / "jax")]))
+    # the port's engine hands its sampler (ic_start, step) in place of a torch
+    # Generator, and the sampler draws the JAX engine's latents for them
+    real_factory = tgenerate.sampler_factory
+
+    def factory(*a, **k):
+        sampler = real_factory(*a, **k)
+        return lambda X, key, auxiliary=None: sampler(
+            X, None, auxiliary, _jax_latents(3, key, (*X.shape[:3], len(VARS))))
+
+    calls = []
+    real_ffn = tswinv2.fused_swiglu_ffn_int8
+    mp.setattr(tgenerate, "sampler_factory", factory)
+    mp.setattr(EnsembleRollout, "generator", lambda self, ic_start, step: (ic_start, step))
+    mp.setattr(tswinv2, "fused_swiglu_ffn_int8",
+               lambda *a: calls.append(1) or real_ffn(*a))
+    try:
+        got = tgenerate.cli(["--input", str(run), *ARGV, "--output", str(out / "torch"),
+                             "--device", "cpu"])
+    finally:
+        mp.undo()
+    truth = build_truth_zarr(TorchERA5Dataset(data, VARS, split="test"), str(out / "truth.zarr"))
+    return truth, got, want, len(calls)
+
+
+def test_generate_int8_matches_jax_and_scores(int8_stores):
+    """The port's ``generate --int8`` store against the JAX package's.
+
+    Dynamic int8 rounds round(v / scale) to the nearest level, so a value
+    whose fp32 inputs differ in their last bits between XLA and PyTorch can
+    land on the other side of a rounding tie and move one int8 level; the
+    rest of that trajectory then follows a slightly different forecast. On
+    this run one of the six (IC, member) trajectories takes such a step
+    (0.0205 at lead 1, 0.169 at lead 2 on fields of magnitude ~5); the other
+    five agree to 2e-6. So: every trajectory at rtol/atol 1e-4 but at most
+    one, and that one within the int8 forecast gate (5% relative RMS) of
+    the JAX trajectory; the scores of the two stores agree to 1e-2."""
+    truth, got, want, ffn_calls = int8_stores
+    # 2 blocks a forward; (2 + 1 ICs) x 2 steps in batches of 2 and 1 -> 4 forwards
+    assert ffn_calls == 2 * 4
+    assert os.path.basename(got) == os.path.basename(want)
+    g, w = tgenerate.read_store(got), tgenerate.read_store(want)
+    assert sorted(g) == sorted(w)
+    for n in w:
+        assert g[n].shape == w[n].shape and np.isfinite(g[n]).all(), n
+        if n != "sea_surface_temperature":  # zeroed at a 6 h interval
+            assert np.abs(g[n][:, :, 1:]).max() > 0, n
+    off = []
+    for ic in range(3):
+        for m in range(2):
+            gt = np.concatenate([g[n][ic, m].ravel() for n in sorted(w)])
+            wt = np.concatenate([w[n][ic, m].ravel() for n in sorted(w)])
+            if not np.allclose(gt, wt, rtol=1e-4, atol=1e-4):
+                off.append((ic, m))
+                assert np.linalg.norm(gt - wt) / np.linalg.norm(wt) < 0.05, (ic, m)
+    assert len(off) <= 1, off
+    scored, jscored = metrics.evaluate(truth, got, "cpu"), jmetrics.evaluate(truth, want)
+    assert sorted(scored) == sorted(jscored)
+    assert any(k.startswith("crps_geopotential_500_") for k in scored)
+    for k in jscored:
+        np.testing.assert_allclose(scored[k], jscored[k], rtol=1e-2, atol=1e-4, err_msg=k)
+
+
+def test_evaluate_and_main_match_jax(int8_stores, monkeypatch):
+    truth, _, want, _ = int8_stores
+    got = metrics.evaluate(truth, want, device="cpu")
+    ref = jmetrics.evaluate(truth, want)
+    assert sorted(got) == sorted(ref)
+    # every lead up to the truth's end, all three metrics (2 members), levels by pressure
+    assert {k.split("_", 1)[0] for k in got} == {"rmse", "crps", "ssr"}
+    assert "rmse_geopotential_850_12h" in got and "rmse_2m_temperature_0h" in got
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=1e-7, err_msg=k)
+    out = os.path.join(os.path.dirname(want), "evaluation_metrics.json")
+    monkeypatch.setenv("SWIFT_DEVICE_KEEPALIVE", "0")
+    jmetrics.main(["--truth", truth, "--pred", want])
+    with open(out) as f:
+        jnested = json.load(f)
+    metrics.main(["--truth", truth, "--pred", want, "--device", "cpu"])
+    with open(out) as f:
+        nested = json.load(f)
+    assert nested.keys() == jnested.keys()
+    for m in jnested:
+        assert nested[m].keys() == jnested[m].keys()
+        for lead in jnested[m]:
+            assert nested[m][lead].keys() == jnested[m][lead].keys()
+            for var, v in jnested[m][lead].items():
+                np.testing.assert_allclose(nested[m][lead][var], v, rtol=1e-5, atol=1e-7)
+
+
+def test_ensemble_rollout_needs_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid")
+    ds = SyntheticERA5(VARS, FORC, n_files=4, shape=(8, 16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EnsembleRollout(lambda *a, **k: None, ds, members=1, steps=1)
+    assert EnsembleRollout(lambda *a, **k: None, ds, 1, 1, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrics.lat_weighted_rmse(*_metric_arrays()[:3])

@@ -112,7 +112,8 @@ def test_residual_rollout_matches_jax(run_dir):
                               sigma_max=200.0, auxiliary=0.6)
     got = {}
     EnsembleRollout(lambda X, gen, auxiliary=None: sampler(X, gen, auxiliary, next(latents)),
-                    ds, members, steps, segment=2, base_seed=seed).run(X0, forc, 0, collect(got))
+                    ds, members, steps, segment=2, base_seed=seed,
+                    device="cpu").run(X0, forc, 0, collect(got))
 
     assert sorted(got) == sorted(want)
     for k in want:
@@ -170,9 +171,10 @@ def test_port_never_imports_jax():
 import sys
 import numpy as np, torch
 from swift_torch import config, factory, generate, train
-from swift_torch.data import era5, pipeline, samplers, synthetic
+from swift_torch.data import era5, h52zarr, pipeline, samplers, synthetic
 from swift_torch.data.synthetic import SyntheticERA5
-from swift_torch.ops import block_attention, ffn, jvp_guard, linear, modnorm
+from swift_torch.eval import metrics
+from swift_torch.ops import block_attention, ffn, jvp_guard, linear, modnorm, quant
 from swift_torch.training import loss, trainer
 from swift_torch.training.optimizers import muon
 from swift_torch.utils import checkpoint, io, zarr_lite
@@ -183,6 +185,12 @@ net = factory.build_precond(%r, %r, ds.img_resolution, ds.n_target_channels,
 class Args: members, steps, batch, samples, interval, segment, seed, solver, \
     num_solver_steps, dump = 2, 2, 2, 2, 6, 1, 0, "scm", 1, "zarr"
 generate.rollout_to_store(Args, ds, net, sys.argv[1])
+# the int8 forecast, its truth store and its scores
+net8 = factory.build_precond(%r, {**%r, "quant": "int8"}, ds.img_resolution,
+                             ds.n_target_channels, ds.n_condition_channels).eval()
+ofile, _, _ = generate.rollout_to_store(Args, ds, net8, sys.argv[1] + "/int8")
+truth = h52zarr.build_truth_zarr(ds, sys.argv[1] + "/truth.zarr")
+assert metrics.evaluate(truth, ofile, "cpu")
 # the 0.25° model's pieces: latitude padding, factorized table, tiled route
 quarter = factory.build_precond(%r, {**%r, "pos_embed_mode": "factorized",
                                      "window_size": [4, 8], "shift_size": [2, 4]},
@@ -194,7 +202,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
 assert not bad, bad
 print("no-jax-ok")
-""" % (VARS, PRECOND, MODEL, PRECOND, MODEL)
+""" % (VARS, PRECOND, MODEL, PRECOND, MODEL, PRECOND, MODEL)
     import tempfile
 
     with tempfile.TemporaryDirectory() as odir:
