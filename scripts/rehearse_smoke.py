@@ -1,5 +1,7 @@
-"""Rehearse ``chip_smoke.py``'s 0.25° phases, its sCM slices and its int8
-forecast and scoring phases on the CPU.
+"""Rehearse ``chip_smoke.py``'s 0.25° phases, its sCM slices, its int8
+forecast and scoring phases and its per-head phases (kernel 20's entry,
+``synthetic-tiny-scm`` through training and ``generate.main``, the
+8x8-window forecast, sCM steps and cuts, the d = 160 forward) on the CPU.
 
     python scripts/rehearse_smoke.py
 
@@ -13,6 +15,9 @@ The int8 phases (the flagship's bf16 forecast, its int8 forecast at two
 head layouts, the scoring of both stores, the 0.25° int8 forward) read real
 counts instead: every kernel wrapper the model calls adds one to its count
 as it would on the card.
+The per-head phases read the launch counts each phase states (the
+rehearsal hands them back), at width 32 (the tiny experiment at its own
+width) on 16x32- and 32x64-pixel grids.
 The cuts compare the plain path in bf16 against fp32, so their errors are
 the bf16 rounding of the plain path at width 32, not the kernels'; their
 limits are opened to 0.5 here. No number it prints is a device number.
@@ -68,11 +73,14 @@ def count_calls() -> None:
 
     for name in ("fused_block_attention", "fused_tiled_block_attention", "fused_linear",
                  "fused_matmul_modnorm_residual", "fused_matmul_modnorm_residual_int8",
-                 "fused_modnorm_residual", "fused_swiglu_ffn", "fused_swiglu_ffn_int8"):
+                 "fused_modnorm_residual", "fused_swiglu_ffn", "fused_swiglu_ffn_int8",
+                 "per_head_window_attention"):
         fn = getattr(sw, name)
+        # the per-head route launches kernel 21 once a forward
+        counter = cs.window_attention if name == "per_head_window_attention" else fn
 
-        def counted(*a, _fn=fn, **k):
-            _fn.launches += 1
+        def counted(*a, _fn=fn, _counter=counter, **k):
+            _counter.launches += 1
             return _fn(*a, **k)
 
         setattr(sw, name, counted)
@@ -84,14 +92,15 @@ def rehearse_int8(read_launches) -> None:
     width 32 with every block on its real route."""
     cs.read_launches = read_launches
     count_calls()
-    cs.RESOLUTION = (16, 32)
-    cs.MODEL = {**cs.MODEL, **TINY, "window_size": [4, 8], "shift_size": [2, 0]}  # whole-grid
+    # 256-token windows (what the whole-grid kernels take) on a 16x32-token grid
+    cs.RESOLUTION = (32, 64)
+    cs.MODEL = {**cs.MODEL, **TINY, "window_size": [16, 16], "shift_size": [8, 0]}  # whole-grid
     cs.HD128_MODEL = {**cs.MODEL, "heads": 4, "head_dim": 8}
     depth = TINY["depth"]
     cs.INT8_FORWARD = {k: depth for k in cs.INT8_FORWARD}
-    # the tiny 0.25° grid takes the whole-grid route for the unshifted block
-    cs.QUARTER_INT8_FORWARD = {**{k: depth for k in cs.QUARTER_INT8_FORWARD},
-                               "tiled_block_attention": 1, "block_attention": 1}
+    # the tiny 0.25° grid's (4, 8) windows take the per-head route for both blocks
+    cs.QUARTER_INT8_FORWARD = {**{k: depth for k in cs.QUARTER_INT8_FORWARD
+                                  if k != "tiled_block_attention"}, "window_attention": depth}
     evaluate = cs.metrics.evaluate
     cs.metrics.evaluate = lambda truth, pred, device: evaluate(truth, pred, "cpu")
     generator = torch.Generator
@@ -106,6 +115,45 @@ def rehearse_int8(read_launches) -> None:
         torch.Generator = generator
 
 
+def rehearse_per_head(queue: list) -> None:
+    """Kernel 20's entry, path A (the tiny experiment as shipped, through
+    ``generate.main`` on the CPU), path B at width 32 on a 16x32-token grid
+    with 8x8 windows, path C at d = 160 on 16x16 windows. ``queue`` takes
+    the launch counts each read of the phases states, in order."""
+    base = {k: 0 for k in cs.KERNELS}
+    counts = lambda want, times: {**base, **{k: n * times for k, n in want.items()}}  # noqa
+    cs.generate.resolve_device = lambda name: torch.device("cpu")
+    generator = torch.Generator
+    torch.Generator = lambda device=None: generator()
+    try:
+        queue[:] = [counts({"swiglu_ffn_modnorm": 1}, 1)]
+        cs.phase_ffn_modnorm("CPU rehearsal")
+
+        tiny = cs.per_head_step(2)
+        cs.TINY_CUT = dataclasses.replace(cs.TINY_CUT, cut_tols=OPEN)
+        queue[:] = [counts(tiny, cs.TINY_TRAIN["steps"]), counts(cs.PER_HEAD_FORWARD, 4),
+                    counts(cs.PER_HEAD_FORWARD, 4)]
+        cs.phase_tiny("CPU rehearsal")
+
+        cs.RESOLUTION = (32, 64)
+        cs.WIN8_MODEL = {**cs.MODEL, **TINY, "window_size": [8, 8], "shift_size": [4, 4]}
+        queue[:] = [counts(cs.PER_HEAD_FORWARD, 2 * TINY["depth"])]
+        cs.phase_win8_forecast("CPU rehearsal")
+        sl = dataclasses.replace(cs.WIN8_SCM, model=cs.WIN8_MODEL, res=cs.RESOLUTION,
+                                 cut_tols=OPEN, n_files=8, per_step=cs.per_head_step(2),
+                                 overrides=cs.WIN8_OVERRIDES)
+        queue[:] = [counts(sl.per_step, sl.cut["steps"])]
+        _, cfg, trained = cs.phase_scm("CPU rehearsal", sl)
+        print(cs.phase_scm_cut(cfg, trained, sl))
+
+        cs.D160_MODEL = {**cs.MODEL, **TINY, "heads": 2, "head_dim": 160,
+                         "window_size": [16, 16], "shift_size": [8, 8]}
+        queue[:] = [counts(cs.PER_HEAD_FORWARD, TINY["depth"])]
+        cs.phase_d160("CPU rehearsal")
+    finally:
+        torch.Generator = generator
+
+
 def main() -> None:
     read_launches = cs.read_launches
     stub_the_card()
@@ -114,7 +162,7 @@ def main() -> None:
     cs.DIM, cs.HIDDEN = 32, 40
     compose = cs.train_config
     cs.train_config = lambda exp, *extra, cut=cs.TRAIN: compose(
-        exp, *extra, *(f"model.{k}={v}".replace(" ", "") for k, v in TINY.items()), cut=cut)
+        exp, *(f"model.{k}={v}".replace(" ", "") for k, v in TINY.items()), *extra, cut=cut)
     cs.bwd_recompute_scratch_bytes = lambda T, D, H: 0  # asks the built library
     cs.tiled_bwd_scratch_bytes = lambda *a: 0
     expected: dict = {}
@@ -143,6 +191,13 @@ def main() -> None:
         print(cs.phase_scm_cut(cfg, trained, sl))
 
     rehearse_int8(read_launches)
+
+    queue: list = []
+    cs.read_launches = lambda: dict(queue.pop(0))
+    cs.WINDOW_SHAPES = ((8, 2, 64, 16), (4, 2, 256, 160), (2, 2, 1024, 8))
+    cs.FFN_MN_TOKENS = 512
+    cs.window_kernels(np.random.default_rng(0), {})
+    rehearse_per_head(queue)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,14 @@
 // gate and up are rounded to bf16 and written from the staging tile as it
 // stands (2 x T x H x 2 bytes more traffic, ~0.18 GB at B = 2); h is still
 // formed from the unrounded fp32 values, as on the TPU.
+//
+// With the modnorm epilogue (MN), the same kernel is x + modnorm(FFN(x)) --
+// replaces swift_tpu/ops/pallas_ffn.py::_ffn_mn_call (kernel body
+// _ffn_mn_kernel). The block's y rows already sit in the fp32 accumulator,
+// so each warp takes a row: mean and mean square over D, var = E[y²] − E[y]²,
+// (y − mu)·rsqrt(var + eps)·g + b, times (1 + scale) plus shift from the
+// sample's bf16 AdaLN rows, plus the residual x, rounded to bf16 once. y
+// never reaches device memory in any precision.
 #include "tile_mma.cuh"
 
 namespace swift {
@@ -36,12 +44,23 @@ __host__ __device__ constexpr int ffn_smem(int D) {
   return kFfnBM * (D + 4) * 4 + kTileBytes + kFfnBM * kStageLD * 4 + kFfnBM * kHLD * 2;
 }
 
-template <bool PT>
+// The modnorm epilogue's operands (MN only): LN affine g, b (D,) fp32,
+// AdaLN rows scale, shift (B, D) bf16, tokens per sample, eps.
+struct ModNormArgs {
+  const float* g;
+  const float* b;
+  const bf16* scale;
+  const bf16* shift;
+  int tps;
+  float eps;
+};
+
+template <bool PT, bool MN = false>
 __global__ void __launch_bounds__(GateUpMma::NT)
     ffn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ DX,
                const bf16* __restrict__ W1, const bf16* __restrict__ W2, bf16* __restrict__ Y,
                bf16* __restrict__ DY, bf16* __restrict__ G, bf16* __restrict__ U, int M, int D,
-               int H) {
+               int H, ModNormArgs mn) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int NT = GateUpMma::NT;
   constexpr int ROWS = PT ? kFfnBM / 2 : kFfnBM;  // token rows a block owns
@@ -138,6 +157,32 @@ __global__ void __launch_bounds__(GateUpMma::NT)
     }
   }
 
+  if (MN) {  // one warp a token row: x + modnorm(y), rounded once
+    const int lane = tid % 32;
+    for (int r = warp; r < kFfnBM; r += NT / 32) {
+      const int m = m0 + r;
+      if (m >= M) continue;
+      const float* yr = accS + r * lda;
+      float s = 0.0f, ss = 0.0f;
+      for (int c = lane; c < D; c += 32) {
+        s += yr[c];
+        ss += yr[c] * yr[c];
+      }
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      const float mu = s / D, inv = rsqrtf(ss / D - mu * mu + mn.eps);
+      const bf16* sc = mn.scale + (size_t)(m / mn.tps) * D;
+      const bf16* sf = mn.shift + (size_t)(m / mn.tps) * D;
+      const bf16* xr = X + (size_t)m * D;
+      for (int c = lane; c < D; c += 32) {
+        const float ln = (yr[c] - mu) * inv * mn.g[c] + mn.b[c];
+        const float o = ln * (1.0f + __bfloat162float(sc[c])) + __bfloat162float(sf[c]) +
+                        __bfloat162float(xr[c]);
+        Y[(size_t)m * D + c] = __float2bfloat16_rn(o);
+      }
+    }
+    return;
+  }
   for (int c = tid; c < kFfnBM * (D / 8); c += NT) {
     const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
     if (token(r) < M)
@@ -159,7 +204,7 @@ extern "C" int swift_ffn(const void* x, const void* w1, const void* w2, void* y,
   cudaFuncSetAttribute(ffn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   ffn_kernel<false><<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, nullptr, (const bf16*)w1, (const bf16*)w2, (bf16*)y, nullptr, (bf16*)g,
-      (bf16*)u, M, D, H);
+      (bf16*)u, M, D, H, ModNormArgs{});
   return (int)cudaGetLastError();
 }
 
@@ -171,6 +216,23 @@ extern "C" int swift_ffn_pt(const void* x, const void* dx, const void* w1, const
   cudaFuncSetAttribute(ffn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   ffn_kernel<true><<<(M + rows - 1) / rows, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)dx, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)dy,
-      nullptr, nullptr, M, D, H);
+      nullptr, nullptr, M, D, H, ModNormArgs{});
+  return (int)cudaGetLastError();
+}
+
+// Kernel 20: y = x + modnorm(FFN(x)); x, y (M, D) bf16 with M = B·tps
+// tokens; g, b (D,) fp32; scale, shift (B, D) bf16. Kernel 5's shape rules.
+extern "C" int swift_ffn_mn(const void* x, const void* w1, const void* w2, const void* g,
+                            const void* b, const void* scale, const void* shift, void* y, int M,
+                            int D, int H, int tps, float eps, void* stream) {
+  const int smem = ffn_smem(D);
+  cudaFuncSetAttribute(ffn_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  const ModNormArgs mn{(const float*)g, (const float*)b, (const bf16*)scale, (const bf16*)shift,
+                       tps, eps};
+  ffn_kernel<false, true><<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem,
+                            (cudaStream_t)stream>>>((const bf16*)x, nullptr, (const bf16*)w1,
+                                                    (const bf16*)w2, (bf16*)y, nullptr, nullptr,
+                                                    nullptr, M, D, H, mn);
   return (int)cudaGetLastError();
 }

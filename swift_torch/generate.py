@@ -3,7 +3,9 @@
 
 Same flags and the same WB2-layout zarr (or numpy) store as
 ``swift_tpu.generate``. ``main`` reads the run's saved config and data and
-the checkpoint's EMA weights (JAX npz layout); :func:`rollout_to_store`
+the checkpoint's EMA weights: a JAX-layout npz, or a reference ``.pt``
+(its ``"ema"`` state dict, ``model.``-prefixed names, loaded strictly), as
+``swift_tpu.generate`` takes both; :func:`rollout_to_store`
 takes an already built dataset and network and needs neither yaml nor h5py.
 The network runs on the GPU (``--device cuda``, the default) and raises
 where CUDA is absent; the CPU is used only when asked for (``--device
@@ -35,7 +37,8 @@ from swift_torch.utils.log import log0
 parser = argparse.ArgumentParser()
 parser.add_argument("--input", type=str, required=True, help="Input (run) directory")
 parser.add_argument("--checkpoint", type=str, default=None,
-                    help="Checkpoint name (default: latest)")
+                    help="Checkpoint name or path: .npz (JAX layout) or a reference .pt "
+                    "(default: the latest npz)")
 parser.add_argument("--members", type=int, default=1, help="Number of ensemble members")
 parser.add_argument("--steps", type=int, default=8, help="Number of prediction steps")
 parser.add_argument("--batch", type=int, default=32, help="IC batch size")
@@ -175,14 +178,29 @@ def rollout_to_store(args, dataset, net, odir: str, timings: dict | None = None)
     return ofile, wall, n_steps
 
 
-def main(args):
+def load_weights(path: str) -> dict[str, torch.Tensor]:
+    """The EMA weights of a checkpoint as a ``model.``-prefixed state dict:
+    a JAX-layout npz through :func:`load_checkpoint`, or a reference torch
+    ``.pt`` (its ``"ema"`` entry when it has one, else the whole file)."""
+    if path.endswith(".pt"):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        return state["ema"] if "ema" in state else state
+    return load_checkpoint(path)
+
+
+def main(args, dataset=None):
+    """Forecast from a run directory. ``dataset``, when given, stands in for
+    the test split the run's data config names (an in-memory
+    ``SyntheticERA5`` where h5py is absent); the store's layout follows
+    it."""
     from swift_torch import config as cfglib  # needs yaml
 
     device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
-    log0("Loading dataset...")
-    dataset = factory.build_dataset(cfg["data"], split="test")
+    if dataset is None:
+        log0("Loading dataset...")
+        dataset = factory.build_dataset(cfg["data"], split="test")
 
     log0("Constructing network...")
     if args.int8:
@@ -192,7 +210,9 @@ def main(args):
         dataset.n_condition_channels, sigma_max_override=float("inf"),
     )
     if args.checkpoint is not None:
-        name = args.checkpoint if args.checkpoint.endswith(".npz") else args.checkpoint + ".npz"
+        name = args.checkpoint
+        if not name.endswith((".npz", ".pt")):
+            name += ".npz"
         ckpt = name if os.path.exists(name) else os.path.join(args.input, "checkpoints", name)
         if not os.path.exists(ckpt):
             raise ValueError(f"Specified checkpoint {ckpt} does not exist")
@@ -203,7 +223,7 @@ def main(args):
             raise ValueError(f"No checkpoints in {os.path.join(args.input, 'checkpoints')}")
         ckpt_basename = "latest"
     log0(f"Loading checkpoint: {ckpt}")
-    net.load_state_dict(load_checkpoint(ckpt))
+    net.load_state_dict(load_weights(ckpt), strict=True)
     net = net.to(device).eval()
 
     odir = args.output or os.path.join(args.input, "output", ckpt_basename)

@@ -32,7 +32,10 @@ their gate passes (the 1.4° grid), else the window-tiled kernels 15, 16
 and 17 (the 0.25° grid, 368×720 tokens), for which the odd blocks' window
 shift is one roll of the dim-wide activation before the qkv projection and
 its inverse on the attention output, the residual keeping the unrolled
-activation. A latitude that does not divide by patch × window (the 0.25°
+activation; else, and wherever those kernels cannot hold the window or
+head width (anything but 256-token windows and d ≤ 128), the per-head
+route through kernels 21, 22b and 22t (``ops.block_attention.
+attention_route``). A latitude that does not divide by patch × window (the 0.25°
 WB2 grid's 721 rows) is edge-padded toward the pole inside the model and
 the output cropped back; ``pos_embed_mode="factorized"`` replaces the
 (gh·gw, dim) position table by a row and a column table summed in
@@ -113,9 +116,10 @@ class WindowAttention(nn.Module):
     """qkv projection -> shifted-window cosine attention -> wo projection,
     post-norm and residual (kernels 1, 2 and 3; under a jvp kernels 14, 2
     with 7, a plain wo product, and the modnorm epilogue; kernels 15, 16
-    and 17 in place of 2, 6 and 7 on the tiled route; with ``quant="int8"``
-    outside a jvp, the int8 qkv product and kernel 19 in place of 1 and
-    3)."""
+    and 17 in place of 2, 6 and 7 on the tiled route, 21, 22b and 22t on
+    the per-head route; with ``quant="int8"`` outside a jvp, the int8 qkv
+    product and kernel 19 in place of 1 and 3, the attention in ``dtype``
+    on every route)."""
 
     def __init__(self, dim, heads, head_dim, window_size, shift=(0, 0),
                  quant: Optional[str] = None):

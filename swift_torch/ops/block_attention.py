@@ -22,6 +22,13 @@ memory workaround), so that no window wraps, for grids the whole-grid TPU
 kernel cannot hold (0.25°: 368×720 tokens). Kernel 16 sums dk̂ and dv in a
 pass over key blocks instead of kernel 6's per-query-block partials, whose
 workspace grows with the grid.
+
+:func:`per_head_window_attention` is the JAX model's per-head path: the
+shift, window partition and head split in PyTorch around the
+per-(window, head) kernels 21, 22b and 22t
+(``swift_torch.ops.window_attention``), for the geometries neither gate
+admits and for those the fixed-window kernels above cannot hold
+(:func:`attention_route`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from torch.autograd import forward_ad
 
 from swift_torch.ops import _build, jvp_guard
+from swift_torch.ops.window_attention import fused_window_attention
 from swift_torch.ops.windows import cyclic_shift, window_partition, window_reverse
 
 _EPS = 1e-12
@@ -72,11 +80,33 @@ def tiled_block_attention_eligible(grid_size, window_size, heads: int, dim_inner
     return wh * ww <= 1024 and 8 * wh * gw * _padded_dim(d) * 2 <= 48 * 1024 * 1024
 
 
+def fixed_window_kernels_accept(window_size, heads: int, dim_inner: int) -> bool:
+    """Whether the port's fixed-window kernels (2, 6, 7 and 15, 16, 17) take
+    this geometry: 256 tokens a window and a head width d that is a multiple
+    of 8 no larger than 128. Their wrappers refuse anything else.
+
+    This is where the port departs from the JAX route. The JAX gates admit
+    windows of up to 1024 tokens and any head width, because the TPU
+    kernels hold a whole window in VMEM at any such size; the Hopper kernels
+    are built for the 256-token window (a 64×256 fp32 logit tile in shared
+    memory) and at most 128 padded head lanes. :func:`attention_route`
+    sends such geometries to the per-head kernels 21 and 22 instead, which
+    compute the same function (the JAX model's per-head path), so parity
+    with the JAX model holds on either route."""
+    d, rem = divmod(dim_inner, heads)
+    wh, ww = window_size
+    return not rem and wh * ww == 256 and d % 8 == 0 and d <= 128
+
+
 def attention_route(grid_size, window_size, shift, heads: int, dim_inner: int) -> str:
     """The JAX model's attention route (``swinv2.py:367-383``): "block" (the
     whole-grid kernels 2, 6, 7) when its gate passes, else "tiled" (15, 16,
     17), else "per_head" (the per-(window, head) kernels 21 and 22, see
-    :func:`per_head_window_attention`)."""
+    :func:`per_head_window_attention`); and "per_head" also where a gate
+    passes but :func:`fixed_window_kernels_accept` does not. A static
+    choice on shapes, made before any launch."""
+    if not fixed_window_kernels_accept(window_size, heads, dim_inner):
+        return "per_head"
     if block_attention_eligible(grid_size, window_size, shift, heads, dim_inner):
         return "block"
     if tiled_block_attention_eligible(grid_size, window_size, heads, dim_inner):
@@ -188,11 +218,12 @@ def _check(name, qkv, scale, heads, window_size):
     _build.check_dtype(name, torch.float32, scale=scale)
     B, gh, gw, feat = qkv.shape
     wh, ww = window_size
-    d, rem = divmod(feat, 3 * heads)
-    if rem or d % 8 or d > 128:
-        raise ValueError(f"{name}: head dim {feat}/(3·{heads}) must be a multiple of 8 ≤ 128")
-    if wh * ww != 256 or gh % wh or gw % ww:
-        raise ValueError(f"{name}: windows {window_size} must hold 256 tokens and tile {(gh, gw)}")
+    d = feat // (3 * heads)
+    if feat % (3 * heads) or not fixed_window_kernels_accept(window_size, heads, feat // 3):
+        raise ValueError(f"{name}: windows {window_size} must hold 256 tokens and the head dim "
+                         f"{feat}/(3·{heads}) be a multiple of 8 ≤ 128")
+    if gh % wh or gw % ww:
+        raise ValueError(f"{name}: windows {window_size} must tile {(gh, gw)}")
     if scale.shape != (heads,):
         raise ValueError(f"{name}: scale must be ({heads},), got {tuple(scale.shape)}")
     return B, gh, gw, d
@@ -478,17 +509,26 @@ def fused_tiled_block_attention(qkv, scale, heads, window_size, shift=(0, 0)):
 
 
 def per_head_window_attention(qkv, scale, heads, window_size, shift=(0, 0)):
-    """The JAX model's per-(window, head) path, taken where neither gate
-    passes: ``pallas_attention.py::_sdpa_fwd`` and its backward and tangent
-    (kernels 21 and 22), which are not ported. CPU tensors take the plain
-    versions, whose function is :func:`fused_block_attention`'s (the
-    per-head path computes the same attention); CUDA tensors raise."""
-    if not _build.on_cpu(qkv, scale):
-        raise NotImplementedError(
-            f"attention at grid {tuple(qkv.shape[1:3])}, window {tuple(window_size)}, shift "
-            f"{tuple(shift)}: the JAX model takes its per-head path here (kernels 21 and 22, "
-            "pallas_attention.py::_sdpa_fwd), which is not ported")
-    return fused_block_attention(qkv, scale, heads, window_size, shift)
+    """The JAX model's per-(window, head) path (``SwinV2._per_head_path``):
+    qkv (B, gh, gw, heads·3·d) rolled by (-sh, -sw), partitioned into
+    windows and split by head into (B·nW, heads, n, d) q, k and v (the
+    per-head [q|k|v] interleave), the cosine attention of
+    :func:`swift_torch.ops.window_attention.fused_window_attention` (kernels
+    21, 22b and 22t on CUDA tensors, their plain versions on CPU tensors),
+    then the inverse layout and the un-roll: (B, gh, gw, heads·d)."""
+    B, gh, gw, feat = qkv.shape
+    d = feat // (3 * heads)
+    shift = tuple(shift)
+    x = _windows(qkv, heads, window_size, shift)  # (B, nW, n, heads, 3d)
+    nW, n = x.shape[1], x.shape[2]
+
+    def to_heads(a):
+        return a.permute(0, 1, 3, 2, 4).reshape(B * nW, heads, n, d)
+
+    q, k, v = (to_heads(a) for a in x.split(d, dim=-1))
+    out = fused_window_attention(q, k, v, scale)
+    out = out.reshape(B, nW, heads, n, d).permute(0, 1, 3, 2, 4)
+    return _unwindows(out, window_size, (gh, gw), shift)
 
 
 fused_tiled_block_attention.launches = 0

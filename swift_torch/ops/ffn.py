@@ -1,8 +1,9 @@
 """SwiGLU feed-forward ``(silu(x·Wg) ⊙ x·Wu)·W2`` (kernel 5), the forward
 that saves gate and up (kernel 8), the backward from them (kernel 9), the
 backward that recomputes them (kernel 10), the primal + tangent of the
-sCM jvp forward (kernel 11) and the int8 FFN of the inference path
-(kernel 18).
+sCM jvp forward (kernel 11), the int8 FFN of the inference path
+(kernel 18), and the FFN with its post-norm epilogue in one kernel
+(kernel 20, :func:`fused_swiglu_ffn_modnorm`).
 
 CUDA kernels: ``csrc/ffn.cu::swift_ffn``, which replaces
 ``swift_tpu/ops/pallas_ffn.py::_ffn_call`` (the (tokens, 2·hidden) gate/up
@@ -14,7 +15,8 @@ recomputed from x, nothing (tokens, hidden)-shaped in device memory beyond
 a chunk of tokens); ``csrc/ffn.cu::swift_ffn_pt``,
 which replaces ``_ffn_pt_call`` (y and dy with gate and up computed once
 and shared); ``csrc/ffn_int8.cu::swift_ffn_int8``, which replaces
-``fused_swiglu_ffn_int8`` (body ``_ffn_q_kernel``). Weights are in the torch
+``fused_swiglu_ffn_int8`` (body ``_ffn_q_kernel``); ``csrc/ffn.cu::
+swift_ffn_mn``, which replaces ``_ffn_mn_call``. Weights are in the torch
 ``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows first and the up
 rows second (the reference chunk order), ``w2`` (D, H).
 
@@ -34,6 +36,7 @@ from torch.autograd import forward_ad
 import torch.nn.functional as F
 
 from swift_torch.ops import _build, jvp_guard, quant
+from swift_torch.ops.modnorm import _vjp, reference_modnorm_residual
 
 
 def reference_swiglu_ffn(x, w1, w2):
@@ -111,15 +114,42 @@ def reference_swiglu_ffn_pt(x, dx, w1, w2):
 
 
 def _check(name, x, w1, w2):
+    """(D, H) of matching x, w1, w2 with D a multiple of 16; any H, which
+    the bf16 kernels' wrappers pad (:func:`pad_hidden`)."""
     D = x.shape[-1]
     H = w2.shape[1]
     if w1.shape != (2 * H, D) or w2.shape != (D, H):
         raise ValueError(
             f"{name}: w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} do not match D={D}"
         )
-    if D % 16 or H % 8:
-        raise ValueError(f"{name}: D={D} must be a multiple of 16 and H={H} of 8")
+    if D % 16:
+        raise ValueError(f"{name}: D={D} must be a multiple of 16")
     return D, H
+
+
+def pad_hidden(w1, w2):
+    """(w1, w2) with the hidden width H zero-padded to the next multiple of
+    8, the kernels' 16-byte step along H: zero rows after the gate rows and
+    after the up rows of w1 (2H, D), zero columns of w2 (D, H). Exact:
+    a padded unit has g = u = 0, so silu(0)·0 = 0 meets a zero column of
+    w2. The SwiGLU width int(8/3·dim) is 85 at dim 32, which the JAX kernels
+    take (their blocks span the whole H). Returns the weights as they are
+    when H is a multiple of 8 already."""
+    H = w2.shape[1]
+    pad = -H % 8
+    if not pad:
+        return w1, w2
+    z = w1.new_zeros(pad, w1.shape[1])
+    return (torch.cat([w1[:H], z, w1[H:], z]).contiguous(),
+            F.pad(w2, (0, pad)).contiguous())
+
+
+def _unpad_grads(dw1, dw2, H):
+    """The weight gradients of :func:`pad_hidden`'s weights cut back to H."""
+    Hp = dw2.shape[1]
+    if Hp == H:
+        return dw1, dw2
+    return torch.cat([dw1[:H], dw1[Hp:Hp + H]]), dw2[:, :H].contiguous()
 
 
 def _ffn(x, w1, w2, save: bool):
@@ -133,7 +163,9 @@ def _ffn(x, w1, w2, save: bool):
     name = "swiglu_ffn_fwd_save" if save else "fused_swiglu_ffn"
     _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2)
     _build.check_dtype(name, torch.bfloat16, x=x, w1=w1, w2=w2)
-    D, H = _check(name, x, w1, w2)
+    D = _check(name, x, w1, w2)[0]
+    w1, w2 = pad_hidden(w1, w2)
+    H = w2.shape[1]
     lib = _build.library()
     if lib.swift_ffn_smem(D) > lib.swift_max_smem():
         raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
@@ -159,14 +191,18 @@ def _ffn(x, w1, w2, save: bool):
 def swiglu_ffn_fwd_save(x, w1, w2):
     """(y, g, u): the forward that saves gate and up for
     :func:`swiglu_ffn_bwd_saved`. CPU tensors take
-    :func:`reference_swiglu_ffn_fwd_save`; CUDA tensors go to kernel 8."""
+    :func:`reference_swiglu_ffn_fwd_save`; CUDA tensors go to kernel 8,
+    whose g and u keep the kernels' width, H zero-padded to a multiple of 8
+    (:func:`pad_hidden`; the padded units are 0)."""
     return _ffn(x, w1, w2, save=True)
 
 
 def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
-    """(dx, dw1, dw2) from the saved gate and up. CPU tensors take
+    """(dx, dw1, dw2) from the saved gate and up, as
+    :func:`swiglu_ffn_fwd_save` gives them. CPU tensors take
     :func:`reference_swiglu_ffn_bwd_saved`; CUDA tensors go to kernel 9,
-    bf16 and contiguous, D and H multiples of 8.
+    bf16 and contiguous, D a multiple of 16, g and u at the kernels' width
+    (H padded by :func:`pad_hidden`, the weight gradients cut back to H).
 
     Kernel 9 writes [dg|du] and h, bf16, to (T, 3H) of scratch (0.74 GB
     each for dg, du and h at the T = 131072 train batch, 0.18 GB at B = 2),
@@ -177,7 +213,9 @@ def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
     name = "swiglu_ffn_bwd_saved"
     _build.check_kernel_inputs(name, x=x, dy=dy, g=g, u=u, w1=w1, w2=w2)
     _build.check_dtype(name, torch.bfloat16, x=x, dy=dy, g=g, u=u, w1=w1, w2=w2)
-    D, H = _check(name, x, w1, w2)
+    D, H0 = _check(name, x, w1, w2)
+    w1, w2 = pad_hidden(w1, w2)
+    H = w2.shape[1]
     T = x.numel() // D
     if dy.shape != x.shape or g.numel() != T * H or u.numel() != T * H:
         raise ValueError(f"{name}: dy, g, u must be ({T}, {D}), ({T}, {H}), ({T}, {H})")
@@ -198,7 +236,7 @@ def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
         name,
     )
     swiglu_ffn_bwd_saved.launches += 1
-    return dx, dw1, dw2
+    return (dx, *_unpad_grads(dw1, dw2, H0))
 
 
 def bwd_recompute_scratch_bytes(T, D, H) -> int:
@@ -215,7 +253,7 @@ def bwd_recompute_scratch_bytes(T, D, H) -> int:
 def swiglu_ffn_bwd_recompute(x, dy, w1, w2):
     """(dx, dw1, dw2) with gate and up recomputed from x. CPU tensors take
     :func:`reference_swiglu_ffn_bwd_recompute`; CUDA tensors go to kernel
-    10, bf16 and contiguous, D and H multiples of 8, with
+    10, bf16 and contiguous, D a multiple of 16 (H padded), with
     :func:`bwd_recompute_scratch_bytes` of scratch."""
     jvp_guard.refuse_tangents("swiglu_ffn_bwd_recompute", x=x, dy=dy, w1=w1, w2=w2)
     if _build.on_cpu(x, dy, w1, w2):
@@ -223,7 +261,9 @@ def swiglu_ffn_bwd_recompute(x, dy, w1, w2):
     name = "swiglu_ffn_bwd_recompute"
     _build.check_kernel_inputs(name, x=x, dy=dy, w1=w1, w2=w2)
     _build.check_dtype(name, torch.bfloat16, x=x, dy=dy, w1=w1, w2=w2)
-    D, H = _check(name, x, w1, w2)
+    D, H0 = _check(name, x, w1, w2)
+    w1, w2 = pad_hidden(w1, w2)
+    H = w2.shape[1]
     T = x.numel() // D
     if dy.shape != x.shape:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
@@ -247,7 +287,7 @@ def swiglu_ffn_bwd_recompute(x, dy, w1, w2):
         name,
     )
     swiglu_ffn_bwd_recompute.launches += 1
-    return dx, dw1, dw2
+    return (dx, *_unpad_grads(dw1, dw2, H0))
 
 
 def swiglu_ffn_pt(x, dx, w1, w2):
@@ -263,7 +303,9 @@ def swiglu_ffn_pt(x, dx, w1, w2):
     name = "swiglu_ffn_pt"
     _build.check_kernel_inputs(name, x=x, dx=dx, w1=w1, w2=w2)
     _build.check_dtype(name, torch.bfloat16, x=x, dx=dx, w1=w1, w2=w2)
-    D, H = _check(name, x, w1, w2)
+    D = _check(name, x, w1, w2)[0]
+    w1, w2 = pad_hidden(w1, w2)
+    H = w2.shape[1]
     if dx.shape != x.shape:
         raise ValueError(f"{name}: dx {tuple(dx.shape)} must match x {tuple(x.shape)}")
     lib = _build.library()
@@ -329,7 +371,8 @@ def fused_swiglu_ffn(x, w1, w2):
     """x: (..., D); w1: (2H, D); w2: (D, H). Returns (..., D) in x.dtype.
 
     CPU tensors take :func:`reference_swiglu_ffn`; CUDA tensors must be bf16
-    with D % 16 == 0 and H % 8 == 0. While autograd records, the forward is
+    with D % 16 == 0; any H is zero-padded to a multiple of 8 for the
+    kernels (:func:`pad_hidden`). While autograd records, the forward is
     :func:`swiglu_ffn_fwd_save` and the backward
     :func:`swiglu_ffn_bwd_saved`, or, above :func:`save_max_tokens` tokens,
     kernel 5 and :func:`swiglu_ffn_bwd_recompute`. When x carries a
@@ -394,8 +437,96 @@ def fused_swiglu_ffn_int8(x, w1, w2):
     return y
 
 
+def reference_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps=1e-6):
+    """Plain version of kernel 20: ``x + modnorm(SwiGLU(x))``, the TPU
+    kernel's points: gate and up in fp32, h rounded to x.dtype, y = h·W2ᵀ
+    kept in fp32 (never rounded), the AdaLN rows rounded to x.dtype, then
+    the modnorm epilogue with var = E[y²] − E[y]² in fp32 and the residual
+    x added in fp32; output x.dtype."""
+    H = w2.shape[1]
+    gu = torch.matmul(x.float(), w1.float().t())
+    h = (F.silu(gu[..., :H]) * gu[..., H:]).to(x.dtype)
+    y = torch.matmul(h.float(), w2.float().t())
+    return reference_modnorm_residual(y, x, g, b, mod_scale.to(x.dtype), mod_shift.to(x.dtype),
+                                      eps)
+
+
+def _ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps):
+    """The forward alone: the plain version on the CPU, else kernel 20."""
+    if _build.on_cpu(x, w1, w2, g, b, mod_scale, mod_shift):
+        return reference_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps)
+    name = "fused_swiglu_ffn_modnorm"
+    mod_scale, mod_shift = mod_scale.to(x.dtype), mod_shift.to(x.dtype)
+    _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2, g=g, b=b, mod_scale=mod_scale,
+                               mod_shift=mod_shift)
+    _build.check_dtype(name, torch.bfloat16, x=x, w1=w1, w2=w2)
+    _build.check_dtype(name, torch.float32, g=g, b=b)
+    D = _check(name, x, w1, w2)[0]
+    w1, w2 = pad_hidden(w1, w2)
+    H = w2.shape[1]
+    B = x.shape[0]
+    if g.shape != (D,) or b.shape != (D,) or mod_scale.shape != (B, D) or (
+            mod_shift.shape != (B, D)):
+        raise ValueError(f"{name}: g, b must be ({D},) and mod_scale, mod_shift ({B}, {D})")
+    lib = _build.library()
+    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
+        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
+    M = x.numel() // D
+    out = torch.empty_like(x)
+    _build.check_launch(
+        lib.swift_ffn_mn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), g.data_ptr(), b.data_ptr(),
+                         mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(), M, D, H,
+                         M // B, float(eps), _build.stream()),
+        name,
+    )
+    fused_swiglu_ffn_modnorm.launches += 1
+    return out
+
+
+class _SwiGLUModnorm(torch.autograd.Function):
+    """Kernel 20 forward; the backward is the vjp of the plain version (the
+    JAX package's ``_fused_swiglu_mn_bwd`` is a plain vjp too)."""
+
+    @staticmethod
+    def forward(x, w1, w2, g, b, mod_scale, mod_shift, eps):
+        return _ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.eps = inputs[-1]
+        ctx.save_for_backward(*inputs[:-1])
+
+    @staticmethod
+    def backward(ctx, dout):
+        eps = ctx.eps
+        fn = lambda *a: reference_swiglu_ffn_modnorm(*a, eps)  # noqa: E731
+        return _vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:-1], dout) + (None,)
+
+
+def fused_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps=1e-6):
+    """``x + modnorm(SwiGLU(x))`` in one pass: the FFN output stays in the
+    kernel as fp32 rows and the post-norm epilogue reads them there. x:
+    (B, ..., D); w1 (2H, D), w2 (D, H) as :func:`fused_swiglu_ffn`; g, b
+    (D,) fp32; mod_scale, mod_shift (B, D), rounded to x.dtype. Returns
+    x.dtype. No model path calls it (the JAX package's only caller is its
+    test); the model runs kernels 5 and 4.
+
+    CPU tensors take :func:`reference_swiglu_ffn_modnorm`; CUDA tensors go
+    to kernel 20 under kernel 5's shape rules (H padded by
+    :func:`pad_hidden`). While autograd records, the backward is the vjp of
+    the plain version; a forward-mode tangent raises (the JAX entry has no
+    jvp rule)."""
+    args = (x, w1, w2, g, b, mod_scale, mod_shift)
+    jvp_guard.refuse_tangents("fused_swiglu_ffn_modnorm", x=x, w1=w1, w2=w2, g=g, b=b,
+                              mod_scale=mod_scale, mod_shift=mod_shift)
+    if _build.recording(*args):
+        return _SwiGLUModnorm.apply(*args, eps)
+    return _ffn_modnorm(*args, eps)
+
+
 fused_swiglu_ffn.launches = 0
 fused_swiglu_ffn_int8.launches = 0
+fused_swiglu_ffn_modnorm.launches = 0
 swiglu_ffn_fwd_save.launches = 0
 swiglu_ffn_bwd_saved.launches = 0
 swiglu_ffn_bwd_recompute.launches = 0

@@ -11,6 +11,11 @@
   same lead-0 fields; later leads differ by their random latents.
 * Checkpoints cross both ways: the port reads a JAX-written npz and the JAX
   loader reads the one the port writes, bit for bit.
+* ``generate --checkpoint <file>.pt``: a reference torch checkpoint (the
+  ``"ema"`` state dict under ``model.`` names), which ``swift_tpu.generate``
+  reads through ``convert.load_reference_checkpoint``: the port's store
+  from it equals its store from the npz of the same weights, and its
+  one-step forecast from the file equals the JAX package's (rtol 1e-4).
 * ``--dump numpy`` writes the (n, members, steps+1, C, H, W) array.
 * Importing and running the port (its training modules too) leaves jax,
   flax, optax and every ``swift_tpu`` module out of ``sys.modules``.
@@ -37,6 +42,10 @@ from swift_torch.sampling.ensemble import EnsembleRollout
 from swift_torch.sampling.factory import sampler_factory
 from swift_tpu.data.era5 import ERA5Dataset
 from swift_tpu.data.synthetic import make_synthetic_era5
+from swift_tpu.models.convert import load_reference_checkpoint
+from swift_tpu.models.precond import Network
+from swift_tpu.sampling.solvers import scm_solver
+from swift_torch.sampling.solvers import scm_solver as torch_scm_solver
 from swift_tpu.sampling.ensemble import EnsembleRollout as JaxEnsembleRollout
 from swift_tpu.sampling.factory import param_sampler_factory
 from swift_tpu.utils import zarr_lite
@@ -164,6 +173,38 @@ def test_checkpoint_round_trip_through_jax(run_dir, tmp_path):
     assert sorted(flat_b) == sorted(flat_p)
     for k in flat_p:
         np.testing.assert_array_equal(np.asarray(flat_b[k]), np.asarray(flat_p[k]), err_msg=k)
+
+
+def test_generate_reads_reference_pt_checkpoint(run_dir, tmp_path):
+    run, ds, jpre, params = run_dir
+    sd = convert.params_to_state_dict(params)
+    pt = str(tmp_path / "checkpoint-ref.pt")
+    torch.save({"ema": {k: torch.from_numpy(v) for k, v in sd.items()}}, pt)
+    argv = ["--input", str(run), "--members", "2", "--steps", "2", "--batch", "2",
+            "--samples", "2", "--segment", "1", "--seed", "3", "--device", "cpu"]
+    from_pt = generate.cli(argv + ["--checkpoint", pt, "--output", str(tmp_path / "pt")])
+    from_npz = generate.cli(argv + ["--checkpoint", "checkpoint-000002",
+                                    "--output", str(tmp_path / "npz")])
+    a, b = generate.read_store(from_pt), generate.read_store(from_npz)
+    assert sorted(a) == sorted(b)
+    for n in a:
+        np.testing.assert_array_equal(a[n], b[n], err_msg=n)
+
+    tpre = factory.build_precond(PRECOND, MODEL, ds.img_resolution, ds.n_target_channels,
+                                 ds.n_condition_channels, dtype=torch.float32)
+    tpre.load_state_dict(generate.load_weights(pt), strict=True)
+    jparams = load_reference_checkpoint(pt, depth=MODEL["depth"], scan_layers="pairs" in params)
+    rng = np.random.default_rng(6)
+    latents = rng.standard_normal((2, 8, 16, len(VARS))).astype(np.float32)
+    cond = rng.standard_normal((2, 8, 16, len(VARS) + len(FORC))).astype(np.float32)
+    kw = dict(num_steps=1, sigma_min=0.02, sigma_max=200.0)
+    want = scm_solver(Network(jpre, jparams), jnp.asarray(latents),
+                      condition=jnp.asarray(cond), auxiliary=0.6, **kw)
+    with torch.no_grad():
+        got = torch_scm_solver(tpre.eval(), torch.from_numpy(latents), torch.from_numpy(cond),
+                               0.6, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4 * float(np.abs(want).max()))
 
 
 def test_port_never_imports_jax():

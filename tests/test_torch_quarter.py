@@ -213,7 +213,11 @@ def test_routing_matches_jax_gates(grid, window, shift, heads, d):
     assert block_attention.block_attention_eligible(grid, window, shift, heads, inner) == jblock
     assert block_attention.tiled_block_attention_eligible(grid, window, heads, inner) == jtiled
     want = "block" if jblock else "tiled" if jtiled else "per_head"
-    assert block_attention.attention_route(grid, window, shift, heads, inner) == want
+    # the port takes the JAX route where its fixed-window kernels take the
+    # geometry (256-token windows, d ≤ 128), else the per-head kernels
+    ported = want if block_attention.fixed_window_kernels_accept(window, heads, inner) else (
+        "per_head")
+    assert block_attention.attention_route(grid, window, shift, heads, inner) == ported
     if grid == (368, 720):
         assert want == "tiled" if shift == (8, 8) else True
     if grid == (64, 128):
@@ -221,14 +225,35 @@ def test_routing_matches_jax_gates(grid, window, shift, heads, d):
 
 
 def test_per_head_route_raises_on_the_card_only():
+    """The per-head route is kernels 21, 22b and 22t: on CPU tensors it
+    equals ``reference_block_attention`` (value, gradients, tangent) and
+    counts no launch; on tensors of another device it raises before any
+    launch, from the kernels' input checks (the kernels launch, and count,
+    only on CUDA tensors: ``tests/test_torch_window_attention_cuda.py``)."""
+    from swift_torch.ops import window_attention as wa
+
     rng = np.random.default_rng(63)
-    qkv, scale = _t(_rand(rng, (1, 8, 16, 2 * 48))), _t(np.ones(2, np.float32))
-    torch.testing.assert_close(
-        block_attention.per_head_window_attention(qkv, scale, 2, (2, 4), (1, 2)),
-        block_attention.reference_block_attention(qkv, scale, 2, (2, 4), (1, 2)))
-    with pytest.raises(NotImplementedError, match="kernels 21 and 22"):
-        block_attention.per_head_window_attention(qkv.to("meta"), scale.to("meta"), 2, (2, 4),
-                                                  (1, 2))
+    qkv, scale = _t(_rand(rng, (1, 8, 16, 2 * 48)), True), _t(np.full(2, 3.0, np.float32), True)
+    counters = (wa.window_attention, wa.window_attention_bwd, wa.window_attention_tangent)
+    before = [c.launches for c in counters]
+    got = block_attention.per_head_window_attention(qkv, scale, 2, (2, 4), (1, 2))
+    want = block_attention.reference_block_attention(qkv, scale, 2, (2, 4), (1, 2))
+    torch.testing.assert_close(got, want)
+    dout = torch.randn(got.shape, generator=torch.Generator().manual_seed(0))
+    gq, gs = torch.autograd.grad(got, (qkv, scale), dout)
+    wq, ws = torch.autograd.grad(want, (qkv, scale), dout)
+    torch.testing.assert_close((gq, gs), (wq, ws))
+    with torch.no_grad(), forward_ad.dual_level():
+        tq = _t(_rand(rng, qkv.shape))
+        tangent = forward_ad.unpack_dual(block_attention.per_head_window_attention(
+            forward_ad.make_dual(qkv.detach(), tq), scale.detach(), 2, (2, 4), (1, 2))).tangent
+        torch.testing.assert_close(tangent, block_attention.reference_block_attention_tangent(
+            qkv.detach(), tq, scale.detach(), 2, (2, 4), (1, 2)))
+    assert [c.launches for c in counters] == before
+    with pytest.raises(ValueError, match="window_attention: all inputs must be on one CUDA"):
+        block_attention.per_head_window_attention(qkv.detach().to("meta"),
+                                                  scale.detach().to("meta"), 2, (2, 4), (1, 2))
+    assert [c.launches for c in counters] == before
 
 
 # -- the model: latitude padding, factorized position embedding, tiled route -------
@@ -342,15 +367,20 @@ def test_quarter_swinv2_tangent_matches_jax_jvp(jax_route, monkeypatch):
 
 
 def test_quarter_routes_without_forcing():
-    """Unforced, the tiny model takes the JAX model's routes: the whole-grid
-    kernels for the unshifted block, the tiled ones for the shifted block
-    (its width shift 4 is not 8-aligned)."""
+    """Unforced, the JAX gates give the whole-grid kernels for the unshifted
+    block and the tiled ones for the shifted block (its width shift 4 is not
+    8-aligned); the port's fixed-window kernels take only 256-token windows,
+    so its route for these (4, 8) windows is the per-head one for both."""
     _, _, tpre = _quarter_pair(75)
     blk = tpre.model.transformer.layers
     routes = [block_attention.attention_route(tpre.model.grid_size, a.window_size, a.shift,
                                               a.heads, a.heads * a.head_dim)
               for a, _ in blk]
-    assert routes == ["block", "tiled"]
+    assert [pba.block_attention_eligible(tpre.model.grid_size, a.window_size, a.shift, a.heads,
+                                         a.heads * a.head_dim) for a, _ in blk] == [True, False]
+    assert pba.tiled_block_attention_eligible(tpre.model.grid_size, blk[1][0].window_size,
+                                              blk[1][0].heads, 2 * 16)
+    assert routes == ["per_head", "per_head"]
 
 
 # -- converter, checkpoint, the 0.25° loss, FLOP count and labels ------------------

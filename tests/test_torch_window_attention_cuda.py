@@ -1,0 +1,156 @@
+"""Kernels 21, 22b, 22t and 20, and the SwiGLU hidden padding, on the card.
+
+Each kernel against its plain PyTorch version on the same bf16 inputs made
+from a numpy seed, within 2e-2 of max|plain| (bf16 rounding of the outputs
+and of p, dS and dP, which the kernel and the plain version round at the
+same points but after sums in other orders):
+
+* 21, 22b and 22t at n ∈ {4, 16, 64, 256, 1024} tokens a window and
+  d ∈ {8, 88, 128, 160} (the tail of a tile masked, d zero-padded inside);
+* the per-head route of the model launching them, and only them, from qkv;
+* 20 at D 1056, H 2816 and at D 32, H 85; kernels 5, 8, 9, 10 and 11 at
+  H = 85, which their wrappers zero-pad to 88.
+
+All are marked ``cuda`` and skip without a card. The file imports neither
+JAX nor flax (the card's machine has no flax): ``python -m pytest
+tests/test_torch_window_attention_cuda.py -m cuda -q`` on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from swift_torch.ops import block_attention, ffn, window_attention as wa
+
+TOL = 2e-2
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return np.random.default_rng(11)
+
+
+def _t(rng, shape, scale=1.0, dtype=torch.bfloat16):
+    a = (scale * rng.standard_normal(shape)).astype(np.float32)
+    return torch.from_numpy(a).to("cuda", dtype)
+
+
+def _agree(got, want, what):
+    got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) else want
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g.float() - w.float()).abs().max().item()
+        ref = w.float().abs().max().item()
+        assert torch.isfinite(g).all() and err <= TOL * ref, (what, i, err, ref)
+
+
+def _normalized(rng, shape):
+    q, k = (_t(rng, shape, dtype=torch.float32) for _ in range(2))
+    qn = (q * torch.rsqrt((q * q).sum(-1, keepdim=True)) * 10.0).to(torch.bfloat16)
+    kn = (k * torch.rsqrt((k * k).sum(-1, keepdim=True))).to(torch.bfloat16)
+    return qn, kn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 88, 128, 160])
+@pytest.mark.parametrize("n", [4, 16, 64, 256, 1024])
+def test_window_attention_kernels_match_plain(card, n, d):
+    rng = card
+    shape = (max(2, 256 // n), 3, n, d)
+    q, k = _normalized(rng, shape)
+    v, do, tq, tk, tv = (_t(rng, shape) for _ in range(5))
+    counts = [f.launches for f in (wa.window_attention, wa.window_attention_bwd,
+                                   wa.window_attention_tangent)]
+    _agree(wa.window_attention(q, k, v), wa.reference_sdpa(q, k, v), "21")
+    _agree(wa.window_attention_bwd(q, k, v, do), wa.reference_sdpa_bwd(q, k, v, do), "22b")
+    _agree(wa.window_attention_tangent(q, k, v, tq, tk, tv),
+           wa.reference_sdpa_tangent(q, k, v, tq, tk, tv), "22t")
+    assert [f.launches for f in (wa.window_attention, wa.window_attention_bwd,
+                                 wa.window_attention_tangent)] == [c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+def test_window_attention_refuses_what_it_cannot_take(card):
+    q = _t(card, (2, 2, 16, 264))
+    with pytest.raises(ValueError, match="d=264"):
+        wa.window_attention(q, q, q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        wa.window_attention(q[..., :8].float(), q[..., :8].float(), q[..., :8].float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,shift,heads,d", [((8, 8), (4, 4), 4, 88),
+                                                  ((2, 2), (1, 1), 4, 8),
+                                                  ((16, 16), (8, 8), 2, 160)])
+def test_per_head_route_launches_only_its_kernels(card, window, shift, heads, d):
+    """From qkv, the route (the roll, windows, head split, the normalisation
+    in PyTorch, kernel 21 and the inverse layout) against the plain
+    whole-grid attention, under autograd (22b: dqkv and the logit scale's
+    gradient) and forward_ad (22t)."""
+    from torch.autograd import forward_ad
+
+    rng = card
+    qkv = _t(rng, (2, 16, 32, heads * 3 * d)).requires_grad_()
+    scale = torch.exp(_t(rng, (heads,), 0.3, torch.float32) + np.log(10.0)).requires_grad_()
+    fixed = [block_attention.fused_block_attention, block_attention.block_attention_bwd,
+             block_attention.block_attention_tangent, block_attention.fused_tiled_block_attention,
+             block_attention.tiled_block_attention_bwd,
+             block_attention.tiled_block_attention_tangent]
+    before = [f.launches for f in fixed]
+    per_head = [wa.window_attention, wa.window_attention_bwd, wa.window_attention_tangent]
+    start = [f.launches for f in per_head]
+    out = block_attention.per_head_window_attention(qkv, scale, heads, window, shift)
+    dout = _t(rng, out.shape)
+    g, gs = torch.autograd.grad(out, (qkv, scale), dout)
+    scale = scale.detach()
+    plain = block_attention.reference_block_attention(qkv.detach(), scale, heads, window, shift)
+    _agree(out, plain, "forward")
+    _agree((g, gs), block_attention.reference_block_attention_bwd(
+        qkv.detach(), scale, dout, heads, window, shift), "dqkv, dscale")
+    tq = _t(rng, qkv.shape)
+    with torch.no_grad(), forward_ad.dual_level():
+        tangent = forward_ad.unpack_dual(block_attention.per_head_window_attention(
+            forward_ad.make_dual(qkv.detach(), tq), scale, heads, window, shift)).tangent
+        _agree(tangent, block_attention.reference_block_attention_tangent(
+            qkv.detach(), tq, scale, heads, window, shift), "tangent")
+    assert [f.launches for f in per_head] == [s + n for s, n in zip(start, (2, 1, 1))]
+    assert [f.launches for f in fixed] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(1056, 2816), (32, 85)])
+def test_ffn_modnorm_kernel_matches_plain(card, D, H):
+    rng = card
+    B, N = 2, 512
+    args = (_t(rng, (B, N, D)), _t(rng, (2 * H, D), D ** -0.5), _t(rng, (D, H), H ** -0.5),
+            1.0 + _t(rng, (D,), 0.1, torch.float32), _t(rng, (D,), 0.1, torch.float32),
+            _t(rng, (B, D), 0.2), _t(rng, (B, D), 0.2))
+    n0 = ffn.fused_swiglu_ffn_modnorm.launches
+    _agree(ffn.fused_swiglu_ffn_modnorm(*args), ffn.reference_swiglu_ffn_modnorm(*args), "20")
+    assert ffn.fused_swiglu_ffn_modnorm.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_ffn_kernels_take_hidden_85(card):
+    """The tiny experiment's SwiGLU width: kernels 5, 8, 9, 10 and 11 with
+    the weights zero-padded to H = 88 inside their wrappers; kernel 8's g
+    and u stay at 88 for kernel 9."""
+    rng = card
+    T, D, H = 300, 32, 85
+    x, dx, dy = _t(rng, (T, D)), _t(rng, (T, D)), _t(rng, (T, D))
+    w1, w2 = _t(rng, (2 * H, D), D ** -0.5), _t(rng, (D, H), H ** -0.5)
+    g, u = _t(rng, (T, H)), _t(rng, (T, H))
+    _agree(ffn.fused_swiglu_ffn(x, w1, w2), ffn.reference_swiglu_ffn(x, w1, w2), "5")
+    # kernel 8 keeps g and u at the kernels' width 88, zero in the padded units, and kernel 9
+    # takes them so
+    y, g8, u8 = ffn.swiglu_ffn_fwd_save(x, w1, w2)
+    assert g8.shape == u8.shape == (T, 88) and not g8[:, H:].any() and not u8[:, H:].any()
+    _agree((y, g8[:, :H], u8[:, :H]), ffn.reference_swiglu_ffn_fwd_save(x, w1, w2), "8")
+    pad = lambda a: torch.nn.functional.pad(a, (0, 88 - H))  # noqa: E731
+    _agree(ffn.swiglu_ffn_bwd_saved(x, dy, pad(g), pad(u), w1, w2),
+           ffn.reference_swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2), "9")
+    _agree(ffn.swiglu_ffn_bwd_recompute(x, dy, w1, w2),
+           ffn.reference_swiglu_ffn_bwd_recompute(x, dy, w1, w2), "10")
+    _agree(ffn.swiglu_ffn_pt(x, dx, w1, w2), ffn.reference_swiglu_ffn_pt(x, dx, w1, w2), "11")
