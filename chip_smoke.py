@@ -14,7 +14,7 @@ Phases, each printed as it finishes:
    backward 22b and tangent 22t, at path B's shape, at n 256 with d 160,
    at n 1024 with d 88 and at path A's n 4 with d 8, beside
    ``F.scaled_dot_product_attention``; 5, 8-11 and 20 also at path A's
-   T 128, D 32, H 85) against its plain
+   T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
    pre-rolled input), and 10, 15-19 also at the 0.25° shapes (B=1, 368x720
@@ -24,8 +24,10 @@ Phases, each printed as it finishes:
    1 GB at 0.25°; prints both times (CUDA events, median of 20 launches, 5
    at 0.25°), the bound the card could reach from the shapes (int8 peak for
    18 and 19), the scratch of kernels 16 and 10, ``F.linear``'s time for the
-   qkv projection and its primal + tangent, and the int8 qkv product
-   (``torch._int_mm``) and weight quantization times;
+   qkv projection and its primal + tangent (with kernels 1's and 14's
+   TFLOP/s, share of the bound and ratio to it), and the int8 qkv product
+   (``torch._int_mm``) and weight quantization times; fails unless kernel
+   14's two outputs equal kernel 1's on x and on dx bit for bit;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -96,6 +98,8 @@ Phases, each printed as it finishes:
    ``swift_torch.generate.main`` from the run's npz checkpoint and from a
    ``.pt`` of its EMA under the reference names: equal stores; exact
    launches of the per-head kernels 21, 22b, 22t, none of 2, 6, 7, 15-17;
+   then ``generate.main --int8`` from the same run (kernels 18 and 19 twice
+   a forward, H = 85 padded to 96): a finite, non-constant store;
 14. win8 (path B): the flagship width on 8x8 windows (shift (4, 4)): a
    depth-2 forward cut against the fp32 plain path on the card, a forecast
    at MB = 4 x 2 steps, two sCM steps at batch 4 and one at r = 1 with
@@ -514,9 +518,12 @@ def per_head_step(depth: int) -> dict:
     return step
 
 
-# launches of one forward a block on the per-head route (the forecast of paths A, B, C)
+# launches of one forward a block on the per-head route (the forecast of paths A, B, C), and
+# of one int8 forward (path A's generate --int8: the int8 qkv product is torch._int_mm)
 PER_HEAD_FORWARD = {"linear": 1, "window_attention": 1, "matmul_modnorm_residual": 1,
                     "modnorm_residual": 1, "swiglu_ffn": 1}
+PER_HEAD_INT8_FORWARD = {"window_attention": 1, "matmul_modnorm_residual_int8": 1,
+                         "modnorm_residual": 1, "swiglu_ffn_int8": 1}
 SCM = ScmSlice("scm", SCM_EXPERIMENT, MODEL, RESOLUTION, TRAIN, SCM_PER_STEP, 16, 2,
                (SCM_CUT_DF_TOL, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL), "CPU")
 QUARTER_SCM = ScmSlice("quarter-scm", QUARTER_EXPERIMENT, QUARTER_MODEL, QUARTER_RES,
@@ -750,6 +757,8 @@ def phase_kernels() -> dict:
             ]
         for name, args, tags in cases:
             fields = check_kernel(name, args, f"heads={heads:2d} d={d:3d} {tags or ''}")
+            if name in ("linear", "linear_pt"):
+                linear_rates(name, args, fields)
             flagship = d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8)
             if name in QUARTER_KERNELS:
                 _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
@@ -758,6 +767,7 @@ def phase_kernels() -> dict:
                                         flagship_plain_ms=fields["plain_ms"])
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
+        linear_pt_equals_kernel_1(a, heads, d)
         int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
@@ -765,6 +775,53 @@ def phase_kernels() -> dict:
     window_kernels(rng, record)
     tiny_ffn_kernels(rng, record)
     return record
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a call over ``reps`` calls queued back to back between
+    two CUDA events: the device's time, with the host's cost of each call
+    hidden behind the calls before it (``time_ms`` counts that cost)."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def linear_rates(name: str, args, fields: dict) -> None:
+    """Kernels 1 and 14 beside their bound and the library: TFLOP/s, the
+    share of the bound (bound time over kernel time) and the kernel's time
+    over the library's, each from ``check_kernel``'s times; then both again
+    from calls queued back to back (``queued_ms``), without the host's cost
+    of a call."""
+    fused, lib = KERNELS[name][0], LIBRARY[name](*args)
+    flops = kernel_flops(name, args)
+    ms, lib_ms = queued_ms(lambda: fused(*args)), queued_ms(lib)
+    log(f"[kernels] {name:29s} {flops / fields['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{100 * fields['bound_ms'] / fields['ms']:.1f}% of its bound, "
+        f"{fields['ms'] / fields['library_ms']:.3f}x the library's time; queued: kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * fields['bound_ms'] / ms:.1f}% of "
+        f"its bound), library {lib_ms:.4f} ms, {ms / lib_ms:.3f}x")
+    fields.update(queued_ms=ms, queued_library_ms=lib_ms)
+
+
+def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
+    """Kernel 14's invariant at the flagship shape: ``linear_pt(x, dx, w)``
+    equals ``(fused_linear(x, w), fused_linear(dx, w))`` bit for bit (one
+    main loop, one k order for a row), so a wrong row of x or dx or a wrong
+    W stage shows at once."""
+    x, dx, w = a["x"], a["dx"], a["w_qkv"]
+    y, dy = linear_pt(x, dx, w)
+    same = torch.equal(y, fused_linear(x, w)), torch.equal(dy, fused_linear(dx, w))
+    torch.cuda.synchronize()
+    log(f"[kernels] linear_pt heads={heads:2d} d={d:3d}: equal bit for bit to kernel 1 on x and "
+        f"on dx: {same}")
+    if not all(same):
+        raise AssertionError(f"kernel 14 differs from kernel 1 (x, dx): {same}")
 
 
 def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
@@ -1550,11 +1607,12 @@ def window_kernels(rng: np.random.Generator, record: dict) -> None:
 
 
 def tiny_ffn_kernels(rng: np.random.Generator, record: dict) -> None:
-    """Kernels 5, 8, 9, 10, 11 and 20 at path A's FFN shape (``TINY_FFN``:
-    H = 85, which their wrappers zero-pad to 88) against their plain
-    versions. Kernel 8 keeps g and u at the padded width for kernel 9: its
-    plain version is the one on the padded weights, and kernel 9's takes
-    them cut back to H."""
+    """Kernels 5, 8, 9, 10, 11, 18 and 20 at path A's FFN shape
+    (``TINY_FFN``: H = 85, which the bf16 wrappers zero-pad to 88 and the
+    int8 one to 96) against their plain versions. Kernel 8 keeps g and u at
+    the padded width for kernel 9: its plain version is the one on the
+    padded weights, and kernel 9's takes them cut back to H. Kernel 18 takes
+    the fp32 parameters, as the int8 model passes them."""
     T, D, H = TINY_FFN
     t = _tensor(rng)
     x, dx, dy = t((T, D)), t((T, D)), t((T, D))
@@ -1574,6 +1632,11 @@ def tiny_ffn_kernels(rng: np.random.Generator, record: dict) -> None:
         ("swiglu_ffn_bwd_recompute", (x, dy, w1, w2), None),
         ("swiglu_ffn_pt", (x, dx, w1, w2), None),
         ("swiglu_ffn_modnorm", (x.view(B, T // B, D), w1, w2) + ep, None),
+        # torch._int_mm on the card takes widths that are multiples of 8 only: the plain
+        # version runs on the weights padded to 96, which on the CPU equals it on the
+        # unpadded ones bit for bit (tests/test_torch_int8_ops.py)
+        ("swiglu_ffn_int8", (x, w1.float(), w2.float()),
+         lambda x, w1, w2: reference_swiglu_ffn_int8(x, *pad_hidden(w1, w2, 16))),
     ]
     for name, args, plain in cases:
         fields = check_kernel(name, args, f"T={T} D={D} H={H} (path A)", reps=5, plain=plain)
@@ -1635,8 +1698,9 @@ def phase_tiny(card: str) -> dict:
     dF_x, the loss and every gradient through the kernels against the fp32
     plain path on the card); then ``swift_torch.generate.main`` from the
     run's npz checkpoint and from a ``.pt`` of the same EMA weights under the
-    reference names: equal stores, exact launches. Returns the training's
-    counts."""
+    reference names: equal stores, exact launches; and ``generate.main
+    --int8`` from the run's npz (exact launches of 18, 19, 21 and 4, a
+    finite, non-constant store). Returns the training's counts."""
     tag = "tiny"
     steps_kimg = TINY_TRAIN["batch"] / 1000.0
     cfg = cfglib.compose("train", [
@@ -1702,14 +1766,32 @@ def phase_tiny(card: str) -> dict:
     a, b = stores["npz"], stores["pt"]
     if sorted(a) != sorted(b) or not all(np.array_equal(a[v], b[v]) for v in a):
         raise AssertionError(f"[{tag}] the stores from the npz and the .pt differ")
-    # SST is zeroed at a 6 h interval (ERA5Dataset.zero_field), so only finite there
-    if not all(np.isfinite(x).all() and (v == "sea_surface_temperature" or x[:, :, 1:].std() > 0)
-               for v, x in a.items()):
-        raise AssertionError(f"[{tag}] the forecast store is not finite or is constant")
+    _check_tiny_store(a, tag)
     log(f"[{tag}] generate.main from {os.path.basename(ckpt)} and from the .pt of its EMA under "
         f"reference names: equal stores, {len(a)} variables of shape "
         f"{next(iter(a.values())).shape}, finite and non-constant; per-head kernels only")
+
+    # generate --int8 from the same run: kernels 18 (H = 85 padded to 96) and 19 on the card
+    argv = ["--input", run_dir, "--output", os.path.join(WORK, "tiny_int8"), "--int8"] + [
+        f"--{k}={v}" for k, v in TINY_ROLLOUT.items()]
+    reset_launches()
+    ofile = generate.main(generate.parser.parse_args(argv), dataset=dataset)
+    torch.cuda.synchronize()
+    _exact(read_launches(), PER_HEAD_INT8_FORWARD, forwards * model["depth"], f"{tag}-int8")
+    int8 = read_store(ofile)
+    _check_tiny_store(int8, f"{tag}-int8")
+    per_forward = {k: n * model["depth"] for k, n in PER_HEAD_INT8_FORWARD.items()}
+    log(f"[{tag}] generate.main --int8 from {os.path.basename(ckpt)}: a finite, non-constant "
+        f"store; per forward {json.dumps(per_forward)}, the others never")
     return launches
+
+
+def _check_tiny_store(store: dict, tag: str) -> None:
+    """Path A's forecast store is finite and not constant. SST is zeroed at
+    a 6 h interval (ERA5Dataset.zero_field), so only finite there."""
+    if not all(np.isfinite(x).all() and (v == "sea_surface_temperature" or x[:, :, 1:].std() > 0)
+               for v, x in store.items()):
+        raise AssertionError(f"[{tag}] the forecast store is not finite or is constant")
 
 
 def phase_win8_forecast(card: str) -> dict:

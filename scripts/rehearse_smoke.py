@@ -1,7 +1,8 @@
 """Rehearse ``chip_smoke.py``'s 0.25° phases, its sCM slices, its int8
 forecast and scoring phases and its per-head phases (kernel 20's entry,
-``synthetic-tiny-scm`` through training and ``generate.main``, the
-8x8-window forecast, sCM steps and cuts, the d = 160 forward) on the CPU.
+``synthetic-tiny-scm`` through training and ``generate.main``, bf16 and
+``--int8``, the 8x8-window forecast, sCM steps and cuts, the d = 160
+forward) on the CPU.
 
     python scripts/rehearse_smoke.py
 
@@ -132,7 +133,7 @@ def rehearse_per_head(queue: list) -> None:
         tiny = cs.per_head_step(2)
         cs.TINY_CUT = dataclasses.replace(cs.TINY_CUT, cut_tols=OPEN)
         queue[:] = [counts(tiny, cs.TINY_TRAIN["steps"]), counts(cs.PER_HEAD_FORWARD, 4),
-                    counts(cs.PER_HEAD_FORWARD, 4)]
+                    counts(cs.PER_HEAD_FORWARD, 4), counts(cs.PER_HEAD_INT8_FORWARD, 4)]
         cs.phase_tiny("CPU rehearsal")
 
         cs.RESOLUTION = (32, 64)

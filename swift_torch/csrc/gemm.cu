@@ -4,19 +4,20 @@
 // swift_linear -- replaces swift_tpu/ops/pallas_linear.py::_lin_call
 //   (kernel body _lin_kernel): the qkv projection y = x . W^T,
 //   (T, 1056) x (3168, 1056)^T at the 12x88 flagship. Compute-bound
-//   (~2*T*1056*3168 FLOP against ~T*8.4 KB moved). Design: 128x128 output
-//   tiles over 8 warps, BK=32 tiles double-buffered with cp.async, WMMA
-//   bf16 tensor-core products, fp32 tile staged in shared memory for
-//   16-byte bf16 stores. The TPU zero-padded d=88 heads to 128 lanes; here
-//   N=3168 is taken as it is and the ragged last column tile is masked.
+//   (~2*T*1056*3168 FLOP against ~T*8.4 KB moved), so it runs on Hopper's
+//   own path to the tensor cores: wgmma fed by TMA through an mbarrier
+//   ring, a producer warp and two consumer warpgroups, accumulators in
+//   registers (see linear_wgmma_kernel; the pieces are in wgmma.cuh). The
+//   TPU zero-padded d=88 heads to 128 lanes; here N=3168 is taken as it is
+//   and TMA clips the ragged last column tile.
 //
 // swift_linear_pt -- replaces swift_tpu/ops/pallas_linear.py::_lin_pt_call
 //   (kernel body _lin_pt_kernel): y = x . W^T and dy = dx . W^T, the qkv
-//   projection's primal and tangent in the sCM jvp forward. The same kernel
-//   over a 2T-row problem: a block's 128 A rows are 64 rows of x and the same
-//   64 rows of dx, read in place (no stacked copy in device memory), so both
-//   products run against every staged W tile and W is fetched as often as
-//   for kernel 1 over T rows. Compute-bound (4*T*1056*3168 FLOP).
+//   projection's primal and tangent in the sCM jvp forward. The same kernel,
+//   one consumer on 64 rows of x and the other on the same 64 rows of dx,
+//   read in place (no stacked copy in device memory), both against every
+//   staged W tile, so W is fetched as often as for kernel 1 over T rows.
+//   Compute-bound (4*T*1056*3168 FLOP).
 //
 // swift_mm_modnorm -- replaces swift_tpu/ops/pallas_modnorm.py::_mm_mn_call
 //   (kernel body _mm_mn_kernel): out = r + (LN(x . Wo^T) g + b)(1 + sc) + sh
@@ -35,60 +36,197 @@
 //   Bound by the bytes it moves (2 * T * 1056 * 2 + T * inner * 2), ~0.03 ms
 //   at T = 16,384: the int8 product is cheap at 1979 TOP/s.
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 namespace swift {
 
-constexpr int kLinBM = 128, kLinBN = 128, kBK = 32;
-using LinMma = TileMma<kLinBM, kLinBN, kBK, 2, 4>;
-constexpr int kLinLDC = kLinBN + 4;
-constexpr int kLinSmem =
-    LinMma::SMEM > kLinBM * kLinLDC * 4 ? LinMma::SMEM : kLinBM * kLinLDC * 4;
+// Kernels 1 and 14: Y = A . W^T on one wgmma + TMA main loop.
+//
+// One block alone is held back by the L2's feed to the SMs, not by the
+// tensor cores: its 128 x 256 output tile loads 48 KB a 64-deep stage for
+// 4.2 MFLOP, 1.39 GB a launch at T = 16,384, N = 3168, and it was fed no
+// faster than about 6 TB/s. So two blocks on neighbouring SMs form a
+// cluster that works on two row tiles against one column tile, and each
+// block loads half of the stage's W box and multicasts it to both: 32 KB a
+// stage a block. (A release at cluster scope on the remote arrivals made
+// the ring twice as slow; the plain arrive, as CUTLASS's, suffices: a
+// stage is released only after the wgmmas that read it have completed.)
+// The blocks are persistent (one an SM), walking tile pairs column tiles
+// fastest, so the clusters in flight share a few row blocks of A while all
+// of W (6.7 MB at 3168 x 1056) stays in L2. Warp specialisation, 384
+// threads a block:
+//   warpgroup 0, the producer: one thread keeps TMA loads in flight through
+//     a ring of kLinStages stages (64 deep in K: two 64-row A boxes and the
+//     kLinBN-row W box a stage) and gives its registers to the consumers;
+//   warpgroups 1 and 2, the consumers: each multiplies its 64-row A box by
+//     the stage's W box with four m64n256k16 wgmmas a stage, keeping the
+//     next stage's loads and its own previous wgmma group in flight, and
+//     releases each stage in both blocks of the cluster. Each holds its
+//     64 x kLinBN fp32 accumulator in registers. The epilogue rounds it to
+//     bf16 in registers, writes it into two swizzled 64 x 64 shared-memory
+//     boxes in turn and stores each with TMA, which clips the ragged edges;
+//     meanwhile the producer fills the ring for the next tile.
+// Kernel 1 gives consumer c rows [m0 + 64 c, m0 + 64 c + 64) of x. Kernel 14
+// gives consumer 0 rows [m0, m0 + 64) of x and consumer 1 the same rows of
+// dx, each read in place through its own tensor map, against the one
+// staged W box: W is fetched once for both products, as the TPU kernel's
+// one W block serves x and dx. Both run the same wgmmas in the same k
+// order for a row, so kernel 14's outputs equal kernel 1's bit for bit.
+// TMA zero-fills the ragged K tail (K = 1056 is 16.5 boxes; K = 32 is half
+// of one), rows past M and columns past N; a box wholly past the edge is
+// not loaded (its consumer's products are never stored).
+constexpr int kLinBN = 256, kLinBK = 64, kLinRows = 64, kLinThreads = 384, kLinCluster = 2;
+constexpr int kLinABytes = kLinRows * kLinBK * 2;              // one consumer's A box
+constexpr int kLinWHalf = kLinBN / kLinCluster;                // W rows a block loads
+constexpr int kLinWBytes = kLinWHalf * kLinBK * 2;
+constexpr int kLinStageBytes = 2 * kLinABytes + kLinCluster * kLinWBytes;
+constexpr int kLinCBox = 64 * 64 * 2;                          // one 64 x 64 bf16 output box
+constexpr int kLinStages = (kMaxSmem - 1024 - 256 - 4 * kLinCBox) / kLinStageBytes;
+constexpr int kLinSmem = 1024 + kLinStages * kLinStageBytes + 4 * kLinCBox + 2 * kLinStages * 8;
+static_assert(kLinStages >= 4 && kLinSmem <= kMaxSmem, "kernel 1's ring does not fit");
 
-// PT = false: Y = X . W^T over M rows. PT = true: Y = X . W^T and
-// DY = DX . W^T, half of each block's rows from X and half from DX.
-template <bool PT>
-__global__ void __launch_bounds__(LinMma::NT)
-    linear_kernel(const bf16* __restrict__ X, const bf16* __restrict__ DX,
-                  const bf16* __restrict__ W, bf16* __restrict__ Y, bf16* __restrict__ DY, int M,
-                  int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int ROWS = PT ? kLinBM / 2 : kLinBM;  // token rows a block owns
-  const int m0 = blockIdx.y * ROWS, n0 = blockIdx.x * kLinBN;
-  // tile row r -> (token row, whether it is the tangent's)
-  auto token = [=](int r) { return m0 + (PT ? r % ROWS : r); };
-  auto is_dx = [=](int r) { return PT && r >= ROWS; };
-  LinMma::Acc acc[LinMma::FM][LinMma::FN];
-  LinMma::run_rows(
-      acc, reinterpret_cast<bf16*>(smem_raw),
-      [=](int r) -> const bf16* {
-        const int m = token(r);
-        return m < M ? (is_dx(r) ? DX : X) + (size_t)m * K : nullptr;
-      },
-      X,
-      [=](int r) -> const bf16* { return n0 + r < N ? W + (size_t)(n0 + r) * K : nullptr; }, W,
-      K);
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-  // the main loop ended with a barrier: its tiles are free for the fp32 C tile
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-  const int warp = threadIdx.x / 32, wm = warp / 4, wn = warp % 4;
+// Consumer c's rows of row tile mt start at mt * tile_rows + c * row1: 128
+// and 64 for kernel 1, 64 and 0 for kernel 14. Launched in clusters of
+// kLinCluster blocks along x.
+__global__ void __launch_bounds__(kLinThreads, 1)
+    linear_wgmma_kernel(const __grid_constant__ CUtensorMap mA0,
+                        const __grid_constant__ CUtensorMap mA1,
+                        const __grid_constant__ CUtensorMap mW,
+                        const __grid_constant__ CUtensorMap mY0,
+                        const __grid_constant__ CUtensorMap mY1, int M, int N, int K,
+                        int tile_rows, int row1) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* cbox = smem + kLinStages * kLinStageBytes;  // [consumer][2] output boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(cbox + 4 * kLinCBox);
+  uint64_t* empty = full + kLinStages;
+  auto a_box = [=](int s, int c) { return smem + s * kLinStageBytes + c * kLinABytes; };
+  auto w_box = [=](int s) { return smem + s * kLinStageBytes + 2 * kLinABytes; };
+
+  const int rank = (int)cluster_rank();
+  const int n_tiles = (N + kLinBN - 1) / kLinBN;
+  const int m_pairs = ((M + tile_rows - 1) / tile_rows + kLinCluster - 1) / kLinCluster;
+  const int pairs = m_pairs * n_tiles;
+  const int cluster = blockIdx.x / kLinCluster, clusters = gridDim.x / kLinCluster;
+  const int k_blocks = (K + kLinBK - 1) / kLinBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLinStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8 * kLinCluster);  // each consumer warp of the cluster
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();  // both blocks' barriers exist before either block uses them
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int p = cluster; p < pairs; p += clusters) {
+        const int m0 = (p / n_tiles * kLinCluster + rank) * tile_rows;
+        const int n0 = p % n_tiles * kLinBN;
+        const bool a0 = m0 < M, a1 = m0 + row1 < M;
+        uint32_t bytes = (a0 ? kLinABytes : 0) + (a1 ? kLinABytes : 0);
+        for (int r = 0; r < kLinCluster; ++r) bytes += n0 + r * kLinWHalf < N ? kLinWBytes : 0;
+        const bool w = n0 + rank * kLinWHalf < N;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(&empty[s], phase ^ 1);
+          mbar_expect_tx(&full[s], bytes);
+          if (a0) tma_load_2d(a_box(s, 0), &mA0, &full[s], kb * kLinBK, m0);
+          if (a1) tma_load_2d(a_box(s, 1), &mA1, &full[s], kb * kLinBK, m0 + row1);
+          if (w)
+            tma_load_2d_multicast(w_box(s) + rank * kLinWBytes, &mW, &full[s], kb * kLinBK,
+                                  n0 + rank * kLinWHalf, (1 << kLinCluster) - 1);
+          if (++s == kLinStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // stay until every consumer of the cluster has released every stage:
+      // no arrival or multicast can reach this block after it exits
+      for (int i = 0; i < kLinStages; ++i) {
+        mbar_wait(&empty[s], phase ^ 1);
+        if (++s == kLinStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // the consumers
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const CUtensorMap* mY = c ? &mY1 : &mY0;
+    float acc[kLinBN / 2];
+    int s = 0, boxes = 0;
+    uint32_t phase = 0;
+    // lane r of each consumer warp releases a stage in cluster block r
+    auto release = [&](int stage) {
+      if (lane < kLinCluster) mbar_arrive_cluster(&empty[stage], lane);
+    };
+    for (int p = cluster; p < pairs; p += clusters) {
+      const int m0 = (p / n_tiles * kLinCluster + rank) * tile_rows + c * row1;
+      const int n0 = p % n_tiles * kLinBN;
+      int prev = 0;
+      fence_regs(acc);
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(&full[s], phase);
+        wgmma_fence();
+        const uint64_t da = wgmma_desc(a_box(s, c)), dw = wgmma_desc(w_box(s));
 #pragma unroll
-  for (int i = 0; i < LinMma::FM; ++i)
+        for (int k = 0; k < kLinBK / 16; ++k)
+          wgmma_m64n256k16(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kb > 0) release(prev);
+        prev = s;
+        if (++s == kLinStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(prev);
+
+      // epilogue: 64 columns at a time through the consumer's two boxes
+      const int r = warp * 16 + lane / 4;  // and r + 8; r % 8 == lane / 4
 #pragma unroll
-    for (int j = 0; j < LinMma::FN; ++j)
-      wmma::store_matrix_sync(
-          Cs + (wm * LinMma::FM * 16 + i * 16) * kLinLDC + wn * LinMma::FN * 16 + j * 16,
-          acc[i][j], kLinLDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int c = threadIdx.x; c < kLinBM * (kLinBN / 8); c += LinMma::NT) {
-    const int r = c / (kLinBN / 8), cc = (c % (kLinBN / 8)) * 8;
-    const int gr = token(r), gc = n0 + cc;
-    if (gr < M && gc < N)
-      *reinterpret_cast<uint4*>((is_dx(r) ? DY : Y) + (size_t)gr * N + gc) =
-          pack8(Cs + r * kLinLDC + cc);
+      for (int q = 0; q < kLinBN / 64; ++q) {
+        if (n0 + 64 * q >= N) break;
+        unsigned char* box = cbox + (2 * c + (boxes & 1)) * kLinCBox;
+        if (tid == 0) tma_store_wait_read<1>();  // the box's previous store has read it
+        named_barrier_sync(1 + c, 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * (8 * q + j) + 2 * h;
+            *reinterpret_cast<uint32_t*>(box + (r + 8 * h) * 128 + ((j ^ (lane / 4)) << 4) +
+                                         (lane % 4) * 4) = pack_bf16x2(acc[i], acc[i + 1]);
+          }
+        fence_async_smem();
+        named_barrier_sync(1 + c, 128);
+        if (tid == 0 && m0 < M) {
+          tma_store_2d(mY, box, n0 + 64 * q, m0);
+          tma_store_commit();
+        }
+        ++boxes;
+      }
+    }
+    if (tid == 0) tma_store_wait_all();
   }
 }
 
-constexpr int kMnBM = 32, kMnBN = 128;
+constexpr int kBK = 32, kMnBM = 32, kMnBN = 128;
 using MnMma = TileMma<kMnBM, kMnBN, kBK, 2, 4>;
 
 __host__ __device__ constexpr int mm_modnorm_smem(int D) {
@@ -233,25 +371,62 @@ __global__ void __launch_bounds__(MnQMma::NT)
 
 using namespace swift;
 
+// Kernels 1 and 14 share this launcher: tensor maps for the two A sources,
+// W and the two outputs, then as many clusters of two blocks as the card
+// holds at once (fewer for a small problem).
+static int launch_linear(const void* a0, const void* a1, const void* w, void* y0, void* y1,
+                         int M, int N, int K, int tile_rows, int row1, cudaStream_t stream) {
+  CUtensorMap mA0, mA1, mW, mY0, mY1;
+  if (!tensor_map_bf16(&mA0, a0, M, K, kLinRows, kLinBK) ||
+      !tensor_map_bf16(&mA1, a1, M, K, kLinRows, kLinBK) ||
+      !tensor_map_bf16(&mW, w, N, K, kLinWHalf, kLinBK) ||
+      !tensor_map_bf16(&mY0, y0, M, N, 64, 64) || !tensor_map_bf16(&mY1, y1, M, N, 64, 64))
+    return kTensorMapError;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kLinCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kLinThreads);
+  config.dynamicSmemBytes = kLinSmem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  // the shared memory limit and the clusters the card holds at once, set and
+  // asked once a device
+  static int resident[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  int& clusters = resident[device % 64];
+  if (clusters == 0) {
+    err = cudaFuncSetAttribute(linear_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kLinSmem);
+    if (err != cudaSuccess) return (int)err;
+    config.gridDim = dim3(kLinCluster);
+    err = cudaOccupancyMaxActiveClusters(&clusters, linear_wgmma_kernel, &config);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int m_pairs = ((M + tile_rows - 1) / tile_rows + kLinCluster - 1) / kLinCluster;
+  const int pairs = m_pairs * ((N + kLinBN - 1) / kLinBN);
+  config.gridDim = dim3(kLinCluster * (pairs < clusters ? pairs : clusters));
+  err = cudaLaunchKernelEx(&config, linear_wgmma_kernel, mA0, mA1, mW, mY0, mY1, M, N, K,
+                           tile_rows, row1);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// x (M, K) -> y (M, N), all bf16; w (N, K). K % 8 == 0, N % 8 == 0, 16-byte
+// aligned bases.
 extern "C" int swift_linear(const void* x, const void* w, void* y, int M, int N, int K,
                             void* stream) {
-  cudaFuncSetAttribute(linear_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kLinSmem);
-  dim3 grid((N + kLinBN - 1) / kLinBN, (M + kLinBM - 1) / kLinBM);
-  linear_kernel<false><<<grid, LinMma::NT, kLinSmem, (cudaStream_t)stream>>>(
-      (const bf16*)x, nullptr, (const bf16*)w, (bf16*)y, nullptr, M, N, K);
-  return (int)cudaGetLastError();
+  return launch_linear(x, x, w, y, y, M, N, K, 2 * kLinRows, kLinRows, (cudaStream_t)stream);
 }
 
 // x, dx (M, K) -> y, dy (M, N), all bf16; w (N, K). K % 8 == 0, N % 8 == 0.
 extern "C" int swift_linear_pt(const void* x, const void* dx, const void* w, void* y, void* dy,
                                int M, int N, int K, void* stream) {
-  cudaFuncSetAttribute(linear_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kLinSmem);
-  dim3 grid((N + kLinBN - 1) / kLinBN, (M + kLinBM / 2 - 1) / (kLinBM / 2));
-  linear_kernel<true><<<grid, LinMma::NT, kLinSmem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)dx, (const bf16*)w, (bf16*)y, (bf16*)dy, M, N, K);
-  return (int)cudaGetLastError();
+  return launch_linear(x, dx, w, y, dy, M, N, K, kLinRows, 0, (cudaStream_t)stream);
 }
 
 extern "C" int swift_mm_modnorm_smem(int D) { return mm_modnorm_smem(D); }
@@ -286,5 +461,6 @@ extern "C" int swift_mm_modnorm_int8(const void* x, const void* wq, const void* 
 extern "C" int swift_max_smem() { return kMaxSmem; }
 
 extern "C" const char* swift_error_string(int code) {
+  if (code == kTensorMapError) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -127,16 +127,17 @@ def _check(name, x, w1, w2):
     return D, H
 
 
-def pad_hidden(w1, w2):
+def pad_hidden(w1, w2, multiple: int = 8):
     """(w1, w2) with the hidden width H zero-padded to the next multiple of
-    8, the kernels' 16-byte step along H: zero rows after the gate rows and
-    after the up rows of w1 (2H, D), zero columns of w2 (D, H). Exact:
-    a padded unit has g = u = 0, so silu(0)·0 = 0 meets a zero column of
-    w2. The SwiGLU width int(8/3·dim) is 85 at dim 32, which the JAX kernels
-    take (their blocks span the whole H). Returns the weights as they are
-    when H is a multiple of 8 already."""
+    ``multiple``: 8 is the bf16 kernels' 16-byte step along H, 16 the int8
+    kernel 18's. Zero rows after the gate rows and after the up rows of w1
+    (2H, D), zero columns of w2 (D, H). Exact: a padded unit has g = u = 0,
+    so silu(0)·0 = 0 meets a zero column of w2. The SwiGLU width
+    int(8/3·dim) is 85 at dim 32, which the JAX kernels take (their blocks
+    span the whole H). Returns the weights as they are when H is a multiple
+    already."""
     H = w2.shape[1]
-    pad = -H % 8
+    pad = -H % multiple
     if not pad:
         return w1, w2
     z = w1.new_zeros(pad, w1.shape[1])
@@ -408,20 +409,23 @@ def fused_swiglu_ffn_int8(x, w1, w2):
     w1: (2H, D) gate rows then up rows; w2: (D, H), float (the model passes
     its fp32 parameters). Returns (..., D) in x.dtype.
 
-    CPU tensors take :func:`reference_swiglu_ffn_int8`. CUDA tensors: the
-    weights are quantized here in PyTorch, one scale per output feature
+    CPU tensors take :func:`reference_swiglu_ffn_int8`. CUDA tensors: H is
+    zero-padded to a multiple of 16 (:func:`pad_hidden`; exact, as zero rows
+    of w1 quantize to zero gate and up, and zero columns of w2 change neither
+    h's per-token abs-max nor w2's per-output-feature scales), the weights
+    are quantized here in PyTorch, one scale per output feature
     (:func:`quant.quantize_colwise`, as the JAX caller does outside its
-    kernel), then kernel 18 quantizes x and h per token; x bf16, D and H
-    multiples of 16. Raises while autograd records and on dual tensors."""
+    kernel), then kernel 18 quantizes x and h per token; x bf16, D a
+    multiple of 16. Raises while autograd records and on dual tensors."""
     name = "fused_swiglu_ffn_int8"
     _build.refuse_autograd(name, x=x, w1=w1, w2=w2)
     if _build.on_cpu(x, w1, w2):
         return reference_swiglu_ffn_int8(x, w1, w2)
     _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2)
     _build.check_dtype(name, torch.bfloat16, x=x)
-    D, H = _check(name, x, w1, w2)
-    if H % 16:
-        raise ValueError(f"{name}: H={H} must be a multiple of 16")
+    D = _check(name, x, w1, w2)[0]
+    w1, w2 = pad_hidden(w1, w2, 16)
+    H = w2.shape[1]
     lib = _build.library()
     if lib.swift_ffn_int8_smem(D, H) > lib.swift_max_smem():
         raise ValueError(f"{name}: D={D}, H={H} need more shared memory than a block has")

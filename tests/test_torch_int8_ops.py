@@ -135,6 +135,22 @@ def test_int8_ffn_plain_matches_jax():
     assert ffn.fused_swiglu_ffn_int8.launches == before
 
 
+@pytest.mark.parametrize("H", [85, 100, 2816])
+def test_int8_ffn_hidden_padding_is_exact(H):
+    """The int8 wrapper zero-pads H to a multiple of 16 for kernel 18
+    (``pad_hidden(w1, w2, 16)``) before the weights are quantized: zero rows
+    of W1 quantize to zero gate and up, and zero columns of W2 change neither
+    h's per-token abs-max nor W2's per-output-feature scales, so the plain
+    version on the padded weights equals the unpadded one bit for bit."""
+    x, w1, w2 = _ffn_inputs(5, T=64, D=48, H=H)
+    w1t, w2t = _t(w1.T), _t(w2.T)
+    w1p, w2p = ffn.pad_hidden(w1t, w2t, 16)
+    assert w2p.shape == (48, H + -H % 16) and w1p.shape == (2 * w2p.shape[1], 48)
+    assert (w1p is w1t) == (H % 16 == 0)
+    np.testing.assert_array_equal(ffn.reference_swiglu_ffn_int8(_t(x), w1p, w2p).numpy(),
+                                  ffn.reference_swiglu_ffn_int8(_t(x), w1t, w2t).numpy())
+
+
 def _modnorm_inputs(seed=2, B=2, n=128, F=96, D=48):
     rng = np.random.default_rng(seed)
     return (_rand(rng, (B, n, F)), _rand(rng, (F, D), F ** -0.5), _rand(rng, (B, n, D)),
@@ -206,12 +222,17 @@ def _card_close(fused, plain, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tokens,D,H,F", [(1000, 208, 272, 96), (136, 1056, 2816, 1056),
-                                          (4096, 1056, 2816, 1024)])
+                                          (4096, 1056, 2816, 1024), (128, 32, 85, 32)])
 def test_int8_kernels_match_plain_on_card(tokens, D, H, F):
     """Kernels 18 and 19 in bf16 on the card against their plain versions,
     within 2e-2 of max|plain|: a token count that tiles neither kernel's
-    rows, D that is not a multiple of 128, and the flagship widths (F the
-    12x88 and 8x128 attention widths). Each wrapper counts one launch."""
+    rows, D that is not a multiple of 128, the flagship widths (F the
+    12x88 and 8x128 attention widths), and synthetic-tiny-scm's SwiGLU width
+    85, which the wrapper pads to 96. The plain version runs on the weights
+    padded to a multiple of 16 (``torch._int_mm`` on the card takes widths
+    that are multiples of 8 only), equal to it on the unpadded ones bit for
+    bit (:func:`test_int8_ffn_hidden_padding_is_exact`). Each wrapper counts
+    one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(11)
@@ -222,7 +243,9 @@ def test_int8_kernels_match_plain_on_card(tokens, D, H, F):
     x = t((2, tokens // 2, D))
     w1, w2 = t((2 * H, D), D ** -0.5, torch.float32), t((D, H), H ** -0.5, torch.float32)
     before = ffn.fused_swiglu_ffn_int8.launches
-    _card_close(ffn.fused_swiglu_ffn_int8, ffn.reference_swiglu_ffn_int8, (x, w1, w2))
+    _card_close(ffn.fused_swiglu_ffn_int8,
+                lambda x, w1, w2: ffn.reference_swiglu_ffn_int8(x, *ffn.pad_hidden(w1, w2, 16)),
+                (x, w1, w2))
     assert ffn.fused_swiglu_ffn_int8.launches == before + 1
     args = (t((2, tokens // 2, F)), t((D, F), F ** -0.5, torch.float32), x,
             1.0 + t((D,), 0.1, torch.float32), t((D,), 0.1, torch.float32), t((2, D), 0.2),

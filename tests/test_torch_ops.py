@@ -195,6 +195,57 @@ def test_kernels_match_plain_on_card():
     assert sorted(record) == sorted(chip_smoke.KERNELS)
 
 
+# (M, N, K) of kernels 1 and 14: ragged rows, columns and K tails (K = 32 is
+# half a 64-deep TMA box, K = 8 an eighth), one row past a 64-row box, and
+# the flagship's two head layouts, 12x88 and 8x128, at B = 2.
+LINEAR_SHAPES = [(1000, 120, 208), (136, 96, 32), (128, 96, 32), (65, 8, 8),
+                 (16384, 3168, 1056), (16384, 3072, 1056)]
+
+
+def _linear_inputs(M, N, K):
+    rng = np.random.default_rng(M + N + K)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", torch.bfloat16)
+
+    return t((M, K)), t((M, K)), t((N, K), K ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", LINEAR_SHAPES)
+def test_linear_kernels_match_plain_on_card(M, N, K):
+    """Kernels 1 and 14 (one wgmma + TMA main loop) against their plain
+    versions in bf16 on the card, every output within 2e-2 of max|plain|;
+    each wrapper counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, dx, w = _linear_inputs(M, N, K)
+    before = (linear.fused_linear.launches, linear.linear_pt.launches)
+    got = (linear.fused_linear(x, w), *linear.linear_pt(x, dx, w))
+    want = (linear.reference_linear(x, w), *linear.reference_linear_pt(x, dx, w))
+    torch.cuda.synchronize()
+    assert (linear.fused_linear.launches, linear.linear_pt.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    for g, ref in zip(got, want):
+        err = (g.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", LINEAR_SHAPES)
+def test_linear_pt_equals_kernel_1_bit_for_bit(M, N, K):
+    """Kernel 14's design invariant: ``linear_pt(x, dx, w)`` equals
+    ``(fused_linear(x, w), fused_linear(dx, w))`` bit for bit. Both run the
+    same wgmmas in one k order for a row, so a wrong row of x or dx, or a
+    wrong W stage, shows at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, dx, w = _linear_inputs(M, N, K)
+    y, dy = linear.linear_pt(x, dx, w)
+    assert torch.equal(y, linear.fused_linear(x, w))
+    assert torch.equal(dy, linear.fused_linear(dx, w))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tokens,d", [(1000, 40), (136, 24)])
 def test_kernels_match_plain_at_ragged_shapes(tokens, d):
