@@ -17,17 +17,21 @@ Phases, each printed as it finishes:
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
-   pre-rolled input), and 10, 15-19 also at the 0.25° shapes (B=1, 368x720
-   tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19) from a
-   numpy seed; fails when max|kernel - plain| of any output exceeds 2e-2 of
-   max|plain|, or when kernel 16's scratch exceeds its qkv or kernel 10's
-   1 GB at 0.25°; prints both times (CUDA events, median of 20 launches, 5
-   at 0.25°), the bound the card could reach from the shapes (int8 peak for
-   18 and 19), the scratch of kernels 16 and 10, ``F.linear``'s time for the
-   qkv projection and its primal + tangent (with kernels 1's and 14's
-   TFLOP/s, share of the bound and ratio to it), and the int8 qkv product
+   pre-rolled input), and 5, 10, 11, 15-19 also at the 0.25° shapes (B=1,
+   368x720 tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19)
+   from a numpy seed; fails when max|kernel - plain| of any output exceeds
+   2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or the
+   scratch of kernel 5, 10 or 11 1 GB at 0.25°; prints both times (CUDA
+   events, median of 20 launches, 5 at 0.25°), the bound the card could
+   reach from the shapes (int8 peak for 18 and 19), the scratch of kernels
+   5, 10, 11 and 16, ``F.linear``'s time for the qkv projection and its
+   primal + tangent and a composition of library calls (``F.linear``,
+   silu·mul, ``F.linear``) for the FFN and its primal + tangent (with
+   kernels 1's, 14's, 5's and 11's TFLOP/s, share of the bound and ratio to
+   the yardstick, single calls and queued), and the int8 qkv product
    (``torch._int_mm``) and weight quantization times; fails unless kernel
-   14's two outputs equal kernel 1's on x and on dx bit for bit;
+   14's two outputs equal kernel 1's on x and on dx, and kernel 11's y
+   kernel 5's, bit for bit;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -158,6 +162,7 @@ from swift_torch.ops.block_attention import (
 )
 from swift_torch.ops.ffn import (
     bwd_recompute_scratch_bytes,
+    ffn_scratch_bytes,
     fused_swiglu_ffn,
     fused_swiglu_ffn_int8,
     fused_swiglu_ffn_modnorm,
@@ -574,6 +579,40 @@ LIBRARY = {
 }
 
 
+def _composition_ffn(x, w1, w2):
+    """F.linear(x, w1) (cuBLAS), silu(g)·u, F.linear(h, w2): the FFN as a
+    user would write it in PyTorch."""
+    H = w2.shape[1]
+
+    def run():
+        gu = torch.nn.functional.linear(x, w1)
+        return torch.nn.functional.linear(torch.nn.functional.silu(gu[:, :H]) * gu[:, H:], w2)
+
+    return run
+
+
+def _composition_ffn_pt(x, dx, w1, w2):
+    """The same on the (2T, ·) stacks: F.linear of x over dx by w1, h and
+    dh = σ(g)(1 + g(1 − σ(g)))·dg·u + silu(g)·du, F.linear of h over dh by w2."""
+    H, T = w2.shape[1], x.shape[0]
+    stacked = torch.cat([x, dx])  # made once, outside the timing
+
+    def run():
+        gu = torch.nn.functional.linear(stacked, w1)
+        g, u, dg, du = gu[:T, :H], gu[:T, H:], gu[T:, :H], gu[T:, H:]
+        sig = torch.sigmoid(g)
+        h = torch.cat([g * sig * u, sig * (1 + g * (1 - sig)) * dg * u + g * sig * du])
+        return torch.nn.functional.linear(h, w2)
+
+    return run
+
+
+# Kernels 5 and 11 have no single PyTorch call of the same function: their
+# yardstick is a composition of library calls, timed beside them
+# (``composition_ms``), never a ``library_ms``.
+COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -757,8 +796,8 @@ def phase_kernels() -> dict:
             ]
         for name, args, tags in cases:
             fields = check_kernel(name, args, f"heads={heads:2d} d={d:3d} {tags or ''}")
-            if name in ("linear", "linear_pt"):
-                linear_rates(name, args, fields)
+            if name in ("linear", "linear_pt") + tuple(COMPOSITION):
+                rates(name, args, fields)
             flagship = d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8)
             if name in QUARTER_KERNELS:
                 _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
@@ -768,6 +807,8 @@ def phase_kernels() -> dict:
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
         linear_pt_equals_kernel_1(a, heads, d)
+        if d == GEOMETRIES[0][1]:
+            ffn_pt_equals_kernel_5(a)
         int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
@@ -792,21 +833,28 @@ def queued_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def linear_rates(name: str, args, fields: dict) -> None:
-    """Kernels 1 and 14 beside their bound and the library: TFLOP/s, the
-    share of the bound (bound time over kernel time) and the kernel's time
-    over the library's, each from ``check_kernel``'s times; then both again
-    from calls queued back to back (``queued_ms``), without the host's cost
-    of a call."""
-    fused, lib = KERNELS[name][0], LIBRARY[name](*args)
+def rates(name: str, args, fields: dict) -> None:
+    """Kernels 1, 14, 5 and 11 beside their bound and their yardstick (the
+    library call of 1 and 14, the composition of library calls of 5 and
+    11): TFLOP/s, the share of the bound (bound time over kernel time) and
+    the kernel's time over the yardstick's, from single calls
+    (``check_kernel``'s kernel time); then both again from calls queued back
+    to back (``queued_ms``), without the host's cost of a call."""
+    fused = KERNELS[name][0]
+    if name in LIBRARY:
+        what, yard = "library", LIBRARY[name](*args)
+        yard_ms = fields["library_ms"]
+    else:
+        what, yard = "composition", COMPOSITION[name](*args)
+        yard_ms = fields["composition_ms"] = time_ms(yard)
     flops = kernel_flops(name, args)
-    ms, lib_ms = queued_ms(lambda: fused(*args)), queued_ms(lib)
+    ms, q_yard_ms = queued_ms(lambda: fused(*args)), queued_ms(yard)
     log(f"[kernels] {name:29s} {flops / fields['ms'] / 1e9:.1f} TFLOP/s, "
         f"{100 * fields['bound_ms'] / fields['ms']:.1f}% of its bound, "
-        f"{fields['ms'] / fields['library_ms']:.3f}x the library's time; queued: kernel "
+        f"{fields['ms'] / yard_ms:.3f}x the {what}'s time ({yard_ms:.4f} ms); queued: kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {100 * fields['bound_ms'] / ms:.1f}% of "
-        f"its bound), library {lib_ms:.4f} ms, {ms / lib_ms:.3f}x")
-    fields.update(queued_ms=ms, queued_library_ms=lib_ms)
+        f"its bound), {what} {q_yard_ms:.4f} ms, {ms / q_yard_ms:.3f}x")
+    fields.update({"queued_ms": ms, f"queued_{what}_ms": q_yard_ms})
 
 
 def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
@@ -822,6 +870,19 @@ def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
         f"on dx: {same}")
     if not all(same):
         raise AssertionError(f"kernel 14 differs from kernel 1 (x, dx): {same}")
+
+
+def ffn_pt_equals_kernel_5(a: dict) -> None:
+    """Kernel 11's invariant at the flagship shape: the y of
+    ``swiglu_ffn_pt(x, dx, w1, w2)`` equals ``fused_swiglu_ffn(x, w1, w2)``
+    bit for bit (both passes run one k order for a row, pass 1 one h
+    expression), so a wrong row, W stage or g/u handover shows at once."""
+    x, dx, w1, w2 = a["x"], a["dx"], a["w1"], a["w2"]
+    same = torch.equal(swiglu_ffn_pt(x, dx, w1, w2)[0], fused_swiglu_ffn(x, w1, w2))
+    torch.cuda.synchronize()
+    log(f"[kernels] swiglu_ffn_pt: y equal bit for bit to kernel 5's: {same}")
+    if not same:
+        raise AssertionError("kernel 11's y differs from kernel 5's")
 
 
 def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
@@ -847,24 +908,27 @@ def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
 
 
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
-    """Kernels 10, 15-17, 18 and 19 at the 0.25° shapes (B = 1, 368x720
-    tokens, 8x128 heads, the 264,960-token FFN), with the scratch of kernels
-    16 and 10: computed from the shapes, and read as the peak device memory
-    of one call above its inputs and outputs."""
+    """Kernels 5, 10, 11, 15-17, 18 and 19 at the 0.25° shapes (B = 1,
+    368x720 tokens, 8x128 heads, the 264,960-token FFN), with the scratch of
+    kernels 5, 10, 11 and 16: computed from the shapes, and read as the
+    peak device memory of one call above its inputs and outputs. The main
+    path of 5, 11, 18 and 19 is the flagship's: their 0.25° times stand
+    beside it."""
     t = _tensor(rng)
     gh, gw = QUARTER_GRID
     heads, d, T = 8, 128, gh * gw
     qkv = t((1, gh, gw, 3 * heads * d))
     scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    x, dx = t((T, DIM)), t((T, DIM))
+    w1, w2 = t((2 * HIDDEN, DIM), DIM ** -0.5), t((DIM, HIDDEN), HIDDEN ** -0.5)
     cases = [
         ("tiled_block_attention", (qkv, scale, heads, (16, 16))),
         ("tiled_block_attention_bwd", (qkv, scale, t((1, gh, gw, heads * d)), heads, (16, 16))),
         ("tiled_block_attention_tangent", (qkv, t(qkv.shape), scale, heads, (16, 16))),
-        ("swiglu_ffn_bwd_recompute", (t((T, DIM)), t((T, DIM)),
-                                      t((2 * HIDDEN, DIM), DIM ** -0.5),
-                                      t((DIM, HIDDEN), HIDDEN ** -0.5))),
-        ("swiglu_ffn_int8", (t((T, DIM)), t((2 * HIDDEN, DIM), DIM ** -0.5, torch.float32),
-                             t((DIM, HIDDEN), HIDDEN ** -0.5, torch.float32))),
+        ("swiglu_ffn", (x, w1, w2)),
+        ("swiglu_ffn_pt", (x, dx, w1, w2)),
+        ("swiglu_ffn_bwd_recompute", (x, dx, w1, w2)),
+        ("swiglu_ffn_int8", (x, w1.float(), w2.float())),
         ("matmul_modnorm_residual_int8",
          (t((1, gh, gw, heads * d)), t((DIM, heads * d), (heads * d) ** -0.5, torch.float32),
           t((1, gh, gw, DIM)), 1.0 + t((DIM,), 0.1, torch.float32), t((DIM,), 0.1, torch.float32),
@@ -873,16 +937,19 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     scratch = {
         "tiled_block_attention_bwd": (tiled_bwd_scratch_bytes(1, gh, gw, heads, d, (16, 16)),
                                       _nbytes([qkv]), "the qkv it differentiates"),
+        "swiglu_ffn": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=False), 1e9, "1 GB"),
+        "swiglu_ffn_pt": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=True), 1e9, "1 GB"),
         "swiglu_ffn_bwd_recompute": (bwd_recompute_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
     }
+    beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt")
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
-        if name in INT8_KERNELS:  # their main path is the flagship forecast: 0.25° beside it
+        if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
                                 quarter_bound_ms=fields["bound_ms"])
-            continue
-        _merge(record, name, fields, True)
+        else:
+            _merge(record, name, fields, True)
         if name in scratch:
             computed, limit, what = scratch[name]
             torch.cuda.synchronize()
@@ -893,13 +960,13 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
             measured = torch.cuda.max_memory_allocated() - base - _nbytes(
                 out if isinstance(out, tuple) else (out,))
             del out
-            record[name]["scratch_bytes"] = computed
+            record[name].update(scratch_bytes=computed, scratch_read_bytes=measured)
             log(f"[kernels] {name} scratch at 0.25°: {computed / 1e9:.4f} GB from the shapes, "
                 f"{measured / 1e9:.4f} GB read as peak device memory above inputs and outputs "
                 f"(limit {limit / 1e9:.2f} GB, {what})")
             if max(computed, measured) > limit:
                 raise AssertionError(f"{name}: scratch {max(computed, measured)} > {limit} bytes")
-    del cases, qkv
+    del cases, qkv, x, dx, w1, w2
     torch.cuda.empty_cache()
 
 

@@ -18,7 +18,7 @@ cost estimates count 4 bytes an element, and 22b has none); their rows in
 the first table are at path B's shape (8×8 windows at B = 2: BW 256,
 12 × 88, n 64), and a third table gives them at the other shapes
 ``chip_smoke.py`` times. A second table gives the rows the 0.25°
-configuration runs (10, 15–19) at its shapes: B = 1, 368×720 tokens (the
+configuration runs (5, 10, 11, 15–19) at its shapes: B = 1, 368×720 tokens (the
 721×1440 grid edge-padded to 736 rows, patch 2), 8 heads × 128. Pure
 arithmetic: no device is needed, and ``chip_smoke.py`` computes the same
 bounds for the kernels it runs.
@@ -72,7 +72,9 @@ WINDOW_ROWS = [
 ]
 
 QUARTER_ROWS = [
+    (5, "pallas_ffn.py:68 _ffn_call", ffn(3, 1, 1, tokens=QUARTER_T), "bf16"),
     (10, "pallas_ffn.py:293 _ffn_bwd_call", ffn(8, 2, 1, weights=2, tokens=QUARTER_T), "bf16"),
+    (11, "pallas_ffn.py:392 _ffn_pt_call", ffn(6, 2, 2, tokens=QUARTER_T), "bf16"),
     (15, "pallas_block_attention.py:655 _tiled_fwd_call",
      attention(2, 3, 1, QUARTER_T, QUARTER_INNER), "bf16"),
     (16, "pallas_block_attention.py:743 _tiled_bwd_call",

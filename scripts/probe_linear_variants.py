@@ -50,7 +50,7 @@ VARIANTS = {
     "one_block": [("kLinCluster = 2;", "kLinCluster = 1;")],
     "cluster_release": [("mbarrier.arrive.shared::cluster.b64",
                          "mbarrier.arrive.release.cluster.shared::cluster.b64")],
-    "no_store": [("tma_store_2d(mY, box, n0 + 64 * q, m0);", "")],
+    "no_store": [("tma_store_2d(map, box, col, row);", "")],
 }
 SHAPES = ((16384, 3168, 1056), (16384, 3072, 1056))
 TOL = 2e-2

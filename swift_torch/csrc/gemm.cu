@@ -19,6 +19,9 @@
 //   staged W tile, so W is fetched as often as for kernel 1 over T rows.
 //   Compute-bound (4*T*1056*3168 FLOP).
 //
+// The two are also pass 2 of the SwiGLU FFN's kernels 5 and 11 (ffn.cu):
+// y = h . W2^T with K = H = 2816 and N = D = 1056, and dy = dh . W2^T.
+//
 // swift_mm_modnorm -- replaces swift_tpu/ops/pallas_modnorm.py::_mm_mn_call
 //   (kernel body _mm_mn_kernel): out = r + (LN(x . Wo^T) g + b)(1 + sc) + sh
 //   with the per-sample AdaLN rows sc/sh. LayerNorm needs whole rows of all
@@ -75,20 +78,9 @@ namespace swift {
 // TMA zero-fills the ragged K tail (K = 1056 is 16.5 boxes; K = 32 is half
 // of one), rows past M and columns past N; a box wholly past the edge is
 // not loaded (its consumer's products are never stored).
-constexpr int kLinBN = 256, kLinBK = 64, kLinRows = 64, kLinThreads = 384, kLinCluster = 2;
-constexpr int kLinABytes = kLinRows * kLinBK * 2;              // one consumer's A box
-constexpr int kLinWHalf = kLinBN / kLinCluster;                // W rows a block loads
-constexpr int kLinWBytes = kLinWHalf * kLinBK * 2;
-constexpr int kLinStageBytes = 2 * kLinABytes + kLinCluster * kLinWBytes;
-constexpr int kLinCBox = 64 * 64 * 2;                          // one 64 x 64 bf16 output box
-constexpr int kLinStages = (kMaxSmem - 1024 - 256 - 4 * kLinCBox) / kLinStageBytes;
-constexpr int kLinSmem = 1024 + kLinStages * kLinStageBytes + 4 * kLinCBox + 2 * kLinStages * 8;
+constexpr int kLinStages = (kMaxSmem - ring_smem(0, 4, 0) - 256) / kLinStageBytes;
+constexpr int kLinSmem = ring_smem(kLinStages, 4, 0);
 static_assert(kLinStages >= 4 && kLinSmem <= kMaxSmem, "kernel 1's ring does not fit");
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Consumer c's rows of row tile mt start at mt * tile_rows + c * row1: 128
 // and 64 for kernel 1, 64 and 0 for kernel 14. Launched in clusters of
@@ -101,13 +93,10 @@ __global__ void __launch_bounds__(kLinThreads, 1)
                         const __grid_constant__ CUtensorMap mY1, int M, int N, int K,
                         int tile_rows, int row1) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* smem = align1024(smem_raw);
   unsigned char* cbox = smem + kLinStages * kLinStageBytes;  // [consumer][2] output boxes
   uint64_t* full = reinterpret_cast<uint64_t*>(cbox + 4 * kLinCBox);
   uint64_t* empty = full + kLinStages;
-  auto a_box = [=](int s, int c) { return smem + s * kLinStageBytes + c * kLinABytes; };
-  auto w_box = [=](int s) { return smem + s * kLinStageBytes + 2 * kLinABytes; };
 
   const int rank = (int)cluster_rank();
   const int n_tiles = (N + kLinBN - 1) / kLinBN;
@@ -115,114 +104,44 @@ __global__ void __launch_bounds__(kLinThreads, 1)
   const int pairs = m_pairs * n_tiles;
   const int cluster = blockIdx.x / kLinCluster, clusters = gridDim.x / kLinCluster;
   const int k_blocks = (K + kLinBK - 1) / kLinBK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kLinStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8 * kLinCluster);  // each consumer warp of the cluster
-    }
-    mbar_fence_init();
-  }
-  cluster_sync();  // both blocks' barriers exist before either block uses them
+  ring_init<kLinStages>(full, empty);
 
   if (threadIdx.x < 128) {  // the producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      int s = 0;
-      uint32_t phase = 0;
+      RingPos<kLinStages> pos;
       for (int p = cluster; p < pairs; p += clusters) {
         const int m0 = (p / n_tiles * kLinCluster + rank) * tile_rows;
         const int n0 = p % n_tiles * kLinBN;
         const bool a0 = m0 < M, a1 = m0 + row1 < M;
         uint32_t bytes = (a0 ? kLinABytes : 0) + (a1 ? kLinABytes : 0);
         for (int r = 0; r < kLinCluster; ++r) bytes += n0 + r * kLinWHalf < N ? kLinWBytes : 0;
-        const bool w = n0 + rank * kLinWHalf < N;
-        for (int kb = 0; kb < k_blocks; ++kb) {
-          mbar_wait(&empty[s], phase ^ 1);
-          mbar_expect_tx(&full[s], bytes);
-          if (a0) tma_load_2d(a_box(s, 0), &mA0, &full[s], kb * kLinBK, m0);
-          if (a1) tma_load_2d(a_box(s, 1), &mA1, &full[s], kb * kLinBK, m0 + row1);
-          if (w)
-            tma_load_2d_multicast(w_box(s) + rank * kLinWBytes, &mW, &full[s], kb * kLinBK,
-                                  n0 + rank * kLinWHalf, (1 << kLinCluster) - 1);
-          if (++s == kLinStages) {
-            s = 0;
-            phase ^= 1;
-          }
-        }
+        const int wrow = n0 + rank * kLinWHalf;
+        produce_tile(smem, full, empty, pos, &mA0, m0, a0, &mA1, m0 + row1, a1, &mW, wrow,
+                     wrow < N, bytes, k_blocks);
       }
-      // stay until every consumer of the cluster has released every stage:
-      // no arrival or multicast can reach this block after it exits
-      for (int i = 0; i < kLinStages; ++i) {
-        mbar_wait(&empty[s], phase ^ 1);
-        if (++s == kLinStages) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
+      drain(empty, pos);
     }
   } else {  // the consumers
     setmaxnreg_inc<232>();
-    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
-    const int warp = tid / 32, lane = tid % 32;
+    const int c = threadIdx.x / 128 - 1;
     const CUtensorMap* mY = c ? &mY1 : &mY0;
     float acc[kLinBN / 2];
-    int s = 0, boxes = 0;
-    uint32_t phase = 0;
-    // lane r of each consumer warp releases a stage in cluster block r
-    auto release = [&](int stage) {
-      if (lane < kLinCluster) mbar_arrive_cluster(&empty[stage], lane);
-    };
+    RingPos<kLinStages> pos;
+    int boxes = 0;
     for (int p = cluster; p < pairs; p += clusters) {
       const int m0 = (p / n_tiles * kLinCluster + rank) * tile_rows + c * row1;
       const int n0 = p % n_tiles * kLinBN;
-      int prev = 0;
-      fence_regs(acc);
-      for (int kb = 0; kb < k_blocks; ++kb) {
-        mbar_wait(&full[s], phase);
-        wgmma_fence();
-        const uint64_t da = wgmma_desc(a_box(s, c)), dw = wgmma_desc(w_box(s));
-#pragma unroll
-        for (int k = 0; k < kLinBK / 16; ++k)
-          wgmma_m64n256k16(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (kb > 0) release(prev);
-        prev = s;
-        if (++s == kLinStages) {
-          s = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(acc);
-      release(prev);
-
-      // epilogue: 64 columns at a time through the consumer's two boxes
-      const int r = warp * 16 + lane / 4;  // and r + 8; r % 8 == lane / 4
+      consume_tile(acc, smem, full, empty, pos, c, k_blocks);
+      // epilogue: 64 columns at a time through the consumer's two boxes in turn
 #pragma unroll
       for (int q = 0; q < kLinBN / 64; ++q) {
         if (n0 + 64 * q >= N) break;
-        unsigned char* box = cbox + (2 * c + (boxes & 1)) * kLinCBox;
-        if (tid == 0) tma_store_wait_read<1>();  // the box's previous store has read it
-        named_barrier_sync(1 + c, 128);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 4 * (8 * q + j) + 2 * h;
-            *reinterpret_cast<uint32_t*>(box + (r + 8 * h) * 128 + ((j ^ (lane / 4)) << 4) +
-                                         (lane % 4) * 4) = pack_bf16x2(acc[i], acc[i + 1]);
-          }
-        fence_async_smem();
-        named_barrier_sync(1 + c, 128);
-        if (tid == 0 && m0 < M) {
-          tma_store_2d(mY, box, n0 + 64 * q, m0);
-          tma_store_commit();
-        }
-        ++boxes;
+        store_box<2>(cbox + (2 * c + (boxes++ & 1)) * kLinCBox, mY, n0 + 64 * q, m0, m0 < M, c,
+                     q, [&](int i) { return pack_bf16x2(acc[i], acc[i + 1]); });
       }
     }
-    if (tid == 0) tma_store_wait_all();
+    if (threadIdx.x % 128 == 0) tma_store_wait_all();
   }
 }
 
@@ -374,6 +293,8 @@ using namespace swift;
 // Kernels 1 and 14 share this launcher: tensor maps for the two A sources,
 // W and the two outputs, then as many clusters of two blocks as the card
 // holds at once (fewer for a small problem).
+static int linear_resident[64];
+
 static int launch_linear(const void* a0, const void* a1, const void* w, void* y0, void* y1,
                          int M, int N, int K, int tile_rows, int row1, cudaStream_t stream) {
   CUtensorMap mA0, mA1, mW, mY0, mY1;
@@ -382,38 +303,10 @@ static int launch_linear(const void* a0, const void* a1, const void* w, void* y0
       !tensor_map_bf16(&mW, w, N, K, kLinWHalf, kLinBK) ||
       !tensor_map_bf16(&mY0, y0, M, N, 64, 64) || !tensor_map_bf16(&mY1, y1, M, N, 64, 64))
     return kTensorMapError;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kLinCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.blockDim = dim3(kLinThreads);
-  config.dynamicSmemBytes = kLinSmem;
-  config.stream = stream;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  // the shared memory limit and the clusters the card holds at once, set and
-  // asked once a device
-  static int resident[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  int& clusters = resident[device % 64];
-  if (clusters == 0) {
-    err = cudaFuncSetAttribute(linear_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kLinSmem);
-    if (err != cudaSuccess) return (int)err;
-    config.gridDim = dim3(kLinCluster);
-    err = cudaOccupancyMaxActiveClusters(&clusters, linear_wgmma_kernel, &config);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int m_pairs = ((M + tile_rows - 1) / tile_rows + kLinCluster - 1) / kLinCluster;
-  const int pairs = m_pairs * ((N + kLinBN - 1) / kLinBN);
-  config.gridDim = dim3(kLinCluster * (pairs < clusters ? pairs : clusters));
-  err = cudaLaunchKernelEx(&config, linear_wgmma_kernel, mA0, mA1, mW, mY0, mY1, M, N, K,
-                           tile_rows, row1);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return launch_clusters(linear_wgmma_kernel, linear_resident, kLinSmem,
+                         m_pairs * ((N + kLinBN - 1) / kLinBN), stream, mA0, mA1, mW, mY0, mY1,
+                         M, N, K, tile_rows, row1);
 }
 
 // x (M, K) -> y (M, N), all bf16; w (N, K). K % 8 == 0, N % 8 == 0, 16-byte

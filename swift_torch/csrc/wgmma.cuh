@@ -29,6 +29,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,6 +101,13 @@ __device__ __forceinline__ void cluster_sync() {
 // bar.sync on a named barrier (ids 1-15; 0 is __syncthreads) for ``threads``.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// bar.arrive on barrier ``id`` of ``threads``: arrive without waiting. This
+// thread's earlier shared-memory writes are visible to the threads that
+// pass the barrier with bar.sync.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory before later
@@ -248,6 +256,166 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- the ring of kernels 1 and 14 and of the FFN's gate/up pass ------------------
+//
+// Y = A . W^T, 384 threads a block: warpgroup 0 the producer (one thread
+// issues the TMA loads, the others give their registers away), 1 and 2 the
+// consumers, each with a 64 x 256 fp32 accumulator in registers. A stage is
+// 64 deep in K and holds the two consumers' 64-row A boxes and a 256-row W
+// box whose two 128-row halves the two blocks of a cluster load, each
+// multicasting its half into both blocks. Shared memory: the stages, the
+// consumers' 64 x 64 bf16 output boxes, what else a kernel keeps, then the
+// full and empty barriers of each stage.
+constexpr int kLinBN = 256, kLinBK = 64, kLinRows = 64, kLinThreads = 384, kLinCluster = 2;
+constexpr int kLinABytes = kLinRows * kLinBK * 2;              // one consumer's A box
+constexpr int kLinWHalf = kLinBN / kLinCluster;                // W rows a block loads
+constexpr int kLinWBytes = kLinWHalf * kLinBK * 2;
+constexpr int kLinStageBytes = 2 * kLinABytes + kLinCluster * kLinWBytes;
+constexpr int kLinCBox = 64 * 64 * 2;                          // one 64 x 64 bf16 output box
+
+// Dynamic shared memory of a ring of ``stages`` stages with ``boxes`` output
+// boxes and ``extra`` bytes more: the 1024-byte alignment pad included.
+__host__ __device__ constexpr int ring_smem(int stages, int boxes, int extra) {
+  return 1024 + stages * kLinStageBytes + boxes * kLinCBox + extra + 2 * stages * 8;
+}
+
+// The 1024-byte boundary a swizzled tile must start on.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// A walker's place in the ring: the stage and the phase parity it waits for.
+template <int STAGES>
+struct RingPos {
+  int s = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Thread 0 initialises the barriers; then both blocks of the cluster wait
+// for each other, so that each block's barriers exist before the other
+// block arrives on them. Every thread calls it.
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8 * kLinCluster);  // each consumer warp of the cluster
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();
+}
+
+// The producer's loads of one output tile, k_blocks stages: consumer 0's A
+// box at row ``row0`` of mA0 and consumer 1's at ``row1`` of mA1 where they
+// hold rows (a0, a1), and, where ``w``, this block's W half at row ``wrow``
+// of mW, multicast into both blocks. ``bytes``: what lands in this block's
+// stage from both blocks' loads together.
+template <int STAGES>
+__device__ __forceinline__ void produce_tile(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                             RingPos<STAGES>& pos, const CUtensorMap* mA0,
+                                             int row0, bool a0, const CUtensorMap* mA1, int row1,
+                                             bool a1, const CUtensorMap* mW, int wrow, bool w,
+                                             uint32_t bytes, int k_blocks) {
+  const uint32_t rank = cluster_rank();
+  for (int kb = 0; kb < k_blocks; ++kb) {
+    unsigned char* stage = smem + pos.s * kLinStageBytes;
+    mbar_wait(&empty[pos.s], pos.phase ^ 1);
+    mbar_expect_tx(&full[pos.s], bytes);
+    if (a0) tma_load_2d(stage, mA0, &full[pos.s], kb * kLinBK, row0);
+    if (a1) tma_load_2d(stage + kLinABytes, mA1, &full[pos.s], kb * kLinBK, row1);
+    if (w)
+      tma_load_2d_multicast(stage + 2 * kLinABytes + rank * kLinWBytes, mW, &full[pos.s],
+                            kb * kLinBK, wrow, (1 << kLinCluster) - 1);
+    pos.next();
+  }
+}
+
+// The producer's last act: stay until every consumer of the cluster has
+// released every stage, so that no arrival or multicast can reach this
+// block after it exits.
+template <int STAGES>
+__device__ __forceinline__ void drain(uint64_t* empty, RingPos<STAGES>& pos) {
+  for (int i = 0; i < STAGES; ++i) {
+    mbar_wait(&empty[pos.s], pos.phase ^ 1);
+    pos.next();
+  }
+}
+
+// Consumer c's products of one output tile: acc = A_c . W^T over k_blocks
+// stages, four m64n256k16 wgmmas a stage, its previous wgmma group kept in
+// flight. Each stage is released in both blocks of the cluster (lane r of
+// each warp arrives in block r) once the wgmmas that read it are done.
+template <int STAGES>
+__device__ __forceinline__ void consume_tile(float (&acc)[128], unsigned char* smem,
+                                             uint64_t* full, uint64_t* empty,
+                                             RingPos<STAGES>& pos, int c, int k_blocks) {
+  const int lane = threadIdx.x % 32;
+  auto release = [&](int stage) {
+    if (lane < kLinCluster) mbar_arrive_cluster(&empty[stage], lane);
+  };
+  int prev = 0;
+  fence_regs(acc);
+  for (int kb = 0; kb < k_blocks; ++kb) {
+    mbar_wait(&full[pos.s], pos.phase);
+    wgmma_fence();
+    unsigned char* stage = smem + pos.s * kLinStageBytes;
+    const uint64_t da = wgmma_desc(stage + c * kLinABytes);
+    const uint64_t dw = wgmma_desc(stage + 2 * kLinABytes);
+#pragma unroll
+    for (int k = 0; k < kLinBK / 16; ++k)
+      wgmma_m64n256k16(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kb > 0) release(prev);
+    prev = pos.s;
+    pos.next();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(prev);
+}
+
+// Consumer c's 64 rows x 64 columns of bf16 output through a swizzled
+// shared-memory box to (col, row) of ``map`` by TMA, which clips at the
+// edges; stored only where ``valid``. ``pair(i)`` packs the two values of
+// accumulator indices i, i + 1 with i = 4 (8 q + j) + 2 h: columns
+// 8 j + 2 (lane % 4) + {0, 1} of the box, row r + 8 h. The box is written
+// once its store of NB boxes back has read it. Call it with q a constant
+// (an unrolled loop), so that acc stays in registers.
+template <int NB, class Pair>
+__device__ __forceinline__ void store_box(unsigned char* box, const CUtensorMap* map, int col,
+                                          int row, bool valid, int c, int q, Pair pair) {
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r = tid / 32 * 16 + lane / 4;  // and r + 8; r % 8 == lane / 4
+  if (tid == 0) tma_store_wait_read<NB - 1>();
+  named_barrier_sync(1 + c, 128);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(box + (r + 8 * h) * 128 + ((j ^ (lane / 4)) << 4) +
+                                   (lane % 4) * 4) = pair(4 * (8 * q + j) + 2 * h);
+  fence_async_smem();
+  named_barrier_sync(1 + c, 128);
+  if (tid == 0 && valid) {
+    tma_store_2d(map, box, col, row);
+    tma_store_commit();
+  }
+}
+
 // -- host: tensor maps ---------------------------------------------------------
 
 // Returned by a launcher when a tensor map cannot be encoded.
@@ -294,6 +462,41 @@ inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, u
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+
+// Launches ``kernel`` in clusters of kLinCluster blocks of kLinThreads
+// threads with ``smem`` bytes of shared memory: as many clusters as the card
+// holds at once (asked once a device, kept in ``resident``), and no more
+// than ``tiles``, the cluster work items.
+template <class Kernel, class... Args>
+inline int launch_clusters(Kernel kernel, int (&resident)[64], int smem, int tiles,
+                           cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kLinCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kLinThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  int& clusters = resident[device % 64];
+  if (clusters == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    config.gridDim = dim3(kLinCluster);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return (int)err;
+  }
+  config.gridDim = dim3(kLinCluster * (tiles < clusters ? tiles : clusters));
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace swift

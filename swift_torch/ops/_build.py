@@ -40,7 +40,8 @@ _SIGNATURES = {
     "swift_mm_modnorm_smem": [_I],
     "swift_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_smem": [_I],
-    "swift_ffn_pt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "swift_swiglu_hidden": [_P, _P, _P, _I, _I, _I, _P],
+    "swift_swiglu_hidden_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_bwd_saved": [_P] * 13 + [_I, _I, _I, _P],
     "swift_splitk_workspace": [_I, _I, _I],
     "swift_block_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

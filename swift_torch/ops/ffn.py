@@ -5,20 +5,23 @@ sCM jvp forward (kernel 11), the int8 FFN of the inference path
 (kernel 18), and the FFN with its post-norm epilogue in one kernel
 (kernel 20, :func:`fused_swiglu_ffn_modnorm`).
 
-CUDA kernels: ``csrc/ffn.cu::swift_ffn``, which replaces
-``swift_tpu/ops/pallas_ffn.py::_ffn_call`` (the (tokens, 2·hidden) gate/up
-intermediate never reaches device memory) and, with its gate and up outputs
-given, ``_ffn_fwd_save_call``; ``csrc/gemm_bwd.cu::swift_ffn_bwd_saved``,
-which replaces ``_ffn_bwd_saved_call``; ``csrc/gemm_bwd.cu::
-swift_ffn_bwd_recompute``, which replaces ``_ffn_bwd_call`` (gate and up
-recomputed from x, nothing (tokens, hidden)-shaped in device memory beyond
-a chunk of tokens); ``csrc/ffn.cu::swift_ffn_pt``,
-which replaces ``_ffn_pt_call`` (y and dy with gate and up computed once
-and shared); ``csrc/ffn_int8.cu::swift_ffn_int8``, which replaces
-``fused_swiglu_ffn_int8`` (body ``_ffn_q_kernel``); ``csrc/ffn.cu::
-swift_ffn_mn``, which replaces ``_ffn_mn_call``. Weights are in the torch
-``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows first and the up
-rows second (the reference chunk order), ``w2`` (D, H).
+CUDA kernels: kernel 5, which replaces ``swift_tpu/ops/pallas_ffn.py::
+_ffn_call``, runs two passes on ``csrc/wgmma.cuh``'s ring over chunks of
+tokens (:func:`ffn_chunks`): ``csrc/ffn.cu::swift_swiglu_hidden`` writes h =
+bf16(silu(x·Wgᵀ)·(x·Wuᵀ)), the TPU kernel's own rounding point, and
+``csrc/gemm.cu::swift_linear`` (kernel 1's loop) multiplies it by W2ᵀ;
+kernel 11, which replaces ``_ffn_pt_call``, runs
+``csrc/ffn.cu::swift_swiglu_hidden_pt`` (h and dh with gate and up computed
+once and shared) and ``swift_linear_pt`` (kernel 14's loop).
+``csrc/ffn.cu::swift_ffn`` replaces ``_ffn_fwd_save_call`` (the gate and up
+outputs beside y); ``csrc/gemm_bwd.cu::swift_ffn_bwd_saved``
+``_ffn_bwd_saved_call``; ``csrc/gemm_bwd.cu::swift_ffn_bwd_recompute``
+``_ffn_bwd_call`` (gate and up recomputed from x, nothing (tokens,
+hidden)-shaped in device memory beyond a chunk of tokens);
+``csrc/ffn_int8.cu::swift_ffn_int8`` ``fused_swiglu_ffn_int8`` (body
+``_ffn_q_kernel``); ``csrc/ffn.cu::swift_ffn_mn`` ``_ffn_mn_call``. Weights
+are in the torch ``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows
+first and the up rows second (the reference chunk order), ``w2`` (D, H).
 
 While autograd records, the forward saves gate and up in x.dtype and the
 backward reads them, as the JAX package does up to
@@ -36,16 +39,43 @@ from torch.autograd import forward_ad
 import torch.nn.functional as F
 
 from swift_torch.ops import _build, jvp_guard, quant
+from swift_torch.ops.linear import reference_linear, reference_linear_pt
 from swift_torch.ops.modnorm import _vjp, reference_modnorm_residual
+
+# Kernels 5 and 11 run their two passes over chunks of at most this many
+# tokens, so that a call's scratch (h, and dh for 11) stays under 1 GB at
+# H = 2816: 0.74 GB for kernel 11 at the limit.
+FFN_CHUNK_TOKENS = 65536
 
 
 def reference_swiglu_ffn(x, w1, w2):
-    """Plain version: gate and up accumulate in fp32, h = silu(g)·u is
-    rounded to x.dtype before h·W2 (fp32 accumulation); output x.dtype."""
-    H = w2.shape[1]
+    """Plain version of kernel 5, its two passes: h =
+    :func:`reference_swiglu_hidden` (gate and up in fp32, h rounded to
+    x.dtype), then h·W2ᵀ in fp32, output x.dtype."""
+    return reference_linear(reference_swiglu_hidden(x, w1), w2)
+
+
+def reference_swiglu_hidden(x, w1):
+    """Plain version of kernel 5's first pass: h = silu(g)·u from gate and up
+    accumulated in fp32, rounded to x.dtype (the TPU kernel's rounding
+    point)."""
+    H = w1.shape[0] // 2
     gu = torch.matmul(x.float(), w1.float().t())
-    h = (F.silu(gu[..., :H]) * gu[..., H:]).to(x.dtype)
-    return torch.matmul(h.float(), w2.float().t()).to(x.dtype)
+    return (F.silu(gu[..., :H]) * gu[..., H:]).to(x.dtype)
+
+
+def reference_swiglu_hidden_pt(x, dx, w1):
+    """Plain version of kernel 11's first pass: (h, dh) with g, u, dg, du
+    accumulated in fp32, h = silu(g)·u and dh = σ(g)(1 + g(1 − σ(g)))·dg·u +
+    silu(g)·du rounded to x.dtype."""
+    H = w1.shape[0] // 2
+    w1f = w1.float().t()
+    gu = torch.matmul(x.float(), w1f)
+    dgu = torch.matmul(dx.float(), w1f)
+    g, u, dg, du = gu[..., :H], gu[..., H:], dgu[..., :H], dgu[..., H:]
+    sig = torch.sigmoid(g)
+    sg = g * sig
+    return (sg * u).to(x.dtype), ((sig * (1 + g * (1 - sig))) * dg * u + sg * du).to(x.dtype)
 
 
 def reference_swiglu_ffn_fwd_save(x, w1, w2):
@@ -96,21 +126,10 @@ def _swiglu_bwd(x, dy, g, u, w1, w2):
 
 
 def reference_swiglu_ffn_pt(x, dx, w1, w2):
-    """Plain version of kernel 11: (y, dy) of the FFN at x along dx. g, u,
-    dg, du accumulate in fp32; h = silu(g)·u and
-    dh = σ(g)(1 + g(1 − σ(g)))·dg·u + silu(g)·du are rounded to x.dtype before
-    the W2 products (fp32 accumulation), as the TPU kernel casts them."""
-    H = w2.shape[1]
-    w1f, w2f = w1.float().t(), w2.float().t()
-    gu = torch.matmul(x.float(), w1f)
-    dgu = torch.matmul(dx.float(), w1f)
-    g, u, dg, du = gu[..., :H], gu[..., H:], dgu[..., :H], dgu[..., H:]
-    sig = torch.sigmoid(g)
-    sg = g * sig
-    h = (sg * u).to(x.dtype)
-    dh = ((sig * (1 + g * (1 - sig))) * dg * u + sg * du).to(x.dtype)
-    return (torch.matmul(h.float(), w2f).to(x.dtype),
-            torch.matmul(dh.float(), w2f).to(x.dtype))
+    """Plain version of kernel 11, its two passes: (h, dh) =
+    :func:`reference_swiglu_hidden_pt`, then h·W2ᵀ and dh·W2ᵀ in fp32, as
+    the TPU kernel casts h and dh before the W2 products."""
+    return reference_linear_pt(*reference_swiglu_hidden_pt(x, dx, w1), w2)
 
 
 def _check(name, x, w1, w2):
@@ -153,38 +172,76 @@ def _unpad_grads(dw1, dw2, H):
     return torch.cat([dw1[:H], dw1[Hp:Hp + H]]), dw2[:, :H].contiguous()
 
 
-def _ffn(x, w1, w2, save: bool):
-    """Kernel 5, or kernel 8 when ``save`` (then returns (y, g, u))."""
-    jvp_guard.refuse_tangents("swiglu_ffn_fwd_save" if save else "fused_swiglu_ffn",
-                              x=x, w1=w1, w2=w2)
-    if _build.on_cpu(x, w1, w2):
-        if save:
-            return reference_swiglu_ffn_fwd_save(x, w1, w2)
-        return reference_swiglu_ffn(x, w1, w2)
-    name = "swiglu_ffn_fwd_save" if save else "fused_swiglu_ffn"
-    _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2)
-    _build.check_dtype(name, torch.bfloat16, x=x, w1=w1, w2=w2)
+def ffn_chunks(T: int) -> list[tuple[int, int]]:
+    """The token ranges [start, stop) over which kernels 5 and 11 run their
+    two passes: [0, T) in as few pieces of at most :data:`FFN_CHUNK_TOKENS`
+    as it takes, of one length rounded up to whole 128-token row tiles
+    where that stays within the limit. One piece for the flagship (16,384
+    and 32,768 tokens), five of 52,992 at 0.25° (264,960 tokens)."""
+    limit = FFN_CHUNK_TOKENS
+    if T <= limit:
+        return [(0, T)]
+    pieces = -(-T // limit)  # ceil(T / limit)
+    size = min(limit, -(-T // (128 * pieces)) * 128)  # ceil(T / pieces), whole tiles
+    return [(s, min(s + size, T)) for s in range(0, T, size)]
+
+
+def ffn_scratch_bytes(T, D, H, pair: bool) -> int:
+    """Device scratch of kernel 5 (``pair`` False) or 11 for T tokens: h,
+    and dh for 11, in bf16 for the longest chunk of :func:`ffn_chunks`, H
+    padded as the wrappers pad it (:func:`pad_hidden`); D, the model width,
+    does not enter. At 0.25° (T = 264,960, H = 2816): 0.30 GB and 0.60 GB."""
+    rows = max(e - s for s, e in ffn_chunks(T))
+    return (2 if pair else 1) * rows * (H + -H % 8) * 2
+
+
+def _prepare(name, x, w1, w2, **more):
+    """The CUDA wrappers' checks of bf16, contiguous, aligned inputs on one
+    device and the weights' shapes; returns D and the weights with H padded
+    (:func:`pad_hidden`)."""
+    _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2, **more)
+    _build.check_dtype(name, torch.bfloat16, x=x, w1=w1, w2=w2, **more)
     D = _check(name, x, w1, w2)[0]
-    w1, w2 = pad_hidden(w1, w2)
-    H = w2.shape[1]
-    lib = _build.library()
-    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
-        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
-    M = x.numel() // D
-    y = torch.empty_like(x)
-    g = u = None
-    if save:
-        g = torch.empty(*x.shape[:-1], H, device=x.device, dtype=x.dtype)
-        u = torch.empty_like(g)
-    _build.check_launch(
-        lib.swift_ffn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
-                      g.data_ptr() if save else None, u.data_ptr() if save else None,
-                      M, D, H, _build.stream()),
-        name,
-    )
-    if save:
-        swiglu_ffn_fwd_save.launches += 1
-        return y, g, u
+    return D, *pad_hidden(w1, w2)
+
+
+def _two_pass(name, x, dx, w1, w2):
+    """Kernel 5 (``dx`` None) or 11 on checked CUDA inputs, H padded: for each
+    chunk of :func:`ffn_chunks`, pass 1 (``swift_swiglu_hidden``, or
+    ``swift_swiglu_hidden_pt`` for h and dh) writes h to scratch and pass 2,
+    kernel 1's (14's) loop, multiplies it by W2ᵀ. Returns y, or (y, dy)."""
+    lib, stream = _build.library(), _build.stream()
+    D, H = x.shape[-1], w2.shape[1]
+    chunks = ffn_chunks(x.numel() // D)
+    h = torch.empty(max(e - s for s, e in chunks), H, device=x.device, dtype=x.dtype)
+    x2, y = x.view(-1, D), torch.empty_like(x)
+    y2 = y.view(-1, D)
+    if dx is None:
+        for s, e in chunks:
+            _build.check_launch(lib.swift_swiglu_hidden(
+                x2[s:e].data_ptr(), w1.data_ptr(), h.data_ptr(), e - s, D, H, stream), name)
+            _build.check_launch(lib.swift_linear(
+                h.data_ptr(), w2.data_ptr(), y2[s:e].data_ptr(), e - s, D, H, stream), name)
+        return y
+    dx2, dh, dy = dx.view(-1, D), torch.empty_like(h), torch.empty_like(x)
+    dy2 = dy.view(-1, D)
+    for s, e in chunks:
+        _build.check_launch(lib.swift_swiglu_hidden_pt(
+            x2[s:e].data_ptr(), dx2[s:e].data_ptr(), w1.data_ptr(), h.data_ptr(), dh.data_ptr(),
+            e - s, D, H, stream), name)
+        _build.check_launch(lib.swift_linear_pt(
+            h.data_ptr(), dh.data_ptr(), w2.data_ptr(), y2[s:e].data_ptr(), dy2[s:e].data_ptr(),
+            e - s, D, H, stream), name)
+    return y, dy
+
+
+def _ffn(x, w1, w2):
+    """Kernel 5 alone: the plain version on the CPU."""
+    jvp_guard.refuse_tangents("fused_swiglu_ffn", x=x, w1=w1, w2=w2)
+    if _build.on_cpu(x, w1, w2):
+        return reference_swiglu_ffn(x, w1, w2)
+    _, w1, w2 = _prepare("fused_swiglu_ffn", x, w1, w2)
+    y = _two_pass("fused_swiglu_ffn", x, None, w1, w2)
     fused_swiglu_ffn.launches += 1
     return y
 
@@ -195,7 +252,25 @@ def swiglu_ffn_fwd_save(x, w1, w2):
     :func:`reference_swiglu_ffn_fwd_save`; CUDA tensors go to kernel 8,
     whose g and u keep the kernels' width, H zero-padded to a multiple of 8
     (:func:`pad_hidden`; the padded units are 0)."""
-    return _ffn(x, w1, w2, save=True)
+    name = "swiglu_ffn_fwd_save"
+    jvp_guard.refuse_tangents(name, x=x, w1=w1, w2=w2)
+    if _build.on_cpu(x, w1, w2):
+        return reference_swiglu_ffn_fwd_save(x, w1, w2)
+    D, w1, w2 = _prepare(name, x, w1, w2)
+    H = w2.shape[1]
+    lib = _build.library()
+    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
+        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
+    y = torch.empty_like(x)
+    g = torch.empty(*x.shape[:-1], H, device=x.device, dtype=x.dtype)
+    u = torch.empty_like(g)
+    _build.check_launch(
+        lib.swift_ffn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(), g.data_ptr(),
+                      u.data_ptr(), x.numel() // D, D, H, _build.stream()),
+        name,
+    )
+    swiglu_ffn_fwd_save.launches += 1
+    return y, g, u
 
 
 def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
@@ -292,33 +367,17 @@ def swiglu_ffn_bwd_recompute(x, dy, w1, w2):
 
 
 def swiglu_ffn_pt(x, dx, w1, w2):
-    """(y, dy): the FFN and its tangent along dx in one launch, gate and up
-    computed once. CPU tensors take :func:`reference_swiglu_ffn_pt`; CUDA
-    tensors go to kernel 11 under kernel 5's shape rules, dx like x.
-
-    Kernel 11 stacks 16 rows of x over the same 16 rows of dx into one
-    32-row block, so its shared-memory row block is kernel 5's (135 KB at
-    D = 1056): two 32-row fp32 accumulators would need 271 KB."""
+    """(y, dy): the FFN and its tangent along dx, gate and up computed once.
+    CPU tensors take :func:`reference_swiglu_ffn_pt`; CUDA tensors go to
+    kernel 11 under kernel 5's shape rules, dx like x, with
+    :func:`ffn_scratch_bytes` of scratch."""
     if _build.on_cpu(x, dx, w1, w2):
         return reference_swiglu_ffn_pt(x, dx, w1, w2)
     name = "swiglu_ffn_pt"
-    _build.check_kernel_inputs(name, x=x, dx=dx, w1=w1, w2=w2)
-    _build.check_dtype(name, torch.bfloat16, x=x, dx=dx, w1=w1, w2=w2)
-    D = _check(name, x, w1, w2)[0]
-    w1, w2 = pad_hidden(w1, w2)
-    H = w2.shape[1]
+    _, w1, w2 = _prepare(name, x, w1, w2, dx=dx)
     if dx.shape != x.shape:
         raise ValueError(f"{name}: dx {tuple(dx.shape)} must match x {tuple(x.shape)}")
-    lib = _build.library()
-    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
-        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
-    M = x.numel() // D
-    y, dy = torch.empty_like(x), torch.empty_like(x)
-    _build.check_launch(
-        lib.swift_ffn_pt(x.data_ptr(), dx.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(),
-                         dy.data_ptr(), M, D, H, _build.stream()),
-        name,
-    )
+    y, dy = _two_pass(name, x, dx, w1, w2)
     swiglu_ffn_pt.launches += 1
     return y, dy
 
@@ -356,7 +415,7 @@ class _SwiGLURecompute(torch.autograd.Function):
 
     @staticmethod
     def forward(x, w1, w2):
-        return _ffn(x, w1, w2, save=False)
+        return _ffn(x, w1, w2)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -388,7 +447,7 @@ def fused_swiglu_ffn(x, w1, w2):
         if x.numel() // x.shape[-1] > save_max_tokens():
             return _SwiGLURecompute.apply(x, w1, w2)
         return _SwiGLU.apply(x, w1, w2)[0]
-    return _ffn(x, w1, w2, save=False)
+    return _ffn(x, w1, w2)
 
 
 def reference_swiglu_ffn_int8(x, w1, w2):

@@ -143,6 +143,31 @@ def test_ffn_pt_plain_matches_pallas():
     _close(dy, jdy, "dy")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_hidden_pt_composes_to_the_plain_ffn_pt(dtype):
+    """Kernel 11's two passes as plain versions: h·W2ᵀ and dh·W2ᵀ of
+    ``reference_swiglu_hidden_pt`` are ``reference_swiglu_ffn_pt`` bit for
+    bit."""
+    x, dx, w1, w2 = (_t(a).to(dtype) for a in _ffn_inputs(32, T=128, H=85))
+    got = linear.reference_linear_pt(*ffn.reference_swiglu_hidden_pt(x, dx, w1), w2)
+    for g, w in zip(got, ffn.reference_swiglu_ffn_pt(x, dx, w1, w2)):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("H", [85, 128])
+def test_swiglu_hidden_pt_plain_matches_pallas(H):
+    """Kernel 11's plain passes against the interpreted ``_ffn_pt_call`` at
+    the SwiGLU width 85 and at a multiple of 64."""
+    x, dx, w1, w2 = _ffn_inputs(33, H=H)
+    w1j = jnp.asarray(w1.T)
+    jy, jdy = pffn._ffn_pt_call(jnp.asarray(x), jnp.asarray(dx), w1j[:, :H], w1j[:, H:],
+                                jnp.asarray(w2.T))
+    h, dh = ffn.reference_swiglu_hidden_pt(_t(x), _t(dx), _t(w1))
+    y, dy = linear.reference_linear_pt(h, dh, _t(w2))
+    _close(y, jy, "y")
+    _close(dy, jdy, "dy")
+
+
 def test_modnorm_tangent_plain_matches_pallas():
     y, r, g, b, msc, msh, dy, dr, dmsc, dmsh = _modnorm_inputs(32)
     B, N, D = y.shape

@@ -10,7 +10,8 @@ tests hold their kernels to). On CPU tensors a wrapper takes its plain
 version and counts no launch; anything else goes to the kernel or raises.
 The ``cuda``-marked tests hold the kernels to their plain versions on the
 card (the forward kernels and, for the sCM jvp, the tangent kernels 14, 11,
-12 and 7) and skip elsewhere.
+12 and 7; kernels 5 and 11 also at ragged shapes, over several token
+chunks, and 11's y against 5's bit for bit) and skip elsewhere.
 """
 
 import functools
@@ -125,6 +126,66 @@ def test_swiglu_ffn_plain_matches_pallas():
     want = pffn.fused_swiglu_ffn(jnp.asarray(x), jnp.asarray(w1.T), jnp.asarray(w2.T))
     got = ffn.fused_swiglu_ffn(_t(x), _t(w1), _t(w2))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def _swiglu_weights(rng, D, H):
+    return _rand(rng, (2 * H, D), D ** -0.5), _rand(rng, (D, H), H ** -0.5)  # torch layout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_hidden_composes_to_the_plain_ffn(dtype):
+    """Kernel 5's two passes as plain versions: h·W2ᵀ of
+    ``reference_swiglu_hidden`` is ``reference_swiglu_ffn`` bit for bit."""
+    rng = np.random.default_rng(8)
+    x = _t(_rand(rng, (3, 64, 32))).to(dtype)
+    w1, w2 = (_t(w).to(dtype) for w in _swiglu_weights(rng, 32, 85))
+    got = linear.reference_linear(ffn.reference_swiglu_hidden(x, w1), w2)
+    assert got.dtype == dtype and torch.equal(got, ffn.reference_swiglu_ffn(x, w1, w2))
+
+
+@pytest.mark.parametrize("H", [85, 128])
+def test_swiglu_hidden_plain_matches_pallas(H):
+    """Kernel 5's plain passes against the interpreted ``_ffn_call``, at the
+    SwiGLU width 85 and at a multiple of 64, and on the weights padded to a
+    multiple of 8 as the kernels take them (the padded units of h are 0)."""
+    rng = np.random.default_rng(9)
+    D = 32
+    x = _rand(rng, (256, D))
+    w1, w2 = _swiglu_weights(rng, D, H)
+    want = pffn._ffn_call(jnp.asarray(x), jnp.asarray(w1[:H].T), jnp.asarray(w1[H:].T),
+                          jnp.asarray(w2.T))
+    h = ffn.reference_swiglu_hidden(_t(x), _t(w1))
+    got = linear.reference_linear(h, _t(w2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    w1p, w2p = ffn.pad_hidden(_t(w1), _t(w2))
+    hp = ffn.reference_swiglu_hidden(_t(x), w1p)
+    assert hp.shape[1] == H + -H % 8 and torch.equal(hp[:, H:], torch.zeros_like(hp[:, H:]))
+    np.testing.assert_allclose(linear.reference_linear(hp, w2p).numpy(), np.asarray(want),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("T", [1, 128, 16384, 32768, 65536, 65537, 264960, 10 ** 6])
+def test_ffn_chunk_plan(T):
+    """Kernels 5 and 11 run over token chunks that tile [0, T) exactly, none
+    above the limit; the flagship (16,384 and 32,768 tokens) is one chunk."""
+    chunks = ffn.ffn_chunks(T)
+    assert chunks[0][0] == 0 and chunks[-1][1] == T
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < e - s <= ffn.FFN_CHUNK_TOKENS for s, e in chunks)
+    assert len(chunks) == -(-T // ffn.FFN_CHUNK_TOKENS)
+    if T <= 32768:
+        assert chunks == [(0, T)]
+
+
+def test_ffn_scratch_bytes():
+    """h (and dh for kernel 11) of the longest chunk, H padded to 8: at the
+    0.25° grid (264,960 tokens, five chunks of 52,992) kernel 11's scratch
+    is under 1 GB, kernel 5's half of it."""
+    T, D, H = 264960, 1056, 2816
+    assert ffn.ffn_chunks(T) == [(s, s + 52992) for s in range(0, T, 52992)]
+    assert ffn.ffn_scratch_bytes(T, D, H, pair=True) == 2 * 52992 * H * 2 <= 1e9
+    assert ffn.ffn_scratch_bytes(T, D, H, pair=False) == 52992 * H * 2
+    assert ffn.ffn_scratch_bytes(128, 32, 85, pair=True) == 2 * 128 * 88 * 2
 
 
 WRAPPERS = {
@@ -244,6 +305,74 @@ def test_linear_pt_equals_kernel_1_bit_for_bit(M, N, K):
     y, dy = linear.linear_pt(x, dx, w)
     assert torch.equal(y, linear.fused_linear(x, w))
     assert torch.equal(dy, linear.fused_linear(dx, w))
+
+
+# (T, D, H) of kernels 5 and 11: one row past a 64-row box, 1000 tokens and
+# the flagship's 16,384; K tails of pass 1 (D = 32 is half a 64-deep box,
+# 96 one and a half, 1056 the flagship); H = 8, 85 (padded to 88), 88 (a
+# hidden tile of 88 units and a ragged output box of pass 1, a K tail of
+# pass 2) and the flagship's 2816 (22 tiles of 128).
+FFN_SHAPES = [(T, D, H) for T in (65, 1000, 16384) for D in (32, 96, 1056)
+              for H in (8, 85, 88, 2816)]
+
+
+def _ffn_card_inputs(T, D, H):
+    rng = np.random.default_rng(T + D + H)
+    w1, w2 = _swiglu_weights(rng, D, H)
+    return tuple(torch.from_numpy(a).to("cuda", torch.bfloat16)
+                 for a in (_rand(rng, (T, D)), _rand(rng, (T, D)), w1, w2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H", FFN_SHAPES)
+def test_ffn_kernels_match_plain_on_card(T, D, H):
+    """Kernels 5 and 11 (two passes each on the wgmma + TMA ring) against
+    their plain versions in bf16 on the card, every output within 2e-2 of
+    max|plain|; each wrapper counts one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, dx, w1, w2 = _ffn_card_inputs(T, D, H)
+    before = (ffn.fused_swiglu_ffn.launches, ffn.swiglu_ffn_pt.launches)
+    got = (ffn.fused_swiglu_ffn(x, w1, w2), *ffn.swiglu_ffn_pt(x, dx, w1, w2))
+    want = (ffn.reference_swiglu_ffn(x, w1, w2), *ffn.reference_swiglu_ffn_pt(x, dx, w1, w2))
+    torch.cuda.synchronize()
+    assert (ffn.fused_swiglu_ffn.launches, ffn.swiglu_ffn_pt.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    for g, ref in zip(got, want):
+        err = (g.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H", FFN_SHAPES)
+def test_ffn_pt_y_equals_kernel_5_bit_for_bit(T, D, H):
+    """Kernel 11's design invariant: its y equals kernel 5's bit for bit.
+    Both passes run the same wgmmas in one k order for a row and pass 1
+    shares its h expression, so a wrong row, stage or handover shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, dx, w1, w2 = _ffn_card_inputs(T, D, H)
+    y, _ = ffn.swiglu_ffn_pt(x, dx, w1, w2)
+    assert torch.equal(y, ffn.fused_swiglu_ffn(x, w1, w2))
+
+
+@pytest.mark.cuda
+def test_ffn_chunks_equal_one_chunk_bit_for_bit(monkeypatch):
+    """One call of kernels 5 and 11 over several token chunks (the limit
+    lowered to 256 tokens: 1000 tokens in chunks of 256, 256, 256 and 232)
+    equals the one-chunk call bit for bit and still counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, dx, w1, w2 = _ffn_card_inputs(1000, 96, 88)
+    one = (ffn.fused_swiglu_ffn(x, w1, w2), *ffn.swiglu_ffn_pt(x, dx, w1, w2))
+    monkeypatch.setattr(ffn, "FFN_CHUNK_TOKENS", 256)
+    assert len(ffn.ffn_chunks(1000)) == 4
+    before = (ffn.fused_swiglu_ffn.launches, ffn.swiglu_ffn_pt.launches)
+    many = (ffn.fused_swiglu_ffn(x, w1, w2), *ffn.swiglu_ffn_pt(x, dx, w1, w2))
+    assert (ffn.fused_swiglu_ffn.launches, ffn.swiglu_ffn_pt.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    for a, b in zip(one, many):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
