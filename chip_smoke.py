@@ -26,12 +26,16 @@ Phases, each printed as it finishes:
    reach from the shapes (int8 peak for 18 and 19), the scratch of kernels
    5, 10, 11 and 16, ``F.linear``'s time for the qkv projection and its
    primal + tangent and a composition of library calls (``F.linear``,
-   silu·mul, ``F.linear``) for the FFN and its primal + tangent (with
-   kernels 1's, 14's, 5's and 11's TFLOP/s, share of the bound and ratio to
-   the yardstick, single calls and queued), and the int8 qkv product
+   silu·mul, ``F.linear``) for the FFN and its primal + tangent, and
+   another (``torch.roll``, window partition, the fp32 normalise rounded to
+   bf16, ``F.scaled_dot_product_attention`` at scale 1, the inverse) for
+   the attention forward 2 and 15 (with kernels 1's, 14's, 5's, 11's, 2's
+   and 15's TFLOP/s, share of the bound and ratio to the yardstick, single
+   calls and queued; 15 also at 0.25°), and the int8 qkv product
    (``torch._int_mm``) and weight quantization times; fails unless kernel
-   14's two outputs equal kernel 1's on x and on dx, and kernel 11's y
-   kernel 5's, bit for bit;
+   14's two outputs equal kernel 1's on x and on dx, kernel 11's y kernel
+   5's, and kernel 15's on qkv rolled by the shift (8, 8) kernel 2's at that
+   shift, bit for bit;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -40,7 +44,8 @@ Phases, each printed as it finishes:
    steps. Checks that every forward kernel launched during the rollout,
    that the store is finite and not constant, and that a depth-2 cut of
    the same network agrees with the plain PyTorch path on the CPU. Prints
-   forecast steps/s, end to end and for the network's forward alone;
+   forecast steps/s, end to end and for the network's forward alone, and
+   one forward's device time by kernel under ``torch.profiler``;
 4b. int8: the int8 forecast (``generate --int8``, ``quant="int8"`` through
    the factory) with the same weights at 12x88 and 8x128 heads: one forward
    with exact launches (18, 19, 4, 2 twelve times; 1, 3, 5 never), its
@@ -78,7 +83,8 @@ Phases, each printed as it finishes:
    full width with random weights, 1 member x 1 IC x 2 steps through
    ``rollout_to_store`` into a 721x1440 store; fails unless the store is
    finite and not constant and the attention ran kernel 15 twelve times a
-   forward and kernel 2 never; prints the forward's device time; then one
+   forward and kernel 2 never; prints the forward's device time, and by
+   kernel under ``torch.profiler``; then one
    int8 forward at 0.25° (15, 18, 19, 4 twelve times; 1, 2, 3, 5 never)
    against the bf16 one, as in 4b;
 10. quarter scm: two full-width sCM steps of that experiment at batch 1
@@ -607,10 +613,40 @@ def _composition_ffn_pt(x, dx, w1, w2):
     return run
 
 
-# Kernels 5 and 11 have no single PyTorch call of the same function: their
-# yardstick is a composition of library calls, timed beside them
+def _composition_attention(qkv, scale, heads, window_size, shift=(0, 0)):
+    """``torch.roll`` by -shift, the window partition and head split, the
+    fp32 L2 normalise of q (times the logit scale) and k rounded to bf16,
+    ``F.scaled_dot_product_attention`` at scale 1 (its flash kernel on the
+    card), the inverse layout and roll: the attention as a user would write
+    it in PyTorch (p is rounded where SDPA rounds it)."""
+    B, gh, gw, feat = qkv.shape
+    d = feat // (3 * heads)
+    (wh, ww), (sh, sw) = window_size, shift
+    nh, nw = gh // wh, gw // ww
+
+    def normalised(a, mul):
+        a = a.float()
+        return (a * torch.rsqrt((a * a).sum(-1, keepdim=True) + 1e-12) * mul).to(qkv.dtype)
+
+    def run():
+        x = torch.roll(qkv, (-sh, -sw), (1, 2)) if sh or sw else qkv
+        x = x.view(B, nh, wh, nw, ww, heads, 3, d).permute(6, 0, 1, 3, 5, 2, 4, 7)
+        q, k, v = x.reshape(3, B * nh * nw, heads, wh * ww, d)
+        o = torch.nn.functional.scaled_dot_product_attention(
+            normalised(q, scale[:, None, None]), normalised(k, 1.0), v, scale=1.0)
+        o = o.view(B, nh, nw, heads, wh, ww, d).permute(0, 1, 4, 2, 5, 3, 6)
+        o = o.reshape(B, gh, gw, heads * d)
+        return torch.roll(o, (sh, sw), (1, 2)) if sh or sw else o
+
+    return run
+
+
+# Kernels 2, 15, 5 and 11 have no single PyTorch call of the same function:
+# their yardstick is a composition of library calls, timed beside them
 # (``composition_ms``), never a ``library_ms``.
-COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt}
+COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
+               "block_attention": _composition_attention,
+               "tiled_block_attention": _composition_attention}
 
 
 def log(msg: str) -> None:
@@ -807,6 +843,7 @@ def phase_kernels() -> dict:
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
         linear_pt_equals_kernel_1(a, heads, d)
+        tiled_equals_kernel_2(a, heads, d)
         if d == GEOMETRIES[0][1]:
             ffn_pt_equals_kernel_5(a)
         int8_qkv(a, heads, d, record)
@@ -870,6 +907,23 @@ def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
         f"on dx: {same}")
     if not all(same):
         raise AssertionError(f"kernel 14 differs from kernel 1 (x, dx): {same}")
+
+
+def tiled_equals_kernel_2(a: dict, heads: int, d: int) -> None:
+    """Kernel 15's invariant at the flagship shift: on qkv rolled by the
+    shift, its output rolled back equals kernel 2's at that shift bit for
+    bit (one body, one key order; the wrap taken by the roll instead of the
+    index math), so a wrongly gathered row or window shows at once."""
+    shift, win = SHIFTS[1], (16, 16)
+    qkv, scale = a["qkv"], a["scale"]
+    rolled = torch.roll(qkv, (-shift[0], -shift[1]), (1, 2))
+    got = torch.roll(fused_tiled_block_attention(rolled, scale, heads, win), shift, (1, 2))
+    same = torch.equal(got, fused_block_attention(qkv, scale, heads, win, shift))
+    torch.cuda.synchronize()
+    log(f"[kernels] tiled_block_attention heads={heads:2d} d={d:3d}: on qkv rolled by {shift} "
+        f"equal bit for bit to kernel 2 at that shift: {same}")
+    if not same:
+        raise AssertionError(f"kernel 15 differs from kernel 2 (heads {heads}, d {d})")
 
 
 def ffn_pt_equals_kernel_5(a: dict) -> None:
@@ -944,6 +998,8 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt")
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
+        if name == "tiled_block_attention":  # its main path's shape: beside its yardstick
+            rates(name, args, fields)
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
@@ -1073,6 +1129,7 @@ def phase_slice(card: str) -> dict:
     log(f"[slice] one sCM step at MB={MB}: {step_ms:.2f} ms (median of 5), i.e. "
         f"{MB / step_ms * 1e3:.3f} forecast steps/s on the device alone; the rollout's "
         f"device work is {device_s:.3f} s of its {wall:.3f} s ({card})")
+    profile_forward(net, ROLLOUT, RESOLUTION, card, "slice")
     return launches
 
 
@@ -1096,16 +1153,42 @@ def check_store(ofile: str, rollout: dict, res, tag: str) -> None:
         f"non-constant, shape (ic, member, lead) = {(n_ic, M, leads)} at {res[0]}x{res[1]}")
 
 
-def forward_ms(net, rollout: dict, res) -> float:
-    """Device milliseconds of one sCM step (one network forward) at members
-    x batch, CUDA events, median of 5."""
+def _forward_call(net, rollout: dict, res):
+    """One sCM step (one network forward) at members x batch, as a call."""
     sampler = sampler_factory("scm", net, num_steps=1, sigma_min=0.02, sigma_max=200.0,
                               auxiliary=rollout["interval"] / 10.0)
     cond = torch.randn(rollout["members"] * rollout["batch"], *res,
                        len(VARIABLES) + len(FORCINGS), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    return lambda: sampler(cond, gen)
+
+
+def forward_ms(net, rollout: dict, res) -> float:
+    """Device milliseconds of one sCM step (one network forward) at members
+    x batch, CUDA events, median of 5."""
+    call = _forward_call(net, rollout, res)
     with torch.no_grad():
-        return time_ms(lambda: sampler(cond, gen), reps=5)
+        return time_ms(call, reps=5)
+
+
+def profile_forward(net, rollout: dict, res, card: str, tag: str) -> None:
+    """Where one network forward's time goes at members x batch: one sCM
+    step under torch.profiler after a warm-up one, by kernel (as
+    ``profile_step``). A measurement only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _forward_call(net, rollout, res)
+    with torch.no_grad():
+        call()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()  # the profiler's first start-up, outside the wall
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    log_profile(prof, time.perf_counter() - t0, card, tag,
+                f"one forward at MB={rollout['members'] * rollout['batch']}", top=16)
 
 
 def train_config(experiment: str, *extra: str, cut: dict = TRAIN) -> dict:
@@ -1314,7 +1397,12 @@ def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "pro
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.step(batch)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    log_profile(prof, time.perf_counter() - t0, card, tag, "one training step", top)
+
+
+def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> None:
+    """A profile's device time by kernel, the ``top`` largest, and its sum
+    against the wall (the device's idle share)."""
     # device time by kernel; a user annotation (the optimizer's step range)
     # spans kernels already counted, so it is left out of the sum
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -1324,7 +1412,7 @@ def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "pro
     if not rows:
         log(f"[{tag}] the profiler saw no device time: breakdown not measured")
         return
-    log(f"[{tag}] one training step under torch.profiler: wall {wall * 1e3:.1f} ms, device "
+    log(f"[{tag}] {what} under torch.profiler: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy:.1f} ms, idle share {100 * (1 - busy / (wall * 1e3)):.1f}% ({card})")
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
@@ -1494,6 +1582,7 @@ def phase_quarter_forecast(card: str) -> dict:
     step_ms = forward_ms(net, QUARTER_ROLLOUT, QUARTER_RES)
     log(f"[quarter] one sCM step (one network forward) at 1 member x 1 IC: {step_ms:.2f} ms on "
         f"the device (median of 5, CUDA events) ({card})")
+    profile_forward(net, QUARTER_ROLLOUT, QUARTER_RES, card, "quarter")
     del net
     torch.cuda.empty_cache()
     return launches

@@ -63,7 +63,9 @@ def stub_the_card() -> None:
     randn = torch.randn
     torch.randn = lambda *a, device=None, **k: randn(*a, **k)
     cs.time_ms = lambda fn, reps=20: (fn(), 1.0)[1]
+    cs.queued_ms = cs.time_ms
     cs.profile_step = lambda *a, **k: print("[rehearsal] profile step skipped")
+    cs.profile_forward = lambda *a, **k: print("[rehearsal] profile forward skipped")
 
 
 def count_calls() -> None:

@@ -1,45 +1,43 @@
 // Shifted-window cosine attention on Hopper, straight from the qkv
 // projection's (B, gh, gw, heads*3*d) layout.
 //
-// Replaces swift_tpu/ops/pallas_block_attention.py::_fwd_call (kernel body
-// _fwd_kernel). Per (sample, window, head): q and k are L2-normalised in
-// fp32 (eps 1e-12) and rounded to bf16, q carries the learned logit scale,
-// the 256 x 256 logits are accumulated in fp32, softmax runs in fp32, p is
-// rounded to bf16 before p . v, and the output is written back in the same
-// shifted coordinates it was read from.
+// The forward, kernels 2 and 15 (swift_block_attention,
+// swift_tiled_attention), replaces swift_tpu/ops/pallas_block_attention.py::
+// _fwd_call and _tiled_fwd_call (kernel body _fwd_kernel). Per (sample,
+// window, head): q and k are L2-normalised in fp32 (eps 1e-12) and rounded
+// to bf16, q carries the learned logit scale, the 256 x 256 logits are
+// accumulated in fp32, softmax runs in fp32, p = e / sum(e) is normalised
+// before it is rounded to bf16, p . v accumulates in fp32, and the output
+// is written back in the same shifted coordinates it was read from. The
+// odd-block cyclic shift is folded into the index math: token t of window
+// (wi, wj) lives at ((wi*wh + sh + t/ww) mod gh, (wj*ww + sw + t%ww) mod
+// gw), exactly the wrapped coordinates _gather_window and _scatter_window
+// use, so there is no roll pass. q/k/v of head h are read at feature
+// offsets h*3d + {0, d, 2d}; d (88 at the flagship) is zero-padded to DP,
+// a multiple of 32, in shared memory only.
 //
-// What bounds it on the H100: not the FLOPs (~23 MFLOP a window-head) but
-// on-chip capacity -- 256 x 256 fp32 logits are 256 KB, more than the 227 KB
-// a block may hold. Design: one block per (sample, window, head, 64 query
-// rows). It keeps its 64 normalised query rows, all 256 key rows (then the
-// 256 value rows, in the same buffer) and a 64 x 256 fp32 logit tile
-// (66.5 KB) in shared memory; p is rounded to bf16 in place inside the logit
-// rows. The odd-block cyclic shift is folded into the index math: token t
-// of window (wi, wj) lives at ((wi*wh + sh + t/ww) mod gh, (wj*ww + sw +
-// t%ww) mod gw), exactly the wrapped coordinates _gather_window and
-// _scatter_window use, so there is no roll pass. q/k/v of head h are read at
-// feature offsets h*3d + {0, d, 2d}; d (88 at the flagship) is zero-padded
-// to DP, a multiple of 32, in shared memory only.
+// What bounds it on the H100: the bytes. A window-head reads 3 x 256 x d
+// and writes 256 x d bf16 for 4 x 256 x 256 x DP flops, about 140 flops a
+// byte at d = 88, under the ~295 at which the tensor cores would set the
+// pace. So the design moves each byte once and overlaps the products with
+// the loads (see attn_fwd_kernel below).
 //
 // The window-tiled kernels 15, 16 and 17 (swift_tiled_attention*) replace
 // pallas_block_attention.py::_tiled_fwd_call, _tiled_bwd_call and
 // _tiled_tangent_call, the grids too large for the whole-grid TPU kernel
 // (0.25 degrees: 368 x 720 tokens). Their qkv is rolled before the call, so
 // a window is an aligned block of rows and columns: the same bodies run
-// with the wrap arithmetic compiled out (TILED). Kernel 16 replaces kernel
-// 6's per-query-block fp32 dk/dv partials, which at 0.25 degrees would be
-// 17.4 GB a layer, by a second pass over key blocks (see below).
+// with the wrap arithmetic compiled out (TILED), in the same key order, so
+// kernel 15 on rolled qkv equals kernel 2 bit for bit. Kernel 16 replaces
+// kernel 6's per-query-block fp32 dk/dv partials, which at 0.25 degrees
+// would be 17.4 GB a layer, by a second pass over key blocks (see below).
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 namespace swift {
 
 constexpr int kWinTokens = 256, kQB = 64, kAttnNT = 256;
 constexpr int kSLD = kWinTokens + 4;  // fp32 logit row stride
-
-template <int DP>
-__host__ __device__ constexpr int attn_smem() {
-  return (kQB + kWinTokens) * (DP + 8) * 2 + kQB * kSLD * 4;
-}
 
 // Device-memory token of row t of window w of sample b: the window starts
 // at (wi*wh + sh, wj*ww + sw) and wraps around the grid (the shifted
@@ -92,150 +90,342 @@ __device__ __forceinline__ void load_row(bf16* dst, const bf16* src, int d, bool
   if (lane * 8 < DP) *reinterpret_cast<uint4*>(dst + lane * 8) = pack8(v);
 }
 
-// The forward body of kernels 2 and 15 (one block per sample, window, head
-// and 64 query rows).
+// ---------------------------------------------------------------------------
+// The forward of kernels 2 and 15 on wgmma.
+//
+// One block of 384 threads an SM (persistent: it walks window-heads, heads
+// fastest, so the blocks in flight read neighbouring feature slices of the
+// same token rows). A window-head's k and v are loaded and k normalised
+// once, and serve all four of its 64-row query blocks; q goes through two
+// 64-row stages. Warp specialisation:
+//   warpgroup 0, the producer: gathers rows through WindowIndex with
+//     cp.async (16 bytes a thread, no registers held) into shared memory
+//     laid out for wgmma -- 64-column boxes of 128-byte rows with the
+//     128-byte swizzle, as TMA would write them (TMA cannot gather the
+//     wrapped rows nor normalise) -- and L2-normalises k in place in fp32
+//     (eight threads a row), rounding it to bf16; columns d..DP are zero.
+//     Its order per window-head: q blocks 0, 1 and k in four 64-row groups,
+//     each group normalised as it lands (once the previous window-head's
+//     last q̂·k̂ᵀ has retired), v (once its last p·v has), q blocks 2, 3. So
+//     the next window-head's k lands while the consumers finish this one's
+//     softmax and p·v.
+//   warpgroups 1 and 2, the consumers: consumer c takes query blocks c and
+//     c + 2, each in turn: it normalises its q block in place (times the
+//     logit scale; the normalise was the longest task on the producer's
+//     critical path), S = q̂·k̂ᵀ by DP/16 m64n256k16 wgmmas (all 256 keys in
+//     one fp32 accumulator of 128 registers, so the softmax needs no online
+//     rescaling), the row max and sum by quad shuffles, p = e / sum rounded
+//     to bf16 in registers -- the m64n256 accumulator's layout is the
+//     A-fragment layout of k16 slices -- then O = p·v by 16 m64nDPk16
+//     wgmmas with p from registers and v read MN-major (the transpose-B
+//     form; v's rows stay as loaded). O is rounded to bf16, staged in the
+//     consumer's shared-memory rows and copied to the token each query came
+//     from by bulk copies, one a row.
+// mbarriers, each with a full and an empty one for k, v and the two q
+// stages: the producer's 128 threads arrive on a full barrier once their
+// copies have landed (and, for k, after the normalise and a proxy fence);
+// each consumer warp arrives on an empty barrier once the wgmmas that read
+// the buffer have completed. Registers (setmaxnreg): 80 a producer thread,
+// 208 a consumer thread. ptxas compiles the consumers within the launch
+// bound's 168 and the producer within its 80; below 80 it spills there.
+constexpr int kFwdThreads = 384;
+
+template <int DP>
+struct AttnFwd {
+  static constexpr int NBOX = (DP + 63) / 64;        // 64-column boxes of a padded row
+  static constexpr int SLOTS = DP / 8;               // 16-byte chunks of a padded row
+  static constexpr int KV_BOX = kWinTokens * 128;    // one box of 256 rows
+  static constexpr int Q_BOX = kQB * 128;            // one box of 64 rows
+  static constexpr int LDO = DP + 8;                 // bf16 stride of the output staging rows
+  static constexpr int V_OFF = NBOX * KV_BOX;        // k at 0
+  static constexpr int Q_OFF = 2 * NBOX * KV_BOX;    // two q stages
+  static constexpr int O_OFF = Q_OFF + 2 * NBOX * Q_BOX;  // two consumers' output rows
+  static constexpr int ROW_OFF = O_OFF + 2 * kQB * LDO * 2;  // the producer's row offsets
+  static constexpr int BAR_OFF = ROW_OFF + 2 * kWinTokens * 8;  // two window-heads' worth
+  enum { K_FULL, K_EMPTY, V_FULL, V_EMPTY, Q_FULL, Q_EMPTY = Q_FULL + 2, N_BARS = Q_EMPTY + 2 };
+  static constexpr int SMEM = 1024 + BAR_OFF + N_BARS * 8;  // with the alignment pad
+  static_assert(SMEM <= kMaxSmem, "the forward's buffers do not fit");
+};
+
+// The producer's cp.asyncs of ``rows`` rows starting at window row ``row0``,
+// feature column ``col`` of the head: chunk c of row r to box c / 8, row r,
+// 16-byte slot (c % 8) ^ (r % 8); chunks d/8 .. DP/8 zero-filled.
+template <int DP>
+__device__ __forceinline__ void fwd_load(unsigned char* tile, int box_bytes, int rows,
+                                         const bf16* qkv, const size_t* row_off, int row0,
+                                         int col, int chunks, int tid) {
+  constexpr int SLOTS = AttnFwd<DP>::SLOTS;
+  for (int i = tid; i < rows * SLOTS; i += 128) {
+    const int r = i / SLOTS, c = i % SLOTS;
+    const bool live = c < chunks;
+    cp_async16(tile + (c / 8) * box_bytes + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               live ? qkv + row_off[row0 + r] + col + c * 8 : qkv, live);
+  }
+}
+
+// L2-normalise ``rows`` rows of a swizzled tile in place in fp32, multiply
+// by ``mul`` where SCALED (q by the logit scale) and round to bf16 (the
+// chunks past d written as zeros): eight of a warpgroup's threads a row,
+// chunks sub and sub + 8.
+template <int DP, bool SCALED>
+__device__ __forceinline__ void fwd_normalise(unsigned char* tile, int box_bytes, int rows,
+                                              int chunks, float mul, int tid) {
+  constexpr int NBOX = AttnFwd<DP>::NBOX, SLOTS = AttnFwd<DP>::SLOTS;
+  const int sub = tid % 8;
+  for (int r = tid / 8; r < rows; r += 16) {
+    uint4 raw[NBOX];
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < NBOX; ++j) {
+      raw[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (sub + 8 * j < chunks)
+        raw[j] = *reinterpret_cast<const uint4*>(tile + j * box_bytes + r * 128 +
+                                                 ((sub ^ (r % 8)) << 4));
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        ss += f.x * f.x + f.y * f.y;
+      }
+    }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+    const float inv = rsqrtf(ss + 1e-12f);
+#pragma unroll
+    for (int j = 0; j < NBOX; ++j) {
+      if (sub + 8 * j >= SLOTS) continue;
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw[j]);
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        v[2 * i] = SCALED ? f.x * inv * mul : f.x * inv;
+        v[2 * i + 1] = SCALED ? f.y * inv * mul : f.y * inv;
+      }
+      *reinterpret_cast<uint4*>(tile + j * box_bytes + r * 128 + ((sub ^ (r % 8)) << 4)) =
+          pack8(v);
+    }
+  }
+}
+
+// The producer's normalise of k rows [64 g, 64 g + 64), the g-th of its
+// cp.async groups, once at most PENDING of this thread's groups are in
+// flight and every producer thread's copies of them have landed.
+template <int DP, int PENDING>
+__device__ __forceinline__ void fwd_normalise_k_rows(unsigned char* Ks, int g, int chunks,
+                                                     int tid) {
+  cp_async_wait<PENDING>();
+  named_barrier_sync(3, 128);
+  fwd_normalise<DP, false>(Ks + g * kQB * 128, AttnFwd<DP>::KV_BOX, kQB, chunks, 1.0f, tid);
+}
+
+// The softmax of a consumer's 64 x 256 logits in place, rounded to bf16 as
+// the A fragments of the 16 k16 slices of p·v: thread t holds rows
+// (t % 32) / 4 + {0, 8} of its warp's 16, s[4 j + 2 h + e] in row h.
+__device__ __forceinline__ void fwd_softmax(float (&s)[128], uint32_t (&p)[16][4]) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 128; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+    m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+  }
+#pragma unroll
+  for (int i = 0; i < 128; ++i) {
+    s[i] = exp2f((s[i] - m[(i >> 1) & 1]) * kLog2e);
+    l[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = 1.0f / l[h];
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      p[k][q] = pack_bf16x2(s[8 * k + 2 * q] * l[q & 1], s[8 * k + 2 * q + 1] * l[q & 1]);
+}
+
+// Consumer c's 64 output rows of query block qb: rounded to bf16 into its
+// staging rows, then each row (d bf16) to its token by one bulk copy,
+// issued by thread ``row`` (tid < 64), which the consumer does not wait for
+// until it next writes the rows.
 template <int DP, bool TILED>
-__device__ __forceinline__ void attn_fwd(unsigned char* smem_raw, const bf16* __restrict__ qkv,
-                                         const float* __restrict__ scale, bf16* __restrict__ out,
-                                         int gh, int gw, int heads, int d, int wh, int ww, int sh,
-                                         int sw) {
-  constexpr int LDQ = DP + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KVs = Qs + kQB * LDQ;
-  float* Ss = reinterpret_cast<float*>(KVs + kWinTokens * LDQ);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss);  // p row r overwrites the front of logit row r
-  constexpr int kPLD = 2 * kSLD;
+__device__ __forceinline__ void fwd_store(const float (&o)[DP / 2], bf16* rows, bf16* out,
+                                          const WindowIndex<TILED>& token, int qb, size_t ofeat,
+                                          int col, int d, int c, int tid) {
+  constexpr int LDO = AttnFwd<DP>::LDO;
+  const int lane = tid % 32, r = tid / 32 * 16 + lane / 4;
+  if (tid < kQB) tma_store_wait_read<0>();  // the previous block's copies have read the rows
+  named_barrier_sync(1 + c, 128);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(rows + (r + 8 * h) * LDO + 8 * j + 2 * (lane % 4)) =
+          pack_bf16x2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+  fence_async_smem();
+  named_barrier_sync(1 + c, 128);
+  if (tid < kQB) {
+    bulk_store(out + token(qb * kQB + tid) * ofeat + col, rows + tid * LDO, d * 2);
+    tma_store_commit();
+  }
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.z / heads, h = blockIdx.z % heads;
-  const int q0 = blockIdx.x * kQB;
+template <int DP, bool TILED>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    attn_fwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
+                    bf16* __restrict__ out, int B, int gh, int gw, int heads, int d, int wh,
+                    int ww, int sh, int sw) {
+  using L = AttnFwd<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + L::V_OFF;
+  unsigned char* Qs = smem + L::Q_OFF;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  const int nW = (gh / wh) * (gw / ww), items = B * nW * heads, chunks = d / 8;
   const size_t feat = (size_t)heads * 3 * d;
-  const WindowIndex<TILED> token(b, blockIdx.y, gh, gw, wh, ww, sh, sw);
-  const bf16* head = qkv + (size_t)h * 3 * d;
-  const float s = scale[h];
-
-  for (int r = warp; r < kQB; r += kAttnNT / 32)
-    load_row<DP>(Qs + r * LDQ, head + token(q0 + r) * feat, d, true, s, lane);
-  for (int r = warp; r < kWinTokens; r += kAttnNT / 32)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
-  __syncthreads();
-
-  // logits: 64 x 256 = 4 x 16 fragments, warp w owns row tile w/2 and
-  // column tiles (w%2)*8 .. +8
-  {
-    const int rt = warp / 2, ct0 = (warp % 2) * 8;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + (rt * 16) * LDQ + kk, LDQ);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, KVs + ((ct0 + j) * 16) * LDQ + kk, LDQ);
-        wmma::mma_sync(acc[j], a, kb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      wmma::store_matrix_sync(Ss + (rt * 16) * kSLD + (ct0 + j) * 16, acc[j], kSLD,
-                              wmma::mem_row_major);
+  if (threadIdx.x == 0) {
+    const int counts[L::N_BARS] = {128, 8, 128, 8, 128, 128, 4, 4};
+    for (int i = 0; i < L::N_BARS; ++i) mbar_init(&bar[i], counts[i]);
+    mbar_fence_init();
   }
   __syncthreads();
 
-  // v replaces k; softmax rows meanwhile (disjoint buffers)
-  for (int r = warp; r < kWinTokens; r += kAttnNT / 32)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + 2 * d, d, false, 1.0f, lane);
-  for (int r = warp; r < kQB; r += kAttnNT / 32) {
-    float v[kWinTokens / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      v[i] = Ss[r * kSLD + lane + 32 * i];
-      m = fmaxf(m, v[i]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      v[i] = expf(v[i] - m);
-      sum += v[i];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();  // every lane has read its logits before any p overwrites them
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i)
-      Ps[r * kPLD + lane + 32 * i] = __float2bfloat16_rn(v[i] / sum);
-  }
-  __syncthreads();
-
-  // o = p . v: 64 x DP = 4 x DP/16 fragments, warp w owns row tile w/2 and
-  // column tiles (w%2)*DP/32 .. +DP/32
-  constexpr int CT = DP / 32;
-  {
-    const int rt = warp / 2, ct0 = (warp % 2) * CT;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[CT];
-#pragma unroll
-    for (int j = 0; j < CT; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll 4
-    for (int kk = 0; kk < kWinTokens; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Ps + (rt * 16) * kPLD + kk, kPLD);
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, KVs + kk * LDQ + (ct0 + j) * 16, LDQ);
-        wmma::mma_sync(acc[j], a, vb, acc[j]);
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    uint32_t it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      // two tables in turn: a thread may write this window-head's while another still
+      // issues the previous one's last copies from the other
+      size_t* row_off = reinterpret_cast<size_t*>(smem + L::ROW_OFF) + (it & 1) * kWinTokens;
+      for (int t = tid; t < kWinTokens; t += 128) row_off[t] = token(t) * feat + (size_t)h * 3 * d;
+      named_barrier_sync(3, 128);
+      // k and q blocks 0, 1
+      mbar_wait(&bar[L::K_EMPTY], (it & 1) ^ 1);
+      mbar_wait(&bar[L::Q_EMPTY], 1);
+      mbar_wait(&bar[L::Q_EMPTY + 1], 1);
+      fwd_load<DP>(Qs, L::Q_BOX, kQB, qkv, row_off, 0, 0, chunks, tid);
+      fwd_load<DP>(Qs + L::NBOX * L::Q_BOX, L::Q_BOX, kQB, qkv, row_off, kQB, 0, chunks, tid);
+      cp_async_commit();
+      for (int g = 0; g < kWinTokens / kQB; ++g) {  // k in four groups of 64 rows
+        fwd_load<DP>(Ks + g * kQB * 128, L::KV_BOX, kQB, qkv, row_off, g * kQB, d, chunks, tid);
+        cp_async_commit();
       }
+      cp_async_wait<4>();
+      mbar_arrive(&bar[L::Q_FULL]);  // raw: each consumer normalises its own q
+      mbar_arrive(&bar[L::Q_FULL + 1]);
+      fwd_normalise_k_rows<DP, 3>(Ks, 0, chunks, tid);  // each group as it lands
+      fwd_normalise_k_rows<DP, 2>(Ks, 1, chunks, tid);
+      fwd_normalise_k_rows<DP, 1>(Ks, 2, chunks, tid);
+      fwd_normalise_k_rows<DP, 0>(Ks, 3, chunks, tid);
+      fence_async_smem();
+      mbar_arrive(&bar[L::K_FULL]);
+      // v
+      mbar_wait(&bar[L::V_EMPTY], (it & 1) ^ 1);
+      fwd_load<DP>(Vs, L::KV_BOX, kWinTokens, qkv, row_off, 0, 2 * d, chunks, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_smem();
+      mbar_arrive(&bar[L::V_FULL]);
+      // q blocks 2, 3
+      mbar_wait(&bar[L::Q_EMPTY], 0);
+      mbar_wait(&bar[L::Q_EMPTY + 1], 0);
+      fwd_load<DP>(Qs, L::Q_BOX, kQB, qkv, row_off, 2 * kQB, 0, chunks, tid);
+      fwd_load<DP>(Qs + L::NBOX * L::Q_BOX, L::Q_BOX, kQB, qkv, row_off, 3 * kQB, 0, chunks,
+                   tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      mbar_arrive(&bar[L::Q_FULL]);
+      mbar_arrive(&bar[L::Q_FULL + 1]);
     }
-    __syncthreads();  // all p reads are done: the logit buffer takes o
-    constexpr int LDO = DP + 4;
-#pragma unroll
-    for (int j = 0; j < CT; ++j)
-      wmma::store_matrix_sync(Ss + (rt * 16) * LDO + (ct0 + j) * 16, acc[j], LDO,
-                              wmma::mem_row_major);
-    __syncthreads();
+  } else {  // the consumers
+    setmaxnreg_inc<208>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    unsigned char* Qc = Qs + c * L::NBOX * L::Q_BOX;
+    bf16* rows = reinterpret_cast<bf16*>(smem + L::O_OFF) + c * kQB * L::LDO;
     const size_t ofeat = (size_t)heads * d;
-    for (int r = warp; r < kQB; r += kAttnNT / 32) {
-      if (lane * 8 < d)
-        *reinterpret_cast<uint4*>(out + token(q0 + r) * ofeat + (size_t)h * d + lane * 8) =
-            pack8(Ss + r * LDO + lane * 8);
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[i]);
+    };
+    uint32_t it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      const float scale_h = scale[h];
+#pragma unroll 1
+      for (int j = 0; j < 2; ++j) {
+        mbar_wait(&bar[L::Q_FULL + c], j);
+        fwd_normalise<DP, true>(Qc, L::Q_BOX, kQB, chunks, scale_h, tid);
+        fence_async_smem();
+        named_barrier_sync(1 + c, 128);
+        float s[128];
+        mbar_wait(&bar[L::K_FULL], it & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < DP / 16; ++k)
+          wgmma_m64n256k16(s, wgmma_desc(Qc + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                           wgmma_desc(Ks + (k / 4) * L::KV_BOX) + 2 * (k % 4), k > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(L::Q_EMPTY + c);
+        if (j == 1) release(L::K_EMPTY);
+
+        uint32_t p[16][4];
+        fwd_softmax(s, p);
+        float o[DP / 2];
+        mbar_wait(&bar[L::V_FULL], it & 1);
+        wgmma_fence();
+        const uint64_t dv = wgmma_desc_mn(Vs, L::KV_BOX);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) wgmma_m64nNk16_rs<DP>(o, p[k], dv + 128 * k, k > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (j == 1) release(L::V_EMPTY);
+        fwd_store<DP, TILED>(o, rows, out, token, 2 * j + c, ofeat, h * d, d, c, tid);
+      }
     }
+    if (tid < kQB) tma_store_wait_all();  // the rows stay until the last copies have read them
   }
 }
 
-// kernel 2: the shifted whole-grid forward
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    block_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
-                      bf16* __restrict__ out, int gh, int gw, int heads, int d, int wh, int ww,
-                      int sh, int sw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  attn_fwd<DP, false>(smem_raw, qkv, scale, out, gh, gw, heads, d, wh, ww, sh, sw);
-}
+// Kernels 2 (shifted, wrapping) and 15 (TILED, on pre-rolled qkv): one
+// launch, as many blocks as SMs (at most one a window-head). The shared-
+// memory attribute is set and the SM count read once a device and
+// instantiation, kept in a table of this file (a static local of the
+// template would be one symbol shared by every library that defines it).
+static int attn_fwd_sms[8][64];
 
-// kernel 15: the window-tiled forward on pre-rolled qkv (sh, sw unused)
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    tiled_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
-                      bf16* __restrict__ out, int gh, int gw, int heads, int d, int wh, int ww,
-                      int, int) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  attn_fwd<DP, true>(smem_raw, qkv, scale, out, gh, gw, heads, d, wh, ww, 0, 0);
-}
-
-template <int DP>
-int launch_block_attn(bool tiled, const void* qkv, const void* scale, void* out, int B, int gh,
-                      int gw, int heads, int d, int wh, int ww, int sh, int sw,
-                      cudaStream_t stream) {
-  constexpr int smem = attn_smem<DP>();
-  auto kern = tiled ? tiled_attn_kernel<DP> : block_attn_kernel<DP>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(kWinTokens / kQB, (gh / wh) * (gw / ww), B * heads);
-  kern<<<grid, kAttnNT, smem, stream>>>((const bf16*)qkv, (const float*)scale, (bf16*)out, gh,
-                                        gw, heads, d, wh, ww, sh, sw);
+template <int DP, bool TILED>
+int launch_attn_fwd(const void* qkv, const void* scale, void* out, int B, int gh, int gw,
+                    int heads, int d, int wh, int ww, int sh, int sw, cudaStream_t stream) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  int& n_sm = attn_fwd_sms[(DP / 32 - 1) * 2 + TILED][device % 64];
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(attn_fwd_kernel<DP, TILED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, AttnFwd<DP>::SMEM);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int items = B * heads * (gh / wh) * (gw / ww);
+  attn_fwd_kernel<DP, TILED><<<items < n_sm ? items : n_sm, kFwdThreads, AttnFwd<DP>::SMEM,
+                               stream>>>((const bf16*)qkv, (const float*)scale, (bf16*)out, B, gh,
+                                         gw, heads, d, wh, ww, sh, sw);
   return (int)cudaGetLastError();
 }
 
@@ -1077,8 +1267,8 @@ extern "C" int swift_block_attention(const void* qkv, const void* scale, void* o
   const int dp = (d + 31) / 32 * 32;
   cudaStream_t st = (cudaStream_t)stream;
 #define SWIFT_FWD(DP)                                                                          \
-  return swift::launch_block_attn<DP>(false, qkv, scale, out, B, gh, gw, heads, d, wh, ww, sh,  \
-                                      sw, st)
+  return swift::launch_attn_fwd<DP, false>(qkv, scale, out, B, gh, gw, heads, d, wh, ww,  \
+                                            sh, sw, st)
   switch (dp) {
     case 32: SWIFT_FWD(32);
     case 64: SWIFT_FWD(64);
@@ -1097,8 +1287,8 @@ extern "C" int swift_tiled_attention(const void* qkv, const void* scale, void* o
   const int dp = (d + 31) / 32 * 32;
   cudaStream_t st = (cudaStream_t)stream;
 #define SWIFT_FWD(DP)                                                                          \
-  return swift::launch_block_attn<DP>(true, qkv, scale, out, B, gh, gw, heads, d, wh, ww, 0, 0, \
-                                      st)
+  return swift::launch_attn_fwd<DP, true>(qkv, scale, out, B, gh, gw, heads, d, wh, ww, 0, \
+                                           0, st)
   switch (dp) {
     case 32: SWIFT_FWD(32);
     case 64: SWIFT_FWD(64);

@@ -11,7 +11,9 @@ version and counts no launch; anything else goes to the kernel or raises.
 The ``cuda``-marked tests hold the kernels to their plain versions on the
 card (the forward kernels and, for the sCM jvp, the tangent kernels 14, 11,
 12 and 7; kernels 5 and 11 also at ragged shapes, over several token
-chunks, and 11's y against 5's bit for bit) and skip elsewhere.
+chunks, and 11's y against 5's bit for bit; the attention forward 2 and 15
+over head dims, window shapes, wrapping shifts, zero rows and the main
+paths' shapes, 15 on rolled qkv against 2 bit for bit) and skip elsewhere.
 """
 
 import functools
@@ -90,6 +92,53 @@ def test_block_attention_plain_matches_pallas(shift):
     want = pba.fused_block_attention(jnp.asarray(qkv), jnp.asarray(scale), heads, (4, 8), shift)
     got = block_attention.fused_block_attention(_t(qkv), _t(scale), heads, (4, 8), shift)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+# The fixed-window kernels' own geometry (256-token windows): the flagship's 16x16 windows
+# with d = 88 and oblong 8x32 windows with the 0.25° configuration's d = 128, at shifts that
+# wrap on both axes of a 32x64 grid, B = 2.
+KERNEL_GEOMETRY = [((16, 16), 88, (8, 8)), ((8, 32), 128, (4, 16))]
+
+
+def _kernel_geometry_inputs(d, seed):
+    rng = np.random.default_rng(seed)
+    heads = 2
+    qkv = _rand(rng, (2, 32, 64, heads * 3 * d))
+    scale = np.exp(_rand(rng, (heads,), 0.3) + np.log(10.0))  # around the logit scale's init
+    return heads, qkv, scale
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["whole_grid", "tiled"])
+@pytest.mark.parametrize("window,d,shift", KERNEL_GEOMETRY, ids=["16x16_d88", "8x32_d128"])
+def test_block_attention_plain_matches_pallas_at_kernel_geometry(window, d, shift, tiled):
+    """The plain versions of kernels 2 and 15 (the wrappers on CPU tensors)
+    against ``pba.fused_block_attention`` and ``fused_tiled_block_attention``
+    interpreted, at the geometry the CUDA kernels take, in fp32 at TOL."""
+    heads, qkv, scale = _kernel_geometry_inputs(d, 65 + d)
+    jfn, tfn = ((pba.fused_tiled_block_attention, block_attention.fused_tiled_block_attention)
+                if tiled else (pba.fused_block_attention, block_attention.fused_block_attention))
+    want = jfn(jnp.asarray(qkv), jnp.asarray(scale), heads, window, shift)
+    got = tfn(_t(qkv), _t(scale), heads, window, shift)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+
+
+def test_block_attention_plain_matches_pallas_in_bf16():
+    """The same at 16x16 windows, d = 88, shift (8, 8) with bf16 qkv, the
+    kernels' working type: both round q̂·s, k̂ and p to bf16 before the
+    products and the output to bf16, but sum in other orders, so a value
+    near a rounding tie may round the other way: held to one bf16 step at
+    max|out| (2^-7 max|out|, absolute). On the CPU 0.25% of the outputs
+    differ, by one step at |out| < 0.5."""
+    window, d, shift = KERNEL_GEOMETRY[0]
+    heads, qkv, scale = _kernel_geometry_inputs(d, 66)
+    qkv16 = jnp.asarray(qkv, jnp.bfloat16)
+    want = np.asarray(pba.fused_block_attention(qkv16, jnp.asarray(scale), heads, window, shift),
+                      np.float32)
+    got = block_attention.fused_block_attention(_t(qkv16.astype(jnp.float32)).bfloat16(),
+                                                _t(scale), heads, window, shift)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0 ** -7 * np.abs(want).max())
 
 
 def _epilogue(rng, B, D):
@@ -494,3 +543,101 @@ def test_tiled_kernels_match_plain_and_the_whole_grid_kernels(d):
     assert torch.equal(
         unroll(block_attention.tiled_block_attention_tangent(rolled, drolled, scale, heads, win)),
         block_attention.block_attention_tangent(qkv, dqkv, scale, heads, win, shift))
+
+
+# Kernels 2 and 15 across the geometry they accept: (window, grid, shift) with square and
+# oblong 256-token windows, grids of several windows and of one, and shifts that wrap on both
+# axes; at each head dim of the parametrisation (padded to 32, 64, 96, 128 lanes in shared
+# memory, and 96 and 128 unpadded) and B of 1 and 3.
+FORWARD_WINDOWS = [((16, 16), (32, 48), (8, 40)), ((8, 32), (24, 64), (5, 44)),
+                   ((32, 8), (64, 16), (37, 3)), ((16, 16), (16, 16), (5, 11))]
+
+
+def _card_tensor(rng):
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", dtype)
+
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 24, 40, 88, 96, 128])
+def test_attention_forward_kernels_match_plain_on_card(d):
+    """Kernel 2 at the shift and kernel 15 on the qkv rolled by it against
+    the plain version in bf16 on the card, within 2e-2 of max|plain|, over
+    ``FORWARD_WINDOWS`` at B = 1 and 3; each call twice, equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(70 + d))
+    heads = 3
+    for window, grid, shift in FORWARD_WINDOWS:
+        for B in (1, 3):
+            qkv = t((B, *grid, heads * 3 * d))
+            scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+            rolled = torch.roll(qkv, (-shift[0], -shift[1]), (1, 2))
+            cases = [
+                (block_attention.fused_block_attention, (qkv, scale, heads, window, shift)),
+                (block_attention.fused_tiled_block_attention, (rolled, scale, heads, window)),
+            ]
+            for fused, args in cases:
+                got = fused(*args)
+                want = block_attention.reference_block_attention(*args)
+                again = fused(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tag = (fused.__name__, window, grid, shift, B, err)
+                assert torch.isfinite(got).all(), tag
+                assert err <= 2e-2 * want.float().abs().max().item(), tag
+                assert torch.equal(got, again), tag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [88, 128])
+def test_attention_forward_kernels_take_zero_rows(d):
+    """A q row and a k row of zeros normalise to zeros through the eps of
+    the L2 norm (|x|² + 1e-12), in kernels 2 and 15 as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(80 + d))
+    heads, window, shift = 2, (16, 16), (8, 8)
+    qkv = t((2, 32, 64, heads * 3 * d))
+    qkv[0, 3, 5, d * 3:d * 4] = 0  # head 1's q at one token
+    qkv[1, 20, 60, d:2 * d] = 0  # head 0's k at another
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    rolled = torch.roll(qkv, (-shift[0], -shift[1]), (1, 2))
+    for fused, args in ((block_attention.fused_block_attention, (qkv, scale, heads, window, shift)),
+                        (block_attention.fused_tiled_block_attention,
+                         (rolled, scale, heads, window))):
+        got, want = fused(*args), block_attention.reference_block_attention(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), (
+            fused.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,grid,heads,d,shift", [
+    (2, (64, 128), 12, 88, (8, 8)), (2, (64, 128), 8, 128, (8, 8)),
+    (1, (368, 720), 8, 128, (8, 8))], ids=["flagship_12x88", "flagship_8x128", "quarter"])
+def test_attention_forward_kernels_walk_many_window_heads(B, grid, heads, d, shift):
+    """Kernels 2 and 15 at the main paths' shapes, where each block walks
+    several window-heads (6 and 4 an SM at the flagship, 63 at 0.25°), so
+    that a buffer reused too early across window-heads shows: within 2e-2
+    of max|plain|, two calls equal bit for bit, and 15 on rolled qkv equal
+    to 2 bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(90 + d))
+    win = (16, 16)
+    qkv = t((B, *grid, heads * 3 * d))
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    rolled = torch.roll(qkv, (-shift[0], -shift[1]), (1, 2))
+    want = block_attention.reference_block_attention(rolled, scale, heads, win)
+    got = block_attention.fused_tiled_block_attention(rolled, scale, heads, win)
+    again = block_attention.fused_tiled_block_attention(rolled, scale, heads, win)
+    whole = block_attention.fused_block_attention(qkv, scale, heads, win, shift)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), err
+    assert torch.equal(got, again)
+    assert torch.equal(torch.roll(got, shift, (1, 2)), whole)
