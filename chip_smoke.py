@@ -17,7 +17,7 @@ Phases, each printed as it finishes:
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
-   pre-rolled input), and 5, 10, 11, 15-19 also at the 0.25° shapes (B=1,
+   pre-rolled input), and 3, 5, 10, 11, 15-19 also at the 0.25° shapes (B=1,
    368x720 tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19)
    from a numpy seed; fails when max|kernel - plain| of any output exceeds
    2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or the
@@ -29,13 +29,15 @@ Phases, each printed as it finishes:
    silu·mul, ``F.linear``) for the FFN and its primal + tangent, and
    another (``torch.roll``, window partition, the fp32 normalise rounded to
    bf16, ``F.scaled_dot_product_attention`` at scale 1, the inverse) for
-   the attention forward 2 and 15 (with kernels 1's, 14's, 5's, 11's, 2's
-   and 15's TFLOP/s, share of the bound and ratio to the yardstick, single
-   calls and queued; 15 also at 0.25°), and the int8 qkv product
-   (``torch._int_mm``) and weight quantization times; fails unless kernel
-   14's two outputs equal kernel 1's on x and on dx, kernel 11's y kernel
-   5's, and kernel 15's on qkv rolled by the shift (8, 8) kernel 2's at that
-   shift, bit for bit;
+   the attention forward 2 and 15, and another (``F.linear``, fp32
+   ``F.layer_norm``, AdaLN, + r) for kernel 3 (with kernels 1's, 14's,
+   3's, 5's, 11's, 2's and 15's TFLOP/s, share of the bound and ratio to
+   the yardstick, single calls and queued; 3 and 15 also at 0.25°), kernel
+   3's cluster plan (blocks, columns, clusters resident), and the int8 qkv
+   product (``torch._int_mm``) and weight quantization times; fails unless
+   kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's y
+   kernel 5's, and kernel 15's on qkv rolled by the shift (8, 8) kernel 2's
+   at that shift, bit for bit;
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -195,6 +197,7 @@ from swift_torch.ops.linear import (
 )
 from swift_torch.ops.modnorm import (
     fused_matmul_modnorm_residual,
+    matmul_modnorm_plan,
     fused_matmul_modnorm_residual_int8,
     fused_modnorm_residual,
     modnorm_residual_tangent,
@@ -641,12 +644,30 @@ def _composition_attention(qkv, scale, heads, window_size, shift=(0, 0)):
     return run
 
 
-# Kernels 2, 15, 5 and 11 have no single PyTorch call of the same function:
-# their yardstick is a composition of library calls, timed beside them
-# (``composition_ms``), never a ``library_ms``.
+def _composition_mm_modnorm(x, w, r, g, b, msc, msh):
+    """``F.linear`` (cuBLAS, y rounded to bf16 where kernel 3 keeps it in
+    fp32), ``F.layer_norm`` in fp32 with g and b, the AdaLN ·(1 + msc) +
+    msh of each row's sample, + r, rounded to bf16: the wo projection's
+    post-norm as a user would write it in PyTorch."""
+    D = w.shape[0]
+    shape = (msc.shape[0],) + (1,) * (r.ndim - 2) + (D,)
+
+    def run():
+        ln = torch.nn.functional.layer_norm(torch.nn.functional.linear(x, w).float(), (D,), g, b,
+                                            eps=1e-6)
+        out = ln * (1.0 + msc.float().view(shape)) + msh.float().view(shape)
+        return (out + r.float()).to(r.dtype)
+
+    return run
+
+
+# Kernels 3, 2, 15, 5 and 11 have no single PyTorch call of the same
+# function: their yardstick is a composition of library calls, timed beside
+# them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
                "block_attention": _composition_attention,
-               "tiled_block_attention": _composition_attention}
+               "tiled_block_attention": _composition_attention,
+               "matmul_modnorm_residual": _composition_mm_modnorm}
 
 
 def log(msg: str) -> None:
@@ -849,10 +870,24 @@ def phase_kernels() -> dict:
         int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
+    cluster_plan(record)
     quarter_kernels(rng, record)
     window_kernels(rng, record)
     tiny_ffn_kernels(rng, record)
     return record
+
+
+def cluster_plan(record: dict) -> None:
+    """Kernel 3's cluster at the model's width: blocks a cluster, columns a
+    block, shared memory, and the clusters the card holds at once (from
+    ``cudaOccupancyMaxActiveClusters``), with the SMs they leave idle."""
+    plan = matmul_modnorm_plan(DIM)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    busy = plan["cluster"] * plan["resident_clusters"]
+    log(f"[kernels] matmul_modnorm_residual D={DIM}: clusters of {plan['cluster']} blocks x "
+        f"{plan['columns']} columns, {plan['smem']} bytes of shared memory a block, "
+        f"{plan['resident_clusters']} clusters resident: {busy} of {sms} SMs")
+    record["matmul_modnorm_residual"]["cluster_plan"] = plan
 
 
 def queued_ms(fn, reps: int = 20) -> float:
@@ -871,9 +906,9 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def rates(name: str, args, fields: dict) -> None:
-    """Kernels 1, 14, 5 and 11 beside their bound and their yardstick (the
-    library call of 1 and 14, the composition of library calls of 5 and
-    11): TFLOP/s, the share of the bound (bound time over kernel time) and
+    """Kernels 1, 14, 3, 5, 11, 2 and 15 beside their bound and their
+    yardstick (the library call of 1 and 14, the composition of library
+    calls of the others): TFLOP/s, the share of the bound (bound time over kernel time) and
     the kernel's time over the yardstick's, from single calls
     (``check_kernel``'s kernel time); then both again from calls queued back
     to back (``queued_ms``), without the host's cost of a call."""
@@ -962,12 +997,12 @@ def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
 
 
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
-    """Kernels 5, 10, 11, 15-17, 18 and 19 at the 0.25° shapes (B = 1,
+    """Kernels 3, 5, 10, 11, 15-17, 18 and 19 at the 0.25° shapes (B = 1,
     368x720 tokens, 8x128 heads, the 264,960-token FFN), with the scratch of
     kernels 5, 10, 11 and 16: computed from the shapes, and read as the
     peak device memory of one call above its inputs and outputs. The main
-    path of 5, 11, 18 and 19 is the flagship's: their 0.25° times stand
-    beside it."""
+    path of 3, 5, 11, 18 and 19 is the flagship's: their 0.25° times stand
+    beside it (kernel 3's also queued, beside its composition's)."""
     t = _tensor(rng)
     gh, gw = QUARTER_GRID
     heads, d, T = 8, 128, gh * gw
@@ -975,7 +1010,11 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
     x, dx = t((T, DIM)), t((T, DIM))
     w1, w2 = t((2 * HIDDEN, DIM), DIM ** -0.5), t((DIM, HIDDEN), HIDDEN ** -0.5)
+    epilogue = (t((1, gh, gw, DIM)), 1.0 + t((DIM,), 0.1, torch.float32),
+                t((DIM,), 0.1, torch.float32), t((1, DIM), 0.2), t((1, DIM), 0.2))
     cases = [
+        ("matmul_modnorm_residual",
+         (t((1, gh, gw, heads * d)), t((DIM, heads * d), (heads * d) ** -0.5)) + epilogue),
         ("tiled_block_attention", (qkv, scale, heads, (16, 16))),
         ("tiled_block_attention_bwd", (qkv, scale, t((1, gh, gw, heads * d)), heads, (16, 16))),
         ("tiled_block_attention_tangent", (qkv, t(qkv.shape), scale, heads, (16, 16))),
@@ -984,9 +1023,8 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         ("swiglu_ffn_bwd_recompute", (x, dx, w1, w2)),
         ("swiglu_ffn_int8", (x, w1.float(), w2.float())),
         ("matmul_modnorm_residual_int8",
-         (t((1, gh, gw, heads * d)), t((DIM, heads * d), (heads * d) ** -0.5, torch.float32),
-          t((1, gh, gw, DIM)), 1.0 + t((DIM,), 0.1, torch.float32), t((DIM,), 0.1, torch.float32),
-          t((1, DIM), 0.2), t((1, DIM), 0.2))),
+         (t((1, gh, gw, heads * d)), t((DIM, heads * d), (heads * d) ** -0.5, torch.float32))
+         + epilogue),
     ]
     scratch = {
         "tiled_block_attention_bwd": (tiled_bwd_scratch_bytes(1, gh, gw, heads, d, (16, 16)),
@@ -995,15 +1033,20 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         "swiglu_ffn_pt": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=True), 1e9, "1 GB"),
         "swiglu_ffn_bwd_recompute": (bwd_recompute_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
     }
-    beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt")
+    beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual")
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
-        if name == "tiled_block_attention":  # its main path's shape: beside its yardstick
-            rates(name, args, fields)
+        if name in ("tiled_block_attention", "matmul_modnorm_residual"):
+            rates(name, args, fields)  # 15 on its main path's shape; 3 as a time of record
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
                                 quarter_bound_ms=fields["bound_ms"])
+            if "queued_ms" in fields:
+                record[name].update(quarter_queued_ms=fields["queued_ms"],
+                                    quarter_composition_ms=fields["composition_ms"],
+                                    quarter_queued_composition_ms=fields[
+                                        "queued_composition_ms"])
         else:
             _merge(record, name, fields, True)
         if name in scratch:
@@ -1022,7 +1065,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
                 f"(limit {limit / 1e9:.2f} GB, {what})")
             if max(computed, measured) > limit:
                 raise AssertionError(f"{name}: scratch {max(computed, measured)} > {limit} bytes")
-    del cases, qkv, x, dx, w1, w2
+    del cases, qkv, x, dx, w1, w2, epilogue
     torch.cuda.empty_cache()
 
 

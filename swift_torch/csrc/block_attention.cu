@@ -374,8 +374,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < DP / 16; ++k)
-          wgmma_m64n256k16(s, wgmma_desc(Qc + (k / 4) * L::Q_BOX) + 2 * (k % 4),
-                           wgmma_desc(Ks + (k / 4) * L::KV_BOX) + 2 * (k % 4), k > 0);
+          wgmma_m64nNk16<256>(s, wgmma_desc(Qc + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                              wgmma_desc(Ks + (k / 4) * L::KV_BOX) + 2 * (k % 4), k > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);

@@ -336,8 +336,8 @@ static int launch_hidden(const void* x, const void* dx, const void* w1, void* h,
   const int tile_rows = PAIR ? kLinRows : 2 * kLinRows;
   const int m_pairs = ((M + tile_rows - 1) / tile_rows + kLinCluster - 1) / kLinCluster;
   return launch_clusters(swiglu_hidden_wgmma_kernel<PAIR>, hidden_resident[PAIR],
-                         hidden_smem(PAIR), m_pairs * ((H + kHidBN - 1) / kHidBN), stream, mA0,
-                         mA1, mWg, mWu, mH0, mH1, M, H, D);
+                         hidden_smem(PAIR), m_pairs * ((H + kHidBN - 1) / kHidBN), kLinCluster,
+                         stream, mA0, mA1, mWg, mWu, mH0, mH1, M, H, D);
 }
 
 // x (M, D) -> h (M, H), all bf16; w1 (2H, D), gate rows then up rows. D % 8

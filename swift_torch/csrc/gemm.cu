@@ -25,12 +25,12 @@
 // swift_mm_modnorm -- replaces swift_tpu/ops/pallas_modnorm.py::_mm_mn_call
 //   (kernel body _mm_mn_kernel): out = r + (LN(x . Wo^T) g + b)(1 + sc) + sh
 //   with the per-sample AdaLN rows sc/sh. LayerNorm needs whole rows of all
-//   D=1056 columns, which a register accumulator cannot hold, so a block
-//   owns 32 token rows, walks D in 128-column tiles, parks each fp32 tile in
-//   a 32 x 1056 shared-memory accumulator (135 KB) and runs the LN/AdaLN/
-//   residual epilogue from there: the (T, D) product never reaches device
-//   memory. Bound by the tensor cores on the product; the epilogue is one
-//   read of r and one write of out.
+//   D=1056 columns, more than one SM holds at wgmma's 64 rows, so a
+//   thread-block cluster splits each row's columns and exchanges the rows'
+//   partial sums through distributed shared memory (mm_modnorm_wgmma_kernel):
+//   the fp32 product stays in registers and never reaches device memory.
+//   Bound by the tensor cores on the product (2*T*K*1056 FLOP); the
+//   epilogue is one read of r and one write of out.
 //
 // swift_mm_modnorm_int8 -- replaces swift_tpu/ops/pallas_modnorm.py::
 //   fused_matmul_modnorm_residual_int8 (kernel body _mm_mn_q_kernel), kernel
@@ -145,78 +145,289 @@ __global__ void __launch_bounds__(kLinThreads, 1)
   }
 }
 
-constexpr int kBK = 32, kMnBM = 32, kMnBN = 128;
-using MnMma = TileMma<kMnBM, kMnBN, kBK, 2, 4>;
+// Kernel 3: out = r + (LN(x . Wo^T) g + b)(1 + sc) + sh on the wgmma + TMA
+// ring, the rows of a tile split across a thread-block cluster.
+//
+// LayerNorm needs a whole row of y before any column of it can be written.
+// A 64-row wgmma tile of all D = 1056 fp32 columns (270 KB) fits neither an
+// SM's registers nor its shared memory, so a cluster of C blocks owns 128
+// rows x all D columns: block ``rank`` holds columns [rank BN, rank BN + BN)
+// (BN = 176, C = 6 at D = 1056). Its two consumer warpgroups keep their
+// 64 x BN fp32 accumulators in registers, reduce each row's sum and sum of
+// squares over their columns, and write the two floats into slot ``rank``
+// of every cluster block's shared memory (distributed shared memory), then
+// arrive on that block's statistics barrier with release semantics. Each
+// block waits for all C slots and adds them in rank order 0 ... C - 1, so
+// every block holds the same mean and rsqrt(var + eps) for a row, bit for
+// bit; y never reaches device memory. The slots are double-buffered by tile
+// parity: a block writes a tile's partials into a slot only after every
+// peer has sent the next tile's, so after it has read the slot.
+//
+// Warp specialisation, 384 threads a block, persistent clusters walking
+// 128-row tiles:
+//   warpgroup 0, the producer: one thread keeps a ring of 64-deep stages in
+//     flight (the tile's 128 x 64 A box and the block's BN x 64 W box) and,
+//     once a ring's worth of a tile's stages is issued, loads the tile's
+//     128 x BN slice of r into the epilogue box, after the previous tile's
+//     output has left it;
+//   warpgroups 1 and 2, the consumers: rows [0, 64) and [64, 128) of the
+//     tile, four m64nBNk16 wgmmas a stage; then the statistics, and the
+//     epilogue from registers: ln = (y - mu) rs g + b, ln (1 + sc) + sh,
+//     plus r read from the box, rounded to bf16 into the box, which TMA
+//     stores (clipping rows past M and columns past D). g, b and the AdaLN
+//     rows are read from shared memory, where the consumers put the block's
+//     columns of them once: read from L2 in the epilogue they took a quarter
+//     of the kernel's time.
+// Columns past D are W rows that TMA zero-fills: their y is 0 and adds
+// nothing to the sums, which are divided by D. Rows past M are zero-filled
+// too; their statistics are computed and never stored. The sample of row i
+// is i / tps, taken per row. Bound by the tensor cores (2 M K D FLOP). Every
+// block of a cluster loads the same A box: multicasting its halves from two
+// blocks to all was no faster (PERF.md), so each block loads its own.
+constexpr int kMnRows = 128, kMnMaxCluster = 8;
+constexpr int kMnABytes = kMnRows * kLinBK * 2;
+// The column slices a block may hold; the host takes the narrowest that
+// covers D in at most kMnMaxCluster blocks.
+constexpr int kMnWidths[] = {32, 64, 128, 176, 216};
+constexpr int kMnKinds = sizeof(kMnWidths) / sizeof(kMnWidths[0]);
+constexpr int kMnMaxD = kMnMaxCluster * kMnWidths[kMnKinds - 1];
+static_assert(kMnMaxD == 1728, "ops/modnorm.py's MATMUL_MODNORM_MAX_D");
 
-__host__ __device__ constexpr int mm_modnorm_smem(int D) {
-  return kMnBM * (D + 4) * 4 + MnMma::SMEM;
+template <int BN>
+struct MnLayout {
+  static constexpr int W_BYTES = BN * kLinBK * 2;
+  static constexpr int STAGE = kMnABytes + W_BYTES;
+  static constexpr int BOX = kMnRows * BN * 2;  // r in, out back, rows of BN bf16
+  static constexpr int SLOTS = 2 * kMnMaxCluster * kMnRows * 8;
+  static constexpr int GB = BN * 8;  // the block's columns of g and b, fp32
+  static constexpr int FIXED = 1024 + BOX + SLOTS + GB + 256;  // alignment pad, barriers
+  static constexpr int STAGES = (kMaxSmem - FIXED) / STAGE < 8 ? (kMaxSmem - FIXED) / STAGE : 8;
+  // what room is left holds the block's columns of the AdaLN rows of up to
+  // SAMPLES samples (sc, then sh, bf16)
+  static constexpr int LEFT = (kMaxSmem - FIXED - STAGES * STAGE) / (BN * 4);
+  static constexpr int SAMPLES = LEFT < 32 ? LEFT : 32;
+  static constexpr int SMEM = FIXED + STAGES * STAGE + SAMPLES * BN * 4;
+  static_assert(STAGES >= 3 && SMEM <= kMaxSmem, "kernel 3's ring does not fit");
+};
+
+__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__global__ void __launch_bounds__(MnMma::NT)
-    mm_modnorm_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W,
-                      const bf16* __restrict__ R, const float* __restrict__ g,
-                      const float* __restrict__ b, const bf16* __restrict__ msc,
-                      const bf16* __restrict__ msh, bf16* __restrict__ out, int M, int K, int D,
-                      int tps, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lda = D + 4;
-  float* accS = reinterpret_cast<float*>(smem_raw);
-  bf16* tiles = reinterpret_cast<bf16*>(smem_raw + kMnBM * lda * 4);
-  const int m0 = blockIdx.x * kMnBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wm = warp / 4, wn = warp % 4;
+template <int BN>
+__global__ void __launch_bounds__(kLinThreads, 1)
+    mm_modnorm_wgmma_kernel(const __grid_constant__ CUtensorMap mA,
+                            const __grid_constant__ CUtensorMap mW,
+                            const __grid_constant__ CUtensorMap mR,
+                            const __grid_constant__ CUtensorMap mOut, const float* __restrict__ g,
+                            const float* __restrict__ b, const bf16* __restrict__ msc,
+                            const bf16* __restrict__ msh, int M, int K, int D, int tps,
+                            float eps) {
+  using L = MnLayout<BN>;
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* box = smem + S * L::STAGE;
+  float2* slots = reinterpret_cast<float2*>(box + L::BOX);  // [parity][rank][row]
+  float* gs = reinterpret_cast<float*>(box + L::BOX + L::SLOTS);
+  float* bs = gs + BN;
+  bf16* scs = reinterpret_cast<bf16*>(bs + BN);  // [sample][BN]
+  bf16* shs = scs + L::SAMPLES * BN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(shs + L::SAMPLES * BN);
+  uint64_t* empty = full + S;
+  uint64_t* stat = empty + S;  // [parity]
+  uint64_t* rfull = stat + 2;
+  uint64_t* rempty = rfull + 1;
 
-  for (int n0 = 0; n0 < D; n0 += kMnBN) {
-    MnMma::Acc acc[MnMma::FM][MnMma::FN];
-    MnMma::run(
-        acc, tiles, X, K, [=](int r) { return m0 + r < M ? m0 + r : -1; }, W, K,
-        [=](int r) { return n0 + r < D ? n0 + r : -1; }, K);
+  const int C = (int)cluster_blocks(), rank = (int)cluster_rank();
+  const int tiles = (M + kMnRows - 1) / kMnRows;
+  const int cluster = blockIdx.x / C, clusters = gridDim.x / C;
+  const int k_blocks = (K + kLinBK - 1) / kLinBK;
+  const int n0 = rank * BN;
+  if (threadIdx.x == 0) {
+    mbar_init(&stat[0], 8 * C);  // each consumer warp of the cluster
+    mbar_init(&stat[1], 8 * C);
+    mbar_init(rfull, 1);
+    mbar_init(rempty, 2);  // each consumer's store
+  }
+  ring_init<S>(full, empty, 1);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      RingPos<S> pos;
+      const int r_at = (k_blocks < S ? k_blocks : S) - 1;
+      int it = 0;
+      for (int t = cluster; t < tiles; t += clusters, ++it) {
+        const int m0 = t * kMnRows;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          unsigned char* stage = smem + pos.s * L::STAGE;
+          mbar_wait(&empty[pos.s], pos.phase ^ 1);
+          mbar_expect_tx(&full[pos.s], L::STAGE);
+          tma_load_2d(stage, &mA, &full[pos.s], kb * kLinBK, m0);
+          tma_load_2d(stage + kMnABytes, &mW, &full[pos.s], kb * kLinBK, n0);
+          pos.next();
+          if (kb == r_at) {  // the ring is full of this tile: its r next
+            mbar_wait(rempty, (it & 1) ^ 1);
+            mbar_expect_tx(rfull, L::BOX);
+            tma_load_2d(box, &mR, rfull, n0, m0);
+          }
+        }
+      }
+    }
+  } else {  // the consumers
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    const int lr = 64 * c + tid / 32 * 16 + lane / 4;  // this thread's rows of the tile: lr, lr + 8
+    const float inv_d = 1.0f / (float)D;
+    // the block's columns of g, b and, where they fit, of every sample's
+    // AdaLN rows, into shared memory once (zeros past D): the epilogue
+    // reads them there, not from L2
+    const int ct = threadIdx.x - 128, samples = (M - 1) / tps + 1;
+    const bool staged = samples <= L::SAMPLES;
+    for (int i = ct; i < BN; i += 256) {
+      gs[i] = n0 + i < D ? g[n0 + i] : 0.f;
+      bs[i] = n0 + i < D ? b[n0 + i] : 0.f;
+    }
+    for (int i = ct; staged && i < samples * BN; i += 256) {
+      const int col = n0 + i % BN;
+      const size_t at = (size_t)(i / BN) * D + col;
+      scs[i] = col < D ? msc[at] : __float2bfloat16(0.f);
+      shs[i] = col < D ? msh[at] : __float2bfloat16(0.f);
+    }
+    named_barrier_sync(3, 256);
+    const bf16* sc_rows = staged ? scs : msc + n0;  // row s of sample s at s * stride
+    const bf16* sh_rows = staged ? shs : msh + n0;
+    const int stride = staged ? BN : D;
+    float acc[BN / 2];
+    RingPos<S> pos;
+    int it = 0;
+    for (int t = cluster; t < tiles; t += clusters, ++it) {
+      const int m0 = t * kMnRows, par = it & 1;
+      // the products
+      int prev = 0;
+      auto release = [&](int stage) {
+        if (lane == 0) mbar_arrive(&empty[stage]);
+      };
+      fence_regs(acc);
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(&full[pos.s], pos.phase);
+        wgmma_fence();
+        unsigned char* stage = smem + pos.s * L::STAGE;
+        const uint64_t da = wgmma_desc(stage + c * (kMnABytes / 2));
+        const uint64_t dw = wgmma_desc(stage + kMnABytes);
 #pragma unroll
-    for (int j = 0; j < MnMma::FN; ++j) {
-      const int col = n0 + wn * MnMma::FN * 16 + j * 16;
-      if (col < D)
-        wmma::store_matrix_sync(accS + (wm * 16) * lda + col, acc[0][j], lda,
-                                wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
+        for (int k = 0; k < kLinBK / 16; ++k)
+          wgmma_m64nNk16<BN>(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (kb > 0) release(prev);
+        prev = pos.s;
+        pos.next();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(prev);
 
-  // epilogue, one warp per row: fp32 statistics with var = E[y^2] - mu^2 as
-  // the TPU kernel computes it, then LN affine, AdaLN and the residual.
-  const float inv_d = 1.0f / (float)D;
-  for (int r = warp; r < kMnBM; r += MnMma::NT / 32) {
-    const int gr = m0 + r;
-    if (gr >= M) break;
-    const float* y = accS + r * lda;
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = y[c];
-      s += v;
-      ss += v * v;
+      // the rows' partial sums over this block's columns, to every block
+      float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[4 * j + 2 * h + e];
+            s[h] += v;
+            ss[h] += v * v;
+          }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+          s[h] += __shfl_xor_sync(0xffffffffu, s[h], x);
+          ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], x);
+        }
+      float2* mine = slots + (par * kMnMaxCluster + rank) * kMnRows;
+      if (lane % 4 == 0) {
+        for (int p = 0; p < C; ++p) {
+          st_cluster_f32x2(&mine[lr], p, s[0], ss[0]);
+          st_cluster_f32x2(&mine[lr + 8], p, s[1], ss[1]);
+        }
+        fence_cluster();
+      }
+      __syncwarp();
+      if (lane < C) mbar_arrive_cluster_release(&stat[par], lane);
+      mbar_wait_cluster(&stat[par], (it >> 1) & 1);
+      float mu[2], rs[2];
+      int srow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float S1 = 0.f, S2 = 0.f;
+        for (int p = 0; p < C; ++p) {  // rank order: the same sums in every block
+          const float2 v = slots[(par * kMnMaxCluster + p) * kMnRows + lr + 8 * h];
+          S1 += v.x;
+          S2 += v.y;
+        }
+        mu[h] = S1 * inv_d;
+        rs[h] = rsqrtf(S2 * inv_d - mu[h] * mu[h] + eps);
+        const int row = m0 + lr + 8 * h;
+        srow[h] = ((row < M ? row : M - 1) / tps) * stride;
+      }
+
+      // the epilogue: LN affine, AdaLN, + r, in place in the box; the AdaLN
+      // rows are loaded once where both of the thread's rows are of one sample
+      const bool one_sample = srow[0] == srow[1];
+      mbar_wait(rfull, it & 1);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int lc = 8 * j + 2 * (lane % 4), col = n0 + lc;
+        if (col < D) {  // D is even: col + 1 < D too
+          const float2 gg = *reinterpret_cast<const float2*>(gs + lc);
+          const float2 bb = *reinterpret_cast<const float2*>(bs + lc);
+          float2 sc[2], sh[2];
+          sc[0] = ld_bf16x2(sc_rows + srow[0] + lc);
+          sh[0] = ld_bf16x2(sh_rows + srow[0] + lc);
+          sc[1] = one_sample ? sc[0] : ld_bf16x2(sc_rows + srow[1] + lc);
+          sh[1] = one_sample ? sh[0] : ld_bf16x2(sh_rows + srow[1] + lc);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162* rp =
+                reinterpret_cast<__nv_bfloat162*>(box + ((lr + 8 * h) * BN + lc) * 2);
+            const float2 rv = __bfloat1622float2(*rp);
+            const float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
+            const float o0 = ((y0 - mu[h]) * rs[h] * gg.x + bb.x) * (1.0f + sc[h].x) + sh[h].x;
+            const float o1 = ((y1 - mu[h]) * rs[h] * gg.y + bb.y) * (1.0f + sc[h].y) + sh[h].y;
+            *rp = __floats2bfloat162_rn(o0 + rv.x, o1 + rv.y);
+          }
+        }
+      }
+      fence_async_smem();
+      named_barrier_sync(1 + c, 128);
+      if (tid == 0) {
+        if (m0 + 64 * c < M) {
+          tma_store_2d(&mOut, box + c * 64 * BN * 2, n0, m0 + 64 * c);
+          tma_store_commit();
+          tma_store_wait_read<0>();
+        }
+        mbar_arrive(rempty);
+      }
     }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s * inv_d;
-    const float rs = rsqrtf(ss * inv_d - mu * mu + eps);
-    const size_t bi = (size_t)(gr / tps) * D;
-    const size_t ro = (size_t)gr * D;
-    for (int c = lane; c < D; c += 32) {
-      const float ln = (y[c] - mu) * rs * g[c] + b[c];
-      float o = ln * (1.0f + __bfloat162float(msc[bi + c])) + __bfloat162float(msh[bi + c]);
-      o = o + __bfloat162float(R[ro + c]);
-      out[ro + c] = __float2bfloat16_rn(o);
-    }
+    if (tid == 0) tma_store_wait_all();
   }
+  __syncwarp();
+  cluster_sync();  // no block leaves while a peer may still write into it
 }
 
-// Kernel 19: int8 wo + modnorm. Kernel 3's design with the int8 main loop:
-// the block quantizes its 32 x rows whole (all K = inner columns, the row
+// Kernel 19: int8 wo + modnorm on the WMMA loop of tile_mma.cuh: the block
+// quantizes its 32 x rows whole (all K = inner columns, the row
 // abs-max before any product) into a resident k-chunk-major int8 tile, walks
 // D in 128-column tiles of the int8 weight, parks each int32 tile in the
 // 32 x D accumulator (135 KB at D = 1056) and rescales y = (acc * sx) * sw in
 // fp32 in the epilogue. The TPU kernel pads the 12 x 88 attention output to
 // 12 x 128 lanes with zeros; here it is 1056 wide: zero lanes change neither
 // a row's abs-max nor the products.
-constexpr int kMnQBK = 64;
+constexpr int kMnBM = 32, kMnBN = 128, kMnQBK = 64;
 using MnQMma = TileMmaI8<kMnBM, kMnBN, kMnQBK, 2, 4>;
 
 __host__ __device__ constexpr int mm_modnorm_i8_smem(int K, int D) {
@@ -257,7 +468,8 @@ __global__ void __launch_bounds__(MnQMma::NT)
   }
   __syncthreads();
 
-  // epilogue, one warp per row, as kernel 3's with y = (acc * sx) * sw
+  // epilogue, one warp per row: fp32 statistics with var = E[y^2] - mu^2 as
+  // the TPU kernel computes it, then LN affine, AdaLN and the residual
   const float inv_d = 1.0f / (float)D;
   for (int r = warp; r < kMnBM; r += MnQMma::NT / 32) {
     const int gr = m0 + r;
@@ -305,8 +517,8 @@ static int launch_linear(const void* a0, const void* a1, const void* w, void* y0
     return kTensorMapError;
   const int m_pairs = ((M + tile_rows - 1) / tile_rows + kLinCluster - 1) / kLinCluster;
   return launch_clusters(linear_wgmma_kernel, linear_resident, kLinSmem,
-                         m_pairs * ((N + kLinBN - 1) / kLinBN), stream, mA0, mA1, mW, mY0, mY1,
-                         M, N, K, tile_rows, row1);
+                         m_pairs * ((N + kLinBN - 1) / kLinBN), kLinCluster, stream, mA0, mA1,
+                         mW, mY0, mY1, M, N, K, tile_rows, row1);
 }
 
 // x (M, K) -> y (M, N), all bf16; w (N, K). K % 8 == 0, N % 8 == 0, 16-byte
@@ -322,17 +534,77 @@ extern "C" int swift_linear_pt(const void* x, const void* dx, const void* w, voi
   return launch_linear(x, dx, w, y, dy, M, N, K, kLinRows, 0, (cudaStream_t)stream);
 }
 
-extern "C" int swift_mm_modnorm_smem(int D) { return mm_modnorm_smem(D); }
+// Kernel 3's launcher: the column slice BN = kMnWidths[I], C = ceil(D / BN)
+// blocks a cluster, tensor maps for x and Wo (swizzled operand boxes), r
+// and out (dense 128 x BN and 64 x BN boxes), then as many clusters as the
+// card holds at once, asked once for each width, C and device.
+struct MnArgs {
+  const void *x, *w, *r, *g, *b, *msc, *msh;
+  void* out;
+  int M, K, D, tps;
+  float eps;
+  cudaStream_t stream;
+};
 
+static int mm_modnorm_resident[kMnKinds][kMnMaxCluster + 1][64];
+
+// The narrowest width that covers D in at most kMnMaxCluster blocks, or -1.
+static int mm_modnorm_kind(int D) {
+  for (int i = 0; i < kMnKinds; ++i)
+    if ((D + kMnWidths[i] - 1) / kMnWidths[i] <= kMnMaxCluster) return i;
+  return -1;
+}
+
+template <int I = 0>
+static int launch_mm_modnorm(int kind, const MnArgs& a) {
+  if constexpr (I < kMnKinds) {
+    if (kind != I) return launch_mm_modnorm<I + 1>(kind, a);
+    constexpr int BN = kMnWidths[I];
+    const int C = (a.D + BN - 1) / BN;
+    CUtensorMap mA, mW, mR, mOut;
+    if (!tensor_map_bf16(&mA, a.x, a.M, a.K, kMnRows, kLinBK) ||
+        !tensor_map_bf16(&mW, a.w, a.D, a.K, BN, kLinBK) ||
+        !tensor_map_bf16(&mR, a.r, a.M, a.D, kMnRows, BN, false) ||
+        !tensor_map_bf16(&mOut, a.out, a.M, a.D, kMnRows / 2, BN, false))
+      return kTensorMapError;
+    return launch_clusters(mm_modnorm_wgmma_kernel<BN>, mm_modnorm_resident[I][C],
+                           MnLayout<BN>::SMEM, (a.M + kMnRows - 1) / kMnRows, C, a.stream, mA, mW,
+                           mR, mOut, (const float*)a.g, (const float*)a.b, (const bf16*)a.msc,
+                           (const bf16*)a.msh, a.M, a.K, a.D, a.tps, a.eps);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int I = 0>
+static int mm_modnorm_smem(int kind) {
+  if constexpr (I < kMnKinds)
+    return kind == I ? MnLayout<kMnWidths[I]>::SMEM : mm_modnorm_smem<I + 1>(kind);
+  return 0;
+}
+
+// x (M, K), w (D, K), r and out (M, D) bf16; g, b (D,) fp32; msc, msh (M /
+// tps, D) bf16. K % 8 == 0, D % 16 == 0, D <= kMnMaxD, 16-byte aligned bases.
 extern "C" int swift_mm_modnorm(const void* x, const void* w, const void* r, const void* g,
                                 const void* b, const void* msc, const void* msh, void* out,
                                 int M, int K, int D, int tps, float eps, void* stream) {
-  const int smem = mm_modnorm_smem(D);
-  cudaFuncSetAttribute(mm_modnorm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  mm_modnorm_kernel<<<(M + kMnBM - 1) / kMnBM, MnMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (const bf16*)r, (const float*)g, (const float*)b,
-      (const bf16*)msc, (const bf16*)msh, (bf16*)out, M, K, D, tps, eps);
-  return (int)cudaGetLastError();
+  return launch_mm_modnorm(mm_modnorm_kind(D), MnArgs{x, w, r, g, b, msc, msh, out, M, K, D, tps,
+                                                      eps, (cudaStream_t)stream});
+}
+
+// Kernel 3's plan at width D: plan[0] = blocks a cluster, plan[1] = columns
+// a block, plan[2] = shared memory a block, plan[3] = the clusters the card
+// holds at once (0 until a launch at this width and cluster size has asked).
+// Returns -1 for a D wider than kMnMaxD.
+extern "C" int swift_mm_modnorm_plan(int D, int* plan) {
+  const int kind = mm_modnorm_kind(D);
+  if (kind < 0) return -1;
+  int device = 0;
+  cudaGetDevice(&device);
+  plan[1] = kMnWidths[kind];
+  plan[0] = (D + plan[1] - 1) / plan[1];
+  plan[2] = mm_modnorm_smem(kind);
+  plan[3] = mm_modnorm_resident[kind][plan[0]][device % 64];
+  return 0;
 }
 
 extern "C" int swift_mm_modnorm_int8_smem(int K, int D) { return mm_modnorm_i8_smem(K, D); }

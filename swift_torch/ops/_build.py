@@ -37,7 +37,7 @@ _SIGNATURES = {
     "swift_linear_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_linear_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_mm_modnorm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "swift_mm_modnorm_smem": [_I],
+    "swift_mm_modnorm_plan": [_I, _P],
     "swift_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_smem": [_I],
     "swift_swiglu_hidden": [_P, _P, _P, _I, _I, _I, _P],

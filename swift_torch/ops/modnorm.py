@@ -8,7 +8,10 @@ row ``b`` picked per sample.
 
 * :func:`fused_matmul_modnorm_residual` computes y = x·wo.T inside the
   kernel. CUDA: ``csrc/gemm.cu::swift_mm_modnorm``, replacing
-  ``swift_tpu/ops/pallas_modnorm.py::_mm_mn_call``.
+  ``swift_tpu/ops/pallas_modnorm.py::_mm_mn_call``: a thread-block cluster
+  splits each 128-row tile's D columns, each block keeps its fp32 slice of
+  y in registers, and the rows' partial sums go to every block of the
+  cluster through distributed shared memory (:func:`matmul_modnorm_plan`).
 * :func:`fused_matmul_modnorm_residual_int8` is kernel 3's function with
   y = int8(x)·int8(wo)ᵀ, inference only. CUDA: ``csrc/gemm.cu::
   swift_mm_modnorm_int8``, replacing ``swift_tpu/ops/pallas_modnorm.py::
@@ -41,6 +44,7 @@ backward kernel): kernel 3's backward recomputes y = x·wo.T with
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
@@ -170,6 +174,21 @@ def fused_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, ep
     return _matmul_modnorm_residual(*args, eps)
 
 
+# The widest row kernel 3 takes: eight blocks of 216 columns
+# (``csrc/gemm.cu::kMnMaxD``).
+MATMUL_MODNORM_MAX_D = 1728
+
+
+def matmul_modnorm_plan(D: int) -> dict:
+    """Kernel 3's cluster plan at width D (``swift_mm_modnorm_plan``):
+    blocks a cluster, columns a block, shared memory a block in bytes, and
+    the clusters the card holds at once (0 before the first launch at D)."""
+    plan = (ctypes.c_int * 4)()
+    if _build.library().swift_mm_modnorm_plan(D, plan):
+        raise ValueError(f"kernel 3 takes D up to {MATMUL_MODNORM_MAX_D}, got {D}")
+    return dict(zip(("cluster", "columns", "smem", "resident_clusters"), plan))
+
+
 def _matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps):
     if _build.on_cpu(x, w, residual, g, b, mod_scale, mod_shift):
         return reference_matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps)
@@ -183,13 +202,12 @@ def _matmul_modnorm_residual(x, w, residual, g, b, mod_scale, mod_shift, eps):
         raise ValueError(f"{name}: w must be ({D}, {K}) with K % 8 == 0, got {tuple(w.shape)}")
     if x.shape[:-1] != residual.shape[:-1]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and residual {tuple(residual.shape)} differ")
-    lib = _build.library()
-    if lib.swift_mm_modnorm_smem(D) > lib.swift_max_smem():
-        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
+    if D > MATMUL_MODNORM_MAX_D:
+        raise ValueError(f"{name}: D={D} exceeds the {MATMUL_MODNORM_MAX_D} columns a cluster holds")
     M = x.numel() // K
     out = torch.empty_like(residual)
     _build.check_launch(
-        lib.swift_mm_modnorm(
+        _build.library().swift_mm_modnorm(
             x.data_ptr(), w.data_ptr(), residual.data_ptr(), g.data_ptr(), b.data_ptr(),
             mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
             M, K, D, M // residual.shape[0], float(eps), _build.stream(),

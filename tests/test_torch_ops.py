@@ -13,7 +13,9 @@ card (the forward kernels and, for the sCM jvp, the tangent kernels 14, 11,
 12 and 7; kernels 5 and 11 also at ragged shapes, over several token
 chunks, and 11's y against 5's bit for bit; the attention forward 2 and 15
 over head dims, window shapes, wrapping shifts, zero rows and the main
-paths' shapes, 15 on rolled qkv against 2 bit for bit) and skip elsewhere.
+paths' shapes, 15 on rolled qkv against 2 bit for bit; kernel 3 at the
+shipped shapes and ragged M, D and K, two calls bit for bit) and skip
+elsewhere.
 """
 
 import functools
@@ -146,10 +148,18 @@ def _epilogue(rng, B, D):
             _rand(rng, (B, D), 0.2), _rand(rng, (B, D), 0.2))
 
 
-def test_matmul_modnorm_plain_matches_pallas():
+@pytest.mark.parametrize("B,N,F,D,offset", [(2, 64, 24, 48, 0.0), (3, 96, 1056, 1056, 3.0),
+                                            (3, 96, 1024, 1056, 3.0)],
+                         ids=["small", "flagship_12x88", "flagship_8x128"])
+def test_matmul_modnorm_plain_matches_pallas(B, N, F, D, offset):
+    """Kernel 3's plain version against the interpreted ``_mm_mn_call``, at a
+    small shape and at the kernel's own widths (K = 1056 and 1024, D =
+    1056), there with one row of x offset by ``offset``, so that its y has a
+    large mean beside its spread (var = E[y²] − μ² cancels). 96 tokens a
+    sample is no multiple of 128: the Pallas block is 32 rows."""
     rng = np.random.default_rng(4)
-    B, N, F, D = 2, 64, 24, 48
     x, w, r = _rand(rng, (B, N, F)), _rand(rng, (D, F), F ** -0.5), _rand(rng, (B, N, D))
+    x[1, 5] += offset
     ep = _epilogue(rng, B, D)
     want = pmn.fused_matmul_modnorm_residual(jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(r),
                                              *map(jnp.asarray, ep))
@@ -354,6 +364,71 @@ def test_linear_pt_equals_kernel_1_bit_for_bit(M, N, K):
     y, dy = linear.linear_pt(x, dx, w)
     assert torch.equal(y, linear.fused_linear(x, w))
     assert torch.equal(dy, linear.fused_linear(dx, w))
+
+
+# (M, K, D, tps) of kernel 3: the shipped shapes (the flagship's two head
+# layouts at B = 2, path C's K = 1280 at B = 1, path A's 32 x 32), a ragged M
+# whose samples change inside a 128-row tile, D that is no multiple of the
+# columns a cluster block holds (48 and 400 on 32- and 64-column slices,
+# 208 on 32), K tails shorter than a 64-deep box (40, 72), and more samples
+# than a block keeps in shared memory (6 at D = 400, 20 at D = 1056: their
+# AdaLN rows are read from device memory).
+MM_MODNORM_SHAPES = [(16384, 1056, 1056, 8192), (16384, 1024, 1056, 8192),
+                     (8192, 1280, 1056, 8192), (128, 32, 32, 32), (1000, 40, 48, 200),
+                     (1000, 96, 208, 200), (264, 72, 400, 44), (2560, 64, 1056, 128)]
+
+
+def _mm_modnorm_card_inputs(M, K, D, tps):
+    """Kernel 3's inputs in bf16 on the card, with row 0 of x all zeros
+    (var = 0: the eps path) and row 1 offset by +3 (a large mean beside the
+    spread)."""
+    rng = np.random.default_rng(M + K + D)
+    B = M // tps
+    x = _rand(rng, (B, tps, K))
+    x[0, 0] = 0.0
+    x[0, 1] += 3.0
+    arrays = (x, _rand(rng, (D, K), K ** -0.5), _rand(rng, (B, tps, D)))
+    bf = tuple(torch.from_numpy(a).to("cuda", torch.bfloat16) for a in arrays)
+    g, b, msc, msh = _epilogue(rng, B, D)
+    return bf + (torch.from_numpy(g).cuda(), torch.from_numpy(b).cuda(),
+                 torch.from_numpy(msc).to("cuda", torch.bfloat16),
+                 torch.from_numpy(msh).to("cuda", torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,D,tps", MM_MODNORM_SHAPES)
+def test_matmul_modnorm_kernel_matches_plain_on_card(M, K, D, tps):
+    """Kernel 3 (wgmma + TMA, rows split across a cluster, statistics
+    through distributed shared memory) against its plain version in bf16 on
+    the card, within 2e-2 of max|plain|, the zero row and the offset row
+    included; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _mm_modnorm_card_inputs(M, K, D, tps)
+    before = modnorm.fused_matmul_modnorm_residual.launches
+    got = modnorm.fused_matmul_modnorm_residual(*args)
+    want = modnorm.reference_matmul_modnorm_residual(*args).float()
+    torch.cuda.synchronize()
+    assert modnorm.fused_matmul_modnorm_residual.launches == before + 1
+    ref = want.abs().max().item()
+    for rows in (slice(None), slice(0, 1), slice(1, 2)):  # all, the zero row, the offset row
+        err = (got[0, rows].float() - want[0, rows]).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 2e-2 * ref, (rows, err, ref)
+    err = (got.float() - want).abs().max().item()
+    assert err <= 2e-2 * ref, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,D,tps", MM_MODNORM_SHAPES[:2])
+def test_matmul_modnorm_kernel_is_deterministic(M, K, D, tps):
+    """Two calls of kernel 3 at the flagship shapes are equal bit for bit:
+    every block of a cluster adds the rows' partial sums in rank order, so a
+    slot read too early, or a block that sums in another order, shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args = _mm_modnorm_card_inputs(M, K, D, tps)
+    first = modnorm.fused_matmul_modnorm_residual(*args)
+    assert torch.equal(first, modnorm.fused_matmul_modnorm_residual(*args))
 
 
 # (T, D, H) of kernels 5 and 11: one row past a 64-row box, 1000 tokens and
