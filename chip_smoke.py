@@ -26,18 +26,20 @@ Phases, each printed as it finishes:
    reach from the shapes (int8 peak for 18 and 19), the scratch of kernels
    5, 10, 11 and 16, ``F.linear``'s time for the qkv projection and its
    primal + tangent and a composition of library calls (``F.linear``,
-   silu·mul, ``F.linear``) for the FFN and its primal + tangent, and
+   silu·mul, ``F.linear``) for the FFN, its primal + tangent and the
+   forward that keeps gate and up, and
    another (``torch.roll``, window partition, the fp32 normalise rounded to
    bf16, ``F.scaled_dot_product_attention`` at scale 1, the inverse) for
    the attention forward 2 and 15, and another (``F.linear``, fp32
    ``F.layer_norm``, AdaLN, + r) for kernel 3 (with kernels 1's, 14's,
-   3's, 5's, 11's, 2's and 15's TFLOP/s, share of the bound and ratio to
+   3's, 5's, 8's, 11's, 2's and 15's TFLOP/s, share of the bound and ratio to
    the yardstick, single calls and queued; 3 and 15 also at 0.25°), kernel
    3's cluster plan (blocks, columns, clusters resident), and the int8 qkv
    product (``torch._int_mm``) and weight quantization times; fails unless
-   kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's y
-   kernel 5's, and kernel 15's on qkv rolled by the shift (8, 8) kernel 2's
-   at that shift, bit for bit;
+   kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's
+   and kernel 8's y kernel 5's, and kernel 15's on qkv rolled by the shift
+   (8, 8) kernel 2's at that shift, bit for bit, and kernel 8's g and u are
+   zero in the hidden units its wrapper pads (path A's H = 85 to 88);
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -600,6 +602,20 @@ def _composition_ffn(x, w1, w2):
     return run
 
 
+def _composition_ffn_save(x, w1, w2):
+    """The same with gate and up kept: F.linear(x, w1) (cuBLAS, g and u
+    rounded to bf16 there), silu(g)·u, F.linear(h, w2); returns y and the
+    views g and u (kernel 8's outputs)."""
+    H = w2.shape[1]
+
+    def run():
+        gu = torch.nn.functional.linear(x, w1)
+        g, u = gu[:, :H], gu[:, H:]
+        return torch.nn.functional.linear(torch.nn.functional.silu(g) * u, w2), g, u
+
+    return run
+
+
 def _composition_ffn_pt(x, dx, w1, w2):
     """The same on the (2T, ·) stacks: F.linear of x over dx by w1, h and
     dh = σ(g)(1 + g(1 − σ(g)))·dg·u + silu(g)·du, F.linear of h over dh by w2."""
@@ -661,10 +677,11 @@ def _composition_mm_modnorm(x, w, r, g, b, msc, msh):
     return run
 
 
-# Kernels 3, 2, 15, 5 and 11 have no single PyTorch call of the same
+# Kernels 3, 2, 15, 5, 8 and 11 have no single PyTorch call of the same
 # function: their yardstick is a composition of library calls, timed beside
 # them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
+               "swiglu_ffn_fwd_save": _composition_ffn_save,
                "block_attention": _composition_attention,
                "tiled_block_attention": _composition_attention,
                "matmul_modnorm_residual": _composition_mm_modnorm}
@@ -851,6 +868,8 @@ def phase_kernels() -> dict:
                 ("modnorm_residual_tangent",
                  (a["y"], a["dy_mn"], a["dr"], a["g"], a["b"], a["msc"], a["dmsc"], a["dmsh"]), {}),
             ]
+        else:  # kernel 8 once more, on the other head layout's inputs
+            cases.append(("swiglu_ffn_fwd_save", (a["x"], a["w1"], a["w2"]), {}))
         for name, args, tags in cases:
             fields = check_kernel(name, args, f"heads={heads:2d} d={d:3d} {tags or ''}")
             if name in ("linear", "linear_pt") + tuple(COMPOSITION):
@@ -867,6 +886,7 @@ def phase_kernels() -> dict:
         tiled_equals_kernel_2(a, heads, d)
         if d == GEOMETRIES[0][1]:
             ffn_pt_equals_kernel_5(a)
+            ffn_fwd_save_equals_kernel_5(a["x"], a["w1"], a["w2"], "flagship")
         int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
@@ -906,7 +926,7 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def rates(name: str, args, fields: dict) -> None:
-    """Kernels 1, 14, 3, 5, 11, 2 and 15 beside their bound and their
+    """Kernels 1, 14, 3, 5, 8, 11, 2 and 15 beside their bound and their
     yardstick (the library call of 1 and 14, the composition of library
     calls of the others): TFLOP/s, the share of the bound (bound time over kernel time) and
     the kernel's time over the yardstick's, from single calls
@@ -972,6 +992,25 @@ def ffn_pt_equals_kernel_5(a: dict) -> None:
     log(f"[kernels] swiglu_ffn_pt: y equal bit for bit to kernel 5's: {same}")
     if not same:
         raise AssertionError("kernel 11's y differs from kernel 5's")
+
+
+def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
+    """Kernel 8's invariants: its y equals ``fused_swiglu_ffn(x, w1, w2)``
+    bit for bit (pass 1 runs kernel 5's wgmmas in one k order for a row and
+    its h expression, pass 2 is the same loop), and g and u keep the
+    kernels' width, H padded to a multiple of 8, with the padded units
+    exactly 0 (kernel 9 reads them at that width), so a wrong row, box or
+    tensor map shows at once."""
+    H = w2.shape[1]
+    y, g, u = swiglu_ffn_fwd_save(x, w1, w2)
+    same = torch.equal(y, fused_swiglu_ffn(x, w1, w2))
+    width = g.shape[-1] == u.shape[-1] == H + -H % 8
+    zero = width and not g[..., H:].any().item() and not u[..., H:].any().item()
+    log(f"[kernels] swiglu_ffn_fwd_save {tag}: y equal bit for bit to kernel 5's: {same}; g and u "
+        f"{g.shape[-1]} wide for H = {H}, the padded units 0: {zero}")
+    if not (same and width and zero):
+        raise AssertionError(f"kernel 8 ({tag}): y equal to kernel 5's {same}, g/u width "
+                             f"{g.shape[-1]} for H = {H}, padded units 0 {zero}")
 
 
 def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
@@ -1840,6 +1879,7 @@ def tiny_ffn_kernels(rng: np.random.Generator, record: dict) -> None:
     for name, args, plain in cases:
         fields = check_kernel(name, args, f"T={T} D={D} H={H} (path A)", reps=5, plain=plain)
         _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
+    ffn_fwd_save_equals_kernel_5(x, w1, w2, "path A")
 
 
 def _exact(launches: dict, want: dict, times: int, tag: str) -> None:

@@ -31,25 +31,34 @@
 //   row as kernel 5's and share its h expression, so kernel 11's y equals
 //   kernel 5's bit for bit.
 //
-// With G and U given, swift_ffn is the forward that saves gate and up for
-// the backward -- replaces swift_tpu/ops/pallas_ffn.py::_ffn_fwd_save_call
-// (kernel body _ffn_fwd_save_kernel), kernel 8. One pass on the WMMA loop
-// of tile_mma.cuh: a block owns 32 token rows and walks the hidden
-// dimension in chunks of 64. For each chunk it computes gate and up (fp32
-// accumulation, one 32 x 128 WMMA tile whose rows of W1 are gathered from
-// the gate and up halves of the (2H, D) weight), writes them rounded to
-// bf16, forms h = silu(g) * u from the unrounded fp32 values, rounds h to
-// bf16 in shared memory, and adds h . W2[:, chunk]^T into a 32 x D fp32
-// accumulator that lives in shared memory (135 KB at D = 1056); the output
-// is written once, in bf16.
+// swift_swiglu_hidden_save -- pass 1 of kernel 8, which replaces
+//   swift_tpu/ops/pallas_ffn.py::_ffn_fwd_save_call (kernel body
+//   _ffn_fwd_save_kernel): kernel 5's pass 1 whose epilogue also stores
+//   gate and up, g = bf16(x . Wg^T) and u = bf16(x . Wu^T), for the
+//   backward (kernel 9). Each consumer already holds gate unit c and up
+//   unit c of a row in its fp32 accumulator (acc[i], acc[i + 64]), so for
+//   each 64-column step it writes three 64 x 64 bf16 boxes by TMA: h, from
+//   the unrounded values as in kernel 5, g and u. The two (T, H) outputs
+//   add 2 x T x H x 2 bytes to pass 1's stores (185 MB at B = 2, 0.055 ms
+//   at the card's memory rate), under the products. h, g and u cycle
+//   through kSaveBoxes boxes a consumer (two: the ring keeps kernel 5's
+//   four stages). Pass 2 is kernel 1 on h, as for kernel 5, so kernel 8's
+//   y equals kernel 5's bit for bit.
 //
-// With the modnorm epilogue (MN), the same kernel is x + modnorm(FFN(x)) --
-// replaces swift_tpu/ops/pallas_ffn.py::_ffn_mn_call (kernel body
-// _ffn_mn_kernel), kernel 20. The block's y rows already sit in the fp32
-// accumulator, so each warp takes a row: mean and mean square over D, var =
-// E[y²] − E[y]², (y − mu)·rsqrt(var + eps)·g + b, times (1 + scale) plus
-// shift from the sample's bf16 AdaLN rows, plus the residual x, rounded to
-// bf16 once. y never reaches device memory in any precision.
+// swift_ffn_mn -- x + modnorm(FFN(x)), which replaces
+//   swift_tpu/ops/pallas_ffn.py::_ffn_mn_call (kernel body _ffn_mn_kernel),
+//   kernel 20, on no model path. One pass on the WMMA loop of tile_mma.cuh:
+//   a block owns 32 token rows and walks the hidden dimension in chunks of
+//   64. For each chunk it computes gate and up (fp32 accumulation, one 32 x
+//   128 WMMA tile whose rows of W1 are gathered from the gate and up halves
+//   of the (2H, D) weight), forms h = silu(g) * u, rounds h to bf16 in
+//   shared memory, and adds h . W2[:, chunk]^T into a 32 x D fp32
+//   accumulator that lives in shared memory (135 KB at D = 1056). The
+//   block's y rows then sit in that accumulator, so each warp takes a row:
+//   mean and mean square over D, var = E[y²] − E[y]²,
+//   (y − mu)·rsqrt(var + eps)·g + b, times (1 + scale) plus shift from the
+//   sample's bf16 AdaLN rows, plus the residual x, rounded to bf16 once. y
+//   never reaches device memory in any precision.
 #include "tile_mma.cuh"
 #include "wgmma.cuh"
 
@@ -64,46 +73,62 @@ __device__ __forceinline__ float swiglu_tangent(float g, float u, float dg, floa
   return sig * (1.0f + g * (1.0f - sig)) * dg * u + g * sig * du;
 }
 
-// Pass 1 of kernels 5 and 11 (see the top of this file). A tile is 128
+// Pass 1 of kernels 5, 11 and 8 (see the top of this file). A tile is 128
 // hidden units: the W box's rows 0-127 are gate units j0.., rows 128-255 the
-// up units j0.. beside them. Kernel 5 (PAIR false): consumer c takes rows
+// up units j0.. beside them. Kernel 5 (kHidPlain): consumer c takes rows
 // m0 + 64 c of x, four stages, two output boxes a consumer in turn. Kernel
-// 11 (PAIR true): consumers 0 and 1 take rows m0 of x and of dx; consumer 0
+// 11 (kHidPair): consumers 0 and 1 take rows m0 of x and of dx; consumer 0
 // writes its fp32 accumulator into ``hand`` (thread-major, 128 x 128 fp32,
 // no bank conflicts) for consumer 1, which reads g and u there; three
 // stages and one box a consumer leave room for it. Named barriers
 // kHandFull (consumer 0 has written) and kHandEmpty (consumer 1 has read)
-// order the handover, 256 threads each.
+// order the handover, 256 threads each. Kernel 8 (kHidSave): kernel 5's
+// rows, and each 64-column step stores h, g and u through kSaveBoxes boxes
+// a consumer in turn; the ring takes as many stages as then fit.
+enum HiddenMode { kHidPlain, kHidPair, kHidSave };
 constexpr int kHidBN = kLinBN / 2;
 constexpr int kHandBytes = 128 * 128 * 4;
 constexpr int kHandFull = 3, kHandEmpty = 4;  // 1 and 2: the consumers' own box barriers
-constexpr int kHidStages = (kMaxSmem - ring_smem(0, 4, 0) - 256) / kLinStageBytes;
-constexpr int kHidPairStages = (kMaxSmem - ring_smem(0, 2, kHandBytes) - 256) / kLinStageBytes;
+constexpr int kSaveBoxes = 2;
 
-__host__ __device__ constexpr int hidden_smem(bool pair) {
-  return pair ? ring_smem(kHidPairStages, 2, kHandBytes) : ring_smem(kHidStages, 4, 0);
+__host__ __device__ constexpr int hidden_boxes(int mode) {  // output boxes a consumer
+  return mode == kHidPair ? 1 : mode == kHidSave ? kSaveBoxes : 2;
 }
-static_assert(kHidStages >= 4 && hidden_smem(false) <= kMaxSmem, "pass 1's ring does not fit");
-static_assert(kHidPairStages >= 3 && hidden_smem(true) <= kMaxSmem,
+__host__ __device__ constexpr int hidden_extra(int mode) {
+  return mode == kHidPair ? kHandBytes : 0;
+}
+__host__ __device__ constexpr int hidden_stages(int mode) {
+  return (kMaxSmem - ring_smem(0, 2 * hidden_boxes(mode), hidden_extra(mode)) - 256) /
+         kLinStageBytes;
+}
+__host__ __device__ constexpr int hidden_smem(int mode) {
+  return ring_smem(hidden_stages(mode), 2 * hidden_boxes(mode), hidden_extra(mode));
+}
+static_assert(hidden_stages(kHidPlain) >= 4 && hidden_smem(kHidPlain) <= kMaxSmem,
+              "pass 1's ring does not fit");
+static_assert(hidden_stages(kHidPair) >= 3 && hidden_smem(kHidPair) <= kMaxSmem,
               "pass 1's ring and handover do not fit");
+static_assert(hidden_stages(kHidSave) >= 3 && hidden_smem(kHidSave) <= kMaxSmem,
+              "pass 1's ring and its save boxes do not fit");
 
-template <bool PAIR>
+template <int MODE>
 __global__ void __launch_bounds__(kLinThreads, 1)
     swiglu_hidden_wgmma_kernel(const __grid_constant__ CUtensorMap mA0,
                                const __grid_constant__ CUtensorMap mA1,
                                const __grid_constant__ CUtensorMap mWg,
                                const __grid_constant__ CUtensorMap mWu,
                                const __grid_constant__ CUtensorMap mH0,
-                               const __grid_constant__ CUtensorMap mH1, int M, int H, int K) {
-  constexpr int S = PAIR ? kHidPairStages : kHidStages;
-  constexpr int NB = PAIR ? 1 : 2;  // output boxes a consumer
+                               const __grid_constant__ CUtensorMap mH1,
+                               const __grid_constant__ CUtensorMap mG,
+                               const __grid_constant__ CUtensorMap mU, int M, int H, int K) {
+  constexpr bool PAIR = MODE == kHidPair, SAVE = MODE == kHidSave;
+  constexpr int S = hidden_stages(MODE), NB = hidden_boxes(MODE);
   constexpr int tile_rows = PAIR ? kLinRows : 2 * kLinRows, row1 = PAIR ? 0 : kLinRows;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* cbox = smem + S * kLinStageBytes;  // [consumer][NB] output boxes
   float* hand = reinterpret_cast<float*>(cbox + 2 * NB * kLinCBox);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(cbox + 2 * NB * kLinCBox + (PAIR ? kHandBytes : 0));
+  uint64_t* full = reinterpret_cast<uint64_t*>(cbox + 2 * NB * kLinCBox + hidden_extra(MODE));
   uint64_t* empty = full + S;
 
   const int rank = (int)cluster_rank();
@@ -136,6 +161,7 @@ __global__ void __launch_bounds__(kLinThreads, 1)
     float acc[kLinBN / 2];  // acc[i]: gate unit j0 + col(i); acc[i + 64]: the up unit beside it
     RingPos<S> pos;
     int boxes = 0;
+    auto next_box = [&] { return cbox + (NB * c + boxes++ % NB) * kLinCBox; };
     for (int p = cluster; p < pairs; p += clusters) {
       const int m0 = (p / n_tiles * kLinCluster + rank) * tile_rows + c * row1;
       const int j0 = p % n_tiles * kHidBN;
@@ -150,18 +176,24 @@ __global__ void __launch_bounds__(kLinThreads, 1)
 #pragma unroll
       for (int q = 0; q < kHidBN / 64; ++q) {
         if (j0 + 64 * q >= H) break;
-        unsigned char* box = cbox + (NB * c + boxes++ % NB) * kLinCBox;
+        const int col = j0 + 64 * q;
         if (PAIR && c == 1) {
           const float* gu = hand + tid;  // consumer 0's acc[i] at gu[128 i]
-          store_box<NB>(box, mH, j0 + 64 * q, m0, m0 < M, c, q, [&](int i) {
+          store_box<NB>(next_box(), mH, col, m0, m0 < M, c, q, [&](int i) {
             return pack_bf16x2(
                 swiglu_tangent(gu[i * 128], gu[(i + 64) * 128], acc[i], acc[i + 64]),
                 swiglu_tangent(gu[(i + 1) * 128], gu[(i + 65) * 128], acc[i + 1], acc[i + 65]));
           });
         } else {
-          store_box<NB>(box, mH, j0 + 64 * q, m0, m0 < M, c, q, [&](int i) {
+          store_box<NB>(next_box(), mH, col, m0, m0 < M, c, q, [&](int i) {
             return pack_bf16x2(swiglu(acc[i], acc[i + 64]), swiglu(acc[i + 1], acc[i + 65]));
           });
+        }
+        if (SAVE) {  // gate and up themselves, rounded to bf16
+          store_box<NB>(next_box(), &mG, col, m0, m0 < M, c, q,
+                        [&](int i) { return pack_bf16x2(acc[i], acc[i + 1]); });
+          store_box<NB>(next_box(), &mU, col, m0, m0 < M, c, q,
+                        [&](int i) { return pack_bf16x2(acc[i + 64], acc[i + 65]); });
         }
       }
       if (PAIR && c == 1 && p + clusters < pairs) named_barrier_arrive(kHandEmpty, 256);
@@ -179,12 +211,12 @@ constexpr int kW2Tile = kFfnBN2 * kW2LD;
 constexpr int kTileBytes =
     GateUpMma::SMEM > 2 * kW2Tile * 2 ? GateUpMma::SMEM : 2 * kW2Tile * 2;
 
-__host__ __device__ constexpr int ffn_smem(int D) {
+__host__ __device__ constexpr int ffn_mn_smem(int D) {
   return kFfnBM * (D + 4) * 4 + kTileBytes + kFfnBM * kStageLD * 4 + kFfnBM * kHLD * 2;
 }
 
-// The modnorm epilogue's operands (MN only): LN affine g, b (D,) fp32,
-// AdaLN rows scale, shift (B, D) bf16, tokens per sample, eps.
+// The modnorm epilogue's operands: LN affine g, b (D,) fp32, AdaLN rows
+// scale, shift (B, D) bf16, tokens per sample, eps.
 struct ModNormArgs {
   const float* g;
   const float* b;
@@ -194,11 +226,11 @@ struct ModNormArgs {
   float eps;
 };
 
-template <bool MN>
+// Kernel 20 (see the top of this file).
 __global__ void __launch_bounds__(GateUpMma::NT)
-    ffn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W1,
-               const bf16* __restrict__ W2, bf16* __restrict__ Y, bf16* __restrict__ G,
-               bf16* __restrict__ U, int M, int D, int H, ModNormArgs mn) {
+    ffn_mn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W1,
+                  const bf16* __restrict__ W2, bf16* __restrict__ Y, int M, int D, int H,
+                  ModNormArgs mn) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int NT = GateUpMma::NT;
   const int lda = D + 4;
@@ -231,15 +263,6 @@ __global__ void __launch_bounds__(GateUpMma::NT)
       wmma::store_matrix_sync(stage + (wm * 16) * kStageLD + wn * GateUpMma::FN * 16 + j * 16,
                               acc[0][j], kStageLD, wmma::mem_row_major);
     __syncthreads();
-    if (G != nullptr) {  // the saved gate and up, 8 columns a thread
-      for (int e = tid; e < 2 * kFfnBM * (kFfnHC / 8); e += NT) {
-        const int half = e / (kFfnBM * (kFfnHC / 8)), q = e % (kFfnBM * (kFfnHC / 8));
-        const int r = q / (kFfnHC / 8), c = (q % (kFfnHC / 8)) * 8;
-        if (m0 + r < M && c0 + c < H)
-          *reinterpret_cast<uint4*>((half ? U : G) + (size_t)(m0 + r) * H + c0 + c) =
-              pack8(stage + r * kStageLD + half * kFfnHC + c);
-      }
-    }
     for (int e = tid; e < kFfnBM * kFfnHC; e += NT) {
       const int r = e / kFfnHC, c = e % kFfnHC;
       hS[r * kHLD + c] =
@@ -282,36 +305,29 @@ __global__ void __launch_bounds__(GateUpMma::NT)
     }
   }
 
-  if (MN) {  // one warp a token row: x + modnorm(y), rounded once
-    const int lane = tid % 32;
-    for (int r = warp; r < kFfnBM; r += NT / 32) {
-      const int m = m0 + r;
-      if (m >= M) continue;
-      const float* yr = accS + r * lda;
-      float s = 0.0f, ss = 0.0f;
-      for (int c = lane; c < D; c += 32) {
-        s += yr[c];
-        ss += yr[c] * yr[c];
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      const float mu = s / D, inv = rsqrtf(ss / D - mu * mu + mn.eps);
-      const bf16* sc = mn.scale + (size_t)(m / mn.tps) * D;
-      const bf16* sf = mn.shift + (size_t)(m / mn.tps) * D;
-      const bf16* xr = X + (size_t)m * D;
-      for (int c = lane; c < D; c += 32) {
-        const float ln = (yr[c] - mu) * inv * mn.g[c] + mn.b[c];
-        const float o = ln * (1.0f + __bfloat162float(sc[c])) + __bfloat162float(sf[c]) +
-                        __bfloat162float(xr[c]);
-        Y[(size_t)m * D + c] = __float2bfloat16_rn(o);
-      }
+  // one warp a token row: x + modnorm(y), rounded once
+  const int lane = tid % 32;
+  for (int r = warp; r < kFfnBM; r += NT / 32) {
+    const int m = m0 + r;
+    if (m >= M) continue;
+    const float* yr = accS + r * lda;
+    float s = 0.0f, ss = 0.0f;
+    for (int c = lane; c < D; c += 32) {
+      s += yr[c];
+      ss += yr[c] * yr[c];
     }
-    return;
-  }
-  for (int c = tid; c < kFfnBM * (D / 8); c += NT) {
-    const int r = c / (D / 8), cc = (c % (D / 8)) * 8;
-    if (m0 + r < M)
-      *reinterpret_cast<uint4*>(Y + (size_t)(m0 + r) * D + cc) = pack8(accS + r * lda + cc);
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / D, inv = rsqrtf(ss / D - mu * mu + mn.eps);
+    const bf16* sc = mn.scale + (size_t)(m / mn.tps) * D;
+    const bf16* sf = mn.shift + (size_t)(m / mn.tps) * D;
+    const bf16* xr = X + (size_t)m * D;
+    for (int c = lane; c < D; c += 32) {
+      const float ln = (yr[c] - mu) * inv * mn.g[c] + mn.b[c];
+      const float o = ln * (1.0f + __bfloat162float(sc[c])) + __bfloat162float(sf[c]) +
+                      __bfloat162float(xr[c]);
+      Y[(size_t)m * D + c] = __float2bfloat16_rn(o);
+    }
   }
 }
 
@@ -319,64 +335,63 @@ __global__ void __launch_bounds__(GateUpMma::NT)
 
 using namespace swift;
 
-// Pass 1 of kernels 5 and 11: tensor maps for the A sources (x, and dx or x
-// again), the gate and up halves of w1 and the outputs, then the clusters.
-static int hidden_resident[2][64];
+// Pass 1 of kernels 5, 11 and 8: tensor maps for the A sources (x, and dx
+// or x again), the gate and up halves of w1 and the outputs (h, and dh or h
+// again; for kernel 8 g and u, else h again), then the clusters.
+static int hidden_resident[3][64];
 
-template <bool PAIR>
-static int launch_hidden(const void* x, const void* dx, const void* w1, void* h, void* dh, int M,
-                         int D, int H, cudaStream_t stream) {
-  CUtensorMap mA0, mA1, mWg, mWu, mH0, mH1;
+template <int MODE>
+static int launch_hidden(const void* x, const void* dx, const void* w1, void* h, void* dh,
+                         void* g, void* u, int M, int D, int H, cudaStream_t stream) {
+  CUtensorMap mA0, mA1, mWg, mWu, mH0, mH1, mG, mU;
   if (!tensor_map_bf16(&mA0, x, M, D, kLinRows, kLinBK) ||
       !tensor_map_bf16(&mA1, dx, M, D, kLinRows, kLinBK) ||
       !tensor_map_bf16(&mWg, w1, H, D, kLinWHalf, kLinBK) ||
       !tensor_map_bf16(&mWu, (const bf16*)w1 + (size_t)H * D, H, D, kLinWHalf, kLinBK) ||
-      !tensor_map_bf16(&mH0, h, M, H, 64, 64) || !tensor_map_bf16(&mH1, dh, M, H, 64, 64))
+      !tensor_map_bf16(&mH0, h, M, H, 64, 64) || !tensor_map_bf16(&mH1, dh, M, H, 64, 64) ||
+      !tensor_map_bf16(&mG, g, M, H, 64, 64) || !tensor_map_bf16(&mU, u, M, H, 64, 64))
     return kTensorMapError;
-  const int tile_rows = PAIR ? kLinRows : 2 * kLinRows;
+  const int tile_rows = MODE == kHidPair ? kLinRows : 2 * kLinRows;
   const int m_pairs = ((M + tile_rows - 1) / tile_rows + kLinCluster - 1) / kLinCluster;
-  return launch_clusters(swiglu_hidden_wgmma_kernel<PAIR>, hidden_resident[PAIR],
-                         hidden_smem(PAIR), m_pairs * ((H + kHidBN - 1) / kHidBN), kLinCluster,
-                         stream, mA0, mA1, mWg, mWu, mH0, mH1, M, H, D);
+  return launch_clusters(swiglu_hidden_wgmma_kernel<MODE>, hidden_resident[MODE],
+                         hidden_smem(MODE), m_pairs * ((H + kHidBN - 1) / kHidBN), kLinCluster,
+                         stream, mA0, mA1, mWg, mWu, mH0, mH1, mG, mU, M, H, D);
 }
 
 // x (M, D) -> h (M, H), all bf16; w1 (2H, D), gate rows then up rows. D % 8
 // == 0, H % 8 == 0, 16-byte aligned bases.
 extern "C" int swift_swiglu_hidden(const void* x, const void* w1, void* h, int M, int D, int H,
                                    void* stream) {
-  return launch_hidden<false>(x, x, w1, h, h, M, D, H, (cudaStream_t)stream);
+  return launch_hidden<kHidPlain>(x, x, w1, h, h, h, h, M, D, H, (cudaStream_t)stream);
 }
 
 // x, dx (M, D) -> h, dh (M, H), all bf16; w1 as swift_swiglu_hidden.
 extern "C" int swift_swiglu_hidden_pt(const void* x, const void* dx, const void* w1, void* h,
                                       void* dh, int M, int D, int H, void* stream) {
-  return launch_hidden<true>(x, dx, w1, h, dh, M, D, H, (cudaStream_t)stream);
+  return launch_hidden<kHidPair>(x, dx, w1, h, dh, h, h, M, D, H, (cudaStream_t)stream);
 }
 
-extern "C" int swift_ffn_smem(int D) { return ffn_smem(D); }
-
-// Kernel 8: x (M, D) -> y (M, D) and the gate and up g, u (M, H), all bf16;
-// w1 (2H, D), w2 (D, H).
-extern "C" int swift_ffn(const void* x, const void* w1, const void* w2, void* y, void* g, void* u,
-                         int M, int D, int H, void* stream) {
-  const int smem = ffn_smem(D);
-  cudaFuncSetAttribute(ffn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ffn_kernel<false><<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)g, (bf16*)u, M, D, H,
-      ModNormArgs{});
-  return (int)cudaGetLastError();
+// x (M, D) -> h and the gate and up g = bf16(x . Wg^T), u = bf16(x . Wu^T),
+// each (M, H), all bf16; w1 and the shape rules as swift_swiglu_hidden.
+extern "C" int swift_swiglu_hidden_save(const void* x, const void* w1, void* h, void* g, void* u,
+                                        int M, int D, int H, void* stream) {
+  return launch_hidden<kHidSave>(x, x, w1, h, h, g, u, M, D, H, (cudaStream_t)stream);
 }
+
+extern "C" int swift_ffn_mn_smem(int D) { return ffn_mn_smem(D); }
 
 // Kernel 20: y = x + modnorm(FFN(x)); x, y (M, D) bf16 with M = B·tps
-// tokens; g, b (D,) fp32; scale, shift (B, D) bf16. Kernel 8's shape rules.
+// tokens; w1 (2H, D), w2 (D, H) bf16; g, b (D,) fp32; scale, shift (B, D)
+// bf16. D % 8 == 0, H % 8 == 0, ffn_mn_smem(D) within a block's shared
+// memory.
 extern "C" int swift_ffn_mn(const void* x, const void* w1, const void* w2, const void* g,
                             const void* b, const void* scale, const void* shift, void* y, int M,
                             int D, int H, int tps, float eps, void* stream) {
-  const int smem = ffn_smem(D);
-  cudaFuncSetAttribute(ffn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = ffn_mn_smem(D);
+  cudaFuncSetAttribute(ffn_mn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const ModNormArgs mn{(const float*)g, (const float*)b, (const bf16*)scale, (const bf16*)shift,
                        tps, eps};
-  ffn_kernel<true><<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, nullptr, nullptr, M, D, H, mn);
+  ffn_mn_kernel<<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, M, D, H, mn);
   return (int)cudaGetLastError();
 }

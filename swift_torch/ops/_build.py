@@ -38,10 +38,9 @@ _SIGNATURES = {
     "swift_linear_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_mm_modnorm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "swift_mm_modnorm_plan": [_I, _P],
-    "swift_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "swift_ffn_smem": [_I],
     "swift_swiglu_hidden": [_P, _P, _P, _I, _I, _I, _P],
     "swift_swiglu_hidden_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "swift_swiglu_hidden_save": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_ffn_bwd_saved": [_P] * 13 + [_I, _I, _I, _P],
     "swift_splitk_workspace": [_I, _I, _I],
     "swift_block_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -58,6 +57,7 @@ _SIGNATURES = {
     "swift_mm_modnorm_int8": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "swift_mm_modnorm_int8_smem": [_I, _I],
     "swift_ffn_mn": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "swift_ffn_mn_smem": [_I],
     "swift_window_attention": [_P] * 4 + [_I] * 3 + [_P],
     "swift_window_attention_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "swift_window_attention_tangent": [_P] * 7 + [_I] * 3 + [_P],

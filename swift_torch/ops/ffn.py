@@ -12,9 +12,11 @@ bf16(silu(x·Wgᵀ)·(x·Wuᵀ)), the TPU kernel's own rounding point, and
 ``csrc/gemm.cu::swift_linear`` (kernel 1's loop) multiplies it by W2ᵀ;
 kernel 11, which replaces ``_ffn_pt_call``, runs
 ``csrc/ffn.cu::swift_swiglu_hidden_pt`` (h and dh with gate and up computed
-once and shared) and ``swift_linear_pt`` (kernel 14's loop).
-``csrc/ffn.cu::swift_ffn`` replaces ``_ffn_fwd_save_call`` (the gate and up
-outputs beside y); ``csrc/gemm_bwd.cu::swift_ffn_bwd_saved``
+once and shared) and ``swift_linear_pt`` (kernel 14's loop); kernel 8,
+which replaces ``_ffn_fwd_save_call``, runs kernel 5's two passes with
+``csrc/ffn.cu::swift_swiglu_hidden_save`` as pass 1, which also stores
+gate and up, bf16(x·Wgᵀ) and bf16(x·Wuᵀ), beside h.
+``csrc/gemm_bwd.cu::swift_ffn_bwd_saved`` replaces
 ``_ffn_bwd_saved_call``; ``csrc/gemm_bwd.cu::swift_ffn_bwd_recompute``
 ``_ffn_bwd_call`` (gate and up recomputed from x, nothing (tokens,
 hidden)-shaped in device memory beyond a chunk of tokens);
@@ -42,7 +44,7 @@ from swift_torch.ops import _build, jvp_guard, quant
 from swift_torch.ops.linear import reference_linear, reference_linear_pt
 from swift_torch.ops.modnorm import _vjp, reference_modnorm_residual
 
-# Kernels 5 and 11 run their two passes over chunks of at most this many
+# Kernels 5, 8 and 11 run their two passes over chunks of at most this many
 # tokens, so that a call's scratch (h, and dh for 11) stays under 1 GB at
 # H = 2816: 0.74 GB for kernel 11 at the limit.
 FFN_CHUNK_TOKENS = 65536
@@ -173,8 +175,8 @@ def _unpad_grads(dw1, dw2, H):
 
 
 def ffn_chunks(T: int) -> list[tuple[int, int]]:
-    """The token ranges [start, stop) over which kernels 5 and 11 run their
-    two passes: [0, T) in as few pieces of at most :data:`FFN_CHUNK_TOKENS`
+    """The token ranges [start, stop) over which kernels 5, 8 and 11 run
+    their two passes: [0, T) in as few pieces of at most :data:`FFN_CHUNK_TOKENS`
     as it takes, of one length rounded up to whole 128-token row tiles
     where that stays within the limit. One piece for the flagship (16,384
     and 32,768 tokens), five of 52,992 at 0.25° (264,960 tokens)."""
@@ -187,10 +189,13 @@ def ffn_chunks(T: int) -> list[tuple[int, int]]:
 
 
 def ffn_scratch_bytes(T, D, H, pair: bool) -> int:
-    """Device scratch of kernel 5 (``pair`` False) or 11 for T tokens: h,
-    and dh for 11, in bf16 for the longest chunk of :func:`ffn_chunks`, H
-    padded as the wrappers pad it (:func:`pad_hidden`); D, the model width,
-    does not enter. At 0.25° (T = 264,960, H = 2816): 0.30 GB and 0.60 GB."""
+    """Device scratch of kernel 5 or 8 (``pair`` False) or 11 for T tokens:
+    h, and dh for 11, in bf16 for the longest chunk of :func:`ffn_chunks`,
+    H padded as the wrappers pad it (:func:`pad_hidden`); D, the model
+    width, does not enter. At 0.25° (T = 264,960, H = 2816): 0.30 GB and
+    0.60 GB. Kernel 8's g and u are outputs, not scratch: its scratch is
+    kernel 5's, 0.18 GB at the flagship sCM step's 32,768 tokens and 0.37
+    GB at its token budget (:func:`save_max_tokens`, two chunks)."""
     rows = max(e - s for s, e in ffn_chunks(T))
     return (2 if pair else 1) * rows * (H + -H % 8) * 2
 
@@ -205,11 +210,13 @@ def _prepare(name, x, w1, w2, **more):
     return D, *pad_hidden(w1, w2)
 
 
-def _two_pass(name, x, dx, w1, w2):
-    """Kernel 5 (``dx`` None) or 11 on checked CUDA inputs, H padded: for each
-    chunk of :func:`ffn_chunks`, pass 1 (``swift_swiglu_hidden``, or
-    ``swift_swiglu_hidden_pt`` for h and dh) writes h to scratch and pass 2,
-    kernel 1's (14's) loop, multiplies it by W2ᵀ. Returns y, or (y, dy)."""
+def _two_pass(name, x, dx, w1, w2, save=False):
+    """Kernel 5 (``dx`` None), 11, or with ``save`` 8, on checked CUDA
+    inputs, H padded: for each chunk of :func:`ffn_chunks`, pass 1
+    (``swift_swiglu_hidden``; ``swift_swiglu_hidden_pt`` for h and dh;
+    ``swift_swiglu_hidden_save`` for h and the chunk's rows of g and u)
+    writes h to scratch and pass 2, kernel 1's (14's) loop, multiplies it by
+    W2ᵀ. Returns y, (y, dy) or (y, g, u)."""
     lib, stream = _build.library(), _build.stream()
     D, H = x.shape[-1], w2.shape[1]
     chunks = ffn_chunks(x.numel() // D)
@@ -217,12 +224,21 @@ def _two_pass(name, x, dx, w1, w2):
     x2, y = x.view(-1, D), torch.empty_like(x)
     y2 = y.view(-1, D)
     if dx is None:
+        if save:
+            g, u = (torch.empty(*x.shape[:-1], H, device=x.device, dtype=x.dtype)
+                    for _ in range(2))
+            g2, u2 = g.view(-1, H), u.view(-1, H)
         for s, e in chunks:
-            _build.check_launch(lib.swift_swiglu_hidden(
-                x2[s:e].data_ptr(), w1.data_ptr(), h.data_ptr(), e - s, D, H, stream), name)
+            if save:
+                _build.check_launch(lib.swift_swiglu_hidden_save(
+                    x2[s:e].data_ptr(), w1.data_ptr(), h.data_ptr(), g2[s:e].data_ptr(),
+                    u2[s:e].data_ptr(), e - s, D, H, stream), name)
+            else:
+                _build.check_launch(lib.swift_swiglu_hidden(
+                    x2[s:e].data_ptr(), w1.data_ptr(), h.data_ptr(), e - s, D, H, stream), name)
             _build.check_launch(lib.swift_linear(
                 h.data_ptr(), w2.data_ptr(), y2[s:e].data_ptr(), e - s, D, H, stream), name)
-        return y
+        return (y, g, u) if save else y
     dx2, dh, dy = dx.view(-1, D), torch.empty_like(h), torch.empty_like(x)
     dy2 = dy.view(-1, D)
     for s, e in chunks:
@@ -249,28 +265,19 @@ def _ffn(x, w1, w2):
 def swiglu_ffn_fwd_save(x, w1, w2):
     """(y, g, u): the forward that saves gate and up for
     :func:`swiglu_ffn_bwd_saved`. CPU tensors take
-    :func:`reference_swiglu_ffn_fwd_save`; CUDA tensors go to kernel 8,
-    whose g and u keep the kernels' width, H zero-padded to a multiple of 8
-    (:func:`pad_hidden`; the padded units are 0)."""
+    :func:`reference_swiglu_ffn_fwd_save`; CUDA tensors go to kernel 8
+    under kernel 5's shape rules, with :func:`ffn_scratch_bytes` of scratch:
+    y equals :func:`fused_swiglu_ffn`'s bit for bit, and g and u keep the
+    kernels' width, H zero-padded to a multiple of 8 (:func:`pad_hidden`;
+    the padded units are 0)."""
     name = "swiglu_ffn_fwd_save"
     jvp_guard.refuse_tangents(name, x=x, w1=w1, w2=w2)
     if _build.on_cpu(x, w1, w2):
         return reference_swiglu_ffn_fwd_save(x, w1, w2)
-    D, w1, w2 = _prepare(name, x, w1, w2)
-    H = w2.shape[1]
-    lib = _build.library()
-    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
-        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
-    y = torch.empty_like(x)
-    g = torch.empty(*x.shape[:-1], H, device=x.device, dtype=x.dtype)
-    u = torch.empty_like(g)
-    _build.check_launch(
-        lib.swift_ffn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr(), g.data_ptr(),
-                      u.data_ptr(), x.numel() // D, D, H, _build.stream()),
-        name,
-    )
+    _, w1, w2 = _prepare(name, x, w1, w2)
+    out = _two_pass(name, x, None, w1, w2, save=True)
     swiglu_ffn_fwd_save.launches += 1
-    return y, g, u
+    return out
 
 
 def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
@@ -532,7 +539,7 @@ def _ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps):
             mod_shift.shape != (B, D)):
         raise ValueError(f"{name}: g, b must be ({D},) and mod_scale, mod_shift ({B}, {D})")
     lib = _build.library()
-    if lib.swift_ffn_smem(D) > lib.swift_max_smem():
+    if lib.swift_ffn_mn_smem(D) > lib.swift_max_smem():
         raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
     M = x.numel() // D
     out = torch.empty_like(x)

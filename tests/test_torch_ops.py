@@ -10,8 +10,8 @@ tests hold their kernels to). On CPU tensors a wrapper takes its plain
 version and counts no launch; anything else goes to the kernel or raises.
 The ``cuda``-marked tests hold the kernels to their plain versions on the
 card (the forward kernels and, for the sCM jvp, the tangent kernels 14, 11,
-12 and 7; kernels 5 and 11 also at ragged shapes, over several token
-chunks, and 11's y against 5's bit for bit; the attention forward 2 and 15
+12 and 7; kernels 5, 8 and 11 also at ragged shapes, over several token
+chunks, and 11's and 8's y against 5's bit for bit; the attention forward 2 and 15
 over head dims, window shapes, wrapping shifts, zero rows and the main
 paths' shapes, 15 on rolled qkv against 2 bit for bit; kernel 3 at the
 shipped shapes and ragged M, D and K, two calls bit for bit) and skip
@@ -234,6 +234,47 @@ def test_ffn_chunk_plan(T):
     assert len(chunks) == -(-T // ffn.FFN_CHUNK_TOKENS)
     if T <= 32768:
         assert chunks == [(0, T)]
+
+
+@pytest.mark.parametrize("H", [85, 88])
+def test_ffn_fwd_save_plain_on_padded_weights(H):
+    """Kernel 8's plain version on the weights padded to a multiple of 8 as
+    its wrapper pads them on the card: (y, g, u) against the interpreted
+    ``_ffn_fwd_save_call`` on the unpadded ones, the padded units of g and
+    u exactly 0; in bf16 its y equals kernel 5's plain y bit for bit (the
+    kernels' invariant: one h expression, one product)."""
+    rng = np.random.default_rng(10)
+    D = 32
+    x = _rand(rng, (256, D))
+    w1, w2 = _swiglu_weights(rng, D, H)
+    want = pffn._ffn_fwd_save_call(jnp.asarray(x), jnp.asarray(w1[:H].T),
+                                   jnp.asarray(w1[H:].T), jnp.asarray(w2.T))
+    w1p, w2p = ffn.pad_hidden(_t(w1), _t(w2))
+    y, g, u = ffn.reference_swiglu_ffn_fwd_save(_t(x), w1p, w2p)
+    assert g.shape == u.shape == (256, H + -H % 8)
+    assert not g[:, H:].any() and not u[:, H:].any()
+    for got, ref in ((y, want[0]), (g[:, :H], want[1]), (u[:, :H], want[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    xb, w1b, w2b = (a.to(torch.bfloat16) for a in (_t(x), w1p, w2p))
+    assert torch.equal(ffn.reference_swiglu_ffn_fwd_save(xb, w1b, w2b)[0],
+                       ffn.reference_swiglu_ffn(xb, w1b, w2b))
+
+
+@pytest.mark.parametrize("T,chunks", [(16384, 1), (32768, 1), (131072, 2)])
+def test_ffn_fwd_save_plan(T, chunks):
+    """What kernel 8's wrapper plans up to the saved-activation budget
+    (131,072 tokens): the flagship's B = 2 and B = 4 in one chunk, the
+    budget in two of 65,536; its scratch is kernel 5's h for the longest
+    chunk (0.09, 0.18 and 0.37 GB at H = 2816), and each chunk's first row
+    of g and u starts on a 16-byte boundary, as the tensor maps need."""
+    D, H = 1056, 2816
+    assert T <= ffn.save_max_tokens()
+    plan = ffn.ffn_chunks(T)
+    assert len(plan) == chunks and plan[-1][1] == T
+    rows = max(e - s for s, e in plan)
+    assert ffn.ffn_scratch_bytes(T, D, H, pair=False) == rows * H * 2 == T // chunks * H * 2
+    assert ffn.ffn_scratch_bytes(T, D, 85, pair=False) == rows * 88 * 2
+    assert all(s * (H + -H % 8) * 2 % 16 == 0 and s * 88 * 2 % 16 == 0 for s, _ in plan)
 
 
 def test_ffn_scratch_bytes():
@@ -481,20 +522,62 @@ def test_ffn_pt_y_equals_kernel_5_bit_for_bit(T, D, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H", FFN_SHAPES)
+def test_ffn_fwd_save_kernel_matches_plain_on_card(T, D, H):
+    """Kernel 8 (kernel 5's pass 1 also storing g and u, then pass 2)
+    against its plain version in bf16 on the card: y, g and u within 2e-2
+    of max|plain|, g and u at the kernels' width H padded to 8 with the
+    padded units exactly 0; one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, _, w1, w2 = _ffn_card_inputs(T, D, H)
+    before = ffn.swiglu_ffn_fwd_save.launches
+    y, g, u = ffn.swiglu_ffn_fwd_save(x, w1, w2)
+    want = ffn.reference_swiglu_ffn_fwd_save(x, w1, w2)
+    torch.cuda.synchronize()
+    assert ffn.swiglu_ffn_fwd_save.launches == before + 1
+    assert g.shape == u.shape == (T, H + -H % 8)
+    assert not g[:, H:].any() and not u[:, H:].any()
+    for got, ref in zip((y, g[:, :H], u[:, :H]), want):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H", FFN_SHAPES)
+def test_ffn_fwd_save_y_equals_kernel_5_bit_for_bit(T, D, H):
+    """Kernel 8's design invariant: its y equals kernel 5's bit for bit.
+    Its pass 1 runs kernel 5's wgmmas in one k order for a row and forms h
+    by the same expression, and pass 2 is the same loop, so a wrong row,
+    box or store order shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    x, _, w1, w2 = _ffn_card_inputs(T, D, H)
+    y, _, _ = ffn.swiglu_ffn_fwd_save(x, w1, w2)
+    assert torch.equal(y, ffn.fused_swiglu_ffn(x, w1, w2))
+
+
+@pytest.mark.cuda
 def test_ffn_chunks_equal_one_chunk_bit_for_bit(monkeypatch):
-    """One call of kernels 5 and 11 over several token chunks (the limit
+    """One call of kernels 5, 11 and 8 over several token chunks (the limit
     lowered to 256 tokens: 1000 tokens in chunks of 256, 256, 256 and 232)
-    equals the one-chunk call bit for bit and still counts one launch."""
+    equals the one-chunk call bit for bit, kernel 8's g and u too, and
+    still counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     x, dx, w1, w2 = _ffn_card_inputs(1000, 96, 88)
-    one = (ffn.fused_swiglu_ffn(x, w1, w2), *ffn.swiglu_ffn_pt(x, dx, w1, w2))
+    fns = (ffn.fused_swiglu_ffn, ffn.swiglu_ffn_pt, ffn.swiglu_ffn_fwd_save)
+
+    def run():
+        return (ffn.fused_swiglu_ffn(x, w1, w2), *ffn.swiglu_ffn_pt(x, dx, w1, w2),
+                *ffn.swiglu_ffn_fwd_save(x, w1, w2))
+
+    one = run()
     monkeypatch.setattr(ffn, "FFN_CHUNK_TOKENS", 256)
     assert len(ffn.ffn_chunks(1000)) == 4
-    before = (ffn.fused_swiglu_ffn.launches, ffn.swiglu_ffn_pt.launches)
-    many = (ffn.fused_swiglu_ffn(x, w1, w2), *ffn.swiglu_ffn_pt(x, dx, w1, w2))
-    assert (ffn.fused_swiglu_ffn.launches, ffn.swiglu_ffn_pt.launches) == (before[0] + 1,
-                                                                           before[1] + 1)
+    before = [fn.launches for fn in fns]
+    many = run()
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
     for a, b in zip(one, many):
         assert torch.equal(a, b)
 
