@@ -17,7 +17,7 @@ Phases, each printed as it finishes:
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
-   pre-rolled input), and 3, 5, 10, 11, 15-19 also at the 0.25° shapes (B=1,
+   pre-rolled input), and 3, 5, 10, 11, 13, 15-19 also at the 0.25° shapes (B=1,
    368x720 tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19)
    from a numpy seed; fails when max|kernel - plain| of any output exceeds
    2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or the
@@ -27,18 +27,22 @@ Phases, each printed as it finishes:
    5, 10, 11 and 16, ``F.linear``'s time for the qkv projection and its
    primal + tangent and a composition of library calls (``F.linear``,
    silu·mul, ``F.linear``) for the FFN, its primal + tangent and the
-   forward that keeps gate and up, and
+   forward that keeps gate and up, another (``F.linear`` for dh, the
+   SwiGLU backward in PyTorch, matmuls for dx, dW1, dW2) for kernel 9 and
+   ``dy @ w``, ``dy.T @ x`` for kernel 13, and
    another (``torch.roll``, window partition, the fp32 normalise rounded to
    bf16, ``F.scaled_dot_product_attention`` at scale 1, the inverse) for
    the attention forward 2 and 15, and another (``F.linear``, fp32
    ``F.layer_norm``, AdaLN, + r) for kernel 3 (with kernels 1's, 14's,
-   3's, 5's, 8's, 11's, 2's and 15's TFLOP/s, share of the bound and ratio to
-   the yardstick, single calls and queued; 3 and 15 also at 0.25°), kernel
+   3's, 5's, 8's, 9's, 11's, 13's, 2's and 15's TFLOP/s, share of the bound
+   and ratio to the yardstick, single calls and queued; 3, 13 and 15 also
+   at 0.25°), kernel
    3's cluster plan (blocks, columns, clusters resident), and the int8 qkv
    product (``torch._int_mm``) and weight quantization times; fails unless
    kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's
    and kernel 8's y kernel 5's, and kernel 15's on qkv rolled by the shift
-   (8, 8) kernel 2's at that shift, bit for bit, and kernel 8's g and u are
+   (8, 8) kernel 2's at that shift, bit for bit, two calls of kernels 9
+   and 13 each other's, and kernel 8's g and u are
    zero in the hidden units its wrapper pads (path A's H = 85 to 88);
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
@@ -677,11 +681,34 @@ def _composition_mm_modnorm(x, w, r, g, b, msc, msh):
     return run
 
 
-# Kernels 3, 2, 15, 5, 8 and 11 have no single PyTorch call of the same
-# function: their yardstick is a composition of library calls, timed beside
-# them (``composition_ms``), never a ``library_ms``.
+def _composition_ffn_bwd_saved(x, dy, g, u, w1, w2):
+    """``F.linear`` for dh = dy·W2, the SwiGLU backward from the saved g and
+    u in PyTorch's bf16 ops, then ``torch.matmul`` (cuBLAS, the transposes
+    taken as views) for dx = [dg|du]·W1, dW1 = [dg|du]ᵀ·x and dW2 = dyᵀ·h:
+    kernel 9 as a user would write it."""
+
+    def run():
+        dh = torch.nn.functional.linear(dy, w2.t())
+        sig = torch.sigmoid(g)
+        sg = g * sig
+        dgu = torch.cat([dh * u * (sig * (1 + g * (1 - sig))), dh * sg], dim=-1)
+        return dgu @ w1, dgu.t() @ x, dy.t() @ (sg * u)
+
+    return run
+
+
+def _composition_linear_bwd(dy, x, w):
+    """``dy @ w`` and ``dy.T @ x`` (cuBLAS): kernel 13's two products."""
+    return lambda: (dy @ w, dy.t() @ x)
+
+
+# Kernels 3, 2, 15, 5, 8, 9, 11 and 13 have no single PyTorch call of the
+# same function: their yardstick is a composition of library calls, timed
+# beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
                "swiglu_ffn_fwd_save": _composition_ffn_save,
+               "swiglu_ffn_bwd_saved": _composition_ffn_bwd_saved,
+               "linear_bwd": _composition_linear_bwd,
                "block_attention": _composition_attention,
                "tiled_block_attention": _composition_attention,
                "matmul_modnorm_residual": _composition_mm_modnorm}
@@ -887,6 +914,7 @@ def phase_kernels() -> dict:
         if d == GEOMETRIES[0][1]:
             ffn_pt_equals_kernel_5(a)
             ffn_fwd_save_equals_kernel_5(a["x"], a["w1"], a["w2"], "flagship")
+            backward_gemms_deterministic(a)
         int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
@@ -926,7 +954,7 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def rates(name: str, args, fields: dict) -> None:
-    """Kernels 1, 14, 3, 5, 8, 11, 2 and 15 beside their bound and their
+    """Kernels 1, 14, 3, 5, 8, 9, 11, 13, 2 and 15 beside their bound and their
     yardstick (the library call of 1 and 14, the composition of library
     calls of the others): TFLOP/s, the share of the bound (bound time over kernel time) and
     the kernel's time over the yardstick's, from single calls
@@ -1013,6 +1041,21 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
                              f"{g.shape[-1]} for H = {H}, padded units 0 {zero}")
 
 
+def backward_gemms_deterministic(a: dict) -> None:
+    """Kernels 9 and 13's invariant at the flagship shape: two calls give
+    the same bits (the weight gradients' token splits are summed in a fixed
+    order, no float atomics), so a race in the ring or the split sums shows
+    at once."""
+    for name, args in (("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
+                       ("swiglu_ffn_bwd_saved",
+                        (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]))):
+        fused = KERNELS[name][0]
+        same = all(torch.equal(p, q) for p, q in zip(fused(*args), fused(*args)))
+        log(f"[kernels] {name}: two calls equal bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+
+
 def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
     """The int8 path's qkv product (``quant.int8_matmul``: quantize x and W,
     ``torch._int_mm``, rescale; a library product, as the JAX package leaves
@@ -1036,12 +1079,13 @@ def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
 
 
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
-    """Kernels 3, 5, 10, 11, 15-17, 18 and 19 at the 0.25° shapes (B = 1,
-    368x720 tokens, 8x128 heads, the 264,960-token FFN), with the scratch of
-    kernels 5, 10, 11 and 16: computed from the shapes, and read as the
-    peak device memory of one call above its inputs and outputs. The main
-    path of 3, 5, 11, 18 and 19 is the flagship's: their 0.25° times stand
-    beside it (kernel 3's also queued, beside its composition's)."""
+    """Kernels 3, 5, 10, 11, 13, 15-17, 18 and 19 at the 0.25° shapes (B =
+    1, 368x720 tokens, 8x128 heads, the 264,960-token FFN and qkv
+    projection), with the scratch of kernels 5, 10, 11 and 16: computed
+    from the shapes, and read as the peak device memory of one call above
+    its inputs and outputs. The main path of 3, 5, 11, 13, 18 and 19 is the
+    flagship's: their 0.25° times stand beside it (kernel 3's and 13's also
+    queued, beside their compositions')."""
     t = _tensor(rng)
     gh, gw = QUARTER_GRID
     heads, d, T = 8, 128, gh * gw
@@ -1049,6 +1093,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
     x, dx = t((T, DIM)), t((T, DIM))
     w1, w2 = t((2 * HIDDEN, DIM), DIM ** -0.5), t((DIM, HIDDEN), HIDDEN ** -0.5)
+    qkv_w = t((3 * heads * d, DIM), DIM ** -0.5)
     epilogue = (t((1, gh, gw, DIM)), 1.0 + t((DIM,), 0.1, torch.float32),
                 t((DIM,), 0.1, torch.float32), t((1, DIM), 0.2), t((1, DIM), 0.2))
     cases = [
@@ -1057,6 +1102,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         ("tiled_block_attention", (qkv, scale, heads, (16, 16))),
         ("tiled_block_attention_bwd", (qkv, scale, t((1, gh, gw, heads * d)), heads, (16, 16))),
         ("tiled_block_attention_tangent", (qkv, t(qkv.shape), scale, heads, (16, 16))),
+        ("linear_bwd", (qkv.view(T, -1), x, qkv_w)),  # dy of the qkv projection's shape
         ("swiglu_ffn", (x, w1, w2)),
         ("swiglu_ffn_pt", (x, dx, w1, w2)),
         ("swiglu_ffn_bwd_recompute", (x, dx, w1, w2)),
@@ -1072,11 +1118,12 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         "swiglu_ffn_pt": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=True), 1e9, "1 GB"),
         "swiglu_ffn_bwd_recompute": (bwd_recompute_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
     }
-    beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual")
+    beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual",
+                             "linear_bwd")
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
-        if name in ("tiled_block_attention", "matmul_modnorm_residual"):
-            rates(name, args, fields)  # 15 on its main path's shape; 3 as a time of record
+        if name in ("tiled_block_attention", "matmul_modnorm_residual", "linear_bwd"):
+            rates(name, args, fields)  # 15 on its main path's shape; 3 and 13 as times of record
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
@@ -1104,7 +1151,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
                 f"(limit {limit / 1e9:.2f} GB, {what})")
             if max(computed, measured) > limit:
                 raise AssertionError(f"{name}: scratch {max(computed, measured)} > {limit} bytes")
-    del cases, qkv, x, dx, w1, w2, epilogue
+    del cases, qkv, x, dx, w1, w2, qkv_w, epilogue
     torch.cuda.empty_cache()
 
 

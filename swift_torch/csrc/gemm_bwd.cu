@@ -4,13 +4,18 @@
 // swift_linear_bwd -- replaces swift_tpu/ops/pallas_linear.py::_lin_bwd_call
 //   (kernel body _lin_bwd_kernel): dx = dy . W and dW = dy^T . x summed over
 //   every token. At the flagship ((T, 3168) x (3168, 1056)) it is 2 x 2TKN
-//   FLOP against ~T * 8.4 KB moved: the tensor cores bound it.
+//   FLOP against ~T * 8.4 KB moved: the tensor cores bound it. Two launches
+//   of bwd_wgmma_kernel (dx; dW split over the tokens), then the fixed-order
+//   sum of the splits.
 // swift_ffn_bwd_saved -- replaces swift_tpu/ops/pallas_ffn.py::
 //   _ffn_bwd_saved_call (kernel body _ffn_bwd_saved_kernel): dh = dy . W2,
 //   dg = dh * u * silu'(g), du = dh * silu(g) (both rounded to bf16, as the
 //   TPU kernel rounds them), dx = [dg|du] . W1, dW1 = [dg|du]^T . x and
 //   dW2 = dy^T . h with h = bf16(silu(g) * u). Six products, ~12 T D H FLOP:
-//   tensor-core bound.
+//   tensor-core bound. Four launches of bwd_wgmma_kernel: dh with the
+//   SwiGLU backward in its epilogue (it reads the saved g and u and writes
+//   dg | du and h, bf16, 277 MB of scratch at T = 16,384, H = 2816), dx, and
+//   the two weight gradients split over the tokens, then their sums.
 // swift_ffn_bwd_recompute -- replaces swift_tpu/ops/pallas_ffn.py::
 //   _ffn_bwd_call (kernel body _ffn_bwd_kernel), the backward above
 //   SWIFT_FFN_BWD_SAVE_MAX_TOKENS (the 0.25-degree grid): the same outputs
@@ -28,21 +33,21 @@
 // The torch weights are (out, in) row-major, so the backward needs the two
 // operand layouts the forward never reads: dy . W, where the reduction runs
 // along W's rows, and x^T . dy, where it runs along the token dimension of
-// both operands. One main loop serves all of them: each operand tile is
-// staged in shared memory in its natural global layout (cp.async, 16-byte
-// chunks, double-buffered) and handed to the tensor cores as a row- or
-// column-major WMMA fragment, so no transposed copy of a weight or an
-// activation is ever made in device memory.
+// both operands. No transposed copy of a weight or an activation is ever
+// made in device memory. Two main loops serve them:
+//   kernels 9 and 13 run every product on the wgmma + TMA ring of
+//   wgmma.cuh (bwd_wgmma_kernel): each stage holds plain 64 x 64 TMA boxes
+//   of the tensors as they lie, and the transpose lives only in the
+//   shared-memory descriptors (wgmma_desc_mn, wgmma_desc_mn_a) and the
+//   instruction's transpose flags;
+//   kernel 10 keeps the WMMA loop below (gemm_kernel, gemm_mainloop): each
+//   operand tile staged in its natural global layout by cp.async and handed
+//   to the tensor cores as a row- or column-major WMMA fragment.
 //
-// The TPU accumulated the weight gradients in VMEM over a sequential token
-// grid. A GPU grid is parallel, so a weight gradient is a split-K GEMM over
-// the tokens: each split writes an fp32 partial (no float atomics), and a
-// second pass sums the partials in a fixed order and rounds to bf16, the
-// weight's dtype (the TPU kernel's dw.astype(w.dtype)). Both passes together
-// are the port of the one TPU kernel.
 #include <type_traits>
 
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 namespace swift {
 
@@ -59,7 +64,7 @@ constexpr int kWaveBlocks = 4 * 132;       // split-K target: about four blocks 
 enum { kAK = 0, kAM = 1 };
 enum { kBK = 0, kBN = 1 };
 // What the block does with its fp32 tile.
-enum { kEpiBf16 = 0, kEpiPartial = 1, kEpiSwigluBwd = 2 };
+enum { kEpiBf16 = 0, kEpiPartial = 1 };
 
 // Elements of one staged operand tile: EXT x BK when K is contiguous, else
 // BK x EXT (8 bf16 of padding a row against bank conflicts).
@@ -90,24 +95,6 @@ __device__ __forceinline__ void load_op(bf16* s, const bf16* g, int ld, int e0, 
       const bool ok = k < kend && e < E;
       cp_async16(s + r * LD + ec, ok ? g + (size_t)k * ld + e : g, ok);
     }
-  }
-}
-
-struct EpiArgs {
-  void* c;          // bf16 (M, N) or fp32 partials (splits, M, N)
-  const bf16* g;    // kEpiSwigluBwd: saved gate and up, (M, N) each
-  const bf16* u;
-  bf16* dgu;        // (M, 2N): dg in columns [0, N), du in [N, 2N)
-  bf16* h;          // (M, N): bf16(silu(g) * u)
-};
-
-__device__ __forceinline__ void unpack8(uint4 raw, float* v) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(p[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
   }
 }
 
@@ -193,7 +180,7 @@ __device__ __forceinline__ void store_tile(float* Cs, GAcc (&acc)[GFM][GFN]) {
 template <int AL, int BL, int EPI>
 __global__ void __launch_bounds__(GNT)
     gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, int M,
-                int N, int K, int k_per_split, EpiArgs ep) {
+                int N, int K, int k_per_split, void* out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
@@ -211,27 +198,11 @@ __global__ void __launch_bounds__(GNT)
     const float* v = Cs + r * GLDC + cc;
     const size_t o = (size_t)gr * N + gc;
     if constexpr (EPI == kEpiBf16) {
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(ep.c) + o) = pack8(v);
-    } else if constexpr (EPI == kEpiPartial) {
-      float* p = static_cast<float*>(ep.c) + (size_t)blockIdx.z * M * N + o;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = pack8(v);
+    } else {
+      float* p = static_cast<float*>(out) + (size_t)blockIdx.z * M * N + o;
       *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
       *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-      // v is dh; the TPU kernel's formulas with g, u re-expanded to fp32
-      float g[8], u[8], dg[8], du[8], hh[8];
-      unpack8(*reinterpret_cast<const uint4*>(ep.g + o), g);
-      unpack8(*reinterpret_cast<const uint4*>(ep.u + o), u);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float sig = 1.0f / (1.0f + expf(-g[i])), sg = g[i] * sig;
-        dg[i] = v[i] * u[i] * (sig * (1.0f + g[i] * (1.0f - sig)));
-        du[i] = v[i] * sg;
-        hh[i] = sg * u[i];
-      }
-      const size_t og = (size_t)gr * 2 * N + gc;
-      *reinterpret_cast<uint4*>(ep.dgu + og) = pack8(dg);
-      *reinterpret_cast<uint4*>(ep.dgu + og + N) = pack8(du);
-      *reinterpret_cast<uint4*>(ep.h + o) = pack8(hh);
     }
   }
 }
@@ -318,7 +289,7 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ part, int splits,
   *reinterpret_cast<uint4*>(out + i) = pack8(acc);
 }
 
-static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Splits of the reduction for an (M, N, K) weight-gradient GEMM: enough
 // blocks for about four per SM, each split at least 8 BK-steps long.
@@ -331,13 +302,13 @@ static int splitk_count(int M, int N, int K) {
 }
 
 template <int AL, int BL, int EPI>
-static cudaError_t gemm(const void* a, int lda, const void* b, int ldb, int M, int N, int K, int splits,
-                 EpiArgs ep, cudaStream_t st) {
+static cudaError_t gemm(const void* a, int lda, const void* b, int ldb, int M, int N, int K,
+                        int splits, void* out, cudaStream_t st) {
   auto kern = gemm_kernel<AL, BL, EPI>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   const int kps = ceil_div(ceil_div(K, splits), GBK) * GBK;
   dim3 grid(ceil_div(N, GBN), ceil_div(M, GBM), splits);
-  kern<<<grid, GNT, kGemmSmem, st>>>((const bf16*)a, lda, (const bf16*)b, ldb, M, N, K, kps, ep);
+  kern<<<grid, GNT, kGemmSmem, st>>>((const bf16*)a, lda, (const bf16*)b, ldb, M, N, K, kps, out);
   return cudaGetLastError();
 }
 
@@ -348,8 +319,7 @@ static cudaError_t weight_grad(const void* a, int lda, const void* b, int ldb, i
                                float* ws, void* out, cudaStream_t st, float* acc = nullptr,
                                bool first = true) {
   const int splits = splitk_count(M, N, K);
-  EpiArgs ep{ws, nullptr, nullptr, nullptr, nullptr};
-  cudaError_t e = gemm<kAM, kBN, kEpiPartial>(a, lda, b, ldb, M, N, K, splits, ep, st);
+  cudaError_t e = gemm<kAM, kBN, kEpiPartial>(a, lda, b, ldb, M, N, K, splits, ws, st);
   if (e != cudaSuccess) return e;
   const size_t n = (size_t)M * N;
   const unsigned blocks = (unsigned)((n / 8 + 255) / 256);
@@ -360,14 +330,343 @@ static cudaError_t weight_grad(const void* a, int lda, const void* b, int ldb, i
   return cudaGetLastError();
 }
 
+// -- kernels 9 and 13: the backward's products on the wgmma + TMA ring ------
+//
+// C (M x N) = A . B with fp32 accumulation, every operand read by TMA as it
+// lies in device memory: A (M x K) stored M rows of K (dy, [dg|du]: the
+// products that reduce along a weight's rows) or, where A_MN, K rows of M
+// (dy^T, [dg|du]^T: the weight gradients, which reduce over the tokens); B
+// (K x N) always stored K rows of N (a weight W read along its rows, or the
+// tokens of x and h). Each stage holds two 64 x 64 A boxes (one a consumer)
+// and four 64 x 64 B boxes, plain boxes of the tensors with TMA's 128-byte
+// swizzle, and wgmma reads them through K-major or MN-major descriptors
+// with its transpose flags (``produce_tile_mn``, ``consume_tile<S, A_MN,
+// true>``): nothing is transposed in device memory. Kernel 1's arrangement
+// otherwise: 384 threads a block, a producer warpgroup and two consumer
+// warpgroups with 64 x 256 fp32 accumulators in registers, 128 x 256
+// output tiles, clusters of two blocks on two row tiles against one column
+// tile, each block loading two of the four B boxes and multicasting them
+// into both (the L2's feed holds one block alone to about half the tensor
+// cores' rate: gemm.cu, kernels 1 and 14), persistent clusters walking
+// (split, row pair, column tile) items, column tiles fastest.
+//
+// Three epilogues:
+//   kOutBf16: C rounded to bf16 in registers and stored through two
+//     swizzled 64 x 64 boxes a consumer by TMA (``store_box``), which clips
+//     at M and N: dx of 9 and 13, and a weight gradient of one split;
+//   kOutPartial: the weight gradients split over the tokens. Split s sums
+//     the 64-deep stages [s sb, s sb + sb) and writes its fp32 partial to
+//     part[s], float2 stores in the accumulator's layout (32 contiguous
+//     bytes a row a warp store); ``splitk_reduce_kernel`` then sums the
+//     splits in order 0, 1, ... and rounds to bf16. No float atomics: two
+//     calls give the same bits. A split's tokens start on a stage boundary,
+//     so TMA's zero fill past the tensor's end (the last split's ragged
+//     tail) is the only edge a split meets;
+//   kOutSwiglu: C is dh = dy . W2. Each consumer walks its tile in 64-column
+//     steps with five 64 x 64 boxes of its own: two pairs for the saved
+//     bf16 g and u, which its thread 0 loads by TMA one step ahead (the
+//     next tile's first step during that tile's products), and one for h.
+//     In one pass each thread reads its elements' g and u in the
+//     accumulator's layout (the swizzled offsets store_box writes), forms
+//     the TPU kernel's fp32 formulas once (pallas_ffn.py:151-177): dg = dh
+//     u s(g) (1 + g (1 - s(g))), du = dh silu(g) and h = silu(g) u, and
+//     writes them, rounded to bf16, over g and u in place and into the h
+//     box; thread 0 stores the three boxes by TMA into the two halves of
+//     the (T, 2H) scratch [dg|du] (two tensor maps with row stride 2H, so
+//     that a box clipped at H never spills into the other half) and into
+//     h, and waits for the previous step's stores to have read their boxes
+//     before it reloads that pair. The boxes cost the ring its fourth
+//     stage. The sigmoid is formed once an element, as the consumers' math
+//     is latency-bound (two warps a scheduler, no products meanwhile).
+// Rows past M and columns past N are zero-filled or never loaded, their
+// products never stored; K's tail past the tensor is zero-filled.
+enum { kOutBf16 = 0, kOutPartial = 1, kOutSwiglu = 2 };
+
+// 64 x 64 bf16 boxes beside the ring, both consumers: two output boxes each,
+// or (kOutSwiglu) two g/u pairs and an h box each
+__host__ __device__ constexpr int bwd_boxes(int out) { return out == kOutSwiglu ? 10 : 4; }
+__host__ __device__ constexpr int bwd_stages(int out) {
+  return (kMaxSmem - ring_smem(0, bwd_boxes(out), 0) - 256) / kLinStageBytes;
+}
+__host__ __device__ constexpr int bwd_smem(int out) {  // four g/u barriers beside the ring's
+  return ring_smem(bwd_stages(out), bwd_boxes(out), 0) + 32;
+}
+static_assert(bwd_stages(kOutBf16) >= 4 && bwd_smem(kOutBf16) <= kMaxSmem,
+              "the backward's ring does not fit");
+static_assert(bwd_stages(kOutSwiglu) >= 3 && bwd_smem(kOutSwiglu) <= kMaxSmem,
+              "the backward's ring and the g, u and h boxes do not fit");
+constexpr int kBwdTileRows = 2 * kLinRows;
+
+struct BwdArgs {
+  float* part;    // kOutPartial: (splits, M, N)
+  int M, N, K;    // C (M x N) summed over K
+  int split_blocks, splits;  // 64-deep stages a split, and the splits
+};
+
+// The SwiGLU backward at one element (the TPU kernel's formulas, fp32): dh
+// the fp32 product, g and u the saved gate and up.
+struct SwigluGrad {
+  float dg, du, h;
+};
+__device__ __forceinline__ SwigluGrad swiglu_grad(float dh, float g, float u) {
+  const float sig = 1.0f / (1.0f + expf(-g)), sg = g * sig;
+  return {dh * u * (sig * (1.0f + g * (1.0f - sig))), dh * sg, sg * u};
+}
+
+__host__ __device__ inline int bwd_pairs(int M, int N) {
+  return ceil_div(ceil_div(M, kBwdTileRows), kLinCluster) * ceil_div(N, kLinBN);
+}
+
+// mY0..2: the bf16 output (kOutBf16), or dg, du and h (kOutSwiglu, with
+// the saved g and u read through mG, mU).
+template <bool A_MN, int OUT>
+__global__ void __launch_bounds__(kLinThreads, 1)
+    bwd_wgmma_kernel(const __grid_constant__ CUtensorMap mA,
+                     const __grid_constant__ CUtensorMap mB,
+                     const __grid_constant__ CUtensorMap mY0,
+                     const __grid_constant__ CUtensorMap mY1,
+                     const __grid_constant__ CUtensorMap mY2,
+                     const __grid_constant__ CUtensorMap mG,
+                     const __grid_constant__ CUtensorMap mU, BwdArgs args) {
+  constexpr int S = bwd_stages(OUT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* cbox = smem + S * kLinStageBytes;  // [consumer][bwd_boxes / 2] boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(cbox + bwd_boxes(OUT) * kLinCBox);
+  uint64_t* empty = full + S;
+  uint64_t* gu_full = empty + S;  // [consumer][pair] (kOutSwiglu)
+
+  const int M = args.M, N = args.N;
+  const int rank = (int)cluster_rank();
+  const int n_tiles = ceil_div(N, kLinBN), pairs = bwd_pairs(M, N);
+  const int items = pairs * args.splits;
+  const int cluster = blockIdx.x / kLinCluster, clusters = gridDim.x / kLinCluster;
+  const int k_blocks = ceil_div(args.K, kLinBK);
+  // item p: split p / pairs, row pair (p % pairs) / n_tiles, column tile (p % pairs) % n_tiles
+  auto tile = [&](int p, int& m0, int& n0, int& kb0, int& nk) {
+    const int s = p / pairs, q = p % pairs;
+    m0 = (q / n_tiles * kLinCluster + rank) * kBwdTileRows;
+    n0 = q % n_tiles * kLinBN;
+    kb0 = s * args.split_blocks;
+    nk = min(args.split_blocks, k_blocks - kb0);
+  };
+  if (OUT == kOutSwiglu && threadIdx.x == 0)
+    for (int i = 0; i < 4; ++i) mbar_init(&gu_full[i], 1);
+  ring_init<S>(full, empty);  // its fence and cluster barrier cover gu_full too
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      RingPos<S> pos;
+      for (int p = cluster; p < items; p += clusters) {
+        int m0, n0, kb0, nk;
+        tile(p, m0, n0, kb0, nk);
+        const bool a0 = m0 < M, a1 = m0 + kLinRows < M;
+        uint32_t bytes = (a0 ? kLinABytes : 0) + (a1 ? kLinABytes : 0);
+        for (int j = 0; j < 4; ++j) bytes += n0 + 64 * j < N ? kMnBBox : 0;
+        produce_tile_mn<S, A_MN>(smem, full, empty, pos, &mA, m0, a0, a1, &mB, n0, N, bytes,
+                                 kb0, nk);
+      }
+      drain(empty, pos);
+    }
+  } else {  // the consumers
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    float acc[kLinBN / 2];
+    RingPos<S> pos;
+    int boxes = 0;
+    unsigned char* own = cbox + c * (bwd_boxes(OUT) / 2) * kLinCBox;
+    // kOutSwiglu: step t's g and u in pair t % 2 (g box, then u box), loaded
+    // where the consumer's rows start before M; the waits pair with the
+    // loads in order. The h box follows the two pairs.
+    int step = 0;
+    uint32_t gu_phase = 0;  // bit k: the parity pair k's barrier waits for
+    auto load_gu = [&](int t, int row, int col) {
+      if (row < M) {
+        unsigned char* pair = own + 2 * (t & 1) * kLinCBox;
+        uint64_t* bar = &gu_full[2 * c + (t & 1)];
+        mbar_expect_tx(bar, 2 * kLinCBox);
+        tma_load_2d(pair, &mG, bar, col, row);
+        tma_load_2d(pair + kLinCBox, &mU, bar, col, row);
+      }
+    };
+    if (OUT == kOutSwiglu && tid == 0 && cluster < items) {
+      int m0, n0, kb0, nk;
+      tile(cluster, m0, n0, kb0, nk);
+      load_gu(0, m0 + c * kLinRows, n0);
+    }
+    for (int p = cluster; p < items; p += clusters) {
+      int m0, n0, kb0, nk;
+      tile(p, m0, n0, kb0, nk);
+      m0 += c * kLinRows;
+      consume_tile<S, A_MN, true>(acc, smem, full, empty, pos, c, nk);
+      // this thread's rows r, r + 8 of C; accumulator index i holds column
+      // n0 + 8 (i / 4) + 2 (lane % 4) + i % 2 of row r + 8 ((i / 2) % 2)
+      const int r = m0 + tid / 32 * 16 + lane / 4;
+      if constexpr (OUT == kOutPartial) {
+        float* part = args.part + (size_t)(p / pairs) * M * N;
+#pragma unroll
+        for (int j = 0; j < kLinBN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (r + 8 * h < M && col < N)
+              *reinterpret_cast<float2*>(part + (size_t)(r + 8 * h) * N + col) =
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kLinBN / 64; ++q) {
+          if (n0 + 64 * q >= N) break;
+          const int col = n0 + 64 * q;
+          if constexpr (OUT == kOutBf16) {
+            store_box<2>(own + (boxes++ & 1) * kLinCBox, &mY0, col, m0, m0 < M, c, q,
+                         [&](int i) { return pack_bf16x2(acc[i], acc[i + 1]); });
+          } else {
+            const int t = step++;
+            unsigned char* gb = own + 2 * (t & 1) * kLinCBox;
+            unsigned char* ub = gb + kLinCBox;
+            unsigned char* hb = own + 4 * kLinCBox;
+            if (m0 < M) {
+              mbar_wait(&gu_full[2 * c + (t & 1)], (gu_phase >> (t & 1)) & 1);
+              gu_phase ^= 1u << (t & 1);
+            }
+            if (tid == 0) {
+              // the last step's stores have read their boxes: its pair takes
+              // the next step's g and u, the next tile's first after the last
+              tma_store_wait_read<0>();
+              if (q + 1 < kLinBN / 64 && col + 64 < N) {
+                load_gu(t + 1, m0, col + 64);
+              } else if (p + clusters < items) {
+                int m1, n1, kb1, nk1;
+                tile(p + clusters, m1, n1, kb1, nk1);
+                load_gu(t + 1, m1 + c * kLinRows, n1);
+              }
+            }
+            named_barrier_sync(1 + c, 128);  // the h box is free
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int i = 4 * (8 * q + j) + 2 * h;
+                const int at = (tid / 32 * 16 + lane / 4 + 8 * h) * 128 +
+                               ((j ^ (lane / 4)) << 4) + (lane % 4) * 4;
+                const float2 g = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(gb + at));
+                const float2 u = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(ub + at));
+                const SwigluGrad lo = swiglu_grad(acc[i], g.x, u.x);
+                const SwigluGrad hi = swiglu_grad(acc[i + 1], g.y, u.y);
+                *reinterpret_cast<uint32_t*>(gb + at) = pack_bf16x2(lo.dg, hi.dg);
+                *reinterpret_cast<uint32_t*>(ub + at) = pack_bf16x2(lo.du, hi.du);
+                *reinterpret_cast<uint32_t*>(hb + at) = pack_bf16x2(lo.h, hi.h);
+              }
+            fence_async_smem();
+            named_barrier_sync(1 + c, 128);
+            if (tid == 0 && m0 < M) {
+              tma_store_2d(&mY0, gb, col, m0);
+              tma_store_2d(&mY1, ub, col, m0);
+              tma_store_2d(&mY2, hb, col, m0);
+              tma_store_commit();
+            }
+          }
+        }
+      }
+    }
+    if (tid == 0) tma_store_wait_all();
+  }
+}
+
+// Launches one product on persistent clusters, as many as the card holds
+// (asked once a device for each form, kept in the function's own cache).
+// ``m``: the tensor maps of bwd_wgmma_kernel's parameters in order, those a
+// form does not read set to any map.
+template <bool A_MN, int OUT>
+static int launch_bwd(const CUtensorMap (&m)[7], const BwdArgs& args, cudaStream_t st) {
+  static int resident[64];
+  return launch_clusters(bwd_wgmma_kernel<A_MN, OUT>, resident, bwd_smem(OUT),
+                         bwd_pairs(args.M, args.N) * args.splits, kLinCluster, st, m[0], m[1],
+                         m[2], m[3], m[4], m[5], m[6], args);
+}
+
+// The splits of a weight gradient (M x N) over K tokens on the ring: the
+// count that makes a cluster's longest walk shortest, in 64-deep stages,
+// with each split's fp32 partial written and read back costed at about
+// M N / 300,000 stages (8 bytes an element at ~3 TB/s against ~0.8 us a
+// stage); ties go to fewer splits, a split spans at least 4 stages, and the
+// count is the one that results (every split non-empty).
+static int bwd_splits(int M, int N, int K) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int clusters = sms / kLinCluster > 0 ? sms / kLinCluster : 1;
+  const long long blocks = ceil_div(K, kLinBK), pairs = bwd_pairs(M, N);
+  int best = 1;
+  double best_cost = (double)((pairs + clusters - 1) / clusters) * blocks;
+  for (int s = 2; s <= 16; ++s) {
+    const long long sb = (blocks + s - 1) / s;
+    if (sb < 4) break;
+    const long long eff = (blocks + sb - 1) / sb;
+    const double cost = (double)((pairs * eff + clusters - 1) / clusters) * sb +
+                        (double)eff * M * N / 3e5;
+    if (cost < best_cost) best = (int)eff, best_cost = cost;
+  }
+  return best;
+}
+
+// C (M x N) = A (M x K) . B (K x N), all row-major bf16 as they lie, into
+// bf16 out: dx = dy . W, dh = dy . W2 (with ``g``: the SwiGLU epilogue from
+// the saved g and u (M, N) into dgu (M, 2N) and h (M, N) in place of out).
+static int bwd_dgrad(const void* a, const void* b, void* out, int M, int N, int K,
+                     cudaStream_t st, const void* g = nullptr, const void* u = nullptr,
+                     void* h = nullptr) {
+  CUtensorMap m[7];  // A, B, then dx or dg, du, h, then g, u
+  if (!tensor_map_bf16(&m[0], a, M, K, kLinRows, kLinBK) ||
+      !tensor_map_bf16(&m[1], b, K, N, kLinBK, 64))
+    return kTensorMapError;
+  const BwdArgs args{nullptr, M, N, K, ceil_div(K, kLinBK), 1};
+  if (g == nullptr) {
+    if (!tensor_map_bf16(&m[2], out, M, N, 64, 64)) return kTensorMapError;
+    m[3] = m[4] = m[5] = m[6] = m[2];
+    return launch_bwd<false, kOutBf16>(m, args, st);
+  }
+  if (!tensor_map_bf16(&m[2], out, M, N, 64, 64, true, 2 * (uint64_t)N) ||
+      !tensor_map_bf16(&m[3], (const bf16*)out + N, M, N, 64, 64, true, 2 * (uint64_t)N) ||
+      !tensor_map_bf16(&m[4], h, M, N, 64, 64) || !tensor_map_bf16(&m[5], g, M, N, 64, 64) ||
+      !tensor_map_bf16(&m[6], u, M, N, 64, 64))
+    return kTensorMapError;
+  return launch_bwd<false, kOutSwiglu>(m, args, st);
+}
+
+// dW (M x N) = A^T . B summed over K tokens, A (K x M) and B (K x N)
+// row-major as they lie: one split straight to bf16, else fp32 partials in
+// ws (splits, M, N) summed in order into out.
+static int bwd_wgrad(const void* a, const void* b, void* out, float* ws, int M, int N, int K,
+                     cudaStream_t st) {
+  const int splits = bwd_splits(M, N, K);
+  CUtensorMap m[7];  // A, B, dW
+  if (!tensor_map_bf16(&m[0], a, K, M, kLinBK, 64) ||
+      !tensor_map_bf16(&m[1], b, K, N, kLinBK, 64) || !tensor_map_bf16(&m[2], out, M, N, 64, 64))
+    return kTensorMapError;
+  m[3] = m[4] = m[5] = m[6] = m[2];
+  const BwdArgs args{ws, M, N, K, ceil_div(ceil_div(K, kLinBK), splits), splits};
+  if (splits == 1) return launch_bwd<true, kOutBf16>(m, args, st);
+  const int e = launch_bwd<true, kOutPartial>(m, args, st);
+  if (e != 0) return e;
+  const size_t n = (size_t)M * N;
+  splitk_reduce_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, st>>>(ws, splits, n,
+                                                                         (bf16*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace swift
 
 using namespace swift;
 
 // fp32 elements of split-K workspace a weight gradient of (M, N) over K
-// tokens needs.
+// tokens needs: enough for the splits of kernels 9 and 13 (``bwd_splits``)
+// and for kernel 10's (``splitk_count``).
 extern "C" long long swift_splitk_workspace(int M, int N, int K) {
-  return (long long)splitk_count(M, N, K) * M * N;
+  const int s = splitk_count(M, N, K), t = bwd_splits(M, N, K);
+  return (long long)(s > t ? s : t) * M * N;
 }
 
 // dy (T, N), x (T, K), w (N, K) bf16 -> dx (T, K), dw (N, K) bf16; ws fp32
@@ -375,32 +674,28 @@ extern "C" long long swift_splitk_workspace(int M, int N, int K) {
 extern "C" int swift_linear_bwd(const void* dy, const void* x, const void* w, void* dx, void* dw,
                                 void* ws, int T, int N, int K, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  EpiArgs ep{dx, nullptr, nullptr, nullptr, nullptr};
-  cudaError_t e = gemm<kAK, kBN, kEpiBf16>(dy, N, w, K, T, K, N, 1, ep, st);  // dx = dy . W
-  if (e != cudaSuccess) return (int)e;
-  return (int)weight_grad(dy, N, x, K, N, K, T, (float*)ws, dw, st);  // dW = dy^T . x
+  const int e = bwd_dgrad(dy, w, dx, T, K, N, st);  // dx = dy . W
+  if (e != 0) return e;
+  return bwd_wgrad(dy, x, dw, (float*)ws, N, K, T, st);  // dW = dy^T . x
 }
 
 // x, dy (T, D), g, u (T, H), w1 (2H, D), w2 (D, H) bf16 -> dx (T, D),
 // dw1 (2H, D), dw2 (D, H) bf16. Scratch: dgu (T, 2H) and h (T, H) bf16;
 // ws1, ws2 fp32 of swift_splitk_workspace(2H, D, T) and (D, H, T) elements.
+// T, D, H multiples of 8.
 extern "C" int swift_ffn_bwd_saved(const void* x, const void* dy, const void* g, const void* u,
                                    const void* w1, const void* w2, void* dx, void* dw1, void* dw2,
                                    void* dgu, void* h, void* ws1, void* ws2, int T, int D, int H,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   // dh = dy . W2 with the SwiGLU backward in the epilogue -> dg | du, h
-  EpiArgs ep{nullptr, (const bf16*)g, (const bf16*)u, (bf16*)dgu, (bf16*)h};
-  cudaError_t e = gemm<kAK, kBN, kEpiSwigluBwd>(dy, D, w2, H, T, H, D, 1, ep, st);
-  if (e != cudaSuccess) return (int)e;
-  // dx = [dg | du] . W1
-  EpiArgs epx{dx, nullptr, nullptr, nullptr, nullptr};
-  e = gemm<kAK, kBN, kEpiBf16>(dgu, 2 * H, w1, D, T, D, 2 * H, 1, epx, st);
-  if (e != cudaSuccess) return (int)e;
-  // dW1 = [dg | du]^T . x ;  dW2 = dy^T . h
-  e = weight_grad(dgu, 2 * H, x, D, 2 * H, D, T, (float*)ws1, dw1, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)weight_grad(dy, D, h, H, D, H, T, (float*)ws2, dw2, st);
+  int e = bwd_dgrad(dy, w2, dgu, T, H, D, st, g, u, h);
+  if (e != 0) return e;
+  e = bwd_dgrad(dgu, w1, dx, T, D, 2 * H, st);  // dx = [dg | du] . W1
+  if (e != 0) return e;
+  e = bwd_wgrad(dgu, x, dw1, (float*)ws1, 2 * H, D, T, st);  // dW1 = [dg | du]^T . x
+  if (e != 0) return e;
+  return bwd_wgrad(dy, h, dw2, (float*)ws2, D, H, T, st);  // dW2 = dy^T . h
 }
 
 // Tokens kernel 10 takes at a time: its bf16 scratch is 3H of them a token
@@ -434,8 +729,8 @@ extern "C" int swift_ffn_bwd_recompute(const void* x, const void* dy, const void
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     // dx = [dg | du] . W1
-    EpiArgs epx{(bf16*)dx + (size_t)c0 * D, nullptr, nullptr, nullptr, nullptr};
-    e = gemm<kAK, kBN, kEpiBf16>(dgu, 2 * H, w1, D, tc, D, 2 * H, 1, epx, st);
+    e = gemm<kAK, kBN, kEpiBf16>(dgu, 2 * H, w1, D, tc, D, 2 * H, 1, (bf16*)dx + (size_t)c0 * D,
+                                 st);
     if (e != cudaSuccess) return (int)e;
     // dW1 += [dg | du]^T . x ;  dW2 += dy^T . h
     e = weight_grad(dgu, 2 * H, xc, D, 2 * H, D, tc, (float*)ws1, nullptr, st, (float*)acc1,

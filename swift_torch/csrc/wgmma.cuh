@@ -6,16 +6,20 @@
 // cluster scope, and setmaxnreg. Inline PTX only (no CuTe, no CUTLASS), so a
 // source that includes this header builds in seconds.
 //
-// Layout. Every operand tile is a K-major bf16 box of R rows x 64 columns
-// (128 bytes a row) that TMA writes with the 128-byte swizzle: row r lies
-// at r * 128 bytes with its 16-byte chunks permuted by chunk ^ (r % 8), and
+// Layout. Every operand tile is a bf16 box of R rows x 64 columns (128
+// bytes a row) that TMA writes with the 128-byte swizzle: row r lies at
+// r * 128 bytes with its 16-byte chunks permuted by chunk ^ (r % 8), and
 // eight rows make one 1024-byte swizzle atom. wgmma reads such a tile
 // through a shared-memory descriptor (layout 128B swizzle, 1024 bytes
-// between 8-row groups); the k-th 16-deep slice of the 64-deep tile starts
-// k * 32 bytes into it. A tile must start on a 1024-byte boundary. The SwinV2
-// block multiplies an activation (tokens x K) by an nn.Linear weight
-// (out x K): both operands are K-major, the case wgmma takes without a
-// transpose.
+// between 8-row groups). A tile must start on a 1024-byte boundary. The
+// SwinV2 block's forward multiplies an activation (tokens x K) by an
+// nn.Linear weight (out x K): both operands are K-major (the box's columns
+// run along K), the case wgmma takes without a transpose, and the k-th
+// 16-deep slice of the 64-deep tile starts k * 32 bytes into it. The
+// backward's products reduce along the weight's rows (dx = dy . W) or along
+// the tokens (dW = dy^T . x): there a box of the tensor as it lies has its
+// rows along K (MN-major), wgmma reads it with its transpose flag, and the
+// k-th slice starts 16 rows, 2048 bytes, into it.
 //
 // Requirements (TMA's): the global base 16-byte aligned, the row stride a
 // multiple of 16 bytes (K % 8 == 0 for bf16). TMA zero-fills what a box
@@ -269,12 +273,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x N] (+)= A[64 x 16] . B[N x 16]^T, bf16 operands read through the
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 operands read through the
 // descriptors, fp32 accumulator in registers: thread t of the warpgroup
 // holds d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e].
 // scale_d = 0 overwrites D, 1 accumulates. N is 32, 64, 128, 136, 176, 216
-// or 256.
-template <int N>
+// or 256. TA, TB are the instruction's transpose flags: 0 reads a K-major
+// tile (``wgmma_desc``: A stored 64 rows of K, B stored N rows of K, the
+// nn.Linear weight), 1 an MN-major one (``wgmma_desc_mn_a``,
+// ``wgmma_desc_mn``: stored K rows of M or of N, as an activation's tokens
+// lie when the reduction runs over them).
+template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, uint64_t b,
                                                int scale_d) {
   static_assert(N == 32 || N == 64 || N == 128 || N == 136 || N == 176 || N == 216 || N == 256,
@@ -285,11 +293,11 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 64) {
     asm volatile(
@@ -298,14 +306,14 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
         "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
           "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
           "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 128) {
     asm volatile(
@@ -316,7 +324,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
         "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -328,7 +336,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
           "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
           "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 136) {
     asm volatile(
@@ -340,7 +348,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
         "%66, %67"
-        "}, %68, %69, p, 1, 1, 0, 0;\n}\n"
+        "}, %68, %69, p, 1, 1, %71, %72;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -353,7 +361,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
           "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
           "+f"(d[67])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 176) {
     asm volatile(
@@ -366,7 +374,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
         "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
         "%82, %83, %84, %85, %86, %87"
-        "}, %88, %89, p, 1, 1, 0, 0;\n}\n"
+        "}, %88, %89, p, 1, 1, %91, %92;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -382,7 +390,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
           "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
           "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
           "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 216) {
     asm volatile(
@@ -396,7 +404,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
         "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107"
-        "}, %108, %109, p, 1, 1, 0, 0;\n}\n"
+        "}, %108, %109, p, 1, 1, %111, %112;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -415,7 +423,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
           "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
           "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
           "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 256) {
     asm volatile(
@@ -431,7 +439,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
         "%125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
           "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -454,7 +462,7 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
           "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
           "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
           "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
 
@@ -469,6 +477,19 @@ __device__ __forceinline__ uint64_t wgmma_desc_mn(const void* tile, uint32_t box
   return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((box_bytes >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of an MN-major A tile with the 128-byte swizzle, for A . B
+// where A (64 x K) is stored K rows of M: K row k of the 64-column box at
+// k * 128 bytes (chunks permuted by chunk ^ (k % 8), as TMA's 128-byte
+// swizzle writes a plain box of the tensor as it lies), 1024 bytes between
+// 8-row groups (the stride byte offset). wgmma's 64 rows of A are one
+// 64-wide box, so the leading byte offset (bytes between 64-wide M boxes)
+// is never used; it is set to one box, 8192 bytes. The k-th 16-deep slice
+// starts 16 rows on: ``desc + 128 * k``. The tile is 1024-byte aligned. Read
+// with the instruction's transpose-A flag (``wgmma_m64nNk16<N, 1, TB>``).
+__device__ __forceinline__ uint64_t wgmma_desc_mn_a(const void* tile) {
+  return wgmma_desc_mn(tile, 64 * 128);
 }
 
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], A bf16 from registers, B bf16
@@ -664,11 +685,58 @@ __device__ __forceinline__ void drain(uint64_t* empty, RingPos<STAGES>& pos) {
   }
 }
 
+// The producer's loads of one output tile of a product whose operands lie
+// as the backward's do, stages kb0 .. kb0 + k_blocks of 64 along K, each
+// box a plain 64 x 64 box of the tensor as it lies (no transposed copy
+// anywhere): A (M x K) stored M rows of K, or, where A_MN, K rows of M
+// (dy^T: the tokens are K); B (K x N) stored K rows of N (a weight read
+// along its rows, or the tokens of x or h). Consumer c's A box holds rows
+// m0 + 64 c .. + 63 of A where (a0, a1); the stage's four 64-column B boxes
+// at n0, n0 + 64, ... lie one after another (``wgmma_desc_mn``'s leading
+// offset kMnBBox), and this block loads boxes 2 rank and 2 rank + 1 of
+// them, those that start before N, multicast into both blocks of the
+// cluster. ``bytes``: what lands in this block's stage from both blocks'
+// loads together.
+constexpr int kMnBBox = kLinBK * 64 * 2;  // one 64-deep x 64-column B box
+static_assert(4 * kMnBBox == kLinCluster * kLinWBytes, "the B boxes fill the stage's W room");
+
+template <int STAGES, bool A_MN>
+__device__ __forceinline__ void produce_tile_mn(unsigned char* smem, uint64_t* full,
+                                                uint64_t* empty, RingPos<STAGES>& pos,
+                                                const CUtensorMap* mA, int m0, bool a0, bool a1,
+                                                const CUtensorMap* mB, int n0, int N,
+                                                uint32_t bytes, int kb0, int k_blocks) {
+  const int rank = (int)cluster_rank();
+  for (int kb = kb0; kb < kb0 + k_blocks; ++kb) {
+    unsigned char* stage = smem + pos.s * kLinStageBytes;
+    const int k = kb * kLinBK;
+    mbar_wait(&empty[pos.s], pos.phase ^ 1);
+    mbar_expect_tx(&full[pos.s], bytes);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (!(c ? a1 : a0)) continue;
+      const int m = m0 + c * kLinRows;
+      tma_load_2d(stage + c * kLinABytes, mA, &full[pos.s], A_MN ? m : k, A_MN ? k : m);
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int j = 2 * rank + b;
+      if (n0 + 64 * j < N)
+        tma_load_2d_multicast(stage + 2 * kLinABytes + j * kMnBBox, mB, &full[pos.s],
+                              n0 + 64 * j, k, (1 << kLinCluster) - 1);
+    }
+    pos.next();
+  }
+}
+
 // Consumer c's products of one output tile: acc = A_c . W^T over k_blocks
 // stages, four m64n256k16 wgmmas a stage, its previous wgmma group kept in
 // flight. Each stage is released in both blocks of the cluster (lane r of
 // each warp arrives in block r) once the wgmmas that read it are done.
-template <int STAGES>
+// A_MN, B_MN: the stage was loaded by ``produce_tile_mn``, A stored K rows
+// of M where A_MN, B the four MN-major boxes of K rows of N (B_MN), read
+// with wgmma's transpose flags.
+template <int STAGES, bool A_MN = false, bool B_MN = false>
 __device__ __forceinline__ void consume_tile(float (&acc)[128], unsigned char* smem,
                                              uint64_t* full, uint64_t* empty,
                                              RingPos<STAGES>& pos, int c, int k_blocks) {
@@ -676,17 +744,22 @@ __device__ __forceinline__ void consume_tile(float (&acc)[128], unsigned char* s
   auto release = [&](int stage) {
     if (lane < kLinCluster) mbar_arrive_cluster(&empty[stage], lane);
   };
+  // descriptor steps of one 16-deep slice: 32 bytes along a K-major row, 16
+  // rows of an MN-major box
+  constexpr int a_step = A_MN ? 128 : 2, w_step = B_MN ? 128 : 2;
   int prev = 0;
   fence_regs(acc);
   for (int kb = 0; kb < k_blocks; ++kb) {
     mbar_wait(&full[pos.s], pos.phase);
     wgmma_fence();
     unsigned char* stage = smem + pos.s * kLinStageBytes;
-    const uint64_t da = wgmma_desc(stage + c * kLinABytes);
-    const uint64_t dw = wgmma_desc(stage + 2 * kLinABytes);
+    const uint64_t da =
+        A_MN ? wgmma_desc_mn_a(stage + c * kLinABytes) : wgmma_desc(stage + c * kLinABytes);
+    const uint64_t dw = B_MN ? wgmma_desc_mn(stage + 2 * kLinABytes, kMnBBox)
+                             : wgmma_desc(stage + 2 * kLinABytes);
 #pragma unroll
     for (int k = 0; k < kLinBK / 16; ++k)
-      wgmma_m64nNk16<256>(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+      wgmma_m64nNk16<256, A_MN, B_MN>(acc, da + a_step * k, dw + w_step * k, kb > 0 || k > 0);
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
     if (kb > 0) release(prev);
@@ -757,17 +830,18 @@ inline TensorMapEncodeFn tensor_map_encoder() {
   return fn;
 }
 
-// A row-major bf16 matrix (rows x cols, row stride cols) cut into boxes of
-// box_rows x box_cols with the 128-byte swizzle (box_cols * 2 <= 128) or,
-// where ``swizzle`` is false, laid out densely row after row (box_cols * 2
-// a multiple of 16, box_cols <= 256); zero fill past the edges. Returns
-// false when it cannot be encoded.
+// A row-major bf16 matrix (rows x cols, row stride ``stride`` elements,
+// cols where 0) cut into boxes of box_rows x box_cols with the 128-byte
+// swizzle (box_cols * 2 <= 128) or, where ``swizzle`` is false, laid out
+// densely row after row (box_cols * 2 a multiple of 16, box_cols <= 256);
+// zero fill past the edges. Returns false when it cannot be encoded.
 inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                            uint32_t box_rows, uint32_t box_cols, bool swizzle = true) {
+                            uint32_t box_rows, uint32_t box_cols, bool swizzle = true,
+                            uint64_t stride = 0) {
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {(stride ? stride : cols) * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,

@@ -89,6 +89,24 @@ def test_linear_bwd_plain_matches_autograd():
         _close(g, wnt)
 
 
+@pytest.mark.parametrize("tokens", [136, 256])
+def test_linear_bwd_plain_matches_jax_at_flagship_widths(tokens):
+    """The plain version kernel 13 is held to on the card, at the flagship's
+    qkv widths (N 3168, K 1056), against JAX's vjp: at 256 tokens of the
+    Pallas kernel (interpret mode), at 136, which no Pallas block tiles, of
+    the ``jnp.dot`` the JAX model falls back to there. fp32, tolerance 2e-5
+    (sums over 3168 and 136 terms in different orders)."""
+    rng = np.random.default_rng(22)
+    N, K = 3168, 1056
+    x, w, dy = _rand(rng, (tokens, K)), _rand(rng, (N, K), K ** -0.5), _rand(rng, (tokens, N))
+    fn = plin.fused_linear if tokens % 128 == 0 else jnp.dot
+    _, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(w.T))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    dx, dw = linear.reference_linear_bwd(_t(dy), _t(x), _t(w))
+    _close(dx, jdx, "dx")
+    _close(dw, np.asarray(jdw).T, "dw")
+
+
 # -- kernel 6: block attention backward ----------------------------------------
 
 @pytest.mark.parametrize("heads,d", [(3, 8), (2, 12)], ids=["d8", "d12"])
@@ -175,6 +193,52 @@ def test_ffn_bwd_saved_plain_matches_autograd():
         _close(gg, wnt, name)
     for gg, wnt in zip(_autograd(ffn.fused_swiglu_ffn, (x, w1, w2), dy), want):
         _close(gg, wnt)
+
+
+@pytest.mark.parametrize("tokens", [136, 256])
+def test_ffn_bwd_saved_plain_matches_jax_at_flagship_widths(tokens):
+    """The plain version kernel 9 is held to on the card, at the flagship's
+    widths (D 1056, H 2816), against the JAX package's vjp rule
+    (``_fused_swiglu_bwd``, the Pallas saved-activation backward in
+    interpret mode) given the same residuals: x and the g and u of the
+    plain kernel 8. 136 tokens, which no Pallas block tiles, go to it padded
+    with zero tokens to 256, which add exact zeros to every sum. fp32,
+    tolerance 2e-5 (sums over up to 5632 terms in different orders)."""
+    x, w1, w2, dy = _ffn_inputs(23, T=tokens, D=1056, H=2816)
+    H = w2.shape[1]
+    _, g, u = ffn.reference_swiglu_ffn_fwd_save(_t(x), _t(w1), _t(w2))
+    dx, dw1, dw2 = ffn.reference_swiglu_ffn_bwd_saved(_t(x), _t(dy), g, u, _t(w1), _t(w2))
+
+    def pad(a):
+        return jnp.pad(jnp.asarray(np.asarray(a)), ((0, -tokens % 128), (0, 0)))
+
+    w1j = jnp.asarray(w1.T)
+    jdx, jdwg, jdwu, jdw2 = pffn._fused_swiglu_bwd(
+        (pad(x), pad(g), pad(u), w1j[:, :H], w1j[:, H:], jnp.asarray(w2.T)), pad(dy))
+    _close(dx, np.asarray(jdx)[:tokens], "dx")
+    _close(dw1, np.concatenate([np.asarray(jdwg), np.asarray(jdwu)], axis=1).T, "dw1")
+    _close(dw2, np.asarray(jdw2).T, "dw2")
+
+
+def test_ffn_bwd_saved_padded_hidden_matches_jax():
+    """Path A's SwiGLU width H = 85 as the card runs it: the weights padded
+    to 88 (``pad_hidden``), g and u of the padded plain kernel 8 (their
+    padded units 0), the plain kernel 9 at 88 and the weight gradients cut
+    back to 85 (``_unpad_grads``), against JAX's vjp of the Pallas FFN at H
+    = 85 (interpret mode). fp32, tolerance 2e-5."""
+    x, w1, w2, dy = _ffn_inputs(24, T=128, D=32, H=85)
+    _, vjp = jax.vjp(pffn.fused_swiglu_ffn, jnp.asarray(x), jnp.asarray(w1.T),
+                     jnp.asarray(w2.T))
+    jdx, jdw1, jdw2 = vjp(jnp.asarray(dy))
+    w1p, w2p = ffn.pad_hidden(_t(w1), _t(w2))
+    assert w2p.shape[1] == 88
+    _, g, u = ffn.reference_swiglu_ffn_fwd_save(_t(x), w1p, w2p)
+    assert not g[:, 85:].any() and not u[:, 85:].any()
+    dx, dw1p, dw2p = ffn.reference_swiglu_ffn_bwd_saved(_t(x), _t(dy), g, u, w1p, w2p)
+    dw1, dw2 = ffn._unpad_grads(dw1p, dw2p, 85)
+    _close(dx, jdx, "dx")
+    _close(dw1, np.asarray(jdw1).T, "dw1")
+    _close(dw2, np.asarray(jdw2).T, "dw2")
 
 
 def test_ffn_backward_above_the_save_budget_raises(monkeypatch):
@@ -283,6 +347,68 @@ def test_backward_kernels_match_plain_at_ragged_shapes(tokens, d):
             err = (g.float() - w.float()).abs().max().item()
             assert torch.isfinite(g).all() and err <= 2e-2 * w.float().abs().max().item(), (
                 fused.__name__, err)
+
+
+def _card_matches_plain(fused, plain, args):
+    """Every output of ``fused`` within 2e-2 of max|plain| of ``plain`` on
+    the same inputs, and two calls of ``fused`` equal bit for bit (no
+    atomics: the splits are summed in a fixed order)."""
+    got, want = fused(*args), plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert torch.isfinite(g).all() and err <= 2e-2 * w.float().abs().max().item(), (
+            fused.__name__, err)
+    again = fused(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), fused.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [136, 1000])
+def test_backward_gemms_match_plain_at_flagship_widths(tokens):
+    """Kernels 9 and 13 at the flagship's widths (D 1056, H 2816, so 2H
+    5632; N 3168, K 1056) and few tokens: the MN-major tiles' leading
+    offset between 64-wide boxes shows only past 64 columns, and at 1000
+    tokens the weight gradients split the tokens, the last split ending
+    inside a stage. bf16 on the card, every output within 2e-2 of
+    max|plain|, two calls equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(25)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", torch.bfloat16)
+
+    D, H, N = 1056, 2816, 3168
+    x, dy = t((tokens, D)), t((tokens, D))
+    _card_matches_plain(linear.fused_linear_bwd, linear.reference_linear_bwd,
+                        (t((tokens, N)), x, t((N, D), D ** -0.5)))
+    _card_matches_plain(ffn.swiglu_ffn_bwd_saved, ffn.reference_swiglu_ffn_bwd_saved,
+                        (x, dy, t((tokens, H)), t((tokens, H)), t((2 * H, D), D ** -0.5),
+                         t((D, H), H ** -0.5)))
+
+
+@pytest.mark.cuda
+def test_ffn_bwd_saved_kernel_at_padded_hidden():
+    """Kernel 9 at path A's SwiGLU width H = 85: the wrapper pads the
+    weights to 88 and reads g and u at 88 wide, as kernel 8 gives them (the
+    padded units 0), and cuts the weight gradients back to 85; against the
+    plain version at 85. bf16 on the card, every output within 2e-2 of
+    max|plain|, two calls equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(26)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(_rand(rng, shape, scale)).to("cuda", torch.bfloat16)
+
+    T, D, H = 128, 32, 85
+    gate, up = (torch.nn.functional.pad(t((T, H)), (0, 3)) for _ in range(2))
+    _card_matches_plain(
+        ffn.swiglu_ffn_bwd_saved,
+        lambda x, dy, g, u, w1, w2: ffn.reference_swiglu_ffn_bwd_saved(x, dy, g[:, :H], u[:, :H],
+                                                                       w1, w2),
+        (t((T, D)), t((T, D)), gate, up, t((2 * H, D), D ** -0.5), t((D, H), H ** -0.5)))
 
 
 @pytest.mark.cuda
