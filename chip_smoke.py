@@ -664,6 +664,47 @@ def _composition_attention(qkv, scale, heads, window_size, shift=(0, 0)):
     return run
 
 
+def _composition_attention_tangent(qkv, dqkv, scale, heads, window_size, shift=(0, 0)):
+    """``torch.roll`` by -shift and the window partition of qkv and dqkv,
+    the fp32 L2 normalise of q (times the logit scale) and k and its
+    tangent rounded to bf16, S = q̂s·k̂ᵀ and dS = [dq̂s | q̂s]·[k̂ ; dk̂]ᵀ by
+    batched bf16 ``torch.matmul`` (cuBLAS), the fp32 softmax and dp =
+    p (dS − Σ p·dS), [dp | p]·[v ; dv] by ``torch.matmul``, the inverse
+    layout and roll: kernels 7 and 17 as a user would write them in PyTorch
+    (S and dS rounded to bf16 where cuBLAS returns them)."""
+    B, gh, gw, feat = qkv.shape
+    d = feat // (3 * heads)
+    (wh, ww), (sh, sw) = window_size, shift
+    nh, nw = gh // wh, gw // ww
+
+    def windows(a):
+        a = torch.roll(a, (-sh, -sw), (1, 2)) if sh or sw else a
+        a = a.view(B, nh, wh, nw, ww, heads, 3, d).permute(6, 0, 1, 3, 5, 2, 4, 7)
+        return a.reshape(3, B * nh * nw, heads, wh * ww, d)
+
+    def normalised(a, da, mul):
+        a, da = a.float(), da.float()
+        r = torch.rsqrt((a * a).sum(-1, keepdim=True) + 1e-12)
+        ah = a * r
+        dah = (da - ah * (ah * da).sum(-1, keepdim=True)) * r
+        return (ah * mul).to(qkv.dtype), (dah * mul).to(qkv.dtype)
+
+    def run():
+        (q, k, v), (dq, dk, dv) = windows(qkv), windows(dqkv)
+        qn, dqn = normalised(q, dq, scale[:, None, None])
+        kn, dkn = normalised(k, dk, 1.0)
+        p = torch.softmax(torch.matmul(qn, kn.transpose(-1, -2)).float(), -1)
+        dS = torch.matmul(torch.cat([dqn, qn], -1),
+                          torch.cat([kn, dkn], -1).transpose(-1, -2)).float()
+        dp = p * (dS - (p * dS).sum(-1, keepdim=True))
+        o = torch.matmul(torch.cat([dp, p], -1).to(qkv.dtype), torch.cat([v, dv], -2))
+        o = o.view(B, nh, nw, heads, wh, ww, d).permute(0, 1, 4, 2, 5, 3, 6)
+        o = o.reshape(B, gh, gw, heads * d)
+        return torch.roll(o, (sh, sw), (1, 2)) if sh or sw else o
+
+    return run
+
+
 def _composition_mm_modnorm(x, w, r, g, b, msc, msh):
     """``F.linear`` (cuBLAS, y rounded to bf16 where kernel 3 keeps it in
     fp32), ``F.layer_norm`` in fp32 with g and b, the AdaLN ·(1 + msc) +
@@ -702,7 +743,7 @@ def _composition_linear_bwd(dy, x, w):
     return lambda: (dy @ w, dy.t() @ x)
 
 
-# Kernels 3, 2, 15, 5, 8, 9, 11 and 13 have no single PyTorch call of the
+# Kernels 3, 2, 15, 7, 17, 5, 8, 9, 11 and 13 have no single PyTorch call of the
 # same function: their yardstick is a composition of library calls, timed
 # beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
@@ -711,6 +752,8 @@ COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn
                "linear_bwd": _composition_linear_bwd,
                "block_attention": _composition_attention,
                "tiled_block_attention": _composition_attention,
+               "block_attention_tangent": _composition_attention_tangent,
+               "tiled_block_attention_tangent": _composition_attention_tangent,
                "matmul_modnorm_residual": _composition_mm_modnorm}
 
 
@@ -910,11 +953,11 @@ def phase_kernels() -> dict:
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
         linear_pt_equals_kernel_1(a, heads, d)
-        tiled_equals_kernel_2(a, heads, d)
+        tiled_equals_whole_grid(a, heads, d)
         if d == GEOMETRIES[0][1]:
             ffn_pt_equals_kernel_5(a)
             ffn_fwd_save_equals_kernel_5(a["x"], a["w1"], a["w2"], "flagship")
-            backward_gemms_deterministic(a)
+        kernels_deterministic(a, heads, d)
         int8_qkv(a, heads, d, record)
         del a
         torch.cuda.empty_cache()
@@ -954,7 +997,7 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def rates(name: str, args, fields: dict) -> None:
-    """Kernels 1, 14, 3, 5, 8, 9, 11, 13, 2 and 15 beside their bound and their
+    """Kernels 1, 14, 3, 5, 8, 9, 11, 13, 2, 15, 7 and 17 beside their bound and their
     yardstick (the library call of 1 and 14, the composition of library
     calls of the others): TFLOP/s, the share of the bound (bound time over kernel time) and
     the kernel's time over the yardstick's, from single calls
@@ -992,21 +1035,30 @@ def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
         raise AssertionError(f"kernel 14 differs from kernel 1 (x, dx): {same}")
 
 
-def tiled_equals_kernel_2(a: dict, heads: int, d: int) -> None:
-    """Kernel 15's invariant at the flagship shift: on qkv rolled by the
-    shift, its output rolled back equals kernel 2's at that shift bit for
-    bit (one body, one key order; the wrap taken by the roll instead of the
-    index math), so a wrongly gathered row or window shows at once."""
+def tiled_equals_whole_grid(a: dict, heads: int, d: int) -> None:
+    """The invariant of kernels 15 and 17 at the flagship shift: on qkv (and
+    dqkv) rolled by the shift, their outputs rolled back equal kernel 2's
+    and kernel 7's at that shift bit for bit (one body each, one key order,
+    one split of the keys across 17's cluster; the wrap taken by the roll
+    instead of the index math), so a wrongly gathered row or window shows
+    at once."""
     shift, win = SHIFTS[1], (16, 16)
-    qkv, scale = a["qkv"], a["scale"]
-    rolled = torch.roll(qkv, (-shift[0], -shift[1]), (1, 2))
-    got = torch.roll(fused_tiled_block_attention(rolled, scale, heads, win), shift, (1, 2))
-    same = torch.equal(got, fused_block_attention(qkv, scale, heads, win, shift))
-    torch.cuda.synchronize()
-    log(f"[kernels] tiled_block_attention heads={heads:2d} d={d:3d}: on qkv rolled by {shift} "
-        f"equal bit for bit to kernel 2 at that shift: {same}")
-    if not same:
-        raise AssertionError(f"kernel 15 differs from kernel 2 (heads {heads}, d {d})")
+    qkv, dqkv, scale = a["qkv"], a["dqkv"], a["scale"]
+    rolled, drolled = (torch.roll(t, (-shift[0], -shift[1]), (1, 2)) for t in (qkv, dqkv))
+    unroll = lambda t: torch.roll(t, shift, (1, 2))  # noqa: E731
+    for tiled, whole, got, want in (
+            ("tiled_block_attention", "kernel 2",
+             unroll(fused_tiled_block_attention(rolled, scale, heads, win)),
+             fused_block_attention(qkv, scale, heads, win, shift)),
+            ("tiled_block_attention_tangent", "kernel 7",
+             unroll(tiled_block_attention_tangent(rolled, drolled, scale, heads, win)),
+             block_attention_tangent(qkv, dqkv, scale, heads, win, shift))):
+        same = torch.equal(got, want)
+        torch.cuda.synchronize()
+        log(f"[kernels] {tiled} heads={heads:2d} d={d:3d}: on inputs rolled by {shift} equal "
+            f"bit for bit to {whole} at that shift: {same}")
+        if not same:
+            raise AssertionError(f"{tiled} differs from {whole} (heads {heads}, d {d})")
 
 
 def ffn_pt_equals_kernel_5(a: dict) -> None:
@@ -1041,17 +1093,26 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
                              f"{g.shape[-1]} for H = {H}, padded units 0 {zero}")
 
 
-def backward_gemms_deterministic(a: dict) -> None:
-    """Kernels 9 and 13's invariant at the flagship shape: two calls give
-    the same bits (the weight gradients' token splits are summed in a fixed
-    order, no float atomics), so a race in the ring or the split sums shows
-    at once."""
-    for name, args in (("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
-                       ("swiglu_ffn_bwd_saved",
-                        (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]))):
+def kernels_deterministic(a: dict, heads: int, d: int) -> None:
+    """The invariant of kernels 7 and 17 at both geometries, and of 9 and 13
+    at the flagship shape: two calls give the same bits (the tangent's
+    partial outputs are added across the cluster in one fp32 addition, the
+    weight gradients' token splits summed in a fixed order; no float
+    atomics), so a race in a ring, an exchange or the split sums shows at
+    once."""
+    win = (16, 16)
+    cases = [("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win, SHIFTS[1])),
+             ("tiled_block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win))]
+    if d == GEOMETRIES[0][1]:
+        cases += [("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
+                  ("swiglu_ffn_bwd_saved",
+                   (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]))]
+    for name, args in cases:
         fused = KERNELS[name][0]
-        same = all(torch.equal(p, q) for p, q in zip(fused(*args), fused(*args)))
-        log(f"[kernels] {name}: two calls equal bit for bit: {same}")
+        first, second = fused(*args), fused(*args)
+        pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
+        same = all(torch.equal(p, q) for p, q in pairs)
+        log(f"[kernels] {name} heads={heads:2d} d={d:3d}: two calls equal bit for bit: {same}")
         if not same:
             raise AssertionError(f"{name}: two calls on the same inputs differ")
 
@@ -1122,8 +1183,9 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
                              "linear_bwd")
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
-        if name in ("tiled_block_attention", "matmul_modnorm_residual", "linear_bwd"):
-            rates(name, args, fields)  # 15 on its main path's shape; 3 and 13 as times of record
+        if name in ("tiled_block_attention", "tiled_block_attention_tangent",
+                    "matmul_modnorm_residual", "linear_bwd"):
+            rates(name, args, fields)  # 15, 17 on their main path's shape; 3, 13 as times of record
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],

@@ -148,14 +148,15 @@ struct AttnFwd {
 };
 
 // The producer's cp.asyncs of ``rows`` rows starting at window row ``row0``,
-// feature column ``col`` of the head: chunk c of row r to box c / 8, row r,
-// 16-byte slot (c % 8) ^ (r % 8); chunks d/8 .. DP/8 zero-filled.
-template <int DP>
+// feature column ``col``, by THREADS threads (tid < THREADS): chunk c of row
+// r to box c / 8, row r, 16-byte slot (c % 8) ^ (r % 8); chunks d/8 .. DP/8
+// zero-filled.
+template <int DP, int THREADS = 128>
 __device__ __forceinline__ void fwd_load(unsigned char* tile, int box_bytes, int rows,
                                          const bf16* qkv, const size_t* row_off, int row0,
                                          int col, int chunks, int tid) {
   constexpr int SLOTS = AttnFwd<DP>::SLOTS;
-  for (int i = tid; i < rows * SLOTS; i += 128) {
+  for (int i = tid; i < rows * SLOTS; i += THREADS) {
     const int r = i / SLOTS, c = i % SLOTS;
     const bool live = c < chunks;
     cp_async16(tile + (c / 8) * box_bytes + r * 128 + (((c % 8) ^ (r % 8)) << 4),
@@ -1014,247 +1015,449 @@ int launch_tiled_attn_bwd(const void* qkv, const void* scale, const void* dout, 
 }
 
 // ---------------------------------------------------------------------------
-// Tangent -- replaces swift_tpu/ops/pallas_block_attention.py::_tangent_call
-// (kernel body _tangent_kernel): the forward-mode tangent of the attention
-// along dqkv, the logit scale fixed (the sCM jvp forward). Per (sample,
-// window, head): dq̂ = (dq − q̂ (q̂·dq)) / |q| and dk̂ likewise, dS = s dq̂·k̂ᵀ
-// + s q̂·dk̂ᵀ, dp = p (dS − Σ p dS) and dout = dp·v + p·dv, with q̂s, dq̂s,
-// k̂, dk̂, p and dp rounded to bf16 before the products that consume them (the
-// TPU kernel's rounding points) and fp32 sums.
+// Tangent, kernels 7 and 17 (swift_block_attention_tangent,
+// swift_tiled_attention_tangent) -- replaces swift_tpu/ops/
+// pallas_block_attention.py::_tangent_call and _tiled_tangent_call (kernel
+// body _tangent_kernel): the forward-mode tangent of the attention along
+// dqkv, the logit scale fixed (the sCM jvp forward). Per (sample, window,
+// head): q̂ = q/|q| and dq̂ = (dq − q̂ (q̂·dq))/|q|, k̂ and dk̂ likewise (fp32,
+// eps 1e-12), S = (q̂s)·k̂ᵀ, dS = (dq̂s)·k̂ᵀ + (q̂s)·dk̂ᵀ, p = softmax(S),
+// dp = p (dS − Σ p·dS) and dout = dp·v + p·dv, with q̂s, dq̂s, k̂, dk̂, p and
+// dp rounded to bf16 before the products that consume them (the TPU
+// kernel's rounding points) and every sum in fp32. Kernel 17 is the same
+// body on qkv and dqkv rolled by the shift (TILED, the wrap compiled out of
+// WindowIndex), in the same key order, so on rolled inputs it equals
+// kernel 7 bit for bit.
 //
-// What bounds it: on-chip capacity, as for the backward. All 256 keys of a
-// window fit one tile, so the softmax needs no online rescaling, but a block
-// holds the logits and dS of its query rows (two QB x 256 fp32 tiles), q̂s
-// and dq̂s of those rows and one 256-row buffer that takes k̂, dk̂, v and dv
-// in turn: kernel 6's budget, 208 KB at QB = 64 and d <= 96, QB = 32 at
-// d = 128. Against k̂ it forms the logits and s dq̂·k̂ᵀ, against dk̂ it adds
-// s q̂·dk̂ᵀ into dS, then p and dp are rounded to bf16 in place over their
-// fp32 rows, and the output fragments stay in registers while v is swapped
-// for dv (dp·v, then + p·dv). No partials: every output row is a query row
-// of this block.
+// What bounds it: the bytes, as for the forward -- five window products of
+// 256 x 256 x d on 6 x 256 x d bf16 read and 256 x d written, about 180
+// flops a byte at d = 88, under the ~295 where the tensor cores would set
+// the pace. Two budgets shape the design. Registers: a 64-row query block
+// against all 256 keys is an fp32 accumulator of 128 registers a thread;
+// S and dS together (256) pass the 255 a thread may have, and a block of
+// 384 threads caps a thread at 168. Shared memory: k̂, dk̂, v and dv of 256
+// keys in the forward's layout are 4 x 64 KB at DP = 128, over the 227 KB
+// a block may have.
+//
+// So a window-head is split over a cluster of two blocks: block r owns keys
+// [128 r, 128 r + 128) and keeps its halves of k̂, dk̂, v and dv resident
+// (4 x 32 KB at DP = 128); both blocks take all 256 query rows (the second
+// read of q and dq comes from L2). For a 64-row query block a consumer
+// holds S and dS over the block's keys as two m64n128 accumulators (64 + 64
+// registers), so p stays fp32 until it is rounded for its product. The
+// softmax statistics cross the cluster once, through distributed shared
+// memory: each block forms, per row and over its keys, the max m_r,
+// e = exp(S − m_r), l_r = Σ e and a_r = Σ e·dS, and sends (m_r, l_r, a_r)
+// to the peer. Then, with m = max(m_0, m_1) and c_r = exp(m_r − m), in rank
+// order so that both blocks hold the same bits: l = l_0 c_0 + l_1 c_1,
+// p = e c_r / l and Σ p·dS = (a_0 c_0 + a_1 c_1) / l, all fp32 (the TPU's
+// p = exp(S − m) / l and Σ p·dS up to fp32 rounding). p and dp become bf16
+// A fragments in registers, and the block's partial of dout over its keys
+// is 2 x 8 wgmma_m64nNk16_rs: dp·v, then p·dv, v and dv read MN-major as
+// the forward reads v. The partials are added across the cluster: block r
+// finishes columns [r DP/2, r DP/2 + DP/2), receives the peer's partial of
+// them in fp32 (into the query block's q̂s stage, whose products have
+// retired), and stores o_own + o_peer -- one fp32 addition, the same bits
+// whichever block makes it. No float atomics: two calls give the same bits.
+//
+// Warp specialisation, 384 threads a block, persistent clusters walking
+// window-heads with heads fastest (as the forward):
+//   warpgroup 0, the producer, gathers rows through WindowIndex with
+//     cp.async into the forward's swizzled 64-column boxes, its warps on
+//     their own: warp c loads q and dq of consumer c's query blocks into
+//     its stage, each once the previous block has left it; warps 2 and 3
+//     load k and dk once the previous window-head's last S and dS have
+//     retired, form k̂ and dk̂ in place in fp32 (the tangent of the normalise
+//     needs the k row and the dk row together; eight threads a row), then
+//     load v and dv once the last products with them have retired.
+//   warpgroups 1 and 2, the consumers: consumer c takes query blocks c and
+//     c + 2. For each it forms q̂s and dq̂s in place, S and dS by 3 DP/16
+//     m64n128k16 wgmmas, the statistics and their exchange, p and dp, its
+//     partial output, the output exchange, and stores its columns as the
+//     forward stores (bf16 staging rows, one bulk copy a row).
+// mbarriers: full and empty ones for k̂/dk̂, v/dv and the two stages (the
+// producer's 128 threads arrive on a full one once their copies have
+// landed; each consumer warp on an empty one once it is done with the
+// buffer), and one each of cluster scope for the statistics and the
+// output partial of each consumer (each of the peer's 128 threads arrives
+// with release semantics after its own stores into this block, which
+// needs no fence: 2% faster than a fence.acq_rel.cluster a writer and one
+// arrival a warp). Each exchange
+// buffer is written again only after the peer has passed the next
+// exchange, so after it has read the buffer. Shared memory at DP = 128:
+// the keys 128 KB, the stages 64 KB, the staging rows 18 KB, the row
+// tables, the exchange slots and barriers: 215 KB. A stage stays the
+// consumer's until the peer's partial has been read from it; handing it
+// back once S and dS have retired (the partial elsewhere, which does not
+// fit at DP = 128) gained 4% (scripts/probe_attention_tangent.py).
+// Registers (setmaxnreg): 80 a producer thread, 208 a consumer thread
+// (the 64,512 of a block launched at 168 a thread: a producer at 96 would
+// leave the consumers' increase waiting forever); ptxas holds the whole
+// kernel to the launch bound's 168 (28 bytes spilled at DP = 96 and 128).
+constexpr int kTanKeys = kWinTokens / 2;  // the keys a block of the cluster owns
 
-// dst = mul · (ds − â (â·ds)) / |a| for the row a = src, ds = dsrc (bf16,
-// zero-padded to DP): the tangent of mul · a / |a|. One warp per row.
 template <int DP>
-__device__ __forceinline__ void load_tangent_row(bf16* dst, const bf16* src, const bf16* dsrc,
-                                                 int d, float mul, int lane) {
-  float a[8], da[8];
-  const bool live = lane * 8 < d;
-  const uint4 ra = live ? *reinterpret_cast<const uint4*>(src + lane * 8) : make_uint4(0, 0, 0, 0);
-  const uint4 rd = live ? *reinterpret_cast<const uint4*>(dsrc + lane * 8) : make_uint4(0, 0, 0, 0);
-  const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ra);
-  const __nv_bfloat162* hd = reinterpret_cast<const __nv_bfloat162*>(&rd);
+struct AttnTan {
+  static constexpr int NBOX = AttnFwd<DP>::NBOX;     // the forward's boxes and chunks
+  static constexpr int SLOTS = AttnFwd<DP>::SLOTS;
+  static constexpr int Q_BOX = AttnFwd<DP>::Q_BOX;   // one box of 64 query rows
+  static constexpr int KEY_BOX = kTanKeys * 128;     // one box of the block's key rows
+  static constexpr int KEYS = NBOX * KEY_BOX;        // one of k̂, dk̂, v and dv
+  static constexpr int STAGE = 2 * NBOX * Q_BOX;     // a consumer's q̂s, then dq̂s
+  static constexpr int HALF = DP / 2;                // the output columns a block finishes
+  static constexpr int LDO = HALF + 8;               // bf16 stride of the staging rows
+  static constexpr int Q_OFF = 4 * KEYS;             // k̂, dk̂, v, dv at 0, 1, 2, 3 KEYS
+  static constexpr int O_OFF = Q_OFF + 2 * STAGE;    // two consumers' staging rows
+  static constexpr int X_OFF = O_OFF + 2 * kQB * LDO * 2;  // statistics slots [c][m, l, a][32]
+  static constexpr int ROW_OFF = X_OFF + 2 * 3 * 32 * 8;  // the producer's row offsets:
+  static constexpr int BAR_OFF = ROW_OFF + (2 * kQB + kTanKeys) * 8;  // two q blocks, the keys
+  enum {
+    KD_FULL, KD_EMPTY, VD_FULL, VD_EMPTY, Q_FULL, Q_EMPTY = Q_FULL + 2, STAT = Q_EMPTY + 2,
+    OUT = STAT + 2, N_BARS = OUT + 2
+  };
+  static constexpr int SMEM = 1024 + BAR_OFF + N_BARS * 8;  // with the alignment pad
+  static_assert(SMEM <= kMaxSmem, "the tangent's buffers do not fit");
+  // the peer's partial: DP / 8 float pairs for each of 128 threads
+  static_assert(128 * DP <= STAGE, "the peer's partial output does not fit a stage");
+};
+
+// a and its tangent da, ROWS rows of two swizzled tiles, in place:
+// â = a / |a| and dâ = (da − â (â·da)) / |a|, both times ``mul``, in fp32,
+// rounded to bf16 (the chunks past d written as zeros); eight of THREADS
+// threads a row (tid < THREADS), chunks sub and sub + 8.
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void tan_normalise(unsigned char* a, unsigned char* da, int box_bytes,
+                                              int chunks, float mul, int tid) {
+  constexpr int NBOX = AttnTan<DP>::NBOX, SLOTS = AttnTan<DP>::SLOTS;
+  const int sub = tid % 8;
+  for (int r = tid / 8; r < ROWS; r += THREADS / 8) {
+    const int at = r * 128 + ((sub ^ (r % 8)) << 4);
+    float x[NBOX][8], dx[NBOX][8];
+    float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fa = __bfloat1622float2(ha[i]), fd = __bfloat1622float2(hd[i]);
-    a[2 * i] = fa.x;
-    a[2 * i + 1] = fa.y;
-    da[2 * i] = fd.x;
-    da[2 * i + 1] = fd.y;
+    for (int j = 0; j < NBOX; ++j) {
+      uint4 ra = make_uint4(0u, 0u, 0u, 0u), rd = ra;
+      if (sub + 8 * j < chunks) {
+        ra = *reinterpret_cast<const uint4*>(a + j * box_bytes + at);
+        rd = *reinterpret_cast<const uint4*>(da + j * box_bytes + at);
+      }
+      const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ra);
+      const __nv_bfloat162* hd = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 fa = __bfloat1622float2(ha[i]), fd = __bfloat1622float2(hd[i]);
+        x[j][2 * i] = fa.x;
+        x[j][2 * i + 1] = fa.y;
+        dx[j][2 * i] = fd.x;
+        dx[j][2 * i + 1] = fd.y;
+        ss += fa.x * fa.x + fa.y * fa.y;
+      }
+    }
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+    const float inv = rsqrtf(ss + 1e-12f);
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < NBOX; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        x[j][i] *= inv;  // â
+        dot += x[j][i] * dx[j][i];
+      }
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+    dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+#pragma unroll
+    for (int j = 0; j < NBOX; ++j) {
+      if (sub + 8 * j >= SLOTS) continue;
+      float v[8], dv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        v[i] = x[j][i] * mul;
+        dv[i] = (dx[j][i] - x[j][i] * dot) * inv * mul;
+      }
+      *reinterpret_cast<uint4*>(a + j * box_bytes + at) = pack8(v);
+      *reinterpret_cast<uint4*>(da + j * box_bytes + at) = pack8(dv);
+    }
   }
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) ss += a[i] * a[i];
-  const float inv = rsqrtf(warp_sum(ss) + 1e-12f);
-  float dot = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    a[i] *= inv;  // â
-    dot += a[i] * da[i];
-  }
-  dot = warp_sum(dot);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) da[i] = (da[i] - a[i] * dot) * inv * mul;
-  if (lane * 8 < DP) *reinterpret_cast<uint4*>(dst + lane * 8) = pack8(da);
 }
 
-//
-// Kernel 17 (TILED) is the same body on pre-rolled qkv.
+// Block RANK's end of consumer c's query block qb: the peer's columns of
+// the partial output ``o`` into the peer's slots at ``xo`` (the query
+// block's stage there, [pair][thread]), the peer's partial of this block's
+// columns added in, the stage released to the producer, and this block's
+// columns rounded to bf16 into the staging rows and copied to the token
+// each query came from, one bulk copy a row by thread ``row`` (tid < 64).
+template <int DP, int RANK, bool TILED>
+__device__ __forceinline__ void tan_finish(float (&o)[DP / 2], float2* xo, bf16* rows,
+                                           uint64_t* bar, bf16* out,
+                                           const WindowIndex<TILED>& token, int qb, size_t ofeat,
+                                           int col, int ncols, int c, int j, int tid) {
+  using L = AttnTan<DP>;
+  constexpr int NJ = DP / 16;  // the 8-column groups a block finishes
+  constexpr int OWN = RANK * NJ, PEER = (1 - RANK) * NJ;
+  const int lane = tid % 32, r = tid / 32 * 16 + lane / 4;
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      st_cluster_f32x2(&xo[(2 * jj + hh) * 128 + tid], 1 - RANK, o[4 * (PEER + jj) + 2 * hh],
+                       o[4 * (PEER + jj) + 2 * hh + 1]);
+  mbar_arrive_cluster_release(&bar[L::OUT + c], 1 - RANK);
+  mbar_wait_cluster(&bar[L::OUT + c], j);
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 x = xo[(2 * jj + hh) * 128 + tid];
+      o[4 * (OWN + jj) + 2 * hh] += x.x;
+      o[4 * (OWN + jj) + 2 * hh + 1] += x.y;
+    }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&bar[L::Q_EMPTY + c]);  // the stage may take the next query block
+  if (tid < kQB) tma_store_wait_read<0>();  // the previous block's copies have read the rows
+  named_barrier_sync(1 + c, 128);
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(rows + (r + 8 * hh) * L::LDO + 8 * jj + 2 * (lane % 4)) =
+          pack_bf16x2(o[4 * (OWN + jj) + 2 * hh], o[4 * (OWN + jj) + 2 * hh + 1]);
+  fence_async_smem();
+  named_barrier_sync(1 + c, 128);
+  if (tid < kQB && ncols > 0) {
+    bulk_store(out + token(qb * kQB + tid) * ofeat + col, rows + tid * L::LDO, ncols * 2);
+    tma_store_commit();
+  }
+}
+
 template <int DP, bool TILED>
-__device__ __forceinline__ void attn_tangent(unsigned char* smem_raw,
-                                             const bf16* __restrict__ qkv,
-                                             const bf16* __restrict__ dqkv,
-                                             const float* __restrict__ scale,
-                                             bf16* __restrict__ dout, int gh, int gw, int heads,
-                                             int d, int wh, int ww, int sh, int sw) {
-  using C = AttnBwd<DP>;  // the same query block, strides and shared-memory budget
-  constexpr int QB = C::QB, LDQ = C::LDQ, PLD = C::PLD, NW = kAttnNT / 32, CT = DP / 16;
-  constexpr int NF = (QB / 16) * CT, MAXF = (NF + NW - 1) / NW;  // output fragments
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bf16(q̂ s)
-  bf16* dQs = Qs + QB * LDQ;                     // bf16(dq̂ s)
-  bf16* KVs = dQs + QB * LDQ;                    // k̂, then dk̂, then v, then dv
-  float* Ss = reinterpret_cast<float*>(KVs + kWinTokens * LDQ);  // logits -> p
-  float* dSs = Ss + QB * kSLD;                                    // dS -> dp -> dout
-  bf16* Ps = reinterpret_cast<bf16*>(Ss);
-  bf16* dPs = reinterpret_cast<bf16*>(dSs);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.z / heads, h = blockIdx.z % heads;
-  const int q0 = blockIdx.x * QB;
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    attn_tangent_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dqkv,
+                        const float* __restrict__ scale, bf16* __restrict__ out, int B, int gh,
+                        int gw, int heads, int d, int wh, int ww, int sh, int sw) {
+  using L = AttnTan<DP>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Ks = smem;  // k̂, dk̂, v and dv of the block's keys
+  unsigned char* dKs = smem + L::KEYS;
+  unsigned char* Vs = smem + 2 * L::KEYS;
+  unsigned char* dVs = smem + 3 * L::KEYS;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  const int rank = (int)cluster_rank(), peer = rank ^ 1;
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  const int nW = (gh / wh) * (gw / ww), items = B * nW * heads, chunks = d / 8;
   const size_t feat = (size_t)heads * 3 * d;
-  const WindowIndex<TILED> token(b, blockIdx.y, gh, gw, wh, ww, sh, sw);
-  const bf16* head = qkv + (size_t)h * 3 * d;
-  const bf16* dhead = dqkv + (size_t)h * 3 * d;
-  const float s = scale[h];
-
-  for (int r = warp; r < QB; r += NW) {
-    const size_t tk = token(q0 + r) * feat;
-    load_row<DP>(Qs + r * LDQ, head + tk, d, true, s, lane);
-    load_tangent_row<DP>(dQs + r * LDQ, head + tk, dhead + tk, d, s, lane);
+  if (threadIdx.x == 0) {
+    const int counts[L::N_BARS] = {64, 8, 64, 8, 32, 32, 4, 4, 128, 128, 128, 128};
+    for (int i = 0; i < L::N_BARS; ++i) mbar_init(&bar[i], counts[i]);
+    mbar_fence_init();
   }
-  for (int r = warp; r < kWinTokens; r += NW)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
-  __syncthreads();
+  cluster_sync();  // the peer's barriers exist before any arrival on them
 
-  // C[QB x 256] (fp32, stride kSLD) (+)= A[QB x DP] . KVs[256 x DP]^T
-  auto rows_x_window = [&](const bf16* A, float* Cm, bool accumulate) {
-    for (int f = warp; f < (QB / 16) * (kWinTokens / 16); f += NW) {
-      const int rt = f / (kWinTokens / 16), ct = f % (kWinTokens / 16);
-      float* cp = Cm + rt * 16 * kSLD + ct * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (accumulate)
-        wmma::load_matrix_sync(acc, cp, kSLD, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(a, A + rt * 16 * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(kb, KVs + ct * 16 * LDQ + kk, LDQ);
-        wmma::mma_sync(acc, a, kb, acc);
-      }
-      wmma::store_matrix_sync(cp, acc, kSLD, wmma::mem_row_major);
-    }
-  };
-  rows_x_window(Qs, Ss, false);   // logits = q̂s . k̂ᵀ
-  rows_x_window(dQs, dSs, false); // dS = dq̂s . k̂ᵀ
-  __syncthreads();
-  for (int r = warp; r < kWinTokens; r += NW) {
-    const size_t tk = token(r) * feat + d;
-    load_tangent_row<DP>(KVs + r * LDQ, head + tk, dhead + tk, d, 1.0f, lane);
-  }
-  __syncthreads();
-  rows_x_window(Qs, dSs, true);  // dS += q̂s . dk̂ᵀ
-  __syncthreads();
-
-  // one warp per query row: p and dp, rounded to bf16 in place over the
-  // fronts of their fp32 rows
-  for (int r = warp; r < QB; r += NW) {
-    float lg[kWinTokens / 32], ds[kWinTokens / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      lg[i] = Ss[r * kSLD + lane + 32 * i];
-      ds[i] = dSs[r * kSLD + lane + 32 * i];
-      m = fmaxf(m, lg[i]);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      lg[i] = expf(lg[i] - m);
-      l += lg[i];
-    }
-    l = warp_sum(l);
-    float pds = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      lg[i] = lg[i] / l;  // p
-      pds += lg[i] * ds[i];
-    }
-    pds = warp_sum(pds);
-    __syncwarp();  // every lane has read its row before any bf16 overwrites it
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      Ps[r * PLD + lane + 32 * i] = __float2bfloat16_rn(lg[i]);
-      dPs[r * PLD + lane + 32 * i] = __float2bfloat16_rn(lg[i] * (ds[i] - pds));
-    }
-  }
-  __syncthreads();  // p and dp are complete; dk̂ is done with
-
-  // dout [QB x DP] = dp . v + p . dv, fragment f = warp + i*NW held in acc[i]
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXF];
-  auto rows_x_values = [&](const bf16* A) {
-#pragma unroll
-    for (int i = 0; i < MAXF; ++i) {
-      const int f = warp + i * NW;
-      if (f >= NF) continue;
-      const int mt = f / CT, nt = f % CT;
-#pragma unroll 4
-      for (int kk = 0; kk < kWinTokens; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(a, A + mt * 16 * PLD + kk, PLD);
-        wmma::load_matrix_sync(vb, KVs + kk * LDQ + nt * 16, LDQ);
-        wmma::mma_sync(acc[i], a, vb, acc[i]);
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<80>();
+    const int pw = threadIdx.x / 32;
+    size_t* row_off = reinterpret_cast<size_t*>(smem + L::ROW_OFF);  // [q warp][64], [keys]
+    uint32_t it = 0;
+    for (int item = cluster; item < items; item += clusters, ++it) {
+      const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      const int head = h * 3 * d;
+      if (pw < 2) {  // warp c: q and dq of consumer c's query blocks c and c + 2
+        const int lane = threadIdx.x % 32;
+        size_t* rows = row_off + pw * kQB;
+        unsigned char* stage = smem + L::Q_OFF + pw * L::STAGE;
+        for (int j = 0; j < 2; ++j) {
+          const int q0 = (2 * j + pw) * kQB;
+          __syncwarp();  // every lane has issued the previous block's copies
+          for (int t = lane; t < kQB; t += 32) rows[t] = token(q0 + t) * feat;
+          __syncwarp();
+          mbar_wait(&bar[L::Q_EMPTY + pw], j ^ 1);
+          fwd_load<DP, 32>(stage, L::Q_BOX, kQB, qkv, rows, 0, head, chunks, lane);
+          fwd_load<DP, 32>(stage + L::NBOX * L::Q_BOX, L::Q_BOX, kQB, dqkv, rows, 0, head, chunks,
+                           lane);
+          cp_async_commit();
+          cp_async_wait<0>();
+          mbar_arrive(&bar[L::Q_FULL + pw]);  // raw: the consumer normalises its own
+        }
+      } else {  // warps 2 and 3: k, dk, v and dv of the block's keys
+        const int tid = threadIdx.x - 64;
+        size_t* rows = row_off + 2 * kQB;
+        named_barrier_sync(3, 64);  // both warps have issued the previous window-head's copies
+        for (int t = tid; t < kTanKeys; t += 64) rows[t] = token(rank * kTanKeys + t) * feat;
+        named_barrier_sync(3, 64);
+        // k and dk, normalised together once the previous window-head's last S
+        // and dS have retired
+        mbar_wait(&bar[L::KD_EMPTY], (it & 1) ^ 1);
+        fwd_load<DP, 64>(Ks, L::KEY_BOX, kTanKeys, qkv, rows, 0, head + d, chunks, tid);
+        fwd_load<DP, 64>(dKs, L::KEY_BOX, kTanKeys, dqkv, rows, 0, head + d, chunks, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        named_barrier_sync(3, 64);
+        tan_normalise<DP, kTanKeys, 64>(Ks, dKs, L::KEY_BOX, chunks, 1.0f, tid);
+        fence_async_smem();
+        mbar_arrive(&bar[L::KD_FULL]);
+        // v and dv, once the previous window-head's last products with them have retired
+        mbar_wait(&bar[L::VD_EMPTY], (it & 1) ^ 1);
+        fwd_load<DP, 64>(Vs, L::KEY_BOX, kTanKeys, qkv, rows, 0, head + 2 * d, chunks, tid);
+        fwd_load<DP, 64>(dVs, L::KEY_BOX, kTanKeys, dqkv, rows, 0, head + 2 * d, chunks, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_async_smem();
+        mbar_arrive(&bar[L::VD_FULL]);
       }
     }
-  };
+  } else {  // the consumers
+    setmaxnreg_inc<208>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    unsigned char* Qc = smem + L::Q_OFF + c * L::STAGE;  // q̂s, then dq̂s
+    unsigned char* dQc = Qc + L::NBOX * L::Q_BOX;
+    float2* xo = reinterpret_cast<float2*>(Qc);  // the peer's partial, once S and dS are done
+    float2* xs = reinterpret_cast<float2*>(smem + L::X_OFF) + c * 3 * 32;  // the peer's m, l, a
+    bf16* rows = reinterpret_cast<bf16*>(smem + L::O_OFF) + c * kQB * L::LDO;
+    const size_t ofeat = (size_t)heads * d;
+    const int col = rank * L::HALF;
+    const int ncols = d - col < 0 ? 0 : (d - col < L::HALF ? d - col : L::HALF);
+    const int slot = tid / 32 * 8 + lane / 4, q4 = lane % 4;  // the thread's rows: 2 slot, + 8
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[i]);
+    };
+    uint32_t it = 0;
+    for (int item = cluster; item < items; item += clusters, ++it) {
+      const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      const float scale_h = scale[h];
+#pragma unroll 1
+      for (int j = 0; j < 2; ++j) {
+        mbar_wait(&bar[L::Q_FULL + c], j);
+        tan_normalise<DP, kQB, 128>(Qc, dQc, L::Q_BOX, chunks, scale_h, tid);
+        fence_async_smem();
+        named_barrier_sync(1 + c, 128);
+        // S = q̂s·k̂ᵀ and dS = dq̂s·k̂ᵀ + q̂s·dk̂ᵀ over the block's keys
+        float s[64], ds[64];
+        mbar_wait(&bar[L::KD_FULL], it & 1);
+        wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < MAXF; ++i) wmma::fill_fragment(acc[i], 0.0f);
-  for (int r = warp; r < kWinTokens; r += NW)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + 2 * d, d, false, 1.0f, lane);
-  __syncthreads();
-  rows_x_values(dPs);  // dp . v
-  __syncthreads();
-  for (int r = warp; r < kWinTokens; r += NW)
-    load_row<DP>(KVs + r * LDQ, dhead + token(r) * feat + 2 * d, d, false, 1.0f, lane);
-  __syncthreads();
-  rows_x_values(Ps);  // + p . dv
-
-  // dp is read for the last time above the previous barrier: its buffer
-  // takes the fp32 output
-  constexpr int LDO = DP + 4;
-  float* Os = dSs;
+        for (int k = 0; k < DP / 16; ++k)
+          wgmma_m64nNk16<128>(s, wgmma_desc(Qc + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                              wgmma_desc(Ks + (k / 4) * L::KEY_BOX) + 2 * (k % 4), k > 0);
 #pragma unroll
-  for (int i = 0; i < MAXF; ++i) {
-    const int f = warp + i * NW;
-    if (f < NF)
-      wmma::store_matrix_sync(Os + (f / CT) * 16 * LDO + (f % CT) * 16, acc[i], LDO,
-                              wmma::mem_row_major);
+        for (int k = 0; k < DP / 16; ++k)
+          wgmma_m64nNk16<128>(ds, wgmma_desc(dQc + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                              wgmma_desc(Ks + (k / 4) * L::KEY_BOX) + 2 * (k % 4), k > 0);
+#pragma unroll
+        for (int k = 0; k < DP / 16; ++k)
+          wgmma_m64nNk16<128>(ds, wgmma_desc(Qc + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                              wgmma_desc(dKs + (k / 4) * L::KEY_BOX) + 2 * (k % 4), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(ds);
+        if (j == 1) release(L::KD_EMPTY);
+
+        // the rows' max, Σ e and Σ e·dS over the block's keys (row hh of the
+        // thread's two in s[4 j + 2 hh + e]), to the peer
+        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int hh = (i >> 1) & 1;
+          s[i] = exp2f((s[i] - m[hh]) * kLog2e);
+          l[hh] += s[i];
+          a[hh] += s[i] * ds[i];
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int x = 1; x < 4; x <<= 1) {
+            l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], x);
+            a[hh] += __shfl_xor_sync(0xffffffffu, a[hh], x);
+          }
+        if (q4 < 3) {  // lanes 0, 1, 2 of a quad send m, l, a of its two rows
+          st_cluster_f32x2(&xs[q4 * 32 + slot], peer, q4 == 0 ? m[0] : q4 == 1 ? l[0] : a[0],
+                           q4 == 0 ? m[1] : q4 == 1 ? l[1] : a[1]);
+        }
+        mbar_arrive_cluster_release(&bar[L::STAT + c], peer);
+        mbar_wait_cluster(&bar[L::STAT + c], j);
+        const float2 pm = xs[slot], pl = xs[32 + slot], pa = xs[64 + slot];
+        float f[2], pds[2];  // p = e f, and Σ p·dS
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mp = hh ? pm.y : pm.x, lp = hh ? pl.y : pl.x, ap = hh ? pa.y : pa.x;
+          // rank order: the same statistics in both blocks
+          const float m0 = rank ? mp : m[hh], m1 = rank ? m[hh] : mp;
+          const float l0 = rank ? lp : l[hh], l1 = rank ? l[hh] : lp;
+          const float a0 = rank ? ap : a[hh], a1 = rank ? a[hh] : ap;
+          const float mx = fmaxf(m0, m1);
+          const float c0 = exp2f((m0 - mx) * kLog2e), c1 = exp2f((m1 - mx) * kLog2e);
+          const float inv_l = 1.0f / (l0 * c0 + l1 * c1);
+          pds[hh] = (a0 * c0 + a1 * c1) * inv_l;
+          f[hh] = (rank ? c1 : c0) * inv_l;
+        }
+        // p and dp rounded to bf16 as the A fragments of the 8 k16 slices
+        uint32_t p[8][4], dp[8][4];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = 8 * k + 2 * q, hh = q & 1;
+            const float p0 = s[i] * f[hh], p1 = s[i + 1] * f[hh];
+            p[k][q] = pack_bf16x2(p0, p1);
+            dp[k][q] = pack_bf16x2(p0 * (ds[i] - pds[hh]), p1 * (ds[i + 1] - pds[hh]));
+          }
+        // the block's partial of dout = dp·v + p·dv
+        float o[DP / 2];
+        mbar_wait(&bar[L::VD_FULL], it & 1);
+        wgmma_fence();
+        const uint64_t vd = wgmma_desc_mn(Vs, L::KEY_BOX), dvd = wgmma_desc_mn(dVs, L::KEY_BOX);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) wgmma_m64nNk16_rs<DP>(o, dp[k], vd + 128 * k, k > 0);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) wgmma_m64nNk16_rs<DP>(o, p[k], dvd + 128 * k, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (j == 1) release(L::VD_EMPTY);
+        if (rank == 0)
+          tan_finish<DP, 0, TILED>(o, xo, rows, bar, out, token, 2 * j + c, ofeat, h * d + col,
+                                   ncols, c, j, tid);
+        else
+          tan_finish<DP, 1, TILED>(o, xo, rows, bar, out, token, 2 * j + c, ofeat, h * d + col,
+                                   ncols, c, j, tid);
+      }
+    }
+    if (tid < kQB) tma_store_wait_all();  // the rows stay until the last copies have read them
   }
-  __syncthreads();
-  const size_t ofeat = (size_t)heads * d;
-  for (int r = warp; r < QB; r += NW) {
-    if (lane * 8 < d)
-      *reinterpret_cast<uint4*>(dout + token(q0 + r) * ofeat + (size_t)h * d + lane * 8) =
-          pack8(Os + r * LDO + lane * 8);
-  }
+  __syncwarp();
+  cluster_sync();  // no block leaves while its peer may still write into it
 }
 
-// kernel 7: the shifted whole-grid tangent
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    block_attn_tangent_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dqkv,
-                              const float* __restrict__ scale, bf16* __restrict__ dout, int gh,
-                              int gw, int heads, int d, int wh, int ww, int sh, int sw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  attn_tangent<DP, false>(smem_raw, qkv, dqkv, scale, dout, gh, gw, heads, d, wh, ww, sh, sw);
-}
+// Kernels 7 (shifted, wrapping) and 17 (TILED, on pre-rolled qkv and dqkv):
+// one launch in clusters of two, as many clusters as the card holds at once
+// (at most one a window-head), through launch_clusters, which sets the
+// shared-memory attribute and asks the occupancy once a device and
+// instantiation.
+static int attn_tangent_resident[8][64];
 
-// kernel 17: the window-tiled tangent on pre-rolled qkv (sh, sw unused)
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    tiled_attn_tangent_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dqkv,
-                              const float* __restrict__ scale, bf16* __restrict__ dout, int gh,
-                              int gw, int heads, int d, int wh, int ww, int, int) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  attn_tangent<DP, true>(smem_raw, qkv, dqkv, scale, dout, gh, gw, heads, d, wh, ww, 0, 0);
-}
-
-template <int DP>
-int launch_block_attn_tangent(bool tiled, const void* qkv, const void* dqkv, const void* scale,
-                              void* dout, int B, int gh, int gw, int heads, int d, int wh,
-                              int ww, int sh, int sw, cudaStream_t st) {
-  using C = AttnBwd<DP>;
-  auto kern = tiled ? tiled_attn_tangent_kernel<DP> : block_attn_tangent_kernel<DP>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  dim3 grid(C::NQB, (gh / wh) * (gw / ww), B * heads);
-  kern<<<grid, kAttnNT, C::SMEM, st>>>((const bf16*)qkv, (const bf16*)dqkv,
-                                       (const float*)scale, (bf16*)dout, gh, gw, heads, d, wh,
-                                       ww, sh, sw);
-  return (int)cudaGetLastError();
+template <int DP, bool TILED>
+int launch_attn_tangent(const void* qkv, const void* dqkv, const void* scale, void* dout, int B,
+                        int gh, int gw, int heads, int d, int wh, int ww, int sh, int sw,
+                        cudaStream_t stream) {
+  const int items = B * heads * (gh / wh) * (gw / ww);
+  return launch_clusters(attn_tangent_kernel<DP, TILED>,
+                         attn_tangent_resident[(DP / 32 - 1) * 2 + TILED], AttnTan<DP>::SMEM,
+                         items, 2, stream, (const bf16*)qkv, (const bf16*)dqkv,
+                         (const float*)scale, (bf16*)dout, B, gh, gw, heads, d, wh, ww, sh, sw);
 }
 
 }  // namespace swift
@@ -1336,8 +1539,8 @@ extern "C" int swift_block_attention_tangent(const void* qkv, const void* dqkv,
   const int dp = (d + 31) / 32 * 32;
   cudaStream_t st = (cudaStream_t)stream;
 #define SWIFT_TAN(DP)                                                                          \
-  return swift::launch_block_attn_tangent<DP>(false, qkv, dqkv, scale, dout, B, gh, gw, heads, \
-                                              d, wh, ww, sh, sw, st)
+  return swift::launch_attn_tangent<DP, false>(qkv, dqkv, scale, dout, B, gh, gw, heads, d, wh, \
+                                               ww, sh, sw, st)
   switch (dp) {
     case 32: SWIFT_TAN(32);
     case 64: SWIFT_TAN(64);
@@ -1378,8 +1581,8 @@ extern "C" int swift_tiled_attention_tangent(const void* qkv, const void* dqkv, 
   const int dp = (d + 31) / 32 * 32;
   cudaStream_t st = (cudaStream_t)stream;
 #define SWIFT_TAN(DP)                                                                          \
-  return swift::launch_block_attn_tangent<DP>(true, qkv, dqkv, scale, dout, B, gh, gw, heads,  \
-                                              d, wh, ww, 0, 0, st)
+  return swift::launch_attn_tangent<DP, true>(qkv, dqkv, scale, dout, B, gh, gw, heads, d, wh, \
+                                              ww, 0, 0, st)
   switch (dp) {
     case 32: SWIFT_TAN(32);
     case 64: SWIFT_TAN(64);

@@ -194,6 +194,26 @@ def test_block_attention_tangent_plain_matches_pallas(heads, d, shift):
     _close(got, want)
 
 
+@pytest.mark.parametrize("d", [88, 128], ids=["d88", "d128"])
+def test_block_attention_tangent_plain_matches_pallas_at_kernel_windows(d):
+    """The plain version of kernels 7 and 17 at the CUDA kernels' geometry:
+    16x16 windows (256 keys, the softmax the kernels split across a
+    cluster's two blocks), on a 16x32 grid of two windows with a shift of
+    (8, 8) that wraps on both axes, against jax.jvp of the JAX wrapper, whose
+    tangent kernel runs interpreted."""
+    rng = np.random.default_rng(39 + d)
+    heads = 2
+    qkv = _rand(rng, (2, 16, 32, heads * 3 * d))
+    dqkv = _rand(rng, (2, 16, 32, heads * 3 * d))
+    scale = np.exp(_rand(rng, (heads,), 0.3) + np.log(10.0))  # around the logit scale's init
+    fn = lambda a: pba.fused_block_attention(a, jnp.asarray(scale), heads, (16, 16), (8, 8),  # noqa: E731
+                                             jvp=True)
+    _, want = jax.jvp(fn, (jnp.asarray(qkv),), (jnp.asarray(dqkv),))
+    got = block_attention.reference_block_attention_tangent(_t(qkv), _t(dqkv), _t(scale), heads,
+                                                            (16, 16), (8, 8))
+    _close(got, want)
+
+
 # -- plain versions against torch.func.jvp of the plain forwards ---------------
 
 def test_tangent_plain_versions_match_torch_func_jvp():

@@ -774,6 +774,100 @@ def test_attention_forward_kernels_take_zero_rows(d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 24, 40, 88, 96, 128])
+def test_attention_tangent_kernels_match_plain_on_card(d):
+    """Kernel 7 at the shift and kernel 17 on qkv and dqkv rolled by it
+    against the plain version in bf16 on the card, within 2e-2 of
+    max|plain|, over ``FORWARD_WINDOWS`` at B = 1 and 3 (a cluster's two
+    blocks split each window's keys; at d ≤ 16 the second block finishes
+    no column); each call twice, equal bit for bit, and 17's output rolled
+    back equal to 7's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(170 + d))
+    heads = 3
+    for window, grid, shift in FORWARD_WINDOWS:
+        for B in (1, 3):
+            qkv, dqkv = t((B, *grid, heads * 3 * d)), t((B, *grid, heads * 3 * d))
+            scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+            rolled, drolled = (torch.roll(a, (-shift[0], -shift[1]), (1, 2)) for a in (qkv, dqkv))
+            cases = [
+                (block_attention.block_attention_tangent, (qkv, dqkv, scale, heads, window, shift)),
+                (block_attention.tiled_block_attention_tangent,
+                 (rolled, drolled, scale, heads, window)),
+            ]
+            outs = []
+            for fused, args in cases:
+                got = fused(*args)
+                want = block_attention.reference_block_attention_tangent(*args)
+                again = fused(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tag = (fused.__name__, window, grid, shift, B, err)
+                assert torch.isfinite(got).all(), tag
+                assert err <= 2e-2 * want.float().abs().max().item(), tag
+                assert torch.equal(got, again), tag
+                outs.append(got)
+            assert torch.equal(torch.roll(outs[1], shift, (1, 2)), outs[0]), (window, grid, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [88, 128])
+def test_attention_tangent_kernels_take_zero_rows(d):
+    """A q row and a k row of zeros, with zero tangents, normalise to zeros
+    through the eps of the L2 norm (|x|² + 1e-12), and so do their tangents,
+    in kernels 7 and 17 as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(180 + d))
+    heads, window, shift = 2, (16, 16), (8, 8)
+    qkv, dqkv = t((2, 32, 64, heads * 3 * d)), t((2, 32, 64, heads * 3 * d))
+    for a in (qkv, dqkv):
+        a[0, 3, 5, d * 3:d * 4] = 0  # head 1's q at one token
+        a[1, 20, 60, d:2 * d] = 0  # head 0's k at another
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    rolled, drolled = (torch.roll(a, (-shift[0], -shift[1]), (1, 2)) for a in (qkv, dqkv))
+    for fused, args in ((block_attention.block_attention_tangent,
+                         (qkv, dqkv, scale, heads, window, shift)),
+                        (block_attention.tiled_block_attention_tangent,
+                         (rolled, drolled, scale, heads, window))):
+        got, want = fused(*args), block_attention.reference_block_attention_tangent(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), (
+            fused.__name__, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,grid,heads,d,shift", [
+    (2, (64, 128), 12, 88, (8, 8)), (2, (64, 128), 8, 128, (8, 8)),
+    (1, (368, 720), 8, 128, (8, 8))], ids=["flagship_12x88", "flagship_8x128", "quarter"])
+def test_attention_tangent_kernels_walk_many_window_heads(B, grid, heads, d, shift):
+    """Kernels 7 and 17 at the main paths' shapes, where each cluster walks
+    several window-heads (about 12 at the flagship, 125 at 0.25°), so that a
+    buffer or an exchange slot reused too early shows: within 2e-2 of
+    max|plain|, two calls equal bit for bit, and 17 on rolled inputs equal
+    to 7 bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(190 + d))
+    win = (16, 16)
+    qkv, dqkv = t((B, *grid, heads * 3 * d)), t((B, *grid, heads * 3 * d))
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    rolled, drolled = (torch.roll(a, (-shift[0], -shift[1]), (1, 2)) for a in (qkv, dqkv))
+    args = (rolled, drolled, scale, heads, win)
+    want = block_attention.reference_block_attention_tangent(*args)
+    got = block_attention.tiled_block_attention_tangent(*args)
+    again = block_attention.tiled_block_attention_tangent(*args)
+    whole = block_attention.block_attention_tangent(qkv, dqkv, scale, heads, win, shift)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), err
+    assert torch.equal(got, again)
+    assert torch.equal(torch.roll(got, shift, (1, 2)), whole)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,grid,heads,d,shift", [
     (2, (64, 128), 12, 88, (8, 8)), (2, (64, 128), 8, 128, (8, 8)),
     (1, (368, 720), 8, 128, (8, 8))], ids=["flagship_12x88", "flagship_8x128", "quarter"])
