@@ -162,6 +162,7 @@ from swift_torch.eval import metrics
 from swift_torch.generate import read_store, rollout_to_store
 from swift_torch.ops import _build, quant
 from swift_torch.ops.block_attention import (
+    attention_bwd_scratch_bytes,
     attention_route,
     block_attention_bwd,
     block_attention_tangent,
@@ -172,7 +173,6 @@ from swift_torch.ops.block_attention import (
     reference_block_attention_tangent,
     tiled_block_attention_bwd,
     tiled_block_attention_tangent,
-    tiled_bwd_scratch_bytes,
 )
 from swift_torch.ops.ffn import (
     bwd_recompute_scratch_bytes,
@@ -705,6 +705,18 @@ def _composition_attention_tangent(qkv, dqkv, scale, heads, window_size, shift=(
     return run
 
 
+def _composition_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
+    """``torch.autograd.grad`` of :func:`_composition_attention` (the roll,
+    window partition and head split, the fp32 normalise of q and k rounded
+    to bf16, SDPA -- its flash backward on the card -- and the inverse) for
+    qkv and the logit scale along dout, the forward recorded once outside
+    the timing: kernels 6 and 16 as a user would write them in PyTorch."""
+    leaves = [qkv.detach().requires_grad_(), scale.detach().requires_grad_()]
+    with torch.enable_grad():
+        out = _composition_attention(*leaves, heads, window_size, shift)()
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
 def _composition_mm_modnorm(x, w, r, g, b, msc, msh):
     """``F.linear`` (cuBLAS, y rounded to bf16 where kernel 3 keeps it in
     fp32), ``F.layer_norm`` in fp32 with g and b, the AdaLN ·(1 + msc) +
@@ -743,7 +755,7 @@ def _composition_linear_bwd(dy, x, w):
     return lambda: (dy @ w, dy.t() @ x)
 
 
-# Kernels 3, 2, 15, 7, 17, 5, 8, 9, 11 and 13 have no single PyTorch call of the
+# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 11 and 13 have no single PyTorch call of the
 # same function: their yardstick is a composition of library calls, timed
 # beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
@@ -752,6 +764,8 @@ COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn
                "linear_bwd": _composition_linear_bwd,
                "block_attention": _composition_attention,
                "tiled_block_attention": _composition_attention,
+               "block_attention_bwd": _composition_attention_bwd,
+               "tiled_block_attention_bwd": _composition_attention_bwd,
                "block_attention_tangent": _composition_attention_tangent,
                "tiled_block_attention_tangent": _composition_attention_tangent,
                "matmul_modnorm_residual": _composition_mm_modnorm}
@@ -952,6 +966,10 @@ def phase_kernels() -> dict:
                                         flagship_plain_ms=fields["plain_ms"])
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
+            if name == "block_attention_bwd" and flagship:
+                check_scratch(record, name, args,
+                              attention_bwd_scratch_bytes(2, *GRID, heads, d, win),
+                              _nbytes([a["qkv"]]), "the qkv it differentiates", "the flagship")
         linear_pt_equals_kernel_1(a, heads, d)
         tiled_equals_whole_grid(a, heads, d)
         if d == GEOMETRIES[0][1]:
@@ -997,7 +1015,7 @@ def queued_ms(fn, reps: int = 20) -> float:
 
 
 def rates(name: str, args, fields: dict) -> None:
-    """Kernels 1, 14, 3, 5, 8, 9, 11, 13, 2, 15, 7 and 17 beside their bound and their
+    """Kernels 1, 14, 3, 5, 8, 9, 11, 13, 2, 15, 6, 16, 7 and 17 beside their bound and their
     yardstick (the library call of 1 and 14, the composition of library
     calls of the others): TFLOP/s, the share of the bound (bound time over kernel time) and
     the kernel's time over the yardstick's, from single calls
@@ -1036,24 +1054,29 @@ def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
 
 
 def tiled_equals_whole_grid(a: dict, heads: int, d: int) -> None:
-    """The invariant of kernels 15 and 17 at the flagship shift: on qkv (and
-    dqkv) rolled by the shift, their outputs rolled back equal kernel 2's
-    and kernel 7's at that shift bit for bit (one body each, one key order,
-    one split of the keys across 17's cluster; the wrap taken by the roll
-    instead of the index math), so a wrongly gathered row or window shows
-    at once."""
+    """The invariant of kernels 15, 16 and 17 at the flagship shift: on qkv
+    (and dqkv, dout) rolled by the shift, their outputs rolled back equal
+    kernel 2's, 6's and 7's at that shift bit for bit (one body each, one
+    key and query order, one split of the keys across 16's and 17's
+    clusters; the wrap taken by the roll instead of the index math), so a
+    wrongly gathered row or window shows at once."""
     shift, win = SHIFTS[1], (16, 16)
-    qkv, dqkv, scale = a["qkv"], a["dqkv"], a["scale"]
-    rolled, drolled = (torch.roll(t, (-shift[0], -shift[1]), (1, 2)) for t in (qkv, dqkv))
+    qkv, dqkv, dout, scale = a["qkv"], a["dqkv"], a["attn"], a["scale"]
+    rolled, drolled, orolled = (torch.roll(t, (-shift[0], -shift[1]), (1, 2))
+                                for t in (qkv, dqkv, dout))
     unroll = lambda t: torch.roll(t, shift, (1, 2))  # noqa: E731
+    tiled_bwd = tiled_block_attention_bwd(rolled, scale, orolled, heads, win)
     for tiled, whole, got, want in (
             ("tiled_block_attention", "kernel 2",
-             unroll(fused_tiled_block_attention(rolled, scale, heads, win)),
-             fused_block_attention(qkv, scale, heads, win, shift)),
+             (unroll(fused_tiled_block_attention(rolled, scale, heads, win)),),
+             (fused_block_attention(qkv, scale, heads, win, shift),)),
+            ("tiled_block_attention_bwd", "kernel 6",
+             (unroll(tiled_bwd[0]), tiled_bwd[1]),
+             block_attention_bwd(qkv, scale, dout, heads, win, shift)),
             ("tiled_block_attention_tangent", "kernel 7",
-             unroll(tiled_block_attention_tangent(rolled, drolled, scale, heads, win)),
-             block_attention_tangent(qkv, dqkv, scale, heads, win, shift))):
-        same = torch.equal(got, want)
+             (unroll(tiled_block_attention_tangent(rolled, drolled, scale, heads, win)),),
+             (block_attention_tangent(qkv, dqkv, scale, heads, win, shift),))):
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
         torch.cuda.synchronize()
         log(f"[kernels] {tiled} heads={heads:2d} d={d:3d}: on inputs rolled by {shift} equal "
             f"bit for bit to {whole} at that shift: {same}")
@@ -1094,14 +1117,16 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
 
 
 def kernels_deterministic(a: dict, heads: int, d: int) -> None:
-    """The invariant of kernels 7 and 17 at both geometries, and of 9 and 13
-    at the flagship shape: two calls give the same bits (the tangent's
-    partial outputs are added across the cluster in one fp32 addition, the
-    weight gradients' token splits summed in a fixed order; no float
-    atomics), so a race in a ring, an exchange or the split sums shows at
-    once."""
+    """The invariant of kernels 6, 16, 7 and 17 at both geometries, and of 9
+    and 13 at the flagship shape: two calls give the same bits (the partial
+    dq̂ of 6 and 16 and the tangent's partial outputs are added across the
+    cluster in one fp32 addition, the scale's partials and the weight
+    gradients' token splits summed in a fixed order; no float atomics), so
+    a race in a ring, an exchange or the split sums shows at once."""
     win = (16, 16)
-    cases = [("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win, SHIFTS[1])),
+    cases = [("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win, SHIFTS[1])),
+             ("tiled_block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win)),
+             ("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win, SHIFTS[1])),
              ("tiled_block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win))]
     if d == GEOMETRIES[0][1]:
         cases += [("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
@@ -1139,6 +1164,27 @@ def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
         record["matmul_modnorm_residual_int8"]["weight_quant_ms"] = wo_w_ms
 
 
+def check_scratch(record: dict, name: str, args, computed: int, limit: float, what: str,
+                  tag: str) -> None:
+    """A kernel's scratch: computed from the shapes, and read as the peak
+    device memory of one call above its inputs and outputs; raises above
+    ``limit`` bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = KERNELS[name][0](*args)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base - _nbytes(
+        out if isinstance(out, tuple) else (out,))
+    del out
+    record[name].update(scratch_bytes=computed, scratch_read_bytes=measured)
+    log(f"[kernels] {name} scratch at {tag}: {computed / 1e9:.4f} GB from the shapes, "
+        f"{measured / 1e9:.4f} GB read as peak device memory above inputs and outputs "
+        f"(limit {limit / 1e9:.2f} GB, {what})")
+    if max(computed, measured) > limit:
+        raise AssertionError(f"{name}: scratch {max(computed, measured)} > {limit} bytes")
+
+
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     """Kernels 3, 5, 10, 11, 13, 15-17, 18 and 19 at the 0.25° shapes (B =
     1, 368x720 tokens, 8x128 heads, the 264,960-token FFN and qkv
@@ -1173,7 +1219,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
          + epilogue),
     ]
     scratch = {
-        "tiled_block_attention_bwd": (tiled_bwd_scratch_bytes(1, gh, gw, heads, d, (16, 16)),
+        "tiled_block_attention_bwd": (attention_bwd_scratch_bytes(1, gh, gw, heads, d, (16, 16)),
                                       _nbytes([qkv]), "the qkv it differentiates"),
         "swiglu_ffn": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=False), 1e9, "1 GB"),
         "swiglu_ffn_pt": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=True), 1e9, "1 GB"),
@@ -1183,9 +1229,9 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
                              "linear_bwd")
     for name, args in cases:
         fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
-        if name in ("tiled_block_attention", "tiled_block_attention_tangent",
-                    "matmul_modnorm_residual", "linear_bwd"):
-            rates(name, args, fields)  # 15, 17 on their main path's shape; 3, 13 as times of record
+        if name in ("tiled_block_attention", "tiled_block_attention_bwd",
+                    "tiled_block_attention_tangent", "matmul_modnorm_residual", "linear_bwd"):
+            rates(name, args, fields)  # 15-17 on their main path's shape; 3, 13 as times of record
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
@@ -1198,21 +1244,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         else:
             _merge(record, name, fields, True)
         if name in scratch:
-            computed, limit, what = scratch[name]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            out = KERNELS[name][0](*args)
-            torch.cuda.synchronize()
-            measured = torch.cuda.max_memory_allocated() - base - _nbytes(
-                out if isinstance(out, tuple) else (out,))
-            del out
-            record[name].update(scratch_bytes=computed, scratch_read_bytes=measured)
-            log(f"[kernels] {name} scratch at 0.25°: {computed / 1e9:.4f} GB from the shapes, "
-                f"{measured / 1e9:.4f} GB read as peak device memory above inputs and outputs "
-                f"(limit {limit / 1e9:.2f} GB, {what})")
-            if max(computed, measured) > limit:
-                raise AssertionError(f"{name}: scratch {max(computed, measured)} > {limit} bytes")
+            check_scratch(record, name, args, *scratch[name], "0.25°")
     del cases, qkv, x, dx, w1, w2, qkv_w, epilogue
     torch.cuda.empty_cache()
 

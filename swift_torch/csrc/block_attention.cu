@@ -28,16 +28,15 @@
 // (0.25 degrees: 368 x 720 tokens). Their qkv is rolled before the call, so
 // a window is an aligned block of rows and columns: the same bodies run
 // with the wrap arithmetic compiled out (TILED), in the same key order, so
-// kernel 15 on rolled qkv equals kernel 2 bit for bit. Kernel 16 replaces
-// kernel 6's per-query-block fp32 dk/dv partials, which at 0.25 degrees
-// would be 17.4 GB a layer, by a second pass over key blocks (see below).
+// kernel 15 on rolled qkv equals kernel 2 bit for bit, 16 equals 6 and 17
+// equals 7. The backward (6, 16) is a query pass and a key pass (see
+// below).
 #include "tile_mma.cuh"
 #include "wgmma.cuh"
 
 namespace swift {
 
-constexpr int kWinTokens = 256, kQB = 64, kAttnNT = 256;
-constexpr int kSLD = kWinTokens + 4;  // fp32 logit row stride
+constexpr int kWinTokens = 256, kQB = 64;
 
 // Device-memory token of row t of window w of sample b: the window starts
 // at (wi*wh + sh, wj*ww + sw) and wraps around the grid (the shifted
@@ -58,37 +57,6 @@ struct WindowIndex {
     return ((size_t)b * gh + row) * gw + col;
   }
 };
-
-// Row t of the window as bf16 in smem (zero-padded to DP), optionally
-// L2-normalised and multiplied by ``mul``. One warp per row.
-template <int DP>
-__device__ __forceinline__ void load_row(bf16* dst, const bf16* src, int d, bool normalise,
-                                         float mul, int lane) {
-  float v[8];
-  const bool live = lane * 8 < d;
-  if (live) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + lane * 8);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = 0.0f;
-  }
-  if (normalise) {
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ss += v[i] * v[i];
-    const float inv = rsqrtf(warp_sum(ss) + 1e-12f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = v[i] * inv * mul;
-  }
-  if (lane * 8 < DP) *reinterpret_cast<uint4*>(dst + lane * 8) = pack8(v);
-}
 
 // ---------------------------------------------------------------------------
 // The forward of kernels 2 and 15 on wgmma.
@@ -150,30 +118,32 @@ struct AttnFwd {
 // The producer's cp.asyncs of ``rows`` rows starting at window row ``row0``,
 // feature column ``col``, by THREADS threads (tid < THREADS): chunk c of row
 // r to box c / 8, row r, 16-byte slot (c % 8) ^ (r % 8); chunks d/8 .. DP/8
-// zero-filled.
+// zero-filled. Row r starts at row_off[row0 + r] * stride elements.
 template <int DP, int THREADS = 128>
 __device__ __forceinline__ void fwd_load(unsigned char* tile, int box_bytes, int rows,
                                          const bf16* qkv, const size_t* row_off, int row0,
-                                         int col, int chunks, int tid) {
+                                         int col, int chunks, int tid, size_t stride = 1) {
   constexpr int SLOTS = AttnFwd<DP>::SLOTS;
   for (int i = tid; i < rows * SLOTS; i += THREADS) {
     const int r = i / SLOTS, c = i % SLOTS;
     const bool live = c < chunks;
     cp_async16(tile + (c / 8) * box_bytes + r * 128 + (((c % 8) ^ (r % 8)) << 4),
-               live ? qkv + row_off[row0 + r] + col + c * 8 : qkv, live);
+               live ? qkv + row_off[row0 + r] * stride + col + c * 8 : qkv, live);
   }
 }
 
 // L2-normalise ``rows`` rows of a swizzled tile in place in fp32, multiply
 // by ``mul`` where SCALED (q by the logit scale) and round to bf16 (the
-// chunks past d written as zeros): eight of a warpgroup's threads a row,
-// chunks sub and sub + 8.
-template <int DP, bool SCALED>
+// chunks past d written as zeros): eight of THREADS threads a row (tid <
+// THREADS), chunks sub and sub + 8. Row r's 1/|row| goes to inv[r] where
+// ``inv`` is given.
+template <int DP, bool SCALED, int THREADS = 128>
 __device__ __forceinline__ void fwd_normalise(unsigned char* tile, int box_bytes, int rows,
-                                              int chunks, float mul, int tid) {
+                                              int chunks, float mul, int tid,
+                                              float* inv_out = nullptr) {
   constexpr int NBOX = AttnFwd<DP>::NBOX, SLOTS = AttnFwd<DP>::SLOTS;
   const int sub = tid % 8;
-  for (int r = tid / 8; r < rows; r += 16) {
+  for (int r = tid / 8; r < rows; r += THREADS / 8) {
     uint4 raw[NBOX];
     float ss = 0.f;
 #pragma unroll
@@ -193,6 +163,7 @@ __device__ __forceinline__ void fwd_normalise(unsigned char* tile, int box_bytes
     ss += __shfl_xor_sync(0xffffffffu, ss, 2);
     ss += __shfl_xor_sync(0xffffffffu, ss, 4);
     const float inv = rsqrtf(ss + 1e-12f);
+    if (inv_out != nullptr && sub == 0) inv_out[r] = inv;
 #pragma unroll
     for (int j = 0; j < NBOX; ++j) {
       if (sub + 8 * j >= SLOTS) continue;
@@ -427,590 +398,6 @@ int launch_attn_fwd(const void* qkv, const void* scale, void* out, int B, int gh
   attn_fwd_kernel<DP, TILED><<<items < n_sm ? items : n_sm, kFwdThreads, AttnFwd<DP>::SMEM,
                                stream>>>((const bf16*)qkv, (const float*)scale, (bf16*)out, B, gh,
                                          gw, heads, d, wh, ww, sh, sw);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Backward -- replaces swift_tpu/ops/pallas_block_attention.py::_bwd_call
-// (kernel body _bwd_kernel). Per (sample, window, head) it recomputes the
-// softmax and forms, at the TPU kernel's rounding points (q̂·s, k̂, p and dS
-// rounded to bf16 before the products that consume them, fp32 sums):
-//   dv = pᵀ·do, dp = do·vᵀ, dS = p (dp − Σ p dp), dq̂ = s dS·k̂, dk̂ = dSᵀ·(q̂ s),
-//   dq = (dq̂ − q̂ (q̂·dq̂)) / |q|, dk likewise, and Σ dS·logits / s for the
-//   logit scale -- written into dqkv in the [q|k|v] interleave, at the same
-//   shifted coordinates the forward reads.
-//
-// What bounds it: like the forward, on-chip capacity. A block holds the
-// logits and dp of its query rows (two QB x 256 fp32 tiles), q̂s and do of
-// those rows and one 256-row key (then value, then key) buffer: 208 KB at
-// QB = 64 and d <= 96, so d = 128 takes QB = 32. dk and dv sum over all
-// 256 query rows of a window, which no block holds at once, so each block
-// writes fp32 partials of dk̂ and dv for the whole window, and a second
-// kernel sums the 256/QB partials in a fixed order, applies the k̂
-// normalisation backward and writes dk and dv. The scale partials are
-// summed, also in a fixed order, by a third, one-block kernel. No atomics.
-template <int DP>
-struct AttnBwd {
-  static constexpr int QB = DP <= 96 ? 64 : 32;
-  static constexpr int NQB = kWinTokens / QB;
-  static constexpr int LDQ = DP + 8;
-  static constexpr int PLD = 2 * kSLD;  // bf16 stride of p / dS written over fp32 rows
-  static constexpr int SMEM = (2 * QB + kWinTokens) * LDQ * 2 + 2 * QB * kSLD * 4;
-};
-
-//
-// Kernel 16 (TILED) runs the same query pass but writes no dk̂/dv partials:
-// it keeps each query row's softmax statistics (max m, sum l and
-// D = Σ p·dp, 12 bytes a row) for the key pass below.
-template <int DP, bool TILED>
-__device__ __forceinline__ void attn_bwd_q(unsigned char* smem_raw, const bf16* __restrict__ qkv,
-                                           const float* __restrict__ scale,
-                                           const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                                           float* __restrict__ part_k, float* __restrict__ part_v,
-                                           float* __restrict__ part_s, float* __restrict__ stats,
-                                           int gh, int gw, int heads, int d, int wh, int ww,
-                                           int sh, int sw) {
-  using C = AttnBwd<DP>;
-  constexpr int QB = C::QB, LDQ = C::LDQ, PLD = C::PLD, NW = kAttnNT / 32, CT = DP / 16;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // bf16(q̂ s)
-  bf16* dOs = Qs + QB * LDQ;                     // do
-  bf16* KVs = dOs + QB * LDQ;                    // k̂, then v, then k̂ again
-  float* Ss = reinterpret_cast<float*>(KVs + kWinTokens * LDQ);  // logits -> p -> dq̂
-  float* dPs = Ss + QB * kSLD;                                    // dp -> dS
-  bf16* Ps = reinterpret_cast<bf16*>(Ss);
-  bf16* dSs = reinterpret_cast<bf16*>(dPs);
-  __shared__ float red[NW];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bz = blockIdx.z, b = bz / heads, h = bz % heads;
-  const int nW = gridDim.y, w = blockIdx.y, qb = blockIdx.x;
-  const int q0 = qb * QB;
-  const size_t feat = (size_t)heads * 3 * d, ofeat = (size_t)heads * d;
-  const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
-  const bf16* head = qkv + (size_t)h * 3 * d;
-  const float s = scale[h];
-
-  for (int r = warp; r < QB; r += NW) {
-    load_row<DP>(Qs + r * LDQ, head + token(q0 + r) * feat, d, true, s, lane);
-    load_row<DP>(dOs + r * LDQ, dout + token(q0 + r) * ofeat + (size_t)h * d, d, false, 1.0f,
-                 lane);
-  }
-  for (int r = warp; r < kWinTokens; r += NW)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
-  __syncthreads();
-
-  // C[QB x 256] (fp32, stride kSLD) = A[QB x DP] . B[256 x DP]^T
-  auto rows_x_window = [&](const bf16* A, float* Cm) {
-    for (int f = warp; f < (QB / 16) * (kWinTokens / 16); f += NW) {
-      const int rt = f / (kWinTokens / 16), ct = f % (kWinTokens / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(a, A + rt * 16 * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(kb, KVs + ct * 16 * LDQ + kk, LDQ);
-        wmma::mma_sync(acc, a, kb, acc);
-      }
-      wmma::store_matrix_sync(Cm + rt * 16 * kSLD + ct * 16, acc, kSLD, wmma::mem_row_major);
-    }
-  };
-  rows_x_window(Qs, Ss);  // logits
-  __syncthreads();
-  for (int r = warp; r < kWinTokens; r += NW)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + 2 * d, d, false, 1.0f, lane);
-  __syncthreads();
-  rows_x_window(dOs, dPs);  // dp = do . vᵀ
-  __syncthreads();
-
-  // one warp per query row: p, dS, and Σ dS·logits; p and dS are rounded to
-  // bf16 in place over the fronts of their fp32 rows
-  float dsum = 0.f;
-  for (int r = warp; r < QB; r += NW) {
-    float lg[kWinTokens / 32], dp[kWinTokens / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      lg[i] = Ss[r * kSLD + lane + 32 * i];
-      dp[i] = dPs[r * kSLD + lane + 32 * i];
-      m = fmaxf(m, lg[i]);
-    }
-    m = warp_max(m);
-    float e[kWinTokens / 32], l = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      e[i] = expf(lg[i] - m);
-      l += e[i];
-    }
-    l = warp_sum(l);
-    float pdp = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      e[i] = e[i] / l;  // p
-      pdp += e[i] * dp[i];
-    }
-    pdp = warp_sum(pdp);
-    if (TILED && lane == 0) {  // this row's softmax statistics, for the key pass
-      float* st = stats + ((size_t)bz * nW + w) * 3 * kWinTokens + q0 + r;
-      st[0] = m;
-      st[kWinTokens] = l;
-      st[2 * kWinTokens] = pdp;
-    }
-    __syncwarp();  // every lane has read its row before any bf16 overwrites it
-#pragma unroll
-    for (int i = 0; i < kWinTokens / 32; ++i) {
-      const float dS = e[i] * (dp[i] - pdp);
-      dsum += dS * lg[i];
-      Ps[r * PLD + lane + 32 * i] = __float2bfloat16_rn(e[i]);
-      dSs[r * PLD + lane + 32 * i] = __float2bfloat16_rn(dS);
-    }
-  }
-  dsum = warp_sum(dsum);
-  if (lane == 0) red[warp] = dsum;
-  __syncthreads();  // p, dS and the scale partials are complete; v is done with
-
-  // the k̂ buffer comes back for dq̂, beside the two window-wide products
-  for (int r = warp; r < kWinTokens; r += NW)
-    load_row<DP>(KVs + r * LDQ, head + token(r) * feat + d, d, true, 1.0f, lane);
-  // dv partial = pᵀ . do and dk̂ partial = dSᵀ . (q̂ s), both [256 x DP] fp32,
-  // stored straight to this block's slot of the workspace
-  const size_t slot = (((size_t)bz * nW + w) * C::NQB + qb) * kWinTokens * DP;
-  for (int f = warp; f < (TILED ? 0 : 2 * (kWinTokens / 16) * CT); f += NW) {
-    const int which = f / ((kWinTokens / 16) * CT), g = f % ((kWinTokens / 16) * CT);
-    const int mt = g / CT, nt = g % CT;
-    const bf16* At = which ? dSs : Ps;
-    const bf16* Bt = which ? Qs : dOs;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < QB; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
-      wmma::load_matrix_sync(a, At + kk * PLD + mt * 16, PLD);
-      wmma::load_matrix_sync(bb, Bt + kk * LDQ + nt * 16, LDQ);
-      wmma::mma_sync(acc, a, bb, acc);
-    }
-    float* dst = (which ? part_k : part_v) + slot + (size_t)mt * 16 * DP + nt * 16;
-    wmma::store_matrix_sync(dst, acc, DP, wmma::mem_row_major);
-  }
-  if (threadIdx.x == 0) {
-    float tot = 0.f;
-    for (int i = 0; i < NW; ++i) tot += red[i];
-    part_s[((size_t)bz * nW + w) * C::NQB + qb] = tot;
-  }
-  __syncthreads();  // k̂ is back; p is read for the last time
-
-  // dq̂ [QB x DP] = dS . k̂, into the logit buffer (fp32, stride DP + 4)
-  constexpr int LDO = DP + 4;
-  for (int f = warp; f < (QB / 16) * CT; f += NW) {
-    const int mt = f / CT, nt = f % CT;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll 4
-    for (int kk = 0; kk < kWinTokens; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
-      wmma::load_matrix_sync(a, dSs + mt * 16 * PLD + kk, PLD);
-      wmma::load_matrix_sync(bb, KVs + kk * LDQ + nt * 16, LDQ);
-      wmma::mma_sync(acc, a, bb, acc);
-    }
-    wmma::store_matrix_sync(Ss + mt * 16 * LDO + nt * 16, acc, LDO, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // dq = (s dq̂ − q̂ (q̂ · s dq̂)) / |q| from the raw q row, 8 features a lane
-  for (int r = warp; r < QB; r += NW) {
-    const size_t tk = token(q0 + r);
-    float q[8], g[8];
-    const bool live = lane * 8 < d;
-    float ss = 0.f;
-    if (live) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(head + tk * feat + lane * 8);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f2 = __bfloat1622float2(h2[i]);
-        q[2 * i] = f2.x;
-        q[2 * i + 1] = f2.y;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) q[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ss += q[i] * q[i];
-    const float rq = rsqrtf(warp_sum(ss) + 1e-12f);
-    float dot = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      q[i] *= rq;                                             // q̂
-      g[i] = live ? Ss[r * LDO + lane * 8 + i] * s : 0.f;     // dq̂ s
-      dot += g[i] * q[i];
-    }
-    dot = warp_sum(dot);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) g[i] = (g[i] - q[i] * dot) * rq;
-    if (live)
-      *reinterpret_cast<uint4*>(dqkv + tk * feat + (size_t)h * 3 * d + lane * 8) = pack8(g);
-  }
-}
-
-// kernel 6's query pass (shifted whole grid, dk̂/dv partials)
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    block_attn_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
-                          const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                          float* __restrict__ part_k, float* __restrict__ part_v,
-                          float* __restrict__ part_s, float* __restrict__ stats, int gh, int gw,
-                          int heads, int d, int wh, int ww, int sh, int sw) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  attn_bwd_q<DP, false>(smem_raw, qkv, scale, dout, dqkv, part_k, part_v, part_s, stats, gh, gw,
-                        heads, d, wh, ww, sh, sw);
-}
-
-// kernel 16's query pass (pre-rolled qkv, row statistics)
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    tiled_attn_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
-                          const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                          float* __restrict__ part_k, float* __restrict__ part_v,
-                          float* __restrict__ part_s, float* __restrict__ stats, int gh, int gw,
-                          int heads, int d, int wh, int ww, int, int) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  attn_bwd_q<DP, true>(smem_raw, qkv, scale, dout, dqkv, part_k, part_v, part_s, stats, gh, gw,
-                       heads, d, wh, ww, 0, 0);
-}
-
-// Per (sample, window, head): dk̂ and dv summed over the query-block partials
-// in order, dk = (dk̂ − k̂ (k̂·dk̂)) / |k|, both written into dqkv.
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    block_attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ part_k,
-                             const float* __restrict__ part_v, bf16* __restrict__ dqkv, int gh,
-                             int gw, int heads, int d, int wh, int ww, int sh, int sw) {
-  constexpr int NQB = AttnBwd<DP>::NQB, NW = kAttnNT / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bz = blockIdx.y, b = bz / heads, h = bz % heads, w = blockIdx.x;
-  const int wi = w / (gw / ww), wj = w % (gw / ww);
-  const int i0 = wi * wh + sh, j0 = wj * ww + sw;
-  const size_t feat = (size_t)heads * 3 * d;
-  const size_t base = ((size_t)bz * gridDim.x + w) * NQB * kWinTokens * DP;
-  const size_t pstride = (size_t)kWinTokens * DP;
-  const bool live = lane * 8 < d;
-  for (int t = warp; t < kWinTokens; t += NW) {
-    const int row = (i0 + t / ww) % gh, col = (j0 + t % ww) % gw;
-    const size_t tk = ((size_t)b * gh + row) * gw + col;
-    bf16* dst = dqkv + tk * feat + (size_t)h * 3 * d;
-    float k[8], dk[8], dv[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) k[i] = dk[i] = dv[i] = 0.f;
-    if (live) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(qkv + tk * feat + (size_t)h * 3 * d + d +
-                                                        lane * 8);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f2 = __bfloat1622float2(h2[i]);
-        k[2 * i] = f2.x;
-        k[2 * i + 1] = f2.y;
-      }
-      for (int p = 0; p < NQB; ++p) {
-        const float* pk = part_k + base + p * pstride + (size_t)t * DP + lane * 8;
-        const float* pv = part_v + base + p * pstride + (size_t)t * DP + lane * 8;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          dk[i] += pk[i];
-          dv[i] += pv[i];
-        }
-      }
-    }
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ss += k[i] * k[i];
-    const float rk = rsqrtf(warp_sum(ss) + 1e-12f);
-    float dot = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      k[i] *= rk;  // k̂
-      dot += dk[i] * k[i];
-    }
-    dot = warp_sum(dot);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dk[i] = (dk[i] - k[i] * dot) * rk;
-    if (live) {
-      *reinterpret_cast<uint4*>(dst + d + lane * 8) = pack8(dk);
-      *reinterpret_cast<uint4*>(dst + 2 * d + lane * 8) = pack8(dv);
-    }
-  }
-}
-
-// dscale[h] = Σ over samples, windows and query blocks (in that order) of
-// the Σ dS·logits partials, / scale[h].
-__global__ void block_attn_dscale_kernel(const float* __restrict__ part_s,
-                                         const float* __restrict__ scale, float* __restrict__ ds,
-                                         int B, int heads, int per_head) {
-  const int h = threadIdx.x;
-  if (h >= heads) return;
-  float tot = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const float* p = part_s + ((size_t)b * heads + h) * per_head;
-    for (int i = 0; i < per_head; ++i) tot += p[i];
-  }
-  ds[h] = tot / scale[h];
-}
-
-template <int DP>
-int launch_block_attn_bwd(const void* qkv, const void* scale, const void* dout, void* dqkv,
-                          void* dscale, void* part_k, void* part_v, void* part_s, int B, int gh,
-                          int gw, int heads, int d, int wh, int ww, int sh, int sw,
-                          cudaStream_t st) {
-  using C = AttnBwd<DP>;
-  cudaFuncSetAttribute(block_attn_bwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::SMEM);
-  const int nW = (gh / wh) * (gw / ww);
-  dim3 grid(C::NQB, nW, B * heads);
-  block_attn_bwd_kernel<DP><<<grid, kAttnNT, C::SMEM, st>>>(
-      (const bf16*)qkv, (const float*)scale, (const bf16*)dout, (bf16*)dqkv, (float*)part_k,
-      (float*)part_v, (float*)part_s, nullptr, gh, gw, heads, d, wh, ww, sh, sw);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  block_attn_bwd_kv_kernel<DP><<<dim3(nW, B * heads), kAttnNT, 0, st>>>(
-      (const bf16*)qkv, (const float*)part_k, (const float*)part_v, (bf16*)dqkv, gh, gw, heads,
-      d, wh, ww, sh, sw);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  block_attn_dscale_kernel<<<1, 1024, 0, st>>>((const float*)part_s, (const float*)scale,
-                                               (float*)dscale, B, heads, nW * C::NQB);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 16's key pass -- with the query pass above, replaces
-// swift_tpu/ops/pallas_block_attention.py::_tiled_bwd_call (kernel body
-// _tiled_bwd_kernel).
-//
-// The TPU kernel holds a whole window's 256 x 256 fp32 logits (256 KB) in
-// VMEM and writes dqkv straight out. A Hopper block may hold 227 KB, so no
-// block holds the window, and kernel 6's way around that (each query block
-// writes fp32 dk̂/dv partials for the whole window) costs 2 x 256 x d x 4
-// bytes per window, head and query block: 17.4 GB a layer at 0.25 degrees,
-// ten times the qkv it differentiates. Here, as in FlashAttention-2's
-// backward, dk̂ and dv are summed by the block that owns the keys: one
-// block per (sample, window, head, 64 key rows) walks the window's 256
-// query rows 64 at a time, recomputes their logits against its keys and
-// their dp = do·vᵀ, rebuilds p = exp(logit − m) / l and dS = p (dp − D)
-// from the statistics the query pass kept (the same fp32 values that pass
-// formed, so p and dS are bit for bit kernel 6's), and accumulates
-// dv += pᵀ·do and dk̂ += dSᵀ·(q̂ s) in registers. Scratch is the 12-byte
-// statistics of each query row (25 MB a layer at 0.25 degrees) and one
-// scale partial per query block; every sum runs in a fixed order, so the
-// result is the same bits run to run. The logits and dp are formed twice
-// (7 window products against the TPU kernel's 5); the kernel is bound by
-// on-chip capacity and latency long before the tensor cores.
-constexpr int kKB = 64, kQC = 64;  // key rows a block owns, query rows a step
-
-template <int DP>
-struct TiledKV {
-  static constexpr int LDQ = DP + 8;
-  static constexpr int SLD = kKB + 4;  // fp32 stride of a step's logits and dp
-  static constexpr int PLD = 2 * SLD;  // bf16 stride of p and dS written over them
-  static constexpr int LDO = DP + 4;   // fp32 stride of the output rows
-  static constexpr int SMEM = (2 * kKB + 2 * kQC) * LDQ * 2 + 2 * kQC * SLD * 4;
-  static_assert(kKB * LDO <= 2 * kQC * SLD, "the output rows fit the two logit tiles");
-};
-
-template <int DP>
-__global__ void __launch_bounds__(kAttnNT)
-    tiled_attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
-                             const bf16* __restrict__ dout, const float* __restrict__ stats,
-                             bf16* __restrict__ dqkv, int gh, int gw, int heads, int d, int wh,
-                             int ww) {
-  using C = TiledKV<DP>;
-  constexpr int LDQ = C::LDQ, SLD = C::SLD, PLD = C::PLD, LDO = C::LDO, NW = kAttnNT / 32;
-  constexpr int CT = DP / 16, NF = (kKB / 16) * CT, MAXF = (NF + NW - 1) / NW;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // k̂ of this block's keys
-  bf16* Vs = Ks + kKB * LDQ;                     // v of this block's keys
-  bf16* Qs = Vs + kKB * LDQ;                     // bf16(q̂ s) of the step's queries
-  bf16* dOs = Qs + kQC * LDQ;                    // do of the step's queries
-  float* Ss = reinterpret_cast<float*>(dOs + kQC * LDQ);  // logits -> p
-  float* dPs = Ss + kQC * SLD;                            // dp -> dS
-  bf16* Ps = reinterpret_cast<bf16*>(Ss);
-  bf16* dSs = reinterpret_cast<bf16*>(dPs);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bz = blockIdx.z, b = bz / heads, h = bz % heads, w = blockIdx.y;
-  const int k0 = blockIdx.x * kKB;
-  const size_t feat = (size_t)heads * 3 * d, ofeat = (size_t)heads * d;
-  const WindowIndex<true> token(b, w, gh, gw, wh, ww, 0, 0);
-  const bf16* head = qkv + (size_t)h * 3 * d;
-  const float s = scale[h];
-  const float* st = stats + ((size_t)bz * gridDim.y + w) * 3 * kWinTokens;
-
-  for (int r = warp; r < kKB; r += NW) {
-    const size_t tk = token(k0 + r) * feat;
-    load_row<DP>(Ks + r * LDQ, head + tk + d, d, true, 1.0f, lane);
-    load_row<DP>(Vs + r * LDQ, head + tk + 2 * d, d, false, 1.0f, lane);
-  }
-
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  Acc dv[MAXF], dk[MAXF];  // fragment f = warp + i*NW of the [kKB x DP] sums
-#pragma unroll
-  for (int i = 0; i < MAXF; ++i) {
-    wmma::fill_fragment(dv[i], 0.0f);
-    wmma::fill_fragment(dk[i], 0.0f);
-  }
-  // Cm[kQC x kKB] (fp32, stride SLD) = A[kQC x DP] . Bm[kKB x DP]^T
-  auto step_x_keys = [&](const bf16* A, const bf16* Bm, float* Cm) {
-    for (int f = warp; f < (kQC / 16) * (kKB / 16); f += NW) {
-      const int rt = f / (kKB / 16), ct = f % (kKB / 16);
-      Acc acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(a, A + rt * 16 * LDQ + kk, LDQ);
-        wmma::load_matrix_sync(kb, Bm + ct * 16 * LDQ + kk, LDQ);
-        wmma::mma_sync(acc, a, kb, acc);
-      }
-      wmma::store_matrix_sync(Cm + rt * 16 * SLD + ct * 16, acc, SLD, wmma::mem_row_major);
-    }
-  };
-  // acc += A^T[kKB x kQC] . Bm[kQC x DP], A given as kQC bf16 rows (stride PLD)
-  auto keys_x_step = [&](Acc(&acc)[MAXF], const bf16* A, const bf16* Bm) {
-#pragma unroll
-    for (int i = 0; i < MAXF; ++i) {
-      const int f = warp + i * NW;
-      if (f >= NF) continue;
-      const int mt = f / CT, nt = f % CT;
-#pragma unroll
-      for (int kk = 0; kk < kQC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
-        wmma::load_matrix_sync(a, A + kk * PLD + mt * 16, PLD);
-        wmma::load_matrix_sync(bb, Bm + kk * LDQ + nt * 16, LDQ);
-        wmma::mma_sync(acc[i], a, bb, acc[i]);
-      }
-    }
-  };
-
-  for (int c0 = 0; c0 < kWinTokens; c0 += kQC) {
-    for (int r = warp; r < kQC; r += NW) {
-      const size_t tq = token(c0 + r);
-      load_row<DP>(Qs + r * LDQ, head + tq * feat, d, true, s, lane);
-      load_row<DP>(dOs + r * LDQ, dout + tq * ofeat + (size_t)h * d, d, false, 1.0f, lane);
-    }
-    __syncthreads();
-    step_x_keys(Qs, Ks, Ss);    // logits
-    step_x_keys(dOs, Vs, dPs);  // dp = do . vᵀ
-    __syncthreads();
-    // one warp per query row: p and dS, rounded to bf16 in place over the
-    // fronts of their fp32 rows
-    for (int r = warp; r < kQC; r += NW) {
-      const float m = st[c0 + r], l = st[kWinTokens + c0 + r], D = st[2 * kWinTokens + c0 + r];
-      float p[kKB / 32], dS[kKB / 32];
-#pragma unroll
-      for (int i = 0; i < kKB / 32; ++i) {
-        p[i] = expf(Ss[r * SLD + lane + 32 * i] - m) / l;
-        dS[i] = p[i] * (dPs[r * SLD + lane + 32 * i] - D);
-      }
-      __syncwarp();  // every lane has read its row before any bf16 overwrites it
-#pragma unroll
-      for (int i = 0; i < kKB / 32; ++i) {
-        Ps[r * PLD + lane + 32 * i] = __float2bfloat16_rn(p[i]);
-        dSs[r * PLD + lane + 32 * i] = __float2bfloat16_rn(dS[i]);
-      }
-    }
-    __syncthreads();
-    keys_x_step(dv, Ps, dOs);  // dv += pᵀ . do
-    keys_x_step(dk, dSs, Qs);  // dk̂ += dSᵀ . (q̂ s)
-    __syncthreads();           // the next step overwrites the queries, p and dS
-  }
-
-  // dv, then dk̂, through the logit tiles as fp32 rows
-  float* Os = Ss;
-#pragma unroll
-  for (int i = 0; i < MAXF; ++i) {
-    const int f = warp + i * NW;
-    if (f < NF)
-      wmma::store_matrix_sync(Os + (f / CT) * 16 * LDO + (f % CT) * 16, dv[i], LDO,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-  const bool live = lane * 8 < d;
-  for (int r = warp; r < kKB; r += NW)
-    if (live)
-      *reinterpret_cast<uint4*>(dqkv + token(k0 + r) * feat + (size_t)h * 3 * d + 2 * d +
-                                lane * 8) = pack8(Os + r * LDO + lane * 8);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < MAXF; ++i) {
-    const int f = warp + i * NW;
-    if (f < NF)
-      wmma::store_matrix_sync(Os + (f / CT) * 16 * LDO + (f % CT) * 16, dk[i], LDO,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-  // dk = (dk̂ − k̂ (k̂·dk̂)) / |k| from the raw k row, 8 features a lane
-  for (int r = warp; r < kKB; r += NW) {
-    const size_t tk = token(k0 + r) * feat + (size_t)h * 3 * d + d;
-    float k[8], g[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) k[i] = g[i] = 0.f;
-    if (live) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(qkv + tk + lane * 8);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f2 = __bfloat1622float2(h2[i]);
-        k[2 * i] = f2.x;
-        k[2 * i + 1] = f2.y;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) g[i] = Os[r * LDO + lane * 8 + i];
-    }
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ss += k[i] * k[i];
-    const float rk = rsqrtf(warp_sum(ss) + 1e-12f);
-    float dot = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      k[i] *= rk;  // k̂
-      dot += g[i] * k[i];
-    }
-    dot = warp_sum(dot);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) g[i] = (g[i] - k[i] * dot) * rk;
-    if (live) *reinterpret_cast<uint4*>(dqkv + tk + lane * 8) = pack8(g);
-  }
-}
-
-template <int DP>
-int launch_tiled_attn_bwd(const void* qkv, const void* scale, const void* dout, void* dqkv,
-                          void* dscale, void* stats, void* part_s, int B, int gh, int gw,
-                          int heads, int d, int wh, int ww, cudaStream_t st) {
-  using C = AttnBwd<DP>;
-  const int nW = (gh / wh) * (gw / ww);
-  cudaFuncSetAttribute(tiled_attn_bwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::SMEM);
-  tiled_attn_bwd_kernel<DP><<<dim3(C::NQB, nW, B * heads), kAttnNT, C::SMEM, st>>>(
-      (const bf16*)qkv, (const float*)scale, (const bf16*)dout, (bf16*)dqkv, nullptr, nullptr,
-      (float*)part_s, (float*)stats, gh, gw, heads, d, wh, ww, 0, 0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncSetAttribute(tiled_attn_bwd_kv_kernel<DP>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, TiledKV<DP>::SMEM);
-  tiled_attn_bwd_kv_kernel<DP><<<dim3(kWinTokens / kKB, nW, B * heads), kAttnNT,
-                                 TiledKV<DP>::SMEM, st>>>(
-      (const bf16*)qkv, (const float*)scale, (const bf16*)dout, (const float*)stats,
-      (bf16*)dqkv, gh, gw, heads, d, wh, ww);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  block_attn_dscale_kernel<<<1, 1024, 0, st>>>((const float*)part_s, (const float*)scale,
-                                               (float*)dscale, B, heads, nW * C::NQB);
   return (int)cudaGetLastError();
 }
 
@@ -1460,6 +847,800 @@ int launch_attn_tangent(const void* qkv, const void* dqkv, const void* scale, vo
                          (const float*)scale, (bf16*)dout, B, gh, gw, heads, d, wh, ww, sh, sw);
 }
 
+// ---------------------------------------------------------------------------
+// Backward, kernels 6 and 16 (swift_block_attention_bwd,
+// swift_tiled_attention_bwd) -- replaces swift_tpu/ops/
+// pallas_block_attention.py::_bwd_call and _tiled_bwd_call (kernel bodies
+// _bwd_kernel and _tiled_bwd_kernel). Per (sample, window, head): q̂ = q/|q|,
+// k̂ = k/|k| (fp32, eps 1e-12), S = (q̂s)·k̂ᵀ, p = softmax(S), dv = pᵀ·do,
+// dp = do·vᵀ, dS = p (dp − Σ p·dp), dq̂ = dS·k̂, dk̂ = dSᵀ·(q̂s), then
+// dq = (s dq̂ − q̂ (q̂·s dq̂)) / |q| and dk = (dk̂ − k̂ (k̂·dk̂)) / |k| from the
+// fp32 q̂, k̂ and norms, dv as is, written into dqkv in the [q|k|v]
+// interleave at the coordinates the forward reads, and Σ dS·S / s for the
+// logit scale -- with q̂s, k̂, p, dS and do rounded to bf16 before the
+// products that consume them (the TPU kernel's rounding points) and every
+// sum in fp32. Kernel 16 is the same bodies on qkv and dout rolled by the
+// shift (TILED, the wrap compiled out of WindowIndex), in the same key and
+// query order, so on rolled inputs it equals kernel 6 bit for bit.
+//
+// What bounds it: the bytes, as for the forward -- five window products of
+// 256 x 256 x d on 4 x 256 x d bf16 read and 3 x 256 x d written, about 150
+// flops a byte at d = 88. What shapes the design is that the two sums of the
+// backward run along different axes: dq̂ sums over a query row's 256 keys,
+// dk̂ and dv over a key's 256 queries, and no block holds a window's 256 x
+// 256 logits. So two passes, with no partial of dk̂ or dv in device memory
+// and no float atomics (two calls give the same bits):
+//
+// The query pass (attn_bwd_q_kernel): a block keeps k̂ and v of all of a
+// window's 256 keys (2 x 64 KB at DP = 128; the tangent's four such
+// tensors needed a cluster of two, these two fit one block), and its two
+// consumers split the keys, consumer c owning [128 c, 128 c + 128). For
+// each 64-row query block both hold S and dp over their keys as two
+// m64n128 accumulators, exchange each row's max, Σ e and Σ e·dp (e =
+// exp(S − m_c)) through shared memory once, and combine them in key order:
+// m = max(m_0, m_1), c_c = exp(m_c − m), l = l_0 c_0 + l_1 c_1, D = Σ p·dp
+// = (a_0 c_0 + a_1 c_1) / l, p = e c_c / l. dS = p (dp − D) is rounded to
+// bf16 as the A fragments of dq̂ = dS·k̂ over the consumer's keys (k̂ read
+// MN-major, as the forward reads v), while its Σ dS·S, taken as
+// Σ p (dp − D) S from the thread's sums of e·dp·S and e·S, adds to the
+// scale's partial. Each consumer then finishes half of dq's columns: it
+// hands the other its partial of the other's columns (one fp32 addition,
+// commutative, so the same bits as o_0 + o_1), takes the row's q̂·dq̂ over
+// its columns from the raw q row and 1/|q|, adds the other's in order, and
+// stores its columns. Consumer 0 also writes each row's m, 1/l and D (12
+// bytes a row) for the key pass. The keys are split within a block rather
+// than across a cluster of two, as the tangent's are: the exchanges go
+// through shared memory and named barriers, and the kernel measured 6-8%
+// faster so (PERF.md §6).
+//
+// The key pass (attn_bwd_kv_kernel), FlashAttention-2's backward without
+// atomics: a block owns 64 keys and walks the window's 256 queries 64 at a
+// time. Both consumers form Sᵀ = k̂·(q̂s)ᵀ (keys as M, an m64n64
+// accumulator) and rebuild pᵀ = exp(Sᵀ − m) / l from the saved statistics;
+// consumer 0 adds pᵀ·do into dv, consumer 1 also forms dpᵀ = v·doᵀ and adds
+// dSᵀ·(q̂s) = (pᵀ (dpᵀ − D))·(q̂s) into dk̂, each a 64 x DP fp32 sum held in
+// registers across the walk (pᵀ and dSᵀ as A fragments from registers, do
+// and q̂s read MN-major). Splitting dv and dk̂ over the consumers costs one
+// Sᵀ more a step but keeps a consumer's registers within the 168 of the
+// launch bound at DP = 128 (dk̂ 64, Sᵀ 32, dpᵀ 32): both sums in one
+// consumer would need 192. The key pass's p comes from another wgmma
+// orientation and exp(S − m) / l, so it may differ from the query pass's
+// in the last bit; each pass is deterministic.
+//
+// The query pass also hands the key pass each query block's q̂s as its
+// stage holds it (one bulk copy a block), so that the key pass, which
+// walks the queries four times a window-head, neither gathers nor
+// normalises q. The scale's partials, one per (window-head, query block,
+// consumer), are summed in a fixed order by block_attn_dscale_kernel.
+// Scratch a query row and head: q̂s's 128 NBOX bytes (256 at d > 64, 128
+// below), the statistics' 12 and the partials' 0.125.
+
+// A consumer's rows of an m64 accumulator: thread t holds rows
+// 16 (t / 32) + (t % 32) / 4 and that + 8.
+__device__ __forceinline__ int acc_row(int tid) { return tid / 32 * 16 + tid % 32 / 4; }
+
+// The scale's partials a window-head: one a query block and consumer.
+constexpr int kAttnBwdPartials = 2 * kWinTokens / kQB;
+
+template <int DP>
+struct AttnBwdQ {
+  static constexpr int NBOX = AttnFwd<DP>::NBOX;     // the forward's boxes
+  static constexpr int Q_BOX = AttnFwd<DP>::Q_BOX;   // one box of 64 query rows
+  static constexpr int KV_BOX = AttnFwd<DP>::KV_BOX; // one box of the window's 256 key rows
+  static constexpr int KEYS = NBOX * KV_BOX;         // k̂ or v of the window's keys
+  static constexpr int QS = NBOX * Q_BOX;            // a query block's q̂s (or do)
+  static constexpr int STAGE = 2 * QS;               // its q̂s, then do
+  static constexpr int HALF = DP / 2;                // the dq columns a consumer finishes
+  static constexpr int LDO = HALF + 8;               // bf16 stride of the staging rows
+  static constexpr int Q_OFF = 2 * KEYS;             // k̂ at 0, v at KEYS; two stages
+  static constexpr int O_OFF = Q_OFF + 2 * STAGE;    // two consumers' staging rows
+  static constexpr int X_OFF = O_OFF + 2 * kQB * LDO * 2;  // [c][m, l, a][64] the statistics
+  static constexpr int DOT_OFF = X_OFF + 2 * 3 * kQB * 4;  // [c][64] the rows' partial q̂·s dq̂
+  static constexpr int INV_OFF = DOT_OFF + 2 * kQB * 4;    // [stage][64] 1/|q|
+  static constexpr int RED_OFF = INV_OFF + 2 * kQB * 4;    // [c][4] the warps' Σ dS·S
+  static constexpr int ROW_OFF = RED_OFF + 2 * 4 * 4;      // tokens: [stage][64] queries, keys
+  static constexpr int BAR_OFF = ROW_OFF + (2 * kQB + kWinTokens) * 8;
+  enum { K_FULL, K_EMPTY, V_FULL, V_EMPTY, Q_FULL, Q_EMPTY = Q_FULL + 2, N_BARS = Q_EMPTY + 2 };
+  static constexpr int SMEM = 1024 + BAR_OFF + N_BARS * 8;  // with the alignment pad
+  static_assert(SMEM <= kMaxSmem, "the query pass's buffers do not fit");
+  // each consumer's partial dq̂ of the other's columns: DP / 4 floats for each of 256 threads
+  static_assert(256 * DP <= STAGE, "the partials dq̂ do not fit a stage");
+};
+
+// Consumer C's end of query block qb, both consumers together: its partial
+// dq̂ ``o`` of the other's columns into the stage (``xo``, [c][pair][thread],
+// the products that read the stage have retired), the other's partial of
+// its own columns added in (one addition, commutative: the same bits as
+// o_0 + o_1), the stage released; then dq = (s dq̂ − q̂ (q̂·s dq̂)) / |q|
+// with q̂ from the raw q row (``qr``, the thread's bf16 pairs of its two
+// rows), 1/|q| (``inv_q``) and the row's q̂·s dq̂ summed over both
+// consumers' columns in order (``dots``), this consumer's columns rounded
+// to bf16 into its staging rows and copied to the token each query came
+// from, one bulk copy a row by thread ``row`` (tid < 64). Thread 0 also
+// writes the consumer's Σ dS·S (``red``, one a warp) to ``part``.
+template <int DP, int C, bool TILED>
+__device__ __forceinline__ void bwd_q_finish(float (&o)[DP / 2], const uint32_t (&qr)[2][DP / 8],
+                                             const float* inv_q, float s, float2* xo, float* dots,
+                                             bf16* rows, uint64_t* bar, int slot, bf16* dqkv,
+                                             const WindowIndex<TILED>& token, int qb,
+                                             size_t feat, int col, int ncols, const float* red,
+                                             float* part, int tid) {
+  using L = AttnBwdQ<DP>;
+  constexpr int NJ = DP / 16;  // the 8-column groups a consumer finishes
+  constexpr int OWN = C * NJ, OTHER = (1 - C) * NJ;
+  const int lane = tid % 32, r = acc_row(tid);
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      xo[(C * 2 * NJ + 2 * jj + hh) * 128 + tid] =
+          make_float2(o[4 * (OTHER + jj) + 2 * hh], o[4 * (OTHER + jj) + 2 * hh + 1]);
+  named_barrier_sync(5, 256);  // both consumers' partials are in
+  const float iq[2] = {inv_q[r], inv_q[r + 8]};
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 x = xo[((1 - C) * 2 * NJ + 2 * jj + hh) * 128 + tid];
+      o[4 * (OWN + jj) + 2 * hh] += x.x;
+      o[4 * (OWN + jj) + 2 * hh + 1] += x.y;
+    }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&bar[L::Q_EMPTY + slot]);  // the stage may take the next block
+  // the normalise backward, rows r and r + 8: q̂·(s dq̂) over this consumer's
+  // columns, which the quad holds, then over both consumers' in order
+  float dot[2] = {0.f, 0.f};
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 q =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qr[hh][OWN + jj]));
+      dot[hh] += o[4 * (OWN + jj) + 2 * hh] * s * (q.x * iq[hh]) +
+                 o[4 * (OWN + jj) + 2 * hh + 1] * s * (q.y * iq[hh]);
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 1);
+    dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 2);
+  }
+  if (lane % 4 == 0) {
+    dots[C * kQB + r] = dot[0];
+    dots[C * kQB + r + 8] = dot[1];
+  }
+  if (tid < kQB) tma_store_wait_read<0>();  // the previous block's copies have read the rows
+  named_barrier_sync(5, 256);  // both consumers' dots are in
+  if (tid == 0) *part = red[0] + red[1] + red[2] + red[3];
+  const float full[2] = {dots[r] + dots[kQB + r], dots[r + 8] + dots[kQB + r + 8]};
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 q =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qr[hh][OWN + jj]));
+      const int i = 4 * (OWN + jj) + 2 * hh;
+      const float g0 = o[i] * s, g1 = o[i + 1] * s;
+      *reinterpret_cast<uint32_t*>(rows + (r + 8 * hh) * L::LDO + 8 * jj + 2 * (lane % 4)) =
+          pack_bf16x2((g0 - q.x * iq[hh] * full[hh]) * iq[hh],
+                      (g1 - q.y * iq[hh] * full[hh]) * iq[hh]);
+    }
+  fence_async_smem();
+  named_barrier_sync(1 + C, 128);
+  if (tid < kQB && ncols > 0) {
+    bulk_store(dqkv + token(qb * kQB + tid) * feat + col, rows + tid * L::LDO, ncols * 2);
+    tma_store_commit();
+  }
+}
+
+// Warp specialisation, 384 threads a block, persistent, walking window-heads
+// with heads fastest (as the forward):
+//   warpgroup 0, the producer: warps 0 and 1 gather q and do of each query
+//     block through WindowIndex with cp.async into one of two stages, once
+//     the block before last has left it, and normalise q in place in fp32
+//     (times the logit scale, keeping 1/|q|); warps 2 and 3 load v of the
+//     window's keys once the previous window-head's last dp has retired,
+//     then k once its last dq̂ has.
+//   warpgroups 1 and 2, the consumers: consumer c owns keys [128 c, 128 c +
+//     128); both normalise the window's k in place in fp32 when it lands (256
+//     threads, four times the producer's warps), then take every query
+//     block, form S and dp over their keys, the
+//     statistics and their exchange, dS and dq̂, the dq̂ exchange, and each
+//     stores half of dq's columns.
+// mbarriers: full and empty ones for k̂, v and the two stages; the
+// consumers meet at named barrier 5 (256 threads) for the statistics, the
+// partials and the rows' dots. Registers (setmaxnreg): 80 a producer
+// thread, 208 a consumer thread, as the forward's.
+template <int DP, bool TILED>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    attn_bwd_q_kernel(const bf16* __restrict__ qkv, const float* __restrict__ scale,
+                      const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
+                      float* __restrict__ stats, float* __restrict__ part_s,
+                      unsigned char* __restrict__ stages, int B, int gh, int gw, int heads, int d,
+                      int wh, int ww, int sh, int sw) {
+  using L = AttnBwdQ<DP>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* Ks = smem;  // k̂ and v of the window's keys
+  unsigned char* Vs = smem + L::KEYS;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  float* inv_q = reinterpret_cast<float*>(smem + L::INV_OFF);  // [stage][64]
+  const int nW = (gh / wh) * (gw / ww), items = B * nW * heads, chunks = d / 8;
+  const size_t feat = (size_t)heads * 3 * d, ofeat = (size_t)heads * d;
+  if (threadIdx.x == 0) {
+    const int counts[L::N_BARS] = {64, 8, 64, 8, 64, 64, 8, 8};
+    for (int i = 0; i < L::N_BARS; ++i) mbar_init(&bar[i], counts[i]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<80>();
+    size_t* tokens = reinterpret_cast<size_t*>(smem + L::ROW_OFF);  // [stage][64], [keys]
+    if (threadIdx.x < 64) {  // warps 0 and 1: q and do of each query block
+      const int tid = threadIdx.x;
+      uint32_t n = 0;  // query blocks so far: stage n & 1, its phase (n >> 1) & 1
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+        const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+        const float scale_h = scale[h];
+        for (int qb = 0; qb < kWinTokens / kQB; ++qb, ++n) {
+          const int slot = n & 1;
+          size_t* rows = tokens + slot * kQB;
+          unsigned char* stage = smem + L::Q_OFF + slot * L::STAGE;
+          mbar_wait(&bar[L::Q_EMPTY + slot], ((n >> 1) & 1) ^ 1);
+          // every thread has issued the copies of the block before last from this table
+          for (int t = tid; t < kQB; t += 64) rows[t] = token(qb * kQB + t);
+          named_barrier_sync(4, 64);
+          fwd_load<DP, 64>(stage, L::Q_BOX, kQB, qkv, rows, 0, h * 3 * d, chunks, tid, feat);
+          fwd_load<DP, 64>(stage + L::QS, L::Q_BOX, kQB, dout, rows, 0, h * d, chunks, tid,
+                           ofeat);
+          cp_async_commit();
+          cp_async_wait<0>();
+          named_barrier_sync(4, 64);
+          fwd_normalise<DP, true, 64>(stage, L::Q_BOX, kQB, chunks, scale_h, tid,
+                                      inv_q + slot * kQB);
+          fence_async_smem();
+          mbar_arrive(&bar[L::Q_FULL + slot]);
+        }
+      }
+    } else {  // warps 2 and 3: v and k of the window's keys
+      const int tid = threadIdx.x - 64;
+      size_t* rows = tokens + 2 * kQB;
+      uint32_t it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+        const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+        const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+        const int head = h * 3 * d;
+        named_barrier_sync(3, 64);  // both warps have issued the previous window-head's copies
+        for (int t = tid; t < kWinTokens; t += 64) rows[t] = token(t);
+        named_barrier_sync(3, 64);
+        mbar_wait(&bar[L::V_EMPTY], (it & 1) ^ 1);  // the last dp has retired
+        fwd_load<DP, 64>(Vs, L::KV_BOX, kWinTokens, qkv, rows, 0, head + 2 * d, chunks, tid,
+                         feat);
+        cp_async_commit();
+        mbar_wait(&bar[L::K_EMPTY], (it & 1) ^ 1);  // the last dq̂ has retired
+        fwd_load<DP, 64>(Ks, L::KV_BOX, kWinTokens, qkv, rows, 0, head + d, chunks, tid, feat);
+        cp_async_commit();
+        cp_async_wait<1>();
+        fence_async_smem();
+        mbar_arrive(&bar[L::V_FULL]);
+        cp_async_wait<0>();
+        mbar_arrive(&bar[L::K_FULL]);  // raw: the consumers normalise k together
+      }
+    }
+  } else {  // the consumers
+    setmaxnreg_inc<208>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    unsigned char* Kc = Ks + c * (kWinTokens / 2) * 128;  // this consumer's keys in each box
+    unsigned char* Vc = Vs + c * (kWinTokens / 2) * 128;
+    float* xs = reinterpret_cast<float*>(smem + L::X_OFF);  // [c][m, l, a][64]
+    float* dots = reinterpret_cast<float*>(smem + L::DOT_OFF);
+    float* red = reinterpret_cast<float*>(smem + L::RED_OFF) + c * 4;
+    bf16* rows = reinterpret_cast<bf16*>(smem + L::O_OFF) + c * kQB * L::LDO;
+    const int col = c * L::HALF;
+    const int ncols = d - col < 0 ? 0 : (d - col < L::HALF ? d - col : L::HALF);
+    const int q4 = lane % 4, r0 = acc_row(tid);
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[i]);
+    };
+    uint32_t it = 0, n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int h = item % heads, w = item / heads % nW, b = item / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      const float scale_h = scale[h];
+      const size_t wh_index = ((size_t)b * heads + h) * nW + w;
+#pragma unroll 1
+      for (int qb = 0; qb < kWinTokens / kQB; ++qb, ++n) {
+        const int slot = n & 1;
+        unsigned char* Qs = smem + L::Q_OFF + slot * L::STAGE;  // q̂s, then do
+        unsigned char* dOs = Qs + L::QS;
+        float2* xo = reinterpret_cast<float2*>(Qs);  // the partials, once S and dp are done
+        if (qb == 0) {  // the window's k, normalised in place by both consumers
+          mbar_wait(&bar[L::K_FULL], it & 1);
+          fwd_normalise<DP, false, 256>(Ks, L::KV_BOX, kWinTokens, chunks, 1.0f, c * 128 + tid);
+          fence_async_smem();
+          named_barrier_sync(5, 256);
+        }
+        mbar_wait(&bar[L::Q_FULL + slot], (n >> 1) & 1);
+        // q̂s as the key pass reads it, to the scratch, read before the partials
+        // overwrite the stage
+        const bool keeper = c == 0 && tid == 0;
+        if (keeper) {
+          bulk_store(stages + (wh_index * 4 + qb) * L::QS, Qs, L::QS);
+          tma_store_commit();
+        }
+        // S = q̂s·k̂ᵀ and dp = do·vᵀ over this consumer's keys
+        float s[64], dp[64];
+        mbar_wait(&bar[L::K_FULL], it & 1);
+        mbar_wait(&bar[L::V_FULL], it & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < DP / 16; ++k)
+          wgmma_m64nNk16<128>(s, wgmma_desc(Qs + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                              wgmma_desc(Kc + (k / 4) * L::KV_BOX) + 2 * (k % 4), k > 0);
+#pragma unroll
+        for (int k = 0; k < DP / 16; ++k)
+          wgmma_m64nNk16<128>(dp, wgmma_desc(dOs + (k / 4) * L::Q_BOX) + 2 * (k % 4),
+                              wgmma_desc(Vc + (k / 4) * L::KV_BOX) + 2 * (k % 4), k > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (qb == kWinTokens / kQB - 1) release(L::V_EMPTY);
+
+        // the rows' max, Σ e and Σ e·dp over this consumer's keys (row hh of
+        // the thread's two in s[4 j + 2 hh + e]), to the other consumer
+        float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+          m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+        }
+        // e = exp(S − m) in place of S, and the thread's Σ e·dp·S and Σ e·S of each
+        // row, from which its share of Σ dS·S = Σ p (dp − D) S follows
+        float es[2] = {0.f, 0.f}, eps[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int hh = (i >> 1) & 1;
+          const float e = exp2f((s[i] - m[hh]) * kLog2e);
+          l[hh] += e;
+          a[hh] += e * dp[i];
+          es[hh] += e * s[i];
+          eps[hh] += e * dp[i] * s[i];
+          s[i] = e;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int x = 1; x < 4; x <<= 1) {
+            l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], x);
+            a[hh] += __shfl_xor_sync(0xffffffffu, a[hh], x);
+          }
+        if (q4 < 3) {  // lanes 0, 1, 2 of a quad write m, l, a of its two rows
+          float* x = xs + (c * 3 + q4) * kQB;
+          x[r0] = q4 == 0 ? m[0] : q4 == 1 ? l[0] : a[0];
+          x[r0 + 8] = q4 == 0 ? m[1] : q4 == 1 ? l[1] : a[1];
+        }
+        if (keeper) tma_store_wait_read<0>();  // the q̂s store has read what the partials overwrite
+        named_barrier_sync(5, 256);  // both consumers' statistics are in
+        float f[2], D[2];  // p = e f, and Σ p·dp
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + 8 * hh;
+          // key order: the same statistics in both consumers
+          const float m0 = xs[r], l0 = xs[kQB + r], a0 = xs[2 * kQB + r];
+          const float m1 = xs[3 * kQB + r], l1 = xs[4 * kQB + r], a1 = xs[5 * kQB + r];
+          const float mx = fmaxf(m0, m1);
+          const float c0 = exp2f((m0 - mx) * kLog2e), c1 = exp2f((m1 - mx) * kLog2e);
+          const float inv_l = 1.0f / (l0 * c0 + l1 * c1);
+          D[hh] = (a0 * c0 + a1 * c1) * inv_l;
+          f[hh] = (c ? c1 : c0) * inv_l;
+          if (c == 0 && q4 == 0) {  // the row's statistics, for the key pass
+            float* st = stats + (wh_index * 4 + qb) * 3 * kQB + r;
+            st[0] = mx;
+            st[kQB] = inv_l;
+            st[2 * kQB] = D[hh];
+          }
+        }
+        // dS = p (dp − D), p = e f, rounded to bf16 as the A fragments of the
+        // 8 k16 slices, and the thread's Σ dS·S = Σ f (e·dp·S − D e·S)
+        uint32_t ds[8][4];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = 8 * k + 2 * q, hh = q & 1;
+            const float p0 = s[i] * f[hh], p1 = s[i + 1] * f[hh];
+            ds[k][q] = pack_bf16x2(p0 * (dp[i] - D[hh]), p1 * (dp[i + 1] - D[hh]));
+          }
+        float dsum = f[0] * (eps[0] - D[0] * es[0]) + f[1] * (eps[1] - D[1] * es[1]);
+        dsum = warp_sum(dsum);
+        if (lane == 0) red[tid / 32] = dsum;
+        // this consumer's partial of dq̂ = dS·k̂, k̂ read MN-major
+        float o[DP / 2];
+        wgmma_fence();
+        const uint64_t kd = wgmma_desc_mn(Kc, L::KV_BOX);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) wgmma_m64nNk16_rs<DP>(o, ds[k], kd + 128 * k, k > 0);
+        wgmma_commit();
+        // meanwhile the raw q of the thread's two rows at its columns, for the
+        // normalise backward
+        uint32_t qr[2][DP / 8];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const bf16* src = qkv + token(qb * kQB + r0 + 8 * hh) * feat + h * 3 * d;
+#pragma unroll
+          for (int jj = 0; jj < DP / 8; ++jj) {
+            const int cc = 8 * jj + 2 * q4;
+            qr[hh][jj] = cc < d ? *reinterpret_cast<const uint32_t*>(src + cc) : 0u;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (qb == kWinTokens / kQB - 1) release(L::K_EMPTY);
+        float* part = part_s + wh_index * kAttnBwdPartials + qb * 2 + c;
+        if (c == 0)
+          bwd_q_finish<DP, 0, TILED>(o, qr, inv_q + slot * kQB, scale_h, xo, dots, rows, bar,
+                                     slot, dqkv, token, qb, feat, h * 3 * d + col, ncols, red,
+                                     part, tid);
+        else
+          bwd_q_finish<DP, 1, TILED>(o, qr, inv_q + slot * kQB, scale_h, xo, dots, rows, bar,
+                                     slot, dqkv, token, qb, feat, h * 3 * d + col, ncols, red,
+                                     part, tid);
+      }
+    }
+    if (tid < kQB) tma_store_wait_all();  // the rows stay until the last copies have read them
+  }
+}
+
+// The key pass. 384 threads a block, persistent, walking (window-head, 64
+// keys) items with the key blocks fastest, so that the blocks in flight
+// read the same query rows.
+//   warpgroup 0, the producer: k and v of the item's keys into one of two
+//     buffers (the next item's load overlaps this one's walk), k normalised
+//     in place in fp32 (keeping 1/|k|); then a ring of stages of 64
+//     queries: q̂s as the query pass left it (normalised, scaled, swizzled:
+//     no gather, no normalise) and the rows' m, 1/l and D by two bulk
+//     copies, do gathered by cp.async. Its copies run one group ahead: a
+//     group is handed over once the next is in flight.
+//   warpgroups 1 and 2, the consumers: 0 sums dv, 1 dk̂ (above); at the end
+//     of an item consumer 0 stores dv, consumer 1 dk after the normalise
+//     backward from the raw k rows (copied into its staging rows when the
+//     item starts) and 1/|k|, both as the forward stores.
+// Registers as the forward's (80 / 208).
+constexpr int kKvKeys = 64, kKvStages = 3;  // keys an item owns (queries a step alike)
+
+template <int DP>
+struct AttnBwdKV {
+  static constexpr int NBOX = AttnFwd<DP>::NBOX;
+  static constexpr int BOX = kKvKeys * 128;         // one box of 64 rows
+  static constexpr int TILE = NBOX * BOX;           // 64 rows of k̂, v, q̂s or do
+  static constexpr int KV = 2 * TILE;               // a key buffer: k̂, then v
+  static constexpr int STAGE = 2 * TILE + 1024;     // q̂s, do, the queries' m, 1/l, D
+  static constexpr int LDO = AttnFwd<DP>::LDO;      // the forward's staging rows
+  static constexpr int ST_OFF = 2 * KV;
+  static constexpr int O_OFF = ST_OFF + kKvStages * STAGE;
+  static constexpr int INV_OFF = O_OFF + 2 * kKvKeys * LDO * 2;  // [buffer][64] 1/|k|
+  static constexpr int ROW_OFF = INV_OFF + 2 * kKvKeys * 4;  // tokens [it & 1][keys, queries]
+  static constexpr int BAR_OFF = ROW_OFF + 2 * (kKvKeys + kWinTokens) * 8;
+  enum {
+    KV_FULL, KV_EMPTY = KV_FULL + 2, FULL = KV_EMPTY + 2, EMPTY = FULL + kKvStages,
+    N_BARS = EMPTY + kKvStages
+  };
+  static constexpr int SMEM = 1024 + BAR_OFF + N_BARS * 8;  // with the alignment pad
+  static_assert(SMEM <= kMaxSmem, "the key pass's buffers do not fit");
+  static_assert(3 * kKvKeys * 4 <= 1024, "a step's statistics do not fit its stage");
+  static_assert(TILE == AttnBwdQ<DP>::QS && kKvKeys == kQB, "the query pass's q̂s");
+};
+
+// One step of a key-pass consumer: Sᵀ = k̂·(q̂s)ᵀ over the item's 64 keys
+// and the stage's 64 queries, pᵀ = exp(Sᵀ − m) / l from the saved
+// statistics, and acc += pᵀ·do (DK false) or, with dpᵀ = v·doᵀ,
+// acc += (pᵀ (dpᵀ − D))·(q̂s) (DK true); A from registers, B read MN-major.
+template <int DP, bool DK>
+__device__ __forceinline__ void bwd_kv_step(float (&acc)[DP / 2], const unsigned char* Kb,
+                                            const unsigned char* st, int q4) {
+  using L = AttnBwdKV<DP>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const unsigned char* Vb = Kb + L::TILE;
+  const unsigned char* Qs = st;
+  const unsigned char* dOs = st + L::TILE;
+  const float* sm = reinterpret_cast<const float*>(st + 2 * L::TILE);  // [m, 1/l, D][64]
+  float s[32], dp[DK ? 32 : 1];
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < DP / 16; ++k)
+    wgmma_m64nNk16<64>(s, wgmma_desc(Kb + (k / 4) * L::BOX) + 2 * (k % 4),
+                       wgmma_desc(Qs + (k / 4) * L::BOX) + 2 * (k % 4), k > 0);
+  if constexpr (DK) {
+#pragma unroll
+    for (int k = 0; k < DP / 16; ++k)
+      wgmma_m64nNk16<64>(dp, wgmma_desc(Vb + (k / 4) * L::BOX) + 2 * (k % 4),
+                         wgmma_desc(dOs + (k / 4) * L::BOX) + 2 * (k % 4), k > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  if constexpr (DK) fence_regs(dp);
+  // pᵀ (or dSᵀ) rounded to bf16 as the A fragments of the 4 k16 slices of
+  // queries: s[8 k + 2 q + e] is query 16 k + 8 (q / 2) + 2 (lane % 4) + e
+  uint32_t a[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = 8 * k + 2 * q, n = 16 * k + 8 * (q >> 1) + 2 * q4;
+      const float2 m = *reinterpret_cast<const float2*>(sm + n);
+      const float2 il = *reinterpret_cast<const float2*>(sm + kKvKeys + n);
+      const float p0 = exp2f((s[i] - m.x) * kLog2e) * il.x;
+      const float p1 = exp2f((s[i + 1] - m.y) * kLog2e) * il.y;
+      if constexpr (DK) {
+        const float2 D = *reinterpret_cast<const float2*>(sm + 2 * kKvKeys + n);
+        a[k][q] = pack_bf16x2(p0 * (dp[i] - D.x), p1 * (dp[i + 1] - D.y));
+      } else {
+        a[k][q] = pack_bf16x2(p0, p1);
+      }
+    }
+  wgmma_fence();
+  const uint64_t bd = wgmma_desc_mn(DK ? Qs : dOs, L::BOX);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_m64nNk16_rs<DP>(acc, a[k], bd + 128 * k, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+template <int DP, bool TILED>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    attn_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                       const float* __restrict__ stats, const unsigned char* __restrict__ stages,
+                       bf16* __restrict__ dqkv, int B, int gh, int gw, int heads, int d, int wh,
+                       int ww, int sh, int sw) {
+  using L = AttnBwdKV<DP>;
+  constexpr int GROUPS = kWinTokens / kKvKeys;  // items a window-head
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  float* inv_k = reinterpret_cast<float*>(smem + L::INV_OFF);
+  const int nW = (gh / wh) * (gw / ww), items = B * nW * heads * GROUPS, chunks = d / 8;
+  const size_t feat = (size_t)heads * 3 * d, ofeat = (size_t)heads * d;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&bar[L::KV_FULL + i], 128);
+      mbar_init(&bar[L::KV_EMPTY + i], 8);
+    }
+    for (int i = 0; i < kKvStages; ++i) {
+      mbar_init(&bar[L::FULL + i], 129);  // the producer's threads, the bulk copies' expect_tx
+      mbar_init(&bar[L::EMPTY + i], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    int s = 0;
+    uint32_t ph = 0, it = 0;
+    // the copies run one group ahead: a group (k and v, or a stage's do) is
+    // handed over, k normalised first, once the next group is in flight
+    unsigned char* pend = nullptr;
+    int pend_bar = 0;
+    float* pend_inv = nullptr;
+    auto finish = [&](bool last) {
+      if (pend == nullptr) return;
+      if (last)
+        cp_async_wait<0>();
+      else
+        cp_async_wait<1>();
+      named_barrier_sync(3, 128);  // every producer thread's copies of it have landed
+      if (pend_inv != nullptr)
+        fwd_normalise<DP, false>(pend, L::BOX, kKvKeys, chunks, 1.0f, tid, pend_inv);
+      fence_async_smem();
+      mbar_arrive(&bar[pend_bar]);
+    };
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int g = item % GROUPS, h = item / GROUPS % heads, w = item / GROUPS / heads % nW,
+                b = item / GROUPS / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      const int head = h * 3 * d, kb = it & 1;
+      const size_t wh_index = ((size_t)b * heads + h) * nW + w;  // the query pass's order
+      // two tables in turn: a thread may write this item's while another still
+      // issues the previous one's last copies from the other
+      size_t* rows = reinterpret_cast<size_t*>(smem + L::ROW_OFF) + kb * (kKvKeys + kWinTokens);
+      for (int t = tid; t < kKvKeys + kWinTokens; t += 128)
+        rows[t] = token(t < kKvKeys ? g * kKvKeys + t : t - kKvKeys);
+      named_barrier_sync(3, 128);
+      // k and v, once the item before last has left the buffer
+      unsigned char* Kb = smem + kb * L::KV;
+      mbar_wait(&bar[L::KV_EMPTY + kb], ((it >> 1) & 1) ^ 1);
+      fwd_load<DP>(Kb, L::BOX, kKvKeys, qkv, rows, 0, head + d, chunks, tid, feat);
+      fwd_load<DP>(Kb + L::TILE, L::BOX, kKvKeys, qkv, rows, 0, head + 2 * d, chunks, tid, feat);
+      cp_async_commit();
+      finish(false);
+      pend = Kb, pend_bar = L::KV_FULL + kb, pend_inv = inv_k + kb * kKvKeys;
+      // the window's queries, 64 at a time: q̂s as the query pass left it and the
+      // rows' m, 1/l, D by two bulk copies, do gathered
+      for (int q = 0; q < kWinTokens / kQB; ++q) {
+        unsigned char* st = smem + L::ST_OFF + s * L::STAGE;
+        mbar_wait(&bar[L::EMPTY + s], ph ^ 1);
+        if (tid == 0) {
+          mbar_expect_tx(&bar[L::FULL + s], L::TILE + 3 * kQB * 4);
+          bulk_load(st, stages + (wh_index * 4 + q) * L::TILE, L::TILE, &bar[L::FULL + s]);
+          bulk_load(st + 2 * L::TILE, stats + (wh_index * 4 + q) * 3 * kQB, 3 * kQB * 4,
+                    &bar[L::FULL + s]);
+        }
+        fwd_load<DP>(st + L::TILE, L::BOX, kQB, dout, rows + kKvKeys, q * kQB, h * d, chunks, tid,
+                     ofeat);
+        cp_async_commit();
+        finish(false);
+        pend = st, pend_bar = L::FULL + s, pend_inv = nullptr;
+        if (++s == kKvStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    finish(true);
+  } else {  // the consumers
+    setmaxnreg_inc<208>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    const int q4 = lane % 4, r0 = acc_row(tid);
+    bf16* rows = reinterpret_cast<bf16*>(smem + L::O_OFF) + c * kKvKeys * L::LDO;
+    auto release = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar[i]);
+    };
+    int s = 0;
+    uint32_t ph = 0, it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int g = item % GROUPS, h = item / GROUPS % heads, w = item / GROUPS / heads % nW,
+                b = item / GROUPS / heads / nW;
+      const WindowIndex<TILED> token(b, w, gh, gw, wh, ww, sh, sw);
+      const int kb = it & 1;
+      const int col = h * 3 * d + (c == 0 ? 2 * d : d);
+      if (c == 1) {  // the raw k rows into the staging rows, for the normalise backward
+        if (tid < kKvKeys) tma_store_wait_read<0>();  // the last item's copies have read them
+        named_barrier_sync(1 + c, 128);
+        for (int i = tid; i < kKvKeys * (DP / 8); i += 128) {
+          const int r = i / (DP / 8), ch = i % (DP / 8);
+          cp_async16(rows + r * L::LDO + ch * 8,
+                     ch < chunks ? qkv + token(g * kKvKeys + r) * feat + col + ch * 8 : qkv,
+                     ch < chunks);
+        }
+        cp_async_commit();
+      }
+      const unsigned char* Kb = smem + kb * L::KV;
+      mbar_wait(&bar[L::KV_FULL + kb], (it >> 1) & 1);
+      const float ik[2] = {inv_k[kb * kKvKeys + r0], inv_k[kb * kKvKeys + r0 + 8]};
+      float acc[DP / 2];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+      for (int q0 = 0; q0 < kWinTokens; q0 += kKvKeys) {
+        const unsigned char* st = smem + L::ST_OFF + s * L::STAGE;
+        mbar_wait(&bar[L::FULL + s], ph);
+        if (c == 0)
+          bwd_kv_step<DP, false>(acc, Kb, st, q4);
+        else
+          bwd_kv_step<DP, true>(acc, Kb, st, q4);
+        release(L::EMPTY + s);
+        if (++s == kKvStages) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      release(L::KV_EMPTY + kb);
+      if (c == 1) {  // dk = (dk̂ − k̂ (k̂·dk̂)) / |k| from the raw k row
+        cp_async_wait<0>();
+        named_barrier_sync(1 + c, 128);  // every thread's copies of the raw rows have landed
+        uint32_t kr[2][DP / 8];
+        float dot[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int jj = 0; jj < DP / 8; ++jj) {
+            kr[hh][jj] = *reinterpret_cast<const uint32_t*>(rows + (r0 + 8 * hh) * L::LDO +
+                                                            8 * jj + 2 * q4);
+            const float2 k =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kr[hh][jj]));
+            dot[hh] += acc[4 * jj + 2 * hh] * (k.x * ik[hh]) +
+                       acc[4 * jj + 2 * hh + 1] * (k.y * ik[hh]);
+          }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 1);
+          dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 2);
+        }
+#pragma unroll
+        for (int jj = 0; jj < DP / 8; ++jj)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float2 k =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kr[hh][jj]));
+            const int i = 4 * jj + 2 * hh;
+            acc[i] = (acc[i] - k.x * ik[hh] * dot[hh]) * ik[hh];
+            acc[i + 1] = (acc[i + 1] - k.y * ik[hh] * dot[hh]) * ik[hh];
+          }
+      }
+      fwd_store<DP, TILED>(acc, rows, dqkv, token, g, feat, col, d, c, tid);
+    }
+    if (tid < kQB) tma_store_wait_all();  // the rows stay until the last copies have read them
+  }
+}
+
+// dscale[h] = Σ over samples, windows, query blocks and consumers (in that
+// order) of the Σ dS·S partials, / scale[h].
+__global__ void block_attn_dscale_kernel(const float* __restrict__ part_s,
+                                         const float* __restrict__ scale, float* __restrict__ ds,
+                                         int B, int heads, int per_head) {
+  const int h = threadIdx.x;
+  if (h >= heads) return;
+  float tot = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float* p = part_s + ((size_t)b * heads + h) * per_head;
+    for (int i = 0; i < per_head; ++i) tot += p[i];
+  }
+  ds[h] = tot / scale[h];
+}
+
+// Kernels 6 (shifted, wrapping) and 16 (TILED, on pre-rolled qkv and dout):
+// the query pass and then the key pass, each as many blocks as SMs (at most
+// one a window-head or item), then the scale's sum, all on ``stream``.
+static int attn_bwd_sms[2][8][64];
+
+// The shared-memory attribute of ``kernel`` set and the SM count read once a
+// device and instantiation, kept in ``table``.
+template <class Kernel>
+static cudaError_t bwd_setup(Kernel kernel, int smem, int (&table)[64], int& n_sm) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  int& n = table[device % 64];
+  if (n == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+  }
+  n_sm = n;
+  return cudaSuccess;
+}
+
+template <int DP, bool TILED>
+int launch_attn_bwd(const void* qkv, const void* scale, const void* dout, void* dqkv,
+                    void* dscale, void* stats, void* part_s, void* stages, int B, int gh, int gw,
+                    int heads, int d, int wh, int ww, int sh, int sw, cudaStream_t stream) {
+  const int nW = (gh / wh) * (gw / ww), items = B * heads * nW;
+  const int slot = (DP / 32 - 1) * 2 + TILED;
+  int n_sm = 0;
+  cudaError_t e = bwd_setup(attn_bwd_q_kernel<DP, TILED>, AttnBwdQ<DP>::SMEM,
+                            attn_bwd_sms[0][slot], n_sm);
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_q_kernel<DP, TILED><<<items < n_sm ? items : n_sm, kFwdThreads, AttnBwdQ<DP>::SMEM,
+                                 stream>>>(
+      (const bf16*)qkv, (const float*)scale, (const bf16*)dout, (bf16*)dqkv, (float*)stats,
+      (float*)part_s, (unsigned char*)stages, B, gh, gw, heads, d, wh, ww, sh, sw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = bwd_setup(attn_bwd_kv_kernel<DP, TILED>, AttnBwdKV<DP>::SMEM, attn_bwd_sms[1][slot], n_sm);
+  if (e != cudaSuccess) return (int)e;
+  const int kv_items = items * (kWinTokens / kKvKeys);
+  attn_bwd_kv_kernel<DP, TILED><<<kv_items < n_sm ? kv_items : n_sm, kFwdThreads,
+                                  AttnBwdKV<DP>::SMEM, stream>>>(
+      (const bf16*)qkv, (const bf16*)dout, (const float*)stats, (const unsigned char*)stages,
+      (bf16*)dqkv, B, gh, gw, heads, d, wh, ww, sh, sw);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  block_attn_dscale_kernel<<<1, 1024, 0, stream>>>((const float*)part_s, (const float*)scale,
+                                                   (float*)dscale, B, heads,
+                                                   nW * kAttnBwdPartials);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace swift
 
 // Requires wh*ww == 256, gh % wh == gw % ww == 0, d % 8 == 0, d <= 128 and
@@ -1502,23 +1683,22 @@ extern "C" int swift_tiled_attention(const void* qkv, const void* scale, void* o
 #undef SWIFT_FWD
 }
 
-// Query rows a backward block holds (the number of scale partials per
-// window and head is 256 / this).
-extern "C" int swift_block_attention_bwd_qb(int d) { return (d + 31) / 32 * 32 <= 96 ? 64 : 32; }
-
 // qkv (B, gh, gw, heads*3d), dout (B, gh, gw, heads*d) bf16, scale (heads,)
-// fp32 -> dqkv like qkv, dscale (heads,) fp32. Workspace: part_k and part_v
-// fp32 of B*heads*nW*256*dp elements each (dp = d rounded up to 32), part_s
-// fp32 of B*heads*nW*(256/qb). Same shape rules as swift_block_attention.
+// fp32 -> dqkv like qkv, dscale (heads,) fp32. Scratch: stats fp32 of
+// B*heads*nW*3*256 elements (each query row's max, 1/sum and Σ p·dp),
+// part_s fp32 of B*heads*nW*8 (kAttnBwdPartials), stages (q̂s) of
+// B*heads*nW*4*AttnBwdQ<dp>::QS bytes (dp = d rounded up to 32: 16384
+// bytes a block at dp > 64, 8192 below), all 16-byte aligned. Same shape
+// rules as swift_block_attention.
 extern "C" int swift_block_attention_bwd(const void* qkv, const void* scale, const void* dout,
-                                         void* dqkv, void* dscale, void* part_k, void* part_v,
-                                         void* part_s, int B, int gh, int gw, int heads, int d,
+                                         void* dqkv, void* dscale, void* stats, void* part_s,
+                                         void* stages, int B, int gh, int gw, int heads, int d,
                                          int wh, int ww, int sh, int sw, void* stream) {
   const int dp = (d + 31) / 32 * 32;
   cudaStream_t st = (cudaStream_t)stream;
 #define SWIFT_BWD(DP)                                                                          \
-  return swift::launch_block_attn_bwd<DP>(qkv, scale, dout, dqkv, dscale, part_k, part_v,     \
-                                          part_s, B, gh, gw, heads, d, wh, ww, sh, sw, st)
+  return swift::launch_attn_bwd<DP, false>(qkv, scale, dout, dqkv, dscale, stats, part_s,       \
+                                           stages, B, gh, gw, heads, d, wh, ww, sh, sw, st)
   switch (dp) {
     case 32: SWIFT_BWD(32);
     case 64: SWIFT_BWD(64);
@@ -1551,18 +1731,18 @@ extern "C" int swift_block_attention_tangent(const void* qkv, const void* dqkv,
 #undef SWIFT_TAN
 }
 
-// Kernel 16: (dqkv, dscale) of swift_tiled_attention. Scratch: stats fp32 of
-// B*heads*nW*3*256 elements (each query row's max, sum and Σ p·dp), part_s
-// fp32 of B*heads*nW*(256/qb). Same shape rules as swift_tiled_attention.
+// Kernel 16: (dqkv, dscale) of swift_tiled_attention, on qkv and dout
+// rolled by the window shift. Scratch as swift_block_attention_bwd's. Same
+// shape rules as swift_tiled_attention.
 extern "C" int swift_tiled_attention_bwd(const void* qkv, const void* scale, const void* dout,
                                          void* dqkv, void* dscale, void* stats, void* part_s,
-                                         int B, int gh, int gw, int heads, int d, int wh, int ww,
-                                         void* stream) {
+                                         void* stages, int B, int gh, int gw, int heads, int d,
+                                         int wh, int ww, void* stream) {
   const int dp = (d + 31) / 32 * 32;
   cudaStream_t st = (cudaStream_t)stream;
 #define SWIFT_BWD(DP)                                                                          \
-  return swift::launch_tiled_attn_bwd<DP>(qkv, scale, dout, dqkv, dscale, stats, part_s, B, gh, \
-                                          gw, heads, d, wh, ww, st)
+  return swift::launch_attn_bwd<DP, true>(qkv, scale, dout, dqkv, dscale, stats, part_s,        \
+                                          stages, B, gh, gw, heads, d, wh, ww, 0, 0, st)
   switch (dp) {
     case 32: SWIFT_BWD(32);
     case 64: SWIFT_BWD(64);

@@ -216,6 +216,18 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
 }
 
 // Copy ``bytes`` (a multiple of 16; both addresses 16-byte aligned) from
+// device to shared memory by the bulk-copy engine; the bytes complete a
+// transaction of ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16; both addresses 16-byte aligned) from
 // shared to device memory by the bulk-copy engine, in this thread's bulk
 // group (commit, wait as for tma_store_2d).
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {

@@ -19,9 +19,9 @@ interleave; output is ``(B, gh, gw, heads·d)``.
 shift before the call (``fused_tiled_block_attention`` rolls with
 ``torch.roll``; the JAX package's DUS roll with a custom transpose is a TPU
 memory workaround), so that no window wraps, for grids the whole-grid TPU
-kernel cannot hold (0.25°: 368×720 tokens). Kernel 16 sums dk̂ and dv in a
-pass over key blocks instead of kernel 6's per-query-block partials, whose
-workspace grows with the grid.
+kernel cannot hold (0.25°: 368×720 tokens). The backward of both (kernels 6
+and 16) is a query pass, which writes dq and each query row's softmax
+statistics, and a key pass, which sums dk̂ and dv in registers from them.
 
 :func:`per_head_window_attention` is the JAX model's per-head path: the
 shift, window partition and head split in PyTorch around the
@@ -251,45 +251,72 @@ def _block_attention(qkv, scale, heads, window_size, shift):
     return out
 
 
-def block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
-    """(dqkv, dscale) of :func:`fused_block_attention`. CPU tensors take
-    :func:`reference_block_attention_bwd`; CUDA tensors go to kernel 6 under
-    the forward's shape rules (dout bf16, contiguous, (B, gh, gw, heads·d)).
+# The scale's partials the backward kernels write a window and head: one a
+# 64-row query block and consumer of the query pass (``kAttnBwdPartials`` in
+# ``csrc/block_attention.cu``).
+_BWD_PARTIALS = 8
 
-    Kernel 6 sums dk and dv over its query blocks through fp32 partials:
-    2·B·heads·nW·256·dp fp32 of workspace (dp = d rounded up to 32),
-    0.60 GB at B = 2 for 12×88 heads and 1.07 GB for 8×128."""
-    jvp_guard.refuse_tangents("block_attention_bwd", qkv=qkv, scale=scale, dout=dout)
-    if _build.on_cpu(qkv, scale, dout):
-        return reference_block_attention_bwd(qkv, scale, dout, heads, window_size, shift)
-    name = "block_attention_bwd"
+
+def _bwd_stage_bytes(d: int) -> int:
+    """q̂s of one 64-row query block as the query pass's stage holds it and
+    hands it to the key pass: 64-column boxes of 128-byte rows, d padded to
+    32 (``AttnBwdQ<dp>::QS``)."""
+    return (1 if d <= 64 else 2) * 64 * 128
+
+
+def attention_bwd_scratch_bytes(B, gh, gw, heads, d, window_size) -> int:
+    """Device scratch of kernels 6 and 16: each query block's q̂s as the
+    query pass's stage holds it, which the key pass reads in place of
+    gathering and normalising q, each query row's softmax statistics (max,
+    1/sum and Σ p·dp: 3 fp32), and the fp32 partials of the logit scale's
+    gradient: 268.125 bytes a query row and head at 64 < d ≤ 128 (140.125
+    below), against the 6·d bytes of its qkv. 0.57 GB at 0.25° (B = 1,
+    368×720, 8×128; 1.63 GB of qkv), 52.7 MB at the flagship B = 2 (12×88;
+    104 MB of qkv)."""
+    n = B * heads * (gh // window_size[0]) * (gw // window_size[1])
+    return n * (4 * _bwd_stage_bytes(d) + 4 * (3 * 256 + _BWD_PARTIALS))
+
+
+def _attention_bwd(entry, name, qkv, scale, dout, heads, window_size, *shift):
+    """Checks, scratch and the launch of kernel 6 (``shift`` given) or 16
+    through the library's ``entry``."""
     _build.check_kernel_inputs(name, qkv=qkv, scale=scale, dout=dout)
     B, gh, gw, d = _check(name, qkv, scale, heads, window_size)
     _build.check_dtype(name, torch.bfloat16, dout=dout)
     if dout.shape != (B, gh, gw, heads * d):
         raise ValueError(f"{name}: dout must be {(B, gh, gw, heads * d)}, got {tuple(dout.shape)}")
     wh, ww = window_size
-    sh, sw = shift[0] % gh, shift[1] % gw
-    lib = _build.library()
-    dp = (d + 31) // 32 * 32
-    nW = (gh // wh) * (gw // ww)
-    n_qb = 256 // lib.swift_block_attention_bwd_qb(d)
-    dev = qkv.device
-    part_k = torch.empty(B * heads * nW * n_qb * 256 * dp, device=dev, dtype=torch.float32)
-    part_v = torch.empty_like(part_k)
-    part_s = torch.empty(B * heads * nW * n_qb, device=dev, dtype=torch.float32)
+    n = B * heads * (gh // wh) * (gw // ww)
+    scratch = torch.empty(attention_bwd_scratch_bytes(B, gh, gw, heads, d, window_size),
+                          device=qkv.device, dtype=torch.uint8)
+    stats = 4 * _bwd_stage_bytes(d) * n  # byte offsets: the stages, the statistics, the partials
+    partials = stats + 4 * 3 * 256 * n
     dqkv = torch.empty_like(qkv)
     dscale = torch.empty_like(scale)
+    base = scratch.data_ptr()
     _build.check_launch(
-        lib.swift_block_attention_bwd(
+        getattr(_build.library(), entry)(
             qkv.data_ptr(), scale.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            dscale.data_ptr(), part_k.data_ptr(), part_v.data_ptr(), part_s.data_ptr(),
-            B, gh, gw, heads, d, wh, ww, sh, sw, _build.stream(),
-        ),
+            dscale.data_ptr(), base + stats, base + partials, base,
+            B, gh, gw, heads, d, wh, ww, *shift, _build.stream()),
         name,
     )
-    block_attention_bwd.launches += 1
     return dqkv, dscale
+
+
+def block_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0)):
+    """(dqkv, dscale) of :func:`fused_block_attention`. CPU tensors take
+    :func:`reference_block_attention_bwd`; CUDA tensors go to kernel 6 under
+    the forward's shape rules (dout bf16, contiguous, (B, gh, gw, heads·d)),
+    with :func:`attention_bwd_scratch_bytes` of scratch."""
+    jvp_guard.refuse_tangents("block_attention_bwd", qkv=qkv, scale=scale, dout=dout)
+    if _build.on_cpu(qkv, scale, dout):
+        return reference_block_attention_bwd(qkv, scale, dout, heads, window_size, shift)
+    gh, gw = qkv.shape[1:3]
+    out = _attention_bwd("swift_block_attention_bwd", "block_attention_bwd", qkv, scale, dout,
+                         heads, window_size, shift[0] % gh, shift[1] % gw)
+    block_attention_bwd.launches += 1
+    return out
 
 
 def block_attention_tangent(qkv, dqkv, scale, heads, window_size, shift=(0, 0)):
@@ -368,16 +395,6 @@ block_attention_tangent.launches = 0
 
 # -- the window-tiled variant (kernels 15, 16, 17) -------------------------------
 
-def tiled_bwd_scratch_bytes(B, gh, gw, heads, d, window_size) -> int:
-    """Device scratch of kernel 16: each query row's softmax statistics
-    (3 fp32) and one fp32 scale partial per (sample, head, window, query
-    block). 25.7 MB at 0.25° (B = 1, 368×720, 8×128), against kernel 6's
-    17.4 GB of partials there."""
-    n_w = (gh // window_size[0]) * (gw // window_size[1])
-    n_qb = 256 // _build.library().swift_block_attention_bwd_qb(d)
-    return 4 * B * heads * n_w * (3 * 256 + n_qb)
-
-
 def _tiled_block_attention(qkv, scale, heads, window_size):
     """The forward alone: the plain version on the CPU, else kernel 15."""
     if _build.on_cpu(qkv, scale):
@@ -401,34 +418,15 @@ def tiled_block_attention_bwd(qkv, scale, dout, heads, window_size):
     """(dqkv, dscale) of the tiled attention on pre-rolled qkv. CPU tensors
     take :func:`reference_block_attention_bwd` (no shift); CUDA tensors go to
     kernel 16 under the forward's shape rules (dout bf16, contiguous,
-    (B, gh, gw, heads·d)), with :func:`tiled_bwd_scratch_bytes` of scratch."""
+    (B, gh, gw, heads·d)), with :func:`attention_bwd_scratch_bytes` of
+    scratch."""
     jvp_guard.refuse_tangents("tiled_block_attention_bwd", qkv=qkv, scale=scale, dout=dout)
     if _build.on_cpu(qkv, scale, dout):
         return reference_block_attention_bwd(qkv, scale, dout, heads, window_size)
-    name = "tiled_block_attention_bwd"
-    _build.check_kernel_inputs(name, qkv=qkv, scale=scale, dout=dout)
-    B, gh, gw, d = _check(name, qkv, scale, heads, window_size)
-    _build.check_dtype(name, torch.bfloat16, dout=dout)
-    if dout.shape != (B, gh, gw, heads * d):
-        raise ValueError(f"{name}: dout must be {(B, gh, gw, heads * d)}, got {tuple(dout.shape)}")
-    wh, ww = window_size
-    nW = (gh // wh) * (gw // ww)
-    scratch = torch.empty(tiled_bwd_scratch_bytes(B, gh, gw, heads, d, window_size) // 4,
-                          device=qkv.device, dtype=torch.float32)
-    stats = scratch[:B * heads * nW * 3 * 256]
-    part_s = scratch[B * heads * nW * 3 * 256:]
-    dqkv = torch.empty_like(qkv)
-    dscale = torch.empty_like(scale)
-    _build.check_launch(
-        _build.library().swift_tiled_attention_bwd(
-            qkv.data_ptr(), scale.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            dscale.data_ptr(), stats.data_ptr(), part_s.data_ptr(),
-            B, gh, gw, heads, d, wh, ww, _build.stream(),
-        ),
-        name,
-    )
+    out = _attention_bwd("swift_tiled_attention_bwd", "tiled_block_attention_bwd", qkv, scale,
+                         dout, heads, window_size)
     tiled_block_attention_bwd.launches += 1
-    return dqkv, dscale
+    return out
 
 
 def tiled_block_attention_tangent(qkv, dqkv, scale, heads, window_size):

@@ -150,6 +150,31 @@ def test_block_attention_bwd_plain_matches_autograd(shift):
         _close(g, wnt)
 
 
+@pytest.mark.parametrize("d", [88, 128], ids=["d88", "d128"])
+def test_block_attention_bwd_plain_matches_pallas_vjp_at_kernel_windows(d):
+    """The plain version of kernels 6 and 16 at the CUDA kernels' geometry:
+    16x16 windows (256 queries and keys: the softmax the query pass splits
+    across a cluster's two blocks, the sums over 256 queries the key pass
+    keeps), on a 16x32 grid of two windows, against jax.vjp of
+    ``fused_block_attention`` at a shift of (8, 8) that wraps on both axes
+    and, unshifted, of ``fused_tiled_block_attention``, whose backward
+    kernels run interpreted (d = 88 zero-padded to 128 lanes there)."""
+    rng = np.random.default_rng(16 + d)
+    heads = 2
+    qkv = _rand(rng, (2, 16, 32, heads * 3 * d))
+    scale = np.exp(_rand(rng, (heads,), 0.3) + np.log(10.0))  # around the logit scale's init
+    dout = _rand(rng, (2, 16, 32, heads * d))
+    for jfn, shift in ((pba.fused_block_attention, (8, 8)),
+                       (pba.fused_tiled_block_attention, (0, 0))):
+        fn = lambda a, s: jfn(a, s, heads, (16, 16), shift)  # noqa: E731
+        _, vjp = jax.vjp(fn, jnp.asarray(qkv), jnp.asarray(scale))
+        jdqkv, jds = vjp(jnp.asarray(dout))
+        dqkv, ds = block_attention.reference_block_attention_bwd(
+            _t(qkv), _t(scale), _t(dout), heads, (16, 16), shift)
+        _close(dqkv, jdqkv, f"{jfn.__name__} dqkv")
+        _close(ds, jds, f"{jfn.__name__} dscale")
+
+
 # -- kernels 8 and 9: FFN forward that saves gate/up, backward from them -------
 
 def _ffn_inputs(seed, T=384, D=32, H=40):

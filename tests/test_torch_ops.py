@@ -893,3 +893,96 @@ def test_attention_forward_kernels_walk_many_window_heads(B, grid, heads, d, shi
     assert torch.isfinite(got).all() and err <= 2e-2 * want.float().abs().max().item(), err
     assert torch.equal(got, again)
     assert torch.equal(torch.roll(got, shift, (1, 2)), whole)
+
+
+def _bwd_on_card(args, tiled):
+    """Kernel 16 (``tiled``) or 6 on ``args`` twice and the plain version:
+    both outputs (dqkv, dscale) within 2e-2 of max|plain| and the two calls
+    equal bit for bit. Returns the first call's outputs."""
+    fused = (block_attention.tiled_block_attention_bwd if tiled
+             else block_attention.block_attention_bwd)
+    got = fused(*args)
+    again = fused(*args)
+    want = block_attention.reference_block_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("dqkv", "dscale"), got, again, want):
+        err = (g.float() - w.float()).abs().max().item()
+        tag = (fused.__name__, name, err)
+        assert torch.isfinite(g).all(), tag
+        assert err <= 2e-2 * w.float().abs().max().item(), tag
+        assert torch.equal(g, a), tag
+    return got
+
+
+def _bwd_equal(tiled, whole, shift):
+    """Kernel 16's outputs on inputs rolled by ``shift``, dqkv rolled back,
+    equal to kernel 6's at that shift bit for bit."""
+    return (torch.equal(torch.roll(tiled[0], shift, (1, 2)), whole[0])
+            and torch.equal(tiled[1], whole[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 24, 40, 88, 96, 128])
+def test_attention_bwd_kernels_match_plain_on_card(d):
+    """Kernel 6 at the shift and kernel 16 on qkv and dout rolled by it
+    against the plain version in bf16 on the card, dqkv and dscale each
+    within 2e-2 of max|plain|, over ``FORWARD_WINDOWS`` at B = 1 and 3 (the
+    query pass's cluster splits each window's keys, at d ≤ 16 its second
+    block stores no column of dq; the key pass walks 64 keys an item); each
+    call twice, equal bit for bit, and 16's outputs, rolled back, equal to
+    6's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(270 + d))
+    heads = 3
+    for window, grid, shift in FORWARD_WINDOWS:
+        for B in (1, 3):
+            qkv, dout = t((B, *grid, heads * 3 * d)), t((B, *grid, heads * d))
+            scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+            rolled, drolled = (torch.roll(a, (-shift[0], -shift[1]), (1, 2)) for a in (qkv, dout))
+            whole = _bwd_on_card((qkv, scale, dout, heads, window, shift), False)
+            tiled = _bwd_on_card((rolled, scale, drolled, heads, window), True)
+            assert _bwd_equal(tiled, whole, shift), (window, grid, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [88, 128])
+def test_attention_bwd_kernels_take_zero_rows(d):
+    """A q row and a k row of zeros normalise to zeros through the eps of
+    the L2 norm (|x|² + 1e-12), and their gradients pass the normalise's
+    backward at 1/|x| = 1e6, in kernels 6 and 16 as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(280 + d))
+    heads, window, shift = 2, (16, 16), (8, 8)
+    qkv, dout = t((2, 32, 64, heads * 3 * d)), t((2, 32, 64, heads * d))
+    qkv[0, 3, 5, d * 3:d * 4] = 0  # head 1's q at one token
+    qkv[1, 20, 60, d:2 * d] = 0  # head 0's k at another
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    rolled, drolled = (torch.roll(a, (-shift[0], -shift[1]), (1, 2)) for a in (qkv, dout))
+    _bwd_on_card((qkv, scale, dout, heads, window, shift), False)
+    _bwd_on_card((rolled, scale, drolled, heads, window), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,grid,heads,d,shift", [
+    (2, (64, 128), 12, 88, (8, 8)), (2, (64, 128), 8, 128, (8, 8)),
+    (1, (368, 720), 8, 128, (8, 8))], ids=["flagship_12x88", "flagship_8x128", "quarter"])
+def test_attention_bwd_kernels_walk_many_window_heads(B, grid, heads, d, shift):
+    """Kernels 6 and 16 at the main paths' shapes, where each cluster of
+    the query pass walks several window-heads (about 12 at the flagship,
+    125 at 0.25°) and each block of the key pass several items, so that a
+    buffer, a stage of the ring or an exchange slot reused too early shows:
+    within 2e-2 of max|plain|, two calls equal bit for bit, and 16 on
+    rolled inputs equal to 6 bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    t = _card_tensor(np.random.default_rng(290 + d))
+    win = (16, 16)
+    qkv, dout = t((B, *grid, heads * 3 * d)), t((B, *grid, heads * d))
+    scale = torch.exp(t((heads,), 0.3, torch.float32) + np.log(10.0))
+    rolled, drolled = (torch.roll(a, (-shift[0], -shift[1]), (1, 2)) for a in (qkv, dout))
+    tiled = _bwd_on_card((rolled, scale, drolled, heads, win), True)
+    whole = block_attention.block_attention_bwd(qkv, scale, dout, heads, win, shift)
+    torch.cuda.synchronize()
+    assert _bwd_equal(tiled, whole, shift)
