@@ -13,7 +13,9 @@ Phases, each printed as it finishes:
    FFN with its modnorm epilogue 20; the per-head attention 21, its
    backward 22b and tangent 22t, at path B's shape, at n 256 with d 160,
    at n 1024 with d 88 and at path A's n 4 with d 8, beside
-   ``F.scaled_dot_product_attention``; 5, 8-11 and 20 also at path A's
+   ``F.scaled_dot_product_attention`` and its backward, single calls and
+   queued, 21 also at n 36 and 257 and two of its calls bit for bit at
+   every shape; 5, 8-11 and 20 also at path A's
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
@@ -122,9 +124,11 @@ Phases, each printed as it finishes:
    depth-2 forward cut against the fp32 plain path on the card, a forecast
    at MB = 4 x 2 steps, two sCM steps at batch 4 and one at r = 1 with
    exact counts, and the depth-2 sCM cut, plain path on the card, with the
-   plain path in bf16 as a control (``CONTROL_RATIO``);
+   plain path in bf16 as a control (``CONTROL_RATIO``); the forward and
+   one block's per-head route under torch.profiler (``profile_route``:
+   kernel 21 against the route's layout and normalise ops);
 15. d160 (path C): 8 heads x 160 at 16x16 windows, one forward, per-head
-   kernels only.
+   kernels only, profiled as path B's.
 
 The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
 18 and 19, the paths on 256-token windows and d <= 128 none of 21 and 22.
@@ -168,6 +172,7 @@ from swift_torch.ops.block_attention import (
     block_attention_tangent,
     fused_block_attention,
     fused_tiled_block_attention,
+    per_head_window_attention,
     reference_block_attention,
     reference_block_attention_bwd,
     reference_block_attention_tangent,
@@ -297,6 +302,9 @@ INT8_RMS_TOL = 0.10
 # padded to 16) beside it
 WINDOW_SHAPES = ((2 * 128, 12, 64, 88), (2 * 32, 8, 256, 160), (2 * 8, 12, 1024, 88),
                  (4 * 8, 4, 4, 8))
+# kernel 21 also at n 36 (6x6 windows: 64 ∤ n, so a 64-row box crosses window-heads) and n 257
+# (query tiles that cross window-heads, the online softmax), held to its plain version only
+WINDOW_EXTRA_SHAPES = ((2 * 128, 12, 36, 88), (2 * 8, 12, 257, 88))
 FFN_MN_TOKENS = 2 * 64 * 128  # kernel 20 at T = 16,384 (the flagship block at B = 2)
 # path A: the shipped quick-start experiment (swift_tpu/configs/experiment/
 # synthetic-tiny-scm.yaml over data/synthetic.yaml): SwinV2 dim 32, 4 heads of 8, depth 2,
@@ -1394,10 +1402,11 @@ def forward_ms(net, rollout: dict, res) -> float:
         return time_ms(call, reps=5)
 
 
-def profile_forward(net, rollout: dict, res, card: str, tag: str) -> None:
+def profile_forward(net, rollout: dict, res, card: str, tag: str) -> float | None:
     """Where one network forward's time goes at members x batch: one sCM
     step under torch.profiler after a warm-up one, by kernel (as
-    ``profile_step``). A measurement only."""
+    ``profile_step``). A measurement only. Returns the device's busy ms
+    (None where the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     call = _forward_call(net, rollout, res)
@@ -1410,8 +1419,51 @@ def profile_forward(net, rollout: dict, res, card: str, tag: str) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
-    log_profile(prof, time.perf_counter() - t0, card, tag,
-                f"one forward at MB={rollout['members'] * rollout['batch']}", top=16)
+    return log_profile(prof, time.perf_counter() - t0, card, tag,
+                       f"one forward at MB={rollout['members'] * rollout['batch']}", top=16)
+
+
+def profile_route(net, rollout: dict, res, card: str, tag: str) -> None:
+    """The per-head route's share of one forward (paths B and C): the
+    forward by kernel (``profile_forward``), then five calls of
+    ``per_head_window_attention`` alone at a shifted block's shape under
+    torch.profiler, its device time split into kernel 21 and the rest (the
+    roll, window partition, head split, fp32 normalise and the inverse
+    layout), each times the depth as a share of the forward's device time.
+    A measurement only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    busy = profile_forward(net, rollout, res, card, tag)
+    m = net.model
+    attn = m.transformer.layers[1][0]  # an odd block: shifted, so the route rolls
+    heads, d, MB = attn.heads, attn.head_dim, rollout["members"] * rollout["batch"]
+    qkv = torch.randn(MB, *m.grid_size, 3 * heads * d, device="cuda", dtype=torch.bfloat16)
+    scale = torch.full((heads,), 10.0).cuda()
+    call = lambda: per_head_window_attention(qkv, scale, heads, attn.window_size,  # noqa: E731
+                                             attn.shift)
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 5e3, e.count // 5) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows or not busy:
+        log(f"[{tag}] the profiler saw no device time: the route's share not measured")
+        return
+    k21 = sum(ms for name, ms, _ in rows if "win_fwd" in name)
+    rest = sum(ms for _, ms, _ in rows) - k21
+    depth = len(m.transformer.layers)
+    log(f"[{tag}] the per-head route at one block's shape ({MB} x {m.grid_size} tokens, "
+        f"{heads}x{d} heads, window {attn.window_size}, shift {attn.shift}), device ms a call: "
+        f"kernel 21 {k21:.4f}, the layout and normalise ops {rest:.4f} "
+        f"({sum(n for name, _, n in rows if 'win_fwd' not in name)} launches); times {depth} "
+        f"blocks: kernel 21 {100 * k21 * depth / busy:.1f}% and the layout and normalise ops "
+        f"{100 * rest * depth / busy:.1f}% of the forward's {busy:.1f} ms ({card})")
+    for name, ms, n in sorted(rows, key=lambda r: -r[1]):
+        log(f"[{tag}]   {ms:8.4f} ms x{n:3d}  {name[:110]}")
 
 
 def train_config(experiment: str, *extra: str, cut: dict = TRAIN) -> dict:
@@ -1623,9 +1675,10 @@ def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "pro
     log_profile(prof, time.perf_counter() - t0, card, tag, "one training step", top)
 
 
-def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> None:
+def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> float | None:
     """A profile's device time by kernel, the ``top`` largest, and its sum
-    against the wall (the device's idle share)."""
+    against the wall (the device's idle share); returns the sum (None where
+    the profiler saw no device time)."""
     # device time by kernel; a user annotation (the optimizer's step range)
     # spans kernels already counted, so it is left out of the sum
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -1634,11 +1687,12 @@ def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> 
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         log(f"[{tag}] the profiler saw no device time: breakdown not measured")
-        return
+        return None
     log(f"[{tag}] {what} under torch.profiler: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy:.1f} ms, idle share {100 * (1 - busy / (wall * 1e3)):.1f}% ({card})")
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
+    return busy
 
 
 def cut_inputs(trained: dict, res=RESOLUTION, batch: int = 2, variables=VARIABLES,
@@ -1950,26 +2004,63 @@ def _window_inputs(rng: np.random.Generator, shape) -> tuple:
     return (qn, kn) + tuple(t(shape) for _ in range(5))
 
 
+def window_queued(name: str, args, fields: dict) -> None:
+    """A per-head kernel and its library call (where there is one) timed
+    again from calls queued back to back (``queued_ms``: the device's time,
+    the host's cost of a call hidden)."""
+    fused, lib = KERNELS[name][0], LIBRARY.get(name)
+    fields["queued_ms"] = queued_ms(lambda: fused(*args))
+    fields["queued_library_ms"] = queued_ms(lib(*args)) if lib else None
+    msg = f"[kernels] {name:29s} queued: kernel {fields['queued_ms']:.4f} ms"
+    if lib:
+        msg += (f", library {fields['queued_library_ms']:.4f} ms, "
+                f"{fields['queued_ms'] / fields['queued_library_ms']:.3f}x; single calls: "
+                f"{fields['ms'] / fields['library_ms']:.3f}x the library's")
+    log(msg)
+
+
+def window_attention_deterministic(q, k, v, label: str) -> None:
+    """Kernel 21 twice on the same inputs: the same bits (no atomics, one
+    order of every sum); raises otherwise."""
+    same = torch.equal(window_attention(q, k, v), window_attention(q, k, v))
+    log(f"[kernels] window_attention {label}: two calls equal bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"kernel 21 differs from call to call ({label})")
+
+
 def window_kernels(rng: np.random.Generator, record: dict) -> None:
     """Kernels 21, 22b and 22t at ``WINDOW_SHAPES`` (path B's shape first,
     their timing of record; n 256 at d 160, n 1024 at d 88 and path A's
-    n 4 at d 8 beside it),
-    with ``F.scaled_dot_product_attention`` and its backward as the library
-    calls; kernel 20 at T = 16,384, D 1056, H 2816, with the model's
-    two-kernel path (5 then 4) timed beside it."""
+    n 4 at d 8 beside it), each also queued (``window_queued``), with
+    ``F.scaled_dot_product_attention`` and its backward as the library
+    calls; kernel 21 also at ``WINDOW_EXTRA_SHAPES``, and two of its calls
+    bit for bit at every shape; kernel 20 at T = 16,384, D 1056, H 2816,
+    with the model's two-kernel path (5 then 4) timed beside it."""
     for i, shape in enumerate(WINDOW_SHAPES):
         q, k, v, do, tq, tk, tv = _window_inputs(rng, shape)
         BW, h, n, d = shape
+        label = f"BW={BW} h={h} n={n} d={d}"
         for name, args in (("window_attention", (q, k, v)),
                            ("window_attention_bwd", (q, k, v, do)),
                            ("window_attention_tangent", (q, k, v, tq, tk, tv))):
-            fields = check_kernel(name, args, f"BW={BW} h={h} n={n} d={d}",
-                                  reps=20 if i == 0 else 5)
+            fields = check_kernel(name, args, label, reps=20 if i == 0 else 5)
+            window_queued(name, args, fields)
             _merge(record, name, fields, i == 0)
             if i:
-                record[name].update({f"n{n}_d{d}_{key}": fields[key]
-                                     for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+                record[name].update({f"n{n}_d{d}_{key}": fields[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "library_ms", "queued_ms",
+                    "queued_library_ms")})
+        window_attention_deterministic(q, k, v, label)
         del q, k, v, do, tq, tk, tv
+        torch.cuda.empty_cache()
+    for shape in WINDOW_EXTRA_SHAPES:
+        q, k, v = _window_inputs(rng, shape)[:3]
+        BW, h, n, d = shape
+        label = f"BW={BW} h={h} n={n} d={d}"
+        fields = check_kernel("window_attention", (q, k, v), label, reps=5)
+        _merge(record, "window_attention", {"max_abs_err": fields["max_abs_err"]}, False)
+        window_attention_deterministic(q, k, v, label)
+        del q, k, v
         torch.cuda.empty_cache()
     t = _tensor(rng)
     x = t((2, FFN_MN_TOKENS // 2, DIM))
@@ -2201,6 +2292,7 @@ def phase_win8_forecast(card: str) -> dict:
     log(f"[{tag}] {n_steps} forecast steps in {wall:.3f} s end to end; one network forward at "
         f"MB={MB}: {step_ms:.2f} ms on the device (median of 5); kernel 21 twelve times a "
         f"forward, 2 and 15 never ({card})")
+    profile_route(net, WIN8_ROLLOUT, RESOLUTION, card, tag)
     del net
     torch.cuda.empty_cache()
     return launches
@@ -2222,6 +2314,7 @@ def phase_d160(card: str) -> dict:
     log(f"[{tag}] 8 heads x 160 at 16x16 windows: one forward, per-head kernels only "
         f"{json.dumps({k: n for k, n in launches.items() if n})}; {step_ms:.2f} ms on the "
         f"device at MB=4 ({card})")
+    profile_route(net, ROLLOUT, RESOLUTION, card, tag)
     del net
     torch.cuda.empty_cache()
     return launches

@@ -47,12 +47,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -61,19 +58,19 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import COMPOSITION  # noqa: E402
-from swift_torch.ops import _build, block_attention  # noqa: E402
+from swift_torch.ops import block_attention  # noqa: E402
+from scripts import probe_build  # noqa: E402
 from scripts.probe_linear_variants import queued_ms  # noqa: E402
 
 TOL = 2e-2
 P, I = ctypes.c_void_p, ctypes.c_int
-_LAUNCH_Q = "  attn_bwd_q_kernel<DP, TILED><<<items < n_sm ? items : n_sm, kFwdThreads,"
+_LAUNCH_Q = "  int e = launch_persistent(attn_bwd_q_kernel<DP, TILED>,"
+_LAUNCH_KV = "  e = launch_persistent(attn_bwd_kv_kernel<DP, TILED>,"
+SOURCE = "block_attention.cu"
 VARIANTS = {
     "committed": [],
-    "q_only": [("  const int kv_items = items * (kWinTokens / kKvKeys);",
-                "  const int kv_items = 0 * items * (kWinTokens / kKvKeys);"),
-               ("  attn_bwd_kv_kernel<DP, TILED><<<kv_items < n_sm ? kv_items : n_sm,",
-                "  if (kv_items) attn_bwd_kv_kernel<DP, TILED><<<kv_items < n_sm ? kv_items : n_sm,")],
-    "kv_only": [(_LAUNCH_Q, "  if (items < 0) " + _LAUNCH_Q[2:])],
+    "q_only": [(_LAUNCH_KV, "  if (items < 0)" + _LAUNCH_KV[1:])],
+    "kv_only": [(_LAUNCH_Q, "  int e = items < 0 ? 0 :" + _LAUNCH_Q[9:])],
     "two_stages": [("constexpr int kKvKeys = 64, kKvStages = 3;",
                     "constexpr int kKvKeys = 64, kKvStages = 2;")],
 }
@@ -164,38 +161,16 @@ KERNELS = ("attn_bwd_q_kernel", "attn_bwd_kv_kernel", "block_attn_bwd_kernel",
            "block_attn_bwd_kv_kernel", "tiled_attn_bwd_kernel", "tiled_attn_bwd_kv_kernel")
 
 
-def build(name: str, src: Path, subs: list) -> ctypes.CDLL:
-    """``block_attention.cu`` of ``src`` with ``subs`` made, built alone;
-    prints ptxas's registers and spills of the backward's kernels."""
-    t0 = time.perf_counter()
-    f = src / "block_attention.cu"
-    for old, new in subs:
-        if f.read_text().count(old) != 1:
-            raise RuntimeError(f"{name}: the substitution does not match once: {old}")
-        f.write_text(f.read_text().replace(old, new))
-    lib = src / "lib.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-shared",
-           str(src / "block_attention.cu"), "-o", str(lib)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    report = (res.stdout + res.stderr).splitlines()
-    for i, line in enumerate(report):
-        if "Compiling entry" in line and any(k in line for k in KERNELS):
-            kern = line.split("'")[1]
-            props = " | ".join(x.strip() for x in report[i + 1:i + 4])
-            print(f"{name} {kern}: {props}", flush=True)
-    print(f"{name}: built in {time.perf_counter() - t0:.1f} s", flush=True)
-    dll = ctypes.CDLL(str(lib))
+def bind(name: str, dll: ctypes.CDLL, src: Path) -> None:
     dll.partials = hasattr(dll, "swift_block_attention_bwd_qb")  # the fp32 dk̂/dv partials
-    dll.stages = "void* stages" in f.read_text()  # q̂s handed from the query pass to the key pass
+    # q̂s handed from the query pass to the key pass
+    dll.stages = "void* stages" in (src / SOURCE).read_text()
     dll.swift_block_attention_bwd.argtypes = [P] * (7 + dll.stages + dll.partials) + [I] * 9 + [P]
     dll.swift_tiled_attention_bwd.argtypes = [P] * (7 + dll.stages) + [I] * 7 + [P]
     if dll.partials:
         dll.swift_block_attention_bwd_qb.argtypes = [I]
     if name == "phases":
         dll.swift_bwd_prof_read.argtypes = [P]
-    return dll
 
 
 def inputs(rng, B, grid, heads, d, shift):
@@ -270,11 +245,7 @@ def phases(dll, key, t, outs, work, stream) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None)
-    ap.add_argument("--also", action="append", default=[],
-                    help="NAME=DIR: another csrc copy to build, check and time")
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="the variants to build, comma-separated")
+    probe_build.add_args(ap, VARIANTS)
     ap.add_argument("--shapes", default=";".join(SHAPES), help="the shapes, ';'-separated")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "attention_bwd.json"))
     args = ap.parse_args()
@@ -284,18 +255,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {name: (_build.CSRC, VARIANTS[name]) for name in args.variants.split(",") if name}
-        if args.parent:
-            jobs["parent"] = (Path(args.parent), [])
-        for spec in args.also:
-            name, src = spec.split("=", 1)
-            jobs[name] = (Path(src), [])
-        for name, (src, subs) in list(jobs.items()):
-            dst = Path(tmp) / name
-            shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build"))
-            jobs[name] = (dst, subs)
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            libs = dict(zip(jobs, pool.map(lambda n: build(n, *jobs[n]), jobs)))
+        libs = probe_build.build_all(Path(tmp), args, VARIANTS, SOURCE, KERNELS, bind)
         stream = torch.cuda.current_stream().cuda_stream
         rng = np.random.default_rng(0)
         times: dict = {}

@@ -1,7 +1,8 @@
 """Time kernels 2 and 15, the attention forward, against an earlier build
 and a composition of library calls, on the card.
 
-    python scripts/probe_attention_fwd.py [--parent DIR] [--out chiprun_out/attention_fwd.json]
+    python scripts/probe_attention_fwd.py [--parent DIR] [--also NAME=DIR] [--variants A,B]
+        [--out chiprun_out/attention_fwd.json]
 
 The committed ``swift_torch/csrc/block_attention.cu`` is built alone into a
 library of its own, and beside it variants, each the committed source with
@@ -39,11 +40,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,20 +51,26 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import COMPOSITION  # noqa: E402
-from swift_torch.ops import _build, block_attention  # noqa: E402
+from swift_torch.ops import block_attention  # noqa: E402
+from scripts import probe_build  # noqa: E402
 from scripts.probe_linear_variants import queued_ms  # noqa: E402
 
 TOL = 2e-2
 P, I = ctypes.c_void_p, ctypes.c_int
+SOURCE = "block_attention.cu"
+KERNELS = ("attn_fwd_kernel", "block_attn_kernel", "tiled_attn_kernel")
 VARIANTS = {
     "committed": [],
-    "no_normalise": [("for (int r = tid / 8; r < rows; r += 16) {",
-                      "for (int r = tid / 8; r < 0; r += 16) {")],
+    "no_normalise": [("for (int r = tid / 8; r < rows; r += THREADS / 8) {",
+                      "for (int r = tid / 8; r < 0; r += THREADS / 8) {")],
     "no_exp": [("s[i] = exp2f((s[i] - m[(i >> 1) & 1]) * kLog2e);",
                 "s[i] = s[i] - m[(i >> 1) & 1];")],
     "one_pv_step": [("for (int k = 0; k < 16; ++k) wgmma_m64nNk16_rs<DP>",
                      "for (int k = 0; k < 1; ++k) wgmma_m64nNk16_rs<DP>")],
-    "one_qk_step": [("for (int k = 0; k < DP / 16; ++k)", "for (int k = 0; k < 1; ++k)")],
+    "one_qk_step": [("for (int k = 0; k < DP / 16; ++k)\n"
+                     "          wgmma_m64nNk16<256>(s, wgmma_desc(Qc",
+                     "for (int k = 0; k < 1; ++k)\n"
+                     "          wgmma_m64nNk16<256>(s, wgmma_desc(Qc")],
     "no_store": [("bulk_store(out + token(qb * kQB + tid) * ofeat + col, rows + tid * LDO, d * 2);",
                   "")],
 }
@@ -81,32 +86,9 @@ SHAPES = {
 WINDOW = (16, 16)
 
 
-def build(name: str, src: Path, subs: list) -> ctypes.CDLL:
-    """``block_attention.cu`` of ``src`` with ``subs`` made, built alone;
-    prints ptxas's registers and spills of the forward's kernels."""
-    f = src / "block_attention.cu"
-    for old, new in subs:
-        if f.read_text().count(old) != 1:
-            raise RuntimeError(f"{name}: the substitution does not match once: {old}")
-        f.write_text(f.read_text().replace(old, new))
-    lib = src / "lib.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-shared",
-           str(src / "block_attention.cu"), "-o", str(lib)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    report = (res.stdout + res.stderr).splitlines()
-    for i, line in enumerate(report):
-        if "Compiling entry" in line and ("attn_fwd_kernel" in line or "block_attn_kernel" in line
-                                          or "tiled_attn_kernel" in line):
-            kern = line.split("'")[1]
-            props = " | ".join(x.strip() for x in report[i + 2:i + 4])
-            print(f"{name} {kern}: {props}", flush=True)
-    print(f"{name}: built", flush=True)
-    dll = ctypes.CDLL(str(lib))
+def bind(name: str, dll: ctypes.CDLL, src: Path) -> None:
     dll.swift_block_attention.argtypes = [P, P, P] + [I] * 9 + [P]
     dll.swift_tiled_attention.argtypes = [P, P, P] + [I] * 7 + [P]
-    return dll
 
 
 def inputs(rng, B, grid, heads, d, shift):
@@ -131,7 +113,7 @@ def calls(dll, key, t, out, stream):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None)
+    probe_build.add_args(ap, VARIANTS)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "attention_fwd.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -140,15 +122,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {name: (_build.CSRC, subs) for name, subs in VARIANTS.items()}
-        if args.parent:
-            jobs["parent"] = (Path(args.parent), [])
-        for name, (src, subs) in list(jobs.items()):
-            dst = Path(tmp) / name
-            shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build"))
-            jobs[name] = (dst, subs)
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            libs = dict(zip(jobs, pool.map(lambda n: build(n, *jobs[n]), jobs)))
+        libs = probe_build.build_all(Path(tmp), args, VARIANTS, SOURCE, KERNELS, bind)
         stream = torch.cuda.current_stream().cuda_stream
         rng = np.random.default_rng(0)
         times: dict = {}

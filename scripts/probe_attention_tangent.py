@@ -57,11 +57,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -70,11 +68,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import COMPOSITION  # noqa: E402
-from swift_torch.ops import _build, block_attention  # noqa: E402
+from swift_torch.ops import block_attention  # noqa: E402
+from scripts import probe_build  # noqa: E402
 from scripts.probe_linear_variants import queued_ms  # noqa: E402
 
 TOL = 2e-2
 P, I = ctypes.c_void_p, ctypes.c_int
+SOURCE = "block_attention.cu"
 VARIANTS = {
     "committed": [],
     "no_store": [("bulk_store(out + token(qb * kQB + tid) * ofeat + col, rows + tid * L::LDO, "
@@ -171,33 +171,11 @@ WINDOW = (16, 16)
 KERNELS = ("attn_tangent_kernel", "block_attn_tangent_kernel", "tiled_attn_tangent_kernel")
 
 
-def build(name: str, src: Path, subs: list) -> ctypes.CDLL:
-    """``block_attention.cu`` of ``src`` with ``subs`` made, built alone;
-    prints ptxas's registers and spills of the tangent's kernels."""
-    f = src / "block_attention.cu"
-    for old, new in subs:
-        if f.read_text().count(old) != 1:
-            raise RuntimeError(f"{name}: the substitution does not match once: {old}")
-        f.write_text(f.read_text().replace(old, new))
-    lib = src / "lib.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-shared",
-           str(src / "block_attention.cu"), "-o", str(lib)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    report = (res.stdout + res.stderr).splitlines()
-    for i, line in enumerate(report):
-        if "Compiling entry" in line and any(k in line for k in KERNELS):
-            kern = line.split("'")[1]
-            props = " | ".join(x.strip() for x in report[i + 1:i + 4])
-            print(f"{name} {kern}: {props}", flush=True)
-    print(f"{name}: built", flush=True)
-    dll = ctypes.CDLL(str(lib))
+def bind(name: str, dll: ctypes.CDLL, src: Path) -> None:
     dll.swift_block_attention_tangent.argtypes = [P, P, P, P] + [I] * 9 + [P]
     dll.swift_tiled_attention_tangent.argtypes = [P] * 4 + [I] * 7 + [P]
     if name == "phases":
         dll.swift_tan_prof_read.argtypes = [P]
-    return dll
 
 
 def phases(dll, key, t, out, stream) -> dict:
@@ -248,11 +226,7 @@ def calls(dll, key, t, out, stream, kernel=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None)
-    ap.add_argument("--also", action="append", default=[],
-                    help="NAME=DIR: another csrc copy to build, check and time")
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="the variants to build, comma-separated")
+    probe_build.add_args(ap, VARIANTS)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "attention_tangent.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -261,18 +235,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {name: (_build.CSRC, VARIANTS[name]) for name in args.variants.split(",")}
-        if args.parent:
-            jobs["parent"] = (Path(args.parent), [])
-        for spec in args.also:
-            name, src = spec.split("=", 1)
-            jobs[name] = (Path(src), [])
-        for name, (src, subs) in list(jobs.items()):
-            dst = Path(tmp) / name
-            shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build"))
-            jobs[name] = (dst, subs)
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            libs = dict(zip(jobs, pool.map(lambda n: build(n, *jobs[n]), jobs)))
+        libs = probe_build.build_all(Path(tmp), args, VARIANTS, SOURCE, KERNELS, bind)
         stream = torch.cuda.current_stream().cuda_stream
         rng = np.random.default_rng(0)
         times: dict = {}

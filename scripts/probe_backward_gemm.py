@@ -1,7 +1,8 @@
 """Time kernels 9 and 13, the backward GEMMs, against variants, an earlier
 build and compositions of library calls, on the card.
 
-    python scripts/probe_backward_gemm.py [--parent DIR] [--out chiprun_out/backward_gemm.json]
+    python scripts/probe_backward_gemm.py [--parent DIR] [--also NAME=DIR] [--variants A,B]
+        [--out chiprun_out/backward_gemm.json]
 
 The committed ``swift_torch/csrc/gemm_bwd.cu`` (with ``wgmma.cuh`` and
 ``tile_mma.cuh`` beside it) is built alone into a library of its own, and
@@ -40,11 +41,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +52,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import COMPOSITION  # noqa: E402
-from swift_torch.ops import _build, ffn, linear  # noqa: E402
+from swift_torch.ops import ffn, linear  # noqa: E402
+from scripts import probe_build  # noqa: E402
 from scripts.probe_linear_variants import queued_ms  # noqa: E402
 
 TOL = 2e-2
@@ -77,6 +77,8 @@ DIRECT_SAVED_READS = [
      "                const float2 u = in ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(\n"
      "                    args.u + (size_t)gr * N + gc))) : make_float2(0.f, 0.f);"),
 ]
+SOURCE = "gemm_bwd.cu"
+KERNELS = ()  # every kernel
 VARIANTS = {
     "committed": [],
     "one_split": [("  for (int s = 2; s <= 16; ++s) {", "  for (int s = 2; s <= 1; ++s) {")],
@@ -94,30 +96,11 @@ SHAPES = {
 }
 
 
-def build(name: str, src: Path, subs: list) -> ctypes.CDLL:
-    """``gemm_bwd.cu`` of ``src`` with ``subs`` made, built alone; prints
-    ptxas's registers and spills of its kernels."""
-    f = src / "gemm_bwd.cu"
-    for old, new in subs:
-        if f.read_text().count(old) != 1:
-            raise RuntimeError(f"{name}: the substitution does not match once: {old}")
-        f.write_text(f.read_text().replace(old, new))
-    lib = src / "lib.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-shared", str(f), "-o", str(lib)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    report = (res.stdout + res.stderr).splitlines()
-    for i, line in enumerate(report):
-        if "Compiling entry" in line:
-            props = " | ".join(x.strip() for x in report[i + 1:i + 4])
-            print(f"{name} {line.split(chr(39))[1]}: {props}", flush=True)
-    dll = ctypes.CDLL(str(lib))
+def bind(name: str, dll: ctypes.CDLL, src: Path) -> None:
     dll.swift_ffn_bwd_saved.argtypes = [P] * 13 + [I, I, I, P]
     dll.swift_linear_bwd.argtypes = [P] * 6 + [I, I, I, P]
     dll.swift_splitk_workspace.argtypes = [I, I, I]
     dll.swift_splitk_workspace.restype = ctypes.c_longlong
-    return dll
 
 
 def inputs(rng, kernel: str, T: int, N: int | None) -> tuple:
@@ -175,7 +158,7 @@ def profile(call, reps: int = 3) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None)
+    probe_build.add_args(ap, VARIANTS)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "backward_gemm.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -186,15 +169,7 @@ def main() -> int:
     plain = {"linear_bwd": linear.reference_linear_bwd,
              "swiglu_ffn_bwd_saved": ffn.reference_swiglu_ffn_bwd_saved}
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {name: (_build.CSRC, subs) for name, subs in VARIANTS.items()}
-        if args.parent:
-            jobs["parent"] = (Path(args.parent), [])
-        for name, (src, subs) in list(jobs.items()):
-            dst = Path(tmp) / name
-            shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build"))
-            jobs[name] = (dst, subs)
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            libs = dict(zip(jobs, pool.map(lambda n: build(n, *jobs[n]), jobs)))
+        libs = probe_build.build_all(Path(tmp), args, VARIANTS, SOURCE, KERNELS, bind)
         rng = np.random.default_rng(0)
         times: dict = {}
         profiles: dict = {}

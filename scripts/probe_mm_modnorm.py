@@ -2,7 +2,8 @@
 variants of its cluster design, an earlier build and a composition of
 library calls, on the card.
 
-    python scripts/probe_mm_modnorm.py [--parent DIR] [--out chiprun_out/mm_modnorm.json]
+    python scripts/probe_mm_modnorm.py [--parent DIR] [--also NAME=DIR] [--variants A,B]
+        [--out chiprun_out/mm_modnorm.json]
 
 The committed ``swift_torch/csrc/gemm.cu`` is built alone into a library of
 its own, and beside it variants, each the committed source with one change
@@ -53,11 +54,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -66,7 +65,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import COMPOSITION  # noqa: E402
-from swift_torch.ops import _build, modnorm  # noqa: E402
+from swift_torch.ops import modnorm  # noqa: E402
+from scripts import probe_build  # noqa: E402
 from scripts.probe_linear_variants import queued_ms  # noqa: E402
 
 TOL = 2e-2
@@ -91,6 +91,8 @@ MULTICAST = [
      "tensor_map_bf16(&mA, a.x, a.M, a.K, kMnRows / 2, kLinBK)"),
 ]
 C8 = (WIDTHS, WIDTHS.replace("176", "136"))
+SOURCE = "gemm.cu"
+KERNELS = ("mm_modnorm",)
 VARIANTS = {
     "committed": [],
     "multicast": MULTICAST,
@@ -119,27 +121,8 @@ SHAPES = {
 }
 
 
-def build(name: str, src: Path, subs: list) -> ctypes.CDLL:
-    """``gemm.cu`` of ``src`` with ``subs`` made, built alone; prints
-    ptxas's registers and spills of kernel 3's instantiations."""
-    f = src / "gemm.cu"
-    for old, new in subs:
-        if f.read_text().count(old) != 1:
-            raise RuntimeError(f"{name}: the substitution does not match once: {old}")
-        f.write_text(f.read_text().replace(old, new))
-    lib = src / "lib.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-shared", str(f), "-o", str(lib)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
-    report = (res.stdout + res.stderr).splitlines()
-    for i, line in enumerate(report):
-        if "Compiling entry" in line and "mm_modnorm" in line and "i8" not in line:
-            props = " | ".join(x.strip() for x in report[i + 1:i + 4])
-            print(f"{name} {line.split(chr(39))[1]}: {props}", flush=True)
-    dll = ctypes.CDLL(str(lib))
+def bind(name: str, dll: ctypes.CDLL, src: Path) -> None:
     dll.swift_mm_modnorm.argtypes = [P] * 8 + [I, I, I, I, F, P]
-    return dll
 
 
 def inputs(rng, M, K, tps):
@@ -162,7 +145,7 @@ def plan(dll) -> dict | None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None)
+    probe_build.add_args(ap, VARIANTS)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "mm_modnorm.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -171,15 +154,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = {name: (_build.CSRC, subs) for name, subs in VARIANTS.items()}
-        if args.parent:
-            jobs["parent"] = (Path(args.parent), [])
-        for name, (src, subs) in list(jobs.items()):
-            dst = Path(tmp) / name
-            shutil.copytree(src, dst, ignore=shutil.ignore_patterns("_build"))
-            jobs[name] = (dst, subs)
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            libs = dict(zip(jobs, pool.map(lambda n: build(n, *jobs[n]), jobs)))
+        libs = probe_build.build_all(Path(tmp), args, VARIANTS, SOURCE, KERNELS, bind)
         stream = torch.cuda.current_stream().cuda_stream
         rng = np.random.default_rng(0)
         times: dict = {}

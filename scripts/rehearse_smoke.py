@@ -197,6 +197,7 @@ def main() -> None:
     queue: list = []
     cs.read_launches = lambda: dict(queue.pop(0))
     cs.WINDOW_SHAPES = ((8, 2, 64, 16), (4, 2, 256, 160), (2, 2, 1024, 8))
+    cs.WINDOW_EXTRA_SHAPES = ((4, 2, 36, 16), (2, 2, 257, 8))
     cs.FFN_MN_TOKENS = 512
     cs.window_kernels(np.random.default_rng(0), {})
     rehearse_per_head(queue)

@@ -374,31 +374,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 }
 
 // Kernels 2 (shifted, wrapping) and 15 (TILED, on pre-rolled qkv): one
-// launch, as many blocks as SMs (at most one a window-head). The shared-
-// memory attribute is set and the SM count read once a device and
-// instantiation, kept in a table of this file (a static local of the
-// template would be one symbol shared by every library that defines it).
+// launch, as many blocks as SMs (at most one a window-head).
 static int attn_fwd_sms[8][64];
 
 template <int DP, bool TILED>
 int launch_attn_fwd(const void* qkv, const void* scale, void* out, int B, int gh, int gw,
                     int heads, int d, int wh, int ww, int sh, int sw, cudaStream_t stream) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  int& n_sm = attn_fwd_sms[(DP / 32 - 1) * 2 + TILED][device % 64];
-  if (n_sm == 0) {
-    err = cudaFuncSetAttribute(attn_fwd_kernel<DP, TILED>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, AttnFwd<DP>::SMEM);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int items = B * heads * (gh / wh) * (gw / ww);
-  attn_fwd_kernel<DP, TILED><<<items < n_sm ? items : n_sm, kFwdThreads, AttnFwd<DP>::SMEM,
-                               stream>>>((const bf16*)qkv, (const float*)scale, (bf16*)out, B, gh,
-                                         gw, heads, d, wh, ww, sh, sw);
-  return (int)cudaGetLastError();
+  return launch_persistent(attn_fwd_kernel<DP, TILED>, attn_fwd_sms[(DP / 32 - 1) * 2 + TILED],
+                           kFwdThreads, AttnFwd<DP>::SMEM, items, stream, (const bf16*)qkv,
+                           (const float*)scale, (bf16*)out, B, gh, gw, heads, d, wh, ww, sh, sw);
 }
 
 // ---------------------------------------------------------------------------
@@ -1593,48 +1578,24 @@ __global__ void block_attn_dscale_kernel(const float* __restrict__ part_s,
 // one a window-head or item), then the scale's sum, all on ``stream``.
 static int attn_bwd_sms[2][8][64];
 
-// The shared-memory attribute of ``kernel`` set and the SM count read once a
-// device and instantiation, kept in ``table``.
-template <class Kernel>
-static cudaError_t bwd_setup(Kernel kernel, int smem, int (&table)[64], int& n_sm) {
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  int& n = table[device % 64];
-  if (n == 0) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-  }
-  n_sm = n;
-  return cudaSuccess;
-}
-
 template <int DP, bool TILED>
 int launch_attn_bwd(const void* qkv, const void* scale, const void* dout, void* dqkv,
                     void* dscale, void* stats, void* part_s, void* stages, int B, int gh, int gw,
                     int heads, int d, int wh, int ww, int sh, int sw, cudaStream_t stream) {
   const int nW = (gh / wh) * (gw / ww), items = B * heads * nW;
   const int slot = (DP / 32 - 1) * 2 + TILED;
-  int n_sm = 0;
-  cudaError_t e = bwd_setup(attn_bwd_q_kernel<DP, TILED>, AttnBwdQ<DP>::SMEM,
-                            attn_bwd_sms[0][slot], n_sm);
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_q_kernel<DP, TILED><<<items < n_sm ? items : n_sm, kFwdThreads, AttnBwdQ<DP>::SMEM,
-                                 stream>>>(
-      (const bf16*)qkv, (const float*)scale, (const bf16*)dout, (bf16*)dqkv, (float*)stats,
-      (float*)part_s, (unsigned char*)stages, B, gh, gw, heads, d, wh, ww, sh, sw);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = bwd_setup(attn_bwd_kv_kernel<DP, TILED>, AttnBwdKV<DP>::SMEM, attn_bwd_sms[1][slot], n_sm);
-  if (e != cudaSuccess) return (int)e;
+  int e = launch_persistent(attn_bwd_q_kernel<DP, TILED>, attn_bwd_sms[0][slot], kFwdThreads,
+                            AttnBwdQ<DP>::SMEM, items, stream, (const bf16*)qkv,
+                            (const float*)scale, (const bf16*)dout, (bf16*)dqkv, (float*)stats,
+                            (float*)part_s, (unsigned char*)stages, B, gh, gw, heads, d, wh, ww,
+                            sh, sw);
+  if (e != cudaSuccess) return e;
   const int kv_items = items * (kWinTokens / kKvKeys);
-  attn_bwd_kv_kernel<DP, TILED><<<kv_items < n_sm ? kv_items : n_sm, kFwdThreads,
-                                  AttnBwdKV<DP>::SMEM, stream>>>(
-      (const bf16*)qkv, (const bf16*)dout, (const float*)stats, (const unsigned char*)stages,
-      (bf16*)dqkv, B, gh, gw, heads, d, wh, ww, sh, sw);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  e = launch_persistent(attn_bwd_kv_kernel<DP, TILED>, attn_bwd_sms[1][slot], kFwdThreads,
+                        AttnBwdKV<DP>::SMEM, kv_items, stream, (const bf16*)qkv,
+                        (const bf16*)dout, (const float*)stats, (const unsigned char*)stages,
+                        (bf16*)dqkv, B, gh, gw, heads, d, wh, ww, sh, sw);
+  if (e != cudaSuccess) return e;
   block_attn_dscale_kernel<<<1, 1024, 0, stream>>>((const float*)part_s, (const float*)scale,
                                                    (float*)dscale, B, heads,
                                                    nW * kAttnBwdPartials);

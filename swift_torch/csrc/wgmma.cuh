@@ -205,6 +205,12 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// Fetch ``map`` (a __grid_constant__ parameter) into the TMA unit's
+// descriptor cache ahead of its first load.
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // Store ``src`` to the box at (c0, c1) of ``map``, clipped at the edges.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
@@ -863,6 +869,27 @@ inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, u
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// ``kernel`` launched persistent: as many blocks of ``threads`` as the
+// device has SMs, no more than ``items``. The shared-memory attribute is set
+// and the SM count read once a device and instantiation, kept in ``sms``, a
+// table of the calling file (a static local of a template would be one
+// symbol shared by every library that defines it).
+template <class Kernel, class... Args>
+inline int launch_persistent(Kernel kernel, int (&sms)[64], int threads, int smem, int items,
+                             cudaStream_t stream, Args... args) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  int& n_sm = sms[device % 64];
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<items < n_sm ? items : n_sm, threads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 // Launches ``kernel`` in clusters of ``cluster`` blocks of kLinThreads
 // threads with ``smem`` bytes of shared memory: as many clusters as the card

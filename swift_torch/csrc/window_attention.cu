@@ -14,16 +14,54 @@
 //
 // The TPU kernels hold a window's whole n x n fp32 logit tile in VMEM. At
 // n = 256 that is 256 KB, more than the 227 KB of shared memory a Hopper
-// block may have, and the port routes windows of up to 1024 tokens here. So
-// every kernel walks T-row tiles (T = 64 for d <= 128, else 32; d is
-// zero-padded to DP, a multiple of 32 or 16, in shared memory only), with
-// one block per (window·head, row tile) and products on the tensor cores
-// (WMMA 16x16x16, operands and fp32 accumulators in shared memory):
+// block may have, and the port routes windows of up to 1024 tokens here.
+// d is zero-padded to DP (16, or a multiple of 32) in shared memory only.
 //
-// * 21: one block per query tile streams the key tiles with an online
-//   softmax (running max and sum; the fp32 output rows in shared memory are
-//   rescaled when the max grows) and divides by the sum at the end, so the
-//   bf16 p it rounds is exp(s - m_running), as in FlashAttention.
+// Kernel 21 runs on wgmma and TMA (csrc/wgmma.cuh). What bounds it on the
+// H100: the bytes. It reads q̂, k̂, v and writes o, 4 (BW·h·n·d) bf16
+// tensors, for 4 n² d flops a window-head: n / 2 flops a byte, 32 at n = 64
+// (path B) and 128 at n = 256, under the ~295 at which the tensor cores
+// would set the pace; at n = 1024 the operations bound it. So the design keeps many
+// loads in flight, multiplies without shared-memory accumulators, reads
+// each byte once where the form allows, and writes only live rows.
+// Persistent blocks of 384 threads (as many as SMs, no more than work
+// items): a producer warpgroup whose one thread issues TMA loads of 64-
+// column boxes with the 128-byte swizzle (setmaxnreg 80), and two consumer
+// warpgroups (208) that multiply S = q̂·k̂ᵀ from shared memory by
+// wgmma_m64nNk16 and o = p·v by wgmma_m64nNk16_rs, p packed in registers
+// and v read MN-major, with the logits, p and o in registers, and store o
+// through staging rows by one bulk copy a tile (its live rows are
+// contiguous in o). q̂, k̂, v and o are viewed as (BW·h·n, d) matrices; TMA
+// fills zeros past row BW·h·n and past column d. Where d % 8 != 0 (rows not
+// 16 bytes apart, which TMA needs) the same kernel loads element by element
+// with the producer's 128 threads and stores from registers. The forms:
+//
+//   n <= 64             packed: a 64-row tile holds G = floor(64 / n)
+//                       whole window-heads (path A, n 4: 16; path B, n 64:
+//                       1); its q̂, k̂, v in one stage of a ring (4 stages
+//                       for DP <= 128, else 2); S is 64 x 64, masked
+//                       block-diagonally (a query sees the keys of its own
+//                       window-head; the rows a box reads past the tile's
+//                       window-heads are masked and never stored); p is
+//                       normalised before it is rounded.
+//   n > 64              rows: a work item is one pass (two query tiles,
+//                       one a consumer) of one window-head, which walks T =
+//                       ceil(n / NK) key tiles of NK = 128 rows (64 for DP
+//                       160-192, 32 past it, where o takes 112 or 128
+//                       registers), keys past n masked. T = 1 (n <= 128 at
+//                       DP <= 128): whole rows of S in registers, p
+//                       normalised before it is rounded (the TPU kernel's
+//                       rounding point). T > 1: the running max and sum and
+//                       o rescaled in registers; p is rounded as exp(s −
+//                       m_running) and o divided by the sum at the end, as
+//                       in FlashAttention. (A whole key tile of 256 keys
+//                       spilled 224-772 bytes a thread: S alone takes 128
+//                       registers.)
+//
+// Kernels 22b and 22t walk T-row tiles (T = 64 for d <= 128, else 32),
+// with one block per (window·head, row tile) and products on the tensor
+// cores (WMMA 16x16x16, operands and fp32 accumulators in shared memory):
+//
 // * 22b: a query pass, one block per query tile, forms each row's max m,
 //   sum l and D = Σ p·dp (dp = do·vᵀ) over the key tiles, writes them as
 //   12 bytes a row of scratch, then walks the key tiles again for
@@ -35,15 +73,16 @@
 //   first forms m, l and E = Σ p·dS (dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ), the second
 //   dP = p (dS − E) and do = bf16(dP)·v + bf16(p)·dv. No scratch.
 //
-// What bounds them on the H100: at the model's windows (n = 4 to 256) the
-// bytes, about 4 to 7 (BW·h·n·d) bf16 tensors a call; the recomputed
-// products (21: 2 a key tile, 22b: 9 against the TPU kernel's 5, 22t: 8
-// against 5) cost tensor-core time that a wgmma/TMA design would win back.
-// Any n >= 1 (the tail of the last query and key tile is masked) and
-// d <= 256; q̂, k̂, v, do and the tangents contiguous and 16-byte aligned.
+// What bounds 22b and 22t: the bytes, about 5 to 7 (BW·h·n·d) bf16 tensors
+// a call; their recomputed products (22b: 9 against the TPU kernel's 5,
+// 22t: 8 against 5) cost tensor-core time that a wgmma/TMA design would
+// win back. All three take any n >= 1 and d <= 256; q̂, k̂, v, do and the
+// tangents contiguous and 16-byte aligned.
+#include <climits>
 #include <type_traits>
 
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 namespace swift {
 
@@ -61,13 +100,11 @@ struct WinCfg {
   static constexpr int PTILE = round128(T * PLD * 2);
   static constexpr int OTILE = round128(T * OLD * 4);
   static constexpr int STATS = round128(3 * T * 4);
-  static constexpr int FWD = 3 * TILE + STILE + PTILE + OTILE + STATS;            // 21
   static constexpr int BWD_Q = 4 * TILE + 2 * STILE + PTILE + OTILE + STATS;      // 22b, queries
   static constexpr int BWD_KV = 4 * TILE + 2 * STILE + 2 * PTILE + 2 * OTILE + STATS;  // keys
   static constexpr int TAN = 6 * TILE + 2 * STILE + 2 * PTILE + OTILE + STATS;    // 22t
   static_assert(DP % 16 == 0 && DP <= 256, "head width");
-  static_assert(FWD <= kMaxSmem && BWD_Q <= kMaxSmem && BWD_KV <= kMaxSmem && TAN <= kMaxSmem,
-                "shared memory");
+  static_assert(BWD_Q <= kMaxSmem && BWD_KV <= kMaxSmem && TAN <= kMaxSmem, "shared memory");
 };
 
 // Rows r0 .. r0+ROWS of the (n, d) bf16 matrix ``src`` (row stride d) into
@@ -158,75 +195,537 @@ using RowM = wmma::row_major;
 using ColM = wmma::col_major;
 
 // ---------------------------------------------------------------------------
-// Kernel 21: o = softmax(q̂·k̂ᵀ)·v, one block per (window·head, query tile).
-template <int DP>
-__global__ void __launch_bounds__(kWinNT)
-    win_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o, int n, int d) {
-  using C = WinCfg<DP>;
-  constexpr int T = C::T, NW = kWinNT / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + C::TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 2 * C::TILE);
-  float* Ss = reinterpret_cast<float*>(smem + 3 * C::TILE);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + 3 * C::TILE + C::STILE);
-  float* Os = reinterpret_cast<float*>(smem + 3 * C::TILE + C::STILE + C::PTILE);
-  float* mrow = reinterpret_cast<float*>(smem + 3 * C::TILE + C::STILE + C::PTILE + C::OTILE);
-  float* lrow = mrow + T;
+// Kernel 21 on wgmma: o = softmax(q̂·k̂ᵀ)·v (the forms are in the header).
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)blockIdx.x * n * d;
-  const int q0 = blockIdx.y * T;
-  load_win_rows<T, DP, C::LD>(Qs, q + base, q0, n, d);
-  for (int i = threadIdx.x; i < T * C::OLD; i += kWinNT) Os[i] = 0.0f;
-  for (int r = threadIdx.x; r < T; r += kWinNT) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.0f;
+// the producer warpgroup and two consumers; a block launched at 168 registers
+// a thread holds 64,512: 80 a producer thread and 208 a consumer's
+constexpr int kWinFwdThreads = 384;
+constexpr float kWinLog2e = 1.4426950408889634f;
+
+// The first of the two rows (r, r + 8) of a 64-row wgmma accumulator that
+// thread ``tid`` of its warpgroup holds.
+__device__ __forceinline__ int win_acc_row(int tid) { return tid / 32 * 16 + tid % 32 / 4; }
+
+// 64-column boxes of a padded row, and the width of p·v (wgmma's N: at
+// DP = 16 it reads 16 more columns of v, zero in shared memory).
+template <int DP>
+struct WinFwdWidth {
+  static constexpr int NBOX = (DP + 63) / 64;
+  static constexpr int NO = DP < 32 ? 32 : DP;
+};
+
+// Rows row0 .. row0 + ROWS of the (R, d) bf16 matrix ``src`` into ``tile``:
+// NBOX boxes of ROWS rows x 64 columns with the 128-byte swizzle, one after
+// another, zero past row R and column d. By TMA (``tma``: one thread issues
+// the boxes, whose bytes complete ``bar``) or, where d % 8 != 0 (rows not
+// 16 bytes apart, as TMA needs), by the producer's 128 threads element by
+// element.
+template <int ROWS, int NBOX>
+__device__ __forceinline__ void win_load(unsigned char* tile, const CUtensorMap* map,
+                                         const bf16* __restrict__ src, int row0, int R, int d,
+                                         uint64_t* bar, bool tma, int tid) {
+  constexpr int BOX = ROWS * 128;
+  if (tma) {
+#pragma unroll
+    for (int b = 0; b < NBOX; ++b) tma_load_2d(tile + b * BOX, map, bar, 64 * b, row0);
+    return;
   }
-  for (int k0 = 0; k0 < n; k0 += T) {
-    load_win_rows<T, DP, C::LD>(Ks, k + base, k0, n, d);
-    load_win_rows<T, DP, C::LD>(Vs, v + base, k0, n, d);
-    __syncthreads();
-    block_mma<RowM, ColM>(Ss, C::SLD, Qs, C::LD, Ks, C::LD, T, T, DP, false);  // q̂·k̂ᵀ
-    __syncthreads();
-    const int kn = min(T, n - k0);  // live keys of this tile
-    // one warp a query row: the running max and sum, bf16 exp(s - m) into
-    // p, and the row of the output rescaled to the new max
-    for (int r = warp; r < T; r += NW) {
-      float s[T / 32];
-      float mx = -INFINITY;
+  for (int i = tid; i < ROWS * NBOX * 8; i += 128) {
+    const int r = i / (NBOX * 8), c = i % (NBOX * 8), row = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    bf16* e = reinterpret_cast<bf16*>(&val);
+    if (row < R) {
+      const bf16* s = src + (size_t)row * d;
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const int j = lane + 32 * i;
-        s[i] = j < kn ? Ss[r * C::SLD + j] : -INFINITY;
-        mx = fmaxf(mx, s[i]);
-      }
-      mx = warp_max(mx);
-      const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);  // 0 on the first tile
-      float sum = 0.0f;
+      for (int j = 0; j < 8; ++j)
+        if (c * 8 + j < d) e[j] = s[c * 8 + j];
+    }
+    *reinterpret_cast<uint4*>(tile + (c / 8) * BOX + r * 128 + (((c % 8) ^ (r % 8)) << 4)) = val;
+  }
+}
+
+// The producer's fill of one buffer: ``bytes`` announced on ``full`` (TMA:
+// one arrive.expect_tx), the loads, then on the element-wise path each
+// thread's writes fenced for wgmma and its arrival (``full`` counts 128).
+template <class Load>
+__device__ __forceinline__ void win_fill(uint64_t* full, uint32_t bytes, bool tma, Load load) {
+  if (tma) mbar_expect_tx(full, bytes);
+  load();
+  if (!tma) {
+    fence_async_smem();
+    mbar_arrive(full);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// S = q̂·k̂ᵀ of a 64-row query tile against N keys: DP/16 k16 slices, both
+// tiles K-major in 64-column boxes ``qbox`` and ``kbox`` bytes apart.
+template <int DP, int N>
+__device__ __forceinline__ void win_qk(float (&s)[N / 2], const unsigned char* Q, int qbox,
+                                       const unsigned char* K, int kbox) {
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const float e = expf(s[i] - m_new);  // 0 past the live keys
-        sum += e;
-        Ps[r * C::PLD + lane + 32 * i] = __float2bfloat16_rn(e);
-      }
-      sum = warp_sum(sum);
-      for (int c = lane; c < DP; c += 32) Os[r * C::OLD + c] *= alpha;
-      __syncwarp();  // every lane has read m and l
-      if (lane == 0) {
-        mrow[r] = m_new;
-        lrow[r] = lrow[r] * alpha + sum;
+  for (int k = 0; k < DP / 16; ++k)
+    wgmma_m64nNk16<N>(s, wgmma_desc(Q + (k / 4) * qbox) + 2 * (k % 4),
+                      wgmma_desc(K + (k / 4) * kbox) + 2 * (k % 4), k > 0);
+}
+
+// The logits of keys a row may not see set to -inf: thread t holds
+// s[4 j + 2 h + e] = S[row r + 8 h][column 8 j + 2 (t % 4) + e]; row h sees
+// the columns lo[h] .. hi[h] - 1.
+template <int N>
+__device__ __forceinline__ void win_mask(float (&s)[N / 2], const int (&lo)[2], const int (&hi)[2],
+                                         int q4) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * q4 + (i & 1), h = (i >> 1) & 1;
+    if (col < lo[h] || col >= hi[h]) s[i] = -INFINITY;
+  }
+}
+
+// The softmax of whole rows of a 64 x N logit tile in registers: p = e / Σe
+// normalised in fp32 before it is rounded to bf16 (the TPU kernel's rounding
+// point), as the A fragments of the N/16 k16 slices of p·v (the m64nN
+// accumulator's layout is theirs).
+template <int N>
+__device__ __forceinline__ void win_softmax(float (&s)[N / 2], uint32_t (&p)[N / 16][4]) {
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = quad_max(m[h]) * kWinLog2e;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2f(fmaf(s[i], kWinLog2e, -m[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = 1.0f / quad_sum(l[h]);
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      p[k][q] = pack_bf16x2(s[8 * k + 2 * q] * l[q & 1], s[8 * k + 2 * q + 1] * l[q & 1]);
+}
+
+// One key tile of the online softmax: each row's running max m and this
+// thread's share of the running sum l (fp32 e, the quad's shares added at
+// the end) brought up to the tile, o rescaled by exp(m_old − m_new) where
+// ``rescale`` (every tile but the first), p = bf16(exp(s − m_new)) as A
+// fragments; the caller divides o by the sum at the end.
+template <int N, int NO>
+__device__ __forceinline__ void win_online(float (&s)[N / 2], uint32_t (&p)[N / 16][4],
+                                           float (&m)[2], float (&l)[2], float (&o)[NO / 2],
+                                           bool rescale) {
+  float mx[2] = {m[0], m[1]}, alpha[2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);
+    alpha[h] = exp2f((m[h] - mx[h]) * kWinLog2e);  // 0 on the first tile
+    m[h] = mx[h];
+    mx[h] *= kWinLog2e;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2f(fmaf(s[i], kWinLog2e, -mx[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+  if (rescale) {
+#pragma unroll
+    for (int i = 0; i < NO / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  }
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p[k][q] = pack_bf16x2(s[8 * k + 2 * q], s[8 * k + 2 * q + 1]);
+}
+
+// o (+)= p·v over the N/16 k16 slices of a key tile: p from registers, v's
+// boxes (``box`` bytes apart) read MN-major, o's NO columns in wgmma widths
+// of at most 128 (columns 128.. from box 2 on; the accumulator of columns
+// 128 + c continues the layout of columns c, so o stays one array).
+template <int N, int NO>
+__device__ __forceinline__ void win_pv(float (&o)[NO / 2], const uint32_t (&p)[N / 16][4],
+                                       const unsigned char* V, int box, bool accumulate) {
+  constexpr int N0 = NO < 128 ? NO : 128, N1 = NO - N0;
+  const uint64_t d0 = wgmma_desc_mn(V, box);
+  float(&o0)[N0 / 2] = *reinterpret_cast<float(*)[N0 / 2]>(&o[0]);
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+    wgmma_m64nNk16_rs<N0>(o0, p[k], d0 + 128 * k, accumulate || k > 0);
+  if constexpr (N1 > 0) {
+    const uint64_t d1 = wgmma_desc_mn(V + 2 * box, box);
+    float(&o1)[N1 / 2] = *reinterpret_cast<float(*)[N1 / 2]>(&o[N0 / 2]);
+#pragma unroll
+    for (int k = 0; k < N / 16; ++k)
+      wgmma_m64nNk16_rs<N1>(o1, p[k], d1 + 128 * k, accumulate || k > 0);
+  }
+}
+
+// A consumer's 64 output rows, rounded to bf16, into rows row0 .. row0 +
+// live of the (R, d) matrix ``out``. Where ``tma`` (d % 8 == 0): into the
+// staging rows ``stg`` (row stride d), then one bulk copy of the live rows,
+// contiguous in ``out``, issued by thread 0 -- the caller waits for its read
+// before ``stg`` is written again; else element by element from registers.
+// Rows past ``live`` (another tile's, or past the end) are never written.
+template <int NO>
+__device__ __forceinline__ void win_store(const float (&o)[NO / 2], bf16* stg, bf16* out,
+                                          size_t row0, int live, int d, bool tma, int c,
+                                          int tid) {
+  const int q4 = tid % 4, r = win_acc_row(tid);
+  if (tma) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h >= live) continue;
+#pragma unroll
+      for (int j = 0; j < NO / 8; ++j) {
+        const int col = 8 * j + 2 * q4;
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(stg + (r + 8 * h) * d + col) =
+              pack_bf16x2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
       }
     }
-    __syncthreads();
-    block_mma<RowM, RowM>(Os, C::OLD, Ps, C::PLD, Vs, C::LD, T, DP, T, true);  // + p·v
-    __syncthreads();
+    fence_async_smem();
+    named_barrier_sync(1 + c, 128);
+    if (tid == 0) {
+      bulk_store(out + row0 * d, stg, (uint32_t)live * d * 2);
+      tma_store_commit();
+    }
+    return;
   }
-  for (int r = threadIdx.x; r < T; r += kWinNT) lrow[r] = 1.0f / lrow[r];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= live) continue;
+    bf16* dst = out + (row0 + r + 8 * h) * d;
+#pragma unroll
+    for (int j = 0; j < NO / 8; ++j) {
+      const int col = 8 * j + 2 * q4;
+      if (col < d) dst[col] = __float2bfloat16_rn(o[4 * j + 2 * h]);
+      if (col + 1 < d) dst[col + 1] = __float2bfloat16_rn(o[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// One warp's arrival on ``bar`` once all its lanes are past this point.
+__device__ __forceinline__ void win_release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// The packed form, n <= 64: tiles of G = 64 / n whole window-heads (rows
+// tile·G·n .. + G·n of the (BW·h·n, d) matrices), each with its own q, k and
+// v in one stage of a ring; consumer c of NC = 2 takes the block's tiles
+// c, c + 2, ... and so owns stages c, c + 2, ... (the count a multiple of
+// NC). The output goes through staging rows of its own where they fit
+// beside 2·NC (or NC) stages, else through the stage's q box, whose product
+// has retired.
+template <int DP>
+struct WinPacked {
+  static constexpr int NC = 2;
+  static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
+  static constexpr int BOX = 64 * 128;                // one 64-row box
+  static constexpr int TILE = NBOX * BOX;             // q, k or v of a tile
+  static constexpr int STAGE = 3 * TILE;
+  static constexpr int STG = round128(64 * DP * 2);   // a consumer's staging rows
+  static constexpr int BARS = 2 * 2 * NC * 8;
+  static constexpr bool OWN_STG = 1024 + NC * STAGE + NC * STG + BARS <= kMaxSmem;
+  static constexpr int STAGES =
+      OWN_STG && 1024 + 2 * NC * STAGE + NC * STG + BARS <= kMaxSmem ? 2 * NC : NC;
+  static constexpr int STG_OFF = STAGES * STAGE;
+  static constexpr int BAR_OFF = STG_OFF + (OWN_STG ? NC * STG : 0);
+  static constexpr int SMEM = 1024 + BAR_OFF + 2 * STAGES * 8;
+  static_assert(SMEM <= kMaxSmem, "the packed form's buffers do not fit");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_fwd_packed_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv, const bf16* __restrict__ q,
+                          const bf16* __restrict__ k, const bf16* __restrict__ v,
+                          bf16* __restrict__ o, int R, int n, int d, int tile_rows, int tiles) {
+  using L = WinPacked<DP>;
+  constexpr int NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + L::STAGES;
+  const bool tma = d % 8 == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], tma ? 1 : 128);
+      mbar_init(&empty[s], L::OWN_STG ? 4 : 1);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  store_win_rows<T, DP, C::OLD>(o + base, Os, lrow, q0, n, d);
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+    }
+    for (int i = 0, item = blockIdx.x; item < tiles; ++i, item += gridDim.x) {
+      const int s = i % L::STAGES, row0 = item * tile_rows;
+      unsigned char* st = smem + s * L::STAGE;
+      mbar_wait(&empty[s], ((i / L::STAGES) & 1) ^ 1);
+      win_fill(&full[s], L::STAGE, tma, [&] {
+        win_load<64, NBOX>(st, &mq, q, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + L::TILE, &mk, k, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 2 * L::TILE, &mv, v, row0, R, d, &full[s], tma, tid);
+      });
+    }
+    return;
+  }
+  setmaxnreg_inc<208>();  // the consumers
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, q4 = tid % 4;
+  const int r = win_acc_row(tid);
+  bf16* own = reinterpret_cast<bf16*>(smem + L::STG_OFF + c * L::STG);
+  // each row sees the keys of its own window-head: columns lo .. lo + n
+  int lo[2], hi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lo[h] = (r + 8 * h) / n * n;
+    hi[h] = lo[h] + n;
+  }
+  for (int i = c, item = blockIdx.x + c * gridDim.x; item < tiles;
+       i += L::NC, item += L::NC * gridDim.x) {
+    const int s = i % L::STAGES, row0 = item * tile_rows;
+    const int live = min(tile_rows, R - row0);
+    unsigned char* st = smem + s * L::STAGE;
+    mbar_wait(&full[s], (i / L::STAGES) & 1);
+    float sc[32];
+    wgmma_fence();
+    win_qk<DP, 64>(sc, st, L::BOX, st + L::TILE, L::BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (n != 64) win_mask<64>(sc, lo, hi, q4);
+    uint32_t p[4][4];
+    win_softmax<64>(sc, p);
+    float oc[NO / 2];
+    wgmma_fence();
+    win_pv<64, NO>(oc, p, st + 2 * L::TILE, L::BOX, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oc);
+    if constexpr (L::OWN_STG) {
+      win_release(&empty[s]);
+      if (tma) {
+        if (tid == 0) tma_store_wait_read<0>();  // the last tile's copy has read the rows
+        named_barrier_sync(1 + c, 128);
+      }
+      win_store<NO>(oc, own, o, row0, live, d, tma, c, tid);
+    } else {
+      win_store<NO>(oc, reinterpret_cast<bf16*>(st), o, row0, live, d, tma, c, tid);
+      if (!tma) named_barrier_sync(1 + c, 128);
+      if (tid == 0) {
+        tma_store_wait_read<0>();  // the copy has read the stage's q box
+        mbar_arrive(&empty[s]);
+      }
+    }
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+// The row form, n > 64: a window-head's query tiles (rows 64 t .. 64 t + 63
+// of it, QT = ceil(n / 64)) go in passes of two, consumer c taking tile
+// 2 p + c of pass p from one of its two q slots. A block's work item is one
+// pass, which walks the window-head's T = ceil(n / NK) key tiles (loaded
+// again each pass, from L2) through a ring of k and v stages that both
+// consumers read (each of their warps releases a stage). A query tile's
+// output is staged in its q slot, which is handed back once the bulk copy
+// has read it (after the consumer's next S is issued).
+//
+// The key tile: 128 keys where o takes at most 64 registers a thread (DP <=
+// 128), 64 up to DP 192, 32 past it (o 112 or 128 registers). A whole tile
+// of 256 keys spilled 224-772 bytes a thread (S alone takes 128 registers),
+// so windows of 129-256 keys walk two tiles of 128.
+template <int DP>
+struct WinRowKeys {
+  static constexpr int NK = DP <= 128 ? 128 : DP <= 192 ? 64 : 32;
+};
+
+template <int DP, int NK>
+struct WinRows {
+  static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
+  static constexpr int QBOX = 64 * 128, QTILE = NBOX * QBOX;
+  static constexpr int KBOX = NK * 128, KTILE = NBOX * KBOX;
+  static constexpr int KV_OFF = 4 * QTILE;  // two q slots a consumer
+  static constexpr int STAGES_FIT = (kMaxSmem - 1024 - KV_OFF - 24 * 8) / (2 * KTILE);
+  static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
+  static constexpr int BAR_OFF = KV_OFF + STAGES * 2 * KTILE;
+  static constexpr int SMEM = 1024 + BAR_OFF + (8 + 4 * STAGES) * 8;
+  static_assert(STAGES >= 1 && SMEM <= kMaxSmem, "the row form's buffers do not fit");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_fwd_rows_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv, const bf16* __restrict__ q,
+                        const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        bf16* __restrict__ o, int R, int n, int d, int bh) {
+  constexpr int NK = WinRowKeys<DP>::NK;
+  using L = WinRows<DP, NK>;
+  constexpr int NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO, S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_empty = q_full + 4;
+  uint64_t* k_full = q_empty + 4;
+  uint64_t* k_empty = k_full + S;
+  uint64_t* v_full = k_empty + S;
+  uint64_t* v_empty = v_full + S;
+  const bool tma = d % 8 == 0;
+  const int QT = (n + 63) / 64, P = (QT + 1) / 2, T = (n + NK - 1) / NK, items = bh * P;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 4; ++i) {
+      mbar_init(&q_full[i], tma ? 1 : 128);
+      mbar_init(&q_empty[i], 1);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], tma ? 1 : 128);
+      mbar_init(&v_full[s], tma ? 1 : 128);
+      mbar_init(&k_empty[s], 8);
+      mbar_init(&v_empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+    }
+    int kv = 0, qn[2] = {0, 0};
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int base = item / P * n, p = item % P;
+      for (int c = 0; c < 2; ++c) {
+        if (2 * p + c >= QT) continue;
+        const int slot = 2 * c + (qn[c] & 1);
+        unsigned char* Q = smem + slot * L::QTILE;
+        mbar_wait(&q_empty[slot], ((qn[c] >> 1) & 1) ^ 1);
+        win_fill(&q_full[slot], L::QTILE, tma, [&] {
+          win_load<64, NBOX>(Q, &mq, q, base + 64 * (2 * p + c), R, d, &q_full[slot], tma, tid);
+        });
+        ++qn[c];
+      }
+      for (int j = 0; j < T; ++j, ++kv) {
+        const int s = kv % S;
+        const uint32_t ph = ((kv / S) & 1) ^ 1;
+        unsigned char* K = smem + L::KV_OFF + s * 2 * L::KTILE;
+        mbar_wait(&k_empty[s], ph);
+        win_fill(&k_full[s], L::KTILE, tma, [&] {
+          win_load<NK, NBOX>(K, &mk, k, base + j * NK, R, d, &k_full[s], tma, tid);
+        });
+        mbar_wait(&v_empty[s], ph);
+        win_fill(&v_full[s], L::KTILE, tma, [&] {
+          win_load<NK, NBOX>(K + L::KTILE, &mv, v, base + j * NK, R, d, &v_full[s], tma, tid);
+        });
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<208>();  // the consumers
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, q4 = tid % 4;
+  int kv = 0, qn = 0, pend = -1;  // pend: the q slot whose output copy is in flight
+  for (int item = blockIdx.x; item < items; item += gridDim.x, kv += T) {
+    const int base = item / P * n, qt = 2 * (item % P) + c, slot = 2 * c + (qn & 1);
+    const bool have = qt < QT;
+    unsigned char* Q = smem + slot * L::QTILE;
+    if (have) mbar_wait(&q_full[slot], (qn >> 1) & 1);
+    float oc[NO / 2];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < T; ++j) {
+      const int s = (kv + j) % S;
+      const uint32_t ph = ((kv + j) / S) & 1;
+      const unsigned char* K = smem + L::KV_OFF + s * 2 * L::KTILE;
+      float sc[NK / 2];
+      uint32_t pf[NK / 16][4];
+      mbar_wait(&k_full[s], ph);
+      if (have) {  // S = q̂·k̂ᵀ for key tile j
+        wgmma_fence();
+        win_qk<DP, NK>(sc, Q, L::QBOX, K, L::KBOX);
+        wgmma_commit();
+      }
+      if (j == 0 && pend >= 0) {  // the previous tile's q slot, once its output copy has read it
+        if (tid == 0) {
+          tma_store_wait_read<0>();
+          mbar_arrive(&q_empty[pend]);
+        }
+        __syncwarp();
+        pend = -1;
+      }
+      if (have) {
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (j * NK + NK > n) {  // keys past the window-head
+          const int lo[2] = {0, 0}, hi[2] = {n - j * NK, n - j * NK};
+          win_mask<NK>(sc, lo, hi, q4);
+        }
+      }
+      win_release(&k_empty[s]);
+      if (have) {
+        if (T == 1)
+          win_softmax<NK>(sc, pf);
+        else
+          win_online<NK, NO>(sc, pf, m, l, oc, j > 0);
+      }
+      mbar_wait(&v_full[s], ph);
+      if (have) {  // o (+)= p·v
+        wgmma_fence();
+        win_pv<NK, NO>(oc, pf, K + L::KTILE, L::KBOX, j > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(oc);
+      }
+      win_release(&v_empty[s]);
+    }
+    if (!have) continue;
+    if (T > 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = 1.0f / quad_sum(l[h]);
+#pragma unroll
+      for (int i = 0; i < NO / 2; ++i) oc[i] *= l[(i >> 1) & 1];
+    }
+    win_store<NO>(oc, reinterpret_cast<bf16*>(Q), o, (size_t)base + 64 * qt, min(64, n - 64 * qt),
+                  d, tma, c, tid);
+    if (tma) {
+      pend = slot;
+    } else {
+      named_barrier_sync(1 + c, 128);
+      if (tid == 0) mbar_arrive(&q_empty[slot]);
+    }
+    ++qn;
+  }
+  if (tid == 0) {
+    if (pend >= 0) {
+      tma_store_wait_read<0>();
+      mbar_arrive(&q_empty[pend]);
+    }
+    tma_store_wait_all();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -519,15 +1018,40 @@ __global__ void __launch_bounds__(kWinNT)
   store_win_rows<T, DP, C::OLD>(tout + base, Os, nullptr, q0, n, d);
 }
 
+// Kernel 21's launch: the form for n (the header's table), three tensor
+// maps of the (BW·h·n, d) matrices where d % 8 == 0, and as many blocks as
+// SMs, no more than work items (launch_persistent: the SM counts of the
+// packed and the row form by DP index are kept here).
+static int win_fwd_sms[2][9][64];
+
+__host__ __device__ constexpr int win_dp_index(int DP) { return DP == 16 ? 0 : DP / 32; }
+
 template <int DP>
 int launch_win_fwd(const void* q, const void* k, const void* v, void* o, int bh, int n, int d,
                    cudaStream_t st) {
-  using C = WinCfg<DP>;
-  cudaFuncSetAttribute(win_attn_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::FWD);
-  win_attn_fwd_kernel<DP><<<dim3(bh, (n + C::T - 1) / C::T), kWinNT, C::FWD, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, n, d);
-  return (int)cudaGetLastError();
+  constexpr int ID = win_dp_index(DP), NK = WinRowKeys<DP>::NK;
+  const long long rows = (long long)bh * n;
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int R = (int)rows;
+  const bool tma = d % 8 == 0, packed = n <= 64;
+  CUtensorMap mq = {}, mk = {}, mv = {};
+  const int key_rows = packed ? 64 : NK;
+  if (tma && !(tensor_map_bf16(&mq, q, R, d, 64, 64) &&
+               tensor_map_bf16(&mk, k, R, d, key_rows, 64) &&
+               tensor_map_bf16(&mv, v, R, d, key_rows, 64)))
+    return kTensorMapError;
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
+  bf16* ob = (bf16*)o;
+  if (packed) {
+    const int g = 64 / n, tiles = (bh + g - 1) / g;
+    return launch_persistent(win_fwd_packed_kernel<DP>, win_fwd_sms[0][ID], kWinFwdThreads,
+                             WinPacked<DP>::SMEM, tiles, st, mq, mk, mv, qb, kb, vb, ob, R, n, d,
+                             g * n, tiles);
+  }
+  const int P = ((n + 63) / 64 + 1) / 2;  // passes of a window-head
+  return launch_persistent(win_fwd_rows_kernel<DP>, win_fwd_sms[1][ID], kWinFwdThreads,
+                           WinRows<DP, NK>::SMEM, bh * P, st, mq, mk, mv, qb, kb, vb, ob, R, n,
+                           d, bh);
 }
 
 template <int DP>

@@ -148,7 +148,7 @@ def check_launch(code: int, kernel: str) -> None:
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU: the wrapper then runs its
     plain PyTorch version. Anything else goes to the kernel or raises."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def check_kernel_inputs(kernel: str, **tensors: torch.Tensor) -> None:

@@ -98,9 +98,10 @@ def _check(name, **tensors):
     Returns (BW·h, n, d)."""
     _build.check_kernel_inputs(name, **tensors)
     _build.check_dtype(name, torch.bfloat16, **tensors)
-    shapes = {tuple(t.shape) for t in tensors.values()}
-    shape = next(iter(shapes))
-    if len(shapes) != 1 or len(shape) != 4:
+    first, *rest = tensors.values()
+    shape = first.shape
+    if len(shape) != 4 or any(t.shape != shape for t in rest):
+        shapes = {tuple(t.shape) for t in tensors.values()}
         raise ValueError(f"{name}: inputs must share one (BW, h, n, d) shape, got {shapes}")
     BW, h, n, d = shape
     if n < 1 or not 1 <= d <= 256:

@@ -5,8 +5,15 @@ from a numpy seed, within 2e-2 of max|plain| (bf16 rounding of the outputs
 and of p, dS and dP, which the kernel and the plain version round at the
 same points but after sums in other orders):
 
-* 21, 22b and 22t at n ∈ {4, 16, 64, 256, 1024} tokens a window and
-  d ∈ {8, 88, 128, 160} (the tail of a tile masked, d zero-padded inside);
+* 21, 22b and 22t at n ∈ {1, 4, 16, 36, 64, 100, 256, 257, 1024} tokens a
+  window and d ∈ {4, 8, 88, 128, 160, 256}: every form of kernel 21 (tiles
+  of several whole window-heads where n <= 64, n 36 with 64 ∤ n; a window's
+  keys in one tile up to n 128; the online softmax past it, or past
+  d 128), its element-wise load path (d 4) and its TMA path;
+* kernel 21 twice on the same inputs, bit for bit, and with BW·h·n not a
+  multiple of 64 into an output with guard rows before and after it, which
+  must stay as they were (a store past a tile's live rows would reach
+  rows another block writes);
 * the per-head route of the model launching them, and only them, from qkv;
 * 20 at D 1056, H 2816 and at D 32, H 85; kernels 5, 8, 9, 10 and 11 at
   H = 85, which their wrappers zero-pad to 88.
@@ -54,8 +61,8 @@ def _normalized(rng, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 88, 128, 160])
-@pytest.mark.parametrize("n", [4, 16, 64, 256, 1024])
+@pytest.mark.parametrize("d", [4, 8, 88, 128, 160, 256])
+@pytest.mark.parametrize("n", [1, 4, 16, 36, 64, 100, 256, 257, 1024])
 def test_window_attention_kernels_match_plain(card, n, d):
     rng = card
     shape = (max(2, 256 // n), 3, n, d)
@@ -69,6 +76,41 @@ def test_window_attention_kernels_match_plain(card, n, d):
            wa.reference_sdpa_tangent(q, k, v, tq, tk, tv), "22t")
     assert [f.launches for f in (wa.window_attention, wa.window_attention_bwd,
                                  wa.window_attention_tangent)] == [c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4, 8), (36, 88), (64, 88), (257, 88), (256, 160), (1024, 88),
+                                 (36, 4)])
+def test_window_attention_is_deterministic(card, n, d):
+    """Kernel 21 twice on the same inputs: the same bits (no atomics, one
+    order of every sum)."""
+    q, k = _normalized(card, (max(2, 256 // n), 3, n, d))
+    v = _t(card, q.shape)
+    first = wa.window_attention(q, k, v)
+    assert torch.equal(first, wa.window_attention(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,d", [(7, 4, 8), (5, 36, 88), (3, 100, 88), (3, 257, 88),
+                                    (3, 257, 160), (5, 36, 4), (3, 100, 20)])
+def test_window_attention_leaves_guard_rows(card, bh, n, d):
+    """BW·h·n rows, not a multiple of 64, written through the C entry into
+    the middle of a buffer filled with a sentinel: the output agrees with
+    the plain version and the 64 rows before and after it keep the
+    sentinel, so no tile's store reaches past its live rows."""
+    from swift_torch.ops import _build
+
+    q, k = _normalized(card, (bh, 1, n, d))
+    v = _t(card, q.shape)
+    guard = 64 * d
+    buf = torch.full((2 * guard + bh * n * d,), -7.0, device="cuda", dtype=torch.bfloat16)
+    o = buf[guard:guard + bh * n * d]
+    assert o.data_ptr() % 16 == 0
+    _build.check_launch(_build.library().swift_window_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, n, d, _build.stream()),
+        "window_attention")
+    _agree(o.view(q.shape), wa.reference_sdpa(q, k, v), "21")
+    assert (buf[:guard] == -7.0).all() and (buf[guard + bh * n * d:] == -7.0).all()
 
 
 @pytest.mark.cuda
