@@ -14,8 +14,9 @@ Phases, each printed as it finishes:
    backward 22b and tangent 22t, at path B's shape, at n 256 with d 160,
    at n 1024 with d 88 and at path A's n 4 with d 8, beside
    ``F.scaled_dot_product_attention`` and its backward, single calls and
-   queued, 21 also at n 36 and 257 and two of its calls bit for bit at
-   every shape; 5, 8-11 and 20 also at path A's
+   queued, with their share of the bound, 21 and 22b also at n 36 and 257
+   and two calls of each bit for bit at every shape; 5, 8-11 and 20 also
+   at path A's
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
@@ -1676,9 +1677,10 @@ def profile_step(trainer, batch: dict, card: str, top: int = 24, tag: str = "pro
 
 
 def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> float | None:
-    """A profile's device time by kernel, the ``top`` largest, and its sum
-    against the wall (the device's idle share); returns the sum (None where
-    the profiler saw no device time)."""
+    """A profile's device time by kernel, the ``top`` largest and the
+    per-head kernels (21, 22b, 22t) whatever their rank, and its sum against
+    the wall (the device's idle share); returns the sum (None where the
+    profiler saw no device time)."""
     # device time by kernel; a user annotation (the optimizer's step range)
     # spans kernels already counted, so it is left out of the sum
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -1690,7 +1692,8 @@ def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> 
         return None
     log(f"[{tag}] {what} under torch.profiler: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy:.1f} ms, idle share {100 * (1 - busy / (wall * 1e3)):.1f}% ({card})")
-    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
+    ranked = sorted(rows, key=lambda r: -r[1])
+    for name, ms, n in ranked[:top] + [r for r in ranked[top:] if "swift::win_" in r[0]]:
         log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
     return busy
 
@@ -2011,7 +2014,9 @@ def window_queued(name: str, args, fields: dict) -> None:
     fused, lib = KERNELS[name][0], LIBRARY.get(name)
     fields["queued_ms"] = queued_ms(lambda: fused(*args))
     fields["queued_library_ms"] = queued_ms(lib(*args)) if lib else None
-    msg = f"[kernels] {name:29s} queued: kernel {fields['queued_ms']:.4f} ms"
+    msg = (f"[kernels] {name:29s} queued: kernel {fields['queued_ms']:.4f} ms "
+           f"({100 * fields['bound_ms'] / fields['queued_ms']:.1f}% of its bound; single calls "
+           f"{100 * fields['bound_ms'] / fields['ms']:.1f}%)")
     if lib:
         msg += (f", library {fields['queued_library_ms']:.4f} ms, "
                 f"{fields['queued_ms'] / fields['queued_library_ms']:.3f}x; single calls: "
@@ -2019,13 +2024,15 @@ def window_queued(name: str, args, fields: dict) -> None:
     log(msg)
 
 
-def window_attention_deterministic(q, k, v, label: str) -> None:
-    """Kernel 21 twice on the same inputs: the same bits (no atomics, one
-    order of every sum); raises otherwise."""
-    same = torch.equal(window_attention(q, k, v), window_attention(q, k, v))
-    log(f"[kernels] window_attention {label}: two calls equal bit for bit: {same}")
+def window_deterministic(name: str, args, label: str) -> None:
+    """A per-head kernel (21 or 22b) twice on the same inputs: the same bits
+    in every output (no atomics, one order of every sum); raises otherwise."""
+    fused = KERNELS[name][0]
+    first, second = ((o,) if torch.is_tensor(o) else o for o in (fused(*args), fused(*args)))
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[kernels] {name} {label}: two calls equal bit for bit: {same}")
     if not same:
-        raise AssertionError(f"kernel 21 differs from call to call ({label})")
+        raise AssertionError(f"{name} differs from call to call ({label})")
 
 
 def window_kernels(rng: np.random.Generator, record: dict) -> None:
@@ -2033,8 +2040,9 @@ def window_kernels(rng: np.random.Generator, record: dict) -> None:
     their timing of record; n 256 at d 160, n 1024 at d 88 and path A's
     n 4 at d 8 beside it), each also queued (``window_queued``), with
     ``F.scaled_dot_product_attention`` and its backward as the library
-    calls; kernel 21 also at ``WINDOW_EXTRA_SHAPES``, and two of its calls
-    bit for bit at every shape; kernel 20 at T = 16,384, D 1056, H 2816,
+    calls, each with its share of the bound; kernels 21 and 22b also at
+    ``WINDOW_EXTRA_SHAPES``, and two calls of each bit for bit at every
+    shape; kernel 20 at T = 16,384, D 1056, H 2816,
     with the model's two-kernel path (5 then 4) timed beside it."""
     for i, shape in enumerate(WINDOW_SHAPES):
         q, k, v, do, tq, tk, tv = _window_inputs(rng, shape)
@@ -2050,17 +2058,20 @@ def window_kernels(rng: np.random.Generator, record: dict) -> None:
                 record[name].update({f"n{n}_d{d}_{key}": fields[key] for key in (
                     "ms", "plain_ms", "bound_ms", "library_ms", "queued_ms",
                     "queued_library_ms")})
-        window_attention_deterministic(q, k, v, label)
+            if name != "window_attention_tangent":
+                window_deterministic(name, args, label)
         del q, k, v, do, tq, tk, tv
         torch.cuda.empty_cache()
     for shape in WINDOW_EXTRA_SHAPES:
-        q, k, v = _window_inputs(rng, shape)[:3]
+        q, k, v, do = _window_inputs(rng, shape)[:4]
         BW, h, n, d = shape
         label = f"BW={BW} h={h} n={n} d={d}"
-        fields = check_kernel("window_attention", (q, k, v), label, reps=5)
-        _merge(record, "window_attention", {"max_abs_err": fields["max_abs_err"]}, False)
-        window_attention_deterministic(q, k, v, label)
-        del q, k, v
+        for name, args in (("window_attention", (q, k, v)),
+                           ("window_attention_bwd", (q, k, v, do))):
+            fields = check_kernel(name, args, label, reps=5)
+            _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
+            window_deterministic(name, args, label)
+        del q, k, v, do
         torch.cuda.empty_cache()
     t = _tensor(rng)
     x = t((2, FFN_MN_TOKENS // 2, DIM))

@@ -294,8 +294,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 operands read through the
 // descriptors, fp32 accumulator in registers: thread t of the warpgroup
 // holds d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e].
-// scale_d = 0 overwrites D, 1 accumulates. N is 32, 64, 128, 136, 176, 216
-// or 256. TA, TB are the instruction's transpose flags: 0 reads a K-major
+// scale_d = 0 overwrites D, 1 accumulates. N is 32, 64, 96, 128, 136, 176,
+// 216 or 256. TA, TB are the instruction's transpose flags: 0 reads a K-major
 // tile (``wgmma_desc``: A stored 64 rows of K, B stored N rows of K, the
 // nn.Linear weight), 1 an MN-major one (``wgmma_desc_mn_a``,
 // ``wgmma_desc_mn``: stored K rows of M or of N, as an activation's tokens
@@ -303,7 +303,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, uint64_t b,
                                                int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128 || N == 136 || N == 176 || N == 216 || N == 256,
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 136 || N == 176 || N == 216 ||
+                    N == 256,
                 "unsupported wgmma width");
   if constexpr (N == 32) {
     asm volatile(
@@ -331,6 +332,25 @@ __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, ui
           "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
           "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+  if constexpr (N == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
   if constexpr (N == 128) {

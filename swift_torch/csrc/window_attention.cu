@@ -58,26 +58,70 @@
 //                       spilled 224-772 bytes a thread: S alone takes 128
 //                       registers.)
 //
-// Kernels 22b and 22t walk T-row tiles (T = 64 for d <= 128, else 32),
-// with one block per (window·head, row tile) and products on the tensor
-// cores (WMMA 16x16x16, operands and fp32 accumulators in shared memory):
+// Kernel 22b runs on the same pieces. It forms the TPU kernel's p =
+// softmax(q̂·k̂ᵀ) normalised in fp32, dv = bf16(p)ᵀ·do, dp = do·vᵀ, D = Σ p·dp
+// from the fp32 p, dS = p (dp − D) in fp32, and dq̂ = bf16(dS)·k̂ and dk̂ =
+// bf16(dS)ᵀ·q̂, every product accumulated in fp32; D is never taken as
+// rowsum(do ∘ o), whose bf16 o would move the rounding point. What bounds it
+// on the H100: it reads q̂, k̂, v, do and writes dq̂, dk̂, dv, 7 (BW·h·n·d)
+// bf16 tensors, for 10 n² d flops a window-head: 5n/7 flops a byte, 46 at n
+// = 64 (path B) and 183 at n = 256 (path C), so the bytes; at n = 1024 the
+// operations. No float atomics and one order of every sum: two calls give
+// the same bits. The forms:
 //
-// * 22b: a query pass, one block per query tile, forms each row's max m,
-//   sum l and D = Σ p·dp (dp = do·vᵀ) over the key tiles, writes them as
-//   12 bytes a row of scratch, then walks the key tiles again for
-//   dq̂ = bf16(dS)·k̂. A key pass, one block per key tile, walks the query tiles, rebuilds p and dS
-//   from the statistics, and sums dv = bf16(p)ᵀ·do and dk̂ = bf16(dS)ᵀ·q̂ in
-//   shared memory: no fp32 partials that grow with the number of query
-//   tiles (kernel 16's design).
-// * 22t: one block per query tile, two passes over the key tiles: the
-//   first forms m, l and E = Σ p·dS (dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ), the second
-//   dP = p (dS − E) and do = bf16(dP)·v + bf16(p)·dv. No scratch.
+//   n <= 64, DP <= 128  packed (win_bwd_packed_kernel): kernel 21's tiles of
+//                       G = floor(64 / n) whole window-heads, with q̂, k̂, v
+//                       and do in one stage of a ring (3 stages at DP 96-128,
+//                       6 below: a stage of four tensors is 64 KB at DP 128
+//                       and would be 128 KB at DP 256, where the form stops).
+//                       A consumer forms S and dp as two m64n64 accumulators
+//                       (S masked block-diagonally), p, D and dS in registers,
+//                       dq̂ with dS as A fragments and k̂ read MN-major, and,
+//                       from bf16 p and dS written into its own swizzled 64 x
+//                       64 tiles, dv = pᵀ·do and dk̂ = dSᵀ·q̂ with A read
+//                       MN-major (the transpose flags): 5 products, each
+//                       tensor read or written once, no scratch. Masked p and
+//                       dS are exactly 0, so the transposed products sum
+//                       within a window-head. Outputs go out as kernel 21's:
+//                       staging rows (here the stage's k̂, do and q̂ tiles as
+//                       their last product retires), one bulk copy of the
+//                       live rows each.
+//   n > 64, or DP > 128  rows: two launches, the scratch 12 bytes a query row
+//                       (each row's max, 1 / Σ e and D, 64 rows a query
+//                       tile). The query pass (win_bwd_q_kernel) takes kernel
+//                       21's row form: a work item is a pass of two query
+//                       tiles (q̂ and do in a consumer's slot) over the
+//                       window-head's key tiles of NK keys (128 at DP <= 128,
+//                       else 64, 32 past DP 192). One tile (n <= NK): whole
+//                       rows of S and dp in registers, one walk of 3
+//                       products. More: a statistics walk (S, dp: the running
+//                       max, Σ e and Σ e·dp), then a walk that forms p, dS
+//                       and dq̂ in slices of 64 keys (S and dp of 128 keys
+//                       beside dq̂ would take 192 registers). The key pass
+//                       (win_bwd_kv_kernel) is kernel 16's: a work item owns
+//                       64 keys a consumer and walks the query tiles, Sᵀ =
+//                       k̂·q̂ᵀ, pᵀ from the statistics, dpᵀ = v·doᵀ, dv and dk̂
+//                       fp32 sums in registers (4 products a step), and from
+//                       DP 128, where both sums do not fit a consumer's
+//                       registers, the same 64 keys in both consumers, dv in
+//                       one and dk̂ in the other (5 a step).
 //
-// What bounds 22b and 22t: the bytes, about 5 to 7 (BW·h·n·d) bf16 tensors
-// a call; their recomputed products (22b: 9 against the TPU kernel's 5,
-// 22t: 8 against 5) cost tensor-core time that a wgmma/TMA design would
-// win back. All three take any n >= 1 and d <= 256; q̂, k̂, v, do and the
-// tangents contiguous and 16-byte aligned.
+// It departs from kernel 21's forms in the packed stage (do beside q̂, k̂ and
+// v, and fewer stages), in one q̂/do slot a consumer in the query pass (two
+// of q̂ and do would leave one key stage at DP 128), and in the key pass,
+// which kernel 21 has no need of. The key pass's p comes from another wgmma
+// orientation and exp(S − m) / Σ e, so it may differ from the query pass's
+// in the last bit.
+//
+// Kernel 22t walks T-row tiles (T = 64 for d <= 128, else 32), with one block
+// per (window·head, row tile) and products on the tensor cores (WMMA
+// 16x16x16, operands and fp32 accumulators in shared memory): two passes over
+// the key tiles, the first forms m, l and E = Σ p·dS (dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ),
+// the second dP = p (dS − E) and do = bf16(dP)·v + bf16(p)·dv. No scratch.
+// What bounds it: the bytes, 7 (BW·h·n·d) bf16 tensors a call; its 8
+// recomputed products against the TPU kernel's 5 cost tensor-core time that
+// a wgmma/TMA design would win back. All three kernels take any n >= 1 and d
+// <= 256; q̂, k̂, v, do and the tangents contiguous and 16-byte aligned.
 #include <climits>
 #include <type_traits>
 
@@ -100,11 +144,9 @@ struct WinCfg {
   static constexpr int PTILE = round128(T * PLD * 2);
   static constexpr int OTILE = round128(T * OLD * 4);
   static constexpr int STATS = round128(3 * T * 4);
-  static constexpr int BWD_Q = 4 * TILE + 2 * STILE + PTILE + OTILE + STATS;      // 22b, queries
-  static constexpr int BWD_KV = 4 * TILE + 2 * STILE + 2 * PTILE + 2 * OTILE + STATS;  // keys
   static constexpr int TAN = 6 * TILE + 2 * STILE + 2 * PTILE + OTILE + STATS;    // 22t
   static_assert(DP % 16 == 0 && DP <= 256, "head width");
-  static_assert(BWD_Q <= kMaxSmem && BWD_KV <= kMaxSmem && TAN <= kMaxSmem, "shared memory");
+  static_assert(TAN <= kMaxSmem, "shared memory");
 };
 
 // Rows r0 .. r0+ROWS of the (n, d) bf16 matrix ``src`` (row stride d) into
@@ -291,29 +333,50 @@ __device__ __forceinline__ void win_mask(float (&s)[N / 2], const int (&lo)[2], 
   }
 }
 
+// Whole rows of a 64 x N logit tile in registers turned in place into p =
+// e / Σe in fp32 (rounded to bf16 only as an operand, later); each row's max
+// m (of the logits) and 1 / Σe for rows r and r + 8.
+template <int N>
+__device__ __forceinline__ void win_probs(float (&s)[N / 2], float (&m)[2], float (&il)[2]) {
+  float l[2] = {0.f, 0.f}, ms[2];
+  m[0] = m[1] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] = quad_max(m[h]);
+    ms[h] = m[h] * kWinLog2e;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    s[i] = exp2f(fmaf(s[i], kWinLog2e, -ms[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) il[h] = 1.0f / quad_sum(l[h]);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] *= il[(i >> 1) & 1];
+}
+
+// A 64 x N accumulator rounded to bf16 as the A fragments of its N/16 k16
+// slices (wgmma_m64nNk16_rs's layout).
+template <int N>
+__device__ __forceinline__ void win_frags(const float (&x)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int k = 0; k < N / 16; ++k)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[k][q] = pack_bf16x2(x[8 * k + 2 * q], x[8 * k + 2 * q + 1]);
+}
+
 // The softmax of whole rows of a 64 x N logit tile in registers: p = e / Σe
 // normalised in fp32 before it is rounded to bf16 (the TPU kernel's rounding
 // point), as the A fragments of the N/16 k16 slices of p·v (the m64nN
 // accumulator's layout is theirs).
 template <int N>
 __device__ __forceinline__ void win_softmax(float (&s)[N / 2], uint32_t (&p)[N / 16][4]) {
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) m[h] = quad_max(m[h]) * kWinLog2e;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    s[i] = exp2f(fmaf(s[i], kWinLog2e, -m[(i >> 1) & 1]));
-    l[(i >> 1) & 1] += s[i];
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = 1.0f / quad_sum(l[h]);
-#pragma unroll
-  for (int k = 0; k < N / 16; ++k)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      p[k][q] = pack_bf16x2(s[8 * k + 2 * q] * l[q & 1], s[8 * k + 2 * q + 1] * l[q & 1]);
+  float m[2], il[2];
+  win_probs<N>(s, m, il);
+  win_frags<N>(s, p);
 }
 
 // One key tile of the online softmax: each row's running max m and this
@@ -729,182 +792,676 @@ __global__ void __launch_bounds__(kWinFwdThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 22b, query pass: per query tile, each row's max m, sum l and
-// D = Σ p·dp into ``stats`` ((BW·h, 3, n) fp32), then dq̂ = bf16(dS)·k̂.
-template <int DP>
-__global__ void __launch_bounds__(kWinNT)
-    win_attn_bwd_q_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          bf16* __restrict__ dq, float* __restrict__ stats, int n, int d) {
-  using C = WinCfg<DP>;
-  constexpr int T = C::T, NW = kWinNT / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + C::TILE);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + 2 * C::TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 3 * C::TILE);
-  float* Ss = reinterpret_cast<float*>(smem + 4 * C::TILE);
-  float* dPs = reinterpret_cast<float*>(smem + 4 * C::TILE + C::STILE);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + 4 * C::TILE + 2 * C::STILE);
-  float* dQs = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::STILE + C::PTILE);
-  float* mrow =
-      reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::STILE + C::PTILE + C::OTILE);
-  float* lrow = mrow + T;
-  float* drow = lrow + T;
+// Kernel 22b on wgmma: (dq̂, dk̂, dv) of kernel 21 (the forms are in the header).
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)blockIdx.x * n * d;
-  const int q0 = blockIdx.y * T;
-  load_win_rows<T, DP, C::LD>(Qs, q + base, q0, n, d);
-  load_win_rows<T, DP, C::LD>(dOs, dout + base, q0, n, d);
-  for (int i = threadIdx.x; i < T * C::OLD; i += kWinNT) dQs[i] = 0.0f;
-  for (int r = threadIdx.x; r < T; r += kWinNT) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.0f;
-    drow[r] = 0.0f;
-  }
-  // first walk: the statistics, online
-  for (int k0 = 0; k0 < n; k0 += T) {
-    load_win_rows<T, DP, C::LD>(Ks, k + base, k0, n, d);
-    load_win_rows<T, DP, C::LD>(Vs, v + base, k0, n, d);
-    __syncthreads();
-    block_mma<RowM, ColM>(Ss, C::SLD, Qs, C::LD, Ks, C::LD, T, T, DP, false);   // q̂·k̂ᵀ
-    block_mma<RowM, ColM>(dPs, C::SLD, dOs, C::LD, Vs, C::LD, T, T, DP, false); // do·vᵀ
-    __syncthreads();
-    const int kn = min(T, n - k0);
-    for (int r = warp; r < T; r += NW) {
-      float s[T / 32], dp[T / 32];
-      float mx = -INFINITY;
+// dS = p (dp − D) of whole rows, D = Σ p·dp in fp32 from the fp32 p (quad
+// shuffles), written over dp; D returned for rows r and r + 8. Where p is 0
+// (a masked key), dS is 0.
+template <int N>
+__device__ __forceinline__ void win_ds(const float (&p)[N / 2], float (&dp)[N / 2], float (&D)[2]) {
+  float a[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const int j = lane + 32 * i;
-        s[i] = j < kn ? Ss[r * C::SLD + j] : -INFINITY;
-        dp[i] = dPs[r * C::SLD + j];
-        mx = fmaxf(mx, s[i]);
-      }
-      mx = warp_max(mx);
-      const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      float sum = 0.0f, pdp = 0.0f;
+  for (int i = 0; i < N / 2; ++i) a[(i >> 1) & 1] += p[i] * dp[i];
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const float e = expf(s[i] - m_new);
-        sum += e;
-        pdp += e * dp[i];
-      }
-      sum = warp_sum(sum);
-      pdp = warp_sum(pdp);
-      __syncwarp();
-      if (lane == 0) {
-        mrow[r] = m_new;
-        lrow[r] = lrow[r] * alpha + sum;
-        drow[r] = drow[r] * alpha + pdp;
-      }
-    }
-    __syncthreads();
-  }
-  float* st = stats + (size_t)blockIdx.x * 3 * n;
-  for (int r = threadIdx.x; r < T; r += kWinNT) {
-    drow[r] /= lrow[r];
-    if (q0 + r < n) {
-      st[q0 + r] = mrow[r];
-      st[n + q0 + r] = lrow[r];
-      st[2 * n + q0 + r] = drow[r];
-    }
-  }
-  __syncthreads();
-  // second walk: dS = p (dp − D) rounded to bf16, dq̂ += dS·k̂
-  for (int k0 = 0; k0 < n; k0 += T) {
-    load_win_rows<T, DP, C::LD>(Ks, k + base, k0, n, d);
-    load_win_rows<T, DP, C::LD>(Vs, v + base, k0, n, d);
-    __syncthreads();
-    block_mma<RowM, ColM>(Ss, C::SLD, Qs, C::LD, Ks, C::LD, T, T, DP, false);
-    block_mma<RowM, ColM>(dPs, C::SLD, dOs, C::LD, Vs, C::LD, T, T, DP, false);
-    __syncthreads();
-    const int kn = min(T, n - k0);
-    for (int r = warp; r < T; r += NW) {
-      const float m = mrow[r], inv_l = 1.0f / lrow[r], D = drow[r];
+  for (int h = 0; h < 2; ++h) D[h] = quad_sum(a[h]);
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const int j = lane + 32 * i;
-        const float s = Ss[r * C::SLD + j];
-        const float p = j < kn ? expf(s - m) * inv_l : 0.0f;
-        dSs[r * C::PLD + j] = __float2bfloat16_rn(p * (dPs[r * C::SLD + j] - D));
-      }
-    }
-    __syncthreads();
-    block_mma<RowM, RowM>(dQs, C::OLD, dSs, C::PLD, Ks, C::LD, T, DP, T, true);
-    __syncthreads();
-  }
-  store_win_rows<T, DP, C::OLD>(dq + base, dQs, nullptr, q0, n, d);
+  for (int i = 0; i < N / 2; ++i) dp[i] = p[i] * (dp[i] - D[(i >> 1) & 1]);
 }
 
-// Kernel 22b, key pass: per key tile, dv = Σ bf16(p)ᵀ·do and
-// dk̂ = Σ bf16(dS)ᵀ·q̂ over the query tiles, p and dS rebuilt from the
-// query pass's statistics.
-template <int DP>
-__global__ void __launch_bounds__(kWinNT)
-    win_attn_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                           const float* __restrict__ stats, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int n, int d) {
-  using C = WinCfg<DP>;
-  constexpr int T = C::T, NW = kWinNT / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + C::TILE);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + 2 * C::TILE);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + 3 * C::TILE);
-  float* Ss = reinterpret_cast<float*>(smem + 4 * C::TILE);
-  float* dPs = reinterpret_cast<float*>(smem + 4 * C::TILE + C::STILE);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + 4 * C::TILE + 2 * C::STILE);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + 4 * C::TILE + 2 * C::STILE + C::PTILE);
-  float* dKs = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::STILE + 2 * C::PTILE);
-  float* dVs = dKs + C::OTILE / 4;
-  float* mrow = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::STILE + 2 * C::PTILE +
-                                         2 * C::OTILE);
-  float* lrow = mrow + T;
-  float* drow = lrow + T;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)blockIdx.x * n * d;
-  const int k0 = blockIdx.y * T;
-  const int kn = min(T, n - k0);
-  const float* st = stats + (size_t)blockIdx.x * 3 * n;
-  load_win_rows<T, DP, C::LD>(Ks, k + base, k0, n, d);
-  load_win_rows<T, DP, C::LD>(Vs, v + base, k0, n, d);
-  for (int i = threadIdx.x; i < T * C::OLD; i += kWinNT) dKs[i] = dVs[i] = 0.0f;
-  for (int q0 = 0; q0 < n; q0 += T) {
-    load_win_rows<T, DP, C::LD>(Qs, q + base, q0, n, d);
-    load_win_rows<T, DP, C::LD>(dOs, dout + base, q0, n, d);
-    for (int r = threadIdx.x; r < T; r += kWinNT) {
-      const bool live = q0 + r < n;
-      mrow[r] = live ? st[q0 + r] : 0.0f;
-      lrow[r] = live ? st[n + q0 + r] : 1.0f;
-      drow[r] = live ? st[2 * n + q0 + r] : 0.0f;
-    }
-    __syncthreads();
-    block_mma<RowM, ColM>(Ss, C::SLD, Qs, C::LD, Ks, C::LD, T, T, DP, false);   // q̂·k̂ᵀ
-    block_mma<RowM, ColM>(dPs, C::SLD, dOs, C::LD, Vs, C::LD, T, T, DP, false); // do·vᵀ
-    __syncthreads();
-    const int qn = min(T, n - q0);
-    for (int r = warp; r < T; r += NW) {
-      const float m = mrow[r], inv_l = 1.0f / lrow[r], D = drow[r];
+// A 64 x 64 accumulator rounded to bf16 into ``tile`` as TMA's 128-byte
+// swizzle lays a 64-column box (row i at i·128 bytes, 16-byte chunk j at
+// (j ^ (i % 8))·16): its rows are K, its columns M of the transposed A that
+// wgmma_desc_mn_a reads.
+__device__ __forceinline__ void win_tile_store(unsigned char* tile, const float (&x)[32], int tid) {
+  const int r = win_acc_row(tid), q4 = tid % 4;
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const int j = lane + 32 * i;
-        const float p = r < qn && j < kn ? expf(Ss[r * C::SLD + j] - m) * inv_l : 0.0f;
-        Ps[r * C::PLD + j] = __float2bfloat16_rn(p);
-        dSs[r * C::PLD + j] = __float2bfloat16_rn(p * (dPs[r * C::SLD + j] - D));
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + (r + 8 * h) * 128 + ((j ^ (r % 8)) << 4) + q4 * 4) =
+          pack_bf16x2(x[4 * j + 2 * h], x[4 * j + 2 * h + 1]);
+}
+
+// acc = Xᵀ·Y over a tile's 64 rows: X a 64 x 64 bf16 tile (win_tile_store's
+// layout) read as the transposed A, Y's NO columns read MN-major from its
+// boxes (``box`` bytes apart), so the tile's columns (keys) are M and its
+// rows (queries) K.
+template <int NO>
+__device__ __forceinline__ void win_tn(float (&acc)[NO / 2], const unsigned char* X,
+                                       const unsigned char* Y, int box) {
+  static_assert(NO <= 128, "one wgmma width");
+  const uint64_t a = wgmma_desc_mn_a(X), b = wgmma_desc_mn(Y, box);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wgmma_m64nNk16<NO, 1, 1>(acc, a + 128 * k, b + 128 * k, k > 0);
+}
+
+// The packed form, n <= 64 at DP <= 128: tiles of G = 64 / n whole
+// window-heads as kernel 21's, each with q̂, k̂, v and do in one stage of a
+// ring that both consumers take tiles from in turn (tile i of the block to
+// consumer i % 2). A consumer's p and dS tiles sit before the stages. Its
+// outputs are staged in the stage's tiles as their last reader retires: dq̂
+// in k̂'s, dv in do's, dk̂ in q̂'s; the stage is handed back once the bulk
+// copies have read them (after the consumer's next S and dp are issued), so
+// a consumer's two tiles in a row, i and i + 2, must lie in different stages:
+// at least three (two stages hang).
+template <int DP>
+struct WinBwdPacked {
+  static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
+  static constexpr int BOX = 64 * 128;                // one 64-row box
+  static constexpr int TILE = NBOX * BOX;             // q̂, k̂, v or do of a tile
+  static constexpr int STAGE = 4 * TILE;
+  static constexpr int PT = 64 * 128;                 // a 64 x 64 bf16 tile of p or dS
+  static constexpr int ST_OFF = 2 * 2 * PT;           // [consumer][p, dS], then the stages
+  static constexpr int FIT = (kMaxSmem - 1024 - ST_OFF - 16 * 8) / STAGE;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int BAR_OFF = ST_OFF + STAGES * STAGE;
+  static constexpr int SMEM = 1024 + BAR_OFF + 2 * STAGES * 8;
+  static_assert(DP <= 128 && STAGES >= 3 && SMEM <= kMaxSmem, "the packed backward's buffers");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_bwd_packed_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo, const bf16* __restrict__ q,
+                          const bf16* __restrict__ k, const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int R, int n, int d,
+                          int tile_rows, int tiles) {
+  using L = WinBwdPacked<DP>;
+  constexpr int NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO, S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + S;
+  const bool tma = d % 8 == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], tma ? 1 : 128);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+      tma_prefetch(&mdo);
+    }
+    for (int i = 0, item = blockIdx.x; item < tiles; ++i, item += gridDim.x) {
+      const int s = i % S, row0 = item * tile_rows;
+      unsigned char* st = smem + L::ST_OFF + s * L::STAGE;
+      mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+      win_fill(&full[s], L::STAGE, tma, [&] {
+        win_load<64, NBOX>(st, &mq, q, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + L::TILE, &mk, k, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 2 * L::TILE, &mv, v, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 3 * L::TILE, &mdo, dout, row0, R, d, &full[s], tma, tid);
+      });
+    }
+    return;
+  }
+  setmaxnreg_inc<208>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int q4 = tid % 4, r = win_acc_row(tid);
+  unsigned char* P = smem + c * 2 * L::PT;
+  unsigned char* DS = P + L::PT;
+  int lo[2], hi[2];  // each row sees the keys of its own window-head
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lo[h] = (r + 8 * h) / n * n;
+    hi[h] = lo[h] + n;
+  }
+  int pend = -1;  // the stage whose output copies are in flight
+  for (int i = c, item = blockIdx.x + c * gridDim.x; item < tiles;
+       i += 2, item += 2 * gridDim.x) {
+    const int s = i % S, row0 = item * tile_rows;
+    const int live = min(tile_rows, R - row0);
+    unsigned char* Q = smem + L::ST_OFF + s * L::STAGE;
+    unsigned char *K = Q + L::TILE, *V = Q + 2 * L::TILE, *DO = Q + 3 * L::TILE;
+    mbar_wait(&full[s], (i / S) & 1);
+    float sc[32], dp[32];
+    wgmma_fence();
+    win_qk<DP, 64>(sc, Q, L::BOX, K, L::BOX);   // S = q̂·k̂ᵀ
+    win_qk<DP, 64>(dp, DO, L::BOX, V, L::BOX);  // dp = do·vᵀ
+    wgmma_commit();
+    if (pend >= 0) {  // the previous tile's stage, once its output copies have read it
+      if (tid == 0) {
+        tma_store_wait_read<0>();
+        mbar_arrive(&empty[pend]);
+      }
+      pend = -1;
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    if (n != 64) win_mask<64>(sc, lo, hi, q4);
+    float m[2], il[2], D[2];
+    win_probs<64>(sc, m, il);
+    win_ds<64>(sc, dp, D);
+    uint32_t a[4][4];
+    win_frags<64>(dp, a);
+    win_tile_store(P, sc, tid);
+    win_tile_store(DS, dp, tid);
+    fence_async_smem();
+    named_barrier_sync(1 + c, 128);  // p and dS in place for the transposed products
+    float oq[NO / 2], ov[NO / 2], ok[NO / 2];
+    wgmma_fence();
+    win_pv<64, NO>(oq, a, K, L::BOX, false);  // dq̂ = bf16(dS)·k̂
+    wgmma_commit();
+    win_tn<NO>(ov, P, DO, L::BOX);  // dv = bf16(p)ᵀ·do
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(oq);
+    win_store<NO>(oq, reinterpret_cast<bf16*>(K), dq, row0, live, d, tma, c, tid);
+    wgmma_fence();
+    win_tn<NO>(ok, DS, Q, L::BOX);  // dk̂ = bf16(dS)ᵀ·q̂
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(ov);
+    win_store<NO>(ov, reinterpret_cast<bf16*>(DO), dv, row0, live, d, tma, c, tid);
+    wgmma_wait<0>();
+    fence_regs(ok);
+    win_store<NO>(ok, reinterpret_cast<bf16*>(Q), dk, row0, live, d, tma, c, tid);
+    if (tma) {
+      pend = s;
+    } else {
+      named_barrier_sync(1 + c, 128);
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+  }
+  if (tid == 0) {
+    if (pend >= 0) {
+      tma_store_wait_read<0>();
+      mbar_arrive(&empty[pend]);
+    }
+    tma_store_wait_all();
+  }
+}
+
+// The query pass of the row form (n > 64, or DP > 128): a work item is one
+// pass of two query tiles of a window-head (consumer c takes tile 2 p + c,
+// its q̂ and do in its slot), which walks the window-head's T = ceil(n / NK)
+// key tiles of k̂ and v through a ring that both consumers read. T = 1: S
+// and dp of whole rows in registers, p normalised, dS and dq̂ in one walk.
+// T > 1: a statistics walk (S and dp: the running max, Σ e and Σ e·dp),
+// then a walk that forms p, dS and dq̂ in key slices of KW. Each query row's
+// max, 1 / Σ e and D go to the scratch, 64 rows of each a query tile, for
+// the key pass; dq̂ is staged in the slot's q̂ tile.
+template <int DP>
+struct WinBwdQ {
+  static constexpr int NK = DP <= 128 ? 128 : (DP <= 192 ? 64 : 32);  // keys a stage holds
+  static constexpr int KW = NK < 64 ? NK : 64;  // keys a product of the second walk takes
+  static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
+  static constexpr int BOX = 64 * 128, TILE = NBOX * BOX;   // 64 query rows
+  static constexpr int KBOX = NK * 128, KTILE = NBOX * KBOX;
+  static constexpr int SLOT = 2 * TILE;  // a consumer's q̂, then do
+  static constexpr int KV_OFF = 2 * SLOT;
+  static constexpr int STAGE = 2 * KTILE;  // k̂, then v
+  static constexpr int FIT = (kMaxSmem - 1024 - KV_OFF - 16 * 8) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int BAR_OFF = KV_OFF + STAGES * STAGE;
+  static constexpr int SMEM = 1024 + BAR_OFF + (4 + 2 * STAGES) * 8;
+  static_assert(STAGES >= 2 && SMEM <= kMaxSmem, "the query pass's buffers do not fit");
+};
+
+// The statistics walk's update from one key tile: each row's running max m,
+// this thread's shares of Σ e (l) and Σ e·dp (x), rescaled by exp(m_old −
+// m_new) (0 on the first tile).
+template <int N>
+__device__ __forceinline__ void win_stats(const float (&s)[N / 2], const float (&dp)[N / 2],
+                                          float (&m)[2], float (&l)[2], float (&x)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);
+    const float alpha = exp2f((m[h] - mx[h]) * kWinLog2e);
+    l[h] *= alpha;
+    x[h] *= alpha;
+    m[h] = mx[h];
+    mx[h] *= kWinLog2e;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float e = exp2f(fmaf(s[i], kWinLog2e, -mx[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += e;
+    x[(i >> 1) & 1] += e * dp[i];
+  }
+}
+
+// The second walk's dS = p (dp − D), p = exp(s − m) / Σ e from the rows'
+// statistics, 0 for keys at or past ``kn``; written over dp.
+template <int N>
+__device__ __forceinline__ void win_grad(const float (&s)[N / 2], float (&dp)[N / 2],
+                                         const float (&m)[2], const float (&il)[2],
+                                         const float (&D)[2], int kn, int q4) {
+  const float ms[2] = {m[0] * kWinLog2e, m[1] * kWinLog2e};
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int col = 8 * (i >> 2) + 2 * q4 + (i & 1), h = (i >> 1) & 1;
+    const float p = col < kn ? exp2f(fmaf(s[i], kWinLog2e, -ms[h])) * il[h] : 0.0f;
+    dp[i] = p * (dp[i] - D[h]);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_bwd_q_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mdo, const bf16* __restrict__ q,
+                     const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                     float* __restrict__ stats, int R, int n, int d, int bh) {
+  using L = WinBwdQ<DP>;
+  constexpr int NK = L::NK, KW = L::KW, NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO;
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* k_empty = k_full + S;
+  const bool tma = d % 8 == 0;
+  const int QT = (n + 63) / 64, P = (QT + 1) / 2, T = (n + NK - 1) / NK, W = T > 1 ? 2 : 1;
+  const int items = bh * P;
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&q_full[c], tma ? 1 : 128);
+      mbar_init(&q_empty[c], 1);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], tma ? 1 : 128);
+      mbar_init(&k_empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mdo);
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+    }
+    int kv = 0, qn[2] = {0, 0};
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int base = item / P * n, p = item % P;
+      for (int c = 0; c < 2; ++c) {
+        if (2 * p + c >= QT) continue;
+        const int row = base + 64 * (2 * p + c);
+        unsigned char* Qs = smem + c * L::SLOT;
+        mbar_wait(&q_empty[c], (qn[c]++ & 1) ^ 1);
+        win_fill(&q_full[c], L::SLOT, tma, [&] {
+          win_load<64, NBOX>(Qs, &mq, q, row, R, d, &q_full[c], tma, tid);
+          win_load<64, NBOX>(Qs + L::TILE, &mdo, dout, row, R, d, &q_full[c], tma, tid);
+        });
+      }
+      for (int w = 0; w < W; ++w)
+        for (int j = 0; j < T; ++j, ++kv) {
+          const int s = kv % S;
+          unsigned char* Kt = smem + L::KV_OFF + s * L::STAGE;
+          mbar_wait(&k_empty[s], ((kv / S) & 1) ^ 1);
+          win_fill(&k_full[s], L::STAGE, tma, [&] {
+            win_load<NK, NBOX>(Kt, &mk, k, base + j * NK, R, d, &k_full[s], tma, tid);
+            win_load<NK, NBOX>(Kt + L::KTILE, &mv, v, base + j * NK, R, d, &k_full[s], tma, tid);
+          });
+        }
+    }
+    return;
+  }
+  setmaxnreg_inc<208>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int q4 = tid % 4, r = win_acc_row(tid);
+  unsigned char* Qs = smem + c * L::SLOT;
+  const unsigned char* DOs = Qs + L::TILE;
+  int kv = 0, qn = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, kv += W * T) {
+    const int wh = item / P, qt = 2 * (item % P) + c;
+    const bool have = qt < QT;
+    if (have) mbar_wait(&q_full[c], qn & 1);
+    float oq[NO / 2], m[2], il[2], D[2];
+    auto stage = [&](int j) {  // the key tile of the walks' j-th stage, once it has landed
+      const int s = (kv + j) % S;
+      mbar_wait(&k_full[s], ((kv + j) / S) & 1);
+      return s;
+    };
+    // each group of products is issued and waited for within one block: a
+    // wgmma in flight across a branch sends its registers to local memory
+    if (T == 1) {  // one walk: whole rows of S and dp
+      const int s = stage(0);
+      const unsigned char* Kt = smem + L::KV_OFF + s * L::STAGE;
+      if (have) {
+        float sc[NK / 2], dp[NK / 2];
+        wgmma_fence();
+        win_qk<DP, NK>(sc, Qs, L::BOX, Kt, L::KBOX);
+        win_qk<DP, NK>(dp, DOs, L::BOX, Kt + L::KTILE, L::KBOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        if (n < NK) {
+          const int lo[2] = {0, 0}, hi[2] = {n, n};
+          win_mask<NK>(sc, lo, hi, q4);
+        }
+        win_probs<NK>(sc, m, il);
+        win_ds<NK>(sc, dp, D);
+        uint32_t a[NK / 16][4];
+        win_frags<NK>(dp, a);
+        wgmma_fence();
+        win_pv<NK, NO>(oq, a, Kt, L::KBOX, false);  // dq̂ = bf16(dS)·k̂
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(oq);
+      }
+      win_release(&k_empty[s]);
+    } else {
+      float l[2] = {0.f, 0.f}, x[2] = {0.f, 0.f};
+      m[0] = m[1] = -INFINITY;
+      for (int j = 0; j < T; ++j) {  // the statistics
+        const int s = stage(j);
+        const unsigned char* Kt = smem + L::KV_OFF + s * L::STAGE;
+        if (have) {
+          float sc[NK / 2], dp[NK / 2];
+          wgmma_fence();
+          win_qk<DP, NK>(sc, Qs, L::BOX, Kt, L::KBOX);
+          win_qk<DP, NK>(dp, DOs, L::BOX, Kt + L::KTILE, L::KBOX);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(dp);
+          win_release(&k_empty[s]);  // S and dp are in registers
+          if (j * NK + NK > n) {  // keys past the window-head
+            const int lo[2] = {0, 0}, hi[2] = {n - j * NK, n - j * NK};
+            win_mask<NK>(sc, lo, hi, q4);
+          }
+          win_stats<NK>(sc, dp, m, l, x);
+        } else {
+          win_release(&k_empty[s]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sum = quad_sum(l[h]);
+        il[h] = 1.0f / sum;
+        D[h] = quad_sum(x[h]) / sum;
+      }
+      for (int j = 0; j < T; ++j) {  // p, dS and dq̂
+        const int s = stage(T + j);
+        const unsigned char* Kt = smem + L::KV_OFF + s * L::STAGE;
+#pragma unroll 1
+        for (int sub = 0; sub < NK / KW && j * NK + sub * KW < n; ++sub) {
+          const unsigned char* Ks = Kt + sub * KW * 128;
+          if (have) {
+            float sc[KW / 2], dp[KW / 2];
+            wgmma_fence();
+            win_qk<DP, KW>(sc, Qs, L::BOX, Ks, L::KBOX);
+            win_qk<DP, KW>(dp, DOs, L::BOX, Ks + L::KTILE, L::KBOX);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(sc);
+            fence_regs(dp);
+            win_grad<KW>(sc, dp, m, il, D, n - j * NK - sub * KW, q4);
+            uint32_t a[KW / 16][4];
+            win_frags<KW>(dp, a);
+            wgmma_fence();
+            win_pv<KW, NO>(oq, a, Ks, L::KBOX, j > 0 || sub > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(oq);
+          }
+        }
+        win_release(&k_empty[s]);
       }
     }
-    __syncthreads();
-    block_mma<ColM, RowM>(dVs, C::OLD, Ps, C::PLD, dOs, C::LD, T, DP, T, true);  // + pᵀ·do
-    block_mma<ColM, RowM>(dKs, C::OLD, dSs, C::PLD, Qs, C::LD, T, DP, T, true);  // + dSᵀ·q̂
-    __syncthreads();
+    if (!have) continue;
+    float* st = stats + ((size_t)wh * QT + qt) * 3 * 64;  // [m, 1/Σe, D][64]
+    if (q4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        st[r + 8 * h] = m[h];
+        st[64 + r + 8 * h] = il[h];
+        st[128 + r + 8 * h] = D[h];
+      }
+    }
+    win_store<NO>(oq, reinterpret_cast<bf16*>(Qs), dq, (size_t)wh * n + 64 * qt,
+                  min(64, n - 64 * qt), d, tma, c, tid);
+    if (!tma) named_barrier_sync(1 + c, 128);
+    if (tid == 0) {
+      tma_store_wait_read<0>();  // the copy has read the slot
+      mbar_arrive(&q_empty[c]);
+    }
+    ++qn;
   }
-  store_win_rows<T, DP, C::OLD>(dk + base, dKs, nullptr, k0, n, d);
-  store_win_rows<T, DP, C::OLD>(dv + base, dVs, nullptr, k0, n, d);
+  if (tid == 0) tma_store_wait_all();
+}
+
+// The key pass of the row form, kernel 16's design without its normalise: a
+// work item owns KEYS keys of a window-head, k̂ and v in one of two buffers,
+// and walks the window-head's query tiles through a ring of stages (q̂, do
+// and the rows' statistics) that both consumers read. Each step forms
+// Sᵀ = k̂·q̂ᵀ (keys as M) and pᵀ = exp(Sᵀ − m) / Σ e from the statistics,
+// 0 for queries past n, and adds dv += bf16(pᵀ)·do and, with dpᵀ = v·doᵀ,
+// dk̂ += bf16(pᵀ (dpᵀ − D))·q̂: A from registers, do and q̂ read MN-major, the
+// sums fp32 in registers across the walk. Where DP < 128 a consumer owns 64
+// keys and both sums (4 products a step); from DP 128 both consumers take
+// the same 64 keys, consumer 0 dv and consumer 1 dk̂ (5 products a step, Sᵀ
+// twice): both sums with Sᵀ and dpᵀ would take 192 registers. The outputs
+// are staged in the item's k̂ and v tiles, and the buffer is handed back once
+// the copies have read them (after the next item's first step).
+template <int DP>
+struct WinBwdKV {
+  static constexpr bool SPLIT = DP >= 128;
+  static constexpr int KEYS = SPLIT ? 64 : 128;
+  static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
+  static constexpr int BOX = 64 * 128, TILE = NBOX * BOX;  // 64 rows
+  static constexpr int KV = 2 * (KEYS / 64) * TILE;        // k̂ tiles, then v tiles
+  static constexpr int STATS = 3 * 64 * 4;
+  static constexpr int STAGE = 2 * TILE + 1024;            // q̂, do, the statistics
+  static constexpr int ST_OFF = 2 * KV;
+  static constexpr int FIT = (kMaxSmem - 1024 - ST_OFF - 16 * 8) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int BAR_OFF = ST_OFF + STAGES * STAGE;
+  static constexpr int SMEM = 1024 + BAR_OFF + (4 + 2 * STAGES) * 8;
+  static_assert(STAGES >= 1 && SMEM <= kMaxSmem, "the key pass's buffers do not fit");
+};
+
+// One step of the key pass (DV: dv, DK: dk̂) over a stage's 64 queries, ``qn``
+// of them live.
+template <int DP, bool DV, bool DK, int NO = WinFwdWidth<DP>::NO>
+__device__ __forceinline__ void win_kv_step(float (&av)[NO / 2], float (&ak)[NO / 2],
+                                            const unsigned char* Kc, const unsigned char* Vc,
+                                            const unsigned char* st, int qn, int q4) {
+  using L = WinBwdKV<DP>;
+  const unsigned char* Q = st;
+  const unsigned char* DO = st + L::TILE;
+  const float* sm = reinterpret_cast<const float*>(st + 2 * L::TILE);  // [m, 1/Σe, D][64]
+  float s[32], dp[DK ? 32 : 1];
+  wgmma_fence();
+  win_qk<DP, 64>(s, Kc, L::BOX, Q, L::BOX);                       // Sᵀ = k̂·q̂ᵀ
+  if constexpr (DK) win_qk<DP, 64>(dp, Vc, L::BOX, DO, L::BOX);  // dpᵀ = v·doᵀ
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  if constexpr (DK) fence_regs(dp);
+  // s[8 k + 2 q + e] is query 16 k + 8 (q / 2) + 2 q4 + e of the A fragments' k16 slice k
+  uint32_t ap[DV ? 4 : 1][4], ad[DK ? 4 : 1][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int i = 8 * kk + 2 * qq, col = 16 * kk + 8 * (qq >> 1) + 2 * q4;
+      const float2 m = *reinterpret_cast<const float2*>(sm + col);
+      const float2 il = *reinterpret_cast<const float2*>(sm + 64 + col);
+      const float p0 =
+          col < qn ? exp2f(fmaf(s[i], kWinLog2e, -m.x * kWinLog2e)) * il.x : 0.0f;
+      const float p1 =
+          col + 1 < qn ? exp2f(fmaf(s[i + 1], kWinLog2e, -m.y * kWinLog2e)) * il.y : 0.0f;
+      if constexpr (DV) ap[kk][qq] = pack_bf16x2(p0, p1);
+      if constexpr (DK) {
+        const float2 D = *reinterpret_cast<const float2*>(sm + 128 + col);
+        ad[kk][qq] = pack_bf16x2(p0 * (dp[i] - D.x), p1 * (dp[i + 1] - D.y));
+      }
+    }
+  wgmma_fence();
+  if constexpr (DV) win_pv<64, NO>(av, ap, DO, L::BOX, true);  // dv += bf16(pᵀ)·do
+  if constexpr (DK) win_pv<64, NO>(ak, ad, Q, L::BOX, true);   // dk̂ += bf16(dSᵀ)·q̂
+  wgmma_commit();
+  wgmma_wait<0>();
+  if constexpr (DV) fence_regs(av);
+  if constexpr (DK) fence_regs(ak);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_bwd_kv_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mdo, const bf16* __restrict__ q,
+                      const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout, const float* __restrict__ stats,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int R, int n, int d, int bh) {
+  using L = WinBwdKV<DP>;
+  constexpr int NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO, S = L::STAGES, HALVES = L::KEYS / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + S;
+  const bool tma = d % 8 == 0;
+  const int QT = (n + 63) / 64, G = (n + L::KEYS - 1) / L::KEYS, items = bh * G;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kv_full[b], tma ? 1 : 128);
+      mbar_init(&kv_empty[b], 2);  // each consumer, once its copies have read the buffer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], tma ? 1 : 128);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+      tma_prefetch(&mq);
+      tma_prefetch(&mdo);
+    }
+    int qs = 0;
+    for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+      const int wh = item / G, base = wh * n, key0 = base + item % G * L::KEYS, b = it & 1;
+      unsigned char* Kb = smem + b * L::KV;
+      mbar_wait(&kv_empty[b], ((it >> 1) & 1) ^ 1);
+      win_fill(&kv_full[b], L::KV, tma, [&] {
+        for (int h = 0; h < HALVES; ++h) {
+          win_load<64, NBOX>(Kb + h * L::TILE, &mk, k, key0 + 64 * h, R, d, &kv_full[b], tma, tid);
+          win_load<64, NBOX>(Kb + (HALVES + h) * L::TILE, &mv, v, key0 + 64 * h, R, d,
+                             &kv_full[b], tma, tid);
+        }
+      });
+      for (int qt = 0; qt < QT; ++qt, ++qs) {
+        const int s = qs % S;
+        unsigned char* st = smem + L::ST_OFF + s * L::STAGE;
+        const float* src = stats + ((size_t)wh * QT + qt) * 3 * 64;
+        mbar_wait(&empty[s], ((qs / S) & 1) ^ 1);
+        win_fill(&full[s], 2 * L::TILE + L::STATS, tma, [&] {
+          win_load<64, NBOX>(st, &mq, q, base + 64 * qt, R, d, &full[s], tma, tid);
+          win_load<64, NBOX>(st + L::TILE, &mdo, dout, base + 64 * qt, R, d, &full[s], tma, tid);
+          float* dst = reinterpret_cast<float*>(st + 2 * L::TILE);
+          if (tma)
+            bulk_load(dst, src, L::STATS, &full[s]);
+          else
+            for (int i = tid; i < 3 * 64; i += 128) dst[i] = src[i];
+        });
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<208>();
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, q4 = tid % 4;
+  int qs = 0, pend = -1;  // pend: the buffer whose output copies are in flight
+  for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+    const int wh = item / G, b = it & 1;
+    const int kr0 = item % G * L::KEYS + (L::SPLIT ? 0 : 64 * c);  // the consumer's first key
+    unsigned char* Kc = smem + b * L::KV + (L::SPLIT ? 0 : c * L::TILE);
+    unsigned char* Vc = Kc + HALVES * L::TILE;
+    const bool keys = kr0 < n;
+    mbar_wait(&kv_full[b], (it >> 1) & 1);
+    float a0[NO / 2], a1[L::SPLIT ? 1 : NO / 2];
+#pragma unroll
+    for (int i = 0; i < NO / 2; ++i) a0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (L::SPLIT ? 1 : NO / 2); ++i) a1[i] = 0.f;
+#pragma unroll 1
+    for (int qt = 0; qt < QT; ++qt, ++qs) {
+      const int s = qs % S;
+      const unsigned char* st = smem + L::ST_OFF + s * L::STAGE;
+      mbar_wait(&full[s], (qs / S) & 1);
+      if (keys) {
+        const int qn = n - 64 * qt;
+        if constexpr (!L::SPLIT)
+          win_kv_step<DP, true, true>(a0, a1, Kc, Vc, st, qn, q4);
+        else if (c == 0)
+          win_kv_step<DP, true, false>(a0, a0, Kc, Vc, st, qn, q4);
+        else
+          win_kv_step<DP, false, true>(a0, a0, Kc, Vc, st, qn, q4);
+      }
+      win_release(&empty[s]);
+      if (pend >= 0) {  // the previous item's buffer, once its output copies have read it
+        if (tid == 0) {
+          tma_store_wait_read<0>();
+          mbar_arrive(&kv_empty[pend]);
+        }
+        pend = -1;
+      }
+    }
+    if constexpr (L::SPLIT) named_barrier_sync(5, 256);  // both consumers are past k̂ and v
+    const int live = min(64, n - kr0);
+    const size_t row0 = (size_t)wh * n + kr0;
+    if (keys) {
+      if constexpr (L::SPLIT) {
+        if (c == 0)
+          win_store<NO>(a0, reinterpret_cast<bf16*>(Vc), dv, row0, live, d, tma, c, tid);
+        else
+          win_store<NO>(a0, reinterpret_cast<bf16*>(Kc), dk, row0, live, d, tma, c, tid);
+      } else {
+        win_store<NO>(a0, reinterpret_cast<bf16*>(Vc), dv, row0, live, d, tma, c, tid);
+        win_store<NO>(a1, reinterpret_cast<bf16*>(Kc), dk, row0, live, d, tma, c, tid);
+      }
+    }
+    if (tma) {
+      pend = b;
+    } else {
+      named_barrier_sync(1 + c, 128);
+      if (tid == 0) mbar_arrive(&kv_empty[b]);
+    }
+  }
+  if (tid == 0) {
+    if (pend >= 0) {
+      tma_store_wait_read<0>();
+      mbar_arrive(&kv_empty[pend]);
+    }
+    tma_store_wait_all();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1054,24 +1611,49 @@ int launch_win_fwd(const void* q, const void* k, const void* v, void* o, int bh,
                            d, bh);
 }
 
+// Kernel 22b's launch: the packed form for n <= 64 at DP <= 128, else the
+// query pass then the key pass; four tensor maps of the (BW·h·n, d)
+// matrices where d % 8 == 0 (k̂ and v in boxes of the query pass's NK rows,
+// then 64 for the key pass), each kernel persistent.
+static int win_bwd_sms[3][9][64];
+
 template <int DP>
 int launch_win_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq,
                    void* dk, void* dv, void* stats, int bh, int n, int d, cudaStream_t st) {
-  using C = WinCfg<DP>;
-  const dim3 grid(bh, (n + C::T - 1) / C::T);
-  cudaFuncSetAttribute(win_attn_bwd_q_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::BWD_Q);
-  win_attn_bwd_q_kernel<DP><<<grid, kWinNT, C::BWD_Q, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (bf16*)dq,
-      (float*)stats, n, d);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncSetAttribute(win_attn_bwd_kv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::BWD_KV);
-  win_attn_bwd_kv_kernel<DP><<<grid, kWinNT, C::BWD_KV, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)stats,
-      (bf16*)dk, (bf16*)dv, n, d);
-  return (int)cudaGetLastError();
+  constexpr int ID = win_dp_index(DP), NK = WinBwdQ<DP>::NK;
+  const long long rows = (long long)bh * n;
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int R = (int)rows;
+  const bool tma = d % 8 == 0;
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v,
+             *ob = (const bf16*)dout;
+  bf16 *dqb = (bf16*)dq, *dkb = (bf16*)dk, *dvb = (bf16*)dv;
+  CUtensorMap mq = {}, mk = {}, mv = {}, mdo = {};
+  auto maps = [&](int key_rows) {
+    return tensor_map_bf16(&mq, q, R, d, 64, 64) && tensor_map_bf16(&mdo, dout, R, d, 64, 64) &&
+           tensor_map_bf16(&mk, k, R, d, key_rows, 64) &&
+           tensor_map_bf16(&mv, v, R, d, key_rows, 64);
+  };
+  if constexpr (DP <= 128) {
+    if (n <= 64) {
+      if (tma && !maps(64)) return kTensorMapError;
+      const int g = 64 / n, tiles = (bh + g - 1) / g;
+      return launch_persistent(win_bwd_packed_kernel<DP>, win_bwd_sms[0][ID], kWinFwdThreads,
+                               WinBwdPacked<DP>::SMEM, tiles, st, mq, mk, mv, mdo, qb, kb, vb,
+                               ob, dqb, dkb, dvb, R, n, d, g * n, tiles);
+    }
+  }
+  if (tma && !maps(NK)) return kTensorMapError;
+  const int passes = ((n + 63) / 64 + 1) / 2;
+  int err = launch_persistent(win_bwd_q_kernel<DP>, win_bwd_sms[1][ID], kWinFwdThreads,
+                              WinBwdQ<DP>::SMEM, bh * passes, st, mq, mk, mv, mdo, qb, kb, vb,
+                              ob, dqb, (float*)stats, R, n, d, bh);
+  if (err != cudaSuccess) return err;
+  if (tma && NK != 64 && !maps(64)) return kTensorMapError;
+  const int groups = (n + WinBwdKV<DP>::KEYS - 1) / WinBwdKV<DP>::KEYS;
+  return launch_persistent(win_bwd_kv_kernel<DP>, win_bwd_sms[2][ID], kWinFwdThreads,
+                           WinBwdKV<DP>::SMEM, bh * groups, st, mq, mk, mv, mdo, qb, kb, vb, ob,
+                           (const float*)stats, dkb, dvb, R, n, d, bh);
 }
 
 template <int DP>
@@ -1121,8 +1703,9 @@ extern "C" int swift_window_attention(const void* q, const void* k, const void* 
 }
 
 // Kernel 22b: (dq, dk, dv) of swift_window_attention at (q, k, v) along
-// dout, all (bh, n, d) bf16, and stats fp32 scratch of bh*3*n elements (each
-// query row's max, sum and Σ p·dp).
+// dout, all (bh, n, d) bf16, and stats fp32 scratch of bh * ceil(n / 64) *
+// 192 elements where n > 64 or d > 128 (each query row's max, 1 / sum and
+// Σ p·dp, 64 rows a query tile), unused otherwise.
 extern "C" int swift_window_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* dout, void* dq, void* dk, void* dv,
                                           void* stats, int bh, int n, int d, void* stream) {

@@ -7,9 +7,9 @@ Counterpart of ``swift_tpu/ops/pallas_attention.py``. CUDA kernels:
 ``_sdpa_fwd``; ``swift_window_attention_bwd``, which replaces
 ``_sdpa_bwd_call``; ``swift_window_attention_tangent``, which replaces
 ``_sdpa_tangent_call``. They take any n ≥ 1 and 1 ≤ d ≤ 256, and stream
-the window in 64- or 32-row tiles, so a window of up to 1024 tokens (and
-more) fits a block's shared memory, where the TPU kernels hold the whole
-n×n logit tile.
+the window in tiles of at most 128 rows, so a window of up to 1024 tokens
+(and more) fits a block's shared memory, where the TPU kernels hold the
+whole n×n logit tile.
 
 As in the JAX package, the cosine normalisation and the logit scale stay
 outside the kernels: :func:`fused_window_attention` forms
@@ -127,11 +127,18 @@ def window_attention(q, k, v):
     return o
 
 
+def bwd_scratch_floats(bh: int, n: int, d: int) -> int:
+    """fp32 elements of kernel 22b's scratch, the launcher's rule: none for
+    its packed form (n ≤ 64 at d ≤ 128), else each 64-row query tile's max,
+    1/sum and Σ p·dp (192 floats) for the key pass."""
+    return 0 if n <= 64 and d <= 128 else bh * -(-n // 64) * 192
+
+
 def window_attention_bwd(q, k, v, do):
     """(dq, dk, dv) of :func:`window_attention` along do. CPU tensors take
-    :func:`reference_sdpa_bwd`; CUDA tensors go to kernel 22b (its two
-    passes), with 12 bytes of fp32 scratch a query row (each row's max, sum
-    and Σ p·dp)."""
+    :func:`reference_sdpa_bwd`; CUDA tensors go to kernel 22b: one pass
+    where n ≤ 64 and d ≤ 128, else a query pass and a key pass with 12 bytes
+    of fp32 scratch a query row (:func:`bwd_scratch_floats`)."""
     jvp_guard.refuse_tangents("window_attention_bwd", q=q, k=k, v=v, do=do)
     if _build.on_cpu(q, k, v, do):
         return reference_sdpa_bwd(q, k, v, do)
@@ -139,7 +146,7 @@ def window_attention_bwd(q, k, v, do):
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     bh, n, d = _check(name, q=q, k=k, v=v, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(bh * 3 * n, device=q.device, dtype=torch.float32)
+    stats = torch.empty(bwd_scratch_floats(bh, n, d), device=q.device, dtype=torch.float32)
     _build.check_launch(
         _build.library().swift_window_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),

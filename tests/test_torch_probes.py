@@ -9,7 +9,7 @@ import pytest
 
 from scripts import probe_build
 
-PROBES = ["probe_window_attention", "probe_attention_fwd", "probe_attention_bwd",
+PROBES = ["probe_window_attention", "probe_window_attention_bwd", "probe_attention_fwd", "probe_attention_bwd",
           "probe_attention_tangent", "probe_mm_modnorm", "probe_backward_gemm"]
 
 

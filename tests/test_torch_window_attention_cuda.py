@@ -5,14 +5,17 @@ from a numpy seed, within 2e-2 of max|plain| (bf16 rounding of the outputs
 and of p, dS and dP, which the kernel and the plain version round at the
 same points but after sums in other orders):
 
-* 21, 22b and 22t at n ∈ {1, 4, 16, 36, 64, 100, 256, 257, 1024} tokens a
-  window and d ∈ {4, 8, 88, 128, 160, 256}: every form of kernel 21 (tiles
-  of several whole window-heads where n <= 64, n 36 with 64 ∤ n; a window's
-  keys in one tile up to n 128; the online softmax past it, or past
-  d 128), its element-wise load path (d 4) and its TMA path;
-* kernel 21 twice on the same inputs, bit for bit, and with BW·h·n not a
-  multiple of 64 into an output with guard rows before and after it, which
-  must stay as they were (a store past a tile's live rows would reach
+* 21, 22b and 22t at n ∈ {1, 4, 16, 36, 64, 65, 100, 128, 129, 256, 257,
+  1024} tokens a window and d ∈ {4, 8, 88, 128, 160, 256}: every form of
+  kernel 21 (tiles of several whole window-heads where n <= 64, n 36 with
+  64 ∤ n; a window's keys in one tile up to n 128; the online softmax past
+  it, or past d 128) and of kernel 22b (packed up to n 64 at d <= 128; past
+  it the query pass in one walk up to n 128, in two from n 129, and the key
+  pass, whose consumers split dv and dk̂ from d 128), their element-wise
+  load path (d 4) and their TMA path;
+* kernels 21 and 22b twice on the same inputs, bit for bit, and with BW·h·n
+  not a multiple of 64 into outputs with guard rows before and after them,
+  which must stay as they were (a store past a tile's live rows would reach
   rows another block writes);
 * the per-head route of the model launching them, and only them, from qkv;
 * 20 at D 1056, H 2816 and at D 32, H 85; kernels 5, 8, 9, 10 and 11 at
@@ -62,7 +65,7 @@ def _normalized(rng, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [4, 8, 88, 128, 160, 256])
-@pytest.mark.parametrize("n", [1, 4, 16, 36, 64, 100, 256, 257, 1024])
+@pytest.mark.parametrize("n", [1, 4, 16, 36, 64, 65, 100, 128, 129, 256, 257, 1024])
 def test_window_attention_kernels_match_plain(card, n, d):
     rng = card
     shape = (max(2, 256 // n), 3, n, d)
@@ -79,15 +82,20 @@ def test_window_attention_kernels_match_plain(card, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["21", "22b"])
 @pytest.mark.parametrize("n,d", [(4, 8), (36, 88), (64, 88), (257, 88), (256, 160), (1024, 88),
                                  (36, 4)])
-def test_window_attention_is_deterministic(card, n, d):
-    """Kernel 21 twice on the same inputs: the same bits (no atomics, one
-    order of every sum)."""
+def test_window_attention_is_deterministic(card, n, d, kernel):
+    """Kernels 21 and 22b twice on the same inputs: the same bits in every
+    output (no atomics, one order of every sum; for 22b in both passes of
+    its row form)."""
     q, k = _normalized(card, (max(2, 256 // n), 3, n, d))
-    v = _t(card, q.shape)
-    first = wa.window_attention(q, k, v)
-    assert torch.equal(first, wa.window_attention(q, k, v))
+    v, do = _t(card, q.shape), _t(card, q.shape)
+    call = ((lambda: (wa.window_attention(q, k, v),)) if kernel == "21"
+            else (lambda: wa.window_attention_bwd(q, k, v, do)))
+    first = call()
+    for a, b in zip(first, call()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -111,6 +119,33 @@ def test_window_attention_leaves_guard_rows(card, bh, n, d):
         "window_attention")
     _agree(o.view(q.shape), wa.reference_sdpa(q, k, v), "21")
     assert (buf[:guard] == -7.0).all() and (buf[guard + bh * n * d:] == -7.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,d", [(7, 4, 8), (5, 36, 88), (3, 100, 88), (3, 257, 88),
+                                    (3, 257, 160), (5, 36, 4), (3, 100, 20), (5, 36, 160)])
+def test_window_attention_bwd_leaves_guard_rows(card, bh, n, d):
+    """Kernel 22b through its C entry, BW·h·n rows not a multiple of 64:
+    dq, dk and dv, each written into the middle of a buffer filled with a
+    sentinel, agree with the plain version, and the 64 rows before and
+    after each keep the sentinel (packed and row forms, TMA and
+    element-wise paths)."""
+    from swift_torch.ops import _build
+
+    q, k = _normalized(card, (bh, 1, n, d))
+    v, do = _t(card, q.shape), _t(card, q.shape)
+    guard, size = 64 * d, bh * n * d
+    bufs = [torch.full((2 * guard + size,), -7.0, device="cuda", dtype=torch.bfloat16)
+            for _ in range(3)]
+    outs = [b[guard:guard + size] for b in bufs]
+    assert all(o.data_ptr() % 16 == 0 for o in outs)
+    stats = torch.empty(wa.bwd_scratch_floats(bh, n, d), device="cuda", dtype=torch.float32)
+    _build.check_launch(_build.library().swift_window_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(o.data_ptr() for o in outs),
+        stats.data_ptr(), bh, n, d, _build.stream()), "window_attention_bwd")
+    _agree(tuple(o.view(q.shape) for o in outs), wa.reference_sdpa_bwd(q, k, v, do), "22b")
+    for b in bufs:
+        assert (b[:guard] == -7.0).all() and (b[guard + size:] == -7.0).all()
 
 
 @pytest.mark.cuda
