@@ -24,10 +24,10 @@ Phases, each printed as it finishes:
    368x720 tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19)
    from a numpy seed; fails when max|kernel - plain| of any output exceeds
    2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or the
-   scratch of kernel 5, 10 or 11 1 GB at 0.25°; prints both times (CUDA
+   scratch of kernel 5, 10, 11 or 18 1 GB at 0.25°; prints both times (CUDA
    events, median of 20 launches, 5 at 0.25°), the bound the card could
    reach from the shapes (int8 peak for 18 and 19), the scratch of kernels
-   5, 10, 11 and 16, ``F.linear``'s time for the qkv projection and its
+   5, 10, 11, 16 and 18, ``F.linear``'s time for the qkv projection and its
    primal + tangent and a composition of library calls (``F.linear``,
    silu·mul, ``F.linear``) for the FFN, its primal + tangent and the
    forward that keeps gate and up, another (``F.linear`` for dh, the
@@ -40,12 +40,17 @@ Phases, each printed as it finishes:
    3's, 5's, 8's, 9's, 11's, 13's, 2's and 15's TFLOP/s, share of the bound
    and ratio to the yardstick, single calls and queued; 3, 13 and 15 also
    at 0.25°), kernel
-   3's cluster plan (blocks, columns, clusters resident), and the int8 qkv
-   product (``torch._int_mm``) and weight quantization times; fails unless
+   3's cluster plan (blocks, columns, clusters resident), the int8 qkv
+   product (``torch._int_mm``) and weight quantization times, and kernel 18
+   through its wrapper queued (``ms`` and ``queued_ms``, the wrapper's) and
+   on weights quantized once, single and queued (``alone_ms``,
+   ``queued_alone_ms``), beside a composition of
+   ``torch._int_mm`` calls on the same weights (x and h quantized per
+   token in PyTorch) and equal to its wrapper's output; fails unless
    kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's
    and kernel 8's y kernel 5's, and kernel 15's on qkv rolled by the shift
-   (8, 8) kernel 2's at that shift, bit for bit, two calls of kernels 9
-   and 13 each other's, and kernel 8's g and u are
+   (8, 8) kernel 2's at that shift, bit for bit, two calls of kernels 9,
+   13 and 18 each other's, and kernel 8's g and u are
    zero in the hidden units its wrapper pads (path A's H = 85 to 88);
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
@@ -61,7 +66,8 @@ Phases, each printed as it finishes:
    the factory) with the same weights at 12x88 and 8x128 heads: one forward
    with exact launches (18, 19, 4, 2 twelve times; 1, 3, 5 never), its
    one-step forecast against the bf16 one (relative RMS, limit
-   INT8_RMS_TOL), both forwards' device times, and ``rollout_to_store`` at
+   INT8_RMS_TOL), both forwards' device times, one int8 forward by kernel
+   under ``torch.profiler``, and ``rollout_to_store`` at
    MB = 4 into a finite, non-constant store with exact launch counts,
    steps/s and the store writes' share; then ``build_truth_zarr`` and
    ``eval.metrics.evaluate`` of the bf16 and int8 12x88 stores, whose RMSE
@@ -182,6 +188,7 @@ from swift_torch.ops.block_attention import (
 )
 from swift_torch.ops.ffn import (
     bwd_recompute_scratch_bytes,
+    ffn_int8_scratch_bytes,
     ffn_scratch_bytes,
     fused_swiglu_ffn,
     fused_swiglu_ffn_int8,
@@ -197,6 +204,7 @@ from swift_torch.ops.ffn import (
     swiglu_ffn_bwd_recompute,
     swiglu_ffn_bwd_saved,
     swiglu_ffn_fwd_save,
+    swiglu_ffn_int8_quantized,
     swiglu_ffn_pt,
 )
 from swift_torch.ops.linear import (
@@ -764,7 +772,24 @@ def _composition_linear_bwd(dy, x, w):
     return lambda: (dy @ w, dy.t() @ x)
 
 
-# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 11 and 13 have no single PyTorch call of the
+def _composition_ffn_int8(x, w1q, s1, w2q, s2):
+    """Kernel 18 on the same quantized weights as a user would write it in
+    PyTorch: x quantized per token, ``torch._int_mm`` for [g|u], the rescale
+    and g·sigmoid(g)·u in fp32, h quantized per token, ``torch._int_mm`` for
+    the W2 product, the rescale, bf16."""
+    H = w2q.shape[1]
+
+    def run():
+        xq, sx = quant.quantize_rowwise(x)
+        gu = torch._int_mm(xq, w1q.t()).float() * sx * s1
+        g, u = gu[:, :H], gu[:, H:]
+        hq, sh = quant.quantize_rowwise(g * torch.sigmoid(g) * u)
+        return (torch._int_mm(hq, w2q.t()).float() * sh * s2).to(x.dtype)
+
+    return run
+
+
+# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 11, 13 and 18 have no single PyTorch call of the
 # same function: their yardstick is a composition of library calls, timed
 # beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
@@ -777,7 +802,9 @@ COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn
                "tiled_block_attention_bwd": _composition_attention_bwd,
                "block_attention_tangent": _composition_attention_tangent,
                "tiled_block_attention_tangent": _composition_attention_tangent,
-               "matmul_modnorm_residual": _composition_mm_modnorm}
+               "matmul_modnorm_residual": _composition_mm_modnorm,
+               # on the weights quantized once, as kernel 18 alone takes them
+               "swiglu_ffn_int8": _composition_ffn_int8}
 
 
 def log(msg: str) -> None:
@@ -965,7 +992,9 @@ def phase_kernels() -> dict:
             cases.append(("swiglu_ffn_fwd_save", (a["x"], a["w1"], a["w2"]), {}))
         for name, args, tags in cases:
             fields = check_kernel(name, args, f"heads={heads:2d} d={d:3d} {tags or ''}")
-            if name in ("linear", "linear_pt") + tuple(COMPOSITION):
+            if name == "swiglu_ffn_int8":
+                int8_ffn_alone(args, fields)
+            elif name in ("linear", "linear_pt") + tuple(COMPOSITION):
                 rates(name, args, fields)
             flagship = d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8)
             if name in QUARTER_KERNELS:
@@ -1047,6 +1076,35 @@ def rates(name: str, args, fields: dict) -> None:
     fields.update({"queued_ms": ms, f"queued_{what}_ms": q_yard_ms})
 
 
+def int8_ffn_alone(args, fields: dict) -> None:
+    """Kernel 18 through its wrapper queued back to back (``queued_ms``;
+    ``ms`` stays ``check_kernel``'s single call of the wrapper, weight
+    quantization included, as the int8 forecast pays it), and alone on
+    weights quantized once (``alone_ms``, ``queued_alone_ms``; the
+    quantization is timed as ``weight_quant_ms`` by ``int8_qkv``) beside
+    ``_composition_ffn_int8`` on the same weights (``torch._int_mm``), with
+    the share of the bound."""
+    x, w1, w2 = args
+    q = (*quant.quantize_colwise(w1), *quant.quantize_colwise(w2))
+    alone = lambda: swiglu_ffn_int8_quantized(x, *q)  # noqa: E731
+    yard = COMPOSITION["swiglu_ffn_int8"](x, *q)
+    same = torch.equal(alone(), fused_swiglu_ffn_int8(*args))
+    q_wrap_ms = queued_ms(lambda: fused_swiglu_ffn_int8(*args))
+    ms, q_ms = time_ms(alone), queued_ms(alone)
+    yard_ms, q_yard_ms = time_ms(yard), queued_ms(yard)
+    flops, bound = kernel_flops("swiglu_ffn_int8", args), fields["bound_ms"]
+    log(f"[kernels] swiglu_ffn_int8 through the wrapper: {fields['ms']:.4f} ms, queued "
+        f"{q_wrap_ms:.4f} ms; on weights quantized once: {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TOP/s, {100 * bound / ms:.1f}% of its bound), "
+        f"{ms / yard_ms:.3f}x the torch._int_mm composition's {yard_ms:.4f} ms; queued: kernel "
+        f"{q_ms:.4f} ms ({100 * bound / q_ms:.1f}% of its bound), composition {q_yard_ms:.4f} "
+        f"ms, {q_ms / q_yard_ms:.3f}x; equal to the wrapper's output bit for bit: {same}")
+    if not same:
+        raise AssertionError("kernel 18 on quantized weights differs from its wrapper")
+    fields.update(queued_ms=q_wrap_ms, alone_ms=ms, queued_alone_ms=q_ms, composition_ms=yard_ms,
+                  queued_composition_ms=q_yard_ms)
+
+
 def linear_pt_equals_kernel_1(a: dict, heads: int, d: int) -> None:
     """Kernel 14's invariant at the flagship shape: ``linear_pt(x, dx, w)``
     equals ``(fused_linear(x, w), fused_linear(dx, w))`` bit for bit (one
@@ -1126,12 +1184,13 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
 
 
 def kernels_deterministic(a: dict, heads: int, d: int) -> None:
-    """The invariant of kernels 6, 16, 7 and 17 at both geometries, and of 9
-    and 13 at the flagship shape: two calls give the same bits (the partial
+    """The invariant of kernels 6, 16, 7 and 17 at both geometries, and of 9,
+    13 and 18 at the flagship shape: two calls give the same bits (the partial
     dq̂ of 6 and 16 and the tangent's partial outputs are added across the
     cluster in one fp32 addition, the scale's partials and the weight
-    gradients' token splits summed in a fixed order; no float atomics), so
-    a race in a ring, an exchange or the split sums shows at once."""
+    gradients' token splits summed in a fixed order, 18's h scale a max over
+    fixed partials; no float atomics), so a race in a ring, an exchange or
+    the split sums shows at once."""
     win = (16, 16)
     cases = [("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win, SHIFTS[1])),
              ("tiled_block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win)),
@@ -1140,7 +1199,8 @@ def kernels_deterministic(a: dict, heads: int, d: int) -> None:
     if d == GEOMETRIES[0][1]:
         cases += [("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
                   ("swiglu_ffn_bwd_saved",
-                   (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"]))]
+                   (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"])),
+                  ("swiglu_ffn_int8", (a["x"], a["w1"].float(), a["w2"].float()))]
     for name, args in cases:
         fused = KERNELS[name][0]
         first, second = fused(*args), fused(*args)
@@ -1197,7 +1257,7 @@ def check_scratch(record: dict, name: str, args, computed: int, limit: float, wh
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     """Kernels 3, 5, 10, 11, 13, 15-17, 18 and 19 at the 0.25° shapes (B =
     1, 368x720 tokens, 8x128 heads, the 264,960-token FFN and qkv
-    projection), with the scratch of kernels 5, 10, 11 and 16: computed
+    projection), with the scratch of kernels 5, 10, 11, 16 and 18: computed
     from the shapes, and read as the peak device memory of one call above
     its inputs and outputs. The main path of 3, 5, 11, 13, 18 and 19 is the
     flagship's: their 0.25° times stand beside it (kernel 3's and 13's also
@@ -1233,6 +1293,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         "swiglu_ffn": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=False), 1e9, "1 GB"),
         "swiglu_ffn_pt": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=True), 1e9, "1 GB"),
         "swiglu_ffn_bwd_recompute": (bwd_recompute_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
+        "swiglu_ffn_int8": (ffn_int8_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
     }
     beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual",
                              "linear_bwd")
@@ -1928,6 +1989,7 @@ def phase_int8(card: str, model: dict, tag: str):
     random_weights(net)  # seed 0: the slice phase's weights
     net = net.cuda().eval()
     check_int8_forward(net, ROLLOUT, RESOLUTION, INT8_FORWARD, tag, card)
+    profile_forward(net, ROLLOUT, RESOLUTION, card, tag)
     dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=10, shape=RESOLUTION, seed=0)
     timings: dict = {}
     reset_launches()

@@ -3,127 +3,251 @@
 //
 // Replaces swift_tpu/ops/pallas_ffn.py::fused_swiglu_ffn_int8 (kernel body
 // _ffn_q_kernel). Dynamic symmetric quantization: one scale per token for x
-// and for h, computed here over the whole row; one scale per output feature
-// for the weights, computed by the caller (swift_torch/ops/ffn.py) from the
-// fp32 parameters. Bound: the int8 tensor cores (2·T·D·H·3 operations at
-// 1979 TOP/s) once the (T, H) intermediate stays on chip.
+// and for h; one scale per output feature for the weights, computed by the
+// caller (swift_torch/ops/ffn.py) from the fp32 parameters. Bound: the int8
+// tensor cores, 2·T·D·H·3 operations at 1979 TOP/s (0.148 ms at T = 16,384,
+// D = 1056, H = 2816).
 //
-// The hard part is h's scale: its abs-max runs over all H = 2816 hidden
-// units before any of h can multiply W2, so kernel 5's way (stream 64-column
-// chunks of h straight into the W2 product) cannot work. Design: a block
-// owns 16 token rows and keeps their whole fp32 h in shared memory
-// (16 x 2816 x 4 = 176 KB), no scratch in device memory:
-//   0. quantize the block's x rows (all of D) into a resident int8 tile;
-//   1. for 64 hidden units at a time, gate and up as one 16 x 128 int8 x
-//      int8 -> int32 tile (the rows of W1q gathered from its gate and up
-//      halves), g = (acc·sx)·sg, u = (acc·sx)·su, h = g·sigmoid(g)·u in fp32;
-//   2. each row's abs-max over h, then h quantized from fp32 (never from a
-//      bf16 copy) into a resident int8 tile laid over phase 1's buffers;
-//   3. y = (acc·sh)·s2 per 128 output columns, streaming W2q, out in bf16.
-// Shared memory: 45 KB for x's int8 tile, the streamed weight stages and
-// an int32 staging tile (phase 1), then h's int8 tile; 176 KB for fp32 h,
-// then the W2 stages; 220 KB in all at D = 1056, H = 2816, one block an SM.
+// The hard part is h's scale: its abs-max runs over all H hidden units
+// before any of h can multiply W2, so h cannot stream into the W2 product
+// as kernel 5's pass 2 reads it; and h must be quantized from fp32, never
+// from a rounded copy. So kernel 5's cut holds, with h in fp32 and a
+// reduction between the passes: four launches over a chunk of tokens
+// (ops/ffn.py::ffn_chunks), the products on kernel 5's wgmma + TMA ring
+// (wgmma.cuh) with the s8 x s8 -> s32 wgmma (m64n256k32) in place of bf16's:
+//   0. quantize_rows_kernel<bf16>: xq = int8(x) and sx, one warp a token;
+//   1. s8_gemm_kernel<kS8Hidden>: kernel 5's pass 1 on xq. A 128-row tile
+//      pairs gate units j..j+127 with up units j..j+127 in one 256-row W
+//      box whose halves the two blocks of a cluster load and multicast; a
+//      stage is 128 int8 deep, four 32-deep wgmmas. The epilogue rescales
+//      g = ((float)acc·sx)·s1[j] and u = ((float)acc·sx)·s1[H + j], forms
+//      h = g·sigmoid(g)·u in fp32, stores it by TMA in fp32 boxes, and each
+//      row's abs-max over the tile's 128 units into a (rows, ceil(H/128))
+//      array: a max does not depend on order, so no atomics;
+//   2. quantize_rows_kernel<float>: sh = the scale of a row's largest partial,
+//      hq = int8(h) from the fp32 h, one warp a token;
+//   3. s8_gemm_kernel<kS8Out>: kernel 1's loop on hq . W2q^T, the epilogue
+//      y = ((float)acc·sh)·s2[c] rounded to bf16 and stored by TMA.
+// The device traffic is larger than the bound's: x, xq, the fp32 h written
+// and read, hq, y and the weights, ~0.57 GB at T = 16,384 (0.17 ms at 3.35
+// TB/s). The rounding points are the plain version's
+// (ops/ffn.py::reference_swiglu_ffn_int8) and the TPU kernel's.
 #include "tile_mma.cuh"
+#include "wgmma.cuh"
 
 namespace swift {
 
-constexpr int kQfBM = 16, kQfHC = 64, kQfBK = 64, kQfBN2 = 128;
-using QfMma = TileMmaI8<kQfBM, 2 * kQfHC, kQfBK, 1, 8>;  // gate|up and W2 tiles: 128 rows
-constexpr int kQfLDS = 2 * kQfHC + 4;                    // int32 staging row stride
-constexpr int kQfStage = kQfBM * kQfLDS * 4;
+enum S8Mode { kS8Hidden, kS8Out };
+constexpr int kS8BK = 128;                // a stage's depth: 128 int8, one 128-byte box row
+constexpr int kS8HidBN = kLinBN / 2;      // hidden units a pass-1 tile (gate and up beside them)
+constexpr int kS8HBox = 64 * 32 * 4;      // one 64-row x 32-column fp32 box of h
+static_assert(kS8HBox == kLinCBox, "h's fp32 boxes take the bf16 output boxes' room");
+constexpr int kS8Boxes = 2;               // output boxes a consumer, in turn
+// Three stages of the four that fit: 2% faster at the flagship's B = 2 and
+// MB = 4 (scripts/probe_ffn_int8.py's four_stages).
+constexpr int kS8Stages = 3;
+constexpr int kS8Smem = ring_smem(kS8Stages, 2 * kS8Boxes, 0);
+static_assert(kS8Smem <= kMaxSmem, "the s8 ring does not fit");
+constexpr int kQuantRows = 8;             // token rows a quantize block: one a warp
 
-// region 1: x's int8 tile + weight stages + staging (phase 1), then h's int8 tile
-__host__ __device__ constexpr int ffn_i8_r1(int D, int H) {
-  return cmax(round128(kQfBM * H), round128(kQfBM * D) + QfMma::SMEM + kQfStage);
+__device__ __forceinline__ float2 ldg_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
 }
-// region 2: fp32 h (phases 1-2), then the W2 stages + staging (phase 3)
-__host__ __device__ constexpr int ffn_i8_r2(int H) {
-  return cmax(round128(kQfBM * H * 4), QfMma::SMEM + kQfStage);
-}
-__host__ __device__ constexpr int ffn_i8_smem(int D, int H) {
-  return ffn_i8_r1(D, H) + ffn_i8_r2(H) + 2 * kQfBM * 4;
+
+__device__ __forceinline__ uint32_t pack_s8x4(float a, float b, float c, float d, float s) {
+  return (uint32_t)(uint8_t)quant8(a, s) | (uint32_t)(uint8_t)quant8(b, s) << 8 |
+         (uint32_t)(uint8_t)quant8(c, s) << 16 | (uint32_t)(uint8_t)quant8(d, s) << 24;
 }
 
-__global__ void __launch_bounds__(QfMma::NT)
-    ffn_i8_kernel(const bf16* __restrict__ X, const signed char* __restrict__ W1q,
-                  const float* __restrict__ s1, const signed char* __restrict__ W2q,
-                  const float* __restrict__ s2, bf16* __restrict__ Y, int M, int D, int H) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NT = QfMma::NT;
-  const int r1 = ffn_i8_r1(D, H);
-  signed char* xq = reinterpret_cast<signed char*>(smem_raw);
-  signed char* bs1 = xq + round128(kQfBM * D);
-  int* stage1 = reinterpret_cast<int*>(bs1 + QfMma::SMEM);
-  signed char* hq = reinterpret_cast<signed char*>(smem_raw);  // over xq, bs1, stage1
-  float* hS = reinterpret_cast<float*>(smem_raw + r1);
-  signed char* bs2 = reinterpret_cast<signed char*>(smem_raw + r1);  // over hS
-  int* stage2 = reinterpret_cast<int*>(bs2 + QfMma::SMEM);
-  float* sx = reinterpret_cast<float*>(smem_raw + r1 + ffn_i8_r2(H));
-  float* sh = sx + kQfBM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * kQfBM;
-
-  // 0. the block's x rows, quantized whole
-  quantize_rows<kQfBM, NT>(xq, sx, X, m0, M, D);
-  __syncthreads();
-
-  // 1. h = silu(g) * u in fp32, 64 hidden units at a time; warps 0-3 hold
-  //    gate columns, warps 4-7 the same columns of up
-  for (int c0 = 0; c0 < H; c0 += kQfHC) {
-    QfMma::Acc acc[1][1];
-    QfMma::run(
-        acc, xq, bs1,
-        [=](int r) -> const signed char* {
-          const int j = c0 + (r < kQfHC ? r : r - kQfHC);
-          return j < H ? W1q + (size_t)(r < kQfHC ? j : H + j) * D : nullptr;
-        },
-        W1q, D);
-    wmma::store_matrix_sync(stage1 + warp * 16, acc[0][0], kQfLDS, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < kQfBM * kQfHC; e += NT) {
-      const int r = e / kQfHC, c = e % kQfHC, j = c0 + c;
-      if (j < H) {
-        const float gt = ((float)stage1[r * kQfLDS + c] * sx[r]) * s1[j];
-        const float up = ((float)stage1[r * kQfLDS + kQfHC + c] * sx[r]) * s1[H + j];
-        hS[r * H + j] = gt * (1.0f / (1.0f + expf(-gt))) * up;
-      }
-    }
-    // the next chunk's main loop passes a barrier before it rewrites stage1
-  }
-  __syncthreads();
-
-  // 2. each row's abs-max over all H, then h quantized from fp32
-  for (int r = warp; r < kQfBM; r += NT / 32) {
-    const float* h = hS + r * H;
-    float amax = 0.0f;
-    for (int j = lane; j < H; j += 32) amax = fmaxf(amax, fabsf(h[j]));
-    const float s = quant_scale(warp_max(amax));
-    if (lane == 0) sh[r] = s;
-    for (int j = lane; j < H; j += 32) hq[((j >> 4) * kQfBM + r) * 16 + (j & 15)] = quant8(h[j], s);
-  }
-  __syncthreads();
-
-  // 3. y = (hq . W2q^T) * sh * s2, 128 output columns at a time
-  for (int n0 = 0; n0 < D; n0 += kQfBN2) {
-    QfMma::Acc acc[1][1];
-    QfMma::run(
-        acc, hq, bs2,
-        [=](int r) -> const signed char* {
-          return n0 + r < D ? W2q + (size_t)(n0 + r) * H : nullptr;
-        },
-        W2q, H);
-    wmma::store_matrix_sync(stage2 + warp * 16, acc[0][0], kQfLDS, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < kQfBM * (kQfBN2 / 8); e += NT) {
-      const int r = e / (kQfBN2 / 8), c = (e % (kQfBN2 / 8)) * 8;
-      if (m0 + r < M && n0 + c < D) {
-        float v[8];
+// Consumer c's 64 rows x 32 columns of fp32 output through a swizzled
+// shared-memory box to (col, row) of ``map`` by TMA (clipped at the edges),
+// stored only where ``valid``: store_box's protocol for fp32, a box row of
+// 32 values. ``val(i)`` gives the two values of accumulator indices i,
+// i + 1 with i = 4 (4 q + j) + 2 h: columns 8 j + 2 (lane % 4) + {0, 1} of
+// the box, row r + 8 h. Call it with q a constant.
+template <int NB, class Val>
+__device__ __forceinline__ void store_box_f32(unsigned char* box, const CUtensorMap* map, int col,
+                                              int row, bool valid, int c, int q, Val val) {
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r = tid / 32 * 16 + lane / 4;  // and r + 8; r % 8 == lane / 4
+  if (tid == 0) tma_store_wait_read<NB - 1>();
+  named_barrier_sync(1 + c, 128);
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          v[i] = ((float)stage2[r * kQfLDS + c + i] * sh[r]) * s2[n0 + c + i];
-        *reinterpret_cast<uint4*>(Y + (size_t)(m0 + r) * D + n0 + c) = pack8(v);
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int chunk = 2 * j + (lane % 4) / 2;  // 16-byte chunk of the 128-byte row
+      *reinterpret_cast<float2*>(box + (r + 8 * h) * 128 + ((chunk ^ (lane / 4)) << 4) +
+                                 (lane % 2) * 8) = val(4 * (4 * q + j) + 2 * h);
+    }
+  fence_async_smem();
+  named_barrier_sync(1 + c, 128);
+  if (tid == 0 && valid) {
+    tma_store_2d(map, box, col, row);
+    tma_store_commit();
+  }
+}
+
+// Passes 1 and 3 (see the top of this file): C = A . W^T with A (M x K) and
+// W int8, both K-major, on kernel 1's ring: 384 threads a block, a producer
+// warpgroup, two consumers of 64 rows each, persistent clusters of two
+// walking (row-tile pair, column tile) items, column tiles fastest. Pass 1
+// (kS8Hidden): N = H hidden units, 128 a tile, the W box the gate rows of
+// mW0 (rank 0) beside the up rows of mW1 (rank 1); ``sa`` = sx, ``sw`` = s1
+// (2H), ``amax`` the rows' partial maxima. Pass 3 (kS8Out): N = D output
+// columns, 256 a tile, rank r loading W rows n0 + 128 r of mW0; ``sa`` = sh,
+// ``sw`` = s2.
+template <int MODE>
+__global__ void __launch_bounds__(kLinThreads, 1)
+    s8_gemm_kernel(const __grid_constant__ CUtensorMap mA, const __grid_constant__ CUtensorMap mW0,
+                   const __grid_constant__ CUtensorMap mW1,
+                   const __grid_constant__ CUtensorMap mOut, const float* __restrict__ sa,
+                   const float* __restrict__ sw, float* __restrict__ amax, int M, int N, int K) {
+  constexpr bool HID = MODE == kS8Hidden;
+  constexpr int S = kS8Stages, BN = HID ? kS8HidBN : kLinBN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* cbox = smem + S * kLinStageBytes;  // [consumer][kS8Boxes] output boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(cbox + 2 * kS8Boxes * kLinCBox);
+  uint64_t* empty = full + S;
+
+  const int rank = (int)cluster_rank();
+  const int n_tiles = (N + BN - 1) / BN;
+  const int m_pairs = ((M + 2 * kLinRows - 1) / (2 * kLinRows) + kLinCluster - 1) / kLinCluster;
+  const int pairs = m_pairs * n_tiles;
+  const int cluster = blockIdx.x / kLinCluster, clusters = gridDim.x / kLinCluster;
+  const int k_blocks = (K + kS8BK - 1) / kS8BK;
+  ring_init<S>(full, empty);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      RingPos<S> pos;
+      for (int p = cluster; p < pairs; p += clusters) {
+        const int m0 = (p / n_tiles * kLinCluster + rank) * 2 * kLinRows;
+        const int n0 = p % n_tiles * BN;
+        const bool a0 = m0 < M, a1 = m0 + kLinRows < M;
+        uint32_t bytes = (a0 ? kLinABytes : 0) + (a1 ? kLinABytes : 0);
+        int wrow = n0;
+        if (HID) {
+          bytes += kLinCluster * kLinWBytes;  // TMA zero-fills the units past H
+        } else {
+          for (int r = 0; r < kLinCluster; ++r) bytes += n0 + r * kLinWHalf < N ? kLinWBytes : 0;
+          wrow += rank * kLinWHalf;
+        }
+        produce_tile(smem, full, empty, pos, &mA, m0, a0, &mA, m0 + kLinRows, a1,
+                     HID && rank ? &mW1 : &mW0, wrow, wrow < N, bytes, k_blocks, kS8BK);
+      }
+      drain(empty, pos);
+    }
+  } else {  // the consumers
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    const int r = tid / 32 * 16 + lane / 4;  // this thread's rows of the consumer's 64: r, r + 8
+    const int col = 2 * (lane % 4);          // + 8 j: its columns of the tile
+    int acc[kLinBN / 2];  // pass 1: acc[i] gate unit n0 + col(i), acc[i + 64] the up unit beside it
+    RingPos<S> pos;
+    int boxes = 0;
+    auto next_box = [&] { return cbox + (kS8Boxes * c + boxes++ % kS8Boxes) * kLinCBox; };
+    for (int p = cluster; p < pairs; p += clusters) {
+      const int m0 = (p / n_tiles * kLinCluster + rank) * 2 * kLinRows + c * kLinRows;
+      const int n0 = p % n_tiles * BN;
+      consume_tile(acc, smem, full, empty, pos, c, k_blocks);
+      float s_row[2];  // the rows' scales; 0 past M
+#pragma unroll
+      for (int h = 0; h < 2; ++h) s_row[h] = m0 + r + 8 * h < M ? sa[m0 + r + 8 * h] : 0.0f;
+      if constexpr (HID) {
+        float top[2] = {0.0f, 0.0f};  // the rows' abs-max over the tile's units
+#pragma unroll
+        for (int q = 0; q < kS8HidBN / 32; ++q) {
+          if (n0 + 32 * q >= N) break;
+          store_box_f32<kS8Boxes>(next_box(), &mOut, n0 + 32 * q, m0, m0 < M, c, q, [&](int i) {
+            const int j = n0 + 8 * (i / 4) + col, h = (i / 2) % 2;  // N even: j + 1 < N too
+            const float2 sg = j < N ? ldg_f2(sw + j) : make_float2(0.0f, 0.0f);
+            const float2 su = j < N ? ldg_f2(sw + N + j) : make_float2(0.0f, 0.0f);
+            float out[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float g = ((float)acc[i + e] * s_row[h]) * (e ? sg.y : sg.x);
+              const float u = ((float)acc[i + 64 + e] * s_row[h]) * (e ? su.y : su.x);
+              out[e] = g * (1.0f / (1.0f + expf(-g))) * u;
+              top[h] = fmaxf(top[h], fabsf(out[e]));
+            }
+            return make_float2(out[0], out[1]);
+          });
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 1));
+          top[h] = fmaxf(top[h], __shfl_xor_sync(0xffffffffu, top[h], 2));
+          if (lane % 4 == 0 && m0 + r + 8 * h < M)
+            amax[(size_t)(m0 + r + 8 * h) * n_tiles + n0 / kS8HidBN] = top[h];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kLinBN / 64; ++q) {
+          if (n0 + 64 * q >= N) break;
+          store_box<kS8Boxes>(next_box(), &mOut, n0 + 64 * q, m0, m0 < M, c, q, [&](int i) {
+            const int j = n0 + 8 * (i / 4) + col, h = (i / 2) % 2;
+            const float2 s = j < N ? ldg_f2(sw + j) : make_float2(0.0f, 0.0f);
+            return pack_bf16x2(((float)acc[i] * s_row[h]) * s.x,
+                               ((float)acc[i + 1] * s_row[h]) * s.y);
+          });
+        }
       }
     }
+    if (tid == 0) tma_store_wait_all();
+  }
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float f[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(e[k]);
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float f[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// Passes 0 and 2: one warp a token row of X (M x K, K % 8 == 0): the scale of
+// its abs-max, as quantize_rows (tile_mma.cuh) computes it, and its int8
+// values at that scale, into Q (M x K) and scale (M,). The abs-max is the
+// row's own (pass 0, x in bf16, ``partials`` null) or the largest of its
+// ``tiles`` partial maxima (pass 2, the fp32 h, pass 1's maxima).
+template <class T>
+__global__ void __launch_bounds__(32 * kQuantRows)
+    quantize_rows_kernel(const T* __restrict__ X, const float* __restrict__ partials, int tiles,
+                         signed char* __restrict__ Q, float* __restrict__ scale, int M, int K) {
+  const int lane = threadIdx.x % 32, row = blockIdx.x * kQuantRows + threadIdx.x / 32;
+  if (row >= M) return;
+  const T* x = X + (size_t)row * K;
+  float top = 0.0f;
+  if (partials) {
+    for (int t = lane; t < tiles; t += 32) top = fmaxf(top, partials[(size_t)row * tiles + t]);
+  } else {
+    for (int i = lane; i < K / 8; i += 32) {
+      float f[8];
+      load8(x + 8 * i, f);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) top = fmaxf(top, fabsf(f[k]));
+    }
+  }
+  const float s = quant_scale(warp_max(top));
+  if (lane == 0) scale[row] = s;
+  uint2* q = reinterpret_cast<uint2*>(Q + (size_t)row * K);
+#pragma unroll 2
+  for (int i = lane; i < K / 8; i += 32) {
+    float f[8];
+    load8(x + 8 * i, f);
+    q[i] = make_uint2(pack_s8x4(f[0], f[1], f[2], f[3], s), pack_s8x4(f[4], f[5], f[6], f[7], s));
   }
 }
 
@@ -131,17 +255,43 @@ __global__ void __launch_bounds__(QfMma::NT)
 
 using namespace swift;
 
-extern "C" int swift_ffn_int8_smem(int D, int H) { return ffn_i8_smem(D, H); }
+static int s8_resident[2][64];
 
-// x (M, D) bf16 -> y (M, D) bf16; w1q (2H, D) int8, gate rows then up rows,
-// with per-row fp32 scales s1 (2H,); w2q (D, H) int8 with s2 (D,).
-// D % 16 == 0, H % 16 == 0.
+// Kernel 18 over one chunk of M tokens: x (M, D) bf16 -> y (M, D) bf16;
+// w1q (2H, D) int8, gate rows then up rows, with per-row fp32 scales s1
+// (2H,); w2q (D, H) int8 with s2 (D,). Scratch the caller allocates: xq
+// (M, D) int8, sx (M,) fp32, h (M, H) fp32, amax (M, ceil(H / 128)) fp32,
+// hq (M, H) int8, sh (M,) fp32. D % 16 == 0, H % 16 == 0, 16-byte aligned
+// bases. Returns the first launch's error.
 extern "C" int swift_ffn_int8(const void* x, const void* w1q, const void* s1, const void* w2q,
-                              const void* s2, void* y, int M, int D, int H, void* stream) {
-  const int smem = ffn_i8_smem(D, H);
-  cudaFuncSetAttribute(ffn_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  ffn_i8_kernel<<<(M + kQfBM - 1) / kQfBM, QfMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const signed char*)w1q, (const float*)s1, (const signed char*)w2q,
-      (const float*)s2, (bf16*)y, M, D, H);
-  return (int)cudaGetLastError();
+                              const void* s2, void* y, void* xq, void* sx, void* h, void* amax,
+                              void* hq, void* sh, int M, int D, int H, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = (H + kS8HidBN - 1) / kS8HidBN;
+  CUtensorMap mX, mWg, mWu, mH, mHq, mW2, mY;
+  if (!tensor_map_i8(&mX, xq, M, D, kLinRows, kS8BK) ||
+      !tensor_map_i8(&mWg, w1q, H, D, kLinWHalf, kS8BK) ||
+      !tensor_map_i8(&mWu, (const signed char*)w1q + (size_t)H * D, H, D, kLinWHalf, kS8BK) ||
+      !tensor_map_f32(&mH, h, M, H, 64, 32) || !tensor_map_i8(&mHq, hq, M, H, kLinRows, kS8BK) ||
+      !tensor_map_i8(&mW2, w2q, D, H, kLinWHalf, kS8BK) || !tensor_map_bf16(&mY, y, M, D, 64, 64))
+    return kTensorMapError;
+  const int blocks = (M + kQuantRows - 1) / kQuantRows;
+  const int m_pairs = ((M + 2 * kLinRows - 1) / (2 * kLinRows) + kLinCluster - 1) / kLinCluster;
+  quantize_rows_kernel<<<blocks, 32 * kQuantRows, 0, st>>>(
+      (const bf16*)x, (const float*)nullptr, 0, (signed char*)xq, (float*)sx, M, D);
+  int err = (int)cudaGetLastError();
+  if (err == 0)
+    err = launch_clusters(s8_gemm_kernel<kS8Hidden>, s8_resident[kS8Hidden], kS8Smem,
+                          m_pairs * tiles, kLinCluster, st, mX, mWg, mWu, mH, (const float*)sx,
+                          (const float*)s1, (float*)amax, M, H, D);
+  if (err == 0) {
+    quantize_rows_kernel<<<blocks, 32 * kQuantRows, 0, st>>>(
+        (const float*)h, (const float*)amax, tiles, (signed char*)hq, (float*)sh, M, H);
+    err = (int)cudaGetLastError();
+  }
+  if (err == 0)
+    err = launch_clusters(s8_gemm_kernel<kS8Out>, s8_resident[kS8Out], kS8Smem,
+                          m_pairs * ((D + kLinBN - 1) / kLinBN), kLinCluster, st, mHq, mW2, mW2,
+                          mY, (const float*)sh, (const float*)s2, (float*)nullptr, M, D, H);
+  return err;
 }

@@ -1,8 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: cp.async tile
 // loads and a double-buffered bf16 tensor-core main loop (WMMA, fp32
 // accumulation) for C[BM x BN] = A[BM x K] . B[BN x K]^T, and beside it the
-// int8 main loop (s8 x s8 -> s32) of kernels 18 and 19, with their per-row
-// quantization.
+// int8 main loop (s8 x s8 -> s32) of kernel 19, with its per-row
+// quantization (whose rounding kernel 18 shares).
 //
 // Every GEMM of the SwinV2 block multiplies an activation (tokens x K,
 // row-major) by a torch ``nn.Linear`` weight (out x K, row-major), so both
@@ -169,7 +169,8 @@ struct TileMma {
 };
 
 // ---------------------------------------------------------------------------
-// int8 (kernels 18 and 19): s8 x s8 -> s32 WMMA 16x16x16 products.
+// int8 (kernel 19; kernel 18 shares quant8 and quant_scale): s8 x s8 -> s32
+// WMMA 16x16x16 products.
 //
 // An int8 operand tile of R rows over a K range lies k-chunk-major in shared
 // memory, [K/16][R][16] bytes, so the 16x16 fragment at (row r0, k-chunk kc)
@@ -179,7 +180,6 @@ struct TileMma {
 // fall on different banks. K must be a multiple of 16 (whole 16-byte chunks).
 
 __host__ __device__ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // Symmetric int8 of v at scale s, as the JAX mirror (quant.py) computes it:
 // IEEE division (the build has no fast-math) and round half to even (rintf;

@@ -19,7 +19,11 @@
 // backward's products reduce along the weight's rows (dx = dy . W) or along
 // the tokens (dW = dy^T . x): there a box of the tensor as it lies has its
 // rows along K (MN-major), wgmma reads it with its transpose flag, and the
-// k-th slice starts 16 rows, 2048 bytes, into it.
+// k-th slice starts 16 rows, 2048 bytes, into it. An int8 box row of 128
+// bytes holds 128 values under the same swizzle: the int8 FFN's operands
+// (kernel 18) are K-major, as 8-bit wgmma requires, and the k-th 32-deep
+// slice of a 128-deep tile starts k * 32 bytes in, so a descriptor steps
+// as for bf16.
 //
 // Requirements (TMA's): the global base 16-byte aligned, the row stride a
 // multiple of 16 bytes (K % 8 == 0 for bf16). TMA zero-fills what a box
@@ -38,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace swift {
 
@@ -289,6 +295,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 operands read through the
@@ -610,6 +622,52 @@ __device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2], const uint3
   }
 }
 
+// D[64 x 256] (+)= A[64 x 32] . B[32 x 256], s8 operands read through
+// K-major descriptors (``wgmma_desc``; 8-bit operands have no transposed
+// form), s32 accumulator in registers in the fp32 form's layout: thread t of
+// the warpgroup holds d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 +
+// 8 h][8 j + 2 (t % 4) + e]. scale_d = 0 overwrites D, 1 accumulates.
+// Integer sums are exact, so their order does not matter.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
+        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // -- registers -----------------------------------------------------------------
 
 // Move the warpgroup's register budget (all four warps execute it).
@@ -691,23 +749,24 @@ __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
 // box at row ``row0`` of mA0 and consumer 1's at ``row1`` of mA1 where they
 // hold rows (a0, a1), and, where ``w``, this block's W half at row ``wrow``
 // of mW, multicast into both blocks. ``bytes``: what lands in this block's
-// stage from both blocks' loads together.
+// stage from both blocks' loads together. ``bk``: a stage's depth in
+// elements, 128 bytes a box row (kLinBK bf16; 128 for int8).
 template <int STAGES>
 __device__ __forceinline__ void produce_tile(unsigned char* smem, uint64_t* full, uint64_t* empty,
                                              RingPos<STAGES>& pos, const CUtensorMap* mA0,
                                              int row0, bool a0, const CUtensorMap* mA1, int row1,
                                              bool a1, const CUtensorMap* mW, int wrow, bool w,
-                                             uint32_t bytes, int k_blocks) {
+                                             uint32_t bytes, int k_blocks, int bk = kLinBK) {
   const uint32_t rank = cluster_rank();
   for (int kb = 0; kb < k_blocks; ++kb) {
     unsigned char* stage = smem + pos.s * kLinStageBytes;
     mbar_wait(&empty[pos.s], pos.phase ^ 1);
     mbar_expect_tx(&full[pos.s], bytes);
-    if (a0) tma_load_2d(stage, mA0, &full[pos.s], kb * kLinBK, row0);
-    if (a1) tma_load_2d(stage + kLinABytes, mA1, &full[pos.s], kb * kLinBK, row1);
+    if (a0) tma_load_2d(stage, mA0, &full[pos.s], kb * bk, row0);
+    if (a1) tma_load_2d(stage + kLinABytes, mA1, &full[pos.s], kb * bk, row1);
     if (w)
       tma_load_2d_multicast(stage + 2 * kLinABytes + rank * kLinWBytes, mW, &full[pos.s],
-                            kb * kLinBK, wrow, (1 << kLinCluster) - 1);
+                            kb * bk, wrow, (1 << kLinCluster) - 1);
     pos.next();
   }
 }
@@ -773,9 +832,10 @@ __device__ __forceinline__ void produce_tile_mn(unsigned char* smem, uint64_t* f
 // each warp arrives in block r) once the wgmmas that read it are done.
 // A_MN, B_MN: the stage was loaded by ``produce_tile_mn``, A stored K rows
 // of M where A_MN, B the four MN-major boxes of K rows of N (B_MN), read
-// with wgmma's transpose flags.
-template <int STAGES, bool A_MN = false, bool B_MN = false>
-__device__ __forceinline__ void consume_tile(float (&acc)[128], unsigned char* smem,
+// with wgmma's transpose flags. An int accumulator takes the s8 form
+// (``wgmma_m64n256k32_s8``: a stage of 128 int8 deep, four 32-deep slices).
+template <int STAGES, bool A_MN = false, bool B_MN = false, class Acc>
+__device__ __forceinline__ void consume_tile(Acc (&acc)[128], unsigned char* smem,
                                              uint64_t* full, uint64_t* empty,
                                              RingPos<STAGES>& pos, int c, int k_blocks) {
   const int lane = threadIdx.x % 32;
@@ -796,8 +856,14 @@ __device__ __forceinline__ void consume_tile(float (&acc)[128], unsigned char* s
     const uint64_t dw = B_MN ? wgmma_desc_mn(stage + 2 * kLinABytes, kMnBBox)
                              : wgmma_desc(stage + 2 * kLinABytes);
 #pragma unroll
-    for (int k = 0; k < kLinBK / 16; ++k)
-      wgmma_m64nNk16<256, A_MN, B_MN>(acc, da + a_step * k, dw + w_step * k, kb > 0 || k > 0);
+    for (int k = 0; k < kLinBK / 16; ++k) {  // 32-byte slices of a 128-byte box row
+      if constexpr (std::is_same_v<Acc, int>) {
+        static_assert(!A_MN && !B_MN, "8-bit wgmma operands are K-major");
+        wgmma_m64n256k32_s8(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+      } else {
+        wgmma_m64nNk16<256, A_MN, B_MN>(acc, da + a_step * k, dw + w_step * k, kb > 0 || k > 0);
+      }
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: release it
     if (kb > 0) release(prev);
@@ -873,20 +939,41 @@ inline TensorMapEncodeFn tensor_map_encoder() {
 // swizzle (box_cols * 2 <= 128) or, where ``swizzle`` is false, laid out
 // densely row after row (box_cols * 2 a multiple of 16, box_cols <= 256);
 // zero fill past the edges. Returns false when it cannot be encoded.
-inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                            uint32_t box_rows, uint32_t box_cols, bool swizzle = true,
-                            uint64_t stride = 0) {
+inline bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem_bytes,
+                          const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                          uint32_t box_cols, bool swizzle, uint64_t stride) {
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {(stride ? stride : cols) * 2};
+  const cuuint64_t strides[1] = {(stride ? stride : cols) * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool tensor_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint32_t box_rows, uint32_t box_cols, bool swizzle = true,
+                            uint64_t stride = 0) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_rows,
+                       box_cols, swizzle, stride);
+}
+
+// The same for an int8 matrix (raw bytes; the zero fill is int8 0), box_cols
+// <= 128, and for an fp32 one, box_cols <= 32, both with the 128-byte swizzle.
+inline bool tensor_map_i8(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows, uint32_t box_cols) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, box_rows,
+                       box_cols, true, 0);
+}
+
+inline bool tensor_map_f32(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                           uint32_t box_rows, uint32_t box_cols) {
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols, box_rows,
+                       box_cols, true, 0);
 }
 
 // ``kernel`` launched persistent: as many blocks of ``threads`` as the

@@ -21,7 +21,12 @@ gate and up, bf16(x·Wgᵀ) and bf16(x·Wuᵀ), beside h.
 ``_ffn_bwd_call`` (gate and up recomputed from x, nothing (tokens,
 hidden)-shaped in device memory beyond a chunk of tokens);
 ``csrc/ffn_int8.cu::swift_ffn_int8`` ``fused_swiglu_ffn_int8`` (body
-``_ffn_q_kernel``); ``csrc/ffn.cu::swift_ffn_mn`` ``_ffn_mn_call``. Weights
+``_ffn_q_kernel``): over the same token chunks, x quantized per token, then
+kernel 5's pass 1 on the s8 ``wgmma`` form of ``csrc/wgmma.cuh`` writing h
+= g·sigmoid(g)·u in fp32 and each row's abs-max a 128-unit tile, h
+quantized per token from that fp32 copy, and kernel 1's loop in s8 for
+hq·W2qᵀ, rescaled to bf16 (:func:`ffn_int8_scratch_bytes`);
+``csrc/ffn.cu::swift_ffn_mn`` ``_ffn_mn_call``. Weights
 are in the torch ``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows
 first and the up rows second (the reference chunk order), ``w2`` (D, H).
 
@@ -44,9 +49,9 @@ from swift_torch.ops import _build, jvp_guard, quant
 from swift_torch.ops.linear import reference_linear, reference_linear_pt
 from swift_torch.ops.modnorm import _vjp, reference_modnorm_residual
 
-# Kernels 5, 8 and 11 run their two passes over chunks of at most this many
+# Kernels 5, 8, 11 and 18 run their passes over chunks of at most this many
 # tokens, so that a call's scratch (h, and dh for 11) stays under 1 GB at
-# H = 2816: 0.74 GB for kernel 11 at the limit.
+# H = 2816: 0.74 GB for kernel 11 at the limit, 0.80 GB for 18 at 0.25°.
 FFN_CHUNK_TOKENS = 65536
 
 
@@ -175,8 +180,8 @@ def _unpad_grads(dw1, dw2, H):
 
 
 def ffn_chunks(T: int) -> list[tuple[int, int]]:
-    """The token ranges [start, stop) over which kernels 5, 8 and 11 run
-    their two passes: [0, T) in as few pieces of at most :data:`FFN_CHUNK_TOKENS`
+    """The token ranges [start, stop) over which kernels 5, 8, 11 and 18 run
+    their passes: [0, T) in as few pieces of at most :data:`FFN_CHUNK_TOKENS`
     as it takes, of one length rounded up to whole 128-token row tiles
     where that stays within the limit. One piece for the flagship (16,384
     and 32,768 tokens), five of 52,992 at 0.25° (264,960 tokens)."""
@@ -470,6 +475,57 @@ def reference_swiglu_ffn_int8(x, w1, w2):
     return quant.int8_matmul(h, w2).to(x.dtype)
 
 
+def ffn_int8_scratch_bytes(T, D, H) -> int:
+    """Device scratch of kernel 18 for T tokens, for the longest chunk of
+    :func:`ffn_chunks`, H padded to 16 as the wrapper pads it: the fp32 h,
+    hq and xq in int8, the scales sx and sh, and h's partial abs-maxima, one
+    a row and 128-unit tile. 0.50 GB at the flagship's MB = 4 (32,768 tokens,
+    D = 1056, H = 2816), 0.80 GB at 0.25° (52,992-token chunks)."""
+    rows = max(e - s for s, e in ffn_chunks(T))
+    H += -H % 16
+    return rows * (4 * H + H + D + 4 + 4 + 4 * -(-H // 128))
+
+
+def swiglu_ffn_int8_quantized(x, w1q, s1, w2q, s2):
+    """Kernel 18 on weights quantized already, CUDA tensors only (the CPU
+    route is :func:`fused_swiglu_ffn_int8`'s plain version): x (..., D) bf16; w1q
+    (2H, D) and w2q (D, H) int8 with their per-row fp32 scales s1 (2H,) and
+    s2 (D,), as :func:`quant.quantize_colwise` gives them, H a multiple of
+    16, D of 16. For each chunk of :func:`ffn_chunks` one ``swift_ffn_int8``
+    call (x quantized, pass 1, h quantized, pass 2) with
+    :func:`ffn_int8_scratch_bytes` of scratch. Counts one launch of
+    :func:`fused_swiglu_ffn_int8`."""
+    name = "fused_swiglu_ffn_int8"
+    _build.check_kernel_inputs(name, x=x, w1q=w1q, s1=s1, w2q=w2q, s2=s2)
+    _build.check_dtype(name, torch.bfloat16, x=x)
+    _build.check_dtype(name, torch.int8, w1q=w1q, w2q=w2q)
+    _build.check_dtype(name, torch.float32, s1=s1, s2=s2)
+    D, H = x.shape[-1], w2q.shape[1]
+    if w1q.shape != (2 * H, D) or w2q.shape != (D, H) or s1.shape != (2 * H,) or (
+            s2.shape != (D,)):
+        raise ValueError(f"{name}: w1q {tuple(w1q.shape)}, w2q {tuple(w2q.shape)}, s1, s2 do "
+                         f"not match D={D}, H={H}")
+    if D % 16 or H % 16:
+        raise ValueError(f"{name}: D={D} and H={H} must be multiples of 16")
+    lib, stream = _build.library(), _build.stream()
+    chunks = ffn_chunks(x.numel() // D)
+    rows, dev = max(e - s for s, e in chunks), x.device
+    xq = torch.empty(rows, D, device=dev, dtype=torch.int8)
+    hq = torch.empty(rows, H, device=dev, dtype=torch.int8)
+    h = torch.empty(rows, H, device=dev, dtype=torch.float32)
+    sx, sh = (torch.empty(rows, device=dev, dtype=torch.float32) for _ in range(2))
+    amax = torch.empty(rows, -(-H // 128), device=dev, dtype=torch.float32)
+    x2, y = x.view(-1, D), torch.empty_like(x)
+    y2 = y.view(-1, D)
+    for s, e in chunks:
+        _build.check_launch(lib.swift_ffn_int8(
+            x2[s:e].data_ptr(), w1q.data_ptr(), s1.data_ptr(), w2q.data_ptr(), s2.data_ptr(),
+            y2[s:e].data_ptr(), xq.data_ptr(), sx.data_ptr(), h.data_ptr(), amax.data_ptr(),
+            hq.data_ptr(), sh.data_ptr(), e - s, D, H, stream), name)
+    fused_swiglu_ffn_int8.launches += 1
+    return y
+
+
 def fused_swiglu_ffn_int8(x, w1, w2):
     """Dynamically quantized int8 SwiGLU FFN, inference only. x: (..., D);
     w1: (2H, D) gate rows then up rows; w2: (D, H), float (the model passes
@@ -481,30 +537,17 @@ def fused_swiglu_ffn_int8(x, w1, w2):
     h's per-token abs-max nor w2's per-output-feature scales), the weights
     are quantized here in PyTorch, one scale per output feature
     (:func:`quant.quantize_colwise`, as the JAX caller does outside its
-    kernel), then kernel 18 quantizes x and h per token; x bf16, D a
-    multiple of 16. Raises while autograd records and on dual tensors."""
+    kernel), then kernel 18 (:func:`swiglu_ffn_int8_quantized`) quantizes x
+    and h per token; x bf16, D a multiple of 16. Raises while autograd
+    records and on dual tensors."""
     name = "fused_swiglu_ffn_int8"
     _build.refuse_autograd(name, x=x, w1=w1, w2=w2)
     if _build.on_cpu(x, w1, w2):
         return reference_swiglu_ffn_int8(x, w1, w2)
-    _build.check_kernel_inputs(name, x=x, w1=w1, w2=w2)
-    _build.check_dtype(name, torch.bfloat16, x=x)
-    D = _check(name, x, w1, w2)[0]
+    _build.check_kernel_inputs(name, w1=w1, w2=w2)  # x: swiglu_ffn_int8_quantized's checks
+    _check(name, x, w1, w2)
     w1, w2 = pad_hidden(w1, w2, 16)
-    H = w2.shape[1]
-    lib = _build.library()
-    if lib.swift_ffn_int8_smem(D, H) > lib.swift_max_smem():
-        raise ValueError(f"{name}: D={D}, H={H} need more shared memory than a block has")
-    w1q, s1 = quant.quantize_colwise(w1)
-    w2q, s2 = quant.quantize_colwise(w2)
-    y = torch.empty_like(x)
-    _build.check_launch(
-        lib.swift_ffn_int8(x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), w2q.data_ptr(),
-                           s2.data_ptr(), y.data_ptr(), x.numel() // D, D, H, _build.stream()),
-        name,
-    )
-    fused_swiglu_ffn_int8.launches += 1
-    return y
+    return swiglu_ffn_int8_quantized(x, *quant.quantize_colwise(w1), *quant.quantize_colwise(w2))
 
 
 def reference_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps=1e-6):

@@ -15,12 +15,17 @@
 * The plain version of kernel 19: its int8 product bit for bit, the whole
   epilogue against the mirror at 2e-5 (fp32 LayerNorm sums in another
   order) and against the interpreted kernel at 1e-4.
+* Kernel 18's token chunks: its scratch from the shapes (under 1 GB at
+  0.25°), and the plain version run chunk by chunk over ``ffn_chunks``
+  (the limit lowered) equal to the whole run bit for bit and to the JAX
+  mirror: per-token scales make the chunks independent.
 * Routing: CPU tensors take the plain versions and count no launch; the
   wrappers raise while autograd records and on dual tensors (the Pallas
   calls have no vjp or jvp rule), and on inputs that are not all on one
   CUDA device.
 * The ``cuda``-marked tests hold kernels 18 and 19 to their plain versions
-  on the card within 2e-2 of max|plain|, and skip elsewhere. This file
+  on the card within 2e-2 of max|plain|, kernel 18 also across a chunk
+  boundary, two of its calls bit for bit, and skip elsewhere. This file
   imports no JAX model (flax), so it collects on the card's machine.
 """
 
@@ -151,6 +156,37 @@ def test_int8_ffn_hidden_padding_is_exact(H):
                                   ffn.reference_swiglu_ffn_int8(_t(x), w1t, w2t).numpy())
 
 
+def test_int8_ffn_scratch_bytes():
+    """Kernel 18's scratch for the longest token chunk, H padded to 16: fp32
+    h, int8 hq and xq, the two scales and h's partial maxima a 128-unit
+    tile. The flagship's MB = 4 forward (32,768 tokens) runs one chunk; the
+    0.25° grid's 264,960 tokens five of 52,992, under 1 GB."""
+    assert ffn.ffn_int8_scratch_bytes(32768, 1056, 2816) == 32768 * (5 * 2816 + 1056 + 8 + 88)
+    quarter = ffn.ffn_int8_scratch_bytes(264960, 1056, 2816)
+    assert quarter == 52992 * (5 * 2816 + 1056 + 8 + 88) < 1e9
+    # H = 85 is padded to 96: one partial a row
+    assert ffn.ffn_int8_scratch_bytes(128, 32, 85) == 128 * (5 * 96 + 32 + 8 + 4)
+
+
+def test_int8_ffn_plain_chunks_equal_whole_run(monkeypatch):
+    """Kernel 18 runs over the token chunks of ``ffn_chunks``; every scale
+    is per token or per output feature, so the plain version run chunk by
+    chunk (the limit lowered to 256 tokens: three chunks of 600 tokens, the
+    last 88) at the flagship widths equals the whole run and the JAX mirror
+    bit for bit."""
+    monkeypatch.setattr(ffn, "FFN_CHUNK_TOKENS", 256)
+    x, w1, w2 = _ffn_inputs(6, T=600, D=1056, H=2816)
+    chunks = ffn.ffn_chunks(600)
+    assert chunks == [(0, 256), (256, 512), (512, 600)]
+    whole = ffn.reference_swiglu_ffn_int8(_t(x), _t(w1.T), _t(w2.T))
+    pieces = torch.cat([ffn.reference_swiglu_ffn_int8(_t(x[s:e]), _t(w1.T), _t(w2.T))
+                        for s, e in chunks])
+    np.testing.assert_array_equal(pieces.numpy(), whole.numpy())
+    mirror = np.asarray(pffn.reference_swiglu_ffn_int8(jnp.asarray(x), jnp.asarray(w1),
+                                                       jnp.asarray(w2)))
+    np.testing.assert_array_equal(pieces.numpy(), mirror)
+
+
 def _modnorm_inputs(seed=2, B=2, n=128, F=96, D=48):
     rng = np.random.default_rng(seed)
     return (_rand(rng, (B, n, F)), _rand(rng, (F, D), F ** -0.5), _rand(rng, (B, n, D)),
@@ -222,17 +258,22 @@ def _card_close(fused, plain, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tokens,D,H,F", [(1000, 208, 272, 96), (136, 1056, 2816, 1056),
-                                          (4096, 1056, 2816, 1024), (128, 32, 85, 32)])
+                                          (4096, 1056, 2816, 1024), (128, 32, 85, 32),
+                                          (ffn.FFN_CHUNK_TOKENS + 136, 1056, 2816, 1056),
+                                          (1000, 32, 85, 32)])
 def test_int8_kernels_match_plain_on_card(tokens, D, H, F):
     """Kernels 18 and 19 in bf16 on the card against their plain versions,
     within 2e-2 of max|plain|: a token count that tiles neither kernel's
     rows, D that is not a multiple of 128, the flagship widths (F the
-    12x88 and 8x128 attention widths), and synthetic-tiny-scm's SwiGLU width
-    85, which the wrapper pads to 96. The plain version runs on the weights
-    padded to a multiple of 16 (``torch._int_mm`` on the card takes widths
-    that are multiples of 8 only), equal to it on the unpadded ones bit for
-    bit (:func:`test_int8_ffn_hidden_padding_is_exact`). Each wrapper counts
-    one launch."""
+    12x88 and 8x128 attention widths), synthetic-tiny-scm's SwiGLU width
+    85, which the wrapper pads to 96, and more tokens than one of kernel
+    18's chunks (two, the second not a whole number of 128-row tiles). The
+    plain version runs on the weights padded to a multiple of 16
+    (``torch._int_mm`` on the card takes widths that are multiples of 8
+    only), equal to it on the unpadded ones bit for bit
+    (:func:`test_int8_ffn_hidden_padding_is_exact`). Two calls of kernel 18
+    agree bit for bit (no atomics; each row's h scale a max over fixed
+    partials). Each wrapper counts one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(11)
@@ -246,7 +287,11 @@ def test_int8_kernels_match_plain_on_card(tokens, D, H, F):
     _card_close(ffn.fused_swiglu_ffn_int8,
                 lambda x, w1, w2: ffn.reference_swiglu_ffn_int8(x, *ffn.pad_hidden(w1, w2, 16)),
                 (x, w1, w2))
-    assert ffn.fused_swiglu_ffn_int8.launches == before + 1
+    with torch.no_grad():
+        first, second = ffn.fused_swiglu_ffn_int8(x, w1, w2), ffn.fused_swiglu_ffn_int8(x, w1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert ffn.fused_swiglu_ffn_int8.launches == before + 3
     args = (t((2, tokens // 2, F)), t((D, F), F ** -0.5, torch.float32), x,
             1.0 + t((D,), 0.1, torch.float32), t((D,), 0.1, torch.float32), t((2, D), 0.2),
             t((2, D), 0.2))
