@@ -31,8 +31,11 @@ Phases, each printed as it finishes:
    primal + tangent and a composition of library calls (``F.linear``,
    silu·mul, ``F.linear``) for the FFN, its primal + tangent and the
    forward that keeps gate and up, another (``F.linear`` for dh, the
-   SwiGLU backward in PyTorch, matmuls for dx, dW1, dW2) for kernel 9 and
-   ``dy @ w``, ``dy.T @ x`` for kernel 13, and
+   SwiGLU backward in PyTorch, matmuls for dx, dW1, dW2) for kernel 9,
+   ``F.linear`` for gate|up then kernel 9's over kernel 10's token chunks
+   for kernel 10 (which is also timed beside kernels 8 then 9 on the same
+   tokens, single and queued, at B=2 and 0.25°, with its share of its
+   bound), ``dy @ w``, ``dy.T @ x`` for kernel 13, and
    another (``torch.roll``, window partition, the fp32 normalise rounded to
    bf16, ``F.scaled_dot_product_attention`` at scale 1, the inverse) for
    the attention forward 2 and 15, and another (``F.linear``, fp32
@@ -50,7 +53,7 @@ Phases, each printed as it finishes:
    kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's
    and kernel 8's y kernel 5's, and kernel 15's on qkv rolled by the shift
    (8, 8) kernel 2's at that shift, bit for bit, two calls of kernels 9,
-   13 and 18 each other's, and kernel 8's g and u are
+   10 (also at 0.25°), 13 and 18 each other's, and kernel 8's g and u are
    zero in the hidden units its wrapper pads (path A's H = 85 to 88);
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
@@ -187,7 +190,9 @@ from swift_torch.ops.block_attention import (
     tiled_block_attention_tangent,
 )
 from swift_torch.ops.ffn import (
+    FFN_BWD_CHUNK_TOKENS,
     bwd_recompute_scratch_bytes,
+    ffn_chunks,
     ffn_int8_scratch_bytes,
     ffn_scratch_bytes,
     fused_swiglu_ffn,
@@ -767,6 +772,29 @@ def _composition_ffn_bwd_saved(x, dy, g, u, w1, w2):
     return run
 
 
+def _composition_ffn_bwd_recompute(x, dy, w1, w2):
+    """``F.linear`` for g | u = x·W1ᵀ (cuBLAS, rounded to bf16 there), then
+    :func:`_composition_ffn_bwd_saved` on them, over kernel 10's token
+    chunks (``ffn_chunks``), dW1 and dW2 summed over the chunks in fp32:
+    kernel 10 as a user would write it."""
+    H, (T, D) = w2.shape[1], x.shape
+    chunks = ffn_chunks(T, FFN_BWD_CHUNK_TOKENS)
+
+    def run():
+        dx = torch.empty_like(x)
+        dw1 = torch.zeros(2 * H, D, device=x.device)
+        dw2 = torch.zeros(D, H, device=x.device)
+        for s, e in chunks:
+            gu = torch.nn.functional.linear(x[s:e], w1)
+            dx[s:e], g1, g2 = _composition_ffn_bwd_saved(x[s:e], dy[s:e], gu[:, :H], gu[:, H:],
+                                                         w1, w2)()
+            dw1 += g1
+            dw2 += g2
+        return dx, dw1, dw2
+
+    return run
+
+
 def _composition_linear_bwd(dy, x, w):
     """``dy @ w`` and ``dy.T @ x`` (cuBLAS): kernel 13's two products."""
     return lambda: (dy @ w, dy.t() @ x)
@@ -789,12 +817,13 @@ def _composition_ffn_int8(x, w1q, s1, w2q, s2):
     return run
 
 
-# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 11, 13 and 18 have no single PyTorch call of the
+# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 10, 11, 13 and 18 have no single PyTorch call of the
 # same function: their yardstick is a composition of library calls, timed
 # beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
                "swiglu_ffn_fwd_save": _composition_ffn_save,
                "swiglu_ffn_bwd_saved": _composition_ffn_bwd_saved,
+               "swiglu_ffn_bwd_recompute": _composition_ffn_bwd_recompute,
                "linear_bwd": _composition_linear_bwd,
                "block_attention": _composition_attention,
                "tiled_block_attention": _composition_attention,
@@ -996,12 +1025,14 @@ def phase_kernels() -> dict:
                 int8_ffn_alone(args, fields)
             elif name in ("linear", "linear_pt") + tuple(COMPOSITION):
                 rates(name, args, fields)
+            if name == "swiglu_ffn_bwd_recompute":
+                ffn_bwd_yardsticks(args, fields, "B=2")
             flagship = d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8)
             if name in QUARTER_KERNELS:
                 _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
                 if flagship:
-                    record[name].update(flagship_ms=fields["ms"],
-                                        flagship_plain_ms=fields["plain_ms"])
+                    record[name].update({f"flagship_{k}": v for k, v in fields.items()
+                                         if k.endswith("ms") and v is not None})
             else:
                 _merge(record, name, fields, flagship)  # flagship timing of record
             if name == "block_attention_bwd" and flagship:
@@ -1185,12 +1216,12 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
 
 def kernels_deterministic(a: dict, heads: int, d: int) -> None:
     """The invariant of kernels 6, 16, 7 and 17 at both geometries, and of 9,
-    13 and 18 at the flagship shape: two calls give the same bits (the partial
-    dq̂ of 6 and 16 and the tangent's partial outputs are added across the
-    cluster in one fp32 addition, the scale's partials and the weight
-    gradients' token splits summed in a fixed order, 18's h scale a max over
-    fixed partials; no float atomics), so a race in a ring, an exchange or
-    the split sums shows at once."""
+    10, 13 and 18 at the flagship shape: two calls give the same bits (the
+    partial dq̂ of 6 and 16 and the tangent's partial outputs are added
+    across the cluster in one fp32 addition, the scale's partials and the
+    weight gradients' token splits (and 10's token chunks) summed in a fixed
+    order, 18's h scale a max over fixed partials; no float atomics), so a
+    race in a ring, an exchange or the split sums shows at once."""
     win = (16, 16)
     cases = [("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win, SHIFTS[1])),
              ("tiled_block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win)),
@@ -1200,15 +1231,43 @@ def kernels_deterministic(a: dict, heads: int, d: int) -> None:
         cases += [("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
                   ("swiglu_ffn_bwd_saved",
                    (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"])),
+                  ("swiglu_ffn_bwd_recompute", (a["x"], a["dy"], a["w1"], a["w2"])),
                   ("swiglu_ffn_int8", (a["x"], a["w1"].float(), a["w2"].float()))]
     for name, args in cases:
-        fused = KERNELS[name][0]
-        first, second = fused(*args), fused(*args)
-        pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
-        same = all(torch.equal(p, q) for p, q in pairs)
-        log(f"[kernels] {name} heads={heads:2d} d={d:3d}: two calls equal bit for bit: {same}")
-        if not same:
-            raise AssertionError(f"{name}: two calls on the same inputs differ")
+        two_calls_equal(name, args, f"heads={heads:2d} d={d:3d}")
+
+
+def two_calls_equal(name: str, args, label: str) -> None:
+    """Raises unless two calls of a kernel on the same inputs give the same
+    bits."""
+    fused = KERNELS[name][0]
+    first, second = fused(*args), fused(*args)
+    pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
+    same = all(torch.equal(p, q) for p, q in pairs)
+    log(f"[kernels] {name} {label}: two calls equal bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{name} ({label}): two calls on the same inputs differ")
+
+
+def ffn_bwd_yardsticks(args, fields: dict, tag: str, reps: int = 20) -> None:
+    """Kernel 10 beside the saved route's pair on the same tokens, kernel 8
+    then kernel 9 on its g and u (the products kernel 10 runs in one call,
+    and 8's y besides), single calls and queued, with kernel 10's share of
+    its bound single (``check_kernel``'s time) and queued (``rates``')."""
+    x, dy, w1, w2 = args
+
+    def pair():
+        _, g, u = swiglu_ffn_fwd_save(x, w1, w2)
+        return swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2)
+
+    pair_ms, q_pair_ms = time_ms(pair, reps), queued_ms(pair, reps)
+    bound, ms, q_ms = fields["bound_ms"], fields["ms"], fields["queued_ms"]
+    log(f"[kernels] swiglu_ffn_bwd_recompute {tag}: {ms:.4f} ms single, {100 * bound / ms:.1f}% "
+        f"of its {bound:.4f}-ms bound; queued {q_ms:.4f} ms, {100 * bound / q_ms:.1f}%; the "
+        f"saved route's kernels 8 + 9 on the same tokens {pair_ms:.4f} ms single, queued "
+        f"{q_pair_ms:.4f} ms ({q_ms / q_pair_ms:.3f}x); the composition queued "
+        f"{fields['queued_composition_ms']:.4f} ms")
+    fields.update(pair_8_9_ms=pair_ms, queued_pair_8_9_ms=q_pair_ms)
 
 
 def int8_qkv(a: dict, heads: int, d: int, record: dict) -> None:
@@ -1298,10 +1357,13 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual",
                              "linear_bwd")
     for name, args in cases:
-        fields = check_kernel(name, args, f"0.25° B=1 {gh}x{gw} heads={heads} d={d}", reps=5)
-        if name in ("tiled_block_attention", "tiled_block_attention_bwd",
-                    "tiled_block_attention_tangent", "matmul_modnorm_residual", "linear_bwd"):
-            rates(name, args, fields)  # 15-17 on their main path's shape; 3, 13 as times of record
+        label = f"0.25° B=1 {gh}x{gw} heads={heads} d={d}"
+        fields = check_kernel(name, args, label, reps=5)
+        if name in QUARTER_KERNELS + ("matmul_modnorm_residual", "linear_bwd"):
+            rates(name, args, fields)  # 10, 15-17 on their main path's shape; 3, 13 as records
+        if name == "swiglu_ffn_bwd_recompute":
+            ffn_bwd_yardsticks(args, fields, "0.25°", reps=5)
+            two_calls_equal(name, args, label)
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],

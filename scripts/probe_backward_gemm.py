@@ -81,7 +81,7 @@ SOURCE = "gemm_bwd.cu"
 KERNELS = ()  # every kernel
 VARIANTS = {
     "committed": [],
-    "one_split": [("  for (int s = 2; s <= 16; ++s) {", "  for (int s = 2; s <= 1; ++s) {")],
+    "one_split": [("  for (int s = 2; s <= most; ++s) {", "  for (int s = 2; s <= 1; ++s) {")],
     "direct_saved_reads": DIRECT_SAVED_READS,
 }
 D, H = 1056, 2816

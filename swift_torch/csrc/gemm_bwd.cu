@@ -1,5 +1,6 @@
 // The backward GEMMs of the SwinV2 block on Hopper: the linear backward
-// (kernel 13) and the SwiGLU FFN backward from saved gate/up (kernel 9).
+// (kernel 13) and the SwiGLU FFN backward from saved gate/up (kernel 9) or
+// with them recomputed (kernel 10).
 //
 // swift_linear_bwd -- replaces swift_tpu/ops/pallas_linear.py::_lin_bwd_call
 //   (kernel body _lin_bwd_kernel): dx = dy . W and dW = dy^T . x summed over
@@ -16,241 +17,36 @@
 //   SwiGLU backward in its epilogue (it reads the saved g and u and writes
 //   dg | du and h, bf16, 277 MB of scratch at T = 16,384, H = 2816), dx, and
 //   the two weight gradients split over the tokens, then their sums.
-// swift_ffn_bwd_recompute -- replaces swift_tpu/ops/pallas_ffn.py::
-//   _ffn_bwd_call (kernel body _ffn_bwd_kernel), the backward above
-//   SWIFT_FFN_BWD_SAVE_MAX_TOKENS (the 0.25-degree grid): the same outputs
-//   with g = x . Wg and u = x . Wu recomputed in fp32 from x, never saved.
-//   Eight products, ~16 T D H FLOP: tensor-core bound. The TPU kernel's
-//   point is that nothing (tokens, hidden)-shaped reaches HBM; g and u alone
-//   would be 2.98 GB in bf16 at 264,960 tokens. Here one block forms the
-//   128 x 128 tiles of g, u and dh of the same tokens and hidden columns one
-//   after another, keeps g and u in shared memory as fp32 (they never leave
-//   the block) and writes only dg, du and h, in bf16, for one chunk of
-//   tokens at a time (kBwdChunk): the chunk's dx and its share of dW1 and
-//   dW2 follow, the weight gradients summed over the chunks in fp32 in
-//   chunk order. The scratch is bounded by the chunk, not by the tokens.
+// swift_ffn_bwd_recompute -- one token chunk of kernel 10, which replaces
+//   swift_tpu/ops/pallas_ffn.py::_ffn_bwd_call (kernel body
+//   _ffn_bwd_kernel), the backward above SWIFT_FFN_BWD_SAVE_MAX_TOKENS (the
+//   0.25-degree grid): kernel 9's outputs with g = x . Wg and u = x . Wu
+//   recomputed in fp32 from x, never saved. Eight products, 16 T D H FLOP:
+//   tensor-core bound. The TPU kernel's point is that nothing (tokens,
+//   hidden)-shaped reaches HBM; g and u alone would be 2.98 GB in bf16 at
+//   264,960 tokens. A recompute pass (swiglu_bwd_recompute_wgmma_kernel)
+//   forms dh = dy . W2 and g | u in fp32 for each tile of 128 tokens x 128
+//   hidden units and writes only dg, du and h, in bf16, to the chunk's
+//   scratch: g, u and dh never reach device memory. Then kernel 9's three
+//   other products on bwd_wgmma_kernel: dx = [dg|du] . W1, and the weight
+//   gradients' fp32 partials over the chunk's tokens, summed in a fixed
+//   order (chunk by chunk, split by split) onto fp32 running sums, rounded
+//   to bf16 once after the last chunk. The caller plans the chunks
+//   (ops/ffn.py), so the scratch is bounded by a chunk, not by the tokens.
 //
 // The torch weights are (out, in) row-major, so the backward needs the two
 // operand layouts the forward never reads: dy . W, where the reduction runs
 // along W's rows, and x^T . dy, where it runs along the token dimension of
 // both operands. No transposed copy of a weight or an activation is ever
-// made in device memory. Two main loops serve them:
-//   kernels 9 and 13 run every product on the wgmma + TMA ring of
-//   wgmma.cuh (bwd_wgmma_kernel): each stage holds plain 64 x 64 TMA boxes
-//   of the tensors as they lie, and the transpose lives only in the
-//   shared-memory descriptors (wgmma_desc_mn, wgmma_desc_mn_a) and the
-//   instruction's transpose flags;
-//   kernel 10 keeps the WMMA loop below (gemm_kernel, gemm_mainloop): each
-//   operand tile staged in its natural global layout by cp.async and handed
-//   to the tensor cores as a row- or column-major WMMA fragment.
+// made in device memory: every product runs on the wgmma + TMA ring of
+// wgmma.cuh, each stage holding plain 64 x 64 TMA boxes of the tensors as
+// they lie, and the transpose lives only in the shared-memory descriptors
+// (wgmma_desc_mn, wgmma_desc_mn_a) and the instruction's transpose flags.
 //
-#include <type_traits>
-
 #include "tile_mma.cuh"
 #include "wgmma.cuh"
 
 namespace swift {
-
-constexpr int GBM = 128, GBN = 128, GBK = 32, GWM = 2, GWN = 4, GNT = GWM * GWN * 32;
-constexpr int GFM = GBM / GWM / 16, GFN = GBN / GWN / 16;
-constexpr int GLDC = GBN + 4;  // fp32 staging stride of the output tile
-constexpr int kGemmSmem = GBM * GLDC * 4;  // >= the two double-buffered operand tiles
-constexpr int kWaveBlocks = 4 * 132;       // split-K target: about four blocks per SM
-
-// Operand layouts of C[m][n] = sum_k A(m, k) B(k, n).
-//   A: kAK -> A[m * lda + k] (K contiguous);  kAM -> A[k * lda + m] (M contiguous)
-//   B: kBK -> B[n * ldb + k] (K contiguous, the nn.Linear weight);
-//      kBN -> B[k * ldb + n] (N contiguous)
-enum { kAK = 0, kAM = 1 };
-enum { kBK = 0, kBN = 1 };
-// What the block does with its fp32 tile.
-enum { kEpiBf16 = 0, kEpiPartial = 1 };
-
-// Elements of one staged operand tile: EXT x BK when K is contiguous, else
-// BK x EXT (8 bf16 of padding a row against bank conflicts).
-template <bool KCONT, int EXT>
-__host__ __device__ constexpr int op_tile() {
-  return KCONT ? EXT * (GBK + 8) : GBK * (EXT + 8);
-}
-static_assert(2 * (op_tile<true, GBM>() + op_tile<true, GBN>()) * 2 <= kGemmSmem, "smem");
-static_assert(2 * (op_tile<false, GBM>() + op_tile<false, GBN>()) * 2 <= kGemmSmem, "smem");
-
-// Stage rows [e0, e0+EXT) x reduction [k0, k0+BK) of an operand. Extents
-// and the reduction end are multiples of 8 (the wrappers check), so each
-// 16-byte chunk lies wholly inside or wholly outside; outside is zero-filled.
-template <bool KCONT, int EXT>
-__device__ __forceinline__ void load_op(bf16* s, const bf16* g, int ld, int e0, int E, int k0,
-                                        int kend, int tid) {
-  if (KCONT) {
-    constexpr int LD = GBK + 8, CPR = GBK / 8;
-    for (int c = tid; c < EXT * CPR; c += GNT) {
-      const int r = c / CPR, kc = (c % CPR) * 8, e = e0 + r, k = k0 + kc;
-      const bool ok = e < E && k < kend;
-      cp_async16(s + r * LD + kc, ok ? g + (size_t)e * ld + k : g, ok);
-    }
-  } else {
-    constexpr int LD = EXT + 8, CPR = EXT / 8;
-    for (int c = tid; c < GBK * CPR; c += GNT) {
-      const int r = c / CPR, ec = (c % CPR) * 8, k = k0 + r, e = e0 + ec;
-      const bool ok = k < kend && e < E;
-      cp_async16(s + r * LD + ec, ok ? g + (size_t)k * ld + e : g, ok);
-    }
-  }
-}
-
-using GAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc (this warp's GFM x GFN fragments of the block's GBM x GBN tile at
-// (m0, n0)) = sum over k in [kb, ke) of A(m, k) B(k, n), the operand tiles
-// double-buffered in smem (kGemmSmem bytes). Ends with a barrier, so the
-// caller may reuse smem at once.
-template <int AL, int BL>
-__device__ __forceinline__ void gemm_mainloop(GAcc (&acc)[GFM][GFN], unsigned char* smem_raw,
-                                              const bf16* __restrict__ A, int lda,
-                                              const bf16* __restrict__ B, int ldb, int m0,
-                                              int n0, int M, int N, int kb, int ke) {
-  constexpr bool AK = AL == kAK, BK_ = BL == kBK;
-  constexpr int AT = op_tile<AK, GBM>(), BT = op_tile<BK_, GBN>();
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               typename std::conditional<AK, wmma::row_major, wmma::col_major>::type>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               typename std::conditional<BK_, wmma::col_major, wmma::row_major>::type>;
-  bf16* As[2] = {reinterpret_cast<bf16*>(smem_raw), reinterpret_cast<bf16*>(smem_raw) + AT};
-  bf16* Bs[2] = {As[1] + AT, As[1] + AT + BT};
-  const int tid = threadIdx.x, warp = tid / 32, wm = warp / GWN, wn = warp % GWN;
-#pragma unroll
-  for (int i = 0; i < GFM; ++i)
-#pragma unroll
-    for (int j = 0; j < GFN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (ke - kb + GBK - 1) / GBK;
-  load_op<AK, GBM>(As[0], A, lda, m0, M, kb, ke, tid);
-  load_op<BK_, GBN>(Bs[0], B, ldb, n0, N, kb, ke, tid);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_op<AK, GBM>(As[cur ^ 1], A, lda, m0, M, kb + (kt + 1) * GBK, ke, tid);
-      load_op<BK_, GBN>(Bs[cur ^ 1], B, ldb, n0, N, kb + (kt + 1) * GBK, ke, tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      FragA a[GFM];
-      FragB b[GFN];
-#pragma unroll
-      for (int i = 0; i < GFM; ++i) {
-        const int mo = wm * GFM * 16 + i * 16;
-        if constexpr (AK)
-          wmma::load_matrix_sync(a[i], As[cur] + mo * (GBK + 8) + kk, GBK + 8);
-        else
-          wmma::load_matrix_sync(a[i], As[cur] + kk * (GBM + 8) + mo, GBM + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < GFN; ++j) {
-        const int no = wn * GFN * 16 + j * 16;
-        if constexpr (BK_)
-          wmma::load_matrix_sync(b[j], Bs[cur] + no * (GBK + 8) + kk, GBK + 8);
-        else
-          wmma::load_matrix_sync(b[j], Bs[cur] + kk * (GBN + 8) + no, GBN + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < GFM; ++i)
-#pragma unroll
-        for (int j = 0; j < GFN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// Cs[GBM x GBN] (fp32, stride GLDC) = this block's tile, from every warp's
-// fragments. No barrier.
-__device__ __forceinline__ void store_tile(float* Cs, GAcc (&acc)[GFM][GFN]) {
-  const int warp = threadIdx.x / 32, wm = warp / GWN, wn = warp % GWN;
-#pragma unroll
-  for (int i = 0; i < GFM; ++i)
-#pragma unroll
-    for (int j = 0; j < GFN; ++j)
-      wmma::store_matrix_sync(Cs + (wm * GFM * 16 + i * 16) * GLDC + wn * GFN * 16 + j * 16,
-                              acc[i][j], GLDC, wmma::mem_row_major);
-}
-
-template <int AL, int BL, int EPI>
-__global__ void __launch_bounds__(GNT)
-    gemm_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ B, int ldb, int M,
-                int N, int K, int k_per_split, void* out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int kb = blockIdx.z * k_per_split, ke = min(K, kb + k_per_split);
-  GAcc acc[GFM][GFN];
-  gemm_mainloop<AL, BL>(acc, smem_raw, A, lda, B, ldb, m0, n0, M, N, kb, ke);
-
-  // the main loop ended with a barrier: its tiles are free for the fp32 C tile
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-  store_tile(Cs, acc);
-  __syncthreads();
-  for (int c = tid; c < GBM * (GBN / 8); c += GNT) {
-    const int r = c / (GBN / 8), cc = (c % (GBN / 8)) * 8, gr = m0 + r, gc = n0 + cc;
-    if (gr >= M || gc >= N) continue;
-    const float* v = Cs + r * GLDC + cc;
-    const size_t o = (size_t)gr * N + gc;
-    if constexpr (EPI == kEpiBf16) {
-      *reinterpret_cast<uint4*>(static_cast<bf16*>(out) + o) = pack8(v);
-    } else {
-      float* p = static_cast<float*>(out) + (size_t)blockIdx.z * M * N + o;
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
-}
-
-// Kernel 10's first pass over one chunk of tokens: for the block's GBM
-// tokens and GBN hidden columns, g = x . Wg^T and u = x . Wu^T into shared
-// memory as fp32, then dh = dy . W2 and the SwiGLU backward in the epilogue:
-// dg = dh * u * silu'(g), du = dh * silu(g) and h = silu(g) * u, rounded to
-// bf16 (the TPU kernel's rounding points; g and u themselves never are).
-constexpr int kRecomputeSmem = 3 * kGemmSmem;  // operand tiles then dh | g | u
-static_assert(kRecomputeSmem <= kMaxSmem, "smem");
-
-__global__ void __launch_bounds__(GNT)
-    swiglu_bwd_recompute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                                const bf16* __restrict__ w1, const bf16* __restrict__ w2, int T,
-                                int D, int H, bf16* __restrict__ dgu, bf16* __restrict__ h) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-  float* Gs = reinterpret_cast<float*>(smem_raw + kGemmSmem);
-  float* Us = reinterpret_cast<float*>(smem_raw + 2 * kGemmSmem);
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  GAcc acc[GFM][GFN];
-  gemm_mainloop<kAK, kBK>(acc, smem_raw, x, D, w1, D, m0, n0, T, H, 0, D);  // g
-  store_tile(Gs, acc);
-  gemm_mainloop<kAK, kBK>(acc, smem_raw, x, D, w1 + (size_t)H * D, D, m0, n0, T, H, 0, D);  // u
-  store_tile(Us, acc);
-  gemm_mainloop<kAK, kBN>(acc, smem_raw, dy, D, w2, H, m0, n0, T, H, 0, D);  // dh
-  store_tile(Cs, acc);
-  __syncthreads();
-  for (int c = threadIdx.x; c < GBM * (GBN / 8); c += GNT) {
-    const int r = c / (GBN / 8), cc = (c % (GBN / 8)) * 8, gr = m0 + r, gc = n0 + cc;
-    if (gr >= T || gc >= H) continue;
-    float dg[8], du[8], hh[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int o = r * GLDC + cc + i;
-      const float g = Gs[o], u = Us[o], v = Cs[o];
-      const float sig = 1.0f / (1.0f + expf(-g)), sg = g * sig;
-      dg[i] = v * u * (sig * (1.0f + g * (1.0f - sig)));
-      du[i] = v * sg;
-      hh[i] = sg * u;
-    }
-    const size_t og = (size_t)gr * 2 * H + gc;
-    *reinterpret_cast<uint4*>(dgu + og) = pack8(dg);
-    *reinterpret_cast<uint4*>(dgu + og + H) = pack8(du);
-    *reinterpret_cast<uint4*>(h + (size_t)gr * H + gc) = pack8(hh);
-  }
-}
 
 // acc[i] = (first ? 0 : acc[i]) + sum over splits of part[s][i], in order.
 __global__ void splitk_accumulate_kernel(const float* __restrict__ part, int splits, size_t n,
@@ -291,45 +87,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ part, int splits,
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Splits of the reduction for an (M, N, K) weight-gradient GEMM: enough
-// blocks for about four per SM, each split at least 8 BK-steps long.
-static int splitk_count(int M, int N, int K) {
-  const int tiles = ceil_div(M, GBM) * ceil_div(N, GBN);
-  int s = ceil_div(kWaveBlocks, tiles);
-  s = s < 1 ? 1 : (s > 16 ? 16 : s);
-  while (s > 1 && K / s < 8 * GBK) --s;
-  return s;
-}
-
-template <int AL, int BL, int EPI>
-static cudaError_t gemm(const void* a, int lda, const void* b, int ldb, int M, int N, int K,
-                        int splits, void* out, cudaStream_t st) {
-  auto kern = gemm_kernel<AL, BL, EPI>;
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-  const int kps = ceil_div(ceil_div(K, splits), GBK) * GBK;
-  dim3 grid(ceil_div(N, GBN), ceil_div(M, GBM), splits);
-  kern<<<grid, GNT, kGemmSmem, st>>>((const bf16*)a, lda, (const bf16*)b, ldb, M, N, K, kps, out);
-  return cudaGetLastError();
-}
-
-// dW (M, N) = sum over K tokens, split-K into ws (splits, M, N) then reduced
-// to bf16 into out, or, with acc given, added in fp32 to acc (set when
-// first) -- kernel 10's running sum over its token chunks.
-static cudaError_t weight_grad(const void* a, int lda, const void* b, int ldb, int M, int N, int K,
-                               float* ws, void* out, cudaStream_t st, float* acc = nullptr,
-                               bool first = true) {
-  const int splits = splitk_count(M, N, K);
-  cudaError_t e = gemm<kAM, kBN, kEpiPartial>(a, lda, b, ldb, M, N, K, splits, ws, st);
-  if (e != cudaSuccess) return e;
-  const size_t n = (size_t)M * N;
-  const unsigned blocks = (unsigned)((n / 8 + 255) / 256);
-  if (acc)
-    splitk_accumulate_kernel<<<blocks, 256, 0, st>>>(ws, splits, n, acc, first);
-  else
-    splitk_reduce_kernel<<<blocks, 256, 0, st>>>(ws, splits, n, (bf16*)out);
-  return cudaGetLastError();
-}
-
 // -- kernels 9 and 13: the backward's products on the wgmma + TMA ring ------
 //
 // C (M x N) = A . B with fp32 accumulation, every operand read by TMA as it
@@ -358,7 +115,9 @@ static cudaError_t weight_grad(const void* a, int lda, const void* b, int ldb, i
 //     the 64-deep stages [s sb, s sb + sb) and writes its fp32 partial to
 //     part[s], float2 stores in the accumulator's layout (32 contiguous
 //     bytes a row a warp store); ``splitk_reduce_kernel`` then sums the
-//     splits in order 0, 1, ... and rounds to bf16. No float atomics: two
+//     splits in order 0, 1, ... and rounds to bf16 (kernel 10:
+//     ``splitk_accumulate_kernel`` adds them in that order onto its fp32
+//     running sums, rounded after the last chunk). No float atomics: two
 //     calls give the same bits. A split's tokens start on a stage boundary,
 //     so TMA's zero fill past the tensor's end (the last split's ragged
 //     tail) is the only edge a split meets;
@@ -404,7 +163,8 @@ struct BwdArgs {
 };
 
 // The SwiGLU backward at one element (the TPU kernel's formulas, fp32): dh
-// the fp32 product, g and u the saved gate and up.
+// the fp32 product, g and u the gate and up (kernel 9's saved bf16 ones, or
+// kernel 10's fp32 accumulators).
 struct SwigluGrad {
   float dg, du, h;
 };
@@ -591,9 +351,10 @@ static int launch_bwd(const CUtensorMap (&m)[7], const BwdArgs& args, cudaStream
 // count that makes a cluster's longest walk shortest, in 64-deep stages,
 // with each split's fp32 partial written and read back costed at about
 // M N / 300,000 stages (8 bytes an element at ~3 TB/s against ~0.8 us a
-// stage); ties go to fewer splits, a split spans at least 4 stages, and the
-// count is the one that results (every split non-empty).
-static int bwd_splits(int M, int N, int K) {
+// stage); ties go to fewer splits, a split spans at least 4 stages, at most
+// ``most`` splits are tried, and the count is the one that results (every
+// split non-empty).
+static int bwd_splits(int M, int N, int K, int most = 16) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -601,7 +362,7 @@ static int bwd_splits(int M, int N, int K) {
   const long long blocks = ceil_div(K, kLinBK), pairs = bwd_pairs(M, N);
   int best = 1;
   double best_cost = (double)((pairs + clusters - 1) / clusters) * blocks;
-  for (int s = 2; s <= 16; ++s) {
+  for (int s = 2; s <= most; ++s) {
     const long long sb = (blocks + s - 1) / s;
     if (sb < 4) break;
     const long long eff = (blocks + sb - 1) / sb;
@@ -636,25 +397,226 @@ static int bwd_dgrad(const void* a, const void* b, void* out, int M, int N, int 
   return launch_bwd<false, kOutSwiglu>(m, args, st);
 }
 
+// out (n elements, bf16) = the splits' fp32 partials in ws summed in order.
+static int reduce_splits(const float* ws, int splits, size_t n, void* out, cudaStream_t st) {
+  splitk_reduce_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, st>>>(ws, splits, n,
+                                                                         (bf16*)out);
+  return (int)cudaGetLastError();
+}
+
 // dW (M x N) = A^T . B summed over K tokens, A (K x M) and B (K x N)
-// row-major as they lie: one split straight to bf16, else fp32 partials in
-// ws (splits, M, N) summed in order into out.
+// row-major as they lie, in at most ``max_splits`` splits: one split
+// straight to bf16, else fp32 partials in ws (splits, M, N) summed in order
+// into out; with ``acc`` (kernel 10's token chunks), the partials summed in
+// order onto the fp32 running sum acc (set where ``first``), nothing rounded.
 static int bwd_wgrad(const void* a, const void* b, void* out, float* ws, int M, int N, int K,
-                     cudaStream_t st) {
-  const int splits = bwd_splits(M, N, K);
+                     cudaStream_t st, float* acc = nullptr, bool first = true,
+                     int max_splits = 16) {
+  const int splits = bwd_splits(M, N, K, max_splits);
   CUtensorMap m[7];  // A, B, dW
   if (!tensor_map_bf16(&m[0], a, K, M, kLinBK, 64) ||
       !tensor_map_bf16(&m[1], b, K, N, kLinBK, 64) || !tensor_map_bf16(&m[2], out, M, N, 64, 64))
     return kTensorMapError;
   m[3] = m[4] = m[5] = m[6] = m[2];
   const BwdArgs args{ws, M, N, K, ceil_div(ceil_div(K, kLinBK), splits), splits};
-  if (splits == 1) return launch_bwd<true, kOutBf16>(m, args, st);
+  if (splits == 1 && acc == nullptr) return launch_bwd<true, kOutBf16>(m, args, st);
   const int e = launch_bwd<true, kOutPartial>(m, args, st);
   if (e != 0) return e;
   const size_t n = (size_t)M * N;
-  splitk_reduce_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, st>>>(ws, splits, n,
-                                                                         (bf16*)out);
+  if (acc == nullptr) return reduce_splits(ws, splits, n, out, st);
+  splitk_accumulate_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, st>>>(ws, splits, n, acc,
+                                                                             first);
   return (int)cudaGetLastError();
+}
+
+// -- kernel 10's recompute pass -----------------------------------------------
+//
+// For each tile of 128 tokens m0.. and 128 hidden units j0.. of a chunk,
+// two walks of K = D on the ring above, in kernel 5's pass-1 arrangement
+// (384 threads: a producer warpgroup and two consumers of 64 token rows
+// each; clusters of two blocks on two row tiles against one hidden tile;
+// persistent clusters walking (row pair, hidden tile) items, hidden tiles
+// fastest):
+//   walk 1: dh = dy . W2[:, j0:j0+128], an m64n128 fp32 accumulator a
+//     consumer. W2 (D, H) is read as it lies, as kernel 9's dh reads it:
+//     the tile's two 64-column boxes of 64 K rows, MN-major
+//     (``wgmma_desc_mn``), one a cluster block, multicast into both;
+//   walk 2: g | u = x . [Wg; Wu]^T, kernel 5's m64n256 walk: the gate rows
+//     j0.. and the up rows j0.. in one 256-row W1 box whose halves the two
+//     blocks load through two tensor maps and multicast, so that a thread
+//     holds gate unit c at acc[i] and up unit c at acc[i + 64], the same
+//     token and unit as dh[i].
+// Both walks share one ring of kernel 5's 48-KB stages; walk 1 fills 32 KB
+// of each. Between them each consumer parks dh in fp32 in 32 KB of shared
+// memory in its own accumulator order (park[i * 128 + tid], no bank
+// conflicts), so that walk 2's 128 accumulator floats stand alone in
+// registers. Keeping dh in registers beside them instead (192 accumulator
+// floats, three boxes of their own for a step's outputs) ran within the
+// spread of this form on the card (``scripts/probe_ffn_bwd_recompute.py``,
+// variant ``dh_in_registers``) and spilled.
+// The epilogue walks the tile in two 64-column steps. Each element goes
+// once through swiglu_grad (the TPU kernel's fp32 formulas, the sigmoid
+// formed once): dg and du overwrite g and u in the accumulator and h,
+// rounded to bf16, goes straight into a swizzled 64 x 64 box; then dg and
+// du, rounded to bf16, are written into two such boxes laid over the half
+// of the park that the step has just read. Thread 0 stores the three boxes
+// by TMA into the chunk's (c, 2H) [dg|du] scratch (two tensor maps of row
+// stride 2H, so that a box clipped at H never spills into the other half)
+// and its (c, H) h scratch. g, u and dh never reach device memory, in any
+// precision. The park and one h box a consumer leave room for three stages.
+constexpr int kRecBN = kLinBN / 2;         // hidden units a tile
+constexpr int kDhBytes = 64 * kRecBN * 4;  // one consumer's parked dh
+// a consumer's shared memory beside the ring: the park, then an h box
+constexpr int kRecRegion = kDhBytes + kLinCBox;
+constexpr int kRecStages =
+    (kMaxSmem - ring_smem(0, 0, 2 * kRecRegion) - 256) / kLinStageBytes;
+constexpr int kRecSmem = ring_smem(kRecStages, 0, 2 * kRecRegion);
+static_assert(kRecStages >= 3 && kRecSmem <= kMaxSmem,
+              "the recompute pass's ring and its park do not fit");
+
+// Byte offset of a thread's bf16 pair (columns 8 j + 2 (lane % 4) + {0, 1},
+// row r + 8 h of the consumer's 64) in a 64 x 64 box with the 128-byte
+// swizzle, r % 8 == lane / 4: accumulator indices 4 (8 q + j) + 2 h + {0, 1}
+// of 64-column step q (``store_box``'s layout).
+__device__ __forceinline__ int box_at(int r, int j, int h, int lane) {
+  return (r + 8 * h) * 128 + ((j ^ (lane / 4)) << 4) + (lane % 4) * 4;
+}
+
+// x, dy: the chunk's M rows (tensor maps mX, mDy, boxes of 64 rows x 64);
+// w1 through mWg, mWu (its gate and up halves, boxes of 128 rows x 64); w2
+// through mW2 (D rows of H, boxes of 64 x 64); dg, du, h stored through
+// mDg, mDu (row stride 2H) and mH.
+__global__ void __launch_bounds__(kLinThreads, 1)
+    swiglu_bwd_recompute_wgmma_kernel(const __grid_constant__ CUtensorMap mDy,
+                                      const __grid_constant__ CUtensorMap mW2,
+                                      const __grid_constant__ CUtensorMap mX,
+                                      const __grid_constant__ CUtensorMap mWg,
+                                      const __grid_constant__ CUtensorMap mWu,
+                                      const __grid_constant__ CUtensorMap mDg,
+                                      const __grid_constant__ CUtensorMap mDu,
+                                      const __grid_constant__ CUtensorMap mH, int M, int H,
+                                      int D) {
+  constexpr int S = kRecStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* regions = smem + S * kLinStageBytes;  // [consumer] kRecRegion bytes
+  uint64_t* full = reinterpret_cast<uint64_t*>(regions + 2 * kRecRegion);
+  uint64_t* empty = full + S;
+
+  const int rank = (int)cluster_rank();
+  const int n_tiles = ceil_div(H, kRecBN);
+  const int pairs = ceil_div(ceil_div(M, kBwdTileRows), kLinCluster) * n_tiles;
+  const int cluster = blockIdx.x / kLinCluster, clusters = gridDim.x / kLinCluster;
+  const int k_blocks = ceil_div(D, kLinBK);
+  ring_init<S>(full, empty);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      RingPos<S> pos;
+      for (int p = cluster; p < pairs; p += clusters) {
+        const int m0 = (p / n_tiles * kLinCluster + rank) * kBwdTileRows;
+        const int j0 = p % n_tiles * kRecBN;
+        const bool a0 = m0 < M, a1 = m0 + kLinRows < M;
+        const uint32_t a_bytes = (a0 ? kLinABytes : 0) + (a1 ? kLinABytes : 0);
+        uint32_t w2_bytes = 0;
+        for (int j = 0; j < 2; ++j) w2_bytes += j0 + 64 * j < H ? kMnBBox : 0;
+        produce_tile_mn<S, false, 2>(smem, full, empty, pos, &mDy, m0, a0, a1, &mW2, j0, H,
+                                     a_bytes + w2_bytes, 0, k_blocks);
+        produce_tile(smem, full, empty, pos, &mX, m0, a0, &mX, m0 + kLinRows, a1,
+                     rank ? &mWu : &mWg, j0, true, a_bytes + kLinCluster * kLinWBytes, k_blocks);
+      }
+      drain(empty, pos);
+    }
+  } else {  // the consumers
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
+    const int r = tid / 32 * 16 + lane / 4;  // this thread's rows r, r + 8 of the 64
+    unsigned char* region = regions + c * kRecRegion;
+    float* park = reinterpret_cast<float*>(region);
+    unsigned char* hb = region + kRecRegion - kLinCBox;
+    float dh[kRecBN / 2], acc[kLinBN / 2];
+    RingPos<S> pos;
+    for (int p = cluster; p < pairs; p += clusters) {
+      const int m0 = (p / n_tiles * kLinCluster + rank) * kBwdTileRows + c * kLinRows;
+      const int j0 = p % n_tiles * kRecBN;
+      const bool valid = m0 < M;
+      // the wgmmas read their accumulator: zeros tell the compiler that the
+      // last tile's are dead (dh across walk 2 and the epilogue, acc across walk 1)
+#pragma unroll
+      for (int i = 0; i < kRecBN / 2; ++i) dh[i] = 0.0f;
+      consume_tile<S, false, true>(dh, smem, full, empty, pos, c, k_blocks);
+      if (tid == 0) tma_store_wait_read<0>();  // the last tile's boxes in the park are read
+      named_barrier_sync(1 + c, 128);
+#pragma unroll
+      for (int i = 0; i < kRecBN / 2; ++i) park[i * 128 + tid] = dh[i];
+#pragma unroll
+      for (int i = 0; i < kLinBN / 2; ++i) acc[i] = 0.0f;
+      consume_tile(acc, smem, full, empty, pos, c, k_blocks);
+#pragma unroll
+      for (int q = 0; q < kRecBN / 64; ++q) {
+        const int col = j0 + 64 * q;
+        if (col >= H) break;
+        unsigned char* gb = region + q * 2 * kLinCBox;  // dg, du: the park's half this step reads
+        if (tid == 0) tma_store_wait_read<1>();  // the last step's h store has read its box
+        named_barrier_sync(1 + c, 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * (8 * q + j) + 2 * h;
+            const SwigluGrad lo = swiglu_grad(park[i * 128 + tid], acc[i], acc[i + 64]);
+            const SwigluGrad hi = swiglu_grad(park[(i + 1) * 128 + tid], acc[i + 1], acc[i + 65]);
+            acc[i] = lo.dg, acc[i + 1] = hi.dg, acc[i + 64] = lo.du, acc[i + 65] = hi.du;
+            *reinterpret_cast<uint32_t*>(hb + box_at(r, j, h, lane)) = pack_bf16x2(lo.h, hi.h);
+          }
+        fence_async_smem();
+        named_barrier_sync(1 + c, 128);  // the h box is whole, this step's park is read
+        if (tid == 0 && valid) {
+          tma_store_2d(&mH, hb, col, m0);
+          tma_store_commit();
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * (8 * q + j) + 2 * h, at = box_at(r, j, h, lane);
+            *reinterpret_cast<uint32_t*>(gb + at) = pack_bf16x2(acc[i], acc[i + 1]);
+            *reinterpret_cast<uint32_t*>(gb + kLinCBox + at) =
+                pack_bf16x2(acc[i + 64], acc[i + 65]);
+          }
+        fence_async_smem();
+        named_barrier_sync(1 + c, 128);
+        if (tid == 0 && valid) {
+          tma_store_2d(&mDg, gb, col, m0);
+          tma_store_2d(&mDu, gb + kLinCBox, col, m0);
+          tma_store_commit();
+        }
+      }
+    }
+    if (tid == 0) tma_store_wait_all();
+  }
+}
+
+// The recompute pass over one chunk of M tokens: x, dy (M, D), w1 (2H, D),
+// w2 (D, H) -> dgu (M, 2H) and h (M, H), bf16.
+static int launch_recompute(const void* x, const void* dy, const void* w1, const void* w2,
+                            void* dgu, void* h, int M, int D, int H, cudaStream_t st) {
+  static int resident[64];
+  CUtensorMap m[8];  // dy, W2, x, Wg, Wu, dg, du, h
+  if (!tensor_map_bf16(&m[0], dy, M, D, kLinRows, kLinBK) ||
+      !tensor_map_bf16(&m[1], w2, D, H, kLinBK, 64) ||
+      !tensor_map_bf16(&m[2], x, M, D, kLinRows, kLinBK) ||
+      !tensor_map_bf16(&m[3], w1, H, D, kLinWHalf, kLinBK) ||
+      !tensor_map_bf16(&m[4], (const bf16*)w1 + (size_t)H * D, H, D, kLinWHalf, kLinBK) ||
+      !tensor_map_bf16(&m[5], dgu, M, H, 64, 64, true, 2 * (uint64_t)H) ||
+      !tensor_map_bf16(&m[6], (const bf16*)dgu + H, M, H, 64, 64, true, 2 * (uint64_t)H) ||
+      !tensor_map_bf16(&m[7], h, M, H, 64, 64))
+    return kTensorMapError;
+  const int pairs = ceil_div(ceil_div(M, kBwdTileRows), kLinCluster) * ceil_div(H, kRecBN);
+  return launch_clusters(swiglu_bwd_recompute_wgmma_kernel, resident, kRecSmem, pairs,
+                         kLinCluster, st, m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], M, H,
+                         D);
 }
 
 }  // namespace swift
@@ -662,11 +624,9 @@ static int bwd_wgrad(const void* a, const void* b, void* out, float* ws, int M, 
 using namespace swift;
 
 // fp32 elements of split-K workspace a weight gradient of (M, N) over K
-// tokens needs: enough for the splits of kernels 9 and 13 (``bwd_splits``)
-// and for kernel 10's (``splitk_count``).
+// tokens needs on kernels 9 and 13 (``bwd_splits``).
 extern "C" long long swift_splitk_workspace(int M, int N, int K) {
-  const int s = splitk_count(M, N, K), t = bwd_splits(M, N, K);
-  return (long long)(s > t ? s : t) * M * N;
+  return (long long)bwd_splits(M, N, K) * M * N;
 }
 
 // dy (T, N), x (T, K), w (N, K) bf16 -> dx (T, K), dw (N, K) bf16; ws fp32
@@ -698,51 +658,34 @@ extern "C" int swift_ffn_bwd_saved(const void* x, const void* dy, const void* g,
   return bwd_wgrad(dy, h, dw2, (float*)ws2, D, H, T, st);  // dW2 = dy^T . h
 }
 
-// Tokens kernel 10 takes at a time: its bf16 scratch is 3H of them a token
-// (277 MB at H = 2816).
-extern "C" int swift_ffn_bwd_chunk() { return 16384; }
-
-// x, dy (T, D), w1 (2H, D), w2 (D, H) bf16 -> dx (T, D), dw1 (2H, D),
-// dw2 (D, H) bf16, gate and up recomputed from x. Scratch, for c =
-// min(T, swift_ffn_bwd_chunk()) tokens: dgu (c, 2H) and h (c, H) bf16; ws1,
-// ws2 fp32 of swift_splitk_workspace(2H, D, c) and (D, H, c) elements; acc1,
-// acc2 fp32 of 2H*D and D*H elements (the running weight gradients).
+// One token chunk of kernel 10: x, dy, dx (T, D) are the chunk's rows, w1
+// (2H, D), w2 (D, H), all bf16. Scratch: dgu (T, 2H) and h (T, H) bf16;
+// ws1, ws2 fp32 of max_splits x 2H x D and x D x H elements. Where
+// ``first`` and ``last`` (the only chunk) the weight gradients go straight
+// to bf16 dw1 (2H, D) and dw2 (D, H), as kernel 9's do; else the chunk's
+// are summed onto the fp32 running sums acc1 (2H x D) and acc2 (D x H),
+// set at ``first``, which ``last`` rounds into dw1 and dw2. T, D, H
+// multiples of 8.
 extern "C" int swift_ffn_bwd_recompute(const void* x, const void* dy, const void* w1,
                                        const void* w2, void* dx, void* dw1, void* dw2, void* dgu,
                                        void* h, void* ws1, void* ws2, void* acc1, void* acc2,
-                                       int T, int D, int H, void* stream) {
+                                       int T, int D, int H, int max_splits, int first, int last,
+                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int chunk = swift_ffn_bwd_chunk();
-  cudaError_t e = cudaFuncSetAttribute(swiglu_bwd_recompute_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       kRecomputeSmem);
-  if (e != cudaSuccess) return (int)e;
-  for (int c0 = 0; c0 < T; c0 += chunk) {
-    const int tc = T - c0 < chunk ? T - c0 : chunk;
-    const bf16* xc = (const bf16*)x + (size_t)c0 * D;
-    const bf16* dyc = (const bf16*)dy + (size_t)c0 * D;
-    // g, u, dh -> dg | du, h for this chunk's tokens
-    swiglu_bwd_recompute_kernel<<<dim3(ceil_div(H, GBN), ceil_div(tc, GBM)), GNT,
-                                  kRecomputeSmem, st>>>(xc, dyc, (const bf16*)w1,
-                                                        (const bf16*)w2, tc, D, H, (bf16*)dgu,
-                                                        (bf16*)h);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    // dx = [dg | du] . W1
-    e = gemm<kAK, kBN, kEpiBf16>(dgu, 2 * H, w1, D, tc, D, 2 * H, 1, (bf16*)dx + (size_t)c0 * D,
-                                 st);
-    if (e != cudaSuccess) return (int)e;
-    // dW1 += [dg | du]^T . x ;  dW2 += dy^T . h
-    e = weight_grad(dgu, 2 * H, xc, D, 2 * H, D, tc, (float*)ws1, nullptr, st, (float*)acc1,
-                    c0 == 0);
-    if (e != cudaSuccess) return (int)e;
-    e = weight_grad(dyc, D, h, H, D, H, tc, (float*)ws2, nullptr, st, (float*)acc2, c0 == 0);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const size_t n1 = (size_t)2 * H * D, n2 = (size_t)D * H;
-  splitk_reduce_kernel<<<(unsigned)((n1 / 8 + 255) / 256), 256, 0, st>>>((const float*)acc1, 1,
-                                                                          n1, (bf16*)dw1);
-  splitk_reduce_kernel<<<(unsigned)((n2 / 8 + 255) / 256), 256, 0, st>>>((const float*)acc2, 1,
-                                                                          n2, (bf16*)dw2);
-  return (int)cudaGetLastError();
+  const bool one = first && last;
+  float* sum1 = one ? nullptr : (float*)acc1;
+  float* sum2 = one ? nullptr : (float*)acc2;
+  // g, u and dh per tile, never stored -> dg | du, h
+  int e = launch_recompute(x, dy, w1, w2, dgu, h, T, D, H, st);
+  if (e != 0) return e;
+  e = bwd_dgrad(dgu, w1, dx, T, D, 2 * H, st);  // dx = [dg | du] . W1
+  if (e != 0) return e;
+  // dW1 (+)= [dg | du]^T . x ;  dW2 (+)= dy^T . h
+  e = bwd_wgrad(dgu, x, dw1, (float*)ws1, 2 * H, D, T, st, sum1, first, max_splits);
+  if (e != 0) return e;
+  e = bwd_wgrad(dy, h, dw2, (float*)ws2, D, H, T, st, sum2, first, max_splits);
+  if (e != 0 || one || !last) return e;
+  e = reduce_splits(sum1, 1, (size_t)2 * H * D, dw1, st);
+  if (e != 0) return e;
+  return reduce_splits(sum2, 1, (size_t)D * H, dw2, st);
 }

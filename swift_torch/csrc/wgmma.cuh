@@ -788,16 +788,16 @@ __device__ __forceinline__ void drain(uint64_t* empty, RingPos<STAGES>& pos) {
 // anywhere): A (M x K) stored M rows of K, or, where A_MN, K rows of M
 // (dy^T: the tokens are K); B (K x N) stored K rows of N (a weight read
 // along its rows, or the tokens of x or h). Consumer c's A box holds rows
-// m0 + 64 c .. + 63 of A where (a0, a1); the stage's four 64-column B boxes
-// at n0, n0 + 64, ... lie one after another (``wgmma_desc_mn``'s leading
-// offset kMnBBox), and this block loads boxes 2 rank and 2 rank + 1 of
-// them, those that start before N, multicast into both blocks of the
-// cluster. ``bytes``: what lands in this block's stage from both blocks'
-// loads together.
+// m0 + 64 c .. + 63 of A where (a0, a1); the stage's BOXES 64-column B
+// boxes at n0, n0 + 64, ... lie one after another (``wgmma_desc_mn``'s
+// leading offset kMnBBox), and block ``rank`` loads boxes BOXES / 2 rank
+// .. BOXES / 2 (rank + 1) - 1 of them, those that start before N,
+// multicast into both blocks of the cluster. ``bytes``: what lands in this
+// block's stage from both blocks' loads together.
 constexpr int kMnBBox = kLinBK * 64 * 2;  // one 64-deep x 64-column B box
 static_assert(4 * kMnBBox == kLinCluster * kLinWBytes, "the B boxes fill the stage's W room");
 
-template <int STAGES, bool A_MN>
+template <int STAGES, bool A_MN, int BOXES = 4>
 __device__ __forceinline__ void produce_tile_mn(unsigned char* smem, uint64_t* full,
                                                 uint64_t* empty, RingPos<STAGES>& pos,
                                                 const CUtensorMap* mA, int m0, bool a0, bool a1,
@@ -816,8 +816,8 @@ __device__ __forceinline__ void produce_tile_mn(unsigned char* smem, uint64_t* f
       tma_load_2d(stage + c * kLinABytes, mA, &full[pos.s], A_MN ? m : k, A_MN ? k : m);
     }
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int j = 2 * rank + b;
+    for (int b = 0; b < BOXES / kLinCluster; ++b) {
+      const int j = BOXES / kLinCluster * rank + b;
       if (n0 + 64 * j < N)
         tma_load_2d_multicast(stage + 2 * kLinABytes + j * kMnBBox, mB, &full[pos.s],
                               n0 + 64 * j, k, (1 << kLinCluster) - 1);
@@ -827,15 +827,16 @@ __device__ __forceinline__ void produce_tile_mn(unsigned char* smem, uint64_t* f
 }
 
 // Consumer c's products of one output tile: acc = A_c . W^T over k_blocks
-// stages, four m64n256k16 wgmmas a stage, its previous wgmma group kept in
-// flight. Each stage is released in both blocks of the cluster (lane r of
-// each warp arrives in block r) once the wgmmas that read it are done.
-// A_MN, B_MN: the stage was loaded by ``produce_tile_mn``, A stored K rows
-// of M where A_MN, B the four MN-major boxes of K rows of N (B_MN), read
-// with wgmma's transpose flags. An int accumulator takes the s8 form
-// (``wgmma_m64n256k32_s8``: a stage of 128 int8 deep, four 32-deep slices).
-template <int STAGES, bool A_MN = false, bool B_MN = false, class Acc>
-__device__ __forceinline__ void consume_tile(Acc (&acc)[128], unsigned char* smem,
+// stages, four m64n(2R)k16 wgmmas a stage (R = 128: the whole 256-row W
+// box), its previous wgmma group kept in flight. Each stage is released in
+// both blocks of the cluster (lane r of each warp arrives in block r) once
+// the wgmmas that read it are done. A_MN, B_MN: the stage was loaded by
+// ``produce_tile_mn``, A stored K rows of M where A_MN, B the 2R / 64
+// MN-major boxes of K rows of N (B_MN), read with wgmma's transpose flags.
+// An int accumulator takes the s8 form (``wgmma_m64n256k32_s8``: a stage
+// of 128 int8 deep, four 32-deep slices).
+template <int STAGES, bool A_MN = false, bool B_MN = false, class Acc, int R>
+__device__ __forceinline__ void consume_tile(Acc (&acc)[R], unsigned char* smem,
                                              uint64_t* full, uint64_t* empty,
                                              RingPos<STAGES>& pos, int c, int k_blocks) {
   const int lane = threadIdx.x % 32;
@@ -858,10 +859,10 @@ __device__ __forceinline__ void consume_tile(Acc (&acc)[128], unsigned char* sme
 #pragma unroll
     for (int k = 0; k < kLinBK / 16; ++k) {  // 32-byte slices of a 128-byte box row
       if constexpr (std::is_same_v<Acc, int>) {
-        static_assert(!A_MN && !B_MN, "8-bit wgmma operands are K-major");
+        static_assert(!A_MN && !B_MN && R == 128, "8-bit wgmma operands are K-major, N 256");
         wgmma_m64n256k32_s8(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
       } else {
-        wgmma_m64nNk16<256, A_MN, B_MN>(acc, da + a_step * k, dw + w_step * k, kb > 0 || k > 0);
+        wgmma_m64nNk16<2 * R, A_MN, B_MN>(acc, da + a_step * k, dw + w_step * k, kb > 0 || k > 0);
       }
     }
     wgmma_commit();

@@ -17,9 +17,14 @@ which replaces ``_ffn_fwd_save_call``, runs kernel 5's two passes with
 ``csrc/ffn.cu::swift_swiglu_hidden_save`` as pass 1, which also stores
 gate and up, bf16(x·Wgᵀ) and bf16(x·Wuᵀ), beside h.
 ``csrc/gemm_bwd.cu::swift_ffn_bwd_saved`` replaces
-``_ffn_bwd_saved_call``; ``csrc/gemm_bwd.cu::swift_ffn_bwd_recompute``
-``_ffn_bwd_call`` (gate and up recomputed from x, nothing (tokens,
-hidden)-shaped in device memory beyond a chunk of tokens);
+``_ffn_bwd_saved_call``; kernel 10, which replaces ``_ffn_bwd_call``, runs
+``csrc/gemm_bwd.cu::swift_ffn_bwd_recompute`` once for each chunk of
+tokens that :func:`ffn_chunks` plans (:data:`FFN_BWD_CHUNK_TOKENS`): a
+``wgmma`` + TMA pass that forms gate, up and dh = dy·W2 in fp32 for each
+tile and stores only dg, du and h, in bf16 (nothing else (tokens,
+hidden)-shaped reaches device memory), then kernel 9's three other
+products, the weight gradients summed over the chunks in fp32
+(:func:`bwd_recompute_scratch_bytes`);
 ``csrc/ffn_int8.cu::swift_ffn_int8`` ``fused_swiglu_ffn_int8`` (body
 ``_ffn_q_kernel``): over the same token chunks, x quantized per token, then
 kernel 5's pass 1 on the s8 ``wgmma`` form of ``csrc/wgmma.cuh`` writing h
@@ -53,6 +58,11 @@ from swift_torch.ops.modnorm import _vjp, reference_modnorm_residual
 # tokens, so that a call's scratch (h, and dh for 11) stays under 1 GB at
 # H = 2816: 0.74 GB for kernel 11 at the limit, 0.80 GB for 18 at 0.25°.
 FFN_CHUNK_TOKENS = 65536
+# Kernel 10's chunks: its scratch is 6H bytes a token (dg, du, h) beside the
+# weight gradients' split partials, at most FFN_BWD_MAX_SPLITS of each, and
+# their fp32 running sums (:func:`bwd_recompute_scratch_bytes`).
+FFN_BWD_CHUNK_TOKENS = 32768
+FFN_BWD_MAX_SPLITS = 4
 
 
 def reference_swiglu_ffn(x, w1, w2):
@@ -179,13 +189,15 @@ def _unpad_grads(dw1, dw2, H):
     return torch.cat([dw1[:H], dw1[Hp:Hp + H]]), dw2[:, :H].contiguous()
 
 
-def ffn_chunks(T: int) -> list[tuple[int, int]]:
-    """The token ranges [start, stop) over which kernels 5, 8, 11 and 18 run
-    their passes: [0, T) in as few pieces of at most :data:`FFN_CHUNK_TOKENS`
-    as it takes, of one length rounded up to whole 128-token row tiles
-    where that stays within the limit. One piece for the flagship (16,384
-    and 32,768 tokens), five of 52,992 at 0.25° (264,960 tokens)."""
-    limit = FFN_CHUNK_TOKENS
+def ffn_chunks(T: int, limit: int | None = None) -> list[tuple[int, int]]:
+    """The token ranges [start, stop) over which kernels 5, 8, 11 and 18
+    (``limit`` :data:`FFN_CHUNK_TOKENS`) and 10 (:data:`FFN_BWD_CHUNK_TOKENS`)
+    run their passes: [0, T) in as few pieces of at most ``limit`` as it
+    takes, of one length rounded up to whole 128-token row tiles where that
+    stays within the limit. One piece for the flagship (16,384 and 32,768
+    tokens); at 0.25° (264,960 tokens) five of 52,992, and for kernel 10
+    nine of 29,440."""
+    limit = limit or FFN_CHUNK_TOKENS
     if T <= limit:
         return [(0, T)]
     pieces = -(-T // limit)  # ceil(T / limit)
@@ -328,52 +340,64 @@ def swiglu_ffn_bwd_saved(x, dy, g, u, w1, w2):
 
 
 def bwd_recompute_scratch_bytes(T, D, H) -> int:
-    """Device scratch of kernel 10 for T tokens: dg, du and h in bf16 for
-    one chunk of tokens, the chunk's split-K fp32 partials of the two weight
-    gradients and their fp32 running sums. 0.40 GB at H = 2816, D = 1056
-    for any T above the 16,384-token chunk."""
-    lib = _build.library()
-    c = min(T, lib.swift_ffn_bwd_chunk())
-    ws = lib.swift_splitk_workspace(2 * H, D, c) + lib.swift_splitk_workspace(D, H, c)
-    return 2 * 3 * H * c + 4 * (ws + 3 * D * H)
+    """Device scratch of kernel 10 for T tokens, from the shapes alone, H
+    padded as the wrapper pads it (:func:`pad_hidden`): dg, du and h in
+    bf16 for the longest chunk of :func:`ffn_chunks` (6H bytes a token), the
+    two weight gradients' fp32 split partials (:data:`FFN_BWD_MAX_SPLITS`
+    of each) and, over more than one chunk, their fp32 running sums. 0.68 GB
+    at 0.25° (T = 264,960, D = 1056, H = 2816), 0.42 GB at the flagship's
+    B = 2 (16,384 tokens)."""
+    chunks = ffn_chunks(T, FFN_BWD_CHUNK_TOKENS)
+    rows = max(e - s for s, e in chunks)
+    H += -H % 8
+    sums = 3 * D * H * (FFN_BWD_MAX_SPLITS + (len(chunks) > 1))
+    return 2 * 3 * H * rows + 4 * sums
+
+
+def _bwd_recompute(lib, x, dy, w1, w2):
+    """Kernel 10 on checked CUDA inputs, H padded, through ``lib``'s
+    ``swift_ffn_bwd_recompute``: one call a chunk of :func:`ffn_chunks`,
+    the first setting the weight gradients' running sums and the last
+    rounding them. Returns (dx, dw1, dw2) at the padded width."""
+    D, H = x.shape[-1], w2.shape[1]
+    chunks = ffn_chunks(x.numel() // D, FFN_BWD_CHUNK_TOKENS)
+    rows, dev, f32 = max(e - s for s, e in chunks), x.device, torch.float32
+    dx = torch.empty_like(x)
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    dgu = torch.empty(rows, 2 * H, device=dev, dtype=x.dtype)
+    h = torch.empty(rows, H, device=dev, dtype=x.dtype)
+    ws1 = torch.empty(FFN_BWD_MAX_SPLITS * 2 * H * D, device=dev, dtype=f32)
+    ws2 = torch.empty(FFN_BWD_MAX_SPLITS * D * H, device=dev, dtype=f32)
+    sums = len(chunks) > 1
+    acc1 = torch.empty(2 * H * D if sums else 0, device=dev, dtype=f32)
+    acc2 = torch.empty(D * H if sums else 0, device=dev, dtype=f32)
+    x2, dy2, dx2 = x.view(-1, D), dy.view(-1, D), dx.view(-1, D)
+    for k, (s, e) in enumerate(chunks):
+        _build.check_launch(lib.swift_ffn_bwd_recompute(
+            x2[s:e].data_ptr(), dy2[s:e].data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            dx2[s:e].data_ptr(), dw1.data_ptr(), dw2.data_ptr(), dgu.data_ptr(), h.data_ptr(),
+            ws1.data_ptr(), ws2.data_ptr(), acc1.data_ptr(), acc2.data_ptr(), e - s, D, H,
+            FFN_BWD_MAX_SPLITS, k == 0, k == len(chunks) - 1, _build.stream()),
+            "swiglu_ffn_bwd_recompute")
+    return dx, dw1, dw2
 
 
 def swiglu_ffn_bwd_recompute(x, dy, w1, w2):
     """(dx, dw1, dw2) with gate and up recomputed from x. CPU tensors take
     :func:`reference_swiglu_ffn_bwd_recompute`; CUDA tensors go to kernel
-    10, bf16 and contiguous, D a multiple of 16 (H padded), with
-    :func:`bwd_recompute_scratch_bytes` of scratch."""
+    10, bf16 and contiguous, D a multiple of 16 (H padded, the weight
+    gradients cut back to H), with :func:`bwd_recompute_scratch_bytes` of
+    scratch."""
     jvp_guard.refuse_tangents("swiglu_ffn_bwd_recompute", x=x, dy=dy, w1=w1, w2=w2)
     if _build.on_cpu(x, dy, w1, w2):
         return reference_swiglu_ffn_bwd_recompute(x, dy, w1, w2)
     name = "swiglu_ffn_bwd_recompute"
     _build.check_kernel_inputs(name, x=x, dy=dy, w1=w1, w2=w2)
     _build.check_dtype(name, torch.bfloat16, x=x, dy=dy, w1=w1, w2=w2)
-    D, H0 = _check(name, x, w1, w2)
-    w1, w2 = pad_hidden(w1, w2)
-    H = w2.shape[1]
-    T = x.numel() // D
+    H0 = _check(name, x, w1, w2)[1]
     if dy.shape != x.shape:
         raise ValueError(f"{name}: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
-    lib = _build.library()
-    c = min(T, lib.swift_ffn_bwd_chunk())
-    dev = x.device
-    dx = torch.empty_like(x)
-    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
-    dgu = torch.empty(c, 2 * H, device=dev, dtype=x.dtype)
-    h = torch.empty(c, H, device=dev, dtype=x.dtype)
-    ws1 = torch.empty(lib.swift_splitk_workspace(2 * H, D, c), device=dev, dtype=torch.float32)
-    ws2 = torch.empty(lib.swift_splitk_workspace(D, H, c), device=dev, dtype=torch.float32)
-    acc1 = torch.empty(2 * H * D, device=dev, dtype=torch.float32)
-    acc2 = torch.empty(D * H, device=dev, dtype=torch.float32)
-    _build.check_launch(
-        lib.swift_ffn_bwd_recompute(
-            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx.data_ptr(),
-            dw1.data_ptr(), dw2.data_ptr(), dgu.data_ptr(), h.data_ptr(), ws1.data_ptr(),
-            ws2.data_ptr(), acc1.data_ptr(), acc2.data_ptr(), T, D, H, _build.stream(),
-        ),
-        name,
-    )
+    dx, dw1, dw2 = _bwd_recompute(_build.library(), x, dy, *pad_hidden(w1, w2))
     swiglu_ffn_bwd_recompute.launches += 1
     return (dx, *_unpad_grads(dw1, dw2, H0))
 

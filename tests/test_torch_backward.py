@@ -440,8 +440,8 @@ def test_ffn_bwd_saved_kernel_at_padded_hidden():
 @pytest.mark.parametrize("tokens,d", [(1000, 40), (40008, 24)])
 def test_quarter_backward_kernels_match_plain_on_card(tokens, d):
     """Kernels 10 and 16 at edges the 0.25° grid never reaches: token counts
-    that are no multiple of a tile and, at 40,008, three token chunks of
-    kernel 10 (the last a partial one), D and H no multiples of 128, head
+    that are no multiple of a tile and, at 40,008, two token chunks of
+    kernel 10 (the last ending in a partial tile), D and H no multiples of 128, head
     dims padded in shared memory, several windows. bf16 on the card, every
     output within 2e-2 of max|plain|."""
     if not torch.cuda.is_available():

@@ -10,7 +10,8 @@ import pytest
 from scripts import probe_build
 
 PROBES = ["probe_window_attention", "probe_window_attention_bwd", "probe_attention_fwd", "probe_attention_bwd",
-          "probe_attention_tangent", "probe_mm_modnorm", "probe_backward_gemm", "probe_ffn_int8"]
+          "probe_attention_tangent", "probe_mm_modnorm", "probe_backward_gemm", "probe_ffn_int8",
+          "probe_ffn_bwd_recompute"]
 
 
 @pytest.mark.parametrize("name", PROBES)

@@ -187,6 +187,59 @@ def test_ffn_bwd_recompute_plain_matches_pallas(monkeypatch):
                                          _t(w2))
 
 
+@pytest.mark.parametrize("T", [1, 100, 128, 16384, 29440, 32768, 32769, 131073, 264960])
+def test_ffn_bwd_chunks_cover_tokens_in_whole_tiles(T):
+    """Kernel 10's chunk plan: [0, T) in order, without gaps, every chunk
+    starting on a 128-token row tile, as few chunks as the limit allows; at
+    0.25° nine of 29,440."""
+    limit = ffn.FFN_BWD_CHUNK_TOKENS
+    chunks = ffn.ffn_chunks(T, limit)
+    assert chunks[0][0] == 0 and chunks[-1][1] == T
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(s % 128 == 0 and 0 < e - s <= limit for s, e in chunks)
+    assert len(chunks) == -(-T // limit)
+    if T == 264960:
+        assert chunks == [(s, s + 29440) for s in range(0, T, 29440)]
+
+
+def test_bwd_recompute_scratch_from_the_shapes(monkeypatch):
+    """Kernel 10's scratch at 0.25° (T = 264,960, D = 1056, H = 2816) is
+    under 1 GB and computed from the shapes without the built library: the
+    bf16 dg, du and h of a 29,440-token chunk, FFN_BWD_MAX_SPLITS fp32
+    partials of each weight gradient and their fp32 running sums; one chunk
+    (the flagship's 16,384 tokens) needs no running sums, and H is padded
+    as the wrapper pads it."""
+    def no_library():
+        raise AssertionError("bwd_recompute_scratch_bytes asked the built library")
+
+    monkeypatch.setattr(ffn._build, "library", no_library)
+    D, H, S = 1056, 2816, ffn.FFN_BWD_MAX_SPLITS
+    quarter = ffn.bwd_recompute_scratch_bytes(264960, D, H)
+    assert quarter == 6 * H * 29440 + 4 * 3 * D * H * (S + 1) < 1e9
+    assert ffn.bwd_recompute_scratch_bytes(16384, D, H) == 6 * H * 16384 + 4 * 3 * D * H * S
+    assert ffn.bwd_recompute_scratch_bytes(128, 32, 85) == 6 * 88 * 128 + 4 * 3 * 32 * 88 * S
+
+
+def test_ffn_bwd_recompute_plain_over_chunks_equals_whole(monkeypatch):
+    """Kernel 10's plan on the plain version: dx chunk by chunk equals the
+    whole call's bit for bit (each token's row alone), and the weight
+    gradients summed over the chunks in fp32 equal the whole call's within
+    fp32 rounding (2e-5): the running sums change only the order of a sum
+    over tokens."""
+    monkeypatch.setattr(ffn, "FFN_BWD_CHUNK_TOKENS", 256)
+    rng = np.random.default_rng(63)
+    T, D, H = 700, 32, 40
+    x, dy = _t(_rand(rng, (T, D))), _t(_rand(rng, (T, D)))
+    w1, w2 = _t(_rand(rng, (2 * H, D), D ** -0.5)), _t(_rand(rng, (D, H), H ** -0.5))
+    chunks = ffn.ffn_chunks(T, ffn.FFN_BWD_CHUNK_TOKENS)
+    assert chunks == [(0, 256), (256, 512), (512, 700)]
+    dx, dw1, dw2 = ffn.reference_swiglu_ffn_bwd_recompute(x, dy, w1, w2)
+    parts = [ffn.reference_swiglu_ffn_bwd_recompute(x[s:e], dy[s:e], w1, w2) for s, e in chunks]
+    assert torch.equal(torch.cat([p[0] for p in parts]), dx)
+    _close(sum(p[1] for p in parts), dw1, TOL, "dw1")
+    _close(sum(p[2] for p in parts), dw2, TOL, "dw2")
+
+
 # -- the routing ----------------------------------------------------------------
 
 ROUTES = [
