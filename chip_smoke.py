@@ -23,12 +23,13 @@ Phases, each printed as it finishes:
    pre-rolled input), and 3, 5, 10, 11, 13, 15-19 also at the 0.25° shapes (B=1,
    368x720 tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19)
    from a numpy seed; fails when max|kernel - plain| of any output exceeds
-   2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv or the
-   scratch of kernel 5, 10, 11 or 18 1 GB at 0.25°; prints both times (CUDA
-   events, median of 20 launches, 5 at 0.25°), the bound the card could
-   reach from the shapes (int8 peak for 18 and 19), the scratch of kernels
-   5, 10, 11, 16 and 18, ``F.linear``'s time for the qkv projection and its
-   primal + tangent and a composition of library calls (``F.linear``,
+   2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv, the
+   scratch of kernel 5, 10, 11 or 18 1 GB or 19's 0.3 GB at 0.25°; prints
+   both times (CUDA events, median of 20 launches, 5 at 0.25°), the bound
+   the card could reach from the shapes (int8 peak for 18 and 19), the
+   scratch of kernels 5, 10, 11, 16, 18 and 19, ``F.linear``'s time for
+   the qkv projection and its primal + tangent and a composition of
+   library calls (``F.linear``,
    silu·mul, ``F.linear``) for the FFN, its primal + tangent and the
    forward that keeps gate and up, another (``F.linear`` for dh, the
    SwiGLU backward in PyTorch, matmuls for dx, dW1, dW2) for kernel 9,
@@ -42,19 +43,20 @@ Phases, each printed as it finishes:
    ``F.layer_norm``, AdaLN, + r) for kernel 3 (with kernels 1's, 14's,
    3's, 5's, 8's, 9's, 11's, 13's, 2's and 15's TFLOP/s, share of the bound
    and ratio to the yardstick, single calls and queued; 3, 13 and 15 also
-   at 0.25°), kernel
-   3's cluster plan (blocks, columns, clusters resident), the int8 qkv
-   product (``torch._int_mm``) and weight quantization times, and kernel 18
-   through its wrapper queued (``ms`` and ``queued_ms``, the wrapper's) and
-   on weights quantized once, single and queued (``alone_ms``,
-   ``queued_alone_ms``), beside a composition of
-   ``torch._int_mm`` calls on the same weights (x and h quantized per
-   token in PyTorch) and equal to its wrapper's output; fails unless
+   at 0.25°), the cluster plans of kernels 3 and 19 (blocks, columns,
+   clusters resident; 19's also at D 1024 and 1280), the int8 qkv
+   product (``torch._int_mm``) and weight quantization times, and kernels
+   18 and 19 through their wrappers queued (``ms`` and ``queued_ms``, the
+   wrapper's) and on weights quantized once, single and queued
+   (``alone_ms``, ``queued_alone_ms``; 19 also at 0.25°), beside
+   compositions of ``torch._int_mm`` calls on the same weights (x and h
+   quantized per token in PyTorch; 19's with kernel 3's composition's
+   epilogue) and equal to their wrappers' outputs; fails unless
    kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's
    and kernel 8's y kernel 5's, and kernel 15's on qkv rolled by the shift
    (8, 8) kernel 2's at that shift, bit for bit, two calls of kernels 9,
-   10 (also at 0.25°), 13 and 18 each other's, and kernel 8's g and u are
-   zero in the hidden units its wrapper pads (path A's H = 85 to 88);
+   10 and 19 (also at 0.25°), 13 and 18 each other's, and kernel 8's g and
+   u are zero in the hidden units its wrapper pads (path A's H = 85 to 88);
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
    weights saved and reloaded through the port's checkpoint files, rolled
@@ -222,7 +224,10 @@ from swift_torch.ops.linear import (
 )
 from swift_torch.ops.modnorm import (
     fused_matmul_modnorm_residual,
+    matmul_modnorm_int8_plan,
+    matmul_modnorm_int8_scratch_bytes,
     matmul_modnorm_plan,
+    matmul_modnorm_residual_int8_quantized,
     fused_matmul_modnorm_residual_int8,
     fused_modnorm_residual,
     modnorm_residual_tangent,
@@ -739,21 +744,36 @@ def _composition_attention_bwd(qkv, scale, dout, heads, window_size, shift=(0, 0
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def _composition_mm_modnorm(x, w, r, g, b, msc, msh):
+def _composition_mm_modnorm(x, w, r, g, b, msc, msh, product=None):
     """``F.linear`` (cuBLAS, y rounded to bf16 where kernel 3 keeps it in
     fp32), ``F.layer_norm`` in fp32 with g and b, the AdaLN ·(1 + msc) +
     msh of each row's sample, + r, rounded to bf16: the wo projection's
-    post-norm as a user would write it in PyTorch."""
-    D = w.shape[0]
+    post-norm as a user would write it in PyTorch. ``product`` replaces
+    ``F.linear``."""
+    D = r.shape[-1]
     shape = (msc.shape[0],) + (1,) * (r.ndim - 2) + (D,)
+    product = product or (lambda: torch.nn.functional.linear(x, w))
 
     def run():
-        ln = torch.nn.functional.layer_norm(torch.nn.functional.linear(x, w).float(), (D,), g, b,
-                                            eps=1e-6)
+        ln = torch.nn.functional.layer_norm(product().float(), (D,), g, b, eps=1e-6)
         out = ln * (1.0 + msc.float().view(shape)) + msh.float().view(shape)
         return (out + r.float()).to(r.dtype)
 
     return run
+
+
+def _composition_mm_modnorm_int8(x, wq, sw, r, g, b, msc, msh):
+    """Kernel 19 on the same quantized weight as a user would write it in
+    PyTorch: x quantized per token (``quant.quantize_rowwise``),
+    ``torch._int_mm``, the rescale (acc·sx)·sw in fp32, then
+    :func:`_composition_mm_modnorm`'s epilogue."""
+    x2 = x.reshape(-1, x.shape[-1])
+
+    def product():
+        xq, sx = quant.quantize_rowwise(x2)
+        return (torch._int_mm(xq, wq.t()).float() * sx * sw).view(r.shape)
+
+    return _composition_mm_modnorm(x, None, r, g, b, msc, msh, product)
 
 
 def _composition_ffn_bwd_saved(x, dy, g, u, w1, w2):
@@ -817,8 +837,8 @@ def _composition_ffn_int8(x, w1q, s1, w2q, s2):
     return run
 
 
-# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 10, 11, 13 and 18 have no single PyTorch call of the
-# same function: their yardstick is a composition of library calls, timed
+# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 10, 11, 13, 18 and 19 have no single PyTorch call of
+# the same function: their yardstick is a composition of library calls, timed
 # beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
                "swiglu_ffn_fwd_save": _composition_ffn_save,
@@ -832,8 +852,9 @@ COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn
                "block_attention_tangent": _composition_attention_tangent,
                "tiled_block_attention_tangent": _composition_attention_tangent,
                "matmul_modnorm_residual": _composition_mm_modnorm,
-               # on the weights quantized once, as kernel 18 alone takes them
-               "swiglu_ffn_int8": _composition_ffn_int8}
+               # on the weights quantized once, as kernels 18 and 19 alone take them
+               "swiglu_ffn_int8": _composition_ffn_int8,
+               "matmul_modnorm_residual_int8": _composition_mm_modnorm_int8}
 
 
 def log(msg: str) -> None:
@@ -1023,6 +1044,8 @@ def phase_kernels() -> dict:
             fields = check_kernel(name, args, f"heads={heads:2d} d={d:3d} {tags or ''}")
             if name == "swiglu_ffn_int8":
                 int8_ffn_alone(args, fields)
+            elif name == "matmul_modnorm_residual_int8":
+                int8_mm_modnorm_alone(args, fields)
             elif name in ("linear", "linear_pt") + tuple(COMPOSITION):
                 rates(name, args, fields)
             if name == "swiglu_ffn_bwd_recompute":
@@ -1056,16 +1079,26 @@ def phase_kernels() -> dict:
 
 
 def cluster_plan(record: dict) -> None:
-    """Kernel 3's cluster at the model's width: blocks a cluster, columns a
-    block, shared memory, and the clusters the card holds at once (from
-    ``cudaOccupancyMaxActiveClusters``), with the SMs they leave idle."""
-    plan = matmul_modnorm_plan(DIM)
+    """The clusters of kernels 3 and 19: at the model's width, blocks a
+    cluster, columns a block, shared memory, and the clusters the card holds
+    at once (from ``cudaOccupancyMaxActiveClusters``), with the SMs they
+    leave idle; kernel 19's also at D 1024 (8 x 128) and path C's 1280 (0
+    clusters resident where no launch has asked at that width)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    busy = plan["cluster"] * plan["resident_clusters"]
-    log(f"[kernels] matmul_modnorm_residual D={DIM}: clusters of {plan['cluster']} blocks x "
-        f"{plan['columns']} columns, {plan['smem']} bytes of shared memory a block, "
-        f"{plan['resident_clusters']} clusters resident: {busy} of {sms} SMs")
-    record["matmul_modnorm_residual"]["cluster_plan"] = plan
+    for name, of in (("matmul_modnorm_residual", matmul_modnorm_plan),
+                     ("matmul_modnorm_residual_int8", matmul_modnorm_int8_plan)):
+        plan = of(DIM)
+        busy = plan["cluster"] * plan["resident_clusters"]
+        log(f"[kernels] {name} D={DIM}: clusters of {plan['cluster']} blocks x "
+            f"{plan['columns']} columns, {plan['smem']} bytes of shared memory a block, "
+            f"{plan['resident_clusters']} clusters resident: {busy} of {sms} SMs")
+        record[name]["cluster_plan"] = plan
+    for D in (1024, 1280):
+        plan = matmul_modnorm_int8_plan(D)
+        log(f"[kernels] matmul_modnorm_residual_int8 D={D}: clusters of {plan['cluster']} blocks "
+            f"x {plan['columns']} columns, {plan['smem']} bytes of shared memory a block, "
+            f"{plan['resident_clusters']} clusters resident")
+        record["matmul_modnorm_residual_int8"][f"cluster_plan_{D}"] = plan
 
 
 def queued_ms(fn, reps: int = 20) -> float:
@@ -1132,6 +1165,33 @@ def int8_ffn_alone(args, fields: dict) -> None:
         f"ms, {q_ms / q_yard_ms:.3f}x; equal to the wrapper's output bit for bit: {same}")
     if not same:
         raise AssertionError("kernel 18 on quantized weights differs from its wrapper")
+    fields.update(queued_ms=q_wrap_ms, alone_ms=ms, queued_alone_ms=q_ms, composition_ms=yard_ms,
+                  queued_composition_ms=q_yard_ms)
+
+
+def int8_mm_modnorm_alone(args, fields: dict) -> None:
+    """Kernel 19 as :func:`int8_ffn_alone` takes kernel 18: through its
+    wrapper queued, and alone on the weight quantized once
+    (``matmul_modnorm_residual_int8_quantized``), single and queued, beside
+    ``_composition_mm_modnorm_int8`` on the same weight (``torch._int_mm``),
+    with the share of the bound; the two equal bit for bit."""
+    x, w, *epi = args
+    q = quant.quantize_colwise(w)
+    alone = lambda: matmul_modnorm_residual_int8_quantized(x, *q, *epi)  # noqa: E731
+    yard = COMPOSITION["matmul_modnorm_residual_int8"](x, *q, *epi)
+    same = torch.equal(alone(), fused_matmul_modnorm_residual_int8(*args))
+    q_wrap_ms = queued_ms(lambda: fused_matmul_modnorm_residual_int8(*args))
+    ms, q_ms = time_ms(alone), queued_ms(alone)
+    yard_ms, q_yard_ms = time_ms(yard), queued_ms(yard)
+    bound = fields["bound_ms"]
+    log(f"[kernels] matmul_modnorm_residual_int8 x {tuple(x.shape)} through the wrapper: "
+        f"{fields['ms']:.4f} ms, queued {q_wrap_ms:.4f} ms; on the weight quantized once: "
+        f"{ms:.4f} ms ({100 * bound / ms:.1f}% of its bound), {ms / yard_ms:.3f}x the "
+        f"torch._int_mm composition's {yard_ms:.4f} ms; queued: kernel {q_ms:.4f} ms "
+        f"({100 * bound / q_ms:.1f}% of its bound), composition {q_yard_ms:.4f} ms, "
+        f"{q_ms / q_yard_ms:.3f}x; equal to the wrapper's output bit for bit: {same}")
+    if not same:
+        raise AssertionError("kernel 19 on a quantized weight differs from its wrapper")
     fields.update(queued_ms=q_wrap_ms, alone_ms=ms, queued_alone_ms=q_ms, composition_ms=yard_ms,
                   queued_composition_ms=q_yard_ms)
 
@@ -1215,18 +1275,21 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
 
 
 def kernels_deterministic(a: dict, heads: int, d: int) -> None:
-    """The invariant of kernels 6, 16, 7 and 17 at both geometries, and of 9,
-    10, 13 and 18 at the flagship shape: two calls give the same bits (the
+    """The invariant of kernels 6, 16, 7, 17 and 19 at both geometries, and of
+    9, 10, 13 and 18 at the flagship shape: two calls give the same bits (the
     partial dq̂ of 6 and 16 and the tangent's partial outputs are added
-    across the cluster in one fp32 addition, the scale's partials and the
-    weight gradients' token splits (and 10's token chunks) summed in a fixed
-    order, 18's h scale a max over fixed partials; no float atomics), so a
-    race in a ring, an exchange or the split sums shows at once."""
+    across the cluster in one fp32 addition, 19's row sums in rank order,
+    the scale's partials and the weight gradients' token splits (and 10's
+    token chunks) summed in a fixed order, 18's h scale a max over fixed
+    partials; no float atomics), so a race in a ring, an exchange or the
+    split sums shows at once."""
     win = (16, 16)
     cases = [("block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win, SHIFTS[1])),
              ("tiled_block_attention_bwd", (a["qkv"], a["scale"], a["attn"], heads, win)),
              ("block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win, SHIFTS[1])),
-             ("tiled_block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win))]
+             ("tiled_block_attention_tangent", (a["qkv"], a["dqkv"], a["scale"], heads, win)),
+             ("matmul_modnorm_residual_int8",
+              (a["attn"], a["w_o"].float(), a["r"], a["g"], a["b"], a["msc"], a["msh"]))]
     if d == GEOMETRIES[0][1]:
         cases += [("linear_bwd", (a["dy_qkv"], a["x"], a["w_qkv"])),
                   ("swiglu_ffn_bwd_saved",
@@ -1316,11 +1379,12 @@ def check_scratch(record: dict, name: str, args, computed: int, limit: float, wh
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     """Kernels 3, 5, 10, 11, 13, 15-17, 18 and 19 at the 0.25° shapes (B =
     1, 368x720 tokens, 8x128 heads, the 264,960-token FFN and qkv
-    projection), with the scratch of kernels 5, 10, 11, 16 and 18: computed
-    from the shapes, and read as the peak device memory of one call above
-    its inputs and outputs. The main path of 3, 5, 11, 13, 18 and 19 is the
-    flagship's: their 0.25° times stand beside it (kernel 3's and 13's also
-    queued, beside their compositions')."""
+    projection), with the scratch of kernels 5, 10, 11, 16, 18 and 19:
+    computed from the shapes, and read as the peak device memory of one call
+    above its inputs and outputs. The main path of 3, 5, 11, 13, 18 and 19 is
+    the flagship's: their 0.25° times stand beside it (kernel 3's and 13's
+    also queued, beside their compositions'; 19's alone and queued as at the
+    flagship, with two calls bit for bit)."""
     t = _tensor(rng)
     gh, gw = QUARTER_GRID
     heads, d, T = 8, 128, gh * gw
@@ -1353,6 +1417,8 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
         "swiglu_ffn_pt": (ffn_scratch_bytes(T, DIM, HIDDEN, pair=True), 1e9, "1 GB"),
         "swiglu_ffn_bwd_recompute": (bwd_recompute_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
         "swiglu_ffn_int8": (ffn_int8_scratch_bytes(T, DIM, HIDDEN), 1e9, "1 GB"),
+        "matmul_modnorm_residual_int8": (matmul_modnorm_int8_scratch_bytes(T, heads * d), 0.3e9,
+                                         "0.3 GB"),
     }
     beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual",
                              "linear_bwd")
@@ -1363,6 +1429,9 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
             rates(name, args, fields)  # 10, 15-17 on their main path's shape; 3, 13 as records
         if name == "swiglu_ffn_bwd_recompute":
             ffn_bwd_yardsticks(args, fields, "0.25°", reps=5)
+        if name == "matmul_modnorm_residual_int8":
+            int8_mm_modnorm_alone(args, fields)
+        if name in ("swiglu_ffn_bwd_recompute", "matmul_modnorm_residual_int8"):
             two_calls_equal(name, args, label)
         if name in beside:
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
@@ -1373,6 +1442,9 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
                                     quarter_composition_ms=fields["composition_ms"],
                                     quarter_queued_composition_ms=fields[
                                         "queued_composition_ms"])
+            if "alone_ms" in fields:
+                record[name].update(quarter_alone_ms=fields["alone_ms"],
+                                    quarter_queued_alone_ms=fields["queued_alone_ms"])
         else:
             _merge(record, name, fields, True)
         if name in scratch:

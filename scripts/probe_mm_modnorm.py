@@ -8,7 +8,9 @@ library calls, on the card.
 The committed ``swift_torch/csrc/gemm.cu`` is built alone into a library of
 its own, and beside it variants, each the committed source with one change
 made by text substitution in a temporary copy (no file of the repo
-changes):
+changes). Kernel 19 runs the same body on s8 operands, so a variant edits
+it too; only kernel 3 is called here (``probe_mm_modnorm_int8.py`` times
+19):
 
 * ``multicast``: ranks 0 and 1 of a cluster each load one 64-row half of
   the 128 x 64 A box and multicast it to every block of the cluster (which
@@ -78,13 +80,13 @@ EPILOGUE = ("        if (col < D) {  // D is even: col + 1 < D too", "        if
 MULTICAST = [
     ("  ring_init<S>(full, empty, 1);", "  ring_init<S>(full, empty, C);"),
     ("          mbar_expect_tx(&full[pos.s], L::STAGE);\n"
-     "          tma_load_2d(stage, &mA, &full[pos.s], kb * kLinBK, m0);\n",
+     "          tma_load_2d(stage, &mA, &full[pos.s], kb * BK, m0);\n",
      "          const bool half1 = m0 + kMnRows / 2 < M;\n"
      "          mbar_expect_tx(&full[pos.s], L::STAGE - (half1 ? 0 : kMnABytes / 2));\n"
      "          for (int h = rank; h < 2; h += C)\n"
      "            if (h == 0 || half1)\n"
      "              tma_load_2d_multicast(stage + h * (kMnABytes / 2), &mA, &full[pos.s],\n"
-     "                                    kb * kLinBK, m0 + h * (kMnRows / 2), (1 << C) - 1);\n"),
+     "                                    kb * BK, m0 + h * (kMnRows / 2), (1 << C) - 1);\n"),
     ("        if (lane == 0) mbar_arrive(&empty[stage]);",
      "        if (lane < C) mbar_arrive_cluster(&empty[stage], lane);"),
     ("tensor_map_bf16(&mA, a.x, a.M, a.K, kMnRows, kLinBK)",

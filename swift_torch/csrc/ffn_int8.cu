@@ -15,7 +15,8 @@
 // reduction between the passes: four launches over a chunk of tokens
 // (ops/ffn.py::ffn_chunks), the products on kernel 5's wgmma + TMA ring
 // (wgmma.cuh) with the s8 x s8 -> s32 wgmma (m64n256k32) in place of bf16's:
-//   0. quantize_rows_kernel<bf16>: xq = int8(x) and sx, one warp a token;
+//   0. quantize_rows_kernel<bf16> (quantize.cuh, kernel 19's pass 0 too):
+//      xq = int8(x) and sx, one warp a token;
 //   1. s8_gemm_kernel<kS8Hidden>: kernel 5's pass 1 on xq. A 128-row tile
 //      pairs gate units j..j+127 with up units j..j+127 in one 256-row W
 //      box whose halves the two blocks of a cluster load and multicast; a
@@ -32,13 +33,12 @@
 // and read, hq, y and the weights, ~0.57 GB at T = 16,384 (0.17 ms at 3.35
 // TB/s). The rounding points are the plain version's
 // (ops/ffn.py::reference_swiglu_ffn_int8) and the TPU kernel's.
-#include "tile_mma.cuh"
+#include "quantize.cuh"
 #include "wgmma.cuh"
 
 namespace swift {
 
 enum S8Mode { kS8Hidden, kS8Out };
-constexpr int kS8BK = 128;                // a stage's depth: 128 int8, one 128-byte box row
 constexpr int kS8HidBN = kLinBN / 2;      // hidden units a pass-1 tile (gate and up beside them)
 constexpr int kS8HBox = 64 * 32 * 4;      // one 64-row x 32-column fp32 box of h
 static_assert(kS8HBox == kLinCBox, "h's fp32 boxes take the bf16 output boxes' room");
@@ -48,15 +48,9 @@ constexpr int kS8Boxes = 2;               // output boxes a consumer, in turn
 constexpr int kS8Stages = 3;
 constexpr int kS8Smem = ring_smem(kS8Stages, 2 * kS8Boxes, 0);
 static_assert(kS8Smem <= kMaxSmem, "the s8 ring does not fit");
-constexpr int kQuantRows = 8;             // token rows a quantize block: one a warp
 
 __device__ __forceinline__ float2 ldg_f2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-__device__ __forceinline__ uint32_t pack_s8x4(float a, float b, float c, float d, float s) {
-  return (uint32_t)(uint8_t)quant8(a, s) | (uint32_t)(uint8_t)quant8(b, s) << 8 |
-         (uint32_t)(uint8_t)quant8(c, s) << 16 | (uint32_t)(uint8_t)quant8(d, s) << 24;
 }
 
 // Consumer c's 64 rows x 32 columns of fp32 output through a swizzled
@@ -200,57 +194,6 @@ __global__ void __launch_bounds__(kLinThreads, 1)
   }
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float f[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 t = __bfloat1622float2(e[k]);
-    f[2 * k] = t.x;
-    f[2 * k + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float f[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
-}
-
-// Passes 0 and 2: one warp a token row of X (M x K, K % 8 == 0): the scale of
-// its abs-max, as quantize_rows (tile_mma.cuh) computes it, and its int8
-// values at that scale, into Q (M x K) and scale (M,). The abs-max is the
-// row's own (pass 0, x in bf16, ``partials`` null) or the largest of its
-// ``tiles`` partial maxima (pass 2, the fp32 h, pass 1's maxima).
-template <class T>
-__global__ void __launch_bounds__(32 * kQuantRows)
-    quantize_rows_kernel(const T* __restrict__ X, const float* __restrict__ partials, int tiles,
-                         signed char* __restrict__ Q, float* __restrict__ scale, int M, int K) {
-  const int lane = threadIdx.x % 32, row = blockIdx.x * kQuantRows + threadIdx.x / 32;
-  if (row >= M) return;
-  const T* x = X + (size_t)row * K;
-  float top = 0.0f;
-  if (partials) {
-    for (int t = lane; t < tiles; t += 32) top = fmaxf(top, partials[(size_t)row * tiles + t]);
-  } else {
-    for (int i = lane; i < K / 8; i += 32) {
-      float f[8];
-      load8(x + 8 * i, f);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) top = fmaxf(top, fabsf(f[k]));
-    }
-  }
-  const float s = quant_scale(warp_max(top));
-  if (lane == 0) scale[row] = s;
-  uint2* q = reinterpret_cast<uint2*>(Q + (size_t)row * K);
-#pragma unroll 2
-  for (int i = lane; i < K / 8; i += 32) {
-    float f[8];
-    load8(x + 8 * i, f);
-    q[i] = make_uint2(pack_s8x4(f[0], f[1], f[2], f[3], s), pack_s8x4(f[4], f[5], f[6], f[7], s));
-  }
-}
-
 }  // namespace swift
 
 using namespace swift;
@@ -275,20 +218,15 @@ extern "C" int swift_ffn_int8(const void* x, const void* w1q, const void* s1, co
       !tensor_map_f32(&mH, h, M, H, 64, 32) || !tensor_map_i8(&mHq, hq, M, H, kLinRows, kS8BK) ||
       !tensor_map_i8(&mW2, w2q, D, H, kLinWHalf, kS8BK) || !tensor_map_bf16(&mY, y, M, D, 64, 64))
     return kTensorMapError;
-  const int blocks = (M + kQuantRows - 1) / kQuantRows;
   const int m_pairs = ((M + 2 * kLinRows - 1) / (2 * kLinRows) + kLinCluster - 1) / kLinCluster;
-  quantize_rows_kernel<<<blocks, 32 * kQuantRows, 0, st>>>(
-      (const bf16*)x, (const float*)nullptr, 0, (signed char*)xq, (float*)sx, M, D);
-  int err = (int)cudaGetLastError();
+  int err = quantize_rows((const bf16*)x, nullptr, 0, (signed char*)xq, (float*)sx, M, D, st);
   if (err == 0)
     err = launch_clusters(s8_gemm_kernel<kS8Hidden>, s8_resident[kS8Hidden], kS8Smem,
                           m_pairs * tiles, kLinCluster, st, mX, mWg, mWu, mH, (const float*)sx,
                           (const float*)s1, (float*)amax, M, H, D);
-  if (err == 0) {
-    quantize_rows_kernel<<<blocks, 32 * kQuantRows, 0, st>>>(
-        (const float*)h, (const float*)amax, tiles, (signed char*)hq, (float*)sh, M, H);
-    err = (int)cudaGetLastError();
-  }
+  if (err == 0)
+    err = quantize_rows((const float*)h, (const float*)amax, tiles, (signed char*)hq, (float*)sh,
+                        M, H, st);
   if (err == 0)
     err = launch_clusters(s8_gemm_kernel<kS8Out>, s8_resident[kS8Out], kS8Smem,
                           m_pairs * ((D + kLinBN - 1) / kLinBN), kLinCluster, st, mHq, mW2, mW2,

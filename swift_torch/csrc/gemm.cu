@@ -34,11 +34,13 @@
 //
 // swift_mm_modnorm_int8 -- replaces swift_tpu/ops/pallas_modnorm.py::
 //   fused_matmul_modnorm_residual_int8 (kernel body _mm_mn_q_kernel), kernel
-//   19 of the int8 forecast: swift_mm_modnorm with y = (int8(x) . Wq^T) * sx *
-//   sw, x quantized per token inside the block (see mm_modnorm_i8_kernel).
-//   Bound by the bytes it moves (2 * T * 1056 * 2 + T * inner * 2), ~0.03 ms
-//   at T = 16,384: the int8 product is cheap at 1979 TOP/s.
-#include "tile_mma.cuh"
+//   19 of the int8 forecast: swift_mm_modnorm with y = ((float)(xq . Wq^T) *
+//   sx) * sw. Two launches: x quantized per token into int8 scratch
+//   (quantize.cuh, kernel 18's pass 0), then kernel 3's cluster kernel on s8
+//   operands (mm_modnorm_wgmma_kernel<BN, true>). Bound by the bytes it moves
+//   (2 * T * 1056 * 2 + T * inner * 2), ~0.03 ms at T = 16,384: the int8
+//   product is cheap at 1979 TOP/s.
+#include "quantize.cuh"
 #include "wgmma.cuh"
 
 namespace swift {
@@ -184,22 +186,39 @@ __global__ void __launch_bounds__(kLinThreads, 1)
 // is i / tps, taken per row. Bound by the tensor cores (2 M K D FLOP). Every
 // block of a cluster loads the same A box: multicasting its halves from two
 // blocks to all was no faster (PERF.md), so each block loads its own.
+//
+// Kernel 19 (S8) is this body on s8 operands: x quantized per token
+// beforehand (xq, sx), Wo per output feature (Wq, sw). A stage is 128 int8
+// deep (kS8BK), the bytes of a 64-deep bf16 stage in the same 128-byte box
+// rows, so the ring, its descriptors and its layout are kernel 3's; a stage
+// is four m64nBNk32 s8 wgmmas into an int accumulator. Once the last stage is
+// consumed each value becomes y = ((float)acc * sx[row]) * sw[col], the
+// plain version's order, in place (the float's bits kept in the int
+// register); from there on it is kernel 3's code. The block's columns of sw
+// wait in shared memory beside g and b; a row past M reads row M - 1's sx
+// (its y is zero and never stored).
 constexpr int kMnRows = 128, kMnMaxCluster = 8;
 constexpr int kMnABytes = kMnRows * kLinBK * 2;
+static_assert(kMnABytes == kMnRows * kS8BK, "an s8 stage holds the bytes of a bf16 one");
 // The column slices a block may hold; the host takes the narrowest that
-// covers D in at most kMnMaxCluster blocks.
+// covers D in at most kMnMaxCluster blocks. s8 wgmma takes N in steps of 16
+// past 32, so kernel 19 has 224 where kernel 3 has 216.
 constexpr int kMnWidths[] = {32, 64, 128, 176, 216};
+constexpr int kMnS8Widths[] = {32, 64, 128, 176, 224};
 constexpr int kMnKinds = sizeof(kMnWidths) / sizeof(kMnWidths[0]);
+static_assert(sizeof(kMnS8Widths) == sizeof(kMnWidths), "one s8 width a kind");
 constexpr int kMnMaxD = kMnMaxCluster * kMnWidths[kMnKinds - 1];
 static_assert(kMnMaxD == 1728, "ops/modnorm.py's MATMUL_MODNORM_MAX_D");
+constexpr int kMnS8MaxD = kMnMaxCluster * kMnS8Widths[kMnKinds - 1];
+static_assert(kMnS8MaxD == 1792, "ops/modnorm.py's MATMUL_MODNORM_INT8_MAX_D");
 
-template <int BN>
+template <int BN, bool S8>
 struct MnLayout {
   static constexpr int W_BYTES = BN * kLinBK * 2;
   static constexpr int STAGE = kMnABytes + W_BYTES;
   static constexpr int BOX = kMnRows * BN * 2;  // r in, out back, rows of BN bf16
   static constexpr int SLOTS = 2 * kMnMaxCluster * kMnRows * 8;
-  static constexpr int GB = BN * 8;  // the block's columns of g and b, fp32
+  static constexpr int GB = BN * (S8 ? 12 : 8);  // the block's columns of g, b (and sw), fp32
   static constexpr int FIXED = 1024 + BOX + SLOTS + GB + 256;  // alignment pad, barriers
   static constexpr int STAGES = (kMaxSmem - FIXED) / STAGE < 8 ? (kMaxSmem - FIXED) / STAGE : 8;
   // what room is left holds the block's columns of the AdaLN rows of up to
@@ -214,24 +233,26 @@ __device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-template <int BN>
+template <int BN, bool S8>
 __global__ void __launch_bounds__(kLinThreads, 1)
     mm_modnorm_wgmma_kernel(const __grid_constant__ CUtensorMap mA,
                             const __grid_constant__ CUtensorMap mW,
                             const __grid_constant__ CUtensorMap mR,
                             const __grid_constant__ CUtensorMap mOut, const float* __restrict__ g,
                             const float* __restrict__ b, const bf16* __restrict__ msc,
-                            const bf16* __restrict__ msh, int M, int K, int D, int tps,
+                            const bf16* __restrict__ msh, const float* __restrict__ sx,
+                            const float* __restrict__ sw, int M, int K, int D, int tps,
                             float eps) {
-  using L = MnLayout<BN>;
-  constexpr int S = L::STAGES;
+  using L = MnLayout<BN, S8>;
+  constexpr int S = L::STAGES, BK = S8 ? kS8BK : kLinBK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* box = smem + S * L::STAGE;
   float2* slots = reinterpret_cast<float2*>(box + L::BOX);  // [parity][rank][row]
   float* gs = reinterpret_cast<float*>(box + L::BOX + L::SLOTS);
   float* bs = gs + BN;
-  bf16* scs = reinterpret_cast<bf16*>(bs + BN);  // [sample][BN]
+  float* sws = bs + BN;  // kernel 19's sw
+  bf16* scs = reinterpret_cast<bf16*>(gs + L::GB / 4);  // [sample][BN]
   bf16* shs = scs + L::SAMPLES * BN;
   uint64_t* full = reinterpret_cast<uint64_t*>(shs + L::SAMPLES * BN);
   uint64_t* empty = full + S;
@@ -242,7 +263,7 @@ __global__ void __launch_bounds__(kLinThreads, 1)
   const int C = (int)cluster_blocks(), rank = (int)cluster_rank();
   const int tiles = (M + kMnRows - 1) / kMnRows;
   const int cluster = blockIdx.x / C, clusters = gridDim.x / C;
-  const int k_blocks = (K + kLinBK - 1) / kLinBK;
+  const int k_blocks = (K + BK - 1) / BK;
   const int n0 = rank * BN;
   if (threadIdx.x == 0) {
     mbar_init(&stat[0], 8 * C);  // each consumer warp of the cluster
@@ -264,8 +285,8 @@ __global__ void __launch_bounds__(kLinThreads, 1)
           unsigned char* stage = smem + pos.s * L::STAGE;
           mbar_wait(&empty[pos.s], pos.phase ^ 1);
           mbar_expect_tx(&full[pos.s], L::STAGE);
-          tma_load_2d(stage, &mA, &full[pos.s], kb * kLinBK, m0);
-          tma_load_2d(stage + kMnABytes, &mW, &full[pos.s], kb * kLinBK, n0);
+          tma_load_2d(stage, &mA, &full[pos.s], kb * BK, m0);
+          tma_load_2d(stage + kMnABytes, &mW, &full[pos.s], kb * BK, n0);
           pos.next();
           if (kb == r_at) {  // the ring is full of this tile: its r next
             mbar_wait(rempty, (it & 1) ^ 1);
@@ -280,14 +301,15 @@ __global__ void __launch_bounds__(kLinThreads, 1)
     const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, lane = tid % 32;
     const int lr = 64 * c + tid / 32 * 16 + lane / 4;  // this thread's rows of the tile: lr, lr + 8
     const float inv_d = 1.0f / (float)D;
-    // the block's columns of g, b and, where they fit, of every sample's
-    // AdaLN rows, into shared memory once (zeros past D): the epilogue
-    // reads them there, not from L2
+    // the block's columns of g, b (and sw) and, where they fit, of every
+    // sample's AdaLN rows, into shared memory once (zeros past D): the
+    // epilogue reads them there, not from L2
     const int ct = threadIdx.x - 128, samples = (M - 1) / tps + 1;
     const bool staged = samples <= L::SAMPLES;
     for (int i = ct; i < BN; i += 256) {
       gs[i] = n0 + i < D ? g[n0 + i] : 0.f;
       bs[i] = n0 + i < D ? b[n0 + i] : 0.f;
+      if constexpr (S8) sws[i] = n0 + i < D ? sw[n0 + i] : 0.f;
     }
     for (int i = ct; staged && i < samples * BN; i += 256) {
       const int col = n0 + i % BN;
@@ -299,11 +321,19 @@ __global__ void __launch_bounds__(kLinThreads, 1)
     const bf16* sc_rows = staged ? scs : msc + n0;  // row s of sample s at s * stride
     const bf16* sh_rows = staged ? shs : msh + n0;
     const int stride = staged ? BN : D;
-    float acc[BN / 2];
+    std::conditional_t<S8, int, float> acc[BN / 2];
     RingPos<S> pos;
     int it = 0;
     for (int t = cluster; t < tiles; t += clusters, ++it) {
       const int m0 = t * kMnRows, par = it & 1;
+      float s_row[2] = {0.f, 0.f};  // kernel 19: the rows' sx
+      if constexpr (S8) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + lr + 8 * h;
+          s_row[h] = sx[row < M ? row : M - 1];
+        }
+      }
       // the products
       int prev = 0;
       auto release = [&](int stage) {
@@ -317,8 +347,12 @@ __global__ void __launch_bounds__(kLinThreads, 1)
         const uint64_t da = wgmma_desc(stage + c * (kMnABytes / 2));
         const uint64_t dw = wgmma_desc(stage + kMnABytes);
 #pragma unroll
-        for (int k = 0; k < kLinBK / 16; ++k)
-          wgmma_m64nNk16<BN>(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+        for (int k = 0; k < kLinBK / 16; ++k) {  // 32-byte slices of a 128-byte box row
+          if constexpr (S8)
+            wgmma_m64nNk32_s8<BN>(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+          else
+            wgmma_m64nNk16<BN>(acc, da + 2 * k, dw + 2 * k, kb > 0 || k > 0);
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done: release it
         if (kb > 0) release(prev);
@@ -328,6 +362,24 @@ __global__ void __launch_bounds__(kLinThreads, 1)
       wgmma_wait<0>();
       fence_regs(acc);
       release(prev);
+      if constexpr (S8) {  // y = ((float)acc sx) sw, in place
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 w = *reinterpret_cast<const float2*>(sws + 8 * j + 2 * (lane % 4));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            acc[i] = __float_as_int(((float)acc[i] * s_row[h]) * w.x);
+            acc[i + 1] = __float_as_int(((float)acc[i + 1] * s_row[h]) * w.y);
+          }
+        }
+      }
+      auto y = [&](int i) -> float {  // y in fp32
+        if constexpr (S8)
+          return __int_as_float(acc[i]);
+        else
+          return acc[i];
+      };
 
       // the rows' partial sums over this block's columns, to every block
       float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
@@ -337,7 +389,7 @@ __global__ void __launch_bounds__(kLinThreads, 1)
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float v = acc[4 * j + 2 * h + e];
+            const float v = y(4 * j + 2 * h + e);
             s[h] += v;
             ss[h] += v * v;
           }
@@ -395,7 +447,7 @@ __global__ void __launch_bounds__(kLinThreads, 1)
             __nv_bfloat162* rp =
                 reinterpret_cast<__nv_bfloat162*>(box + ((lr + 8 * h) * BN + lc) * 2);
             const float2 rv = __bfloat1622float2(*rp);
-            const float y0 = acc[4 * j + 2 * h], y1 = acc[4 * j + 2 * h + 1];
+            const float y0 = y(4 * j + 2 * h), y1 = y(4 * j + 2 * h + 1);
             const float o0 = ((y0 - mu[h]) * rs[h] * gg.x + bb.x) * (1.0f + sc[h].x) + sh[h].x;
             const float o1 = ((y1 - mu[h]) * rs[h] * gg.y + bb.y) * (1.0f + sc[h].y) + sh[h].y;
             *rp = __floats2bfloat162_rn(o0 + rv.x, o1 + rv.y);
@@ -417,85 +469,6 @@ __global__ void __launch_bounds__(kLinThreads, 1)
   }
   __syncwarp();
   cluster_sync();  // no block leaves while a peer may still write into it
-}
-
-// Kernel 19: int8 wo + modnorm on the WMMA loop of tile_mma.cuh: the block
-// quantizes its 32 x rows whole (all K = inner columns, the row
-// abs-max before any product) into a resident k-chunk-major int8 tile, walks
-// D in 128-column tiles of the int8 weight, parks each int32 tile in the
-// 32 x D accumulator (135 KB at D = 1056) and rescales y = (acc * sx) * sw in
-// fp32 in the epilogue. The TPU kernel pads the 12 x 88 attention output to
-// 12 x 128 lanes with zeros; here it is 1056 wide: zero lanes change neither
-// a row's abs-max nor the products.
-constexpr int kMnBM = 32, kMnBN = 128, kMnQBK = 64;
-using MnQMma = TileMmaI8<kMnBM, kMnBN, kMnQBK, 2, 4>;
-
-__host__ __device__ constexpr int mm_modnorm_i8_smem(int K, int D) {
-  return kMnBM * (D + 4) * 4 + round128(kMnBM * K) + MnQMma::SMEM + kMnBM * 4;
-}
-
-__global__ void __launch_bounds__(MnQMma::NT)
-    mm_modnorm_i8_kernel(const bf16* __restrict__ X, const signed char* __restrict__ Wq,
-                         const float* __restrict__ sw, const bf16* __restrict__ R,
-                         const float* __restrict__ g, const float* __restrict__ b,
-                         const bf16* __restrict__ msc, const bf16* __restrict__ msh,
-                         bf16* __restrict__ out, int M, int K, int D, int tps, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lda = D + 4;
-  int* accS = reinterpret_cast<int*>(smem_raw);
-  signed char* xq = reinterpret_cast<signed char*>(smem_raw + kMnBM * lda * 4);
-  signed char* bs = xq + round128(kMnBM * K);
-  float* sx = reinterpret_cast<float*>(bs + MnQMma::SMEM);
-  const int m0 = blockIdx.x * kMnBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wm = warp / 4, wn = warp % 4;
-
-  quantize_rows<kMnBM, MnQMma::NT>(xq, sx, X, m0, M, K);
-  __syncthreads();
-  for (int n0 = 0; n0 < D; n0 += kMnBN) {
-    MnQMma::Acc acc[MnQMma::FM][MnQMma::FN];
-    MnQMma::run(
-        acc, xq, bs,
-        [=](int r) -> const signed char* {
-          return n0 + r < D ? Wq + (size_t)(n0 + r) * K : nullptr;
-        },
-        Wq, K);
-#pragma unroll
-    for (int j = 0; j < MnQMma::FN; ++j) {
-      const int col = n0 + wn * MnQMma::FN * 16 + j * 16;
-      if (col < D)
-        wmma::store_matrix_sync(accS + (wm * 16) * lda + col, acc[0][j], lda, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  // epilogue, one warp per row: fp32 statistics with var = E[y^2] - mu^2 as
-  // the TPU kernel computes it, then LN affine, AdaLN and the residual
-  const float inv_d = 1.0f / (float)D;
-  for (int r = warp; r < kMnBM; r += MnQMma::NT / 32) {
-    const int gr = m0 + r;
-    if (gr >= M) break;
-    const int* yi = accS + r * lda;
-    const float s_x = sx[r];
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float v = ((float)yi[c] * s_x) * sw[c];
-      s += v;
-      ss += v * v;
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s * inv_d;
-    const float rs = rsqrtf(ss * inv_d - mu * mu + eps);
-    const size_t bi = (size_t)(gr / tps) * D;
-    const size_t ro = (size_t)gr * D;
-    for (int c = lane; c < D; c += 32) {
-      const float y = ((float)yi[c] * s_x) * sw[c];
-      const float ln = (y - mu) * rs * g[c] + b[c];
-      float o = ln * (1.0f + __bfloat162float(msc[bi + c])) + __bfloat162float(msh[bi + c]);
-      o = o + __bfloat162float(R[ro + c]);
-      out[ro + c] = __float2bfloat16_rn(o);
-    }
-  }
 }
 
 }  // namespace swift
@@ -534,51 +507,80 @@ extern "C" int swift_linear_pt(const void* x, const void* dx, const void* w, voi
   return launch_linear(x, dx, w, y, dy, M, N, K, kLinRows, 0, (cudaStream_t)stream);
 }
 
-// Kernel 3's launcher: the column slice BN = kMnWidths[I], C = ceil(D / BN)
-// blocks a cluster, tensor maps for x and Wo (swizzled operand boxes), r
-// and out (dense 128 x BN and 64 x BN boxes), then as many clusters as the
-// card holds at once, asked once for each width, C and device.
+// The launcher of kernels 3 and 19 (S8): the column slice BN = the kind's
+// width, C = ceil(D / BN) blocks a cluster, tensor maps for x and Wo
+// (swizzled operand boxes, bf16 or int8), r and out (dense 128 x BN and
+// 64 x BN boxes), then as many clusters as the card holds at once, asked
+// once for each operand type, width, C and device.
 struct MnArgs {
   const void *x, *w, *r, *g, *b, *msc, *msh;
   void* out;
+  const void *sx, *sw;  // kernel 19's scales
   int M, K, D, tps;
   float eps;
   cudaStream_t stream;
 };
 
-static int mm_modnorm_resident[kMnKinds][kMnMaxCluster + 1][64];
+static int mm_modnorm_resident[2][kMnKinds][kMnMaxCluster + 1][64];
+
+template <bool S8>
+constexpr int mm_modnorm_width(int kind) {
+  return S8 ? kMnS8Widths[kind] : kMnWidths[kind];
+}
 
 // The narrowest width that covers D in at most kMnMaxCluster blocks, or -1.
+template <bool S8>
 static int mm_modnorm_kind(int D) {
   for (int i = 0; i < kMnKinds; ++i)
-    if ((D + kMnWidths[i] - 1) / kMnWidths[i] <= kMnMaxCluster) return i;
+    if ((D + mm_modnorm_width<S8>(i) - 1) / mm_modnorm_width<S8>(i) <= kMnMaxCluster) return i;
   return -1;
 }
 
-template <int I = 0>
+template <bool S8, int I = 0>
 static int launch_mm_modnorm(int kind, const MnArgs& a) {
   if constexpr (I < kMnKinds) {
-    if (kind != I) return launch_mm_modnorm<I + 1>(kind, a);
-    constexpr int BN = kMnWidths[I];
+    if (kind != I) return launch_mm_modnorm<S8, I + 1>(kind, a);
+    constexpr int BN = mm_modnorm_width<S8>(I);
     const int C = (a.D + BN - 1) / BN;
     CUtensorMap mA, mW, mR, mOut;
-    if (!tensor_map_bf16(&mA, a.x, a.M, a.K, kMnRows, kLinBK) ||
-        !tensor_map_bf16(&mW, a.w, a.D, a.K, BN, kLinBK) ||
-        !tensor_map_bf16(&mR, a.r, a.M, a.D, kMnRows, BN, false) ||
+    const bool operands = S8 ? tensor_map_i8(&mA, a.x, a.M, a.K, kMnRows, kS8BK) &&
+                                   tensor_map_i8(&mW, a.w, a.D, a.K, BN, kS8BK)
+                             : tensor_map_bf16(&mA, a.x, a.M, a.K, kMnRows, kLinBK) &&
+                                   tensor_map_bf16(&mW, a.w, a.D, a.K, BN, kLinBK);
+    if (!operands || !tensor_map_bf16(&mR, a.r, a.M, a.D, kMnRows, BN, false) ||
         !tensor_map_bf16(&mOut, a.out, a.M, a.D, kMnRows / 2, BN, false))
       return kTensorMapError;
-    return launch_clusters(mm_modnorm_wgmma_kernel<BN>, mm_modnorm_resident[I][C],
-                           MnLayout<BN>::SMEM, (a.M + kMnRows - 1) / kMnRows, C, a.stream, mA, mW,
-                           mR, mOut, (const float*)a.g, (const float*)a.b, (const bf16*)a.msc,
-                           (const bf16*)a.msh, a.M, a.K, a.D, a.tps, a.eps);
+    return launch_clusters(mm_modnorm_wgmma_kernel<BN, S8>, mm_modnorm_resident[S8][I][C],
+                           MnLayout<BN, S8>::SMEM, (a.M + kMnRows - 1) / kMnRows, C, a.stream, mA,
+                           mW, mR, mOut, (const float*)a.g, (const float*)a.b, (const bf16*)a.msc,
+                           (const bf16*)a.msh, (const float*)a.sx, (const float*)a.sw, a.M, a.K,
+                           a.D, a.tps, a.eps);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <int I = 0>
+template <bool S8, int I = 0>
 static int mm_modnorm_smem(int kind) {
   if constexpr (I < kMnKinds)
-    return kind == I ? MnLayout<kMnWidths[I]>::SMEM : mm_modnorm_smem<I + 1>(kind);
+    return kind == I ? MnLayout<mm_modnorm_width<S8>(I), S8>::SMEM
+                     : mm_modnorm_smem<S8, I + 1>(kind);
+  return 0;
+}
+
+// The cluster plan at width D: plan[0] = blocks a cluster, plan[1] = columns
+// a block, plan[2] = shared memory a block, plan[3] = the clusters the card
+// holds at once (0 until a launch at this width and cluster size has asked).
+// Returns -1 for a D wider than the widest plan.
+template <bool S8>
+static int mm_modnorm_plan(int D, int* plan) {
+  const int kind = mm_modnorm_kind<S8>(D);
+  if (kind < 0) return -1;
+  int device = 0;
+  cudaGetDevice(&device);
+  plan[1] = mm_modnorm_width<S8>(kind);
+  plan[0] = (D + plan[1] - 1) / plan[1];
+  plan[2] = mm_modnorm_smem<S8>(kind);
+  plan[3] = mm_modnorm_resident[S8][kind][plan[0]][device % 64];
   return 0;
 }
 
@@ -587,40 +589,33 @@ static int mm_modnorm_smem(int kind) {
 extern "C" int swift_mm_modnorm(const void* x, const void* w, const void* r, const void* g,
                                 const void* b, const void* msc, const void* msh, void* out,
                                 int M, int K, int D, int tps, float eps, void* stream) {
-  return launch_mm_modnorm(mm_modnorm_kind(D), MnArgs{x, w, r, g, b, msc, msh, out, M, K, D, tps,
-                                                      eps, (cudaStream_t)stream});
+  return launch_mm_modnorm<false>(
+      mm_modnorm_kind<false>(D), MnArgs{x, w, r, g, b, msc, msh, out, nullptr, nullptr, M, K, D,
+                                        tps, eps, (cudaStream_t)stream});
 }
 
-// Kernel 3's plan at width D: plan[0] = blocks a cluster, plan[1] = columns
-// a block, plan[2] = shared memory a block, plan[3] = the clusters the card
-// holds at once (0 until a launch at this width and cluster size has asked).
-// Returns -1 for a D wider than kMnMaxD.
-extern "C" int swift_mm_modnorm_plan(int D, int* plan) {
-  const int kind = mm_modnorm_kind(D);
-  if (kind < 0) return -1;
-  int device = 0;
-  cudaGetDevice(&device);
-  plan[1] = kMnWidths[kind];
-  plan[0] = (D + plan[1] - 1) / plan[1];
-  plan[2] = mm_modnorm_smem(kind);
-  plan[3] = mm_modnorm_resident[kind][plan[0]][device % 64];
-  return 0;
+// Kernel 3's plan at width D (mm_modnorm_plan); -1 past kMnMaxD.
+extern "C" int swift_mm_modnorm_plan(int D, int* plan) { return mm_modnorm_plan<false>(D, plan); }
+
+// Kernel 19's plan at width D (mm_modnorm_plan); -1 past kMnS8MaxD.
+extern "C" int swift_mm_modnorm_int8_plan(int D, int* plan) {
+  return mm_modnorm_plan<true>(D, plan);
 }
 
-extern "C" int swift_mm_modnorm_int8_smem(int K, int D) { return mm_modnorm_i8_smem(K, D); }
-
-// x (M, K) bf16; wq (D, K) int8 with per-row fp32 scales sw (D,); the rest
-// as swift_mm_modnorm. K % 16 == 0, D % 16 == 0.
+// Kernel 19: x (M, K) bf16; wq (D, K) int8 with per-row fp32 scales sw (D,);
+// the rest as swift_mm_modnorm. Scratch the caller allocates: xq (M, K) int8
+// and sx (M,) fp32. K % 16 == 0, D % 16 == 0, D <= kMnS8MaxD, 16-byte aligned
+// bases. Two launches, x quantized per token, then the s8 cluster kernel;
+// returns the first launch's error.
 extern "C" int swift_mm_modnorm_int8(const void* x, const void* wq, const void* sw, const void* r,
                                      const void* g, const void* b, const void* msc,
-                                     const void* msh, void* out, int M, int K, int D, int tps,
-                                     float eps, void* stream) {
-  const int smem = mm_modnorm_i8_smem(K, D);
-  cudaFuncSetAttribute(mm_modnorm_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  mm_modnorm_i8_kernel<<<(M + kMnBM - 1) / kMnBM, MnQMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const signed char*)wq, (const float*)sw, (const bf16*)r, (const float*)g,
-      (const float*)b, (const bf16*)msc, (const bf16*)msh, (bf16*)out, M, K, D, tps, eps);
-  return (int)cudaGetLastError();
+                                     const void* msh, void* out, void* xq, void* sx, int M, int K,
+                                     int D, int tps, float eps, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = quantize_rows((const bf16*)x, nullptr, 0, (signed char*)xq, (float*)sx, M, K, st);
+  if (err) return err;
+  return launch_mm_modnorm<true>(mm_modnorm_kind<true>(D), MnArgs{xq, wq, r, g, b, msc, msh, out,
+                                                                  sx, sw, M, K, D, tps, eps, st});
 }
 
 extern "C" int swift_max_smem() { return kMaxSmem; }

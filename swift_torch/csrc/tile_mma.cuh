@@ -1,8 +1,7 @@
 // Shared pieces of the port's hand-written Hopper kernels: cp.async tile
 // loads and a double-buffered bf16 tensor-core main loop (WMMA, fp32
-// accumulation) for C[BM x BN] = A[BM x K] . B[BN x K]^T, and beside it the
-// int8 main loop (s8 x s8 -> s32) of kernel 19, with its per-row
-// quantization (whose rounding kernel 18 shares).
+// accumulation) for C[BM x BN] = A[BM x K] . B[BN x K]^T, kernel 20's
+// loop, and the warp reductions.
 //
 // Every GEMM of the SwinV2 block multiplies an activation (tokens x K,
 // row-major) by a torch ``nn.Linear`` weight (out x K, row-major), so both
@@ -27,6 +26,8 @@ namespace wmma = nvcuda::wmma;
 
 // Largest dynamic shared memory one block may use on sm_90 (227 KB).
 constexpr int kMaxSmem = 232448;
+
+__host__ __device__ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -158,121 +159,6 @@ struct TileMma {
 #pragma unroll
         for (int j = 0; j < FN; ++j)
           wmma::load_matrix_sync(b[j], Bs[cur] + (wn * FN * 16 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-};
-
-// ---------------------------------------------------------------------------
-// int8 (kernel 19; kernel 18 shares quant8 and quant_scale): s8 x s8 -> s32
-// WMMA 16x16x16 products.
-//
-// An int8 operand tile of R rows over a K range lies k-chunk-major in shared
-// memory, [K/16][R][16] bytes, so the 16x16 fragment at (row r0, k-chunk kc)
-// is 256 contiguous bytes, 32-byte aligned, ldm 16 -- WMMA's alignment rule
-// holds at every 16-byte k step. A streamed tile's chunk planes are 32 bytes
-// apart beyond R*16 so that cp.async's 16-byte writes of one row's chunks
-// fall on different banks. K must be a multiple of 16 (whole 16-byte chunks).
-
-__host__ __device__ constexpr int round128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-// Symmetric int8 of v at scale s, as the JAX mirror (quant.py) computes it:
-// IEEE division (the build has no fast-math) and round half to even (rintf;
-// roundf would round half away from zero), clipped to +-127.
-__device__ __forceinline__ signed char quant8(float v, float s) {
-  return (signed char)fminf(fmaxf(rintf(v / s), -127.0f), 127.0f);
-}
-
-__device__ __forceinline__ float quant_scale(float amax) { return fmaxf(amax, 1e-30f) / 127.0f; }
-
-// Rows m0..m0+R of the bf16 matrix X (M x K, row-major) quantized per row
-// into the resident k-chunk-major tile q ([K/16][R][16]) and their scales,
-// one warp a row: the abs-max runs over all K columns. Rows past M become
-// zeros.
-template <int R, int NT>
-__device__ void quantize_rows(signed char* q, float* scale, const bf16* X, int m0, int M, int K) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < R; r += NT / 32) {
-    const bool live = m0 + r < M;
-    const bf16* x = X + (size_t)(live ? m0 + r : 0) * K;
-    float amax = 0.0f;
-    if (live)
-      for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(__bfloat162float(x[k])));
-    const float s = quant_scale(warp_max(amax));
-    if (lane == 0) scale[r] = s;
-    for (int k = lane; k < K; k += 32)
-      q[((k >> 4) * R + r) * 16 + (k & 15)] = live ? quant8(__bfloat162float(x[k]), s) : 0;
-  }
-}
-
-// Copy rows x [k0, k0+BK) bytes of an int8 matrix into a streamed tile
-// (chunk planes PLANE bytes apart); ``rowptr(r)`` as for load_rows.
-template <int ROWS, int BK, int PLANE, int NT, class RowPtr>
-__device__ __forceinline__ void load_rows_i8(signed char* smem, RowPtr rowptr,
-                                             const signed char* any, int k0, int K, int tid) {
-  constexpr int CPR = BK / 16;
-  for (int c = tid; c < ROWS * CPR; c += NT) {
-    const int r = c / CPR, kc = c % CPR;
-    const signed char* src = rowptr(r);
-    const bool ok = src != nullptr && k0 + kc * 16 < K;
-    cp_async16(smem + kc * PLANE + r * 16, ok ? src + k0 + kc * 16 : any, ok);
-  }
-}
-
-// C[BM x BN] (int32 fragments, WM x WN warps) = A[BM x K] . B[brow(0..BN) x
-// K]^T with A resident in shared memory (k-chunk-major, quantized by the
-// caller) and B's rows streamed BK bytes at a time, double-buffered with
-// cp.async through ``bs`` (SMEM bytes). Integer sums are exact, so the order
-// of the k steps does not matter.
-template <int BM, int BN, int BK, int WM, int WN>
-struct TileMmaI8 {
-  static constexpr int NT = WM * WN * 32;
-  static constexpr int FM = BM / WM / 16;
-  static constexpr int FN = BN / WN / 16;
-  static constexpr int PLANE = BN * 16 + 32;
-  static constexpr int STAGE = (BK / 16) * PLANE;
-  static constexpr int SMEM = 2 * STAGE;
-  static_assert(FM >= 1 && FN >= 1 && BK % 16 == 0 && STAGE % 128 == 0, "tile shape");
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
-  template <class BRowPtr>
-  __device__ static void run(Acc (&acc)[FM][FN], const signed char* As, signed char* bs,
-                             BRowPtr brow, const signed char* B, int K) {
-    const int tid = threadIdx.x, warp = tid / 32;
-    const int wm = warp / WN, wn = warp % WN;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-    const int nk = (K + BK - 1) / BK;
-    load_rows_i8<BN, BK, PLANE, NT>(bs, brow, B, 0, K, tid);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk)
-        load_rows_i8<BN, BK, PLANE, NT>(bs + ((kt + 1) & 1) * STAGE, brow, B, (kt + 1) * BK, K,
-                                        tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const signed char* bt = bs + (kt & 1) * STAGE;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const int kc = kt * (BK / 16) + kk;
-        if (kc * 16 >= K) break;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(a[i], As + ((size_t)kc * BM + wm * FM * 16 + i * 16) * 16, 16);
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(b[j], bt + kk * PLANE + (wn * FN * 16 + j * 16) * 16, 16);
 #pragma unroll
         for (int i = 0; i < FM; ++i)
 #pragma unroll

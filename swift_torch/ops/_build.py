@@ -51,8 +51,8 @@ _SIGNATURES = {
     "swift_tiled_attention_tangent": [_P] * 4 + [_I] * 7 + [_P],
     "swift_ffn_bwd_recompute": [_P] * 13 + [_I] * 6 + [_P],
     "swift_ffn_int8": [_P] * 12 + [_I, _I, _I, _P],
-    "swift_mm_modnorm_int8": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
-    "swift_mm_modnorm_int8_smem": [_I, _I],
+    "swift_mm_modnorm_int8": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
+    "swift_mm_modnorm_int8_plan": [_I, _P],
     "swift_ffn_mn": [_P] * 8 + [_I] * 4 + [_F, _P],
     "swift_ffn_mn_smem": [_I],
     "swift_window_attention": [_P] * 4 + [_I] * 3 + [_P],

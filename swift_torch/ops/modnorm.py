@@ -15,7 +15,10 @@ row ``b`` picked per sample.
 * :func:`fused_matmul_modnorm_residual_int8` is kernel 3's function with
   y = int8(x)·int8(wo)ᵀ, inference only. CUDA: ``csrc/gemm.cu::
   swift_mm_modnorm_int8``, replacing ``swift_tpu/ops/pallas_modnorm.py::
-  fused_matmul_modnorm_residual_int8`` (body ``_mm_mn_q_kernel``).
+  fused_matmul_modnorm_residual_int8`` (body ``_mm_mn_q_kernel``): x
+  quantized per token into scratch, then kernel 3's cluster design on s8
+  operands (:func:`matmul_modnorm_int8_plan`); on weights quantized once,
+  :func:`matmul_modnorm_residual_int8_quantized`.
 * :func:`fused_modnorm_residual` takes y ready-made (after the FFN).
   Triton: :func:`_modnorm_kernel`, replacing
   ``swift_tpu/ops/pallas_modnorm.py::_call``. It does about ten FLOPs for
@@ -229,15 +232,102 @@ def reference_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale, mod_
     return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
 
 
+def reference_matmul_modnorm_residual_int8_quantized(x, wq, sw, residual, g, b, mod_scale,
+                                                     mod_shift, eps=1e-6):
+    """Plain version of kernel 19 on weights quantized already (wq, sw as
+    :func:`quant.quantize_colwise` gives them): x quantized per token, y =
+    ((float)(xq·wqᵀ)·sx)·sw in fp32, then the epilogue. Equal bit for bit to
+    :func:`reference_matmul_modnorm_residual_int8` on the weights it
+    quantizes."""
+    y = quant.int8_matmul_quantized(x, wq, sw)
+    return reference_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps)
+
+
+# The widest row kernel 19 takes: eight blocks of 224 columns
+# (``csrc/gemm.cu::kMnS8MaxD``; s8 wgmma has no 216-wide form).
+MATMUL_MODNORM_INT8_MAX_D = 1792
+
+
+def matmul_modnorm_int8_plan(D: int) -> dict:
+    """Kernel 19's cluster plan at width D (``swift_mm_modnorm_int8_plan``),
+    as :func:`matmul_modnorm_plan` gives kernel 3's."""
+    plan = (ctypes.c_int * 4)()
+    if _build.library().swift_mm_modnorm_int8_plan(D, plan):
+        raise ValueError(f"kernel 19 takes D up to {MATMUL_MODNORM_INT8_MAX_D}, got {D}")
+    return dict(zip(("cluster", "columns", "smem", "resident_clusters"), plan))
+
+
+def matmul_modnorm_int8_scratch_bytes(T: int, K: int) -> int:
+    """Device scratch of kernel 19 for T tokens of width K: x quantized to
+    int8 and one fp32 scale a token. 0.27 GB at 0.25° (264,960 tokens, K =
+    1024)."""
+    return T * (K + 4)
+
+
+def matmul_modnorm_residual_int8_quantized(x, wq, sw, residual, g, b, mod_scale, mod_shift,
+                                           eps=1e-6):
+    """Kernel 19 on weights quantized already, inference only: x (B, ...,
+    K); wq (D, K) int8 with its per-row fp32 scales sw (D,), as
+    :func:`quant.quantize_colwise` gives them; residual (B, ..., D). Returns
+    residual.dtype.
+
+    CPU tensors take :func:`reference_matmul_modnorm_residual_int8_quantized`.
+    CUDA tensors: x bf16 (g, b fp32), K and D multiples of 16, D at most
+    :data:`MATMUL_MODNORM_INT8_MAX_D`; one ``swift_mm_modnorm_int8`` call (x
+    quantized per token into :func:`matmul_modnorm_int8_scratch_bytes` of
+    scratch, then the s8 cluster kernel). Counts one launch of
+    :func:`fused_matmul_modnorm_residual_int8`. Raises while autograd
+    records and on dual tensors."""
+    name = "fused_matmul_modnorm_residual_int8"
+    _build.refuse_autograd(name, x=x, residual=residual, g=g, b=b, mod_scale=mod_scale,
+                           mod_shift=mod_shift)
+    if _build.on_cpu(x, wq, sw, residual, g, b, mod_scale, mod_shift):
+        return reference_matmul_modnorm_residual_int8_quantized(x, wq, sw, residual, g, b,
+                                                                mod_scale, mod_shift, eps)
+    _build.check_kernel_inputs(name, x=x, wq=wq, sw=sw, residual=residual, g=g, b=b,
+                               mod_scale=mod_scale, mod_shift=mod_shift)
+    _build.check_dtype(name, torch.bfloat16, x=x)
+    _build.check_dtype(name, torch.int8, wq=wq)
+    _build.check_dtype(name, torch.float32, sw=sw)
+    _check_epilogue(name, residual, g, b, mod_scale, mod_shift)
+    K, D = x.shape[-1], residual.shape[-1]
+    if wq.shape != (D, K) or sw.shape != (D,) or K % 16:
+        raise ValueError(f"{name}: wq must be ({D}, {K}) with K % 16 == 0 and sw ({D},), got "
+                         f"{tuple(wq.shape)} and {tuple(sw.shape)}")
+    if x.shape[:-1] != residual.shape[:-1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and residual {tuple(residual.shape)} differ")
+    if D > MATMUL_MODNORM_INT8_MAX_D:
+        raise ValueError(f"{name}: D={D} exceeds the {MATMUL_MODNORM_INT8_MAX_D} columns a "
+                         "cluster holds")
+    M = x.numel() // K
+    xq = torch.empty(M, K, device=x.device, dtype=torch.int8)
+    sx = torch.empty(M, device=x.device, dtype=torch.float32)
+    out = torch.empty_like(residual)
+    _build.check_launch(
+        _build.library().swift_mm_modnorm_int8(
+            x.data_ptr(), wq.data_ptr(), sw.data_ptr(), residual.data_ptr(), g.data_ptr(),
+            b.data_ptr(), mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), M, K, D, M // residual.shape[0], float(eps),
+            _build.stream(),
+        ),
+        name,
+    )
+    fused_matmul_modnorm_residual_int8.launches += 1
+    return out
+
+
 def fused_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale, mod_shift, eps=1e-6):
     """``residual + modnorm(int8(x) @ int8(w).T)``, inference only. x: (B, ...,
     K); w: (D, K) float (the model passes its fp32 parameter); residual: (B,
     ..., D). Returns residual.dtype.
 
     CPU tensors take :func:`reference_matmul_modnorm_residual_int8`. CUDA
-    tensors: w is quantized here, one scale per output feature, then kernel
-    19 quantizes x per token; x bf16 (g, b fp32), K and D multiples of 16.
-    Raises while autograd records and on dual tensors."""
+    tensors: w is quantized here, one scale per output feature
+    (:func:`quant.quantize_colwise`, as the JAX caller does outside its
+    kernel), then kernel 19 (:func:`matmul_modnorm_residual_int8_quantized`)
+    quantizes x per token; x bf16 (g, b fp32), K and D multiples of 16, D at
+    most :data:`MATMUL_MODNORM_INT8_MAX_D`. Raises while autograd records
+    and on dual tensors."""
     name = "fused_matmul_modnorm_residual_int8"
     _build.refuse_autograd(name, x=x, w=w, residual=residual, g=g, b=b, mod_scale=mod_scale,
                            mod_shift=mod_shift)
@@ -246,29 +336,11 @@ def fused_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale, mod_shif
                                                       mod_shift, eps)
     _build.check_kernel_inputs(name, x=x, w=w, residual=residual, g=g, b=b,
                                mod_scale=mod_scale, mod_shift=mod_shift)
-    _build.check_dtype(name, torch.bfloat16, x=x)
-    _check_epilogue(name, residual, g, b, mod_scale, mod_shift)
     K, D = x.shape[-1], residual.shape[-1]
     if w.shape != (D, K) or K % 16:
         raise ValueError(f"{name}: w must be ({D}, {K}) with K % 16 == 0, got {tuple(w.shape)}")
-    if x.shape[:-1] != residual.shape[:-1]:
-        raise ValueError(f"{name}: x {tuple(x.shape)} and residual {tuple(residual.shape)} differ")
-    lib = _build.library()
-    if lib.swift_mm_modnorm_int8_smem(K, D) > lib.swift_max_smem():
-        raise ValueError(f"{name}: K={K}, D={D} need more shared memory than a block has")
-    wq, sw = quant.quantize_colwise(w)
-    M = x.numel() // K
-    out = torch.empty_like(residual)
-    _build.check_launch(
-        lib.swift_mm_modnorm_int8(
-            x.data_ptr(), wq.data_ptr(), sw.data_ptr(), residual.data_ptr(), g.data_ptr(),
-            b.data_ptr(), mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(),
-            M, K, D, M // residual.shape[0], float(eps), _build.stream(),
-        ),
-        name,
-    )
-    fused_matmul_modnorm_residual_int8.launches += 1
-    return out
+    return matmul_modnorm_residual_int8_quantized(x, *quant.quantize_colwise(w), residual, g, b,
+                                                  mod_scale, mod_shift, eps)
 
 
 fused_matmul_modnorm_residual_int8.launches = 0

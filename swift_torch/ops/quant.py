@@ -47,8 +47,14 @@ def quantize_colwise(w: torch.Tensor):
 def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Dynamically quantized ``x @ w.T`` -> fp32. x: (..., K); w: (N, K).
     Both are quantized here (per-row and per-output-feature scales)."""
+    return int8_matmul_quantized(x, *quantize_colwise(w))
+
+
+def int8_matmul_quantized(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """:func:`int8_matmul` on a weight quantized already: wq (N, K) int8 and
+    its scales sw (N,), as :func:`quantize_colwise` gives them; x is
+    quantized per row here. The product is rescaled as (acc·sx)·sw."""
     lead = x.shape[:-1]
     xq, sx = quantize_rowwise(x.reshape(-1, x.shape[-1]))
-    wq, sw = quantize_colwise(w)
     acc = torch._int_mm(xq, wq.t())
-    return (acc.float() * sx * sw).reshape(*lead, w.shape[0])
+    return (acc.float() * sx * sw).reshape(*lead, wq.shape[0])

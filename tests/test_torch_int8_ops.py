@@ -14,7 +14,11 @@
   mirror divides by 127.
 * The plain version of kernel 19: its int8 product bit for bit, the whole
   epilogue against the mirror at 2e-5 (fp32 LayerNorm sums in another
-  order) and against the interpreted kernel at 1e-4.
+  order) and against the interpreted kernel at 1e-4; on weights quantized
+  once (``matmul_modnorm_residual_int8_quantized``) equal to the wrapper's
+  CPU path bit for bit at the widths the card runs (K = D = 1056, the 8x128
+  heads' K = 1024, path C's 1280), and its scratch from the shapes (under
+  0.3 GB at 0.25°).
 * Kernel 18's token chunks: its scratch from the shapes (under 1 GB at
   0.25°), and the plain version run chunk by chunk over ``ffn_chunks``
   (the limit lowered) equal to the whole run bit for bit and to the JAX
@@ -25,7 +29,8 @@
   CUDA device.
 * The ``cuda``-marked tests hold kernels 18 and 19 to their plain versions
   on the card within 2e-2 of max|plain|, kernel 18 also across a chunk
-  boundary, two of its calls bit for bit, and skip elsewhere. This file
+  boundary, two calls of each bit for bit, kernel 19 on weights quantized
+  once equal to its wrapper, and skip elsewhere. This file
   imports no JAX model (flax), so it collects on the card's machine.
 """
 
@@ -214,6 +219,37 @@ def test_int8_modnorm_plain_matches_jax():
     assert modnorm.fused_matmul_modnorm_residual_int8.launches == before
 
 
+@pytest.mark.parametrize("K,D", [(1056, 1056), (1024, 1056), (1280, 1280)],
+                         ids=["flagship_12x88", "flagship_8x128", "path_c_8x160"])
+def test_int8_modnorm_quantized_plain_matches_wrapper_and_jax(K, D):
+    """Kernel 19's entry on weights quantized once, at the widths its s8
+    cluster plans cover (6 x 176, 8 x 128 ... of D): its CPU path on
+    ``quant.quantize_colwise(w)`` equals the wrapper's bit for bit (the same
+    quantization and the same (acc·sx)·sw order), and the JAX mirror at
+    ``MODNORM_TOL``."""
+    x, w, r, g, b, sc, sh = _modnorm_inputs(5, n=8, F=K, D=D)
+    cpu = [_t(a) for a in (x, w.T, r, g, b, sc, sh)]
+    before = modnorm.fused_matmul_modnorm_residual_int8.launches
+    with torch.no_grad():
+        wrapper = modnorm.fused_matmul_modnorm_residual_int8(*cpu)
+        got = modnorm.matmul_modnorm_residual_int8_quantized(
+            cpu[0], *quant.quantize_colwise(cpu[1]), *cpu[2:])
+    assert torch.equal(got, wrapper)
+    assert modnorm.fused_matmul_modnorm_residual_int8.launches == before
+    mirror = np.asarray(pmn.reference_matmul_modnorm_residual_int8(
+        *[jnp.asarray(a) for a in (x, w, r, g, b, sc, sh)]))
+    np.testing.assert_allclose(got.numpy(), mirror, rtol=MODNORM_TOL, atol=MODNORM_TOL)
+
+
+def test_int8_modnorm_scratch_bytes():
+    """Kernel 19's scratch from the shapes: xq and sx, T·(K + 4) bytes;
+    0.27 GB at 0.25° (264,960 tokens of the 8x128 heads' K = 1024), under
+    the 0.3 GB that ``chip_smoke.py`` holds it to."""
+    assert modnorm.matmul_modnorm_int8_scratch_bytes(16384, 1056) == 16384 * 1060
+    quarter = modnorm.matmul_modnorm_int8_scratch_bytes(368 * 720, 1024)
+    assert quarter == 264960 * 1028 and quarter < 0.3e9
+
+
 def _wrapper_cases():
     x, w1, w2 = _ffn_inputs(3, T=32, D=32, H=48)
     mx, mw, r, g, b, sc, sh = _modnorm_inputs(4, n=16, F=32, D=32)
@@ -260,20 +296,27 @@ def _card_close(fused, plain, args):
 @pytest.mark.parametrize("tokens,D,H,F", [(1000, 208, 272, 96), (136, 1056, 2816, 1056),
                                           (4096, 1056, 2816, 1024), (128, 32, 85, 32),
                                           (ffn.FFN_CHUNK_TOKENS + 136, 1056, 2816, 1056),
-                                          (1000, 32, 85, 32)])
+                                          (1000, 32, 85, 32), (1000, 1024, 272, 1024),
+                                          (1000, 1280, 272, 1280), (1000, 1728, 272, 96)])
 def test_int8_kernels_match_plain_on_card(tokens, D, H, F):
     """Kernels 18 and 19 in bf16 on the card against their plain versions,
     within 2e-2 of max|plain|: a token count that tiles neither kernel's
     rows, D that is not a multiple of 128, the flagship widths (F the
     12x88 and 8x128 attention widths), synthetic-tiny-scm's SwiGLU width
     85, which the wrapper pads to 96, and more tokens than one of kernel
-    18's chunks (two, the second not a whole number of 128-row tiles). The
+    18's chunks (two, the second not a whole number of 128-row tiles);
+    kernel 19's s8 cluster plans at D 32 and 208 (1 x 32 and 7 x 32), 1024
+    (8 x 128), 1056 (6 x 176), 1280 (8 x 176) and 1728 (8 x 224, its widest
+    column slice), K from 32 to 1280 (stages 128 int8 deep, the last one
+    partly past K). The
     plain version runs on the weights padded to a multiple of 16
     (``torch._int_mm`` on the card takes widths that are multiples of 8
     only), equal to it on the unpadded ones bit for bit
-    (:func:`test_int8_ffn_hidden_padding_is_exact`). Two calls of kernel 18
-    agree bit for bit (no atomics; each row's h scale a max over fixed
-    partials). Each wrapper counts one launch a call."""
+    (:func:`test_int8_ffn_hidden_padding_is_exact`). Two calls of each
+    kernel agree bit for bit (no atomics; kernel 18's h scale a max over
+    fixed partials, kernel 19's row sums added in rank order), and kernel 19
+    on weights quantized once equals its wrapper. Each wrapper counts one
+    launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     rng = np.random.default_rng(11)
@@ -298,7 +341,14 @@ def test_int8_kernels_match_plain_on_card(tokens, D, H, F):
     before = modnorm.fused_matmul_modnorm_residual_int8.launches
     _card_close(modnorm.fused_matmul_modnorm_residual_int8,
                 modnorm.reference_matmul_modnorm_residual_int8, args)
-    assert modnorm.fused_matmul_modnorm_residual_int8.launches == before + 1
+    with torch.no_grad():
+        first = modnorm.fused_matmul_modnorm_residual_int8(*args)
+        second = modnorm.fused_matmul_modnorm_residual_int8(*args)
+        alone = modnorm.matmul_modnorm_residual_int8_quantized(
+            args[0], *quant.quantize_colwise(args[1]), *args[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(alone, first)
+    assert modnorm.fused_matmul_modnorm_residual_int8.launches == before + 4
 
 
 @pytest.mark.cuda
