@@ -20,7 +20,7 @@ Phases, each printed as it finishes:
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
-   pre-rolled input), and 3, 5, 10, 11, 13, 15-19 also at the 0.25° shapes (B=1,
+   pre-rolled input), and 3, 4, 5, 10-13, 15-19 also at the 0.25° shapes (B=1,
    368x720 tokens, 8x128 heads), bf16 inputs (fp32 weights for 18 and 19)
    from a numpy seed; fails when max|kernel - plain| of any output exceeds
    2e-2 of max|plain|, or when kernel 16's scratch exceeds its qkv, the
@@ -40,10 +40,12 @@ Phases, each printed as it finishes:
    another (``torch.roll``, window partition, the fp32 normalise rounded to
    bf16, ``F.scaled_dot_product_attention`` at scale 1, the inverse) for
    the attention forward 2 and 15, and another (``F.linear``, fp32
-   ``F.layer_norm``, AdaLN, + r) for kernel 3 (with kernels 1's, 14's,
-   3's, 5's, 8's, 9's, 11's, 13's, 2's and 15's TFLOP/s, share of the bound
-   and ratio to the yardstick, single calls and queued; 3, 13 and 15 also
-   at 0.25°), the cluster plans of kernels 3 and 19 (blocks, columns,
+   ``F.layer_norm``, AdaLN, + r) for kernel 3, the same without
+   ``F.linear`` for kernel 4 (with kernels 1's, 14's,
+   3's, 4's, 5's, 8's, 9's, 11's, 13's, 2's and 15's TFLOP/s, share of the bound
+   and ratio to the yardstick, single calls and queued; 3, 4, 13 and 15 also
+   at 0.25°; 12 queued, at both), the plan of kernels 4 and 12 (rows a
+   stage, stages, shared memory), the cluster plans of kernels 3 and 19 (blocks, columns,
    clusters resident; 19's also at D 1024 and 1280), the int8 qkv
    product (``torch._int_mm``) and weight quantization times, and kernels
    18 and 19 through their wrappers queued (``ms`` and ``queued_ms``, the
@@ -55,7 +57,7 @@ Phases, each printed as it finishes:
    kernel 14's two outputs equal kernel 1's on x and on dx, kernel 11's
    and kernel 8's y kernel 5's, and kernel 15's on qkv rolled by the shift
    (8, 8) kernel 2's at that shift, bit for bit, two calls of kernels 9,
-   10 and 19 (also at 0.25°), 13 and 18 each other's, and kernel 8's g and
+   10 and 19 (also at 0.25°), 13, 18, 4 and 12 each other's, and kernel 8's g and
    u are zero in the hidden units its wrapper pads (path A's H = 85 to 88);
 4. slice: the flagship 1-step sCM ensemble forecast at full width (12
    layers, dim 1056, 12x88 heads, 128x256 grid, 69+3 channels) with random
@@ -230,6 +232,7 @@ from swift_torch.ops.modnorm import (
     matmul_modnorm_residual_int8_quantized,
     fused_matmul_modnorm_residual_int8,
     fused_modnorm_residual,
+    modnorm_plan,
     modnorm_residual_tangent,
     reference_matmul_modnorm_residual,
     reference_matmul_modnorm_residual_int8,
@@ -401,8 +404,8 @@ KERNELS = {
                                 reference_matmul_modnorm_residual, "cuda",
                                 "swift_torch/csrc/gemm.cu",
                                 "swift_tpu/ops/pallas_modnorm.py:271"),
-    "modnorm_residual": (fused_modnorm_residual, reference_modnorm_residual, "triton",
-                         "swift_torch/ops/modnorm.py", "swift_tpu/ops/pallas_modnorm.py:56"),
+    "modnorm_residual": (fused_modnorm_residual, reference_modnorm_residual, "cuda",
+                         "swift_torch/csrc/modnorm.cu", "swift_tpu/ops/pallas_modnorm.py:56"),
     "swiglu_ffn": (fused_swiglu_ffn, reference_swiglu_ffn, "cuda", "swift_torch/csrc/ffn.cu",
                    "swift_tpu/ops/pallas_ffn.py:68"),
     "block_attention_bwd": (block_attention_bwd, reference_block_attention_bwd, "cuda",
@@ -419,7 +422,7 @@ KERNELS = {
     "swiglu_ffn_pt": (swiglu_ffn_pt, reference_swiglu_ffn_pt, "cuda", "swift_torch/csrc/ffn.cu",
                       "swift_tpu/ops/pallas_ffn.py:392"),
     "modnorm_residual_tangent": (modnorm_residual_tangent, reference_modnorm_residual_tangent,
-                                 "triton", "swift_torch/ops/modnorm.py",
+                                 "cuda", "swift_torch/csrc/modnorm.cu",
                                  "swift_tpu/ops/pallas_modnorm.py:202"),
     "block_attention_tangent": (block_attention_tangent, reference_block_attention_tangent,
                                 "cuda", "swift_torch/csrc/block_attention.cu",
@@ -762,6 +765,13 @@ def _composition_mm_modnorm(x, w, r, g, b, msc, msh, product=None):
     return run
 
 
+def _composition_modnorm(y, r, g, b, msc, msh):
+    """Kernel 4 as a user would write it in PyTorch: ``F.layer_norm`` of y
+    in fp32 with g and b, the AdaLN ·(1 + msc) + msh of each row's sample,
+    + r, rounded to bf16 (:func:`_composition_mm_modnorm` on a given y)."""
+    return _composition_mm_modnorm(None, None, r, g, b, msc, msh, lambda: y)
+
+
 def _composition_mm_modnorm_int8(x, wq, sw, r, g, b, msc, msh):
     """Kernel 19 on the same quantized weight as a user would write it in
     PyTorch: x quantized per token (``quant.quantize_rowwise``),
@@ -837,7 +847,7 @@ def _composition_ffn_int8(x, w1q, s1, w2q, s2):
     return run
 
 
-# Kernels 3, 2, 15, 6, 16, 7, 17, 5, 8, 9, 10, 11, 13, 18 and 19 have no single PyTorch call of
+# Kernels 3, 4, 2, 15, 6, 16, 7, 17, 5, 8, 9, 10, 11, 13, 18 and 19 have no single PyTorch call of
 # the same function: their yardstick is a composition of library calls, timed
 # beside them (``composition_ms``), never a ``library_ms``.
 COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn_pt,
@@ -852,6 +862,7 @@ COMPOSITION = {"swiglu_ffn": _composition_ffn, "swiglu_ffn_pt": _composition_ffn
                "block_attention_tangent": _composition_attention_tangent,
                "tiled_block_attention_tangent": _composition_attention_tangent,
                "matmul_modnorm_residual": _composition_mm_modnorm,
+               "modnorm_residual": _composition_modnorm,
                # on the weights quantized once, as kernels 18 and 19 alone take them
                "swiglu_ffn_int8": _composition_ffn_int8,
                "matmul_modnorm_residual_int8": _composition_mm_modnorm_int8}
@@ -888,9 +899,15 @@ def phase_build() -> None:
     _build.library()
     log(f"[build] {path.relative_to(ROOT)}: compiled in {compile_s:.1f} s "
         f"(load {time.perf_counter() - t0 - compile_s:.2f} s)")
+    entry = ""
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+        if "Compiling entry" in line:
+            entry = line
+        elif "modnorm_rows_kernel" in entry and ("registers" in line or "spill" in line):
+            kernel = "12 (tangent)" if "Lb1" in entry else "4"
+            log(f"[build] kernel {kernel}, modnorm_rows_kernel: {line.strip()}")
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -1048,6 +1065,8 @@ def phase_kernels() -> dict:
                 int8_mm_modnorm_alone(args, fields)
             elif name in ("linear", "linear_pt") + tuple(COMPOSITION):
                 rates(name, args, fields)
+            elif name == "modnorm_residual_tangent":
+                kernel_queued(name, args, fields)
             if name == "swiglu_ffn_bwd_recompute":
                 ffn_bwd_yardsticks(args, fields, "B=2")
             flagship = d == GEOMETRIES[0][1] and tags.get("shift", (8, 8)) == (8, 8)
@@ -1072,6 +1091,7 @@ def phase_kernels() -> dict:
         del a
         torch.cuda.empty_cache()
     cluster_plan(record)
+    modnorm_rows_plan(record)
     quarter_kernels(rng, record)
     window_kernels(rng, record)
     tiny_ffn_kernels(rng, record)
@@ -1099,6 +1119,19 @@ def cluster_plan(record: dict) -> None:
             f"x {plan['columns']} columns, {plan['smem']} bytes of shared memory a block, "
             f"{plan['resident_clusters']} clusters resident")
         record["matmul_modnorm_residual_int8"][f"cluster_plan_{D}"] = plan
+
+
+def modnorm_rows_plan(record: dict) -> None:
+    """The launch plan of kernels 4 and 12 at the model's width and the
+    kernel phase's B = 2 (``modnorm_plan``): rows a stage, stages in the
+    ring, the AdaLN rows in shared memory or not, dynamic shared memory and
+    threads a block, one block an SM (their ptxas lines are the build's)."""
+    for name, tangent in (("modnorm_residual", False), ("modnorm_residual_tangent", True)):
+        plan = modnorm_plan(DIM, tangent, samples=2)
+        log(f"[kernels] {name} D={DIM} B=2: {plan['rows']} rows a stage x {plan['stages']} "
+            f"stages, AdaLN rows in shared memory: {bool(plan['ada_smem'])}, {plan['smem']} "
+            f"bytes of dynamic shared memory and {plan['threads']} threads a block")
+        record[name]["plan"] = plan
 
 
 def queued_ms(fn, reps: int = 20) -> float:
@@ -1276,7 +1309,7 @@ def ffn_fwd_save_equals_kernel_5(x, w1, w2, tag: str) -> None:
 
 def kernels_deterministic(a: dict, heads: int, d: int) -> None:
     """The invariant of kernels 6, 16, 7, 17 and 19 at both geometries, and of
-    9, 10, 13 and 18 at the flagship shape: two calls give the same bits (the
+    9, 10, 13, 18, 4 and 12 at the flagship shape: two calls give the same bits (the
     partial dq̂ of 6 and 16 and the tangent's partial outputs are added
     across the cluster in one fp32 addition, 19's row sums in rank order,
     the scale's partials and the weight gradients' token splits (and 10's
@@ -1295,7 +1328,10 @@ def kernels_deterministic(a: dict, heads: int, d: int) -> None:
                   ("swiglu_ffn_bwd_saved",
                    (a["x"], a["dy"], a["gate"], a["up"], a["w1"], a["w2"])),
                   ("swiglu_ffn_bwd_recompute", (a["x"], a["dy"], a["w1"], a["w2"])),
-                  ("swiglu_ffn_int8", (a["x"], a["w1"].float(), a["w2"].float()))]
+                  ("swiglu_ffn_int8", (a["x"], a["w1"].float(), a["w2"].float())),
+                  ("modnorm_residual", (a["y"], a["r"], a["g"], a["b"], a["msc"], a["msh"])),
+                  ("modnorm_residual_tangent", (a["y"], a["dy_mn"], a["dr"], a["g"], a["b"],
+                                                a["msc"], a["dmsc"], a["dmsh"]))]
     for name, args in cases:
         two_calls_equal(name, args, f"heads={heads:2d} d={d:3d}")
 
@@ -1377,14 +1413,14 @@ def check_scratch(record: dict, name: str, args, computed: int, limit: float, wh
 
 
 def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
-    """Kernels 3, 5, 10, 11, 13, 15-17, 18 and 19 at the 0.25° shapes (B =
-    1, 368x720 tokens, 8x128 heads, the 264,960-token FFN and qkv
+    """Kernels 3, 4, 5, 10, 11, 12, 13, 15-17, 18 and 19 at the 0.25° shapes
+    (B = 1, 368x720 tokens, 8x128 heads, the 264,960-token FFN and qkv
     projection), with the scratch of kernels 5, 10, 11, 16, 18 and 19:
     computed from the shapes, and read as the peak device memory of one call
-    above its inputs and outputs. The main path of 3, 5, 11, 13, 18 and 19 is
-    the flagship's: their 0.25° times stand beside it (kernel 3's and 13's
-    also queued, beside their compositions'; 19's alone and queued as at the
-    flagship, with two calls bit for bit)."""
+    above its inputs and outputs. The main path of 3, 4, 5, 11, 12, 13, 18
+    and 19 is the flagship's: their 0.25° times stand beside it (kernel 3's,
+    4's and 13's also queued, beside their compositions', 12's queued; 19's
+    alone and queued as at the flagship, with two calls bit for bit)."""
     t = _tensor(rng)
     gh, gw = QUARTER_GRID
     heads, d, T = 8, 128, gh * gw
@@ -1395,9 +1431,13 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
     qkv_w = t((3 * heads * d, DIM), DIM ** -0.5)
     epilogue = (t((1, gh, gw, DIM)), 1.0 + t((DIM,), 0.1, torch.float32),
                 t((DIM,), 0.1, torch.float32), t((1, DIM), 0.2), t((1, DIM), 0.2))
+    y, r = t((1, gh, gw, DIM), 3.0), epilogue[0]
     cases = [
         ("matmul_modnorm_residual",
          (t((1, gh, gw, heads * d)), t((DIM, heads * d), (heads * d) ** -0.5)) + epilogue),
+        ("modnorm_residual", (y, r) + epilogue[1:]),
+        ("modnorm_residual_tangent",
+         (y, t(y.shape, 3.0), t(y.shape)) + epilogue[1:4] + (t((1, DIM), 0.2), t((1, DIM), 0.2))),
         ("tiled_block_attention", (qkv, scale, heads, (16, 16))),
         ("tiled_block_attention_bwd", (qkv, scale, t((1, gh, gw, heads * d)), heads, (16, 16))),
         ("tiled_block_attention_tangent", (qkv, t(qkv.shape), scale, heads, (16, 16))),
@@ -1421,12 +1461,15 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
                                          "0.3 GB"),
     }
     beside = INT8_KERNELS + ("swiglu_ffn", "swiglu_ffn_pt", "matmul_modnorm_residual",
-                             "linear_bwd")
+                             "linear_bwd", "modnorm_residual", "modnorm_residual_tangent")
     for name, args in cases:
         label = f"0.25° B=1 {gh}x{gw} heads={heads} d={d}"
         fields = check_kernel(name, args, label, reps=5)
-        if name in QUARTER_KERNELS + ("matmul_modnorm_residual", "linear_bwd"):
-            rates(name, args, fields)  # 10, 15-17 on their main path's shape; 3, 13 as records
+        if name in QUARTER_KERNELS + ("matmul_modnorm_residual", "linear_bwd",
+                                      "modnorm_residual"):
+            rates(name, args, fields)  # 10, 15-17 on their main path's shape; 3, 4, 13 as records
+        if name == "modnorm_residual_tangent":
+            kernel_queued(name, args, fields)
         if name == "swiglu_ffn_bwd_recompute":
             ffn_bwd_yardsticks(args, fields, "0.25°", reps=5)
         if name == "matmul_modnorm_residual_int8":
@@ -1438,8 +1481,9 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
             record[name].update(quarter_ms=fields["ms"], quarter_plain_ms=fields["plain_ms"],
                                 quarter_bound_ms=fields["bound_ms"])
             if "queued_ms" in fields:
-                record[name].update(quarter_queued_ms=fields["queued_ms"],
-                                    quarter_composition_ms=fields["composition_ms"],
+                record[name]["quarter_queued_ms"] = fields["queued_ms"]
+            if "composition_ms" in fields:
+                record[name].update(quarter_composition_ms=fields["composition_ms"],
                                     quarter_queued_composition_ms=fields[
                                         "queued_composition_ms"])
             if "alone_ms" in fields:
@@ -1449,7 +1493,7 @@ def quarter_kernels(rng: np.random.Generator, record: dict) -> None:
             _merge(record, name, fields, True)
         if name in scratch:
             check_scratch(record, name, args, *scratch[name], "0.25°")
-    del cases, qkv, x, dx, w1, w2, qkv_w, epilogue
+    del cases, qkv, x, dx, w1, w2, qkv_w, epilogue, y, r
     torch.cuda.empty_cache()
 
 
@@ -1890,6 +1934,13 @@ def log_profile(prof, wall: float, card: str, tag: str, what: str, top: int) -> 
     ranked = sorted(rows, key=lambda r: -r[1])
     for name, ms, n in ranked[:top] + [r for r in ranked[top:] if "swift::win_" in r[0]]:
         log(f"[{tag}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:4d}  {name[:110]}")
+    # the device time launched under the plain vjp of kernels 4's and 3's epilogues (the
+    # backward of their autograd Functions), by the profiler's op attribution
+    for e in prof.key_averages():
+        if e.key in ("_ModnormBackward", "_MatmulModnormBackward") and e.device_time_total > 0:
+            ms, kernel = e.device_time_total / 1e3, 3 if "Matmul" in e.key else 4
+            log(f"[{tag}] {e.key} (the plain vjp of kernel {kernel}'s epilogue): {ms:.2f} ms "
+                f"of device time under {e.count} calls, {100 * ms / busy:.1f}% of the busy time")
     return busy
 
 
@@ -2203,10 +2254,11 @@ def _window_inputs(rng: np.random.Generator, shape) -> tuple:
     return (qn, kn) + tuple(t(shape) for _ in range(5))
 
 
-def window_queued(name: str, args, fields: dict) -> None:
-    """A per-head kernel and its library call (where there is one) timed
-    again from calls queued back to back (``queued_ms``: the device's time,
-    the host's cost of a call hidden)."""
+def kernel_queued(name: str, args, fields: dict) -> None:
+    """A kernel without a composition (the per-head 21, 22b, 22t and the
+    tangent 12) and its library call (where there is one) timed again from
+    calls queued back to back (``queued_ms``: the device's time, the host's
+    cost of a call hidden)."""
     fused, lib = KERNELS[name][0], LIBRARY.get(name)
     fields["queued_ms"] = queued_ms(lambda: fused(*args))
     fields["queued_library_ms"] = queued_ms(lib(*args)) if lib else None
@@ -2234,7 +2286,7 @@ def window_deterministic(name: str, args, label: str) -> None:
 def window_kernels(rng: np.random.Generator, record: dict) -> None:
     """Kernels 21, 22b and 22t at ``WINDOW_SHAPES`` (path B's shape first,
     their timing of record; n 256 at d 160, n 1024 at d 88 and path A's
-    n 4 at d 8 beside it), each also queued (``window_queued``), with
+    n 4 at d 8 beside it), each also queued (``kernel_queued``), with
     ``F.scaled_dot_product_attention`` and its backward as the library
     calls, each with its share of the bound; kernels 21 and 22b also at
     ``WINDOW_EXTRA_SHAPES``, and two calls of each bit for bit at every
@@ -2248,7 +2300,7 @@ def window_kernels(rng: np.random.Generator, record: dict) -> None:
                            ("window_attention_bwd", (q, k, v, do)),
                            ("window_attention_tangent", (q, k, v, tq, tk, tv))):
             fields = check_kernel(name, args, label, reps=20 if i == 0 else 5)
-            window_queued(name, args, fields)
+            kernel_queued(name, args, fields)
             _merge(record, name, fields, i == 0)
             if i:
                 record[name].update({f"n{n}_d{d}_{key}": fields[key] for key in (

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "swift_linear_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_mm_modnorm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "swift_mm_modnorm_plan": [_I, _P],
+    "swift_modnorm_residual": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "swift_modnorm_residual_tangent": [_P] * 9 + [_I] * 6 + [_F, _P],
     "swift_swiglu_hidden": [_P, _P, _P, _I, _I, _I, _P],
     "swift_swiglu_hidden_pt": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "swift_swiglu_hidden_save": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

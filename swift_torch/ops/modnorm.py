@@ -19,25 +19,25 @@ row ``b`` picked per sample.
   quantized per token into scratch, then kernel 3's cluster design on s8
   operands (:func:`matmul_modnorm_int8_plan`); on weights quantized once,
   :func:`matmul_modnorm_residual_int8_quantized`.
-* :func:`fused_modnorm_residual` takes y ready-made (after the FFN).
-  Triton: :func:`_modnorm_kernel`, replacing
-  ``swift_tpu/ops/pallas_modnorm.py::_call``. It does about ten FLOPs for
-  the six bytes it moves per element, far below the ~295 FLOP/byte at which
-  the H100 stops being memory-bound, so device memory bounds it; one
-  program normalises a block of rows held whole in registers (a masked
-  2048-wide block covers D=1056), reading y and the residual once and
-  writing once.
-* :func:`modnorm_residual_tangent` is the tangent of that epilogue along
+* :func:`fused_modnorm_residual` takes y ready-made (after the FFN), and
+  :func:`modnorm_residual_tangent` is the tangent of that epilogue along
   (y, residual, scale, shift), the AdaLN rows carrying tangents because
-  they are Dense(cond(t)); g and b carry none. Triton:
-  :func:`_tangent_kernel`, replacing ``swift_tpu/ops/pallas_modnorm.py::
-  _tangent_call``. About 18 FLOPs for the eight bytes it moves per element
-  (y, dy, the residual's tangent in, the tangent out): memory-bound like
-  kernel 4, and built the same way (two row reductions, mean of dy and of
-  y·dy, beside kernel 4's two). :func:`fused_modnorm_residual` takes it
-  for the tangent when an input carries one; kernel 3 has no tangent route
-  (the JAX package runs wo as a plain product under the jvp) and refuses
-  dual inputs.
+  they are Dense(cond(t)); g and b carry none. CUDA: one row-streaming body,
+  ``csrc/modnorm.cu::modnorm_rows_kernel<TANGENT>``
+  (``swift_modnorm_residual``, replacing ``swift_tpu/ops/pallas_modnorm.py::
+  _call``; ``swift_modnorm_residual_tangent``, replacing ``_tangent_call``).
+  Kernel 4 does about ten FLOPs for the six bytes it moves per element,
+  kernel 12 about 18 for eight (y, dy, the residual's tangent in, the
+  tangent out; two more row sums, of dy and of y·dy), far below the ~295
+  FLOP/byte at which the H100 stops being memory-bound: device memory
+  bounds both. So the design keeps bytes in flight and moves each once: a
+  persistent grid, a producer warp copying whole rows by ``cp.async.bulk``
+  into a ring of shared-memory stages, one consumer warp a row, g, b and
+  the AdaLN rows copied into shared memory once a block; :func:`modnorm_plan`
+  sizes the ring. :func:`fused_modnorm_residual` takes
+  kernel 12 for the tangent when an input carries one; kernel 3 has no
+  tangent route (the JAX package runs wo as a plain product under the jvp)
+  and refuses dual inputs.
 
 Their backward is the vjp of the plain epilogue, as in the JAX package
 (``pallas_modnorm.py::_fused_bwd`` and ``_fused_mm_mn_bwd``, which have no
@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 
 import torch
 from torch.autograd import forward_ad
@@ -346,50 +345,58 @@ def fused_matmul_modnorm_residual_int8(x, w, residual, g, b, mod_scale, mod_shif
 fused_matmul_modnorm_residual_int8.launches = 0
 
 
+# The shared memory a block may use (``csrc/tile_mma.cuh::kMaxSmem``, 227 KB),
+# the most rows a stage, the stages of the ring, and the most bytes of AdaLN
+# rows a block keeps in shared memory.
+MODNORM_SMEM = 232448
+MODNORM_MAX_ROWS = 8
+MODNORM_STAGES = 3
+MODNORM_ADA_SMEM = 65536
+
+
 @functools.lru_cache(maxsize=None)
-def _modnorm_kernel():
-    """The Triton kernel, built on first launch (triton is imported here so
-    that the module imports where triton is absent). Triton's compile cache
-    goes beside the CUDA build unless TRITON_CACHE_DIR says otherwise."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
+def modnorm_plan(D: int, tangent: bool = False, samples: int = 1) -> dict:
+    """The launch of kernel 4 (or, ``tangent``, 12) at width D over
+    ``samples`` AdaLN rows, one block an SM: ``rows`` a stage (one consumer
+    warp each), ``stages`` in the ring, whether the AdaLN rows are copied
+    into shared memory (``ada_smem``, where they take at most 64 KB; else
+    they are read through L1 and L2), the dynamic ``smem``
+    (``csrc/modnorm.cu::modnorm_smem``: 16 bytes of barriers a stage and 16
+    more, g and b in fp32, the AdaLN rows where they are kept, then each
+    stage a row of each streamed tensor, y and r or y, dy and dr, in bf16 for
+    each of its rows) and the ``threads`` of a block (the consumers and one
+    producer warp). Cached: the wrappers ask for it on every call.
 
-    @triton.jit
-    def kernel(y_ptr, r_ptr, g_ptr, b_ptr, ms_ptr, mb_ptr, o_ptr, T, D, tps, eps,
-               ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < D
-        mask = (rows < T)[:, None] & cmask[None, :]
-        offs = rows[:, None] * D + cols[None, :]
-        y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mu = tl.sum(y, axis=1) / D
-        var = tl.sum(y * y, axis=1) / D - mu * mu
-        yn = (y - mu[:, None]) * tl.math.rsqrt(var + eps)[:, None]
-        g = tl.load(g_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        ln = yn * g[None, :] + b[None, :]
-        moffs = (rows // tps)[:, None] * D + cols[None, :]
-        ms = tl.load(ms_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
-        mb = tl.load(mb_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
-        out = ln * (1.0 + ms) + mb
-        out = out + tl.load(r_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        tl.store(o_ptr + offs, out.to(o_ptr.dtype.element_ty), mask=mask)
-
-    return kernel
-
-
-_ROWS = 4
+    Three stages of up to 8 rows: 8 × 3 at D = 1056 for both kernels
+    (``scripts/probe_modnorm.py`` on the H100 timed 2, 4 and 6 stages and 4
+    to 16 rows no faster); fewer rows for wide rows, and one row in one
+    stage at the widest D, 19,360 for 4 and 16,592 for 12. Raises for D
+    that is not a positive multiple of 16 or is wider."""
+    if D < 16 or D % 16:
+        raise ValueError(f"modnorm_plan: D={D} must be a positive multiple of 16")
+    tensors = 3 if tangent else 2
+    row = 2 * D * tensors
+    ada = tensors * samples * 2 * D
+    ada_smem = ada <= MODNORM_ADA_SMEM
+    free = MODNORM_SMEM - 16 - 8 * D - (ada if ada_smem else 0)
+    rows = min(MODNORM_MAX_ROWS, (free // MODNORM_STAGES - 16) // row)
+    stages = MODNORM_STAGES if rows >= 1 else min(MODNORM_STAGES, free // (16 + row))
+    rows = max(rows, 1)
+    if stages < 1:
+        raise ValueError(f"modnorm_plan: D={D} is wider than a row the "
+                         f"{MODNORM_SMEM}-byte block holds beside g and b")
+    return {"rows": rows, "stages": stages, "ada_smem": int(ada_smem),
+            "smem": MODNORM_SMEM - free + stages * (16 + rows * row), "threads": 32 * (rows + 1)}
 
 
 def fused_modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps=1e-6):
     """``residual + (LN(y)·g + b)·(1 + mod_scale) + mod_shift``.
     y, residual: (B, ..., D) ; g, b: (D,) ; mod_scale, mod_shift: (B, D).
 
-    CPU tensors take :func:`reference_modnorm_residual`; CUDA tensors must be
-    bf16 (g, b fp32) with D % 16 == 0 and D ≤ 2048. While autograd records,
-    the backward is the vjp of the plain epilogue. When y, the residual or
+    CPU tensors take :func:`reference_modnorm_residual`; CUDA tensors go to
+    kernel 4 (``swift_modnorm_residual``) and must be bf16 (g, b fp32) with
+    D % 16 == 0 and D at most 19,360 (:func:`modnorm_plan`). While autograd
+    records, the backward is the vjp of the plain epilogue. When y, the residual or
     the AdaLN rows carry forward-mode tangents, the output is the dual of
     kernel 4's primal and :func:`modnorm_residual_tangent` (a missing
     tangent is zero)."""
@@ -419,14 +426,16 @@ def _modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps):
     if y.shape != residual.shape:
         raise ValueError(f"{name}: y {tuple(y.shape)} and residual {tuple(residual.shape)} differ")
     D = y.shape[-1]
-    if D > 2048:
-        raise ValueError(f"{name}: D={D} exceeds the 2048-wide block")
+    plan = modnorm_plan(D, False, y.shape[0])
     T = y.numel() // D
     out = torch.empty_like(residual)
-    grid = ((T + _ROWS - 1) // _ROWS,)
-    _modnorm_kernel()[grid](
-        y, residual, g, b, mod_scale, mod_shift, out, T, D, T // y.shape[0], float(eps),
-        ROWS=_ROWS, BLOCK_D=2048, num_warps=8,
+    _build.check_launch(
+        _build.library().swift_modnorm_residual(
+            y.data_ptr(), residual.data_ptr(), g.data_ptr(), b.data_ptr(), mod_scale.data_ptr(),
+            mod_shift.data_ptr(), out.data_ptr(), T, D, T // y.shape[0], plan["rows"],
+            plan["stages"], plan["ada_smem"], float(eps), _build.stream(),
+        ),
+        name,
     )
     fused_modnorm_residual.launches += 1
     return out
@@ -435,52 +444,15 @@ def _modnorm_residual(y, residual, g, b, mod_scale, mod_shift, eps):
 fused_modnorm_residual.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _tangent_kernel():
-    """Kernel 12 in Triton, built on first launch like :func:`_modnorm_kernel`:
-    one program holds ROWS whole rows of y and dy in registers."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def kernel(y_ptr, dy_ptr, dr_ptr, g_ptr, b_ptr, ms_ptr, dms_ptr, dmb_ptr, o_ptr, T, D, tps,
-               eps, ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK_D)
-        cmask = cols < D
-        mask = (rows < T)[:, None] & cmask[None, :]
-        offs = rows[:, None] * D + cols[None, :]
-        y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        dy = tl.load(dy_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mu = tl.sum(y, axis=1) / D
-        var = tl.sum(y * y, axis=1) / D - mu * mu
-        rs = tl.math.rsqrt(var + eps)
-        yn = (y - mu[:, None]) * rs[:, None]
-        dmu = tl.sum(dy, axis=1) / D
-        dvar = 2.0 * (tl.sum(y * dy, axis=1) / D - mu * dmu)
-        dyn = rs[:, None] * (dy - dmu[:, None]) - 0.5 * yn * (rs * rs * dvar)[:, None]
-        g = tl.load(g_ptr + cols, mask=cmask, other=0.0)[None, :]
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)[None, :]
-        moffs = (rows // tps)[:, None] * D + cols[None, :]
-        ms = tl.load(ms_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
-        dms = tl.load(dms_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
-        dmb = tl.load(dmb_ptr + moffs, mask=mask, other=0.0).to(tl.float32)
-        dr = tl.load(dr_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        out = dyn * g * (1.0 + ms) + (yn * g + b) * dms + dmb + dr
-        tl.store(o_ptr + offs, out.to(o_ptr.dtype.element_ty), mask=mask)
-
-    return kernel
-
-
 def modnorm_residual_tangent(y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift, eps=1e-6):
     """Tangent of ``residual + modnorm(y)`` along (dy, dr, dmod_scale,
     dmod_shift). y, dy, dr: (B, ..., D); g, b: (D,); mod_scale and its
     tangents: (B, D). Returns dr.dtype.
 
     CPU tensors take :func:`reference_modnorm_residual_tangent`; CUDA
-    tensors go to kernel 12 under kernel 4's rules (bf16, g and b fp32,
-    D % 16 == 0, D ≤ 2048)."""
+    tensors go to kernel 12 (``swift_modnorm_residual_tangent``) under
+    kernel 4's rules (bf16, g and b fp32, D % 16 == 0), D at most 16,592
+    (:func:`modnorm_plan` with ``tangent``)."""
     args = (y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift)
     if _build.on_cpu(*args):
         return reference_modnorm_residual_tangent(*args, eps)
@@ -493,14 +465,17 @@ def modnorm_residual_tangent(y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift,
     if not y.shape == dy.shape == dr.shape or mod_scale.shape != dmod_scale.shape:
         raise ValueError(f"{name}: y, dy and dr must share a shape, and the AdaLN rows theirs")
     D = y.shape[-1]
-    if D > 2048:
-        raise ValueError(f"{name}: D={D} exceeds the 2048-wide block")
+    plan = modnorm_plan(D, True, y.shape[0])
     T = y.numel() // D
     out = torch.empty_like(dr)
-    grid = ((T + _ROWS - 1) // _ROWS,)
-    _tangent_kernel()[grid](
-        y, dy, dr, g, b, mod_scale, dmod_scale, dmod_shift, out, T, D, T // y.shape[0],
-        float(eps), ROWS=_ROWS, BLOCK_D=2048, num_warps=8,
+    _build.check_launch(
+        _build.library().swift_modnorm_residual_tangent(
+            y.data_ptr(), dy.data_ptr(), dr.data_ptr(), g.data_ptr(), b.data_ptr(),
+            mod_scale.data_ptr(), dmod_scale.data_ptr(), dmod_shift.data_ptr(), out.data_ptr(),
+            T, D, T // y.shape[0], plan["rows"], plan["stages"], plan["ada_smem"], float(eps),
+            _build.stream(),
+        ),
+        name,
     )
     modnorm_residual_tangent.launches += 1
     return out

@@ -14,8 +14,9 @@ card (the forward kernels and, for the sCM jvp, the tangent kernels 14, 11,
 chunks, and 11's and 8's y against 5's bit for bit; the attention forward 2 and 15
 over head dims, window shapes, wrapping shifts, zero rows and the main
 paths' shapes, 15 on rolled qkv against 2 bit for bit; kernel 3 at the
-shipped shapes and ragged M, D and K, two calls bit for bit) and skip
-elsewhere.
+shipped shapes and ragged M, D and K, two calls bit for bit; kernels 4 and
+12 at D 16 to 16,384 over ragged samples, two calls bit for bit) and skip
+elsewhere. ``modnorm_plan`` is checked on the CPU.
 """
 
 import functools
@@ -297,6 +298,9 @@ WRAPPERS = {
                                   d(1, 16), d(1, 16))),
     "modnorm": (modnorm.fused_modnorm_residual,
                 lambda d: (d(1, 4, 16), d(1, 4, 16), d(16), d(16), d(1, 16), d(1, 16))),
+    "modnorm_tangent": (modnorm.modnorm_residual_tangent,
+                        lambda d: (d(1, 4, 16), d(1, 4, 16), d(1, 4, 16), d(16), d(16),
+                                   d(1, 16), d(1, 16), d(1, 16))),
     "ffn": (ffn.fused_swiglu_ffn, lambda d: (d(4, 16), d(16, 16), d(16, 8))),
     "linear_bwd": (linear.fused_linear_bwd, lambda d: (d(4, 8), d(4, 16), d(8, 16))),
     "block_attention_bwd": (block_attention.block_attention_bwd,
@@ -470,6 +474,90 @@ def test_matmul_modnorm_kernel_is_deterministic(M, K, D, tps):
     args = _mm_modnorm_card_inputs(M, K, D, tps)
     first = modnorm.fused_matmul_modnorm_residual(*args)
     assert torch.equal(first, modnorm.fused_matmul_modnorm_residual(*args))
+
+
+@pytest.mark.parametrize("tangent", [False, True], ids=["kernel4", "kernel12"])
+@pytest.mark.parametrize("D", [16, 208, 1024, 1056, 4096, 16384])
+def test_modnorm_plan(D, tangent):
+    """Kernels 4 and 12's launch plan at the flagship's B = 4: the
+    barriers, g and b, the AdaLN rows where they are kept and every stage
+    fit the 227 KB a block may use, each stage holds at least one row of
+    each streamed tensor (no cap at 2048), a block is the consumer warps
+    and one producer warp, and up to D = 1280 (path C) a block keeps the
+    AdaLN rows in shared memory and three stages of eight rows."""
+    plan = modnorm.modnorm_plan(D, tangent, samples=4)
+    rows, stages, tensors = plan["rows"], plan["stages"], 3 if tangent else 2
+    assert 1 <= rows <= modnorm.MODNORM_MAX_ROWS and 1 <= stages <= modnorm.MODNORM_STAGES
+    ada = tensors * 4 * 2 * D if plan["ada_smem"] else 0
+    assert plan["smem"] == 16 * stages + 16 + 8 * D + ada + stages * rows * tensors * 2 * D
+    assert plan["smem"] <= modnorm.MODNORM_SMEM == 232448
+    assert plan["threads"] == 32 * (rows + 1)
+    assert plan["ada_smem"] == (ada > 0) and ada <= modnorm.MODNORM_ADA_SMEM
+    if D <= 1280:
+        assert (rows, stages, plan["ada_smem"]) == (8, 3, 1)
+
+
+@pytest.mark.parametrize("tangent", [False, True], ids=["kernel4", "kernel12"])
+@pytest.mark.parametrize("D", [0, 8, 1000, 1064, 20000])
+def test_modnorm_plan_refuses(D, tangent):
+    """D that is not a positive multiple of 16, or a row wider than a block
+    holds beside g and b, raises."""
+    with pytest.raises(ValueError, match="modnorm_plan"):
+        modnorm.modnorm_plan(D, tangent)
+
+
+def _modnorm_card_inputs(B, tps, D, tangent):
+    """Kernel 4's (or 12's) inputs in bf16 on the card, as
+    :func:`_mm_modnorm_card_inputs` builds kernel 3's: row 0 of y all zeros
+    (var = 0: the eps path; of dy too for 12) and row 1 offset by +3 (a
+    large mean beside the spread)."""
+    rng = np.random.default_rng(B * tps + D + tangent)
+    y = _rand(rng, (B, tps, D), 3.0)
+    y[0, 0] = 0.0
+    y[0, 1] += 3.0
+    bf = lambda a: torch.from_numpy(a).to("cuda", torch.bfloat16)  # noqa: E731
+    g, b, msc, msh = _epilogue(rng, B, D)
+    g, b = torch.from_numpy(g).cuda(), torch.from_numpy(b).cuda()
+    if not tangent:
+        return bf(y), bf(_rand(rng, (B, tps, D))), g, b, bf(msc), bf(msh)
+    dy = _rand(rng, (B, tps, D), 3.0)
+    dy[0, 0] = 0.0
+    return (bf(y), bf(dy), bf(_rand(rng, (B, tps, D))), g, b, bf(msc), bf(msh),
+            bf(_rand(rng, (B, D), 0.2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tangent", [False, True], ids=["kernel4", "kernel12"])
+@pytest.mark.parametrize("D", [16, 208, 1056, 4096, 16384])
+def test_modnorm_kernels_match_plain_on_card(D, tangent):
+    """Kernels 4 and 12 (``csrc/modnorm.cu``: rows streamed by
+    ``cp.async.bulk`` through an mbarrier ring) against their plain versions
+    in bf16 on the card, within 2e-2 of max|plain| over all rows, the zero
+    row and the offset row each; B = 3 samples of 1001 tokens (no multiple
+    of the rows a stage, so groups straddle two samples and the last group
+    is ragged); D from 16 to 16,384 (one row, one stage; the Triton
+    kernels stopped at 2048); one launch a call; two calls equal bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    fused, plain = ((modnorm.modnorm_residual_tangent, modnorm.reference_modnorm_residual_tangent)
+                    if tangent else
+                    (modnorm.fused_modnorm_residual, modnorm.reference_modnorm_residual))
+    args = _modnorm_card_inputs(3, 1001, D, tangent)
+    before = fused.launches
+    got = fused(*args)
+    want = plain(*args).float()
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    for rows in (slice(None), slice(0, 1), slice(1, 2)):  # all, the zero row, the offset row
+        ref = want[0, rows].abs().max().item() if rows.start is not None else (
+            want.abs().max().item())
+        part = got if rows.start is None else got[0, rows]
+        full = want if rows.start is None else want[0, rows]
+        err = (part.float() - full).abs().max().item()
+        assert err <= 2e-2 * ref, (rows, err, ref)
+    assert torch.equal(got, fused(*args))
 
 
 # (T, D, H) of kernels 5 and 11: one row past a 64-row box, 1000 tokens and
