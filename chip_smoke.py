@@ -14,9 +14,10 @@ Phases, each printed as it finishes:
    backward 22b and tangent 22t, at path B's shape, at n 256 with d 160,
    at n 1024 with d 88 and at path A's n 4 with d 8, beside
    ``F.scaled_dot_product_attention`` and its backward, single calls and
-   queued, with their share of the bound, 21 and 22b also at n 36 and 257
-   and two calls of each bit for bit at every shape; 5, 8-11 and 20 also
-   at path A's
+   queued, with their share of the bound, also at n 36 and 257, two calls
+   of each bit for bit at every shape, and ptxas's registers and spills of
+   every 22t instantiation; 20 single and queued beside 5 then 4, two
+   calls bit for bit; 5, 8-11 and 20 also at path A's
    T 128, D 32, H 85, and 18 there too) against its plain
    PyTorch version at the flagship's shapes (B=2, 64x128 tokens, dim 1056,
    heads 12x88 and 8x128, window shift (0,0) and (8,8); the tiled kernels on
@@ -324,8 +325,9 @@ INT8_RMS_TOL = 0.10
 # padded to 16) beside it
 WINDOW_SHAPES = ((2 * 128, 12, 64, 88), (2 * 32, 8, 256, 160), (2 * 8, 12, 1024, 88),
                  (4 * 8, 4, 4, 8))
-# kernel 21 also at n 36 (6x6 windows: 64 ∤ n, so a 64-row box crosses window-heads) and n 257
-# (query tiles that cross window-heads, the online softmax), held to its plain version only
+# kernels 21, 22b and 22t also at n 36 (6x6 windows: 64 ∤ n, so a 64-row box crosses
+# window-heads) and n 257 (query tiles that cross window-heads, two walks over the keys), held
+# to their plain versions and two calls bit for bit
 WINDOW_EXTRA_SHAPES = ((2 * 128, 12, 36, 88), (2 * 8, 12, 257, 88))
 FFN_MN_TOKENS = 2 * 64 * 128  # kernel 20 at T = 16,384 (the flagship block at B = 2)
 # path A: the shipped quick-start experiment (swift_tpu/configs/experiment/
@@ -908,6 +910,10 @@ def phase_build() -> None:
         elif "modnorm_rows_kernel" in entry and ("registers" in line or "spill" in line):
             kernel = "12 (tangent)" if "Lb1" in entry else "4"
             log(f"[build] kernel {kernel}, modnorm_rows_kernel: {line.strip()}")
+        elif "win_tan_" in entry and ("registers" in line or "spill" in line):
+            form = "packed" if "win_tan_packed" in entry else "rows"
+            dp = entry.split("ILi")[1].split("E")[0] if "ILi" in entry else "?"
+            log(f"[build] kernel 22t, win_tan_{form}_kernel<{dp}>: {line.strip()}")
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -2273,7 +2279,7 @@ def kernel_queued(name: str, args, fields: dict) -> None:
 
 
 def window_deterministic(name: str, args, label: str) -> None:
-    """A per-head kernel (21 or 22b) twice on the same inputs: the same bits
+    """A per-head kernel (21, 22b or 22t) twice on the same inputs: the same bits
     in every output (no atomics, one order of every sum); raises otherwise."""
     fused = KERNELS[name][0]
     first, second = ((o,) if torch.is_tensor(o) else o for o in (fused(*args), fused(*args)))
@@ -2288,10 +2294,11 @@ def window_kernels(rng: np.random.Generator, record: dict) -> None:
     their timing of record; n 256 at d 160, n 1024 at d 88 and path A's
     n 4 at d 8 beside it), each also queued (``kernel_queued``), with
     ``F.scaled_dot_product_attention`` and its backward as the library
-    calls, each with its share of the bound; kernels 21 and 22b also at
+    calls, each with its share of the bound; all three also at
     ``WINDOW_EXTRA_SHAPES``, and two calls of each bit for bit at every
-    shape; kernel 20 at T = 16,384, D 1056, H 2816,
-    with the model's two-kernel path (5 then 4) timed beside it."""
+    shape; kernel 20 at T = 16,384, D 1056, H 2816, single and queued, two
+    calls bit for bit, with the model's two-kernel path (5 then 4) timed
+    beside it both ways."""
     for i, shape in enumerate(WINDOW_SHAPES):
         q, k, v, do, tq, tk, tv = _window_inputs(rng, shape)
         BW, h, n, d = shape
@@ -2306,32 +2313,40 @@ def window_kernels(rng: np.random.Generator, record: dict) -> None:
                 record[name].update({f"n{n}_d{d}_{key}": fields[key] for key in (
                     "ms", "plain_ms", "bound_ms", "library_ms", "queued_ms",
                     "queued_library_ms")})
-            if name != "window_attention_tangent":
-                window_deterministic(name, args, label)
+            window_deterministic(name, args, label)
         del q, k, v, do, tq, tk, tv
         torch.cuda.empty_cache()
     for shape in WINDOW_EXTRA_SHAPES:
-        q, k, v, do = _window_inputs(rng, shape)[:4]
+        q, k, v, do, tq, tk, tv = _window_inputs(rng, shape)
         BW, h, n, d = shape
         label = f"BW={BW} h={h} n={n} d={d}"
         for name, args in (("window_attention", (q, k, v)),
-                           ("window_attention_bwd", (q, k, v, do))):
+                           ("window_attention_bwd", (q, k, v, do)),
+                           ("window_attention_tangent", (q, k, v, tq, tk, tv))):
             fields = check_kernel(name, args, label, reps=5)
             _merge(record, name, {"max_abs_err": fields["max_abs_err"]}, False)
             window_deterministic(name, args, label)
-        del q, k, v, do
+        del q, k, v, do, tq, tk, tv
         torch.cuda.empty_cache()
     t = _tensor(rng)
     x = t((2, FFN_MN_TOKENS // 2, DIM))
     w1, w2 = t((2 * HIDDEN, DIM), DIM ** -0.5), t((DIM, HIDDEN), HIDDEN ** -0.5)
     ep = (1.0 + t((DIM,), 0.1, torch.float32), t((DIM,), 0.1, torch.float32), t((2, DIM), 0.2),
           t((2, DIM), 0.2))
-    fields = check_kernel("swiglu_ffn_modnorm", (x, w1, w2) + ep,
-                          f"T={FFN_MN_TOKENS} D={DIM} H={HIDDEN}")
-    fields["unfused_ms"] = time_ms(lambda: fused_modnorm_residual(fused_swiglu_ffn(x, w1, w2), x,
-                                                                  *ep))
-    log(f"[kernels] swiglu_ffn_modnorm: kernels 5 + 4 (the model's path) "
-        f"{fields['unfused_ms']:.4f} ms")
+    args = (x, w1, w2) + ep
+    label = f"T={FFN_MN_TOKENS} D={DIM} H={HIDDEN}"
+    fields = check_kernel("swiglu_ffn_modnorm", args, label)
+    unfused = lambda: fused_modnorm_residual(fused_swiglu_ffn(x, w1, w2), x, *ep)  # noqa: E731
+    fields["unfused_ms"] = time_ms(unfused)
+    fields["queued_ms"] = queued_ms(lambda: fused_swiglu_ffn_modnorm(*args))
+    fields["queued_unfused_ms"] = queued_ms(unfused)
+    log(f"[kernels] swiglu_ffn_modnorm: {100 * fields['bound_ms'] / fields['ms']:.1f}% of its "
+        f"bound; queued {fields['queued_ms']:.4f} ms "
+        f"({100 * fields['bound_ms'] / fields['queued_ms']:.1f}%); kernels 5 + 4 (the model's "
+        f"path, y rounded to bf16 between them) {fields['unfused_ms']:.4f} ms, queued "
+        f"{fields['queued_unfused_ms']:.4f} ms: kernel 20 queued "
+        f"{fields['queued_ms'] / fields['queued_unfused_ms']:.3f}x theirs")
+    two_calls_equal("swiglu_ffn_modnorm", args, label)
     _merge(record, "swiglu_ffn_modnorm", fields, True)
 
 

@@ -45,27 +45,21 @@
 //   four stages). Pass 2 is kernel 1 on h, as for kernel 5, so kernel 8's
 //   y equals kernel 5's bit for bit.
 //
-// swift_ffn_mn -- x + modnorm(FFN(x)), which replaces
+// Kernel 20, x + modnorm(FFN(x)), which replaces
 //   swift_tpu/ops/pallas_ffn.py::_ffn_mn_call (kernel body _ffn_mn_kernel),
-//   kernel 20, on no model path. One pass on the WMMA loop of tile_mma.cuh:
-//   a block owns 32 token rows and walks the hidden dimension in chunks of
-//   64. For each chunk it computes gate and up (fp32 accumulation, one 32 x
-//   128 WMMA tile whose rows of W1 are gathered from the gate and up halves
-//   of the (2H, D) weight), forms h = silu(g) * u, rounds h to bf16 in
-//   shared memory, and adds h . W2[:, chunk]^T into a 32 x D fp32
-//   accumulator that lives in shared memory (135 KB at D = 1056). The
-//   block's y rows then sit in that accumulator, so each warp takes a row:
-//   mean and mean square over D, var = E[y²] − E[y]²,
-//   (y − mu)·rsqrt(var + eps)·g + b, times (1 + scale) plus shift from the
-//   sample's bf16 AdaLN rows, plus the residual x, rounded to bf16 once. y
-//   never reaches device memory in any precision.
+//   has no body of its own: its wrapper (ops/ffn.py) runs
+//   swift_swiglu_hidden, then kernel 3 (gemm.cu::swift_mm_modnorm) on (h,
+//   W2) with K = H and the residual x. Kernel 3's cluster keeps y = h . W2^T
+//   in fp32 registers for the post-norm, so y is never rounded, the TPU
+//   kernel's rounding point (kernel 5 then kernel 4 would round y to bf16).
 #include "tile_mma.cuh"
 #include "wgmma.cuh"
 
 namespace swift {
 
 // h = silu(g) * u and its tangent dh = s(g)(1 + g(1 - s(g))) dg u + silu(g) du,
-// in fp32: the one expression of kernels 5, 8, 11 and 20.
+// in fp32: the one expression of kernels 5, 8 and 11 (and 20, whose first
+// pass is kernel 5's).
 __device__ __forceinline__ float swiglu(float g, float u) { return g / (1.0f + expf(-g)) * u; }
 
 __device__ __forceinline__ float swiglu_tangent(float g, float u, float dg, float du) {
@@ -202,135 +196,6 @@ __global__ void __launch_bounds__(kLinThreads, 1)
   }
 }
 
-constexpr int kFfnBM = 32, kFfnHC = 64, kFfnBK = 32, kFfnBN2 = 128;
-using GateUpMma = TileMma<kFfnBM, 2 * kFfnHC, kFfnBK, 2, 4>;
-constexpr int kStageLD = 2 * kFfnHC + 4;  // fp32 gate|up tile
-constexpr int kHLD = kFfnHC + 8;          // bf16 h tile
-constexpr int kW2LD = kFfnHC + 8;         // bf16 W2 tile [128 out][64 hidden]
-constexpr int kW2Tile = kFfnBN2 * kW2LD;
-constexpr int kTileBytes =
-    GateUpMma::SMEM > 2 * kW2Tile * 2 ? GateUpMma::SMEM : 2 * kW2Tile * 2;
-
-__host__ __device__ constexpr int ffn_mn_smem(int D) {
-  return kFfnBM * (D + 4) * 4 + kTileBytes + kFfnBM * kStageLD * 4 + kFfnBM * kHLD * 2;
-}
-
-// The modnorm epilogue's operands: LN affine g, b (D,) fp32, AdaLN rows
-// scale, shift (B, D) bf16, tokens per sample, eps.
-struct ModNormArgs {
-  const float* g;
-  const float* b;
-  const bf16* scale;
-  const bf16* shift;
-  int tps;
-  float eps;
-};
-
-// Kernel 20 (see the top of this file).
-__global__ void __launch_bounds__(GateUpMma::NT)
-    ffn_mn_kernel(const bf16* __restrict__ X, const bf16* __restrict__ W1,
-                  const bf16* __restrict__ W2, bf16* __restrict__ Y, int M, int D, int H,
-                  ModNormArgs mn) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NT = GateUpMma::NT;
-  const int lda = D + 4;
-  float* accS = reinterpret_cast<float*>(smem_raw);
-  unsigned char* p = smem_raw + kFfnBM * lda * 4;
-  // the gate/up main-loop tiles and the W2 tiles are used in turn: one buffer
-  bf16* tiles = reinterpret_cast<bf16*>(p);
-  float* stage = reinterpret_cast<float*>(p + kTileBytes);
-  bf16* hS = reinterpret_cast<bf16*>(p + kTileBytes + kFfnBM * kStageLD * 4);
-
-  const int tid = threadIdx.x, warp = tid / 32, wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.x * kFfnBM;
-  for (int i = tid; i < kFfnBM * lda; i += NT) accS[i] = 0.0f;
-
-  const int n_out_tiles = (D + kFfnBN2 - 1) / kFfnBN2;
-  for (int c0 = 0; c0 < H; c0 += kFfnHC) {
-    // gate (tile rows 0..63) and up (rows 64..127) for hidden units c0..c0+63
-    GateUpMma::Acc acc[GateUpMma::FM][GateUpMma::FN];
-    GateUpMma::run_rows(
-        acc, tiles,
-        [=](int r) -> const bf16* { return m0 + r < M ? X + (size_t)(m0 + r) * D : nullptr; },
-        X,
-        [=](int r) -> const bf16* {
-          const int j = c0 + (r < kFfnHC ? r : r - kFfnHC);
-          return j < H ? W1 + (size_t)(r < kFfnHC ? j : H + j) * D : nullptr;
-        },
-        W1, D);
-#pragma unroll
-    for (int j = 0; j < GateUpMma::FN; ++j)
-      wmma::store_matrix_sync(stage + (wm * 16) * kStageLD + wn * GateUpMma::FN * 16 + j * 16,
-                              acc[0][j], kStageLD, wmma::mem_row_major);
-    __syncthreads();
-    for (int e = tid; e < kFfnBM * kFfnHC; e += NT) {
-      const int r = e / kFfnHC, c = e % kFfnHC;
-      hS[r * kHLD + c] =
-          __float2bfloat16_rn(swiglu(stage[r * kStageLD + c], stage[r * kStageLD + kFfnHC + c]));
-    }
-    __syncthreads();
-
-    // accS[:, n0:n0+128] += h . W2[n0:n0+128, c0:c0+64]^T, W2 tiles double-buffered
-    bf16* w2s[2] = {tiles, tiles + kW2Tile};
-    auto load_w2 = [&](bf16* dst, int n0) {
-      load_tile<kFfnBN2, kFfnHC, kW2LD, NT>(
-          dst, W2, H, [=](int r) { return n0 + r < D ? n0 + r : -1; }, c0, H, tid);
-    };
-    load_w2(w2s[0], 0);
-    cp_async_commit();
-    for (int t = 0; t < n_out_tiles; ++t) {
-      if (t + 1 < n_out_tiles) load_w2(w2s[(t + 1) & 1], (t + 1) * kFfnBN2);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const bf16* ws = w2s[t & 1];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = t * kFfnBN2 + wn * 32 + j * 16;
-        if (col >= D) continue;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        float* cp = accS + (wm * 16) * lda + col;
-        wmma::load_matrix_sync(c, cp, lda, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < kFfnHC; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-          wmma::load_matrix_sync(a, hS + (wm * 16) * kHLD + kk, kHLD);
-          wmma::load_matrix_sync(bw, ws + (wn * 32 + j * 16) * kW2LD + kk, kW2LD);
-          wmma::mma_sync(c, a, bw, c);
-        }
-        wmma::store_matrix_sync(cp, c, lda, wmma::mem_row_major);
-      }
-      __syncthreads();
-    }
-  }
-
-  // one warp a token row: x + modnorm(y), rounded once
-  const int lane = tid % 32;
-  for (int r = warp; r < kFfnBM; r += NT / 32) {
-    const int m = m0 + r;
-    if (m >= M) continue;
-    const float* yr = accS + r * lda;
-    float s = 0.0f, ss = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      s += yr[c];
-      ss += yr[c] * yr[c];
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mu = s / D, inv = rsqrtf(ss / D - mu * mu + mn.eps);
-    const bf16* sc = mn.scale + (size_t)(m / mn.tps) * D;
-    const bf16* sf = mn.shift + (size_t)(m / mn.tps) * D;
-    const bf16* xr = X + (size_t)m * D;
-    for (int c = lane; c < D; c += 32) {
-      const float ln = (yr[c] - mu) * inv * mn.g[c] + mn.b[c];
-      const float o = ln * (1.0f + __bfloat162float(sc[c])) + __bfloat162float(sf[c]) +
-                      __bfloat162float(xr[c]);
-      Y[(size_t)m * D + c] = __float2bfloat16_rn(o);
-    }
-  }
-}
-
 }  // namespace swift
 
 using namespace swift;
@@ -376,22 +241,4 @@ extern "C" int swift_swiglu_hidden_pt(const void* x, const void* dx, const void*
 extern "C" int swift_swiglu_hidden_save(const void* x, const void* w1, void* h, void* g, void* u,
                                         int M, int D, int H, void* stream) {
   return launch_hidden<kHidSave>(x, x, w1, h, h, g, u, M, D, H, (cudaStream_t)stream);
-}
-
-extern "C" int swift_ffn_mn_smem(int D) { return ffn_mn_smem(D); }
-
-// Kernel 20: y = x + modnorm(FFN(x)); x, y (M, D) bf16 with M = B·tps
-// tokens; w1 (2H, D), w2 (D, H) bf16; g, b (D,) fp32; scale, shift (B, D)
-// bf16. D % 8 == 0, H % 8 == 0, ffn_mn_smem(D) within a block's shared
-// memory.
-extern "C" int swift_ffn_mn(const void* x, const void* w1, const void* w2, const void* g,
-                            const void* b, const void* scale, const void* shift, void* y, int M,
-                            int D, int H, int tps, float eps, void* stream) {
-  const int smem = ffn_mn_smem(D);
-  cudaFuncSetAttribute(ffn_mn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const ModNormArgs mn{(const float*)g, (const float*)b, (const bf16*)scale, (const bf16*)shift,
-                       tps, eps};
-  ffn_mn_kernel<<<(M + kFfnBM - 1) / kFfnBM, GateUpMma::NT, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, M, D, H, mn);
-  return (int)cudaGetLastError();
 }

@@ -306,8 +306,8 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], bf16 operands read through the
 // descriptors, fp32 accumulator in registers: thread t of the warpgroup
 // holds d[4 j + 2 h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e].
-// scale_d = 0 overwrites D, 1 accumulates. N is 32, 64, 96, 128, 136, 176,
-// 216 or 256. TA, TB are the instruction's transpose flags: 0 reads a K-major
+// scale_d = 0 overwrites D, 1 accumulates. N is 16, 32, 64, 96, 128, 136,
+// 176, 216 or 256. TA, TB are the instruction's transpose flags: 0 reads a K-major
 // tile (``wgmma_desc``: A stored 64 rows of K, B stored N rows of K, the
 // nn.Linear weight), 1 an MN-major one (``wgmma_desc_mn_a``,
 // ``wgmma_desc_mn``: stored K rows of M or of N, as an activation's tokens
@@ -315,9 +315,18 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t a, uint64_t b,
                                                int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 96 || N == 128 || N == 136 || N == 176 || N == 216 ||
-                    N == 256,
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128 || N == 136 || N == 176 ||
+                    N == 216 || N == 256,
                 "unsupported wgmma width");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  }
   if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"

@@ -113,128 +113,49 @@
 // orientation and exp(S − m) / Σ e, so it may differ from the query pass's
 // in the last bit.
 //
-// Kernel 22t walks T-row tiles (T = 64 for d <= 128, else 32), with one block
-// per (window·head, row tile) and products on the tensor cores (WMMA
-// 16x16x16, operands and fp32 accumulators in shared memory): two passes over
-// the key tiles, the first forms m, l and E = Σ p·dS (dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ),
-// the second dP = p (dS − E) and do = bf16(dP)·v + bf16(p)·dv. No scratch.
-// What bounds it: the bytes, 7 (BW·h·n·d) bf16 tensors a call; its 8
-// recomputed products against the TPU kernel's 5 cost tensor-core time that
-// a wgmma/TMA design would win back. All three kernels take any n >= 1 and d
-// <= 256; q̂, k̂, v, do and the tangents contiguous and 16-byte aligned.
+// Kernel 22t runs on the same pieces. It forms the TPU kernel's p =
+// softmax(q̂·k̂ᵀ) normalised in fp32, dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ (two products into
+// one fp32 accumulator), E = Σ p·dS and dP = p (dS − E) in fp32, and do =
+// bf16(dP)·v + bf16(p)·dv (two products into one accumulator). What bounds
+// it: it reads q̂, k̂, v, dq̂, dk̂, dv and writes do, 7 (BW·h·n·d) bf16
+// tensors, for 10 n² d flops a window-head, as 22b: the bytes at n = 64 and
+// 256, the operations at n = 1024. No atomics, one order of every sum. The
+// forms:
+//
+//   n <= 64, DP <= 128  packed (win_tan_packed_kernel): kernel 21's tiles of
+//                       G = floor(64 / n) whole window-heads with the six
+//                       inputs in one stage of a ring (2 stages of 96 KB at
+//                       DP 96-128, 4 below), the output through staging rows
+//                       of each consumer's own, so a stage goes back as soon
+//                       as its last product retires. A consumer forms S and dS
+//                       as two m64n64 accumulators (S masked block-
+//                       diagonally), p, E and dP in registers, and do from p
+//                       and dP as A fragments with v and dv read MN-major: the
+//                       TPU kernel's 5 products, each tensor read once.
+//   n > 64, or DP > 128  rows (win_tan_rows_kernel): kernel 21's row form with
+//                       22b's query pass: a work item is a pass of two query
+//                       tiles of a window-head (q̂ and dq̂ in a consumer's
+//                       slot) over its key tiles of NK keys (64 at DP <= 128,
+//                       32 to DP 192, 16 past it: S and dS of NK keys beside
+//                       the fp32 o, within ptxas's 168 registers a thread),
+//                       which come as two halves, (k̂, dk̂) and (v, dv), through
+//                       one ring both consumers read. One key tile (n <= NK):
+//                       one walk of 5 products. More: a statistics walk over
+//                       the (k̂, dk̂) halves (S, dS: the running max, Σ e and
+//                       Σ e·dS), then a walk over both halves that forms p =
+//                       exp(S − m) / Σ e and dP in fp32, rounds both and adds
+//                       their products to do: 8 products, the TPU kernel's
+//                       rounding points (the one-walk identity do = (Σ e·dS·v
+//                       + Σ e·dv − E·Σ e·v) / Σ e would round e·dS where the
+//                       TPU rounds dP).
+//
+// All three kernels take any n >= 1 and d <= 256; q̂, k̂, v, do and the
+// tangents contiguous and 16-byte aligned.
 #include <climits>
-#include <type_traits>
-
 #include "tile_mma.cuh"
 #include "wgmma.cuh"
 
 namespace swift {
-
-constexpr int kWinNT = 256;  // 8 warps a block
-
-template <int DP>
-struct WinCfg {
-  static constexpr int T = DP <= 128 ? 64 : 32;  // query and key rows a tile
-  static constexpr int LD = DP + 8;              // bf16 row stride of a (T, DP) tile
-  static constexpr int SLD = T + 4;              // fp32 row stride of a (T, T) tile
-  static constexpr int PLD = T + 8;              // bf16 row stride of a (T, T) tile
-  static constexpr int OLD = DP + 4;             // fp32 row stride of a (T, DP) tile
-  static constexpr int TILE = round128(T * LD * 2);
-  static constexpr int STILE = round128(T * SLD * 4);
-  static constexpr int PTILE = round128(T * PLD * 2);
-  static constexpr int OTILE = round128(T * OLD * 4);
-  static constexpr int STATS = round128(3 * T * 4);
-  static constexpr int TAN = 6 * TILE + 2 * STILE + 2 * PTILE + OTILE + STATS;    // 22t
-  static_assert(DP % 16 == 0 && DP <= 256, "head width");
-  static_assert(TAN <= kMaxSmem, "shared memory");
-};
-
-// Rows r0 .. r0+ROWS of the (n, d) bf16 matrix ``src`` (row stride d) into
-// the shared tile ``dst`` (row stride LD), zero past row n and, up to DP,
-// past column d. 16-byte loads when d % 8 == 0, else element by element.
-template <int ROWS, int DP, int LD>
-__device__ __forceinline__ void load_win_rows(bf16* dst, const bf16* __restrict__ src, int r0,
-                                              int n, int d) {
-  constexpr int CPR = DP / 8;
-  const bool vec = d % 8 == 0;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += kWinNT) {
-    const int r = c / CPR, k = (c % CPR) * 8, row = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < n && k < d) {
-      const bf16* s = src + (size_t)row * d + k;
-      if (vec) {
-        val = *reinterpret_cast<const uint4*>(s);
-      } else {
-        bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (k + i < d) e[i] = s[i];
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + k) = val;
-  }
-}
-
-// Rows of the fp32 shared tile ``src`` (row stride OLD), each times
-// ``rowmul[r]`` (or 1), rounded to bf16 into rows r0.. of the (n, d) matrix
-// ``dst``; rows past n and columns past d are not written.
-template <int ROWS, int DP, int OLD>
-__device__ __forceinline__ void store_win_rows(bf16* __restrict__ dst, const float* src,
-                                               const float* rowmul, int r0, int n, int d) {
-  constexpr int CPR = DP / 8;
-  const bool vec = d % 8 == 0;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += kWinNT) {
-    const int r = c / CPR, k = (c % CPR) * 8, row = r0 + r;
-    if (row >= n || k >= d) continue;
-    const float mul = rowmul ? rowmul[r] : 1.0f;
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = src[r * OLD + k + i] * mul;
-    bf16* out = dst + (size_t)row * d + k;
-    if (vec) {
-      *reinterpret_cast<uint4*>(out) = pack8(v);
-    } else {
-      for (int i = 0; i < 8 && k + i < d; ++i) out[i] = __float2bfloat16_rn(v[i]);
-    }
-  }
-}
-
-// C[M x N] (fp32, shared, row stride ldc) (+)= A[M x K] . B[K x N], all
-// warps of the block, one 16x16 output fragment a warp at a time. A and B
-// are bf16 in shared memory: LA row_major reads A(m, k) at A[m*lda + k],
-// col_major at A[k*lda + m]; LB row_major reads B(k, n) at B[k*ldb + n],
-// col_major at B[n*ldb + k] (so B = Xᵀ for a row-major X).
-template <class LA, class LB>
-__device__ __forceinline__ void block_mma(float* C, int ldc, const bf16* A, int lda, const bf16* B,
-                                          int ldb, int M, int N, int K, bool accumulate) {
-  const int warp = threadIdx.x / 32, tn = N / 16;
-  for (int f = warp; f < (M / 16) * tn; f += kWinNT / 32) {
-    const int mt = f / tn, nt = f % tn;
-    float* cp = C + mt * 16 * ldc + nt * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate)
-      wmma::load_matrix_sync(acc, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      if constexpr (std::is_same<LA, wmma::row_major>::value)
-        wmma::load_matrix_sync(a, A + mt * 16 * lda + kk, lda);
-      else
-        wmma::load_matrix_sync(a, A + kk * lda + mt * 16, lda);
-      if constexpr (std::is_same<LB, wmma::row_major>::value)
-        wmma::load_matrix_sync(b, B + kk * ldb + nt * 16, ldb);
-      else
-        wmma::load_matrix_sync(b, B + nt * 16 * ldb + kk, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-using RowM = wmma::row_major;
-using ColM = wmma::col_major;
 
 // ---------------------------------------------------------------------------
 // Kernel 21 on wgmma: o = softmax(q̂·k̂ᵀ)·v (the forms are in the header).
@@ -487,19 +408,19 @@ __device__ __forceinline__ void win_release(uint64_t* bar) {
 }
 
 // The packed form, n <= 64: tiles of G = 64 / n whole window-heads (rows
-// tile·G·n .. + G·n of the (BW·h·n, d) matrices), each with its own q, k and
-// v in one stage of a ring; consumer c of NC = 2 takes the block's tiles
-// c, c + 2, ... and so owns stages c, c + 2, ... (the count a multiple of
-// NC). The output goes through staging rows of its own where they fit
-// beside 2·NC (or NC) stages, else through the stage's q box, whose product
-// has retired.
-template <int DP>
+// tile·G·n .. + G·n of the (BW·h·n, d) matrices), each with its NT inputs (q,
+// k and v; for kernel 22t also their tangents) in one stage of a ring;
+// consumer c of NC = 2 takes the block's tiles c, c + 2, ... and so owns
+// stages c, c + 2, ... (the count a multiple of NC). The output goes through
+// staging rows of its own where they fit beside 2·NC (or NC) stages, else
+// through the stage's q box, whose product has retired.
+template <int DP, int NT = 3>
 struct WinPacked {
   static constexpr int NC = 2;
   static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
   static constexpr int BOX = 64 * 128;                // one 64-row box
-  static constexpr int TILE = NBOX * BOX;             // q, k or v of a tile
-  static constexpr int STAGE = 3 * TILE;
+  static constexpr int TILE = NBOX * BOX;             // one input of a tile
+  static constexpr int STAGE = NT * TILE;
   static constexpr int STG = round128(64 * DP * 2);   // a consumer's staging rows
   static constexpr int BARS = 2 * 2 * NC * 8;
   static constexpr bool OWN_STG = 1024 + NC * STAGE + NC * STG + BARS <= kMaxSmem;
@@ -1465,114 +1386,391 @@ __global__ void __launch_bounds__(kWinFwdThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 22t: do = dP·v + p·dv with dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ and
-// dP = p (dS − Σ p dS), one block per (window·head, query tile).
-template <int DP>
-__global__ void __launch_bounds__(kWinNT)
-    win_attn_tangent_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ tq,
-                            const bf16* __restrict__ tk, const bf16* __restrict__ tv,
-                            bf16* __restrict__ tout, int n, int d) {
-  using C = WinCfg<DP>;
-  constexpr int T = C::T, NW = kWinNT / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dQs = reinterpret_cast<bf16*>(smem + C::TILE);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + 2 * C::TILE);
-  bf16* dKs = reinterpret_cast<bf16*>(smem + 3 * C::TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + 4 * C::TILE);
-  bf16* dVs = reinterpret_cast<bf16*>(smem + 5 * C::TILE);
-  float* Ss = reinterpret_cast<float*>(smem + 6 * C::TILE);
-  float* dSs = reinterpret_cast<float*>(smem + 6 * C::TILE + C::STILE);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + 6 * C::TILE + 2 * C::STILE);
-  bf16* dPs = reinterpret_cast<bf16*>(smem + 6 * C::TILE + 2 * C::STILE + C::PTILE);
-  float* Os = reinterpret_cast<float*>(smem + 6 * C::TILE + 2 * C::STILE + 2 * C::PTILE);
-  float* mrow = reinterpret_cast<float*>(smem + 6 * C::TILE + 2 * C::STILE + 2 * C::PTILE +
-                                         C::OTILE);
-  float* lrow = mrow + T;
-  float* erow = lrow + T;
+// Kernel 22t on wgmma: the tangent of kernel 21 (the forms are in the header).
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t base = (size_t)blockIdx.x * n * d;
-  const int q0 = blockIdx.y * T;
-  load_win_rows<T, DP, C::LD>(Qs, q + base, q0, n, d);
-  load_win_rows<T, DP, C::LD>(dQs, tq + base, q0, n, d);
-  for (int i = threadIdx.x; i < T * C::OLD; i += kWinNT) Os[i] = 0.0f;
-  for (int r = threadIdx.x; r < T; r += kWinNT) {
-    mrow[r] = -INFINITY;
-    lrow[r] = 0.0f;
-    erow[r] = 0.0f;
+// S = q̂·k̂ᵀ and dS = q̂·dk̂ᵀ + dq̂·k̂ᵀ of a 64-row query tile against N keys,
+// both into registers as one wgmma group (the caller commits it): q̂ and dq̂
+// tiles ``qbox``, k̂ and dk̂ tiles ``kbox`` bytes a box. The three products
+// step through the k16 slices together, so that each slice's descriptors
+// die with it: as three chains in turn, q̂'s stayed live across the others'
+// and the row form spilled at DP 256.
+template <int DP, int N>
+__device__ __forceinline__ void win_tan_logits(float (&s)[N / 2], float (&ds)[N / 2],
+                                               const unsigned char* Q, const unsigned char* DQ,
+                                               int qbox, const unsigned char* K,
+                                               const unsigned char* DK, int kbox) {
+#pragma unroll
+  for (int k = 0; k < DP / 16; ++k) {
+    const int qo = (k / 4) * qbox, ko = (k / 4) * kbox, step = 2 * (k % 4);
+    const uint64_t q = wgmma_desc(Q + qo) + step, kd = wgmma_desc(K + ko) + step;
+    wgmma_m64nNk16<N>(s, q, kd, k > 0);
+    wgmma_m64nNk16<N>(ds, q, wgmma_desc(DK + ko) + step, k > 0);
+    wgmma_m64nNk16<N>(ds, wgmma_desc(DQ + qo) + step, kd, 1);
   }
-  // logits and their tangent for the key tile at k0: S = q̂·k̂ᵀ,
-  // dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ
-  auto logits = [&](int k0) {
-    load_win_rows<T, DP, C::LD>(Ks, k + base, k0, n, d);
-    load_win_rows<T, DP, C::LD>(dKs, tk + base, k0, n, d);
-    __syncthreads();
-    block_mma<RowM, ColM>(Ss, C::SLD, Qs, C::LD, Ks, C::LD, T, T, DP, false);
-    block_mma<RowM, ColM>(dSs, C::SLD, dQs, C::LD, Ks, C::LD, T, T, DP, false);
-    block_mma<RowM, ColM>(dSs, C::SLD, Qs, C::LD, dKs, C::LD, T, T, DP, true);
-  };
-  // first walk: m, l and E = Σ p·dS, online
-  for (int k0 = 0; k0 < n; k0 += T) {
-    logits(k0);
-    __syncthreads();
-    const int kn = min(T, n - k0);
-    for (int r = warp; r < T; r += NW) {
-      float s[T / 32], ds[T / 32];
-      float mx = -INFINITY;
+}
+
+// Whole rows of S and dS in registers turned into p = e / Σe and dP = p (dS −
+// Σ p·dS), both in fp32 (the TPU kernel's rounding points), then rounded to
+// bf16 as the A fragments of o's products.
+template <int N>
+__device__ __forceinline__ void win_tan_whole(float (&s)[N / 2], float (&ds)[N / 2],
+                                              uint32_t (&pf)[N / 16][4],
+                                              uint32_t (&df)[N / 16][4]) {
+  float m[2], il[2], E[2];
+  win_probs<N>(s, m, il);
+  win_ds<N>(s, ds, E);
+  win_frags<N>(s, pf);
+  win_frags<N>(ds, df);
+}
+
+// The second walk's p = exp(s − m) / Σ e from the rows' statistics (0 for
+// keys at or past ``kn``) and dP = p (dS − E), in fp32, each pair rounded to
+// bf16 as it is formed (A fragments of o's products).
+template <int N>
+__device__ __forceinline__ void win_tan_slice(const float (&s)[N / 2], const float (&ds)[N / 2],
+                                              const float (&m)[2], const float (&il)[2],
+                                              const float (&E)[2], int kn, int q4,
+                                              uint32_t (&pf)[N / 16][4],
+                                              uint32_t (&df)[N / 16][4]) {
+  const float ms[2] = {m[0] * kWinLog2e, m[1] * kWinLog2e};
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const int j = lane + 32 * i;
-        s[i] = j < kn ? Ss[r * C::SLD + j] : -INFINITY;
-        ds[i] = dSs[r * C::SLD + j];
-        mx = fmaxf(mx, s[i]);
-      }
-      mx = warp_max(mx);
-      const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      float sum = 0.0f, pds = 0.0f;
+  for (int k = 0; k < N / 16; ++k)
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const float e = expf(s[i] - m_new);
-        sum += e;
-        pds += e * ds[i];
+    for (int q = 0; q < 4; ++q) {
+      const int i = 8 * k + 2 * q, h = q & 1, col = 16 * k + 8 * (q >> 1) + 2 * q4;
+      const float p0 = col < kn ? exp2f(fmaf(s[i], kWinLog2e, -ms[h])) * il[h] : 0.0f;
+      const float p1 = col + 1 < kn ? exp2f(fmaf(s[i + 1], kWinLog2e, -ms[h])) * il[h] : 0.0f;
+      pf[k][q] = pack_bf16x2(p0, p1);
+      df[k][q] = pack_bf16x2(p0 * (ds[i] - E[h]), p1 * (ds[i + 1] - E[h]));
+    }
+}
+
+// o (+)= bf16(dP)·v + bf16(p)·dv over a key tile's N/16 k16 slices, v and dv
+// read MN-major from their boxes (``box`` bytes apart).
+template <int N, int NO>
+__device__ __forceinline__ void win_tan_out(float (&o)[NO / 2], const uint32_t (&pf)[N / 16][4],
+                                            const uint32_t (&df)[N / 16][4],
+                                            const unsigned char* V, const unsigned char* DV,
+                                            int box, bool accumulate) {
+  win_pv<N, NO>(o, df, V, box, accumulate);
+  win_pv<N, NO>(o, pf, DV, box, true);
+}
+
+// The packed form, n <= 64 at DP <= 128: kernel 21's packed kernel with the
+// six inputs in a stage ([q̂, k̂, v, dq̂, dk̂, dv], WinPacked<DP, 6>) and the
+// tangent's five products.
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_tan_packed_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdq,
+                          const __grid_constant__ CUtensorMap mdk,
+                          const __grid_constant__ CUtensorMap mdv, const bf16* __restrict__ q,
+                          const bf16* __restrict__ k, const bf16* __restrict__ v,
+                          const bf16* __restrict__ dq, const bf16* __restrict__ dk,
+                          const bf16* __restrict__ dv, bf16* __restrict__ tout, int R, int n,
+                          int d, int tile_rows, int tiles) {
+  using L = WinPacked<DP, 6>;
+  static_assert(L::OWN_STG, "the tangent's packed form stages its output in rows of its own");
+  constexpr int NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO, T = L::TILE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + L::STAGES;
+  const bool tma = d % 8 == 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], tma ? 1 : 128);
+      mbar_init(&empty[s], 4);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+      tma_prefetch(&mdq);
+      tma_prefetch(&mdk);
+      tma_prefetch(&mdv);
+    }
+    for (int i = 0, item = blockIdx.x; item < tiles; ++i, item += gridDim.x) {
+      const int s = i % L::STAGES, row0 = item * tile_rows;
+      unsigned char* st = smem + s * L::STAGE;
+      mbar_wait(&empty[s], ((i / L::STAGES) & 1) ^ 1);
+      win_fill(&full[s], L::STAGE, tma, [&] {
+        win_load<64, NBOX>(st, &mq, q, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + T, &mk, k, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 2 * T, &mv, v, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 3 * T, &mdq, dq, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 4 * T, &mdk, dk, row0, R, d, &full[s], tma, tid);
+        win_load<64, NBOX>(st + 5 * T, &mdv, dv, row0, R, d, &full[s], tma, tid);
+      });
+    }
+    return;
+  }
+  setmaxnreg_inc<208>();  // the consumers
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, q4 = tid % 4, r = win_acc_row(tid);
+  bf16* own = reinterpret_cast<bf16*>(smem + L::STG_OFF + c * L::STG);
+  // each row sees the keys of its own window-head: columns lo .. lo + n
+  int lo[2], hi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lo[h] = (r + 8 * h) / n * n;
+    hi[h] = lo[h] + n;
+  }
+  for (int i = c, item = blockIdx.x + c * gridDim.x; item < tiles;
+       i += L::NC, item += L::NC * gridDim.x) {
+    const int s = i % L::STAGES, row0 = item * tile_rows;
+    const int live = min(tile_rows, R - row0);
+    unsigned char* st = smem + s * L::STAGE;
+    mbar_wait(&full[s], (i / L::STAGES) & 1);
+    float sc[32], ds[32];
+    wgmma_fence();
+    win_tan_logits<DP, 64>(sc, ds, st, st + 3 * T, L::BOX, st + T, st + 4 * T, L::BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(ds);
+    if (n != 64) win_mask<64>(sc, lo, hi, q4);
+    uint32_t pf[4][4], df[4][4];
+    win_tan_whole<64>(sc, ds, pf, df);
+    float oc[NO / 2];
+    wgmma_fence();
+    win_tan_out<64, NO>(oc, pf, df, st + 2 * T, st + 5 * T, L::BOX, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oc);
+    win_release(&empty[s]);  // the stage's last product has retired
+    if (tma) {
+      if (tid == 0) tma_store_wait_read<0>();  // the last tile's copy has read the rows
+      named_barrier_sync(1 + c, 128);
+    }
+    win_store<NO>(oc, own, tout, row0, live, d, tma, c, tid);
+  }
+  if (tid == 0) tma_store_wait_all();
+}
+
+// The row form, n > 64 or DP > 128: a work item is one pass of two query
+// tiles of a window-head, consumer c taking tile 2 p + c with its q̂ and dq̂ in
+// the consumer's slot; the key tiles of NK keys come as halves of HALF bytes,
+// (k̂, dk̂) and (v, dv), through one ring that both consumers read (each of
+// their warps releases a half), in the order the walks take them: one key
+// tile (n <= NK) its two halves; more, the T (k̂, dk̂) halves of the
+// statistics walk, then both halves of each key tile in turn, which a
+// consumer holds at once (so the ring has at least two). The output is
+// staged in the slot's q̂ tile, which goes back once the copy has read it.
+template <int DP>
+struct WinTanRows {
+  static constexpr int NK = DP <= 128 ? 64 : DP <= 192 ? 32 : 16;
+  static constexpr int NBOX = WinFwdWidth<DP>::NBOX;
+  static constexpr int BOX = 64 * 128, TILE = NBOX * BOX;  // 64 query rows
+  static constexpr int KBOX = NK * 128, KTILE = NBOX * KBOX;
+  static constexpr int SLOT = 2 * TILE;   // a consumer's q̂, then dq̂
+  static constexpr int KV_OFF = 2 * SLOT;
+  static constexpr int HALF = 2 * KTILE;  // k̂ then dk̂, or v then dv
+  static constexpr int FIT = (kMaxSmem - 1024 - KV_OFF - 32 * 8) / HALF;
+  static constexpr int STAGES = FIT > 6 ? 6 : FIT;
+  static constexpr int BAR_OFF = KV_OFF + STAGES * HALF;
+  static constexpr int SMEM = 1024 + BAR_OFF + (4 + 2 * STAGES) * 8;
+  static_assert(STAGES >= 2 && SMEM <= kMaxSmem, "the tangent's row form does not fit");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kWinFwdThreads, 1)
+    win_tan_rows_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mdq,
+                        const __grid_constant__ CUtensorMap mdk,
+                        const __grid_constant__ CUtensorMap mdv, const bf16* __restrict__ q,
+                        const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        const bf16* __restrict__ dq, const bf16* __restrict__ dk,
+                        const bf16* __restrict__ dv, bf16* __restrict__ tout, int R, int n,
+                        int d, int bh) {
+  using L = WinTanRows<DP>;
+  constexpr int NK = L::NK, NBOX = L::NBOX, NO = WinFwdWidth<DP>::NO, S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + S;
+  const bool tma = d % 8 == 0;
+  const int QT = (n + 63) / 64, P = (QT + 1) / 2, T = (n + NK - 1) / NK;
+  const int halves = T == 1 ? 2 : 3 * T, items = bh * P;
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(&q_full[c], tma ? 1 : 128);
+      mbar_init(&q_empty[c], 1);
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], tma ? 1 : 128);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: one thread (TMA) or 128
+    setmaxnreg_dec<80>();
+    const int tid = threadIdx.x;
+    if (tma && tid != 0) return;
+    if (tma) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mdq);
+      tma_prefetch(&mk);
+      tma_prefetch(&mdk);
+      tma_prefetch(&mv);
+      tma_prefetch(&mdv);
+    }
+    int kv = 0, qn[2] = {0, 0};
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int base = item / P * n, p = item % P;
+      for (int c = 0; c < 2; ++c) {
+        if (2 * p + c >= QT) continue;
+        const int row = base + 64 * (2 * p + c);
+        unsigned char* Qs = smem + c * L::SLOT;
+        mbar_wait(&q_empty[c], (qn[c]++ & 1) ^ 1);
+        win_fill(&q_full[c], L::SLOT, tma, [&] {
+          win_load<64, NBOX>(Qs, &mq, q, row, R, d, &q_full[c], tma, tid);
+          win_load<64, NBOX>(Qs + L::TILE, &mdq, dq, row, R, d, &q_full[c], tma, tid);
+        });
       }
-      sum = warp_sum(sum);
-      pds = warp_sum(pds);
-      __syncwarp();
-      if (lane == 0) {
-        mrow[r] = m_new;
-        lrow[r] = lrow[r] * alpha + sum;
-        erow[r] = erow[r] * alpha + pds;
+      for (int i = 0; i < halves; ++i, ++kv) {
+        // the walks' i-th half: (k̂, dk̂) of key tile j, or (v, dv) of it
+        const bool second = T == 1 ? i == 1 : i >= T && (i - T) % 2 == 1;
+        const int j = T == 1 ? 0 : i < T ? i : (i - T) / 2, row = base + j * NK;
+        const int s = kv % S;
+        unsigned char* H = smem + L::KV_OFF + s * L::HALF;
+        mbar_wait(&empty[s], ((kv / S) & 1) ^ 1);
+        win_fill(&full[s], L::HALF, tma, [&] {
+          if (second) {
+            win_load<NK, NBOX>(H, &mv, v, row, R, d, &full[s], tma, tid);
+            win_load<NK, NBOX>(H + L::KTILE, &mdv, dv, row, R, d, &full[s], tma, tid);
+          } else {
+            win_load<NK, NBOX>(H, &mk, k, row, R, d, &full[s], tma, tid);
+            win_load<NK, NBOX>(H + L::KTILE, &mdk, dk, row, R, d, &full[s], tma, tid);
+          }
+        });
       }
     }
-    __syncthreads();
+    return;
   }
-  for (int r = threadIdx.x; r < T; r += kWinNT) erow[r] /= lrow[r];
-  // second walk: p and dP rounded to bf16, do += dP·v + p·dv
-  for (int k0 = 0; k0 < n; k0 += T) {
-    load_win_rows<T, DP, C::LD>(Vs, v + base, k0, n, d);
-    load_win_rows<T, DP, C::LD>(dVs, tv + base, k0, n, d);
-    logits(k0);  // its barrier also orders the statistics above
-    __syncthreads();
-    const int kn = min(T, n - k0);
-    for (int r = warp; r < T; r += NW) {
-      const float m = mrow[r], inv_l = 1.0f / lrow[r], E = erow[r];
+  setmaxnreg_inc<208>();  // the consumers
+  const int c = threadIdx.x / 128 - 1, tid = threadIdx.x % 128, q4 = tid % 4;
+  unsigned char* Qs = smem + c * L::SLOT;
+  const unsigned char* DQs = Qs + L::TILE;
+  int kv = 0, qn = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, kv += halves) {
+    const int wh = item / P, qt = 2 * (item % P) + c;
+    const bool have = qt < QT;
+    if (have) mbar_wait(&q_full[c], qn & 1);
+    auto half = [&](int i) {  // the ring's i-th half of this item, once it has landed
+      const int s = (kv + i) % S;
+      mbar_wait(&full[s], ((kv + i) / S) & 1);
+      return smem + L::KV_OFF + s * L::HALF;
+    };
+    auto release = [&](int i) { win_release(&empty[(kv + i) % S]); };
+    // o starts at 0: the wgmma asm reads its accumulator, and a value left
+    // from the last item would stay live across the walks
+    float oc[NO / 2];
 #pragma unroll
-      for (int i = 0; i < T / 32; ++i) {
-        const int j = lane + 32 * i;
-        const float p = j < kn ? expf(Ss[r * C::SLD + j] - m) * inv_l : 0.0f;
-        Ps[r * C::PLD + j] = __float2bfloat16_rn(p);
-        dPs[r * C::PLD + j] = __float2bfloat16_rn(p * (dSs[r * C::SLD + j] - E));
+    for (int i = 0; i < NO / 2; ++i) oc[i] = 0.f;
+    // each group of products is issued and waited for within one block: a
+    // wgmma in flight across a branch sends its registers to local memory
+    if (T == 1) {  // one walk: whole rows of S and dS, both halves at once
+      const unsigned char* Kt = half(0);
+      const unsigned char* Vt = half(1);
+      if (have) {
+        float sc[NK / 2], ds[NK / 2];
+        wgmma_fence();
+        win_tan_logits<DP, NK>(sc, ds, Qs, DQs, L::BOX, Kt, Kt + L::KTILE, L::KBOX);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(ds);
+        if (n < NK) {
+          const int lo[2] = {0, 0}, hi[2] = {n, n};
+          win_mask<NK>(sc, lo, hi, q4);
+        }
+        uint32_t pf[NK / 16][4], df[NK / 16][4];
+        win_tan_whole<NK>(sc, ds, pf, df);
+        wgmma_fence();
+        win_tan_out<NK, NO>(oc, pf, df, Vt, Vt + L::KTILE, L::KBOX, true);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(oc);
+      }
+      release(0);
+      release(1);
+    } else {
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, x[2] = {0.f, 0.f};
+      for (int j = 0; j < T; ++j) {  // the statistics
+        const unsigned char* Kt = half(j);
+        if (have) {
+          float sc[NK / 2], ds[NK / 2];
+          wgmma_fence();
+          win_tan_logits<DP, NK>(sc, ds, Qs, DQs, L::BOX, Kt, Kt + L::KTILE, L::KBOX);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(ds);
+          if (j * NK + NK > n) {  // keys past the window-head
+            const int lo[2] = {0, 0}, hi[2] = {n - j * NK, n - j * NK};
+            win_mask<NK>(sc, lo, hi, q4);
+          }
+          win_stats<NK>(sc, ds, m, l, x);
+        }
+        release(j);
+      }
+      float il[2], E[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sum = quad_sum(l[h]);
+        il[h] = 1.0f / sum;
+        E[h] = quad_sum(x[h]) / sum;
+      }
+      for (int j = 0; j < T; ++j) {  // p, dP and do
+        const unsigned char* Kt = half(T + 2 * j);
+        const unsigned char* Vt = half(T + 2 * j + 1);
+        if (have) {
+          float sc[NK / 2], ds[NK / 2];
+          wgmma_fence();
+          win_tan_logits<DP, NK>(sc, ds, Qs, DQs, L::BOX, Kt, Kt + L::KTILE, L::KBOX);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          fence_regs(ds);
+          uint32_t pf[NK / 16][4], df[NK / 16][4];
+          win_tan_slice<NK>(sc, ds, m, il, E, n - j * NK, q4, pf, df);
+          wgmma_fence();
+          win_tan_out<NK, NO>(oc, pf, df, Vt, Vt + L::KTILE, L::KBOX, true);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(oc);
+        }
+        release(T + 2 * j);
+        release(T + 2 * j + 1);
       }
     }
-    __syncthreads();
-    block_mma<RowM, RowM>(Os, C::OLD, dPs, C::PLD, Vs, C::LD, T, DP, T, true);   // + dP·v
-    block_mma<RowM, RowM>(Os, C::OLD, Ps, C::PLD, dVs, C::LD, T, DP, T, true);   // + p·dv
-    __syncthreads();
+    if (!have) continue;
+    win_store<NO>(oc, reinterpret_cast<bf16*>(Qs), tout, (size_t)wh * n + 64 * qt,
+                  min(64, n - 64 * qt), d, tma, c, tid);
+    if (!tma) named_barrier_sync(1 + c, 128);
+    if (tid == 0) {
+      tma_store_wait_read<0>();  // the copy has read the slot
+      mbar_arrive(&q_empty[c]);
+    }
+    ++qn;
   }
-  store_win_rows<T, DP, C::OLD>(tout + base, Os, nullptr, q0, n, d);
+  if (tid == 0) tma_store_wait_all();
 }
 
 // Kernel 21's launch: the form for n (the header's table), three tensor
@@ -1656,17 +1854,43 @@ int launch_win_bwd(const void* q, const void* k, const void* v, const void* dout
                            (const float*)stats, dkb, dvb, R, n, d, bh);
 }
 
+// Kernel 22t's launch: the packed form for n <= 64 at DP <= 128, else the
+// row form; six tensor maps of the (BW·h·n, d) matrices where d % 8 == 0
+// (k̂, dk̂, v and dv in boxes of the form's key rows), persistent.
+static int win_tan_sms[2][9][64];
+
 template <int DP>
 int launch_win_tangent(const void* q, const void* k, const void* v, const void* tq,
                        const void* tk, const void* tv, void* tout, int bh, int n, int d,
                        cudaStream_t st) {
-  using C = WinCfg<DP>;
-  cudaFuncSetAttribute(win_attn_tangent_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       C::TAN);
-  win_attn_tangent_kernel<DP><<<dim3(bh, (n + C::T - 1) / C::T), kWinNT, C::TAN, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)tq, (const bf16*)tk,
-      (const bf16*)tv, (bf16*)tout, n, d);
-  return (int)cudaGetLastError();
+  constexpr int ID = win_dp_index(DP), NK = WinTanRows<DP>::NK;
+  const long long rows = (long long)bh * n;
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int R = (int)rows;
+  const bool tma = d % 8 == 0, packed = DP <= 128 && n <= 64;
+  const int key_rows = packed ? 64 : NK;
+  CUtensorMap mq = {}, mk = {}, mv = {}, mdq = {}, mdk = {}, mdv = {};
+  if (tma && !(tensor_map_bf16(&mq, q, R, d, 64, 64) && tensor_map_bf16(&mdq, tq, R, d, 64, 64) &&
+               tensor_map_bf16(&mk, k, R, d, key_rows, 64) &&
+               tensor_map_bf16(&mdk, tk, R, d, key_rows, 64) &&
+               tensor_map_bf16(&mv, v, R, d, key_rows, 64) &&
+               tensor_map_bf16(&mdv, tv, R, d, key_rows, 64)))
+    return kTensorMapError;
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v,
+             *tqb = (const bf16*)tq, *tkb = (const bf16*)tk, *tvb = (const bf16*)tv;
+  bf16* ob = (bf16*)tout;
+  if constexpr (DP <= 128) {
+    if (packed) {
+      const int g = 64 / n, tiles = (bh + g - 1) / g;
+      return launch_persistent(win_tan_packed_kernel<DP>, win_tan_sms[0][ID], kWinFwdThreads,
+                               WinPacked<DP, 6>::SMEM, tiles, st, mq, mk, mv, mdq, mdk, mdv, qb,
+                               kb, vb, tqb, tkb, tvb, ob, R, n, d, g * n, tiles);
+    }
+  }
+  const int passes = ((n + 63) / 64 + 1) / 2;
+  return launch_persistent(win_tan_rows_kernel<DP>, win_tan_sms[1][ID], kWinFwdThreads,
+                           WinTanRows<DP>::SMEM, bh * passes, st, mq, mk, mv, mdq, mdk, mdv, qb,
+                           kb, vb, tqb, tkb, tvb, ob, R, n, d, bh);
 }
 
 }  // namespace swift

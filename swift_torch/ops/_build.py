@@ -55,8 +55,6 @@ _SIGNATURES = {
     "swift_ffn_int8": [_P] * 12 + [_I, _I, _I, _P],
     "swift_mm_modnorm_int8": [_P] * 11 + [_I, _I, _I, _I, _F, _P],
     "swift_mm_modnorm_int8_plan": [_I, _P],
-    "swift_ffn_mn": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "swift_ffn_mn_smem": [_I],
     "swift_window_attention": [_P] * 4 + [_I] * 3 + [_P],
     "swift_window_attention_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "swift_window_attention_tangent": [_P] * 7 + [_I] * 3 + [_P],

@@ -30,8 +30,11 @@ products, the weight gradients summed over the chunks in fp32
 kernel 5's pass 1 on the s8 ``wgmma`` form of ``csrc/wgmma.cuh`` writing h
 = g·sigmoid(g)·u in fp32 and each row's abs-max a 128-unit tile, h
 quantized per token from that fp32 copy, and kernel 1's loop in s8 for
-hq·W2qᵀ, rescaled to bf16 (:func:`ffn_int8_scratch_bytes`);
-``csrc/ffn.cu::swift_ffn_mn`` ``_ffn_mn_call``. Weights
+hq·W2qᵀ, rescaled to bf16 (:func:`ffn_int8_scratch_bytes`); kernel 20,
+which replaces ``_ffn_mn_call``, runs kernel 5's pass 1 for h over the same
+token chunks, then kernel 3 (``csrc/gemm.cu::swift_mm_modnorm``) on h and
+W2 with the residual x, its y kept in fp32 inside the kernel for the
+post-norm (:func:`ffn_modnorm_pieces`). Weights
 are in the torch ``nn.Linear`` layout: ``w1`` (2H, D) with the gate rows
 first and the up rows second (the reference chunk order), ``w2`` (D, H).
 
@@ -52,7 +55,7 @@ import torch.nn.functional as F
 
 from swift_torch.ops import _build, jvp_guard, quant
 from swift_torch.ops.linear import reference_linear, reference_linear_pt
-from swift_torch.ops.modnorm import _vjp, reference_modnorm_residual
+from swift_torch.ops.modnorm import _vjp, matmul_modnorm_plan, reference_modnorm_residual
 
 # Kernels 5, 8, 11 and 18 run their passes over chunks of at most this many
 # tokens, so that a call's scratch (h, and dh for 11) stays under 1 GB at
@@ -588,8 +591,28 @@ def reference_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps=1e-6
                                       eps)
 
 
+def ffn_modnorm_pieces(T: int, tps: int) -> list[tuple[tuple[int, int], list[tuple[int, int]]]]:
+    """Kernel 20's launches over T tokens of samples of ``tps`` tokens: for
+    each chunk [s, e) of :func:`ffn_chunks`, one launch of kernel 5's pass 1
+    for its h, and one launch of kernel 3 for each piece [a, z) of it. Kernel
+    3 takes the AdaLN row of token m from m // tps: a piece starts on a
+    sample's first token, or lies within one sample, so that the rows from
+    ``a // tps`` on serve it. One chunk and one piece at the flagship's B =
+    2."""
+    plan = []
+    for s, e in ffn_chunks(T):
+        cut = min(e, -(-s // tps) * tps)  # the first sample boundary at or after s
+        pieces = [(s, cut)] if s < cut else []
+        plan.append(((s, e), pieces + ([(cut, e)] if cut < e else [])))
+    return plan
+
+
 def _ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps):
-    """The forward alone: the plain version on the CPU, else kernel 20."""
+    """The forward alone: the plain version on the CPU, else kernel 20: h =
+    bf16(silu(x·Wgᵀ)·(x·Wuᵀ)) by kernel 5's pass 1 (``swift_swiglu_hidden``)
+    into scratch of :func:`ffn_scratch_bytes`, then kernel 3
+    (``swift_mm_modnorm``) on (h, W2) with K = H and the residual x, along
+    :func:`ffn_modnorm_pieces`."""
     if _build.on_cpu(x, w1, w2, g, b, mod_scale, mod_shift):
         return reference_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps)
     name = "fused_swiglu_ffn_modnorm"
@@ -605,17 +628,22 @@ def _ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps):
     if g.shape != (D,) or b.shape != (D,) or mod_scale.shape != (B, D) or (
             mod_shift.shape != (B, D)):
         raise ValueError(f"{name}: g, b must be ({D},) and mod_scale, mod_shift ({B}, {D})")
-    lib = _build.library()
-    if lib.swift_ffn_mn_smem(D) > lib.swift_max_smem():
-        raise ValueError(f"{name}: D={D} needs more shared memory than a block has")
+    matmul_modnorm_plan(D)  # raises past kernel 3's widest cluster plan
+    lib, stream = _build.library(), _build.stream()
     M = x.numel() // D
-    out = torch.empty_like(x)
-    _build.check_launch(
-        lib.swift_ffn_mn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), g.data_ptr(), b.data_ptr(),
-                         mod_scale.data_ptr(), mod_shift.data_ptr(), out.data_ptr(), M, D, H,
-                         M // B, float(eps), _build.stream()),
-        name,
-    )
+    tps = M // B
+    plan = ffn_modnorm_pieces(M, tps)
+    h = torch.empty(max(e - s for (s, e), _ in plan), H, device=x.device, dtype=x.dtype)
+    x2, out = x.view(-1, D), torch.empty_like(x)
+    out2 = out.view(-1, D)
+    for (s, e), pieces in plan:
+        _build.check_launch(lib.swift_swiglu_hidden(
+            x2[s:e].data_ptr(), w1.data_ptr(), h.data_ptr(), e - s, D, H, stream), name)
+        for a, z in pieces:
+            _build.check_launch(lib.swift_mm_modnorm(
+                h[a - s].data_ptr(), w2.data_ptr(), x2[a].data_ptr(), g.data_ptr(), b.data_ptr(),
+                mod_scale[a // tps].data_ptr(), mod_shift[a // tps].data_ptr(),
+                out2[a].data_ptr(), z - a, H, D, tps, float(eps), stream), name)
     fused_swiglu_ffn_modnorm.launches += 1
     return out
 
@@ -641,18 +669,19 @@ class _SwiGLUModnorm(torch.autograd.Function):
 
 
 def fused_swiglu_ffn_modnorm(x, w1, w2, g, b, mod_scale, mod_shift, eps=1e-6):
-    """``x + modnorm(SwiGLU(x))`` in one pass: the FFN output stays in the
-    kernel as fp32 rows and the post-norm epilogue reads them there. x:
-    (B, ..., D); w1 (2H, D), w2 (D, H) as :func:`fused_swiglu_ffn`; g, b
-    (D,) fp32; mod_scale, mod_shift (B, D), rounded to x.dtype. Returns
-    x.dtype. No model path calls it (the JAX package's only caller is its
-    test); the model runs kernels 5 and 4.
+    """``x + modnorm(SwiGLU(x))`` with the FFN output y = h·W2ᵀ never
+    rounded: kernel 3 keeps it in fp32 registers and its post-norm epilogue
+    reads it there. x: (B, ..., D); w1 (2H, D), w2 (D, H) as
+    :func:`fused_swiglu_ffn`; g, b (D,) fp32; mod_scale, mod_shift (B, D),
+    rounded to x.dtype. Returns x.dtype. No model path calls it (the JAX
+    package's only caller is its test); the model runs kernels 5 and 4.
 
     CPU tensors take :func:`reference_swiglu_ffn_modnorm`; CUDA tensors go
-    to kernel 20 under kernel 5's shape rules (H padded by
-    :func:`pad_hidden`). While autograd records, the backward is the vjp of
-    the plain version; a forward-mode tangent raises (the JAX entry has no
-    jvp rule)."""
+    to kernel 20 (kernel 5's pass 1, then kernel 3) under kernel 5's shape
+    rules (H padded by :func:`pad_hidden`) and D up to kernel 3's
+    ``MATMUL_MODNORM_MAX_D`` (1728). While autograd records, the backward
+    is the vjp of the plain version; a forward-mode tangent raises (the JAX
+    entry has no jvp rule)."""
     args = (x, w1, w2, g, b, mod_scale, mod_shift)
     jvp_guard.refuse_tangents("fused_swiglu_ffn_modnorm", x=x, w1=w1, w2=w2, g=g, b=b,
                               mod_scale=mod_scale, mod_shift=mod_shift)

@@ -11,7 +11,8 @@ from scripts import probe_build
 
 PROBES = ["probe_window_attention", "probe_window_attention_bwd", "probe_attention_fwd", "probe_attention_bwd",
           "probe_attention_tangent", "probe_mm_modnorm", "probe_backward_gemm", "probe_ffn_int8",
-          "probe_ffn_bwd_recompute", "probe_mm_modnorm_int8", "probe_modnorm"]
+          "probe_ffn_bwd_recompute", "probe_mm_modnorm_int8", "probe_modnorm",
+          "probe_window_attention_tangent"]
 
 
 @pytest.mark.parametrize("name", PROBES)

@@ -51,7 +51,7 @@ import swift_tpu.ops.pallas_modnorm as pmn
 from swift_torch.models import convert
 from swift_torch.models.precond import PassPrecond as TorchPassPrecond
 from swift_torch.models.swinv2 import SwinV2 as TorchSwinV2
-from swift_torch.ops import block_attention, ffn, window_attention
+from swift_torch.ops import block_attention, ffn, modnorm, window_attention
 from swift_tpu.models.precond import PassPrecond
 from swift_tpu.models.swinv2 import SwinV2, WindowAttention
 from tests.test_torch_jvp import _scm_losses
@@ -83,6 +83,11 @@ LONG_SHAPES = [(1, 2, 257, 8)]
 BWD_ONE_TILE_SHAPES = [(2, 2, 128, 64)]
 BWD_TWO_WALK_SHAPES = [(1, 2, 129, 88)]
 TIE_SHAPES = [(1, 2, 257, 8), (2, 2, 96, 160)]
+# kernel 22t's row form on the card: two walks over key tiles of 64 (d <= 128) or 32 (d 160);
+# its plain version alone, as the forward and backward above miss there; at (1, 2, 96, 160) a
+# few ties of p and dP break differently in XLA and PyTorch (the tie test)
+TANGENT_TWO_WALK_SHAPES = [(1, 2, 129, 88), (1, 2, 257, 8), (1, 2, 129, 160)]
+TANGENT_TIE_SHAPES = [(1, 2, 96, 160)]
 
 
 @pytest.fixture(autouse=True)
@@ -129,7 +134,7 @@ def test_reference_window_attention_matches_jax(shape):
     _close(window_attention.reference_window_attention(*map(_t, (q, k, v, scale))), want)
 
 
-@pytest.mark.parametrize("shape", SHAPES + BWD_ONE_TILE_SHAPES,
+@pytest.mark.parametrize("shape", SHAPES + BWD_ONE_TILE_SHAPES + TANGENT_TWO_WALK_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_sdpa_plain_versions_match_pallas(shape):
     """Kernels 21, 22b and 22t's plain versions with bf16 operand rounding
@@ -143,17 +148,18 @@ def test_sdpa_plain_versions_match_pallas(shape):
     PyTorch's exp still differ in the last bit now and then, which can move
     one bf16 rounding of dS or dP: the gradients and the tangent are held
     at 1e-4 (two such moves in 33,792 outputs read 2.4e-5 at d = 88), the
-    forward at 2e-5."""
+    forward at 2e-5. At ``TANGENT_TWO_WALK_SHAPES`` the tangent alone."""
     q, k, v, do, dq, dk, dv = _few_bit_inputs(shape)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     bf = torch.bfloat16
 
-    _close(window_attention.reference_sdpa(_t(q), _t(k), _t(v), mm=bf), pa._sdpa(jq, jk, jv),
-           err_msg="forward")
-    _, vjp = jax.vjp(pa._sdpa, jq, jk, jv)
-    got = window_attention.reference_sdpa_bwd(_t(q), _t(k), _t(v), _t(do), mm=bf)
-    for g, w, name in zip(got, vjp(jnp.asarray(do)), ("dq", "dk", "dv")):
-        _close(g, w, BF16_STEP_TOL, err_msg=name)
+    if shape not in TANGENT_TWO_WALK_SHAPES:
+        _close(window_attention.reference_sdpa(_t(q), _t(k), _t(v), mm=bf),
+               pa._sdpa(jq, jk, jv), err_msg="forward")
+        _, vjp = jax.vjp(pa._sdpa, jq, jk, jv)
+        got = window_attention.reference_sdpa_bwd(_t(q), _t(k), _t(v), _t(do), mm=bf)
+        for g, w, name in zip(got, vjp(jnp.asarray(do)), ("dq", "dk", "dv")):
+            _close(g, w, BF16_STEP_TOL, err_msg=name)
     want = pa._sdpa_tangent_call(jq, jk, jv, *map(jnp.asarray, (dq, dk, dv)))
     _close(window_attention.reference_sdpa_tangent(*map(_t, (q, k, v, dq, dk, dv)), mm=bf), want,
            BF16_STEP_TOL, err_msg="tangent")
@@ -168,7 +174,7 @@ def _few_bit_inputs(shape):
     return (q, k, *rest)
 
 
-@pytest.mark.parametrize("shape", TIE_SHAPES + BWD_TWO_WALK_SHAPES,
+@pytest.mark.parametrize("shape", TIE_SHAPES + BWD_TWO_WALK_SHAPES + TANGENT_TIE_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_sdpa_plain_versions_differ_from_pallas_only_at_ties(shape):
     """Where test_sdpa_plain_versions_match_pallas's limits do not hold:
@@ -181,12 +187,20 @@ def test_sdpa_plain_versions_differ_from_pallas_only_at_ties(shape):
     exact logits and dp, round to bf16 alike but at a few ties (each within
     1e-4 of a midpoint, relative, in fp64); the Pallas outputs are the
     products of JAX's rounded p and dS, the plain outputs those of
-    PyTorch's, both to 2e-5 (``-s`` prints the counts)."""
-    q, k, v, do, *_ = _few_bit_inputs(shape)
+    PyTorch's, both to 2e-5 (``-s`` prints the counts). At
+    ``TANGENT_TIE_SHAPES`` the same for kernel 22t's tangent: dp is there
+    the tangent logit dS = dq̂·k̂ᵀ + q̂·dk̂ᵀ, the rounded p·(dS − Σ p·dS) is dP,
+    and the outputs are bf16(dP)·v + bf16(p)·dv."""
+    q, k, v, do, dq, dk, dv = _few_bit_inputs(shape)
+    tangent = shape in TANGENT_TIE_SHAPES
     kt = lambda a: np.swapaxes(a, -1, -2)  # noqa: E731
     bf = lambda a: torch.from_numpy(np.array(a, np.float32)).bfloat16().float().numpy()  # noqa: E731
     s64 = q.astype(np.float64) @ kt(k).astype(np.float64)
-    dp = (do.astype(np.float64) @ kt(v).astype(np.float64)).astype(np.float32)
+    if tangent:
+        dp = (dq.astype(np.float64) @ kt(k).astype(np.float64)
+              + q.astype(np.float64) @ kt(dk).astype(np.float64)).astype(np.float32)
+    else:
+        dp = (do.astype(np.float64) @ kt(v).astype(np.float64)).astype(np.float32)
     s = s64.astype(np.float32)  # exact, as is dp
     pj, pt, dpt = pa._softmax_rows(jnp.asarray(s)), torch.softmax(torch.from_numpy(s), -1), _t(dp)
     ps = {"jax": np.asarray(pj), "torch": pt.numpy()}
@@ -210,16 +224,25 @@ def test_sdpa_plain_versions_differ_from_pallas_only_at_ties(shape):
           f"fp64 rounds as JAX, as PyTorch): {ties}")
 
     def products(p, ds):
+        if tangent:
+            return (bf(ds) @ bf(v) + bf(p) @ bf(dv),)
         return (bf(p) @ v, bf(ds) @ bf(k), kt(bf(ds)) @ bf(q), kt(bf(p)) @ bf(do))
 
     jq, jk, jv = map(jnp.asarray, (q, k, v))
-    _, vjp = jax.vjp(pa._sdpa, jq, jk, jv)
-    pallas = [pa._sdpa(jq, jk, jv), *vjp(jnp.asarray(do))]
-    plain = [window_attention.reference_sdpa(_t(q), _t(k), _t(v), mm=torch.bfloat16),
-             *window_attention.reference_sdpa_bwd(_t(q), _t(k), _t(v), _t(do), mm=torch.bfloat16)]
-    for got, want, name in zip(products(ps["jax"], dss["jax"]), pallas, ("o", "dq", "dk", "dv")):
+    mm = torch.bfloat16
+    if tangent:
+        names = ("tangent",)
+        pallas = [pa._sdpa_tangent_call(jq, jk, jv, *map(jnp.asarray, (dq, dk, dv)))]
+        plain = [window_attention.reference_sdpa_tangent(*map(_t, (q, k, v, dq, dk, dv)), mm=mm)]
+    else:
+        names = ("o", "dq", "dk", "dv")
+        _, vjp = jax.vjp(pa._sdpa, jq, jk, jv)
+        pallas = [pa._sdpa(jq, jk, jv), *vjp(jnp.asarray(do))]
+        plain = [window_attention.reference_sdpa(_t(q), _t(k), _t(v), mm=mm),
+                 *window_attention.reference_sdpa_bwd(_t(q), _t(k), _t(v), _t(do), mm=mm)]
+    for got, want, name in zip(products(ps["jax"], dss["jax"]), pallas, names):
         _close(got, want, err_msg=f"Pallas {name}")
-    for got, want, name in zip(products(ps["torch"], dss["torch"]), plain, ("o", "dq", "dk", "dv")):
+    for got, want, name in zip(products(ps["torch"], dss["torch"]), plain, names):
         _close(got, want, err_msg=f"plain {name}")
 
 
@@ -494,3 +517,36 @@ def test_ffn_modnorm_plain_matches_jax():
     for a, w, name in zip(targs, jg, ("dx", "dw1", "dw2", "dg", "db", "dscale", "dshift")):
         _close(a.grad, w, 2e-4, name)
     assert ffn.fused_swiglu_ffn_modnorm.launches == 0
+
+
+@pytest.mark.parametrize("chunk", [None, 48], ids=["one-chunk", "chunks-of-48"])
+def test_ffn_modnorm_two_launch_form_matches_jax(chunk, monkeypatch):
+    """Kernel 20 as the card runs it, in plain form: kernel 5's first pass
+    (``reference_swiglu_hidden``) for each chunk's h, then kernel 3's
+    (``reference_matmul_modnorm_residual`` with the residual x) on each
+    piece of ``ffn_modnorm_pieces``, token m of a piece taking the AdaLN row
+    of sample a // N + m // N as kernel 3 does, against ``reference_swiglu_ffn_modnorm`` at 1e-5 and
+    ``fused_swiglu_ffn_modnorm`` interpreted at the JAX test's shape (B 2, N
+    64, D 32, H 85) at 2e-5; with ``FFN_CHUNK_TOKENS`` lowered to 48 the
+    middle chunk straddles the samples' boundary and takes two pieces."""
+    x, w1, w2, g, b, msc, msh = _ffn_inputs(103)
+    if chunk:
+        monkeypatch.setattr(ffn, "FFN_CHUNK_TOKENS", chunk)
+    B, N, D = x.shape
+    plan = ffn.ffn_modnorm_pieces(B * N, N)
+    assert [len(p) for _, p in plan] == ([1] if chunk is None else [1, 2, 1])
+    tx = _t(x)
+    x2, out = tx.view(-1, D), torch.empty_like(tx).view(-1, D)
+    w1p, w2p = ffn.pad_hidden(_t(w1), _t(w2))
+    for (s, e), pieces in plan:
+        h = ffn.reference_swiglu_hidden(x2[s:e], w1p)
+        for a, z in pieces:  # kernel 3 takes token a + m's AdaLN row from a // N + m // N
+            idx = a // N + torch.arange(z - a) // N
+            out[a:z] = modnorm.reference_matmul_modnorm_residual(
+                h[a - s:z - s, None], w2p, x2[a:z, None], _t(g), _t(b), _t(msc)[idx],
+                _t(msh)[idx])[:, 0]
+    got = out.view(B, N, D)
+    _close(got, ffn.reference_swiglu_ffn_modnorm(*map(_t, (x, w1, w2, g, b, msc, msh))), 1e-5)
+    jargs = (jnp.asarray(x), jnp.asarray(w1.T), jnp.asarray(w2.T)) + tuple(
+        map(jnp.asarray, (g, b, msc, msh)))
+    _close(got, pffn.fused_swiglu_ffn_modnorm(*jargs))

@@ -9,17 +9,21 @@ same points but after sums in other orders):
   1024} tokens a window and d ∈ {4, 8, 88, 128, 160, 256}: every form of
   kernel 21 (tiles of several whole window-heads where n <= 64, n 36 with
   64 ∤ n; a window's keys in one tile up to n 128; the online softmax past
-  it, or past d 128) and of kernel 22b (packed up to n 64 at d <= 128; past
+  it, or past d 128), of kernel 22b (packed up to n 64 at d <= 128; past
   it the query pass in one walk up to n 128, in two from n 129, and the key
-  pass, whose consumers split dv and dk̂ from d 128), their element-wise
-  load path (d 4) and their TMA path;
-* kernels 21 and 22b twice on the same inputs, bit for bit, and with BW·h·n
-  not a multiple of 64 into outputs with guard rows before and after them,
-  which must stay as they were (a store past a tile's live rows would reach
-  rows another block writes);
+  pass, whose consumers split dv and dk̂ from d 128) and of kernel 22t
+  (packed up to n 64 at d <= 128; past it one walk while the keys fit one
+  key tile of 64, 32 past d 128 or 16 past d 192, else two), their
+  element-wise load path (d 4) and their TMA path;
+* kernels 21, 22b and 22t twice on the same inputs, bit for bit, and with
+  BW·h·n not a multiple of 64 into outputs with guard rows before and after
+  them, which must stay as they were (a store past a tile's live rows would
+  reach rows another block writes);
 * the per-head route of the model launching them, and only them, from qkv;
-* 20 at D 1056, H 2816 and at D 32, H 85; kernels 5, 8, 9, 10 and 11 at
-  H = 85, which their wrappers zero-pad to 88.
+* 20 at D 1056, H 2816 and at D 32, H 85, against its plain version and,
+  bit for bit, against its two launches called through their C entries
+  (kernel 5's pass 1, then kernel 3 on the same h); kernels 5, 8, 9, 10 and
+  11 at H = 85, which their wrappers zero-pad to 88.
 
 All are marked ``cuda`` and skip without a card. The file imports neither
 JAX nor flax (the card's machine has no flax): ``python -m pytest
@@ -82,17 +86,18 @@ def test_window_attention_kernels_match_plain(card, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["21", "22b"])
+@pytest.mark.parametrize("kernel", ["21", "22b", "22t"])
 @pytest.mark.parametrize("n,d", [(4, 8), (36, 88), (64, 88), (257, 88), (256, 160), (1024, 88),
                                  (36, 4)])
 def test_window_attention_is_deterministic(card, n, d, kernel):
-    """Kernels 21 and 22b twice on the same inputs: the same bits in every
-    output (no atomics, one order of every sum; for 22b in both passes of
-    its row form)."""
+    """Kernels 21, 22b and 22t twice on the same inputs: the same bits in
+    every output (no atomics, one order of every sum; for 22b in both passes
+    of its row form, for 22t in both walks of its)."""
     q, k = _normalized(card, (max(2, 256 // n), 3, n, d))
-    v, do = _t(card, q.shape), _t(card, q.shape)
-    call = ((lambda: (wa.window_attention(q, k, v),)) if kernel == "21"
-            else (lambda: wa.window_attention_bwd(q, k, v, do)))
+    v, do, tq, tk, tv = (_t(card, q.shape) for _ in range(5))
+    call = {"21": lambda: (wa.window_attention(q, k, v),),
+            "22b": lambda: wa.window_attention_bwd(q, k, v, do),
+            "22t": lambda: (wa.window_attention_tangent(q, k, v, tq, tk, tv),)}[kernel]
     first = call()
     for a, b in zip(first, call()):
         assert torch.equal(a, b)
@@ -146,6 +151,31 @@ def test_window_attention_bwd_leaves_guard_rows(card, bh, n, d):
     _agree(tuple(o.view(q.shape) for o in outs), wa.reference_sdpa_bwd(q, k, v, do), "22b")
     for b in bufs:
         assert (b[:guard] == -7.0).all() and (b[guard + size:] == -7.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,d", [(7, 4, 8), (5, 36, 88), (3, 100, 88), (3, 257, 88),
+                                    (3, 257, 160), (5, 36, 4), (3, 100, 20), (5, 36, 160),
+                                    (5, 20, 256)])
+def test_window_attention_tangent_leaves_guard_rows(card, bh, n, d):
+    """Kernel 22t through its C entry, BW·h·n rows not a multiple of 64: the
+    tangent, written into the middle of a buffer filled with a sentinel,
+    agrees with the plain version, and the 64 rows before and after it keep
+    the sentinel (packed form, row form in one walk and in two, TMA and
+    element-wise paths)."""
+    from swift_torch.ops import _build
+
+    q, k = _normalized(card, (bh, 1, n, d))
+    v, tq, tk, tv = (_t(card, q.shape) for _ in range(4))
+    guard, size = 64 * d, bh * n * d
+    buf = torch.full((2 * guard + size,), -7.0, device="cuda", dtype=torch.bfloat16)
+    out = buf[guard:guard + size]
+    assert out.data_ptr() % 16 == 0
+    _build.check_launch(_build.library().swift_window_attention_tangent(
+        *(t.data_ptr() for t in (q, k, v, tq, tk, tv)), out.data_ptr(), bh, n, d,
+        _build.stream()), "window_attention_tangent")
+    _agree(out.view(q.shape), wa.reference_sdpa_tangent(q, k, v, tq, tk, tv), "22t")
+    assert (buf[:guard] == -7.0).all() and (buf[guard + size:] == -7.0).all()
 
 
 @pytest.mark.cuda
@@ -207,6 +237,54 @@ def test_ffn_modnorm_kernel_matches_plain(card, D, H):
     n0 = ffn.fused_swiglu_ffn_modnorm.launches
     _agree(ffn.fused_swiglu_ffn_modnorm(*args), ffn.reference_swiglu_ffn_modnorm(*args), "20")
     assert ffn.fused_swiglu_ffn_modnorm.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(1056, 2816), (32, 85)])
+def test_ffn_modnorm_equals_hidden_then_kernel_3(card, D, H):
+    """Kernel 20 is kernel 5's pass 1 (``swift_swiglu_hidden``) then kernel
+    3 (``swift_mm_modnorm``) on the same h with the residual x: the wrapper's
+    output equals those two C entries called in turn bit for bit (one chunk
+    and one piece at these shapes, ``ffn_modnorm_pieces``)."""
+    from swift_torch.ops import _build
+
+    rng = card
+    B, N = 2, 512
+    x, w1, w2 = _t(rng, (B, N, D)), _t(rng, (2 * H, D), D ** -0.5), _t(rng, (D, H), H ** -0.5)
+    ep = (1.0 + _t(rng, (D,), 0.1, torch.float32), _t(rng, (D,), 0.1, torch.float32),
+          _t(rng, (B, D), 0.2), _t(rng, (B, D), 0.2))
+    assert ffn.ffn_modnorm_pieces(B * N, N) == [((0, B * N), [(0, B * N)])]
+    got = ffn.fused_swiglu_ffn_modnorm(x, w1, w2, *ep)
+    w1p, w2p = ffn.pad_hidden(w1, w2)
+    Hp = w2p.shape[1]
+    lib, stream = _build.library(), _build.stream()
+    h = torch.empty(B * N, Hp, device="cuda", dtype=torch.bfloat16)
+    want = torch.empty_like(x)
+    _build.check_launch(lib.swift_swiglu_hidden(x.data_ptr(), w1p.data_ptr(), h.data_ptr(),
+                                                B * N, D, Hp, stream), "swiglu_hidden")
+    _build.check_launch(lib.swift_mm_modnorm(
+        h.data_ptr(), w2p.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in ep), want.data_ptr(),
+        B * N, Hp, D, N, 1e-6, stream), "mm_modnorm")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ffn.fused_swiglu_ffn_modnorm(x, w1, w2, *ep), got)
+
+
+@pytest.mark.cuda
+def test_ffn_modnorm_chunks_equal_one_chunk(card, monkeypatch):
+    """Kernel 20 over token chunks of 384 (``FFN_CHUNK_TOKENS`` lowered), the
+    middle one straddling the samples' boundary so that kernel 3 runs on
+    two pieces of it, equals the run in one chunk bit for bit: every row's
+    sums run in the same order wherever its tile lies."""
+    rng = card
+    B, N, D, H = 2, 512, 1056, 2816
+    args = (_t(rng, (B, N, D)), _t(rng, (2 * H, D), D ** -0.5), _t(rng, (D, H), H ** -0.5),
+            1.0 + _t(rng, (D,), 0.1, torch.float32), _t(rng, (D,), 0.1, torch.float32),
+            _t(rng, (B, D), 0.2), _t(rng, (B, D), 0.2))
+    whole = ffn.fused_swiglu_ffn_modnorm(*args)
+    monkeypatch.setattr(ffn, "FFN_CHUNK_TOKENS", 384)
+    assert [len(pieces) for _, pieces in ffn.ffn_modnorm_pieces(B * N, N)] == [1, 2, 1]
+    assert torch.equal(ffn.fused_swiglu_ffn_modnorm(*args), whole)
 
 
 @pytest.mark.cuda
