@@ -80,6 +80,13 @@ Phases, each printed as it finishes:
    steps/s and the store writes' share; then ``build_truth_zarr`` and
    ``eval.metrics.evaluate`` of the bf16 and int8 12x88 stores, whose RMSE
    and CRPS differences it prints (two random-weight forecasts, not skill);
+4c. solvers: the TrigFlow experiment's model (12 x 1056, 12x88 heads, its
+   logvar head) with random weights through ``rollout_to_store`` by
+   ``generate --solver dpm --num-solver-steps 20`` and ``--solver 2s
+   --num-solver-steps 8`` at MB = 4 members x 1 IC x 2 forecast steps: a
+   finite, non-constant store each, and exactly 12 launches of each forward
+   kernel a network evaluation (20 a dpm sample, 15 a 2s one); each
+   forecast step's device time;
 5. train: six full-width steps of ``era5-swinv2-1.4-trigflow`` (config
    composed from the YAML tree, global batch 4, remat, AdamW, EMA) through
    the port's ``Trainer`` over ``SyntheticERA5`` batches from its
@@ -91,6 +98,23 @@ Phases, each printed as it finishes:
 6. gradient cut: a depth-2 cut of the trained network, loss and every
    parameter's gradient through the kernels in bf16 against the fp32 plain
    path on the CPU;
+6b. val: the same experiment with ``trainer.val_ticks=1
+   val_target_interval=4 val_crps_members=2``, two steps at batch 4: every
+   tick ``Trainer._val_step`` rolls 4 initial conditions (an in-memory
+   ``SyntheticERA5RollOut``) out a day from the EMA weights by the
+   experiment's dpm solver, RMSE and a 2-member CRPS; fails unless each
+   tick wrote a ``val_stats.jsonl`` line with the JAX trainer's keys, all
+   finite; prints each validation's wall and peak memory beside the
+   training steps', and one validation under ``torch.profiler``;
+6c. edm: six full-width AdamW steps of ``era5-swinv2-1.4-edm`` (EDMPrecond,
+   EDMLoss) cut as the TrigFlow slice, then ``generate.main --solver edm
+   --num-solver-steps 20`` from its checkpoint at MB = 4 x 1 step (39
+   evaluations: exact launches, a finite, non-constant store) and that
+   step's device time;
+6d. EDM and solver cuts, depth 2 against the fp32 plain path on the CPU:
+   EDMLoss and every gradient at fixed sigma and n, ``dpm_solver`` at 20
+   steps and ``edm_sampler`` at 20 steps with edm.yaml's churn, batch 1,
+   the same latents and noise (SOLVER_CUT_TOL);
 7. scm: six full-width steps of ``era5-swinv2-1.4-scm``, the default
    experiment (SCMLoss with its jvp forward through the tangent kernels,
    Muon with aux-Adam, EMA, remat), cut like the TrigFlow slice, then one
@@ -175,7 +199,7 @@ from swift_torch import factory
 from swift_torch.data.pipeline import BatchLoader
 from swift_torch.data.samplers import InfiniteSampler
 from swift_torch.data.h52zarr import build_truth_zarr
-from swift_torch.data.synthetic import SyntheticERA5
+from swift_torch.data.synthetic import SyntheticERA5, SyntheticERA5RollOut
 from swift_torch import generate
 from swift_torch.eval import metrics
 from swift_torch.generate import read_store, rollout_to_store
@@ -249,6 +273,7 @@ from swift_torch.ops.window_attention import (
     window_attention_tangent,
 )
 from swift_torch.sampling.factory import sampler_factory
+from swift_torch.train import rollout_batches
 from swift_torch.training.trainer import Trainer, muon_param_labels, swin_flop_count
 from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 
@@ -369,6 +394,33 @@ WIN8_ROLLOUT = {**ROLLOUT, "steps": 2}
 # gate says block (a 256-lane padded tile fits its 24 MB); kernels 2/6/7 take d <= 128, so
 # the port runs the per-head kernels. One full-width forward at MB = 4.
 D160_MODEL = {**MODEL, "heads": 8, "head_dim": 160}
+# the multistep solvers: the TrigFlow experiment's model (MODEL, its logvar head) with random
+# weights through rollout_to_store at MB = 4 members x 1 IC x 2 forecast steps, with
+# generate's solver kwargs (sigma 0.02-200, the interval's auxiliary): dpm_solver at 20 steps
+# and dpm_solver_2s at 8; every network evaluation runs each forward kernel once a block
+SOLVER_ROLLOUT = dict(members=4, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
+                      dump="zarr")
+SOLVER_RUNS = (("dpm", 20), ("2s", 8))
+EVALS = {"dpm": lambda n: n, "2s": lambda n: 2 * n - 1,  # network evaluations a sample:
+         "edm": lambda n: 2 * n - 1}  # Heun's steps take two, the last (Euler) one
+# the EDM family: swift_tpu/configs/experiment/era5-swinv2-1.4-edm.yaml (EDMPrecond, EDMLoss,
+# the edm solver, AdamW; the flagship model without a logvar head), cut as TRAIN is; then
+# generate --solver edm --num-solver-steps 20 from its checkpoint, MB = 4 x 1 step
+EDM_EXPERIMENT = "era5-swinv2-1.4-edm"
+EDM_MODEL = {**MODEL, "logvar": False}
+EDM_ROLLOUT = {**SOLVER_ROLLOUT, "steps": 1, "segment": 1}
+# depth-2 cuts of the samplers, batch 1 with the same latents and noise, kernels bf16 on the
+# card against the plain path fp32 on the CPU: max|sample - plain| / max|plain| for
+# dpm_solver at 20 steps (dpm.yaml's use_pp) and edm_sampler at 20 steps with edm.yaml's
+# churn; stated in PERF.md before the first run. The EDMLoss cut (fixed sigma and n) is held
+# to CUT_LOSS_TOL and CUT_GRAD_TOL, as the TrigFlow cut.
+SOLVER_CUT_TOL = 5e-2
+# online validation: the TrigFlow trainer validating every tick on a 4-step (one day)
+# rollout of val_local_batch_size = 4 initial conditions, RMSE and a 2-member CRPS, by the
+# experiment's dpm solver; two steps at batch 4, a tick each
+VAL_TRAIN = dict(batch=4, steps=2, steps_per_tick=1)
+VAL_OVERRIDES = ("trainer.val_ticks=1", "trainer.val_target_interval=4",
+                 "trainer.val_crps_members=2", "trainer.checkpoint_ticks=null")
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 
@@ -1764,6 +1816,9 @@ def build_trainer(cfg: dict, tag: str, run: str, model: dict = MODEL, res=RESOLU
         total_kimg=float(tcfg["total_kimg"]), ema_halflife_kimg=float(tcfg["ema_halflife_kimg"]),
         ema_rampup_ratio=tcfg.get("ema_rampup_ratio", 0.05),
         kimg_per_tick=float(tcfg["kimg_per_tick"]), checkpoint_ticks=tcfg["checkpoint_ticks"],
+        val_ticks=tcfg.get("val_ticks"), val_target_interval=int(tcfg["val_target_interval"]),
+        val_variables=tcfg.get("val_variables"),
+        val_crps_members=int(tcfg.get("val_crps_members") or 0), solver_kwargs=cfg.get("solver"),
         run_dir=os.path.join(WORK, run), flop_count=flops, seed=0,
     )
     log(f"[{tag}] {cfg['experiment_name']}: "
@@ -1775,15 +1830,16 @@ def build_trainer(cfg: dict, tag: str, run: str, model: dict = MODEL, res=RESOLU
 
 
 def run_training(trainer, loader, flops: float, card: str, tag: str, expect,
-                 note: str = "") -> dict:
-    """Train through ``trainer.train`` with the launch counts reset just
-    before and read just after; fails unless loss and grad norm stayed
-    finite, every parameter moved and no kernel outside ``expect`` (the
-    path's kernels) launched. Returns the counts."""
+                 note: str = "", val: tuple = ()) -> dict:
+    """Train through ``trainer.train`` (with ``val`` = (val_batches,
+    val_dataset) when given) with the launch counts reset just before and
+    read just after; fails unless loss and grad norm stayed finite, every
+    parameter moved and no kernel outside ``expect`` (the path's kernels)
+    launched. Returns the counts."""
     net = trainer.net
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     reset_launches()
-    trainer.train(loader)
+    trainer.train(loader, *val)
     torch.cuda.synchronize()
     launches = read_launches()
     steps = trainer.updates
@@ -1860,7 +1916,8 @@ def phase_scm(card: str, sl: ScmSlice):
     Returns (launches of the cut's steps, the config, the state dict after
     all of them and the r = 1 step)."""
     tag = sl.tag
-    cfg = train_config(sl.experiment, *sl.overrides, cut=sl.cut)
+    # no checkpoint: nothing reads this slice's (each save of the state took 4-9 s)
+    cfg = train_config(sl.experiment, *sl.overrides, "trainer.checkpoint_ticks=null", cut=sl.cut)
     dataset, loader, trainer, flops = build_trainer(cfg, tag, tag, sl.model, sl.res, sl.n_files)
     opt = trainer.optimizer
     groups = {g["kind"]: {id(p) for p in g["params"]} for g in opt.param_groups}
@@ -2594,6 +2651,240 @@ def phase_d160(card: str) -> dict:
     return launches
 
 
+# -- the multistep solvers, the EDM family and online validation ---------------------------
+
+
+def solver_step_ms(net, mode: str, num_steps: int, reps: int = 2) -> float:
+    """Device milliseconds of one forecast step (one sample) at MB = 4 by
+    ``mode`` with generate's kwargs, CUDA events, median of ``reps`` after
+    three warm-up calls."""
+    sampler = sampler_factory(mode, net, num_steps=num_steps, sigma_min=0.02, sigma_max=200.0,
+                              auxiliary=0.6)
+    cond = torch.randn(4, *RESOLUTION, len(VARIABLES) + len(FORCINGS), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        return time_ms(lambda: sampler(cond, gen), reps=reps)
+
+
+def _solver_rollout(run, rollout: dict, tag: str, mode: str, n: int, card: str) -> dict:
+    """``run()`` (a forecast that returns its store) with the counts reset
+    just before and read just after: exact launches (each forward kernel 12
+    times an evaluation), a finite, non-constant store. Returns the
+    counts."""
+    reset_launches()
+    t0 = time.perf_counter()
+    ofile = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    samples = rollout["steps"] * rollout["samples"] // rollout["batch"]
+    evals = EVALS[mode](n)
+    _exact(launches, dict.fromkeys(FORWARD, MODEL["depth"]), evals * samples, tag)
+    check_store(ofile, rollout, RESOLUTION, tag)
+    log(f"[{tag}] {mode} at {n} steps: {samples} samples at MB = "
+        f"{rollout['members'] * rollout['batch']}, {evals} network evaluations each, exact "
+        f"launches ({MODEL['depth'] * evals * samples} of each forward kernel, the others "
+        f"never); {wall:.2f} s end to end ({card})")
+    return launches
+
+
+def phase_solvers(card: str):
+    """The TrigFlow experiment's model with random weights, forecast through
+    ``rollout_to_store`` by dpm_solver at 20 steps and dpm_solver_2s at 8;
+    each forecast step's device time. Returns (the config, the weights)."""
+    cfg = train_config(TRAIN_EXPERIMENT)
+    check_config(cfg, MODEL)
+    net = factory.build_precond(cfg["precond"], cfg["model"], RESOLUTION, len(VARIABLES),
+                                len(VARIABLES) + len(FORCINGS), sigma_max_override=float("inf"))
+    random_weights(net, seed=2)
+    net = net.cuda().eval()
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=6, shape=RESOLUTION, seed=0)
+    for mode, n in SOLVER_RUNS:
+        args = argparse.Namespace(**SOLVER_ROLLOUT, solver=mode, num_solver_steps=n)
+        out = os.path.join(WORK, f"solver-{mode}")
+        _solver_rollout(lambda: rollout_to_store(args, dataset, net, out)[0], SOLVER_ROLLOUT,
+                        f"solver-{mode}", mode, n, card)
+        ms = solver_step_ms(net, mode, n)
+        log(f"[solver-{mode}] one forecast step at MB = 4, {mode} at {n} steps: {ms:.2f} ms on "
+            f"the device (median of 2), {ms / EVALS[mode](n):.2f} ms an evaluation ({card})")
+    weights = {k: v.detach().float().cpu() for k, v in net.state_dict().items()}
+    del net
+    torch.cuda.empty_cache()
+    return cfg, weights
+
+
+def phase_edm(card: str):
+    """``era5-swinv2-1.4-edm`` at flagship width: six AdamW steps through the
+    Trainer (EDMPrecond, EDMLoss), then ``generate --solver edm
+    --num-solver-steps 20`` from its checkpoint. Returns (the config, the
+    trained state dict)."""
+    tag = "edm"
+    cfg = train_config(EDM_EXPERIMENT)
+    dataset, loader, trainer, flops = build_trainer(cfg, tag, tag, EDM_MODEL, RESOLUTION)
+    kinds = (type(trainer.net).__name__, type(trainer.loss_fn).__name__, trainer.solver_type)
+    if kinds != ("EDMPrecond", "EDMLoss", "edm"):
+        raise AssertionError(f"[{tag}] built {kinds}")
+    launches = run_training(trainer, loader, flops, card, tag, TRIGFLOW)
+    missing = [name for name in TRIGFLOW if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"[{tag}] training never launched {missing}")
+    run_dir = trainer.run_dir
+    cfglib.save_config(cfg, os.path.join(run_dir, ".hydra", "config.yaml"))
+    trained = {k: v.detach().float().cpu() for k, v in trainer.net.state_dict().items()}
+    del trainer, loader
+    torch.cuda.empty_cache()
+
+    argv = ["--input", run_dir, "--output", os.path.join(WORK, "edm_out"), "--solver", "edm",
+            "--num-solver-steps", "20"] + [f"--{k}={v}" for k, v in EDM_ROLLOUT.items()]
+    args = generate.parser.parse_args(argv)
+    _solver_rollout(lambda: generate.main(args, dataset=dataset), EDM_ROLLOUT, "edm-generate",
+                    "edm", 20, card)
+    ema = factory.build_precond(cfg["precond"], cfg["model"], RESOLUTION, len(VARIABLES),
+                                len(VARIABLES) + len(FORCINGS), sigma_max_override=float("inf"))
+    ema.load_state_dict(load_checkpoint(latest_checkpoint(os.path.join(run_dir, "checkpoints"))))
+    ms = solver_step_ms(ema.cuda().eval(), "edm", 20)
+    log(f"[edm-generate] one forecast step at MB = 4, EDM Heun at 20 steps: {ms:.2f} ms on the "
+        f"device (median of 2), {ms / EVALS['edm'](20):.2f} ms an evaluation ({card})")
+    del ema
+    torch.cuda.empty_cache()
+    return cfg, trained
+
+
+def cut_net(cfg: dict, sd: dict, dtype: torch.dtype, device: str):
+    """A depth-2 cut of a config's network (its precond and model) with the
+    first two blocks of ``sd``."""
+    net = factory.build_precond(cfg["precond"], {**cfg["model"], "depth": 2}, RESOLUTION,
+                                len(VARIABLES), len(VARIABLES) + len(FORCINGS), dtype=dtype)
+    net.load_state_dict({k: v for k, v in sd.items()
+                         if ".layers." not in k or int(k.split(".layers.")[1].split(".")[0]) < 2})
+    return net.to(device)
+
+
+def solver_cut(tag: str, cfg: dict, sd: dict, mode: str, kwargs: dict, noise_steps: int = 0):
+    """A sampler through a depth-2 cut of ``sd``, batch 1, fixed latents,
+    condition and noise: the kernels in bf16 on the card against the plain
+    path in fp32 on the CPU, held to SOLVER_CUT_TOL."""
+    rng = np.random.default_rng(6)
+    H, W = RESOLUTION
+    lat = torch.from_numpy(rng.standard_normal((1, H, W, len(VARIABLES)), dtype=np.float32))
+    cond = torch.from_numpy(
+        rng.standard_normal((1, H, W, len(VARIABLES) + len(FORCINGS)), dtype=np.float32))
+    gen = torch.Generator().manual_seed(7)
+    noise = [torch.randn(lat.shape, generator=gen) for _ in range(noise_steps)]
+    out, secs = {}, {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        net = cut_net(cfg, sd, dtype, dev).eval()
+        sampler = sampler_factory(mode, net, **kwargs, **({"noise": noise} if noise else {}))
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[dev] = sampler(cond.to(dev), latents=lat.to(dev)).float().cpu()
+        secs[dev] = time.perf_counter() - t0
+        del net
+    got, want = out["cuda"], out["cpu"]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    l2 = ((got - want).norm() / want.norm()).item()
+    log(f"[{tag}] depth-2 {mode}, {kwargs['num_steps']} steps, batch 1, the same latents"
+        f"{' and noise' if noise else ''}: kernels bf16 vs plain fp32 (CPU) rel max err "
+        f"{rel:.3e} (limit {SOLVER_CUT_TOL}), rel L2 {l2:.3e}; max|sample| "
+        f"{want.abs().max().item():.3f}; card {secs['cuda']:.1f} s, CPU {secs['cpu']:.1f} s")
+    if not torch.isfinite(got).all() or not rel <= SOLVER_CUT_TOL:
+        raise AssertionError(f"[{tag}] the cut disagrees with the plain path: {rel}")
+
+
+def phase_edm_cuts(edm_cfg: dict, edm_trained: dict, dpm_cfg: dict, dpm_weights: dict) -> None:
+    """Depth-2 cuts against the fp32 plain path on the CPU: EDMLoss and every
+    gradient at fixed sigma and n (the trained EDM net), dpm_solver at 20
+    steps (the solver phase's weights) and edm_sampler at 20 steps with
+    edm.yaml's churn (the trained EDM net)."""
+    sd, dataset, x, cond, aux = cut_inputs(edm_trained, RESOLUTION)
+    loss_fn = factory.build_loss(edm_cfg["loss"], dataset)
+    sigma, n = loss_fn.draw(x, torch.Generator().manual_seed(4))
+    weight = (sigma ** 2 + loss_fn.sigma_data ** 2) / (sigma * loss_fn.sigma_data) ** 2
+    log(f"[edm-cut] sigma {[round(v, 4) for v in sigma.flatten().tolist()]}, EDM weight "
+        f"{[round(v, 2) for v in weight.flatten().tolist()]}")
+    out = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        cut = cut_net(edm_cfg, sd, dtype, dev).train()
+        loss = loss_fn.value(cut, x.to(dev), sigma.to(dev), n.to(dev), cond.to(dev),
+                             aux.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), {k: p.grad.detach().float().cpu()
+                                  for k, p in cut.named_parameters()})
+        del cut, loss
+    check_cut("edm-cut", out, {}, (None, CUT_LOSS_TOL, CUT_GRAD_TOL))
+    torch.cuda.empty_cache()
+    solver_cut("dpm-cut", dpm_cfg, dpm_weights, "dpm", {**dpm_cfg["solver"], "num_steps": 20})
+    solver_cut("edm-sampler-cut", edm_cfg, edm_trained, "edm", edm_cfg["solver"], noise_steps=20)
+    torch.cuda.empty_cache()
+
+
+def phase_val(card: str) -> dict:
+    """Online validation inside TrigFlow training at flagship width: every
+    tick ``Trainer._val_step`` rolls one batch of 4 initial conditions out 4
+    steps from the EMA (the experiment's dpm solver), RMSE and a 2-member
+    CRPS. Fails unless each tick wrote a ``val_stats.jsonl`` line with the
+    JAX trainer's keys, all finite. Prints each validation's wall and peak
+    memory beside the training steps' peak, and one validation's device time
+    under torch.profiler. Returns the launches of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = "val"
+    cfg = train_config(TRAIN_EXPERIMENT, *VAL_OVERRIDES, cut=VAL_TRAIN)
+    dataset, loader, trainer, flops = build_trainer(cfg, tag, tag, MODEL, RESOLUTION)
+    tcfg = cfg["trainer"]
+    val_ds = SyntheticERA5RollOut(int(tcfg["val_target_interval"]), VARIABLES, FORCINGS,
+                                  n_files=12, shape=RESOLUTION, seed=5)
+    val_batches = rollout_batches(val_ds, int(cfg["data"]["val_local_batch_size"]), 0)
+    runs, step = [], trainer._val_step
+
+    def measured(*args):
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30,
+                     train_peak))
+        return out
+
+    trainer._val_step = measured
+    torch.cuda.reset_peak_memory_stats()
+    launches = run_training(trainer, loader, flops, card, tag, TRIGFLOW,
+                            note=", its tick's validation included", val=(val_batches, val_ds))
+    lines = [json.loads(line) for line in
+             open(os.path.join(trainer.run_dir, "val_stats.jsonl")).read().splitlines()]
+    ticks = len(trainer.history["train/tick"])
+    selected = [v for v in tcfg["val_variables"] if v in VARIABLES] or VARIABLES
+    want = {"train/kimg", "val/tick", "val/rmse", "val/crps",
+            *(f"val/{m}/{v}" for m in ("rmse", "crps") for v in selected)}
+    if len(lines) != ticks or len(runs) != ticks or not lines:
+        raise AssertionError(f"[{tag}] {len(lines)} validation lines for {ticks} ticks")
+    for line in lines:
+        if set(line) != want:
+            raise AssertionError(f"[{tag}] val_stats keys {sorted(line)}, expected {sorted(want)}")
+        if not all(np.isfinite(v).all() for v in line.values()):
+            raise AssertionError(f"[{tag}] non-finite validation metrics: {line}")
+    last = lines[-1]
+    log(f"[{tag}] {len(lines)} validations ({trainer.solver_type} solver, "
+        f"{trainer.solver_kwargs}): val/rmse {[round(x['val/rmse'], 4) for x in lines]}, "
+        f"val/crps {[round(x['val/crps'], 4) for x in lines]}; {selected[0]} rmse by day "
+        f"{last[f'val/rmse/{selected[0]}']}; keys as the JAX trainer's ({len(want)})")
+    for i, (wall, peak, train_peak) in enumerate(runs):
+        log(f"[{tag}] validation {i}: {wall:.3f} s wall, peak device memory {peak:.2f} GiB "
+            f"(the training steps before it: {train_peak:.2f} GiB) ({card})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()  # the profiler's start-up, outside the wall
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(val_batches, val_ds, ticks, 0, None)
+        torch.cuda.synchronize()
+    log_profile(prof, time.perf_counter() - t0, card, tag, "one validation (RMSE + CRPS)", 12)
+    del trainer._val_step, trainer, step  # the wrapper held the trainer in a cycle
+    torch.cuda.empty_cache()
+    return launches
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Every kernel wrapper takes its plain PyTorch version for CUDA tensors
@@ -2608,36 +2899,52 @@ def plain_on_card():
         _build.on_cpu = on_cpu
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall time logged under the phase's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     card = phase_environment()
-    phase_build()
-    record = phase_kernels()
+    timed("build", phase_build)
+    record = timed("kernels", phase_kernels)
     try:
-        forecast = phase_slice(card)
-        int8, int8_store = phase_int8(card, MODEL, "int8")
-        phase_int8(card, HD128_MODEL, "int8-hd128")
-        phase_scoring(os.path.join(WORK, "out", os.path.basename(int8_store)), int8_store)
-        trigflow, cfg, trained = phase_train(card)
-        phase_grad_cut(cfg, trained)
-        launches, cfg, trained = phase_scm(card, SCM)
-        phase_scm_cut(cfg, trained, SCM)
+        forecast = timed("slice", phase_slice, card)
+        int8, int8_store = timed("int8", phase_int8, card, MODEL, "int8")
+        timed("int8-hd128", phase_int8, card, HD128_MODEL, "int8-hd128")
+        timed("scoring", phase_scoring, os.path.join(WORK, "out", os.path.basename(int8_store)),
+              int8_store)
+        dpm_cfg, dpm_weights = timed("solvers", phase_solvers, card)
+        trigflow, cfg, trained = timed("train", phase_train, card)
+        timed("cut", phase_grad_cut, cfg, trained)
+        val = timed("val", phase_val, card)
+        edm_cfg, edm_trained = timed("edm", phase_edm, card)
+        timed("edm-cuts", phase_edm_cuts, edm_cfg, edm_trained, dpm_cfg, dpm_weights)
+        del dpm_weights, edm_trained
+        launches, cfg, trained = timed("scm", phase_scm, card, SCM)
+        timed("scm-cut", phase_scm_cut, cfg, trained, SCM)
         del trained
-        quarter_forecast = phase_quarter_forecast(card)
-        phase_quarter_int8(card)
-        quarter, cfg, trained = phase_scm(card, QUARTER_SCM)
-        phase_scm_cut(cfg, trained, QUARTER_SCM)
+        quarter_forecast = timed("quarter-forecast", phase_quarter_forecast, card)
+        timed("quarter-int8", phase_quarter_int8, card)
+        quarter, cfg, trained = timed("quarter-scm", phase_scm, card, QUARTER_SCM)
+        timed("quarter-cut", phase_scm_cut, cfg, trained, QUARTER_SCM)
         del trained
-        ffn_mn = phase_ffn_modnorm(card)
-        tiny = phase_tiny(card)
-        win8_forecast = phase_win8_forecast(card)
-        win8, cfg, trained = phase_scm(card, WIN8_SCM)
-        phase_scm_cut(cfg, trained, WIN8_SCM)
+        ffn_mn = timed("ffn-modnorm", phase_ffn_modnorm, card)
+        tiny = timed("tiny", phase_tiny, card)
+        win8_forecast = timed("win8", phase_win8_forecast, card)
+        win8, cfg, trained = timed("win8-scm", phase_scm, card, WIN8_SCM)
+        timed("win8-cut", phase_scm_cut, cfg, trained, WIN8_SCM)
         del trained
-        d160 = phase_d160(card)
+        d160 = timed("d160", phase_d160, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    log(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
     log(f"[train] launches: forecast {forecast}, int8 forecast {int8}, TrigFlow training "
-        f"{trigflow}, sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
+        f"{trigflow} (with online validation {val}), sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
         f"training {quarter}, synthetic-tiny-scm training {tiny}, 8x8-window forecast "
         f"{win8_forecast} and sCM training {win8}, d = 160 forward {d160}")
     # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, the int8

@@ -1,5 +1,6 @@
 """Rehearse ``chip_smoke.py``'s 0.25° phases, its sCM slices, its int8
-forecast and scoring phases and its per-head phases (kernel 20's entry,
+forecast and scoring phases, its solver, online-validation and EDM phases
+with their cuts, and its per-head phases (kernel 20's entry,
 ``synthetic-tiny-scm`` through training and ``generate.main``, bf16 and
 ``--int8``, the 8x8-window forecast, sCM steps and cuts, the d = 160
 forward) on the CPU.
@@ -13,9 +14,11 @@ functions with every wrapper on its plain PyTorch version at a tiny width
 timer returns 1 ms, and the launch counts read back what each phase
 expects. It finds wrong paths, shapes and control flow before a chip call.
 The int8 phases (the flagship's bf16 forecast, its int8 forecast at two
-head layouts, the scoring of both stores, the 0.25° int8 forward) read real
-counts instead: every kernel wrapper the model calls adds one to its count
-as it would on the card.
+head layouts, the scoring of both stores, the 0.25° int8 forward) and the
+solver, validation and EDM phases read real counts instead: every forward
+kernel wrapper the model calls adds one to its count as it would on the
+card (the backward kernels count nothing here, so the EDM phase is held to
+the forward kernels only).
 The per-head phases read the launch counts each phase states (the
 rehearsal hands them back), at width 32 (the tiny experiment at its own
 width) on 16x32- and 32x64-pixel grids.
@@ -114,8 +117,31 @@ def rehearse_int8(read_launches) -> None:
         cs.phase_int8("CPU rehearsal", cs.HD128_MODEL, "int8-hd128")
         cs.phase_scoring(os.path.join(cs.WORK, "out", os.path.basename(store)), store)
         cs.phase_quarter_int8("CPU rehearsal")
+        rehearse_solvers_val_edm()
     finally:
         torch.Generator = generator
+
+
+def rehearse_solvers_val_edm() -> None:
+    """The solver phase (dpm-20, 2s-8), online validation inside TrigFlow
+    training, the EDM phase and the EDM and sampler cuts, at width 32 with
+    whole-grid 16x16 windows on a 16x32-token grid; the cuts' limits
+    opened."""
+    whole = {**TINY, "window_size": [16, 16], "shift_size": [8, 0]}
+    base = cs.train_config
+    cs.train_config = lambda exp, *extra, cut=cs.TRAIN: base(
+        exp, *(f"model.{k}={v}".replace(" ", "") for k, v in whole.items()), *extra, cut=cut)
+    cs.EDM_MODEL = {**cs.MODEL, "logvar": False}
+    cs.TRIGFLOW = cs.FORWARD
+    cs.SOLVER_CUT_TOL = cs.CUT_LOSS_TOL = cs.CUT_GRAD_TOL = 0.5
+    cs.generate.resolve_device = lambda name: torch.device("cpu")
+    try:
+        dpm_cfg, dpm_weights = cs.phase_solvers("CPU rehearsal")
+        cs.phase_val("CPU rehearsal")
+        edm_cfg, edm_trained = cs.phase_edm("CPU rehearsal")
+        cs.phase_edm_cuts(edm_cfg, edm_trained, dpm_cfg, dpm_weights)
+    finally:
+        cs.train_config = base
 
 
 def rehearse_per_head(queue: list) -> None:
@@ -173,9 +199,9 @@ def main() -> None:
     cs.quarter_kernels(np.random.default_rng(0), {})
 
     expected.update({k: 0 for k in kernels})
-    expected.update({k: 24 for k in ("linear", "tiled_block_attention",
-                                     "matmul_modnorm_residual", "modnorm_residual",
-                                     "swiglu_ffn")})  # 12 a forward, 2 forwards
+    expected.update({k: 12 * cs.QUARTER_ROLLOUT["steps"]  # 12 a forward, one a step
+                     for k in ("linear", "tiled_block_attention", "matmul_modnorm_residual",
+                               "modnorm_residual", "swiglu_ffn")})
     generator = torch.Generator
     torch.Generator = lambda device=None: generator()
     cs.phase_quarter_forecast("CPU rehearsal")

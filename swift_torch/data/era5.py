@@ -221,3 +221,28 @@ class ERA5Dataset:
         t = self.standardize_t(t, delta).astype(np.float32)  # (H, W, C)
         return (x, t), (idx, np.float32(delta / 10.0))
 
+
+
+class ERA5RollOutDataset(ERA5Dataset):
+    """Validation rollout dataset: the standardized initial condition (H, W,
+    C), the unstandardized targets at the 6 h lead and at each day's end
+    (days + 1, H, W, C), and the index."""
+
+    def __init__(self, interval: int, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.interval = interval
+
+    def __len__(self) -> int:
+        return len(self.files[: -self.interval])
+
+    def __getitem__(self, idx: int):
+        idx = int(idx)
+        x = self.standardize_x(self._load_file(self.files[idx], self.variables)).astype(np.float32)
+        num_interval_per_day = 4
+        assert self.interval >= num_interval_per_day, "cannot even predict one day"
+        strt = idx + num_interval_per_day
+        t_lst = [self._load_file(self.files[idx + 1], self.variables)]  # the 6 h lead
+        for i in range(strt, strt + self.interval, num_interval_per_day):
+            t_lst.append(self._load_file(self.files[i], self.variables))
+        t = np.stack(t_lst, axis=0).astype(np.float32)
+        return x, t, idx

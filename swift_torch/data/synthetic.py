@@ -7,6 +7,8 @@ normal fields, unit state stds and residual stds of √2, made from a seed
 and held in memory: a residual dataset over the 6/12/24 h intervals, one
 file every 6 h from 2000-01-01. ``files`` are time indices; the
 standardisation, SST zeroing and channel slicing are ``ERA5Dataset``'s own.
+``SyntheticERA5RollOut`` is its ``ERA5RollOutDataset`` form (the
+validation rollout's items), for online validation without h5py.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Sequence
 
 import numpy as np
 
-from swift_torch.data.era5 import ERA5Dataset
+from swift_torch.data.era5 import ERA5Dataset, ERA5RollOutDataset
 
 
 class SyntheticERA5(ERA5Dataset):
@@ -59,3 +61,12 @@ class SyntheticERA5(ERA5Dataset):
 
     def get_time(self, idx: int) -> np.datetime64:
         return self._t0 + np.timedelta64(6 * int(idx), "h")
+
+
+class SyntheticERA5RollOut(SyntheticERA5, ERA5RollOutDataset):
+    """The same fields as rollout items: ``ERA5RollOutDataset.__len__`` and
+    ``__getitem__`` over ``target_interval`` 6 h steps."""
+
+    def __init__(self, interval: int, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.interval = interval

@@ -4,10 +4,10 @@ Counterpart of ``swift_tpu/factory.py`` for the ported pieces: the same
 ``_target_`` suffixes and config keys, so a run's saved config builds the
 same network in either package. Ported: SwinV2 (learned or factorized
 position embedding, ``quant="int8"`` for the int8 forecast) under
-PassPrecond over the ERA5 dataset, the TrigFlow
-and sCM losses, Adam/AdamW with the reference's decay grouping, and Muon
-with aux-Adam by the JAX package's labels, each with the reference lr
-schedule. Any other target raises.
+PassPrecond or EDMPrecond over the ERA5 dataset and its rollout form, the
+EDM, TrigFlow and sCM losses, Adam/AdamW with the reference's decay
+grouping, and Muon with aux-Adam by the JAX package's labels, each with the
+reference lr schedule. Any other target raises.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ from typing import Optional
 
 import torch
 
-from swift_torch.data.era5 import ERA5Dataset
-from swift_torch.models.precond import PassPrecond
+from swift_torch.data.era5 import ERA5Dataset, ERA5RollOutDataset
+from swift_torch.models.precond import EDMPrecond, PassPrecond
 from swift_torch.models.swinv2 import SwinV2
-from swift_torch.training.loss import SCMLoss, TrigFlowLoss
+from swift_torch.training.loss import EDMLoss, SCMLoss, TrigFlowLoss
 from swift_torch.training.optimizers.muon import MuonWithAuxAdam
 from swift_torch.training.trainer import adamw_decay_mask, lr_schedule, muon_param_labels
 
@@ -34,19 +34,30 @@ def _infinity(v) -> float:
     return float(v)
 
 
-def build_dataset(data_cfg: dict, split: Optional[str] = None) -> ERA5Dataset:
-    ds_cfg = dict(data_cfg["dataset"])
-    target = _suffix(ds_cfg.pop("_target_", "ERA5Dataset"))
-    if target != "ERA5Dataset":
-        raise ValueError(f"dataset target {target!r} is not ported (only ERA5Dataset)")
-    return ERA5Dataset(
+def _dataset_kwargs(ds_cfg: dict, split: str) -> dict:
+    return dict(
         root=ds_cfg["root"],
         variables=list(ds_cfg["variables"]),
         forcings=list(ds_cfg.get("forcings", []) or []),
         intervals=list(ds_cfg.get("intervals", [6, 12, 24])),
-        split=split or ds_cfg.get("split", "train"),
+        split=split,
         residual=bool(ds_cfg.get("residual", False)),
     )
+
+
+def build_dataset(data_cfg: dict, split: Optional[str] = None, **extra) -> ERA5Dataset:
+    ds_cfg = dict(data_cfg["dataset"])
+    target = _suffix(ds_cfg.pop("_target_", "ERA5Dataset"))
+    kwargs = {**_dataset_kwargs(ds_cfg, split or ds_cfg.get("split", "train")), **extra}
+    if target == "ERA5RollOutDataset":
+        return ERA5RollOutDataset(**kwargs)
+    if target == "ERA5Dataset":
+        return ERA5Dataset(**kwargs)
+    raise ValueError(f"unknown dataset target: {target}")
+
+
+def build_rollout_dataset(data_cfg: dict, interval: int, split: str = "val") -> ERA5RollOutDataset:
+    return ERA5RollOutDataset(interval=interval, **_dataset_kwargs(dict(data_cfg["dataset"]), split))
 
 
 def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels: int,
@@ -77,15 +88,16 @@ def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels:
 
 def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channels: int,
                   condition_channels: int, dtype: torch.dtype = torch.bfloat16,
-                  sigma_max_override: Optional[float] = None) -> PassPrecond:
+                  sigma_max_override: Optional[float] = None):
     cfg = dict(precond_cfg)
     target = _suffix(cfg.pop("_target_", "PassPrecond"))
-    if target != "PassPrecond":
-        raise ValueError(f"precond target {target!r} is not ported (only PassPrecond)")
+    precond = {"PassPrecond": PassPrecond, "EDMPrecond": EDMPrecond}.get(target)
+    if precond is None:
+        raise ValueError(f"unknown precond target: {target}")
     auxiliary_dim = int(cfg.get("auxiliary_dim", 0))
     model = build_model(model_cfg, img_resolution, img_channels + condition_channels,
                         img_channels, auxiliary_dim=auxiliary_dim, dtype=dtype)
-    return PassPrecond(
+    return precond(
         model=model,
         img_resolution=tuple(img_resolution),
         img_channels=img_channels,
@@ -102,14 +114,17 @@ def build_loss(loss_cfg: dict, dataset):
     cfg = dict(loss_cfg)
     target = _suffix(cfg.pop("_target_", ""))
     common = dict(lat_dim=dataset.img_resolution[0], variables=list(dataset.variables),
-                  noise=dict(cfg["noise"]), sigma_data=float(cfg.get("sigma_data", 1.0)))
+                  noise=dict(cfg["noise"]))
+    if target == "EDMLoss":
+        return EDMLoss(**common, sigma_data=float(cfg.get("sigma_data", 0.5)))
+    common["sigma_data"] = float(cfg.get("sigma_data", 1.0))
     if target == "TrigFlowLoss":
         return TrigFlowLoss(**common)
     if target == "SCMLoss":
         return SCMLoss(**common, tangent_warmup_kimg=int(cfg.get("tangent_warmup_kimg", 0)),
                        distillation=bool(cfg.get("distillation", False)))
     raise NotImplementedError(
-        f"loss target {target!r} is not ported (only TrigFlowLoss and SCMLoss)")
+        f"loss target {target!r} is not ported (only EDMLoss, TrigFlowLoss and SCMLoss)")
 
 
 def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: int,

@@ -10,8 +10,10 @@ takes an already built dataset and network and needs neither yaml nor h5py.
 The network runs on the GPU (``--device cuda``, the default) and raises
 where CUDA is absent; the CPU is used only when asked for (``--device
 cpu``). ``--int8`` builds the network with ``quant="int8"`` (the int8 qkv
-product and kernels 18 and 19). Not ported yet: ``--pp`` and the solvers
-other than ``scm``.
+product and kernels 18 and 19). ``--solver`` takes the JAX package's
+choices (``scm``, ``edm``, ``dpm``, ``2s``), each with the same kwargs
+(``num_steps``, σ from 0.02 to 200, the interval's auxiliary). Not ported
+yet: ``--pp``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ parser.add_argument("--dump", type=str, default="zarr", choices=["zarr", "numpy"
                     help="Output format")
 parser.add_argument("--segment", type=int, default=10,
                     help="Rollout steps per segment (device buffer bound)")
-parser.add_argument("--solver", type=str, default="scm", choices=["scm"])
+parser.add_argument("--solver", type=str, default="scm", choices=["scm", "edm", "dpm", "2s"])
 parser.add_argument("--num-solver-steps", type=int, default=1)
 parser.add_argument("--seed", type=int, default=0)
 parser.add_argument("--int8", action="store_true",

@@ -3,7 +3,8 @@
 Counterpart of ``swift_tpu/sampling/factory.py``. The returned
 ``sampler(X, generator, auxiliary=None, latents=None)`` draws fresh
 latents from the explicit ``torch.Generator`` (or takes ``latents``) and
-runs the solver conditioned on ``X`` (NHWC).
+runs the solver conditioned on ``X`` (NHWC). ``_SOLVERS`` holds the JAX
+package's keys; ``solvers.scm_solve2`` stays a function, as there.
 """
 
 from __future__ import annotations
@@ -14,12 +15,18 @@ import torch
 
 from swift_torch.sampling import solvers
 
-_SOLVERS = {"scm": solvers.scm_solver}
+_SOLVERS = {
+    "edm": solvers.edm_sampler,
+    "scm": solvers.scm_solver,
+    "2s": solvers.dpm_solver_2s,
+    "dpm": solvers.dpm_solver,
+    "ablation": solvers.ablation_sampler,
+}
 
 
 def sampler_factory(mode: str, net, **solver_kwargs) -> Callable[..., torch.Tensor]:
     if mode not in _SOLVERS:
-        raise ValueError(f"solver {mode!r} is not ported (available: {sorted(_SOLVERS)})")
+        raise ValueError(f"Unknown solver mode: {mode} (available: {sorted(_SOLVERS)})")
     solver = _SOLVERS[mode]
     # auxiliary may come from config (interval Δ/10); a call-time value overrides
     cfg_aux = solver_kwargs.pop("auxiliary", None)
@@ -27,6 +34,8 @@ def sampler_factory(mode: str, net, **solver_kwargs) -> Callable[..., torch.Tens
     def sampler(X: torch.Tensor, generator: Optional[torch.Generator] = None, auxiliary=None,
                 latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         aux = auxiliary if auxiliary is not None else cfg_aux
+        if aux is not None:  # on the device once a sample, not at every network evaluation
+            aux = torch.as_tensor(aux, dtype=torch.float32, device=X.device)
         if latents is None:
             H, W = net.img_resolution
             latents = torch.randn((X.shape[0], H, W, net.img_channels), generator=generator,

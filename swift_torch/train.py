@@ -7,11 +7,12 @@ layout (``results/<experiment>/<run-id>`` with the composed config in
 ``.hydra/config.yaml``) and the same resume flow. It runs on the GPU unless
 ``--device cpu`` asks for the CPU, and raises where CUDA is absent. With no
 overrides it trains the default experiment, ``era5-swinv2-1.4-scm``
-(SwinV2 + PassPrecond + SCMLoss + Muon with aux-Adam); TrigFlowLoss and
-Adam/AdamW are ported too, all on one device. Online validation,
-finetuning, distillation and multi-device runs are not ported yet; a config
-that asks for validation trains without it, and one that asks for the
-others raises.
+(SwinV2 + PassPrecond + SCMLoss + Muon with aux-Adam); EDMPrecond with
+EDMLoss, TrigFlowLoss and Adam/AdamW are ported too, all on one device.
+A config with ``trainer.val_ticks`` validates online on the data's val
+split (``val_local_batch_size`` initial conditions a tick), or logs that it
+has none and trains without. Finetuning, distillation and multi-device runs
+are not ported yet; a config that asks for them raises.
 """
 
 from __future__ import annotations
@@ -129,9 +130,6 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
     resume_kimg = get_ckpt_num(ckpt) if ckpt else 0
     optimizer, lr_fn = factory.build_optimizer(cfg["optimizer"], tcfg, global_batch, net,
                                                resume_kimg=resume_kimg)
-    if tcfg.get("val_ticks") is not None:
-        log0("Online validation is not ported yet (ROADMAP A7): training without it.")
-
     flop_count = swin_flop_count(
         dataset.img_resolution, global_batch, int(cfg["model"]["depth"]),
         dataset.n_target_channels + dataset.n_condition_channels, int(cfg["model"]["dim"]),
@@ -147,6 +145,11 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
         ema_rampup_ratio=tcfg.get("ema_rampup_ratio", 0.05),
         kimg_per_tick=float(tcfg.get("kimg_per_tick", 50)),
         checkpoint_ticks=tcfg.get("checkpoint_ticks"),
+        val_ticks=tcfg.get("val_ticks"),
+        val_target_interval=int(tcfg.get("val_target_interval", 56)),
+        val_variables=tcfg.get("val_variables"),
+        val_crps_members=int(tcfg.get("val_crps_members", 0) or 0),
+        solver_kwargs=cfg.get("solver"),
         run_dir=run_dir,
         ckpt=ckpt,
         flop_count=flop_count,
@@ -156,13 +159,49 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
     return trainer, loader, cfg
 
 
+def rollout_batches(val_dataset, batch_size: int, seed: int):
+    """``val_batches()``: an iterator of (X, TS, idx), ``batch_size``
+    rollout items of ``val_dataset`` at a time from an ``InfiniteSampler``."""
+    val_sampler = InfiniteSampler(val_dataset, seed=seed)
+
+    def val_batches():
+        it = iter(val_sampler)
+        while True:
+            idxs = [next(it) for _ in range(batch_size)]
+            samples = [val_dataset[i] for i in idxs]
+            yield (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]),
+                   np.asarray(idxs))
+
+    return val_batches
+
+
+def validation(cfg: dict, seed: int):
+    """(val_batches, val_dataset) of the data's val split for a config with
+    ``trainer.val_ticks`` (``val_local_batch_size`` items a batch), else
+    (None, None). Without a val split validation is disabled, with a log
+    line."""
+    tcfg = cfg["trainer"]
+    if tcfg.get("val_ticks") is None:
+        return None, None
+    try:
+        val_dataset = factory.build_rollout_dataset(
+            cfg["data"], int(tcfg.get("val_target_interval", 56)), split="val")
+        val_batches = rollout_batches(val_dataset, int(cfg["data"].get("val_local_batch_size", 4)),
+                                      seed)
+    except (AssertionError, FileNotFoundError, ValueError) as e:
+        log0(f"No validation split available ({e}); disabling val.")
+        return None, None
+    return val_batches, val_dataset
+
+
 def main(argv=None) -> int:
     trainer, loader, cfg = setup(argv if argv is not None else sys.argv[1:])
     if cfg.get("dry_run"):
         log0("Dry run requested; exiting before training.")
         return 0
+    val_batches, val_dataset = validation(cfg, trainer.seed)
     log0("Training...")
-    trainer.train(loader)
+    trainer.train(loader, val_batches, val_dataset)
     return 0
 
 

@@ -1,16 +1,16 @@
 """Training losses of the port: the weighting, the noise samplers,
-``TrigFlowLoss`` and ``SCMLoss``.
+``EDMLoss``, ``TrigFlowLoss`` and ``SCMLoss``.
 
 Counterpart of ``swift_tpu/training/loss.py`` (reference
 src/swift/training/loss.py:28-260): latitude and variable weights, the
-lognormal / loguniform noise samplers, the TrigFlow v-prediction loss with
-adaptive logvar weighting, and the sCM consistency loss, whose tangent term
+lognormal / loguniform noise samplers, the EDM denoising loss, the TrigFlow
+v-prediction loss with adaptive logvar weighting, and the sCM consistency loss, whose tangent term
 runs the network once in forward mode (``torch.autograd.forward_ad``) through
 the kernels' tangent routes. Data are NHWC, channel sums over the last axis.
-The random draws (τ, z) are split from the loss body, as ``SCMLoss._draw``
-splits them in the JAX package, and come from an explicit
-``torch.Generator``: a test hands both packages the same numbers. The other
-losses (EDM, MSE, CRPS) are not ported yet.
+The random draws ((τ, z); EDM's (σ, n)) are split from the loss body, as
+``SCMLoss._draw`` splits them in the JAX package, and come from an explicit
+``torch.Generator``: a test hands both packages the same numbers. The MSE
+and CRPS losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -88,6 +88,35 @@ class _WeightedLoss:
         t = torch.atan(tau / self.sigma_data)
         z = torch.randn(x.shape, generator=gen, device=x.device) * self.sigma_data
         return t, z
+
+
+class EDMLoss(_WeightedLoss):
+    """EDM denoising score matching: σ from the noise sampler, n = σ·ε,
+    weight (σ² + σ_d²)/(σ·σ_d)², the weighted squared error of D(x + n, σ)
+    against x. ``net`` is an ``EDMPrecond``."""
+
+    def __init__(self, lat_dim: int, variables: Sequence[str], noise: dict,
+                 sigma_data: float = 0.5):
+        super().__init__(lat_dim, variables, noise, sigma_data)
+
+    def draw(self, x: torch.Tensor, gen: torch.Generator):
+        """(σ (B, 1, 1, 1), n = σ·ε like x)."""
+        cfg = dict(self.noise)
+        fn = NOISE_SAMPLING_METHODS[cfg.pop("dist")]
+        sigma = fn(gen, x.shape[0], device=x.device, **cfg)
+        return sigma, torch.randn(x.shape, generator=gen, device=x.device) * sigma
+
+    def value(self, net, x, sigma, n, condition=None, auxiliary=None) -> torch.Tensor:
+        """The loss at fixed draws (σ, n)."""
+        weight = (sigma ** 2 + self.sigma_data ** 2) / (sigma * self.sigma_data) ** 2
+        D_yn = net(x + n, sigma, condition, auxiliary)
+        w = self.w_var.to(x.device) * self.w_lat.to(x.device)
+        return (weight * (w * (D_yn - x) ** 2)).sum(dim=-1).mean()
+
+    def __call__(self, net, x, condition=None, auxiliary=None,
+                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        sigma, n = self.draw(x, gen)
+        return self.value(net, x, sigma, n, condition, auxiliary)
 
 
 class TrigFlowLoss(_WeightedLoss):

@@ -7,9 +7,12 @@ or Muon with aux-Adam) with each group's lr set from :func:`lr_schedule` →
 :func:`ema_update`. An sCM loss gets the images seen before the step as its
 ``step`` (the tangent warmup), as the JAX trainer passes ``state.nimg``. The
 tick bookkeeping, the ``stats.jsonl`` keys, the checkpoint naming, the
-SIGTERM checkpoint and the resume follow the JAX trainer. Online validation
-(``_val_step``) is not ported yet: :meth:`Trainer.train` raises if it is
-handed val batches.
+SIGTERM checkpoint and the resume follow the JAX trainer, and so does the
+online validation every ``val_ticks`` ticks (:meth:`Trainer._val_step`): a
+rollout of one validation batch from the EMA weights, sampled by ``edm``
+for an ``EDMLoss`` and ``dpm`` otherwise with the experiment's solver
+kwargs, its RMSE (and, with ``val_crps_members`` ≥ 2, its CRPS) written to
+``val_stats.jsonl`` under the JAX trainer's keys.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from swift_torch.training.loss import SCMLoss
+from swift_torch.training.loss import EDMLoss, SCMLoss
 from swift_torch.utils.checkpoint import (
     get_ckpt_num,
     load_training_state,
@@ -170,6 +173,11 @@ class Trainer:
         ema_rampup_ratio: Optional[float] = 0.05,
         kimg_per_tick: float = 50,
         checkpoint_ticks: Optional[int] = 50,
+        val_ticks: Optional[int] = 50,
+        val_target_interval: int = 56,
+        val_variables: Optional[list[str]] = None,
+        val_crps_members: int = 0,
+        solver_kwargs: Optional[dict] = None,
         run_dir: str = ".",
         ckpt: Optional[str] = None,
         flop_count: Optional[int] = None,
@@ -188,6 +196,13 @@ class Trainer:
         self.ema_rampup_ratio = ema_rampup_ratio
         self.kimg_per_tick = kimg_per_tick
         self.checkpoint_ticks = checkpoint_ticks
+        self.val_ticks = val_ticks
+        self.val_target_interval = val_target_interval
+        self.val_variables = val_variables
+        # 0 = off; >= 2 adds an ensemble fair-kernel CRPS of that many members
+        self.val_crps_members = int(val_crps_members)
+        self.solver_kwargs = dict(solver_kwargs or {})
+        self.solver_type = "edm" if isinstance(loss_fn, EDMLoss) else "dpm"
         self.run_dir = run_dir
         self.flop_count = flop_count
         self.seed = seed
@@ -267,17 +282,65 @@ class Trainer:
         return {"loss": loss, "grad_norm": self.update()}
 
     # ------------------------------------------------------------------
+    def _val_step(self, val_batches_fn, val_dataset, cur_tick: int, global_nimg: float,
+                  val_jsonl) -> dict:
+        """One validation batch rolled out from the EMA weights (the trained
+        ones untouched, the net in eval mode meanwhile), its metrics logged,
+        kept in the history and written to ``val_jsonl``; returns them."""
+        from swift_torch.sampling.factory import sampler_factory
+        from swift_torch.training.validate import CRPS_rollout, RMSE_rollout
+
+        training = self.net.training
+        self.net.eval()
+        sampler = sampler_factory(self.solver_type, _WithWeights(self.net, self.ema),
+                                  **self.solver_kwargs)
+
+        def generator():
+            return torch.Generator(device=self.device).manual_seed(self.seed + cur_tick)
+
+        try:
+            agg, arr = RMSE_rollout(sampler, val_batches_fn(), val_dataset,
+                                    self.val_target_interval, generator(), num_batches=1,
+                                    device=self.device)
+            if self.val_crps_members >= 2:
+                cagg, carr = CRPS_rollout(sampler, val_batches_fn(), val_dataset,
+                                          self.val_target_interval, generator(),
+                                          members=self.val_crps_members, num_batches=1,
+                                          device=self.device)
+        finally:
+            self.net.train(training)
+        variables = val_dataset.variables
+        selected = [v for v in (self.val_variables or variables) if v in variables] or variables
+        scores = {"rmse": (agg, arr)}
+        if self.val_crps_members >= 2:
+            scores["crps"] = (cagg, carr)
+        val_metrics = {"train/kimg": int(global_nimg / 1e3), "val/tick": cur_tick}
+        for name, (total, a) in scores.items():
+            rows = {v: [float(x) for x in a[variables.index(v)]] for v in selected}
+            val_metrics.update({f"val/{name}/{v}": row for v, row in rows.items()})
+            val_metrics[f"val/{name}"] = float(total)
+            # per-variable per-day history, as the JAX trainer's wandb metrics
+            for v, row in rows.items():
+                for day, x in enumerate(row):
+                    desc = "6h" if day == 0 else f"{day}day"
+                    self.history.setdefault(f"val/{name}/{desc}/{v}", []).append(x)
+        logger.info(val_metrics)
+        if val_jsonl is not None:
+            val_jsonl.write(json.dumps(val_metrics) + "\n")
+            val_jsonl.flush()
+        return val_metrics
+
     def train(self, train_batches, val_batches=None, val_dataset=None):
         """``train_batches``: an iterable of host batch dicts (see
-        ``swift_torch.data.pipeline``)."""
-        if val_batches is not None:
-            raise NotImplementedError("online validation is not ported yet (ROADMAP A7)")
-        logger.info(f"Training for {self.total_kimg} kimg (online validation is not ported; "
-                    "none runs)...")
-        stats_jsonl = None
+        ``swift_torch.data.pipeline``); ``val_batches``: a callable that
+        returns an iterator of (X, TS, idx) of ``val_dataset`` (an
+        ``ERA5RollOutDataset``), or None for no validation."""
+        logger.info(f"Training for {self.total_kimg} kimg...")
+        stats_jsonl = val_jsonl = None
         if is_main_process():
             os.makedirs(self.run_dir, exist_ok=True)
             stats_jsonl = open(os.path.join(self.run_dir, "stats.jsonl"), "at")
+            val_jsonl = open(os.path.join(self.run_dir, "val_stats.jsonl"), "at")
 
         cur_tick = 0
         global_nimg = self.resume_kimg * 1000
@@ -322,6 +385,9 @@ class Trainer:
                 # block for real timing at tick boundaries only
                 metrics_host = {k: float(v) for k, v in metrics_dev.items()}
                 dt_step = time.perf_counter() - t0
+                if (self.val_ticks is not None and val_batches is not None
+                        and cur_tick % self.val_ticks == 0):
+                    self._val_step(val_batches, val_dataset, cur_tick, global_nimg, val_jsonl)
                 tick_end_time = time.perf_counter()
                 dt_tick = tick_end_time - tick_start_time
                 nimg_tick = global_nimg - tick_start_nimg
@@ -391,8 +457,9 @@ class Trainer:
         finally:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
-            if stats_jsonl is not None:
-                stats_jsonl.close()
+            for f in (stats_jsonl, val_jsonl):
+                if f is not None:
+                    f.close()
 
     def save_checkpoint(self, cur_nimg: int) -> str:
         path = os.path.join(self.run_dir, "checkpoints",
@@ -401,6 +468,21 @@ class Trainer:
         save_checkpoint(path, self.ema, self.depth, params=self.net.state_dict(),
                         opt_state=optimizer_state_arrays(self.optimizer, self.params))
         return path
+
+
+class _WithWeights:
+    """``net`` called on other weights (the EMA's, by parameter name) through
+    ``torch.func.functional_call``, its own parameters untouched; the
+    metadata the solvers read is ``net``'s."""
+
+    def __init__(self, net: torch.nn.Module, weights: dict):
+        self.net, self.weights = net, weights
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(self.net, self.weights, args, kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.net, name)
 
 
 def _rss_gb() -> float:
