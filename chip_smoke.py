@@ -94,11 +94,33 @@ Phases, each printed as it finishes:
    norm stayed finite and every parameter moved; reloads the final
    checkpoint's EMA into one forecast step; prints launches per step,
    s/step, images/s and TFLOP/s against the bf16 peak, and one more step's
-   device time by kernel under ``torch.profiler``;
+   device time by kernel under ``torch.profiler``; the run keeps its
+   composed config in ``.hydra/config.yaml``, as ``train.main`` does, for
+   6a and 6b to resume and distil;
 6. gradient cut: a depth-2 cut of the trained network, loss and every
    parameter's gradient through the kernels in bf16 against the fp32 plain
    path on the CPU;
-6b. val: the same experiment with ``trainer.val_ticks=1
+6a. finetune: ``finetune=multistep`` on the TrigFlow run through
+   ``train.resume_setup`` (CRPSLoss at m = 2, AdamW at 1e-5 with its
+   restored state, global batch 4, batches of one Δ with the forcings of
+   each unrolled step): four steps, unrolls 1, 1, 2, 2 by the JAX
+   interval rule, each step's launches exactly ``finetune_step``'s (m
+   TrigFlow passes an unrolled step, one more no-autograd forward a
+   checkpointed step), the weights at the start the checkpoint's, every
+   parameter moved; s/step and peak memory by unroll; then two steps of
+   ``optimizer=mars`` (MARS alone timed); and a depth-2 cut of CRPSLoss at
+   m = 2 and two unrolled steps against fp32 on the CPU (TrigFlow's
+   limits);
+6b. distill: ``era5-swinv2-1.4-scm`` with ``distill=<the TrigFlow run>``
+   through ``train.distill_setup`` (the run's EMA, frozen), Muon's
+   momentum in bf16, the tangent at r = 1: three steps at batch 4, each
+   step's launches exactly ``DISTILL_PER_STEP`` (the sCM step and the
+   teacher's forward), the teacher equal to the EMA before and after and
+   without gradients, the momenta bf16 and moved; s/step, peak memory, the
+   bytes the bf16 momentum saves, the teacher's forward alone, one profiled
+   step; and a depth-2 cut of the student with a depth-2 teacher against
+   fp32 on the CPU (the sCM cut's limits);
+6c. val: the same experiment with ``trainer.val_ticks=1
    val_target_interval=4 val_crps_members=2``, two steps at batch 4: every
    tick ``Trainer._val_step`` rolls 4 initial conditions (an in-memory
    ``SyntheticERA5RollOut``) out a day from the EMA weights by the
@@ -106,12 +128,12 @@ Phases, each printed as it finishes:
    tick wrote a ``val_stats.jsonl`` line with the JAX trainer's keys, all
    finite; prints each validation's wall and peak memory beside the
    training steps', and one validation under ``torch.profiler``;
-6c. edm: six full-width AdamW steps of ``era5-swinv2-1.4-edm`` (EDMPrecond,
+6d. edm: six full-width AdamW steps of ``era5-swinv2-1.4-edm`` (EDMPrecond,
    EDMLoss) cut as the TrigFlow slice, then ``generate.main --solver edm
    --num-solver-steps 20`` from its checkpoint at MB = 4 x 1 step (39
    evaluations: exact launches, a finite, non-constant store) and that
    step's device time;
-6d. EDM and solver cuts, depth 2 against the fp32 plain path on the CPU:
+6e. EDM and solver cuts, depth 2 against the fp32 plain path on the CPU:
    EDMLoss and every gradient at fixed sigma and n, ``dpm_solver`` at 20
    steps and ``edm_sampler`` at 20 steps with edm.yaml's churn, batch 1,
    the same latents and noise (SOLVER_CUT_TOL);
@@ -174,7 +196,9 @@ The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
 Fails if any module of jax, flax, optax or swift_tpu was loaded
 (the port's quant, eval.metrics and data.h52zarr included). The last
 lines are the per-kernel JSON record and the contract line
-``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA, or
+``{"ok": true, "device": {...}}``. The host's large blocks come from
+glibc's heap and stay there for reuse (``host_allocator``), which speeds the
+CPU's fp32 references. There is no CPU path: without CUDA, or
 when a build, launch or check fails, the script raises and exits non-zero.
 """
 
@@ -182,6 +206,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import ctypes.util
 import dataclasses
 import io
 import json
@@ -197,7 +223,7 @@ import torch
 from swift_torch import config as cfglib
 from swift_torch import factory
 from swift_torch.data.pipeline import BatchLoader
-from swift_torch.data.samplers import InfiniteSampler
+from swift_torch.data.samplers import DeltaBatchSampler, InfiniteSampler
 from swift_torch.data.h52zarr import build_truth_zarr
 from swift_torch.data.synthetic import SyntheticERA5, SyntheticERA5RollOut
 from swift_torch import generate
@@ -273,9 +299,15 @@ from swift_torch.ops.window_attention import (
     window_attention_tangent,
 )
 from swift_torch.sampling.factory import sampler_factory
+from swift_torch import train as train_lib
 from swift_torch.train import rollout_batches
 from swift_torch.training.trainer import Trainer, muon_param_labels, swin_flop_count
-from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from swift_torch.utils.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    load_training_state,
+    save_checkpoint,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -320,6 +352,25 @@ SCM_EXPERIMENT = "era5-swinv2-1.4-scm"
 SCM_CUT_DF_TOL = 2e-2
 SCM_CUT_LOSS_TOL = 1e-4
 SCM_CUT_GRAD_TOL = 2.5e-2
+# the fine-tune slice: finetune=multistep (swift_tpu/configs/finetune/multistep.yaml: CRPSLoss,
+# AdamW at 1e-5) resumed from the TrigFlow slice's checkpoint through train.resume_setup, two
+# members, global batch 4, four steps over two intervals of 6 and 10 images; the JAX rule
+# (a switch before the first step that starts with more images seen than the interval's
+# end) gives unrolls 1, 1, 2, 2
+FINETUNE = dict(batch=4, members=2, unrolls=(1, 1, 2, 2), overrides=(
+    "loss.ensemble_size=2", "finetune.intervals=[{steps: 1, kimg: 0.006}, {steps: 2, kimg: 0.010}]"))
+MARS_STEPS = 2  # then optimizer=mars (mars-adamw as configs/optimizer/mars.yaml) on the same net
+# the distill slice: era5-swinv2-1.4-scm with distill=<the TrigFlow slice's run>, Muon with
+# its momentum in bf16, the tangent at r = 1 from the first step, three steps at batch 4
+DISTILL = dict(batch=4, steps=3, steps_per_tick=1)
+DISTILL_OVERRIDES = ("optimizer.momentum_dtype=bfloat16", "loss.tangent_warmup_kimg=0",
+                     "trainer.checkpoint_ticks=null")
+# the fine-tune cut (CRPSLoss at m = 2 and two unrolled steps, Δ 6) is held to the TrigFlow
+# cut's limits (loss, every gradient), the distill cut (the student's sCM loss at r = 1 with
+# a depth-2 cut of the teacher) to the sCM cut's (dF_x, loss, every gradient); stated before
+# the first run
+FINETUNE_CUT_TOLS = (None, CUT_LOSS_TOL, CUT_GRAD_TOL)
+DISTILL_CUT_TOLS = (SCM_CUT_DF_TOL, SCM_CUT_LOSS_TOL, SCM_CUT_GRAD_TOL)
 # the 0.25° configuration of record: swift_tpu/configs/experiment/era5-swinv2-0.25-scm.yaml
 # over data/era5-flare-0.25.yaml (the same 69 + 3 channels as the flagship's data): the WB2
 # 721x1440 grid, edge-padded inside the model to 736 rows, so 368x720 tokens; 8 heads x 128,
@@ -592,6 +643,31 @@ SCM_PER_STEP = {
     "modnorm_residual_tangent": 24, "block_attention_tangent": 12,
     **{name: 0 for name in QUARTER_KERNELS + INT8_KERNELS + PER_HEAD + ("swiglu_ffn_modnorm",)},
 }
+# one forward of the flagship without autograd: the remat's first forward of every block
+# pair, a frozen teacher's forward
+FORWARD_PASS = {name: 12 for name in FORWARD}
+# one forward and backward of the flagship under autograd with the per-pair remat (the
+# TrigFlow step): the first forward, the recompute (kernel 8 saving g and u), the backward
+TRIGFLOW_PASS = {"linear": 24, "block_attention": 24, "matmul_modnorm_residual": 24,
+                 "modnorm_residual": 24, "swiglu_ffn": 12, "block_attention_bwd": 12,
+                 "swiglu_ffn_fwd_save": 12, "swiglu_ffn_bwd_saved": 12, "linear_bwd": 12}
+
+
+def finetune_step(unroll: int, members: int = FINETUNE["members"]) -> dict:
+    """Launches of one CRPS fine-tune step: each member runs ``unroll``
+    network passes, each a TrigFlow pass (``TRIGFLOW_PASS``); every pass but
+    the last is checkpointed, so its backward first runs it again, and that
+    recompute's block pairs run their remat's first forward once more
+    (``FORWARD_PASS``) before their own recompute and backward."""
+    step = {name: 0 for name in KERNELS}
+    for name in step:
+        step[name] = members * (unroll * TRIGFLOW_PASS.get(name, 0)
+                                + (unroll - 1) * FORWARD_PASS.get(name, 0))
+    return step
+
+
+# one distilled sCM step: the sCM step and the frozen teacher's forward
+DISTILL_PER_STEP = {name: n + FORWARD_PASS.get(name, 0) for name, n in SCM_PER_STEP.items()}
 # one sCM step at 0.25° (batch 1, 264,960 tokens): the attention on the tiled kernels (15 in
 # place of 2 in the jvp primal, the first forward and the recompute; 16 and 17 in place of 6
 # and 7); above the FFN's save budget the first forward and the recompute both run kernel 5
@@ -1791,19 +1867,25 @@ def check_config(cfg: dict, model: dict) -> None:
 
 
 def build_trainer(cfg: dict, tag: str, run: str, model: dict = MODEL, res=RESOLUTION,
-                  n_files: int = 16):
+                  n_files: int = 16, multistep: int = 0, **trainer_kwargs):
     """(dataset, loader, trainer, flops per step) for a composed config of
     ``model`` at ``res``: the full-width network with random weights (seed
-    1) on the card, the config's loss and optimizer, synthetic batches."""
+    1) on the card, the config's loss and optimizer, synthetic batches
+    (``multistep``: batches of one Δ from a ``DeltaBatchSampler`` with that
+    many steps of forcings); ``trainer_kwargs`` go to the ``Trainer`` (a
+    ``ckpt`` there restores its weights and optimizer state)."""
     check_config(cfg, model)
     t0 = time.perf_counter()
     dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=n_files, shape=res, seed=0)
     gb = int(cfg["data"]["batch_size"])
-    loader = BatchLoader(dataset, InfiniteSampler(dataset, seed=0), gb,
-                         num_workers=4)
+    sampler = InfiniteSampler(dataset, seed=0)
+    loader = BatchLoader(dataset, sampler, gb, num_workers=4, multistep_forcings=multistep,
+                         batch_sampler=DeltaBatchSampler(sampler, gb, dataset.intervals, seed=0)
+                         if multistep else None)
     net = factory.build_precond(cfg["precond"], cfg["model"], res, len(VARIABLES),
                                 len(VARIABLES) + len(FORCINGS))
-    random_weights(net, seed=1)
+    if "ckpt" not in trainer_kwargs:  # a checkpoint's weights replace random ones
+        random_weights(net, seed=1)
     net = net.cuda().train()
     loss_fn = factory.build_loss(cfg["loss"], dataset)
     tcfg = cfg["trainer"]
@@ -1819,7 +1901,7 @@ def build_trainer(cfg: dict, tag: str, run: str, model: dict = MODEL, res=RESOLU
         val_ticks=tcfg.get("val_ticks"), val_target_interval=int(tcfg["val_target_interval"]),
         val_variables=tcfg.get("val_variables"),
         val_crps_members=int(tcfg.get("val_crps_members") or 0), solver_kwargs=cfg.get("solver"),
-        run_dir=os.path.join(WORK, run), flop_count=flops, seed=0,
+        run_dir=os.path.join(WORK, run), flop_count=flops, seed=0, **trainer_kwargs,
     )
     log(f"[{tag}] {cfg['experiment_name']}: "
         f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f} M params, global batch {gb}, "
@@ -1874,7 +1956,9 @@ def phase_train(card: str):
     returns (each kernel's launches in the training run, the config, the
     state dict after the six steps)."""
     cfg = train_config(TRAIN_EXPERIMENT)
-    dataset, loader, trainer, flops = build_trainer(cfg, "train", "train")
+    dataset, loader, trainer, flops = build_trainer(cfg, "train", "train", MODEL, RESOLUTION)
+    # the run's composed config, as train.main saves it: resume_setup and distill_setup read it
+    cfglib.save_config(cfg, os.path.join(trainer.run_dir, ".hydra", "config.yaml"))
     launches = run_training(trainer, loader, flops, card, "train", TRIGFLOW)
     missing = [name for name in TRIGFLOW if launches[name] == 0]
     if missing:
@@ -2088,6 +2172,280 @@ def phase_grad_cut(cfg: dict, trained: dict) -> dict:
         out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
                                   for n, p in cut.named_parameters()})
     return check_cut("cut", out, {}, (None, CUT_LOSS_TOL, CUT_GRAD_TOL))
+
+
+class StepRecorder:
+    """Wraps ``trainer.step``: each step's unroll, wall (synchronised on both
+    sides, so the loader's prefetch overlaps but no step overlaps the next),
+    peak device memory and launches of every kernel."""
+
+    def __init__(self, trainer):
+        self.rows, self._step, self.trainer = [], trainer.step, trainer
+        trainer.step = self
+
+    def close(self) -> None:
+        """Hand the trainer its own ``step`` back (the wrapper and the bound
+        method would otherwise keep the trainer alive in a cycle)."""
+        del self.trainer.step
+        self._step = self.trainer = None
+
+    def __call__(self, batch, steps: int = 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = read_launches(), time.perf_counter()
+        out = self._step(batch, steps)
+        torch.cuda.synchronize()
+        after = read_launches()
+        self.rows.append(dict(unroll=steps, s=time.perf_counter() - t0,
+                              peak=torch.cuda.max_memory_allocated() / 2**30,
+                              launches={k: after[k] - before[k] for k in after}))
+        return out
+
+
+def _moved(net, before: dict) -> None:
+    still = [n for n, p in net.named_parameters() if torch.equal(p.detach(), before[n])]
+    bad = [n for n, p in net.named_parameters() if not torch.isfinite(p).all()]
+    if still or bad:
+        raise AssertionError(f"{len(still)} parameters did not move (e.g. {still[:3]}), "
+                             f"{len(bad)} are not finite (e.g. {bad[:3]})")
+
+
+def phase_finetune(card: str, train_cfg: dict) -> dict:
+    """``finetune=multistep`` on the TrigFlow slice's run (``WORK/train``, its
+    saved config and checkpoint), through ``train.resume_setup``: CRPSLoss
+    at m = 2 members, AdamW at 1e-5 (its state restored from the
+    checkpoint), four steps at global batch 4 over two intervals, batches
+    of one Δ with their forcings from a ``DeltaBatchSampler``. Each step's
+    launches must equal :func:`finetune_step` at its unroll, exactly: 48 of
+    kernels 1-4 and 24 of 5, 6, 8, 9 and 13 at unroll 1 (two TrigFlow passes);
+    120 of 1-4, 72 of 5 and 48 of 6, 8, 9 and 13 at unroll 2 (four passes,
+    two of them checkpointed, each of those with one more no-autograd
+    forward). The unroll of each step must be the JAX rule's
+    (``FINETUNE["unrolls"]``), the weights at the start the checkpoint's,
+    loss and grad norm finite, every parameter moved. No checkpoint is
+    written. Then ``MARS_STEPS`` steps of the same net and loss under
+    ``optimizer=mars``. Returns the fine-tune's config."""
+    tag = "finetune"
+    prev = os.path.join(WORK, "train")
+    cfg = cfglib.compose("train", [f"experiment={TRAIN_EXPERIMENT}", "finetune=multistep",
+                                   f"resume={prev}", *FINETUNE["overrides"]])
+    os.makedirs(os.path.join(WORK, tag), exist_ok=True)  # as train.setup makes the run dir
+    cfg, ckpt = train_lib.resume_setup(cfg, os.path.join(WORK, tag))
+    tcfg = cfg["trainer"]
+    if (type_name(cfg["loss"]), type_name(cfg["optimizer"]), cfg["optimizer"]["lr"],
+            tcfg["lr_cosine_anneal"], tcfg["checkpoint_ticks"]) != ("CRPSLoss", "AdamW", 1e-5,
+                                                                   False, 200):
+        raise AssertionError(f"[{tag}] resume_setup's rewrite: {cfg['loss']}, "
+                             f"{cfg['optimizer']}, {tcfg}")
+    tcfg["checkpoint_ticks"] = None  # nothing reads this slice's checkpoint
+    dataset, loader, trainer, flops = build_trainer(
+        cfg, tag, tag, MODEL, RESOLUTION, multistep=max(FINETUNE["unrolls"]), ckpt=ckpt,
+        finetune_kwargs=cfg["finetune"])
+    params, _, _ = load_training_state(ckpt)
+    diff = [n for n, v in trainer.net.state_dict().items() if not torch.equal(v.cpu(), params[n])]
+    if diff:
+        raise AssertionError(f"[{tag}] the resumed weights differ from {ckpt}: {diff[:3]}")
+    log(f"[{tag}] resumed {os.path.basename(ckpt)}: weights equal the checkpoint's; "
+        f"{type(trainer.loss_fn).__name__} m = {trainer.loss_fn.ensemble_size}, "
+        f"total_kimg {tcfg['total_kimg']}, schedule {trainer.finetune_kwargs['intervals']}")
+    before = {n: p.detach().clone() for n, p in trainer.net.named_parameters()}
+    rec = StepRecorder(trainer)
+    trainer.train(loader)
+    unrolls = tuple(r["unroll"] for r in rec.rows)
+    if unrolls != FINETUNE["unrolls"]:
+        raise AssertionError(f"[{tag}] unrolls {unrolls}, the JAX rule gives {FINETUNE['unrolls']}")
+    for i, r in enumerate(rec.rows):
+        want = finetune_step(r["unroll"])
+        wrong = {k: (r["launches"][k], n) for k, n in want.items() if r["launches"][k] != n}
+        if wrong:
+            raise AssertionError(f"[{tag}] step {i + 1} at unroll {r['unroll']}: launches "
+                                 f"(got, expected) {wrong}")
+    hist = trainer.history
+    if not all(np.isfinite(hist["train/loss"] + hist["train/grad_norm"])):
+        raise AssertionError(f"[{tag}] loss {hist['train/loss']}, grad norm "
+                             f"{hist['train/grad_norm']}")
+    _moved(trainer.net, before)
+    for unroll in sorted(set(unrolls)):
+        rows = [r for r in rec.rows if r["unroll"] == unroll]
+        log(f"[{tag}] unroll {unroll}: {len(rows)} steps, s/step "
+            + ", ".join(f"{r['s']:.4f}" for r in rows)
+            + f", peak {max(r['peak'] for r in rows):.2f} GiB; launches a step: "
+            + json.dumps({k: n for k, n in finetune_step(unroll).items() if n}) + f" ({card})")
+    log(f"[{tag}] the switch came before step {unrolls.index(2) + 1}, as the JAX rule gives; "
+        f"loss {hist['train/loss']}, grad norm {hist['train/grad_norm']}; every parameter "
+        f"moved")
+
+    mars_cfg = cfglib.compose("train", [f"experiment={TRAIN_EXPERIMENT}", "optimizer=mars"])
+    trainer.optimizer, _ = factory.build_optimizer(mars_cfg["optimizer"], tcfg, trainer.global_batch_size,
+                                                   trainer.net)
+    before = {n: p.detach().clone() for n, p in trainer.net.named_parameters()}
+    loader.set_offset(1)
+    batch = next(iter(loader))
+    rec.rows.clear()
+    for _ in range(MARS_STEPS):
+        out = trainer.step(batch, 1)
+    if not all(np.isfinite(float(v)) for v in out.values()):
+        raise AssertionError(f"[{tag}-mars] {out}")
+    _moved(trainer.net, before)
+    group = trainer.optimizer.param_groups[0]
+    log(f"[{tag}-mars] {type(trainer.optimizer).__name__} ({group['mars_type']}, lr "
+        f"{group['lr']}, lr_1d {group['lr_1d']}): {MARS_STEPS} CRPS steps at unroll 1, s/step "
+        + ", ".join(f"{r['s']:.4f}" for r in rec.rows)
+        + f"; parameters finite and moved ({card})")
+    t0 = time.perf_counter()
+    trainer.optimizer.step()  # the optimizer alone, on the last gradients
+    torch.cuda.synchronize()
+    log(f"[{tag}-mars] one MARS update alone: {(time.perf_counter() - t0) * 1e3:.2f} ms ({card})")
+    rec.close()
+    del trainer, loader
+    torch.cuda.empty_cache()
+    return cfg
+
+
+def type_name(sub_cfg: dict) -> str:
+    return sub_cfg["_target_"].rsplit(".", 1)[-1]
+
+
+def multistep_cut_inputs(trained: dict, steps: int, batch: int = 2):
+    """``cut_inputs`` with the forcings of ``steps`` unrolled steps at Δ 6,
+    (B, steps, H, W, F), as the loader stages them."""
+    sd, dataset, x, cond, aux = cut_inputs(trained, RESOLUTION, batch)
+    loader = BatchLoader(dataset, None, batch, multistep_forcings=steps)
+    specs = [(i, 1, 6) for i in range(batch)]
+    fseq = loader.stage_forcings(specs, [dataset[s] for s in specs])
+    return sd, dataset, x, cond, aux, torch.from_numpy(fseq)
+
+
+def phase_finetune_cut(cfg: dict, trained: dict) -> dict:
+    """A depth-2 cut of the TrigFlow-trained net under the fine-tune's loss:
+    CRPSLoss at m = 2 and two unrolled steps (the first checkpointed) at Δ
+    6, batch 2, the noise of every member and step drawn once on the host, through
+    the kernels in bf16 on the card against the plain path in fp32 on the
+    CPU, held to FINETUNE_CUT_TOLS. The loss never reaches the logvar head:
+    its gradient must be absent on both sides."""
+    steps = 2
+    sd, dataset, x, cond, aux, fseq = multistep_cut_inputs(trained, steps)
+    loss_fn = factory.build_loss(cfg["loss"], dataset)
+    gen = torch.Generator().manual_seed(4)
+    noise = [[torch.randn(x.shape, generator=gen) for _ in range(steps)]
+             for _ in range(loss_fn.ensemble_size)]
+    out = {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        cut = build_net(2, dtype)
+        cut.load_state_dict(sd)
+        cut = cut.to(dev).train()
+        loss = loss_fn.value(cut, x.to(dev), cond.to(dev), aux.to(dev), fseq.to(dev),
+                             [[z.to(dev) for z in member] for member in noise], 6, steps)
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
+                                  for n, p in cut.named_parameters() if p.grad is not None})
+        del cut, loss
+        torch.cuda.empty_cache()
+    if sorted(out["cuda"][1]) != sorted(out["cpu"][1]) or any(
+            "logvar" in n for n in out["cpu"][1]):
+        raise AssertionError("finetune-cut: the two runs reached different parameters")
+    return check_cut("finetune-cut", out, {}, FINETUNE_CUT_TOLS)
+
+
+def phase_distill(card: str):
+    """``era5-swinv2-1.4-scm`` with ``distill=WORK/train`` (the TrigFlow
+    slice's run) through ``train.distill_setup``: the frozen teacher is that
+    run's checkpoint EMA; Muon with its momentum in bf16; the tangent at
+    r = 1; three steps at batch 4. Every step's launches must be
+    ``DISTILL_PER_STEP`` exactly (the sCM step and the teacher's forward, 12
+    each of kernels 1-5); the teacher must equal the EMA before and after
+    and hold no gradient; the Muon momenta must be bf16 and have moved; the
+    loss finite and every student parameter moved. Returns (the config,
+    the student's state dict, the teacher's)."""
+    tag = "distill"
+    run = os.path.join(WORK, "train")
+    cfg = train_config(SCM_EXPERIMENT, f"distill={run}", *DISTILL_OVERRIDES, cut=DISTILL)
+    ema = load_checkpoint(latest_checkpoint(os.path.join(run, "checkpoints")))
+    dataset = SyntheticERA5(VARIABLES, FORCINGS, n_files=16, shape=RESOLUTION, seed=0)
+    teacher = train_lib.distill_setup(cfg, dataset, "cuda")
+
+    def teacher_is_ema(when: str) -> None:
+        diff = [n for n, v in teacher.state_dict().items() if not torch.equal(v.cpu(), ema[n])]
+        grads = [n for n, p in teacher.named_parameters() if p.requires_grad or p.grad is not None]
+        if diff or grads or teacher.training:
+            raise AssertionError(f"[{tag}] teacher {when}: differs from the EMA at {diff[:3]}, "
+                                 f"gradients at {grads[:3]}, training {teacher.training}")
+
+    teacher_is_ema("before the steps")
+    dataset, loader, trainer, flops = build_trainer(cfg, tag, tag, MODEL, RESOLUTION,
+                                                    teacher=teacher)
+    opt = trainer.optimizer
+    muon_params = next(g["params"] for g in opt.param_groups if g["kind"] == "muon")
+    saved = sum(p.numel() for p in muon_params) * 2  # bytes: bf16 in place of fp32
+    torch.cuda.reset_peak_memory_stats()
+    rec = StepRecorder(trainer)
+    launches = run_training(trainer, loader, flops, card, tag,
+                            [k for k, n in DISTILL_PER_STEP.items() if n],
+                            note=", the jvp forward and the teacher's not counted")
+    for i, r in enumerate(rec.rows):
+        wrong = {k: (r["launches"][k], n) for k, n in DISTILL_PER_STEP.items()
+                 if r["launches"][k] != n}
+        if wrong:
+            raise AssertionError(f"[{tag}] step {i + 1}: launches (got, expected) {wrong}")
+    teacher_is_ema("after the steps")
+    bufs = [opt.state[p]["momentum_buffer"] for p in muon_params]
+    if any(b.dtype != torch.bfloat16 for b in bufs) or not all(b.abs().sum() > 0 for b in bufs):
+        raise AssertionError(f"[{tag}] Muon momenta: {sorted({str(b.dtype) for b in bufs})}, "
+                             f"{sum(int(b.abs().sum() == 0) for b in bufs)} still zero")
+    log(f"[{tag}] teacher = the EMA of {latest_checkpoint(os.path.join(run, 'checkpoints'))} "
+        f"before and after, no gradients; the {len(KERNELS)} kernels at the step's exact counts "
+        f"over {len(rec.rows)} steps, per step (the others never): "
+        + json.dumps({k: n for k, n in DISTILL_PER_STEP.items() if n}))
+    log(f"[{tag}] s/step " + ", ".join(f"{r['s']:.4f}" for r in rec.rows)
+        + f", peak {max(r['peak'] for r in rec.rows):.2f} GiB; {len(bufs)} Muon momenta in bf16 "
+        f"(moved), {saved / 2**20:.1f} MiB saved against fp32 ({card})")
+    # the teacher's share of a step: its forward alone at the step's shapes (x_t, t, the
+    # condition and Δ of a batch), by CUDA events
+    batch = next(iter(loader))
+    x, cond, aux = (torch.as_tensor(batch[k]).cuda() for k in ("t", "x", "delta"))
+    t = torch.full((x.shape[0],), 0.7, device=x.device)
+    with torch.no_grad():
+        teacher_ms = time_ms(lambda: teacher(x, t, cond, aux), reps=5)
+    s_step = float(np.median([r["s"] for r in rec.rows[1:]] or [rec.rows[0]["s"]]))
+    log(f"[{tag}] the teacher's forward: {teacher_ms:.2f} ms (median of 5), "
+        f"{100 * teacher_ms / (s_step * 1e3):.1f}% of the median step after the first "
+        f"({s_step:.4f} s) ({card})")
+    profile_step(trainer, batch, card, tag=tag)
+    rec.close()
+    trained = {k: v.detach().float().cpu() for k, v in trainer.net.state_dict().items()}
+    del trainer, opt, teacher
+    torch.cuda.empty_cache()
+    return cfg, trained, ema
+
+
+def phase_distill_cut(cfg: dict, trained: dict, teacher_sd: dict) -> dict:
+    """A depth-2 cut of the distilled student with a depth-2 cut of its
+    teacher (the first two blocks of the EMA): the tangent dF_x along the
+    teacher's velocity, then the sCM loss at r = 1 and every gradient at
+    fixed draws, the kernels in bf16 on the card against the plain path in
+    fp32 on the CPU, held to DISTILL_CUT_TOLS."""
+    sd, dataset, x, cond, aux = cut_inputs(trained, RESOLUTION)
+    loss_fn = factory.build_loss({**cfg["loss"], "tangent_warmup_kimg": 0}, dataset)
+    if not loss_fn.distillation:
+        raise AssertionError("distill-cut: the loss is not distilled")
+    t, z = loss_fn.draw(x, torch.Generator().manual_seed(4))
+    tsd = cut_inputs(teacher_sd, RESOLUTION)[0]
+    out, dF = {}, {}
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        cut, teacher = build_net(2, dtype), build_net(2, dtype)
+        cut.load_state_dict(sd)
+        teacher.load_state_dict(tsd)
+        cut, teacher = cut.to(dev).train(), teacher.to(dev).eval().requires_grad_(False)
+        xd, td, zd, cd, ad = (a.to(dev) for a in (x, t, z, cond, aux))
+        dfx = loss_fn.jvp_term(cut, td, *loss_fn.interpolate(xd, td, zd, cd, ad, teacher), cd, ad)
+        loss = loss_fn.value(cut, xd, td, zd, 0.0, cd, ad, teacher=teacher, dF_x=dfx)
+        loss.backward()
+        dF[dev] = dfx.float().cpu()
+        out[dev] = (loss.item(), {n: p.grad.detach().float().cpu()
+                                  for n, p in cut.named_parameters()})
+        del cut, teacher, loss, dfx
+        torch.cuda.empty_cache()
+    return check_cut("distill-cut", out, dF, DISTILL_CUT_TOLS)
 
 
 def scm_cut_runs(cfg: dict, trained: dict, sl: ScmSlice, keys=("cuda", "cpu"), seed: int = 4):
@@ -2899,6 +3257,20 @@ def plain_on_card():
         _build.on_cpu = on_cpu
 
 
+M_TRIM_THRESHOLD, M_MMAP_MAX = -1, -4  # glibc's mallopt parameters
+
+
+def host_allocator() -> None:
+    """This process's large host blocks from glibc's heap and kept there for
+    reuse (``mallopt``: no mmap'ed blocks, a 2 GiB trim threshold). The
+    fp32 plain-path references that the cuts run on the CPU otherwise map,
+    fault in and unmap fresh pages for every activation they allocate, which
+    costs about as much as their arithmetic."""
+    libc = ctypes.CDLL(ctypes.util.find_library("c"))
+    ok = libc.mallopt(M_MMAP_MAX, 0) and libc.mallopt(M_TRIM_THRESHOLD, 2**31 - 1)
+    log(f"[env] host blocks from the heap, kept for reuse: {bool(ok)}")
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, its wall time logged under the phase's name."""
     t0 = time.perf_counter()
@@ -2910,6 +3282,7 @@ def timed(name: str, fn, *args):
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_environment()
+    host_allocator()
     timed("build", phase_build)
     record = timed("kernels", phase_kernels)
     try:
@@ -2921,6 +3294,11 @@ def main() -> int:
         dpm_cfg, dpm_weights = timed("solvers", phase_solvers, card)
         trigflow, cfg, trained = timed("train", phase_train, card)
         timed("cut", phase_grad_cut, cfg, trained)
+        ft_cfg = timed("finetune", phase_finetune, card, cfg)
+        timed("finetune-cut", phase_finetune_cut, ft_cfg, trained)
+        distill_cfg, distilled, teacher_sd = timed("distill", phase_distill, card)
+        timed("distill-cut", phase_distill_cut, distill_cfg, distilled, teacher_sd)
+        del distilled, teacher_sd
         val = timed("val", phase_val, card)
         edm_cfg, edm_trained = timed("edm", phase_edm, card)
         timed("edm-cuts", phase_edm_cuts, edm_cfg, edm_trained, dpm_cfg, dpm_weights)

@@ -1,6 +1,7 @@
 """Rehearse ``chip_smoke.py``'s 0.25° phases, its sCM slices, its int8
 forecast and scoring phases, its solver, online-validation and EDM phases
-with their cuts, and its per-head phases (kernel 20's entry,
+with their cuts, its fine-tune and distill phases with their cuts, and its
+per-head phases (kernel 20's entry,
 ``synthetic-tiny-scm`` through training and ``generate.main``, bf16 and
 ``--int8``, the 8x8-window forecast, sCM steps and cuts, the d = 160
 forward) on the CPU.
@@ -140,8 +141,45 @@ def rehearse_solvers_val_edm() -> None:
         cs.phase_val("CPU rehearsal")
         edm_cfg, edm_trained = cs.phase_edm("CPU rehearsal")
         cs.phase_edm_cuts(edm_cfg, edm_trained, dpm_cfg, dpm_weights)
+        rehearse_finetune_distill()
     finally:
         cs.train_config = base
+
+
+def rehearse_finetune_distill() -> None:
+    """The TrigFlow slice (its run is what the next two resume and distil),
+    the fine-tune through ``train.resume_setup`` with MARS after it, the
+    distillation through ``train.distill_setup``, and both cuts, at width
+    32. The forward wrappers count their calls here, so the fine-tune's
+    steps are held to the calls its launch counts imply: every forward of a
+    block calls each of the five wrappers once where kernel 1 launches once
+    (the first forward, the recompute, a checkpointed step's recompute),
+    which checks the checkpoint and remat structure the counts assume. The
+    distillation's steps read back ``DISTILL_PER_STEP`` (control flow only)."""
+    depth = TINY["depth"]
+    finetune_step = cs.finetune_step
+
+    def forward_calls(unroll, members=cs.FINETUNE["members"]):
+        n = finetune_step(unroll, members)["linear"] * depth // 12
+        return {k: n if k in cs.FORWARD else 0 for k in cs.KERNELS}
+
+    read_launches, counted = cs.read_launches, {"steps": 0}
+
+    def distill_launches():  # cumulative: DISTILL_PER_STEP more after each step
+        counted["steps"] += 1
+        return {k: n * (counted["steps"] // 2) for k, n in cs.DISTILL_PER_STEP.items()}
+
+    cs.finetune_step = forward_calls
+    cs.FINETUNE_CUT_TOLS = cs.DISTILL_CUT_TOLS = (0.5, 0.5, 0.5)
+    try:
+        _, cfg, trained = cs.phase_train("CPU rehearsal")
+        ft_cfg = cs.phase_finetune("CPU rehearsal", cfg)
+        print(cs.phase_finetune_cut(ft_cfg, trained))
+        cs.read_launches = distill_launches
+        distill_cfg, distilled, teacher_sd = cs.phase_distill("CPU rehearsal")
+        print(cs.phase_distill_cut(distill_cfg, distilled, teacher_sd))
+    finally:
+        cs.finetune_step, cs.read_launches = finetune_step, read_launches
 
 
 def rehearse_per_head(queue: list) -> None:

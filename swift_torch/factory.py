@@ -5,9 +5,10 @@ Counterpart of ``swift_tpu/factory.py`` for the ported pieces: the same
 same network in either package. Ported: SwinV2 (learned or factorized
 position embedding, ``quant="int8"`` for the int8 forecast) under
 PassPrecond or EDMPrecond over the ERA5 dataset and its rollout form, the
-EDM, TrigFlow and sCM losses, Adam/AdamW with the reference's decay
-grouping, and Muon with aux-Adam by the JAX package's labels, each with the
-reference lr schedule. Any other target raises.
+EDM, TrigFlow, sCM, multistep MSE and CRPS losses, Adam/AdamW with the
+reference's decay grouping, Muon with aux-Adam by the JAX package's labels
+(its momentum in fp32 or stochastically rounded bf16) and MARS, each with
+the reference lr schedule. Any other target raises.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ from typing import Optional
 import torch
 
 from swift_torch.data.era5 import ERA5Dataset, ERA5RollOutDataset
+from swift_torch.data.standardize import Standardizer
 from swift_torch.models.precond import EDMPrecond, PassPrecond
 from swift_torch.models.swinv2 import SwinV2
-from swift_torch.training.loss import EDMLoss, SCMLoss, TrigFlowLoss
+from swift_torch.training.loss import CRPSLoss, EDMLoss, MSELoss, SCMLoss, TrigFlowLoss
+from swift_torch.training.optimizers.mars import MARS
 from swift_torch.training.optimizers.muon import MuonWithAuxAdam
 from swift_torch.training.trainer import adamw_decay_mask, lr_schedule, muon_param_labels
 
@@ -111,10 +114,13 @@ def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channe
 
 
 def build_loss(loss_cfg: dict, dataset):
+    """The loss of ``loss_cfg`` over ``dataset``'s grid and variables; the
+    multistep losses also take its statistics (``Standardizer.
+    loss_std_fns``) and its number of variables."""
     cfg = dict(loss_cfg)
     target = _suffix(cfg.pop("_target_", ""))
     common = dict(lat_dim=dataset.img_resolution[0], variables=list(dataset.variables),
-                  noise=dict(cfg["noise"]))
+                  noise=dict(cfg.get("noise") or {}))
     if target == "EDMLoss":
         return EDMLoss(**common, sigma_data=float(cfg.get("sigma_data", 0.5)))
     common["sigma_data"] = float(cfg.get("sigma_data", 1.0))
@@ -123,8 +129,14 @@ def build_loss(loss_cfg: dict, dataset):
     if target == "SCMLoss":
         return SCMLoss(**common, tangent_warmup_kimg=int(cfg.get("tangent_warmup_kimg", 0)),
                        distillation=bool(cfg.get("distillation", False)))
-    raise NotImplementedError(
-        f"loss target {target!r} is not ported (only EDMLoss, TrigFlowLoss and SCMLoss)")
+    if target in ("MSELoss", "CRPSLoss"):
+        common.update(std_fns=Standardizer.from_dataset(dataset).loss_std_fns(),
+                      n_variables=len(dataset.variables))
+        if target == "MSELoss":
+            return MSELoss(**common)
+        return CRPSLoss(**common, ensemble_size=int(cfg.get("ensemble_size", 2)),
+                        alpha=float(cfg.get("alpha", 1.0)))
+    raise ValueError(f"unknown loss target: {target}")
 
 
 def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: int,
@@ -135,12 +147,13 @@ def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: i
     "muon" and "adam" groups of :func:`muon_param_labels`, of base lr
     ``lr`` and ``adam_lr``. The trainer sets every group's lr from the
     schedule and the group's ``base_lr`` before each update, as the JAX
-    package's optax transforms read theirs."""
+    package's optax transforms read theirs. MARS: one group over every
+    parameter, the 1-D branch's updates scaled by ``lr_1d`` on top of the
+    scheduled lr (the JAX package's ``lr_1d_factor`` under a schedule)."""
     cfg = dict(optimizer_cfg)
     target = _suffix(cfg.pop("_target_", "Adam"))
-    if target not in ("Adam", "AdamW", "MuonWithAuxAdam"):
-        raise NotImplementedError(
-            f"optimizer target {target!r} is not ported (only Adam/AdamW and MuonWithAuxAdam)")
+    if target not in ("Adam", "AdamW", "MuonWithAuxAdam", "MARS"):
+        raise ValueError(f"unknown optimizer target: {target}")
     base_lr = float(cfg.get("lr", 0.02 if target == "MuonWithAuxAdam" else 1e-3))
     lr_fn = lr_schedule(
         global_batch_size,
@@ -151,6 +164,14 @@ def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: i
         resume_kimg=resume_kimg,
     )
     named = list(net.named_parameters())
+    if target == "MARS":
+        opt = MARS([p for _, p in named], lr=base_lr,
+                   mars_type=cfg.get("mars_type", "mars-adamw"),
+                   weight_decay=float(cfg.get("weight_decay", 0.0)),
+                   lr_1d=float(cfg.get("lr_1d", base_lr)))
+        for group in opt.param_groups:
+            group["lr"] = lr_fn(0, group["base_lr"])
+        return opt, lr_fn
     if target == "MuonWithAuxAdam":
         labels = muon_param_labels(named)
         betas = cfg.get("adam_betas", (0.9, 0.95))

@@ -11,8 +11,18 @@ overrides it trains the default experiment, ``era5-swinv2-1.4-scm``
 EDMLoss, TrigFlowLoss and Adam/AdamW are ported too, all on one device.
 A config with ``trainer.val_ticks`` validates online on the data's val
 split (``val_local_batch_size`` initial conditions a tick), or logs that it
-has none and trains without. Finetuning, distillation and multi-device runs
-are not ported yet; a config that asks for them raises.
+has none and trains without.
+
+``finetune=multistep resume=<run>`` fine-tunes a run (reference
+train.py:74-96): the resumed config takes the fine-tune's loss (CRPSLoss),
+optimizer (AdamW at 1e-5) and interval schedule, its ``total_kimg`` grows
+by the intervals' kimg, the cosine anneal is off, checkpoints every 200
+ticks and validation every 50; batches share one Δ
+(``DeltaBatchSampler``) and carry the forcings of every unrolled step. A
+fine-tune without ``resume`` returns 1. ``distill=<run>`` on an sCM
+experiment distils that run's latest EMA, frozen, into the student
+(reference train.py:102-132). Multi-device runs are not ported (ROADMAP
+A7).
 """
 
 from __future__ import annotations
@@ -29,9 +39,9 @@ import torch
 from swift_torch import config as cfglib
 from swift_torch import factory
 from swift_torch.data.pipeline import BatchLoader
-from swift_torch.data.samplers import InfiniteSampler
+from swift_torch.data.samplers import DeltaBatchSampler, InfiniteSampler
 from swift_torch.training.trainer import Trainer, swin_flop_count
-from swift_torch.utils.checkpoint import get_ckpt_num, latest_checkpoint
+from swift_torch.utils.checkpoint import get_ckpt_num, latest_checkpoint, load_checkpoint
 from swift_torch.utils.device import resolve_device
 from swift_torch.utils.log import is_main_process, log0
 
@@ -53,11 +63,17 @@ def split_device(argv: list[str]) -> tuple[str, list[str]]:
     return device, rest
 
 
+class FinetuneWithoutResume(Exception):
+    """A fine-tune was asked for without a run to resume."""
+
+
 def resume_setup(cfg: dict, run_dir: str):
     """Reload a prior run's config and latest checkpoint (reference
-    train.py:44-99)."""
+    train.py:44-99); a fine-tune overlays its loss, optimizer and schedule
+    and extends ``total_kimg`` (the JAX package's ``resume_setup``)."""
     if cfg.get("resume") is None:
         return cfg, None
+    finetune = cfg.get("finetune")
     prev = cfg["resume"]
     if not os.path.isdir(prev):
         prev = os.path.join(os.path.dirname(run_dir), cfg["resume"])
@@ -76,8 +92,43 @@ def resume_setup(cfg: dict, run_dir: str):
     for key in ("dry_run", "resume", "distill"):
         if key in cfg:
             prev_cfg[key] = cfg[key]
+    if finetune is not None:
+        for key in ("loss", "optimizer", "finetune"):
+            if key in cfg:
+                prev_cfg[key] = cfg[key]
+        if finetune.get("name") == "multistep":
+            tcfg = prev_cfg["trainer"]
+            tcfg["total_kimg"] = get_ckpt_num(ckpt) + sum(
+                iv["kimg"] for iv in finetune.get("intervals", []))
+            tcfg["lr_cosine_anneal"] = False
+            tcfg["checkpoint_ticks"] = 200
+            tcfg["val_ticks"] = 50
+        if is_main_process():
+            cfglib.save_config(prev_cfg, os.path.join(run_dir, ".hydra", "config.yaml"))
     log0(f"Resuming from {ckpt}")
     return prev_cfg, ckpt
+
+
+def distill_setup(cfg: dict, dataset, device=None):
+    """The frozen teacher of ``distill=<run dir>`` (reference
+    train.py:102-132): the run's own network config, its latest
+    checkpoint's EMA weights, on ``device``, in eval mode and without
+    gradients; None without ``distill``. An sCM loss in ``cfg`` is set to
+    distil (``loss.distillation``)."""
+    if cfg.get("distill") is None:
+        return None
+    if cfg["loss"]["_target_"].endswith("SCMLoss"):
+        cfg["loss"]["distillation"] = True
+    run_dir = cfg["distill"]
+    tcfg = cfglib.load_config(os.path.join(run_dir, ".hydra", "config.yaml"))
+    ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+    if not ckpt:
+        raise FileNotFoundError(f"No checkpoints in {os.path.join(run_dir, 'checkpoints')}")
+    log0(f"Loading distillation model: {ckpt}")
+    teacher = factory.build_precond(tcfg["precond"], tcfg["model"], dataset.img_resolution,
+                                    dataset.n_target_channels, dataset.n_condition_channels)
+    teacher.load_state_dict(load_checkpoint(ckpt))
+    return teacher.to(device).eval().requires_grad_(False)
 
 
 def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
@@ -86,9 +137,6 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
     device_name, overrides = split_device(list(argv))
     device = resolve_device(device_name)
     cfg = cfglib.compose("train", overrides)
-    for key in ("finetune", "distill"):
-        if cfg.get(key) is not None:
-            raise NotImplementedError(f"{key} is not ported yet")
 
     run_id = os.environ.get("RUN_ID") or datetime.now().strftime("%Y%m%d_%H%M%S")
     run_dir = os.path.join("results", cfg["experiment_name"], run_id)
@@ -105,6 +153,8 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
             key = key.lstrip("+")
             if raw and "." in key or key in ("seed", "dry_run"):
                 cfglib._set_path(cfg, key, cfglib._parse_value(raw))
+    if cfg.get("finetune") is not None and ckpt is None:
+        raise FinetuneWithoutResume("must have resume path to finetune")
 
     seed = int(cfg["seed"]) + string_to_int(run_id)
     np.random.seed(seed % (1 << 31))
@@ -112,10 +162,16 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
 
     log0("Loading dataset...")
     dataset = factory.build_dataset(cfg["data"])
-    sampler = InfiniteSampler(dataset, seed=seed)
+    sampler = InfiniteSampler(dataset, rank=0, num_replicas=1, shuffle=True, seed=seed)
     global_batch = int(cfg["data"]["batch_size"])
+    finetune = cfg.get("finetune")
+    batch_sampler, multistep_steps = None, 0
+    if finetune is not None:
+        batch_sampler = DeltaBatchSampler(sampler, global_batch, dataset.intervals, seed=seed)
+        multistep_steps = max(iv["steps"] for iv in finetune.get("intervals", [{"steps": 1}]))
     loader = BatchLoader(dataset, sampler, global_batch,
-                         num_workers=int(cfg["data"].get("data_workers", 4)))
+                         num_workers=int(cfg["data"].get("data_workers", 4)),
+                         multistep_forcings=multistep_steps, batch_sampler=batch_sampler)
 
     log0("Constructing network...")
     net = factory.build_precond(cfg["precond"], cfg["model"], dataset.img_resolution,
@@ -123,6 +179,7 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
     net = net.to(device).train()
 
     log0("Constructing loss function...")
+    teacher = distill_setup(cfg, dataset, device)
     loss_fn = factory.build_loss(cfg["loss"], dataset)
 
     log0("Constructing optimizer...")
@@ -155,6 +212,9 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
         flop_count=flop_count,
         seed=seed,
         grad_accum=int(tcfg.get("grad_accum", 1) or 1),
+        finetune_kwargs=finetune,
+        teacher=teacher,
+        profile=bool(tcfg.get("profile", False)),
     )
     return trainer, loader, cfg
 
@@ -195,7 +255,11 @@ def validation(cfg: dict, seed: int):
 
 
 def main(argv=None) -> int:
-    trainer, loader, cfg = setup(argv if argv is not None else sys.argv[1:])
+    try:
+        trainer, loader, cfg = setup(argv if argv is not None else sys.argv[1:])
+    except FinetuneWithoutResume as e:
+        log0(f"ERROR: {e}")
+        return 1
     if cfg.get("dry_run"):
         log0("Dry run requested; exiting before training.")
         return 0

@@ -1,5 +1,6 @@
 """Training losses of the port: the weighting, the noise samplers,
-``EDMLoss``, ``TrigFlowLoss`` and ``SCMLoss``.
+``EDMLoss``, ``TrigFlowLoss``, ``SCMLoss`` and the multistep fine-tune
+losses ``MSELoss`` and ``CRPSLoss``.
 
 Counterpart of ``swift_tpu/training/loss.py`` (reference
 src/swift/training/loss.py:28-260): latitude and variable weights, the
@@ -9,17 +10,20 @@ runs the network once in forward mode (``torch.autograd.forward_ad``) through
 the kernels' tangent routes. Data are NHWC, channel sums over the last axis.
 The random draws ((τ, z); EDM's (σ, n)) are split from the loss body, as
 ``SCMLoss._draw`` splits them in the JAX package, and come from an explicit
-``torch.Generator``: a test hands both packages the same numbers. The MSE
-and CRPS losses are not ported yet.
+``torch.Generator``: a test hands both packages the same numbers. The
+multistep losses predict at t = π/2 from pure noise and roll the prediction
+forward autoregressively in physical space; ``CRPSLoss`` scores an ensemble
+of such rollouts with the almost-fair kernel CRPS.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch.autograd import forward_ad
 
 from swift_torch.data.constants import DEFAULT_PRESSURE_LEVELS, PRESSURE_LEVEL_VARS
@@ -78,6 +82,10 @@ class _WeightedLoss:
         self.sigma_data = float(sigma_data)
         self.w_lat = torch.from_numpy(latitude_weights(lat_dim))
         self.w_var = torch.from_numpy(variable_weights(list(variables)))
+
+    def _weighted(self, se: torch.Tensor) -> torch.Tensor:
+        """w_var·w_lat·se summed over channels, meaned over (B, H, W)."""
+        return (self.w_var.to(se.device) * self.w_lat.to(se.device) * se).sum(dim=-1).mean()
 
     def draw(self, x: torch.Tensor, gen: torch.Generator):
         """(t (B, 1, 1, 1), z like x): t = arctan(τ/σ_d) with τ from the
@@ -233,3 +241,130 @@ class SCMLoss(_WeightedLoss):
                  gen: Optional[torch.Generator] = None, step=0.0, teacher=None) -> torch.Tensor:
         t, z = self.draw(x, gen)
         return self.value(net, x, t, z, step, condition, auxiliary, teacher)
+
+
+# ----------------------------------------------------------------------------
+# Multistep losses (fine-tuning)
+
+
+class _MultistepLoss(_WeightedLoss):
+    """The one-shot prediction at t = π/2 from noise shared by the MSE and
+    CRPS losses. ``std_fns`` = (unstd_t, unstd_x, std_x), Δ-aware, as
+    ``Standardizer.loss_std_fns`` gives them; ``n_variables`` is the
+    number of model variables leading the condition's channels."""
+
+    def __init__(self, lat_dim: int, variables: Sequence[str],
+                 std_fns: tuple[Callable, Callable, Callable], sigma_data: float = 1.0,
+                 n_variables: int = 0, noise: Optional[dict] = None):
+        super().__init__(lat_dim, variables, noise or {}, sigma_data)
+        self.std_fns = std_fns
+        self.n_variables = int(n_variables)
+
+    def _predict(self, net, z, condition, auxiliary) -> torch.Tensor:
+        """The net's output at x_t = σ_d·z (z standard normal) and t = π/2."""
+        x_t = z * self.sigma_data
+        t = torch.full((z.shape[0],), np.float32(np.pi / 2), device=z.device)
+        return net(x_t / self.sigma_data, t, condition, auxiliary)
+
+
+class MSELoss(_MultistepLoss):
+    """Multistep MSE at the t = π/2 one-shot prediction (reference
+    loss.py:266-303, the JAX package's ``MSELoss``): the prediction is
+    +σ_d·out, and between steps the condition's variables advance in
+    physical space at the default Δ, the forcings kept.
+
+    ``loss(net, target, condition, auxiliary, gen, steps)`` draws one
+    standard normal a step and returns :meth:`value`."""
+
+    def value(self, net, target, condition, auxiliary, noise, steps: int = 1) -> torch.Tensor:
+        """The loss at fixed draws ``noise`` (one tensor like ``target`` a
+        step)."""
+        unstd_t, unstd_x, std_x = self.std_fns
+        nv = self.n_variables or target.shape[-1]
+        cond, pred = condition, None
+        for i in range(steps):
+            pred = self.sigma_data * self._predict(net, noise[i], cond, auxiliary)
+            if i < steps - 1:
+                new_vars = std_x(unstd_x(cond[..., :nv]) + unstd_t(pred))
+                cond = torch.cat([new_vars, cond[..., nv:]], dim=-1)
+        return self._weighted((pred - target) ** 2)
+
+    def __call__(self, net, target, condition=None, auxiliary=None,
+                 gen: Optional[torch.Generator] = None, steps: int = 1, **kw) -> torch.Tensor:
+        noise = [torch.randn(target.shape, generator=gen, device=target.device)
+                 for _ in range(steps)]
+        return self.value(net, target, condition, auxiliary, noise, steps)
+
+
+def kernel_crps(preds: torch.Tensor, targets: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """Almost-fair kernel CRPS (reference loss.py:343-371): ``preds`` (...,
+    m) members on the last axis, ``targets`` (...); the member axis
+    reduced."""
+    m = preds.shape[-1]
+    if m < 2:
+        raise ValueError("the ensemble needs at least two members")
+    epsilon = (1.0 - alpha) / m
+    skill = (preds - targets[..., None]).abs().mean(dim=-1)
+    diffs = (preds[..., None, :] - preds[..., :, None]).abs()
+    spread = diffs.sum(dim=(-1, -2)) / (2 * m * (m - 1))
+    return skill - (1 - epsilon) * spread
+
+
+class CRPSLoss(_MultistepLoss):
+    """Multistep almost-fair kernel CRPS (reference loss.py:306-445, the JAX
+    package's ``CRPSLoss``). Each of ``ensemble_size`` members rolls
+    ``steps`` one-shot predictions forward from the condition's variables:
+    step i conditions on the rolled variables and the forcings
+    ``forcings_seq[:, i]`` (B, steps, H, W, F, from the loader), predicts
+    −σ_d·out (the v-prediction at t = π/2) and advances the variables in
+    physical space at the batch's one Δ. The last step's predictions are
+    scored against the target by :func:`kernel_crps`.
+
+    With ``steps`` > 1 every step but the last runs under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint`` a
+    scan step): only its input is kept, and the backward runs it again.
+    The noise of every member and step is drawn before the checkpointed
+    function and passed into it, so the recompute sees the same numbers.
+    """
+
+    def __init__(self, lat_dim: int, variables: Sequence[str],
+                 std_fns: tuple[Callable, Callable, Callable], sigma_data: float = 1.0,
+                 ensemble_size: int = 2, alpha: float = 1.0, n_variables: int = 0,
+                 noise: Optional[dict] = None):
+        super().__init__(lat_dim, variables, std_fns, sigma_data, n_variables, noise)
+        self.ensemble_size = int(ensemble_size)
+        self.alpha = float(alpha)
+
+    def _one_step(self, net, z, cond_vars, forcing, auxiliary, delta: int):
+        """(the next step's standardized variables, this step's prediction)."""
+        unstd_t, unstd_x, std_x = self.std_fns
+        cond = torch.cat([cond_vars, forcing], dim=-1)
+        pred = -self.sigma_data * self._predict(net, z, cond, auxiliary)
+        return std_x(unstd_x(cond_vars, delta) + unstd_t(pred, delta), delta), pred
+
+    def value(self, net, target, condition, auxiliary, forcings_seq, noise, delta: int = 6,
+              steps: int = 1) -> torch.Tensor:
+        """The loss at fixed draws: ``noise[e][i]`` (like ``target``) is
+        member e's standard normal at step i."""
+        nv = self.n_variables or target.shape[-1]
+
+        def advance(cond_vars, forcing, z):
+            return self._one_step(net, z, cond_vars, forcing, auxiliary, delta)[0]
+
+        preds = []
+        for e in range(self.ensemble_size):
+            cond_vars = condition[..., :nv]
+            for i in range(steps - 1):
+                cond_vars = torch.utils.checkpoint.checkpoint(
+                    advance, cond_vars, forcings_seq[:, i], noise[e][i], use_reentrant=False,
+                    preserve_rng_state=False)
+            preds.append(self._one_step(net, noise[e][steps - 1], cond_vars,
+                                        forcings_seq[:, steps - 1], auxiliary, delta)[1])
+        crps = kernel_crps(torch.stack(preds, dim=-1), target, self.alpha)  # (B, H, W, C)
+        return self._weighted(crps)
+
+    def __call__(self, net, target, condition, auxiliary, gen: Optional[torch.Generator] = None,
+                 forcings_seq=None, delta: int = 6, steps: int = 1, **kw) -> torch.Tensor:
+        noise = [[torch.randn(target.shape, generator=gen, device=target.device)
+                  for _ in range(steps)] for _ in range(self.ensemble_size)]
+        return self.value(net, target, condition, auxiliary, forcings_seq, noise, delta, steps)

@@ -19,8 +19,18 @@ As a ``torch.optim.Optimizer`` with a "muon" and an "adam" parameter group,
 its state (``momentum_buffer``; ``step``, ``exp_avg``, ``exp_avg_sq``) goes
 through the trainer's checkpoint helpers unchanged. Newton-Schulz runs on
 ``torch.matmul``, plain products outside any kernel, as the JAX package
-leaves them to XLA. Not ported: the bf16 stochastically-rounded momentum
-buffer (``momentum_dtype``) and the mesh-sharded Newton-Schulz.
+leaves them to XLA. Not ported: the mesh-sharded Newton-Schulz.
+
+``momentum_dtype="bfloat16"`` keeps the Muon momentum in bf16 (half the
+state): the blend is taken in fp32 and stochastically rounded into the
+buffer (:func:`stochastic_round_bf16`), so an increment below half a bf16
+ulp still moves it in expectation. The random bits come from the
+optimizer's own ``torch.Generator``, seeded from the step count (the
+Muon parameters' ``step`` state) at every step, so a resumed run draws what
+an unbroken one would; the JAX package draws them from ``fold_in(PRNGKey(
+0x5357), count)``, which torch cannot replay, so the tests hold the
+rounding to JAX's on shared bits. A checkpoint stores the buffer's exact
+fp32 value (numpy has no bf16); ``load_state_dict`` casts it back.
 """
 
 from __future__ import annotations
@@ -60,6 +70,19 @@ def newton_schulz(G: torch.Tensor, steps: int = 5) -> torch.Tensor:
     return X
 
 
+_SR_SEED = 0x5357  # the JAX package's PRNGKey of the rounding bits
+
+
+def stochastic_round_bf16(x32: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """fp32 -> bf16 with stochastic rounding: the low 16 bits of ``bits``
+    (an integer tensor like ``x32``) are added to the 16 mantissa bits bf16
+    drops, then truncated (the JAX package's ``_stochastic_round_bf16``;
+    E[round(x)] = x)."""
+    i = x32.float().contiguous().view(torch.int32)
+    i = (i + (bits & 0xFFFF).to(torch.int32)) & -65536  # two's complement wrap = uint32's
+    return i.view(torch.float32).to(torch.bfloat16)
+
+
 def orthogonalized_update(u: torch.Tensor, ns_steps: int = 5) -> torch.Tensor:
     """The Muon direction of an (out, in) weight's momentum-blended update,
     fp32: orthogonalized and aspect-scaled on the (in, out) layout."""
@@ -80,9 +103,10 @@ class MuonWithAuxAdam(torch.optim.Optimizer):
                  ns_steps: int = 5, adam_lr: float = 3e-4, adam_betas=(0.9, 0.95),
                  adam_weight_decay: float = 0.01, adam_eps: float = 1e-10,
                  momentum_dtype: Optional[str] = None):
-        if momentum_dtype is not None:
-            raise NotImplementedError(
-                "momentum_dtype (the bf16 stochastically-rounded Muon momentum) is not ported")
+        if momentum_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"momentum_dtype {momentum_dtype!r}: float32 or bfloat16")
+        self.stochastic_rounding = momentum_dtype == "bfloat16"
+        self._gens: dict = {}
         groups = [
             dict(params=list(muon_params), kind="muon", lr=lr, base_lr=lr,
                  weight_decay=weight_decay, momentum=momentum, ns_steps=ns_steps),
@@ -102,16 +126,51 @@ class MuonWithAuxAdam(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             (self._muon if group["kind"] == "muon" else self._adam)(group, params)
 
+    def state_keys(self, group) -> set:
+        """The state keys a parameter of ``group`` gets."""
+        if group["kind"] == "adam":
+            return {"step", "exp_avg", "exp_avg_sq"}
+        return {"momentum_buffer", "step"} if self.stochastic_rounding else {"momentum_buffer"}
+
+    def load_state_dict(self, state_dict):
+        """The torch loader casts every floating state to its parameter's
+        dtype; a bf16 momentum saved as its exact fp32 value goes back to
+        bf16 here, bit for bit."""
+        super().load_state_dict(state_dict)
+        if self.stochastic_rounding:
+            for st in self.state.values():
+                if "momentum_buffer" in st:
+                    st["momentum_buffer"] = st["momentum_buffer"].to(torch.bfloat16)
+
+    def _bits(self, shape, device, count: int, index: int) -> torch.Tensor:
+        """Rounding bits for the ``index``-th Muon parameter at step
+        ``count``: a function of (count, index) alone."""
+        gen = self._gens.get(device)
+        if gen is None:
+            gen = self._gens[device] = torch.Generator(device=device)
+        gen.manual_seed((_SR_SEED << 40) + (count << 20) + index)
+        return torch.randint(0, 1 << 16, shape, generator=gen, device=device, dtype=torch.int32)
+
     def _muon(self, group, params):
         mu, lr, wd = group["momentum"], group["lr"], group["weight_decay"]
-        for p in params:
+        sr = self.stochastic_rounding
+        for index, p in enumerate(params):
             g = p.grad.float()
             st = self.state[p]
             if "momentum_buffer" not in st:
-                st["momentum_buffer"] = torch.zeros_like(p, dtype=torch.float32)
+                st["momentum_buffer"] = torch.zeros_like(
+                    p, dtype=torch.bfloat16 if sr else torch.float32)
+                if sr:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
             m = st["momentum_buffer"]
-            m.copy_(m + (1 - mu) * (g - m))
-            o = orthogonalized_update(g + mu * (m - g), group["ns_steps"])
+            blend = m.float() + (1 - mu) * (g - m.float())
+            if sr:
+                st["step"] += 1
+                m.copy_(stochastic_round_bf16(blend, self._bits(p.shape, p.device,
+                                                                int(st["step"]), index)))
+            else:
+                m.copy_(blend)
+            o = orthogonalized_update(g + mu * (m.float() - g), group["ns_steps"])
             p.add_(((o + wd * p) * -lr).to(p.dtype))
 
     def _adam(self, group, params):

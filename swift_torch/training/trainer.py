@@ -13,6 +13,17 @@ rollout of one validation batch from the EMA weights, sampled by ``edm``
 for an ``EDMLoss`` and ``dpm`` otherwise with the experiment's solver
 kwargs, its RMSE (and, with ``val_crps_members`` ≥ 2, its CRPS) written to
 ``val_stats.jsonl`` under the JAX trainer's keys.
+
+Fine-tuning (``finetune_kwargs`` of ``name: multistep``) follows the JAX
+trainer's interval schedule: each interval's kimg is made cumulative from
+the resumed kimg, the first interval's unroll is set on the loader
+(``set_offset``) before the first batch, and once the images seen exceed
+an interval's end the next one starts, with a fresh iterator over the
+loader (the old one closed, its producer stopped). The multistep losses
+get the unroll ``steps``; ``CRPSLoss`` also the batch's one Δ, read on
+the host, and its ``forcings_seq``. A distilled sCM loss gets the frozen
+``teacher``. ``profile=True`` traces the whole run with
+``torch.profiler`` into ``<run_dir>/profile/trace.json``.
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from swift_torch.training.loss import EDMLoss, SCMLoss
+from swift_torch.training.loss import CRPSLoss, EDMLoss, MSELoss, SCMLoss
 from swift_torch.utils.checkpoint import (
     get_ckpt_num,
     load_training_state,
@@ -158,7 +169,9 @@ class Trainer:
     groups holds a ``base_lr`` and gets the lr ``lr_fn(count, base_lr)``
     before every update; ``loss_fn(net, x, condition,
     auxiliary, gen)``: the loss (see ``swift_torch.training.loss``), and
-    ``step=`` the images seen before the update when it is an ``SCMLoss``."""
+    ``step=`` the images seen before the update and ``teacher=`` when it is
+    an ``SCMLoss``, the unroll ``steps`` for the multistep losses, and Δ and
+    ``forcings_seq`` for ``CRPSLoss``."""
 
     def __init__(
         self,
@@ -183,6 +196,9 @@ class Trainer:
         flop_count: Optional[int] = None,
         seed: int = 0,
         grad_accum: int = 1,
+        finetune_kwargs: Optional[dict] = None,
+        teacher: Optional[torch.nn.Module] = None,
+        profile: bool = False,
     ):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -207,6 +223,9 @@ class Trainer:
         self.flop_count = flop_count
         self.seed = seed
         self.grad_accum = int(grad_accum)
+        self.finetune_kwargs = dict(finetune_kwargs or {})
+        self.teacher = teacher
+        self.profile = bool(profile)
         self.device = next(net.parameters()).device
         self.depth = len(net.model.transformer.layers)
         self.params = dict(net.named_parameters())
@@ -221,6 +240,13 @@ class Trainer:
         self.nimg = float(self.resume_kimg * 1000)
         self.updates = 0  # optimizer updates in this run (the lr schedule's count)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.finetune_kwargs.get("name") == "multistep":
+            cum, intervals = self.resume_kimg, []
+            for iv in self.finetune_kwargs["intervals"]:
+                cum += iv["kimg"]
+                intervals.append({**iv, "kimg": cum})
+            self.finetune_kwargs["intervals"] = intervals
+            logger.info(f"finetune schedule: {self.finetune_kwargs}")
 
     def _restore(self, ckpt: str) -> None:
         params, ema, opt_state = load_training_state(ckpt)
@@ -237,33 +263,57 @@ class Trainer:
             logger.warning("Checkpoint holds no optimizer state; fresh optimizer.")
 
     # ------------------------------------------------------------------
-    def backward(self, batch: dict) -> torch.Tensor:
-        """Loss and gradients of a host batch, over ``grad_accum``
-        microbatches (each loss a per-sample mean, the gradients averaged
-        over the microbatches). Returns the loss as a device scalar."""
+    def _loss_kwargs(self, batch: dict, steps: int) -> dict:
+        """The loss's arguments beyond (target, condition, auxiliary), as the
+        JAX trainer's ``_loss_kwargs``; tensors of the batch are sliced per
+        microbatch by :meth:`backward`."""
+        if isinstance(self.loss_fn, SCMLoss):
+            return {"step": self.nimg, "teacher": self.teacher}
+        if isinstance(self.loss_fn, MSELoss):
+            return {"steps": steps}
+        if isinstance(self.loss_fn, CRPSLoss):
+            delta = int(round(float(np.asarray(batch["delta"]).reshape(-1)[0]) * 10))
+            return {"steps": steps, "delta": delta, "forcings_seq": batch["forcings_seq"]}
+        return {}
+
+    def backward(self, batch: dict, steps: int = 1) -> torch.Tensor:
+        """Loss and gradients of a host batch at an unroll of ``steps`` (the
+        multistep losses), over ``grad_accum`` microbatches (each loss a
+        per-sample mean, the gradients averaged over the microbatches).
+        Returns the loss as a device scalar."""
         net, accum = self.net, self.grad_accum
         dev = self.device
+        kwargs = self._loss_kwargs(batch, steps)
         tensors = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
                    for k in ("x", "t", "delta")}
+        if "forcings_seq" in kwargs:
+            kwargs["forcings_seq"] = torch.as_tensor(kwargs["forcings_seq"]).to(
+                dev, non_blocking=True)
         B = tensors["t"].shape[0]
         if B % accum:
             raise ValueError(f"grad_accum={accum} must divide the batch of {B}")
         self.optimizer.zero_grad(set_to_none=True)
-        kwargs = {"step": self.nimg} if isinstance(self.loss_fn, SCMLoss) else {}
         loss_sum = torch.zeros((), device=dev)
         for mb in range(accum):
             sl = slice(mb * B // accum, (mb + 1) * B // accum)
+            mb_kwargs = {k: v[sl] if isinstance(v, torch.Tensor) else v
+                         for k, v in kwargs.items()}
             loss = self.loss_fn(net, tensors["t"][sl], tensors["x"][sl], tensors["delta"][sl],
-                                gen=self.gen, **kwargs)
+                                gen=self.gen, **mb_kwargs)
             (loss / accum).backward()
             loss_sum += loss.detach()
         return loss_sum / accum
 
     def update(self) -> torch.Tensor:
         """clamp_grads → the optimizer at the scheduled lr (each group's
-        schedule from its own ``base_lr``) → EMA; returns the global
+        schedule from its own ``base_lr``) → EMA, a parameter without a
+        gradient updated as from a zero one (weight decay, momentum), as the
+        JAX trainer's optax update takes it; returns the global
         gradient norm (after the clamp) as a device scalar."""
         params = list(self.params.values())
+        for p in params:
+            if p.grad is None:  # not reached by the loss (a multistep loss's logvar head)
+                p.grad = torch.zeros_like(p)
         clamp_grads(params)
         gnorm = global_norm(params)
         for group in self.optimizer.param_groups:
@@ -275,11 +325,26 @@ class Trainer:
         self.nimg += self.global_batch_size
         return gnorm
 
-    def step(self, batch: dict) -> dict:
-        """One optimizer step on a host batch; returns {"loss", "grad_norm"}
-        as device scalars."""
-        loss = self.backward(batch)
+    def step(self, batch: dict, steps: int = 1) -> dict:
+        """One optimizer step on a host batch (``steps``: the multistep
+        losses' unroll); returns {"loss", "grad_norm"} as device scalars."""
+        loss = self.backward(batch, steps)
         return {"loss": loss, "grad_norm": self.update()}
+
+    def _next_interval(self, steps: Optional[int], global_nimg: float) -> tuple[int, bool]:
+        """(the unroll for the next step, whether it switched the loader):
+        the JAX trainer's rule, the first interval before the first step,
+        the next one once ``global_nimg`` exceeds the current one's end."""
+        if self.finetune_kwargs.get("name") != "multistep":
+            return 1, False
+        intervals = self.finetune_kwargs["intervals"]
+        if steps is None:
+            return intervals[0]["steps"], True
+        if global_nimg > intervals[0]["kimg"] * 1000 and len(intervals) > 1:
+            intervals.pop(0)
+            logger.info(f"Switching to interval {intervals[0]}")
+            return intervals[0]["steps"], True
+        return steps, False
 
     # ------------------------------------------------------------------
     def _val_step(self, val_batches_fn, val_dataset, cur_tick: int, global_nimg: float,
@@ -349,6 +414,7 @@ class Trainer:
         dt_misc = dt_data_tick = 0.0
         i = j = 0
         it = iter(train_batches)
+        steps = None
 
         interrupted = {"flag": False}
         prev_handlers = {}
@@ -364,16 +430,23 @@ class Trainer:
             prev_handlers = {}  # not on the main thread
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
+        prof = self._start_profile() if self.profile else None
 
         try:
             while True:
                 t0_iter = time.perf_counter()
+                steps, switched = self._next_interval(steps, global_nimg)
+                if switched and hasattr(train_batches, "set_offset"):
+                    if hasattr(it, "close"):
+                        it.close()  # stops the old iterator's producer
+                    train_batches.set_offset(steps)
+                    it = iter(train_batches)
                 t0 = time.perf_counter()
                 batch = next(it)
                 dt_data_tick += time.perf_counter() - t0
 
                 t0 = time.perf_counter()
-                metrics_dev = self.step(batch)
+                metrics_dev = self.step(batch, steps)
                 i += 1
                 global_nimg += self.global_batch_size
                 done = global_nimg >= self.total_kimg * 1000 or interrupted["flag"]
@@ -443,6 +516,9 @@ class Trainer:
                 tick_start_time = time.perf_counter()
                 dt_misc = tick_start_time - tick_end_time
                 if done:
+                    if prof is not None:
+                        self._stop_profile(prof)
+                        prof = None
                     if interrupted["flag"]:
                         logger.warning("stopped by signal; checkpoint saved — resume with "
                                        "resume=<this run id>")
@@ -455,11 +531,37 @@ class Trainer:
                             json.dump(self.history, f)
                     return self
         finally:
+            if prof is not None:
+                prof.stop()
+            if hasattr(it, "close"):
+                it.close()
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
             for f in (stats_jsonl, val_jsonl):
                 if f is not None:
                     f.close()
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> str:
+        """Stop ``prof`` and write its trace (Chrome format) under the run."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = os.path.join(self.run_dir, "profile", "trace.json")
+        if is_main_process():
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+            logger.info(f"Profile written: {path}")
+        return path
 
     def save_checkpoint(self, cur_nimg: int) -> str:
         path = os.path.join(self.run_dir, "checkpoints",
@@ -510,14 +612,31 @@ def optimizer_state_arrays(optimizer: torch.optim.Optimizer, params: dict) -> di
     return out
 
 
+def _state_keys(optimizer: torch.optim.Optimizer, group: dict) -> set:
+    """The state keys ``optimizer`` keeps for a parameter of ``group``."""
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return {"step", "exp_avg", "exp_avg_sq"}
+    return optimizer.state_keys(group)
+
+
 def optimizer_state_dict(optimizer: torch.optim.Optimizer, params: dict, arrays: dict) -> dict:
     """Inverse of :func:`optimizer_state_arrays`: a state dict for
-    ``optimizer.load_state_dict`` (its param groups, the saved state)."""
+    ``optimizer.load_state_dict`` (its param groups, the saved state).
+    Raises ValueError when a parameter's saved state is another
+    optimizer's (a fine-tune's AdamW over a Muon run's checkpoint), as the
+    JAX package's load refuses a state of another tree."""
     by_name: dict[str, dict] = {}
     for k, v in arrays.items():
         name, key = k.rsplit("/", 1)
         by_name.setdefault(name, {})[key] = torch.from_numpy(np.array(v))
     names = {id(p): n for n, p in params.items()}
+    for group in optimizer.param_groups:
+        want = _state_keys(optimizer, group)
+        for p in group["params"]:
+            got = set(by_name.get(names[id(p)], want))
+            if got != want:
+                raise ValueError(f"{names[id(p)]}: saved state {sorted(got)}, "
+                                 f"{type(optimizer).__name__} keeps {sorted(want)}")
     ordered = [p for group in optimizer.param_groups for p in group["params"]]
     state = {i: by_name[names[id(p)]] for i, p in enumerate(ordered) if names[id(p)] in by_name}
     for st in state.values():
