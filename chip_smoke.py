@@ -189,7 +189,18 @@ Phases, each printed as it finishes:
    one block's per-head route under torch.profiler (``profile_route``:
    kernel 21 against the route's layout and normalise ops);
 15. d160 (path C): 8 heads x 160 at 16x16 windows, one forward, per-head
-   kernels only, profiled as path B's.
+   kernels only, profiled as path B's;
+16. dp: data parallelism, two ranks sharing the card over gloo (``python
+   chip_smoke.py --dp-rank``, launched with the ``SWIFT_*`` env after the
+   build): ``train.setup`` + ``Trainer.train`` of ``era5-swinv2-1.4-scm`` at
+   full width, global batch 4, three steps (exact launches a rank, the
+   ranks' parameters and EMA checked alike after every update), then
+   ``generate.main`` of 3 members x 1 IC x 2 steps from its checkpoint;
+   held against one process on the same global batches (loss and gradient
+   norm within the ``DP_*`` limits; the parameters' and EMA's distance
+   reported) and the one-rank store (its max difference within
+   ``DP_STORE_TOL``, and whether it is bit for bit); prints each rank's
+   step walls beside one process's.
 
 The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
 18 and 19, the paths on 256-token windows and d <= 128 none of 21 and 22.
@@ -213,6 +224,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -298,6 +310,7 @@ from swift_torch.ops.window_attention import (
     window_attention_bwd,
     window_attention_tangent,
 )
+from swift_torch.sampling.ensemble import member_block
 from swift_torch.sampling.factory import sampler_factory
 from swift_torch import train as train_lib
 from swift_torch.train import rollout_batches
@@ -472,6 +485,21 @@ SOLVER_CUT_TOL = 5e-2
 VAL_TRAIN = dict(batch=4, steps=2, steps_per_tick=1)
 VAL_OVERRIDES = ("trainer.val_ticks=1", "trainer.val_target_interval=4",
                  "trainer.val_crps_members=2", "trainer.checkpoint_ticks=null")
+# data parallelism: DP["world"] ranks sharing the one card over gloo (named explicitly: NCCL
+# refuses two ranks on one device), the default experiment era5-swinv2-1.4-scm at its full
+# width through train.setup and Trainer.train, global batch 4 (2 a rank), 3 steps a tick each;
+# then generate.main of 3 members x 1 IC x 2 steps from the run's checkpoint (rank 1 rolls out
+# member 2 and a pad member). Held against one process on the same global batches and the
+# one-rank store; limits stated in PERF.md before the first run: the loss at every step and
+# the gradient norm relative to one process's, and the store's max difference relative to
+# its max (the parameters' distance from one process's is reported)
+DP = dict(world=2, batch=4, steps=3, timeout=600, backend="gloo", share_card=True)
+DP_LOSS_TOL = 1e-3
+DP_GNORM_TOL = 1e-2
+DP_STORE_TOL = 1e-3
+DP_ROLLOUT = dict(members=3, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
+                  solver="scm", num_solver_steps=1, dump="zarr")
+DP_WORKER = [sys.executable, os.path.abspath(__file__), "--dp-rank"]  # a rank's command
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 
@@ -3242,6 +3270,287 @@ def phase_val(card: str) -> dict:
     torch.cuda.empty_cache()
     return launches
 
+def dp_argv() -> list[str]:
+    """``train``'s arguments for the data-parallel phase: the default
+    experiment cut as ``DP`` says, a tick (and the loss's mean over the
+    ranks) every step, one checkpoint at the end."""
+    steps_kimg = DP["batch"] / 1000.0
+    return [f"experiment={SCM_EXPERIMENT}", f"data.batch_size={DP['batch']}",
+            f"trainer.total_kimg={DP['steps'] * steps_kimg}",
+            f"trainer.kimg_per_tick={steps_kimg}", "trainer.lr_rampup_kimg=0",
+            "trainer.checkpoint_ticks=1000", "--device", "cuda"]
+
+
+def dp_dataset():
+    return SyntheticERA5(VARIABLES, FORCINGS, n_files=16, shape=RESOLUTION, seed=0)
+
+
+def batch_digest(batch: dict) -> list[float]:
+    """Sums of a host batch's fields: which samples a step trained on."""
+    return [float(np.asarray(batch[k], np.float64).sum()) for k in ("x", "t", "delta")]
+
+
+def dp_rollout_args(out: str, run_dir: str) -> argparse.Namespace:
+    return generate.parser.parse_args(["--input", run_dir, "--output", out] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in DP_ROLLOUT.items()])
+
+
+def dp_worker() -> int:
+    """One rank of the data-parallel phase (``python chip_smoke.py --dp-rank``,
+    launched by ``phase_dp`` with the ``SWIFT_*`` env): ``train.setup`` of
+    ``dp_argv()`` over the in-memory data, ``Trainer.train`` for ``DP``'s
+    steps with the launches counted and the parameters and EMA checked
+    alike on both ranks after every update, then ``generate.main`` of
+    ``DP_ROLLOUT`` from the run's checkpoint; writes what it saw to
+    ``<WORK>/dp/rank<r>.json``."""
+    import swift_torch.training.trainer as trainer_module
+    from swift_torch.parallel import mesh
+    from swift_torch.utils.stats import check_replica_consistency
+
+    card = phase_environment()
+    work = os.path.join(WORK, "dp")
+    os.chdir(os.path.join(work, "ranks"))
+    dataset = dp_dataset()
+    t0 = time.perf_counter()
+    trainer, loader, _ = train_lib.setup(dp_argv(), dataset)
+    setup_s = time.perf_counter() - t0
+    rank = mesh.rank()
+    digests, update, step = [], trainer.update, trainer.step
+    reduce = trainer_module.all_reduce_mean
+    spent = {"all_reduce": [], "replica_check": []}
+
+    def timed(key, fn, *args):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        spent[key].append(time.perf_counter() - t1)
+        return out
+
+    def checked_update():
+        gnorm = update()
+        timed("replica_check", check_replica_consistency,
+              list(trainer.params.values()) + list(trainer.ema.values()), "parameters and EMA")
+        return gnorm
+
+    def recorded_step(batch, steps=1):
+        digests.append(batch_digest(batch))
+        return step(batch, steps)
+
+    trainer.update, trainer.step = checked_update, recorded_step
+    def timed_reduce(tensors):
+        """The gradients' all-reduce (with the stop flag), timed on its own
+        (synchronised before and after); the tick's one-element loss mean
+        is not timed."""
+        tensors = list(tensors)
+        if len(tensors) == 1:
+            return reduce(tensors)
+        return timed("all_reduce", reduce, tensors)
+
+    trainer_module.all_reduce_mean = timed_reduce
+    torch.cuda.synchronize()
+    reset_launches()
+    trainer.train(loader)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    hist = trainer.history
+    run_dir = os.path.abspath(trainer.run_dir)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, loader
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ofile = generate.main(dp_rollout_args(os.path.join(work, "two"), run_dir), dataset)
+    torch.cuda.synchronize()
+    result = {
+        "rank": rank, "world": mesh.world_size(), "device": str(torch.cuda.current_device()),
+        "card": card, "setup_s": setup_s, "losses": hist["train/loss"],
+        "grad_norms": hist["train/grad_norm"], "walls": hist["train/dt/tick"],
+        "digests": digests, "launches": train_launches, "peak_gib": peak, "run_dir": run_dir,
+        "spent": spent, "backend": torch.distributed.get_backend(),
+        "store": ofile, "generate_s": time.perf_counter() - t0,
+        "generate_launches": read_launches(),
+    }
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.barrier()
+    return 0
+
+
+@contextlib.contextmanager
+def environ(**values):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def run_dp_ranks(work: str) -> list[dict]:
+    """Launch ``DP['world']`` ranks of :func:`dp_worker` (sharing the card
+    over gloo as the smoke runs them; ``DP`` also names NCCL, a card a rank);
+    each rank's output goes to ``<work>/rank<r>.log``, whose tail is shown
+    if it fails. Returns the ranks' results."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, SWIFT_COORDINATOR=f"localhost:{port}",
+               SWIFT_NUM_PROCESSES=str(DP["world"]), SWIFT_DIST_BACKEND=DP["backend"],
+               RUN_ID="dp")
+    if DP["share_card"]:
+        env["SWIFT_SHARE_DEVICE"] = "1"
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(DP["world"])]
+    procs = [subprocess.Popen(DP_WORKER, env=dict(env, SWIFT_PROCESS_ID=str(r)), stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=ROOT)
+             for r in range(DP["world"])]
+    try:
+        codes = [p.wait(timeout=DP["timeout"]) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = ["timed out"] * len(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            lines = f.read().splitlines()
+        shown = [line for line in lines if "Data parallel" in line or "Done!" in line]
+        for line in (lines[-40:] if code != 0 else shown):
+            log(f"[dp] rank {r}: {line}")
+        if code != 0:
+            raise AssertionError(f"[dp] rank {r} exited {code}")
+    results = []
+    for r in range(DP["world"]):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_dp(card: str) -> dict:
+    """Data parallelism on the card: two ranks of ``train`` (the default
+    experiment, global batch 4, three sCM steps) and of ``generate`` (3
+    members, one rolled by each rank and a pad member on rank 1) sharing it
+    over gloo, after this process built the kernels; then one process on the
+    same global batches, and the one-rank store. Fails unless each rank
+    launched the sCM step's exact counts, the ranks' replicas stayed alike
+    after every update, each rank's step trained on its rows, and the
+    losses, gradient norms and stores agree within the ``DP_*`` limits.
+    Returns the launches of rank 0's training."""
+    tag = "dp"
+    work = os.path.join(WORK, tag)
+    for sub in ("ranks", "one"):
+        os.makedirs(os.path.join(work, sub))
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks(work)
+    ranks_s = time.perf_counter() - t0
+    for res in ranks:
+        _exact(res["launches"], SCM_PER_STEP, DP["steps"], f"{tag}-rank{res['rank']}")
+        missing = [k for k in FORWARD if not res["generate_launches"][k]]
+        if missing:
+            raise AssertionError(f"[{tag}] rank {res['rank']}'s forecast never launched {missing}")
+    r0 = ranks[0]
+    if any(res["losses"] != r0["losses"] or res["grad_norms"] != r0["grad_norms"]
+           for res in ranks):
+        raise AssertionError(f"[{tag}] the ranks logged other losses or gradient norms: "
+                             f"{[res['losses'] for res in ranks]}")
+
+    # one process on the same global batches: the ranks' rows side by side
+    dataset = dp_dataset()
+    with contextlib.chdir(os.path.join(work, "one")), environ(RUN_ID="dp"):
+        trainer, _, _ = train_lib.setup(dp_argv(), dataset)
+    init = {n: p.detach().cpu().clone() for n, p in trainer.params.items()}
+    local = DP["batch"] // DP["world"]
+    # each rank's stream over its own dataset: a dataset draws each sample's Δ from its own
+    # generator, seeded alike on every rank
+    streams = []
+    for r in range(DP["world"]):
+        ds = dp_dataset()
+        sampler = InfiniteSampler(ds, rank=r, num_replicas=DP["world"], seed=trainer.seed)
+        streams.append(iter(BatchLoader(ds, sampler, local, num_workers=2)))
+    losses, gnorms, walls = [], [], []
+    reset_launches()
+    for k in range(DP["steps"]):
+        parts = [next(it) for it in streams]
+        for r, part in enumerate(parts):
+            if batch_digest(part) != ranks[r]["digests"][k]:
+                raise AssertionError(f"[{tag}] step {k + 1}: rank {r} trained on other samples")
+        batch = {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = trainer.step(batch)
+        losses.append(float(out["loss"]))
+        gnorms.append(float(out["grad_norm"]))
+        walls.append(time.perf_counter() - t1)
+    for it in streams:
+        it.close()
+    _exact(read_launches(), SCM_PER_STEP, DP["steps"], f"{tag}-one")
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], losses)]
+    gnorm_err = [abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"], gnorms)]
+    params_sd, ema_sd, _ = load_training_state(latest_checkpoint(
+        os.path.join(r0["run_dir"], "checkpoints")))
+    # reported, not held to a limit: Muon orthogonalizes each update, so directions a
+    # gradient barely holds (the AdaLN modulation's, of rank <= the batch) can move apart
+    drift = {}
+    for key, got in (("params", params_sd), ("ema", ema_sd)):
+        want = trainer.params if key == "params" else trainer.ema
+        sq = {n: float((got[n].float() - want[n].detach().cpu()).pow(2).sum()) for n in init}
+        den = sum(float((want[n].detach().cpu() - init[n]).pow(2).sum()) for n in init)
+        drift[key] = (sum(sq.values()) / den) ** 0.5
+        if key == "params":
+            worst = max(sq, key=sq.get), max(sq.values()) / sum(sq.values())
+    where = "sharing the card" if DP["share_card"] else "a card each"
+    log(f"[{tag}] {DP['world']} ranks {where} ({r0['backend']}), {SCM_EXPERIMENT}, global batch "
+        f"{DP['batch']} ({local} a rank), {DP['steps']} steps: the sCM step's exact launches on "
+        f"each rank, the ranks' parameters and EMA bit for bit alike after every update, each "
+        f"rank on its rows of one process's batches")
+    log(f"[{tag}] loss {DP['world']} ranks {r0['losses']} vs 1 process {losses}: relative "
+        f"{[f'{e:.3e}' for e in loss_err]} (limit {DP_LOSS_TOL}); grad norm "
+        f"{r0['grad_norms']} vs {gnorms}: {[f'{e:.3e}' for e in gnorm_err]} (limit "
+        f"{DP_GNORM_TOL}); after {DP['steps']} steps ‖Δ‖ / ‖1-process displacement‖ params "
+        f"{drift['params']:.3e}, EMA {drift['ema']:.3e}, {worst[1]:.1%} of ‖Δ‖² in {worst[0]}")
+    for res in ranks:
+        log(f"[{tag}] rank {res['rank']} (cuda:{res['device']}): step walls "
+            f"{[f'{w:.4f}' for w in res['walls']]} s, of which the gradients' all-reduce "
+            f"{[f'{w:.4f}' for w in res['spent']['all_reduce']]} s and the smoke's replica "
+            f"check {[f'{w:.4f}' for w in res['spent']['replica_check']]} s; set-up "
+            f"{res['setup_s']:.1f} s, peak {res['peak_gib']:.2f} GiB; generate "
+            f"{res['generate_s']:.1f} s ({card})")
+    log(f"[{tag}] 1 process, global batch {DP['batch']}: step walls "
+        f"{[f'{w:.4f}' for w in walls]} s; {DP['world']} ranks over all: {ranks_s:.1f} s ({card})")
+    if max(loss_err) > DP_LOSS_TOL or max(gnorm_err) > DP_GNORM_TOL:
+        raise AssertionError(f"[{tag}] {DP['world']} ranks and 1 process differ beyond the limits")
+    del trainer, init
+    torch.cuda.empty_cache()
+
+    # the one-rank store from the same checkpoint
+    ofile = generate.main(dp_rollout_args(os.path.join(work, "one_store"), r0["run_dir"]),
+                          dataset)
+    check_store(r0["store"], DP_ROLLOUT, RESOLUTION, tag)
+    want, got = read_store(ofile), read_store(r0["store"])
+    diff = max(float(np.abs(got[v] - want[v]).max()) for v in want)
+    scale = max(float(np.abs(want[v]).max()) for v in want)
+    same = all(np.array_equal(got[v], want[v]) for v in want)
+    M = DP_ROLLOUT["members"]
+    blocks = "; ".join(
+        f"rank {r}: " + ", ".join(str(m) if m < M else f"pad {m % M}"
+                                  for m in member_block(M, r, DP["world"]))
+        for r in range(DP["world"]))
+    log(f"[{tag}] the {DP['world']}-rank store ({M} members: {blocks}) against the 1-rank "
+        f"store: max |Δ| {diff:.3e} of max {scale:.3e} (limit {DP_STORE_TOL} of it); bit for "
+        f"bit: {same}")
+    if sorted(got) != sorted(want) or diff > DP_STORE_TOL * scale:
+        raise AssertionError(f"[{tag}] the {DP['world']}-rank store differs from the 1-rank one")
+    return r0["launches"]
+
 
 @contextlib.contextmanager
 def plain_on_card():
@@ -3318,13 +3627,15 @@ def main() -> int:
         timed("win8-cut", phase_scm_cut, cfg, trained, WIN8_SCM)
         del trained
         d160 = timed("d160", phase_d160, card)
+        dp = timed("dp", phase_dp, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
     log(f"[train] launches: forecast {forecast}, int8 forecast {int8}, TrigFlow training "
         f"{trigflow} (with online validation {val}), sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
         f"training {quarter}, synthetic-tiny-scm training {tiny}, 8x8-window forecast "
-        f"{win8_forecast} and sCM training {win8}, d = 160 forward {d160}")
+        f"{win8_forecast} and sCM training {win8}, d = 160 forward {d160}, data-parallel sCM "
+        f"training (rank 0) {dp}")
     # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, the int8
     # forecast, the 8x8-window sCM step (21, 22b, 22t), or kernel 20's own entry point
     main_path = {**{k: quarter for k in QUARTER_KERNELS}, **{k: int8 for k in INT8_KERNELS},
@@ -3348,4 +3659,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_worker() if sys.argv[1:] == ["--dp-rank"] else main())

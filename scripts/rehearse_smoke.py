@@ -4,7 +4,8 @@ with their cuts, its fine-tune and distill phases with their cuts, and its
 per-head phases (kernel 20's entry,
 ``synthetic-tiny-scm`` through training and ``generate.main``, bf16 and
 ``--int8``, the 8x8-window forecast, sCM steps and cuts, the d = 160
-forward) on the CPU.
+forward) and its data-parallel phase (two gloo ranks of this script,
+``--dp-rank``, and one process) on the CPU.
 
     python scripts/rehearse_smoke.py
 
@@ -221,6 +222,22 @@ def rehearse_per_head(queue: list) -> None:
         torch.Generator = generator
 
 
+def dp_at_width_32() -> None:
+    """The data-parallel phase at width 32 on a 16x32 grid on the CPU, in
+    the phase's process and in its ranks (this script with ``--dp-rank``);
+    the launch counts read back the sCM step's."""
+    cs.RESOLUTION = (16, 32)
+    argv = cs.dp_argv
+    cs.dp_argv = lambda: [a if a != "cuda" else "cpu" for a in argv()] + [
+        f"model.{k}={v}".replace(" ", "") for k, v in TINY.items()]
+    cs.DP_ROLLOUT = {**cs.DP_ROLLOUT, "device": "cpu"}
+    cs.DP_WORKER = [sys.executable, os.path.abspath(__file__), "--dp-rank"]
+    cs.phase_environment = lambda: "CPU rehearsal"
+    cs.reset_launches = lambda: None
+    cs.read_launches = lambda: {k: n * cs.DP["steps"] for k, n in cs.SCM_PER_STEP.items()}
+    torch.cuda.current_device = lambda: 0
+
+
 def main() -> None:
     read_launches = cs.read_launches
     stub_the_card()
@@ -265,8 +282,15 @@ def main() -> None:
     cs.window_kernels(np.random.default_rng(0), {})
     rehearse_per_head(queue)
 
+    dp_at_width_32()
+    cs.phase_dp("CPU rehearsal")
+
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dp-rank"]:
+        stub_the_card()
+        dp_at_width_32()
+        sys.exit(cs.dp_worker())
     try:
         main()
     finally:

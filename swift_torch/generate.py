@@ -12,8 +12,14 @@ where CUDA is absent; the CPU is used only when asked for (``--device
 cpu``). ``--int8`` builds the network with ``quant="int8"`` (the int8 qkv
 product and kernels 18 and 19). ``--solver`` takes the JAX package's
 choices (``scm``, ``edm``, ``dpm``, ``2s``), each with the same kwargs
-(``num_steps``, σ from 0.02 to 200, the interval's auxiliary). Not ported
-yet: ``--pp``.
+(``num_steps``, σ from 0.02 to 200, the interval's auxiliary). Launched as
+several processes (``torchrun --nproc_per_node N -m swift_torch.generate
+...`` or the ``SWIFT_*`` env, ``swift_torch.parallel``) each rank rolls out
+a block of whole members: rank 0 creates the store before a barrier, every
+rank writes its members (lead 0 included) and rank 0 consolidates the
+metadata after another; the store is the one-process store. Not ported
+yet: ``--pp`` and a run config asking for tensor or pipeline parallelism
+(both raise).
 """
 
 from __future__ import annotations
@@ -28,13 +34,20 @@ import torch
 from swift_torch import factory
 from swift_torch.data.constants import compress_variables
 from swift_torch.data.samplers import AttributeSubset
+from swift_torch.parallel.mesh import (
+    barrier,
+    build_kernels_first,
+    check_mesh,
+    maybe_initialize_distributed,
+    world_size,
+)
 from swift_torch.sampling.ensemble import EnsembleRollout
 from swift_torch.sampling.factory import sampler_factory
 from swift_torch.utils import zarr_lite
 from swift_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from swift_torch.utils.device import resolve_device
 from swift_torch.utils.io import create_empty_numpy, create_forecast_zarr
-from swift_torch.utils.log import log0
+from swift_torch.utils.log import is_main_process, log0
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--input", type=str, required=True, help="Input (run) directory")
@@ -65,10 +78,15 @@ parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"
 
 
 def build_store(args, dataset, indices, odir, filename):
-    """(ofile, write_fn(ic_start, member, lead_start, chunk), finalize)."""
+    """(ofile, write_fn(ic_start, member, lead_start, chunk), finalize):
+    rank 0 creates the store and every rank opens it after a barrier;
+    ``finalize`` flushes, then rank 0 consolidates the metadata after
+    another."""
     if args.dump == "numpy":
         ofile = os.path.join(odir, f"{filename}.npy")
-        create_empty_numpy(ofile, dataset, args.members, args.steps)
+        if is_main_process():
+            create_empty_numpy(ofile, dataset, args.members, args.steps)
+        barrier()
         store = np.lib.format.open_memmap(ofile, mode="r+")
 
         def write_fn(ic_start, m, lead_start, chunk):
@@ -77,11 +95,17 @@ def build_store(args, dataset, indices, odir, filename):
             store[ic_start:ic_start + b, m, lead_start:lead_start + s] = (
                 chunk.transpose(0, 1, 4, 2, 3))
 
-        return ofile, write_fn, store.flush
+        def finalize():
+            store.flush()
+            barrier()
+
+        return ofile, write_fn, finalize
 
     ofile = os.path.join(odir, f"{filename}.zarr")
-    create_forecast_zarr(ofile, dataset, args.members, args.steps, interval=args.interval,
-                         batch=args.batch, indices=indices)
+    if is_main_process():
+        create_forecast_zarr(ofile, dataset, args.members, args.steps, interval=args.interval,
+                             batch=args.batch, indices=indices)
+    barrier()
     group = zarr_lite.open_group(ofile)
     var_slices = {}
     counter = 0
@@ -99,7 +123,13 @@ def build_store(args, dataset, indices, odir, filename):
             else:
                 group[var][sel] = chunk[..., lo]
 
-    return ofile, write_fn, group.consolidate_metadata
+    def finalize():
+        barrier()
+        if is_main_process():
+            group.consolidate_metadata()
+        barrier()
+
+    return ofile, write_fn, finalize
 
 
 def read_store(ofile: str) -> dict[str, np.ndarray]:
@@ -122,9 +152,9 @@ def rollout_to_store(args, dataset, net, odir: str, timings: dict | None = None)
 
     ``dataset`` has the ``ERA5Dataset`` interface; ``net`` is a built
     precond with weights, on its device. Returns (store path, rollout
-    seconds, forecast steps); ``timings``, when given, receives the host
-    seconds of the rollout spent staging inputs ("staging") and writing the
-    store ("store")."""
+    seconds, forecast steps of all ranks); ``timings``, when given,
+    receives the host seconds of the rollout spent staging inputs
+    ("staging") and writing the store ("store"), this rank's."""
     device = next(net.parameters()).device
     indices = select_indices(len(dataset), args.samples, args.steps, args.interval)
     subset = AttributeSubset(dataset, indices)
@@ -170,12 +200,15 @@ def rollout_to_store(args, dataset, net, odir: str, timings: dict | None = None)
         engine.run(X0, forcings, b0, timed_write)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    barrier()
     wall = time.perf_counter() - start
     finalize()
     n_steps = len(subset) * args.members * args.steps
+    world = world_size()
     log0(f"Done! Took {wall:.3f} seconds ({n_steps} forecast steps, "
-         f"{n_steps / wall:.2f} steps/sec on {device}; input staging "
-         f"{host['staging']:.3f} s, store writes {host['store']:.3f} s).")
+         f"{n_steps / wall / world:.2f} steps/sec a card over {world} rank(s) on {device}; "
+         f"input staging {host['staging']:.3f} s, store writes {host['store']:.3f} s on "
+         "rank 0).")
     log0(f"Output saved to: {ofile}")
     return ofile, wall, n_steps
 
@@ -197,9 +230,12 @@ def main(args, dataset=None):
     it."""
     from swift_torch import config as cfglib  # needs yaml
 
+    maybe_initialize_distributed(args.device)
     device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
+    check_mesh(cfg)
+    build_kernels_first(device)
     if dataset is None:
         log0("Loading dataset...")
         dataset = factory.build_dataset(cfg["data"], split="test")

@@ -1,15 +1,17 @@
 """Sampler factory: ``sampler_factory(mode, net, **solver_kwargs)``.
 
 Counterpart of ``swift_tpu/sampling/factory.py``. The returned
-``sampler(X, generator, auxiliary=None, latents=None)`` draws fresh
-latents from the explicit ``torch.Generator`` (or takes ``latents``) and
-runs the solver conditioned on ``X`` (NHWC). ``_SOLVERS`` holds the JAX
-package's keys; ``solvers.scm_solve2`` stays a function, as there.
+``sampler(X, generator, auxiliary=None, latents=None, noise=None)`` draws
+fresh latents from the explicit ``torch.Generator`` (or takes ``latents``)
+and runs the solver conditioned on ``X`` (NHWC); ``noise``, when given,
+stands in for the solver's re-noise draws (``noise[i]`` its i-th; the
+deterministic solvers draw none). ``_SOLVERS`` holds the JAX package's
+keys; ``solvers.scm_solve2`` stays a function, as there.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -32,7 +34,8 @@ def sampler_factory(mode: str, net, **solver_kwargs) -> Callable[..., torch.Tens
     cfg_aux = solver_kwargs.pop("auxiliary", None)
 
     def sampler(X: torch.Tensor, generator: Optional[torch.Generator] = None, auxiliary=None,
-                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+                latents: Optional[torch.Tensor] = None,
+                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         aux = auxiliary if auxiliary is not None else cfg_aux
         if aux is not None:  # on the device once a sample, not at every network evaluation
             aux = torch.as_tensor(aux, dtype=torch.float32, device=X.device)
@@ -40,7 +43,7 @@ def sampler_factory(mode: str, net, **solver_kwargs) -> Callable[..., torch.Tens
             H, W = net.img_resolution
             latents = torch.randn((X.shape[0], H, W, net.img_channels), generator=generator,
                                   device=X.device)
-        return solver(net, latents, condition=X, auxiliary=aux, generator=generator,
-                      **solver_kwargs)
+        kwargs = dict(solver_kwargs, noise=noise) if noise is not None else solver_kwargs
+        return solver(net, latents, condition=X, auxiliary=aux, generator=generator, **kwargs)
 
     return sampler

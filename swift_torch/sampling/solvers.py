@@ -280,9 +280,10 @@ def dpm_solver(
     sigma_min: float = 0.002,
     sigma_max: float = 80.0,
     rho: float = 7.0,
+    noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """2nd-order multistep DPM solver on t = atan(σ/σ_d). Deterministic:
-    ``generator`` is not drawn from."""
+    ``generator`` is not drawn from and ``noise`` is not read."""
     sigma_data = net.sigma_data
     ramp = np.linspace(0, 1, num_steps)
     sigmas = (sigma_max ** (1 / rho)
@@ -331,10 +332,11 @@ def dpm_solver_2s(
     S_min: float = 0.0,
     S_max: float = 1.57,
     S_noise: float = 1.0,
+    noise: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """DPM-Solver++ 2S: a Heun step on v-prediction, the last step Euler.
-    Deterministic (the churn arguments are accepted and unused, as in the
-    JAX package)."""
+    Deterministic (the churn arguments and ``noise`` are accepted and
+    unused, as the churn arguments in the JAX package)."""
     sigma_data = net.sigma_data
     t_steps = np.concatenate(
         [_loguniform_t_steps(num_steps, sigma_min, sigma_max, sigma_data), [0.0]])

@@ -21,8 +21,19 @@ ticks and validation every 50; batches share one Δ
 (``DeltaBatchSampler``) and carry the forcings of every unrolled step. A
 fine-tune without ``resume`` returns 1. ``distill=<run>`` on an sCM
 experiment distils that run's latest EMA, frozen, into the student
-(reference train.py:102-132). Multi-device runs are not ported (ROADMAP
-A7).
+(reference train.py:102-132).
+
+Data parallelism (the JAX package's multi-process runtime, its
+``train.py:119-197``): launched as N processes, by ``torchrun
+--nproc_per_node N -m swift_torch.train ...`` or by the JAX package's
+``SWIFT_COORDINATOR``/``SWIFT_NUM_PROCESSES``/``SWIFT_PROCESS_ID`` env
+(``swift_torch.parallel``), each rank loads every N-th item of the shared
+sample stream, ``data.batch_size / N`` a step, and the ranks average their
+gradients, so N processes do the work of one on the global batch. Rank 0's
+parameters, EMA and optimizer state are broadcast once after the build or
+resume, and checked to agree; rank 0 writes the run's files. A config whose
+``system.mesh`` asks for tensor or pipeline parallelism raises: neither is
+ported.
 """
 
 from __future__ import annotations
@@ -40,10 +51,19 @@ from swift_torch import config as cfglib
 from swift_torch import factory
 from swift_torch.data.pipeline import BatchLoader
 from swift_torch.data.samplers import DeltaBatchSampler, InfiniteSampler
+from swift_torch.parallel.mesh import (
+    broadcast_from_rank0,
+    build_kernels_first,
+    check_mesh,
+    maybe_initialize_distributed,
+    rank,
+    world_size,
+)
 from swift_torch.training.trainer import Trainer, swin_flop_count
 from swift_torch.utils.checkpoint import get_ckpt_num, latest_checkpoint, load_checkpoint
 from swift_torch.utils.device import resolve_device
 from swift_torch.utils.log import is_main_process, log0
+from swift_torch.utils.stats import check_replica_consistency
 
 
 def string_to_int(s: str) -> int:
@@ -131,14 +151,45 @@ def distill_setup(cfg: dict, dataset, device=None):
     return teacher.to(device).eval().requires_grad_(False)
 
 
-def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
+def launch_run_id() -> str:
+    """``RUN_ID``, or rank 0's clock as ``%Y%m%d_%H%M%S`` (broadcast, so the
+    ranks' run directories and seeds agree)."""
+    if os.environ.get("RUN_ID"):
+        return os.environ["RUN_ID"]
+    stamp = torch.tensor([int(datetime.now().strftime("%Y%m%d%H%M%S"))])
+    broadcast_from_rank0([stamp])
+    return datetime.strptime(str(int(stamp)), "%Y%m%d%H%M%S").strftime("%Y%m%d_%H%M%S")
+
+
+def replicated_state(trainer: Trainer) -> list[torch.Tensor]:
+    """The tensors every rank holds alike: parameters, buffers, the EMA and
+    the optimizer state, in one order on every rank."""
+    state = list(trainer.net.state_dict().values())
+    state += [trainer.ema[n] for n in trainer.params]
+    for group in trainer.optimizer.param_groups:
+        for p in group["params"]:
+            st = trainer.optimizer.state.get(p, {})
+            state += [torch.as_tensor(st[k]) for k in sorted(st)
+                      if isinstance(st[k], torch.Tensor)]
+    return state
+
+
+def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
     """Compose the config and build (trainer, loader, config) as ``main``
-    runs them; a resume restores the trainer's state here."""
+    runs them; a resume restores the trainer's state here. ``dataset``,
+    when given, stands in for the training split the data config names (an
+    in-memory ``SyntheticERA5`` where h5py is absent). Under data
+    parallelism the process group starts here and the loader serves this
+    rank's rows."""
     device_name, overrides = split_device(list(argv))
+    maybe_initialize_distributed(device_name)
     device = resolve_device(device_name)
     cfg = cfglib.compose("train", overrides)
+    check_mesh(cfg)
+    world = world_size()
+    build_kernels_first(device)
 
-    run_id = os.environ.get("RUN_ID") or datetime.now().strftime("%Y%m%d_%H%M%S")
+    run_id = launch_run_id()
     run_dir = os.path.join("results", cfg["experiment_name"], run_id)
     if is_main_process():
         os.makedirs(run_dir, exist_ok=True)
@@ -157,19 +208,26 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
         raise FinetuneWithoutResume("must have resume path to finetune")
 
     seed = int(cfg["seed"]) + string_to_int(run_id)
-    np.random.seed(seed % (1 << 31))
+    # numpy's stream a rank (the JAX package's), torch's shared: the net's
+    # initial weights and the losses' draws are alike on every rank
+    np.random.seed((seed * world + rank()) % (1 << 31))
     torch.manual_seed(seed)
 
-    log0("Loading dataset...")
-    dataset = factory.build_dataset(cfg["data"])
-    sampler = InfiniteSampler(dataset, rank=0, num_replicas=1, shuffle=True, seed=seed)
+    if dataset is None:
+        log0("Loading dataset...")
+        dataset = factory.build_dataset(cfg["data"])
+    sampler = InfiniteSampler(dataset, rank=rank(), num_replicas=world, shuffle=True, seed=seed)
     global_batch = int(cfg["data"]["batch_size"])
+    if global_batch % world:
+        raise ValueError(f"data.batch_size={global_batch} does not divide over {world} ranks")
+    local_batch = global_batch // world
     finetune = cfg.get("finetune")
     batch_sampler, multistep_steps = None, 0
     if finetune is not None:
-        batch_sampler = DeltaBatchSampler(sampler, global_batch, dataset.intervals, seed=seed)
+        # the shared seed: every rank draws the step's Δ and unroll alike
+        batch_sampler = DeltaBatchSampler(sampler, local_batch, dataset.intervals, seed=seed)
         multistep_steps = max(iv["steps"] for iv in finetune.get("intervals", [{"steps": 1}]))
-    loader = BatchLoader(dataset, sampler, global_batch,
+    loader = BatchLoader(dataset, sampler, local_batch,
                          num_workers=int(cfg["data"].get("data_workers", 4)),
                          multistep_forcings=multistep_steps, batch_sampler=batch_sampler)
 
@@ -216,13 +274,20 @@ def setup(argv) -> tuple[Trainer, BatchLoader, dict]:
         teacher=teacher,
         profile=bool(tcfg.get("profile", False)),
     )
+    if world > 1:
+        state = replicated_state(trainer)
+        broadcast_from_rank0(state)
+        check_replica_consistency(state, "parameters, EMA and optimizer state")
+        log0(f"Data parallel over {world} ranks: {local_batch} of the global batch of "
+             f"{global_batch} a rank; the replicas agree")
     return trainer, loader, cfg
 
 
 def rollout_batches(val_dataset, batch_size: int, seed: int):
     """``val_batches()``: an iterator of (X, TS, idx), ``batch_size``
-    rollout items of ``val_dataset`` at a time from an ``InfiniteSampler``."""
-    val_sampler = InfiniteSampler(val_dataset, seed=seed)
+    rollout items of ``val_dataset`` at a time from an ``InfiniteSampler``
+    strided by rank."""
+    val_sampler = InfiniteSampler(val_dataset, rank=rank(), num_replicas=world_size(), seed=seed)
 
     def val_batches():
         it = iter(val_sampler)
@@ -254,9 +319,9 @@ def validation(cfg: dict, seed: int):
     return val_batches, val_dataset
 
 
-def main(argv=None) -> int:
+def main(argv=None, dataset=None) -> int:
     try:
-        trainer, loader, cfg = setup(argv if argv is not None else sys.argv[1:])
+        trainer, loader, cfg = setup(argv if argv is not None else sys.argv[1:], dataset)
     except FinetuneWithoutResume as e:
         log0(f"ERROR: {e}")
         return 1

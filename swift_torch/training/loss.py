@@ -10,7 +10,10 @@ runs the network once in forward mode (``torch.autograd.forward_ad``) through
 the kernels' tangent routes. Data are NHWC, channel sums over the last axis.
 The random draws ((τ, z); EDM's (σ, n)) are split from the loss body, as
 ``SCMLoss._draw`` splits them in the JAX package, and come from an explicit
-``torch.Generator``: a test hands both packages the same numbers. The
+``torch.Generator``: a test hands both packages the same numbers. Under data
+parallelism (``shard`` = (rank, world)) every draw is made for the global
+batch from a generator seeded alike on every rank, and the rank keeps its
+rows, so the ranks' numbers are the one-process run's. The
 multistep losses predict at t = π/2 from pure noise and roll the prediction
 forward autoregressively in physical space; ``CRPSLoss`` scores an ensemble
 of such rollouts with the almost-fair kernel CRPS.
@@ -57,15 +60,31 @@ def variable_weights(variables: Sequence[str]) -> np.ndarray:
     return w.reshape(1, 1, 1, -1)
 
 
+Shard = tuple[int, int]  # (rank, world size)
+
+
+def _rows(draw, shape, gen: torch.Generator, device, shard: Shard) -> torch.Tensor:
+    """``draw`` (``torch.randn`` or ``torch.rand``) of ``shape`` for this
+    rank's rows of a batch spread over ranks: the whole batch's numbers
+    (``shape[0]`` rows a rank, in rank order) are drawn from ``gen``,
+    seeded alike on every rank, and the rank's rows kept, as one JAX key
+    over the sharded global array draws them. One rank draws ``shape``."""
+    rank, world = shard
+    if world == 1:
+        return draw(shape, generator=gen, device=device)
+    full = draw((shape[0] * world, *shape[1:]), generator=gen, device=device)
+    return full[rank * shape[0]:(rank + 1) * shape[0]].clone()
+
+
 def lognormal(gen: torch.Generator, batch: int, P_mean: float, P_std: float,
-              device=None) -> torch.Tensor:
-    n = torch.randn(batch, 1, 1, 1, generator=gen, device=device)
+              device=None, shard: Shard = (0, 1)) -> torch.Tensor:
+    n = _rows(torch.randn, (batch, 1, 1, 1), gen, device, shard)
     return torch.exp(n * P_std + P_mean)
 
 
 def loguniform(gen: torch.Generator, batch: int, sigma_min: float, sigma_max: float,
-               device=None) -> torch.Tensor:
-    u = torch.rand(batch, 1, 1, 1, generator=gen, device=device)
+               device=None, shard: Shard = (0, 1)) -> torch.Tensor:
+    u = _rows(torch.rand, (batch, 1, 1, 1), gen, device, shard)
     return torch.exp(math.log(sigma_min) + u * (math.log(sigma_max) - math.log(sigma_min)))
 
 
@@ -87,14 +106,15 @@ class _WeightedLoss:
         """w_var·w_lat·se summed over channels, meaned over (B, H, W)."""
         return (self.w_var.to(se.device) * self.w_lat.to(se.device) * se).sum(dim=-1).mean()
 
-    def draw(self, x: torch.Tensor, gen: torch.Generator):
+    def draw(self, x: torch.Tensor, gen: torch.Generator, shard: Shard = (0, 1)):
         """(t (B, 1, 1, 1), z like x): t = arctan(τ/σ_d) with τ from the
-        noise sampler, z standard normal times σ_d."""
+        noise sampler, z standard normal times σ_d; ``shard`` = (rank,
+        world): x is that rank's rows of the global batch (:func:`_rows`)."""
         cfg = dict(self.noise)
         fn = NOISE_SAMPLING_METHODS[cfg.pop("dist")]
-        tau = fn(gen, x.shape[0], device=x.device, **cfg)
+        tau = fn(gen, x.shape[0], device=x.device, shard=shard, **cfg)
         t = torch.atan(tau / self.sigma_data)
-        z = torch.randn(x.shape, generator=gen, device=x.device) * self.sigma_data
+        z = _rows(torch.randn, x.shape, gen, x.device, shard) * self.sigma_data
         return t, z
 
 
@@ -107,12 +127,12 @@ class EDMLoss(_WeightedLoss):
                  sigma_data: float = 0.5):
         super().__init__(lat_dim, variables, noise, sigma_data)
 
-    def draw(self, x: torch.Tensor, gen: torch.Generator):
+    def draw(self, x: torch.Tensor, gen: torch.Generator, shard: Shard = (0, 1)):
         """(σ (B, 1, 1, 1), n = σ·ε like x)."""
         cfg = dict(self.noise)
         fn = NOISE_SAMPLING_METHODS[cfg.pop("dist")]
-        sigma = fn(gen, x.shape[0], device=x.device, **cfg)
-        return sigma, torch.randn(x.shape, generator=gen, device=x.device) * sigma
+        sigma = fn(gen, x.shape[0], device=x.device, shard=shard, **cfg)
+        return sigma, _rows(torch.randn, x.shape, gen, x.device, shard) * sigma
 
     def value(self, net, x, sigma, n, condition=None, auxiliary=None) -> torch.Tensor:
         """The loss at fixed draws (σ, n)."""
@@ -122,8 +142,8 @@ class EDMLoss(_WeightedLoss):
         return (weight * (w * (D_yn - x) ** 2)).sum(dim=-1).mean()
 
     def __call__(self, net, x, condition=None, auxiliary=None,
-                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        sigma, n = self.draw(x, gen)
+                 gen: Optional[torch.Generator] = None, shard: Shard = (0, 1)) -> torch.Tensor:
+        sigma, n = self.draw(x, gen, shard)
         return self.value(net, x, sigma, n, condition, auxiliary)
 
 
@@ -152,8 +172,8 @@ class TrigFlowLoss(_WeightedLoss):
         return ((1.0 / torch.exp(logvar)) * se + logvar).sum(dim=-1).mean()
 
     def __call__(self, net, x, condition=None, auxiliary=None,
-                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        t, z = self.draw(x, gen)
+                 gen: Optional[torch.Generator] = None, shard: Shard = (0, 1)) -> torch.Tensor:
+        t, z = self.draw(x, gen, shard)
         return self.value(net, x, t, z, condition, auxiliary)
 
 
@@ -238,8 +258,9 @@ class SCMLoss(_WeightedLoss):
         return ((1.0 / torch.exp(logvar)) * se + logvar).sum(dim=-1).mean()
 
     def __call__(self, net, x, condition=None, auxiliary=None,
-                 gen: Optional[torch.Generator] = None, step=0.0, teacher=None) -> torch.Tensor:
-        t, z = self.draw(x, gen)
+                 gen: Optional[torch.Generator] = None, step=0.0, teacher=None,
+                 shard: Shard = (0, 1)) -> torch.Tensor:
+        t, z = self.draw(x, gen, shard)
         return self.value(net, x, t, z, step, condition, auxiliary, teacher)
 
 
@@ -290,8 +311,9 @@ class MSELoss(_MultistepLoss):
         return self._weighted((pred - target) ** 2)
 
     def __call__(self, net, target, condition=None, auxiliary=None,
-                 gen: Optional[torch.Generator] = None, steps: int = 1, **kw) -> torch.Tensor:
-        noise = [torch.randn(target.shape, generator=gen, device=target.device)
+                 gen: Optional[torch.Generator] = None, steps: int = 1, shard: Shard = (0, 1),
+                 **kw) -> torch.Tensor:
+        noise = [_rows(torch.randn, target.shape, gen, target.device, shard)
                  for _ in range(steps)]
         return self.value(net, target, condition, auxiliary, noise, steps)
 
@@ -364,7 +386,8 @@ class CRPSLoss(_MultistepLoss):
         return self._weighted(crps)
 
     def __call__(self, net, target, condition, auxiliary, gen: Optional[torch.Generator] = None,
-                 forcings_seq=None, delta: int = 6, steps: int = 1, **kw) -> torch.Tensor:
-        noise = [[torch.randn(target.shape, generator=gen, device=target.device)
+                 forcings_seq=None, delta: int = 6, steps: int = 1, shard: Shard = (0, 1),
+                 **kw) -> torch.Tensor:
+        noise = [[_rows(torch.randn, target.shape, gen, target.device, shard)
                   for _ in range(steps)] for _ in range(self.ensemble_size)]
         return self.value(net, target, condition, auxiliary, forcings_seq, noise, delta, steps)

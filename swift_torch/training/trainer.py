@@ -24,6 +24,18 @@ get the unroll ``steps``; ``CRPSLoss`` also the batch's one Δ, read on
 the host, and its ``forcings_seq``. A distilled sCM loss gets the frozen
 ``teacher``. ``profile=True`` traces the whole run with
 ``torch.profiler`` into ``<run_dir>/profile/trace.json``.
+
+Under data parallelism (``swift_torch.parallel``; one replica a process,
+each process given its own rows of the global batch) :meth:`Trainer.update`
+first averages the gradients over the ranks, so every rank clamps and
+applies the global batch's gradients, as the JAX trainer differentiates
+the global mean before it clamps; the losses draw their noise for the
+global batch and keep the rank's rows (``shard``); the loss written to
+``stats.jsonl`` and the validation scores are means over the ranks, and
+rank 0 alone writes files, a checkpoint behind a barrier. A stop signal
+(SIGTERM, SIGINT) is decided together: each rank's request rides the
+gradients' all-reduce, so every rank stops, and checkpoints, after the same
+step whichever ranks the signal reached first.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from swift_torch.parallel.mesh import all_reduce_mean, barrier, rank, world_size
 from swift_torch.training.loss import CRPSLoss, EDMLoss, MSELoss, SCMLoss
 from swift_torch.utils.checkpoint import (
     get_ckpt_num,
@@ -227,6 +240,9 @@ class Trainer:
         self.teacher = teacher
         self.profile = bool(profile)
         self.device = next(net.parameters()).device
+        self.rank, self.world = rank(), world_size()
+        self.stop_requested = False  # set by a stop signal on this rank
+        self.stopping = False  # any rank's request, as of the last update
         self.depth = len(net.model.transformer.layers)
         self.params = dict(net.named_parameters())
         self.history: dict[str, list] = {}
@@ -265,22 +281,26 @@ class Trainer:
     # ------------------------------------------------------------------
     def _loss_kwargs(self, batch: dict, steps: int) -> dict:
         """The loss's arguments beyond (target, condition, auxiliary), as the
-        JAX trainer's ``_loss_kwargs``; tensors of the batch are sliced per
-        microbatch by :meth:`backward`."""
+        JAX trainer's ``_loss_kwargs``, and this rank's ``shard`` of the
+        global batch under data parallelism; tensors of the batch are sliced
+        per microbatch by :meth:`backward`."""
+        kwargs = {"shard": (self.rank, self.world)} if self.world > 1 else {}
         if isinstance(self.loss_fn, SCMLoss):
-            return {"step": self.nimg, "teacher": self.teacher}
-        if isinstance(self.loss_fn, MSELoss):
-            return {"steps": steps}
-        if isinstance(self.loss_fn, CRPSLoss):
+            kwargs.update(step=self.nimg, teacher=self.teacher)
+        elif isinstance(self.loss_fn, MSELoss):
+            kwargs.update(steps=steps)
+        elif isinstance(self.loss_fn, CRPSLoss):
             delta = int(round(float(np.asarray(batch["delta"]).reshape(-1)[0]) * 10))
-            return {"steps": steps, "delta": delta, "forcings_seq": batch["forcings_seq"]}
-        return {}
+            kwargs.update(steps=steps, delta=delta, forcings_seq=batch["forcings_seq"])
+        return kwargs
 
     def backward(self, batch: dict, steps: int = 1) -> torch.Tensor:
-        """Loss and gradients of a host batch at an unroll of ``steps`` (the
-        multistep losses), over ``grad_accum`` microbatches (each loss a
-        per-sample mean, the gradients averaged over the microbatches).
-        Returns the loss as a device scalar."""
+        """Loss and gradients of a host batch (this rank's rows of the
+        global batch) at an unroll of ``steps`` (the multistep losses), over
+        ``grad_accum`` microbatches (each loss a per-sample mean, the
+        gradients averaged over the microbatches; under data parallelism
+        the global microbatch is the ranks' microbatches side by side).
+        Returns this rank's loss as a device scalar."""
         net, accum = self.net, self.grad_accum
         dev = self.device
         kwargs = self._loss_kwargs(batch, steps)
@@ -305,15 +325,23 @@ class Trainer:
         return loss_sum / accum
 
     def update(self) -> torch.Tensor:
-        """clamp_grads → the optimizer at the scheduled lr (each group's
-        schedule from its own ``base_lr``) → EMA, a parameter without a
-        gradient updated as from a zero one (weight decay, momentum), as the
-        JAX trainer's optax update takes it; returns the global
-        gradient norm (after the clamp) as a device scalar."""
+        """The gradients averaged over the ranks → clamp_grads → the
+        optimizer at the scheduled lr (each group's schedule from its own
+        ``base_lr``) → EMA, a parameter without a gradient updated as from a
+        zero one (weight decay, momentum), as the JAX trainer's optax update
+        takes it; returns the global gradient norm (after the clamp) as a
+        device scalar. Sets ``stopping`` when any rank has requested a stop:
+        under data parallelism the request is one more element of the
+        gradients' all-reduce, read on the host once the update is queued."""
         params = list(self.params.values())
         for p in params:
             if p.grad is None:  # not reached by the loss (a multistep loss's logvar head)
                 p.grad = torch.zeros_like(p)
+        reduced = [p.grad for p in params]
+        if self.world > 1:
+            stop = torch.full((1,), float(self.stop_requested), device=self.device)
+            reduced.append(stop)
+        all_reduce_mean(reduced)
         clamp_grads(params)
         gnorm = global_norm(params)
         for group in self.optimizer.param_groups:
@@ -323,6 +351,7 @@ class Trainer:
         ema_update(self.ema, self.params, self.nimg, float(self.global_batch_size),
                    self.ema_halflife_kimg, self.ema_rampup_ratio)
         self.nimg += self.global_batch_size
+        self.stopping = bool(stop.item()) if self.world > 1 else self.stop_requested
         return gnorm
 
     def step(self, batch: dict, steps: int = 1) -> dict:
@@ -360,8 +389,9 @@ class Trainer:
         sampler = sampler_factory(self.solver_type, _WithWeights(self.net, self.ema),
                                   **self.solver_kwargs)
 
-        def generator():
-            return torch.Generator(device=self.device).manual_seed(self.seed + cur_tick)
+        def generator():  # a stream a rank, the one-process stream on rank 0 of 1
+            return torch.Generator(device=self.device).manual_seed(
+                (self.seed + cur_tick) * self.world + self.rank)
 
         try:
             agg, arr = RMSE_rollout(sampler, val_batches_fn(), val_dataset,
@@ -416,12 +446,11 @@ class Trainer:
         it = iter(train_batches)
         steps = None
 
-        interrupted = {"flag": False}
         prev_handlers = {}
 
         def _request_stop(signum, frame):
             logger.warning(f"signal {signum}: checkpointing at next tick")
-            interrupted["flag"] = True
+            self.stop_requested = True
 
         try:
             for sig in (signal.SIGTERM, signal.SIGINT):
@@ -449,14 +478,17 @@ class Trainer:
                 metrics_dev = self.step(batch, steps)
                 i += 1
                 global_nimg += self.global_batch_size
-                done = global_nimg >= self.total_kimg * 1000 or interrupted["flag"]
+                done = global_nimg >= self.total_kimg * 1000 or self.stopping
                 if (not done and cur_tick != 0
                         and global_nimg < tick_start_nimg + self.kimg_per_tick * 1000):
                     j += 1
                     continue
 
-                # block for real timing at tick boundaries only
-                metrics_host = {k: float(v) for k, v in metrics_dev.items()}
+                # block for real timing at tick boundaries only; the loss is
+                # the mean over the ranks, the gradient norm already global
+                loss = metrics_dev["loss"].detach().float().clone()
+                all_reduce_mean([loss])
+                metrics_host = {"loss": float(loss), "grad_norm": float(metrics_dev["grad_norm"])}
                 dt_step = time.perf_counter() - t0
                 if (self.val_ticks is not None and val_batches is not None
                         and cur_tick % self.val_ticks == 0):
@@ -503,12 +535,14 @@ class Trainer:
 
                 # a signal-requested stop checkpoints even when periodic
                 # checkpointing is disabled
-                want_ckpt = interrupted["flag"] or (
+                want_ckpt = self.stopping or (
                     self.checkpoint_ticks is not None
                     and (done or (cur_tick % self.checkpoint_ticks == 0 and cur_tick != 0))
                 )
-                if want_ckpt and is_main_process():
-                    self.save_checkpoint(global_nimg)
+                if want_ckpt:
+                    if is_main_process():
+                        self.save_checkpoint(global_nimg)
+                    barrier()
 
                 cur_tick += 1
                 tick_start_nimg = global_nimg
@@ -519,7 +553,7 @@ class Trainer:
                     if prof is not None:
                         self._stop_profile(prof)
                         prof = None
-                    if interrupted["flag"]:
+                    if self.stopping:
                         logger.warning("stopped by signal; checkpoint saved — resume with "
                                        "resume=<this run id>")
                     logger.info(f"Finished training in "

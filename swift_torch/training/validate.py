@@ -8,7 +8,9 @@ end, averaged over batches; ``CRPS_rollout`` scores an ensemble the same
 way. A batch's forcings are staged on the device at once, and the rollout
 and its metrics run there under ``torch.inference_mode`` (the JAX package's
 two ``lax.scan`` bodies become Python loops); the host reads two small
-arrays a batch.
+arrays a batch. Under data parallelism each rank scores its own items (the
+offline ``main`` takes every world-th item from the rank's) and the scores
+are means over every rank's batches.
 
 ``python -m swift_torch.training.validate --input <run_dir> [--batch N]
 [--samples N] [--target_interval 56] [--solver dpm] [--checkpoint FILE]
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 from swift_torch.data.standardize import Standardizer
+from swift_torch.parallel.mesh import rank, world_size
 from swift_torch.utils.device import resolve_device
+from swift_torch.utils.stats import sum_over_ranks
 
 NUM_INTERVAL_PER_DAY = 4
 
@@ -123,21 +127,27 @@ def _staged_forcings(dataset, idx, target_interval: int) -> Optional[np.ndarray]
 
 def _score(rollout, batches, dataset, target_interval: int, device, num_batches, tile: int):
     """Averages ``rollout(X0, forcings, targets, w_lat)`` over the batches of
-    (X, TS, idx); X is repeated ``tile`` times member-major."""
+    (X, TS, idx), every rank's (a rank may have none); X is repeated
+    ``tile`` times member-major."""
     dev = resolve_device(str(device))
     w_lat = torch.from_numpy(lat_weights(dataset)).to(dev)
-    agg_total, arr_total, count = 0.0, None, 0
+    agg_total, count = 0.0, 0
+    arr_total = np.zeros((len(dataset.variables), target_interval // NUM_INTERVAL_PER_DAY + 1),
+                         np.float32)
     for X, TS, idx in batches:
         forc = _staged_forcings(dataset, idx, target_interval)
         X0 = torch.as_tensor(np.asarray(X, np.float32), device=dev).repeat(tile, 1, 1, 1)
         agg, arr = rollout(X0, None if forc is None else torch.from_numpy(forc).to(dev),
                            torch.as_tensor(np.asarray(TS, np.float32), device=dev), w_lat)
         agg_total += float(agg)
-        arr_np = arr.cpu().numpy()
-        arr_total = arr_np if arr_total is None else arr_total + arr_np
+        arr_total = arr_total + arr.cpu().numpy()
         count += 1
         if num_batches is not None and count >= num_batches:
             break
+    if world_size() > 1:  # the sums and counts of every rank
+        packed = sum_over_ranks(np.concatenate([[agg_total, count], arr_total.reshape(-1)]))
+        agg_total, count = float(packed[0]), int(packed[1])
+        arr_total = packed[2:].reshape(arr_total.shape).astype(np.float32)
     return agg_total / count, arr_total / count
 
 
@@ -189,6 +199,7 @@ def main(argv=None, dataset=None):
     from swift_torch.data.samplers import AttributeSubset
     from swift_torch.generate import load_weights
     from swift_torch.sampling.factory import sampler_factory
+    from swift_torch.parallel.mesh import maybe_initialize_distributed
     from swift_torch.utils.checkpoint import latest_checkpoint
     from swift_torch.utils.log import log0
 
@@ -205,6 +216,7 @@ def main(argv=None, dataset=None):
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
+    maybe_initialize_distributed(args.device)
     device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
@@ -212,7 +224,8 @@ def main(argv=None, dataset=None):
         dataset = factory.build_rollout_dataset(cfg["data"], args.target_interval, split="test")
     n = len(dataset) if args.samples == -1 else args.samples
     strt = random.Random(args.seed).randint(0, max(len(dataset) - n, 0))
-    subset = AttributeSubset(dataset, list(range(strt, strt + n)))
+    # this rank's items: every world-th of the window
+    subset = AttributeSubset(dataset, list(range(strt + rank(), strt + n, world_size())))
 
     net = factory.build_precond(cfg["precond"], cfg["model"], dataset.img_resolution,
                                 dataset.n_target_channels, dataset.n_condition_channels,
@@ -229,7 +242,7 @@ def main(argv=None, dataset=None):
             yield (np.stack([c[0] for c in chunk]), np.stack([c[1] for c in chunk]),
                    np.asarray([c[2] for c in chunk]))
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed * world_size() + rank())
     agg, arr = RMSE_rollout(sampler, batches(), dataset, args.target_interval, gen,
                             device=device)
     log0(f"aggregate rmse: {agg}")

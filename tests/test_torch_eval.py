@@ -155,19 +155,24 @@ def int8_stores(run_dir, tmp_path_factory):
                lambda *a, **k: tbuild(*a, **k, dtype=torch.float32))
     want = jgenerate.main(jgenerate.parser.parse_args(
         ["--input", str(run), *ARGV, "--output", str(out / "jax")]))
-    # the port's engine hands its sampler (ic_start, step) in place of a torch
-    # Generator, and the sampler draws the JAX engine's latents for them
-    real_factory = tgenerate.sampler_factory
+    # the port's engine notes the (ic_start, step) of each generator it makes,
+    # and the sampler draws the JAX engine's latents for the last one in place
+    # of the engine's own draws (latents=, noise=)
+    real_factory, real_generator, keys = tgenerate.sampler_factory, EnsembleRollout.generator, []
 
     def factory(*a, **k):
         sampler = real_factory(*a, **k)
-        return lambda X, key, auxiliary=None: sampler(
-            X, None, auxiliary, _jax_latents(3, key, (*X.shape[:3], len(VARS))))
+        return lambda X, gen, auxiliary=None, **draws: sampler(
+            X, None, auxiliary, _jax_latents(3, keys[-1], (*X.shape[:3], len(VARS))))
+
+    def generator(self, ic_start, step):
+        keys.append((ic_start, step))
+        return real_generator(self, ic_start, step)
 
     calls = []
     real_ffn = tswinv2.fused_swiglu_ffn_int8
     mp.setattr(tgenerate, "sampler_factory", factory)
-    mp.setattr(EnsembleRollout, "generator", lambda self, ic_start, step: (ic_start, step))
+    mp.setattr(EnsembleRollout, "generator", generator)
     mp.setattr(tswinv2, "fused_swiglu_ffn_int8",
                lambda *a: calls.append(1) or real_ffn(*a))
     try:

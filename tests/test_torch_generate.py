@@ -120,7 +120,9 @@ def test_residual_rollout_matches_jax(run_dir):
     sampler = sampler_factory("scm", tpre.eval(), num_steps=1, sigma_min=0.02,
                               sigma_max=200.0, auxiliary=0.6)
     got = {}
-    EnsembleRollout(lambda X, gen, auxiliary=None: sampler(X, gen, auxiliary, next(latents)),
+    # the engine's own draws (latents=, noise=) give way to the JAX latents
+    EnsembleRollout(lambda X, gen, auxiliary=None, **draws: sampler(X, gen, auxiliary,
+                                                                    next(latents)),
                     ds, members, steps, segment=2, base_seed=seed,
                     device="cpu").run(X0, forc, 0, collect(got))
 
