@@ -200,7 +200,23 @@ Phases, each printed as it finishes:
    norm within the ``DP_*`` limits; the parameters' and EMA's distance
    reported) and the one-rank store (its max difference within
    ``DP_STORE_TOL``, and whether it is bit for bit); prints each rank's
-   step walls beside one process's.
+   step walls beside one process's;
+17. tp: tensor parallelism, two ranks sharing the card over gloo (``python
+   chip_smoke.py --tp-rank``, data 1 x model 2, ``system=tpu-tp``): three
+   sCM steps with Muon of ``era5-swinv2-1.4-scm`` at full width and
+   depth (global batch 2; 6 heads and a 1408-wide SwiGLU slice a rank), one step of the 8 x 128 heads at a depth-2 cut (4 heads a rank)
+   and one of ``synthetic-tiny-scm`` (the per-head kernels on 2 heads a
+   rank), each through ``train.setup`` + ``Trainer.train``: exact launches
+   a rank
+   (kernel 4 in place of 3), the attention, qkv and FFN kernels called at
+   the local widths, the replicated parameters and EMA bit for bit alike
+   across the model group after every update, Muon's Newton-Schulz split
+   over the ranks equal to one rank's bit for bit; held against one
+   process on the same batches (loss and gradient norm within the
+   ``TP_*`` limits); the flagship run's checkpoint (one process's layout)
+   forecast by ``generate.main`` on one process; prints each rank's step
+   walls, the time in the model group's all-reduces and in Muon, and the
+   peak memory, beside one process's.
 
 The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
 18 and 19, the paths on 256-token windows and d <= 128 none of 21 and 22.
@@ -500,6 +516,48 @@ DP_STORE_TOL = 1e-3
 DP_ROLLOUT = dict(members=3, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
                   solver="scm", num_solver_steps=1, dump="zarr")
 DP_WORKER = [sys.executable, os.path.abspath(__file__), "--dp-rank"]  # a rank's command
+# the tensor-parallel phase: data 1 x model 2 (system=tpu-tp), two ranks sharing the card over
+# gloo; each run is held against one process on the same batches: the loss at every step over
+# its scale (loss_scale: the weighted error's and the logvar term's magnitudes summed, which
+# their cancellation does not shrink; the tiny sCM loss sits near 0 where they cancel) and the
+# gradient norm relative. Limits stated in PERF.md before the runs on the card: the DP phase's
+# for the full-width runs; for synthetic-tiny-scm (2,048 outputs a sample at width 32, bf16)
+# about eight times the largest of six seeds on the CPU (scripts/rehearse_smoke.py
+# --tp-spread) of two ranks against one process (loss 5.03e-4 of its scale, gradient norm
+# 3.61e-3) and of a bf16 control, one process against itself with one bf16 rounding more of
+# each attention block's wo product (5.97e-4, 2.44e-3)
+TP = dict(world=2, model=2, timeout=600, backend="gloo", share_card=True)
+TP_LOSS_TOL = 1e-3
+TP_GNORM_TOL = 1e-2
+TP_TINY_TOLS = (5e-3, 3e-2)
+
+
+@dataclasses.dataclass(frozen=True)
+class TpRun:
+    """A run of the tensor-parallel phase: its experiment and overrides, the
+    data it trains on (``tp_dataset``), global batch, steps, the attention's
+    heads a rank and the (loss, gradient norm) limits against one process."""
+    tag: str
+    experiment: str
+    overrides: tuple
+    data: str
+    batch: int
+    steps: int
+    local_heads: int
+    tols: tuple = (TP_LOSS_TOL, TP_GNORM_TOL)
+
+
+# the flagship run at its full depth of 12 (the phase took 124.3 s alone, under the 150 s
+# past which its depth would be cut)
+TP_RUNS = (
+    TpRun("flagship", SCM_EXPERIMENT, ("model.depth=12",), "flagship", 2, 3, 6),
+    TpRun("hd128", SCM_EXPERIMENT, ("model.heads=8", "model.head_dim=128", "model.depth=2"),
+          "flagship", 2, 1, 4),
+    TpRun("tiny", TINY_EXPERIMENT, (), "tiny", 4, 1, 2, TP_TINY_TOLS),
+)
+TP_ROLLOUT = dict(members=1, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
+                  solver="scm", num_solver_steps=1, dump="zarr")
+TP_WORKER = [sys.executable, os.path.abspath(__file__), "--tp-rank"]
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 
@@ -713,6 +771,18 @@ INT8_FORWARD = {"block_attention": 12, "modnorm_residual": 12, "swiglu_ffn_int8"
                 "matmul_modnorm_residual_int8": 12}
 QUARTER_INT8_FORWARD = {"tiled_block_attention": 12, "modnorm_residual": 12,
                         "swiglu_ffn_int8": 12, "matmul_modnorm_residual_int8": 12}
+
+
+def tp_step(per_step: dict, depth: int = 12, blocks: int = 12) -> dict:
+    """Launches of one sCM step of a tensor-parallel rank of ``depth``
+    blocks, from a one-process step of ``blocks``: the attention's wo and
+    post-norm run as a plain product and kernel 4 on the summed rows, so
+    kernel 3's launches go to 4; the rest as one process at the local
+    widths."""
+    step = {name: n // blocks * depth for name, n in per_step.items()}
+    step["modnorm_residual"] += step.pop("matmul_modnorm_residual")
+    step["matmul_modnorm_residual"] = 0
+    return step
 
 
 def per_head_step(depth: int) -> dict:
@@ -3338,14 +3408,14 @@ def dp_worker() -> int:
         return step(batch, steps)
 
     trainer.update, trainer.step = checked_update, recorded_step
-    def timed_reduce(tensors):
+    def timed_reduce(tensors, group=None):
         """The gradients' all-reduce (with the stop flag), timed on its own
         (synchronised before and after); the tick's one-element loss mean
         is not timed."""
         tensors = list(tensors)
         if len(tensors) == 1:
-            return reduce(tensors)
-        return timed("all_reduce", reduce, tensors)
+            return reduce(tensors, group)
+        return timed("all_reduce", reduce, tensors, group)
 
     trainer_module.all_reduce_mean = timed_reduce
     torch.cuda.synchronize()
@@ -3392,25 +3462,25 @@ def environ(**values):
                 os.environ[k] = v
 
 
-def run_dp_ranks(work: str) -> list[dict]:
-    """Launch ``DP['world']`` ranks of :func:`dp_worker` (sharing the card
-    over gloo as the smoke runs them; ``DP`` also names NCCL, a card a rank);
+def run_ranks(work: str, spec: dict, command: list, run_id: str, tag: str) -> list[dict]:
+    """Launch ``spec['world']`` ranks of ``command`` (sharing the card over
+    gloo as the smoke runs them; ``spec`` also names NCCL, a card a rank);
     each rank's output goes to ``<work>/rank<r>.log``, whose tail is shown
-    if it fails. Returns the ranks' results."""
+    if it fails. Returns the ranks' results, ``<work>/rank<r>.json``."""
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     env = dict(os.environ, SWIFT_COORDINATOR=f"localhost:{port}",
-               SWIFT_NUM_PROCESSES=str(DP["world"]), SWIFT_DIST_BACKEND=DP["backend"],
-               RUN_ID="dp")
-    if DP["share_card"]:
+               SWIFT_NUM_PROCESSES=str(spec["world"]), SWIFT_DIST_BACKEND=spec["backend"],
+               RUN_ID=run_id)
+    if spec["share_card"]:
         env["SWIFT_SHARE_DEVICE"] = "1"
-    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(DP["world"])]
-    procs = [subprocess.Popen(DP_WORKER, env=dict(env, SWIFT_PROCESS_ID=str(r)), stdout=logs[r],
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(spec["world"])]
+    procs = [subprocess.Popen(command, env=dict(env, SWIFT_PROCESS_ID=str(r)), stdout=logs[r],
                               stderr=subprocess.STDOUT, cwd=ROOT)
-             for r in range(DP["world"])]
+             for r in range(spec["world"])]
     try:
-        codes = [p.wait(timeout=DP["timeout"]) for p in procs]
+        codes = [p.wait(timeout=spec["timeout"]) for p in procs]
     except subprocess.TimeoutExpired:
         codes = ["timed out"] * len(procs)
     finally:
@@ -3423,13 +3493,14 @@ def run_dp_ranks(work: str) -> list[dict]:
     for r, code in enumerate(codes):
         with open(os.path.join(work, f"rank{r}.log")) as f:
             lines = f.read().splitlines()
-        shown = [line for line in lines if "Data parallel" in line or "Done!" in line]
+        shown = [line for line in lines
+                 if "Data parallel" in line or "Tensor parallel" in line or "Done!" in line]
         for line in (lines[-40:] if code != 0 else shown):
-            log(f"[dp] rank {r}: {line}")
+            log(f"[{tag}] rank {r}: {line}")
         if code != 0:
-            raise AssertionError(f"[dp] rank {r} exited {code}")
+            raise AssertionError(f"[{tag}] rank {r} exited {code}")
     results = []
-    for r in range(DP["world"]):
+    for r in range(spec["world"]):
         with open(os.path.join(work, f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results
@@ -3450,7 +3521,7 @@ def phase_dp(card: str) -> dict:
     for sub in ("ranks", "one"):
         os.makedirs(os.path.join(work, sub))
     t0 = time.perf_counter()
-    ranks = run_dp_ranks(work)
+    ranks = run_ranks(work, DP, DP_WORKER, "dp", tag)
     ranks_s = time.perf_counter() - t0
     for res in ranks:
         _exact(res["launches"], SCM_PER_STEP, DP["steps"], f"{tag}-rank{res['rank']}")
@@ -3552,6 +3623,314 @@ def phase_dp(card: str) -> dict:
     return r0["launches"]
 
 
+def tp_argv(run: TpRun, system: bool = True) -> list[str]:
+    """``train``'s arguments for a run of ``TP_RUNS``: its experiment and
+    overrides, a tick a step, one checkpoint at the end, ``system=tpu-tp``
+    on the ranks (the one-process reference leaves it out)."""
+    steps_kimg = run.batch / 1000.0
+    return [f"experiment={run.experiment}", f"data.batch_size={run.batch}",
+            f"trainer.total_kimg={run.steps * steps_kimg}", f"trainer.kimg_per_tick={steps_kimg}",
+            "trainer.lr_rampup_kimg=0", "trainer.checkpoint_ticks=1000", *run.overrides,
+            *(["system=tpu-tp"] if system else []), "--device", "cuda"]
+
+
+def tp_dataset(which: str):
+    if which == "tiny":
+        return SyntheticERA5(TINY_VARIABLES, TINY_FORCINGS, n_files=16, shape=TINY_RES, seed=0)
+    return dp_dataset()
+
+
+def tp_expected(run: TpRun) -> dict:
+    """A run's launches a step on a tensor-parallel rank."""
+    if run.data == "tiny":
+        return tp_step(per_head_step(2), depth=2, blocks=2)
+    depth = int(next(o for o in run.overrides if o.startswith("model.depth=")).split("=")[1])
+    return tp_step(SCM_PER_STEP, depth)
+
+
+def _synced(fn, spent: dict, key: str):
+    """``fn`` with its wall (synchronised before and after) added to
+    ``spent[key]``."""
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return timed
+
+
+def tp_muon_split(trainer, lay) -> dict:
+    """Muon's Newton-Schulz split over every rank against this rank's own
+    orthogonalization of the same whole matrices (the last step's
+    gradients, gathered over the model group): bit for bit, and each
+    one's wall."""
+    from swift_torch.parallel.mesh import all_reduce_sum, rank, world_size
+    from swift_torch.training.optimizers.muon import orthogonalize_split, orthogonalized_update
+
+    opt = trainer.optimizer
+    params = next(g for g in opt.param_groups if g["kind"] == "muon")["params"]
+    shards = [opt._shards.get(id(p)) for p in params]
+    whole = [sh.place(p.grad) if sh else p.grad.float() for p, sh in zip(params, shards)]
+    all_reduce_sum([w for w, sh in zip(whole, shards) if sh], lay.model_group)
+    spent: dict = {}
+    split = _synced(orthogonalize_split, spent, "split")(whole, 5, (rank(), world_size()))
+    alone = _synced(lambda: [orthogonalized_update(u, 5) for u in whole], spent, "alone")()
+    return {"equal": all(torch.equal(a, b) for a, b in zip(split, alone)),
+            "matrices": len(whole), "split_shards": sum(sh is not None for sh in shards),
+            "split_s": spent["split"], "alone_s": spent["alone"]}
+
+
+def tp_worker() -> int:
+    """One rank of the tensor-parallel phase (``python chip_smoke.py
+    --tp-rank``, launched by ``phase_tp`` with the ``SWIFT_*`` env): each
+    run of ``TP_RUNS`` through ``train.setup`` (``system=tpu-tp``) and
+    ``Trainer.train`` with the launches counted, the widths the model's
+    kernels were called at recorded, the model group's all-reduces and
+    Muon timed and the replicated parameters and EMA checked alike across
+    the model group after every update; then Muon's split on the flagship
+    run's last gradients. Writes what it saw to ``<WORK>/tp/rank<r>.json``."""
+    import swift_torch.models.swinv2 as swinv2
+    from swift_torch.parallel import mesh, tensor
+    from swift_torch.utils.stats import check_replica_consistency
+
+    card = phase_environment()
+    work = os.path.join(WORK, "tp")
+    os.chdir(os.path.join(work, "ranks"))
+    seen: dict = {}
+
+    def spy(name, key, arg):
+        fn = getattr(swinv2, name)
+
+        def called(*args, **kwargs):
+            seen.setdefault(key, set()).add(arg(args))
+            return fn(*args, **kwargs)
+        setattr(swinv2, name, called)
+
+    spy("fused_block_attention", "heads", lambda a: a[2])
+    spy("per_head_window_attention", "heads", lambda a: a[2])
+    spy("fused_linear", "qkv", lambda a: tuple(a[1].shape))
+    spy("fused_swiglu_ffn", "hidden", lambda a: a[2].shape[1])
+    spent: dict = {}
+    tensor.sum_over = _synced(tensor.sum_over, spent, "reduce")
+    result = {"card": card, "runs": {}}
+    for run in TP_RUNS:
+        tag, dataset = run.tag, tp_dataset(run.data)
+        seen.clear()
+        t0 = time.perf_counter()
+        with environ(RUN_ID=f"tp-{tag}"):
+            trainer, loader, _ = train_lib.setup(tp_argv(run), dataset)
+        setup_s = time.perf_counter() - t0
+        lay = mesh.layout()
+        shards = trainer.shards
+        replicated = [n for n in trainer.params if n not in shards]
+        per_step = {"reduce": [], "muon": [], "check": []}
+        digests, update, step = [], trainer.update, trainer.step
+        if hasattr(trainer.optimizer, "_muon"):
+            trainer.optimizer._muon = _synced(trainer.optimizer._muon, spent, "muon")
+
+        def checked_update():
+            gnorm = update()
+            _synced(check_replica_consistency, spent, "check")(
+                [trainer.params[n] for n in replicated] + [trainer.ema[n] for n in replicated],
+                "replicated parameters and EMA", lay.model_group)
+            for key in per_step:
+                per_step[key].append(spent.pop(key, 0.0))
+            return gnorm
+
+        def recorded_step(batch, steps=1):
+            digests.append(batch_digest(batch))
+            return step(batch, steps)
+
+        trainer.update, trainer.step = checked_update, recorded_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spent.clear()
+        reset_launches()
+        trainer.train(loader)
+        torch.cuda.synchronize()
+        hist = trainer.history
+        result["runs"][tag] = {
+            "layout": [lay.data, lay.model, lay.data_rank, lay.model_rank],
+            "setup_s": setup_s, "losses": hist["train/loss"],
+            "grad_norms": hist["train/grad_norm"], "walls": hist["train/dt/tick"],
+            "digests": digests, "launches": read_launches(), "spent": per_step,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "run_dir": os.path.abspath(trainer.run_dir), "split": len(shards),
+            "seen": {k: sorted(v) for k, v in seen.items()},
+        }
+        if tag == "flagship":
+            result["muon_split"] = tp_muon_split(trainer, lay)
+        del trainer, loader
+        torch.cuda.empty_cache()
+    result["rank"] = mesh.rank()
+    with open(os.path.join(work, f"rank{mesh.rank()}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.barrier()
+    return 0
+
+
+def tp_reference(run: TpRun, ranks: list, work: str) -> dict:
+    """One process on a run's batches: ``train.setup`` without the model
+    axis (the same seed, so the same initial weights and draws), each step
+    on the data ranks' batches side by side (their rows of each rank's
+    sampler stream); returns its losses, gradient norms, step walls, Muon
+    walls, peak memory and each step's loss scale (``loss_scale``)."""
+    tag, batch = run.tag, run.batch
+    with contextlib.chdir(os.path.join(work, "one")), environ(RUN_ID=f"tp-{tag}"):
+        trainer, _, _ = train_lib.setup(tp_argv(run, system=False), tp_dataset(run.data))
+    data = ranks[0]["runs"][tag]["layout"][0]
+    streams = []
+    for r in range(data):  # a data rank's stream over its own dataset, seeded alike
+        ds = tp_dataset(run.data)
+        sampler = InfiniteSampler(ds, rank=r, num_replicas=data, seed=trainer.seed)
+        streams.append(iter(BatchLoader(ds, sampler, batch // data, num_workers=2)))
+    spent: dict = {}
+    if hasattr(trainer.optimizer, "_muon"):
+        trainer.optimizer._muon = _synced(trainer.optimizer._muon, spent, "muon")
+    out = {"losses": [], "grad_norms": [], "walls": [], "muon": [], "scales": []}
+    logvar_terms: list = []
+
+    def record(module, args, kwargs, output):
+        if kwargs.get("return_logvar"):
+            F_x, logvar = output
+            logvar_terms.append(F_x.shape[-1] * logvar.detach().float().mean())
+
+    hook = trainer.net.register_forward_hook(record, with_kwargs=True)
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(run.steps):
+        parts = [next(it) for it in streams]
+        for r, part in enumerate(parts):
+            rank_of = next(res for res in ranks if res["runs"][tag]["layout"][2] == r)
+            if batch_digest(part) != rank_of["runs"][tag]["digests"][k]:
+                raise AssertionError(f"[tp-{tag}] step {k + 1}: data rank {r} trained on other "
+                                     "samples")
+        step_batch = {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+        logvar_terms.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.step(step_batch)
+        out["losses"].append(float(res["loss"]))
+        out["scales"].append(loss_scale(float(res["loss"]), [float(v) for v in logvar_terms]))
+        out["grad_norms"].append(float(res["grad_norm"]))
+        out["walls"].append(time.perf_counter() - t0)
+        out["muon"].append(spent.pop("muon", 0.0))
+    hook.remove()
+    for it in streams:
+        it.close()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def loss_scale(loss: float, logvar_terms: list) -> float:
+    """The sCM loss's scale that cancellation does not shrink: the loss is
+    E + V, the weighted error E = mean(sum_c exp(-logvar)·se) >= 0 and the
+    logvar term V = C·mean(logvar), of opposite signs once the logvar head
+    has learnt; the scale is |E| + |V|. ``logvar_terms`` holds V of each
+    forward that returned the logvar (a step's, alike); none: V = 0."""
+    v = float(np.mean(logvar_terms)) if logvar_terms else 0.0
+    return abs(loss - v) + abs(v)
+
+
+def phase_tp(card: str) -> dict:
+    """Tensor parallelism on the card: two ranks of ``train`` with
+    ``system=tpu-tp`` (data 1 x model 2) sharing it over gloo, after this
+    process built the kernels, through each run of ``TP_RUNS``; then one
+    process on the same batches, and ``generate.main`` on one process from
+    the flagship run's checkpoint. Fails unless each rank launched each
+    run's exact counts, called the attention at its local heads and the
+    flagship's qkv and FFN kernels at their slices, kept the replicated
+    parameters alike across the model group after every update, and split
+    Muon's Newton-Schulz bit for bit as one rank computes it, and unless
+    the losses and gradient norms agree with one process's within the
+    ``TP_*`` limits. Returns the launches of rank 0's flagship run."""
+    tag = "tp"
+    work = os.path.join(WORK, tag)
+    for sub in ("ranks", "one"):
+        os.makedirs(os.path.join(work, sub))
+    t0 = time.perf_counter()
+    ranks = run_ranks(work, TP, TP_WORKER, "tp", tag)
+    ranks_s = time.perf_counter() - t0
+    model = TP["model"]
+    for run in TP_RUNS:
+        name, heads = run.tag, run.local_heads
+        want = tp_expected(run)
+        for res in ranks:
+            got = res["runs"][name]
+            r = res["rank"]
+            _exact(got["launches"], want, run.steps, f"{tag}-{name}-rank{r}")
+            if got["seen"]["heads"] != [heads]:
+                raise AssertionError(f"[{tag}-{name}] rank {r} ran the attention at "
+                                     f"{got['seen']['heads']} heads, not {heads}")
+        if any(res["runs"][name]["losses"] != ranks[0]["runs"][name]["losses"]
+               for res in ranks):
+            raise AssertionError(f"[{tag}-{name}] the ranks logged other losses")
+    flagship = ranks[0]["runs"]["flagship"]["seen"]
+    widths = ([[3 * DIM // model, DIM]], [HIDDEN // model])
+    if (flagship["qkv"], flagship["hidden"]) != widths:
+        raise AssertionError(f"[{tag}] the flagship's qkv and FFN ran at {flagship['qkv']}, "
+                             f"{flagship['hidden']}, not the slices {widths}")
+    for res in ranks:
+        split = res["muon_split"]
+        if not split["equal"]:
+            raise AssertionError(f"[{tag}] rank {res['rank']}: Muon's split differs from its own "
+                                 "orthogonalization")
+    where = "sharing the card" if TP["share_card"] else "a card each"
+    log(f"[{tag}] {TP['world']} ranks {where} ({TP['backend']}), data "
+        f"{TP['world'] // model} x model {model}: exact launches a rank in every run (kernel 4 "
+        f"in place of 3), the attention at "
+        f"{', '.join(f'{r.local_heads} heads ({r.tag})' for r in TP_RUNS)},"
+        f" the flagship's qkv at {flagship['qkv'][0]} and SwiGLU at {flagship['hidden'][0]} "
+        f"hidden units a rank, the replicated parameters and EMA bit for bit alike across the "
+        f"model group after every update; Muon's Newton-Schulz over {split['matrices']} "
+        f"matrices ({split['split_shards']} gathered from slices) split over the ranks equal to "
+        f"one rank's bit for bit")
+    for run in TP_RUNS:
+        name, (loss_tol, gnorm_tol) = run.tag, run.tols
+        one = tp_reference(run, ranks, work)
+        r0 = ranks[0]["runs"][name]
+        loss_err = [abs(a - b) / s for a, b, s in zip(r0["losses"], one["losses"], one["scales"])]
+        gnorm_err = [abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"], one["grad_norms"])]
+        log(f"[{tag}-{name}] {run.experiment} {' '.join(run.overrides)}, global batch "
+            f"{run.batch}, {run.steps} step(s): loss {TP['world']} ranks {r0['losses']} vs 1 process "
+            f"{one['losses']} (scale |E| + |V| {[f'{s:.4g}' for s in one['scales']]}): "
+            f"{[f'{e:.3e}' for e in loss_err]} of the scale (limit "
+            f"{loss_tol}); "
+            f"grad norm {r0['grad_norms']} vs {one['grad_norms']}: "
+            f"{[f'{e:.3e}' for e in gnorm_err]} (limit {gnorm_tol})")
+        for res in ranks:
+            got = res["runs"][name]
+            log(f"[{tag}-{name}] rank {res['rank']}: step walls "
+                f"{[f'{w:.4f}' for w in got['walls']]} s, of which the model group's all-reduces "
+                f"{[f'{w:.4f}' for w in got['spent']['reduce']]} s, Muon "
+                f"{[f'{w:.4f}' for w in got['spent']['muon']]} s and the smoke's replica check "
+                f"{[f'{w:.4f}' for w in got['spent']['check']]} s; set-up {got['setup_s']:.1f} "
+                f"s, peak {got['peak_gib']:.2f} GiB ({card})")
+        log(f"[{tag}-{name}] 1 process: step walls {[f'{w:.4f}' for w in one['walls']]} s, Muon "
+            f"{[f'{w:.4f}' for w in one['muon']]} s, peak {one['peak_gib']:.2f} GiB ({card})")
+        if max(loss_err) > loss_tol or max(gnorm_err) > gnorm_tol:
+            raise AssertionError(f"[{tag}-{name}] {TP['world']} ranks and 1 process differ "
+                                 "beyond the limits")
+    for res in ranks:
+        split = res["muon_split"]
+        log(f"[{tag}] rank {res['rank']}: Muon's Newton-Schulz split over the ranks "
+            f"{split['split_s']:.4f} s (its all-reduce included) vs alone {split['alone_s']:.4f} "
+            f"s; {TP['world']} ranks over all: {ranks_s:.1f} s ({card})")
+
+    # the flagship TP run's checkpoint, in one process's layout, forecast by one process
+    run_dir = ranks[0]["runs"]["flagship"]["run_dir"]
+    args = generate.parser.parse_args(["--input", run_dir, "--output",
+                                       os.path.join(work, "store")] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in TP_ROLLOUT.items()])
+    ofile = generate.main(args, dp_dataset())
+    check_store(ofile, TP_ROLLOUT, RESOLUTION, tag)
+    log(f"[{tag}] the flagship TP run's checkpoint forecast on one process: {ofile}")
+    return ranks[0]["runs"]["flagship"]["launches"]
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Every kernel wrapper takes its plain PyTorch version for CUDA tensors
@@ -3628,6 +4007,7 @@ def main() -> int:
         del trained
         d160 = timed("d160", phase_d160, card)
         dp = timed("dp", phase_dp, card)
+        tp = timed("tp", phase_tp, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
@@ -3635,7 +4015,7 @@ def main() -> int:
         f"{trigflow} (with online validation {val}), sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
         f"training {quarter}, synthetic-tiny-scm training {tiny}, 8x8-window forecast "
         f"{win8_forecast} and sCM training {win8}, d = 160 forward {d160}, data-parallel sCM "
-        f"training (rank 0) {dp}")
+        f"training (rank 0) {dp}, tensor-parallel sCM training (rank 0) {tp}")
     # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, the int8
     # forecast, the 8x8-window sCM step (21, 22b, 22t), or kernel 20's own entry point
     main_path = {**{k: quarter for k in QUARTER_KERNELS}, **{k: int8 for k in INT8_KERNELS},
@@ -3659,4 +4039,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_worker() if sys.argv[1:] == ["--dp-rank"] else main())
+    workers = {"--dp-rank": dp_worker, "--tp-rank": tp_worker}
+    sys.exit(workers[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in workers else main())

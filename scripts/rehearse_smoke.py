@@ -4,10 +4,13 @@ with their cuts, its fine-tune and distill phases with their cuts, and its
 per-head phases (kernel 20's entry,
 ``synthetic-tiny-scm`` through training and ``generate.main``, bf16 and
 ``--int8``, the 8x8-window forecast, sCM steps and cuts, the d = 160
-forward) and its data-parallel phase (two gloo ranks of this script,
-``--dp-rank``, and one process) on the CPU.
+forward), its data-parallel phase (two gloo ranks of this script,
+``--dp-rank``, and one process) and its tensor-parallel phase (two gloo
+ranks, ``--tp-rank``, data 1 x model 2, and one process) on the CPU.
 
     python scripts/rehearse_smoke.py
+    python scripts/rehearse_smoke.py --tp [world]   # the tensor-parallel phase alone
+    python scripts/rehearse_smoke.py --tp-spread    # its tiny run's spread, six seeds
 
 The kernels run only on a GPU, so this drives the smoke's own phase
 functions with every wrapper on its plain PyTorch version at a tiny width
@@ -234,8 +237,117 @@ def dp_at_width_32() -> None:
     cs.DP_WORKER = [sys.executable, os.path.abspath(__file__), "--dp-rank"]
     cs.phase_environment = lambda: "CPU rehearsal"
     cs.reset_launches = lambda: None
-    cs.read_launches = lambda: {k: n * cs.DP["steps"] for k, n in cs.SCM_PER_STEP.items()}
+    cs.read_launches = lambda: {k: n * cs.DP["steps"]
+                                for k, n in cs.at_depth(cs.SCM_PER_STEP, cs.DP["depth"]).items()}
     torch.cuda.current_device = lambda: 0
+
+
+# the tensor-parallel runs at width 48 on 16x16 windows, the whole-grid route (6 heads of 8: 3 a
+# rank; SwiGLU 128: 64 a rank), the 8 x 128 run at 2 heads of 16 (1 a rank), the tiny
+# experiment at its own width
+TP_FLAGSHIP = {"dim": 48, "heads": 6, "head_dim": 8, "window_size": [16, 16],
+               "shift_size": [8, 8]}
+TP_HD128 = {**TP_FLAGSHIP, "dim": 32, "heads": 2, "head_dim": 16}
+TP_TINY = cs.TP_RUNS[2]  # synthetic-tiny-scm at its own width
+
+
+def tp_at_width_48() -> None:
+    """The tensor-parallel phase on a 32x64 grid on the CPU, in the phase's
+    process and in its ranks (this script with ``--tp-rank``); the launch
+    counts read back each run's expected ones."""
+    cs.RESOLUTION = (32, 64)
+    cs.DIM, cs.HIDDEN = 48, 128
+
+    def overrides(model: dict) -> tuple:
+        return tuple(f"model.{k}={v}".replace(" ", "") for k, v in model.items())
+
+    cs.TP_RUNS = (
+        cs.TpRun("flagship", cs.SCM_EXPERIMENT, (*overrides(TP_FLAGSHIP), "model.depth=2"),
+                 "flagship", 2, 2, 3),
+        cs.TpRun("hd128", cs.SCM_EXPERIMENT, (*overrides(TP_HD128), "model.depth=2"),
+                 "flagship", 2, 1, 1),
+        TP_TINY,
+    )
+    current = {}
+    argv = cs.tp_argv
+
+    def cpu_argv(run, system=True):
+        current["run"] = run
+        return [a if a != "cuda" else "cpu" for a in argv(run, system)]
+
+    cs.tp_argv = cpu_argv
+    cs.TP_ROLLOUT = {**cs.TP_ROLLOUT, "device": "cpu"}
+    cs.TP_WORKER = [sys.executable, os.path.abspath(__file__), "--tp-rank"]
+    cs.phase_environment = lambda: "CPU rehearsal"
+    cs.reset_launches = lambda: None
+    on_cpu = cs._build.on_cpu
+
+    def kernel_ready(*tensors):
+        """The CUDA wrappers' alignment check on what would go to a kernel,
+        before its plain version runs: a contiguous input off a 16-byte
+        boundary stays there through ``.contiguous()``, and the kernel's
+        wrapper refuses it (a sliced view, say)."""
+        for t in tensors:
+            if t.is_contiguous() and t.data_ptr() % 16:
+                raise AssertionError(f"a kernel input {tuple(t.shape)} is not 16-byte aligned")
+        return on_cpu(*tensors)
+
+    cs._build.on_cpu = kernel_ready
+    cs.read_launches = lambda: {k: n * current["run"].steps
+                                for k, n in cs.tp_expected(current["run"]).items()}
+    torch.cuda.current_device = lambda: 0
+    if os.environ.get("REHEARSE_TP_SEED"):  # --tp-spread: the tiny run alone at that seed
+        cs.TP_RUNS = (dataclasses.replace(TP_TINY, overrides=(
+            f"seed={os.environ['REHEARSE_TP_SEED']}",)),)
+
+
+def tp_spread(seeds=range(6)) -> None:
+    """The tensor-parallel phase's ``synthetic-tiny-scm`` run at ``seeds``
+    on the CPU: its loss (over ``chip_smoke.loss_scale``) and gradient norm
+    on two gloo ranks against one process, and a bf16 control, one process
+    against itself with each attention block's wo product rounded to bf16
+    before the epilogue (the form a tensor-parallel rank takes, with no
+    collective: one bf16 rounding of y more a block). Prints each seed's
+    relative differences and the largest."""
+    import swift_torch.models.swinv2 as swinv2
+
+    rows = []
+    for k in seeds:
+        os.environ["REHEARSE_TP_SEED"] = str(k)
+        tp_at_width_48()
+        run = cs.TP_RUNS[0]
+        work = os.path.join(cs.WORK, "tp")  # where the ranks write
+        shutil.rmtree(work, ignore_errors=True)
+        for sub_dir in ("ranks", "one", "control/one"):
+            os.makedirs(os.path.join(work, sub_dir))
+        ranks = cs.run_ranks(work, cs.TP, cs.TP_WORKER, "tp", f"tp-spread{k}")
+        one = cs.tp_reference(run, ranks, work)
+        setup, identity = cs.train_lib.setup, (lambda x, group: x)
+
+        def unfused(*args, **kwargs):
+            trainer, loader, rest = setup(*args, **kwargs)
+            for m in trainer.net.modules():
+                if isinstance(m, swinv2.WindowAttention):
+                    m.split = True  # with one rank: wo plain in bf16, then the epilogue
+            return trainer, loader, rest
+
+        cs.train_lib.setup = unfused
+        swinv2.copy_to_model = swinv2.reduce_from_model = identity
+        control = cs.tp_reference(run, ranks, os.path.join(work, "control"))
+        cs.train_lib.setup = setup
+        r0 = ranks[0]["runs"][run.tag]
+        row = {"seed": k}
+        for name, got in (("tp", r0), ("control", control)):
+            row[f"{name}_loss"] = max(abs(a - b) / s for a, b, s in zip(
+                got["losses"], one["losses"], one["scales"]))
+            row[f"{name}_gnorm"] = max(abs(a - b) / abs(b) for a, b in zip(
+                got["grad_norms"], one["grad_norms"]))
+        row.update(loss=one["losses"], scale=one["scales"])
+        print(f"[tp-spread] {row}", flush=True)
+        rows.append(row)
+    for key in ("tp_loss", "tp_gnorm", "control_loss", "control_gnorm"):
+        print(f"[tp-spread] largest {key} over seeds {list(seeds)}: "
+              f"{max(r[key] for r in rows):.3e}")
 
 
 def main() -> None:
@@ -284,6 +396,8 @@ def main() -> None:
 
     dp_at_width_32()
     cs.phase_dp("CPU rehearsal")
+    tp_at_width_48()
+    cs.phase_tp("CPU rehearsal")
 
 
 if __name__ == "__main__":
@@ -291,6 +405,24 @@ if __name__ == "__main__":
         stub_the_card()
         dp_at_width_32()
         sys.exit(cs.dp_worker())
+    if sys.argv[1:] == ["--tp-rank"]:
+        stub_the_card()
+        tp_at_width_48()
+        sys.exit(cs.tp_worker())
+    if sys.argv[1:] == ["--tp-spread"]:  # the tiny TP run's spread over six seeds
+        stub_the_card()
+        try:
+            sys.exit(tp_spread())
+        finally:
+            shutil.rmtree(cs.WORK, ignore_errors=True)
+    if sys.argv[1:2] == ["--tp"]:  # the tensor-parallel phase alone, [world] ranks
+        stub_the_card()
+        tp_at_width_48()
+        cs.TP["world"] = int(sys.argv[2]) if sys.argv[2:] else cs.TP["world"]
+        try:
+            sys.exit(cs.phase_tp("CPU rehearsal") and 0)
+        finally:
+            shutil.rmtree(cs.WORK, ignore_errors=True)
     try:
         main()
     finally:

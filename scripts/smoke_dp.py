@@ -1,9 +1,12 @@
-"""``chip_smoke.py``'s data-parallel phase alone, after the build.
+"""``chip_smoke.py``'s data-parallel or tensor-parallel phase alone, after the build.
 
     python scripts/smoke_dp.py                               # 2 ranks share the card, gloo
     python scripts/smoke_dp.py --world 4 --backend nccl      # a card a rank (4 cards)
+    python scripts/smoke_dp.py --phase tp                    # data 1 x model 2, gloo
+    python scripts/smoke_dp.py --phase tp --world 4 --backend nccl  # data 2 x model 2
 
-Runs ``phase_environment``, ``phase_build`` and ``phase_dp`` with
+Runs ``phase_environment``, ``phase_build`` and ``phase_dp`` (with
+``--phase tp``: ``phase_tp``, ``chip_smoke.TP`` in place of DP) with
 ``chip_smoke.DP`` set from the flags; each rank's log and result are
 copied into ``chiprun_out/`` (git-ignored) before the work directory goes.
 """
@@ -22,19 +25,23 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--world", type=int, default=cs.DP["world"])
-    p.add_argument("--backend", choices=["gloo", "nccl"], default=cs.DP["backend"])
+    p.add_argument("--phase", choices=["dp", "tp"], default="dp")
+    p.add_argument("--world", type=int)
+    p.add_argument("--backend", choices=["gloo", "nccl"])
     args = p.parse_args()
-    cs.DP.update(world=args.world, backend=args.backend, share_card=args.backend == "gloo")
+    spec = cs.DP if args.phase == "dp" else cs.TP
+    backend = args.backend or spec["backend"]
+    spec.update(world=args.world or spec["world"], backend=backend,
+                share_card=backend == "gloo")
     card = cs.phase_environment()
     cs.timed("build", cs.phase_build)
     out = os.path.join(cs.ROOT, "chiprun_out")
     try:
-        cs.timed("dp", cs.phase_dp, card)
+        cs.timed(args.phase, cs.phase_dp if args.phase == "dp" else cs.phase_tp, card)
     finally:
         os.makedirs(out, exist_ok=True)
-        for f in glob.glob(os.path.join(cs.WORK, "dp", "rank*.*")):
-            shutil.copy(f, os.path.join(out, f"dp_{args.backend}_{os.path.basename(f)}"))
+        for f in glob.glob(os.path.join(cs.WORK, args.phase, "rank*.*")):
+            shutil.copy(f, os.path.join(out, f"{args.phase}_{backend}_{os.path.basename(f)}"))
         shutil.rmtree(cs.WORK, ignore_errors=True)
     return 0
 

@@ -9,6 +9,15 @@ EDM, TrigFlow, sCM, multistep MSE and CRPS losses, Adam/AdamW with the
 reference's decay grouping, Muon with aux-Adam by the JAX package's labels
 (its momentum in fp32 or stochastically rounded bf16) and MARS, each with
 the reference lr schedule. Any other target raises.
+
+Under tensor parallelism (a ``parallel.mesh.Layout`` with a model axis, as
+``swift_tpu/factory.py:300-306`` and ``swift_tpu/train.py:216-226`` hand
+the JAX package's builders the mesh) :func:`build_precond` builds one
+process's network and keeps this rank's slices of it, and
+:func:`build_optimizer` gives Muon the slices and splits its
+Newton-Schulz work over the ranks, and gives MARS the slices, which it
+gathers for its whole-matrix norms and Newton-Schulz; AdamW is elementwise
+and runs on the slices as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from swift_torch.data.era5 import ERA5Dataset, ERA5RollOutDataset
 from swift_torch.data.standardize import Standardizer
 from swift_torch.models.precond import EDMPrecond, PassPrecond
 from swift_torch.models.swinv2 import SwinV2
+from swift_torch.parallel.mesh import Layout, rank, world_size
+from swift_torch.parallel.sharding import module_shards, shard_state_dict
 from swift_torch.training.loss import CRPSLoss, EDMLoss, MSELoss, SCMLoss, TrigFlowLoss
 from swift_torch.training.optimizers.mars import MARS
 from swift_torch.training.optimizers.muon import MuonWithAuxAdam
@@ -64,11 +75,31 @@ def build_rollout_dataset(data_cfg: dict, interval: int, split: str = "val") -> 
 
 
 def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels: int,
-                auxiliary_dim: int = 0, dtype: torch.dtype = torch.bfloat16) -> SwinV2:
+                auxiliary_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
+                layout: Optional[Layout] = None) -> SwinV2:
+    """The SwinV2 of ``model_cfg``; with a ``layout`` of a model axis, this
+    rank's part of it: one process's network is built (its initial weights
+    drawn as one process draws them) and sliced
+    (``parallel.sharding.shard_state_dict`` by its ``module_shards``), the
+    global RNG left where one
+    process's build leaves it."""
     cfg = dict(model_cfg)
     target = _suffix(cfg.pop("_target_", "SwinV2"))
     if target != "SwinV2":
         raise ValueError(f"model target {target!r} is not ported (only SwinV2)")
+    full = _swinv2(cfg, img_resolution, in_channels, out_channels, auxiliary_dim, dtype)
+    if layout is None or layout.model == 1:
+        return full
+    with torch.random.fork_rng(devices=[]):
+        net = _swinv2(cfg, img_resolution, in_channels, out_channels, auxiliary_dim, dtype,
+                      model_size=layout.model, model_rank=layout.model_rank,
+                      model_group=layout.model_group)
+    net.load_state_dict(shard_state_dict(full.state_dict(), module_shards(net)))
+    return net
+
+
+def _swinv2(cfg: dict, img_resolution, in_channels, out_channels, auxiliary_dim, dtype,
+            **tp) -> SwinV2:
     return SwinV2(
         img_resolution=tuple(img_resolution),
         in_channels=in_channels,
@@ -86,12 +117,13 @@ def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels:
         dtype=dtype,
         pos_embed_mode=str(cfg.get("pos_embed_mode", "learned")),
         quant=cfg.get("quant") or None,
+        **tp,
     )
 
 
 def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channels: int,
                   condition_channels: int, dtype: torch.dtype = torch.bfloat16,
-                  sigma_max_override: Optional[float] = None):
+                  sigma_max_override: Optional[float] = None, layout: Optional[Layout] = None):
     cfg = dict(precond_cfg)
     target = _suffix(cfg.pop("_target_", "PassPrecond"))
     precond = {"PassPrecond": PassPrecond, "EDMPrecond": EDMPrecond}.get(target)
@@ -99,7 +131,7 @@ def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channe
         raise ValueError(f"unknown precond target: {target}")
     auxiliary_dim = int(cfg.get("auxiliary_dim", 0))
     model = build_model(model_cfg, img_resolution, img_channels + condition_channels,
-                        img_channels, auxiliary_dim=auxiliary_dim, dtype=dtype)
+                        img_channels, auxiliary_dim=auxiliary_dim, dtype=dtype, layout=layout)
     return precond(
         model=model,
         img_resolution=tuple(img_resolution),
@@ -140,7 +172,8 @@ def build_loss(loss_cfg: dict, dataset):
 
 
 def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: int,
-                    net: torch.nn.Module, resume_kimg: int = 0):
+                    net: torch.nn.Module, resume_kimg: int = 0,
+                    layout: Optional[Layout] = None):
     """(optimizer, lr schedule ``lr_fn(count, base_lr)``). Adam/AdamW: two
     parameter groups, decayed and not, by :func:`adamw_decay_mask` (the
     reference grouping), both of base lr ``lr``. MuonWithAuxAdam: the
@@ -149,7 +182,11 @@ def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: i
     schedule and the group's ``base_lr`` before each update, as the JAX
     package's optax transforms read theirs. MARS: one group over every
     parameter, the 1-D branch's updates scaled by ``lr_1d`` on top of the
-    scheduled lr (the JAX package's ``lr_1d_factor`` under a schedule)."""
+    scheduled lr (the JAX package's ``lr_1d_factor`` under a schedule).
+    Muon over several ranks splits its Newton-Schulz work over all of them,
+    and under ``layout``'s model axis gathers the slices of ``net``'s split
+    weights for it (``optimizers.muon``); MARS gathers them for its clip's
+    norm and mars-shampoo's Newton-Schulz (``optimizers.mars``)."""
     cfg = dict(optimizer_cfg)
     target = _suffix(cfg.pop("_target_", "Adam"))
     if target not in ("Adam", "AdamW", "MuonWithAuxAdam", "MARS"):
@@ -164,11 +201,14 @@ def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: i
         resume_kimg=resume_kimg,
     )
     named = list(net.named_parameters())
+    shards = module_shards(net)
+    model_group = layout.model_group if layout is not None else None
     if target == "MARS":
         opt = MARS([p for _, p in named], lr=base_lr,
                    mars_type=cfg.get("mars_type", "mars-adamw"),
                    weight_decay=float(cfg.get("weight_decay", 0.0)),
-                   lr_1d=float(cfg.get("lr_1d", base_lr)))
+                   lr_1d=float(cfg.get("lr_1d", base_lr)),
+                   shards=[shards.get(n) for n, _ in named], model_group=model_group)
         for group in opt.param_groups:
             group["lr"] = lr_fn(0, group["base_lr"])
         return opt, lr_fn
@@ -185,6 +225,9 @@ def build_optimizer(optimizer_cfg: dict, trainer_cfg: dict, global_batch_size: i
             adam_weight_decay=float(cfg.get("adam_weight_decay", 0.01)),
             adam_eps=float(cfg.get("adam_eps", 1e-10)),
             momentum_dtype=cfg.get("momentum_dtype"),
+            shards=[shards.get(n) for n, _ in named if labels[n] == "muon"],
+            model_group=model_group,
+            ns_split=(rank(), world_size()),
         )
         for group in opt.param_groups:
             group["lr"] = lr_fn(0, group["base_lr"])

@@ -17,9 +17,12 @@ several processes (``torchrun --nproc_per_node N -m swift_torch.generate
 ...`` or the ``SWIFT_*`` env, ``swift_torch.parallel``) each rank rolls out
 a block of whole members: rank 0 creates the store before a barrier, every
 rank writes its members (lead 0 included) and rank 0 consolidates the
-metadata after another; the store is the one-process store. Not ported
-yet: ``--pp`` and a run config asking for tensor or pipeline parallelism
-(both raise).
+metadata after another; the store is the one-process store. A run
+trained with tensor parallelism (``system=tpu-tp``) forecasts the same
+way, data-parallel over every rank with its ``model`` axis ignored, as the
+JAX package's ``generate.py:223-233`` runs it: its checkpoint is in one
+process's layout. Not ported yet: ``--pp`` and a run config asking for
+pipeline parallelism (both raise).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from swift_torch.parallel.mesh import (
     barrier,
     build_kernels_first,
     check_mesh,
+    init_layout,
     maybe_initialize_distributed,
     world_size,
 )
@@ -231,6 +235,7 @@ def main(args, dataset=None):
     from swift_torch import config as cfglib  # needs yaml
 
     maybe_initialize_distributed(args.device)
+    init_layout(1)  # one replica a rank: a run's model axis is not a forecast's
     device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))

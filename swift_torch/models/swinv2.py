@@ -41,6 +41,24 @@ the output cropped back; ``pos_embed_mode="factorized"`` replaces the
 (gh·gw, dim) position table by a row and a column table summed in
 ``dtype``.
 
+Tensor parallelism (``model_size`` > 1, the ranks of ``model_group``; the
+JAX model under a ``(data, model)`` mesh): each attention block holds its
+rank's heads, the rows of ``to_qkv`` and the columns of ``wo`` that go with
+them, where the heads divide over the ranks; each FFN its slice of the
+hidden units, ``[g_r ; u_r]`` of ``w1`` and the columns of ``w2``, where
+they divide (``swift_torch.parallel.sharding``). A block's input goes
+through ``copy_to_model``, the qkv projection (kernel 1, 13 and 14 behind
+it) and the attention (whichever route ``attention_route`` picks for the
+local heads) or SwiGLU (kernel 5, 8-11) run on the local slice, and the
+row-parallel product's partial sums (wo as a plain product, as the JAX
+model runs it under a mesh, or kernel 5's second pass) meet in
+``reduce_from_model`` before the post-norm epilogue (kernel 4, 12 under a
+jvp) on the summed rows; kernel 3, which fuses wo with the post-norm,
+needs the summed rows and stays on the one-process route. The modulation,
+norms, embeddings and head are computed alike on every model rank. A block
+whose heads or hidden width do not divide runs replicated, with one log
+line.
+
 ``quant="int8"`` is the JAX model's dynamically quantized inference path
 (``generate --int8``): outside ``jvp`` the qkv projection is
 :func:`swift_torch.ops.quant.int8_matmul` rounded to ``dtype`` (a library
@@ -76,6 +94,11 @@ from swift_torch.ops.modnorm import (
     fused_matmul_modnorm_residual_int8,
     fused_modnorm_residual,
 )
+from swift_torch.parallel.sharding import Shard, attention_splits, ffn_splits
+from swift_torch.parallel.tensor import copy_to_model, reduce_from_model
+from swift_torch.utils.log import get_logger
+
+logger = get_logger(__name__)
 
 
 def _as_2tuple(v) -> tuple[int, int]:
@@ -119,48 +142,78 @@ class WindowAttention(nn.Module):
     and 17 in place of 2, 6 and 7 on the tiled route, 21, 22b and 22t on
     the per-head route; with ``quant="int8"`` outside a jvp, the int8 qkv
     product and kernel 19 in place of 1 and 3, the attention in ``dtype``
-    on every route)."""
+    on every route). With the heads split over ``model_size`` ranks, the
+    local heads' qkv and attention, a plain wo product on the local
+    columns, the partial sums' all-reduce and kernel 4 (12 under a jvp)."""
 
     def __init__(self, dim, heads, head_dim, window_size, shift=(0, 0),
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, model_size: int = 1, model_rank: int = 0,
+                 model_group=None):
         super().__init__()
-        self.heads, self.head_dim = heads, head_dim
+        self.heads, self.head_dim, self.dim = heads, head_dim, dim
         self.window_size, self.shift = tuple(window_size), tuple(shift)
         self.quant = quant
-        inner = heads * head_dim
+        self.split = attention_splits(heads, model_size)
+        self.model_size, self.model_rank, self.model_group = model_size, model_rank, model_group
+        self.local_heads = heads // model_size if self.split else heads
+        inner = self.local_heads * head_dim
         self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
         self.scale = nn.Parameter(torch.full((1, heads, 1, 1), math.log(10.0)))
         self.wo = nn.Linear(inner, dim, bias=False)
         self.norm = ModulatedNorm(dim)
 
+    def param_shards(self) -> dict:
+        """{parameter: Shard} of the weights this rank holds a slice of."""
+        if not self.split:
+            return {}
+        inner = self.heads * self.head_dim
+        r, m = self.model_rank, self.model_size
+        return {"to_qkv.weight": Shard((3 * inner, self.dim), 0, r, m),
+                "wo.weight": Shard((self.dim, inner), 1, r, m)}
+
+    def sliced_params(self) -> tuple:
+        """The replicated parameters used on this rank's heads only."""
+        return ("scale",) if self.split else ()
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor, jvp: bool = False) -> torch.Tensor:
         dt = x.dtype
         int8 = self.quant == "int8" and not jvp
+        heads = self.local_heads
 
         def project(a):
             if int8:  # from the fp32 parameter, rounded to dtype as the JAX model does
                 return quantlib.int8_matmul(a, self.to_qkv.weight).to(dt)
             return fused_linear(a, self.to_qkv.weight.to(dt))
 
-        s = torch.exp(torch.clamp(self.scale.reshape(-1), max=math.log(100.0)))
-        route = attention_route(tuple(x.shape[1:3]), self.window_size, self.shift, self.heads,
-                                self.heads * self.head_dim)
+        s = self.scale.reshape(-1)
+        xin = x
+        if self.split:
+            # this rank's heads: the JAX package's sharded_block_attention and
+            # the per-head kernel's mesh form, the same kernels at heads / ranks
+            s = s[self.model_rank * heads:(self.model_rank + 1) * heads]
+            xin = copy_to_model(x, self.model_group)
+        s = torch.exp(torch.clamp(s, max=math.log(100.0)))  # a new, aligned tensor
+        route = attention_route(tuple(x.shape[1:3]), self.window_size, self.shift, heads,
+                                heads * self.head_dim)
         if route == "tiled":
             # the JAX model's tiled route: a token permutation commutes with
             # the row-wise projection, so the dim-wide activation is rolled
             # instead of the 3·inner-wide qkv
             sh, sw = self.shift
-            xr = torch.roll(x, (-sh, -sw), (1, 2)) if sh or sw else x
-            out = fused_tiled_block_attention(project(xr), s, self.heads, self.window_size)
+            xr = torch.roll(xin, (-sh, -sw), (1, 2)) if sh or sw else xin
+            out = fused_tiled_block_attention(project(xr), s, heads, self.window_size)
             if sh or sw:
                 out = torch.roll(out, (sh, sw), (1, 2))
         else:
             attend = fused_block_attention if route == "block" else per_head_window_attention
-            out = attend(project(x), s, self.heads, self.window_size, self.shift)
-        if jvp:
-            # the JAX model's jvp path: wo as a plain product rounded to dtype
-            # (kernel 3 keeps it in fp32), then the post-norm epilogue
+            out = attend(project(xin), s, heads, self.window_size, self.shift)
+        if jvp or self.split:
+            # the JAX model's jvp and mesh paths: wo as a plain product rounded
+            # to dtype (kernel 3 keeps it in fp32 and needs the summed rows),
+            # the ranks' partial sums summed, then the post-norm epilogue
             y = F.linear(out, self.wo.weight.to(dt))
+            if self.split:
+                y = reduce_from_model(y, self.model_group)
             return self.norm.epilogue(y, x, cond)
         g, b, scale, shift = self.norm.pieces(cond)
         if int8:
@@ -175,21 +228,40 @@ class WindowAttention(nn.Module):
 class FeedForward(nn.Module):
     """SwiGLU feed-forward, post-norm and residual (kernels 5 and 4; for
     dual inputs kernels 11, 4 and 12; with ``quant="int8"`` outside a jvp,
-    kernels 18 and 4)."""
+    kernels 18 and 4). With the hidden units split over ``model_size``
+    ranks, the same kernels on the local slice, then the partial sums'
+    all-reduce before the epilogue."""
 
-    def __init__(self, dim: int, hidden_dim: int, quant: Optional[str] = None):
+    def __init__(self, dim: int, hidden_dim: int, quant: Optional[str] = None,
+                 model_size: int = 1, model_rank: int = 0, model_group=None):
         super().__init__()
-        self.w1 = nn.Linear(dim, 2 * hidden_dim, bias=False)
-        self.w2 = nn.Linear(hidden_dim, dim, bias=False)
+        self.dim, self.hidden = dim, hidden_dim
+        self.split = ffn_splits(hidden_dim, model_size)
+        self.model_size, self.model_rank, self.model_group = model_size, model_rank, model_group
+        local = hidden_dim // model_size if self.split else hidden_dim
+        self.w1 = nn.Linear(dim, 2 * local, bias=False)
+        self.w2 = nn.Linear(local, dim, bias=False)
         self.norm = ModulatedNorm(dim)
         self.quant = quant
+
+    def param_shards(self) -> dict:
+        """{parameter: Shard} of the weights this rank holds a slice of:
+        ``[g_r ; u_r]`` rows of w1, the matching columns of w2."""
+        if not self.split:
+            return {}
+        r, m = self.model_rank, self.model_size
+        return {"w1.weight": Shard((2 * self.hidden, self.dim), 0, r, m, halves=True),
+                "w2.weight": Shard((self.dim, self.hidden), 1, r, m)}
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, jvp: bool = False) -> torch.Tensor:
         if self.quant == "int8" and not jvp:
             y = fused_swiglu_ffn_int8(x, self.w1.weight, self.w2.weight)
         else:
             dt = x.dtype
-            y = fused_swiglu_ffn(x, self.w1.weight.to(dt), self.w2.weight.to(dt))
+            xin = copy_to_model(x, self.model_group) if self.split else x
+            y = fused_swiglu_ffn(xin, self.w1.weight.to(dt), self.w2.weight.to(dt))
+            if self.split:
+                y = reduce_from_model(y, self.model_group)
         return self.norm.epilogue(y, x, cond)
 
 
@@ -225,8 +297,10 @@ class SwinV2(nn.Module):
     (B, H, W, in_channels) NHWC; t () / (1,) / (B,) timesteps; auxiliary (B,
     auxiliary_dim). Returns (B, H, W, out_channels) fp32, and the (B,)
     logvar head output when ``return_logvar``. ``jvp`` selects the
-    forward-mode path and ``quant="int8"`` the int8 inference path (see the
-    module docstring).
+    forward-mode path and ``quant="int8"`` the int8 inference path;
+    ``model_size`` > 1 builds this rank's (``model_rank`` of the ranks of
+    ``model_group``) part of a tensor-parallel replica (see the module
+    docstring).
     """
 
     def __init__(
@@ -248,6 +322,9 @@ class SwinV2(nn.Module):
         remat_layers: bool = True,
         pos_embed_mode: str = "learned",
         quant: Optional[str] = None,
+        model_size: int = 1,
+        model_rank: int = 0,
+        model_group=None,
     ):
         super().__init__()
         H, W = _as_2tuple(img_resolution)
@@ -259,6 +336,8 @@ class SwinV2(nn.Module):
             raise ValueError(f"pos_embed_mode {pos_embed_mode!r}: learned or factorized")
         if quant not in (None, "int8"):
             raise ValueError(f"quant {quant!r}: None or 'int8'")
+        if quant and model_size > 1:
+            raise ValueError("the int8 forecast runs one replica a process (model_size 1)")
         self.quant = quant
         self.img_resolution = (H, W)
         self.patch_size = (ph, pw)
@@ -284,14 +363,22 @@ class SwinV2(nn.Module):
         self.auxiliary_embed = nn.Linear(auxiliary_dim, dim) if auxiliary_dim else None
         self.logvar_embed = nn.Linear(dim, 1) if logvar else None
         hidden = int(8 / 3.0 * dim)
+        tp = dict(model_size=model_size, model_rank=model_rank, model_group=model_group)
         self.transformer = _Transformer(
             nn.ModuleList([
                 WindowAttention(dim, heads, head_dim, (wh, ww),
-                                (sh, sw) if (sh or sw) and i % 2 else (0, 0), quant=quant),
-                FeedForward(dim, hidden, quant=quant),
+                                (sh, sw) if (sh or sw) and i % 2 else (0, 0), quant=quant, **tp),
+                FeedForward(dim, hidden, quant=quant, **tp),
             ])
             for i in range(depth)
         )
+        if model_size > 1 and model_rank == 0:
+            whole = [f"{what} ({n})" for what, n, split in (
+                ("the attention's heads", heads, attention_splits(heads, model_size)),
+                ("the FFN's hidden width", hidden, ffn_splits(hidden, model_size))) if not split]
+            if whole:
+                logger.info(f"tensor parallelism over {model_size} ranks: replicated where the "
+                            f"split does not divide: {' and '.join(whole)}")
         self.head = _Head(dim, out_channels * ph * pw)
 
     def _condition(self, t: torch.Tensor, auxiliary: Optional[torch.Tensor]) -> torch.Tensor:

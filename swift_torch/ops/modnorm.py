@@ -39,6 +39,12 @@ row ``b`` picked per sample.
   tangent route (the JAX package runs wo as a plain product under the jvp)
   and refuses dual inputs.
 
+Under tensor parallelism each rank's wo (or w2) product is a partial sum
+of y, so kernel 3 cannot run; ``models.swinv2`` sums the partials over the
+model group and runs :func:`fused_modnorm_residual` (kernel 4, 12 under a
+jvp) on the whole rows, the role of the JAX package's
+``sharded_modnorm_residual`` (``pallas_modnorm.py:110-137``).
+
 Their backward is the vjp of the plain epilogue, as in the JAX package
 (``pallas_modnorm.py::_fused_bwd`` and ``_fused_mm_mn_bwd``, which have no
 backward kernel): kernel 3's backward recomputes y = x·wo.T with

@@ -18,6 +18,11 @@ ops, both rounded to ``v.dtype``, so autograd and ``forward_ad``
 differentiate them, as XLA does around the Pallas call; the scale's
 gradient comes through the kernel's bf16-product dq̂ = bf16(dS)·k̂, as in
 the JAX package.
+
+Under tensor parallelism a rank's ``h`` is its share of the heads, with
+its slice of the scale (``models.swinv2.WindowAttention``): the JAX
+package's ``fused_window_attention(..., mesh=...)``, whose programs are
+independent per (window, head), so the kernels run as they are.
 """
 
 from __future__ import annotations

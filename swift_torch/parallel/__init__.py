@@ -1,30 +1,48 @@
-"""Parallelism of the port: data parallelism over processes (``mesh``).
-Tensor and pipeline parallelism are not ported (``mesh.check_mesh``
-refuses them)."""
+"""Parallelism of the port: data and tensor parallelism over processes
+(``mesh``: the process group, the data × model layout and the bucketed
+collectives; ``sharding``: which weights split over the model axis;
+``tensor``: the collectives autograd sees). Pipeline parallelism is not
+ported (``mesh.check_mesh`` refuses it)."""
 
 from swift_torch.parallel.mesh import (
+    Layout,
     all_reduce_mean,
+    all_reduce_sum,
     barrier,
     broadcast_from_rank0,
     build_kernels_first,
     check_mesh,
+    data_group,
+    data_rank,
+    data_size,
+    init_layout,
+    layout,
     local_rank,
     local_world_size,
     maybe_initialize_distributed,
+    mesh_sizes,
     rank,
     rank_rows,
     world_size,
 )
 
 __all__ = [
+    "Layout",
     "all_reduce_mean",
+    "all_reduce_sum",
     "barrier",
     "broadcast_from_rank0",
     "build_kernels_first",
     "check_mesh",
+    "data_group",
+    "data_rank",
+    "data_size",
+    "init_layout",
+    "layout",
     "local_rank",
     "local_world_size",
     "maybe_initialize_distributed",
+    "mesh_sizes",
     "rank",
     "rank_rows",
     "world_size",

@@ -1,4 +1,4 @@
-"""The port's multi-process runtime: data parallelism over processes.
+"""The port's multi-process runtime: data and tensor parallelism over processes.
 
 Counterpart of ``swift_tpu/parallel/mesh.py``. The JAX package shards the
 global batch over a ``data`` mesh axis and lets XLA insert the gradient
@@ -23,10 +23,21 @@ CUDA and ``gloo`` for the CPU unless ``SWIFT_DIST_BACKEND`` names one;
 (``utils.device.resolve_device``), which needs ``gloo``: NCCL refuses two
 ranks on one device. Only ``all_reduce``, ``broadcast`` and ``barrier`` are
 used, the collectives both backends run on CUDA tensors.
+
+Tensor parallelism (``system.mesh`` axes ``[data, model]``, the JAX
+package's ``make_mesh`` order: ``model`` varies fastest, so rank = data
+index × model size + model index) is a :class:`Layout` that
+:func:`init_layout` sets: one process group a data row (the ranks that
+split one replica's matrices, ``Layout.model_group``) and one a model
+column (the ranks that hold the same shards of different batch rows,
+:func:`data_group`). Without it every rank is a data rank. The batch goes
+by the data index (:func:`data_rank`, :func:`rank_rows`); the model ranks
+of a row load the same rows and draw the same noise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Iterable, Optional
 
@@ -95,11 +106,105 @@ def local_world_size() -> int:
     return launch[1] if launch is not None else world_size()
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The data × model rank layout: this rank's indices on both axes and
+    their process groups. ``data_group`` None is every rank (no model
+    axis); ``model_group`` None means the model axis has size 1 and no
+    collective runs over it."""
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+
+_LAYOUT: Optional[Layout] = None
+_GROUPS: dict = {}  # model size -> (the data rows' groups, the model columns'), made once
+
+
+def mesh_sizes(cfg: dict, world: int) -> tuple[int, int]:
+    """(data, model) sizes of ``system.mesh`` over ``world`` ranks; -1 is
+    the ranks that remain. Refuses a pipe axis (:func:`check_mesh`) and
+    sizes that do not multiply to the world."""
+    check_mesh(cfg)
+    axes, sizes = _mesh(cfg)
+    if any(a not in ("data", "model", "pipe") for a in axes) or len(sizes) != len(axes):
+        raise ValueError(f"system.mesh: axes {axes}, sizes {sizes}; the port knows the data "
+                         "and model axes")
+    if sizes.count(-1) > 1:
+        raise ValueError(f"system.mesh sizes {sizes}: at most one -1")
+    fixed = 1
+    for s in sizes:
+        fixed *= 1 if s == -1 else s
+    got = dict(zip(axes, (world // fixed if s == -1 else s for s in sizes)))
+    data, model = got.get("data", 1), got.get("model", 1)
+    if data < 1 or data * model != world:
+        raise ValueError(f"system.mesh (axes {axes}, sizes {sizes}) does not fit {world} "
+                         "rank(s)")
+    return data, model
+
+
+def _groups(model: int):
+    """Every data row's and every model column's process group, made by
+    every rank in one order (``dist.new_group`` is collective)."""
+    if model not in _GROUPS:
+        world = world_size()
+        rows = [dist.new_group(list(range(d * model, (d + 1) * model)))
+                for d in range(world // model)]
+        cols = [dist.new_group(list(range(m, world, model))) for m in range(model)]
+        _GROUPS[model] = rows, cols
+    return _GROUPS[model]
+
+
+def init_layout(model: int = 1) -> Layout:
+    """Set this process's layout: ``model`` ranks a replica (consecutive
+    ranks), the world over ``model`` the data size. ``model`` 1 is data
+    parallelism over every rank and makes no group; any other size makes
+    the groups of every row and column (a collective: every rank calls it
+    with the same size)."""
+    global _LAYOUT
+    world, r = world_size(), rank()
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide {world} rank(s)")
+    if model == 1:
+        _LAYOUT = Layout(world, 1, r, 0)
+    else:
+        rows, cols = _groups(model)
+        data = world // model
+        _LAYOUT = Layout(data, model, r // model, r % model, cols[r % model], rows[r // model])
+    return _LAYOUT
+
+
+def layout() -> Layout:
+    """The layout :func:`init_layout` set, else data parallelism over every
+    rank."""
+    if _LAYOUT is None or _LAYOUT.data * _LAYOUT.model != world_size():
+        return Layout(world_size(), 1, rank(), 0)
+    return _LAYOUT
+
+
+def data_rank() -> int:
+    return layout().data_rank
+
+
+def data_size() -> int:
+    return layout().data
+
+
+def data_group():
+    """The ranks that hold this rank's shards (None: every rank, when there
+    is no model axis)."""
+    return layout().data_group
+
+
 def rank_rows(n_local: int) -> slice:
-    """This rank's rows of a global batch of ``world_size() * n_local``
-    rows: the global batch is the local batches concatenated in rank order
-    (the JAX package's ``shard_batch``)."""
-    r = rank()
+    """This rank's rows of a global batch of ``data_size() * n_local``
+    rows: the global batch is the data ranks' local batches concatenated in
+    data-rank order (the JAX package's ``shard_batch``); the model ranks of
+    a row hold the same rows."""
+    r = data_rank()
     return slice(r * n_local, (r + 1) * n_local)
 
 
@@ -159,42 +264,66 @@ def _collective(tensors: Iterable[torch.Tensor], op) -> None:
             offset += t.numel()
 
 
-def all_reduce_mean(tensors: Iterable[torch.Tensor]) -> None:
-    """Each tensor replaced, in place, by its mean over the ranks (summed in
-    fp32 for floating tensors, then divided by the world size); a no-op for
-    a process alone. Every rank ends with the same bits."""
-    if world_size() == 1:
+def group_size(group=None) -> int:
+    """The ranks of ``group`` (None: every rank; 1 for a process alone)."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+def all_reduce_sum(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Each tensor replaced, in place, by its sum over ``group`` (summed in
+    fp32 for floating tensors); a no-op for a group of one. Every rank of
+    the group ends with the same bits. Exact where at most one rank holds
+    a value other than -0.0 in each element (x + -0.0 is x for every x):
+    the gathers of :mod:`swift_torch.parallel.sharding` pad with -0.0."""
+    if group_size(group) == 1:
         return
-    world = world_size()
+    _collective(tensors, lambda flat: dist.all_reduce(flat, group=group))
+
+
+def all_reduce_mean(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Each tensor replaced, in place, by its mean over ``group`` (every
+    rank by default; summed in fp32 for floating tensors, then divided by
+    the group's size); a no-op for a group of one. Every rank of the group
+    ends with the same bits."""
+    n = group_size(group)
+    if n == 1:
+        return
 
     def reduce(flat):
         if not flat.is_floating_point():
             raise TypeError(f"all_reduce_mean of {flat.dtype} tensors")
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
+        flat.div_(n)
 
     _collective(tensors, reduce)
 
 
-def broadcast_from_rank0(tensors: Iterable[torch.Tensor]) -> None:
-    """Each tensor overwritten, in place, by rank 0's; a no-op for a process
-    alone. Every rank passes the same tensors in the same order."""
-    if world_size() == 1:
+def broadcast_from_rank0(tensors: Iterable[torch.Tensor], group=None) -> None:
+    """Each tensor overwritten, in place, by the first rank's of ``group``
+    (rank 0 by default); a no-op for a group of one. Every rank of the
+    group passes the same tensors in the same order."""
+    if group_size(group) == 1:
         return
-    _collective(tensors, lambda flat: dist.broadcast(flat, src=0))
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    _collective(tensors, lambda flat: dist.broadcast(flat, src=src, group=group))
+
+
+def _mesh(cfg: dict) -> tuple[list, list]:
+    mesh = (cfg.get("system") or {}).get("mesh") or {}
+    axes = list(mesh.get("axes") or ["data"])
+    return axes, [int(s) for s in (mesh.get("sizes") or [-1] * len(axes))]
 
 
 def check_mesh(cfg: dict) -> None:
-    """Refuse a config whose ``system.mesh`` asks for tensor or pipeline
-    parallelism (a ``model`` or ``pipe`` axis of another size than 1; -1,
-    the remaining devices, counts as more): only data parallelism is
-    ported."""
-    mesh = (cfg.get("system") or {}).get("mesh") or {}
-    axes = list(mesh.get("axes") or ["data"])
-    sizes = list(mesh.get("sizes") or [-1] * len(axes))
-    wide = [a for a, s in zip(axes, sizes) if a in ("model", "pipe") and int(s) != 1]
-    if wide:
+    """Refuse a config whose ``system.mesh`` asks for pipeline parallelism
+    (a ``pipe`` axis of another size than 1; -1, the remaining devices,
+    counts as more): the next slice of the port. Data and model axes
+    pass."""
+    axes, sizes = _mesh(cfg)
+    if any(a == "pipe" and s != 1 for a, s in zip(axes, sizes)):
         raise NotImplementedError(
-            f"tensor/pipeline parallelism is not ported yet: system.mesh asks for a "
-            f"{'/'.join(wide)} axis (axes {axes}, sizes {sizes}); the port runs data "
-            "parallelism only (one replica a process)")
+            f"pipeline parallelism is not ported yet (the next slice of the port): "
+            f"system.mesh asks for a pipe axis (axes {axes}, sizes {sizes}); the port runs "
+            "data and tensor parallelism (axes data and model)")

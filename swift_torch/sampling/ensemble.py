@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from swift_torch.data.standardize import Standardizer
-from swift_torch.parallel.mesh import rank, world_size
+from swift_torch.parallel.mesh import data_rank, data_size
 from swift_torch.utils.device import resolve_device
 
 
@@ -93,7 +93,7 @@ class EnsembleRollout:
         self.segment = min(segment, steps)
         self.base_seed = base_seed
         self.residual = bool(getattr(dataset, "residual", False))
-        self.block = member_block(members, rank(), world_size())
+        self.block = member_block(members, data_rank(), data_size())
 
     def generator(self, ic_start: int, step: int) -> torch.Generator:
         g = torch.Generator(device=self.device)

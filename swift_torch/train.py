@@ -31,9 +31,20 @@ Data parallelism (the JAX package's multi-process runtime, its
 sample stream, ``data.batch_size / N`` a step, and the ranks average their
 gradients, so N processes do the work of one on the global batch. Rank 0's
 parameters, EMA and optimizer state are broadcast once after the build or
-resume, and checked to agree; rank 0 writes the run's files. A config whose
-``system.mesh`` asks for tensor or pipeline parallelism raises: neither is
-ported.
+resume, and checked to agree; rank 0 writes the run's files.
+
+Tensor parallelism (``system=tpu-tp``: ``system.mesh`` axes ``[data,
+model]``, sizes ``[-1, 2]``; the JAX package's ``train.py:216-226`` and
+``:312-320``): the ranks form a data × model layout
+(``parallel.mesh.init_layout``, ``model`` varying fastest); the model
+ranks of a data row split one replica's attention heads and FFN hidden
+units (``parallel.sharding``), load the same rows and draw the same
+noise, and the data ranks average their gradients as above. The network is
+built (and converted or loaded) in one process's layout and then sliced;
+checkpoints are gathered back into that layout, so a run resumes and
+forecasts (``generate``) on any layout. ``system=...`` given with
+``resume=`` sets the resumed run's layout. A ``pipe`` axis raises: pipeline
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -54,9 +65,11 @@ from swift_torch.data.samplers import DeltaBatchSampler, InfiniteSampler
 from swift_torch.parallel.mesh import (
     broadcast_from_rank0,
     build_kernels_first,
-    check_mesh,
+    data_rank,
+    data_size,
+    init_layout,
     maybe_initialize_distributed,
-    rank,
+    mesh_sizes,
     world_size,
 )
 from swift_torch.training.trainer import Trainer, swin_flop_count
@@ -185,8 +198,7 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
     maybe_initialize_distributed(device_name)
     device = resolve_device(device_name)
     cfg = cfglib.compose("train", overrides)
-    check_mesh(cfg)
-    world = world_size()
+    mesh_sizes(cfg, world_size())  # a pipe axis, or sizes that do not fit, raise here
     build_kernels_first(device)
 
     run_id = launch_run_id()
@@ -196,7 +208,12 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
         cfglib.save_config(cfg, os.path.join(run_dir, ".hydra", "config.yaml"))
     log0(f"Results directory: {run_dir} (device {device})")
 
+    system = cfg.get("system")
     cfg, ckpt = resume_setup(cfg, run_dir)
+    if ckpt is not None and any(ov.startswith("system=") for ov in overrides):
+        cfg["system"] = system  # this invocation's layout over the resumed run's
+    lay = init_layout(mesh_sizes(cfg, world_size())[1])
+    world = lay.data
     if ckpt is not None:
         # explicit CLI value overrides still win on top of the resumed config
         for ov in overrides:
@@ -208,18 +225,20 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
         raise FinetuneWithoutResume("must have resume path to finetune")
 
     seed = int(cfg["seed"]) + string_to_int(run_id)
-    # numpy's stream a rank (the JAX package's), torch's shared: the net's
-    # initial weights and the losses' draws are alike on every rank
-    np.random.seed((seed * world + rank()) % (1 << 31))
+    # numpy's stream a data rank (the JAX package's), torch's shared: the
+    # net's initial weights and the losses' draws are alike on every rank
+    np.random.seed((seed * world + lay.data_rank) % (1 << 31))
     torch.manual_seed(seed)
 
     if dataset is None:
         log0("Loading dataset...")
         dataset = factory.build_dataset(cfg["data"])
-    sampler = InfiniteSampler(dataset, rank=rank(), num_replicas=world, shuffle=True, seed=seed)
+    sampler = InfiniteSampler(dataset, rank=lay.data_rank, num_replicas=world, shuffle=True,
+                              seed=seed)
     global_batch = int(cfg["data"]["batch_size"])
     if global_batch % world:
-        raise ValueError(f"data.batch_size={global_batch} does not divide over {world} ranks")
+        raise ValueError(f"data.batch_size={global_batch} does not divide over {world} data "
+                         "ranks")
     local_batch = global_batch // world
     finetune = cfg.get("finetune")
     batch_sampler, multistep_steps = None, 0
@@ -233,7 +252,8 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
 
     log0("Constructing network...")
     net = factory.build_precond(cfg["precond"], cfg["model"], dataset.img_resolution,
-                                dataset.n_target_channels, dataset.n_condition_channels)
+                                dataset.n_target_channels, dataset.n_condition_channels,
+                                layout=lay)
     net = net.to(device).train()
 
     log0("Constructing loss function...")
@@ -244,7 +264,7 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
     tcfg = cfg["trainer"]
     resume_kimg = get_ckpt_num(ckpt) if ckpt else 0
     optimizer, lr_fn = factory.build_optimizer(cfg["optimizer"], tcfg, global_batch, net,
-                                               resume_kimg=resume_kimg)
+                                               resume_kimg=resume_kimg, layout=lay)
     flop_count = swin_flop_count(
         dataset.img_resolution, global_batch, int(cfg["model"]["depth"]),
         dataset.n_target_channels + dataset.n_condition_channels, int(cfg["model"]["dim"]),
@@ -276,18 +296,27 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
     )
     if world > 1:
         state = replicated_state(trainer)
-        broadcast_from_rank0(state)
-        check_replica_consistency(state, "parameters, EMA and optimizer state")
+        broadcast_from_rank0(state, lay.data_group)
+        check_replica_consistency(state, "parameters, EMA and optimizer state", lay.data_group)
         log0(f"Data parallel over {world} ranks: {local_batch} of the global batch of "
              f"{global_batch} a rank; the replicas agree")
+    if lay.model > 1:
+        shards = trainer.shards
+        check_replica_consistency(
+            [p for n, p in trainer.params.items() if n not in shards],
+            "the replicated parameters", lay.model_group)
+        log0(f"Tensor parallel over {lay.model} ranks a replica ({world} replicas): "
+             f"{len(shards)} weights split, the other {len(trainer.params) - len(shards)} "
+             "parameters replicated and alike")
     return trainer, loader, cfg
 
 
 def rollout_batches(val_dataset, batch_size: int, seed: int):
     """``val_batches()``: an iterator of (X, TS, idx), ``batch_size``
     rollout items of ``val_dataset`` at a time from an ``InfiniteSampler``
-    strided by rank."""
-    val_sampler = InfiniteSampler(val_dataset, rank=rank(), num_replicas=world_size(), seed=seed)
+    strided by data rank."""
+    val_sampler = InfiniteSampler(val_dataset, rank=data_rank(), num_replicas=data_size(),
+                                  seed=seed)
 
     def val_batches():
         it = iter(val_sampler)

@@ -19,7 +19,22 @@ As a ``torch.optim.Optimizer`` with a "muon" and an "adam" parameter group,
 its state (``momentum_buffer``; ``step``, ``exp_avg``, ``exp_avg_sq``) goes
 through the trainer's checkpoint helpers unchanged. Newton-Schulz runs on
 ``torch.matmul``, plain products outside any kernel, as the JAX package
-leaves them to XLA. Not ported: the mesh-sharded Newton-Schulz.
+leaves them to XLA.
+
+Over several ranks (``ns_split`` = (rank, world)) the Newton-Schulz work is
+split, as the JAX package's ``_sharded_orthogonalize`` splits the stack of
+matrices over the devices: matrix i goes to rank i mod world, and the
+results come back to every rank by one exact all-reduce of -0.0-padded
+buffers (:func:`orthogonalize_split`). Under tensor parallelism a weight of
+which this rank holds a slice (``shards``, a
+``swift_torch.parallel.sharding.Shard`` per Muon parameter or None) first
+has its blended update gathered over ``model_group`` to the whole matrix,
+and keeps its slice of the result: ``_tp_sharded_orthogonalize``'s result,
+gathered by an all-reduce in place of its ``all_to_all``. Newton-Schulz,
+its aspect factor included, always sees the whole matrix, so an update
+split over ranks equals one rank's bit for bit on the same device. The
+momentum (and its stochastic rounding, whose bits are drawn for the whole
+matrix and sliced) is elementwise and runs on the slice.
 
 ``momentum_dtype="bfloat16"`` keeps the Muon momentum in bf16 (half the
 state): the blend is taken in fp32 and stochastically rounded into the
@@ -35,9 +50,11 @@ fp32 value (numpy has no bf16); ``load_state_dict`` casts it back.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Sequence
 
 import torch
+
+from swift_torch.parallel import mesh
 
 
 # (a, b, c) of the quintic iteration, rounded to bfloat16 (see newton_schulz)
@@ -91,22 +108,46 @@ def orthogonalized_update(u: torch.Tensor, ns_steps: int = 5) -> torch.Tensor:
     return o.transpose(-1, -2).float()
 
 
+def orthogonalize_split(updates: Sequence[torch.Tensor], ns_steps: int = 5,
+                        ns_split: tuple[int, int] = (0, 1)) -> list[torch.Tensor]:
+    """:func:`orthogonalized_update` of each of ``updates`` (whole (out, in)
+    matrices, alike on every rank), the work split over the ranks: rank r of
+    ``ns_split`` = (r, world) computes matrices i ≡ r (mod world), and one
+    all-reduce of the results, -0.0 where a rank did not compute a matrix,
+    hands every rank all of them exactly (x + -0.0 = x)."""
+    r, world = ns_split
+    if world == 1:
+        return [orthogonalized_update(u, ns_steps) for u in updates]
+    out = [orthogonalized_update(u, ns_steps) if i % world == r
+           else torch.full(u.shape, -0.0, dtype=torch.float32, device=u.device)
+           for i, u in enumerate(updates)]
+    mesh.all_reduce_sum(out)
+    return out
+
+
 class MuonWithAuxAdam(torch.optim.Optimizer):
     """Muon for ``muon_params`` (2-D weights), the auxiliary Adam for
     ``adam_params``; weight decay applies to every parameter of each group
     (no mask), as ``optax.add_decayed_weights`` does in the JAX package.
     Each group keeps its ``base_lr`` beside the ``lr`` the trainer sets from
-    the schedule before every step."""
+    the schedule before every step. ``shards`` (one entry a Muon parameter,
+    a ``Shard`` or None), ``model_group`` and ``ns_split`` lay the
+    Newton-Schulz work over ranks (see the module docstring); by default
+    each matrix is whole and orthogonalized here."""
 
     def __init__(self, muon_params: Iterable[torch.Tensor], adam_params: Iterable[torch.Tensor],
                  lr: float = 0.02, weight_decay: float = 0.01, momentum: float = 0.95,
                  ns_steps: int = 5, adam_lr: float = 3e-4, adam_betas=(0.9, 0.95),
                  adam_weight_decay: float = 0.01, adam_eps: float = 1e-10,
-                 momentum_dtype: Optional[str] = None):
+                 momentum_dtype: Optional[str] = None, shards: Optional[Sequence] = None,
+                 model_group=None, ns_split: tuple[int, int] = (0, 1)):
         if momentum_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"momentum_dtype {momentum_dtype!r}: float32 or bfloat16")
         self.stochastic_rounding = momentum_dtype == "bfloat16"
         self._gens: dict = {}
+        muon_params = list(muon_params)
+        self._shards = {id(p): sh for p, sh in zip(muon_params, shards or ()) if sh is not None}
+        self.model_group, self.ns_split = model_group, tuple(ns_split)
         groups = [
             dict(params=list(muon_params), kind="muon", lr=lr, base_lr=lr,
                  weight_decay=weight_decay, momentum=momentum, ns_steps=ns_steps),
@@ -151,27 +192,46 @@ class MuonWithAuxAdam(torch.optim.Optimizer):
         gen.manual_seed((_SR_SEED << 40) + (count << 20) + index)
         return torch.randint(0, 1 << 16, shape, generator=gen, device=device, dtype=torch.int32)
 
-    def _muon(self, group, params):
-        mu, lr, wd = group["momentum"], group["lr"], group["weight_decay"]
-        sr = self.stochastic_rounding
-        for index, p in enumerate(params):
-            g = p.grad.float()
-            st = self.state[p]
-            if "momentum_buffer" not in st:
-                st["momentum_buffer"] = torch.zeros_like(
-                    p, dtype=torch.bfloat16 if sr else torch.float32)
-                if sr:
-                    st["step"] = torch.zeros((), dtype=torch.float32)
-            m = st["momentum_buffer"]
-            blend = m.float() + (1 - mu) * (g - m.float())
+    def _blend(self, group, index: int, p: torch.Tensor) -> torch.Tensor:
+        """The momentum step of the ``index``-th Muon parameter (its slice
+        under tensor parallelism) and its Nesterov-blended update, fp32."""
+        mu, sr = group["momentum"], self.stochastic_rounding
+        g = p.grad.float()
+        st = self.state[p]
+        if "momentum_buffer" not in st:
+            st["momentum_buffer"] = torch.zeros_like(
+                p, dtype=torch.bfloat16 if sr else torch.float32)
             if sr:
-                st["step"] += 1
-                m.copy_(stochastic_round_bf16(blend, self._bits(p.shape, p.device,
-                                                                int(st["step"]), index)))
-            else:
-                m.copy_(blend)
-            o = orthogonalized_update(g + mu * (m.float() - g), group["ns_steps"])
+                st["step"] = torch.zeros((), dtype=torch.float32)
+        m = st["momentum_buffer"]
+        blend = m.float() + (1 - mu) * (g - m.float())
+        if sr:
+            st["step"] += 1
+            shard = self._shards.get(id(p))
+            bits = self._bits(shard.full if shard else p.shape, p.device, int(st["step"]), index)
+            m.copy_(stochastic_round_bf16(blend, shard.take(bits) if shard else bits))
+        else:
+            m.copy_(blend)
+        return g + mu * (m.float() - g)
+
+    def _muon(self, group, params):
+        lr, wd, ns = group["lr"], group["weight_decay"], group["ns_steps"]
+
+        def apply(p, o):
             p.add_(((o + wd * p) * -lr).to(p.dtype))
+
+        if self.ns_split[1] == 1 and not self._shards:
+            for index, p in enumerate(params):
+                apply(p, orthogonalized_update(self._blend(group, index, p), ns))
+            return
+        shards = [self._shards.get(id(p)) for p in params]
+        updates = [self._blend(group, index, p) for index, p in enumerate(params)]
+        whole = {i: sh.place(u) for i, (u, sh) in enumerate(zip(updates, shards)) if sh}
+        mesh.all_reduce_sum(list(whole.values()), self.model_group)
+        outs = orthogonalize_split([whole.get(i, u) for i, u in enumerate(updates)], ns,
+                                   self.ns_split)
+        for p, o, sh in zip(params, outs, shards):
+            apply(p, sh.take(o) if sh else o)
 
     def _adam(self, group, params):
         (b1, b2), eps, lr, wd = group["betas"], group["eps"], group["lr"], group["weight_decay"]

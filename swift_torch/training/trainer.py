@@ -36,6 +36,21 @@ rank 0 alone writes files, a checkpoint behind a barrier. A stop signal
 (SIGTERM, SIGINT) is decided together: each rank's request rides the
 gradients' all-reduce, so every rank stops, and checkpoints, after the same
 step whichever ranks the signal reached first.
+
+Under tensor parallelism (a ``model`` axis, ``parallel.mesh.init_layout``;
+the network built with it holds this rank's slices,
+``parallel.sharding.module_shards``) each parameter's gradient is made
+complete and counted once: the gradients are averaged over the **data**
+group only; a replicated parameter that the split blocks use on their
+rank's slice alone (the per-head logit scale, ``sliced_params``) has its
+gradient summed over the **model** group first; a replicated parameter on
+replicated work already has the same gradient on every model rank.
+:func:`global_norm` sums the slices' squares over the model group and
+counts the replicated ones once; ``clamp_grads``, AdamW and the EMA run on
+the slices as they are, and Muon and MARS gather the slices where a whole
+matrix is needed (``optimizers.muon``, ``optimizers.mars``). A checkpoint is gathered
+over the model group into one process's layout (rank 0 writes it), and a
+resume on any layout slices it.
 """
 
 from __future__ import annotations
@@ -50,7 +65,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from swift_torch.parallel.mesh import all_reduce_mean, barrier, rank, world_size
+from swift_torch.parallel.mesh import all_reduce_mean, all_reduce_sum, barrier, layout
+from swift_torch.parallel.sharding import (
+    gather_state_dict,
+    module_shards,
+    shard_state_dict,
+    sliced_params,
+)
 from swift_torch.training.loss import CRPSLoss, EDMLoss, MSELoss, SCMLoss
 from swift_torch.utils.checkpoint import (
     get_ckpt_num,
@@ -167,10 +188,19 @@ def ema_update(ema: dict, params: dict, nimg: float, global_batch_size: float,
         e.copy_(p + beta * (e - p))
 
 
-def global_norm(params) -> torch.Tensor:
-    """L2 norm over every gradient, fp32."""
-    sq = [p.grad.float().pow(2).sum() for p in params if p.grad is not None]
-    return torch.sqrt(torch.stack(sq).sum())
+def global_norm(params, sharded=(), group=None) -> torch.Tensor:
+    """L2 norm over every gradient, fp32. Under tensor parallelism
+    ``sharded`` holds the parameters of which this rank has a slice: their
+    squares are summed over the model ``group``, the others' counted once."""
+    ids = {id(p) for p in sharded}
+    sq = [p.grad.float().pow(2).sum() for p in params
+          if p.grad is not None and id(p) not in ids]
+    total = torch.stack(sq).sum()
+    if ids:
+        part = torch.stack([p.grad.float().pow(2).sum() for p in sharded]).sum().reshape(1)
+        all_reduce_sum([part], group)
+        total = total + part[0]
+    return torch.sqrt(total)
 
 
 # ----------------------------------------------------------------------------
@@ -240,11 +270,15 @@ class Trainer:
         self.teacher = teacher
         self.profile = bool(profile)
         self.device = next(net.parameters()).device
-        self.rank, self.world = rank(), world_size()
+        self.layout = layout()
+        # the batch and the noise go by the data index: a row's model ranks alike
+        self.rank, self.world = self.layout.data_rank, self.layout.data
         self.stop_requested = False  # set by a stop signal on this rank
         self.stopping = False  # any rank's request, as of the last update
         self.depth = len(net.model.transformer.layers)
         self.params = dict(net.named_parameters())
+        self.shards = module_shards(net)  # {name: Shard} of this rank's slices
+        self.sliced = sliced_params(net)
         self.history: dict[str, list] = {}
 
         self.resume_kimg = 0
@@ -264,8 +298,24 @@ class Trainer:
             self.finetune_kwargs["intervals"] = intervals
             logger.info(f"finetune schedule: {self.finetune_kwargs}")
 
+    def _opt_shards(self, arrays) -> dict:
+        """{"<name>/<key>": Shard} of the optimizer state kept per element of
+        a split parameter (shaped like it; not a scalar ``step``)."""
+        out = {}
+        for k, v in arrays.items():
+            shard = self.shards.get(k.rsplit("/", 1)[0])
+            if shard is not None and tuple(v.shape) in (shard.shape, shard.full):
+                out[k] = shard
+        return out
+
     def _restore(self, ckpt: str) -> None:
         params, ema, opt_state = load_training_state(ckpt)
+        if self.shards:  # one process's layout -> this rank's slices
+            params = shard_state_dict(params, self.shards)
+            ema = shard_state_dict(ema, self.shards)
+            specs = self._opt_shards(opt_state)
+            opt_state = {k: specs[k].take(torch.from_numpy(np.array(v))).numpy()
+                         if k in specs else v for k, v in opt_state.items()}
         self.net.load_state_dict(params)
         self.ema = {n: ema[n].to(self.device).clone() for n in self.params}
         if opt_state:
@@ -337,13 +387,16 @@ class Trainer:
         for p in params:
             if p.grad is None:  # not reached by the loss (a multistep loss's logvar head)
                 p.grad = torch.zeros_like(p)
-        reduced = [p.grad for p in params]
-        if self.world > 1:
-            stop = torch.full((1,), float(self.stop_requested), device=self.device)
-            reduced.append(stop)
-        all_reduce_mean(reduced)
+        lay = self.layout
+        many = lay.data * lay.model > 1
+        stop = torch.full((1,), float(self.stop_requested), device=self.device)
+        if lay.model > 1:  # the slices' shares of the per-head scales, and the stop request
+            all_reduce_sum([self.params[n].grad for n in self.sliced] + [stop],
+                           lay.model_group)
+        all_reduce_mean([p.grad for p in params] + ([stop] if lay.data > 1 else []),
+                        lay.data_group)
         clamp_grads(params)
-        gnorm = global_norm(params)
+        gnorm = global_norm(params, [self.params[n] for n in self.shards], lay.model_group)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_fn(self.updates, group["base_lr"])
         self.optimizer.step()
@@ -351,7 +404,7 @@ class Trainer:
         ema_update(self.ema, self.params, self.nimg, float(self.global_batch_size),
                    self.ema_halflife_kimg, self.ema_rampup_ratio)
         self.nimg += self.global_batch_size
-        self.stopping = bool(stop.item()) if self.world > 1 else self.stop_requested
+        self.stopping = bool(stop.item()) if many else self.stop_requested
         return gnorm
 
     def step(self, batch: dict, steps: int = 1) -> dict:
@@ -487,7 +540,7 @@ class Trainer:
                 # block for real timing at tick boundaries only; the loss is
                 # the mean over the ranks, the gradient norm already global
                 loss = metrics_dev["loss"].detach().float().clone()
-                all_reduce_mean([loss])
+                all_reduce_mean([loss], self.layout.data_group)
                 metrics_host = {"loss": float(loss), "grad_norm": float(metrics_dev["grad_norm"])}
                 dt_step = time.perf_counter() - t0
                 if (self.val_ticks is not None and val_batches is not None
@@ -540,8 +593,7 @@ class Trainer:
                     and (done or (cur_tick % self.checkpoint_ticks == 0 and cur_tick != 0))
                 )
                 if want_ckpt:
-                    if is_main_process():
-                        self.save_checkpoint(global_nimg)
+                    self.save_checkpoint(global_nimg)
                     barrier()
 
                 cur_tick += 1
@@ -598,11 +650,25 @@ class Trainer:
         return path
 
     def save_checkpoint(self, cur_nimg: int) -> str:
+        """Rank 0 writes the checkpoint in one process's layout; under tensor
+        parallelism the model ranks of its data row gather it first (every
+        rank calls this)."""
         path = os.path.join(self.run_dir, "checkpoints",
                             f"checkpoint-{int(cur_nimg) // 1000:06d}.npz")
-        logger.info(f"Saving checkpoint: {path}")
-        save_checkpoint(path, self.ema, self.depth, params=self.net.state_dict(),
-                        opt_state=optimizer_state_arrays(self.optimizer, self.params))
+        if self.layout.data_rank != 0 or not (self.shards or is_main_process()):
+            return path
+        params, ema = self.net.state_dict(), self.ema
+        opt = optimizer_state_arrays(self.optimizer, self.params)
+        if self.shards:
+            group = self.layout.model_group
+            params = gather_state_dict(params, self.shards, group)
+            ema = gather_state_dict(ema, self.shards, group)
+            opt = {k: v.numpy() for k, v in gather_state_dict(
+                {k: torch.from_numpy(v) for k, v in opt.items()}, self._opt_shards(opt),
+                group).items()}
+        if is_main_process():
+            logger.info(f"Saving checkpoint: {path}")
+            save_checkpoint(path, ema, self.depth, params=params, opt_state=opt)
         return path
 
 

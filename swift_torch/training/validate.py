@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from swift_torch.data.standardize import Standardizer
-from swift_torch.parallel.mesh import rank, world_size
+from swift_torch.parallel.mesh import data_group, data_rank, data_size
 from swift_torch.utils.device import resolve_device
 from swift_torch.utils.stats import sum_over_ranks
 
@@ -144,8 +144,9 @@ def _score(rollout, batches, dataset, target_interval: int, device, num_batches,
         count += 1
         if num_batches is not None and count >= num_batches:
             break
-    if world_size() > 1:  # the sums and counts of every rank
-        packed = sum_over_ranks(np.concatenate([[agg_total, count], arr_total.reshape(-1)]))
+    if data_size() > 1:  # the sums and counts of every data rank (model ranks score alike)
+        packed = sum_over_ranks(np.concatenate([[agg_total, count], arr_total.reshape(-1)]),
+                                data_group())
         agg_total, count = float(packed[0]), int(packed[1])
         arr_total = packed[2:].reshape(arr_total.shape).astype(np.float32)
     return agg_total / count, arr_total / count
@@ -199,7 +200,7 @@ def main(argv=None, dataset=None):
     from swift_torch.data.samplers import AttributeSubset
     from swift_torch.generate import load_weights
     from swift_torch.sampling.factory import sampler_factory
-    from swift_torch.parallel.mesh import maybe_initialize_distributed
+    from swift_torch.parallel.mesh import init_layout, maybe_initialize_distributed
     from swift_torch.utils.checkpoint import latest_checkpoint
     from swift_torch.utils.log import log0
 
@@ -217,6 +218,7 @@ def main(argv=None, dataset=None):
     args = p.parse_args(argv)
 
     maybe_initialize_distributed(args.device)
+    init_layout(1)  # one replica a rank, whatever the run's mesh
     device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
@@ -225,7 +227,7 @@ def main(argv=None, dataset=None):
     n = len(dataset) if args.samples == -1 else args.samples
     strt = random.Random(args.seed).randint(0, max(len(dataset) - n, 0))
     # this rank's items: every world-th of the window
-    subset = AttributeSubset(dataset, list(range(strt + rank(), strt + n, world_size())))
+    subset = AttributeSubset(dataset, list(range(strt + data_rank(), strt + n, data_size())))
 
     net = factory.build_precond(cfg["precond"], cfg["model"], dataset.img_resolution,
                                 dataset.n_target_channels, dataset.n_condition_channels,
@@ -242,7 +244,7 @@ def main(argv=None, dataset=None):
             yield (np.stack([c[0] for c in chunk]), np.stack([c[1] for c in chunk]),
                    np.asarray([c[2] for c in chunk]))
 
-    gen = torch.Generator(device=device).manual_seed(args.seed * world_size() + rank())
+    gen = torch.Generator(device=device).manual_seed(args.seed * data_size() + data_rank())
     agg, arr = RMSE_rollout(sampler, batches(), dataset, args.target_interval, gen,
                             device=device)
     log0(f"aggregate rmse: {agg}")

@@ -17,17 +17,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from swift_torch.parallel.mesh import rank, world_size
+from swift_torch.parallel.mesh import group_size, rank
 
 
-def sum_over_ranks(table: np.ndarray) -> np.ndarray:
-    """``table`` summed over the ranks (every rank passes one of the same
-    shape); the table itself for a process alone."""
-    if world_size() == 1:
+def sum_over_ranks(table: np.ndarray, group=None) -> np.ndarray:
+    """``table`` summed over the ranks of ``group`` (every rank by default;
+    each passes one of the same shape); the table itself for a group of
+    one."""
+    if group_size(group) == 1:
         return table
     device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     t = torch.from_numpy(np.ascontiguousarray(table)).to(device)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t.cpu().numpy()
 
 
@@ -40,19 +41,21 @@ def _bits_sum(t: torch.Tensor) -> int:
     return int(t.to(torch.int64).sum())
 
 
-def check_replica_consistency(tensors: Iterable[torch.Tensor], name: str = "params") -> bool:
-    """True when every rank holds the same bits in ``tensors`` (the same
-    tensors in the same order on each rank); raises AssertionError naming
-    the first tensor that differs. Each rank writes its checksums into its
-    row of a (world, n) table that one ``all_reduce`` fills in on every
-    rank. True at once for a process alone."""
-    world = world_size()
+def check_replica_consistency(tensors: Iterable[torch.Tensor], name: str = "params",
+                              group=None) -> bool:
+    """True when every rank of ``group`` (every rank by default) holds the
+    same bits in ``tensors`` (the same tensors in the same order on each
+    rank); raises AssertionError naming the first tensor that differs. Each
+    rank writes its checksums into its row of a (group size, n) table that
+    one ``all_reduce`` fills in on every rank. True at once for a group of
+    one."""
+    world = group_size(group)
     if world == 1:
         return True
     sums = [_bits_sum(t) for t in tensors]
     table = np.zeros((world, len(sums)), np.int64)
-    table[rank()] = sums
-    table = sum_over_ranks(table)
+    table[rank() if group is None else dist.get_group_rank(group, rank())] = sums
+    table = sum_over_ranks(table, group)
     differ = np.flatnonzero(~np.all(table == table[0], axis=0))
     if differ.size:
         raise AssertionError(f"replica mismatch in {name}: {differ.size} of {len(sums)} "
