@@ -216,7 +216,22 @@ Phases, each printed as it finishes:
    ``TP_*`` limits); the flagship run's checkpoint (one process's layout)
    forecast by ``generate.main`` on one process; prints each rank's step
    walls, the time in the model group's all-reduces and in Muon, and the
-   peak memory, beside one process's.
+   peak memory, beside one process's;
+18. pp: pipeline parallelism, two ranks sharing the card over gloo
+   (``python chip_smoke.py --pp-rank``, data 1 x pipe 2, a stage a rank):
+   the flagship's pipelined forward at full width and depth (3 pairs a
+   stage, batch 4) in 2 and 4 microbatches and its int8 forward in 2, a
+   depth-4 cut's forward and backward of mean(y^2) (batch 2, 2
+   microbatches), then ``generate.main`` with ``--pp 2`` and of a run whose
+   saved config carries ``system=tpu-pp``, from a checkpoint of the cut the
+   phase saves: exact launches a stage in each pass (6·M of each forward
+   kernel a forward), every rank's output equal to one process's forward of
+   each microbatch bit for bit (bf16 and int8) and within ``PP_WHOLE_TOL``
+   of the whole batch's, the gradients (the replicated parameters' summed
+   over the stages) within the ``PP_*`` limits of one process's, the
+   stores within ``PP_STORE_TOL`` of one process's; prints each rank's
+   walls, the stage transfers' time and the peak memory beside one
+   process's.
 
 The 1.4° paths launch none of kernels 10 and 15-17, the bf16 paths none of
 18 and 19, the paths on 256-token windows and d <= 128 none of 21 and 22.
@@ -318,6 +333,7 @@ from swift_torch.ops.modnorm import (
     reference_modnorm_residual,
     reference_modnorm_residual_tangent,
 )
+from swift_torch.parallel import pipeline
 from swift_torch.ops.window_attention import (
     reference_sdpa,
     reference_sdpa_bwd,
@@ -558,6 +574,25 @@ TP_RUNS = (
 TP_ROLLOUT = dict(members=1, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
                   solver="scm", num_solver_steps=1, dump="zarr")
 TP_WORKER = [sys.executable, os.path.abspath(__file__), "--tp-rank"]
+# the pipeline-parallel phase: data 1 x pipe 2, two ranks sharing the card over gloo. (a) the
+# flagship forward (depth 12, 3 pairs a stage) at batch 4 in 2 and 4 microbatches, (b) its int8
+# forward in 2, (c) gradients of mean(y^2) at a depth-4 cut, batch 2, 2 microbatches, (d)
+# generate --pp 2 of the depth-4 cut's checkpoint and of a run whose config carries the pipe
+# axis (PP_ROLLOUT's members a data row). Each rank's output is one process's forward of each
+# microbatch bit for bit; limits stated in PERF.md before the first run on the card: the
+# gradients' loss and norm as the TP_* limits and the whole gradient's relative L2 distance
+# from one process's, the stores as DP's; the output against one process's whole-batch forward
+# (of max|y|) set from the spread of one process's own forward of each microbatch against the
+# whole batch's, measured on the card: 0 at M = 2, 1.136e-2 at M = 4 (microbatches of one)
+PP = dict(world=2, pipe=2, timeout=600, backend="gloo", share_card=True)
+PP_BATCH, PP_MICRO = 4, (2, 4)
+PP_GRAD = dict(depth=4, batch=2, micro=2)
+PP_WHOLE_TOL = 5e-2
+PP_LOSS_TOL, PP_GNORM_TOL, PP_GRAD_TOL = TP_LOSS_TOL, TP_GNORM_TOL, 5e-2
+PP_STORE_TOL = DP_STORE_TOL
+PP_ROLLOUT = dict(members=2, batch=1, samples=1, steps=2, interval=6, segment=2, seed=0,
+                  solver="scm", num_solver_steps=1, dump="zarr")
+PP_WORKER = [sys.executable, os.path.abspath(__file__), "--pp-rank"]
 WORK = os.path.join(ROOT, ".smoke")  # git-ignored; removed at the end
 
 
@@ -3931,6 +3966,326 @@ def phase_tp(card: str) -> dict:
     return ranks[0]["runs"]["flagship"]["launches"]
 
 
+def pp_stage_launches(per_pass: dict, depth: int, micro: int) -> dict:
+    """A stage's launches in one pipelined pass of ``micro`` microbatches,
+    from a pass of the 12-block flagship (``FORWARD_PASS``,
+    ``TRIGFLOW_PASS``, ``INT8_FORWARD``): its depth / 2 blocks, once a
+    microbatch."""
+    return {name: n // 12 * (depth // PP["pipe"]) * micro for name, n in per_pass.items()}
+
+
+def pp_inputs(batch: int, seed: int):
+    """The network's input x (B, H, W, 2·C + F), t and the interval's
+    auxiliary, from a numpy seed, on the card."""
+    rng = np.random.default_rng(seed)
+    channels = 2 * len(VARIABLES) + len(FORCINGS)
+    x = rng.standard_normal((batch, *RESOLUTION, channels), dtype=np.float32)
+    t = rng.uniform(0.2, 1.4, batch).astype(np.float32)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(t).cuda(),
+            torch.full((batch, 1), 0.6).cuda())
+
+
+def pp_net(depth: int, seed: int, stage=None):
+    """The flagship precond at ``depth`` with ``random_weights(seed)``, whole
+    or pipeline stage ``stage`` = (S, s) of it, on the card."""
+    full = build_net(depth, torch.bfloat16)
+    random_weights(full, seed)
+    if stage is None:
+        return full.cuda().eval()
+    net = factory.build_precond(PRECOND, {**MODEL, "depth": depth}, RESOLUTION, len(VARIABLES),
+                                len(VARIABLES) + len(FORCINGS), pipe_stage=stage)
+    net.load_state_dict(pipeline.stage_state_dict(full.state_dict(), depth, *stage))
+    return net.cuda().eval()
+
+
+def pp_run_dirs(work: str) -> tuple[str, str]:
+    """Two run directories of the depth-4 cut's weights (``PP_GRAD``'s, seed
+    1): the flagship experiment's config as composed, and the same with
+    ``system=tpu-pp`` (its pipe axis for ``generate`` to pick up)."""
+    net = build_net(PP_GRAD["depth"], torch.bfloat16)
+    random_weights(net, 1)
+    runs = []
+    for name, extra in (("run", ()), ("run-pp", ("system=tpu-pp",))):
+        model = (f"model.{k}={v}".replace(" ", "") for k, v in MODEL.items() if k != "_target_")
+        cfg = cfglib.compose("train", [f"experiment={SCM_EXPERIMENT}", *model,
+                                       f"model.depth={PP_GRAD['depth']}", *extra])
+        run = os.path.join(work, name)
+        cfglib.save_config(cfg, os.path.join(run, ".hydra", "config.yaml"))
+        ckpt = os.path.join(run, "checkpoints", "checkpoint-000000.npz")
+        if not runs:
+            save_checkpoint(ckpt, net.state_dict(), depth=PP_GRAD["depth"])
+        else:
+            os.makedirs(os.path.dirname(ckpt))
+            os.symlink(os.path.join(runs[0], "checkpoints", os.path.basename(ckpt)), ckpt)
+        runs.append(run)
+    return runs[0], runs[1]
+
+
+def pp_rollout_args(run_dir: str, out: str, world: int, *extra: str) -> argparse.Namespace:
+    """``PP_ROLLOUT``'s members a data row of ``world`` ranks (the pipe's
+    microbatches take its rows)."""
+    rollout = {**PP_ROLLOUT, "members": PP_ROLLOUT["members"] * (world // PP["pipe"])}
+    return generate.parser.parse_args(["--input", run_dir, "--output", out, *extra] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in rollout.items()])
+
+
+def pp_worker() -> int:
+    """One rank of the pipeline-parallel phase (``python chip_smoke.py
+    --pp-rank``, launched by ``phase_pp`` with the ``SWIFT_*`` env), data 1
+    x pipe 2: (a) the flagship's pipelined forward in each of ``PP_MICRO``
+    microbatches, (b) its int8 forward, (c) a depth-4 cut's forward and
+    backward, each with its launches counted, its wall and the stage
+    transfers' (synchronised timers), and its peak memory, (d)
+    ``generate.main`` with ``--pp 2`` and of the run whose config has the
+    pipe axis. Writes the outputs and this stage's gradients to
+    ``<WORK>/pp/`` and what it saw to ``<WORK>/pp/rank<r>.json``."""
+    from swift_torch.parallel import mesh
+    from swift_torch.utils.device import resolve_device
+
+    card = phase_environment()
+    work = os.path.join(WORK, "pp")
+    os.chdir(os.path.join(work, "ranks"))
+    mesh.maybe_initialize_distributed("cuda")
+    device = resolve_device("cuda")
+    lay = mesh.init_layout(pipe=PP["pipe"])
+    mesh.build_kernels_first(device)
+    r, S, s = mesh.rank(), lay.pipe, lay.pipe_rank
+    spent: dict = {}
+    pipeline.transfer = _synced(pipeline.transfer, spent, "transfer")
+    result = {"card": card, "rank": r, "layout": [lay.data, lay.pipe, lay.data_rank, s],
+              "runs": {}}
+
+    def run(tag: str, net, x, t, aux, micro: int, grads: bool = False, reps: int = 3):
+        """The pipelined pass (forward, or forward and backward of
+        mean(y^2)): its launches the first time, its median wall and
+        transfer time over ``reps`` more, the peak memory."""
+        walls, moved = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(reps + 1):
+            if grads:
+                net.zero_grad(set_to_none=True)
+            mesh.barrier()
+            torch.cuda.synchronize()
+            spent.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            with torch.set_grad_enabled(grads):
+                y = pipeline.pipelined_swinv2_forward(net.model, x, t, aux, n_micro=micro)
+                if grads:
+                    loss = (y ** 2).mean()
+                    loss.backward()
+                    pipeline.reduce_replicated_grads(net)
+            torch.cuda.synchronize()
+            if i == 0:
+                launches = read_launches()
+            else:
+                walls.append(time.perf_counter() - t0)
+                moved.append(spent.get("transfer", 0.0))
+        result["runs"][tag] = {"launches": launches, "wall_s": walls, "transfer_s": moved,
+                               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        torch.save(y.detach().cpu(), os.path.join(work, f"y-{tag}.rank{r}.pt"))
+        if grads:
+            result["runs"][tag]["loss"] = loss.item()
+            first = net.model.first_layer
+            out = {}
+            for name, p in net.named_parameters():
+                parts = name.split(".")
+                if parts[1:3] == ["transformer", "layers"]:
+                    parts[3] = str(int(parts[3]) + first)
+                elif s:  # the replicated parameters' gradients from stage 0 (alike on each)
+                    continue
+                out[".".join(parts)] = p.grad.detach().cpu()  # zeros where no stage used it
+            torch.save(out, os.path.join(work, f"grads-{tag}.rank{r}.pt"))
+
+    x, t, aux = pp_inputs(PP_BATCH, 5)
+    net = pp_net(MODEL["depth"], 0, (S, s))
+    for micro in PP_MICRO:
+        with torch.no_grad():
+            run(f"m{micro}", net, x, t, aux, micro)
+    set_quant(net, "int8")
+    with torch.no_grad():
+        run("int8", net, x, t, aux, PP_MICRO[0])
+    del net
+    torch.cuda.empty_cache()
+    gx, gt, gaux = pp_inputs(PP_GRAD["batch"], 6)
+    net = pp_net(PP_GRAD["depth"], 1, (S, s))
+    run("grads", net, gx, gt, gaux, PP_GRAD["micro"], grads=True)
+    del net
+    torch.cuda.empty_cache()
+
+    dataset = dp_dataset()
+    for tag, run_name, extra in (("generate", "run", ("--pp", "2")),
+                                 ("generate-config", "run-pp", ())):
+        reset_launches()
+        t0 = time.perf_counter()
+        ofile = generate.main(pp_rollout_args(os.path.join(work, run_name),
+                                              os.path.join(work, tag), mesh.world_size(),
+                                              *extra), dataset)
+        torch.cuda.synchronize()
+        result["runs"][tag] = {"store": ofile, "wall_s": time.perf_counter() - t0,
+                               "launches": read_launches()}
+    with open(os.path.join(work, f"rank{r}.json"), "w") as f:
+        json.dump(result, f)
+    mesh.barrier()
+    return 0
+
+
+def phase_pp(card: str) -> dict:
+    """Pipeline parallelism on the card: two ranks (data 1 x pipe 2) sharing
+    it over gloo, after this process built the kernels and wrote the depth-4
+    cut's run directories (``pp_worker``); then one process on the same
+    inputs and weights. Fails unless each rank launched its stage's exact
+    counts in each pass, every rank's output equals one process's forward of
+    each microbatch bit for bit (bf16 and int8), the output lies within
+    ``PP_WHOLE_TOL`` of the whole batch's, the gradients within the
+    ``PP_*`` limits of one process's, and both ``generate`` stores within
+    ``PP_STORE_TOL`` of one process's. Returns rank 0's launches in the
+    flagship forward at the first of ``PP_MICRO``."""
+    tag = "pp"
+    work = os.path.join(WORK, tag)
+    os.makedirs(os.path.join(work, "ranks"))
+    t0 = time.perf_counter()
+    run_dir, _ = pp_run_dirs(work)
+    setup_s = time.perf_counter() - t0
+    ranks = run_ranks(work, PP, PP_WORKER, "pp", tag)
+    ranks_s = time.perf_counter() - t0 - setup_s
+    depth = MODEL["depth"]
+    for res in ranks:
+        runs, r = res["runs"], res["rank"]
+        for micro in PP_MICRO:
+            _exact(runs[f"m{micro}"]["launches"], pp_stage_launches(FORWARD_PASS, depth, micro), 1,
+                   f"{tag}-m{micro}-rank{r}")
+        _exact(runs["int8"]["launches"], pp_stage_launches(INT8_FORWARD, depth, PP_MICRO[0]), 1,
+               f"{tag}-int8-rank{r}")
+        _exact(runs["grads"]["launches"],
+               pp_stage_launches(TRIGFLOW_PASS, PP_GRAD["depth"], PP_GRAD["micro"]), 1,
+               f"{tag}-grads-rank{r}")
+        for gen in ("generate", "generate-config"):
+            missing = [k for k in FORWARD if not runs[gen]["launches"][k]]
+            if missing:
+                raise AssertionError(f"[{tag}] rank {r}'s {gen} never launched {missing}")
+    where = "sharing the card" if PP["share_card"] else "a card each"
+    log(f"[{tag}] {PP['world']} ranks {where} ({PP['backend']}), data "
+        f"{PP['world'] // PP['pipe']} x pipe {PP['pipe']}: exact launches a stage in every "
+        f"pass ({depth // PP['pipe']} blocks a stage, once a microbatch; kernels 18 and 19 in the int8 pass; 6, 8, 9, 13 behind the "
+        f"depth-{PP_GRAD['depth']} cut's backward); set-up {setup_s:.1f} s, ranks "
+        f"{ranks_s:.1f} s")
+
+    # one process: each microbatch's forward and the whole batch's, on the same weights
+    x, t, aux = pp_inputs(PP_BATCH, 5)
+    net = pp_net(depth, 0)
+    for case in [f"m{m}" for m in PP_MICRO] + ["int8"]:
+        micro = PP_MICRO[0] if case == "int8" else int(case[1:])
+        set_quant(net, "int8" if case == "int8" else None)
+        mb = PP_BATCH // micro
+        with torch.no_grad():
+            want = torch.cat([net.model(x[i:i + mb], t[i:i + mb], aux[i:i + mb])
+                              for i in range(0, PP_BATCH, mb)]).cpu()
+            whole = net.model(x, t, aux).cpu()
+            one_ms = time_ms(lambda: net.model(x, t, aux), reps=5)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            net.model(x, t, aux)
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        for res in ranks:
+            got = torch.load(os.path.join(work, f"y-{case}.rank{res['rank']}.pt"))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[{tag}-{case}] rank {res['rank']}'s output differs from "
+                                     f"one process's forward of each microbatch: max "
+                                     f"{(got - want).abs().max().item():.3e}")
+        spread = ((want - whole).abs().max() / whole.abs().max()).item()
+        log(f"[{tag}-{case}] batch {PP_BATCH} in {micro} microbatches: every rank's output "
+            f"equals one process's forward of each microbatch bit for bit; against the whole "
+            f"batch's forward {spread:.3e} of max|y| (limit {PP_WHOLE_TOL})")
+        for res in ranks:
+            got = res["runs"][case]
+            log(f"[{tag}-{case}] rank {res['rank']}: pipelined forward walls "
+                f"{[f'{w:.4f}' for w in got['wall_s']]} s, of which the stage transfers "
+                f"{[f'{w:.4f}' for w in got['transfer_s']]} s; peak {got['peak_gib']:.2f} GiB "
+                f"({card})")
+        log(f"[{tag}-{case}] 1 process: the whole batch's forward {one_ms:.3f} ms (CUDA events), "
+            f"peak {one_peak:.2f} GiB ({card})")
+        if spread > PP_WHOLE_TOL:
+            raise AssertionError(f"[{tag}-{case}] the pipelined output differs from the whole "
+                                 "batch's beyond the limit")
+    del net
+    torch.cuda.empty_cache()
+
+    # the gradients: one process on the whole batch, and on each microbatch in turn
+    gx, gt, gaux = pp_inputs(PP_GRAD["batch"], 6)
+    got = {}
+    for res in ranks:
+        got.update(torch.load(os.path.join(work, f"grads-grads.rank{res['rank']}.pt")))
+    net = pp_net(PP_GRAD["depth"], 1)
+    n_out = gx.shape[0] * np.prod(RESOLUTION) * len(VARIABLES)
+    mb = PP_GRAD["batch"] // PP_GRAD["micro"]
+    for i in range(0, PP_GRAD["batch"], mb):
+        y = net.model(gx[i:i + mb], gt[i:i + mb], gaux[i:i + mb])
+        ((y ** 2).sum() / n_out).backward()
+    grads = lambda: {n: p.grad.detach().cpu() if p.grad is not None  # noqa: E731
+                     else torch.zeros(p.shape) for n, p in net.named_parameters()}
+    parts = grads()
+    net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = (net.model(gx, gt, gaux) ** 2).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    loss = loss.item()
+    one = grads()
+    if sorted(got) != sorted(one):
+        raise AssertionError(f"[{tag}-grads] the stages' gradients cover other parameters")
+    # a stage's blocks see one process's inputs; the conditioning MLP's gradient sums the
+    # stages' shares of d(cond) in another order than one process's backward
+    same = [n for n in one if torch.equal(got[n], parts[n])]
+    other = sorted({n.split(".")[1] for n in one if n not in same})
+    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum() for v in g.values())))  # noqa
+    diff = norm({n: got[n] - one[n] for n in one}) / norm(one)
+    gnorm_err = abs(norm(got) - norm(one)) / norm(one)
+    r0 = ranks[0]["runs"]["grads"]
+    loss_err = abs(r0["loss"] - loss) / abs(loss)
+    log(f"[{tag}-grads] depth-{PP_GRAD['depth']} cut, batch {PP_GRAD['batch']} in "
+        f"{PP_GRAD['micro']} microbatches, mean(y^2): loss {r0['loss']:.6g} vs 1 process "
+        f"{loss:.6g}: {loss_err:.3e} (limit {PP_LOSS_TOL}); gradient norm {norm(got):.6g}"
+        f" vs {norm(one):.6g}: {gnorm_err:.3e} (limit {PP_GNORM_TOL}); |g - g_one| / |g_one| "
+        f"{diff:.3e} (limit {PP_GRAD_TOL}); bit for bit one process's backward of each "
+        f"microbatch: {len(same)} of {len(one)} tensors (the others under {other})")
+    for res in ranks:
+        g = res["runs"]["grads"]
+        log(f"[{tag}-grads] rank {res['rank']}: forward and backward walls "
+            f"{[f'{w:.4f}' for w in g['wall_s']]} s, of which the stage transfers "
+            f"{[f'{w:.4f}' for w in g['transfer_s']]} s; peak {g['peak_gib']:.2f} GiB; 1 process "
+            f"{one_s:.4f} s ({card})")
+    if loss_err > PP_LOSS_TOL or gnorm_err > PP_GNORM_TOL or diff > PP_GRAD_TOL:
+        raise AssertionError(f"[{tag}-grads] the pipelined gradients and one process's differ "
+                             "beyond the limits")
+    del net, got, one, parts
+    torch.cuda.empty_cache()
+
+    # generate: one process's store of the same checkpoint
+    args = pp_rollout_args(run_dir, os.path.join(work, "one"), PP["world"], "--pp", "1")
+    ofile = generate.main(args, dp_dataset())
+    check_store(ofile, {**PP_ROLLOUT, "members": args.members}, RESOLUTION, tag)
+    want = read_store(ofile)
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    for gen in ("generate", "generate-config"):
+        store = read_store(ranks[0]["runs"][gen]["store"])
+        if sorted(store) != sorted(want):
+            raise AssertionError(f"[{tag}-{gen}] the store holds {sorted(store)}")
+        err = max(float(np.abs(store[k] - want[k]).max()) for k in want)
+        same = all(np.array_equal(store[k], want[k]) for k in want)
+        walls = [f"{res['runs'][gen]['wall_s']:.1f}" for res in ranks]
+        log(f"[{tag}-{gen}] {args.members} members x {PP_ROLLOUT['samples']} IC x "
+            f"{PP_ROLLOUT['steps']} steps on {PP['world']} ranks: the store within "
+            f"{err / scale:.3e} of max|store| of one process's (limit {PP_STORE_TOL}), bit for bit: {same}; ranks' "
+            f"walls {walls} s")
+        if err > PP_STORE_TOL * scale:
+            raise AssertionError(f"[{tag}-{gen}] the pipelined store differs from one "
+                                 "process's")
+    return ranks[0]["runs"][f"m{PP_MICRO[0]}"]["launches"]
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """Every kernel wrapper takes its plain PyTorch version for CUDA tensors
@@ -4008,6 +4363,7 @@ def main() -> int:
         d160 = timed("d160", phase_d160, card)
         dp = timed("dp", phase_dp, card)
         tp = timed("tp", phase_tp, card)
+        pp = timed("pp", phase_pp, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     log(f"[time] all phases: {time.perf_counter() - t0:.1f} s")
@@ -4015,7 +4371,8 @@ def main() -> int:
         f"{trigflow} (with online validation {val}), sCM training {launches}, 0.25° forecast {quarter_forecast}, 0.25° sCM "
         f"training {quarter}, synthetic-tiny-scm training {tiny}, 8x8-window forecast "
         f"{win8_forecast} and sCM training {win8}, d = 160 forward {d160}, data-parallel sCM "
-        f"training (rank 0) {dp}, tensor-parallel sCM training (rank 0) {tp}")
+        f"training (rank 0) {dp}, tensor-parallel sCM training (rank 0) {tp}, "
+        f"pipeline-parallel forward (stage 0 of 2, {PP_MICRO[0]} microbatches) {pp}")
     # each kernel's launches on its main path: the 1.4° sCM step, the 0.25° one, the int8
     # forecast, the 8x8-window sCM step (21, 22b, 22t), or kernel 20's own entry point
     main_path = {**{k: quarter for k in QUARTER_KERNELS}, **{k: int8 for k in INT8_KERNELS},
@@ -4039,5 +4396,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    workers = {"--dp-rank": dp_worker, "--tp-rank": tp_worker}
+    workers = {"--dp-rank": dp_worker, "--tp-rank": tp_worker, "--pp-rank": pp_worker}
     sys.exit(workers[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in workers else main())

@@ -6,11 +6,14 @@ per-head phases (kernel 20's entry,
 ``--int8``, the 8x8-window forecast, sCM steps and cuts, the d = 160
 forward), its data-parallel phase (two gloo ranks of this script,
 ``--dp-rank``, and one process) and its tensor-parallel phase (two gloo
-ranks, ``--tp-rank``, data 1 x model 2, and one process) on the CPU.
+ranks, ``--tp-rank``, data 1 x model 2, and one process) on the CPU; its
+pipeline-parallel phase (two gloo ranks, ``--pp-rank``, data 1 x pipe 2,
+and one process) alone with ``--pp``.
 
     python scripts/rehearse_smoke.py
     python scripts/rehearse_smoke.py --tp [world]   # the tensor-parallel phase alone
     python scripts/rehearse_smoke.py --tp-spread    # its tiny run's spread, six seeds
+    python scripts/rehearse_smoke.py --pp [world]   # the pipeline-parallel phase alone
 
 The kernels run only on a GPU, so this drives the smoke's own phase
 functions with every wrapper on its plain PyTorch version at a tiny width
@@ -350,6 +353,35 @@ def tp_spread(seeds=range(6)) -> None:
               f"{max(r[key] for r in rows):.3e}")
 
 
+def pp_at_width_48() -> None:
+    """The pipeline-parallel phase at width 48 (6 heads of 8 on 16x16
+    windows, the whole-grid route) on a 32x64 grid on the CPU, in the
+    phase's process and in its ranks (this script with ``--pp-rank``): the
+    forward wrappers count their calls, the phase's exact launch counts are
+    not read (the kernels count nothing on the CPU)."""
+    import swift_torch.utils.device as device
+
+    cs.RESOLUTION = (32, 64)
+    cs.MODEL = {**cs.MODEL, **TP_FLAGSHIP}
+    cs.PP_ROLLOUT = {**cs.PP_ROLLOUT, "device": "cpu"}
+    cs.PP_WORKER = [sys.executable, os.path.abspath(__file__), "--pp-rank"]
+    cs.phase_environment = lambda: "CPU rehearsal"
+    cs._exact = lambda launches, want, times, tag: print(f"[rehearsal] {tag}: exact launches "
+                                                          "not read on the CPU")
+    cs.generate.resolve_device = device.resolve_device = lambda name: torch.device("cpu")
+    main, generator = cs.generate.main, torch.Generator
+
+    def main_on_cpu(*args, **kwargs):  # the engine's generators on the CPU
+        torch.Generator = lambda device=None: generator()
+        try:
+            return main(*args, **kwargs)
+        finally:
+            torch.Generator = generator
+
+    cs.generate.main = main_on_cpu
+    count_calls()
+
+
 def main() -> None:
     read_launches = cs.read_launches
     stub_the_card()
@@ -409,6 +441,19 @@ if __name__ == "__main__":
         stub_the_card()
         tp_at_width_48()
         sys.exit(cs.tp_worker())
+    if sys.argv[1:] == ["--pp-rank"]:
+        stub_the_card()
+        pp_at_width_48()
+        sys.exit(cs.pp_worker())
+    if sys.argv[1:2] == ["--pp"]:  # the pipeline-parallel phase alone, [world] ranks
+        stub_the_card()
+        pp_at_width_48()
+        if sys.argv[2:]:  # data world/2 x pipe 2
+            cs.PP["world"] = int(sys.argv[2])
+        try:
+            sys.exit(cs.phase_pp("CPU rehearsal") and 0)
+        finally:
+            shutil.rmtree(cs.WORK, ignore_errors=True)
     if sys.argv[1:] == ["--tp-spread"]:  # the tiny TP run's spread over six seeds
         stub_the_card()
         try:

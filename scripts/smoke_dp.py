@@ -1,13 +1,16 @@
-"""``chip_smoke.py``'s data-parallel or tensor-parallel phase alone, after the build.
+"""``chip_smoke.py``'s data-, tensor- or pipeline-parallel phase alone, after the build.
 
     python scripts/smoke_dp.py                               # 2 ranks share the card, gloo
     python scripts/smoke_dp.py --world 4 --backend nccl      # a card a rank (4 cards)
     python scripts/smoke_dp.py --phase tp                    # data 1 x model 2, gloo
     python scripts/smoke_dp.py --phase tp --world 4 --backend nccl  # data 2 x model 2
+    python scripts/smoke_dp.py --phase pp                    # data 1 x pipe 2, gloo
+    python scripts/smoke_dp.py --phase pp --world 4 --backend nccl  # data 2 x pipe 2
 
 Runs ``phase_environment``, ``phase_build`` and ``phase_dp`` (with
-``--phase tp``: ``phase_tp``, ``chip_smoke.TP`` in place of DP) with
-``chip_smoke.DP`` set from the flags; each rank's log and result are
+``--phase tp``: ``phase_tp``, ``chip_smoke.TP`` in place of DP; with
+``--phase pp``: ``phase_pp``, ``chip_smoke.PP``) with that spec set from
+the flags; each rank's log and result are
 copied into ``chiprun_out/`` (git-ignored) before the work directory goes.
 """
 
@@ -25,11 +28,12 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--phase", choices=["dp", "tp"], default="dp")
+    p.add_argument("--phase", choices=["dp", "tp", "pp"], default="dp")
     p.add_argument("--world", type=int)
     p.add_argument("--backend", choices=["gloo", "nccl"])
     args = p.parse_args()
-    spec = cs.DP if args.phase == "dp" else cs.TP
+    spec, phase = {"dp": (cs.DP, cs.phase_dp), "tp": (cs.TP, cs.phase_tp),
+                   "pp": (cs.PP, cs.phase_pp)}[args.phase]
     backend = args.backend or spec["backend"]
     spec.update(world=args.world or spec["world"], backend=backend,
                 share_card=backend == "gloo")
@@ -37,7 +41,7 @@ def main() -> int:
     cs.timed("build", cs.phase_build)
     out = os.path.join(cs.ROOT, "chiprun_out")
     try:
-        cs.timed(args.phase, cs.phase_dp if args.phase == "dp" else cs.phase_tp, card)
+        cs.timed(args.phase, phase, card)
     finally:
         os.makedirs(out, exist_ok=True)
         for f in glob.glob(os.path.join(cs.WORK, args.phase, "rank*.*")):

@@ -18,6 +18,12 @@ process's network and keeps this rank's slices of it, and
 Newton-Schulz work over the ranks, and gives MARS the slices, which it
 gathers for its whole-matrix norms and Newton-Schulz; AdamW is elementwise
 and runs on the slices as they are.
+
+For pipeline-parallel prediction (``generate --pp``) ``pipe_stage=(S, s)``
+builds stage s of S: the embeddings, the head and the stage's pairs only
+(``SwinV2(pipe_stages=S, pipe_stage=s)``), whose weights the caller loads
+(``parallel.pipeline.stage_state_dict``). Training under a pipe axis builds
+the whole network on every rank.
 """
 
 from __future__ import annotations
@@ -76,17 +82,22 @@ def build_rollout_dataset(data_cfg: dict, interval: int, split: str = "val") -> 
 
 def build_model(model_cfg: dict, img_resolution, in_channels: int, out_channels: int,
                 auxiliary_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
-                layout: Optional[Layout] = None) -> SwinV2:
+                layout: Optional[Layout] = None,
+                pipe_stage: Optional[tuple[int, int]] = None) -> SwinV2:
     """The SwinV2 of ``model_cfg``; with a ``layout`` of a model axis, this
     rank's part of it: one process's network is built (its initial weights
     drawn as one process draws them) and sliced
     (``parallel.sharding.shard_state_dict`` by its ``module_shards``), the
     global RNG left where one
-    process's build leaves it."""
+    process's build leaves it. ``pipe_stage`` (S, s): pipeline stage s of S,
+    its own initial weights (the caller loads the stage's)."""
     cfg = dict(model_cfg)
     target = _suffix(cfg.pop("_target_", "SwinV2"))
     if target != "SwinV2":
         raise ValueError(f"model target {target!r} is not ported (only SwinV2)")
+    if pipe_stage is not None:
+        return _swinv2(cfg, img_resolution, in_channels, out_channels, auxiliary_dim, dtype,
+                       pipe_stages=pipe_stage[0], pipe_stage=pipe_stage[1])
     full = _swinv2(cfg, img_resolution, in_channels, out_channels, auxiliary_dim, dtype)
     if layout is None or layout.model == 1:
         return full
@@ -123,7 +134,8 @@ def _swinv2(cfg: dict, img_resolution, in_channels, out_channels, auxiliary_dim,
 
 def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channels: int,
                   condition_channels: int, dtype: torch.dtype = torch.bfloat16,
-                  sigma_max_override: Optional[float] = None, layout: Optional[Layout] = None):
+                  sigma_max_override: Optional[float] = None, layout: Optional[Layout] = None,
+                  pipe_stage: Optional[tuple[int, int]] = None):
     cfg = dict(precond_cfg)
     target = _suffix(cfg.pop("_target_", "PassPrecond"))
     precond = {"PassPrecond": PassPrecond, "EDMPrecond": EDMPrecond}.get(target)
@@ -131,7 +143,8 @@ def build_precond(precond_cfg: dict, model_cfg: dict, img_resolution, img_channe
         raise ValueError(f"unknown precond target: {target}")
     auxiliary_dim = int(cfg.get("auxiliary_dim", 0))
     model = build_model(model_cfg, img_resolution, img_channels + condition_channels,
-                        img_channels, auxiliary_dim=auxiliary_dim, dtype=dtype, layout=layout)
+                        img_channels, auxiliary_dim=auxiliary_dim, dtype=dtype, layout=layout,
+                        pipe_stage=pipe_stage)
     return precond(
         model=model,
         img_resolution=tuple(img_resolution),

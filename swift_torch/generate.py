@@ -21,8 +21,18 @@ metadata after another; the store is the one-process store. A run
 trained with tensor parallelism (``system=tpu-tp``) forecasts the same
 way, data-parallel over every rank with its ``model`` axis ignored, as the
 JAX package's ``generate.py:223-233`` runs it: its checkpoint is in one
-process's layout. Not ported yet: ``--pp`` and a run config asking for
-pipeline parallelism (both raise).
+process's layout.
+
+``--pp S`` (or a run whose saved config has a ``pipe`` axis in
+``system.mesh``, -1 meaning the ranks that remain, with
+``system.pipeline.n_micro``; ``--pp 1`` turns it off) forecasts
+pipeline-parallel, as ``swift_tpu/generate.py:202-233`` does: the ranks
+form data × pipe (``make_mesh(("data", "pipe"), (-1, S))``'s order), the S
+consecutive ranks of a data row each hold one stage of the network (its
+pairs, ``parallel.pipeline``) and roll out that row's members together,
+``--pp-micro`` microbatches at a time; the first stage writes. Each stage
+is a process with its card, so S must divide the world. It composes with
+``--int8``.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from swift_torch.parallel.mesh import (
     maybe_initialize_distributed,
     world_size,
 )
+from swift_torch.parallel.pipeline import pipelined_precond, stage_state_dict
 from swift_torch.sampling.ensemble import EnsembleRollout
 from swift_torch.sampling.factory import sampler_factory
 from swift_torch.utils import zarr_lite
@@ -75,6 +86,16 @@ parser.add_argument("--int8", action="store_true",
                     help="Dynamically-quantized int8 qkv/FFN/wo matmuls for the "
                     "forecast. Accuracy-affecting: opt-in until a real-data "
                     "RMSE/CRPS A/B blesses it.")
+parser.add_argument("--pp", type=int, default=0,
+                    help="Pipeline-parallel stages for the solver net (0: the run's "
+                    "system.mesh pipe axis, if it has one; 1: off). Ranks split as "
+                    "(data=-1, pipe=PP), one card a stage; use when the model's layer stack "
+                    "outgrows one card's memory, otherwise data parallelism over members is "
+                    "faster.")
+parser.add_argument("--pp-micro", type=int, default=None,
+                    help="Microbatches per pipeline round-trip (default: the run's "
+                    "system.pipeline.n_micro, else PP); more microbatches shrink the "
+                    "(PP-1)/(M+PP-1) bubble; a data row's members*batch must divide by it")
 parser.add_argument("--output", type=str, default=None,
                     help="Output directory (default: <input>/output/<checkpoint>/)")
 parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
@@ -227,6 +248,32 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
     return load_checkpoint(path)
 
 
+def pipe_request(args, cfg: dict, world: int) -> tuple[int, int | None]:
+    """(stages, microbatches) of the forecast: ``--pp``, else the run's
+    ``system.mesh`` pipe axis (its size, -1 the ranks that remain, 2 when
+    the mesh gives no sizes) and ``system.pipeline.n_micro``; 1 is no
+    pipeline. Raises unless the stages divide the ``world``."""
+    pp, n_micro = args.pp, args.pp_micro
+    if not pp:
+        system = cfg.get("system") or {}
+        sys_mesh = system.get("mesh") or {}
+        axes = list(sys_mesh.get("axes") or [])
+        if "pipe" in axes:
+            sizes = [int(v) for v in sys_mesh.get("sizes") or []]
+            if sizes and len(sizes) != len(axes):
+                raise ValueError(f"system.mesh sizes {sizes} does not match axes {axes}")
+            pp = sizes[axes.index("pipe")] if sizes else 2
+            if pp == -1:
+                pp = world // int(np.prod([v for v in sizes if v != -1]))
+            if n_micro is None:
+                n_micro = (system.get("pipeline") or {}).get("n_micro")
+    pp = max(int(pp), 1)
+    if world % pp:
+        raise ValueError(f"{pp} pipeline stages need a multiple of {pp} ranks (one process and "
+                         f"card a stage); launched with {world}")
+    return pp, n_micro
+
+
 def main(args, dataset=None):
     """Forecast from a run directory. ``dataset``, when given, stands in for
     the test split the run's data config names (an in-memory
@@ -235,11 +282,13 @@ def main(args, dataset=None):
     from swift_torch import config as cfglib  # needs yaml
 
     maybe_initialize_distributed(args.device)
-    init_layout(1)  # one replica a rank: a run's model axis is not a forecast's
     device = resolve_device(args.device)
     cfg = cfglib.resolve_interpolations(
         cfglib.load_config(os.path.join(args.input, ".hydra", "config.yaml")))
     check_mesh(cfg)
+    pp, n_micro = pipe_request(args, cfg, world_size())
+    # one replica a rank, or a replica's stages: a run's model axis is not a forecast's
+    lay = init_layout(pipe=pp)
     build_kernels_first(device)
     if dataset is None:
         log0("Loading dataset...")
@@ -248,9 +297,10 @@ def main(args, dataset=None):
     log0("Constructing network...")
     if args.int8:
         cfg.setdefault("model", {})["quant"] = "int8"
+    stage = (pp, lay.pipe_rank) if pp > 1 else None
     net = factory.build_precond(
         cfg["precond"], cfg["model"], dataset.img_resolution, dataset.n_target_channels,
-        dataset.n_condition_channels, sigma_max_override=float("inf"),
+        dataset.n_condition_channels, sigma_max_override=float("inf"), pipe_stage=stage,
     )
     if args.checkpoint is not None:
         name = args.checkpoint
@@ -266,8 +316,16 @@ def main(args, dataset=None):
             raise ValueError(f"No checkpoints in {os.path.join(args.input, 'checkpoints')}")
         ckpt_basename = "latest"
     log0(f"Loading checkpoint: {ckpt}")
-    net.load_state_dict(load_weights(ckpt), strict=True)
+    weights = load_weights(ckpt)
+    if stage is not None:
+        weights = stage_state_dict(weights, net.model.depth, *stage)
+    net.load_state_dict(weights, strict=True)
     net = net.to(device).eval()
+    if stage is not None:
+        net = pipelined_precond(net, lay, n_micro=n_micro)
+        log0(f"Pipeline parallel: {pp} stages a replica ({lay.data} replicas), "
+             f"{net.model.depth // (2 * pp)} block pairs a stage, "
+             f"{n_micro or pp} microbatches")
 
     odir = args.output or os.path.join(args.input, "output", ckpt_basename)
     os.makedirs(odir, exist_ok=True)

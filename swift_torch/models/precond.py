@@ -9,6 +9,12 @@ broadcast the auxiliary (interval) conditioning. As an ``nn.Module`` each
 is also the ``net(x, t, condition, auxiliary)`` callable the solvers take,
 with the metadata they read (``sigma_min``, ``sigma_max``, ``sigma_data``,
 ``img_resolution``, ``img_channels``) and ``round_sigma``.
+
+A precond that carries a ``parallel.pipeline.PipelineSpec`` (``pipeline``,
+set by ``pipelined_precond``; the JAX ``BasePrecond.pipeline``) runs its
+model through ``pipelined_swinv2_forward``, so every solver engages
+pipeline parallelism unchanged; it takes the plain prediction call only
+(``jvp`` and ``return_logvar`` raise).
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from swift_torch.parallel.pipeline import pipelined_swinv2_forward
 
 
 def process_auxiliary(auxiliary, auxiliary_dim: int, batch_size: int,
@@ -52,6 +60,22 @@ class _Precond(nn.Module):
         self.condition_channels = condition_channels
         self.auxiliary_dim = auxiliary_dim
         self.sigma_min, self.sigma_max, self.sigma_data = sigma_min, sigma_max, sigma_data
+        self.pipeline = None  # a parallel.pipeline.PipelineSpec: the pipelined forward
+
+    def _model(self, arg, t, aux, **kwargs):
+        """The backbone on (arg, t, aux): its forward, or the pipelined one
+        when this precond carries a spec."""
+        if self.pipeline is None:
+            return self.model(arg, t, aux, **kwargs)
+        if kwargs:
+            raise ValueError(
+                "pipeline-parallel forward supports the plain prediction call only (got model "
+                f"kwargs {sorted(kwargs)}); use a non-pipelined precond for training/logvar "
+                "paths")
+        p = self.pipeline
+        return pipelined_swinv2_forward(self.model, arg, t, aux, mesh=p.mesh,
+                                        pipe_axis=p.pipe_axis, n_micro=p.n_micro,
+                                        data_axis=p.data_axis)
 
     def _check(self, x) -> None:
         if tuple(x.shape[1:3]) != self.img_resolution:
@@ -76,7 +100,7 @@ class PassPrecond(_Precond):
         self._check(x)
         aux = process_auxiliary(auxiliary, self.auxiliary_dim, x.shape[0], x.device)
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1)
-        return self.model(self._condition(x, condition), t, aux, **model_kwargs)
+        return self._model(self._condition(x, condition), t, aux, **model_kwargs)
 
 
 class EDMPrecond(_Precond):
@@ -98,6 +122,6 @@ class EDMPrecond(_Precond):
         c_out = sigma * self.sigma_data * torch.rsqrt(sigma ** 2 + sd2)
         c_in = torch.rsqrt(sd2 + sigma ** 2)
         c_noise = torch.log(sigma) / 4.0
-        F_x = self.model(self._condition(c_in * x, condition), c_noise.reshape(-1), aux,
-                         **model_kwargs)
+        F_x = self._model(self._condition(c_in * x, condition), c_noise.reshape(-1), aux,
+                          **model_kwargs)
         return c_skip * x + c_out * F_x

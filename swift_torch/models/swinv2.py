@@ -59,6 +59,14 @@ norms, embeddings and head are computed alike on every model rank. A block
 whose heads or hidden width do not divide runs replicated, with one log
 line.
 
+Pipeline parallelism (``pipe_stages`` > 1; the JAX model's ``stage``
+argument under ``parallel/pipeline.py``): ``forward(..., stage=...)`` runs
+the embeddings (``"embed"``: h and the fp32 conditioning vector), the
+model's blocks (``"pairs"``) or the output head (``"head"``), and a stage's
+model holds only its own block pairs. The three in turn are the whole
+forward, so the pipelined forward runs the same kernels at each
+microbatch's shapes.
+
 ``quant="int8"`` is the JAX model's dynamically quantized inference path
 (``generate --int8``): outside ``jvp`` the qkv projection is
 :func:`swift_torch.ops.quant.int8_matmul` rounded to ``dtype`` (a library
@@ -300,7 +308,11 @@ class SwinV2(nn.Module):
     forward-mode path and ``quant="int8"`` the int8 inference path;
     ``model_size`` > 1 builds this rank's (``model_rank`` of the ranks of
     ``model_group``) part of a tensor-parallel replica (see the module
-    docstring).
+    docstring); ``pipe_stages`` > 1 builds pipeline stage ``pipe_stage``:
+    the embeddings, the head and only the stage's pairs, blocks
+    ``[s·depth/S, (s+1)·depth/S)`` (``transformer.layers`` counts from 0
+    there; ``parallel.pipeline.stage_state_dict`` renames a whole state
+    dict's). ``stage`` runs one piece of the forward (:meth:`forward`).
     """
 
     def __init__(
@@ -325,6 +337,8 @@ class SwinV2(nn.Module):
         model_size: int = 1,
         model_rank: int = 0,
         model_group=None,
+        pipe_stages: int = 1,
+        pipe_stage: int = 0,
     ):
         super().__init__()
         H, W = _as_2tuple(img_resolution)
@@ -338,6 +352,13 @@ class SwinV2(nn.Module):
             raise ValueError(f"quant {quant!r}: None or 'int8'")
         if quant and model_size > 1:
             raise ValueError("the int8 forecast runs one replica a process (model_size 1)")
+        if pipe_stages > 1 and model_size > 1:
+            raise NotImplementedError("a model axis and a pipe axis together are not ported")
+        n_pairs = depth // 2
+        if pipe_stages < 1 or (pipe_stages > 1 and (depth % 2 or n_pairs % pipe_stages)):
+            raise ValueError(f"{n_pairs} block pairs do not split over {pipe_stages} stages")
+        if not 0 <= pipe_stage < pipe_stages:
+            raise ValueError(f"pipe stage {pipe_stage} of {pipe_stages}")
         self.quant = quant
         self.img_resolution = (H, W)
         self.patch_size = (ph, pw)
@@ -349,6 +370,10 @@ class SwinV2(nn.Module):
         self.timestep_weight = timestep_weight
         self.dtype = dtype
         self.remat_layers = remat_layers
+        # the blocks this model holds: all of them, or one pipeline stage's pairs
+        self.depth, self.pipe_stages, self.pipe_stage = depth, pipe_stages, pipe_stage
+        per_stage = depth // pipe_stages
+        self.first_layer = pipe_stage * per_stage
         head_dim = head_dim or dim // heads
         sh, sw = _as_2tuple(shift_size)
         gh, gw = self.grid_size
@@ -370,7 +395,7 @@ class SwinV2(nn.Module):
                                 (sh, sw) if (sh or sw) and i % 2 else (0, 0), quant=quant, **tp),
                 FeedForward(dim, hidden, quant=quant, **tp),
             ])
-            for i in range(depth)
+            for i in range(self.first_layer, self.first_layer + per_stage)
         )
         if model_size > 1 and model_rank == 0:
             whole = [f"{what} ({n})" for what, n, split in (
@@ -396,7 +421,9 @@ class SwinV2(nn.Module):
             h = ff(attn(h, cond), cond)
         return h
 
-    def forward(self, x, t, auxiliary=None, return_logvar: bool = False, jvp: bool = False):
+    def _embed(self, x, t, auxiliary) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, H, W, in_channels), t, auxiliary -> (h (B, gh, gw, dim) in
+        ``dtype``, the fp32 conditioning vector cond (B, dim))."""
         B = x.shape[0]
         H, W = self.img_resolution
         ph, pw = self.patch_size
@@ -404,7 +431,7 @@ class SwinV2(nn.Module):
         if tuple(x.shape[1:3]) != (H, W):
             raise ValueError(f"expected NHWC input {(H, W)}, got {tuple(x.shape)}")
         dt = self.dtype
-        if self.lat_pad:  # edge rows toward the pole, cropped from the output below
+        if self.lat_pad:  # edge rows toward the pole, cropped from the output by head
             x = torch.cat([x, x[:, -1:].expand(B, self.lat_pad, W, x.shape[-1])], dim=1)
 
         # patch embedding, (p1, p2, c) feature order as the reference
@@ -420,8 +447,12 @@ class SwinV2(nn.Module):
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1)
         if t.shape[0] != B:
             t = t.expand(B)
-        cond = self._condition(t, auxiliary)
-        cond_c = cond.to(dt)
+        return h, self._condition(t, auxiliary)
+
+    def _pairs(self, h: torch.Tensor, cond: torch.Tensor, jvp: bool) -> torch.Tensor:
+        """This model's blocks (every block, or a pipeline stage's pairs) on
+        h under the fp32 cond."""
+        cond_c = cond.to(self.dtype)
         layers = self.transformer.layers
         if self.remat_layers and not jvp and torch.is_grad_enabled() and len(layers) % 2 == 0:
             for j in range(0, len(layers), 2):
@@ -433,9 +464,17 @@ class SwinV2(nn.Module):
         else:
             for attn, ff in layers:
                 h = ff(attn(h, cond_c, jvp), cond_c, jvp)
+        return h
 
+    def _head(self, h: torch.Tensor, cond: torch.Tensor, return_logvar: bool):
+        """The output head on h, cropped to the latitude, in fp32 (and the
+        logvar head on cond)."""
+        B = h.shape[0]
+        H, W = self.img_resolution
+        ph, pw = self.patch_size
+        gh, gw = self.grid_size
         # output head, (c, p1, p2) feature order as the reference
-        o = F.linear(h, self.head.head[0].weight.to(dt))
+        o = F.linear(h, self.head.head[0].weight.to(self.dtype))
         o = o.reshape(B, gh, gw, self.out_channels, ph, pw).permute(0, 1, 4, 2, 5, 3)
         o = o.reshape(B, gh * ph, W, self.out_channels)[:, :H].float()
         if return_logvar:
@@ -443,3 +482,22 @@ class SwinV2(nn.Module):
                 raise ValueError("return_logvar needs a model built with logvar=True")
             return o, self.logvar_embed(cond).squeeze(-1)
         return o
+
+    def forward(self, x, t, auxiliary=None, return_logvar: bool = False, jvp: bool = False,
+                stage: Optional[str] = None):
+        """The whole forward (``stage`` None), or one of the three pieces
+        the pipeline schedules (the JAX model's ``stage``): ``"embed"``
+        returns (h, cond) of (x, t, auxiliary); ``"pairs"`` reads (x, t) as
+        (h, cond) and returns h after this model's blocks; ``"head"`` reads
+        them so and returns the output (and logvar). embed, pairs, head in
+        turn are the whole forward, operation for operation."""
+        if stage == "embed":
+            return self._embed(x, t, auxiliary)
+        if stage == "pairs":
+            return self._pairs(x, t, jvp)
+        if stage == "head":
+            return self._head(x, t, return_logvar)
+        if stage is not None:
+            raise ValueError(f"stage {stage!r}: None, 'embed', 'pairs' or 'head'")
+        h, cond = self._embed(x, t, auxiliary)
+        return self._head(self._pairs(h, cond, jvp), cond, return_logvar)

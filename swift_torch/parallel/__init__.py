@@ -1,8 +1,11 @@
-"""Parallelism of the port: data and tensor parallelism over processes
-(``mesh``: the process group, the data × model layout and the bucketed
-collectives; ``sharding``: which weights split over the model axis;
-``tensor``: the collectives autograd sees). Pipeline parallelism is not
-ported (``mesh.check_mesh`` refuses it)."""
+"""Parallelism of the port: data, tensor and pipeline parallelism over
+processes (``mesh``: the process group, the data × model and data × pipe
+layouts and the bucketed collectives; ``sharding``: which weights split
+over the model axis; ``tensor``: the collectives autograd sees;
+``pipeline``: pipeline-parallel prediction, the pair stack's stages on the
+ranks of a data row, handing (h, cond) on by a ``broadcast`` over each
+two-rank edge group). A model axis beside a pipe axis is not ported
+(``mesh.check_mesh`` refuses it)."""
 
 from swift_torch.parallel.mesh import (
     Layout,

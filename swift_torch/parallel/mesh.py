@@ -1,4 +1,5 @@
-"""The port's multi-process runtime: data and tensor parallelism over processes.
+"""The port's multi-process runtime: data, tensor and pipeline parallelism
+over processes.
 
 Counterpart of ``swift_tpu/parallel/mesh.py``. The JAX package shards the
 global batch over a ``data`` mesh axis and lets XLA insert the gradient
@@ -22,7 +23,8 @@ CUDA and ``gloo`` for the CPU unless ``SWIFT_DIST_BACKEND`` names one;
 ``SWIFT_SHARE_DEVICE=1`` lets more ranks than cards share them
 (``utils.device.resolve_device``), which needs ``gloo``: NCCL refuses two
 ranks on one device. Only ``all_reduce``, ``broadcast`` and ``barrier`` are
-used, the collectives both backends run on CUDA tensors.
+used, the collectives both backends run on CUDA tensors; the pipeline's
+stage-to-stage transfers are broadcasts over two-rank groups.
 
 Tensor parallelism (``system.mesh`` axes ``[data, model]``, the JAX
 package's ``make_mesh`` order: ``model`` varies fastest, so rank = data
@@ -33,6 +35,14 @@ column (the ranks that hold the same shards of different batch rows,
 :func:`data_group`). Without it every rank is a data rank. The batch goes
 by the data index (:func:`data_rank`, :func:`rank_rows`); the model ranks
 of a row load the same rows and draw the same noise.
+
+Pipeline parallelism (axes ``[data, pipe]``, ``make_mesh(("data",
+"pipe"), (-1, S))``'s order: rank = data index × S + stage) lays the ranks
+out alike: a data row's S ranks are one replica's stages
+(``Layout.pipe_group``; ``Layout.prev_group`` and ``next_group``, the
+two-rank groups of the edges to the neighbouring stages, carry
+``parallel.pipeline``'s transfers), a pipe column the data ranks of one
+stage. A model axis and a pipe axis together are not ported.
 """
 
 from __future__ import annotations
@@ -108,79 +118,116 @@ def local_world_size() -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """The data × model rank layout: this rank's indices on both axes and
-    their process groups. ``data_group`` None is every rank (no model
-    axis); ``model_group`` None means the model axis has size 1 and no
-    collective runs over it."""
+    """The data × model (or data × pipe) rank layout: this rank's indices on
+    the axes and their process groups. ``data_group`` None is every rank
+    (no model or pipe axis); ``model_group`` None means the model axis has
+    size 1 and no collective runs over it. Under a pipe axis
+    ``pipe_group`` holds the stages of this rank's replica, and
+    ``prev_group``/``next_group`` this stage and the one before/after it
+    (None at the first/last stage)."""
     data: int
     model: int
     data_rank: int
     model_rank: int
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: Optional[object] = None
+    prev_group: Optional[object] = None
+    next_group: Optional[object] = None
 
 
 _LAYOUT: Optional[Layout] = None
-_GROUPS: dict = {}  # model size -> (the data rows' groups, the model columns'), made once
+# an inner axis's size -> (the data rows' groups, the columns'), and
+# ("edges", S) -> each row's groups of stages (s, s + 1); made once
+_GROUPS: dict = {}
 
 
-def mesh_sizes(cfg: dict, world: int) -> tuple[int, int]:
-    """(data, model) sizes of ``system.mesh`` over ``world`` ranks; -1 is
-    the ranks that remain. Refuses a pipe axis (:func:`check_mesh`) and
-    sizes that do not multiply to the world."""
+def mesh_sizes(cfg: dict, world: int) -> tuple[int, int, int]:
+    """(data, model, pipe) sizes of ``system.mesh`` over ``world`` ranks;
+    -1 is the ranks that remain. Refuses a model axis beside a pipe axis
+    (:func:`check_mesh`) and sizes that do not multiply to the world."""
     check_mesh(cfg)
     axes, sizes = _mesh(cfg)
     if any(a not in ("data", "model", "pipe") for a in axes) or len(sizes) != len(axes):
-        raise ValueError(f"system.mesh: axes {axes}, sizes {sizes}; the port knows the data "
-                         "and model axes")
+        raise ValueError(f"system.mesh: axes {axes}, sizes {sizes}; the port knows the data, "
+                         "model and pipe axes")
     if sizes.count(-1) > 1:
         raise ValueError(f"system.mesh sizes {sizes}: at most one -1")
     fixed = 1
     for s in sizes:
         fixed *= 1 if s == -1 else s
     got = dict(zip(axes, (world // fixed if s == -1 else s for s in sizes)))
-    data, model = got.get("data", 1), got.get("model", 1)
-    if data < 1 or data * model != world:
+    data, model, pipe = got.get("data", 1), got.get("model", 1), got.get("pipe", 1)
+    if min(data, model, pipe) < 1 or data * model * pipe != world:
         raise ValueError(f"system.mesh (axes {axes}, sizes {sizes}) does not fit {world} "
                          "rank(s)")
-    return data, model
+    return data, model, pipe
 
 
-def _groups(model: int):
-    """Every data row's and every model column's process group, made by
-    every rank in one order (``dist.new_group`` is collective)."""
-    if model not in _GROUPS:
+def _groups(inner: int):
+    """Every data row's and every column's process group for an inner
+    (model or pipe) axis of ``inner`` ranks, made by every rank in one
+    order (``dist.new_group`` is collective)."""
+    if inner not in _GROUPS:
         world = world_size()
-        rows = [dist.new_group(list(range(d * model, (d + 1) * model)))
-                for d in range(world // model)]
-        cols = [dist.new_group(list(range(m, world, model))) for m in range(model)]
-        _GROUPS[model] = rows, cols
-    return _GROUPS[model]
+        rows = [dist.new_group(list(range(d * inner, (d + 1) * inner)))
+                for d in range(world // inner)]
+        cols = [dist.new_group(list(range(m, world, inner))) for m in range(inner)]
+        _GROUPS[inner] = rows, cols
+    return _GROUPS[inner]
 
 
-def init_layout(model: int = 1) -> Layout:
-    """Set this process's layout: ``model`` ranks a replica (consecutive
-    ranks), the world over ``model`` the data size. ``model`` 1 is data
+def _edges(stages: int):
+    """Each data row's two-rank groups of stages (s, s + 1): the row's own
+    group for two stages, else new groups, made by every rank in one
+    order."""
+    key = ("edges", stages)
+    if key not in _GROUPS:
+        rows, _ = _groups(stages)
+        if stages == 2:
+            _GROUPS[key] = [[row] for row in rows]
+        else:
+            _GROUPS[key] = [[dist.new_group([d * stages + s, d * stages + s + 1])
+                             for s in range(stages - 1)] for d in range(len(rows))]
+    return _GROUPS[key]
+
+
+def init_layout(model: int = 1, pipe: int = 1) -> Layout:
+    """Set this process's layout: ``model`` (or ``pipe``) consecutive ranks
+    a replica, the world over that the data size. Both 1 is data
     parallelism over every rank and makes no group; any other size makes
     the groups of every row and column (a collective: every rank calls it
-    with the same size)."""
+    with the same sizes). A model and a pipe axis together raise."""
     global _LAYOUT
     world, r = world_size(), rank()
-    if model < 1 or world % model:
-        raise ValueError(f"a model axis of {model} does not divide {world} rank(s)")
-    if model == 1:
+    if model > 1 and pipe > 1:
+        raise NotImplementedError("a model axis and a pipe axis together are not ported (the "
+                                  f"mesh asks for model {model} x pipe {pipe})")
+    for axis, n in (("model", model), ("pipe", pipe)):
+        if n < 1 or world % n:
+            raise ValueError(f"a {axis} axis of {n} does not divide {world} rank(s)")
+    if model == 1 and pipe == 1:
         _LAYOUT = Layout(world, 1, r, 0)
-    else:
+    elif model > 1:
         rows, cols = _groups(model)
         data = world // model
         _LAYOUT = Layout(data, model, r // model, r % model, cols[r % model], rows[r // model])
+    else:
+        rows, cols = _groups(pipe)
+        edges = _edges(pipe)[r // pipe]
+        s = r % pipe
+        _LAYOUT = Layout(world // pipe, 1, r // pipe, 0, cols[s], pipe=pipe, pipe_rank=s,
+                         pipe_group=rows[r // pipe], prev_group=edges[s - 1] if s else None,
+                         next_group=edges[s] if s < pipe - 1 else None)
     return _LAYOUT
 
 
 def layout() -> Layout:
     """The layout :func:`init_layout` set, else data parallelism over every
     rank."""
-    if _LAYOUT is None or _LAYOUT.data * _LAYOUT.model != world_size():
+    if _LAYOUT is None or _LAYOUT.data * _LAYOUT.model * _LAYOUT.pipe != world_size():
         return Layout(world_size(), 1, rank(), 0)
     return _LAYOUT
 
@@ -194,16 +241,16 @@ def data_size() -> int:
 
 
 def data_group():
-    """The ranks that hold this rank's shards (None: every rank, when there
-    is no model axis)."""
+    """The ranks that hold this rank's shards or stage (None: every rank,
+    when there is no model or pipe axis)."""
     return layout().data_group
 
 
 def rank_rows(n_local: int) -> slice:
     """This rank's rows of a global batch of ``data_size() * n_local``
     rows: the global batch is the data ranks' local batches concatenated in
-    data-rank order (the JAX package's ``shard_batch``); the model ranks of
-    a row hold the same rows."""
+    data-rank order (the JAX package's ``shard_batch``); the model (or
+    pipe) ranks of a row hold the same rows."""
     r = data_rank()
     return slice(r * n_local, (r + 1) * n_local)
 
@@ -317,13 +364,13 @@ def _mesh(cfg: dict) -> tuple[list, list]:
 
 
 def check_mesh(cfg: dict) -> None:
-    """Refuse a config whose ``system.mesh`` asks for pipeline parallelism
-    (a ``pipe`` axis of another size than 1; -1, the remaining devices,
-    counts as more): the next slice of the port. Data and model axes
-    pass."""
+    """Refuse a config whose ``system.mesh`` asks for a model axis and a
+    pipe axis together (each of another size than 1; -1, the remaining
+    devices, counts as more): tensor within pipeline parallelism is not
+    ported. Data, model and pipe axes each pass."""
     axes, sizes = _mesh(cfg)
-    if any(a == "pipe" and s != 1 for a, s in zip(axes, sizes)):
+    big = {a for a, s in zip(axes, sizes) if s != 1}
+    if {"model", "pipe"} <= big:
         raise NotImplementedError(
-            f"pipeline parallelism is not ported yet (the next slice of the port): "
-            f"system.mesh asks for a pipe axis (axes {axes}, sizes {sizes}); the port runs "
-            "data and tensor parallelism (axes data and model)")
+            f"system.mesh asks for a model axis and a pipe axis together (axes {axes}, sizes "
+            f"{sizes}): not ported; the port runs data x model or data x pipe")

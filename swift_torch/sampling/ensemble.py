@@ -14,7 +14,9 @@ contiguous block of whole members, ceil(M / world) of them: the member
 count is padded to a multiple of the world size by repeating members (pad
 member j is member j mod M, the JAX engine's ``arange(pad) % MB``) and the
 pad is dropped at flush. A zarr chunk holds one member (``utils.io``), so
-no chunk has two writers. The JAX engine splits the (member × IC) rows over
+no chunk has two writers. Under a pipe axis the members go by the data
+index: the stage ranks of a data row roll out the same members together
+(``parallel.pipeline``) and only the first stage writes them. The JAX engine splits the (member × IC) rows over
 devices instead, and falls back to latitude sharding; the port shards
 members only.
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from swift_torch.data.standardize import Standardizer
-from swift_torch.parallel.mesh import data_rank, data_size
+from swift_torch.parallel.mesh import data_rank, data_size, layout
 from swift_torch.utils.device import resolve_device
 
 
@@ -94,6 +96,7 @@ class EnsembleRollout:
         self.base_seed = base_seed
         self.residual = bool(getattr(dataset, "residual", False))
         self.block = member_block(members, data_rank(), data_size())
+        self.writes = layout().pipe_rank == 0  # a data row's first stage writes its members
 
     def generator(self, ic_start: int, step: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -115,7 +118,8 @@ class EnsembleRollout:
         """X0: (B, H, W, C) standardized; forcings: (B, steps, H, W, F) std."""
         B = X0.shape[0]
         M, delta = self.members, self.interval
-        own = [int(m) for m in self.block if m < M]  # the members this rank writes
+        # the members this rank writes
+        own = [int(m) for m in self.block if m < M] if self.writes else []
         Ml = len(self.block)
         # this rank's rows of the whole (M·B) batch's draws, pad members on
         # their member's rows

@@ -43,8 +43,14 @@ noise, and the data ranks average their gradients as above. The network is
 built (and converted or loaded) in one process's layout and then sliced;
 checkpoints are gathered back into that layout, so a run resumes and
 forecasts (``generate``) on any layout. ``system=...`` given with
-``resume=`` sets the resumed run's layout. A ``pipe`` axis raises: pipeline
-parallelism is not ported yet.
+``resume=`` sets the resumed run's layout.
+
+A pipe axis (``system=tpu-pp``: axes ``[data, pipe]``, sizes ``[-1, 2]``)
+trains as the JAX package's ``train.py:157-183`` does: not pipelined. The
+stage ranks of a data row hold the whole network, load the same rows and
+take the same step, and the data ranks average their gradients; the saved
+config keeps ``system.mesh``, from which ``generate`` takes the pipe axis.
+A model axis beside a pipe axis raises.
 """
 
 from __future__ import annotations
@@ -198,7 +204,7 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
     maybe_initialize_distributed(device_name)
     device = resolve_device(device_name)
     cfg = cfglib.compose("train", overrides)
-    mesh_sizes(cfg, world_size())  # a pipe axis, or sizes that do not fit, raise here
+    mesh_sizes(cfg, world_size())  # model beside pipe, or sizes that do not fit, raise here
     build_kernels_first(device)
 
     run_id = launch_run_id()
@@ -212,7 +218,8 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
     cfg, ckpt = resume_setup(cfg, run_dir)
     if ckpt is not None and any(ov.startswith("system=") for ov in overrides):
         cfg["system"] = system  # this invocation's layout over the resumed run's
-    lay = init_layout(mesh_sizes(cfg, world_size())[1])
+    _, model, pipe = mesh_sizes(cfg, world_size())
+    lay = init_layout(model, pipe)
     world = lay.data
     if ckpt is not None:
         # explicit CLI value overrides still win on top of the resumed config
@@ -308,6 +315,12 @@ def setup(argv, dataset=None) -> tuple[Trainer, BatchLoader, dict]:
         log0(f"Tensor parallel over {lay.model} ranks a replica ({world} replicas): "
              f"{len(shards)} weights split, the other {len(trainer.params) - len(shards)} "
              "parameters replicated and alike")
+    if lay.pipe > 1:  # the JAX package's train: the stage ranks repeat the step
+        state = replicated_state(trainer)
+        broadcast_from_rank0(state, lay.pipe_group)
+        check_replica_consistency(state, "parameters, EMA and optimizer state", lay.pipe_group)
+        log0(f"Pipe axis of {lay.pipe} ranks a replica ({world} replicas): training is not "
+             "pipelined; the stage ranks of a replica take the same step")
     return trainer, loader, cfg
 
 

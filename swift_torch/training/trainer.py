@@ -51,6 +51,12 @@ the slices as they are, and Muon and MARS gather the slices where a whole
 matrix is needed (``optimizers.muon``, ``optimizers.mars``). A checkpoint is gathered
 over the model group into one process's layout (rank 0 writes it), and a
 resume on any layout slices it.
+
+Under a pipe axis (``system=tpu-pp``) training is not pipelined, as the JAX
+package's ``train`` does not pipeline it: every stage rank of a data row
+holds the whole network, loads the same rows and takes the same step, the
+gradients averaged over the data group; a stop request is summed over the
+pipe group too.
 """
 
 from __future__ import annotations
@@ -388,11 +394,13 @@ class Trainer:
             if p.grad is None:  # not reached by the loss (a multistep loss's logvar head)
                 p.grad = torch.zeros_like(p)
         lay = self.layout
-        many = lay.data * lay.model > 1
+        many = lay.data * lay.model * lay.pipe > 1
         stop = torch.full((1,), float(self.stop_requested), device=self.device)
         if lay.model > 1:  # the slices' shares of the per-head scales, and the stop request
             all_reduce_sum([self.params[n].grad for n in self.sliced] + [stop],
                            lay.model_group)
+        if lay.pipe > 1:  # the stage ranks of a row take the same step: the stop request
+            all_reduce_sum([stop], lay.pipe_group)
         all_reduce_mean([p.grad for p in params] + ([stop] if lay.data > 1 else []),
                         lay.data_group)
         clamp_grads(params)

@@ -33,7 +33,9 @@
   (both log one mean).
 * ``train`` and ``generate`` accept a ``model`` mesh axis (``system=tpu-tp``:
   ``train`` sets up on two ranks, ``generate`` forecasts the run on one)
-  and refuse a ``pipe`` axis; the new modules load no JAX.
+  and a ``pipe`` axis (``system=tpu-pp``: ``train`` sets up on two ranks;
+  ``generate`` refuses the run's two stages on one process unless ``--pp
+  1`` turns them off); the new modules load no JAX.
 
 Each launch of two processes has its own timeout.
 """
@@ -472,10 +474,12 @@ def test_validate_two_ranks_log_one_mean(dp_run):
 
 @pytest.mark.parametrize("system", ["tpu-tp", "tpu-pp"])
 def test_tensor_and_pipeline_parallelism_refused(dp_run, system, monkeypatch):
-    """Pipeline parallelism is refused by ``train`` and ``generate``, with a
-    message naming the next slice; tensor parallelism is accepted: ``train``
-    sets up on two ranks (a dry run) and ``generate`` forecasts the run,
-    data-parallel, with its ``model`` axis ignored."""
+    """Neither axis is refused by ``train``: it sets up on two ranks (a dry
+    run), the model ranks splitting a replica or the stage ranks repeating
+    its step (the JAX package does not pipeline training). ``generate``
+    forecasts a ``tpu-tp`` run on one process, data-parallel with its
+    ``model`` axis ignored; a ``tpu-pp`` run's two stages need two ranks, so
+    one process refuses them unless ``--pp 1`` turns them off."""
     work, data, run, _ = dp_run
     monkeypatch.chdir(work)
     monkeypatch.setenv("SWIFT_SYNTH_ROOT", data)
@@ -485,24 +489,25 @@ def test_tensor_and_pipeline_parallelism_refused(dp_run, system, monkeypatch):
     saved = work / f"run-{system}"
     train.cfglib.save_config(cfg, saved / ".hydra" / "config.yaml")
     argv = ["--input", str(saved), "--device", "cpu"]
-    if system == "tpu-pp":
-        refusal = "pipeline parallelism is not ported yet \\(the next slice of the port\\)"
-        with pytest.raises(NotImplementedError, match=refusal):
-            train.setup(["experiment=synthetic-tiny-scm", f"system={system}", "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match=refusal):
-            generate.cli(argv)
-        return
     outs = _two_ranks([sys.executable, "-m", "swift_torch.train", "experiment=synthetic-tiny-scm",
                        f"system={system}", "dry_run=true", "--device", "cpu"], cwd=str(work),
                       SWIFT_SYNTH_ROOT=data)
-    assert "Tensor parallel over 2 ranks a replica (1 replicas)" in outs[0]
+    if system == "tpu-tp":
+        assert "Tensor parallel over 2 ranks a replica (1 replicas)" in outs[0]
+    else:
+        assert "Pipe axis of 2 ranks a replica (1 replicas)" in outs[0]
     assert "Dry run requested" in outs[0]
     os.makedirs(saved / "checkpoints")
     for ckpt in glob.glob(str(run / "checkpoints" / "*.npz")):
         os.symlink(ckpt, saved / "checkpoints" / os.path.basename(ckpt))
-    store = generate.cli(argv + ["--members", "1", "--steps", "2", "--batch", "1", "--samples",
-                                 "1", "--segment", "1", "--solver", "scm",
-                                 "--num-solver-steps", "1", "--output", str(work / "tp-store")])
+    rollout = ["--members", "1", "--steps", "2", "--batch", "1", "--samples", "1", "--segment",
+               "1", "--solver", "scm", "--num-solver-steps", "1", "--output",
+               str(work / f"{system}-store")]
+    if system == "tpu-pp":
+        with pytest.raises(ValueError, match="2 pipeline stages need a multiple of 2 ranks"):
+            generate.cli(argv + rollout)
+        rollout += ["--pp", "1"]
+    store = generate.cli(argv + rollout)
     assert all(np.isfinite(v).all() for v in generate.read_store(store).values())
 
 
